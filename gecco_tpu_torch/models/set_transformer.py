@@ -1,0 +1,255 @@
+"""Induced set attention transformer (counterpart of
+``gecco_tpu/models/set_transformer.py``, inference only).
+
+Two execution strategies compute the same function:
+
+- ``attn_impl="xla"`` (the JAX package's name for its plain path): per-head
+  attention through ``rect_attention`` and the modules as written;
+- ``attn_impl="folded_pallas"``: each layer runs the four fused functions of
+  ``gecco_tpu_torch.ops.kernels`` (pool, h-side, unpool, MLP) with the
+  statistics chain: every pre-norm takes its GroupNorm statistics from the
+  channel sums that the previous fused function emitted for its output.
+  On CUDA tensors these are the Hopper kernels; on CPU tensors their plain
+  versions.
+
+The JAX package stacks the layers and scans over them; here they are an
+``nn.ModuleList`` walked by a Python loop. The cached-inducer upsampling
+path (``hs`` / ``return_h``) and ``ref_jax_compat`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from gecco_tpu_torch.models.activation import GaussianActivation
+from gecco_tpu_torch.models.mlp import MLP
+from gecco_tpu_torch.models.normalization import AdaGN
+from gecco_tpu_torch.ops.attention import rect_attention
+from gecco_tpu_torch.ops.kernels import (
+    folded_pool_ext,
+    folded_unpool,
+    fused_h_side,
+    fused_mlp_residual,
+)
+from gecco_tpu_torch.ops.kernels.folded_attention import group_indicator
+from gecco_tpu_torch.utils.modules import Linear, resolve_device
+
+__all__ = ["AttentionPool", "Unpool", "Broadcast", "BroadcastingLayer", "SetTransformer"]
+
+ATTN_IMPLS = ("xla", "folded_pallas")
+
+
+def _fold_mlp_operands(mlp: MLP, dt) -> tuple:
+    """Alpha (and the normalized-activation affine) folded into a 2-layer
+    MLP's weights: ``(w1t [C, W] dt, b1 [1, W] fp32, w2t [W, C] dt,
+    b2 [1, C] fp32)``, the operands of the fused MLP and h-side."""
+    w1, w2 = mlp.layers
+    alpha = mlp.activation.alpha.float()
+    w1t = (w1.weight.float() / alpha).T.to(dt).contiguous()
+    b1 = (w1.bias.float() / alpha)[None]
+    w2t = w2.weight.float().T
+    b2 = w2.bias.float()[None]
+    if mlp.activation.normalized:
+        # fold (g - 0.7) / 0.28 into the second projection
+        b2 = b2 - (0.7 / 0.28) * w2t.sum(0, keepdim=True)
+        w2t = w2t / 0.28
+    return w1t, b1.contiguous(), w2t.to(dt).contiguous(), b2.contiguous()
+
+
+def _mlp_fusable(mlp: MLP) -> bool:
+    """Whether an MLP matches the fused functions' operand convention."""
+    return (
+        len(mlp.layers) == 2
+        and isinstance(mlp.activation, GaussianActivation)
+        and all(layer.bias is not None for layer in mlp.layers)
+    )
+
+
+def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    b, n, c = x.shape  # [B, N, C] -> [B, H, N, D]
+    return x.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, n, d = x.shape  # [B, H, N, D] -> [B, N, H*D]
+    return x.transpose(1, 2).reshape(b, n, h * d)
+
+
+class AttentionPool(nn.Module):
+    """Cross-attention from learnable inducer queries [H, I, D] to the set."""
+
+    def __init__(self, feature_dim, num_heads, num_inducers, *, device=None, generator=None):
+        super().__init__()
+        if feature_dim % num_heads:
+            raise ValueError(f"feature_dim {feature_dim} not divisible by {num_heads} heads")
+        dev = resolve_device(device)
+        shape = (num_heads, num_inducers, feature_dim // num_heads)
+        self.inducers = nn.Parameter(torch.randn(shape, generator=generator).to(dev))
+        self.kv_proj = Linear(feature_dim, 2 * feature_dim, bias=False, device=dev, generator=generator)
+        self.out_proj = Linear(feature_dim, feature_dim, bias=False, device=dev, generator=generator)
+        self.num_heads = num_heads
+
+    def forward(self, kv: torch.Tensor) -> torch.Tensor:  # [B, N, C] -> [B, I, C]
+        k, v = self.kv_proj(kv).chunk(2, dim=-1)
+        q = self.inducers.to(kv.dtype)[None].expand(kv.shape[0], -1, -1, -1)
+        attn = rect_attention(q, _split_heads(k, self.num_heads), _split_heads(v, self.num_heads))
+        return self.out_proj(_merge_heads(attn))
+
+
+class Unpool(nn.Module):
+    """Multi-head cross-attention: set queries against inducer keys/values."""
+
+    def __init__(self, feature_dim, num_heads, *, device=None, generator=None):
+        super().__init__()
+        if feature_dim % num_heads:
+            raise ValueError(f"feature_dim {feature_dim} not divisible by {num_heads} heads")
+        lin = lambda: Linear(feature_dim, feature_dim, bias=False, device=device, generator=generator)
+        self.q_proj, self.k_proj, self.v_proj, self.out_proj = lin(), lin(), lin(), lin()
+        self.num_heads = num_heads
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        q = _split_heads(self.q_proj(x), self.num_heads)
+        k = _split_heads(self.k_proj(h), self.num_heads)
+        v = _split_heads(self.v_proj(h), self.num_heads)
+        return self.out_proj(_merge_heads(rect_attention(q, k, v)))
+
+
+class Broadcast(nn.Module):
+    """pool -> AdaGN -> MLP -> AdaGN -> unpool."""
+
+    def __init__(self, feature_dim, num_inducers, embed_dim, num_heads=8, mlp_blowup=2,
+                 *, device=None, generator=None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.pool = AttentionPool(feature_dim, num_heads, num_inducers, **kw)
+        self.norm_1 = AdaGN(feature_dim, embed_dim, **kw)
+        self.mlp = MLP(feature_dim, feature_dim, mlp_blowup * feature_dim, **kw)
+        self.norm_2 = AdaGN(feature_dim, embed_dim, **kw)
+        self.unpool = Unpool(feature_dim, num_heads, **kw)
+
+    def forward(self, x, embed):
+        h = self.norm_2(self.mlp(self.norm_1(self.pool(x), embed)), embed)
+        return self.unpool(x, h), h
+
+
+class BroadcastingLayer(nn.Module):
+    """Pre-norm residual transformer layer built on Broadcast."""
+
+    def __init__(self, feature_dim, num_inducers, embed_dim, num_heads=8, mlp_blowup=2,
+                 skip_scale=0.1, *, device=None, generator=None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.broadcast = Broadcast(feature_dim, num_inducers, embed_dim, num_heads, mlp_blowup, **kw)
+        self.mlp = MLP(feature_dim, feature_dim, mlp_blowup * feature_dim, **kw)
+        self.broadcast_norm = AdaGN(feature_dim, embed_dim, **kw)
+        self.mlp_norm = AdaGN(feature_dim, embed_dim, **kw)
+        if skip_scale != 1.0:
+            # damp the residual branches at init
+            with torch.no_grad():
+                self.broadcast.unpool.out_proj.weight.mul_(skip_scale)
+                self.mlp.layers[-1].weight.mul_(skip_scale)
+
+    def forward(self, x, embed, attn_impl="xla", in_sums: Optional[torch.Tensor] = None):
+        """-> (x, h, out_sums). ``in_sums`` [B, 2, C] fp32 are the channel
+        sums of ``x`` for the fused path (computed here when absent);
+        ``out_sums`` those of the output, or None on the plain path."""
+        if attn_impl == "folded_pallas":
+            return self._fused_call(x, embed, in_sums)
+        x_b, h = self.broadcast(self.broadcast_norm(x, embed), embed)
+        x = x + x_b
+        return x + self.mlp(self.mlp_norm(x, embed)), h, None
+
+    def _fused_call(self, x, embed, in_sums):
+        """The layer through the four fused functions: pool (pre-norm
+        inline), h-side, unpool (+ residual + output sums), MLP (+ residual
+        + output sums). Same function as the plain path."""
+        b, n, c = x.shape
+        dt = x.dtype
+        bc = self.broadcast
+        num_heads = bc.unpool.num_heads
+        embed_f = embed.float()
+        if in_sums is None:
+            xf = x.float()
+            in_sums = torch.stack([xf.sum(1), (xf * xf).sum(1)], dim=1)
+
+        ind2 = bc.pool.inducers.reshape(-1, c // num_heads).to(dt)
+        se1, be1 = self.broadcast_norm.scale_bias_from_sums(in_sums, n, embed)
+        h0 = folded_pool_ext(
+            x, se1, be1, ind2, bc.pool.kv_proj.weight.to(dt), bc.pool.out_proj.weight.to(dt),
+            num_heads,
+        )
+        h, k, v = fused_h_side(
+            h0,
+            bc.norm_1.scale_linear(embed_f), bc.norm_1.bias_linear(embed_f),
+            bc.norm_2.scale_linear(embed_f), bc.norm_2.bias_linear(embed_f),
+            group_indicator(c, bc.norm_1.num_groups, x.device),
+            *_fold_mlp_operands(bc.mlp, dt),
+            bc.unpool.k_proj.weight.to(dt), bc.unpool.v_proj.weight.to(dt),
+        )
+        x, sums = folded_unpool(
+            x, se1, be1, k, v, bc.unpool.q_proj.weight.to(dt), bc.unpool.out_proj.weight.to(dt),
+            num_heads,
+        )
+        se2, be2 = self.mlp_norm.scale_bias_from_sums(sums, n, embed)
+        x, out_sums = fused_mlp_residual(x, se2, be2, *_fold_mlp_operands(self.mlp, dt))
+        return x, h, out_sums
+
+
+class SetTransformer(nn.Module):
+    """A stack of broadcasting layers: ``(features [B, N, C], embed [B, E])
+    -> [B, N, C]``, computed in ``compute_dtype``."""
+
+    def __init__(self, n_layers, feature_dim, num_inducers, embed_dim, num_heads=8, mlp_blowup=2,
+                 skip_scale=0.1, compute_dtype=torch.bfloat16, attn_impl="xla",
+                 *, device=None, generator=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            BroadcastingLayer(feature_dim, num_inducers, embed_dim, num_heads, mlp_blowup,
+                              skip_scale, device=device, generator=generator)
+            for _ in range(n_layers)
+        )
+        self.compute_dtype = compute_dtype
+        self.attn_impl = attn_impl
+
+    @property
+    def attn_impl(self) -> str:
+        return self._attn_impl
+
+    @attn_impl.setter
+    def attn_impl(self, value: str) -> None:
+        if value not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {value!r}")
+        if value == "folded_pallas":
+            for layer in self.layers:
+                norms = (layer.broadcast_norm, layer.mlp_norm, layer.broadcast.norm_1,
+                         layer.broadcast.norm_2)
+                if not (_mlp_fusable(layer.mlp) and _mlp_fusable(layer.broadcast.mlp)
+                        and all(isinstance(m, AdaGN) for m in norms)
+                        and layer.broadcast.norm_1.num_groups == layer.broadcast.norm_2.num_groups):
+                    raise ValueError("folded_pallas needs fusable MLPs and AdaGN norms")
+        self._attn_impl = value
+
+    def forward(self, features, embed, in_sums=None, with_sums=False):
+        """``in_sums`` ([B, 2, C] fp32, optional): channel sums of
+        ``features``, seeding the fused path's statistics chain.
+        ``with_sums=True`` also returns the output's channel sums (None on
+        the plain path)."""
+        in_dtype = features.dtype
+        x = features.to(self.compute_dtype)
+        # the embed (sigma itself, up to sigma_max) is rounded to the compute
+        # dtype before the AdaGN linears, as in the JAX package
+        embed = embed.to(self.compute_dtype)
+        sums = None
+        if self.attn_impl == "folded_pallas":
+            if in_sums is not None:
+                sums = in_sums.float()
+            else:
+                xf = x.float()
+                sums = torch.stack([xf.sum(1), (xf * xf).sum(1)], dim=1)
+        for layer in self.layers:
+            x, _, sums = layer(x, embed, self.attn_impl, in_sums=sums)
+        x = x.to(in_dtype)
+        return (x, sums) if with_sums else x

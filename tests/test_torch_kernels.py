@@ -1,0 +1,165 @@
+"""The port's fused functions against the JAX package's, on the CPU.
+
+On CPU tensors each wrapper of ``gecco_tpu_torch.ops.kernels`` runs its
+plain version; it is held here against the JAX op (its Pallas kernel in
+interpret mode) and against the JAX XLA twin, in fp32 at the JAX tests' own
+tolerance (rtol 1e-4, atol 1e-5). The Hopper kernels themselves run only on
+the card, where ``chip_smoke.py`` holds each against its plain version.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gecco_tpu.ops.pallas import folded_attention as jfa
+from gecco_tpu.ops.pallas import hside as jhs
+from gecco_tpu_torch.ops import kernels
+from gecco_tpu_torch.ops.kernels import folded_attention as tfa
+from gecco_tpu_torch.ops.kernels import hside as ths
+
+RTOL, ATOL = 1e-4, 1e-5
+C, HEADS, I, B, N = 64, 4, 16, 2, 256
+# per-head scales of the drift case: head 0's logits ~60x head 1's, so the
+# heads' maxima sit far more than the exp clamp (80) apart
+DRIFT = np.repeat(np.array([60.0, 1.0, 0.1, 0.01], np.float32), C // HEADS)
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    torch.set_num_threads(2)
+
+
+def _close(port, ref, atol=ATOL):
+    np.testing.assert_allclose(
+        np.asarray(port.detach().numpy(), np.float32), np.asarray(ref, np.float32),
+        rtol=RTOL, atol=atol,
+    )
+
+
+def _pool_args(seed, drift):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, N, C)).astype(np.float32)
+    se = (1.0 + 0.1 * rng.standard_normal((B, C))).astype(np.float32)
+    be = (0.1 * rng.standard_normal((B, C))).astype(np.float32)
+    ind2 = rng.standard_normal((HEADS * I, C // HEADS)).astype(np.float32)
+    kvw = (rng.standard_normal((2 * C, C)) / C**0.5).astype(np.float32)
+    if drift:
+        kvw[:C] *= DRIFT[:, None]  # k rows of head h scaled by DRIFT
+    wo = (rng.standard_normal((C, C)) / C**0.5).astype(np.float32)
+    return x, se, be, ind2, kvw, wo
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+def test_pool_ext_matches_jax(drift):
+    args = _pool_args(0, drift)
+    port = tfa.folded_pool_ext(*map(torch.from_numpy, args), HEADS)
+    jargs = tuple(map(jnp.asarray, args))
+    _close(port, jfa.folded_pool_ext(*jargs, HEADS))
+    _close(port, jfa._pool_ext_ref(*jargs, HEADS))
+
+
+def test_fold_qf_and_group_indicator_match_jax():
+    _, _, _, ind2, kvw, _ = _pool_args(1, False)
+    _close(tfa.fold_qf(torch.from_numpy(ind2), torch.from_numpy(kvw), HEADS),
+           jfa._fold_qf(jnp.asarray(ind2), jnp.asarray(kvw), HEADS))
+    np.testing.assert_array_equal(
+        tfa.group_indicator(C, 8).numpy(), np.asarray(jfa.group_indicator(C, 8))
+    )
+
+
+def _unpool_args(seed, drift):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, N, C)).astype(np.float32)
+    se = (1.0 + 0.1 * rng.standard_normal((B, C))).astype(np.float32)
+    be = (0.1 * rng.standard_normal((B, C))).astype(np.float32)
+    k = rng.standard_normal((B, I, C)).astype(np.float32)
+    if drift:
+        k *= DRIFT[None, None, :]
+    v = rng.standard_normal((B, I, C)).astype(np.float32)
+    wq = (rng.standard_normal((C, C)) / C**0.5).astype(np.float32)
+    wo = (rng.standard_normal((C, C)) / C**0.5).astype(np.float32)
+    return x, se, be, k, v, wq, wo
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+def test_unpool_matches_jax(drift):
+    args = _unpool_args(2, drift)
+    out, sums = tfa.folded_unpool(*map(torch.from_numpy, args), HEADS)
+    jargs = tuple(map(jnp.asarray, args))
+    for ref_out, ref_sums in (jfa.folded_unpool(*jargs, HEADS), jfa._unpool_ref(*jargs, HEADS)):
+        # drifted logits reach the hundreds, where fp32 rounding of a logit
+        # moves its probability by ~1e-5: the JAX package's own drift test
+        # (test_unpool_softmax_per_head_scale_drift) holds atol 1e-4 there
+        _close(out, ref_out, atol=1e-4 if drift else ATOL)
+        # sums of N values of size ~x^2: relative tolerance as the JAX tests
+        np.testing.assert_allclose(sums.numpy(), np.asarray(ref_sums), rtol=1e-3, atol=1e-3)
+
+
+def _mlp_args(seed):
+    rng = np.random.default_rng(seed)
+    w = 2 * C
+    x = rng.standard_normal((B, N, C)).astype(np.float32)
+    se = (1.0 + 0.1 * rng.standard_normal((B, C))).astype(np.float32)
+    be = (0.1 * rng.standard_normal((B, C))).astype(np.float32)
+    w1t = (rng.standard_normal((C, w)) / C**0.5).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal((1, w))).astype(np.float32)
+    w2t = (rng.standard_normal((w, C)) / w**0.5).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal((1, C))).astype(np.float32)
+    return x, se, be, w1t, b1, w2t, b2
+
+
+def test_mlp_residual_matches_jax():
+    args = _mlp_args(3)
+    out, sums = tfa.fused_mlp_residual(*map(torch.from_numpy, args))
+    jargs = tuple(map(jnp.asarray, args))
+    for ref_out, ref_sums in (jfa.fused_mlp_residual(*jargs), jfa._mlp_ref(*jargs)):
+        _close(out, ref_out)
+        np.testing.assert_allclose(sums.numpy(), np.asarray(ref_sums), rtol=1e-3, atol=1e-3)
+
+
+def _hside_args(seed, groups=8):
+    rng = np.random.default_rng(seed)
+    w = 2 * C
+    h0 = rng.standard_normal((B, I, C)).astype(np.float32)
+    aff = [(1.0 + 0.2 * rng.standard_normal((B, C))).astype(np.float32) if q % 2 == 0
+           else (0.2 * rng.standard_normal((B, C))).astype(np.float32) for q in range(4)]
+    gind = np.array(jfa.group_indicator(C, groups))
+    w1t = (rng.standard_normal((C, w)) / C**0.5).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal((1, w))).astype(np.float32)
+    w2t = (rng.standard_normal((w, C)) / w**0.5).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal((1, C))).astype(np.float32)
+    wk = (rng.standard_normal((C, C)) / C**0.5).astype(np.float32)
+    wv = (rng.standard_normal((C, C)) / C**0.5).astype(np.float32)
+    return (h0, *aff, gind, w1t, b1, w2t, b2, wk, wv)
+
+
+def test_hside_matches_jax():
+    args = _hside_args(4)
+    port = ths.fused_h_side(*map(torch.from_numpy, args))
+    jargs = tuple(map(jnp.asarray, args))
+    for ref in (jhs.fused_h_side(*jargs), jhs._hside_ref(*jargs)):
+        for a, r in zip(port, ref):
+            _close(a, r)
+
+
+def test_launch_counters_stay_zero_on_cpu_tensors():
+    kernels.reset_launch_counts()
+    tfa.folded_pool_ext(*map(torch.from_numpy, _pool_args(5, False)), HEADS)
+    tfa.folded_unpool(*map(torch.from_numpy, _unpool_args(5, False)), HEADS)
+    tfa.fused_mlp_residual(*map(torch.from_numpy, _mlp_args(5)))
+    ths.fused_h_side(*map(torch.from_numpy, _hside_args(5)))
+    assert kernels.launch_counts() == {
+        "folded_pool_ext": 0, "fused_h_side": 0, "folded_unpool": 0, "fused_mlp_residual": 0,
+    }
+
+
+def test_register_chunk_and_row_tile_fit_the_register_tiles():
+    # the CUDA kernels keep at most 8 warps x 12 accumulator tiles of 16x16
+    assert ths._register_chunk(64, 384) == 384
+    assert ths._register_chunk(64, 768) == 384
+    assert tfa._row_tile(2048, 384) == 64
+    assert tfa._row_tile(8192, 768) == 32
+    for n, c in ((100, 384), (2048, 1024)):
+        with pytest.raises(ValueError):
+            tfa._row_tile(n, c)

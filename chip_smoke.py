@@ -6,22 +6,39 @@
 Phases (each raises on failure; nothing is caught):
 
 1. environment: torch, nvcc, the card's name and power limit;
-2. build: the four CUDA kernels of ``gecco_tpu_torch/csrc`` with nvcc for
-   sm_90a, one process per source, all at once;
-3. kernels: each kernel against its plain PyTorch version on the card, in
-   bf16, at the flagship shapes (ordinary and drifted operands), the pool
-   also at the 8k width; each one's time beside its plain version's, its
-   bound and, for pool and unpool, per-head ``scaled_dot_product_attention``
-   on the unfolded q/k/v as the library yardstick (used nowhere in the port);
-4. main path: the flagship (6 x 384, 64 inducers, 8 heads, bf16,
+2. build: the seven CUDA kernels of ``gecco_tpu_torch/csrc`` (four forward,
+   three backward) with nvcc for sm_90a, one process per source, all at
+   once, with ``ptxas -v``'s registers and spills;
+3. forward kernels: each against its plain PyTorch version on the card, in
+   bf16, at the sampler's flagship shapes (batch 64; ordinary and drifted
+   operands), the pool also at the 8k width; each one's time beside its
+   plain version's, its bound and, for pool and unpool, per-head
+   ``scaled_dot_product_attention`` on the unfolded q/k/v as the library
+   yardstick (used nowhere in the port);
+4. backward kernels: each against autograd of its plain version on the
+   card, in bf16, at the flagship's training shapes (batch 48; ordinary and
+   drifted operands, nonzero sums cotangents), the pool's also at the 8k
+   width; each output against its own tolerance (the pool's drifted dbe
+   beside a witness of its looser one); times, bounds and, for
+   pool and unpool, the backward of per-head ``scaled_dot_product_attention``;
+5. sampler path: the flagship (6 x 384, 64 inducers, 8 heads, bf16,
    ``attn_impl="folded_pallas"``) from the port's seeded init samples
    2048-point clouds with the 128-step Heun grid through
-   ``Diffusion.sample``; every kernel's launch count must equal
-   6 layers x 2 x 127 evaluations; then, from one latent on an 8-step grid,
-   the kernel path against the plain path (``attn_impl="xla"``).
+   ``Diffusion.sample``; every forward kernel's launch count must equal
+   6 layers x 2 x 127 evaluations and no backward kernel may launch; then,
+   from one latent on an 8-step grid, the kernel path against the plain
+   path (``attn_impl="xla"``);
+6. training path: the same flagship trains on procedural clouds (batch 48
+   x 2048 points) with the config's optimizer (global-norm clip 1,
+   AdaBelief, warmup-cosine learning rate) and EMA 0.999: one step's
+   gradient of the kernel path against the plain path's from the same
+   weights, batch, sigma and noise, per parameter group; then 3 warm-up and
+   20 timed steps through ``make_train_step``, every kernel launched
+   exactly 6 times per step, losses and parameters finite.
 
-It prints the kernels' JSON line, then the device line, last. It imports
-nothing of JAX or of gecco_tpu, and fails without a CUDA device.
+It prints the kernels' JSON line, then the card's name and power limit, then
+the device line, last. It imports nothing of JAX or of gecco_tpu, and fails
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,18 +46,22 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from gecco_tpu_torch import Diffusion, GaussianReparam, LogUniformSchedule  # noqa: E402
+from gecco_tpu_torch.data import make_clouds  # noqa: E402
 from gecco_tpu_torch.models import SetTransformer, UnconditionalPointNetwork  # noqa: E402
 from gecco_tpu_torch.ops import kernels  # noqa: E402
+from gecco_tpu_torch.train import flagship_optimizer, make_ema, make_train_step  # noqa: E402
 from gecco_tpu_torch.ops.kernels import _build  # noqa: E402
 from gecco_tpu_torch.ops.kernels import folded_attention as fa  # noqa: E402
 from gecco_tpu_torch.ops.kernels import hside as hs  # noqa: E402
@@ -53,6 +74,8 @@ FLAGSHIP = dict(n_layers=6, feature_dim=384, num_inducers=64, num_heads=8, n_poi
 SCALED_8K = dict(feature_dim=768, num_inducers=64, num_heads=16, n_points=8192)
 N_STEPS = 128
 BATCH = 64  # the flagship protocol of bench.py
+TRAIN_BATCH = 48  # configs/shapenet_airplane_unconditional.py
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 GROUPS = 32
 # kernel vs plain version, both bf16: max |kernel - plain| / max |plain|.
 # Both round to bf16 (relative step 2^-8 = 3.9e-3) at their own points (the
@@ -63,6 +86,33 @@ TOL_OUT = 2e-2
 TOL_SUMS = 1e-2
 # sample_data after an 8-step grid, kernel path vs plain (xla) path, bf16
 TOL_PATH = 5e-2
+# backward kernel vs autograd of its plain version, both bf16 operands:
+# max |kernel - plain| / max |plain| per output. The kernels round e, p, ds,
+# d_attn, g' and dh to bf16 before their products (as the TPU kernels do)
+# and take the cotangent in bf16; the plain autograd rounds at its own
+# casts. dx and the weight gradients: a few bf16 steps (2^-8) of the
+# largest value, summed over up to 98304 rows in other orders (fp32
+# atomics across blocks).
+TOL_GRAD = 3e-2
+# dse/dbe: per-channel sums over N points of dy * x and dy, held
+# separately (chip readings up to 1.4e-2).
+TOL_AFFINE = 3e-2
+# the pool's dbe with drifted logits only. The softmax over the points is
+# invariant to a shift of every point, so the sum over N of its ds term
+# cancels exactly in the plain version; the TPU kernel's algebra (v3, which
+# the CUDA kernel keeps) rounds ds, e, eTy and W2 to bf16, so the sum leaves
+# a residue. With near one-hot columns (large ds) it reaches a few percent
+# of max |dbe| (chip readings 5.6e-2 at the flagship, 6.8e-2 at the 8k
+# width). The witness: the same algebra in plain PyTorch, against which the
+# kernel's dbe is held at TOL_AFFINE.
+TOL_POOL_DRIFT_DBE = 1e-1
+# one train step's gradient, kernel path vs plain (xla) path from the same
+# weights, batch, sigma and noise, bf16 activations through 6 layers:
+# ||kernel - plain|| / ||plain|| per parameter group (the two paths round
+# at different points in every layer, forward and backward; measured on
+# the CPU at small shapes: up to 1.4e-2 max-relative against the JAX
+# package)
+TOL_TRAIN_GRAD = 5e-2
 
 SOURCES = {
     "folded_pool_ext": ("gecco_tpu_torch/csrc/pool_ext.cu",
@@ -72,7 +122,14 @@ SOURCES = {
                       "gecco_tpu/ops/pallas/folded_attention.py:2222"),
     "fused_mlp_residual": ("gecco_tpu_torch/csrc/mlp.cu",
                            "gecco_tpu/ops/pallas/folded_attention.py:2798"),
+    "folded_pool_ext_bwd": ("gecco_tpu_torch/csrc/pool_ext_bwd.cu",
+                            "gecco_tpu/ops/pallas/folded_attention.py:1843"),
+    "folded_unpool_bwd": ("gecco_tpu_torch/csrc/unpool_bwd.cu",
+                          "gecco_tpu/ops/pallas/folded_attention.py:2457"),
+    "fused_mlp_residual_bwd": ("gecco_tpu_torch/csrc/mlp_bwd.cu",
+                               "gecco_tpu/ops/pallas/folded_attention.py:2902"),
 }
+BACKWARD = ("folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd")
 
 
 def sh(*cmd) -> str:
@@ -202,9 +259,9 @@ def sdpa_unpool(ops, heads):
 # ---------------------------------------------------------------- phases --
 
 
-def check(name, err, tol):
+def check(name, err, tol, what="max|err|/max|ref|"):
     status = "ok" if err <= tol else "FAIL"
-    print(f"  {name}: max|err|/max|ref| = {err:.3e} (tol {tol:.0e}) {status}")
+    print(f"  {name}: {what} = {err:.3e} (tol {tol:.0e}) {status}")
     if err > tol:
         raise AssertionError(f"{name}: error {err:.3e} above tolerance {tol:.0e}")
 
@@ -277,6 +334,324 @@ def kernel_phase(device, shapes, big, dt, reps):
     return rec
 
 
+def sdpa_backward(q, k, v, g):
+    """The backward of per-head ``scaled_dot_product_attention`` alone (the
+    forward is run once, outside the timed call)."""
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    go = torch.randn(out.shape, generator=g, device=out.device).to(out.dtype)
+    return lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True)
+
+
+def sdpa_pool_bwd(ops, heads, g):
+    x, se, be, ind2, kvw, _ = ops
+    b, n, c = x.shape
+    d = c // heads
+    y = (x.float() * se[:, None] + be[:, None]).to(x.dtype)
+    k, v = (y @ kvw.T).chunk(2, dim=-1)
+    split = lambda t: t.reshape(b, -1, heads, d).transpose(1, 2).contiguous()
+    q = ind2.reshape(heads, -1, d)[None].expand(b, -1, -1, -1).contiguous()
+    return sdpa_backward(q, split(k), split(v), g)
+
+
+def sdpa_unpool_bwd(ops, heads, g):
+    x, se, be, k, v, wq, _ = ops
+    b, n, c = x.shape
+    d = c // heads
+    y = (x.float() * se[:, None] + be[:, None]).to(x.dtype)
+    split = lambda t: t.reshape(b, -1, heads, d).transpose(1, 2).contiguous()
+    return sdpa_backward(split(y @ wq.T), split(k), split(v), g)
+
+
+def pool_bwd_v3_affine(x, se, be, ind2, kvw, wo, g_h0, heads):
+    """dse, dbe of the pool backward by the TPU kernel's own algebra (v3,
+    the header of ``csrc/pool_ext_bwd.cu``) in plain PyTorch, fp32 with
+    that algebra's bf16 roundings of e, eTy, DMs, W2/W3 and ds: the witness
+    of the pool's drifted dbe tolerance."""
+    bf = torch.bfloat16
+    b, n, c = x.shape
+    j, d = ind2.shape
+    i = j // heads
+    y = (x.float() * se[:, None] + be[:, None]).to(bf).float()
+    qf = fa.fold_qf(ind2, kvw, heads).float()
+    s = y @ qf
+    z = s - s.amax(1, keepdim=True)
+    e = torch.exp(z.clamp_min(-80.0))
+    inv = 1.0 / e.sum(1).reshape(b, heads, i, 1)
+    ety = (e.to(bf).float().transpose(1, 2) @ y).to(bf).float().reshape(b, heads, i, c)
+    wv = kvw[c:].float().reshape(heads, d, c)
+    dms = (g_h0.float() @ wo.float()).reshape(b, i, heads, d).transpose(1, 2)
+    dms = (dms * inv).to(bf).float()
+    tacc = (dms * torch.einsum("bhic,hdc->bhid", ety, wv)).sum(-1, keepdim=True) * inv
+    w3 = torch.einsum("bhid,hdc->bhic", dms, wv).to(bf).float().reshape(b, j, c)
+    ds = torch.where(z > -80.0, e * (y @ w3.transpose(1, 2) - tacc.reshape(b, 1, j)), 0.0)
+    dy = ds.to(bf).float() @ qf.T + e.to(bf).float() @ w3
+    return (dy * x.float()).sum(1), dy.sum(1)
+
+
+def backward_phase(device, shapes, big, dt, reps):
+    """Every backward kernel against autograd of its plain version, each
+    output against its own tolerance; returns per-kernel records."""
+    g = torch.Generator(device=device).manual_seed(2)
+    r = lambda *sh: torch.randn(*sh, generator=g, device=device)
+    b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
+        shapes["num_heads"], shapes["num_inducers"]
+    w = 2 * c
+    rec = {}
+
+    def pool_case(bb, nn_, cc, hh, ii, drift):
+        ops = pool_operands(g, bb, nn_, cc, hh, ii, drift, device, dt)
+        if device.type == "cuda":
+            _, macc, sacc = fa._pool_ext_launch(*ops, hh, True)
+        else:
+            macc = sacc = None
+        gh = (0.1 * r(bb, ii, cc)).to(dt)
+        kernel = lambda: fa.folded_pool_ext_bwd(*ops, macc, sacc, gh, hh)
+        plain = lambda: fa._pool_ext_bwd_ref(*ops, gh, hh)
+        witness = lambda: pool_bwd_v3_affine(*ops, gh, hh)
+        return ops, kernel, plain, witness
+
+    def unpool_case(drift):
+        ops = unpool_operands(g, b, n, c, heads, i, drift, device, dt)
+        gg, gs = (0.1 * r(b, n, c)).to(dt), 1e-3 * r(b, 2, c)
+        return (ops, lambda: fa.folded_unpool_bwd(*ops, gg, gs, heads),
+                lambda: fa._unpool_bwd_ref(*ops, gg, gs, heads))
+
+    def mlp_case(drift):
+        ops = mlp_operands(g, b, n, c, w, drift, device, dt)
+        gg, gs = (0.1 * r(b, n, c)).to(dt), 1e-3 * r(b, 2, c)
+        return (ops, lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs),
+                lambda: fa._mlp_bwd_ref(*ops, gg, gs))
+
+    names = {
+        "folded_pool_ext_bwd": ("dx", "dse", "dbe", "dind2", "dkvw", "dwo"),
+        "folded_unpool_bwd": ("dx", "dse", "dbe", "dk", "dv", "dwq", "dwo"),
+        "fused_mlp_residual_bwd": ("dx", "dse", "dbe", "dw1t", "db1", "dw2t", "db2"),
+    }
+
+    def compare(name, tag, kernel, plain, witness=None):
+        got, want = kernel(), plain()
+        sync(device)
+        errs = []
+        for out, a, ref in zip(names[name], got, want):
+            tol = TOL_AFFINE if out in ("dse", "dbe") else TOL_GRAD
+            if witness is not None and out == "dbe":
+                tol = TOL_POOL_DRIFT_DBE
+                v3 = witness()[1]
+                print(f"    witness: dbe by the v3 algebra in plain PyTorch against the plain "
+                      f"version: {rel_err(v3, ref):.3e}")
+                # on the CPU the "kernel" is the plain version itself
+                if device.type == "cuda":
+                    check(f"{name} [{tag}] dbe against the v3 algebra", rel_err(a, v3),
+                          TOL_AFFINE)
+            check(f"{name} [{tag}] {out}", rel_err(a, ref), tol)
+            errs.append(abs_err(a, ref))
+        return max(errs)
+
+    d, j = c // heads, heads * i
+    # per kernel: the products the gradient needs (a recompute of the
+    # kernel's own design is not counted) and the bytes of the inputs that
+    # are not operands of the forward: the cotangents, and the pool's
+    # softmax statistics [B, J] fp32 (twice)
+    cases = {
+        "folded_pool_ext_bwd": (lambda drift: pool_case(b, n, c, heads, i, drift),
+                                # s, e^T y, y W2, ds qf^T, e W3, y^T ds; the
+                                # per-head fold: DMs, pacc, dWo, W2, W3, dWv
+                                6 * 2 * b * n * c * j + 6 * 2 * b * j * d * c,
+                                2 * b * i * c + 2 * 4 * b * j,
+                                lambda ops: sdpa_pool_bwd(ops, heads, g)),
+        "folded_unpool_bwd": (unpool_case,
+                              # logits, p vf, dp, ds kft, dkf, dvf; the fold
+                              6 * 2 * b * n * c * j + 2 * 2 * b * j * d * c,
+                              2 * b * n * c + 4 * 2 * b * c,
+                              lambda ops: sdpa_unpool_bwd(ops, heads, g)),
+        "fused_mlp_residual_bwd": (mlp_case,
+                                   # h, o, da, dy, dw1t, dw2t
+                                   6 * 2 * b * n * c * w,
+                                   2 * b * n * c + 4 * 2 * b * c, None),
+    }
+    for name, (make, flops, cot_bytes, library) in cases.items():
+        errs = []
+        for drift in (False, True):
+            _, kernel, plain, *witness = make(drift)
+            errs.append(compare(name, "drift" if drift else "ordinary", kernel, plain,
+                                witness[0] if witness and drift else None))
+        ops, kernel, plain, *_ = make(False)
+        ms = time_ms(kernel, device, reps)
+        plain_ms = time_ms(plain, device, max(2, reps // 4))
+        lib_ms = time_ms(library(ops), device, reps) if library else None
+        outs = kernel()
+        # each input read once (operands and the cotangents), each gradient written once
+        in_bytes = nbytes(*[a for a in ops if torch.is_tensor(a)])
+        bms, by = bound(flops, in_bytes + cot_bytes + nbytes(*outs))
+        rec[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=lib_ms)
+        lib_txt = f"{lib_ms:.3f}" if lib_ms is not None else "none"
+        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_txt} ms, "
+              f"bound {bms:.3f} ms ({by})")
+
+    # the pool backward at the 8k width (C = 768, 16 heads, 8192 points)
+    for drift in (False, True):
+        _, kernel, plain, witness = pool_case(big["batch"], big["n_points"], big["feature_dim"],
+                                              big["num_heads"], big["num_inducers"], drift)
+        compare("folded_pool_ext_bwd", f"8k width, {'drift' if drift else 'ordinary'}",
+                kernel, plain, witness if drift else None)
+    return rec
+
+
+def param_groups(model) -> dict:
+    """Parameters grouped by their name without the layer index (e.g. all
+    layers' ``broadcast.pool.kv_proj.weight`` in one group)."""
+    groups = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if "layers" in parts:
+            k = parts.index("layers")
+            parts = parts[k + 2:]  # drop "...layers.<L>"
+        groups.setdefault(".".join(parts), []).append(p)
+    return groups
+
+
+def train_phase(device, n_layers, batch, n_points, card):
+    """The flagship's train step on procedural clouds: the gradient of the
+    kernel path against the plain path, then timed steps; returns the
+    per-kernel launch counts of the timed steps and a record."""
+    model = build_flagship(device, torch.Generator().manual_seed(0), n_layers)
+    gen = torch.Generator(device=device).manual_seed(1)
+    rng = np.random.default_rng(0)
+    data = [torch.from_numpy(make_clouds(rng, batch, n_points)).to(device) for _ in range(4)]
+    backbone = model.network.backbone
+
+    # one step's gradient, kernel path vs plain path, same weights, batch and draws
+    sigma, noise = model.draw_sigma_noise(gen, data[0])
+    grads, losses = {}, {}
+    for impl in ("folded_pallas", "xla"):
+        backbone.attn_impl = impl
+        model.zero_grad(set_to_none=True)
+        loss = model.loss_from(data[0], sigma, noise)
+        loss.backward()
+        losses[impl] = float(loss.detach())
+        grads[impl] = {k: torch.cat([p.grad.flatten().float() for p in ps])
+                       for k, ps in param_groups(model).items()}
+    backbone.attn_impl = "folded_pallas"
+    model.zero_grad(set_to_none=True)
+    print(f"  loss at one batch: kernel path {losses['folded_pallas']:.6f}, "
+          f"plain path {losses['xla']:.6f}")
+    worst = 0.0
+    for k, ref in grads["xla"].items():
+        err = float((grads["folded_pallas"][k] - ref).norm() / ref.norm().clamp_min(1e-30))
+        worst = max(worst, err)
+        print(f"    grad {k}: ||kernel - plain|| / ||plain|| = {err:.3e}")
+    check("train-step gradient, kernel path vs plain path (worst group)", worst, TOL_TRAIN_GRAD,
+          "||err||/||ref||")
+
+    ema = make_ema(model)
+    opt = flagship_optimizer()
+    opt_state = opt.init(list(model.parameters()))
+    step = make_train_step(opt, ema_alpha=0.999)
+    for q in range(TRAIN_WARMUP):
+        loss, opt_state = step(model, ema, opt_state, data[q % len(data)], gen)
+    sync(device)
+    kernels.reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for q in range(TRAIN_STEPS):
+        loss, opt_state = step(model, ema, opt_state, data[q % len(data)], gen)
+        losses.append(loss)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    losses = [float(v) for v in losses]
+    ms = 1e3 * seconds / TRAIN_STEPS
+    print(f"  {TRAIN_STEPS} steps at batch {batch}: {ms:.3f} ms/step, "
+          f"{batch * TRAIN_STEPS / seconds:.3f} clouds/s trained on {card}")
+    print(f"  losses: {' '.join(f'{v:.4f}' for v in losses)}")
+    print(f"  launches per kernel (expected {n_layers * TRAIN_STEPS}): {counts}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    for m in (model, ema):
+        for name, p in m.named_parameters():
+            if not bool(torch.isfinite(p).all()):
+                raise AssertionError(f"non-finite parameter {name} after training")
+    expected = n_layers * TRAIN_STEPS
+    if device.type == "cuda" and any(v != expected for v in counts.values()):
+        raise AssertionError(f"training launch counts {counts} != {expected} per kernel")
+
+    def run():
+        nonlocal opt_state
+        _, opt_state = step(model, ema, opt_state, data[0], gen)
+
+    profile_steps(run, PROFILE_STEPS, device)
+    return counts, dict(ms_per_step=ms, clouds_per_s=batch * TRAIN_STEPS / seconds,
+                        losses=losses)
+
+
+# the kernels of each wrapper, by the function names in gecco_tpu_torch/csrc
+KERNEL_FUNCTIONS = {
+    "folded_pool_ext": ("pool_kernel", "linear_nt_kernel"),
+    "fused_h_side": ("hside_kernel",),
+    "folded_unpool": ("unpool_bq_kernel", "unpool_fold_kernel", "unpool_kernel"),
+    "fused_mlp_residual": ("mlp_kernel",),
+    "folded_pool_ext_bwd": ("pool_bwd_pass0_kernel", "pool_bwd_fold_kernel",
+                            "pool_bwd_pass1_kernel"),
+    "folded_unpool_bwd": ("unpool_bwd_fold_kernel", "unpool_bwd_kernel"),
+    "fused_mlp_residual_bwd": ("mlp_bwd_kernel",),
+    "atb_kernel (the weight-gradient products of the three backwards)": ("atb_kernel",),
+}
+PROFILE_STEPS = 3
+
+
+def kernel_function(name: str) -> str:
+    """The function's identifier in a demangled kernel name."""
+    ids = [m for m in re.findall(r"(\w+)(?:<[^()]*>)?\(", name) if m != "void"]
+    return ids[0] if ids else name
+
+
+def profile_steps(run, n, device):
+    """``n`` train steps under ``torch.profiler``: device time per wrapper's
+    kernels, the rest (PyTorch's own kernels: the plain glue, the h-side
+    backward, the optimizer) by name, and the device's busy share of the
+    wall time (the profiler's own overhead included in the wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    sync(device)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        sync(device)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    owner = {f: k for k, fs in KERNEL_FUNCTIONS.items() for f in fs}
+    groups, other = {}, {}
+    for evt in prof.key_averages():
+        # the device's own events (kernels, copies) only: a host-side range
+        # (an aten op, an autograd Function) also carries the device time of
+        # the kernels it launched as its "self" time
+        us = evt.self_device_time_total
+        if evt.device_type != DeviceType.CUDA or us <= 0:
+            continue
+        ms = us / 1e3 / n
+        k = owner.get(kernel_function(evt.key))
+        if k is None:
+            other[evt.key] = other.get(evt.key, 0.0) + ms
+        else:
+            groups[k] = groups.get(k, 0.0) + ms
+    total = sum(groups.values()) + sum(other.values())
+    print(f"  profile of {n} steps (torch.profiler): {wall_ms:.3f} ms/step wall, device busy "
+          f"{total:.3f} ms/step ({100 * total / wall_ms:.1f}% of the wall time)")
+    if total == 0:
+        print("  (no device time recorded)")
+        return
+    for k, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"    {ms:9.3f} ms/step  {100 * ms / total:5.1f}%  {k}")
+    rest = sum(other.values())
+    print(f"    {rest:9.3f} ms/step  {100 * rest / total:5.1f}%  PyTorch's own kernels, of which:")
+    for k, ms in sorted(other.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"      {ms:9.3f} ms/step  {k[:100]}")
+
+
 def build_flagship(device, generator, n_layers, dt=torch.bfloat16):
     f = FLAGSHIP
     backbone = SetTransformer(
@@ -305,11 +680,12 @@ def main_path(device, batch, n_points, n_layers, n_steps, compare_batch):
     if tuple(out.shape) != (batch, n_points, 3) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"sample: shape {tuple(out.shape)} or non-finite values")
     evals = 2 * (n_steps - 1)
-    expected = n_layers * evals
+    expected = {fn.__name__: n_layers * evals if fn in kernels.FORWARD_KERNELS else 0
+                for fn in kernels.KERNELS}
     print(f"  sampled {tuple(out.shape)} in {seconds:.3f} s: {batch / seconds:.3f} clouds/s "
           f"({evals} denoiser evals, {1e3 * seconds / evals:.3f} ms each)")
-    print(f"  launches per kernel (expected {expected}): {counts}")
-    if device.type == "cuda" and any(v != expected for v in counts.values()):
+    print(f"  launches per kernel (expected {n_layers * evals} forward, 0 backward): {counts}")
+    if device.type == "cuda" and counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
 
     latent = model.schedule.sample_latent(gen, (compare_batch, n_points, 3), device)
@@ -332,6 +708,7 @@ def main():
         shapes = dict(batch=2, n_points=128, feature_dim=64, num_inducers=16, num_heads=4)
         big = dict(batch=1, n_points=256, feature_dim=128, num_inducers=16, num_heads=8)
         dt, reps, n_layers, batch, n_points, n_steps = torch.bfloat16, 1, 2, 2, 128, 3
+        train_batch = 2
     else:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")
@@ -340,6 +717,7 @@ def main():
         big = dict(SCALED_8K, batch=2)
         dt, reps, n_layers, batch, n_points, n_steps = (
             torch.bfloat16, 20, FLAGSHIP["n_layers"], BATCH, FLAGSHIP["n_points"], N_STEPS)
+        train_batch = TRAIN_BATCH
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -357,21 +735,43 @@ def main():
         reports = _build.build_all()
         print(f"  nvcc sm_90a: {len(reports)} libraries built in {time.perf_counter() - t0:.1f} s")
         for name, text in reports.items():
+            entry = "?"
             for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
+                m = re.search(r"Function properties for (\S+)", line)
+                if m:
+                    # a mangled name holds "<length><identifier>"
+                    entry = next((f for fs in KERNEL_FUNCTIONS.values() for f in fs
+                                  if f"{len(f)}{f}" in m.group(1)), m.group(1))
+                elif "registers" in line or "spill" in line:
+                    print(f"  {name} {entry}: {line.strip()}")
 
-    print(f"== kernels vs plain versions ({shapes}; 8k pool {big})")
+    print(f"== forward kernels vs plain versions ({shapes}; 8k pool {big}) on {card}")
     rec = kernel_phase(device, shapes, big, dt, reps)
 
-    print(f"== main path: flagship x{n_layers} layers, batch {batch}, {n_points} points, "
-          f"{n_steps}-step Heun")
+    train_shapes = dict(shapes, batch=train_batch)
+    print(f"== backward kernels vs autograd of the plain versions ({train_shapes}; "
+          f"8k pool {big}) on {card}")
+    rec.update(backward_phase(device, train_shapes, big, dt, reps))
+
+    print(f"== sampler path: flagship x{n_layers} layers, batch {batch}, {n_points} points, "
+          f"{n_steps}-step Heun, on {card}")
     counts, path = main_path(device, batch, n_points, n_layers, n_steps, compare_batch=8)
     print(f"  {path['clouds_per_s']:.3f} clouds/s on {card}")
 
+    print(f"== training path: flagship x{n_layers} layers, batch {train_batch}, {n_points} "
+          f"points, {TRAIN_WARMUP} + {TRAIN_STEPS} steps, on {card}")
+    train_counts, train = train_phase(device, n_layers, train_batch, n_points, card)
+
+    print("== summary")
+    print(f"  launches on the sampler path: {counts}")
+    print(f"  launches on the training path: {train_counts}")
+    print(f"  sampler {path['clouds_per_s']:.3f} clouds/s (batch {batch}); train step "
+          f"{train['ms_per_step']:.3f} ms (batch {train_batch}); {card}")
+    # launches: the sampler path's count for a forward kernel, the training
+    # path's for a backward one (both printed above)
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
-             launches=counts[name], **rec[name])
+             launches=(train_counts if name in BACKWARD else counts)[name], **rec[name])
         for name in SOURCES
     ]}
     if args.rehearse:

@@ -7,7 +7,13 @@ written by hand for ``sm_90a`` (``gecco_tpu_torch/csrc``) and built with
 passes ``device="cpu"``. This package imports neither JAX nor gecco_tpu.
 """
 
-from gecco_tpu_torch.diffusion import Diffusion, LogUniformSchedule, NoCond, Schedule
+from gecco_tpu_torch.diffusion import (
+    Diffusion,
+    LogNormalSchedule,
+    LogUniformSchedule,
+    NoCond,
+    Schedule,
+)
 from gecco_tpu_torch.reparam import GaussianReparam, Reparam
 from gecco_tpu_torch.types import SampleDetails
 
@@ -15,6 +21,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Diffusion",
+    "LogNormalSchedule",
     "LogUniformSchedule",
     "NoCond",
     "Schedule",

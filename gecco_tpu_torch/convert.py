@@ -1,4 +1,4 @@
-"""Load the JAX model's parameters into the port's ``Diffusion``.
+"""Move parameters between the JAX model and the port's ``Diffusion``.
 
 The JAX package's model is a pytree whose leaves are named by their dotted
 path (``network.backbone.layers.broadcast.pool.kv_proj.weight``,
@@ -8,7 +8,9 @@ Its set-transformer layers are stacked: each leaf under
 its parameters and buffers by the same paths, with the layer index after
 ``layers`` (``network.backbone.layers.3.broadcast.pool.kv_proj.weight``).
 Flattening the JAX pytree into the ``{path: array}`` mapping is the
-caller's job (the port imports no JAX).
+caller's job (the port imports no JAX). ``load_jax_params`` copies such a
+mapping into the port; ``to_jax_params`` is its inverse, over the port's
+values or gradients, with the per-layer tensors stacked back to ``[L, ...]``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "to_jax_params"]
 
 _STACKED = re.compile(r"^(network\.backbone\.layers)\.(\d+)\.(.+)$")
 
@@ -60,3 +62,26 @@ def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> nn.Mo
             t = targets[name]
             t.copy_(torch.from_numpy(np.array(value, dtype=np.float32)).to(t.device, t.dtype))
     return model
+
+
+def to_jax_params(model: nn.Module, grads: bool = False) -> dict:
+    """``{dotted JAX path: fp32 numpy array}`` of the port's parameters and
+    buffers, the per-layer tensors of ``network.backbone.layers`` stacked
+    back to ``[L, ...]``. With ``grads=True`` each parameter's ``.grad``
+    (zeros where it has none, and for buffers), the shape of the JAX
+    package's gradient pytree."""
+    named = [(n, p, True) for n, p in model.named_parameters()]
+    named += [(n, b, False) for n, b in model.named_buffers()]
+    flat, stacked = {}, {}
+    for name, tensor, is_param in named:
+        value = tensor.grad if (grads and is_param) else (None if grads else tensor)
+        arr = (np.zeros(tuple(tensor.shape), np.float32) if value is None
+               else value.detach().float().cpu().numpy())
+        m = _STACKED.match(name)
+        if m:
+            stacked.setdefault(f"{m.group(1)}.{m.group(3)}", {})[int(m.group(2))] = arr
+        else:
+            flat[name] = arr
+    for key, layers in stacked.items():
+        flat[key] = np.stack([layers[q] for q in range(len(layers))])
+    return flat

@@ -10,7 +10,9 @@
 //   e = exp(max(s - m_new, -80)), l = l * corr + sum e,
 //   P = P * corr + bf16(e)^T @ v           [I, D] fp32
 //   pooled[b, :, hD:(h+1)D] = bf16(P / l)
-// and a second kernel: h0 = bf16(pooled @ Wo^T)  [B, I, C].
+// and a second kernel: h0 = bf16(pooled @ Wo^T)  [B, I, C]. Where the
+// caller asks (a gradient will be taken), the final column max m and sum l
+// are written to macc/sacc [B, J] for the backward (pool_ext_bwd.cu).
 //
 // Bound on the H100: tensor-core operations (2*N*C*(J + C) + 2*N*J*D per
 // batch element against 2*N*C bytes of stream read: about 900 FLOP per byte
@@ -62,7 +64,8 @@ struct PoolSmem {
 __global__ void __launch_bounds__(kThreads)
 pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const float* __restrict__ be,
             const bf16* __restrict__ qf, const bf16* __restrict__ kvw, bf16* __restrict__ pooled,
-            int N, int C, int H, int I, int stage_w) {
+            float* __restrict__ macc, float* __restrict__ sacc, int N, int C, int H, int I,
+            int stage_w) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = C / H, J = H * I;
   const PoolSmem L(C, I, D);
@@ -150,6 +153,12 @@ pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const floa
     const int i = t / D, d = t % D;
     out[(size_t)i * C + d] = __float2bfloat16(P[t] * (1.0f / l[i]));
   }
+  if (macc != nullptr) {
+    for (int i = threadIdx.x; i < I; i += kThreads) {
+      macc[(size_t)b * J + h * I + i] = m[i];
+      sacc[(size_t)b * J + h * I + i] = l[i];
+    }
+  }
 }
 
 // out[M, Nout] = bf16(A[M, K] @ W[Nout, K]^T), one 64 x 64 output tile per
@@ -171,7 +180,8 @@ linear_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, bf16* _
 
 extern "C" int pool_ext_launch(const void* x, const void* se, const void* be, const void* qf,
                                const void* kvw, const void* wo, void* pooled, void* h0,
-                               int B, int N, int C, int H, int I, void* stream) {
+                               void* macc, void* sacc, int B, int N, int C, int H, int I,
+                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const PoolSmem L(C, I, C / H);
   const int stage_w = L.total <= kMaxSmem;
@@ -180,7 +190,7 @@ extern "C" int pool_ext_launch(const void* x, const void* se, const void* be, co
   if (err != cudaSuccess) return (int)err;
   pool_kernel<<<dim3(H, B), kThreads, smem, st>>>(
       (const bf16*)x, (const float*)se, (const float*)be, (const bf16*)qf, (const bf16*)kvw,
-      (bf16*)pooled, N, C, H, I, stage_w);
+      (bf16*)pooled, (float*)macc, (float*)sacc, N, C, H, I, stage_w);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   linear_nt_kernel<<<dim3(C / 64, B * I / 64), kThreads, 0, st>>>(

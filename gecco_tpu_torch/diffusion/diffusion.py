@@ -1,6 +1,12 @@
-"""EDM diffusion model: preconditioned denoiser and the deterministic
-sampler (counterpart of ``gecco_tpu/diffusion/diffusion.py``: ``NoCond``,
-``Diffusion.denoise`` and ``Diffusion.sample``; inference only).
+"""EDM diffusion model: preconditioned denoiser, the denoising loss and
+the deterministic sampler (counterpart of
+``gecco_tpu/diffusion/diffusion.py``: ``NoCond``, ``mse``,
+``Diffusion.denoise``, ``Diffusion.loss`` and ``Diffusion.sample``).
+
+The JAX loss draws sigma and the noise from a key inside the function; here
+the draw (``draw_sigma_noise``, from a ``torch.Generator``) and the loss from
+a given sigma and noise (``loss_from``) are two steps, so that a test can
+feed the port the numbers that ``jax.random`` drew.
 """
 
 from __future__ import annotations
@@ -16,7 +22,12 @@ from gecco_tpu_torch.reparam import Reparam
 from gecco_tpu_torch.types import SampleDetails
 from gecco_tpu_torch.utils.checks import check_points, check_sigma_batch
 
-__all__ = ["Diffusion", "NoCond"]
+__all__ = ["Diffusion", "NoCond", "mse"]
+
+
+def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-example mean squared divergence: [B, N, D] x [B, N, D] -> [B]."""
+    return ((a - b) ** 2).mean(dim=(-2, -1))
 
 
 class NoCond(nn.Module):
@@ -41,14 +52,42 @@ class Diffusion(nn.Module):
         check_sigma_batch(sigma, x.shape[0])
         return sigma.expand(x.shape[:1])  # [B]
 
-    @torch.no_grad()
     def denoise(self, sigma, x: torch.Tensor, ctx: Any = None) -> torch.Tensor:
-        """D(x; sigma) with EDM pre/post-conditioning; ``sigma`` scalar or [B]."""
+        """D(x; sigma) with EDM pre/post-conditioning; ``sigma`` scalar or [B].
+        Differentiable: the sampling entry points turn autograd off."""
         sig = self._broadcast_sigma(sigma, x)
         s = self.schedule
         out = self.network(s.c_noise(sig), s.c_in(sig)[:, None, None] * x, ctx)
         return s.c_skip(sig)[:, None, None] * x + s.c_out(sig)[:, None, None] * out
 
+    def draw_sigma_noise(self, generator: torch.Generator, points: torch.Tensor):
+        """The loss's random draws for a batch ``points`` [B, N, D]: sigma [B]
+        from the schedule and standard normal noise of the points' shape,
+        both made on the generator's device and moved to the points'."""
+        check_points(points, "points")
+        sigma = self.schedule.sample_sigma(generator, points.shape[0])
+        noise = torch.randn(points.shape, generator=generator, device=generator.device)
+        return sigma.to(points.device, points.dtype), noise.to(points.device, points.dtype)
+
+    def loss_from(self, points: torch.Tensor, sigma: torch.Tensor, noise: torch.Tensor,
+                  raw_ctx: Any = None, loss_scale: float = 1.0) -> torch.Tensor:
+        """Denoising score-matching loss of data-space ``points`` [B, N, D]
+        at the given ``sigma`` [B] and ``noise`` [B, N, D]: the mean over the
+        batch of ``lambda(sigma) * mse(D(x + sigma * noise; sigma), x)``."""
+        check_points(points, "points")
+        x = self.reparam.data_to_diffusion(points, raw_ctx)
+        ctx = self.cond(raw_ctx)
+        x_hat = self.denoise(sigma, x + sigma[:, None, None] * noise, ctx)
+        weight = self.schedule.loss_weight(sigma)
+        return loss_scale * torch.mean(weight * mse(x_hat, x))
+
+    def loss(self, points: torch.Tensor, generator: torch.Generator, raw_ctx: Any = None,
+             loss_scale: float = 1.0) -> torch.Tensor:
+        """``loss_from`` at sigma and noise drawn from ``generator``."""
+        sigma, noise = self.draw_sigma_noise(generator, points)
+        return self.loss_from(points, sigma, noise, raw_ctx, loss_scale)
+
+    @torch.no_grad()
     def sample(self, generator: torch.Generator, shape: tuple, raw_ctx: Any = None,
                ctx: Any = None, n_solver_steps: Optional[int] = None,
                return_details: bool = False):

@@ -1,6 +1,6 @@
 """EDM noise schedules and preconditioning (counterpart of
-``gecco_tpu/diffusion/schedule.py``: ``Schedule`` and ``LogUniformSchedule``;
-the training-time sigma sampling comes with the training slice).
+``gecco_tpu/diffusion/schedule.py``: ``Schedule``, ``LogUniformSchedule``,
+``LogNormalSchedule`` and ``low_discrepancy_uniform``).
 
 Coefficients are elementwise over tensors of any shape. ``c_noise`` is sigma
 itself (the JAX package's convention) or ``log(sigma) / 4``; the Karras grid
@@ -10,11 +10,12 @@ does not append a final 0.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 
-__all__ = ["Schedule", "LogUniformSchedule"]
+__all__ = ["Schedule", "LogUniformSchedule", "LogNormalSchedule", "low_discrepancy_uniform"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +45,11 @@ class Schedule:
             return torch.log(sigma) / 4
         return sigma
 
+    def loss_weight(self, sigma):
+        """lambda(sigma) of the denoising loss."""
+        s_d = self.sigma_data
+        return (sigma**2 + s_d**2) / ((sigma * s_d) ** 2)
+
     def t_i(self, i: torch.Tensor) -> torch.Tensor:
         """sigma at solver step ``i``, rho-spaced."""
         a = self.sigma_max ** (1.0 / self.rho)
@@ -62,8 +68,38 @@ class Schedule:
         z = torch.randn(shape, generator=generator, device=generator.device)
         return (self.sigma_max * z).to(device if device is not None else z.device)
 
+    def sample_sigma(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        """n training-time noise levels [n] fp32, on the generator's device."""
+        raise NotImplementedError
+
+
+def low_discrepancy_uniform(generator: torch.Generator, n: int, minval: float = 0.0,
+                            maxval: float = 1.0) -> torch.Tensor:
+    """Stratified uniform draw: one sample in each of the n strata of width
+    1/n of [0, 1), mapped to [minval, maxval)."""
+    u = torch.rand(n, generator=generator, device=generator.device) / n
+    u = u + torch.arange(n, device=generator.device) / n
+    return u * (maxval - minval) + minval
+
 
 @dataclasses.dataclass(frozen=True)
 class LogUniformSchedule(Schedule):
-    """The flagship's schedule; it differs from ``Schedule`` only in its
-    training-time sigma draw, sigma ~ exp(U[log sigma_min, log sigma_max])."""
+    """The flagship's schedule: sigma ~ exp(U[log sigma_min, log sigma_max]),
+    drawn low-discrepancy across the batch."""
+
+    def sample_sigma(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        log_sigma = low_discrepancy_uniform(
+            generator, n, math.log(self.sigma_min), math.log(self.sigma_max))
+        return torch.exp(log_sigma)
+
+
+@dataclasses.dataclass(frozen=True)
+class LogNormalSchedule(Schedule):
+    """sigma ~ LogNormal(sigma_log_mean, sigma_log_std)."""
+
+    sigma_log_mean: float = 0.5
+    sigma_log_std: float = 1.0
+
+    def sample_sigma(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        normal = torch.randn(n, generator=generator, device=generator.device)
+        return torch.exp(self.sigma_log_std * normal + self.sigma_log_mean)

@@ -1,5 +1,6 @@
 """Feed-forward network over the last axis (counterpart of
-``gecco_tpu/models/mlp.py``, inference only: no dropout)."""
+``gecco_tpu/models/mlp.py`` without dropout: the flagship's MLPs have
+``dropout_p == 0``)."""
 
 from __future__ import annotations
 

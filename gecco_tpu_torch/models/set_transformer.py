@@ -1,5 +1,5 @@
 """Induced set attention transformer (counterpart of
-``gecco_tpu/models/set_transformer.py``, inference only).
+``gecco_tpu/models/set_transformer.py``).
 
 Two execution strategies compute the same function:
 
@@ -10,7 +10,9 @@ Two execution strategies compute the same function:
   statistics chain: every pre-norm takes its GroupNorm statistics from the
   channel sums that the previous fused function emitted for its output.
   On CUDA tensors these are the Hopper kernels; on CPU tensors their plain
-  versions.
+  versions. All four are differentiable: the gradients reach every
+  parameter through the weight folds, the AdaGN affines and the channel
+  sums, as on the plain path.
 
 The JAX package stacks the layers and scans over them; here they are an
 ``nn.ModuleList`` walked by a Python loop. The cached-inducer upsampling

@@ -1,14 +1,24 @@
 """Hand-written Hopper kernels (sources in ``gecco_tpu_torch/csrc``), each
-beside its plain PyTorch version. Importing this package builds nothing."""
+beside its plain PyTorch version. Importing this package builds nothing.
+
+``KERNELS`` lists every wrapper that launches a kernel, forward and
+backward; each counts its launches in ``.launches``."""
 
 from gecco_tpu_torch.ops.kernels.folded_attention import (
     folded_pool_ext,
+    folded_pool_ext_bwd,
     folded_unpool,
+    folded_unpool_bwd,
     fused_mlp_residual,
+    fused_mlp_residual_bwd,
 )
 from gecco_tpu_torch.ops.kernels.hside import fused_h_side
 
-KERNELS = (folded_pool_ext, fused_h_side, folded_unpool, fused_mlp_residual)
+KERNELS = (
+    folded_pool_ext, fused_h_side, folded_unpool, fused_mlp_residual,
+    folded_pool_ext_bwd, folded_unpool_bwd, fused_mlp_residual_bwd,
+)
+FORWARD_KERNELS = KERNELS[:4]
 
 
 def reset_launch_counts() -> None:
@@ -22,9 +32,13 @@ def launch_counts() -> dict:
 
 __all__ = [
     "folded_pool_ext",
+    "folded_pool_ext_bwd",
     "folded_unpool",
+    "folded_unpool_bwd",
     "fused_h_side",
     "fused_mlp_residual",
+    "fused_mlp_residual_bwd",
+    "FORWARD_KERNELS",
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",

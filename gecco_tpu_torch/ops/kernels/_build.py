@@ -28,7 +28,7 @@ __all__ = ["KERNEL_SOURCES", "build_all", "library", "launch", "check_cuda"]
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("pool_ext", "hside", "unpool", "mlp")
+KERNEL_SOURCES = ("pool_ext", "hside", "unpool", "mlp", "pool_ext_bwd", "unpool_bwd", "mlp_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -95,6 +95,8 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def _arg(a):
+    if a is None:
+        return ctypes.c_void_p(None)
     if isinstance(a, torch.Tensor):
         return ctypes.c_void_p(a.data_ptr())
     if isinstance(a, bool) or not isinstance(a, int):
@@ -104,8 +106,9 @@ def _arg(a):
 
 def launch(lib_name: str, fn: str, *args) -> None:
     """Call ``fn`` of a kernel library on the current stream. Tensors pass
-    as device pointers, ints as C ints; the C function returns the launch's
-    ``cudaGetLastError()``, and a non-zero code raises here."""
+    as device pointers, None as a null pointer, ints as C ints; the C
+    function returns the launch's ``cudaGetLastError()``, and a non-zero
+    code raises here."""
     f = getattr(library(lib_name), fn)
     f.restype = ctypes.c_int
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)

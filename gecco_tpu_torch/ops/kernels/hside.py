@@ -1,12 +1,15 @@
 """Fused h-side (inducer tokens) of a broadcasting layer: Hopper kernel and
 plain PyTorch version.
 
-Counterpart of ``gecco_tpu/ops/pallas/hside.py``, forward only. Between the
-pool and the unpool, a layer runs norm_1 -> MLP -> norm_2 on the pooled
-``[B, I, C]`` tokens and projects them to the unpool's k and v.
-``fused_h_side`` launches ``csrc/hside.cu`` for CUDA tensors (one block per
-batch element) and runs the plain version for CPU tensors; it counts its
-kernel launches in ``fused_h_side.launches``.
+Counterpart of ``gecco_tpu/ops/pallas/hside.py``. Between the pool and the
+unpool, a layer runs norm_1 -> MLP -> norm_2 on the pooled ``[B, I, C]``
+tokens and projects them to the unpool's k and v. ``fused_h_side`` is a
+``torch.autograd.Function``: its forward launches ``csrc/hside.cu`` for CUDA
+tensors (one block per batch element) and runs the plain version for CPU
+tensors, counting its kernel launches in ``fused_h_side.launches``. Its
+backward recomputes the plain version under autograd on the [B, I, C]
+tokens, exactly as the JAX package's ``custom_vjp`` does: the JAX package
+has no h-side backward kernel.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from gecco_tpu_torch.ops.kernels._build import check_cuda, launch
+from gecco_tpu_torch.ops.kernels._grad import needs_grad, vjp
 from gecco_tpu_torch.ops.norms import group_norm_stats
 
 __all__ = ["fused_h_side"]
@@ -47,13 +51,7 @@ def _register_chunk(i: int, c: int) -> int:
     raise ValueError(f"fused_h_side: no column chunk for I={i}, C={c}")
 
 
-def fused_h_side(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv):
-    """h0 [B, I, C]; s1/b1n, s2/b2n [B, C] fp32 (AdaGN affines of norm_1 and
-    norm_2); gind [C, G] group indicator; w1t [C, W], b1 [1, W] fp32 (alpha
-    folded); w2t [W, C], b2 [1, C] fp32; wk/wv [C, C]
-    -> (h, k, v), each [B, I, C]."""
-    if h0.device.type == "cpu":
-        return _hside_ref(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv)
+def _hside_launch(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv):
     name = "fused_h_side"
     b, i, c = h0.shape
     w = w1t.shape[1]
@@ -74,6 +72,32 @@ def fused_h_side(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv):
            h, k, v, b, i, c, w, g, _register_chunk(i, c))
     fused_h_side.launches += 1
     return h, k, v
+
+
+class _HSide(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, need_grad, *args):
+        run = _hside_ref if args[0].device.type == "cpu" else _hside_launch
+        if need_grad:
+            ctx.save_for_backward(*args)
+        return run(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv = ctx.saved_tensors
+        d = vjp(lambda *a: _hside_ref(*a[:5], gind, *a[5:]),
+                 (h0, s1, b1n, s2, b2n, w1t, b1, w2t, b2, wk, wv), grads)
+        return (None, *d[:5], None, *d[5:])
+
+
+def fused_h_side(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv):
+    """h0 [B, I, C]; s1/b1n, s2/b2n [B, C] fp32 (AdaGN affines of norm_1 and
+    norm_2); gind [C, G] group indicator; w1t [C, W], b1 [1, W] fp32 (alpha
+    folded); w2t [W, C], b2 [1, C] fp32; wk/wv [C, C]
+    -> (h, k, v), each [B, I, C]. Differentiable in every argument but
+    ``gind``."""
+    args = (h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv)
+    return _HSide.apply(needs_grad(*args), *args)
 
 
 fused_h_side.launches = 0

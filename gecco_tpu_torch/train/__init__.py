@@ -1,0 +1,28 @@
+"""Training (counterpart of ``gecco_tpu/train``): the train step and the
+optimizer. The ``Trainer`` loop, checkpoints and CLIs are not ported yet."""
+
+from gecco_tpu_torch.train.optim import (
+    adabelief,
+    apply_updates,
+    chain,
+    clip_by_global_norm,
+    flagship_optimizer,
+    scale_by_belief,
+    scale_by_learning_rate,
+    warmup_cosine_decay_schedule,
+)
+from gecco_tpu_torch.train.step import ema_update, make_ema, make_train_step
+
+__all__ = [
+    "adabelief",
+    "apply_updates",
+    "chain",
+    "clip_by_global_norm",
+    "ema_update",
+    "flagship_optimizer",
+    "make_ema",
+    "make_train_step",
+    "scale_by_belief",
+    "scale_by_learning_rate",
+    "warmup_cosine_decay_schedule",
+]

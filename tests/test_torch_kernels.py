@@ -3,10 +3,15 @@
 On CPU tensors each wrapper of ``gecco_tpu_torch.ops.kernels`` runs its
 plain version; it is held here against the JAX op (its Pallas kernel in
 interpret mode) and against the JAX XLA twin, in fp32 at the JAX tests' own
-tolerance (rtol 1e-4, atol 1e-5). The Hopper kernels themselves run only on
-the card, where ``chip_smoke.py`` holds each against its plain version.
+tolerance (forward rtol 1e-4, atol 1e-5). The backward cases take the
+port's gradients through its ``torch.autograd.Function``s and hold them
+against ``jax.vjp`` of the JAX op (its Pallas backward kernel in interpret
+mode), at the tolerances of the JAX package's own backward tests. The
+Hopper kernels themselves run only on the card, where ``chip_smoke.py``
+holds each against its plain version.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +21,7 @@ from gecco_tpu.ops.pallas import folded_attention as jfa
 from gecco_tpu.ops.pallas import hside as jhs
 from gecco_tpu_torch.ops import kernels
 from gecco_tpu_torch.ops.kernels import folded_attention as tfa
+from gecco_tpu_torch.ops.kernels._grad import needs_grad
 from gecco_tpu_torch.ops.kernels import hside as ths
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -145,12 +151,17 @@ def test_hside_matches_jax():
 
 def test_launch_counters_stay_zero_on_cpu_tensors():
     kernels.reset_launch_counts()
-    tfa.folded_pool_ext(*map(torch.from_numpy, _pool_args(5, False)), HEADS)
-    tfa.folded_unpool(*map(torch.from_numpy, _unpool_args(5, False)), HEADS)
-    tfa.fused_mlp_residual(*map(torch.from_numpy, _mlp_args(5)))
-    ths.fused_h_side(*map(torch.from_numpy, _hside_args(5)))
+    outs = [
+        tfa.folded_pool_ext(*_leaves(_pool_args(5, False)), HEADS),
+        *tfa.folded_unpool(*_leaves(_unpool_args(5, False)), HEADS),
+        *tfa.fused_mlp_residual(*_leaves(_mlp_args(5))),
+        *ths.fused_h_side(*_leaves(_hside_args(5))),
+    ]
+    # through every forward and every backward
+    torch.autograd.backward([o.float().square().sum() for o in outs])
     assert kernels.launch_counts() == {
         "folded_pool_ext": 0, "fused_h_side": 0, "folded_unpool": 0, "fused_mlp_residual": 0,
+        "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0, "fused_mlp_residual_bwd": 0,
     }
 
 
@@ -163,3 +174,126 @@ def test_register_chunk_and_row_tile_fit_the_register_tiles():
     for n, c in ((100, 384), (2048, 1024)):
         with pytest.raises(ValueError):
             tfa._row_tile(n, c)
+
+
+# ------------------------------------------------------------- backward --
+
+
+def _leaves(args):
+    """torch leaves of the numpy arguments; the float ones require grad."""
+    return [torch.from_numpy(a).requires_grad_(a.dtype == np.float32) for a in args]
+
+
+def _port_grads(fn, args, cotangents):
+    """Gradients of the port's fused function through its autograd.Function."""
+    leaves = _leaves(args)
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, [torch.from_numpy(c) for c in cotangents])
+    return [x.grad for x in leaves]
+
+
+def _jax_grads(fn, args, cotangents):
+    _, vjp = jax.vjp(fn, *map(jnp.asarray, args))
+    cot = tuple(map(jnp.asarray, cotangents))
+    return vjp(cot if len(cot) > 1 else cot[0])
+
+
+def _close_grads(port, ref, rtol, atol, drift=False):
+    """With drifted logits (one head's ~60x another's, in the hundreds) fp32
+    rounding of a logit moves a gradient by ~1e-5 of its largest value, as
+    in the forward drift tests: the absolute tolerance then scales with
+    max |ref| (2e-5 of it), the relative one stays the JAX tests'."""
+    for q, (a, r) in enumerate(zip(port, ref)):
+        r = np.asarray(r)
+        tol = max(atol, 2e-5 * float(np.abs(r).max())) if drift else atol
+        np.testing.assert_allclose(a.numpy(), r, rtol=rtol, atol=tol,
+                                   err_msg=f"gradient of argument {q}")
+
+
+def _cotangent(rng, *shape, scale=1.0):
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+def test_pool_ext_backward_matches_jax(drift):
+    """The port's pool backward (autograd of the plain version on the CPU)
+    against ``jax.vjp`` of the JAX op, whose backward is the v3 Pallas
+    kernel in interpret mode; tolerance of test_pallas_ops.py's pool
+    backward test."""
+    args = _pool_args(6, drift)
+    g = [_cotangent(np.random.default_rng(7), B, I, C)]
+    port = _port_grads(lambda *a: tfa.folded_pool_ext(*a, HEADS), args, g)
+    ref = _jax_grads(lambda *a: jfa.folded_pool_ext(*a, HEADS), args, g)
+    _close_grads(port, ref, rtol=5e-4, atol=5e-5, drift=drift)
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+def test_unpool_backward_matches_jax(drift):
+    """Unpool gradients through both outputs, the sums cotangent nonzero,
+    against ``jax.vjp`` of the JAX op (its backward kernel in interpret
+    mode); tolerance of test_pallas_ops.py's unpool backward test."""
+    args = _unpool_args(8, drift)
+    rng = np.random.default_rng(9)
+    g = [_cotangent(rng, B, N, C), _cotangent(rng, B, 2, C, scale=1e-2)]
+    port = _port_grads(lambda *a: tfa.folded_unpool(*a, HEADS), args, g)
+    ref = _jax_grads(lambda *a: jfa.folded_unpool(*a, HEADS), args, g)
+    _close_grads(port, ref, rtol=3e-4, atol=3e-5, drift=drift)
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+def test_mlp_backward_matches_jax(drift):
+    """MLP gradients through both outputs, the sums cotangent nonzero,
+    against ``jax.vjp`` of the JAX op (its backward kernel in interpret
+    mode); tolerance of test_pallas_ops.py's MLP backward test. The drift
+    case scales the stream per channel as chip_smoke.py does."""
+    args = list(_mlp_args(10))
+    if drift:
+        args[0] = args[0] * DRIFT[None, None, :] / 10
+    rng = np.random.default_rng(11)
+    g = [_cotangent(rng, B, N, C), _cotangent(rng, B, 2, C, scale=1e-2)]
+    port = _port_grads(tfa.fused_mlp_residual, args, g)
+    ref = _jax_grads(jfa.fused_mlp_residual, args, g)
+    _close_grads(port, ref, rtol=2e-4, atol=2e-4, drift=drift)
+
+
+def test_hside_backward_matches_jax():
+    """fused_h_side's backward recomputes the plain version under autograd,
+    as the JAX package's custom_vjp does; every input but the group
+    indicator gets a gradient."""
+    args = _hside_args(12)
+    rng = np.random.default_rng(13)
+    g = [_cotangent(rng, B, I, C) for _ in range(3)]
+    port = _port_grads(ths.fused_h_side, args, g)
+    ref = _jax_grads(jhs.fused_h_side, args, g)
+    assert port[5] is None  # the group indicator
+    _close_grads(port[:5] + port[6:], ref[:5] + ref[6:], rtol=RTOL, atol=1e-4)
+
+
+def test_backward_wrappers_match_autograd_of_the_plain_versions():
+    """The ``*_bwd`` wrappers (what the CUDA backward kernels replace) on CPU
+    tensors are exactly autograd through the plain forward."""
+    rng = np.random.default_rng(14)
+    args = _pool_args(15, False)
+    g = _cotangent(rng, B, I, C)
+    got = tfa.folded_pool_ext_bwd(*map(torch.from_numpy, args), None, None,
+                                  torch.from_numpy(g), HEADS)
+    want = _port_grads(lambda *a: tfa._pool_ext_ref(*a, HEADS), args, [g])
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    args = _mlp_args(16)
+    g = [_cotangent(rng, B, N, C), _cotangent(rng, B, 2, C)]
+    got = tfa.fused_mlp_residual_bwd(*map(torch.from_numpy, args + tuple(g)))
+    want = _port_grads(tfa._mlp_ref, args, g)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+
+
+def test_pool_forward_keeps_no_graph_and_no_statistics_without_grad():
+    """Without a gradient (the sampler) the fused functions record no graph."""
+    leaves = _leaves(_pool_args(17, False))
+    with torch.no_grad():
+        h0 = tfa.folded_pool_ext(*leaves, HEADS)
+        out, sums = tfa.folded_unpool(*_leaves(_unpool_args(17, False)), HEADS)
+    assert h0.grad_fn is None and out.grad_fn is None and sums.grad_fn is None
+    assert needs_grad(*leaves) and not needs_grad(*(x.detach() for x in leaves))

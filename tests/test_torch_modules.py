@@ -218,4 +218,5 @@ def test_chip_smoke_rehearsal_runs_its_phases_on_the_cpu():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 1, res.stderr
     assert "8-step sample, kernel path vs plain path" in res.stdout
+    assert "train-step gradient, kernel path vs plain path" in res.stdout
     assert '"ok": true' not in res.stdout

@@ -6,35 +6,60 @@
 Phases (each raises on failure; nothing is caught):
 
 1. environment: torch, nvcc, the card's name and power limit;
-2. build: the seven CUDA kernels of ``gecco_tpu_torch/csrc`` (four forward,
-   three backward) with nvcc for sm_90a, one process per source, all at
+2. build: the nine CUDA kernels of ``gecco_tpu_torch/csrc`` (five forward,
+   four backward; eight libraries, the projective gather's forward and
+   backward in one) with nvcc for sm_90a, one process per source, all at
    once, with ``ptxas -v``'s registers and spills;
-3. forward kernels: each against its plain PyTorch version on the card, in
-   bf16, at the sampler's flagship shapes (batch 64; ordinary and drifted
-   operands), the pool also at the 8k width; each one's time beside its
-   plain version's, its bound and, for pool and unpool, per-head
-   ``scaled_dot_product_attention`` on the unfolded q/k/v as the library
-   yardstick (used nowhere in the port);
+3. forward kernels: each set-transformer kernel against its plain PyTorch
+   version on the card, in bf16, at the sampler's flagship shapes (batch
+   64; ordinary and drifted operands), the pool also at the 8k width; each
+   one's time beside its plain version's, its bound and, for pool and
+   unpool, per-head ``scaled_dot_product_attention`` on the unfolded q/k/v
+   as the library yardstick (used nowhere in the port);
 4. backward kernels: each against autograd of its plain version on the
    card, in bf16, at the flagship's training shapes (batch 48; ordinary and
    drifted operands, nonzero sums cotangents), the pool's also at the 8k
    width; each output against its own tolerance (the pool's drifted dbe
    beside a witness of its looser one); times, bounds and, for
    pool and unpool, the backward of per-head ``scaled_dot_product_attention``;
-5. sampler path: the flagship (6 x 384, 64 inducers, 8 heads, bf16,
+5. projective gather: the forward against its plain version and the
+   backward against autograd of the plain version, at the 256^2 pyramid of
+   the image-conditional model (batch 48, 2048 points) and at the 137^2
+   pyramid of the dataset's renders, coordinates in [-0.1, 1.1]; times,
+   bounds and ``grid_sample`` (forward, and its autograd backward) as the
+   library yardstick;
+6. sampler path: the flagship (6 x 384, 64 inducers, 8 heads, bf16,
    ``attn_impl="folded_pallas"``) from the port's seeded init samples
    2048-point clouds with the 128-step Heun grid through
-   ``Diffusion.sample``; every forward kernel's launch count must equal
-   6 layers x 2 x 127 evaluations and no backward kernel may launch; then,
-   from one latent on an 8-step grid, the kernel path against the plain
-   path (``attn_impl="xla"``);
-6. training path: the same flagship trains on procedural clouds (batch 48
+   ``Diffusion.sample``; every set-transformer forward kernel's launch
+   count must equal 6 layers x 2 x 127 evaluations and no other kernel may
+   launch; then, from one latent on an 8-step grid, the kernel path against
+   the plain path (``attn_impl="xla"``);
+7. training path: the same flagship trains on procedural clouds (batch 48
    x 2048 points) with the config's optimizer (global-norm clip 1,
    AdaBelief, warmup-cosine learning rate) and EMA 0.999: one step's
    gradient of the kernel path against the plain path's from the same
    weights, batch, sigma and noise, per parameter group; then 3 warm-up and
-   20 timed steps through ``make_train_step``, every kernel launched
-   exactly 6 times per step, losses and parameters finite.
+   20 timed steps through ``make_train_step``, every set-transformer kernel
+   launched exactly 6 times per step, losses and parameters finite;
+8. conditional sampler path: the image-conditional model of
+   ``configs/shapenet_vol_conditional.py`` (UVL reparam, ConvNeXt-tiny
+   pyramid, ``RayNetwork(lookup_impl="pallas")`` over the same backbone with
+   ``remat=True``) from the port's seeded init samples 2048-point clouds for
+   48 images of 256^2 through ``Diffusion.sample``: the ConvNeXt once, the
+   gather once per evaluation (254), each set-transformer forward kernel
+   6 x 254 times, no backward kernel; then, from one latent on an 8-step
+   grid, the kernel path against the plain path (``attn_impl="xla"``,
+   ``lookup_impl="xla"``) in diffusion space;
+9. conditional training path: one step's gradient of the kernel path
+   against the plain path per parameter group (the ConvNeXt's stem, stages
+   and downsamples and ``ctx_dim_reductor`` among them), then 3 warm-up and
+   20 timed steps at batch 48 with the config's optimizer (clip 1, AdaBelief
+   at 3e-4) and EMA 0.999: per step the gather forward and backward once,
+   each set-transformer forward kernel 12 times (``remat`` recomputes every
+   layer) and each backward kernel 6 times; a ``torch.profiler`` split of
+   the device time (gather, set-transformer kernels, the ConvNeXt's
+   convolutions, the rest).
 
 It prints the kernels' JSON line, then the card's name and power limit, then
 the device line, last. It imports nothing of JAX or of gecco_tpu, and fails
@@ -57,17 +82,41 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from gecco_tpu_torch import Diffusion, GaussianReparam, LogUniformSchedule  # noqa: E402
-from gecco_tpu_torch.data import make_clouds  # noqa: E402
-from gecco_tpu_torch.models import SetTransformer, UnconditionalPointNetwork  # noqa: E402
+from gecco_tpu_torch import (  # noqa: E402
+    Context3d,
+    Diffusion,
+    GaussianReparam,
+    LogUniformSchedule,
+    UVLReparam,
+)
+from gecco_tpu_torch.data import make_clouds, make_conditional_batch  # noqa: E402
+from gecco_tpu_torch.models import (  # noqa: E402
+    ConvNeXtExtractor,
+    RayNetwork,
+    SetTransformer,
+    UnconditionalPointNetwork,
+)
 from gecco_tpu_torch.ops import kernels  # noqa: E402
-from gecco_tpu_torch.train import flagship_optimizer, make_ema, make_train_step  # noqa: E402
+from gecco_tpu_torch.train import (  # noqa: E402
+    conditional_optimizer,
+    flagship_optimizer,
+    make_ema,
+    make_train_step,
+)
 from gecco_tpu_torch.ops.kernels import _build  # noqa: E402
 from gecco_tpu_torch.ops.kernels import folded_attention as fa  # noqa: E402
 from gecco_tpu_torch.ops.kernels import hside as hs  # noqa: E402
+from gecco_tpu_torch.ops.kernels.projective_gather import (  # noqa: E402
+    _gather_bwd_ref,
+    _gather_ref,
+    projective_gather,
+    projective_gather_bwd,
+)
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
+# outside the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 FLAGSHIP = dict(n_layers=6, feature_dim=384, num_inducers=64, num_heads=8, n_points=2048)
@@ -77,6 +126,14 @@ BATCH = 64  # the flagship protocol of bench.py
 TRAIN_BATCH = 48  # configs/shapenet_airplane_unconditional.py
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 GROUPS = 32
+# the image-conditional model (configs/shapenet_vol_conditional.py): batch
+# 48 for sampling (bench.py's conditional protocol) and training, 256^2
+# images (bench.py), the ConvNeXt-tiny pyramid's channels
+COND_BATCH = 48
+IMAGE_SIZE = 256
+CTX_DIMS = (96, 192, 384)
+# the dataset's 137^2 renders give the pyramid 34^2, 17^2, 8^2
+RENDER_SIZE = 137
 # kernel vs plain version, both bf16: max |kernel - plain| / max |plain|.
 # Both round to bf16 (relative step 2^-8 = 3.9e-3) at their own points (the
 # unpool folds se into wq before rounding, its plain twin normalises x
@@ -97,6 +154,14 @@ TOL_GRAD = 3e-2
 # dse/dbe: per-channel sums over N points of dy * x and dy, held
 # separately (chip readings up to 1.4e-2).
 TOL_AFFINE = 3e-2
+# projective gather backward against autograd of the plain version run in
+# fp32 on the same bf16 inputs (the plain bf16 autograd accumulates dF in
+# bf16, tens of adds per pixel, and rounds each corner's dot product): dF is
+# summed in fp32 (atomics, in an order that changes from run to run) and
+# rounded to bf16 once, so a few bf16 steps (2^-8) of the largest value;
+# the coordinate gradient is fp32 throughout in both, summed in other orders
+TOL_GATHER_DF = 1e-2
+TOL_GATHER_DCOORD = 1e-3
 # the pool's dbe with drifted logits only. The softmax over the points is
 # invariant to a shift of every point, so the sum over N of its ds term
 # cancels exactly in the plain version; the TPU kernel's algebra (v3, which
@@ -128,8 +193,14 @@ SOURCES = {
                           "gecco_tpu/ops/pallas/folded_attention.py:2457"),
     "fused_mlp_residual_bwd": ("gecco_tpu_torch/csrc/mlp_bwd.cu",
                                "gecco_tpu/ops/pallas/folded_attention.py:2902"),
+    "projective_gather": ("gecco_tpu_torch/csrc/projective_gather.cu",
+                          "gecco_tpu/ops/pallas/projective_gather.py:40"),
+    "projective_gather_bwd": ("gecco_tpu_torch/csrc/projective_gather.cu",
+                              "gecco_tpu/ops/pallas/projective_gather.py:86"),
 }
+SET_FORWARD = ("folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual")
 BACKWARD = ("folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd")
+GATHER = ("projective_gather", "projective_gather_bwd")
 
 
 def sh(*cmd) -> str:
@@ -177,8 +248,8 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(flops: float, bytes_: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES
+def bound(flops: float, bytes_: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops, bytes_ / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -499,90 +570,250 @@ def backward_phase(device, shapes, big, dt, reps):
     return rec
 
 
+# ------------------------------------------------------ projective gather --
+
+
+def gather_operands(g, b, n, image_size, dt, device):
+    """The ConvNeXt-tiny pyramid of ``image_size``^2 images (strides 4, 8,
+    16; VALID convolutions, so 137 gives 34, 17, 8) and hw01 in
+    [-0.1, 1.1], so that corners fall outside the image on every side."""
+    levels, size = [], (image_size - 4) // 4 + 1
+    for c in CTX_DIMS:
+        levels.append(torch.randn(b, size, size, c, generator=g, device=device).to(dt))
+        size = (size - 2) // 2 + 1
+    hw01 = -0.1 + 1.2 * torch.rand(b, n, 2, generator=g, device=device)
+    return levels, hw01
+
+
+def touched_bytes(levels, hw01) -> int:
+    """Bytes of the distinct in-image corner pixels that ``hw01`` reads in
+    each level: what this data needs the lookup to read."""
+    total = 0
+    bidx = torch.arange(hw01.shape[0], device=hw01.device)[:, None]
+    for lv in levels:
+        _, h, w, c = lv.shape
+        h0 = torch.floor(hw01[..., 0] * h).clamp(-2, h + 1).long()
+        w0 = torch.floor(hw01[..., 1] * w).clamp(-2, w + 1).long()
+        idx = []
+        for dh in (0, 1):
+            for dw in (0, 1):
+                hi, wi = h0 + dh, w0 + dw
+                ok = (hi >= 0) & (hi < h) & (wi >= 0) & (wi < w)
+                idx.append(((bidx * h + hi) * w + wi)[ok])
+        total += torch.unique(torch.cat(idx)).numel() * c * lv.element_size()
+    return total
+
+
+def grid_sample_yardstick(levels, hw01):
+    """The library yardstick: one ``grid_sample`` per level (bilinear, zero
+    padding, ``align_corners=False``) on fp32 NCHW copies, the grid
+    ``(2 p + 1) / size - 1`` in grid_sample's (w, h) order, so that it
+    samples pixel p = hw01 * size with no half-pixel offset, as the
+    gather. fp32, because grid_sample takes its grid in the input's dtype
+    and a bf16 grid puts a 64-pixel level's samples up to a tenth of a pixel
+    off (chip reading: 1.0e-1 of max |ref|). Returns (xs, run): the NCHW
+    copies, and ``run(xs)`` -> the per-level outputs [B, C, 1, N]."""
+    import torch.nn.functional as F
+
+    xs = [lv.permute(0, 3, 1, 2).float().contiguous() for lv in levels]
+    grids = []
+    for x in xs:
+        size = torch.tensor([x.shape[3], x.shape[2]], dtype=torch.float32, device=hw01.device)
+        grids.append(((2 * hw01.flip(-1) * size + 1) / size - 1)[:, None])
+    run = lambda inputs: [F.grid_sample(x, gr, mode="bilinear", padding_mode="zeros",
+                                        align_corners=False) for x, gr in zip(inputs, grids)]
+    return xs, run
+
+
+def gather_phase(device, b, n, image_size, render_size, dt, reps):
+    """The gather's forward against its plain version and its backward
+    against autograd of the plain version (run in fp32 on the same
+    inputs), at the model's pyramid and at the renders' pyramid; times and
+    bounds at the model's. On the CPU the gather runs its plain version, so
+    the rehearsal holds it in fp32."""
+    g = torch.Generator(device=device).manual_seed(3)
+    dt = dt if device.type == "cuda" else torch.float32
+    rec = {}
+    for size in (image_size, render_size):
+        levels, hw01 = gather_operands(g, b, n, size, dt, device)
+        shapes = [tuple(lv.shape[1:]) for lv in levels]
+        with torch.no_grad():
+            got, want = projective_gather(levels, hw01), _gather_ref(hw01, *levels)
+            sync(device)
+            check(f"projective_gather {size}^2 pyramid {shapes}", rel_err(got, want), TOL_OUT)
+            fwd_err = abs_err(got, want)
+            xs, lib = grid_sample_yardstick(levels, hw01)
+            lib_out = torch.cat([o[:, :, 0].transpose(1, 2) for o in lib(xs)], dim=-1)
+            check(f"  grid_sample (the yardstick) {size}^2 against the plain version",
+                  rel_err(lib_out, want), TOL_OUT)
+        cot = torch.randn(got.shape, generator=g, device=device).to(dt)
+        dhw, dlv = projective_gather_bwd(levels, hw01, cot, coords_grad=True)
+        _, dlv_only = projective_gather_bwd(levels, hw01, cot, coords_grad=False)
+        ref32 = _gather_bwd_ref([lv.float() for lv in levels], hw01, cot.float())
+        ref16 = _gather_bwd_ref(levels, hw01, cot)
+        sync(device)
+        bwd_err = 0.0
+        for q, (a, a_only, r32, r16) in enumerate(zip(dlv, dlv_only, ref32[1], ref16[1])):
+            check(f"projective_gather_bwd {size}^2 dF level {q}", rel_err(a, r32), TOL_GATHER_DF)
+            check(f"projective_gather_bwd {size}^2 dF level {q} (no coordinate gradient)",
+                  rel_err(a_only, r32), TOL_GATHER_DF)
+            print(f"    against the plain version's own bf16 autograd: {rel_err(a, r16):.3e}")
+            bwd_err = max(bwd_err, abs_err(a, r32))
+        check(f"projective_gather_bwd {size}^2 d hw01", rel_err(dhw, ref32[0]), TOL_GATHER_DCOORD)
+        print(f"    against the plain version's own bf16 autograd: {rel_err(dhw, ref16[0]):.3e}")
+        if size != image_size:
+            continue
+
+        # times and bounds at the model's pyramid
+        c_tot = sum(CTX_DIMS)
+        read = touched_bytes(levels, hw01)
+        with torch.no_grad():
+            ms = time_ms(lambda: projective_gather(levels, hw01), device, reps)
+            plain_ms = time_ms(lambda: _gather_ref(hw01, *levels), device, max(2, reps // 4))
+            lib_ms = time_ms(lambda: lib(xs), device, reps)
+        # four fp32 multiply-adds per channel and point
+        bms, by = bound(8 * b * n * c_tot, read + nbytes(hw01, got), PEAK_FP32_FLOPS)
+        rec["projective_gather"] = dict(max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        print(f"  projective_gather: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, grid_sample "
+              f"{lib_ms:.3f} ms, bound {bms:.3f} ms ({by}; {read / 1e6:.1f} MB of the "
+              f"{nbytes(*levels) / 1e6:.1f} MB pyramid read)")
+
+        # the backward as the train step runs it (no coordinate gradient),
+        # and with it (the likelihood's VJP will need it)
+        ms = time_ms(lambda: projective_gather_bwd(levels, hw01, cot, coords_grad=False),
+                     device, reps)
+        ms_coords = time_ms(lambda: projective_gather_bwd(levels, hw01, cot, coords_grad=True),
+                            device, reps)
+        plain_ms = time_ms(lambda: _gather_bwd_ref(levels, hw01, cot), device, max(2, reps // 4))
+        xs = [x.requires_grad_(True) for x in xs]
+        lib_outs = lib(xs)
+        lib_cots = [torch.randn(o.shape, generator=g, device=device).to(o.dtype) for o in lib_outs]
+        lib_ms = time_ms(lambda: torch.autograd.grad(lib_outs, xs, lib_cots, retain_graph=True),
+                         device, reps)
+        # dF: a multiply-add per corner and channel; the coordinates' dot
+        # products are not part of the train step's call
+        bms, by = bound(8 * b * n * c_tot, nbytes(cot, hw01, *levels), PEAK_FP32_FLOPS)
+        bms_c, _ = bound(16 * b * n * c_tot, nbytes(cot, hw01, *levels, dhw) + read,
+                         PEAK_FP32_FLOPS)
+        rec["projective_gather_bwd"] = dict(max_abs_err=bwd_err, ms=ms, plain_ms=plain_ms,
+                                            bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        print(f"  projective_gather_bwd (dF only, as in training): kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, grid_sample backward {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+        print(f"  projective_gather_bwd with the coordinate gradient: kernel {ms_coords:.3f} ms, "
+              f"bound {bms_c:.3f} ms")
+    return rec
+
+
 def param_groups(model) -> dict:
     """Parameters grouped by their name without the layer index (e.g. all
-    layers' ``broadcast.pool.kv_proj.weight`` in one group)."""
+    layers' ``broadcast.pool.kv_proj.weight`` in one group); the ConvNeXt's
+    by part: its stem, each stage and each downsample."""
     groups = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
         if "layers" in parts:
             k = parts.index("layers")
             parts = parts[k + 2:]  # drop "...layers.<L>"
+        elif parts[0] == "cond":
+            k = parts.index("backbone") + 1
+            part = parts[k:k + 2] if parts[k] in ("stages", "downs") else ["stem"]
+            parts = parts[:k] + part
         groups.setdefault(".".join(parts), []).append(p)
     return groups
 
 
-def train_phase(device, n_layers, batch, n_points, card):
+def expected_counts(nonzero: dict) -> dict:
+    """Every kernel's expected launch count: ``nonzero``'s, else 0."""
+    return {fn.__name__: nonzero.get(fn.__name__, 0) for fn in kernels.KERNELS}
+
+
+def check_counts(what, counts, expected, device):
+    print(f"  launches per kernel on the {what} path: {counts}")
+    if device.type == "cuda" and counts != expected:
+        raise AssertionError(f"{what} launch counts {counts} != expected {expected}")
+
+
+def check_finite(losses, *models):
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    for m in models:
+        for name, p in m.named_parameters():
+            if not bool(torch.isfinite(p).all()):
+                raise AssertionError(f"non-finite parameter {name} after training")
+
+
+def compare_grads(model, loss_fn, tol):
+    """One step's gradient per parameter group, the kernel path against the
+    plain path, same weights and inputs (``loss_fn()``)."""
+    grads, losses = [], []
+    for fused in (True, False):
+        set_path(model, fused)
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({k: torch.cat([p.grad.flatten().float() for p in ps])
+                      for k, ps in param_groups(model).items()})
+    set_path(model, True)
+    model.zero_grad(set_to_none=True)
+    print(f"  loss at one batch: kernel path {losses[0]:.6f}, plain path {losses[1]:.6f}")
+    worst = 0.0
+    for k, ref in grads[1].items():
+        err = float((grads[0][k] - ref).norm() / ref.norm().clamp_min(1e-30))
+        worst = max(worst, err)
+        print(f"    grad {k}: ||kernel - plain|| / ||plain|| = {err:.3e} "
+              f"(||plain|| = {float(ref.norm()):.3e})")
+    check("train-step gradient, kernel path vs plain path (worst group)", worst, tol,
+          "||err||/||ref||")
+
+
+def train_phase(device, n_layers, batch, n_points, card, steps):
     """The flagship's train step on procedural clouds: the gradient of the
-    kernel path against the plain path, then timed steps; returns the
-    per-kernel launch counts of the timed steps and a record."""
+    kernel path against the plain path, then ``steps`` = (warm-up, timed)
+    steps; returns the per-kernel launch counts of the timed steps and a
+    record."""
+    warmup, timed = steps
     model = build_flagship(device, torch.Generator().manual_seed(0), n_layers)
     gen = torch.Generator(device=device).manual_seed(1)
     rng = np.random.default_rng(0)
     data = [torch.from_numpy(make_clouds(rng, batch, n_points)).to(device) for _ in range(4)]
-    backbone = model.network.backbone
 
     # one step's gradient, kernel path vs plain path, same weights, batch and draws
     sigma, noise = model.draw_sigma_noise(gen, data[0])
-    grads, losses = {}, {}
-    for impl in ("folded_pallas", "xla"):
-        backbone.attn_impl = impl
-        model.zero_grad(set_to_none=True)
-        loss = model.loss_from(data[0], sigma, noise)
-        loss.backward()
-        losses[impl] = float(loss.detach())
-        grads[impl] = {k: torch.cat([p.grad.flatten().float() for p in ps])
-                       for k, ps in param_groups(model).items()}
-    backbone.attn_impl = "folded_pallas"
-    model.zero_grad(set_to_none=True)
-    print(f"  loss at one batch: kernel path {losses['folded_pallas']:.6f}, "
-          f"plain path {losses['xla']:.6f}")
-    worst = 0.0
-    for k, ref in grads["xla"].items():
-        err = float((grads["folded_pallas"][k] - ref).norm() / ref.norm().clamp_min(1e-30))
-        worst = max(worst, err)
-        print(f"    grad {k}: ||kernel - plain|| / ||plain|| = {err:.3e}")
-    check("train-step gradient, kernel path vs plain path (worst group)", worst, TOL_TRAIN_GRAD,
-          "||err||/||ref||")
+    compare_grads(model, lambda: model.loss_from(data[0], sigma, noise), TOL_TRAIN_GRAD)
 
     ema = make_ema(model)
     opt = flagship_optimizer()
     opt_state = opt.init(list(model.parameters()))
     step = make_train_step(opt, ema_alpha=0.999)
-    for q in range(TRAIN_WARMUP):
+    for q in range(warmup):
         loss, opt_state = step(model, ema, opt_state, data[q % len(data)], gen)
     sync(device)
     kernels.reset_launch_counts()
     losses = []
     t0 = time.perf_counter()
-    for q in range(TRAIN_STEPS):
+    for q in range(timed):
         loss, opt_state = step(model, ema, opt_state, data[q % len(data)], gen)
         losses.append(loss)
     sync(device)
     seconds = time.perf_counter() - t0
     counts = kernels.launch_counts()
     losses = [float(v) for v in losses]
-    ms = 1e3 * seconds / TRAIN_STEPS
-    print(f"  {TRAIN_STEPS} steps at batch {batch}: {ms:.3f} ms/step, "
-          f"{batch * TRAIN_STEPS / seconds:.3f} clouds/s trained on {card}")
+    ms = 1e3 * seconds / timed
+    print(f"  {timed} steps at batch {batch}: {ms:.3f} ms/step, "
+          f"{batch * timed / seconds:.3f} clouds/s trained on {card}")
     print(f"  losses: {' '.join(f'{v:.4f}' for v in losses)}")
-    print(f"  launches per kernel (expected {n_layers * TRAIN_STEPS}): {counts}")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite training loss: {losses}")
-    for m in (model, ema):
-        for name, p in m.named_parameters():
-            if not bool(torch.isfinite(p).all()):
-                raise AssertionError(f"non-finite parameter {name} after training")
-    expected = n_layers * TRAIN_STEPS
-    if device.type == "cuda" and any(v != expected for v in counts.values()):
-        raise AssertionError(f"training launch counts {counts} != {expected} per kernel")
+    check_finite(losses, model, ema)
+    check_counts("training", counts, expected_counts(
+        {k: n_layers * timed for k in SET_FORWARD + BACKWARD}), device)
 
     def run():
         nonlocal opt_state
         _, opt_state = step(model, ema, opt_state, data[0], gen)
 
     profile_steps(run, PROFILE_STEPS, device)
-    return counts, dict(ms_per_step=ms, clouds_per_s=batch * TRAIN_STEPS / seconds,
+    return counts, dict(ms_per_step=ms, clouds_per_s=batch * timed / seconds,
                         losses=losses)
 
 
@@ -597,8 +828,13 @@ KERNEL_FUNCTIONS = {
     "folded_unpool_bwd": ("unpool_bwd_fold_kernel", "unpool_bwd_kernel"),
     "fused_mlp_residual_bwd": ("mlp_bwd_kernel",),
     "atb_kernel (the weight-gradient products of the three backwards)": ("atb_kernel",),
+    "projective_gather": ("gather_kernel",),
+    "projective_gather_bwd": ("gather_bwd_kernel",),
 }
 PROFILE_STEPS = 3
+# cuDNN's and PyTorch's convolution kernels and cuDNN's layout transforms
+# (the ConvNeXt's), by name; cuBLAS's GEMMs ("..._xmma_gemm_...") are not
+CONV_KERNEL = re.compile(r"conv|cudnn|fprop|dgrad|wgrad|depthwise|nchw|nhwc", re.IGNORECASE)
 
 
 def kernel_function(name: str) -> str:
@@ -650,6 +886,12 @@ def profile_steps(run, n, device):
     print(f"    {rest:9.3f} ms/step  {100 * rest / total:5.1f}%  PyTorch's own kernels, of which:")
     for k, ms in sorted(other.items(), key=lambda kv: -kv[1])[:10]:
         print(f"      {ms:9.3f} ms/step  {k[:100]}")
+    gather = sum(v for k, v in groups.items() if k in GATHER)
+    conv = sum(v for k, v in other.items() if CONV_KERNEL.search(k))
+    split = {"projective gather": gather, "set-transformer kernels": sum(groups.values()) - gather,
+             "convolutions (the ConvNeXt)": conv, "the rest": rest - conv}
+    print("  split: " + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                                  for k, v in split.items()))
 
 
 def build_flagship(device, generator, n_layers, dt=torch.bfloat16):
@@ -661,6 +903,159 @@ def build_flagship(device, generator, n_layers, dt=torch.bfloat16):
     net = UnconditionalPointNetwork(backbone, f["feature_dim"], device=device, generator=generator)
     sched = LogUniformSchedule(sigma_max=165.0, sigma_min=0.002, n_solver_steps=N_STEPS)
     return Diffusion(net, sched, reparam=GaussianReparam([0.0] * 3, [0.35] * 3, device=device))
+
+
+def build_conditional(device, generator, n_layers, dt=torch.bfloat16):
+    """The image-conditional model of configs/shapenet_vol_conditional.py:
+    UVL reparam, ConvNeXt-tiny (three stages), RayNetwork with the gather
+    kernels over the 6 x 384 backbone with remat."""
+    f = FLAGSHIP
+    reparam = UVLReparam(device=device)
+    backbone = SetTransformer(
+        n_layers, f["feature_dim"], f["num_inducers"], embed_dim=1, num_heads=f["num_heads"],
+        compute_dtype=dt, attn_impl="folded_pallas", remat=True, device=device,
+        generator=generator,
+    )
+    net = RayNetwork(backbone, reparam, f["feature_dim"], sum(CTX_DIMS), lookup_impl="pallas",
+                     device=device, generator=generator)
+    cond = ConvNeXtExtractor(dt, device=device, generator=generator)
+    # move each block's layer scale off its 1e-6 init (as the CPU parity
+    # tests do), so that the blocks, not only the stem and downsamples,
+    # shape the pyramid and its gradient
+    for name, p in cond.named_parameters():
+        if name.endswith("layer_scale"):
+            with torch.no_grad():
+                p.add_(0.3 * torch.randn(p.shape, generator=generator).to(device))
+    sched = LogUniformSchedule(sigma_max=165.0, sigma_min=0.002, n_solver_steps=N_STEPS)
+    return Diffusion(net, sched, reparam=reparam, cond=cond)
+
+
+def set_path(model, fused: bool) -> None:
+    """The kernel path (the fused set-transformer functions, and the gather
+    where the network looks up a pyramid) or the plain path."""
+    model.network.backbone.attn_impl = "folded_pallas" if fused else "xla"
+    if hasattr(model.network, "lookup_impl"):
+        model.network.lookup_impl = "pallas" if fused else "xla"
+
+
+def conditional_batches(device, count, batch, n_points, image_size, seed):
+    """Procedural conditional batches on the device: (points, Context3d)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        pts, images, K = make_conditional_batch(rng, batch, n_points, image_size)
+        out.append((torch.from_numpy(pts).to(device),
+                    Context3d(image=torch.from_numpy(images).to(device),
+                              K=torch.from_numpy(K).to(device))))
+    return out
+
+
+def conditional_sample_path(device, batch, n_points, n_layers, n_steps, image_size,
+                            compare_batch, reps):
+    """The conditional sampler through ``Diffusion.sample``: the ConvNeXt
+    once, the gather at every evaluation; then the kernel path against the
+    plain path from one latent, in diffusion space."""
+    model = build_conditional(device, torch.Generator().manual_seed(0), n_layers)
+    (_, raw), = conditional_batches(device, 1, batch, n_points, image_size, seed=0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    shape = (batch, n_points, 3)
+    model.sample(gen, shape, raw_ctx=raw, n_solver_steps=2)  # warm-up
+    with torch.no_grad():
+        convnext_ms = time_ms(lambda: model.cond(raw), device, reps)
+    sync(device)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.sample(gen, shape, raw_ctx=raw, n_solver_steps=n_steps, return_details=True)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+
+    for name in ("sample_diff", "sample_data"):
+        v = getattr(out, name)
+        if tuple(v.shape) != shape or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{name}: shape {tuple(v.shape)} or non-finite values")
+    evals = 2 * (n_steps - 1)
+    eval_ms = (1e3 * seconds - convnext_ms) / evals
+    print(f"  sampled {shape} in {seconds:.3f} s: {batch / seconds:.3f} clouds/s; ConvNeXt "
+          f"{convnext_ms:.3f} ms per batch of {batch} images (once per call); {evals} denoiser "
+          f"evals, {eval_ms:.3f} ms each")
+    expected = {k: n_layers * evals for k in SET_FORWARD}
+    check_counts("conditional sampler", counts,
+                 expected_counts(dict(expected, projective_gather=evals)), device)
+
+    latent = model.schedule.sample_latent(gen, (compare_batch, n_points, 3), device)
+    small = Context3d(image=raw.image[:compare_batch], K=raw.K[:compare_batch])
+    diffs = []
+    for fused in (True, False):
+        set_path(model, fused)
+        diffs.append(model.sample_from_latent(latent, raw_ctx=small, n_solver_steps=8,
+                                              return_details=True).sample_diff)
+    set_path(model, True)
+    check("8-step conditional sample (diffusion space), kernel path vs plain path",
+          rel_err(*diffs), TOL_PATH)
+    return counts, dict(batch=batch, seconds=seconds, clouds_per_s=batch / seconds,
+                        convnext_ms=convnext_ms, eval_ms=eval_ms)
+
+
+def conditional_train_phase(device, n_layers, batch, n_points, image_size, card, steps):
+    """The conditional train step: the gradient of the kernel path against
+    the plain path, then ``steps`` = (warm-up, timed) steps with the
+    config's optimizer; returns the launch counts of the timed steps and a
+    record."""
+    warmup, timed = steps
+    model = build_conditional(device, torch.Generator().manual_seed(0), n_layers)
+    gen = torch.Generator(device=device).manual_seed(1)
+    data = conditional_batches(device, 2, batch, n_points, image_size, seed=1)
+
+    pts, raw = data[0]
+    sigma, noise = model.draw_sigma_noise(gen, pts)
+    compare_grads(model, lambda: model.loss_from(pts, sigma, noise, raw), TOL_TRAIN_GRAD)
+
+    ema = make_ema(model)
+    opt = conditional_optimizer()
+    opt_state = opt.init(list(model.parameters()))
+    step = make_train_step(opt, ema_alpha=0.999)
+
+    def run(q):
+        nonlocal opt_state
+        pts, raw = data[q % len(data)]
+        loss, opt_state = step(model, ema, opt_state, pts, gen, raw_ctx=raw)
+        return loss
+
+    for q in range(warmup):
+        run(q)
+    sync(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [run(q) for q in range(timed)]
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    losses = [float(v) for v in losses]
+    ms = 1e3 * seconds / timed
+    print(f"  {timed} steps at batch {batch}: {ms:.3f} ms/step, "
+          f"{batch * timed / seconds:.3f} clouds/s trained on {card}")
+    print(f"  losses: {' '.join(f'{v:.4f}' for v in losses)}")
+    check_finite(losses, model, ema)
+    # remat: every set-transformer forward kernel runs again in the backward
+    expected = {k: 2 * n_layers * timed for k in SET_FORWARD}
+    expected.update({k: n_layers * timed for k in BACKWARD})
+    expected.update({k: timed for k in GATHER})
+    check_counts("conditional training", counts, expected_counts(expected), device)
+    profile_steps(lambda: run(0), PROFILE_STEPS, device)
+
+    # the ConvNeXt alone, forward and backward at the step's batch (its
+    # LayerNorms, GELUs and GEMMs too, which the profile's split leaves in
+    # "the rest")
+    def convnext_step():
+        feats = model.cond(data[0][1]).features
+        torch.autograd.backward(feats, [torch.ones_like(f) for f in feats])
+
+    convnext_ms = time_ms(convnext_step, device, reps=5, warmup=1)
+    model.zero_grad(set_to_none=True)
+    print(f"  the ConvNeXt alone: forward + backward {convnext_ms:.3f} ms per batch of {batch}")
+    return counts, dict(ms_per_step=ms, losses=losses, convnext_ms=convnext_ms)
 
 
 def main_path(device, batch, n_points, n_layers, n_steps, compare_batch):
@@ -680,19 +1075,16 @@ def main_path(device, batch, n_points, n_layers, n_steps, compare_batch):
     if tuple(out.shape) != (batch, n_points, 3) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"sample: shape {tuple(out.shape)} or non-finite values")
     evals = 2 * (n_steps - 1)
-    expected = {fn.__name__: n_layers * evals if fn in kernels.FORWARD_KERNELS else 0
-                for fn in kernels.KERNELS}
     print(f"  sampled {tuple(out.shape)} in {seconds:.3f} s: {batch / seconds:.3f} clouds/s "
           f"({evals} denoiser evals, {1e3 * seconds / evals:.3f} ms each)")
-    print(f"  launches per kernel (expected {n_layers * evals} forward, 0 backward): {counts}")
-    if device.type == "cuda" and counts != expected:
-        raise AssertionError(f"launch counts {counts} != {expected}")
+    check_counts("sampler", counts, expected_counts({k: n_layers * evals for k in SET_FORWARD}),
+                 device)
 
     latent = model.schedule.sample_latent(gen, (compare_batch, n_points, 3), device)
     fused = model.sample_from_latent(latent, n_solver_steps=8)
-    model.network.backbone.attn_impl = "xla"
+    set_path(model, False)
     plain = model.sample_from_latent(latent, n_solver_steps=8)
-    model.network.backbone.attn_impl = "folded_pallas"
+    set_path(model, True)
     check("8-step sample, kernel path vs plain path", rel_err(fused, plain), TOL_PATH)
     return counts, dict(batch=batch, seconds=seconds, clouds_per_s=batch / seconds)
 
@@ -705,10 +1097,13 @@ def main():
 
     if args.rehearse:
         device = torch.device("cpu")
+        torch.set_num_threads(2)  # the tests run it beside other workers
         shapes = dict(batch=2, n_points=128, feature_dim=64, num_inducers=16, num_heads=4)
         big = dict(batch=1, n_points=256, feature_dim=128, num_inducers=16, num_heads=8)
         dt, reps, n_layers, batch, n_points, n_steps = torch.bfloat16, 1, 2, 2, 128, 3
-        train_batch = 2
+        train_batch = cond_batch = 2
+        image_size, render_size = 32, 37
+        train_steps = (1, 2)
     else:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")
@@ -717,7 +1112,9 @@ def main():
         big = dict(SCALED_8K, batch=2)
         dt, reps, n_layers, batch, n_points, n_steps = (
             torch.bfloat16, 20, FLAGSHIP["n_layers"], BATCH, FLAGSHIP["n_points"], N_STEPS)
-        train_batch = TRAIN_BATCH
+        train_batch, cond_batch = TRAIN_BATCH, COND_BATCH
+        image_size, render_size = IMAGE_SIZE, RENDER_SIZE
+        train_steps = (TRAIN_WARMUP, TRAIN_STEPS)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -753,25 +1150,54 @@ def main():
           f"8k pool {big}) on {card}")
     rec.update(backward_phase(device, train_shapes, big, dt, reps))
 
+    print(f"== projective gather vs plain versions (batch {cond_batch}, {n_points} points; "
+          f"pyramids of {image_size}^2 and {render_size}^2 images) on {card}")
+    rec.update(gather_phase(device, cond_batch, n_points, image_size, render_size, dt, reps))
+
     print(f"== sampler path: flagship x{n_layers} layers, batch {batch}, {n_points} points, "
           f"{n_steps}-step Heun, on {card}")
     counts, path = main_path(device, batch, n_points, n_layers, n_steps, compare_batch=8)
     print(f"  {path['clouds_per_s']:.3f} clouds/s on {card}")
 
     print(f"== training path: flagship x{n_layers} layers, batch {train_batch}, {n_points} "
-          f"points, {TRAIN_WARMUP} + {TRAIN_STEPS} steps, on {card}")
-    train_counts, train = train_phase(device, n_layers, train_batch, n_points, card)
+          f"points, {train_steps[0]} + {train_steps[1]} steps, on {card}")
+    train_counts, train = train_phase(device, n_layers, train_batch, n_points, card, train_steps)
+
+    print(f"== conditional sampler path: ConvNeXt-tiny + RayNetwork + x{n_layers} layers, "
+          f"batch {cond_batch}, {image_size}^2 images, {n_points} points, {n_steps}-step Heun, "
+          f"on {card}")
+    cond_counts, cond_path = conditional_sample_path(
+        device, cond_batch, n_points, n_layers, n_steps, image_size, compare_batch=min(8, cond_batch),
+        reps=reps)
+    print(f"  {cond_path['clouds_per_s']:.3f} clouds/s on {card}")
+
+    print(f"== conditional training path: x{n_layers} layers with remat, batch {cond_batch}, "
+          f"{image_size}^2 images, {n_points} points, {train_steps[0]} + {train_steps[1]} steps, "
+          f"on {card}")
+    cond_train_counts, cond_train = conditional_train_phase(
+        device, n_layers, cond_batch, n_points, image_size, card, train_steps)
 
     print("== summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
+    print(f"  launches on the conditional sampler path: {cond_counts}")
+    print(f"  launches on the conditional training path: {cond_train_counts}")
     print(f"  sampler {path['clouds_per_s']:.3f} clouds/s (batch {batch}); train step "
-          f"{train['ms_per_step']:.3f} ms (batch {train_batch}); {card}")
-    # launches: the sampler path's count for a forward kernel, the training
-    # path's for a backward one (both printed above)
+          f"{train['ms_per_step']:.3f} ms (batch {train_batch}); conditional sampler "
+          f"{cond_path['clouds_per_s']:.3f} clouds/s (batch {cond_batch}; ConvNeXt "
+          f"{cond_path['convnext_ms']:.3f} ms, {cond_path['eval_ms']:.3f} ms per evaluation); "
+          f"conditional train step {cond_train['ms_per_step']:.3f} ms (batch {cond_batch}; "
+          f"ConvNeXt forward + backward {cond_train['convnext_ms']:.3f} ms); {card}")
+    # launches: each kernel's count on the path that first brought it in
+    # (printed above): the flagship sampler's for a set-transformer forward
+    # kernel, the flagship training path's for a backward one, the
+    # conditional sampler's for the gather and the conditional training
+    # path's for its backward
+    source_counts = {"projective_gather": cond_counts, "projective_gather_bwd": cond_train_counts}
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
-             launches=(train_counts if name in BACKWARD else counts)[name], **rec[name])
+             launches=source_counts.get(name, train_counts if name in BACKWARD else counts)[name],
+             **rec[name])
         for name in SOURCES
     ]}
     if args.rehearse:

@@ -14,8 +14,8 @@ from gecco_tpu_torch.diffusion import (
     NoCond,
     Schedule,
 )
-from gecco_tpu_torch.reparam import GaussianReparam, Reparam
-from gecco_tpu_torch.types import SampleDetails
+from gecco_tpu_torch.reparam import GaussianReparam, Reparam, UVLReparam
+from gecco_tpu_torch.types import Context3d, Example, SampleDetails
 
 __version__ = "0.1.0"
 
@@ -27,6 +27,9 @@ __all__ = [
     "Schedule",
     "GaussianReparam",
     "Reparam",
+    "UVLReparam",
+    "Context3d",
+    "Example",
     "SampleDetails",
     "__version__",
 ]

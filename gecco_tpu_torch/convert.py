@@ -3,14 +3,25 @@
 The JAX package's model is a pytree whose leaves are named by their dotted
 path (``network.backbone.layers.broadcast.pool.kv_proj.weight``,
 ``network.backbone.layers.mlp.activation.alpha``, ``reparam.std``, ...).
-Its set-transformer layers are stacked: each leaf under
-``network.backbone.layers`` carries a leading ``[L]`` axis. The port names
-its parameters and buffers by the same paths, with the layer index after
-``layers`` (``network.backbone.layers.3.broadcast.pool.kv_proj.weight``).
+Some of its modules are stacked: each leaf under one of ``STACKED_PREFIXES``
+(the set-transformer layers ``network.backbone.layers``, each ConvNeXt stage
+``cond.backbone.stages.<k>``, and the same under a ``Frozen`` wrapper's
+``cond.inner``) carries a leading axis over the layers or blocks. The port
+names its parameters and buffers by the same paths, with the layer or block
+index after the prefix (``network.backbone.layers.3.broadcast.pool.kv_proj.weight``,
+``cond.backbone.stages.2.8.dw_kernel``). The convolution kernels keep the
+JAX package's HWIO layout in the port, so they move unchanged.
+
+The JAX pytree of the image-conditional model holds its reparam twice, as
+``reparam`` and ``network.reparam``; the port's ``RayNetwork`` keeps the
+model's reparam out of its module tree, so the port holds it once. Such a
+duplicate JAX leaf (``ALIASES``) is accepted when it equals the leaf it
+duplicates, and ``to_jax_params`` writes both paths back.
+
 Flattening the JAX pytree into the ``{path: array}`` mapping is the
 caller's job (the port imports no JAX). ``load_jax_params`` copies such a
 mapping into the port; ``to_jax_params`` is its inverse, over the port's
-values or gradients, with the per-layer tensors stacked back to ``[L, ...]``.
+values or gradients, with the stacked tensors stacked back.
 """
 
 from __future__ import annotations
@@ -22,9 +33,35 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_jax_params", "to_jax_params"]
+__all__ = ["ALIASES", "STACKED_PREFIXES", "load_jax_params", "to_jax_params"]
 
-_STACKED = re.compile(r"^(network\.backbone\.layers)\.(\d+)\.(.+)$")
+STACKED_PREFIXES = (
+    r"network\.backbone\.layers",
+    r"cond\.(?:inner\.)?backbone\.stages\.\d+",
+)
+_STACKED = re.compile(rf"^({'|'.join(STACKED_PREFIXES)})\.(\d+)\.(.+)$")
+# duplicate JAX prefix -> the prefix of the leaves it duplicates
+ALIASES = {"network.reparam.": "reparam."}
+
+
+def _alias_of(model: nn.Module, key: str):
+    """The path that JAX leaf ``key`` duplicates in ``model``, or None."""
+    for dup, orig in ALIASES.items():
+        if key.startswith(dup) and _holds_alias(model, dup):
+            return orig + key[len(dup):]
+    return None
+
+
+def _holds_alias(model: nn.Module, dup: str) -> bool:
+    """Whether the module at ``dup`` (e.g. ``network.reparam``) is, outside
+    the module tree, the same object as the model's own."""
+    owner_path, attr = dup.rstrip(".").rsplit(".", 1)
+    try:
+        owner = model.get_submodule(owner_path)
+    except AttributeError:
+        return False
+    held = owner.__dict__.get(attr)
+    return held is not None and held is getattr(model, attr, None)
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> nn.Module:
@@ -54,6 +91,13 @@ def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> nn.Mo
             )
         staged[name] = value
         used.add(key)
+    for key in sorted(set(params) - used):
+        orig = _alias_of(model, key)
+        if orig is None or orig not in params:
+            continue
+        if not np.array_equal(np.asarray(params[key]), np.asarray(params[orig])):
+            raise ValueError(f"{key!r} differs from {orig!r}, the leaf it duplicates")
+        used.add(key)
     unused = sorted(set(params) - used)
     if unused:
         raise KeyError(f"JAX parameters not used by the port: {unused}")
@@ -66,10 +110,10 @@ def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> nn.Mo
 
 def to_jax_params(model: nn.Module, grads: bool = False) -> dict:
     """``{dotted JAX path: fp32 numpy array}`` of the port's parameters and
-    buffers, the per-layer tensors of ``network.backbone.layers`` stacked
-    back to ``[L, ...]``. With ``grads=True`` each parameter's ``.grad``
-    (zeros where it has none, and for buffers), the shape of the JAX
-    package's gradient pytree."""
+    buffers, the per-layer (per-block) tensors stacked back along a leading
+    axis and the duplicated leaves written under both paths. With
+    ``grads=True`` each parameter's ``.grad`` (zeros where it has none, and
+    for buffers), the shape of the JAX package's gradient pytree."""
     named = [(n, p, True) for n, p in model.named_parameters()]
     named += [(n, b, False) for n, b in model.named_buffers()]
     flat, stacked = {}, {}
@@ -84,4 +128,8 @@ def to_jax_params(model: nn.Module, grads: bool = False) -> dict:
             flat[name] = arr
     for key, layers in stacked.items():
         flat[key] = np.stack([layers[q] for q in range(len(layers))])
+    for dup, orig in ALIASES.items():
+        if _holds_alias(model, dup):
+            flat.update({dup + k[len(orig):]: v.copy() for k, v in list(flat.items())
+                         if k.startswith(orig)})
     return flat

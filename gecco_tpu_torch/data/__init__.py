@@ -1,3 +1,3 @@
-from gecco_tpu_torch.data.procedural import make_clouds
+from gecco_tpu_torch.data.procedural import CAMERA_K, make_clouds, make_conditional_batch
 
-__all__ = ["make_clouds"]
+__all__ = ["CAMERA_K", "make_clouds", "make_conditional_batch"]

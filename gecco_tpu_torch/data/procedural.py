@@ -1,12 +1,16 @@
-"""Procedural point-cloud mixture for training without a dataset (the
-port's copy of ``make_clouds`` in ``scripts/validate_flagship.py``; numpy
-only, so the same ``np.random.Generator`` gives the same clouds)."""
+"""Procedural data for training without a dataset, numpy only, so the same
+``np.random.Generator`` gives the same batch: the point-cloud mixture (the
+port's copy of ``make_clouds`` in ``scripts/validate_flagship.py``) and an
+image-conditional batch built on it."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["make_clouds"]
+__all__ = ["CAMERA_K", "make_clouds", "make_conditional_batch"]
+
+# the intrinsics of the image-conditional benchmark (bench.py)
+CAMERA_K = np.array([[0.75, 0.0, 0.5], [0.0, 0.75, 0.5], [0.0, 0.0, 1.0]], np.float32)
 
 
 def make_clouds(
@@ -55,3 +59,18 @@ def make_clouds(
         pts *= 0.35 / (pts.std() + 1e-8)
         out[idx] = pts
     return out
+
+
+def make_conditional_batch(rng: np.random.Generator, n: int, n_points: int,
+                           image_size: int = 256) -> tuple:
+    """An image-conditional batch -> (points [n, n_points, 3], images
+    [n, S, S, 3], K [n, 3, 3]), all float32.
+
+    The images are uniform in [0, 1) and every camera is ``CAMERA_K``, as the
+    conditional benchmark of ``bench.py`` makes them. The points are
+    ``make_clouds`` scaled by 0.5 and shifted to z = 2 in front of the
+    camera: the clouds stay within about 0.6 of their centre, so every point
+    has z > 1.4 and projects to (h, w) well inside [0, 1]^2."""
+    points = make_clouds(rng, n, n_points) * 0.5 + np.array([0.0, 0.0, 2.0], np.float32)
+    images = rng.uniform(size=(n, image_size, image_size, 3)).astype(np.float32)
+    return points.astype(np.float32), images, np.broadcast_to(CAMERA_K, (n, 3, 3)).copy()

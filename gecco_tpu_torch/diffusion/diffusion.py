@@ -1,7 +1,9 @@
 """EDM diffusion model: preconditioned denoiser, the denoising loss and
 the deterministic sampler (counterpart of
 ``gecco_tpu/diffusion/diffusion.py``: ``NoCond``, ``mse``,
-``Diffusion.denoise``, ``Diffusion.loss`` and ``Diffusion.sample``).
+``Diffusion.denoise``, ``Diffusion.loss`` and ``Diffusion.sample``). The
+conditioner runs once per batch: in the loss, and once per ``sample`` call,
+its output shared by every solver step.
 
 The JAX loss draws sigma and the noise from a key inside the function; here
 the draw (``draw_sigma_noise``, from a ``torch.Generator``) and the loss from
@@ -23,6 +25,21 @@ from gecco_tpu_torch.types import SampleDetails
 from gecco_tpu_torch.utils.checks import check_points, check_sigma_batch
 
 __all__ = ["Diffusion", "NoCond", "mse"]
+
+
+def _tile_ctx(ctx: Any, n: int) -> Any:
+    """Repeat every batched tensor of ``ctx`` (a tensor, or a (named) tuple
+    of them, nested) ``n`` times along the batch axis, each example's copies
+    next to each other: n samples share one conditioned context."""
+    if n == 1:
+        return ctx
+    if isinstance(ctx, torch.Tensor):
+        return ctx.repeat_interleave(n, dim=0) if ctx.ndim >= 1 else ctx
+    if isinstance(ctx, tuple) and hasattr(ctx, "_fields"):
+        return type(ctx)(*(_tile_ctx(v, n) for v in ctx))
+    if isinstance(ctx, (tuple, list)):
+        return type(ctx)(_tile_ctx(v, n) for v in ctx)
+    return ctx
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -90,25 +107,29 @@ class Diffusion(nn.Module):
     @torch.no_grad()
     def sample(self, generator: torch.Generator, shape: tuple, raw_ctx: Any = None,
                ctx: Any = None, n_solver_steps: Optional[int] = None,
-               return_details: bool = False):
+               return_details: bool = False, n: int = 1):
         """Deterministic Heun probability-flow sampler over the Karras grid:
         the latent is drawn from ``generator`` (on its device) and moved to
-        the model's device."""
+        the model's device. The conditioner runs once on ``raw_ctx`` (or
+        ``ctx`` is its output); ``n > 1`` draws n samples per context, so
+        ``shape[0]`` is the context's batch times n."""
         if len(shape) != 3:
             raise ValueError(f"shape must be (B, N, D), got {shape}")
         device = next(self.network.parameters()).device
         latent = self.schedule.sample_latent(generator, shape, device)
-        return self.sample_from_latent(latent, raw_ctx, ctx, n_solver_steps, return_details)
+        return self.sample_from_latent(latent, raw_ctx, ctx, n_solver_steps, return_details, n)
 
     @torch.no_grad()
     def sample_from_latent(self, latent: torch.Tensor, raw_ctx: Any = None, ctx: Any = None,
-                           n_solver_steps: Optional[int] = None, return_details: bool = False):
+                           n_solver_steps: Optional[int] = None, return_details: bool = False,
+                           n: int = 1):
         """``sample`` from a given latent [B, N, D] in diffusion space."""
         if (ctx is not None) and (raw_ctx is not None):
             raise ValueError("Both `ctx` and `raw_ctx` were provided.")
         check_points(latent, "latent")
         if ctx is None:
             ctx = self.cond(raw_ctx)
+        ctx = _tile_ctx(ctx, n)
         sigmas = self.schedule.solver_grid(n_solver_steps, device=latent.device)
         x_final, traj = heun_sampler(
             lambda sigma, x: self.denoise(sigma, x, ctx), sigmas, latent,

@@ -1,4 +1,10 @@
 from gecco_tpu_torch.models.activation import GaussianActivation
+from gecco_tpu_torch.models.convnext import (
+    ConvNeXt,
+    ConvNeXtBlock,
+    ConvNeXtExtractor,
+    FeaturePyramidContext,
+)
 from gecco_tpu_torch.models.mlp import MLP
 from gecco_tpu_torch.models.normalization import AdaGN
 from gecco_tpu_torch.models.set_transformer import (
@@ -8,9 +14,13 @@ from gecco_tpu_torch.models.set_transformer import (
     SetTransformer,
     Unpool,
 )
-from gecco_tpu_torch.models.wrappers import UnconditionalPointNetwork
+from gecco_tpu_torch.models.wrappers import RayNetwork, UnconditionalPointNetwork
 
 __all__ = [
+    "ConvNeXt",
+    "ConvNeXtBlock",
+    "ConvNeXtExtractor",
+    "FeaturePyramidContext",
     "GaussianActivation",
     "MLP",
     "AdaGN",
@@ -19,5 +29,6 @@ __all__ = [
     "BroadcastingLayer",
     "SetTransformer",
     "Unpool",
+    "RayNetwork",
     "UnconditionalPointNetwork",
 ]

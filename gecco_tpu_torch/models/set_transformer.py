@@ -15,8 +15,12 @@ Two execution strategies compute the same function:
   sums, as on the plain path.
 
 The JAX package stacks the layers and scans over them; here they are an
-``nn.ModuleList`` walked by a Python loop. The cached-inducer upsampling
-path (``hs`` / ``return_h``) and ``ref_jax_compat`` are not ported yet.
+``nn.ModuleList`` walked by a Python loop. ``remat=True`` recomputes each
+layer in the backward pass (``torch.utils.checkpoint``, the JAX package's
+``jax.checkpoint`` around the scan body): the same function, with each
+forward kernel launched a second time per training step. The
+cached-inducer upsampling path (``hs`` / ``return_h``) and
+``ref_jax_compat`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gecco_tpu_torch.models.activation import GaussianActivation
 from gecco_tpu_torch.models.mlp import MLP
@@ -205,7 +210,7 @@ class SetTransformer(nn.Module):
     -> [B, N, C]``, computed in ``compute_dtype``."""
 
     def __init__(self, n_layers, feature_dim, num_inducers, embed_dim, num_heads=8, mlp_blowup=2,
-                 skip_scale=0.1, compute_dtype=torch.bfloat16, attn_impl="xla",
+                 skip_scale=0.1, compute_dtype=torch.bfloat16, attn_impl="xla", remat=False,
                  *, device=None, generator=None):
         super().__init__()
         self.layers = nn.ModuleList(
@@ -215,6 +220,7 @@ class SetTransformer(nn.Module):
         )
         self.compute_dtype = compute_dtype
         self.attn_impl = attn_impl
+        self.remat = remat
 
     @property
     def attn_impl(self) -> str:
@@ -251,7 +257,11 @@ class SetTransformer(nn.Module):
             else:
                 xf = x.float()
                 sums = torch.stack([xf.sum(1), (xf * xf).sum(1)], dim=1)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x, _, sums = layer(x, embed, self.attn_impl, in_sums=sums)
+            if remat:
+                x, _, sums = checkpoint(layer, x, embed, self.attn_impl, sums, use_reentrant=False)
+            else:
+                x, _, sums = layer(x, embed, self.attn_impl, in_sums=sums)
         x = x.to(in_dtype)
         return (x, sums) if with_sums else x

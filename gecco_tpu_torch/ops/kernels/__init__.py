@@ -13,12 +13,12 @@ from gecco_tpu_torch.ops.kernels.folded_attention import (
     fused_mlp_residual_bwd,
 )
 from gecco_tpu_torch.ops.kernels.hside import fused_h_side
+from gecco_tpu_torch.ops.kernels.projective_gather import projective_gather, projective_gather_bwd
 
 KERNELS = (
-    folded_pool_ext, fused_h_side, folded_unpool, fused_mlp_residual,
-    folded_pool_ext_bwd, folded_unpool_bwd, fused_mlp_residual_bwd,
+    folded_pool_ext, fused_h_side, folded_unpool, fused_mlp_residual, projective_gather,
+    folded_pool_ext_bwd, folded_unpool_bwd, fused_mlp_residual_bwd, projective_gather_bwd,
 )
-FORWARD_KERNELS = KERNELS[:4]
 
 
 def reset_launch_counts() -> None:
@@ -38,7 +38,8 @@ __all__ = [
     "fused_h_side",
     "fused_mlp_residual",
     "fused_mlp_residual_bwd",
-    "FORWARD_KERNELS",
+    "projective_gather",
+    "projective_gather_bwd",
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",

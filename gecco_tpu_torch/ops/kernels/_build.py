@@ -28,7 +28,10 @@ __all__ = ["KERNEL_SOURCES", "build_all", "library", "launch", "check_cuda"]
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("pool_ext", "hside", "unpool", "mlp", "pool_ext_bwd", "unpool_bwd", "mlp_bwd")
+KERNEL_SOURCES = (
+    "pool_ext", "hside", "unpool", "mlp", "pool_ext_bwd", "unpool_bwd", "mlp_bwd",
+    "projective_gather",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -6,6 +6,7 @@ from gecco_tpu_torch.train.optim import (
     apply_updates,
     chain,
     clip_by_global_norm,
+    conditional_optimizer,
     flagship_optimizer,
     scale_by_belief,
     scale_by_learning_rate,
@@ -18,6 +19,7 @@ __all__ = [
     "apply_updates",
     "chain",
     "clip_by_global_norm",
+    "conditional_optimizer",
     "ema_update",
     "flagship_optimizer",
     "make_ema",

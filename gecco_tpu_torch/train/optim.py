@@ -26,6 +26,7 @@ __all__ = [
     "apply_updates",
     "chain",
     "clip_by_global_norm",
+    "conditional_optimizer",
     "flagship_optimizer",
     "global_norm",
     "scale_by_belief",
@@ -156,3 +157,9 @@ def flagship_optimizer(num_steps: int = 1_000_000) -> Transform:
         clip_by_global_norm(1.0),
         adabelief(warmup_cosine_decay_schedule(0.0, 3e-4, 2000, num_steps, end_value=6e-6)),
     )
+
+
+def conditional_optimizer() -> Transform:
+    """The image-conditional config's optimizer: global-norm clip at 1, then
+    AdaBelief at a constant learning rate of 3e-4."""
+    return chain(clip_by_global_norm(1.0), adabelief(3e-4))

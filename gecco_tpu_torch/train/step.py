@@ -9,7 +9,7 @@ JAX step's donated buffers), and the optimizer state is returned.
 from __future__ import annotations
 
 import copy
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 from torch import nn
@@ -40,22 +40,24 @@ def ema_update(ema: nn.Module, model: nn.Module, alpha: float) -> None:
 
 def make_train_step(optimizer: Transform, loss_scale: float = 1.0, ema_alpha: float = 0.999):
     """The full train step ``step(model, ema, opt_state, points, generator,
-    sigma=None, noise=None) -> (loss, opt_state)``.
+    sigma=None, noise=None, raw_ctx=None) -> (loss, opt_state)``.
 
-    ``points`` [B, N, D] are data-space clouds on the model's device. Sigma
-    and the noise are drawn from ``generator`` unless both are given (the
-    tests feed the JAX package's draws). After the step each parameter's
-    ``.grad`` holds the gradient of that step's loss."""
+    ``points`` [B, N, D] are data-space clouds on the model's device and
+    ``raw_ctx`` their conditioning (a ``Context3d`` for the image-conditional
+    model, None for the unconditional one). Sigma and the noise are drawn
+    from ``generator`` unless both are given (the tests feed the JAX
+    package's draws). After the step each parameter's ``.grad`` holds the
+    gradient of that step's loss."""
 
     def step(model: nn.Module, ema: nn.Module, opt_state, points: torch.Tensor,
              generator: Optional[torch.Generator] = None, sigma: Optional[torch.Tensor] = None,
-             noise: Optional[torch.Tensor] = None):
+             noise: Optional[torch.Tensor] = None, raw_ctx: Any = None):
         params = list(model.parameters())
         if sigma is None or noise is None:
             sigma, noise = model.draw_sigma_noise(generator, points)
         for p in params:
             p.grad = None
-        loss = model.loss_from(points, sigma, noise, loss_scale=loss_scale)
+        loss = model.loss_from(points, sigma, noise, raw_ctx, loss_scale=loss_scale)
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         with torch.no_grad():

@@ -1,3 +1,3 @@
-from gecco_tpu_torch.utils.modules import Linear, count_parameters, resolve_device
+from gecco_tpu_torch.utils.modules import Frozen, Linear, count_parameters, resolve_device
 
-__all__ = ["Linear", "count_parameters", "resolve_device"]
+__all__ = ["Frozen", "Linear", "count_parameters", "resolve_device"]

@@ -1,4 +1,4 @@
-"""Dense layer, parameter count and device resolution.
+"""Dense layer, ``Frozen``, parameter count and device resolution.
 
 Counterpart of ``gecco_tpu/utils/modules.py``. The JAX package stacks the
 per-layer modules of a ``SetTransformer`` leaf-wise (a leading ``[L]`` axis)
@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["Linear", "count_parameters", "resolve_device"]
+__all__ = ["Frozen", "Linear", "count_parameters", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,6 +69,22 @@ class Linear(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
+
+
+class Frozen(nn.Module):
+    """Wrap a module so its parameters take no gradient: every call runs
+    ``inner`` on detached views of its parameters, so they stay in the
+    state dict (and in the optimizer's list, with zero gradients) but never
+    reach autograd. The inputs stay differentiable (the JAX package's
+    ``stop_gradient`` on the inner module's leaves)."""
+
+    def __init__(self, inner: nn.Module):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, *args, **kwargs):
+        params = {name: p.detach() for name, p in self.inner.named_parameters()}
+        return torch.func.functional_call(self.inner, params, args, kwargs)
 
 
 def count_parameters(module: nn.Module) -> int:

@@ -23,6 +23,11 @@ from gecco_tpu_torch.ops import kernels
 from gecco_tpu_torch.ops.kernels import folded_attention as tfa
 from gecco_tpu_torch.ops.kernels._grad import needs_grad
 from gecco_tpu_torch.ops.kernels import hside as ths
+from gecco_tpu_torch.ops.kernels.projective_gather import (
+    _gather_ref,
+    projective_gather,
+    projective_gather_bwd,
+)
 
 RTOL, ATOL = 1e-4, 1e-5
 C, HEADS, I, B, N = 64, 4, 16, 2, 256
@@ -156,12 +161,14 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         *tfa.folded_unpool(*_leaves(_unpool_args(5, False)), HEADS),
         *tfa.fused_mlp_residual(*_leaves(_mlp_args(5))),
         *ths.fused_h_side(*_leaves(_hside_args(5))),
+        projective_gather(*_gather_leaves(5)),
     ]
     # through every forward and every backward
     torch.autograd.backward([o.float().square().sum() for o in outs])
     assert kernels.launch_counts() == {
         "folded_pool_ext": 0, "fused_h_side": 0, "folded_unpool": 0, "fused_mlp_residual": 0,
-        "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0, "fused_mlp_residual_bwd": 0,
+        "projective_gather": 0, "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0,
+        "fused_mlp_residual_bwd": 0, "projective_gather_bwd": 0,
     }
 
 
@@ -297,3 +304,41 @@ def test_pool_forward_keeps_no_graph_and_no_statistics_without_grad():
         out, sums = tfa.folded_unpool(*_leaves(_unpool_args(17, False)), HEADS)
     assert h0.grad_fn is None and out.grad_fn is None and sums.grad_fn is None
     assert needs_grad(*leaves) and not needs_grad(*(x.detach() for x in leaves))
+
+
+# ------------------------------------------------------ projective gather --
+
+# the pyramid of the dataset's 137x137 renders (34^2, 17^2, 8^2) at narrow
+# widths; the JAX package's gather is held in tests/test_torch_conditional.py
+
+
+def _gather_args(seed, sizes=((34, 34, 8), (17, 17, 16), (8, 8, 32))):
+    """Levels [B, H, W, C] and hw01 [B, N, 2] in [-0.1, 1.1], so that
+    corners fall outside the image on every side."""
+    rng = np.random.default_rng(seed)
+    levels = [rng.standard_normal((B, h, w, c)).astype(np.float32) for h, w, c in sizes]
+    hw01 = rng.uniform(-0.1, 1.1, (B, 96, 2)).astype(np.float32)
+    return levels, hw01
+
+
+def _gather_leaves(seed):
+    levels, hw01 = _gather_args(seed)
+    return [torch.from_numpy(lv).requires_grad_(True) for lv in levels], \
+        torch.from_numpy(hw01).requires_grad_(True)
+
+
+def test_projective_gather_bwd_wrapper_matches_autograd_of_the_plain_version():
+    """``projective_gather_bwd`` (what the CUDA backward kernel replaces) on
+    CPU tensors is exactly autograd through the plain forward; without a
+    coordinate gradient it returns None for it."""
+    levels, hw01 = _gather_args(23)
+    rng = np.random.default_rng(24)
+    g = _cotangent(rng, B, 96, sum(lv.shape[-1] for lv in levels))
+    lv_t = [torch.from_numpy(lv) for lv in levels]
+    dhw, dlevels = projective_gather_bwd(lv_t, torch.from_numpy(hw01), torch.from_numpy(g))
+    want = _port_grads(lambda hw, *lv: _gather_ref(hw, *lv), [hw01, *levels], [g])
+    for a, r in zip([dhw, *dlevels], want):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    none, again = projective_gather_bwd(lv_t, torch.from_numpy(hw01), torch.from_numpy(g),
+                                            coords_grad=False)
+    assert none is None and all(torch.equal(a, b) for a, b in zip(again, dlevels))

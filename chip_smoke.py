@@ -6,10 +6,10 @@
 Phases (each raises on failure; nothing is caught):
 
 1. environment: torch, nvcc, the card's name and power limit;
-2. build: the nine CUDA kernels of ``gecco_tpu_torch/csrc`` (five forward,
-   four backward; eight libraries, the projective gather's forward and
-   backward in one) with nvcc for sm_90a, one process per source, all at
-   once, with ``ptxas -v``'s registers and spills;
+2. build: the twelve CUDA kernels of ``gecco_tpu_torch/csrc`` (seven
+   forward, five backward; eleven libraries, the projective gather's
+   forward and backward in one) with nvcc for sm_90a, one process per
+   source, all at once, with ``ptxas -v``'s registers and spills;
 3. forward kernels: each set-transformer kernel against its plain PyTorch
    version on the card, in bf16, at the sampler's flagship shapes (batch
    64; ordinary and drifted operands), the pool also at the 8k width; each
@@ -28,21 +28,30 @@ Phases (each raises on failure; nothing is caught):
    pyramid of the dataset's renders, coordinates in [-0.1, 1.1]; times,
    bounds and ``grid_sample`` (forward, and its autograd backward) as the
    library yardstick;
-6. sampler path: the flagship (6 x 384, 64 inducers, 8 heads, bf16,
+6. per-head attention and megakernel: the rect-attention forward (o and
+   lse) against its plain version in both directions of the per-head
+   model (pool: 64 inducer queries against 2048 points; unpool: the
+   reverse) at the sampler's batch 64, ordinary and drifted, and at the 8k
+   width; its backward (dq, dk, dv) against autograd of the plain version
+   at the training batch 48; ``scaled_dot_product_attention`` (forward,
+   and its backward) on the same q/k/v as the yardstick; the unpool + MLP
+   megakernel against the plain composition and the two separate kernels
+   at the sampler's shapes, timed beside both;
+7. sampler path: the flagship (6 x 384, 64 inducers, 8 heads, bf16,
    ``attn_impl="folded_pallas"``) from the port's seeded init samples
    2048-point clouds with the 128-step Heun grid through
    ``Diffusion.sample``; every set-transformer forward kernel's launch
    count must equal 6 layers x 2 x 127 evaluations and no other kernel may
    launch; then, from one latent on an 8-step grid, the kernel path against
    the plain path (``attn_impl="xla"``);
-7. training path: the same flagship trains on procedural clouds (batch 48
+8. training path: the same flagship trains on procedural clouds (batch 48
    x 2048 points) with the config's optimizer (global-norm clip 1,
    AdaBelief, warmup-cosine learning rate) and EMA 0.999: one step's
    gradient of the kernel path against the plain path's from the same
    weights, batch, sigma and noise, per parameter group; then 3 warm-up and
    20 timed steps through ``make_train_step``, every set-transformer kernel
    launched exactly 6 times per step, losses and parameters finite;
-8. conditional sampler path: the image-conditional model of
+9. conditional sampler path: the image-conditional model of
    ``configs/shapenet_vol_conditional.py`` (UVL reparam, ConvNeXt-tiny
    pyramid, ``RayNetwork(lookup_impl="pallas")`` over the same backbone with
    ``remat=True``) from the port's seeded init samples 2048-point clouds for
@@ -51,7 +60,7 @@ Phases (each raises on failure; nothing is caught):
    6 x 254 times, no backward kernel; then, from one latent on an 8-step
    grid, the kernel path against the plain path (``attn_impl="xla"``,
    ``lookup_impl="xla"``) in diffusion space;
-9. conditional training path: one step's gradient of the kernel path
+10. conditional training path: one step's gradient of the kernel path
    against the plain path per parameter group (the ConvNeXt's stem, stages
    and downsamples and ``ctx_dim_reductor`` among them), then 3 warm-up and
    20 timed steps at batch 48 with the config's optimizer (clip 1, AdaBelief
@@ -59,7 +68,21 @@ Phases (each raises on failure; nothing is caught):
    each set-transformer forward kernel 12 times (``remat`` recomputes every
    layer) and each backward kernel 6 times; a ``torch.profiler`` split of
    the device time (gather, set-transformer kernels, the ConvNeXt's
-   convolutions, the rest).
+   convolutions, the rest);
+11. per-head sampler path: the flagship with ``attn_impl="pallas"`` (the
+   per-head modules, their attention through the rect-attention kernel)
+   samples as in phase 7: the rect-attention forward 6 x 2 x 254 times, no
+   other kernel; then the 8-step sample against the plain path;
+12. per-head training path: the same model trains at batch 48 as in phase
+   8: one step's gradient against the plain path per parameter group, then
+   3 + 20 steps, the rect-attention forward and backward 12 times each per
+   step and no other kernel, finite losses and parameters, peak memory;
+13. megakernel sampler path: the flagship of phase 7 with
+   ``GECCO_UNPOOL_MLP_MEGAKERNEL=1`` set in the process samples at batch
+   64: per sample the megakernel, the pool and the h-side 6 x 254 times
+   each, the separate unpool and MLP never; then the 8-step sample against
+   the separate kernels' path and against the plain path; the variable is
+   restored.
 
 It prints the kernels' JSON line, then the card's name and power limit, then
 the device line, last. It imports nothing of JAX or of gecco_tpu, and fails
@@ -106,6 +129,7 @@ from gecco_tpu_torch.train import (  # noqa: E402
 from gecco_tpu_torch.ops.kernels import _build  # noqa: E402
 from gecco_tpu_torch.ops.kernels import folded_attention as fa  # noqa: E402
 from gecco_tpu_torch.ops.kernels import hside as hs  # noqa: E402
+from gecco_tpu_torch.ops.kernels import induced_attention as ia  # noqa: E402
 from gecco_tpu_torch.ops.kernels.projective_gather import (  # noqa: E402
     _gather_bwd_ref,
     _gather_ref,
@@ -171,13 +195,26 @@ TOL_GATHER_DCOORD = 1e-3
 # width). The witness: the same algebra in plain PyTorch, against which the
 # kernel's dbe is held at TOL_AFFINE.
 TOL_POOL_DRIFT_DBE = 1e-1
+# the rect attention's lse: fp32 throughout in both, summed in other orders
+# (and, where the keys span several tiles, through a running max and sum)
+TOL_LSE = 1e-5
+# the megakernel's 8-step sample against the separate kernels' path: the
+# same device code, but the mlp_norm statistics summed by fp32 atomics in
+# another order (and rsqrtf), which moves bf16 roundings of the pre-norm
+TOL_MEGA_PATH = 3e-2
 # one train step's gradient, kernel path vs plain (xla) path from the same
 # weights, batch, sigma and noise, bf16 activations through 6 layers:
 # ||kernel - plain|| / ||plain|| per parameter group (the two paths round
 # at different points in every layer, forward and backward; measured on
 # the CPU at small shapes: up to 1.4e-2 max-relative against the JAX
-# package)
+# package). The per-head path reads 4.7e-2 in the unpool's q/k
+# projections: the TPU backward algebra's delta from the bf16 o, which
+# its fp32 and algebra witnesses separate from the kernel (ROADMAP.md C)
 TOL_TRAIN_GRAD = 5e-2
+# the per-head path's gradient against the same path with the backward
+# swapped for a plain PyTorch copy of the TPU kernel's algebra: the same
+# roundings, summed in other orders
+TOL_ALGEBRA_GRAD = 1e-2
 
 SOURCES = {
     "folded_pool_ext": ("gecco_tpu_torch/csrc/pool_ext.cu",
@@ -197,9 +234,17 @@ SOURCES = {
                           "gecco_tpu/ops/pallas/projective_gather.py:40"),
     "projective_gather_bwd": ("gecco_tpu_torch/csrc/projective_gather.cu",
                               "gecco_tpu/ops/pallas/projective_gather.py:86"),
+    "rect_attention_fwd": ("gecco_tpu_torch/csrc/induced_attention.cu",
+                           "gecco_tpu/ops/pallas/induced_attention.py:67"),
+    "rect_attention_bwd": ("gecco_tpu_torch/csrc/induced_attention_bwd.cu",
+                           "gecco_tpu/ops/pallas/induced_attention.py:241"),
+    "fused_unpool_mlp": ("gecco_tpu_torch/csrc/unpool_mlp.cu",
+                         "gecco_tpu/ops/pallas/folded_attention.py:3176"),
 }
 SET_FORWARD = ("folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual")
-BACKWARD = ("folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd")
+BACKWARD = ("folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd",
+            "rect_attention_bwd")
+FOLDED_BACKWARD = BACKWARD[:3]
 GATHER = ("projective_gather", "projective_gather_bwd")
 
 
@@ -705,6 +750,181 @@ def gather_phase(device, b, n, image_size, render_size, dt, reps):
     return rec
 
 
+# ----------------------------------------- per-head attention, megakernel --
+
+
+def attn_operands(g, b, n, c, heads, i, direction, drift, device, dt):
+    """q, k, v as the per-head modules hand them to the kernel: [B, H, *, D]
+    views of their [B, *, C] projections (the pool: the [H, I, D] inducers
+    broadcast over the batch against the two halves of the [B, N, 2C] kv
+    projection; the unpool: N point queries against I inducer tokens); with
+    ``drift`` the keys carry ``head_scales``, logits in the hundreds."""
+    d = c // heads
+    r = lambda *sh: torch.randn(*sh, generator=g, device=device)
+    split = lambda t: t.reshape(t.shape[0], t.shape[1], heads, d).transpose(1, 2)
+    scales = head_scales(c, heads, drift, device)
+    if direction == "pool":
+        q = r(heads, i, d).to(dt)[None].expand(b, -1, -1, -1)
+        kv = r(b, n, 2 * c)
+        kv[..., :c] *= scales
+        k, v = (split(t) for t in kv.to(dt).chunk(2, dim=-1))
+        return q, k, v
+    return split(r(b, n, c).to(dt)), split((r(b, i, c) * scales).to(dt)), split(r(b, i, c).to(dt))
+
+
+def q_bytes(q) -> int:
+    """Bytes of q's distinct elements (the pool's inducers once)."""
+    return (q[0] if q.stride(0) == 0 else q).numel() * q.element_size()
+
+
+def attention_phase(device, shapes, train_batch, big, dt, reps):
+    """The rect-attention forward and backward kernels and the unpool + MLP
+    megakernel against their plain versions; returns per-kernel records. A
+    rect-attention record sums a layer's two calls (pool and unpool)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=device).manual_seed(4)
+    b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
+        shapes["num_heads"], shapes["num_inducers"]
+    d, j, w = c // heads, heads * i, 2 * c
+    rec = {}
+
+    def tag(direction, drift, width=""):
+        return f"{direction}{width}, {'drift' if drift else 'ordinary'}"
+
+    # forward: o and lse, both directions at the sampler's batch, then the 8k width
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0)
+    errs = []
+    for direction in ("pool", "unpool"):
+        for drift in (False, True):
+            q, k, v = attn_operands(g, b, n, c, heads, i, direction, drift, device, dt)
+            (o, lse), (ro, rl) = ia.rect_attention_fwd(q, k, v), ia._rect_attention_ref(q, k, v)
+            sync(device)
+            check(f"rect_attention_fwd [{tag(direction, drift)}] o", rel_err(o, ro), TOL_OUT)
+            check(f"rect_attention_fwd [{tag(direction, drift)}] lse", rel_err(lse, rl), TOL_LSE)
+            errs.append(abs_err(o, ro))
+        q, k, v = attn_operands(g, b, n, c, heads, i, direction, False, device, dt)
+        ms = time_ms(lambda: ia.rect_attention_fwd(q, k, v), device, reps)
+        plain_ms = time_ms(lambda: ia._rect_attention_ref(q, k, v), device, max(2, reps // 4))
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc), device, reps)
+        m_rows, n_keys = q.shape[2], k.shape[2]
+        flops = 4 * b * heads * m_rows * n_keys * d
+        # q once, k, v; o (bf16) and lse (fp32) written
+        bytes_ = q_bytes(q) + nbytes(k, v) + b * heads * m_rows * (2 * d + 4)
+        bms, by = bound(flops, bytes_)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("flops", flops), ("bytes", bytes_)):
+            tot[key] += val
+        print(f"  rect_attention_fwd {direction} (q {tuple(q.shape)}, k/v {tuple(k.shape)}): "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, "
+              f"bound {bms:.3f} ms ({by})")
+    for direction in ("pool", "unpool"):
+        for drift in (False, True):
+            q, k, v = attn_operands(g, big["batch"], big["n_points"], big["feature_dim"],
+                                    big["num_heads"], big["num_inducers"], direction, drift,
+                                    device, dt)
+            (o, lse), (ro, rl) = ia.rect_attention_fwd(q, k, v), ia._rect_attention_ref(q, k, v)
+            sync(device)
+            check(f"rect_attention_fwd [{tag(direction, drift, ' 8k width')}] o", rel_err(o, ro),
+                  TOL_OUT)
+            check(f"rect_attention_fwd [{tag(direction, drift, ' 8k width')}] lse",
+                  rel_err(lse, rl), TOL_LSE)
+    bms, by = bound(tot["flops"], tot["bytes"])
+    rec["rect_attention_fwd"] = dict(max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
+                                     bound_ms=bms, bound_by=by, library_ms=tot["library_ms"])
+
+    # backward: dq, dk, dv at the training batch, then the 8k width
+    def bwd_case(bb, nn_, cc, hh, ii, direction, drift):
+        q, k, v = attn_operands(g, bb, nn_, cc, hh, ii, direction, drift, device, dt)
+        o, lse = ia.rect_attention_fwd(q, k, v)
+        gg = torch.randn(o.shape, generator=g, device=device).to(dt)
+        return (q, k, v, o, lse, gg)
+
+    def bwd_check(label, ops):
+        got, want = ia.rect_attention_bwd(*ops), ia._rect_attention_bwd_ref(*ops[:3], ops[5])
+        sync(device)
+        for name, a, ref in zip(("dq", "dk", "dv"), got, want):
+            check(f"rect_attention_bwd [{label}] {name}", rel_err(a, ref), TOL_GRAD)
+        alg = rect_bwd_tpu_algebra(*ops)
+        print(f"    against the TPU algebra in plain PyTorch: "
+              f"{max(rel_err(a, ref) for a, ref in zip(got, alg)):.3e}")
+        return max(abs_err(a, ref) for a, ref in zip(got, want))
+
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0)
+    errs = []
+    for direction in ("pool", "unpool"):
+        for drift in (False, True):
+            ops = bwd_case(train_batch, n, c, heads, i, direction, drift)
+            errs.append(bwd_check(tag(direction, drift), ops))
+        ops = bwd_case(train_batch, n, c, heads, i, direction, False)
+        q, k, v, o, lse, gg = ops
+        ms = time_ms(lambda: ia.rect_attention_bwd(*ops), device, reps)
+        plain_ms = time_ms(lambda: ia._rect_attention_bwd_ref(q, k, v, gg), device,
+                           max(2, reps // 4))
+        lib_ms = time_ms(sdpa_backward(*(t.contiguous() for t in (q, k, v)), g), device, reps)
+        m_rows, n_keys = q.shape[2], k.shape[2]
+        # s (p from lse), dp, dq, dk, dv
+        flops = 10 * train_batch * heads * m_rows * n_keys * d
+        # q once, k, v, o, g, lse read; dq, dk, dv written
+        bytes_ = q_bytes(q) + nbytes(k, v, o, gg, lse) + nbytes(q.expand_as(o), k, v)
+        bms, by = bound(flops, bytes_)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("flops", flops), ("bytes", bytes_)):
+            tot[key] += val
+        print(f"  rect_attention_bwd {direction} (batch {train_batch}): kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+    for direction in ("pool", "unpool"):
+        for drift in (False, True):
+            bwd_check(tag(direction, drift, " 8k width"),
+                      bwd_case(big["batch"], big["n_points"], big["feature_dim"], big["num_heads"],
+                               big["num_inducers"], direction, drift))
+    bms, by = bound(tot["flops"], tot["bytes"])
+    rec["rect_attention_bwd"] = dict(max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
+                                     bound_ms=bms, bound_by=by, library_ms=tot["library_ms"])
+
+    # the megakernel at the sampler's shapes: against the plain composition
+    # and the two separate kernels
+    def mega_ops(drift):
+        r = lambda *sh: torch.randn(*sh, generator=g, device=device)
+        ops = unpool_operands(g, b, n, c, heads, i, drift, device, dt)
+        mlp = mlp_operands(g, 1, 64, c, w, False, device, dt)[3:]
+        return (*ops, 1.0 + 0.2 * r(b, c), 0.2 * r(b, c)), mlp
+
+    gind = fa.group_indicator(c, GROUPS, device)
+    errs = []
+    with torch.no_grad():
+        for drift in (False, True):
+            ops, mlp = mega_ops(drift)
+            got = fa.fused_unpool_mlp(*ops, gind, *mlp, heads, GROUPS, n)
+            want = fa._unpool_mlp_ref(*ops, *mlp, heads, GROUPS, n)
+            sep = fa._unpool_mlp_composed(*ops, *mlp, heads, GROUPS, n)
+            sync(device)
+            t_ = "drift" if drift else "ordinary"
+            check(f"fused_unpool_mlp [{t_}] out", rel_err(got[0], want[0]), TOL_OUT)
+            check(f"fused_unpool_mlp [{t_}] sums", rel_err(got[1], want[1]), TOL_SUMS)
+            check(f"  against the separate unpool and MLP kernels [{t_}] out",
+                  rel_err(got[0], sep[0]), TOL_OUT)
+            check(f"  against the separate unpool and MLP kernels [{t_}] sums",
+                  rel_err(got[1], sep[1]), TOL_SUMS)
+            errs.append(abs_err(got[0], want[0]))
+        ops, mlp = mega_ops(False)
+        ms = time_ms(lambda: fa.fused_unpool_mlp(*ops, gind, *mlp, heads, GROUPS, n), device, reps)
+        plain_ms = time_ms(lambda: fa._unpool_mlp_ref(*ops, *mlp, heads, GROUPS, n), device,
+                           max(2, reps // 4))
+        sep_ms = time_ms(lambda: fa._unpool_mlp_composed(*ops, *mlp, heads, GROUPS, n), device,
+                         reps)
+    # the unpool's products and fold, and the MLP's; every input read once,
+    # out and the sums written once
+    flops = 4 * b * n * c * j + 4 * b * j * c * d + 4 * b * n * c * w
+    bms, by = bound(flops, nbytes(*ops, *mlp) + nbytes(ops[0]) + 4 * b * 2 * c)
+    rec["fused_unpool_mlp"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                   bound_by=by, library_ms=None)
+    print(f"  fused_unpool_mlp: kernel {ms:.3f} ms, the separate unpool + MLP kernels "
+          f"{sep_ms:.3f} ms, plain {plain_ms:.3f} ms, library none, bound {bms:.3f} ms ({by})")
+    return rec
+
+
 def param_groups(model) -> dict:
     """Parameters grouped by their name without the layer index (e.g. all
     layers' ``broadcast.pool.kv_proj.weight`` in one group); the ConvNeXt's
@@ -743,45 +963,93 @@ def check_finite(losses, *models):
                 raise AssertionError(f"non-finite parameter {name} after training")
 
 
-def compare_grads(model, loss_fn, tol):
-    """One step's gradient per parameter group, the kernel path against the
-    plain path, same weights and inputs (``loss_fn()``)."""
+def rect_bwd_tpu_algebra(q, k, v, o, lse, g):
+    """dq, dk, dv by the TPU kernel's own algebra (``_bwd_kernel``, the
+    header of ``csrc/induced_attention_bwd.cu``) in plain PyTorch: delta
+    from the bf16 o, p from lse, ds and p rounded to bf16 before the
+    products. The witness of the per-head path's unpool q/k gradients."""
+    bf = torch.bfloat16
+    scale = 1.0 / q.shape[-1] ** 0.5
+    delta = (g.float() * o.float()).sum(-1, keepdim=True)
+    g16 = g.to(bf).float()
+    s = torch.einsum("bhmd,bhnd->bhmn", q.float(), k.float()) * scale
+    p = torch.exp(s - lse[..., None])
+    ds = (p * (torch.einsum("bhmd,bhnd->bhmn", g16, v.float()) - delta)).to(bf).float()
+    dq = torch.einsum("bhmn,bhnd->bhmd", ds, k.float()) * scale
+    dk = torch.einsum("bhmn,bhmd->bhnd", ds, q.float()) * scale
+    dv = torch.einsum("bhmn,bhmd->bhnd", p.to(bf).float(), g16)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def compare_grads(model, loss_fn, tol, impl="folded_pallas", witness=False):
+    """One step's gradient per parameter group, the kernel path (on
+    ``impl``) against the plain path, same weights and inputs
+    (``loss_fn()``). ``witness`` (the per-head path): both also against
+    the plain path with the backbone computing in fp32, and the kernel
+    path against itself with the rect-attention backward swapped for
+    ``rect_bwd_tpu_algebra``, where it is held too."""
+    backbone = model.network.backbone
     grads, losses = [], []
-    for fused in (True, False):
-        set_path(model, fused)
+    passes = [(True, backbone.compute_dtype, None), (False, backbone.compute_dtype, None)]
+    if witness:
+        passes += [(False, torch.float32, None), (True, backbone.compute_dtype,
+                                                   rect_bwd_tpu_algebra)]
+    for fused, dtype, bwd in passes:
+        set_path(model, fused, impl)
+        backbone.compute_dtype, keep = dtype, backbone.compute_dtype
+        if bwd is not None:
+            ia.rect_attention_bwd, keep_bwd = bwd, ia.rect_attention_bwd
         model.zero_grad(set_to_none=True)
         loss = loss_fn()
         loss.backward()
+        backbone.compute_dtype = keep
+        if bwd is not None:
+            ia.rect_attention_bwd = keep_bwd
         losses.append(float(loss.detach()))
         grads.append({k: torch.cat([p.grad.flatten().float() for p in ps])
                       for k, ps in param_groups(model).items()})
-    set_path(model, True)
+    set_path(model, True, impl)
     model.zero_grad(set_to_none=True)
-    print(f"  loss at one batch: kernel path {losses[0]:.6f}, plain path {losses[1]:.6f}")
-    worst = 0.0
+    print(f"  loss at one batch: kernel path {losses[0]:.6f}, plain path {losses[1]:.6f}"
+          + (f", plain path in fp32 {losses[2]:.6f}" if witness else ""))
+    rel = lambda a, ref: float((a - ref).norm() / ref.norm().clamp_min(1e-30))
+    worst = worst_algebra = 0.0
     for k, ref in grads[1].items():
-        err = float((grads[0][k] - ref).norm() / ref.norm().clamp_min(1e-30))
+        err = rel(grads[0][k], ref)
         worst = max(worst, err)
-        print(f"    grad {k}: ||kernel - plain|| / ||plain|| = {err:.3e} "
-              f"(||plain|| = {float(ref.norm()):.3e})")
+        line = (f"    grad {k}: ||kernel - plain|| / ||plain|| = {err:.3e} "
+                f"(||plain|| = {float(ref.norm()):.3e})")
+        if witness:
+            k32, p32, a32 = (rel(grads[q][k], grads[2][k]) for q in (0, 1, 3))
+            alg = rel(grads[0][k], grads[3][k])
+            worst_algebra = max(worst_algebra, alg)
+            line += (f"; against fp32: kernel {k32:.3e}, plain {p32:.3e}, the TPU algebra "
+                     f"{a32:.3e}; kernel against the TPU algebra {alg:.3e}")
+        print(line)
     check("train-step gradient, kernel path vs plain path (worst group)", worst, tol,
           "||err||/||ref||")
+    # on the CPU the "kernel" is the plain version itself
+    if witness and next(model.parameters()).device.type == "cuda":
+        check("train-step gradient, kernel path vs the TPU algebra in plain PyTorch "
+              "(worst group)", worst_algebra, TOL_ALGEBRA_GRAD, "||err||/||ref||")
 
 
-def train_phase(device, n_layers, batch, n_points, card, steps):
-    """The flagship's train step on procedural clouds: the gradient of the
-    kernel path against the plain path, then ``steps`` = (warm-up, timed)
-    steps; returns the per-kernel launch counts of the timed steps and a
-    record."""
+def train_phase(device, n_layers, batch, n_points, card, steps, attn_impl="folded_pallas"):
+    """The flagship's train step on procedural clouds, the set transformer
+    on ``attn_impl``: the gradient of the kernel path against the plain
+    path, then ``steps`` = (warm-up, timed) steps; returns the per-kernel
+    launch counts of the timed steps and a record."""
     warmup, timed = steps
-    model = build_flagship(device, torch.Generator().manual_seed(0), n_layers)
+    model = build_flagship(device, torch.Generator().manual_seed(0), n_layers,
+                           attn_impl=attn_impl)
     gen = torch.Generator(device=device).manual_seed(1)
     rng = np.random.default_rng(0)
     data = [torch.from_numpy(make_clouds(rng, batch, n_points)).to(device) for _ in range(4)]
 
     # one step's gradient, kernel path vs plain path, same weights, batch and draws
     sigma, noise = model.draw_sigma_noise(gen, data[0])
-    compare_grads(model, lambda: model.loss_from(data[0], sigma, noise), TOL_TRAIN_GRAD)
+    compare_grads(model, lambda: model.loss_from(data[0], sigma, noise), TOL_TRAIN_GRAD, attn_impl,
+                  witness=attn_impl == "pallas")
 
     ema = make_ema(model)
     opt = flagship_optimizer()
@@ -790,6 +1058,8 @@ def train_phase(device, n_layers, batch, n_points, card, steps):
     for q in range(warmup):
         loss, opt_state = step(model, ema, opt_state, data[q % len(data)], gen)
     sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launch_counts()
     losses = []
     t0 = time.perf_counter()
@@ -799,14 +1069,20 @@ def train_phase(device, n_layers, batch, n_points, card, steps):
     sync(device)
     seconds = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
     losses = [float(v) for v in losses]
     ms = 1e3 * seconds / timed
     print(f"  {timed} steps at batch {batch}: {ms:.3f} ms/step, "
-          f"{batch * timed / seconds:.3f} clouds/s trained on {card}")
+          f"{batch * timed / seconds:.3f} clouds/s trained on {card}; peak memory "
+          + (f"{peak_gb:.3f} GiB" if peak_gb is not None else "not measured (no card)"))
     print(f"  losses: {' '.join(f'{v:.4f}' for v in losses)}")
     check_finite(losses, model, ema)
-    check_counts("training", counts, expected_counts(
-        {k: n_layers * timed for k in SET_FORWARD + BACKWARD}), device)
+    if attn_impl == "pallas":
+        # the per-head path: each layer's pool and unpool, forward and backward
+        expected = {k: 2 * n_layers * timed for k in ("rect_attention_fwd", "rect_attention_bwd")}
+    else:
+        expected = {k: n_layers * timed for k in SET_FORWARD + FOLDED_BACKWARD}
+    check_counts(f"{attn_impl} training", counts, expected_counts(expected), device)
 
     def run():
         nonlocal opt_state
@@ -814,7 +1090,7 @@ def train_phase(device, n_layers, batch, n_points, card, steps):
 
     profile_steps(run, PROFILE_STEPS, device)
     return counts, dict(ms_per_step=ms, clouds_per_s=batch * timed / seconds,
-                        losses=losses)
+                        losses=losses, peak_gb=peak_gb)
 
 
 # the kernels of each wrapper, by the function names in gecco_tpu_torch/csrc
@@ -830,6 +1106,9 @@ KERNEL_FUNCTIONS = {
     "atb_kernel (the weight-gradient products of the three backwards)": ("atb_kernel",),
     "projective_gather": ("gather_kernel",),
     "projective_gather_bwd": ("gather_bwd_kernel",),
+    "rect_attention_fwd": ("rect_attn_fwd_kernel",),
+    "rect_attention_bwd": ("rect_attn_bwd_kernel",),
+    "fused_unpool_mlp": ("unpool_mlp_kernel",),
 }
 PROFILE_STEPS = 3
 # cuDNN's and PyTorch's convolution kernels and cuDNN's layout transforms
@@ -894,11 +1173,11 @@ def profile_steps(run, n, device):
                                   for k, v in split.items()))
 
 
-def build_flagship(device, generator, n_layers, dt=torch.bfloat16):
+def build_flagship(device, generator, n_layers, dt=torch.bfloat16, attn_impl="folded_pallas"):
     f = FLAGSHIP
     backbone = SetTransformer(
         n_layers, f["feature_dim"], f["num_inducers"], embed_dim=1, num_heads=f["num_heads"],
-        compute_dtype=dt, attn_impl="folded_pallas", device=device, generator=generator,
+        compute_dtype=dt, attn_impl=attn_impl, device=device, generator=generator,
     )
     net = UnconditionalPointNetwork(backbone, f["feature_dim"], device=device, generator=generator)
     sched = LogUniformSchedule(sigma_max=165.0, sigma_min=0.002, n_solver_steps=N_STEPS)
@@ -930,10 +1209,10 @@ def build_conditional(device, generator, n_layers, dt=torch.bfloat16):
     return Diffusion(net, sched, reparam=reparam, cond=cond)
 
 
-def set_path(model, fused: bool) -> None:
-    """The kernel path (the fused set-transformer functions, and the gather
+def set_path(model, fused: bool, impl: str = "folded_pallas") -> None:
+    """The kernel path (the set transformer on ``impl``, and the gather
     where the network looks up a pyramid) or the plain path."""
-    model.network.backbone.attn_impl = "folded_pallas" if fused else "xla"
+    model.network.backbone.attn_impl = impl if fused else "xla"
     if hasattr(model.network, "lookup_impl"):
         model.network.lookup_impl = "pallas" if fused else "xla"
 
@@ -1040,7 +1319,7 @@ def conditional_train_phase(device, n_layers, batch, n_points, image_size, card,
     check_finite(losses, model, ema)
     # remat: every set-transformer forward kernel runs again in the backward
     expected = {k: 2 * n_layers * timed for k in SET_FORWARD}
-    expected.update({k: n_layers * timed for k in BACKWARD})
+    expected.update({k: n_layers * timed for k in FOLDED_BACKWARD})
     expected.update({k: timed for k in GATHER})
     check_counts("conditional training", counts, expected_counts(expected), device)
     profile_steps(lambda: run(0), PROFILE_STEPS, device)
@@ -1058,8 +1337,15 @@ def conditional_train_phase(device, n_layers, batch, n_points, image_size, card,
     return counts, dict(ms_per_step=ms, losses=losses, convnext_ms=convnext_ms)
 
 
-def main_path(device, batch, n_points, n_layers, n_steps, compare_batch):
-    model = build_flagship(device, torch.Generator().manual_seed(0), n_layers)
+def main_path(device, batch, n_points, n_layers, n_steps, compare_batch,
+              attn_impl="folded_pallas", what="kernel path", expect=None):
+    """The flagship on ``attn_impl`` samples through ``Diffusion.sample``;
+    ``expect(evals)`` gives the launch counts the sample must show (by
+    default each set-transformer forward kernel once per layer and
+    evaluation); then the 8-step sample against the plain path. Returns
+    the counts, a record, the model and the 8-step latent and sample."""
+    model = build_flagship(device, torch.Generator().manual_seed(0), n_layers,
+                           attn_impl=attn_impl)
     gen = torch.Generator(device=device).manual_seed(0)
     # warm-up: one 2-step sample (first launches, allocator)
     model.sample(gen, (batch, n_points, 3), n_solver_steps=2)
@@ -1075,18 +1361,46 @@ def main_path(device, batch, n_points, n_layers, n_steps, compare_batch):
     if tuple(out.shape) != (batch, n_points, 3) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"sample: shape {tuple(out.shape)} or non-finite values")
     evals = 2 * (n_steps - 1)
+    eval_ms = 1e3 * seconds / evals
     print(f"  sampled {tuple(out.shape)} in {seconds:.3f} s: {batch / seconds:.3f} clouds/s "
-          f"({evals} denoiser evals, {1e3 * seconds / evals:.3f} ms each)")
-    check_counts("sampler", counts, expected_counts({k: n_layers * evals for k in SET_FORWARD}),
-                 device)
+          f"({evals} denoiser evals, {eval_ms:.3f} ms each)")
+    expected = expect(evals) if expect else {k: n_layers * evals for k in SET_FORWARD}
+    check_counts(f"{attn_impl} sampler", counts, expected_counts(expected), device)
 
     latent = model.schedule.sample_latent(gen, (compare_batch, n_points, 3), device)
     fused = model.sample_from_latent(latent, n_solver_steps=8)
     set_path(model, False)
     plain = model.sample_from_latent(latent, n_solver_steps=8)
-    set_path(model, True)
-    check("8-step sample, kernel path vs plain path", rel_err(fused, plain), TOL_PATH)
-    return counts, dict(batch=batch, seconds=seconds, clouds_per_s=batch / seconds)
+    set_path(model, True, attn_impl)
+    check(f"8-step sample, {what} vs plain path", rel_err(fused, plain), TOL_PATH)
+    return counts, dict(batch=batch, seconds=seconds, clouds_per_s=batch / seconds,
+                        eval_ms=eval_ms), (model, latent, fused)
+
+
+def megakernel_path(device, batch, n_points, n_layers, n_steps, compare_batch):
+    """The folded flagship sampler with ``GECCO_UNPOOL_MLP_MEGAKERNEL=1``
+    set in this process (restored after): per sample the megakernel, the
+    pool and the h-side once per layer and evaluation, the separate unpool
+    and MLP never; the 8-step sample against the plain path, then against
+    the separate kernels' path from the same latent."""
+    key = "GECCO_UNPOOL_MLP_MEGAKERNEL"
+    before = os.environ.get(key)
+    os.environ[key] = "1"
+    try:
+        counts, rec, (model, latent, mega) = main_path(
+            device, batch, n_points, n_layers, n_steps, compare_batch, what="megakernel path",
+            expect=lambda evals: {k: n_layers * evals for k in
+                                  ("folded_pool_ext", "fused_h_side", "fused_unpool_mlp")})
+        os.environ.pop(key)
+        separate = model.sample_from_latent(latent, n_solver_steps=8)
+    finally:
+        if before is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = before
+    check("8-step sample, megakernel path vs the separate kernels' path",
+          rel_err(mega, separate), TOL_MEGA_PATH)
+    return counts, rec
 
 
 def main():
@@ -1154,9 +1468,13 @@ def main():
           f"pyramids of {image_size}^2 and {render_size}^2 images) on {card}")
     rec.update(gather_phase(device, cond_batch, n_points, image_size, render_size, dt, reps))
 
+    print(f"== per-head attention and megakernel vs plain versions (sampler batch "
+          f"{shapes['batch']}, training batch {train_batch}; 8k {big}) on {card}")
+    rec.update(attention_phase(device, shapes, train_batch, big, dt, reps))
+
     print(f"== sampler path: flagship x{n_layers} layers, batch {batch}, {n_points} points, "
           f"{n_steps}-step Heun, on {card}")
-    counts, path = main_path(device, batch, n_points, n_layers, n_steps, compare_batch=8)
+    counts, path, _ = main_path(device, batch, n_points, n_layers, n_steps, compare_batch=8)
     print(f"  {path['clouds_per_s']:.3f} clouds/s on {card}")
 
     print(f"== training path: flagship x{n_layers} layers, batch {train_batch}, {n_points} "
@@ -1177,23 +1495,53 @@ def main():
     cond_train_counts, cond_train = conditional_train_phase(
         device, n_layers, cond_batch, n_points, image_size, card, train_steps)
 
+    print(f"== per-head sampler path: flagship x{n_layers} layers, attn_impl=\"pallas\", batch "
+          f"{batch}, {n_points} points, {n_steps}-step Heun, on {card}")
+    ph_counts, ph_path, _ = main_path(
+        device, batch, n_points, n_layers, n_steps, compare_batch=8, attn_impl="pallas",
+        what="per-head kernel path",
+        expect=lambda evals: {"rect_attention_fwd": 2 * n_layers * evals})
+    print(f"  {ph_path['clouds_per_s']:.3f} clouds/s on {card}")
+
+    print(f"== per-head training path: flagship x{n_layers} layers, attn_impl=\"pallas\", batch "
+          f"{train_batch}, {n_points} points, {train_steps[0]} + {train_steps[1]} steps, on {card}")
+    ph_train_counts, ph_train = train_phase(device, n_layers, train_batch, n_points, card,
+                                            train_steps, attn_impl="pallas")
+
+    print(f"== megakernel sampler path: flagship x{n_layers} layers, folded_pallas with "
+          f"GECCO_UNPOOL_MLP_MEGAKERNEL=1, batch {batch}, {n_points} points, {n_steps}-step Heun, "
+          f"on {card}")
+    mega_counts, mega_path = megakernel_path(device, batch, n_points, n_layers, n_steps,
+                                             compare_batch=8)
+    print(f"  {mega_path['clouds_per_s']:.3f} clouds/s on {card}")
+
     print("== summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
     print(f"  launches on the conditional sampler path: {cond_counts}")
     print(f"  launches on the conditional training path: {cond_train_counts}")
+    print(f"  launches on the per-head sampler path: {ph_counts}")
+    print(f"  launches on the per-head training path: {ph_train_counts}")
+    print(f"  launches on the megakernel sampler path: {mega_counts}")
     print(f"  sampler {path['clouds_per_s']:.3f} clouds/s (batch {batch}); train step "
           f"{train['ms_per_step']:.3f} ms (batch {train_batch}); conditional sampler "
           f"{cond_path['clouds_per_s']:.3f} clouds/s (batch {cond_batch}; ConvNeXt "
           f"{cond_path['convnext_ms']:.3f} ms, {cond_path['eval_ms']:.3f} ms per evaluation); "
           f"conditional train step {cond_train['ms_per_step']:.3f} ms (batch {cond_batch}; "
-          f"ConvNeXt forward + backward {cond_train['convnext_ms']:.3f} ms); {card}")
+          f"ConvNeXt forward + backward {cond_train['convnext_ms']:.3f} ms); per-head sampler "
+          f"{ph_path['clouds_per_s']:.3f} clouds/s ({ph_path['eval_ms']:.3f} ms per evaluation); "
+          f"per-head train step {ph_train['ms_per_step']:.3f} ms (batch {train_batch}); "
+          f"megakernel sampler {mega_path['clouds_per_s']:.3f} clouds/s "
+          f"({mega_path['eval_ms']:.3f} ms per evaluation); {card}")
     # launches: each kernel's count on the path that first brought it in
     # (printed above): the flagship sampler's for a set-transformer forward
     # kernel, the flagship training path's for a backward one, the
     # conditional sampler's for the gather and the conditional training
-    # path's for its backward
-    source_counts = {"projective_gather": cond_counts, "projective_gather_bwd": cond_train_counts}
+    # path's for its backward, the per-head paths' for the rect attention
+    # and the megakernel sampler's for the megakernel
+    source_counts = {"projective_gather": cond_counts, "projective_gather_bwd": cond_train_counts,
+                     "rect_attention_fwd": ph_counts, "rect_attention_bwd": ph_train_counts,
+                     "fused_unpool_mlp": mega_counts}
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=source_counts.get(name, train_counts if name in BACKWARD else counts)[name],

@@ -1,30 +1,40 @@
 """Induced set attention transformer (counterpart of
 ``gecco_tpu/models/set_transformer.py``).
 
-Two execution strategies compute the same function:
+Three execution strategies compute the same function:
 
 - ``attn_impl="xla"`` (the JAX package's name for its plain path): per-head
-  attention through ``rect_attention`` and the modules as written;
+  attention through the plain ``rect_attention`` and the modules as
+  written;
+- ``attn_impl="pallas"``: the same per-head modules, the attention of the
+  pool and the unpool through the per-head attention kernels
+  (``rect_attention(impl="pallas")``, forward and backward);
 - ``attn_impl="folded_pallas"``: each layer runs the four fused functions of
   ``gecco_tpu_torch.ops.kernels`` (pool, h-side, unpool, MLP) with the
   statistics chain: every pre-norm takes its GroupNorm statistics from the
   channel sums that the previous fused function emitted for its output.
-  On CUDA tensors these are the Hopper kernels; on CPU tensors their plain
-  versions. All four are differentiable: the gradients reach every
-  parameter through the weight folds, the AdaGN affines and the channel
-  sums, as on the plain path.
+  With ``GECCO_UNPOOL_MLP_MEGAKERNEL=1`` in the environment (read at each
+  call) and no gradient recorded, the unpool and the MLP run as one
+  function, ``fused_unpool_mlp``.
+
+On CUDA tensors the kernel paths launch the Hopper kernels; on CPU tensors
+their plain versions. Both are differentiable: the gradients reach every
+parameter (on the fused path through the weight folds, the AdaGN affines
+and the channel sums), as on the plain path.
 
 The JAX package stacks the layers and scans over them; here they are an
 ``nn.ModuleList`` walked by a Python loop. ``remat=True`` recomputes each
 layer in the backward pass (``torch.utils.checkpoint``, the JAX package's
 ``jax.checkpoint`` around the scan body): the same function, with each
 forward kernel launched a second time per training step. The
-cached-inducer upsampling path (``hs`` / ``return_h``) and
-``ref_jax_compat`` are not ported yet.
+cached-inducer upsampling path (``hs`` / ``return_h``), the XLA-folded
+``attn_impl="folded"``, the module-level folded calls of ``AttentionPool``
+and ``Unpool`` and ``ref_jax_compat`` are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -40,13 +50,14 @@ from gecco_tpu_torch.ops.kernels import (
     folded_unpool,
     fused_h_side,
     fused_mlp_residual,
+    fused_unpool_mlp,
 )
-from gecco_tpu_torch.ops.kernels.folded_attention import group_indicator
+from gecco_tpu_torch.ops.kernels.folded_attention import group_indicator, unpool_mlp_fits_sm
 from gecco_tpu_torch.utils.modules import Linear, resolve_device
 
 __all__ = ["AttentionPool", "Unpool", "Broadcast", "BroadcastingLayer", "SetTransformer"]
 
-ATTN_IMPLS = ("xla", "folded_pallas")
+ATTN_IMPLS = ("xla", "pallas", "folded_pallas")
 
 
 def _fold_mlp_operands(mlp: MLP, dt) -> tuple:
@@ -99,10 +110,12 @@ class AttentionPool(nn.Module):
         self.out_proj = Linear(feature_dim, feature_dim, bias=False, device=dev, generator=generator)
         self.num_heads = num_heads
 
-    def forward(self, kv: torch.Tensor) -> torch.Tensor:  # [B, N, C] -> [B, I, C]
+    def forward(self, kv: torch.Tensor, attn_impl: str = "xla") -> torch.Tensor:
+        # [B, N, C] -> [B, I, C]; attn_impl "xla" or "pallas" (rect_attention's impl)
         k, v = self.kv_proj(kv).chunk(2, dim=-1)
         q = self.inducers.to(kv.dtype)[None].expand(kv.shape[0], -1, -1, -1)
-        attn = rect_attention(q, _split_heads(k, self.num_heads), _split_heads(v, self.num_heads))
+        attn = rect_attention(q, _split_heads(k, self.num_heads), _split_heads(v, self.num_heads),
+                              impl=attn_impl)
         return self.out_proj(_merge_heads(attn))
 
 
@@ -117,11 +130,11 @@ class Unpool(nn.Module):
         self.q_proj, self.k_proj, self.v_proj, self.out_proj = lin(), lin(), lin(), lin()
         self.num_heads = num_heads
 
-    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h: torch.Tensor, attn_impl: str = "xla") -> torch.Tensor:
         q = _split_heads(self.q_proj(x), self.num_heads)
         k = _split_heads(self.k_proj(h), self.num_heads)
         v = _split_heads(self.v_proj(h), self.num_heads)
-        return self.out_proj(_merge_heads(rect_attention(q, k, v)))
+        return self.out_proj(_merge_heads(rect_attention(q, k, v, impl=attn_impl)))
 
 
 class Broadcast(nn.Module):
@@ -137,9 +150,9 @@ class Broadcast(nn.Module):
         self.norm_2 = AdaGN(feature_dim, embed_dim, **kw)
         self.unpool = Unpool(feature_dim, num_heads, **kw)
 
-    def forward(self, x, embed):
-        h = self.norm_2(self.mlp(self.norm_1(self.pool(x), embed)), embed)
-        return self.unpool(x, h), h
+    def forward(self, x, embed, attn_impl="xla"):
+        h = self.norm_2(self.mlp(self.norm_1(self.pool(x, attn_impl), embed)), embed)
+        return self.unpool(x, h, attn_impl), h
 
 
 class BroadcastingLayer(nn.Module):
@@ -165,14 +178,24 @@ class BroadcastingLayer(nn.Module):
         ``out_sums`` those of the output, or None on the plain path."""
         if attn_impl == "folded_pallas":
             return self._fused_call(x, embed, in_sums)
-        x_b, h = self.broadcast(self.broadcast_norm(x, embed), embed)
+        x_b, h = self.broadcast(self.broadcast_norm(x, embed), embed, attn_impl)
         x = x + x_b
         return x + self.mlp(self.mlp_norm(x, embed)), h, None
 
     def _fused_call(self, x, embed, in_sums):
         """The layer through the four fused functions: pool (pre-norm
         inline), h-side, unpool (+ residual + output sums), MLP (+ residual
-        + output sums). Same function as the plain path."""
+        + output sums). Same function as the plain path.
+
+        With ``GECCO_UNPOOL_MLP_MEGAKERNEL=1`` (read at each call, as the
+        JAX package reads it at trace time), the unpool and the MLP run as
+        one megakernel, ``fused_unpool_mlp``, where the JAX package takes
+        it: only when no network key is threaded, i.e. in sampling. The
+        port threads no key; no gradient being recorded stands in for it
+        (``Diffusion.sample`` runs under ``torch.no_grad``, the loss with
+        grad on). On CUDA tensors the shapes must also fit the kernel
+        (``unpool_mlp_fits_sm``, one SM's shared memory), else the two
+        kernels run; the plain version on CPU tensors has no such limit."""
         b, n, c = x.shape
         dt = x.dtype
         bc = self.broadcast
@@ -196,12 +219,21 @@ class BroadcastingLayer(nn.Module):
             *_fold_mlp_operands(bc.mlp, dt),
             bc.unpool.k_proj.weight.to(dt), bc.unpool.v_proj.weight.to(dt),
         )
-        x, sums = folded_unpool(
-            x, se1, be1, k, v, bc.unpool.q_proj.weight.to(dt), bc.unpool.out_proj.weight.to(dt),
-            num_heads,
-        )
+        wq, wo = bc.unpool.q_proj.weight.to(dt), bc.unpool.out_proj.weight.to(dt)
+        mlp_ops = _fold_mlp_operands(self.mlp, dt)
+        if (os.environ.get("GECCO_UNPOOL_MLP_MEGAKERNEL") == "1" and not torch.is_grad_enabled()
+                and (x.device.type == "cpu"
+                     or unpool_mlp_fits_sm(n, c, k.shape[1], mlp_ops[0].shape[1]))):
+            groups = self.mlp_norm.num_groups
+            x, out_sums = fused_unpool_mlp(
+                x, se1, be1, k, v, wq, wo,
+                self.mlp_norm.scale_linear(embed_f), self.mlp_norm.bias_linear(embed_f),
+                group_indicator(c, groups, x.device), *mlp_ops, num_heads, groups, n,
+            )
+            return x, h, out_sums
+        x, sums = folded_unpool(x, se1, be1, k, v, wq, wo, num_heads)
         se2, be2 = self.mlp_norm.scale_bias_from_sums(sums, n, embed)
-        x, out_sums = fused_mlp_residual(x, se2, be2, *_fold_mlp_operands(self.mlp, dt))
+        x, out_sums = fused_mlp_residual(x, se2, be2, *mlp_ops)
         return x, h, out_sums
 
 

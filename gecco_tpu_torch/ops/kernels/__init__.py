@@ -11,13 +11,21 @@ from gecco_tpu_torch.ops.kernels.folded_attention import (
     folded_unpool_bwd,
     fused_mlp_residual,
     fused_mlp_residual_bwd,
+    fused_unpool_mlp,
 )
 from gecco_tpu_torch.ops.kernels.hside import fused_h_side
+from gecco_tpu_torch.ops.kernels.induced_attention import (
+    rect_attention_bwd,
+    rect_attention_fwd,
+    rect_attention_pallas,
+)
 from gecco_tpu_torch.ops.kernels.projective_gather import projective_gather, projective_gather_bwd
 
 KERNELS = (
     folded_pool_ext, fused_h_side, folded_unpool, fused_mlp_residual, projective_gather,
+    rect_attention_fwd, fused_unpool_mlp,
     folded_pool_ext_bwd, folded_unpool_bwd, fused_mlp_residual_bwd, projective_gather_bwd,
+    rect_attention_bwd,
 )
 
 
@@ -38,8 +46,12 @@ __all__ = [
     "fused_h_side",
     "fused_mlp_residual",
     "fused_mlp_residual_bwd",
+    "fused_unpool_mlp",
     "projective_gather",
     "projective_gather_bwd",
+    "rect_attention_bwd",
+    "rect_attention_fwd",
+    "rect_attention_pallas",
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",

@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNEL_SOURCES = (
     "pool_ext", "hside", "unpool", "mlp", "pool_ext_bwd", "unpool_bwd", "mlp_bwd",
-    "projective_gather",
+    "projective_gather", "induced_attention", "induced_attention_bwd", "unpool_mlp",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

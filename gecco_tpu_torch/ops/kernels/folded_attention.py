@@ -18,6 +18,15 @@ through the plain forward, as the twins' ``jax.vjp``) for CPU tensors:
 - ``fused_mlp_residual`` (``csrc/mlp.cu``; backward ``csrc/mlp_bwd.cu``):
   pre-norm + Gaussian MLP + residual, plus the output's channel sums.
 
+and a fourth runs the second and third as one launch:
+
+- ``fused_unpool_mlp`` (``csrc/unpool_mlp.cu``): unpool + residual, the
+  mlp_norm statistics of the result from its channel sums, then the MLP +
+  residual and the output's channel sums (the sampler's opt-in
+  megakernel). Its backward recomputes through ``folded_unpool`` and
+  ``fused_mlp_residual`` (``_unpool_mlp_composed``), whose backwards are
+  the kernels above, as the JAX package's custom_vjp does.
+
 A CUDA tensor never falls back to a plain version. Each forward wrapper
 counts its kernel launches in ``.launches``; each backward has its own
 wrapper (``*_bwd``) and counter. As in the JAX package, the backward kernels
@@ -29,9 +38,12 @@ plain PyTorch outside the kernels.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from gecco_tpu_torch.ops.kernels._build import check_cuda, launch
+from gecco_tpu_torch.ops.kernels._build import check_cuda, launch, library
+from gecco_tpu_torch.ops.norms import stats_from_sums
 from gecco_tpu_torch.ops.kernels._grad import needs_grad, vjp
 
 __all__ = [
@@ -41,6 +53,8 @@ __all__ = [
     "folded_unpool_bwd",
     "fused_mlp_residual",
     "fused_mlp_residual_bwd",
+    "fused_unpool_mlp",
+    "unpool_mlp_fits_sm",
     "group_indicator",
     "fold_qf",
 ]
@@ -466,3 +480,131 @@ def fused_mlp_residual_bwd(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
 
 
 fused_mlp_residual_bwd.launches = 0
+
+
+# ----------------------------------------------------- fused unpool + mlp --
+
+
+def _affine_from_sums(sums, n_tokens: int, sc2, bi2, num_groups: int) -> tuple:
+    """The mlp_norm collapse from channel sums [B, 2, C] with explicit embed
+    affines sc2/bi2 [B, C] fp32 -> (se2, be2) [B, C] fp32 (the JAX
+    package's ``_affine_from_sums``)."""
+    mean_c, inv_c = stats_from_sums(sums[:, 0], sums[:, 1], n_tokens, num_groups)
+    se2 = sc2 * inv_c
+    return se2, bi2 - mean_c * se2
+
+
+def _unpool_mlp_ref(x, se1, be1, k, v, wq, wo, sc2, bi2, w1t, b1, w2t, b2,
+                    num_heads: int, num_groups: int, n_tokens: int) -> tuple:
+    """Plain version of the megakernel: the plain unpool, the collapse and
+    the plain MLP -> (out [B, N, C], out sums [B, 2, C] fp32)."""
+    xr, sums = _unpool_ref(x, se1, be1, k, v, wq, wo, num_heads)
+    se2, be2 = _affine_from_sums(sums, n_tokens, sc2, bi2, num_groups)
+    return _mlp_ref(xr, se2, be2, w1t, b1, w2t, b2)
+
+
+def _unpool_mlp_composed(x, se1, be1, k, v, wq, wo, sc2, bi2, w1t, b1, w2t, b2,
+                         num_heads: int, num_groups: int, n_tokens: int) -> tuple:
+    """The same function through the two differentiable fused functions
+    (the JAX package's ``_unpool_mlp_composed`` without its point-axis
+    psum): the separate kernels on CUDA tensors, the plain versions on CPU
+    tensors; the megakernel's backward recomputes through it."""
+    xr, sums = folded_unpool(x, se1, be1, k, v, wq, wo, num_heads)
+    se2, be2 = _affine_from_sums(sums, n_tokens, sc2, bi2, num_groups)
+    return fused_mlp_residual(xr, se2, be2, w1t, b1, w2t, b2)
+
+
+@functools.lru_cache(maxsize=None)
+def unpool_mlp_fits_sm(n: int, c: int, i: int, w: int) -> bool:
+    """Whether the megakernel takes these shapes on the card: a point tile
+    divides N, C and I are multiples of 16, and one block's shared memory
+    (a point tile of the unpool, and one of the MLP, with their staging)
+    fits the 227 KB of one SM (asks the built kernel library). The plain
+    version has no such limit, so CPU tensors need no gate."""
+    try:
+        tn = _row_tile(n, c)
+    except ValueError:
+        return False
+    if c % 16 or i % 16:
+        return False
+    return library("unpool_mlp").unpool_mlp_smem(c, i, w, tn) > 0
+
+
+def _unpool_mlp_launch(x, se1, be1, k, v, wq, wo, sc2, bi2, gind, w1t, b1, w2t, b2,
+                       num_heads: int, num_groups: int, n_tokens: int) -> tuple:
+    name = "fused_unpool_mlp"
+    b, n, c = x.shape
+    i = k.shape[1]
+    j = num_heads * i
+    w = w1t.shape[1]
+    check_cuda(
+        name, dict(x=x, se1=se1, be1=be1, k=k, v=v, wq=wq, wo=wo, sc2=sc2, bi2=bi2, w1t=w1t,
+                   b1=b1, w2t=w2t, b2=b2),
+        dict(x=_BF16, se1=_F32, be1=_F32, k=_BF16, v=_BF16, wq=_BF16, wo=_BF16, sc2=_F32,
+             bi2=_F32, w1t=_BF16, b1=_F32, w2t=_BF16, b2=_F32),
+    )
+    _require(tuple(gind.shape) == (c, num_groups), name,
+             f"gind of shape (C, G) = ({c}, {num_groups}), got {tuple(gind.shape)}")
+    _require(unpool_mlp_fits_sm(n, c, i, w), name,
+             f"a point tile dividing N, C % 16, I % 16 and one SM's shared memory "
+             f"(N={n}, C={c}, I={i}, W={w})")
+    dev = x.device
+    kft = torch.empty((b, j, c), dtype=_BF16, device=dev)
+    vf = torch.empty_like(kft)
+    bq = torch.empty((b, c), dtype=_F32, device=dev)
+    brow = torch.empty((b, j), dtype=_F32, device=dev)
+    xp = torch.empty_like(x)
+    sums1 = torch.zeros((b, 2, c), dtype=_F32, device=dev)
+    se2 = torch.empty((b, c), dtype=_F32, device=dev)
+    be2 = torch.empty_like(se2)
+    out = torch.empty_like(x)
+    sums = torch.zeros((b, 2, c), dtype=_F32, device=dev)
+    launch("unpool_mlp", "unpool_mlp_launch", x, se1, be1, k, v, wq, wo.t().contiguous(), sc2,
+           bi2, w1t, b1, w2t, b2, bq, kft, vf, brow, xp, sums1, se2, be2, out, sums,
+           b, n, c, num_heads, i, w, num_groups, n_tokens, _row_tile(n, c))
+    fused_unpool_mlp.launches += 1
+    return out, sums
+
+
+class _UnpoolMLP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, se1, be1, k, v, wq, wo, sc2, bi2, gind, w1t, b1, w2t, b2,
+                num_heads, num_groups, n_tokens, need_grad):
+        cfg = (num_heads, num_groups, n_tokens)
+        if x.device.type == "cpu":
+            out, sums = _unpool_mlp_ref(x, se1, be1, k, v, wq, wo, sc2, bi2, w1t, b1, w2t, b2,
+                                        *cfg)
+        else:
+            out, sums = _unpool_mlp_launch(x, se1, be1, k, v, wq, wo, sc2, bi2, gind, w1t, b1,
+                                           w2t, b2, *cfg)
+        if need_grad:
+            ctx.save_for_backward(x, se1, be1, k, v, wq, wo, sc2, bi2, w1t, b1, w2t, b2)
+        ctx.cfg = cfg
+        return out, sums
+
+    @staticmethod
+    def backward(ctx, g_out, g_sums):
+        grads = vjp(lambda *a: _unpool_mlp_composed(*a, *ctx.cfg), ctx.saved_tensors,
+                    (g_out, g_sums))
+        # gind, the constant group indicator, takes no gradient
+        return (*grads[:9], None, *grads[9:], None, None, None, None)
+
+
+def fused_unpool_mlp(x, se1, be1, k, v, wq, wo, sc2, bi2, gind, w1t, b1, w2t, b2,
+                     num_heads: int, num_groups: int, n_tokens: int) -> tuple:
+    """x [B, N, C]; se1/be1 [B, C] fp32 (the collapsed broadcast_norm); k/v
+    [B, I, C]; wq/wo [C, C]; sc2/bi2 [B, C] fp32 (mlp_norm's embed affine,
+    raw: the group statistics of the unpool's output fold in inside);
+    gind [C, G] (the group indicator of ``num_groups`` groups, as the JAX
+    signature; the kernel takes the groups from ``num_groups``); w1t/b1/
+    w2t/b2 the folded MLP operands; ``n_tokens`` the points the statistics
+    count -> (out [B, N, C], out channel sums [B, 2, C] fp32). The same
+    function as ``folded_unpool``, ``_affine_from_sums`` and
+    ``fused_mlp_residual`` in turn. Differentiable in every tensor argument
+    but gind."""
+    need = needs_grad(x, se1, be1, k, v, wq, wo, sc2, bi2, w1t, b1, w2t, b2)
+    return _UnpoolMLP.apply(x, se1, be1, k, v, wq, wo, sc2, bi2, gind, w1t, b1, w2t, b2,
+                            num_heads, num_groups, n_tokens, need)
+
+
+fused_unpool_mlp.launches = 0

@@ -23,6 +23,7 @@ from gecco_tpu_torch.ops import kernels
 from gecco_tpu_torch.ops.kernels import folded_attention as tfa
 from gecco_tpu_torch.ops.kernels._grad import needs_grad
 from gecco_tpu_torch.ops.kernels import hside as ths
+from gecco_tpu_torch.ops.kernels.induced_attention import rect_attention_pallas
 from gecco_tpu_torch.ops.kernels.projective_gather import (
     _gather_ref,
     projective_gather,
@@ -31,6 +32,7 @@ from gecco_tpu_torch.ops.kernels.projective_gather import (
 
 RTOL, ATOL = 1e-4, 1e-5
 C, HEADS, I, B, N = 64, 4, 16, 2, 256
+GROUPS = 8
 # per-head scales of the drift case: head 0's logits ~60x head 1's, so the
 # heads' maxima sit far more than the exp clamp (80) apart
 DRIFT = np.repeat(np.array([60.0, 1.0, 0.1, 0.01], np.float32), C // HEADS)
@@ -156,20 +158,67 @@ def test_hside_matches_jax():
 
 def test_launch_counters_stay_zero_on_cpu_tensors():
     kernels.reset_launch_counts()
+    ua = _unpool_mlp_args(5, False)
+    q, k, v = (_leaves([a.reshape(B, -1, HEADS, C // HEADS).transpose(0, 2, 1, 3).copy()])[0]
+               for a in (ua[0], ua[3], ua[4]))
     outs = [
         tfa.folded_pool_ext(*_leaves(_pool_args(5, False)), HEADS),
         *tfa.folded_unpool(*_leaves(_unpool_args(5, False)), HEADS),
         *tfa.fused_mlp_residual(*_leaves(_mlp_args(5))),
         *ths.fused_h_side(*_leaves(_hside_args(5))),
         projective_gather(*_gather_leaves(5)),
+        rect_attention_pallas(q, k, v),
+        *tfa.fused_unpool_mlp(*_leaves(ua), HEADS, GROUPS, N),
     ]
     # through every forward and every backward
     torch.autograd.backward([o.float().square().sum() for o in outs])
     assert kernels.launch_counts() == {
         "folded_pool_ext": 0, "fused_h_side": 0, "folded_unpool": 0, "fused_mlp_residual": 0,
-        "projective_gather": 0, "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0,
-        "fused_mlp_residual_bwd": 0, "projective_gather_bwd": 0,
+        "projective_gather": 0, "rect_attention_fwd": 0, "fused_unpool_mlp": 0,
+        "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0, "fused_mlp_residual_bwd": 0,
+        "projective_gather_bwd": 0, "rect_attention_bwd": 0,
     }
+
+
+def _unpool_mlp_args(seed, drift):
+    """The megakernel's operands: the unpool's, mlp_norm's raw embed affine
+    sc2/bi2 [B, C], the group indicator and the MLP's."""
+    rng = np.random.default_rng(seed)
+    sc2 = (1.0 + 0.2 * rng.standard_normal((B, C))).astype(np.float32)
+    bi2 = (0.2 * rng.standard_normal((B, C))).astype(np.float32)
+    gind = np.array(jfa.group_indicator(C, GROUPS))
+    return (*_unpool_args(seed, drift), sc2, bi2, gind, *_mlp_args(seed + 1)[3:])
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+def test_unpool_mlp_matches_jax(drift):
+    """``fused_unpool_mlp`` (the plain composition on the CPU) against the
+    JAX megakernel in interpret mode and against the JAX package's
+    ``_unpool_mlp_composed``: out at the forward tests' tolerance (atol
+    1e-4 with drifted logits, as the unpool's), the sums as theirs."""
+    args = _unpool_mlp_args(20, drift)
+    out, sums = tfa.fused_unpool_mlp(*map(torch.from_numpy, args), HEADS, GROUPS, N)
+    jargs = tuple(map(jnp.asarray, args))
+    composed = jfa._unpool_mlp_composed(*jargs[:9], *jargs[10:], HEADS, GROUPS, N)
+    for ref_out, ref_sums in (jfa.fused_unpool_mlp(*jargs, HEADS, GROUPS, N), composed):
+        _close(out, ref_out, atol=1e-4 if drift else ATOL)
+        np.testing.assert_allclose(sums.numpy(), np.asarray(ref_sums), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+def test_unpool_mlp_backward_matches_jax(drift):
+    """The megakernel's gradients through both outputs (the sums cotangent
+    nonzero) against ``jax.vjp`` of the JAX megakernel, whose backward
+    recomputes through the unpool and MLP backward kernels (interpret
+    mode); the group indicator takes none. Tolerance of the unpool's
+    backward test."""
+    args = _unpool_mlp_args(21, drift)
+    rng = np.random.default_rng(22)
+    g = [_cotangent(rng, B, N, C), _cotangent(rng, B, 2, C, scale=1e-2)]
+    port = _port_grads(lambda *a: tfa.fused_unpool_mlp(*a, HEADS, GROUPS, N), args, g)
+    ref = _jax_grads(lambda *a: jfa.fused_unpool_mlp(*a, HEADS, GROUPS, N), args, g)
+    assert port[9] is None
+    _close_grads(port[:9] + port[10:], ref[:9] + ref[10:], rtol=3e-4, atol=3e-5, drift=drift)
 
 
 def test_register_chunk_and_row_tile_fit_the_register_tiles():

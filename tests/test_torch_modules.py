@@ -219,4 +219,7 @@ def test_chip_smoke_rehearsal_runs_its_phases_on_the_cpu():
     assert res.returncode == 1, res.stderr
     assert "8-step sample, kernel path vs plain path" in res.stdout
     assert "train-step gradient, kernel path vs plain path" in res.stdout
+    assert "rect_attention_bwd [unpool 8k width, drift] dv" in res.stdout
+    assert "8-step sample, per-head kernel path vs plain path" in res.stdout
+    assert "8-step sample, megakernel path vs the separate kernels' path" in res.stdout
     assert '"ok": true' not in res.stdout

@@ -35,6 +35,7 @@ from gecco_tpu_torch.train import (
     warmup_cosine_decay_schedule,
 )
 from torch_parity import f32, jax_model, jax_params, t, torch_model
+from torch_parity import jax_draws as _jax_draws
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (2, 256, 3)
@@ -47,14 +48,6 @@ def _threads():
 
 def _points(seed=0):
     return (0.35 * np.random.default_rng(seed).standard_normal(SHAPE)).astype(np.float32)
-
-
-def _jax_draws(jm, points, key):
-    """The sigma and noise that ``gecco_tpu.Diffusion.loss`` draws from ``key``."""
-    sigma_key, noise_key, _, _ = jax.random.split(key, 4)
-    sigma = jm.schedule.sample_sigma(sigma_key, points.shape[0])
-    x = jm.reparam.data_to_diffusion(jnp.asarray(points), None)
-    return np.asarray(sigma), np.asarray(jax.random.normal(noise_key, x.shape, x.dtype))
 
 
 def _rel(a, ref) -> float:

@@ -141,6 +141,16 @@ def torch_conditional_model(jmodel, attn_impl="folded_pallas", lookup_impl="pall
     return load_jax_params(model, jax_params(jmodel))
 
 
+def jax_draws(jmodel, points, key) -> tuple:
+    """The sigma and noise that ``gecco_tpu.Diffusion.loss`` draws from
+    ``key`` (sigma from the first of four keys, the noise from the second),
+    as numpy arrays for the port's ``loss_from``."""
+    sigma_key, noise_key, _, _ = jax.random.split(key, 4)
+    sigma = jmodel.schedule.sample_sigma(sigma_key, points.shape[0])
+    x = jmodel.reparam.data_to_diffusion(jnp.asarray(points), None)
+    return np.asarray(sigma), np.asarray(jax.random.normal(noise_key, x.shape, x.dtype))
+
+
 def t(a, dtype=torch.float32) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32)).to(dtype)
 

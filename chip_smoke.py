@@ -6,8 +6,8 @@
 Phases (each raises on failure; nothing is caught):
 
 1. environment: torch, nvcc, the card's name and power limit;
-2. build: the twelve CUDA kernels of ``gecco_tpu_torch/csrc`` (seven
-   forward, five backward; eleven libraries, the projective gather's
+2. build: the fourteen CUDA kernels of ``gecco_tpu_torch/csrc`` (eight
+   forward, six backward; thirteen libraries, the projective gather's
    forward and backward in one) with nvcc for sm_90a, one process per
    source, all at once, with ``ptxas -v``'s registers and spills;
 3. forward kernels: each set-transformer kernel against its plain PyTorch
@@ -82,16 +82,44 @@ Phases (each raises on failure; nothing is caught):
    64: per sample the megakernel, the pool and the h-side 6 x 254 times
    each, the separate unpool and MLP never; then the 8-step sample against
    the separate kernels' path and against the plain path; the variable is
-   restored.
+   restored;
+14. resident pool: ``folded_pool_layer`` against its plain version with
+   and without its pre-norm (h0, and the GroupNorm statistics it computes),
+   ordinary and drifted, at the sampler's batch 64 and at the 8k width;
+   its backward against autograd of the plain version at the training
+   batch 48 and the 8k width, nonzero mean/inv cotangents (the drifted
+   dbias beside the witness of its looser tolerance); the unpool forward
+   and backward with both flags off at the flagship's shapes; times,
+   bounds and, without the pre-norm, per-head SDPA as the yardstick;
+15. module-level folded path at the flagship's width: a ``Broadcast`` on
+   ``folded_pallas`` (the resident pool without its pre-norm, the flag-free
+   unpool) forward at batch 64 against ``xla`` and ``folded``, one gradient
+   at batch 48 per parameter group and for x against the plain path in
+   fp32 (the plain bf16 path printed beside it); a ``BroadcastingLayer``
+   called without channel sums under ``torch.no_grad`` (the resident pool
+   with its statistics) against the plain layer; each run's launches
+   exact;
+16. upsample path: the flagship on ``folded_pallas`` upsamples one
+   2048-point observation to 102,400 points through ``Diffusion.upsample``
+   on ``scripts/demo_upsample_100k.py``'s protocol (64-step extended grid, 5
+   substeps, churn 0.5): the pool and the h-side 6 x 64 times (one cache
+   refresh per transition), the unpool and the MLP 6 x (64 + 63 x 5 x 2 +
+   5) times, no other kernel; a finite cloud of the right shape; then a
+   4-step, 2-substep upsample of two clouds to 4096 points, the kernel path
+   against the plain path from one generator seed.
 
 It prints the kernels' JSON line, then the card's name and power limit, then
-the device line, last. It imports nothing of JAX or of gecco_tpu, and fails
+the device line, last. The resident pool's two entries there hold the
+variant without the pre-norm, the module-level ``Broadcast``'s, with its
+launches and SDPA yardstick; the pre-norm variant (the sums-less layer's)
+sits under each one's ``prenorm`` key with its own launches and times. It imports nothing of JAX or of gecco_tpu, and fails
 without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -119,7 +147,9 @@ from gecco_tpu_torch.models import (  # noqa: E402
     SetTransformer,
     UnconditionalPointNetwork,
 )
+from gecco_tpu_torch.models.set_transformer import Broadcast, BroadcastingLayer  # noqa: E402
 from gecco_tpu_torch.ops import kernels  # noqa: E402
+from gecco_tpu_torch.ops.norms import group_norm_stats  # noqa: E402
 from gecco_tpu_torch.train import (  # noqa: E402
     conditional_optimizer,
     flagship_optimizer,
@@ -193,8 +223,19 @@ TOL_GATHER_DCOORD = 1e-3
 # a residue. With near one-hot columns (large ds) it reaches a few percent
 # of max |dbe| (chip readings 5.6e-2 at the flagship, 6.8e-2 at the 8k
 # width). The witness: the same algebra in plain PyTorch, against which the
-# kernel's dbe is held at TOL_AFFINE.
+# kernel's dbe is held at TOL_AFFINE. The resident pool's dbias with drifted
+# logits likewise: its TPU algebra rounds p to bf16 before the softmax
+# backward, so sum_n p departs from 1 in a near one-hot column and the sum
+# over N of ds keeps t (1 - sum_n p) (chip reading 3.2e-2 at the flagship);
+# its witness is pool_layer_bwd_tpu_algebra.
 TOL_POOL_DRIFT_DBE = 1e-1
+# the resident pool's GroupNorm statistics: fp32 sums of the same bf16
+# stream, in other orders (the kernel's tile partials, then its groups)
+TOL_STATS = 1e-4
+# the upsample protocol of scripts/demo_upsample_100k.py: one 2048-point
+# observation upsampled to 102,400 points over the 64-step extended grid
+# (65 sigmas, 64 transitions), 5 substeps, churn 0.5
+UPSAMPLE_NEW, UPSAMPLE_STEPS, UPSAMPLE_SUBSTEPS = 102_400, 64, 5
 # the rect attention's lse: fp32 throughout in both, summed in other orders
 # (and, where the keys span several tiles, through a running max and sum)
 TOL_LSE = 1e-5
@@ -240,6 +281,10 @@ SOURCES = {
                            "gecco_tpu/ops/pallas/induced_attention.py:241"),
     "fused_unpool_mlp": ("gecco_tpu_torch/csrc/unpool_mlp.cu",
                          "gecco_tpu/ops/pallas/folded_attention.py:3176"),
+    "folded_pool_layer": ("gecco_tpu_torch/csrc/pool.cu",
+                          "gecco_tpu/ops/pallas/folded_attention.py:526"),
+    "folded_pool_layer_bwd": ("gecco_tpu_torch/csrc/pool_bwd.cu",
+                              "gecco_tpu/ops/pallas/folded_attention.py:696"),
 }
 SET_FORWARD = ("folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual")
 BACKWARD = ("folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd",
@@ -503,6 +548,36 @@ def pool_bwd_v3_affine(x, se, be, ind2, kvw, wo, g_h0, heads):
     ds = torch.where(z > -80.0, e * (y @ w3.transpose(1, 2) - tacc.reshape(b, 1, j)), 0.0)
     dy = ds.to(bf).float() @ qf.T + e.to(bf).float() @ w3
     return (dy * x.float()).sum(1), dy.sum(1)
+
+
+def pool_layer_bwd_tpu_algebra(x, scale, bias, ind2, kvw, wo, gind, g_h0, heads):
+    """dscale, dbias of the resident pool's backward (with its pre-norm) by
+    the TPU kernel's own algebra (``_pool_bwd_kernel``, the header of
+    ``csrc/pool_bwd.cu``) in plain PyTorch, fp32 with that algebra's bf16
+    roundings of y, p, v, dpool, dv and ds: the witness of the resident
+    pool's drifted dbias tolerance."""
+    bf = torch.bfloat16
+    b, n, c = x.shape
+    j, d = ind2.shape
+    i = j // heads
+    mean, inv = group_norm_stats(x, gind.shape[1])
+    xc = x.float() - mean[:, None]
+    y = (xc * (inv * scale)[:, None] + bias[:, None]).to(bf).float()
+    qf = fa.fold_qf(ind2, kvw, heads).float()
+    wv = kvw[c:].float()
+    s = y @ qf
+    z = (s - s.amax(1, keepdim=True)).reshape(b, n, heads, i)
+    e = torch.exp(z.clamp_min(-80.0))
+    p = (e / e.sum(1, keepdim=True)).to(bf).float()
+    v = (y @ wv.T).to(bf).float().reshape(b, n, heads, d)
+    pacc = torch.einsum("bnhi,bnhd->bihd", p, v)
+    dpool = (g_h0.float() @ wo.float()).to(bf).float().reshape(b, i, heads, d)
+    t = (dpool * pacc).sum(-1).transpose(1, 2)[:, None]
+    dp = torch.einsum("bnhd,bihd->bnhi", v, dpool)
+    dv = torch.einsum("bnhi,bihd->bnhd", p, dpool).to(bf).float().reshape(b, n, c)
+    ds = torch.where(z > -80.0, p * (dp - t), 0.0).to(bf).float().reshape(b, n, j)
+    dy = ds @ qf.T + dv @ wv
+    return (dy * xc).sum(1) * inv, dy.sum(1)
 
 
 def backward_phase(device, shapes, big, dt, reps):
@@ -925,6 +1000,332 @@ def attention_phase(device, shapes, train_batch, big, dt, reps):
     return rec
 
 
+# ------------------------------------------------------------ resident pool --
+
+
+def resident_pool_phase(device, shapes, train_batch, big, dt, reps):
+    """The resident pool's forward against its plain version (prenorm on
+    and off, ordinary and drifted, at the sampler's shapes and the 8k
+    width), its backward against autograd of the plain version (nonzero
+    mean/inv cotangents, at the training batch and the 8k width), and the
+    unpool with both flags off at the flagship's shapes; returns the
+    resident pool's records: each without its pre-norm (the module-level
+    Broadcast's route), with the pre-norm variant (the sums-less layer's
+    route) nested under ``prenorm``."""
+    g = torch.Generator(device=device).manual_seed(6)
+    r = lambda *sh: torch.randn(*sh, generator=g, device=device)
+    b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
+        shapes["num_heads"], shapes["num_inducers"]
+    d, j = c // heads, heads * i
+    rec = {}
+
+    def ops_for(bb, nn_, cc, hh, ii, drift):
+        """pool_operands (se/be as the AdaGN scale/bias) with per-channel
+        offsets on the stream, so that the group means are not 0, and the
+        group indicator."""
+        x, sc, bi, ind2, kvw, wo = pool_operands(g, bb, nn_, cc, hh, ii, drift, device, dt)
+        x = (1.5 * x.float() + 0.3 * r(1, 1, cc)).to(dt)
+        return x, sc, bi, ind2, kvw, wo, fa.group_indicator(cc, GROUPS, device)
+
+    def unfolded(ops):
+        """The same operands without a pre-norm, for the SDPA yardstick."""
+        ones = torch.ones(ops[1].shape, device=device)
+        return (ops[0], ones, torch.zeros_like(ones), *ops[3:6])
+
+    def tag(prenorm, drift, width=""):
+        norm = "prenorm" if prenorm else "no pre-norm"
+        return f"{norm}{width}, {'drift' if drift else 'ordinary'}"
+
+    def variant_rec(fwd_name, prenorm, errs, **timed):
+        """The record of one variant; the variant that gave the module-level
+        path most of its launches (no pre-norm) at the top, the other nested
+        under ``prenorm``."""
+        r_ = dict(max_abs_err=max(errs[prenorm]), **timed)
+        entry = rec.setdefault(fwd_name, {})
+        if prenorm:
+            entry["prenorm"] = r_
+        else:
+            entry.update(r_)
+
+    # forward
+    errs = {True: [], False: []}
+    for dims, width in (((b, n, c, heads, i), ""),
+                        ((big["batch"], big["n_points"], big["feature_dim"], big["num_heads"],
+                          big["num_inducers"]), " 8k width")):
+        for prenorm in (True, False):
+            for drift in (False, True):
+                ops = ops_for(*dims, drift)
+                with torch.no_grad():
+                    got = fa.folded_pool_layer(*ops, dims[3], prenorm)
+                    want = fa._pool_ref(*ops[:6], GROUPS, dims[3], prenorm)
+                sync(device)
+                for name, a, ref, tol in zip(("h0", "mean_c", "inv_c"), got, want,
+                                             (TOL_OUT, TOL_STATS, TOL_STATS)):
+                    check(f"folded_pool_layer [{tag(prenorm, drift, width)}] {name}",
+                          rel_err(a, ref), tol)
+                if not width:
+                    errs[prenorm].append(abs_err(got[0], want[0]))
+    ops = ops_for(b, n, c, heads, i, False)
+    # the products: logits, values, p^T v, the output projection
+    flops = 2 * b * n * c * j + 2 * b * n * c * c + 2 * b * n * j * d + 2 * b * i * c * c
+    for prenorm in (True, False):
+        with torch.no_grad():
+            ms = time_ms(lambda: fa.folded_pool_layer(*ops, heads, prenorm), device, reps)
+            plain_ms = time_ms(lambda: fa._pool_ref(*ops[:6], GROUPS, heads, prenorm), device,
+                               max(2, reps // 4))
+            lib_ms = None if prenorm else time_ms(sdpa_pool(unfolded(ops), heads), device, reps)
+        # each input read once, and with the pre-norm the stream once more:
+        # its statistics must be complete before the first logit and it does
+        # not fit on the chip; h0 and the statistics written once
+        bms, by = bound(flops, nbytes(*ops) + prenorm * nbytes(ops[0]) + 2 * b * i * c
+                        + 2 * 4 * b * c)
+        lib_txt = f"sdpa {lib_ms:.3f}" if lib_ms is not None else "library none"
+        print(f"  folded_pool_layer ({tag(prenorm, False)}): kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, {lib_txt} ms, bound {bms:.3f} ms ({by})")
+        variant_rec("folded_pool_layer", prenorm, errs, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=lib_ms)
+
+    # backward
+    names = ("dx", "dscale", "dbias", "dind2", "dkvw", "dwo")
+
+    def bwd_case(dims, drift, prenorm):
+        ops = ops_for(*dims, drift)
+        bb, _, cc, hh, ii = dims
+        if device.type == "cuda":
+            _, mean, inv, fwd = fa._pool_layer_launch(*ops, hh, prenorm, True)
+        else:
+            mean = inv = None
+            fwd = (None, None, None, None)
+        cot = ((0.1 * r(bb, ii, cc)).to(dt), 1e-2 * r(bb, cc), 1e-2 * r(bb, cc))
+        kernel = lambda: fa.folded_pool_layer_bwd(*ops, mean, inv, *fwd, *cot, hh, prenorm)
+        plain = lambda: fa._pool_layer_bwd_ref(*ops, *cot, hh, prenorm)
+        witness = lambda: pool_layer_bwd_tpu_algebra(*ops, cot[0], hh)
+        # the forward's results and the cotangents (y is x without the pre-norm)
+        extra = [t for t in (mean, inv, *fwd, *cot) if t is not None and t is not ops[0]]
+        return ops, extra, kernel, plain, witness
+
+    def bwd_check(label, kernel, plain, witness=None):
+        got, want = kernel(), plain()
+        sync(device)
+        for name, a, ref in zip(names, got, want):
+            tol = TOL_AFFINE if name in ("dscale", "dbias") else TOL_GRAD
+            if witness is not None and name == "dbias":
+                tol = TOL_POOL_DRIFT_DBE
+                alg = witness()[1]
+                print(f"    witness: dbias by the TPU algebra in plain PyTorch against the plain "
+                      f"version: {rel_err(alg, ref):.3e}")
+                # on the CPU the "kernel" is the plain version itself
+                if device.type == "cuda":
+                    check(f"folded_pool_layer_bwd [{label}] dbias against the TPU algebra",
+                          rel_err(a, alg), TOL_AFFINE)
+            check(f"folded_pool_layer_bwd [{label}] {name}", rel_err(a, ref), tol)
+        return max(abs_err(a, ref) for a, ref in zip(got, want))
+
+    errs = {True: [], False: []}
+    train_dims = (train_batch, n, c, heads, i)
+    big_dims = (big["batch"], big["n_points"], big["feature_dim"], big["num_heads"],
+                big["num_inducers"])
+    for dims, width in ((train_dims, ""), (big_dims, " 8k width")):
+        for prenorm in (True, False):
+            for drift in (False, True):
+                _, _, kernel, plain, witness = bwd_case(dims, drift, prenorm)
+                err = bwd_check(tag(prenorm, drift, width), kernel, plain,
+                                witness if prenorm and drift else None)
+                if not width:
+                    errs[prenorm].append(err)
+    tb = train_batch
+    # the products the gradient needs: logits and values (p and v), dp, dv,
+    # ds qf^T, dv Wv, dqf, dWv; the fold's dpool and dWo
+    flops = tb * (2 * n * (3 * c * j + 3 * c * c + 2 * j * d) + 4 * i * c * c)
+    for prenorm in (True, False):
+        ops, extra, kernel, plain, _ = bwd_case(train_dims, False, prenorm)
+        ms = time_ms(kernel, device, reps)
+        plain_ms = time_ms(plain, device, max(2, reps // 4))
+        lib_ms = None if prenorm else time_ms(sdpa_pool_bwd(unfolded(ops), heads, g), device, reps)
+        # each input read once (the operands, the forward's statistics and
+        # the cotangents), each gradient written once
+        bms, by = bound(flops, nbytes(*ops) + nbytes(*extra) + nbytes(*kernel()))
+        lib_txt = f"sdpa backward {lib_ms:.3f}" if lib_ms is not None else "library none"
+        print(f"  folded_pool_layer_bwd ({tag(prenorm, False)}, batch {tb}): kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, {lib_txt} ms, bound {bms:.3f} ms ({by})")
+        variant_rec("folded_pool_layer_bwd", prenorm, errs, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+    # the unpool with both flags off (the module-level unpool)
+    with torch.no_grad():
+        for drift in (False, True):
+            uops = unpool_operands(g, b, n, c, heads, i, drift, device, dt)
+            got = fa.folded_unpool(*uops, heads, False, False)
+            want = fa._unpool_ref(*uops, heads, False, False)
+            sync(device)
+            t_ = "drift" if drift else "ordinary"
+            check(f"folded_unpool, no residual, no pre-norm [{t_}] out", rel_err(got[0], want[0]),
+                  TOL_OUT)
+            check(f"folded_unpool, no residual, no pre-norm [{t_}] sums",
+                  rel_err(got[1], want[1]), TOL_SUMS)
+        uops = unpool_operands(g, b, n, c, heads, i, False, device, dt)
+        ms = time_ms(lambda: fa.folded_unpool(*uops, heads, False, False), device, reps)
+        plain_ms = time_ms(lambda: fa._unpool_ref(*uops, heads, False, False), device,
+                           max(2, reps // 4))
+    print(f"  folded_unpool, no residual, no pre-norm: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    unames = ("dx", "dse", "dbe", "dk", "dv", "dwq", "dwo")
+    for drift in (False, True):
+        uops = unpool_operands(g, tb, n, c, heads, i, drift, device, dt)
+        gg, gs = (0.1 * r(tb, n, c)).to(dt), 1e-3 * r(tb, 2, c)
+        got = fa.folded_unpool_bwd(*uops, gg, gs, heads, False, False)
+        want = fa._unpool_bwd_ref(*uops, gg, gs, heads, False, False)
+        sync(device)
+        for name, a, ref in zip(unames, got, want):
+            t_ = "drift" if drift else "ordinary"
+            check(f"folded_unpool_bwd, no residual, no pre-norm [{t_}] {name}", rel_err(a, ref),
+                  TOL_AFFINE if name in ("dse", "dbe") else TOL_GRAD)
+    ms = time_ms(lambda: fa.folded_unpool_bwd(*uops, gg, gs, heads, False, False), device, reps)
+    print(f"  folded_unpool_bwd, no residual, no pre-norm (batch {tb}): kernel {ms:.3f} ms")
+    return rec
+
+
+def module_phase(device, shapes, train_batch, dt):
+    """The module-level folded path at the flagship's width: a Broadcast
+    on ``folded_pallas`` (the resident pool without its pre-norm and the
+    unpool without pre-norm or residual) forward at the sampler's batch
+    against ``xla`` and ``folded``, one gradient at the training batch
+    per parameter group and for x, then a BroadcastingLayer
+    called without channel sums under ``torch.no_grad`` (the resident pool
+    with its statistics) against the plain layer; each run's launches
+    exact. The gradient is held against the plain path in fp32: at init
+    the unpool's q/k gradients pass through the softmax backward's dp - t,
+    a difference of near-equal numbers that the plain bf16 path takes
+    after rounding dp (chip reading: 5.6e-2 between the two bf16 paths).
+    Returns the launch counts of the three runs together, and those of the
+    sums-less layer's run alone (the resident pool with its pre-norm)."""
+    b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
+        shapes["num_heads"], shapes["num_inducers"]
+    tb = train_batch
+    gen = torch.Generator().manual_seed(5)
+    kw = dict(device=device, generator=gen)
+    bc = Broadcast(c, i, 1, heads, **kw)
+    layer = BroadcastingLayer(c, i, 1, heads, **kw)
+    # move the AdaGN embed weights off their 0 init, so the embed matters
+    for name, p in [*bc.named_parameters(), *layer.named_parameters()]:
+        if name.endswith(("scale_linear.weight", "bias_linear.weight")):
+            with torch.no_grad():
+                p.add_(0.002 * torch.randn(p.shape, generator=gen).to(device))
+    g = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn(b, n, c, generator=g, device=device).to(dt)
+    embed = (80.0 * torch.rand(b, 1, generator=g, device=device)).to(dt)
+    total = {}
+
+    def run(fn, expected, what):
+        kernels.reset_launch_counts()
+        out = fn()
+        sync(device)
+        counts = kernels.launch_counts()
+        check_counts(what, counts, expected_counts(expected), device)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    with torch.no_grad():
+        got = run(lambda: bc(x, embed, attn_impl="folded_pallas"),
+                  {"folded_pool_layer": 1, "folded_unpool": 1}, "module-level Broadcast")
+        for impl in ("xla", "folded"):
+            ref = bc(x, embed, attn_impl=impl)
+            for name, a, rr in zip(("out", "h"), got, ref):
+                check(f"Broadcast (batch {b}) {name}, folded_pallas vs {impl}", rel_err(a, rr),
+                      TOL_PATH)
+
+    # the gradient on the kernel path, the plain path and the plain path in
+    # fp32 (the reference both bf16 paths are held against)
+    xb, eb = x[:tb], embed[:tb]
+    grads = []
+    for impl, pdt in (("folded_pallas", dt), ("xla", dt), ("xla", torch.float32)):
+        bc.zero_grad(set_to_none=True)
+        xg = xb.to(pdt).clone().requires_grad_(True)
+
+        def step():
+            out, _ = bc(xg, eb.to(pdt), attn_impl=impl)
+            (out.float() ** 2).sum().backward()
+
+        if impl == "folded_pallas":
+            run(step, {"folded_pool_layer": 1, "folded_unpool": 1, "folded_pool_layer_bwd": 1,
+                       "folded_unpool_bwd": 1}, "module-level Broadcast gradient")
+        else:
+            step()
+        grads.append({"x": xg.grad.flatten().float(),
+                      **{k: p.grad.flatten().float() for k, p in bc.named_parameters()}})
+    bc.zero_grad(set_to_none=True)
+    rel = lambda a, ref: float((a - ref).norm() / ref.norm().clamp_min(1e-30))
+    worst = worst_plain = 0.0
+    for k, ref in grads[2].items():
+        k32, p32, kp = rel(grads[0][k], ref), rel(grads[1][k], ref), rel(grads[0][k], grads[1][k])
+        worst, worst_plain = max(worst, k32), max(worst_plain, p32)
+        print(f"    grad {k}: against fp32: kernel {k32:.3e}, plain {p32:.3e}; kernel against "
+              f"plain {kp:.3e}")
+    print(f"  the plain bf16 path's worst group against fp32: {worst_plain:.3e}")
+    check(f"Broadcast gradient (batch {tb}), folded_pallas vs the plain path in fp32 "
+          f"(worst group)", worst, TOL_TRAIN_GRAD, "||err||/||ref||")
+
+    with torch.no_grad():
+        before = dict(total)
+        got = run(lambda: layer(x, embed, "folded_pallas"),
+                  {"folded_pool_layer": 1, "fused_h_side": 1, "folded_unpool": 1,
+                   "fused_mlp_residual": 1}, "sums-less BroadcastingLayer")
+        ref = layer(x, embed, "xla")
+        for name, a, rr in zip(("out", "h"), got, ref):
+            check(f"BroadcastingLayer without sums (batch {b}) {name}, folded_pallas vs xla",
+                  rel_err(a, rr), TOL_PATH)
+    return total, {k: v - before.get(k, 0) for k, v in total.items()}
+
+
+def upsample_path(device, n_layers, n_points, n_new, n_steps, n_substeps, compare_new):
+    """The flagship on ``folded_pallas`` upsamples one ``n_points``
+    observation to ``n_new`` points through ``Diffusion.upsample`` (churn
+    0.5) on the ``n_steps``-step extended grid; every launch count exact:
+    the pool side once per layer and transition (the cache refresh), the
+    unpool side once per layer and evaluation. Then a 4-step, 2-substep
+    upsample of two clouds to ``compare_new`` points, the kernel path
+    against the plain path from the same generator seed (the same draws).
+    Returns the counts and a record."""
+    model = build_flagship(device, torch.Generator().manual_seed(0), n_layers, n_steps=n_steps)
+    rng = np.random.default_rng(2)
+    data = torch.from_numpy(make_clouds(rng, 1, n_points)).to(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    full = model.schedule
+    model.schedule = dataclasses.replace(full, n_solver_steps=2)
+    model.upsample(gen, data, 256, n_substeps=1)  # warm-up: first launches, allocator
+    model.schedule = full
+    sync(device)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.upsample(gen, data, n_new, n_substeps=n_substeps, s_churn=0.5)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if tuple(out.shape) != (1, n_new, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"upsample: shape {tuple(out.shape)} or non-finite values")
+    cached = (n_steps - 1) * n_substeps * 2 + n_substeps
+    print(f"  upsampled one {n_points}-point cloud to {tuple(out.shape)} in {seconds:.3f} s: "
+          f"{n_new / seconds:.1f} new points/s ({n_steps} full evaluations of the observation, "
+          f"{cached} cached evaluations of the new points)")
+    pool_side = {k: n_layers * n_steps for k in ("folded_pool_ext", "fused_h_side")}
+    unpool_side = {k: n_layers * (n_steps + cached)
+                   for k in ("folded_unpool", "fused_mlp_residual")}
+    check_counts("upsample", counts, expected_counts({**pool_side, **unpool_side}), device)
+
+    model.schedule = dataclasses.replace(full, n_solver_steps=4)
+    data2 = torch.from_numpy(make_clouds(rng, 2, n_points)).to(device)
+    outs = []
+    for fused in (True, False):
+        set_path(model, fused)
+        outs.append(model.upsample(torch.Generator(device=device).manual_seed(3), data2,
+                                   compare_new, n_substeps=2))
+    set_path(model, True)
+    check(f"4-step upsample of 2 clouds to {compare_new} points, kernel path vs plain path",
+          rel_err(*outs), TOL_PATH)
+    return counts, dict(seconds=seconds, points_per_s=n_new / seconds, cached_evals=cached)
+
+
 def param_groups(model) -> dict:
     """Parameters grouped by their name without the layer index (e.g. all
     layers' ``broadcast.pool.kv_proj.weight`` in one group); the ConvNeXt's
@@ -1095,6 +1496,7 @@ def train_phase(device, n_layers, batch, n_points, card, steps, attn_impl="folde
 
 # the kernels of each wrapper, by the function names in gecco_tpu_torch/csrc
 KERNEL_FUNCTIONS = {
+    # linear_nt_kernel (pool.cuh) is the resident pool's output projection too
     "folded_pool_ext": ("pool_kernel", "linear_nt_kernel"),
     "fused_h_side": ("hside_kernel",),
     "folded_unpool": ("unpool_bq_kernel", "unpool_fold_kernel", "unpool_kernel"),
@@ -1103,12 +1505,16 @@ KERNEL_FUNCTIONS = {
                             "pool_bwd_pass1_kernel"),
     "folded_unpool_bwd": ("unpool_bwd_fold_kernel", "unpool_bwd_kernel"),
     "fused_mlp_residual_bwd": ("mlp_bwd_kernel",),
-    "atb_kernel (the weight-gradient products of the three backwards)": ("atb_kernel",),
+    "atb_kernel (the weight-gradient products of the four folded backwards)": ("atb_kernel",),
     "projective_gather": ("gather_kernel",),
     "projective_gather_bwd": ("gather_bwd_kernel",),
     "rect_attention_fwd": ("rect_attn_fwd_kernel",),
     "rect_attention_bwd": ("rect_attn_bwd_kernel",),
     "fused_unpool_mlp": ("unpool_mlp_kernel",),
+    "folded_pool_layer": ("pool_layer_sums_kernel", "pool_layer_stats_kernel",
+                          "pool_layer_norm_kernel", "pool_layer_kernel"),
+    "folded_pool_layer_bwd": ("pool_layer_bwd_fold_kernel", "pool_layer_bwd_kernel",
+                              "pool_layer_bwd_dx_kernel"),
 }
 PROFILE_STEPS = 3
 # cuDNN's and PyTorch's convolution kernels and cuDNN's layout transforms
@@ -1173,14 +1579,15 @@ def profile_steps(run, n, device):
                                   for k, v in split.items()))
 
 
-def build_flagship(device, generator, n_layers, dt=torch.bfloat16, attn_impl="folded_pallas"):
+def build_flagship(device, generator, n_layers, dt=torch.bfloat16, attn_impl="folded_pallas",
+                   n_steps=N_STEPS):
     f = FLAGSHIP
     backbone = SetTransformer(
         n_layers, f["feature_dim"], f["num_inducers"], embed_dim=1, num_heads=f["num_heads"],
         compute_dtype=dt, attn_impl=attn_impl, device=device, generator=generator,
     )
     net = UnconditionalPointNetwork(backbone, f["feature_dim"], device=device, generator=generator)
-    sched = LogUniformSchedule(sigma_max=165.0, sigma_min=0.002, n_solver_steps=N_STEPS)
+    sched = LogUniformSchedule(sigma_max=165.0, sigma_min=0.002, n_solver_steps=n_steps)
     return Diffusion(net, sched, reparam=GaussianReparam([0.0] * 3, [0.35] * 3, device=device))
 
 
@@ -1418,6 +1825,7 @@ def main():
         train_batch = cond_batch = 2
         image_size, render_size = 32, 37
         train_steps = (1, 2)
+        upsample = dict(n_new=300, n_steps=3, n_substeps=2, compare_new=200)
     else:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")
@@ -1429,6 +1837,8 @@ def main():
         train_batch, cond_batch = TRAIN_BATCH, COND_BATCH
         image_size, render_size = IMAGE_SIZE, RENDER_SIZE
         train_steps = (TRAIN_WARMUP, TRAIN_STEPS)
+        upsample = dict(n_new=UPSAMPLE_NEW, n_steps=UPSAMPLE_STEPS, n_substeps=UPSAMPLE_SUBSTEPS,
+                        compare_new=4096)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1471,6 +1881,10 @@ def main():
     print(f"== per-head attention and megakernel vs plain versions (sampler batch "
           f"{shapes['batch']}, training batch {train_batch}; 8k {big}) on {card}")
     rec.update(attention_phase(device, shapes, train_batch, big, dt, reps))
+
+    print(f"== resident pool and flag-free unpool vs plain versions (sampler batch "
+          f"{shapes['batch']}, training batch {train_batch}; 8k {big}) on {card}")
+    rec.update(resident_pool_phase(device, shapes, train_batch, big, dt, reps))
 
     print(f"== sampler path: flagship x{n_layers} layers, batch {batch}, {n_points} points, "
           f"{n_steps}-step Heun, on {card}")
@@ -1515,6 +1929,18 @@ def main():
                                              compare_batch=8)
     print(f"  {mega_path['clouds_per_s']:.3f} clouds/s on {card}")
 
+    print(f"== module-level folded path: Broadcast and BroadcastingLayer at C "
+          f"{shapes['feature_dim']}, {shapes['num_heads']} heads, {shapes['num_inducers']} "
+          f"inducers, {n_points} points (batch {shapes['batch']}, gradient at {train_batch}) "
+          f"on {card}")
+    module_counts, prenorm_counts = module_phase(device, dict(shapes, n_points=n_points),
+                                                 train_batch, dt)
+
+    print(f"== upsample path: flagship x{n_layers} layers, one {n_points}-point cloud to "
+          f"{upsample['n_new']} points, {upsample['n_steps']}-step extended grid, "
+          f"{upsample['n_substeps']} substeps, churn 0.5, on {card}")
+    up_counts, up_path = upsample_path(device, n_layers, n_points, **upsample)
+
     print("== summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
@@ -1523,6 +1949,8 @@ def main():
     print(f"  launches on the per-head sampler path: {ph_counts}")
     print(f"  launches on the per-head training path: {ph_train_counts}")
     print(f"  launches on the megakernel sampler path: {mega_counts}")
+    print(f"  launches on the module-level folded path: {module_counts}")
+    print(f"  launches on the upsample path: {up_counts}")
     print(f"  sampler {path['clouds_per_s']:.3f} clouds/s (batch {batch}); train step "
           f"{train['ms_per_step']:.3f} ms (batch {train_batch}); conditional sampler "
           f"{cond_path['clouds_per_s']:.3f} clouds/s (batch {cond_batch}; ConvNeXt "
@@ -1532,16 +1960,26 @@ def main():
           f"{ph_path['clouds_per_s']:.3f} clouds/s ({ph_path['eval_ms']:.3f} ms per evaluation); "
           f"per-head train step {ph_train['ms_per_step']:.3f} ms (batch {train_batch}); "
           f"megakernel sampler {mega_path['clouds_per_s']:.3f} clouds/s "
-          f"({mega_path['eval_ms']:.3f} ms per evaluation); {card}")
+          f"({mega_path['eval_ms']:.3f} ms per evaluation); upsample to {upsample['n_new']} "
+          f"points {up_path['seconds']:.3f} s ({up_path['points_per_s']:.1f} new points/s); "
+          f"{card}")
     # launches: each kernel's count on the path that first brought it in
     # (printed above): the flagship sampler's for a set-transformer forward
     # kernel, the flagship training path's for a backward one, the
     # conditional sampler's for the gather and the conditional training
-    # path's for its backward, the per-head paths' for the rect attention
-    # and the megakernel sampler's for the megakernel
+    # path's for its backward, the per-head paths' for the rect attention,
+    # the megakernel sampler's for the megakernel and the module-level
+    # folded path's for the resident pool, split by variant: the sums-less
+    # layer's run gave the pre-norm launches (nested under "prenorm", as
+    # their times are), the Broadcast's runs the rest
+    pool_counts = {}
+    for name in ("folded_pool_layer", "folded_pool_layer_bwd"):
+        rec[name]["prenorm"]["launches"] = prenorm_counts.get(name, 0)
+        pool_counts[name] = module_counts.get(name, 0) - prenorm_counts.get(name, 0)
     source_counts = {"projective_gather": cond_counts, "projective_gather_bwd": cond_train_counts,
                      "rect_attention_fwd": ph_counts, "rect_attention_bwd": ph_train_counts,
-                     "fused_unpool_mlp": mega_counts}
+                     "fused_unpool_mlp": mega_counts, "folded_pool_layer": pool_counts,
+                     "folded_pool_layer_bwd": pool_counts}
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=source_counts.get(name, train_counts if name in BACKWARD else counts)[name],

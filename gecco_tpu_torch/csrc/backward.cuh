@@ -117,14 +117,15 @@ inline cudaError_t launch_atb(const bf16* A, int lda, size_t a_bstride, const fl
 // shared, row stride ldy) at stream offset ``base`` of batch element b,
 // dx = bf16(dy * se + (res ? res : 0)) (res fp32 shared, row stride ldr),
 // and the pre-norm affine's gradients dse[b] += sum dy * x, dbe[b] += sum
-// dy, one fp32 atomic per channel and block.
+// dy, one fp32 atomic per channel and block; without a pre-norm (se null)
+// dx = bf16(dy + res) and no affine gradient.
 __device__ __forceinline__ void prenorm_grad_epilogue(const float* dy, int ldy, const float* res,
                                                       int ldr, const bf16* x, const float* se,
                                                       bf16* dx, float* dse, float* dbe, int rows,
                                                       int C) {
   for (int c = threadIdx.x; c < C; c += kThreads) {
     float s_se = 0.0f, s_be = 0.0f;
-    const float sc = se[c];
+    const float sc = se ? se[c] : 1.0f;
     for (int r = 0; r < rows; ++r) {
       const float d = dy[(size_t)r * ldy + c];
       const size_t e = (size_t)r * C + c;
@@ -133,8 +134,10 @@ __device__ __forceinline__ void prenorm_grad_epilogue(const float* dy, int ldy, 
       s_se += d * __bfloat162float(x[e]);
       s_be += d;
     }
-    atomicAdd(dse + c, s_se);
-    atomicAdd(dbe + c, s_be);
+    if (se != nullptr) {
+      atomicAdd(dse + c, s_se);
+      atomicAdd(dbe + c, s_be);
+    }
   }
 }
 

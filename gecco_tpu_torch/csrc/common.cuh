@@ -189,7 +189,8 @@ __device__ __forceinline__ void load_prenorm(bf16* y, int ld, const bf16* x, con
 }
 
 // Residual epilogue shared by the unpool and MLP kernels:
-// o = x + (acc + bias) in fp32 (acc row stride lda), stored as bf16, and
+// o = x + (acc + bias) in fp32 (acc row stride lda; no x term where x is
+// null), stored as bf16, and
 // the channel sums of the fp32 o (before the cast) added into
 // sums[b] = [s1 | s2] with one atomic per channel and block. Blocks land in
 // no fixed order, so the fp32 sums vary from run to run at the level of
@@ -202,7 +203,7 @@ __device__ __forceinline__ void residual_epilogue(const bf16* x, const float* ac
     float s1 = 0.0f, s2 = 0.0f;
     for (int r = 0; r < rows; ++r) {
       const size_t e = (size_t)r * C + c;
-      const float o = __bfloat162float(x[e]) + (acc[(size_t)r * lda + c] + bc);
+      const float o = (x ? __bfloat162float(x[e]) : 0.0f) + (acc[(size_t)r * lda + c] + bc);
       out[e] = __float2bfloat16(o);
       s1 += o;
       s2 += o * o;

@@ -27,39 +27,15 @@
 // width, where they are read from L2). Each block re-reads and re-normalises
 // the stream tile for its head (H reads of the stream, mostly from L2).
 // The same kernel serves the flagship (C = 384) and the 8k width (C = 768).
+// The block's layout, its weight staging and the output projection are in
+// pool.cuh, shared with the resident pool (pool.cu).
 #include <cmath>
 
-#include "common.cuh"
+#include "pool.cuh"
 
 using namespace gecco;
 
 namespace {
-
-constexpr int kTile = 64;
-
-// Shared-memory layout of the pool kernel, in bytes from the start; the
-// head's weight operands qf_h [C, I] and Wv_h [D, C] are staged at the end
-// where they fit (stage_w), else read from device memory.
-struct PoolSmem {
-  int ldy, lds, ldv, lde, ldvb, ldq, ldw;
-  size_t y, s, vt, tmp, P, stats, e, vb, qst, wst, total_unstaged, total;
-  __host__ __device__ PoolSmem(int C, int I, int D) {
-    ldy = C + kPad; lds = I + kPadF; ldv = D + kPadF; lde = I + kPad; ldvb = D + kPad;
-    ldq = I + kPad; ldw = C + kPad;
-    y = 0;
-    s = y + (size_t)kTile * ldy * 2;
-    vt = s + (size_t)kTile * lds * 4;
-    tmp = vt + (size_t)kTile * ldv * 4;
-    P = tmp + (size_t)I * ldv * 4;
-    stats = P + (size_t)I * D * 4;
-    e = stats + (size_t)3 * I * 4;
-    vb = e + (size_t)kTile * lde * 2;
-    qst = vb + (size_t)kTile * ldvb * 2;
-    total_unstaged = qst;
-    wst = qst + (size_t)C * ldq * 2;
-    total = wst + (size_t)D * ldw * 2;
-  }
-};
 
 __global__ void __launch_bounds__(kThreads)
 pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const float* __restrict__ be,
@@ -69,50 +45,38 @@ pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const floa
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = C / H, J = H * I;
   const PoolSmem L(C, I, D);
-  bf16* y = reinterpret_cast<bf16*>(smem + L.y);        // [kTile, C]
-  float* s = reinterpret_cast<float*>(smem + L.s);      // [kTile, I] logits, then fp32 e
-  float* vt = reinterpret_cast<float*>(smem + L.vt);    // [kTile, D] fp32 v
+  bf16* y = reinterpret_cast<bf16*>(smem + L.y);        // [kPoolTile, C]
+  float* s = reinterpret_cast<float*>(smem + L.s);      // [kPoolTile, I] logits, then fp32 e
+  float* vt = reinterpret_cast<float*>(smem + L.vt);    // [kPoolTile, D] fp32 v
   float* tmp = reinterpret_cast<float*>(smem + L.tmp);  // [I, D] the tile's e^T v
   float* P = reinterpret_cast<float*>(smem + L.P);      // [I, D] accumulator
   float* m = reinterpret_cast<float*>(smem + L.stats);  // [I] running max
   float* l = m + I;                                     // [I] running sum
   float* corr = l + I;                                  // [I]
-  bf16* e = reinterpret_cast<bf16*>(smem + L.e);        // [kTile, I] bf16 e
-  bf16* vb = reinterpret_cast<bf16*>(smem + L.vb);      // [kTile, D] bf16 v
+  bf16* e = reinterpret_cast<bf16*>(smem + L.e);        // [kPoolTile, I] bf16 e
+  bf16* vb = reinterpret_cast<bf16*>(smem + L.vb);      // [kPoolTile, D] bf16 v
 
   const int h = blockIdx.x, b = blockIdx.y;
-  // Wv_h = kvw[C + hD : C + (h+1)D, :], read as a column-major [C, D] operand
-  const bf16* qB = qf + h * I;
-  int ldqB = J;
-  const bf16* wB = kvw + (size_t)(C + h * D) * C;
-  int ldwB = C;
-  if (stage_w) {
-    bf16* qst = reinterpret_cast<bf16*>(smem + L.qst);
-    bf16* wst = reinterpret_cast<bf16*>(smem + L.wst);
-    stage(qst, L.ldq, qB, J, C, I);
-    stage(wst, L.ldw, wB, C, D, C);
-    qB = qst;
-    ldqB = L.ldq;
-    wB = wst;
-    ldwB = L.ldw;
-  }
+  const bf16 *qB, *wB;
+  int ldqB, ldwB;
+  pool_head_operands(smem, L, qf, kvw, C, H, I, h, stage_w, &qB, &ldqB, &wB, &ldwB);
   for (int t = threadIdx.x; t < I * D; t += kThreads) P[t] = 0.0f;
   for (int t = threadIdx.x; t < I; t += kThreads) {
     m[t] = -3.0e38f;
     l[t] = 0.0f;
   }
 
-  for (int n0 = 0; n0 < N; n0 += kTile) {
+  for (int n0 = 0; n0 < N; n0 += kPoolTile) {
     load_prenorm(y, L.ldy, x + ((size_t)b * N + n0) * C, se + (size_t)b * C, be + (size_t)b * C,
-                 kTile, C);
+                 kPoolTile, C);
     __syncthreads();
-    gemm_to_smem<wmma::row_major, wmma::row_major>(y, L.ldy, qB, ldqB, s, L.lds, kTile, I, C);
-    gemm_to_smem<wmma::row_major, wmma::col_major>(y, L.ldy, wB, ldwB, vt, L.ldv, kTile, D, C);
+    gemm_to_smem<wmma::row_major, wmma::row_major>(y, L.ldy, qB, ldqB, s, L.lds, kPoolTile, I, C);
+    gemm_to_smem<wmma::row_major, wmma::col_major>(y, L.ldy, wB, ldwB, vt, L.ldv, kPoolTile, D, C);
     __syncthreads();
     // column max over the tile: 4 lanes per column, shuffle-reduced
     for (int i = threadIdx.x / 4; i < I; i += kThreads / 4) {
       float tmax = -3.0e38f;
-      for (int r = threadIdx.x % 4; r < kTile; r += 4) tmax = fmaxf(tmax, s[r * L.lds + i]);
+      for (int r = threadIdx.x % 4; r < kPoolTile; r += 4) tmax = fmaxf(tmax, s[r * L.lds + i]);
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
       if (threadIdx.x % 4 == 0) {
@@ -121,11 +85,11 @@ pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const floa
         m[i] = mn;
       }
     }
-    for (int t = threadIdx.x; t < kTile * D; t += kThreads) {
+    for (int t = threadIdx.x; t < kPoolTile * D; t += kThreads) {
       vb[(t / D) * L.ldvb + t % D] = __float2bfloat16(vt[(t / D) * L.ldv + t % D]);
     }
     __syncthreads();
-    for (int t = threadIdx.x; t < kTile * I; t += kThreads) {
+    for (int t = threadIdx.x; t < kPoolTile * I; t += kThreads) {
       const int r = t / I, i = t % I;
       const float ev = expf(fmaxf(s[r * L.lds + i] - m[i], -80.0f));
       s[r * L.lds + i] = ev;
@@ -134,13 +98,14 @@ pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const floa
     __syncthreads();
     for (int i = threadIdx.x / 4; i < I; i += kThreads / 4) {
       float sum = 0.0f;
-      for (int r = threadIdx.x % 4; r < kTile; r += 4) sum += s[r * L.lds + i];
+      for (int r = threadIdx.x % 4; r < kPoolTile; r += 4) sum += s[r * L.lds + i];
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       if (threadIdx.x % 4 == 0) l[i] = l[i] * corr[i] + sum;
     }
-    // e^T is e [kTile, I] read as a column-major [I, kTile] operand
-    gemm_to_smem<wmma::col_major, wmma::row_major>(e, L.lde, vb, L.ldvb, tmp, L.ldv, I, D, kTile);
+    // e^T is e [kPoolTile, I] read as a column-major [I, kPoolTile] operand
+    gemm_to_smem<wmma::col_major, wmma::row_major>(e, L.lde, vb, L.ldvb, tmp, L.ldv, I, D,
+                                                   kPoolTile);
     __syncthreads();
     for (int t = threadIdx.x; t < I * D; t += kThreads) {
       P[t] = P[t] * corr[t / D] + tmp[(t / D) * L.ldv + t % D];
@@ -158,21 +123,6 @@ pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const floa
       macc[(size_t)b * J + h * I + i] = m[i];
       sacc[(size_t)b * J + h * I + i] = l[i];
     }
-  }
-}
-
-// out[M, Nout] = bf16(A[M, K] @ W[Nout, K]^T), one 64 x 64 output tile per
-// block; W read as a column-major [K, Nout] operand.
-__global__ void __launch_bounds__(kThreads)
-linear_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, bf16* __restrict__ out,
-                 int M, int Nout, int K) {
-  __shared__ __align__(128) float tile[64 * 64];
-  const int m0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
-  gemm_to_smem<wmma::row_major, wmma::col_major>(A + (size_t)m0 * K, K, W + (size_t)n0 * K, K,
-                                                 tile, 64, 64, 64, K);
-  __syncthreads();
-  for (int t = threadIdx.x; t < 64 * 64; t += kThreads) {
-    out[(size_t)(m0 + t / 64) * Nout + n0 + t % 64] = __float2bfloat16(tile[t]);
   }
 }
 

@@ -1,7 +1,9 @@
 // Folded unpool attention + residual, with the output channel sums.
 //
 // Replaces gecco_tpu/ops/pallas/folded_attention.py:_unpool_kernel (served
-// by folded_unpool). With y = x * se + be, per batch element b and head h:
+// by folded_unpool), with its two flags: ``prenorm`` (with it off, y = x:
+// no se fold into wq and no bias row) and ``residual`` (with it off, no x
+// add). With y = x * se + be, per batch element b and head h:
 //   kft[hI+i, :] = bf16(s * k_h[i] @ bf16(wq_h * se))       [J, C]
 //   brow[hI+i]   = s * (be @ wq_h^T) . k_h[i]                [J] fp32
 //   vf[hI+i, :]  = bf16(v_h[i] @ wo_h^T)                      [J, C]
@@ -54,10 +56,11 @@ template <int ROWS>
 __global__ void __launch_bounds__(kThreads)
 unpool_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kft,
               const float* __restrict__ brow, const bf16* __restrict__ vf, bf16* __restrict__ out,
-              float* __restrict__ sums, int N, int C, int H, int I, int dbl, int region0) {
+              float* __restrict__ sums, int N, int C, int H, int I, int dbl, int region0,
+              int residual) {
   extern __shared__ __align__(128) unsigned char smem[];
   unpool_tile<ROWS>(x, kft, brow, vf, out, sums, N, C, H, I, dbl, region0, blockIdx.y,
-                    blockIdx.x, smem);
+                    blockIdx.x, residual != 0, smem);
 }
 
 }  // namespace
@@ -65,15 +68,18 @@ unpool_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kft,
 extern "C" int unpool_launch(const void* x, const void* se, const void* be, const void* k,
                              const void* v, const void* wq, const void* wo_t, void* bq, void* kft,
                              void* vf, void* brow, void* out, void* sums, int B, int N, int C,
-                             int H, int I, int TN, void* stream) {
+                             int H, int I, int TN, int residual, int prenorm, void* stream) {
   const int J = H * I;
   // 1/sqrt(D) rounded once from double, as the JAX package's Python float
   const float scale = (float)(1.0 / sqrt((double)(C / H)));
   cudaStream_t st = (cudaStream_t)stream;
-  unpool_bq_kernel<<<dim3((C + kWarps - 1) / kWarps, B), kThreads, 0, st>>>(
-      (const float*)be, (const bf16*)wq, (float*)bq, C);
+  if (prenorm) {
+    unpool_bq_kernel<<<dim3((C + kWarps - 1) / kWarps, B), kThreads, 0, st>>>(
+        (const float*)be, (const bf16*)wq, (float*)bq, C);
+  }
   unpool_fold_kernel<<<dim3((J * C + J + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(
-      (const float*)se, (const float*)bq, (const bf16*)k, (const bf16*)v, (const bf16*)wq,
+      prenorm ? (const float*)se : nullptr, prenorm ? (const float*)bq : nullptr,
+      (const bf16*)k, (const bf16*)v, (const bf16*)wq,
       (const bf16*)wo_t, (bf16*)kft, (bf16*)vf, (float*)brow, C, H, I, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -86,6 +92,6 @@ extern "C" int unpool_launch(const void* x, const void* se, const void* be, cons
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(N / TN, B), kThreads, smem, st>>>(
       (const bf16*)x, (const bf16*)kft, (const float*)brow, (const bf16*)vf, (bf16*)out,
-      (float*)sums, N, C, H, I, dbl, (int)region0);
+      (float*)sums, N, C, H, I, dbl, (int)region0, residual);
   return (int)cudaGetLastError();
 }

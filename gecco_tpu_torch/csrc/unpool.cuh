@@ -24,7 +24,8 @@ __device__ __forceinline__ void unpool_bq_warp(const float* __restrict__ be,
 
 // One (j, c) output of kft and vf (wo passed transposed, so that
 // neighbouring threads read neighbouring channels) for idx < J * C; one j
-// of brow for idx - J * C < J.
+// of brow for idx - J * C < J. Without the pre-norm (se and bq null) wq is
+// folded as it is and brow is 0.
 __device__ __forceinline__ void unpool_fold_elem(
     const float* __restrict__ se, const float* __restrict__ bq, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ wq, const bf16* __restrict__ wo_t,
@@ -36,7 +37,7 @@ __device__ __forceinline__ void unpool_fold_elem(
   if (idx < J * C) {
     const int j = idx / C, c = idx % C;
     const int h = j / I, i = j % I;
-    const float sc = se[(size_t)b * C + c];
+    const float sc = se ? se[(size_t)b * C + c] : 1.0f;
     float kacc = 0.0f, vacc = 0.0f;
     for (int d = 0; d < D; ++d) {
       const int hd = h * D + d;
@@ -51,7 +52,7 @@ __device__ __forceinline__ void unpool_fold_elem(
     const int j = idx - J * C;
     const int h = j / I, i = j % I;
     float acc = 0.0f;
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; bq != nullptr && d < D; ++d) {
       acc += bq[(size_t)b * C + h * D + d] * __bfloat162float(kb[(size_t)i * C + h * D + d]);
     }
     brow[(size_t)b * J + j] = scale * acc;
@@ -82,7 +83,8 @@ inline size_t unpool_smem_plan(int TN, int C, int I, int* dbl_out, size_t* regio
 }
 
 // One point tile (rows tile * TN ...) of batch element b: logits, per-head
-// softmax, p @ vf, residual, out and the channel sums.
+// softmax, p @ vf, the residual (where ``residual``), out and the channel
+// sums.
 template <int ROWS>
 __device__ __forceinline__ void unpool_tile(const bf16* __restrict__ x,
                                             const bf16* __restrict__ kft,
@@ -90,7 +92,7 @@ __device__ __forceinline__ void unpool_tile(const bf16* __restrict__ x,
                                             const bf16* __restrict__ vf, bf16* __restrict__ out,
                                             float* __restrict__ sums, int N, int C, int H, int I,
                                             int dbl, int region0, int b, int tile,
-                                            unsigned char* smem) {
+                                            bool residual, unsigned char* smem) {
   constexpr int TN = 16 * ROWS, COLS = kMaxFrags / ROWS;
   const int ldx = C + kPad, lds = I + kPadF, ldp = I + kPad, ldo = C + kPadF;
   bf16* xs = reinterpret_cast<bf16*>(smem);                // [TN, C]
@@ -160,7 +162,8 @@ __device__ __forceinline__ void unpool_tile(const bf16* __restrict__ x,
   __syncthreads();  // obuf reuses xs and the staging buffers
   acc_store(acc, obuf, ldo, C);
   __syncthreads();
-  residual_epilogue(x + base, obuf, ldo, nullptr, out + base, sums + (size_t)b * 2 * C, TN, C);
+  residual_epilogue(residual ? x + base : nullptr, obuf, ldo, nullptr, out + base,
+                    sums + (size_t)b * 2 * C, TN, C);
 }
 
 }  // namespace gecco

@@ -1,6 +1,9 @@
 // Backward of the folded unpool attention + residual (folded_unpool).
 //
-// Replaces gecco_tpu/ops/pallas/folded_attention.py:_unpool_bwd_kernel.
+// Replaces gecco_tpu/ops/pallas/folded_attention.py:_unpool_bwd_kernel, in
+// all four variants of its flags: with ``prenorm`` off y = x (no dse, dbe;
+// dx = dy + ...), with ``residual`` off the x term of attn and the d_attn
+// term of dx drop out.
 // Per batch element b and head h, with the fold WITHOUT se (the backward
 // needs y explicitly; unlike the forward kernel unpool.cu):
 //   kft[hI+i, :] = bf16(s * k_h[i] @ wq_h)    vf[hI+i, :] = bf16(v_h[i] @ wo_h^T)
@@ -109,7 +112,8 @@ unpool_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
                   const bf16* __restrict__ vf, const bf16* __restrict__ g,
                   const float* __restrict__ gsums, bf16* __restrict__ p_out,
                   bf16* __restrict__ ds_out, bf16* __restrict__ da_out, bf16* __restrict__ dx,
-                  float* __restrict__ dse, float* __restrict__ dbe, int N, int C, int H, int I) {
+                  float* __restrict__ dse, float* __restrict__ dbe, int N, int C, int H, int I,
+                  int residual) {
   constexpr int TN = 16 * ROWS;
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldy = C + kPad, ldf = C + kPadF, lds = I + kPadF, ldp = I + kPad;
@@ -127,7 +131,8 @@ unpool_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
   const size_t base = ((size_t)b * N + n0) * C;
   const bf16* kb = kft + (size_t)b * J * C;
   const bf16* vb = vf + (size_t)b * J * C;
-  load_prenorm(y, ldy, x + base, se + (size_t)b * C, be + (size_t)b * C, TN, C);
+  const float* seb = se ? se + (size_t)b * C : nullptr;
+  load_prenorm(y, ldy, x + base, seb, be ? be + (size_t)b * C : nullptr, TN, C);
   __syncthreads();
 
   // heads, first walk: attn = sum_h bf16(p_h) @ vf_h
@@ -147,7 +152,7 @@ unpool_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
   const float* gs2 = gs1 + C;
   for (int t = threadIdx.x; t < TN * C; t += kThreads) {
     const int r = t / C, c = t % C;
-    const float attn = __bfloat162float(x[base + t]) + da[r * ldf + c];
+    const float attn = (residual ? __bfloat162float(x[base + t]) : 0.0f) + da[r * ldf + c];
     const float d = __bfloat162float(g[base + t]) + gs1[c] + 2.0f * attn * gs2[c];
     const bf16 db = __float2bfloat16(d);
     da[r * ldf + c] = d;
@@ -177,7 +182,7 @@ unpool_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
   }
   acc_store(acc, dyb, ldf, C);  // over y and bf16(d_attn), both read for the last time above
   __syncthreads();
-  prenorm_grad_epilogue(dyb, ldf, da, ldf, x + base, se + (size_t)b * C, dx + base,
+  prenorm_grad_epilogue(dyb, ldf, residual ? da : nullptr, ldf, x + base, seb, dx + base,
                         dse + (size_t)b * C, dbe + (size_t)b * C, TN, C);
 }
 
@@ -187,7 +192,8 @@ extern "C" int unpool_bwd_launch(const void* x, const void* se, const void* be, 
                                  const void* v, const void* wq, const void* wo, const void* g,
                                  const void* gsums, void* kft, void* vf, void* p, void* ds,
                                  void* da, void* dx, void* dse, void* dbe, void* dkf, void* dvf,
-                                 int B, int N, int C, int H, int I, void* stream) {
+                                 int B, int N, int C, int H, int I, int residual, int prenorm,
+                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int J = H * I, D = C / H;
   if ((C != 384 && C != 768) || I > 64 || I % 16 || D % 16 || N % 64 || J % 64) {
@@ -209,16 +215,17 @@ extern "C" int unpool_bwd_launch(const void* x, const void* se, const void* be, 
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   const auto kernel = C == 384 ? unpool_bwd_kernel<2, 3> : unpool_bwd_kernel<2, 6>;
   if ((err = set_smem((const void*)kernel, smem)) != cudaSuccess) return (int)err;
+  const float* se_p = prenorm ? (const float*)se : nullptr;
+  const float* be_p = prenorm ? (const float*)be : nullptr;
   kernel<<<dim3(N / TN, B), kThreads, smem, st>>>(
-      (const bf16*)x, (const float*)se, (const float*)be, (const bf16*)kft, (const bf16*)vf,
-      (const bf16*)g, (const float*)gsums, (bf16*)p, (bf16*)ds, (bf16*)da, (bf16*)dx, (float*)dse,
-      (float*)dbe, N, C, H, I);
+      (const bf16*)x, se_p, be_p, (const bf16*)kft, (const bf16*)vf, (const bf16*)g,
+      (const float*)gsums, (bf16*)p, (bf16*)ds, (bf16*)da, (bf16*)dx, (float*)dse, (float*)dbe, N,
+      C, H, I, residual);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // dkf[b] = y_b^T bf16(ds_b) [C, J];  dvf[b] = bf16(p_b)^T bf16(d_attn_b) [J, C]
-  err = launch_atb((const bf16*)x, C, (size_t)N * C, (const float*)se, (const float*)be,
-                   (const bf16*)ds, J, (size_t)N * J, (float*)dkf, J, (size_t)C * J, B, C, J, N,
-                   st);
+  err = launch_atb((const bf16*)x, C, (size_t)N * C, se_p, be_p, (const bf16*)ds, J,
+                   (size_t)N * J, (float*)dkf, J, (size_t)C * J, B, C, J, N, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_atb((const bf16*)p, J, (size_t)N * J, nullptr, nullptr, (const bf16*)da, C,
                          (size_t)N * C, (float*)dvf, C, (size_t)J * C, B, J, C, N, st);

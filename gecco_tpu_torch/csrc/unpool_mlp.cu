@@ -89,7 +89,7 @@ __global__ void __launch_bounds__(kThreads) unpool_mlp_kernel(const Args a) {
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     __syncthreads();  // the last tile's epilogue is done with the shared memory
     unpool_tile<ROWS>(a.x, a.kft, a.brow, a.vf, a.xp, a.sums1, a.N, a.C, a.H, a.I, a.dbl,
-                      a.region0_unpool, t / (a.N / TN), t % (a.N / TN), smem);
+                      a.region0_unpool, t / (a.N / TN), t % (a.N / TN), true, smem);
   }
   grid.sync();
   // (4) the mlp_norm statistics and the embed affine, one thread per (b, c)

@@ -1,5 +1,5 @@
 from gecco_tpu_torch.diffusion.diffusion import Diffusion, NoCond, mse
-from gecco_tpu_torch.diffusion.samplers import heun_sampler, heun_step
+from gecco_tpu_torch.diffusion.samplers import churn_gamma, heun_sampler, heun_step
 from gecco_tpu_torch.diffusion.schedule import (
     LogNormalSchedule,
     LogUniformSchedule,
@@ -11,6 +11,7 @@ __all__ = [
     "Diffusion",
     "NoCond",
     "mse",
+    "churn_gamma",
     "heun_sampler",
     "heun_step",
     "LogNormalSchedule",

@@ -1,24 +1,26 @@
-"""EDM diffusion model: preconditioned denoiser, the denoising loss and
-the deterministic sampler (counterpart of
+"""EDM diffusion model: preconditioned denoiser, the denoising loss, the
+deterministic sampler and the inducer-cache upsampler (counterpart of
 ``gecco_tpu/diffusion/diffusion.py``: ``NoCond``, ``mse``,
-``Diffusion.denoise``, ``Diffusion.loss`` and ``Diffusion.sample``). The
-conditioner runs once per batch: in the loss, and once per ``sample`` call,
-its output shared by every solver step.
+``Diffusion.denoise``, ``Diffusion.loss``, ``Diffusion.sample`` and
+``Diffusion.upsample``). The conditioner runs once per batch: in the loss,
+and once per ``sample`` or ``upsample`` call, its output shared by every
+solver step.
 
 The JAX loss draws sigma and the noise from a key inside the function; here
 the draw (``draw_sigma_noise``, from a ``torch.Generator``) and the loss from
 a given sigma and noise (``loss_from``) are two steps, so that a test can
-feed the port the numbers that ``jax.random`` drew.
+feed the port the numbers that ``jax.random`` drew. ``upsample`` likewise
+takes its normal draws through one seam, ``upsample_from``'s ``normal``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 from torch import nn
 
-from gecco_tpu_torch.diffusion.samplers import heun_sampler
+from gecco_tpu_torch.diffusion.samplers import churn_gamma, heun_sampler, heun_step
 from gecco_tpu_torch.diffusion.schedule import Schedule
 from gecco_tpu_torch.reparam import Reparam
 from gecco_tpu_torch.types import SampleDetails
@@ -69,13 +71,19 @@ class Diffusion(nn.Module):
         check_sigma_batch(sigma, x.shape[0])
         return sigma.expand(x.shape[:1])  # [B]
 
-    def denoise(self, sigma, x: torch.Tensor, ctx: Any = None) -> torch.Tensor:
+    def denoise(self, sigma, x: torch.Tensor, ctx: Any = None, hs: Optional[torch.Tensor] = None,
+                return_h: bool = False):
         """D(x; sigma) with EDM pre/post-conditioning; ``sigma`` scalar or [B].
+        ``return_h=True`` also returns the network's inducer tokens, and
+        ``hs`` reuses them (the network's pool side skipped).
         Differentiable: the sampling entry points turn autograd off."""
         sig = self._broadcast_sigma(sigma, x)
         s = self.schedule
-        out = self.network(s.c_noise(sig), s.c_in(sig)[:, None, None] * x, ctx)
-        return s.c_skip(sig)[:, None, None] * x + s.c_out(sig)[:, None, None] * out
+        out = self.network(s.c_noise(sig), s.c_in(sig)[:, None, None] * x, ctx, hs=hs,
+                           return_h=return_h)
+        f, *stored = out if return_h else (out,)
+        x_hat = s.c_skip(sig)[:, None, None] * x + s.c_out(sig)[:, None, None] * f
+        return (x_hat, *stored) if return_h else x_hat
 
     def draw_sigma_noise(self, generator: torch.Generator, points: torch.Tensor):
         """The loss's random draws for a batch ``points`` [B, N, D]: sigma [B]
@@ -145,3 +153,66 @@ class Diffusion(nn.Module):
             trajectory_diff=traj,
             trajectory_data=self.reparam.diffusion_to_data(traj, ctx),
         )
+
+    @torch.no_grad()
+    def upsample(self, generator: torch.Generator, data: torch.Tensor, n_new: int,
+                 raw_ctx: Any = None, ctx: Any = None, n_substeps: int = 5, s_churn: float = 0.5,
+                 s_noise: float = 1.0) -> torch.Tensor:
+        """Inducer-cache upsampler: ``n_new`` new points [B, n_new, D] (data
+        space) for the existing clouds ``data`` [B, M, D]. Over the extended
+        grid, at each noise level the existing cloud is re-noised and run
+        through the whole network once for every layer's inducer tokens;
+        the new points then take ``n_substeps`` churned Heun steps against
+        the cached tokens (only the unpool side of each layer), re-noised
+        back up between substeps but on the last level, whose steps are
+        Euler only. The normal draws come from ``generator`` (on its
+        device) and are moved to the model's device."""
+        device = data.device
+
+        def normal(shape):
+            return torch.randn(shape, generator=generator, device=generator.device).to(device)
+
+        return self.upsample_from(data, n_new, normal, raw_ctx, ctx, n_substeps, s_churn, s_noise)
+
+    @torch.no_grad()
+    def upsample_from(self, data: torch.Tensor, n_new: int,
+                      normal: Callable[[tuple], torch.Tensor], raw_ctx: Any = None,
+                      ctx: Any = None, n_substeps: int = 5, s_churn: float = 0.5,
+                      s_noise: float = 1.0) -> torch.Tensor:
+        """``upsample`` with every standard normal draw taken from
+        ``normal(shape)``, in the JAX loop's order: the initial state; then
+        per transition the cache refresh's noise of ``data``'s shape, and
+        per substep the churn's (where the churn rate is positive) and the
+        re-noising's (where it applies), both of the state's shape. The
+        state holds ``n_new`` rounded up to a multiple of 128 points (the
+        points are exchangeable; the extra ones are dropped at the end)."""
+        if (ctx is not None) and (raw_ctx is not None):
+            raise ValueError("Both `ctx` and `raw_ctx` were provided.")
+        check_points(data, "data")
+        if ctx is None:
+            ctx = self.cond(raw_ctx)
+        data_diff = self.reparam.data_to_diffusion(data, ctx)
+        sigmas = self.schedule.extended_solver_grid(device=data.device)
+        n_transitions = sigmas.shape[0] - 1
+        gamma = churn_gamma(s_churn, n_transitions)
+        b, _, d = data.shape
+        n_gen = -(-n_new // 128) * 128
+        x = sigmas[0] * normal((b, n_gen, d))
+        for t in range(n_transitions):
+            s_cur, s_next = sigmas[t], sigmas[t + 1]
+            last = t == n_transitions - 1
+            # refresh the cache at this noise level
+            noisy_data = data_diff + s_cur * normal(tuple(data_diff.shape))
+            _, cache = self.denoise(s_cur, noisy_data, ctx, return_h=True)
+
+            def cached_denoise(sigma, x_):
+                return self.denoise(sigma, x_, ctx, hs=cache)
+
+            for j in range(n_substeps):
+                churn = normal(tuple(x.shape)) if gamma > 0.0 else None
+                x = heun_step(cached_denoise, x, s_cur, s_next, gamma, s_noise, churn,
+                              second_order=not last)
+                if j < n_substeps - 1 and not last:
+                    std = torch.sqrt(torch.clamp(s_cur**2 - s_next**2, min=0.0))
+                    x = x + std * normal(tuple(x.shape))
+        return self.reparam.diffusion_to_data(x[:, :n_new], ctx)

@@ -4,7 +4,8 @@
 
 Coefficients are elementwise over tensors of any shape. ``c_noise`` is sigma
 itself (the JAX package's convention) or ``log(sigma) / 4``; the Karras grid
-does not append a final 0.
+does not append a final 0 (the extended grid steps one index past
+sigma_min instead).
 """
 
 from __future__ import annotations
@@ -61,6 +62,11 @@ class Schedule:
         if n_steps is not None and n_steps != self.n_solver_steps:
             return dataclasses.replace(self, n_solver_steps=n_steps).solver_grid(device=device)
         return self.t_i(torch.arange(self.n_solver_steps, dtype=torch.float32, device=device))
+
+    def extended_solver_grid(self, device=None) -> torch.Tensor:
+        """fp32 sigmas ``[t_0 .. t_N]``: the stochastic samplers step one
+        index past sigma_min, evaluating t_i at i = N."""
+        return self.t_i(torch.arange(self.n_solver_steps + 1, dtype=torch.float32, device=device))
 
     def sample_latent(self, generator: torch.Generator, shape, device=None) -> torch.Tensor:
         """A draw from the terminal prior N(0, sigma_max^2), made on the

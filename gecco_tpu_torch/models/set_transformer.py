@@ -1,7 +1,7 @@
 """Induced set attention transformer (counterpart of
 ``gecco_tpu/models/set_transformer.py``).
 
-Three execution strategies compute the same function:
+Four execution strategies compute the same function:
 
 - ``attn_impl="xla"`` (the JAX package's name for its plain path): per-head
   attention through the plain ``rect_attention`` and the modules as
@@ -9,13 +9,21 @@ Three execution strategies compute the same function:
 - ``attn_impl="pallas"``: the same per-head modules, the attention of the
   pool and the unpool through the per-head attention kernels
   (``rect_attention(impl="pallas")``, forward and backward);
-- ``attn_impl="folded_pallas"``: each layer runs the four fused functions of
-  ``gecco_tpu_torch.ops.kernels`` (pool, h-side, unpool, MLP) with the
-  statistics chain: every pre-norm takes its GroupNorm statistics from the
-  channel sums that the previous fused function emitted for its output.
-  With ``GECCO_UNPOOL_MLP_MEGAKERNEL=1`` in the environment (read at each
-  call) and no gradient recorded, the unpool and the MLP run as one
-  function, ``fused_unpool_mlp``.
+- ``attn_impl="folded"``: the same modules, the pool and the unpool through
+  the folded attention in plain PyTorch (``pool_attention_folded`` /
+  ``unpool_attention_folded``, ``impl="xla"``);
+- ``attn_impl="folded_pallas"``: ``AttentionPool`` and ``Unpool`` alone
+  take the folded attention's kernels (the resident pool without its
+  pre-norm, the unpool without pre-norm and residual); each layer runs the
+  four fused functions of ``gecco_tpu_torch.ops.kernels`` (pool, h-side,
+  unpool, MLP) with the statistics chain: every pre-norm takes its
+  GroupNorm statistics from the channel sums that the previous fused
+  function emitted for its output. A layer called without those sums takes
+  the resident pool (``folded_pool_layer``, the statistics computed on the
+  card) where no gradient is recorded, the statistics in PyTorch and the
+  tiled pool with one. With ``GECCO_UNPOOL_MLP_MEGAKERNEL=1`` in the
+  environment (read at each call) and no gradient recorded, the unpool and
+  the MLP run as one function, ``fused_unpool_mlp``.
 
 On CUDA tensors the kernel paths launch the Hopper kernels; on CPU tensors
 their plain versions. Both are differentiable: the gradients reach every
@@ -26,10 +34,10 @@ The JAX package stacks the layers and scans over them; here they are an
 ``nn.ModuleList`` walked by a Python loop. ``remat=True`` recomputes each
 layer in the backward pass (``torch.utils.checkpoint``, the JAX package's
 ``jax.checkpoint`` around the scan body): the same function, with each
-forward kernel launched a second time per training step. The
-cached-inducer upsampling path (``hs`` / ``return_h``), the XLA-folded
-``attn_impl="folded"``, the module-level folded calls of ``AttentionPool``
-and ``Unpool`` and ``ref_jax_compat`` are not ported yet.
+forward kernel launched a second time per training step. ``return_h=True``
+returns the layers' inducer tokens ``[L, B, I, C]``, and ``hs=...`` reuses
+them (the pool side skipped: the cached evaluations of
+``Diffusion.upsample``). ``ref_jax_compat`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -44,9 +52,14 @@ from torch.utils.checkpoint import checkpoint
 from gecco_tpu_torch.models.activation import GaussianActivation
 from gecco_tpu_torch.models.mlp import MLP
 from gecco_tpu_torch.models.normalization import AdaGN
-from gecco_tpu_torch.ops.attention import rect_attention
+from gecco_tpu_torch.ops.attention import (
+    pool_attention_folded,
+    rect_attention,
+    unpool_attention_folded,
+)
 from gecco_tpu_torch.ops.kernels import (
     folded_pool_ext,
+    folded_pool_layer,
     folded_unpool,
     fused_h_side,
     fused_mlp_residual,
@@ -57,7 +70,8 @@ from gecco_tpu_torch.utils.modules import Linear, resolve_device
 
 __all__ = ["AttentionPool", "Unpool", "Broadcast", "BroadcastingLayer", "SetTransformer"]
 
-ATTN_IMPLS = ("xla", "pallas", "folded_pallas")
+ATTN_IMPLS = ("xla", "pallas", "folded", "folded_pallas")
+FOLDED = ("folded", "folded_pallas")
 
 
 def _fold_mlp_operands(mlp: MLP, dt) -> tuple:
@@ -111,7 +125,12 @@ class AttentionPool(nn.Module):
         self.num_heads = num_heads
 
     def forward(self, kv: torch.Tensor, attn_impl: str = "xla") -> torch.Tensor:
-        # [B, N, C] -> [B, I, C]; attn_impl "xla" or "pallas" (rect_attention's impl)
+        # [B, N, C] -> [B, I, C]
+        if attn_impl in FOLDED:
+            return pool_attention_folded(
+                kv, self.inducers, self.kv_proj.weight, self.out_proj.weight, self.num_heads,
+                impl="pallas" if attn_impl == "folded_pallas" else "xla",
+            )
         k, v = self.kv_proj(kv).chunk(2, dim=-1)
         q = self.inducers.to(kv.dtype)[None].expand(kv.shape[0], -1, -1, -1)
         attn = rect_attention(q, _split_heads(k, self.num_heads), _split_heads(v, self.num_heads),
@@ -131,6 +150,13 @@ class Unpool(nn.Module):
         self.num_heads = num_heads
 
     def forward(self, x: torch.Tensor, h: torch.Tensor, attn_impl: str = "xla") -> torch.Tensor:
+        # x [B, N, C] queries, h [B, I, C] keys/values -> [B, N, C]
+        if attn_impl in FOLDED:
+            return unpool_attention_folded(
+                x, h, self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
+                self.out_proj.weight, self.num_heads,
+                impl="pallas" if attn_impl == "folded_pallas" else "xla",
+            )
         q = _split_heads(self.q_proj(x), self.num_heads)
         k = _split_heads(self.k_proj(h), self.num_heads)
         v = _split_heads(self.v_proj(h), self.num_heads)
@@ -138,7 +164,8 @@ class Unpool(nn.Module):
 
 
 class Broadcast(nn.Module):
-    """pool -> AdaGN -> MLP -> AdaGN -> unpool."""
+    """pool -> AdaGN -> MLP -> AdaGN -> unpool; with a cached inducer state
+    ``h`` the pool side is skipped."""
 
     def __init__(self, feature_dim, num_inducers, embed_dim, num_heads=8, mlp_blowup=2,
                  *, device=None, generator=None):
@@ -150,8 +177,9 @@ class Broadcast(nn.Module):
         self.norm_2 = AdaGN(feature_dim, embed_dim, **kw)
         self.unpool = Unpool(feature_dim, num_heads, **kw)
 
-    def forward(self, x, embed, attn_impl="xla"):
-        h = self.norm_2(self.mlp(self.norm_1(self.pool(x, attn_impl), embed)), embed)
+    def forward(self, x, embed, h=None, attn_impl="xla"):
+        if h is None:
+            h = self.norm_2(self.mlp(self.norm_1(self.pool(x, attn_impl), embed)), embed)
         return self.unpool(x, h, attn_impl), h
 
 
@@ -172,20 +200,32 @@ class BroadcastingLayer(nn.Module):
                 self.broadcast.unpool.out_proj.weight.mul_(skip_scale)
                 self.mlp.layers[-1].weight.mul_(skip_scale)
 
-    def forward(self, x, embed, attn_impl="xla", in_sums: Optional[torch.Tensor] = None):
+    def forward(self, x, embed, attn_impl="xla", in_sums: Optional[torch.Tensor] = None,
+                h: Optional[torch.Tensor] = None, kv: Optional[tuple] = None):
         """-> (x, h, out_sums). ``in_sums`` [B, 2, C] fp32 are the channel
-        sums of ``x`` for the fused path (computed here when absent);
-        ``out_sums`` those of the output, or None on the plain path."""
+        sums of ``x`` for the fused path; ``out_sums`` those of the output,
+        or None on the plain paths. ``h`` [B, I, C]: a cached inducer state
+        (the pool side is skipped); ``kv``: its unpool k/v projections,
+        hoisted by the caller (fused path only)."""
         if attn_impl == "folded_pallas":
-            return self._fused_call(x, embed, in_sums)
-        x_b, h = self.broadcast(self.broadcast_norm(x, embed), embed, attn_impl)
+            return self._fused_call(x, embed, in_sums, h, kv)
+        x_b, h = self.broadcast(self.broadcast_norm(x, embed), embed, h=h, attn_impl=attn_impl)
         x = x + x_b
         return x + self.mlp(self.mlp_norm(x, embed)), h, None
 
-    def _fused_call(self, x, embed, in_sums):
+    def _fused_call(self, x, embed, in_sums, h, kv):
         """The layer through the four fused functions: pool (pre-norm
         inline), h-side, unpool (+ residual + output sums), MLP (+ residual
         + output sums). Same function as the plain path.
+
+        The pool's pre-norm takes its statistics from ``in_sums``. Without
+        them it takes the resident pool, which computes them on the card,
+        where no gradient is recorded (the port's stand-in for the JAX
+        package's "no network key"), and the statistics in PyTorch and the
+        tiled pool with one, as the JAX package does in training. With a
+        cached ``h`` the pool and the h-side are skipped: the unpool's
+        pre-norm takes ``in_sums`` (or the statistics of x) and its k/v are
+        ``kv`` or the projections of h.
 
         With ``GECCO_UNPOOL_MLP_MEGAKERNEL=1`` (read at each call, as the
         JAX package reads it at trace time), the unpool and the MLP run as
@@ -201,24 +241,40 @@ class BroadcastingLayer(nn.Module):
         bc = self.broadcast
         num_heads = bc.unpool.num_heads
         embed_f = embed.float()
-        if in_sums is None:
-            xf = x.float()
-            in_sums = torch.stack([xf.sum(1), (xf * xf).sum(1)], dim=1)
-
-        ind2 = bc.pool.inducers.reshape(-1, c // num_heads).to(dt)
-        se1, be1 = self.broadcast_norm.scale_bias_from_sums(in_sums, n, embed)
-        h0 = folded_pool_ext(
-            x, se1, be1, ind2, bc.pool.kv_proj.weight.to(dt), bc.pool.out_proj.weight.to(dt),
-            num_heads,
-        )
-        h, k, v = fused_h_side(
-            h0,
-            bc.norm_1.scale_linear(embed_f), bc.norm_1.bias_linear(embed_f),
-            bc.norm_2.scale_linear(embed_f), bc.norm_2.bias_linear(embed_f),
-            group_indicator(c, bc.norm_1.num_groups, x.device),
-            *_fold_mlp_operands(bc.mlp, dt),
-            bc.unpool.k_proj.weight.to(dt), bc.unpool.v_proj.weight.to(dt),
-        )
+        norm = self.broadcast_norm
+        if h is not None:
+            if in_sums is not None:
+                se1, be1 = norm.scale_bias_from_sums(in_sums, n, embed)
+            else:
+                se1, be1 = norm.effective_scale_bias(x, embed)
+            if kv is None:
+                hd = h.to(dt)
+                kv = (hd @ bc.unpool.k_proj.weight.to(dt).T,
+                      hd @ bc.unpool.v_proj.weight.to(dt).T)
+            k, v = kv
+        else:
+            ind2 = bc.pool.inducers.reshape(-1, c // num_heads).to(dt)
+            kvw, wo_p = bc.pool.kv_proj.weight.to(dt), bc.pool.out_proj.weight.to(dt)
+            if in_sums is not None:
+                se1, be1 = norm.scale_bias_from_sums(in_sums, n, embed)
+                h0 = folded_pool_ext(x, se1, be1, ind2, kvw, wo_p, num_heads)
+            elif torch.is_grad_enabled():
+                se1, be1 = norm.effective_scale_bias(x, embed)
+                h0 = folded_pool_ext(x, se1, be1, ind2, kvw, wo_p, num_heads)
+            else:
+                h0, mean_c, inv_c = folded_pool_layer(
+                    x, norm.scale_linear(embed_f), norm.bias_linear(embed_f), ind2, kvw, wo_p,
+                    group_indicator(c, norm.num_groups, x.device), num_heads, True,
+                )
+                se1, be1 = norm._affine(mean_c, inv_c, embed)
+            h, k, v = fused_h_side(
+                h0,
+                bc.norm_1.scale_linear(embed_f), bc.norm_1.bias_linear(embed_f),
+                bc.norm_2.scale_linear(embed_f), bc.norm_2.bias_linear(embed_f),
+                group_indicator(c, bc.norm_1.num_groups, x.device),
+                *_fold_mlp_operands(bc.mlp, dt),
+                bc.unpool.k_proj.weight.to(dt), bc.unpool.v_proj.weight.to(dt),
+            )
         wq, wo = bc.unpool.q_proj.weight.to(dt), bc.unpool.out_proj.weight.to(dt)
         mlp_ops = _fold_mlp_operands(self.mlp, dt)
         if (os.environ.get("GECCO_UNPOOL_MLP_MEGAKERNEL") == "1" and not torch.is_grad_enabled()
@@ -272,28 +328,48 @@ class SetTransformer(nn.Module):
                     raise ValueError("folded_pallas needs fusable MLPs and AdaGN norms")
         self._attn_impl = value
 
-    def forward(self, features, embed, in_sums=None, with_sums=False):
-        """``in_sums`` ([B, 2, C] fp32, optional): channel sums of
-        ``features``, seeding the fused path's statistics chain.
-        ``with_sums=True`` also returns the output's channel sums (None on
-        the plain path)."""
+    def forward(self, features, embed, hs=None, return_h=False, in_sums=None, with_sums=False):
+        """``features`` [B, N, C], ``embed`` [B, E] -> [B, N, C], followed
+        by the layers' inducer tokens [L, B, I, C] where ``return_h`` and by
+        the output's channel sums (None off the fused path) where
+        ``with_sums``. ``hs`` [L, B, I, C]: cached inducer tokens, each
+        layer's pool side skipped (on the fused path the unpool's k/v
+        projections of all layers go first, in two batched products).
+        ``in_sums`` ([B, 2, C] fp32): channel sums of ``features``, seeding
+        the fused path's statistics chain."""
         in_dtype = features.dtype
         x = features.to(self.compute_dtype)
         # the embed (sigma itself, up to sigma_max) is rounded to the compute
         # dtype before the AdaGN linears, as in the JAX package
         embed = embed.to(self.compute_dtype)
+        fused = self.attn_impl == "folded_pallas"
         sums = None
-        if self.attn_impl == "folded_pallas":
+        if fused:
             if in_sums is not None:
                 sums = in_sums.float()
             else:
                 xf = x.float()
                 sums = torch.stack([xf.sum(1), (xf * xf).sum(1)], dim=1)
-        remat = self.remat and torch.is_grad_enabled()
-        for layer in self.layers:
+        kvs = [None] * len(self.layers)
+        if hs is not None and fused:
+            hd = hs.to(x.dtype)
+            unpools = [layer.broadcast.unpool for layer in self.layers]
+            kw = torch.stack([u.k_proj.weight for u in unpools]).to(x.dtype)
+            vw = torch.stack([u.v_proj.weight for u in unpools]).to(x.dtype)
+            kvs = list(zip(torch.einsum("lbic,ldc->lbid", hd, kw),
+                           torch.einsum("lbic,ldc->lbid", hd, vw)))
+        remat = self.remat and torch.is_grad_enabled() and hs is None
+        stored = []
+        for q, layer in enumerate(self.layers):
             if remat:
-                x, _, sums = checkpoint(layer, x, embed, self.attn_impl, sums, use_reentrant=False)
+                x, h, sums = checkpoint(layer, x, embed, self.attn_impl, sums, use_reentrant=False)
             else:
-                x, _, sums = layer(x, embed, self.attn_impl, in_sums=sums)
-        x = x.to(in_dtype)
-        return (x, sums) if with_sums else x
+                h = None if hs is None else hs[q].to(x.dtype)
+                x, h, sums = layer(x, embed, self.attn_impl, in_sums=sums, h=h, kv=kvs[q])
+            stored.append(h)
+        out = (x.to(in_dtype),)
+        if return_h:
+            out += (hs if hs is not None else torch.stack(stored),)
+        if with_sums:
+            out += (sums,)
+        return out if len(out) > 1 else out[0]

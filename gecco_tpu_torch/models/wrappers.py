@@ -2,13 +2,15 @@
 ``gecco_tpu.models.wrappers``: ``UnconditionalPointNetwork`` and
 ``RayNetwork``).
 
-Network contract: ``net(t [B], x [B, N, 3], ctx) -> [B, N, 3]`` where ``t``
-is the preconditioned noise level (c_noise) and ``x`` the c_in-scaled points.
+Network contract: ``net(t [B], x [B, N, 3], ctx, hs=None, return_h=False)
+-> [B, N, 3]`` where ``t`` is the preconditioned noise level (c_noise) and
+``x`` the c_in-scaled points; ``return_h=True`` also returns the backbone's
+inducer tokens [L, B, I, C], and ``hs`` reuses them (cached upsampling).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch import nn
@@ -75,13 +77,16 @@ class UnconditionalPointNetwork(nn.Module):
         self.output_proj = Linear(feature_dim, geometry_dim, device=device, generator=generator)
         self.output_norm_groups = output_norm_groups
 
-    def forward(self, t: torch.Tensor, x: torch.Tensor, ctx: Any = None) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, x: torch.Tensor, ctx: Any = None,
+                hs: Optional[torch.Tensor] = None, return_h: bool = False):
         del ctx
         features = self.xyz_embed(x)  # [B, N, C]
         embed = t[..., None]  # [B, 1]: the noise level itself is the embed
         in_sums = _embed_channel_sums(self.xyz_embed, x)
-        processed, sums = self.backbone(features, embed, in_sums=in_sums, with_sums=True)
-        return _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype)
+        processed, *stored, sums = self.backbone(features, embed, hs=hs, return_h=return_h,
+                                                 in_sums=in_sums, with_sums=True)
+        y = _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype)
+        return (y, *stored) if return_h else y
 
 
 class RayNetwork(nn.Module):
@@ -118,11 +123,14 @@ class RayNetwork(nn.Module):
             raise ValueError(f"lookup_impl must be one of {LOOKUP_IMPLS}, got {value!r}")
         self._lookup_impl = value
 
-    def forward(self, t: torch.Tensor, x: torch.Tensor, ctx: Any) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, x: torch.Tensor, ctx: Any,
+                hs: Optional[torch.Tensor] = None, return_h: bool = False):
         xyz_features = self.xyz_embed(x)
         hw01 = self.reparam.diffusion_to_hw(x.float(), ctx.K)  # [B, N, 2]
         looked_up = lookup_pyramid(ctx.features, hw01, impl=self.lookup_impl)
         features = xyz_features + self.ctx_dim_reductor(looked_up).to(xyz_features.dtype)
         # no analytic in_sums: the backbone takes the sums of its input stream
-        processed, sums = self.backbone(features, t[..., None], with_sums=True)
-        return _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype)
+        processed, *stored, sums = self.backbone(features, t[..., None], hs=hs,
+                                                 return_h=return_h, with_sums=True)
+        y = _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype)
+        return (y, *stored) if return_h else y

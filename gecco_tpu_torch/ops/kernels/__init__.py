@@ -2,11 +2,14 @@
 beside its plain PyTorch version. Importing this package builds nothing.
 
 ``KERNELS`` lists every wrapper that launches a kernel, forward and
-backward; each counts its launches in ``.launches``."""
+backward (fourteen: eight forward, six backward); each counts its launches
+in ``.launches``."""
 
 from gecco_tpu_torch.ops.kernels.folded_attention import (
     folded_pool_ext,
     folded_pool_ext_bwd,
+    folded_pool_layer,
+    folded_pool_layer_bwd,
     folded_unpool,
     folded_unpool_bwd,
     fused_mlp_residual,
@@ -23,9 +26,9 @@ from gecco_tpu_torch.ops.kernels.projective_gather import projective_gather, pro
 
 KERNELS = (
     folded_pool_ext, fused_h_side, folded_unpool, fused_mlp_residual, projective_gather,
-    rect_attention_fwd, fused_unpool_mlp,
+    rect_attention_fwd, fused_unpool_mlp, folded_pool_layer,
     folded_pool_ext_bwd, folded_unpool_bwd, fused_mlp_residual_bwd, projective_gather_bwd,
-    rect_attention_bwd,
+    rect_attention_bwd, folded_pool_layer_bwd,
 )
 
 
@@ -41,6 +44,8 @@ def launch_counts() -> dict:
 __all__ = [
     "folded_pool_ext",
     "folded_pool_ext_bwd",
+    "folded_pool_layer",
+    "folded_pool_layer_bwd",
     "folded_unpool",
     "folded_unpool_bwd",
     "fused_h_side",

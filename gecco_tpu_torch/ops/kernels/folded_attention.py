@@ -1,7 +1,7 @@
 """Folded induced-set attention and the fused MLP: Hopper kernels and their
 plain PyTorch versions, forward and backward.
 
-Counterpart of ``gecco_tpu/ops/pallas/folded_attention.py``. Three
+Counterpart of ``gecco_tpu/ops/pallas/folded_attention.py``. Four
 differentiable functions carry a broadcasting layer's per-point work; each
 is a ``torch.autograd.Function`` whose forward and backward launch CUDA
 kernels (``gecco_tpu_torch/csrc``) for CUDA tensors and run their plain
@@ -12,9 +12,16 @@ through the plain forward, as the twins' ``jax.vjp``) for CPU tensors:
   the pre-normed stream pooled onto the inducers by a softmax over the point
   axis, online across tiles. When a gradient is needed the forward also
   returns the softmax statistics (column max and sum) the backward reads.
+- ``folded_pool_layer`` (``csrc/pool.cu``; backward ``csrc/pool_bwd.cu``):
+  the resident pool, the same pooling with the set-level GroupNorm
+  statistics of the stream computed on the card (``prenorm``, returned
+  beside h0) or no pre-norm at all: the layer's sums-less route and the
+  module-level pool.
 - ``folded_unpool`` (``csrc/unpool.cu``; backward ``csrc/unpool_bwd.cu``):
   the points attend to the inducer tokens (per-head softmax, each head block
-  with its own max), plus the residual and the output's channel sums.
+  with its own max), plus the residual and the output's channel sums; the
+  ``residual`` and ``prenorm`` flags turn the x term and the pre-norm off
+  (the module-level unpool).
 - ``fused_mlp_residual`` (``csrc/mlp.cu``; backward ``csrc/mlp_bwd.cu``):
   pre-norm + Gaussian MLP + residual, plus the output's channel sums.
 
@@ -43,12 +50,14 @@ import functools
 import torch
 
 from gecco_tpu_torch.ops.kernels._build import check_cuda, launch, library
-from gecco_tpu_torch.ops.norms import stats_from_sums
+from gecco_tpu_torch.ops.norms import group_norm_stats, stats_from_sums
 from gecco_tpu_torch.ops.kernels._grad import needs_grad, vjp
 
 __all__ = [
     "folded_pool_ext",
     "folded_pool_ext_bwd",
+    "folded_pool_layer",
+    "folded_pool_layer_bwd",
     "folded_unpool",
     "folded_unpool_bwd",
     "fused_mlp_residual",
@@ -100,13 +109,13 @@ def _require(cond: bool, name: str, what: str) -> None:
 # ------------------------------------------------------------------ pool --
 
 
-def _pool_ext_ref(x, se, be, ind2, kvw, wo, num_heads: int) -> torch.Tensor:
-    """Plain version (the JAX package's ``_pool_ext_ref``): h0 [B, I, C]."""
-    dt = x.dtype
-    b, n, c = x.shape
+def _pool_ref_from_y(y, ind2, kvw, wo, num_heads: int) -> torch.Tensor:
+    """The pool of the pre-normed stream y [B, N, C] onto the inducers, as
+    both plain versions compute it from y on: h0 [B, I, C] in y's dtype."""
+    dt = y.dtype
+    b, n, c = y.shape
     j, d = ind2.shape
     i = j // num_heads
-    y = (x.float() * se[:, None, :] + be[:, None, :]).to(dt)
     qf = fold_qf(ind2.to(dt), kvw.to(dt), num_heads)
     logits = torch.einsum("bnc,cj->bnj", y.float(), qf.float())
     lg = logits.reshape(b, n, num_heads, i)
@@ -119,6 +128,12 @@ def _pool_ext_ref(x, se, be, ind2, kvw, wo, num_heads: int) -> torch.Tensor:
     return torch.einsum(
         "bic,oc->bio", pooled.reshape(b, i, c).float(), wo.to(dt).float()
     ).to(dt)
+
+
+def _pool_ext_ref(x, se, be, ind2, kvw, wo, num_heads: int) -> torch.Tensor:
+    """Plain version (the JAX package's ``_pool_ext_ref``): h0 [B, I, C]."""
+    y = (x.float() * se[:, None, :] + be[:, None, :]).to(x.dtype)
+    return _pool_ref_from_y(y, ind2, kvw, wo, num_heads)
 
 
 def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
@@ -178,6 +193,22 @@ def folded_pool_ext(x, se, be, ind2, kvw, wo, num_heads: int) -> torch.Tensor:
 folded_pool_ext.launches = 0
 
 
+def _chain_dqf(dqf, dwv, ind2, kvw, num_heads: int) -> tuple:
+    """The folded query's gradient dqf [C, J] fp32 through the fold
+    jacobian to the inducers and Wk, beside the value weight's dwv [C, C]
+    -> (dind2, dkvw) (plain PyTorch, as the JAX package leaves it to XLA)."""
+    c, j = dqf.shape
+    d = ind2.shape[1]
+    i = j // num_heads
+    scale = 1.0 / d**0.5
+    dqf_r = dqf.reshape(c, num_heads, i)
+    dwk = scale * torch.einsum(
+        "chi,hid->hdc", dqf_r, ind2.float().reshape(num_heads, i, d)).reshape(c, c)
+    dind2 = scale * torch.einsum(
+        "chi,hdc->hid", dqf_r, kvw[:c].float().reshape(num_heads, d, c)).reshape(j, d)
+    return dind2.to(ind2.dtype), torch.cat([dwk, dwv], dim=0).to(kvw.dtype)
+
+
 def _pool_ext_bwd_ref(x, se, be, ind2, kvw, wo, g_h0, num_heads: int) -> tuple:
     """Plain version of the pool backward: autograd through
     ``_pool_ext_ref`` -> (dx, dse, dbe, dind2, dkvw, dwo)."""
@@ -220,36 +251,205 @@ def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, macc, sacc, g_h0, num_heads: i
     launch("pool_ext_bwd", "pool_ext_bwd_launch", x, se, be, qf, kvw, wo, g, macc, sacc,
            ety, w2, w3, tacc, ds, dx, dse, dbe, dqf, dwv, dwo, b, n, c, num_heads, i)
     folded_pool_ext_bwd.launches += 1
-    # dqf through the fold jacobian to the inducers and Wk (plain PyTorch,
-    # as the JAX package leaves it to XLA)
-    scale = 1.0 / d**0.5
-    dqf_r = dqf.reshape(c, num_heads, i)
-    dwk = scale * torch.einsum(
-        "chi,hid->hdc", dqf_r, ind2.float().reshape(num_heads, i, d)).reshape(c, c)
-    dind2 = scale * torch.einsum(
-        "chi,hdc->hid", dqf_r, kvw[:c].float().reshape(num_heads, d, c)).reshape(j, d)
-    dkvw = torch.cat([dwk, dwv], dim=0).to(kvw.dtype)
-    return dx, dse, dbe, dind2.to(ind2.dtype), dkvw, dwo.to(wo.dtype)
+    return dx, dse, dbe, *_chain_dqf(dqf, dwv, ind2, kvw, num_heads), dwo.to(wo.dtype)
 
 
 folded_pool_ext_bwd.launches = 0
 
 
+# --------------------------------------------------------- resident pool --
+
+
+def _pool_ref(x, scale, bias, ind2, kvw, wo, num_groups: int, num_heads: int,
+              prenorm: bool = True) -> tuple:
+    """Plain version (the JAX package's ``_pool_ref``) -> (h0 [B, I, C],
+    mean_c, inv_c [B, C] fp32): with ``prenorm`` the set-level GroupNorm
+    statistics of x and y = (x - mean_c) * (inv_c * scale) + bias; without,
+    y = x, mean 0 and inv 1."""
+    b, _, c = x.shape
+    if prenorm:
+        mean_c, inv_c = group_norm_stats(x, num_groups)
+        y = ((x.float() - mean_c[:, None]) * (inv_c * scale)[:, None] + bias[:, None]).to(x.dtype)
+    else:
+        mean_c = torch.zeros((b, c), dtype=_F32, device=x.device)
+        inv_c = torch.ones_like(mean_c)
+        y = x
+    return _pool_ref_from_y(y, ind2, kvw, wo, num_heads), mean_c, inv_c
+
+
+def _pool_layer_launch(x, scale, bias, ind2, kvw, wo, gind, num_heads: int, prenorm: bool,
+                       stats: bool) -> tuple:
+    """The forward kernels -> (h0, mean_c, inv_c, (m, l, P, y)): the
+    softmax's column max and sum [B, J], the fp32 pooled values [B, I, C]
+    and the pre-normed stream y (x itself without the pre-norm) for the
+    backward where ``stats``, else Nones."""
+    name = "folded_pool_layer"
+    b, n, c = x.shape
+    j, d = ind2.shape
+    i = j // num_heads
+    groups = gind.shape[1]
+    check_cuda(
+        name, dict(x=x, scale=scale, bias=bias, ind2=ind2, kvw=kvw, wo=wo),
+        dict(x=_BF16, scale=_F32, bias=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16),
+    )
+    _require(tuple(gind.shape) == (c, groups) and c % groups == 0, name,
+             f"gind of shape (C, G) with G dividing C = {c}, got {tuple(gind.shape)}")
+    _require(n % 64 == 0 and c % 64 == 0 and c <= 2048, name,
+             f"N % 64 == 0, C % 64 == 0 and C <= 2048 (N={n}, C={c})")
+    _require(d % 16 == 0 and i % 16 == 0 and (b * i) % 64 == 0, name,
+             f"D % 16, I % 16 and B*I % 64 == 0 (D={d}, I={i}, B={b})")
+    dev = x.device
+    qf = fold_qf(ind2, kvw, num_heads).contiguous()
+    if prenorm:
+        part = torch.empty((b, n // 64, 2, c), dtype=_F32, device=dev)
+        mean_c = torch.empty((b, c), dtype=_F32, device=dev)
+        inv_c = torch.empty_like(mean_c)
+        y = torch.empty_like(x)
+    else:
+        part = y = None
+        mean_c = torch.zeros((b, c), dtype=_F32, device=dev)
+        inv_c = torch.ones_like(mean_c)
+    pooled = torch.empty((b, i, c), dtype=_BF16, device=dev)
+    h0 = torch.empty_like(pooled)
+    m = l = pacc = None
+    if stats:
+        m = torch.empty((b, j), dtype=_F32, device=dev)
+        l = torch.empty_like(m)
+        pacc = torch.empty((b, i, c), dtype=_F32, device=dev)
+    launch("pool", "pool_layer_launch", x, scale, bias, qf, kvw, wo, part,
+           mean_c if prenorm else None, inv_c, y, pooled, h0, m, l, pacc, b, n, c, num_heads, i,
+           groups)
+    folded_pool_layer.launches += 1
+    if not stats:
+        return h0, mean_c, inv_c, (None, None, None, None)
+    return h0, mean_c, inv_c, (m, l, pacc, x if y is None else y)
+
+
+class _PoolLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, ind2, kvw, wo, gind, num_heads, prenorm, need_grad):
+        stats = (None, None, None, None)
+        if x.device.type == "cpu":
+            h0, mean_c, inv_c = _pool_ref(x, scale, bias, ind2, kvw, wo, gind.shape[1],
+                                          num_heads, prenorm)
+        else:
+            h0, mean_c, inv_c, stats = _pool_layer_launch(x, scale, bias, ind2, kvw, wo, gind,
+                                                          num_heads, prenorm, need_grad)
+        if need_grad:
+            ctx.save_for_backward(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, *stats)
+        ctx.cfg = (num_heads, prenorm)
+        return h0, mean_c, inv_c
+
+    @staticmethod
+    def backward(ctx, g_h0, g_mean, g_inv):
+        grads = folded_pool_layer_bwd(*ctx.saved_tensors, g_h0, g_mean, g_inv, *ctx.cfg)
+        # gind, the constant group indicator, takes no gradient
+        return (*grads, None, None, None, None)
+
+
+def folded_pool_layer(x, scale, bias, ind2, kvw, wo, gind, num_heads: int,
+                      prenorm: bool = True) -> tuple:
+    """x [B, N, C]; scale/bias [B, C] fp32 (the AdaGN affine); ind2 [J, D]
+    inducers; kvw [2C, C]; wo [C, C]; gind [C, G] (the group indicator of
+    the pre-norm's G groups, as the JAX signature; the kernels take a
+    group as a run of C/G channels) -> (h0 [B, I, C], mean_c, inv_c [B, C]
+    fp32): the resident pool, the GroupNorm statistics of x computed on the
+    way when ``prenorm`` (else y = x, mean 0, inv 1). Differentiable in
+    every tensor argument but gind, through all three outputs."""
+    need = needs_grad(x, scale, bias, ind2, kvw, wo)
+    return _PoolLayer.apply(x, scale, bias, ind2, kvw, wo, gind, num_heads, prenorm, need)
+
+
+folded_pool_layer.launches = 0
+
+
+def _pool_layer_bwd_ref(x, scale, bias, ind2, kvw, wo, gind, g_h0, g_mean, g_inv,
+                        num_heads: int, prenorm: bool = True) -> tuple:
+    """Plain version of the resident pool's backward: autograd through
+    ``_pool_ref`` -> (dx, dscale, dbias, dind2, dkvw, dwo)."""
+    groups = gind.shape[1]
+    args = (x, scale, bias, ind2, kvw, wo)
+    if prenorm:
+        return vjp(lambda *a: _pool_ref(*a, groups, num_heads), args, (g_h0, g_mean, g_inv))
+    # without the pre-norm mean and inv are constants
+    return vjp(lambda *a: _pool_ref(*a, groups, num_heads, False)[0], args, (g_h0,))
+
+
+def folded_pool_layer_bwd(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m, l, pacc, y,
+                          g_h0, g_mean, g_inv, num_heads: int, prenorm: bool = True) -> tuple:
+    """Gradients of ``folded_pool_layer`` against the cotangents of its
+    three outputs (``g_h0`` [B, I, C], ``g_mean``/``g_inv`` [B, C]), from
+    the forward's inputs, its statistics ``mean_c``/``inv_c``, its
+    softmax's ``m``/``l`` [B, J], its fp32 pooled values ``pacc``
+    [B, I, C] and its pre-normed stream ``y`` [B, N, C] -> (dx, dscale,
+    dbias, dind2, dkvw, dwo). CPU tensors take the plain version (which
+    needs none of the forward's results)."""
+    if x.device.type == "cpu":
+        return _pool_layer_bwd_ref(x, scale, bias, ind2, kvw, wo, gind, g_h0, g_mean, g_inv,
+                                   num_heads, prenorm)
+    name = "folded_pool_layer_bwd"
+    b, n, c = x.shape
+    j, d = ind2.shape
+    i = j // num_heads
+    groups = gind.shape[1]
+    g = g_h0.to(x.dtype).contiguous()
+    g_mean, g_inv = g_mean.float().contiguous(), g_inv.float().contiguous()
+    check_cuda(
+        name, dict(x=x, scale=scale, bias=bias, ind2=ind2, kvw=kvw, wo=wo, g=g, g_mean=g_mean,
+                   g_inv=g_inv, mean_c=mean_c, inv_c=inv_c, m=m, l=l, pacc=pacc, y=y),
+        dict(x=_BF16, scale=_F32, bias=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16, g=_BF16,
+             g_mean=_F32, g_inv=_F32, mean_c=_F32, inv_c=_F32, m=_F32, l=_F32, pacc=_F32,
+             y=_BF16),
+    )
+    _require(c % 64 == 0 and c <= 768 and d % 16 == 0 and i % 16 == 0 and j % 64 == 0, name,
+             f"C % 64 == 0, C <= 768, D % 16, I % 16 and J % 64 == 0 (C={c}, D={d}, I={i})")
+    _require(n % 64 == 0 and c % groups == 0, name,
+             f"N % 64 == 0 and G dividing C (N={n}, C={c}, G={groups})")
+    dev = x.device
+    qf = fold_qf(ind2, kvw, num_heads).contiguous()
+    dpool = torch.empty((b, i, c), dtype=_BF16, device=dev)
+    tacc = torch.empty((b, j), dtype=_F32, device=dev)
+    ds = torch.empty((b, n, j), dtype=_BF16, device=dev)
+    dv = torch.empty_like(x)
+    dx = torch.empty_like(x)
+    dqf = torch.zeros((c, j), dtype=_F32, device=dev)
+    dwvt = torch.zeros((c, c), dtype=_F32, device=dev)
+    dwo = torch.zeros_like(dwvt)
+    if prenorm:
+        dy = torch.empty((b, n, c), dtype=_F32, device=dev)
+        sdyxc = torch.zeros((b, c), dtype=_F32, device=dev)
+        sdy = torch.zeros_like(sdyxc)
+        dscale, dbias = torch.empty_like(sdyxc), torch.empty_like(sdyxc)
+    else:
+        dy = sdyxc = sdy = None
+        dscale = torch.zeros((b, c), dtype=_F32, device=dev)
+        dbias = torch.zeros_like(dscale)
+    launch("pool_bwd", "pool_layer_bwd_launch", x, mean_c if prenorm else None, inv_c, scale, y,
+           qf, kvw, wo, g, g_mean, g_inv, m, l, pacc, dpool, tacc, ds, dv, dy, sdyxc, sdy, dx,
+           dscale, dbias, dqf, dwvt, dwo, b, n, c, num_heads, i, groups)
+    folded_pool_layer_bwd.launches += 1
+    return dx, dscale, dbias, *_chain_dqf(dqf, dwvt.t(), ind2, kvw, num_heads), dwo.to(wo.dtype)
+
+
+folded_pool_layer_bwd.launches = 0
+
+
 # ---------------------------------------------------------------- unpool --
 
 
-def _unpool_ref(x, se, be, k, v, wq, wo, num_heads: int):
-    """Plain version (the JAX package's ``_unpool_ref``, residual and
-    pre-norm on): normalises x, then folds the unscaled wq. The forward
-    kernel folds se into wq before rounding (as the TPU kernel does), so the
-    two differ at bf16 rounding level by design; the backward kernel folds
-    as this version does."""
+def _unpool_ref(x, se, be, k, v, wq, wo, num_heads: int, residual: bool = True,
+                prenorm: bool = True):
+    """Plain version (the JAX package's ``_unpool_ref``): normalises x
+    (where ``prenorm``, else y = x), then folds the unscaled wq; adds x
+    where ``residual``. The forward kernel folds se into wq before rounding
+    (as the TPU kernel does), so the two differ at bf16 rounding level by
+    design; the backward kernel folds as this version does."""
     dt = x.dtype
     b, n, c = x.shape
     i = k.shape[1]
     j = num_heads * i
     d = c // num_heads
-    y = (x.float() * se[:, None, :] + be[:, None, :]).to(dt)
+    y = (x.float() * se[:, None, :] + be[:, None, :]).to(dt) if prenorm else x
     kf = (1.0 / d**0.5) * torch.einsum(
         "hdc,bihd->bchi",
         wq.to(dt).float().reshape(num_heads, d, c),
@@ -265,11 +465,13 @@ def _unpool_ref(x, se, be, k, v, wq, wo, num_heads: int):
     lg = logits.reshape(b, n, num_heads, i)
     p = torch.exp(lg - lg.amax(-1, keepdim=True).detach())
     p = (p / p.sum(-1, keepdim=True)).reshape(b, n, j)
-    attn = x.float() + torch.einsum("bnj,bjc->bnc", p.to(dt).float(), vf.float())
+    attn = torch.einsum("bnj,bjc->bnc", p.to(dt).float(), vf.float())
+    if residual:
+        attn = x.float() + attn
     return attn.to(dt), torch.stack([attn.sum(1), (attn * attn).sum(1)], dim=1)
 
 
-def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int):
+def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int, residual: bool, prenorm: bool):
     name = "folded_unpool"
     b, n, c = x.shape
     i = k.shape[1]
@@ -287,51 +489,59 @@ def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int):
     out = torch.empty_like(x)
     sums = torch.zeros((b, 2, c), dtype=_F32, device=x.device)
     launch("unpool", "unpool_launch", x, se, be, k, v, wq, wo.t().contiguous(), bq, kft, vf,
-           brow, out, sums, b, n, c, num_heads, i, tn)
+           brow, out, sums, b, n, c, num_heads, i, tn, int(residual), int(prenorm))
     folded_unpool.launches += 1
     return out, sums
 
 
 class _Unpool(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, se, be, k, v, wq, wo, num_heads, need_grad):
+    def forward(ctx, x, se, be, k, v, wq, wo, num_heads, residual, prenorm, need_grad):
+        cfg = (num_heads, residual, prenorm)
         if x.device.type == "cpu":
-            out, sums = _unpool_ref(x, se, be, k, v, wq, wo, num_heads)
+            out, sums = _unpool_ref(x, se, be, k, v, wq, wo, *cfg)
         else:
-            out, sums = _unpool_launch(x, se, be, k, v, wq, wo, num_heads)
+            out, sums = _unpool_launch(x, se, be, k, v, wq, wo, *cfg)
         if need_grad:
             ctx.save_for_backward(x, se, be, k, v, wq, wo)
-        ctx.num_heads = num_heads
+        ctx.cfg = cfg
         return out, sums
 
     @staticmethod
     def backward(ctx, g_out, g_sums):
-        grads = folded_unpool_bwd(*ctx.saved_tensors, g_out, g_sums, ctx.num_heads)
-        return (*grads, None, None)
+        grads = folded_unpool_bwd(*ctx.saved_tensors, g_out, g_sums, *ctx.cfg)
+        return (*grads, None, None, None, None)
 
 
-def folded_unpool(x, se, be, k, v, wq, wo, num_heads: int):
+def folded_unpool(x, se, be, k, v, wq, wo, num_heads: int, residual: bool = True,
+                  prenorm: bool = True):
     """x [B, N, C]; se/be [B, C] fp32; k/v [B, I, C] inducer-token
-    projections; wq/wo [C, C] -> (x + attn(x*se+be), sums [B, 2, C] fp32).
-    Differentiable in every tensor argument, through both outputs."""
+    projections; wq/wo [C, C] -> (x + attn(x*se+be), sums [B, 2, C] fp32),
+    without the x term where ``residual`` is off and with y = x (se and be
+    not read) where ``prenorm`` is off. Differentiable in every tensor
+    argument, through both outputs."""
     need = needs_grad(x, se, be, k, v, wq, wo)
-    return _Unpool.apply(x, se, be, k, v, wq, wo, num_heads, need)
+    return _Unpool.apply(x, se, be, k, v, wq, wo, num_heads, residual, prenorm, need)
 
 
 folded_unpool.launches = 0
 
 
-def _unpool_bwd_ref(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int) -> tuple:
+def _unpool_bwd_ref(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residual: bool = True,
+                    prenorm: bool = True) -> tuple:
     """Plain version of the unpool backward: autograd through
     ``_unpool_ref`` -> (dx, dse, dbe, dk, dv, dwq, dwo)."""
-    return vjp(lambda *a: _unpool_ref(*a, num_heads), (x, se, be, k, v, wq, wo), (g, g_sums))
+    return vjp(lambda *a: _unpool_ref(*a, num_heads, residual, prenorm),
+               (x, se, be, k, v, wq, wo), (g, g_sums))
 
 
-def folded_unpool_bwd(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int) -> tuple:
+def folded_unpool_bwd(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residual: bool = True,
+                      prenorm: bool = True) -> tuple:
     """Gradients of ``folded_unpool`` against ``g`` [B, N, C] and
-    ``g_sums`` [B, 2, C] -> (dx, dse, dbe, dk, dv, dwq, dwo)."""
+    ``g_sums`` [B, 2, C] -> (dx, dse, dbe, dk, dv, dwq, dwo); dse and dbe
+    are 0 without the pre-norm."""
     if x.device.type == "cpu":
-        return _unpool_bwd_ref(x, se, be, k, v, wq, wo, g, g_sums, num_heads)
+        return _unpool_bwd_ref(x, se, be, k, v, wq, wo, g, g_sums, num_heads, residual, prenorm)
     name = "folded_unpool_bwd"
     b, n, c = x.shape
     i = k.shape[1]
@@ -359,7 +569,7 @@ def folded_unpool_bwd(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int) -> tup
     dkf = torch.zeros((b, c, j), dtype=_F32, device=dev)
     dvf = torch.zeros((b, j, c), dtype=_F32, device=dev)
     launch("unpool_bwd", "unpool_bwd_launch", x, se, be, k, v, wq, wo, g, g_sums, kft, vf,
-           p, ds, da, dx, dse, dbe, dkf, dvf, b, n, c, num_heads, i)
+           p, ds, da, dx, dse, dbe, dkf, dvf, b, n, c, num_heads, i, int(residual), int(prenorm))
     folded_unpool_bwd.launches += 1
     # the folded operands' gradients through the fold jacobians (plain
     # PyTorch, as the JAX package leaves them to XLA)

@@ -169,14 +169,18 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         projective_gather(*_gather_leaves(5)),
         rect_attention_pallas(q, k, v),
         *tfa.fused_unpool_mlp(*_leaves(ua), HEADS, GROUPS, N),
+        *tfa.folded_pool_layer(*_leaves(_pool_args(5, False)), tfa.group_indicator(C, GROUPS),
+                               HEADS),
+        *tfa.folded_unpool(*_leaves(_unpool_args(5, False)), HEADS, False, False),
     ]
     # through every forward and every backward
     torch.autograd.backward([o.float().square().sum() for o in outs])
     assert kernels.launch_counts() == {
         "folded_pool_ext": 0, "fused_h_side": 0, "folded_unpool": 0, "fused_mlp_residual": 0,
         "projective_gather": 0, "rect_attention_fwd": 0, "fused_unpool_mlp": 0,
-        "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0, "fused_mlp_residual_bwd": 0,
-        "projective_gather_bwd": 0, "rect_attention_bwd": 0,
+        "folded_pool_layer": 0, "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0,
+        "fused_mlp_residual_bwd": 0, "projective_gather_bwd": 0, "rect_attention_bwd": 0,
+        "folded_pool_layer_bwd": 0,
     }
 
 

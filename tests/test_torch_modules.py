@@ -222,4 +222,8 @@ def test_chip_smoke_rehearsal_runs_its_phases_on_the_cpu():
     assert "rect_attention_bwd [unpool 8k width, drift] dv" in res.stdout
     assert "8-step sample, per-head kernel path vs plain path" in res.stdout
     assert "8-step sample, megakernel path vs the separate kernels' path" in res.stdout
+    assert "folded_pool_layer_bwd [no pre-norm 8k width, drift] dwo" in res.stdout
+    assert "folded_unpool_bwd, no residual, no pre-norm [drift] dwo" in res.stdout
+    assert "BroadcastingLayer without sums" in res.stdout
+    assert "kernel path vs plain path: max" in res.stdout.split("== upsample path")[-1]
     assert '"ok": true' not in res.stdout

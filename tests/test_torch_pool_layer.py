@@ -1,0 +1,215 @@
+"""The resident pool (``folded_pool_layer``) and the unpool's flags against
+the JAX package, on the CPU.
+
+On CPU tensors the port's wrappers run their plain versions (the backward:
+autograd through them). The JAX side runs its Pallas kernels in interpret
+mode: ``_pool_kernel`` and ``_pool_bwd_kernel`` (at these shapes the JAX
+package's VMEM gate routes the backward to its own kernel), and the unpool's
+forward and backward kernels in their four flag variants. fp32 throughout;
+the tolerances are the JAX package's own tests' (``test_pallas_ops.py``),
+with the absolute one scaled by max |ref| for drifted logits, as in
+``test_torch_kernels.py``.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gecco_tpu.ops.pallas import folded_attention as jfa
+from gecco_tpu_torch.ops.kernels import folded_attention as tfa
+
+REPO = Path(__file__).resolve().parents[1]
+B, N, C, HEADS, I = 2, 128, 64, 4, 16
+J, D = HEADS * I, C // HEADS
+GROUPS = 8
+# per-head scales of the drifted logits (scripts/certify_kernels.py's
+# magnitudes): head 0's ~60x head 1's, maxima more than the clamp (80) apart
+DRIFT = np.repeat(np.array([60.0, 1.0, 0.1, 0.01], np.float32), D)
+PRENORM = [True, False]
+DRIFTS = [False, True]
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    torch.set_num_threads(2)
+
+
+def _pool_args(seed, drift):
+    """x with per-channel offsets (non-zero group means), the AdaGN scale
+    and bias, inducers, kvw (k rows scaled by DRIFT where drifted), wo."""
+    rng = np.random.default_rng(seed)
+    x = (1.5 * rng.standard_normal((B, N, C)) + 0.3 * rng.standard_normal(C)).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal((B, C))).astype(np.float32)
+    bias = (0.1 * rng.standard_normal((B, C))).astype(np.float32)
+    ind2 = (rng.standard_normal((J, D)) / 2).astype(np.float32)
+    kvw = (rng.standard_normal((2 * C, C)) / 8).astype(np.float32)
+    if drift:
+        kvw[:C] *= DRIFT[:, None] * 8 / C**0.5
+    wo = (rng.standard_normal((C, C)) / 8).astype(np.float32)
+    return x, scale, bias, ind2, kvw, wo
+
+
+def _gind():
+    return np.array(jfa.group_indicator(C, GROUPS))
+
+
+def _jax_vjp(fn, args, cot):
+    """``fn``'s outputs and its vjp of ``cot``, in one jitted call: one
+    compile of the interpret-mode kernels instead of one per eager op."""
+
+    def go(a, ct):
+        out, vjp = jax.vjp(fn, *a)
+        return out, vjp(ct)
+
+    return jax.jit(go)(tuple(map(jnp.asarray, args)), tuple(map(jnp.asarray, cot)))
+
+
+def _assert_close(port, ref, rtol, atol, drift, what):
+    """With drifted logits (in the hundreds) fp32 rounding of a logit moves
+    a value by ~1e-5 of the largest: the absolute tolerance then scales with
+    max |ref| (2e-5 of it)."""
+    ref = np.asarray(ref, np.float32)
+    tol = max(atol, 2e-5 * float(np.abs(ref).max())) if drift else atol
+    np.testing.assert_allclose(np.asarray(port.detach().numpy(), np.float32), ref, rtol=rtol,
+                               atol=tol, err_msg=what)
+
+
+@pytest.mark.parametrize("drift", DRIFTS, ids=["plain", "drift"])
+@pytest.mark.parametrize("prenorm", PRENORM, ids=["prenorm", "no-prenorm"])
+def test_pool_layer_matches_jax(prenorm, drift):
+    """h0, mean_c and inv_c against the JAX op (``_pool_kernel`` in
+    interpret mode) and against its XLA twin ``_pool_ref``: forward rtol
+    1e-4, atol 1e-5 (1e-4 with drifted logits, as the unpool's drift
+    test)."""
+    args = _pool_args(0, drift)
+    port = tfa.folded_pool_layer(*map(torch.from_numpy, args), torch.from_numpy(_gind()), HEADS,
+                                 prenorm)
+    gind = jnp.asarray(_gind())
+    refs = jax.jit(lambda a: (jfa.folded_pool_layer(*a, gind, HEADS, prenorm),
+                              jfa._pool_ref(*a, GROUPS, HEADS, prenorm)))(
+        tuple(map(jnp.asarray, args)))
+    for ref in refs:
+        for name, a, r in zip(("h0", "mean_c", "inv_c"), port, ref):
+            _assert_close(a, r, 1e-4, 1e-4 if drift else 1e-5, False, name)
+
+
+@pytest.mark.parametrize("drift", DRIFTS, ids=["plain", "drift"])
+@pytest.mark.parametrize("prenorm", PRENORM, ids=["prenorm", "no-prenorm"])
+def test_pool_layer_backward_matches_jax(prenorm, drift):
+    """Gradients through all three outputs, the mean/inv cotangents nonzero
+    (as test_pallas_ops.py's pool backward test), against ``jax.vjp`` of
+    the JAX op (its ``_pool_bwd_kernel`` in interpret mode); that test's
+    tolerance (rtol 5e-4, atol 5e-5). The group indicator takes none."""
+    args = _pool_args(1, drift)
+    rng = np.random.default_rng(2)
+    cot = (rng.standard_normal((B, I, C)).astype(np.float32),
+           (0.05 * rng.standard_normal((B, C))).astype(np.float32),
+           (0.02 * rng.standard_normal((B, C))).astype(np.float32))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    outs = tfa.folded_pool_layer(*leaves, torch.from_numpy(_gind()), HEADS, prenorm)
+    torch.autograd.backward(outs, [torch.from_numpy(c) for c in cot])
+    gind = jnp.asarray(_gind())
+    _, ref = _jax_vjp(lambda *a: jfa.folded_pool_layer(*a, gind, HEADS, prenorm), args, cot)
+    for q, (a, r) in enumerate(zip(leaves, ref)):
+        _assert_close(a.grad, r, 5e-4, 5e-5, drift, f"gradient of argument {q}")
+
+
+def _unpool_args(seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, N, C)).astype(np.float32)
+    se = (1.0 + 0.1 * rng.standard_normal((B, C))).astype(np.float32)
+    be = (0.1 * rng.standard_normal((B, C))).astype(np.float32)
+    k = (rng.standard_normal((B, I, C)) / 3).astype(np.float32)
+    v = (rng.standard_normal((B, I, C)) / 3).astype(np.float32)
+    wq = (rng.standard_normal((C, C)) / 8).astype(np.float32)
+    wo = (rng.standard_normal((C, C)) / 8).astype(np.float32)
+    return x, se, be, k, v, wq, wo
+
+
+@pytest.mark.parametrize("prenorm", PRENORM, ids=["prenorm", "no-prenorm"])
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "no-residual"])
+def test_unpool_flags_match_jax(residual, prenorm):
+    """``folded_unpool`` with its ``residual``/``prenorm`` flags: out and the
+    sums against the JAX op (interpret mode) and its twin (forward rtol
+    1e-4, atol 1e-5; the sums relative 1e-3, as test_torch_kernels.py);
+    every gradient through both outputs, the sums cotangent nonzero,
+    against ``jax.vjp`` of the JAX op (its backward kernel in interpret
+    mode), at test_pallas_ops.py's unpool tolerance (rtol 3e-4, atol
+    3e-5)."""
+    args = _unpool_args(3)
+    flags = (HEADS, residual, prenorm)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    out, sums = tfa.folded_unpool(*leaves, *flags)
+    rng = np.random.default_rng(4)
+    cot = (rng.standard_normal((B, N, C)).astype(np.float32),
+           (0.01 * rng.standard_normal((B, 2, C))).astype(np.float32))
+    kernel, grads = _jax_vjp(lambda *a: jfa.folded_unpool(*a, *flags), args, cot)
+    twin = jax.jit(lambda a: jfa._unpool_ref(*a, *flags))(tuple(map(jnp.asarray, args)))
+    for ref_out, ref_sums in (kernel, twin):
+        _assert_close(out, ref_out, 1e-4, 1e-5, False, "out")
+        np.testing.assert_allclose(sums.detach().numpy(), np.asarray(ref_sums), rtol=1e-3,
+                                   atol=1e-3)
+    torch.autograd.backward((out, sums), [torch.from_numpy(c) for c in cot])
+    for q, (a, r) in enumerate(zip(leaves, grads)):
+        _assert_close(a.grad, r, 3e-4, 3e-5, False, f"gradient of argument {q}")
+    if not prenorm:
+        assert not leaves[1].grad.any() and not leaves[2].grad.any()
+
+
+def test_pool_layer_bwd_witness_matches_the_jax_kernel_in_bf16():
+    """``chip_smoke.py``'s ``pool_layer_bwd_tpu_algebra``, the witness that
+    the card's drifted dbias is held against, is the JAX kernel's own
+    algebra: on bf16 operands with drifted logits its dscale/dbias agree
+    with ``jax.vjp`` of the JAX op (``_pool_bwd_kernel`` in interpret mode)
+    within 1e-3 of max |ref| (fp32 sums in other orders; measured 2e-5),
+    while autograd of the plain version departs by about 1e-2 there (bf16
+    p before the softmax backward): more than five times the witness's
+    limit."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    bf = torch.bfloat16
+    args = _pool_args(0, True)
+    ops = [torch.from_numpy(a).to(bf if q in (0, 3, 4, 5) else torch.float32)
+           for q, a in enumerate(args)]
+    g_h0 = torch.from_numpy(np.random.default_rng(9).standard_normal((B, I, C)).astype(np.float32))
+    g_h0 = g_h0.to(bf)
+    witness = chip_smoke.pool_layer_bwd_tpu_algebra(*ops, torch.from_numpy(_gind()), g_h0, HEADS)
+    jops = [jnp.asarray(a.float().numpy(), jnp.bfloat16 if a.dtype == bf else jnp.float32)
+            for a in ops]
+    zero = np.zeros((B, C), np.float32)
+    gind = jnp.asarray(_gind())
+    _, ref = _jax_vjp(lambda *a: jfa.folded_pool_layer(*a, gind, HEADS, True), jops,
+                      (jnp.asarray(g_h0.float().numpy(), jnp.bfloat16), zero, zero))
+    leaves = [a.clone().requires_grad_(True) for a in ops]
+    tfa._pool_ref(*leaves, GROUPS, HEADS)[0].backward(g_h0)
+    for name, w, r, plain in (("dscale", witness[0], ref[1], leaves[1].grad),
+                              ("dbias", witness[1], ref[2], leaves[2].grad)):
+        r = np.asarray(r, np.float32)
+        scale = float(np.abs(r).max())
+        assert np.abs(w.numpy() - r).max() < 1e-3 * scale, name
+        assert np.abs(plain.float().numpy() - r).max() > 5e-3 * scale, name
+
+
+def test_pool_layer_bwd_wrapper_is_autograd_of_the_plain_version():
+    """``folded_pool_layer_bwd`` (what the CUDA backward replaces) on CPU
+    tensors is exactly autograd through ``_pool_ref``, and needs none of
+    the forward's results there."""
+    args = _pool_args(5, False)
+    rng = np.random.default_rng(6)
+    cot = [rng.standard_normal((B, I, C)).astype(np.float32),
+           rng.standard_normal((B, C)).astype(np.float32),
+           rng.standard_normal((B, C)).astype(np.float32)]
+    got = tfa.folded_pool_layer_bwd(*map(torch.from_numpy, args), torch.from_numpy(_gind()),
+                                    None, None, None, None, None, None,
+                                    *map(torch.from_numpy, cot), HEADS)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    torch.autograd.backward(tfa._pool_ref(*leaves, GROUPS, HEADS),
+                            [torch.from_numpy(c) for c in cot])
+    for a, x in zip(got, leaves):
+        torch.testing.assert_close(a, x.grad, rtol=0, atol=0)

@@ -106,7 +106,18 @@ Phases (each raises on failure; nothing is caught):
    refresh per transition), the unpool and the MLP 6 x (64 + 63 x 5 x 2 +
    5) times, no other kernel; a finite cloud of the right shape; then a
    4-step, 2-substep upsample of two clouds to 4096 points, the kernel path
-   against the plain path from one generator seed.
+   against the plain path from one generator seed;
+17. validation: ``gecco_tpu_torch.validate``'s loop (the trained-magnitude
+   gate's) for 20 steps of the flagship at batch 48 on the procedural
+   mixture, then one eval of 16 clouds with the 8-step Heun sampler scored
+   against 16 held-out clouds: finite losses, 1-NN accuracy and COV in
+   [0, 1], MMD finite and non-negative.
+
+Phases 3, 4 and 14 also time, beside the SDPA yardstick of the pools and
+unpools, the whole function as a chain of PyTorch calls (pre-norm,
+projections, SDPA, output projection; the unpool's residual and sums; the
+backwards under autograd): ``library_chain_ms`` in the kernels' JSON line
+(null elsewhere).
 
 It prints the kernels' JSON line, then the card's name and power limit, then
 the device line, last. The resident pool's two entries there hold the
@@ -127,6 +138,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -148,6 +160,7 @@ from gecco_tpu_torch.models import (  # noqa: E402
     UnconditionalPointNetwork,
 )
 from gecco_tpu_torch.models.set_transformer import Broadcast, BroadcastingLayer  # noqa: E402
+from gecco_tpu_torch import validate  # noqa: E402
 from gecco_tpu_torch.ops import kernels  # noqa: E402
 from gecco_tpu_torch.ops.norms import group_norm_stats  # noqa: E402
 from gecco_tpu_torch.train import (  # noqa: E402
@@ -240,8 +253,9 @@ UPSAMPLE_NEW, UPSAMPLE_STEPS, UPSAMPLE_SUBSTEPS = 102_400, 64, 5
 # (and, where the keys span several tiles, through a running max and sum)
 TOL_LSE = 1e-5
 # the megakernel's 8-step sample against the separate kernels' path: the
-# same device code, but the mlp_norm statistics summed by fp32 atomics in
-# another order (and rsqrtf), which moves bf16 roundings of the pre-norm
+# same algebra (its unpool is unpool.cuh's WMMA form of unpool.cu's), but
+# fp32 sums in other orders (the logits, the mlp_norm statistics by fp32
+# atomics) and rsqrtf, which move bf16 roundings of the pre-norm
 TOL_MEGA_PATH = 3e-2
 # one train step's gradient, kernel path vs plain (xla) path from the same
 # weights, batch, sigma and noise, bf16 activations through 6 layers:
@@ -417,6 +431,56 @@ def sdpa_unpool(ops, heads):
     return lambda: torch.nn.functional.scaled_dot_product_attention(q, kk, vv)
 
 
+def _split_heads(t, heads):
+    b, m, c = t.shape
+    return t.reshape(b, m, heads, c // heads).transpose(1, 2)
+
+
+def chain_pool(ops, heads):
+    """The whole pool as PyTorch calls (the fair yardstick: SDPA alone
+    leaves out the projections, most of the function's products): the
+    pre-norm, y @ kvw^T, per-head SDPA of the inducer queries, @ Wo^T."""
+    x, se, be, ind2, kvw, wo = ops
+    b, _, c = x.shape
+    q = ind2.reshape(heads, -1, c // heads)[None].expand(b, -1, -1, -1).contiguous()
+
+    def run():
+        y = (x.float() * se[:, None] + be[:, None]).to(x.dtype)
+        k, v = (y @ kvw.T).chunk(2, dim=-1)
+        o = torch.nn.functional.scaled_dot_product_attention(
+            q, _split_heads(k, heads), _split_heads(v, heads))
+        return o.transpose(1, 2).reshape(b, -1, c) @ wo.T
+
+    return run
+
+
+def chain_unpool(ops, heads):
+    """The whole unpool as PyTorch calls: the pre-norm, y @ wq^T, per-head
+    SDPA over the inducer tokens, @ Wo^T, the residual and the channel
+    sums."""
+    x, se, be, k, v, wq, wo = ops
+    b, n, c = x.shape
+    kk, vv = _split_heads(k, heads).contiguous(), _split_heads(v, heads).contiguous()
+
+    def run():
+        y = (x.float() * se[:, None] + be[:, None]).to(x.dtype)
+        o = torch.nn.functional.scaled_dot_product_attention(_split_heads(y @ wq.T, heads), kk, vv)
+        o = x.float() + (o.transpose(1, 2).reshape(b, n, c) @ wo.T).float()
+        return o.to(x.dtype), torch.stack([o.sum(1), (o * o).sum(1)], dim=1)
+
+    return run
+
+
+def chain_backward(make_chain, ops, heads, cots):
+    """The backward of a chain yardstick alone under autograd, to every
+    operand (its forward run once, outside the timed call), against the
+    cotangents ``cots`` of its outputs."""
+    leaves = [a.detach().requires_grad_(True) for a in ops]
+    outs = make_chain(leaves, heads)()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+
+
 # ---------------------------------------------------------------- phases --
 
 
@@ -435,7 +499,7 @@ def kernel_phase(device, shapes, big, dt, reps):
     w = 2 * c
     rec = {}
 
-    def run(name, fn, ref, ops, nouts, flops, in_out, library=None):
+    def run(name, fn, ref, ops, nouts, flops, in_out, library=None, chain=None):
         errs = []
         for drift in (False, True):
             args = ops(drift)
@@ -454,13 +518,15 @@ def kernel_phase(device, shapes, big, dt, reps):
         ms = time_ms(lambda: fn(*args), device, reps)
         plain_ms = time_ms(lambda: ref(*args), device, max(2, reps // 4))
         lib_ms = time_ms(library(args), device, reps) if library else None
+        chain_ms = time_ms(chain(args), device, reps) if chain else None
         bms, by = bound(flops, nbytes(*[a for a in args if torch.is_tensor(a)],
                                       *in_out(args)))
         rec[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                         bound_by=by, library_ms=lib_ms)
+                         bound_by=by, library_ms=lib_ms, library_chain_ms=chain_ms)
         lib_txt = f"{lib_ms:.3f}" if lib_ms is not None else "n/a"
-        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_txt} ms, "
-              f"bound {bms:.3f} ms ({by})")
+        chain_txt = f", chain {chain_ms:.3f} ms" if chain_ms is not None else ""
+        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_txt} ms"
+              f"{chain_txt}, bound {bms:.3f} ms ({by})")
 
     d = c // heads
     j = heads * i
@@ -469,7 +535,7 @@ def kernel_phase(device, shapes, big, dt, reps):
         lambda drift: pool_operands(g, b, n, c, heads, i, drift, device, dt), 1,
         2 * b * n * c * j + 2 * b * n * c * c + 2 * b * n * j * d + 2 * b * i * c * c,
         lambda a: [torch.empty(b, i, c, dtype=dt)],
-        lambda a: sdpa_pool(a, heads))
+        lambda a: sdpa_pool(a, heads), lambda a: chain_pool(a, heads))
     run("fused_h_side", hs.fused_h_side, hs._hside_ref,
         lambda drift: hside_operands(g, b, i, c, w, drift, device, dt), 3,
         4 * b * i * c * w + 4 * b * i * c * c,
@@ -479,7 +545,7 @@ def kernel_phase(device, shapes, big, dt, reps):
         lambda drift: unpool_operands(g, b, n, c, heads, i, drift, device, dt), 2,
         4 * b * n * c * j + 4 * b * j * c * d,
         lambda a: [a[0], torch.empty(b, 2, c)],
-        lambda a: sdpa_unpool(a, heads))
+        lambda a: sdpa_unpool(a, heads), lambda a: chain_unpool(a, heads))
     run("fused_mlp_residual", fa.fused_mlp_residual, fa._mlp_ref,
         lambda drift: mlp_operands(g, b, n, c, w, drift, device, dt), 2,
         4 * b * n * c * w,
@@ -492,6 +558,14 @@ def kernel_phase(device, shapes, big, dt, reps):
         args = pool_operands(g, bb, nn_, cc, hh, ii, drift, device, dt)
         err = rel_err(fa.folded_pool_ext(*args, hh), fa._pool_ext_ref(*args, hh))
         check(f"folded_pool_ext 8k width [{'drift' if drift else 'ordinary'}] out0", err, TOL_OUT)
+    # the unpool at the 8k width
+    for drift in (False, True):
+        args = unpool_operands(g, bb, nn_, cc, hh, ii, drift, device, dt)
+        got, want = fa.folded_unpool(*args, hh), fa._unpool_ref(*args, hh)
+        sync(device)
+        tag = "drift" if drift else "ordinary"
+        check(f"folded_unpool 8k width [{tag}] out0", rel_err(got[0], want[0]), TOL_OUT)
+        check(f"folded_unpool 8k width [{tag}] sums", rel_err(got[1], want[1]), TOL_SUMS)
     return rec
 
 
@@ -585,6 +659,9 @@ def backward_phase(device, shapes, big, dt, reps):
     output against its own tolerance; returns per-kernel records."""
     g = torch.Generator(device=device).manual_seed(2)
     r = lambda *sh: torch.randn(*sh, generator=g, device=device)
+    # the chain yardsticks' cotangents, apart from the checks' draws
+    g_chain = torch.Generator(device=device).manual_seed(3)
+    rc = lambda *sh: torch.randn(*sh, generator=g_chain, device=device)
     b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
         shapes["num_heads"], shapes["num_inducers"]
     w = 2 * c
@@ -593,11 +670,11 @@ def backward_phase(device, shapes, big, dt, reps):
     def pool_case(bb, nn_, cc, hh, ii, drift):
         ops = pool_operands(g, bb, nn_, cc, hh, ii, drift, device, dt)
         if device.type == "cuda":
-            _, macc, sacc = fa._pool_ext_launch(*ops, hh, True)
+            _, qft, macc, sacc = fa._pool_ext_launch(*ops, hh, True)
         else:
-            macc = sacc = None
+            qft = macc = sacc = None
         gh = (0.1 * r(bb, ii, cc)).to(dt)
-        kernel = lambda: fa.folded_pool_ext_bwd(*ops, macc, sacc, gh, hh)
+        kernel = lambda: fa.folded_pool_ext_bwd(*ops, qft, macc, sacc, gh, hh)
         plain = lambda: fa._pool_ext_bwd_ref(*ops, gh, hh)
         witness = lambda: pool_bwd_v3_affine(*ops, gh, hh)
         return ops, kernel, plain, witness
@@ -650,18 +727,23 @@ def backward_phase(device, shapes, big, dt, reps):
                                 # per-head fold: DMs, pacc, dWo, W2, W3, dWv
                                 6 * 2 * b * n * c * j + 6 * 2 * b * j * d * c,
                                 2 * b * i * c + 2 * 4 * b * j,
-                                lambda ops: sdpa_pool_bwd(ops, heads, g)),
+                                lambda ops: sdpa_pool_bwd(ops, heads, g),
+                                lambda ops: chain_backward(chain_pool, ops, heads,
+                                                           ((0.1 * rc(b, i, c)).to(dt),))),
         "folded_unpool_bwd": (unpool_case,
                               # logits, p vf, dp, ds kft, dkf, dvf; the fold
                               6 * 2 * b * n * c * j + 2 * 2 * b * j * d * c,
                               2 * b * n * c + 4 * 2 * b * c,
-                              lambda ops: sdpa_unpool_bwd(ops, heads, g)),
+                              lambda ops: sdpa_unpool_bwd(ops, heads, g),
+                              lambda ops: chain_backward(chain_unpool, ops, heads,
+                                                         ((0.1 * rc(b, n, c)).to(dt),
+                                                          1e-3 * rc(b, 2, c)))),
         "fused_mlp_residual_bwd": (mlp_case,
                                    # h, o, da, dy, dw1t, dw2t
                                    6 * 2 * b * n * c * w,
-                                   2 * b * n * c + 4 * 2 * b * c, None),
+                                   2 * b * n * c + 4 * 2 * b * c, None, None),
     }
-    for name, (make, flops, cot_bytes, library) in cases.items():
+    for name, (make, flops, cot_bytes, library, chain) in cases.items():
         errs = []
         for drift in (False, True):
             _, kernel, plain, *witness = make(drift)
@@ -671,15 +753,17 @@ def backward_phase(device, shapes, big, dt, reps):
         ms = time_ms(kernel, device, reps)
         plain_ms = time_ms(plain, device, max(2, reps // 4))
         lib_ms = time_ms(library(ops), device, reps) if library else None
+        chain_ms = time_ms(chain(ops), device, reps) if chain else None
         outs = kernel()
         # each input read once (operands and the cotangents), each gradient written once
         in_bytes = nbytes(*[a for a in ops if torch.is_tensor(a)])
         bms, by = bound(flops, in_bytes + cot_bytes + nbytes(*outs))
         rec[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                         bound_by=by, library_ms=lib_ms)
+                         bound_by=by, library_ms=lib_ms, library_chain_ms=chain_ms)
         lib_txt = f"{lib_ms:.3f}" if lib_ms is not None else "none"
-        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_txt} ms, "
-              f"bound {bms:.3f} ms ({by})")
+        chain_txt = f", chain {chain_ms:.3f} ms" if chain_ms is not None else ""
+        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_txt} ms"
+              f"{chain_txt}, bound {bms:.3f} ms ({by})")
 
     # the pool backward at the 8k width (C = 768, 16 heads, 8192 points)
     for drift in (False, True):
@@ -1074,16 +1158,19 @@ def resident_pool_phase(device, shapes, train_batch, big, dt, reps):
             plain_ms = time_ms(lambda: fa._pool_ref(*ops[:6], GROUPS, heads, prenorm), device,
                                max(2, reps // 4))
             lib_ms = None if prenorm else time_ms(sdpa_pool(unfolded(ops), heads), device, reps)
+            chain_ms = None if prenorm else time_ms(chain_pool(unfolded(ops)[:6], heads), device,
+                                                    reps)
         # each input read once, and with the pre-norm the stream once more:
         # its statistics must be complete before the first logit and it does
         # not fit on the chip; h0 and the statistics written once
         bms, by = bound(flops, nbytes(*ops) + prenorm * nbytes(ops[0]) + 2 * b * i * c
                         + 2 * 4 * b * c)
-        lib_txt = f"sdpa {lib_ms:.3f}" if lib_ms is not None else "library none"
+        lib_txt = (f"sdpa {lib_ms:.3f} ms, chain {chain_ms:.3f}" if lib_ms is not None
+                   else "library none")
         print(f"  folded_pool_layer ({tag(prenorm, False)}): kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, {lib_txt} ms, bound {bms:.3f} ms ({by})")
         variant_rec("folded_pool_layer", prenorm, errs, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, library_ms=lib_ms)
+                    bound_by=by, library_ms=lib_ms, library_chain_ms=chain_ms)
 
     # backward
     names = ("dx", "dscale", "dbias", "dind2", "dkvw", "dwo")
@@ -1494,12 +1581,45 @@ def train_phase(device, n_layers, batch, n_points, card, steps, attn_impl="folde
                         losses=losses, peak_gb=peak_gb)
 
 
+def validate_phase(device, rehearse):
+    """``gecco_tpu_torch.validate``'s loop, short: 20 steps of the flagship at
+    batch 48 and one eval of 16 clouds with 8 Heun steps on the card (a
+    3-step, 2-layer cut at 64 points on the CPU); raises unless every loss
+    is finite, 1-NN and COV lie in [0, 1] and MMD is finite and >= 0."""
+    out = Path(__file__).resolve().parent / "runs" / "chip_smoke_validate.jsonl"
+    if out.exists():
+        out.unlink()
+    if rehearse:
+        argv = ["--device", "cpu", "--steps", "3", "--n-layers", "2", "--feature-dim", "64",
+                "--num-inducers", "16", "--num-heads", "4", "--n-points", "64", "--batch", "4",
+                "--eval-every", "3", "--eval-clouds", "4", "--sampler-steps", "2"]
+    else:
+        argv = ["--device", "cuda", "--steps", "20", "--batch", str(TRAIN_BATCH),
+                "--eval-every", "20", "--eval-clouds", "16", "--sampler-steps", "8"]
+    t0 = time.perf_counter()
+    records = validate.run(validate.parser().parse_args(argv + ["--log-every", "10",
+                                                               "--out", str(out)]),
+                           emit=lambda line: print(f"  {line}"))
+    seconds = time.perf_counter() - t0
+    check_finite([r["loss"] for r in records])
+    last = records[-1]
+    ok = (0.0 <= last["one_nn"] <= 1.0 and 0.0 <= last["cov"] <= 1.0
+          and np.isfinite(last["mmd"]) and last["mmd"] >= 0.0)
+    print(f"  {len(records)} records in {seconds:.1f} s; scores "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"validate: scores out of range: {last}")
+    return dict(seconds=seconds, **last)
+
+
 # the kernels of each wrapper, by the function names in gecco_tpu_torch/csrc
 KERNEL_FUNCTIONS = {
     # linear_nt_kernel (pool.cuh) is the resident pool's output projection too
-    "folded_pool_ext": ("pool_kernel", "linear_nt_kernel"),
+    "folded_pool_ext": ("pool_fold_kernel", "pool_chunk_kernel", "pool_merge_kernel",
+                        "linear_nt_kernel"),
     "fused_h_side": ("hside_kernel",),
-    "folded_unpool": ("unpool_bq_kernel", "unpool_fold_kernel", "unpool_kernel"),
+    "folded_unpool": ("unpool_bq_kernel", "unpool_fold_k_kernel", "unpool_fold_v_kernel",
+                      "unpool_tile_kernel"),
     "fused_mlp_residual": ("mlp_kernel",),
     "folded_pool_ext_bwd": ("pool_bwd_pass0_kernel", "pool_bwd_fold_kernel",
                             "pool_bwd_pass1_kernel"),
@@ -1941,6 +2061,10 @@ def main():
           f"{upsample['n_substeps']} substeps, churn 0.5, on {card}")
     up_counts, up_path = upsample_path(device, n_layers, n_points, **upsample)
 
+    print(f"== validation: gecco_tpu_torch.validate's loop, then one eval of the EMA model's "
+          f"samples against held-out clouds, on {card}")
+    val = validate_phase(device, args.rehearse)
+
     print("== summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
@@ -1962,7 +2086,8 @@ def main():
           f"megakernel sampler {mega_path['clouds_per_s']:.3f} clouds/s "
           f"({mega_path['eval_ms']:.3f} ms per evaluation); upsample to {upsample['n_new']} "
           f"points {up_path['seconds']:.3f} s ({up_path['points_per_s']:.1f} new points/s); "
-          f"{card}")
+          f"validation phase {val['seconds']:.1f} s (1-NN {val['one_nn']:.4f}, MMD "
+          f"{val['mmd']:.4g}, COV {val['cov']:.4f}); {card}")
     # launches: each kernel's count on the path that first brought it in
     # (printed above): the flagship sampler's for a set-transformer forward
     # kernel, the flagship training path's for a backward one, the
@@ -1983,7 +2108,7 @@ def main():
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=source_counts.get(name, train_counts if name in BACKWARD else counts)[name],
-             **rec[name])
+             **{"library_chain_ms": None, **rec[name]})
         for name in SOURCES
     ]}
     if args.rehearse:

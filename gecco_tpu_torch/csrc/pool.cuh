@@ -1,8 +1,7 @@
-// Device code shared by the two attention pools onto the inducers:
-// csrc/pool_ext.cu (online softmax, external pre-norm) and csrc/pool.cu
-// (the resident pool with its GroupNorm statistics): the per-(head, batch)
-// block's shared-memory layout and weight staging, and the output
-// projection.
+// Device code of the resident pool (csrc/pool.cu): the per-(head, batch)
+// block's shared-memory layout and weight staging; and the output
+// projection linear_nt_kernel, which the chunked pool (csrc/pool_ext.cu)
+// shares.
 #pragma once
 
 #include "common.cuh"

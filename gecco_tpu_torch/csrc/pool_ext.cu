@@ -1,146 +1,363 @@
-// Tiled online-softmax attention pool onto the inducers.
+// Online-softmax attention pool onto the inducers, split over point chunks.
 //
 // Replaces gecco_tpu/ops/pallas/folded_attention.py:_pool_ext_kernel_wfold
 // and _pool_ext_kernel (both served by folded_pool_ext), in the v-stream
 // form of the latter. Per batch element b and head h, with y = bf16(x*se+be):
-//   s = y @ qf[:, hI:(h+1)I]              [N, I] logits (fp32)
-//   v = bf16(y @ Wv_h^T)                   [N, D]
-//   softmax over the POINT axis per column, online across point tiles:
-//   running max m (from -3e38), corr = exp(max(m_old - m_new, -80)),
-//   e = exp(max(s - m_new, -80)), l = l * corr + sum e,
-//   P = P * corr + bf16(e)^T @ v           [I, D] fp32
-//   pooled[b, :, hD:(h+1)D] = bf16(P / l)
-// and a second kernel: h0 = bf16(pooled @ Wo^T)  [B, I, C]. Where the
-// caller asks (a gradient will be taken), the final column max m and sum l
-// are written to macc/sacc [B, J] for the backward (pool_ext_bwd.cu).
+//   qf = s * fold(Wk, ind2)                [C, J]  (one fold per call)
+//   s  = y @ qf[:, hI:(h+1)I]              [N, I]  logits (fp32)
+//   v  = bf16(y @ Wv_h^T)                  [N, D]
+//   softmax over the POINT axis per column: per chunk of TM points its
+//   column max m_c, e = exp(max(s - m_c, -80)), l_c = sum e (fp32) and
+//   P_c = bf16(e)^T @ v [I, D] (fp32); then across chunks
+//   M = max m_c, corr_c = exp(max(m_c - M, -80)), L = sum corr_c l_c,
+//   pooled[b, :, hD:(h+1)D] = bf16(sum corr_c P_c / L)
+//   h0 = bf16(pooled @ Wo^T)               [B, I, C]
+// Where the caller asks (a gradient will be taken), M and L are written to
+// macc/sacc [B, J] for the backward (pool_ext_bwd.cu).
 //
-// Bound on the H100: tensor-core operations (2*N*C*(J + C) + 2*N*J*D per
-// batch element against 2*N*C bytes of stream read: about 900 FLOP per byte
-// at the flagship). Design: the TPU carried the running max, sum and
-// accumulator across its sequential point-tile axis; here one block owns one
-// (batch, head) pair and loops over all N itself, so the online softmax
-// needs no merge pass. Splitting by head keeps the accumulator at [I, D]
-// fp32 (12 KB) instead of the all-head [C, J] (786 KB) that the TPU's folded
-// Wv.Wo form would need; the head sum of the output projection is the
-// second kernel's K = C contraction. The head's qf and Wv slices are staged
-// in shared memory once per block where they fit (the flagship; not the 8k
-// width, where they are read from L2). Each block re-reads and re-normalises
-// the stream tile for its head (H reads of the stream, mostly from L2).
-// The same kernel serves the flagship (C = 384) and the 8k width (C = 768).
-// The block's layout, its weight staging and the output projection are in
-// pool.cuh, shared with the resident pool (pool.cu).
+// Bound on the H100: tensor-core operations, 2*N*C*(J + C) + 2*N*J*D per
+// batch element against 2*N*C bytes of stream (about 900 FLOP per byte at
+// the flagship).
+//
+// Design (four launches):
+// 1. pool_fold_kernel: qf^T [J, C] = s * ind2_h @ Wk_h per head on the
+//    tensor cores (WMMA, depth D), once per call.
+// 2. pool_chunk_kernel, one block per (chunk of TM points, group of 8
+//    heads): the stream is read once per block. Its first thread brings
+//    the x tile in by TMA (128-byte swizzle, one box per 64-channel panel);
+//    the two warpgroups pre-norm it in place into y, the A operand of every
+//    product of the chunk. Each warpgroup owns four heads: per head, the K
+//    panels of qf^T_h and Wv_h stream through its own three-stage TMA ring,
+//    which its first thread refills as stages free up (qf and Wv, 688 KB
+//    at the flagship, do not fit on chip), and wgmma accumulates the
+//    logits (64 x 64 per m-block) and v (64 x 48) in registers. The column
+//    max and sum come from registers (shuffles over the rows a warp holds,
+//    then a four-warp step through shared memory); bf16 e^T and v^T go to
+//    shared memory once, and P_c = e^T @ v is one more wgmma. The chunk's
+//    (m_c, l_c, P_c) go to device memory (flash-decoding partials). No
+//    producer warps: ptxas budgets registers by whole warpgroups, and a
+//    third one would hold every thread to 168 registers.
+// 3. pool_merge_kernel: per (b, j, d) the clamped rescale and sum over the
+//    chunks, pooled, and macc/sacc.
+// 4. linear_nt_kernel (pool.cuh): h0 = pooled @ Wo^T on the tensor cores.
+// A chunk is TM = 64 points, one m-block: two m-blocks a warpgroup (128
+// points, half the weight traffic and partials) ran faster on the H100 but
+// spilled at ptxas's 255 registers. The grid is B*N/64 x H/8 blocks: 2048
+// at the flagship (B 64, N 2048), 512 at the 8k width (B 2, N 8192, H 16).
 #include <cmath>
 
+#include "hopper.cuh"
 #include "pool.cuh"
 
 using namespace gecco;
+using namespace gecco::hopper;
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
-pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const float* __restrict__ be,
-            const bf16* __restrict__ qf, const bf16* __restrict__ kvw, bf16* __restrict__ pooled,
-            float* __restrict__ macc, float* __restrict__ sacc, int N, int C, int H, int I,
-            int stage_w) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int D = C / H, J = H * I;
-  const PoolSmem L(C, I, D);
-  bf16* y = reinterpret_cast<bf16*>(smem + L.y);        // [kPoolTile, C]
-  float* s = reinterpret_cast<float*>(smem + L.s);      // [kPoolTile, I] logits, then fp32 e
-  float* vt = reinterpret_cast<float*>(smem + L.vt);    // [kPoolTile, D] fp32 v
-  float* tmp = reinterpret_cast<float*>(smem + L.tmp);  // [I, D] the tile's e^T v
-  float* P = reinterpret_cast<float*>(smem + L.P);      // [I, D] accumulator
-  float* m = reinterpret_cast<float*>(smem + L.stats);  // [I] running max
-  float* l = m + I;                                     // [I] running sum
-  float* corr = l + I;                                  // [I]
-  bf16* e = reinterpret_cast<bf16*>(smem + L.e);        // [kPoolTile, I] bf16 e
-  bf16* vb = reinterpret_cast<bf16*>(smem + L.vb);      // [kPoolTile, D] bf16 v
+constexpr int kInd = 64;       // inducers per head (I)
+constexpr int kHD = 48;        // channels per head (D)
+constexpr int kGroup = 8;      // heads per block: four per consumer warpgroup
+constexpr int kTM = 64;        // points per chunk: one 64-row m-block
+constexpr int kRing = 3;       // stages of each warpgroup's weight ring
+constexpr int kQBytes = kInd * 128;  // one K panel of qf^T_h [64, 64]
+constexpr int kWBytes = kHD * 128;   // one K panel of Wv_h [48, 64]
+constexpr int kStageBytes = kQBytes + kWBytes;
+// two warpgroups (their per-head accumulators need more than the 168
+// registers a thread of a three-warpgroup block gets)
+constexpr int kChunkThreads = 256;
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const bf16 *qB, *wB;
-  int ldqB, ldwB;
-  pool_head_operands(smem, L, qf, kvw, C, H, I, h, stage_w, &qB, &ldqB, &wB, &ldwB);
-  for (int t = threadIdx.x; t < I * D; t += kThreads) P[t] = 0.0f;
-  for (int t = threadIdx.x; t < I; t += kThreads) {
-    m[t] = -3.0e38f;
-    l[t] = 0.0f;
+// Shared-memory layout of a chunk block, in bytes from a 1024-aligned base.
+struct ChunkSmem {
+  int y, stages, et, vt, red, bars, total;
+  __host__ __device__ explicit ChunkSmem(int C) {
+    y = 0;
+    stages = y + (C / 64) * kTM * 128;
+    et = stages + 2 * kRing * kStageBytes;
+    vt = et + 2 * kInd * 128;
+    red = vt + 2 * kHD * 128;
+    bars = red + 2 * 2 * 4 * kInd * 4;
+    total = bars + (1 + 2 * 2 * kRing) * 8 + 1024;  // + alignment slack
   }
+};
 
-  for (int n0 = 0; n0 < N; n0 += kPoolTile) {
-    load_prenorm(y, L.ldy, x + ((size_t)b * N + n0) * C, se + (size_t)b * C, be + (size_t)b * C,
-                 kPoolTile, C);
-    __syncthreads();
-    gemm_to_smem<wmma::row_major, wmma::row_major>(y, L.ldy, qB, ldqB, s, L.lds, kPoolTile, I, C);
-    gemm_to_smem<wmma::row_major, wmma::col_major>(y, L.ldy, wB, ldwB, vt, L.ldv, kPoolTile, D, C);
-    __syncthreads();
-    // column max over the tile: 4 lanes per column, shuffle-reduced
-    for (int i = threadIdx.x / 4; i < I; i += kThreads / 4) {
-      float tmax = -3.0e38f;
-      for (int r = threadIdx.x % 4; r < kPoolTile; r += 4) tmax = fmaxf(tmax, s[r * L.lds + i]);
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-      if (threadIdx.x % 4 == 0) {
-        const float mn = fmaxf(m[i], tmax);
-        corr[i] = expf(fmaxf(m[i] - mn, -80.0f));
-        m[i] = mn;
+// qft[hI + i, c] = bf16(scale * sum_d ind2[hI + i, d] * Wk[hD + d, c]), one
+// 64 x 64 tile per block (I == 64).
+__global__ void __launch_bounds__(kThreads)
+pool_fold_kernel(const bf16* __restrict__ ind2, const bf16* __restrict__ kvw,
+                 bf16* __restrict__ qft, int C, int D, float scale) {
+  __shared__ __align__(128) float tile[64 * 64];
+  const int h = blockIdx.y, c0 = blockIdx.x * 64;
+  gemm_to_smem<wmma::row_major, wmma::row_major>(ind2 + (size_t)h * kInd * D, D,
+                                                 kvw + (size_t)h * D * C + c0, C, tile, 64, 64,
+                                                 64, D);
+  __syncthreads();
+  for (int t = threadIdx.x; t < 64 * 64; t += kThreads) {
+    qft[(size_t)(h * kInd + t / 64) * C + c0 + t % 64] = __float2bfloat16(scale * tile[t]);
+  }
+}
+
+__global__ void __launch_bounds__(kChunkThreads, 1)
+pool_chunk_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ se,
+                  const float* __restrict__ be, float* __restrict__ part_m,
+                  float* __restrict__ part_l, float* __restrict__ part_p, int N, int C, int H) {
+  constexpr int TM = kTM;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  const ChunkSmem L(C);
+  const int KP = C / 64, J = H * kInd;
+  const int tile = blockIdx.x, grp = blockIdx.y;
+  const int b = tile * TM / N, n0 = tile * TM % N, nch = N / TM, ch = n0 / TM;
+  const int row0 = tile * TM;
+  unsigned char* y = smem + L.y;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* yfull = bars;
+  uint64_t* full = bars + 1;              // [2][kRing]
+  uint64_t* empty = full + 2 * kRing;     // [2][kRing]
+  auto stage = [&](int w, int s) { return smem + L.stages + (w * kRing + s) * kStageBytes; };
+
+  if (threadIdx.x == 0) {
+    bar_init(yfull, 1);
+    for (int q = 0; q < 2 * kRing; ++q) {
+      bar_init(full + q, 1);
+      bar_init(empty + q, 4);  // one arrive per warp of the consumer
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int w = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  // warpgroup w owns heads grp*8 + 4w ... + 3; its first thread keeps the
+  // warpgroup's weight ring filled: item it is the K panel it % KP of qf^T
+  // and Wv of its head it / KP
+  const bool loader = threadIdx.x % 128 == 0;
+  auto load_stage = [&](int it) {
+    const int h = grp * kGroup + w * 4 + it / KP, kp = it % KP, s = it % kRing;
+    bar_expect(full + w * kRing + s, kStageBytes);
+    tma_load(stage(w, s), &tm_q, full + w * kRing + s, h * kInd, kp * 64);
+    tma_load(stage(w, s) + kQBytes, &tm_w, full + w * kRing + s, C + h * kHD, kp * 64);
+  };
+  if (threadIdx.x == 0) {
+    bar_expect(yfull, KP * TM * 128);
+    for (int p = 0; p < KP; ++p) tma_load(y + p * TM * 128, &tm_x, yfull, row0, p * 64);
+  }
+  if (loader) {
+    for (int it = 0; it < kRing && it < 4 * KP; ++it) load_stage(it);
+  }
+  unsigned char* et = smem + L.et + w * kInd * 128;  // e^T [I, TM]
+  unsigned char* vt = smem + L.vt + w * kHD * 128;   // v^T [D, TM]
+  float* red_m = reinterpret_cast<float*>(smem + L.red) + w * 2 * 4 * kInd;  // [4][I]
+  float* red_l = red_m + 4 * kInd;
+
+  // pre-norm the tile in place: y = bf16(x * se + be), 8 channels a chunk
+  bar_wait(yfull, 0);
+  const float* seb = se + (size_t)b * C;
+  const float* beb = be + (size_t)b * C;
+  for (int idx = threadIdx.x; idx < KP * TM * 8; idx += kChunkThreads) {
+    const int p = idx / (TM * 8), r = (idx / 8) % TM, q = idx % 8;
+    const int c = p * 64 + ((q ^ (r & 7)) << 3);
+    int4* ptr = reinterpret_cast<int4*>(y + p * TM * 128 + r * 128 + q * 16);
+    int4 raw = *ptr;
+    bf16* v = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      v[e] = __float2bfloat16(__bfloat162float(v[e]) * __ldg(seb + c + e) + __ldg(beb + c + e));
+    }
+    *ptr = raw;
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  const int col = 2 * (lane % 4);  // first column of the thread's pairs
+  for (int hh = 0; hh < 4; ++hh) {
+    const int h = grp * kGroup + w * 4 + hh;
+    // the logits s = y @ qf_h and v = y @ Wv_h^T, one K panel of each a stage
+    float s_acc[kInd / 2];
+    float v_acc[kHD / 2];
+    for (int kp = 0; kp < KP; ++kp) {
+      const int it = hh * KP + kp, s = it % kRing;
+      bar_wait(full + w * kRing + s, (it / kRing) & 1);
+      const uint64_t dq = desc(stage(w, s)), dw = desc(stage(w, s) + kQBytes);
+      const uint64_t dy = desc(y + kp * TM * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss<kInd>(s_acc, dy + 2 * kk, dq + 2 * kk, (kp | kk) != 0);
+        wgmma_ss<kHD>(v_acc, dy + 2 * kk, dw + 2 * kk, (kp | kk) != 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s_acc);
+      fence_regs(v_acc);
+      if (lane == 0) bar_arrive(empty + w * kRing + s);
+      // refill the stage once all four warps are done with it
+      if (loader && it + kRing < 4 * KP) {
+        bar_wait(empty + w * kRing + s, (it / kRing) & 1);
+        load_stage(it + kRing);
       }
     }
-    for (int t = threadIdx.x; t < kPoolTile * D; t += kThreads) {
-      vb[(t / D) * L.ldvb + t % D] = __float2bfloat16(vt[(t / D) * L.ldv + t % D]);
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < kPoolTile * I; t += kThreads) {
-      const int r = t / I, i = t % I;
-      const float ev = expf(fmaxf(s[r * L.lds + i] - m[i], -80.0f));
-      s[r * L.lds + i] = ev;
-      e[r * L.lde + i] = __float2bfloat16(ev);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x / 4; i < I; i += kThreads / 4) {
-      float sum = 0.0f;
-      for (int r = threadIdx.x % 4; r < kPoolTile; r += 4) sum += s[r * L.lds + i];
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (threadIdx.x % 4 == 0) l[i] = l[i] * corr[i] + sum;
-    }
-    // e^T is e [kPoolTile, I] read as a column-major [I, kPoolTile] operand
-    gemm_to_smem<wmma::col_major, wmma::row_major>(e, L.lde, vb, L.ldvb, tmp, L.ldv, I, D,
-                                                   kPoolTile);
-    __syncthreads();
-    for (int t = threadIdx.x; t < I * D; t += kThreads) {
-      P[t] = P[t] * corr[t / D] + tmp[(t / D) * L.ldv + t % D];
-    }
-    __syncthreads();
-  }
 
-  bf16* out = pooled + (size_t)b * I * C + h * D;
-  for (int t = threadIdx.x; t < I * D; t += kThreads) {
-    const int i = t / D, d = t % D;
-    out[(size_t)i * C + d] = __float2bfloat16(P[t] * (1.0f / l[i]));
-  }
-  if (macc != nullptr) {
-    for (int i = threadIdx.x; i < I; i += kThreads) {
-      macc[(size_t)b * J + h * I + i] = m[i];
-      sacc[(size_t)b * J + h * I + i] = l[i];
+    // bf16 v^T first, which frees v's registers (the last head's e^T @ v
+    // is done with the buffer once every warp of the warpgroup is here)
+    named_sync(2 + w, 128);
+    const int r = wi * 16 + lane / 4;  // the thread's rows r and r + 8
+#pragma unroll
+    for (int g = 0; g < kHD / 8; ++g) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * g + col + e;
+        *reinterpret_cast<bf16*>(vt + swz(d, r, kHD * 128)) = __float2bfloat16(v_acc[4 * g + e]);
+        *reinterpret_cast<bf16*>(vt + swz(d, r + 8, kHD * 128)) =
+            __float2bfloat16(v_acc[4 * g + 2 + e]);
+      }
     }
+
+    // column max over the chunk's TM points
+    float cm[16];
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float m = fmaxf(s_acc[4 * g + e], s_acc[4 * g + 2 + e]);
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+        if (lane < 4) red_m[wi * kInd + 8 * g + col + e] = m;
+      }
+    }
+    named_sync(2 + w, 128);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int c = 8 * (q / 2) + col + q % 2;
+      cm[q] = fmaxf(fmaxf(red_m[c], red_m[kInd + c]), fmaxf(red_m[2 * kInd + c], red_m[3 * kInd + c]));
+    }
+    // e = exp(max(s - m, -80)); its column sum; bf16 e^T
+    float cl[16];
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float m = cm[2 * g + e];
+        const float e0 = expf(fmaxf(s_acc[4 * g + e] - m, -80.0f));
+        const float e1 = expf(fmaxf(s_acc[4 * g + 2 + e] - m, -80.0f));
+        cl[2 * g + e] = e0 + e1;
+        const int i = 8 * g + col + e;
+        *reinterpret_cast<bf16*>(et + swz(i, r, kInd * 128)) = __float2bfloat16(e0);
+        *reinterpret_cast<bf16*>(et + swz(i, r + 8, kInd * 128)) = __float2bfloat16(e1);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      float l = cl[q];
+      l += __shfl_xor_sync(0xffffffffu, l, 4);
+      l += __shfl_xor_sync(0xffffffffu, l, 8);
+      l += __shfl_xor_sync(0xffffffffu, l, 16);
+      if (lane < 4) red_l[wi * kInd + 8 * (q / 2) + col + q % 2] = l;
+    }
+
+    fence_async_smem();
+    named_sync(2 + w, 128);
+
+    // P_c = e^T @ v over the chunk's points
+    float p_acc[kHD / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TM / 16; ++kk) {
+      wgmma_ss<kHD>(p_acc, desc(et) + 2 * kk, desc(vt) + 2 * kk, kk != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(p_acc);
+
+    const size_t base = ((size_t)b * nch + ch) * J + (size_t)h * kInd;
+    if (wi == 0 && lane < 4) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int c = 8 * (q / 2) + col + q % 2;
+        part_m[base + c] = cm[q];
+        part_l[base + c] = red_l[c] + red_l[kInd + c] + red_l[2 * kInd + c] + red_l[3 * kInd + c];
+      }
+    }
+    const int i0 = wi * 16 + lane / 4;
+#pragma unroll
+    for (int g = 0; g < kHD / 8; ++g) {
+      const int d = 8 * g + col;
+      *reinterpret_cast<float2*>(part_p + (base + i0) * kHD + d) =
+          make_float2(p_acc[4 * g], p_acc[4 * g + 1]);
+      *reinterpret_cast<float2*>(part_p + (base + i0 + 8) * kHD + d) =
+          make_float2(p_acc[4 * g + 2], p_acc[4 * g + 3]);
+    }
+  }
+}
+
+// Per (b, j, d): the clamped rescale of the chunks' partials, pooled, and
+// the final column max and sum for the backward.
+__global__ void __launch_bounds__(kThreads)
+pool_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
+                  const float* __restrict__ part_p, bf16* __restrict__ pooled,
+                  float* __restrict__ macc, float* __restrict__ sacc, int B, int nch, int C,
+                  int H) {
+  const int J = H * kInd;
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (long long)B * J * kHD) return;
+  const int d = (int)(idx % kHD), j = (int)(idx / kHD % J), b = (int)(idx / ((long long)kHD * J));
+  const float* pm = part_m + (size_t)b * nch * J + j;
+  const float* pl = part_l + (size_t)b * nch * J + j;
+  const float* pp = part_p + ((size_t)b * nch * J + j) * kHD + d;
+  float M = -3.0e38f;
+  for (int c = 0; c < nch; ++c) M = fmaxf(M, pm[(size_t)c * J]);
+  float Lsum = 0.0f, P = 0.0f;
+  for (int c = 0; c < nch; ++c) {
+    const float corr = expf(fmaxf(pm[(size_t)c * J] - M, -80.0f));
+    Lsum += corr * pl[(size_t)c * J];
+    P += corr * pp[(size_t)c * J * kHD];
+  }
+  const int h = j / kInd, i = j % kInd;
+  pooled[((size_t)b * kInd + i) * C + h * kHD + d] = __float2bfloat16(P * (1.0f / Lsum));
+  if (macc != nullptr && d == 0) {
+    macc[(size_t)b * J + j] = M;
+    sacc[(size_t)b * J + j] = Lsum;
   }
 }
 
 }  // namespace
 
-extern "C" int pool_ext_launch(const void* x, const void* se, const void* be, const void* qf,
-                               const void* kvw, const void* wo, void* pooled, void* h0,
-                               void* macc, void* sacc, int B, int N, int C, int H, int I,
-                               void* stream) {
+extern "C" int pool_ext_launch(const void* x, const void* se, const void* be, const void* ind2,
+                               const void* kvw, const void* wo, void* qft, void* part_m,
+                               void* part_l, void* part_p, void* pooled, void* h0, void* macc,
+                               void* sacc, int B, int N, int C, int H, int I, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const PoolSmem L(C, I, C / H);
-  const int stage_w = L.total <= kMaxSmem;
-  const size_t smem = stage_w ? L.total : L.total_unstaged;
-  cudaError_t err = set_smem((const void*)pool_kernel, smem);
+  const int D = C / H, J = H * I;
+  if (I != kInd || D != kHD || H % kGroup != 0 || C % 64 != 0 || C > 768) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (N % kTM != 0) return (int)cudaErrorInvalidValue;
+  // 1/sqrt(D) rounded to fp32, as the plain fold's scalar
+  const float scale = (float)(1.0 / sqrt((double)D));
+  pool_fold_kernel<<<dim3(C / 64, H), kThreads, 0, st>>>((const bf16*)ind2, (const bf16*)kvw,
+                                                         (bf16*)qft, C, D, scale);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  pool_kernel<<<dim3(H, B), kThreads, smem, st>>>(
-      (const bf16*)x, (const float*)se, (const float*)be, (const bf16*)qf, (const bf16*)kvw,
-      (bf16*)pooled, (float*)macc, (float*)sacc, N, C, H, I, stage_w);
+
+  CUtensorMap tm_x, tm_q, tm_w;
+  if (encode_tiled(&tm_x, x, (uint64_t)B * N, C, kTM) != CUDA_SUCCESS ||
+      encode_tiled(&tm_q, qft, J, C, kInd) != CUDA_SUCCESS ||
+      encode_tiled(&tm_w, kvw, 2 * (uint64_t)C, C, kHD) != CUDA_SUCCESS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ChunkSmem L(C);
+  err = set_smem((const void*)pool_chunk_kernel, L.total);
+  if (err != cudaSuccess) return (int)err;
+  pool_chunk_kernel<<<dim3(B * N / kTM, H / kGroup), kChunkThreads, L.total, st>>>(
+      tm_x, tm_q, tm_w, (const float*)se, (const float*)be, (float*)part_m, (float*)part_l,
+      (float*)part_p, N, C, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long elems = (long long)B * J * kHD;
+  pool_merge_kernel<<<(unsigned)((elems + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      (const float*)part_m, (const float*)part_l, (const float*)part_p, (bf16*)pooled,
+      (float*)macc, (float*)sacc, B, N / kTM, C, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   linear_nt_kernel<<<dim3(C / 64, B * I / 64), kThreads, 0, st>>>(

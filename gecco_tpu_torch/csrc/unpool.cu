@@ -13,23 +13,62 @@
 //
 // Bound on the H100: tensor-core operations (4*N*C*J per batch element
 // against 4*N*C bytes of stream: J = 512 FLOP per byte at the flagship).
-// Design: the per-batch fold, which the TPU kept in scratch across its
-// sequential point-tile axis, is two prologue kernels writing kft/vf
-// [B, J, C] bf16 and brow [B, J] fp32 (CUDA-core FMAs: its D-long dot
-// products are ~1% of the work; be @ wq^T is formed once per batch element). The main kernel takes one 64-point tile (32 at C = 768)
-// per block and walks the heads: each head's kft_h and vf_h are staged in
-// shared memory (asynchronously, each behind the other product where both
-// buffers fit), its [TN, I] logits and softmax live there too, and
-// its p @ vf_h adds into a [TN, C] fp32 accumulator held in registers. Per-head processing gives every head
-// block its own max by construction. Sums as in mlp.cu (fp32 atomics).
-// The device code is in unpool.cuh, shared with csrc/unpool_mlp.cu.
+//
+// Design (four launches):
+// 1. unpool_bq_kernel: bq = be @ wq^T per batch element (CUDA cores, B*C
+//    dot products; only with the pre-norm).
+// 2. unpool_fold_k_kernel and unpool_fold_v_kernel, per (64 channels,
+//    head, batch element): kft_h and vf_h as depth-D products on the tensor
+//    cores (WMMA), wq_h * se rounded to bf16 on its way into shared memory,
+//    wo read in place as a column-major operand; vf is written transposed,
+//    [B, C, J], so that both operands of the main kernel are K-major; brow
+//    beside kft.
+// 3. unpool_tile_kernel, one block per (64-point tile, CB output columns):
+//    a producer warpgroup keeps three TMA streams going (the x tile, each
+//    consumer's ring of kft_h panels, and a ring of vf_h^T slabs [CB, I]),
+//    and two consumer warpgroups split the output columns (CB / 2 each, a
+//    [64, CB/2] fp32 accumulator in registers) and take the heads' logits
+//    in turn: warpgroup h % 2 forms head h's [64, I] logits by wgmma in
+//    registers, adds brow, runs the head's softmax there (row max and sum
+//    by shuffles within the four lanes of a row), and writes bf16 p once to
+//    shared memory (double-buffered by head parity); both warpgroups then
+//    add p @ vf_h into their columns by wgmma. Each warpgroup forms the
+//    next head's logits before its product with the current head, so one
+//    warpgroup's softmax runs beside the other's product. Per-head
+//    processing gives every head block its own max by construction. The
+//    epilogue stages the fp32 output in shared memory: o = x + attn, out =
+//    bf16(o), and the channel sums by one fp32 atomic per column and block
+//    (as csrc/common.cuh's residual_epilogue).
+// CB is C at C <= 384 (the flagship: 2048 blocks at B 64, N 2048) and 192
+// at C = 768 (the 8k width: 4 column blocks, each forming the logits again).
+// The megakernel (csrc/unpool_mlp.cu) keeps unpool.cuh's WMMA device code.
 #include <cmath>
 
+#include "hopper.cuh"
 #include "unpool.cuh"
 
 using namespace gecco;
+using namespace gecco::hopper;
 
 namespace {
+
+constexpr int kInd = 64;   // inducers per head (I)
+constexpr int kTile = 64;  // points per block
+constexpr int kKRing = 4;  // stages of each consumer's kft ring
+constexpr int kVRing = 2;  // stages of the vf ring
+constexpr int kPanel = kTile * 128;  // one K panel of 64 rows (x tile, kft_h, p)
+
+struct TileSmem {
+  int xs, kring, vring, pbuf, bars, total;
+  __host__ __device__ TileSmem(int C, int CB) {
+    xs = 0;
+    kring = xs + (C / 64) * kPanel;
+    vring = kring + 2 * kKRing * kPanel;
+    pbuf = vring + kVRing * CB * 128;
+    bars = pbuf + 2 * kPanel;
+    total = bars + (1 + 4 * kKRing + 4 * kVRing) * 8 + 1024;  // + alignment slack
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
 unpool_bq_kernel(const float* __restrict__ be, const bf16* __restrict__ wq, float* __restrict__ bq,
@@ -39,59 +78,309 @@ unpool_bq_kernel(const float* __restrict__ be, const bf16* __restrict__ wq, floa
   unpool_bq_warp(be, wq, bq, C, blockIdx.y, o);
 }
 
+// kft and brow for 64 channels of head h of batch element b (I == 64; D a
+// multiple of 16). Without the pre-norm (se and bq null) wq is folded as it
+// is and brow is 0.
 __global__ void __launch_bounds__(kThreads)
-unpool_fold_kernel(const float* __restrict__ se, const float* __restrict__ bq,
-                   const bf16* __restrict__ k, const bf16* __restrict__ v,
-                   const bf16* __restrict__ wq, const bf16* __restrict__ wo_t,
-                   bf16* __restrict__ kft, bf16* __restrict__ vf, float* __restrict__ brow,
-                   int C, int H, int I, float scale) {
-  const int J = H * I;
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= J * C + J) return;
-  unpool_fold_elem(se, bq, k, v, wq, wo_t, kft, vf, brow, C, H, I, scale, blockIdx.y, idx);
+unpool_fold_k_kernel(const float* __restrict__ se, const float* __restrict__ bq,
+                     const bf16* __restrict__ k, const bf16* __restrict__ wq,
+                     bf16* __restrict__ kft, float* __restrict__ brow, int C, int H, float scale) {
+  constexpr int ldw = 64 + kPad;
+  __shared__ __align__(128) bf16 wqs[64 * ldw];  // [D <= 64, 64] bf16(wq_h * se)
+  __shared__ __align__(128) float tile[64 * 64];
+  const int c0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int D = C / H, J = H * kInd;
+  for (int t = threadIdx.x; t < D * 64; t += kThreads) {
+    const int d = t / 64, c = t % 64;
+    const float sc = se ? se[(size_t)b * C + c0 + c] : 1.0f;
+    wqs[d * ldw + c] =
+        __float2bfloat16(__bfloat162float(wq[(size_t)(h * D + d) * C + c0 + c]) * sc);
+  }
+  __syncthreads();
+  const bf16* kb = k + (size_t)b * kInd * C + h * D;  // [I, D], row stride C
+  gemm_to_smem<wmma::row_major, wmma::row_major>(kb, C, wqs, ldw, tile, 64, 64, 64, D);
+  __syncthreads();
+  for (int t = threadIdx.x; t < 64 * 64; t += kThreads) {
+    kft[((size_t)b * J + h * kInd + t / 64) * C + c0 + t % 64] = __float2bfloat16(scale * tile[t]);
+  }
+  if (blockIdx.x == 0 && threadIdx.x < kInd) {
+    const int i = threadIdx.x;
+    float acc = 0.0f;
+    for (int d = 0; bq != nullptr && d < D; ++d) {
+      acc += bq[(size_t)b * C + h * D + d] * __bfloat162float(kb[(size_t)i * C + d]);
+    }
+    brow[(size_t)b * J + h * kInd + i] = scale * acc;
+  }
 }
 
-// One point tile per block (shared memory: unpool_smem_plan).
-template <int ROWS>
+// vf^T [B, C, J] for 64 channels of head h of batch element b: vf_h =
+// v_h @ wo_h^T with wo[c0 + c, hD + d] read in place as a column-major
+// operand; neighbouring threads write neighbouring j.
 __global__ void __launch_bounds__(kThreads)
-unpool_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kft,
-              const float* __restrict__ brow, const bf16* __restrict__ vf, bf16* __restrict__ out,
-              float* __restrict__ sums, int N, int C, int H, int I, int dbl, int region0,
-              int residual) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  unpool_tile<ROWS>(x, kft, brow, vf, out, sums, N, C, H, I, dbl, region0, blockIdx.y,
-                    blockIdx.x, residual != 0, smem);
+unpool_fold_v_kernel(const bf16* __restrict__ v, const bf16* __restrict__ wo,
+                     bf16* __restrict__ vft, int C, int H) {
+  constexpr int ldt = 64 + kPadF;
+  __shared__ __align__(128) float tile[64 * ldt];
+  const int c0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int D = C / H, J = H * kInd;
+  gemm_to_smem<wmma::row_major, wmma::col_major>(v + (size_t)b * kInd * C + h * D, C,
+                                                 wo + (size_t)c0 * C + h * D, C, tile, ldt, 64,
+                                                 64, D);
+  __syncthreads();
+  for (int t = threadIdx.x; t < 64 * 64; t += kThreads) {
+    const int c = t / 64, i = t % 64;
+    vft[((size_t)b * C + c0 + c) * J + h * kInd + i] = __float2bfloat16(tile[i * ldt + c]);
+  }
+}
+
+// What a consumer warpgroup of unpool_tile_kernel works on.
+struct TileCtx {
+  unsigned char *xs, *kring, *vcols, *pbuf;  // vcols: the warpgroup's columns of vf stage 0
+  const float* brow;                          // [J] of the tile's batch element
+  uint64_t *kfull, *kempty, *vfull, *vempty, *pfull, *pempty;  // kfull/kempty: its own ring
+  int KP, CB, lane, col, r0;
+};
+
+// Head h's logits x @ kft_h^T + brow, its softmax (the head's own row max,
+// exp argument clamped at -80) and bf16 p into p buffer h % 2; kuse counts
+// the warpgroup's kft ring stages.
+__device__ __forceinline__ void unpool_logits(const TileCtx& t, int w, int h, int& kuse) {
+  float s_acc[kInd / 2];
+  for (int kp = 0; kp < t.KP; ++kp, ++kuse) {
+    const int s = kuse % kKRing;
+    bar_wait(t.kfull + s, (kuse / kKRing) & 1);
+    const uint64_t dx = desc(t.xs + kp * kPanel), dk = desc(t.kring + (w * kKRing + s) * kPanel);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<kInd>(s_acc, dx + 2 * kk, dk + 2 * kk, (kp | kk) != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s_acc);
+    if (t.lane == 0) bar_arrive(t.kempty + s);
+  }
+  const float* bb = t.brow + h * kInd;
+  const int col = t.col;
+  float m0 = -3.0e38f, m1 = -3.0e38f;
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float bias = __ldg(bb + 8 * g + col + e);
+      s_acc[4 * g + e] += bias;
+      s_acc[4 * g + 2 + e] += bias;
+      m0 = fmaxf(m0, s_acc[4 * g + e]);
+      m1 = fmaxf(m1, s_acc[4 * g + 2 + e]);
+    }
+  }
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+  float l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s_acc[4 * g + e] = expf(fmaxf(s_acc[4 * g + e] - m0, -80.0f));
+      s_acc[4 * g + 2 + e] = expf(fmaxf(s_acc[4 * g + 2 + e] - m1, -80.0f));
+      l0 += s_acc[4 * g + e];
+      l1 += s_acc[4 * g + 2 + e];
+    }
+  }
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int u = h / 2;
+  if (u >= 1) bar_wait(t.pempty + h % 2, (u - 1) & 1);
+  unsigned char* p = t.pbuf + (h % 2) * kPanel;
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    const int c = 8 * g + col;
+    *reinterpret_cast<__nv_bfloat162*>(p + swz(t.r0, c, kPanel)) =
+        __floats2bfloat162_rn(s_acc[4 * g] / l0, s_acc[4 * g + 1] / l0);
+    *reinterpret_cast<__nv_bfloat162*>(p + swz(t.r0 + 8, c, kPanel)) =
+        __floats2bfloat162_rn(s_acc[4 * g + 2] / l1, s_acc[4 * g + 3] / l1);
+  }
+  fence_async_smem();
+  bar_arrive(t.pfull + h % 2);
+}
+
+// The warpgroup's output columns += p_h @ vf_h.
+template <int NW>
+__device__ __forceinline__ void unpool_product(const TileCtx& t, float (&o_acc)[NW / 2], int h) {
+  bar_wait(t.pfull + h % 2, (h / 2) & 1);
+  const int s = h % kVRing;
+  bar_wait(t.vfull + s, (h / kVRing) & 1);
+  const uint64_t dp = desc(t.pbuf + (h % 2) * kPanel), dv = desc(t.vcols + s * t.CB * 128);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss<NW>(o_acc, dp + 2 * kk, dv + 2 * kk, (h | kk) != 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o_acc);
+  if (t.lane == 0) {
+    bar_arrive(t.pempty + h % 2);
+    bar_arrive(t.vempty + s);
+  }
+}
+
+// One 64-point tile and CB = 2 * NW output columns per block.
+template <int NW>
+__global__ void __launch_bounds__(384, 1)
+unpool_tile_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ x,
+                   const float* __restrict__ brow, bf16* __restrict__ out,
+                   float* __restrict__ sums, int N, int C, int H, int residual) {
+  constexpr int CB = 2 * NW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  const TileSmem L(C, CB);
+  const int KP = C / 64, J = H * kInd;
+  const int row0 = blockIdx.x * kTile, b = row0 / N, cbase = blockIdx.y * CB;
+  unsigned char* xs = smem + L.xs;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* xfull = bars;
+  uint64_t* kfull = bars + 1;             // [2][kKRing]
+  uint64_t* kempty = kfull + 2 * kKRing;  // [2][kKRing]
+  uint64_t* vfull = kempty + 2 * kKRing;  // [kVRing]
+  uint64_t* vempty = vfull + kVRing;      // [kVRing]
+  uint64_t* pfull = vempty + kVRing;      // [2]
+  uint64_t* pempty = pfull + 2;           // [2]
+  auto kstage = [&](int w, int s) { return smem + L.kring + (w * kKRing + s) * kPanel; };
+  auto vstage = [&](int s) { return smem + L.vring + s * CB * 128; };
+
+  if (threadIdx.x == 0) {
+    bar_init(xfull, 1);
+    for (int q = 0; q < 2 * kKRing; ++q) {
+      bar_init(kfull + q, 1);
+      bar_init(kempty + q, 4);  // the consumer's four warps
+    }
+    for (int q = 0; q < kVRing; ++q) {
+      bar_init(vfull + q, 1);
+      bar_init(vempty + q, 8);  // both consumers' warps
+    }
+    for (int q = 0; q < 2; ++q) {
+      bar_init(pfull + q, 128);  // every thread of the writing warpgroup
+      bar_init(pempty + q, 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // ---- producer: warp 8 the x tile and consumer 0's kft ring, warp 9
+    // consumer 1's kft ring, warp 10 the vf ring
+    setmaxnreg_dec<24>();
+    if (lane == 0 && warp <= 9) {
+      const int w = warp - 8;
+      if (w == 0) {
+        bar_expect(xfull, KP * kPanel);
+        for (int p = 0; p < KP; ++p) tma_load(xs + p * kPanel, &tm_x, xfull, row0, p * 64);
+      }
+      for (int it = 0; it < (H / 2) * KP; ++it) {
+        const int h = w + 2 * (it / KP), kp = it % KP, s = it % kKRing;
+        if (it >= kKRing) bar_wait(kempty + w * kKRing + s, ((it / kKRing) - 1) & 1);
+        bar_expect(kfull + w * kKRing + s, kPanel);
+        tma_load(kstage(w, s), &tm_k, kfull + w * kKRing + s, b * J + h * kInd, kp * 64);
+      }
+    } else if (lane == 0 && warp == 10) {
+      for (int h = 0; h < H; ++h) {
+        const int s = h % kVRing;
+        if (h >= kVRing) bar_wait(vempty + s, ((h / kVRing) - 1) & 1);
+        bar_expect(vfull + s, CB * 128);
+        for (int r = 0; r < CB; r += 192) {
+          tma_load(vstage(s) + r * 128, &tm_v, vfull + s, b * C + cbase + r, h * kInd);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup w owns output columns cbase + w*NW ...
+    setmaxnreg_inc<240>();
+    const int w = wg, wi = warp % 4, col = 2 * (lane % 4), r0 = wi * 16 + lane / 4;
+    float o_acc[NW / 2];
+    zero(o_acc);
+    int kuse = 0;
+    bar_wait(xfull, 0);
+    const TileCtx t{xs, smem + L.kring, smem + L.vring + w * NW * 128, smem + L.pbuf,
+                    brow + (size_t)b * J, kfull + w * kKRing, kempty + w * kKRing, vfull, vempty,
+                    pfull, pempty, KP, CB, lane, col, r0};
+    if (w == 0) unpool_logits(t, w, 0, kuse);
+    for (int h = 0; h < H; ++h) {
+      if (h + 1 < H && (h + 1) % 2 == w) unpool_logits(t, w, h + 1, kuse);
+      unpool_product<NW>(t, o_acc, h);
+    }
+
+    // epilogue: the fp32 output through shared memory (over the rings)
+    constexpr int ldo = CB + kPadF;
+    float* obuf = reinterpret_cast<float*>(smem + L.kring);
+    named_sync(1, 256);  // both consumers are done with the rings
+    fence_async_smem();
+#pragma unroll
+    for (int g = 0; g < NW / 8; ++g) {
+      const int c = w * NW + 8 * g + col;
+      *reinterpret_cast<float2*>(obuf + r0 * ldo + c) = make_float2(o_acc[4 * g], o_acc[4 * g + 1]);
+      *reinterpret_cast<float2*>(obuf + (r0 + 8) * ldo + c) =
+          make_float2(o_acc[4 * g + 2], o_acc[4 * g + 3]);
+    }
+    named_sync(1, 256);
+    for (int c = threadIdx.x; c < CB; c += 256) {
+      float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll 16
+      for (int r = 0; r < kTile; ++r) {
+        const size_t e = (size_t)(row0 + r) * C + cbase + c;
+        const float o = (residual ? __bfloat162float(x[e]) : 0.0f) + obuf[r * ldo + c];
+        out[e] = __float2bfloat16(o);
+        s1 += o;
+        s2 += o * o;
+      }
+      atomicAdd(sums + (size_t)b * 2 * C + cbase + c, s1);
+      atomicAdd(sums + (size_t)b * 2 * C + C + cbase + c, s2);
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" int unpool_launch(const void* x, const void* se, const void* be, const void* k,
-                             const void* v, const void* wq, const void* wo_t, void* bq, void* kft,
-                             void* vf, void* brow, void* out, void* sums, int B, int N, int C,
-                             int H, int I, int TN, int residual, int prenorm, void* stream) {
-  const int J = H * I;
+                             const void* v, const void* wq, const void* wo, void* bq, void* kft,
+                             void* vft, void* brow, void* out, void* sums, int B, int N, int C,
+                             int H, int I, int residual, int prenorm, void* stream) {
+  const int J = H * I, D = C / H;
+  const int CB = C <= 384 ? C : 192;
+  if (I != kInd || N % kTile != 0 || H % 2 != 0 || D % 16 != 0 || D > 64 || C % CB != 0 ||
+      (CB != 384 && CB != 192)) {
+    return (int)cudaErrorInvalidValue;
+  }
   // 1/sqrt(D) rounded once from double, as the JAX package's Python float
-  const float scale = (float)(1.0 / sqrt((double)(C / H)));
+  const float scale = (float)(1.0 / sqrt((double)D));
   cudaStream_t st = (cudaStream_t)stream;
   if (prenorm) {
     unpool_bq_kernel<<<dim3((C + kWarps - 1) / kWarps, B), kThreads, 0, st>>>(
         (const float*)be, (const bf16*)wq, (float*)bq, C);
   }
-  unpool_fold_kernel<<<dim3((J * C + J + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(
+  unpool_fold_k_kernel<<<dim3(C / 64, H, B), kThreads, 0, st>>>(
       prenorm ? (const float*)se : nullptr, prenorm ? (const float*)bq : nullptr,
-      (const bf16*)k, (const bf16*)v, (const bf16*)wq,
-      (const bf16*)wo_t, (bf16*)kft, (bf16*)vf, (float*)brow, C, H, I, scale);
+      (const bf16*)k, (const bf16*)wq, (bf16*)kft, (float*)brow, C, H, scale);
+  unpool_fold_v_kernel<<<dim3(C / 64, H, B), kThreads, 0, st>>>(
+      (const bf16*)v, (const bf16*)wo, (bf16*)vft, C, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  int dbl = 0;
-  size_t region0 = 0;
-  const size_t smem = unpool_smem_plan(TN, C, I, &dbl, &region0);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  const auto kernel = TN == 64 ? unpool_kernel<4> : unpool_kernel<2>;
-  err = set_smem((const void*)kernel, smem);
+
+  CUtensorMap tm_x, tm_k, tm_v;
+  if (encode_tiled(&tm_x, x, (uint64_t)B * N, C, kTile) != CUDA_SUCCESS ||
+      encode_tiled(&tm_k, kft, (uint64_t)B * J, C, kInd) != CUDA_SUCCESS ||
+      encode_tiled(&tm_v, vft, (uint64_t)B * C, J, 192) != CUDA_SUCCESS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const TileSmem L(C, CB);
+  const auto kernel = CB == 384 ? unpool_tile_kernel<192> : unpool_tile_kernel<96>;
+  err = set_smem((const void*)kernel, L.total);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(N / TN, B), kThreads, smem, st>>>(
-      (const bf16*)x, (const bf16*)kft, (const float*)brow, (const bf16*)vf, (bf16*)out,
-      (float*)sums, N, C, H, I, dbl, (int)region0, residual);
+  kernel<<<dim3(B * N / kTile, C / CB), 384, L.total, st>>>(
+      tm_x, tm_k, tm_v, (const bf16*)x, (const float*)brow, (bf16*)out, (float*)sums, N, C, H,
+      residual);
   return (int)cudaGetLastError();
 }

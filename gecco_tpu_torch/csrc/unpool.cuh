@@ -1,8 +1,9 @@
-// Device code of the folded unpool (csrc/unpool.cu), shared with the
-// unpool + MLP megakernel (csrc/unpool_mlp.cu): the per-batch fold of the
-// q/out projections against the inducer-token k/v, and one point tile of
-// the attention + residual + output channel sums. The algebra and the
-// design are described in unpool.cu.
+// WMMA device code of the folded unpool, kept for the unpool + MLP
+// megakernel (csrc/unpool_mlp.cu): the per-batch fold of the q/out
+// projections against the inducer-token k/v, and one point tile of the
+// attention + residual + output channel sums. csrc/unpool.cu (the Hopper
+// design of the same function) shares only unpool_bq_warp. The algebra is
+// described in unpool.cu.
 #pragma once
 
 #include "common.cuh"

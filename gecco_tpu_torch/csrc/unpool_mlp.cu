@@ -24,9 +24,10 @@
 // fold of kft/vf/brow, (3) the unpool's point tiles (unpool.cuh), each
 // writing its tile of x' to a scratch [B, N, C] in device memory and adding
 // its channel sums with fp32 atomics, (4) the statistics collapse per (b,
-// c) into se2/be2, (5) the MLP's point tiles (mlp.cuh) on x'. The device
-// code of phases (1)-(3) and (5) is that of unpool.cu and mlp.cu, so the
-// result is theirs up to the order of the fp32 atomics. x' goes through L2
+// c) into se2/be2, (5) the MLP's point tiles (mlp.cuh) on x'. Phases
+// (1)-(3) run unpool.cuh's WMMA form of the unpool (unpool.cu's algebra,
+// its sums in another order) and phase (5) mlp.cu's device code, so the
+// result is the separate kernels' up to the order of fp32 sums. x' goes through L2
 // and device memory: this design keeps the launch single but not the
 // stream's saving, which a cluster of blocks per batch element holding x'
 // in distributed shared memory would.

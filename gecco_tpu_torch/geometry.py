@@ -1,11 +1,22 @@
-"""Pinhole camera geometry, batched (counterpart of
-``gecco_tpu/geometry.py``'s projections)."""
+"""Pinhole camera geometry and pairwise distances, batched (counterpart of
+``gecco_tpu/geometry.py``)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["project_points", "unproject_points"]
+__all__ = ["distance_matrix", "project_points", "unproject_points"]
+
+
+def distance_matrix(a: torch.Tensor, b: torch.Tensor, squared: bool = False) -> torch.Tensor:
+    """Pairwise distances between point sets, ``a [..., N, D]`` and
+    ``b [..., M, D]`` (leading axes broadcast) -> ``[..., N, M]``; the
+    squared distance is clamped at 0 before the square root."""
+    aa = (a * a).sum(-1)
+    bb = (b * b).sum(-1)
+    ab = torch.matmul(a, b.transpose(-1, -2))
+    dist_sqr = (aa[..., :, None] + bb[..., None, :] - 2 * ab).clamp_min(0.0)
+    return dist_sqr if squared else dist_sqr.sqrt()
 
 
 def project_points(xyz: torch.Tensor, camera_matrix: torch.Tensor,

@@ -10,7 +10,9 @@ through the plain forward, as the twins' ``jax.vjp``) for CPU tensors:
 
 - ``folded_pool_ext`` (``csrc/pool_ext.cu``; backward ``csrc/pool_ext_bwd.cu``):
   the pre-normed stream pooled onto the inducers by a softmax over the point
-  axis, online across tiles. When a gradient is needed the forward also
+  axis, taken per chunk of points and merged across chunks (four launches:
+  the query fold, the chunks, the merge, the output projection, each with
+  its plain version beside it). When a gradient is needed the forward also
   returns the softmax statistics (column max and sum) the backward reads.
 - ``folded_pool_layer`` (``csrc/pool.cu``; backward ``csrc/pool_bwd.cu``):
   the resident pool, the same pooling with the set-level GroupNorm
@@ -92,9 +94,9 @@ def fold_qf(ind2: torch.Tensor, kvw: torch.Tensor, num_heads: int) -> torch.Tens
 
 
 def _row_tile(n: int, c: int) -> int:
-    """Point tile of the unpool and MLP kernels: 64 rows where the [TN, C]
-    fp32 output fits the register tiles (8 warps, each TN/16 rows x
-    ceil(C/128) columns of 16 x 16 tiles, at most 12), else 32."""
+    """Point tile of the MLP kernels and the megakernel: 64 rows where the
+    [TN, C] fp32 output fits the register tiles (8 warps, each TN/16 rows
+    x ceil(C/128) columns of 16 x 16 tiles, at most 12), else 32."""
     for tn in (64, 32):
         if -(-c // 128) * (tn // 16) <= 12 and n % tn == 0:
             return tn
@@ -136,9 +138,61 @@ def _pool_ext_ref(x, se, be, ind2, kvw, wo, num_heads: int) -> torch.Tensor:
     return _pool_ref_from_y(y, ind2, kvw, wo, num_heads)
 
 
+# points per chunk of the pool's chunk kernel (csrc/pool_ext.cu kTM): the
+# partials are sized by it
+_POOL_CHUNK = 64
+
+
+def _fold_qft_ref(ind2, kvw, num_heads: int) -> torch.Tensor:
+    """Plain version of ``pool_fold_kernel``: the folded query transposed,
+    qf^T [J, C] in kvw's dtype."""
+    return fold_qf(ind2, kvw, num_heads).t()
+
+
+def _pool_partials_ref(x, se, be, qft, kvw, num_heads: int) -> tuple:
+    """Plain version of ``pool_chunk_kernel``: per chunk of ``_POOL_CHUNK`` points
+    of y = x*se+be, each column's max m and sum l of e = exp(max(s - m,
+    -80)) [B, N/rows, J] and P = e^T @ v [B, N/rows, J, D], fp32 (e and v
+    rounded to x's dtype before the product)."""
+    dt = x.dtype
+    b, n, c = x.shape
+    j = qft.shape[0]
+    i, d = j // num_heads, c // num_heads
+    rows = _POOL_CHUNK
+    k = n // rows
+    y = (x.float() * se[:, None, :] + be[:, None, :]).to(dt)
+    s = torch.einsum("bnc,jc->bnj", y.float(), qft.float()).reshape(b, k, rows, j)
+    v = torch.einsum("bnc,dc->bnd", y.float(), kvw[c:].float()).to(dt)
+    m = s.amax(2)
+    e = torch.exp(torch.clamp(s - m[:, :, None], min=-80.0))
+    p = torch.einsum(
+        "bkrhi,bkrhd->bkhid", e.to(dt).float().reshape(b, k, rows, num_heads, i),
+        v.float().reshape(b, k, rows, num_heads, d),
+    )
+    return m, e.sum(2), p.reshape(b, k, j, d)
+
+
+def _pool_merge_ref(m, l, p, wo, num_heads: int) -> tuple:
+    """Plain version of ``pool_merge_kernel`` and the output projection: the
+    chunks' partials rescaled by exp(max(m_c - M, -80)) and summed ->
+    (h0 [B, I, C] in wo's dtype, M, L [B, J] fp32)."""
+    mm = m.amax(1)
+    corr = torch.exp(torch.clamp(m - mm[:, None], min=-80.0))
+    ll = (corr * l).sum(1)
+    pp = (corr[..., None] * p).sum(1)
+    b, j, d = pp.shape
+    i = j // num_heads
+    pooled = (pp * (1.0 / ll)[..., None]).to(wo.dtype)
+    pooled = pooled.reshape(b, num_heads, i, d).permute(0, 2, 1, 3).reshape(b, i, num_heads * d)
+    h0 = torch.einsum("bic,oc->bio", pooled.float(), wo.float()).to(wo.dtype)
+    return h0, mm, ll
+
+
 def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
-    """The forward kernel: h0, and the column max and sum [B, J] fp32 of
-    the online softmax when ``stats`` (else None)."""
+    """The forward kernels (fold, chunks, merge, output projection) -> (h0,
+    qft, macc, sacc): the folded query qf^T [J, C] the logits were formed
+    with, and the softmax's column max and sum [B, J] fp32, when ``stats``
+    (else Nones)."""
     name = "folded_pool_ext"
     b, n, c = x.shape
     j, d = ind2.shape
@@ -147,38 +201,46 @@ def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
         name, dict(x=x, se=se, be=be, ind2=ind2, kvw=kvw, wo=wo),
         dict(x=_BF16, se=_F32, be=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16),
     )
-    _require(n % 64 == 0, name, f"N % 64 == 0 (N={n})")
-    _require(c % 64 == 0 and d % 16 == 0 and i % 16 == 0, name,
-             f"C % 64, D % 16 and I % 16 == 0 (C={c}, D={d}, I={i})")
+    _require(i == 64 and d == 48 and num_heads % 8 == 0, name,
+             f"I == 64, D == 48 and H % 8 == 0 (I={i}, D={d}, H={num_heads})")
+    _require(c % 64 == 0 and c <= 768, name, f"C % 64 == 0 and C <= 768 (C={c})")
+    rows = _POOL_CHUNK
+    _require(n % rows == 0, name, f"N % {rows} == 0 (N={n})")
     _require((b * i) % 64 == 0, name, f"B*I % 64 == 0 (B={b}, I={i})")
-    qf = fold_qf(ind2, kvw, num_heads).contiguous()
-    pooled = torch.empty((b, i, c), dtype=_BF16, device=x.device)
+    dev = x.device
+    qft = torch.empty((j, c), dtype=_BF16, device=dev)
+    part_m = torch.empty((b, n // rows, j), dtype=_F32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_p = torch.empty((b, n // rows, j, d), dtype=_F32, device=dev)
+    pooled = torch.empty((b, i, c), dtype=_BF16, device=dev)
     h0 = torch.empty_like(pooled)
-    macc = torch.empty((b, j), dtype=_F32, device=x.device) if stats else None
+    macc = torch.empty((b, j), dtype=_F32, device=dev) if stats else None
     sacc = torch.empty_like(macc) if stats else None
-    launch("pool_ext", "pool_ext_launch", x, se, be, qf, kvw, wo, pooled, h0, macc, sacc,
-           b, n, c, num_heads, i)
+    launch("pool_ext", "pool_ext_launch", x, se, be, ind2, kvw, wo, qft, part_m, part_l, part_p,
+           pooled, h0, macc, sacc, b, n, c, num_heads, i)
     folded_pool_ext.launches += 1
-    return h0, macc, sacc
+    return (h0, qft, macc, sacc) if stats else (h0, None, None, None)
 
 
 class _PoolExt(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, se, be, ind2, kvw, wo, num_heads, need_grad):
-        macc = sacc = None
+        qft = macc = sacc = None
         if x.device.type == "cpu":
             h0 = _pool_ext_ref(x, se, be, ind2, kvw, wo, num_heads)
         else:
-            h0, macc, sacc = _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads, need_grad)
+            h0, qft, macc, sacc = _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads,
+                                                   need_grad)
         if need_grad:
-            ctx.save_for_backward(x, se, be, ind2, kvw, wo, macc, sacc)
+            ctx.save_for_backward(x, se, be, ind2, kvw, wo, qft, macc, sacc)
         ctx.num_heads = num_heads
         return h0
 
     @staticmethod
     def backward(ctx, g_h0):
-        x, se, be, ind2, kvw, wo, macc, sacc = ctx.saved_tensors
-        grads = folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, macc, sacc, g_h0, ctx.num_heads)
+        x, se, be, ind2, kvw, wo, qft, macc, sacc = ctx.saved_tensors
+        grads = folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
+                                    ctx.num_heads)
         return (*grads, None, None)
 
 
@@ -215,11 +277,14 @@ def _pool_ext_bwd_ref(x, se, be, ind2, kvw, wo, g_h0, num_heads: int) -> tuple:
     return vjp(lambda *a: _pool_ext_ref(*a, num_heads), (x, se, be, ind2, kvw, wo), (g_h0,))
 
 
-def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, macc, sacc, g_h0, num_heads: int) -> tuple:
+def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
+                        num_heads: int) -> tuple:
     """Gradients of ``folded_pool_ext`` against ``g_h0`` [B, I, C], from
-    the forward's inputs and its softmax statistics ``macc``/``sacc``
-    [B, J] -> (dx, dse, dbe, dind2, dkvw, dwo). CPU tensors take the plain
-    version (which needs no statistics)."""
+    the forward's inputs, the folded query ``qft`` [J, C] its logits were
+    formed with (so that the backward's logits are the forward's, as the
+    statistics assume) and its softmax statistics ``macc``/``sacc`` [B, J]
+    -> (dx, dse, dbe, dind2, dkvw, dwo). CPU tensors take the plain version
+    (which needs none of the forward's results)."""
     if x.device.type == "cpu":
         return _pool_ext_bwd_ref(x, se, be, ind2, kvw, wo, g_h0, num_heads)
     name = "folded_pool_ext_bwd"
@@ -228,15 +293,16 @@ def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, macc, sacc, g_h0, num_heads: i
     i = j // num_heads
     g = g_h0.to(x.dtype).contiguous()
     check_cuda(
-        name, dict(x=x, se=se, be=be, ind2=ind2, kvw=kvw, wo=wo, g=g, macc=macc, sacc=sacc),
-        dict(x=_BF16, se=_F32, be=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16, g=_BF16, macc=_F32,
-             sacc=_F32),
+        name, dict(x=x, se=se, be=be, ind2=ind2, kvw=kvw, wo=wo, qft=qft, g=g, macc=macc,
+                   sacc=sacc),
+        dict(x=_BF16, se=_F32, be=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16, qft=_BF16, g=_BF16,
+             macc=_F32, sacc=_F32),
     )
     _require(i == 64 and d % 16 == 0 and c in (384, 768), name,
              f"I == 64, D % 16 == 0 and C in (384, 768) (I={i}, D={d}, C={c})")
     _require(n % 64 == 0, name, f"N % 64 == 0 (N={n})")
     dev = x.device
-    qf = fold_qf(ind2, kvw, num_heads).contiguous()
+    qf = qft.t().contiguous()
     ety = torch.empty((b, j, c), dtype=_BF16, device=dev)
     w2 = torch.empty((b, c, j), dtype=_BF16, device=dev)
     w3 = torch.empty((b, j, c), dtype=_BF16, device=dev)
@@ -471,25 +537,70 @@ def _unpool_ref(x, se, be, k, v, wq, wo, num_heads: int, residual: bool = True,
     return attn.to(dt), torch.stack([attn.sum(1), (attn * attn).sum(1)], dim=1)
 
 
+def _unpool_fold_ref(se, be, k, v, wq, wo, num_heads: int, prenorm: bool = True) -> tuple:
+    """Plain version of ``unpool_bq_kernel``, ``unpool_fold_k_kernel`` and
+    ``unpool_fold_v_kernel``: kft [B, J, C] (se folded into wq before its
+    rounding, as the TPU kernel does), vf transposed [B, C, J], both in k's
+    dtype, and brow [B, J] fp32 (0 without the pre-norm)."""
+    dt = k.dtype
+    b, i, c = k.shape
+    d = c // num_heads
+    j = num_heads * i
+    scale = 1.0 / d**0.5
+    wqs = (wq.float()[None] * se[:, None, :]).to(dt) if prenorm else wq[None].expand(b, c, c)
+    k_r = k.float().reshape(b, i, num_heads, d)
+    kft = scale * torch.einsum("bihd,bhdc->bhic", k_r, wqs.float().reshape(b, num_heads, d, c))
+    vft = torch.einsum("bihd,chd->bchi", v.float().reshape(b, i, num_heads, d),
+                       wo.float().reshape(c, num_heads, d))
+    if prenorm:
+        bq = be.float() @ wq.float().t()
+        brow = scale * torch.einsum("bhd,bihd->bhi", bq.reshape(b, num_heads, d), k_r)
+    else:
+        brow = torch.zeros((b, num_heads, i), dtype=_F32, device=k.device)
+    return kft.reshape(b, j, c).to(dt), vft.reshape(b, c, j).to(dt), brow.reshape(b, j)
+
+
+def _unpool_tiles_ref(x, kft, vft, brow, num_heads: int, residual: bool = True) -> tuple:
+    """Plain version of ``unpool_tile_kernel``: logits x @ kft^T + brow, a
+    softmax per head block with its own max (exp argument clamped at -80),
+    bf16 p @ vf, the residual where ``residual`` -> (out, sums)."""
+    dt = x.dtype
+    b, n, _ = x.shape
+    j = kft.shape[1]
+    logits = torch.einsum("bnc,bjc->bnj", x.float(), kft.float()) + brow[:, None]
+    lg = logits.reshape(b, n, num_heads, j // num_heads)
+    e = torch.exp(torch.clamp(lg - lg.amax(-1, keepdim=True), min=-80.0))
+    p = (e / e.sum(-1, keepdim=True)).reshape(b, n, j).to(dt)
+    attn = torch.einsum("bnj,bcj->bnc", p.float(), vft.float())
+    if residual:
+        attn = x.float() + attn
+    return attn.to(dt), torch.stack([attn.sum(1), (attn * attn).sum(1)], dim=1)
+
+
 def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int, residual: bool, prenorm: bool):
+    """The forward kernels (bq, fold, point tiles) -> (out, sums)."""
     name = "folded_unpool"
     b, n, c = x.shape
     i = k.shape[1]
     j = num_heads * i
+    d = c // num_heads
     check_cuda(
         name, dict(x=x, se=se, be=be, k=k, v=v, wq=wq, wo=wo),
         dict(x=_BF16, se=_F32, be=_F32, k=_BF16, v=_BF16, wq=_BF16, wo=_BF16),
     )
-    _require(c % 16 == 0 and i % 16 == 0, name, f"C % 16 and I % 16 == 0 (C={c}, I={i})")
-    tn = _row_tile(n, c)
-    kft = torch.empty((b, j, c), dtype=_BF16, device=x.device)
-    vf = torch.empty_like(kft)
-    brow = torch.empty((b, j), dtype=_F32, device=x.device)
-    bq = torch.empty((b, c), dtype=_F32, device=x.device)
+    _require(i == 64 and num_heads % 2 == 0 and d % 16 == 0 and d <= 64, name,
+             f"I == 64, H even, D % 16 == 0 and D <= 64 (I={i}, H={num_heads}, D={d})")
+    _require(c in (192, 384, 768) and n % 64 == 0, name,
+             f"C in (192, 384, 768) and N % 64 == 0 (C={c}, N={n})")
+    dev = x.device
+    kft = torch.empty((b, j, c), dtype=_BF16, device=dev)
+    vft = torch.empty((b, c, j), dtype=_BF16, device=dev)
+    brow = torch.empty((b, j), dtype=_F32, device=dev)
+    bq = torch.empty((b, c), dtype=_F32, device=dev)
     out = torch.empty_like(x)
-    sums = torch.zeros((b, 2, c), dtype=_F32, device=x.device)
-    launch("unpool", "unpool_launch", x, se, be, k, v, wq, wo.t().contiguous(), bq, kft, vf,
-           brow, out, sums, b, n, c, num_heads, i, tn, int(residual), int(prenorm))
+    sums = torch.zeros((b, 2, c), dtype=_F32, device=dev)
+    launch("unpool", "unpool_launch", x, se, be, k, v, wq, wo, bq, kft, vft, brow, out, sums,
+           b, n, c, num_heads, i, int(residual), int(prenorm))
     folded_unpool.launches += 1
     return out, sums
 

@@ -12,6 +12,9 @@ sides. The Hopper kernels run only on the card, where ``chip_smoke.py``
 holds each against its plain version.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,13 +23,14 @@ import torch
 
 from gecco_tpu.ops.attention import rect_attention as jrect_attention
 from gecco_tpu.ops.pallas import folded_attention as jfa
-from gecco_tpu.ops.pallas.induced_attention import _forward_impl
+from gecco_tpu.ops.pallas.induced_attention import _forward_impl, rect_attention_pallas
 from gecco_tpu_torch.convert import to_jax_params
 from gecco_tpu_torch.models import set_transformer as tst
 from gecco_tpu_torch.ops.attention import rect_attention
 from gecco_tpu_torch.ops.kernels import induced_attention as tia
 from torch_parity import f32, j, jax_draws, jax_model, jax_params, rel_err, t, torch_model
 
+REPO = Path(__file__).resolve().parents[1]
 B, HEADS, D, I, N = 2, 4, 16, 16, 256
 # per-head logit scales of the drift case: head 0's logits ~60x head 1's,
 # reaching the hundreds
@@ -232,3 +236,40 @@ def test_megakernel_switch_samples_as_jax_and_only_without_grad(jm, monkeypatch)
     tm.loss(pts, torch.Generator().manual_seed(0)).backward()
     assert calls["mega"] == 0 and calls["unpool"] == 2
     assert all(p.grad is not None for p in tm.parameters())
+
+
+def test_rect_bwd_witness_matches_the_jax_kernel_in_bf16():
+    """``chip_smoke.py``'s ``rect_bwd_tpu_algebra``, the witness that the
+    per-head path's gradients are held against on the card, is the JAX
+    kernel's own algebra: on bf16 operands of the unpool's shape with
+    drifted logits, fed the JAX forward's o and lse, its dq, dk and dv
+    agree with ``jax.vjp`` of ``rect_attention_pallas`` (``_bwd_kernel`` in
+    interpret mode) within 1e-3 of max |ref|, while autograd of the plain
+    version departs by more than that limit in dq and dk (delta from the
+    bf16 o)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    q, k, v = (a.astype(np.float32) for a in _qkv(7, "unpool", True))
+    g = np.random.default_rng(8).standard_normal(q.shape).astype(np.float32)
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+
+    @jax.jit
+    def jax_side(q, k, v, g):
+        o, lse = _forward_impl(q, k, v)
+        return o, lse, jax.vjp(rect_attention_pallas, q, k, v)[1](g)
+
+    o, lse, ref = jax_side(jq, jk, jv, jg)
+    bf = torch.bfloat16
+    tq, tk, tv, tg = (torch.from_numpy(a).to(bf) for a in (q, k, v, g))
+    witness = chip_smoke.rect_bwd_tpu_algebra(
+        tq, tk, tv, torch.from_numpy(np.array(o, np.float32)).to(bf),
+        torch.from_numpy(np.array(lse, np.float32)), tg)
+    leaves = [a.clone().requires_grad_(True) for a in (tq, tk, tv)]
+    tia._rect_attention_ref(*leaves)[0].backward(tg)
+    for name, w, r, plain in zip(("dq", "dk", "dv"), witness, ref, leaves):
+        r = np.asarray(r, np.float32)
+        scale = float(np.abs(r).max())
+        assert np.abs(w.float().numpy() - r).max() < 1e-3 * scale, name
+        if name != "dv":
+            assert np.abs(plain.grad.float().numpy() - r).max() > 1e-3 * scale, name

@@ -11,6 +11,9 @@ Hopper kernels themselves run only on the card, where ``chip_smoke.py``
 holds each against its plain version.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +33,7 @@ from gecco_tpu_torch.ops.kernels.projective_gather import (
     projective_gather_bwd,
 )
 
+REPO = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-4, 1e-5
 C, HEADS, I, B, N = 64, 4, 16, 2, 256
 GROUPS = 8
@@ -336,7 +340,7 @@ def test_backward_wrappers_match_autograd_of_the_plain_versions():
     rng = np.random.default_rng(14)
     args = _pool_args(15, False)
     g = _cotangent(rng, B, I, C)
-    got = tfa.folded_pool_ext_bwd(*map(torch.from_numpy, args), None, None,
+    got = tfa.folded_pool_ext_bwd(*map(torch.from_numpy, args), None, None, None,
                                   torch.from_numpy(g), HEADS)
     want = _port_grads(lambda *a: tfa._pool_ext_ref(*a, HEADS), args, [g])
     for a, r in zip(got, want):
@@ -395,3 +399,88 @@ def test_projective_gather_bwd_wrapper_matches_autograd_of_the_plain_version():
     none, again = projective_gather_bwd(lv_t, torch.from_numpy(hw01), torch.from_numpy(g),
                                             coords_grad=False)
     assert none is None and all(torch.equal(a, b) for a, b in zip(again, dlevels))
+
+
+def test_pool_bwd_witness_matches_the_jax_kernel_in_bf16():
+    """``chip_smoke.py``'s ``pool_bwd_v3_affine``, the witness that the
+    card's drifted dbe is held against, is the JAX kernel's own algebra: on
+    bf16 operands with drifted logits its dse/dbe agree with ``jax.vjp`` of
+    the JAX op (the default v3 body, ``_pool_ext_bwd_kernel_v3``, in
+    interpret mode) within 1e-3 of max |ref|, while autograd of the plain
+    version departs by more than that limit there."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    bf = torch.bfloat16
+    args = _pool_args(3, True)
+    assert jfa._pool_bwd_mode(N, C, HEADS * I, C // HEADS) == "v3"
+    ops = [torch.from_numpy(a).to(bf if q in (0, 3, 4, 5) else torch.float32)
+           for q, a in enumerate(args)]
+    g_h0 = torch.from_numpy(
+        np.random.default_rng(9).standard_normal((B, I, C)).astype(np.float32)).to(bf)
+    witness = chip_smoke.pool_bwd_v3_affine(*ops, g_h0, HEADS)
+    jops = [jnp.asarray(a.float().numpy(), jnp.bfloat16 if a.dtype == bf else jnp.float32)
+            for a in ops]
+    ref = jax.jit(lambda a, g: jax.vjp(lambda *p: jfa.folded_pool_ext(*p, HEADS), *a)[1](g))(
+        jops, jnp.asarray(g_h0.float().numpy(), jnp.bfloat16))
+    leaves = [a.clone().requires_grad_(True) for a in ops]
+    tfa._pool_ext_ref(*leaves, HEADS).backward(g_h0)
+    for name, w, r, plain in (("dse", witness[0], ref[1], leaves[1].grad),
+                              ("dbe", witness[1], ref[2], leaves[2].grad)):
+        r = np.asarray(r, np.float32)
+        scale = float(np.abs(r).max())
+        assert np.abs(w.numpy() - r).max() < 1e-3 * scale, name
+        assert np.abs(plain.float().numpy() - r).max() > 1e-3 * scale, name
+
+
+def _maxrel(a, ref):
+    a, ref = np.asarray(a, np.float32), np.asarray(ref, np.float32)
+    return float(np.abs(a - ref).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+def test_pool_pieces_compose_to_the_plain_version(drift, dtype):
+    """The plain versions of the pool's four launches (the query fold, the
+    per-chunk partials, the merge with the output
+    projection) compose to ``_pool_ext_ref``: in fp32 to rounding, in bf16
+    within a few bf16 steps (they round e before P / l, the plain version
+    p after normalising). Their column max and sum equal the JAX kernel's
+    softmax statistics (fp32)."""
+    dt = getattr(torch, dtype)
+    args = _pool_args(11, drift)
+    x, se, be, ind2, kvw, wo = (torch.from_numpy(a).to(dt if q in (0, 3, 4, 5) else torch.float32)
+                                for q, a in enumerate(args))
+    ref = tfa._pool_ext_ref(x, se, be, ind2, kvw, wo, HEADS)
+    _, jm, jl = jfa._pool_ext_p(*map(jnp.asarray, args), HEADS)
+    m, l, p = tfa._pool_partials_ref(x, se, be, tfa._fold_qft_ref(ind2, kvw, HEADS), kvw, HEADS)
+    assert p.shape == (B, N // tfa._POOL_CHUNK, HEADS * I, C // HEADS)
+    h0, mm, ll = tfa._pool_merge_ref(m, l, p, wo, HEADS)
+    assert _maxrel(h0.float().numpy(), ref.float().numpy()) < (1e-5 if dtype == "float32"
+                                                                 else 2e-2)
+    if dtype == "float32":
+        np.testing.assert_allclose(mm.numpy(), np.asarray(jm)[:, 0], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(ll.numpy(), np.asarray(jl)[:, 0], rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual,prenorm", [(True, True), (False, False), (True, False),
+                                              (False, True)])
+def test_unpool_pieces_compose_to_the_plain_version(residual, prenorm, dtype):
+    """The plain versions of the unpool's launches (bq and the fold, then
+    the point tiles) compose to ``_unpool_ref`` in each flag variant: in
+    fp32 with drifted logits to rounding (the pre-norm folded into kft and
+    brow is the same function; logits in the hundreds), in bf16 with
+    ordinary ones within a few bf16 steps (se folded into wq before its
+    rounding, as the TPU kernel does)."""
+    dt = getattr(torch, dtype)
+    drift = dtype == "float32"
+    x, se, be, k, v, wq, wo = (torch.from_numpy(a).to(dt if q not in (1, 2) else torch.float32)
+                               for q, a in enumerate(_unpool_args(12, drift)))
+    kft, vft, brow = tfa._unpool_fold_ref(se, be, k, v, wq, wo, HEADS, prenorm)
+    assert vft.shape == (B, C, HEADS * I) and brow.dtype == torch.float32
+    out, sums = tfa._unpool_tiles_ref(x, kft, vft, brow, HEADS, residual)
+    ref_out, ref_sums = tfa._unpool_ref(x, se, be, k, v, wq, wo, HEADS, residual, prenorm)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert _maxrel(out.float().numpy(), ref_out.float().numpy()) < tol
+    assert _maxrel(sums.numpy(), ref_sums.numpy()) < tol

@@ -226,4 +226,6 @@ def test_chip_smoke_rehearsal_runs_its_phases_on_the_cpu():
     assert "folded_unpool_bwd, no residual, no pre-norm [drift] dwo" in res.stdout
     assert "BroadcastingLayer without sums" in res.stdout
     assert "kernel path vs plain path: max" in res.stdout.split("== upsample path")[-1]
+    assert "folded_unpool 8k width [drift] sums" in res.stdout
+    assert "scores ok" in res.stdout.split("== validation")[-1]
     assert '"ok": true' not in res.stdout

@@ -7,9 +7,10 @@ Phases (each raises on failure; nothing is caught):
 
 1. environment: torch, nvcc, the card's name and power limit;
 2. build: the fourteen CUDA kernels of ``gecco_tpu_torch/csrc`` (eight
-   forward, six backward; thirteen libraries, the projective gather's
-   forward and backward in one) with nvcc for sm_90a, one process per
-   source, all at once, with ``ptxas -v``'s registers and spills;
+   forward, six backward) and the WMMA bodies beside the two Hopper
+   forwards (fifteen libraries, the projective gather's forward and backward in
+   one) with nvcc for sm_90a, one process per source, all at once, with
+   ``ptxas -v``'s registers and spills;
 3. forward kernels: each set-transformer kernel against its plain PyTorch
    version on the card, in bf16, at the sampler's flagship shapes (batch
    64; ordinary and drifted operands), the pool also at the 8k width; each
@@ -111,7 +112,20 @@ Phases (each raises on failure; nothing is caught):
    gate's) for 20 steps of the flagship at batch 48 on the procedural
    mixture, then one eval of 16 clouds with the 8-step Heun sampler scored
    against 16 held-out clouds: finite losses, 1-NN accuracy and COV in
-   [0, 1], MMD finite and non-negative.
+   [0, 1], MMD finite and non-negative;
+18. demo sampler path: ``scripts/demo_upsample_100k.py``'s default model (3 x
+   128, 4 heads of 32 channels, 64 inducers) samples 48 2048-point clouds
+   with the 128-step Heun grid: the forwards' WMMA bodies (pool and unpool)
+   and the h-side and MLP kernels 3 x 254 times each, the Hopper pool and
+   unpool never; then the 8-step sample against the plain path.
+
+Phase 3 also holds the pool's and unpool's WMMA bodies (the shapes the
+Hopper designs do not take) against their plain versions at the demo's
+shapes, where it times them, and with three heads at the flagship's width,
+and fails unless those checks ran the WMMA bodies alone. Phase 4 holds the
+pool backward at both widths, ordinary and drifted, times it at both
+(median, min and max of 20 calls), and requires dqf (through dind2) to be
+the same bits in two calls.
 
 Phases 3, 4 and 14 also time, beside the SDPA yardstick of the pools and
 unpools, the whole function as a chain of PyTorch calls (pre-norm,
@@ -188,6 +202,10 @@ PEAK_BYTES = 3.35e12
 
 FLAGSHIP = dict(n_layers=6, feature_dim=384, num_inducers=64, num_heads=8, n_points=2048)
 SCALED_8K = dict(feature_dim=768, num_inducers=64, num_heads=16, n_points=8192)
+# scripts/demo_upsample_100k.py's default model (3 x 128, 4 heads of 32
+# channels; trained and upsampled at batch 48): the forwards' WMMA bodies
+DEMO = dict(n_layers=3, feature_dim=128, num_inducers=64, num_heads=4, n_points=2048)
+DEMO_BATCH = 48
 N_STEPS = 128
 BATCH = 64  # the flagship protocol of bench.py
 TRAIN_BATCH = 48  # configs/shapenet_airplane_unconditional.py
@@ -299,11 +317,17 @@ SOURCES = {
                           "gecco_tpu/ops/pallas/folded_attention.py:526"),
     "folded_pool_layer_bwd": ("gecco_tpu_torch/csrc/pool_bwd.cu",
                               "gecco_tpu/ops/pallas/folded_attention.py:696"),
+    # the WMMA bodies beside the two Hopper forwards, chosen by shape
+    "folded_pool_ext_wmma": ("gecco_tpu_torch/csrc/pool_ext_wmma.cu",
+                             "gecco_tpu/ops/pallas/folded_attention.py:1154"),
+    "folded_unpool_wmma": ("gecco_tpu_torch/csrc/unpool_wmma.cu",
+                           "gecco_tpu/ops/pallas/folded_attention.py:2222"),
 }
 SET_FORWARD = ("folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual")
 BACKWARD = ("folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd",
             "rect_attention_bwd")
 FOLDED_BACKWARD = BACKWARD[:3]
+WMMA_FORWARD = ("folded_pool_ext_wmma", "folded_unpool_wmma")
 GATHER = ("projective_gather", "projective_gather_bwd")
 
 
@@ -319,6 +343,11 @@ def sync(device):
 def time_ms(fn, device, reps=10, warmup=2) -> float:
     """Median milliseconds of one call: CUDA events around each call on the
     card, the host clock around each synchronised call elsewhere."""
+    return statistics.median(time_all(fn, device, reps, warmup))
+
+
+def time_all(fn, device, reps=10, warmup=2) -> list:
+    """Milliseconds of each of ``reps`` calls, timed as ``time_ms`` does."""
     for _ in range(warmup):
         fn()
     times = []
@@ -334,7 +363,7 @@ def time_ms(fn, device, reps=10, warmup=2) -> float:
             t0 = time.perf_counter()
             fn()
             times.append(1e3 * (time.perf_counter() - t0))
-    return statistics.median(times)
+    return times
 
 
 def rel_err(a, ref) -> float:
@@ -491,8 +520,10 @@ def check(name, err, tol, what="max|err|/max|ref|"):
         raise AssertionError(f"{name}: error {err:.3e} above tolerance {tol:.0e}")
 
 
-def kernel_phase(device, shapes, big, dt, reps):
-    """Every kernel against its plain version; returns per-kernel records."""
+def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
+    """Every kernel against its plain version; returns per-kernel records.
+    The forwards' WMMA bodies at the ``demo`` model's shapes (timed) and
+    with ``heads3``'s three heads."""
     g = torch.Generator(device=device).manual_seed(1)
     b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
         shapes["num_heads"], shapes["num_inducers"]
@@ -566,6 +597,47 @@ def kernel_phase(device, shapes, big, dt, reps):
         tag = "drift" if drift else "ordinary"
         check(f"folded_unpool 8k width [{tag}] out0", rel_err(got[0], want[0]), TOL_OUT)
         check(f"folded_unpool 8k width [{tag}] sums", rel_err(got[1], want[1]), TOL_SUMS)
+
+    # the WMMA bodies of the pool and unpool forwards, which take the shapes
+    # the Hopper designs do not: the upsample demo's model (timed there) and
+    # three heads at the flagship's width; each run's WMMA launches counted
+    db, dn, dc, dh, di = (demo[k] for k in ("batch", "n_points", "feature_dim", "num_heads",
+                                            "num_inducers"))
+    dd, dj = dc // dh, dh * di
+    kernels.reset_launch_counts()
+    run("folded_pool_ext_wmma", lambda *a: fa.folded_pool_ext(*a, dh),
+        lambda *a: fa._pool_ext_ref(*a, dh),
+        lambda drift: pool_operands(g, db, dn, dc, dh, di, drift, device, dt), 1,
+        2 * db * dn * dc * dj + 2 * db * dn * dc * dc + 2 * db * dn * dj * dd
+        + 2 * db * di * dc * dc,
+        lambda a: [torch.empty(db, di, dc, dtype=dt)],
+        lambda a: sdpa_pool(a, dh), lambda a: chain_pool(a, dh))
+    run("folded_unpool_wmma", lambda *a: fa.folded_unpool(*a, dh),
+        lambda *a: fa._unpool_ref(*a, dh),
+        lambda drift: unpool_operands(g, db, dn, dc, dh, di, drift, device, dt), 2,
+        4 * db * dn * dc * dj + 4 * db * dj * dc * dd,
+        lambda a: [a[0], torch.empty(db, 2, dc)],
+        lambda a: sdpa_unpool(a, dh), lambda a: chain_unpool(a, dh))
+    hb, hn, hc, hh3, hi = (heads3[k] for k in ("batch", "n_points", "feature_dim", "num_heads",
+                                               "num_inducers"))
+    for drift in (False, True):
+        tag = f"num_heads={hh3}, {'drift' if drift else 'ordinary'}"
+        args = pool_operands(g, hb, hn, hc, hh3, hi, drift, device, dt)
+        check(f"folded_pool_ext [{tag}] out0",
+              rel_err(fa.folded_pool_ext(*args, hh3), fa._pool_ext_ref(*args, hh3)), TOL_OUT)
+        args = unpool_operands(g, hb, hn, hc, hh3, hi, drift, device, dt)
+        got, want = fa.folded_unpool(*args, hh3), fa._unpool_ref(*args, hh3)
+        sync(device)
+        check(f"folded_unpool [{tag}] out0", rel_err(got[0], want[0]), TOL_OUT)
+        check(f"folded_unpool [{tag}] sums", rel_err(got[1], want[1]), TOL_SUMS)
+    counts = kernels.launch_counts()
+    print(f"  launches of the forwards' bodies in these checks: "
+          f"{ {k: counts[k] for k in SET_FORWARD[::2] + WMMA_FORWARD} }")
+    if device.type == "cuda" and (counts["folded_pool_ext_wmma"] == 0
+                                  or counts["folded_unpool_wmma"] == 0
+                                  or counts["folded_pool_ext"] or counts["folded_unpool"]):
+        raise AssertionError(f"the demo and num_heads=3 shapes did not run the WMMA bodies "
+                             f"alone: {counts}")
     return rec
 
 
@@ -765,12 +837,43 @@ def backward_phase(device, shapes, big, dt, reps):
         print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_txt} ms"
               f"{chain_txt}, bound {bms:.3f} ms ({by})")
 
-    # the pool backward at the 8k width (C = 768, 16 heads, 8192 points)
+    # the pool backward at both widths: the 8k width (C = 768, 16 heads,
+    # 8192 points) against its plain version, ordinary and drifted, its
+    # drifted dbe against the v3 witness; each width's time with its spread
+    # (20 calls) and the 8k width's bound; and dqf (through dind2, which
+    # only dqf feeds) the same bits in two calls
+    widths = {"flagship": (b, n, c, heads, i),
+              "8k width": tuple(big[k] for k in ("batch", "n_points", "feature_dim", "num_heads",
+                                                 "num_inducers"))}
     for drift in (False, True):
-        _, kernel, plain, witness = pool_case(big["batch"], big["n_points"], big["feature_dim"],
-                                              big["num_heads"], big["num_inducers"], drift)
+        _, kernel, plain, witness = pool_case(*widths["8k width"], drift)
         compare("folded_pool_ext_bwd", f"8k width, {'drift' if drift else 'ordinary'}",
                 kernel, plain, witness if drift else None)
+    pool_rec = rec["folded_pool_ext_bwd"]
+    for width, shape in widths.items():
+        ops, kernel, *_ = pool_case(*shape, False)
+        t = sorted(time_all(kernel, device, reps))
+        key = "" if width == "flagship" else "_8k"
+        pool_rec["ms" + key] = statistics.median(t)
+        pool_rec["ms_min_max" + key] = [t[0], t[-1]]
+        print(f"  folded_pool_ext_bwd at the {width}: median {statistics.median(t):.3f} ms of "
+              f"{len(t)} calls (min {t[0]:.3f}, max {t[-1]:.3f})")
+        if key:
+            bb, nn_, cc, hh, ii = shape
+            outs = kernel()
+            flops = 6 * 2 * bb * nn_ * cc * hh * ii + 6 * 2 * bb * hh * ii * (cc // hh) * cc
+            bms, by = bound(flops, nbytes(*[a for a in ops if torch.is_tensor(a)], *outs)
+                            + 2 * bb * ii * cc + 2 * 4 * bb * hh * ii)
+            pool_rec["bound_ms_8k"] = bms
+            print(f"  folded_pool_ext_bwd bound at the 8k width: {bms:.3f} ms ({by})")
+    _, kernel, *_ = pool_case(b, n, c, heads, i, True)
+    first, again = kernel(), kernel()
+    sync(device)
+    same = torch.equal(first[3], again[3])
+    print(f"  folded_pool_ext_bwd: dind2 (from dqf) of two calls "
+          f"{'the same bits' if same else 'DIFFER'}")
+    if device.type == "cuda" and not same:
+        raise AssertionError("the pool backward's dqf differs between two calls")
     return rec
 
 
@@ -1432,8 +1535,9 @@ def param_groups(model) -> dict:
 
 
 def expected_counts(nonzero: dict) -> dict:
-    """Every kernel's expected launch count: ``nonzero``'s, else 0."""
-    return {fn.__name__: nonzero.get(fn.__name__, 0) for fn in kernels.KERNELS}
+    """Every kernel's (and WMMA body's) expected launch count: ``nonzero``'s,
+    else 0."""
+    return {k: nonzero.get(k, 0) for k in kernels.launch_counts()}
 
 
 def check_counts(what, counts, expected, device):
@@ -1570,7 +1674,8 @@ def train_phase(device, n_layers, batch, n_points, card, steps, attn_impl="folde
         expected = {k: 2 * n_layers * timed for k in ("rect_attention_fwd", "rect_attention_bwd")}
     else:
         expected = {k: n_layers * timed for k in SET_FORWARD + FOLDED_BACKWARD}
-    check_counts(f"{attn_impl} training", counts, expected_counts(expected), device)
+    check_counts(f"{attn_impl} training", counts,
+                 expected_counts(expected), device)
 
     def run():
         nonlocal opt_state
@@ -1621,11 +1726,15 @@ KERNEL_FUNCTIONS = {
     "folded_unpool": ("unpool_bq_kernel", "unpool_fold_k_kernel", "unpool_fold_v_kernel",
                       "unpool_tile_kernel"),
     "fused_mlp_residual": ("mlp_kernel",),
-    "folded_pool_ext_bwd": ("pool_bwd_pass0_kernel", "pool_bwd_fold_kernel",
-                            "pool_bwd_pass1_kernel"),
+    "folded_pool_ext_bwd": ("pool_bwd_prenorm_kernel", "pool_bwd_ety_kernel",
+                            "pool_bwd_dy_kernel", "pool_bwd_dqf_kernel",
+                            "pool_bwd_dqf_sum_kernel"),
+    "pool_bwd_fold_kernel (the pool backward's fold)": ("pool_bwd_fold_kernel",),
+    "folded_pool_ext_wmma": ("pool_kernel",),
+    "folded_unpool_wmma": ("unpool_fold_kernel", "unpool_kernel"),
     "folded_unpool_bwd": ("unpool_bwd_fold_kernel", "unpool_bwd_kernel"),
     "fused_mlp_residual_bwd": ("mlp_bwd_kernel",),
-    "atb_kernel (the weight-gradient products of the four folded backwards)": ("atb_kernel",),
+    "atb_kernel (the weight-gradient products of the folded backwards)": ("atb_kernel",),
     "projective_gather": ("gather_kernel",),
     "projective_gather_bwd": ("gather_bwd_kernel",),
     "rect_attention_fwd": ("rect_attn_fwd_kernel",),
@@ -1700,8 +1809,8 @@ def profile_steps(run, n, device):
 
 
 def build_flagship(device, generator, n_layers, dt=torch.bfloat16, attn_impl="folded_pallas",
-                   n_steps=N_STEPS):
-    f = FLAGSHIP
+                   n_steps=N_STEPS, dims=FLAGSHIP):
+    f = dims
     backbone = SetTransformer(
         n_layers, f["feature_dim"], f["num_inducers"], embed_dim=1, num_heads=f["num_heads"],
         compute_dtype=dt, attn_impl=attn_impl, device=device, generator=generator,
@@ -1865,14 +1974,15 @@ def conditional_train_phase(device, n_layers, batch, n_points, image_size, card,
 
 
 def main_path(device, batch, n_points, n_layers, n_steps, compare_batch,
-              attn_impl="folded_pallas", what="kernel path", expect=None):
-    """The flagship on ``attn_impl`` samples through ``Diffusion.sample``;
+              attn_impl="folded_pallas", what="kernel path", expect=None, dims=FLAGSHIP):
+    """The flagship (or the model of ``dims``) on ``attn_impl`` samples
+    through ``Diffusion.sample``;
     ``expect(evals)`` gives the launch counts the sample must show (by
     default each set-transformer forward kernel once per layer and
     evaluation); then the 8-step sample against the plain path. Returns
     the counts, a record, the model and the 8-step latent and sample."""
     model = build_flagship(device, torch.Generator().manual_seed(0), n_layers,
-                           attn_impl=attn_impl)
+                           attn_impl=attn_impl, dims=dims)
     gen = torch.Generator(device=device).manual_seed(0)
     # warm-up: one 2-step sample (first launches, allocator)
     model.sample(gen, (batch, n_points, 3), n_solver_steps=2)
@@ -1941,6 +2051,9 @@ def main():
         torch.set_num_threads(2)  # the tests run it beside other workers
         shapes = dict(batch=2, n_points=128, feature_dim=64, num_inducers=16, num_heads=4)
         big = dict(batch=1, n_points=256, feature_dim=128, num_inducers=16, num_heads=8)
+        demo_dims = dict(DEMO, feature_dim=32, num_inducers=16, n_points=128)
+        demo = dict(demo_dims, batch=2)
+        heads3 = dict(shapes, feature_dim=48, num_heads=3)
         dt, reps, n_layers, batch, n_points, n_steps = torch.bfloat16, 1, 2, 2, 128, 3
         train_batch = cond_batch = 2
         image_size, render_size = 32, 37
@@ -1952,6 +2065,9 @@ def main():
         device = torch.device("cuda")
         shapes = dict(FLAGSHIP, batch=64)
         big = dict(SCALED_8K, batch=2)
+        demo_dims = DEMO
+        demo = dict(DEMO, batch=DEMO_BATCH)
+        heads3 = dict(shapes, num_heads=3)
         dt, reps, n_layers, batch, n_points, n_steps = (
             torch.bfloat16, 20, FLAGSHIP["n_layers"], BATCH, FLAGSHIP["n_points"], N_STEPS)
         train_batch, cond_batch = TRAIN_BATCH, COND_BATCH
@@ -1986,8 +2102,9 @@ def main():
                 elif "registers" in line or "spill" in line:
                     print(f"  {name} {entry}: {line.strip()}")
 
-    print(f"== forward kernels vs plain versions ({shapes}; 8k pool {big}) on {card}")
-    rec = kernel_phase(device, shapes, big, dt, reps)
+    print(f"== forward kernels vs plain versions ({shapes}; 8k pool {big}; WMMA bodies at "
+          f"{demo} and {heads3}) on {card}")
+    rec = kernel_phase(device, shapes, big, demo, heads3, dt, reps)
 
     train_shapes = dict(shapes, batch=train_batch)
     print(f"== backward kernels vs autograd of the plain versions ({train_shapes}; "
@@ -2065,6 +2182,16 @@ def main():
           f"samples against held-out clouds, on {card}")
     val = validate_phase(device, args.rehearse)
 
+    print(f"== demo sampler path: scripts/demo_upsample_100k.py's model ({demo_dims}), batch "
+          f"{demo['batch']}, {n_steps}-step Heun (the forwards' WMMA bodies), on {card}")
+    demo_counts, demo_path, _ = main_path(
+        device, demo["batch"], demo_dims["n_points"], demo_dims["n_layers"], n_steps,
+        compare_batch=8, what="demo model's kernel path", dims=demo_dims,
+        expect=lambda evals: {k: demo_dims["n_layers"] * evals for k in
+                              ("folded_pool_ext_wmma", "fused_h_side", "folded_unpool_wmma",
+                               "fused_mlp_residual")})
+    print(f"  {demo_path['clouds_per_s']:.3f} clouds/s on {card}")
+
     print("== summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
@@ -2075,6 +2202,7 @@ def main():
     print(f"  launches on the megakernel sampler path: {mega_counts}")
     print(f"  launches on the module-level folded path: {module_counts}")
     print(f"  launches on the upsample path: {up_counts}")
+    print(f"  launches on the demo sampler path: {demo_counts}")
     print(f"  sampler {path['clouds_per_s']:.3f} clouds/s (batch {batch}); train step "
           f"{train['ms_per_step']:.3f} ms (batch {train_batch}); conditional sampler "
           f"{cond_path['clouds_per_s']:.3f} clouds/s (batch {cond_batch}; ConvNeXt "
@@ -2087,7 +2215,8 @@ def main():
           f"({mega_path['eval_ms']:.3f} ms per evaluation); upsample to {upsample['n_new']} "
           f"points {up_path['seconds']:.3f} s ({up_path['points_per_s']:.1f} new points/s); "
           f"validation phase {val['seconds']:.1f} s (1-NN {val['one_nn']:.4f}, MMD "
-          f"{val['mmd']:.4g}, COV {val['cov']:.4f}); {card}")
+          f"{val['mmd']:.4g}, COV {val['cov']:.4f}); demo sampler {demo_path['clouds_per_s']:.3f} "
+          f"clouds/s (batch {demo['batch']}); {card}")
     # launches: each kernel's count on the path that first brought it in
     # (printed above): the flagship sampler's for a set-transformer forward
     # kernel, the flagship training path's for a backward one, the
@@ -2096,7 +2225,8 @@ def main():
     # the megakernel sampler's for the megakernel and the module-level
     # folded path's for the resident pool, split by variant: the sums-less
     # layer's run gave the pre-norm launches (nested under "prenorm", as
-    # their times are), the Broadcast's runs the rest
+    # their times are), the Broadcast's runs the rest; the demo sampler's for
+    # the forwards' WMMA bodies
     pool_counts = {}
     for name in ("folded_pool_layer", "folded_pool_layer_bwd"):
         rec[name]["prenorm"]["launches"] = prenorm_counts.get(name, 0)
@@ -2104,7 +2234,8 @@ def main():
     source_counts = {"projective_gather": cond_counts, "projective_gather_bwd": cond_train_counts,
                      "rect_attention_fwd": ph_counts, "rect_attention_bwd": ph_train_counts,
                      "fused_unpool_mlp": mega_counts, "folded_pool_layer": pool_counts,
-                     "folded_pool_layer_bwd": pool_counts}
+                     "folded_pool_layer_bwd": pool_counts, "folded_pool_ext_wmma": demo_counts,
+                     "folded_unpool_wmma": demo_counts}
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=source_counts.get(name, train_counts if name in BACKWARD else counts)[name],

@@ -1,4 +1,5 @@
-// Device code of the resident pool (csrc/pool.cu): the per-(head, batch)
+// Device code of the resident pool (csrc/pool.cu) and of the pool
+// forward's WMMA body (csrc/pool_ext_wmma.cu): the per-(head, batch)
 // block's shared-memory layout and weight staging; and the output
 // projection linear_nt_kernel, which the chunked pool (csrc/pool_ext.cu)
 // shares.
@@ -13,7 +14,8 @@ constexpr int kPoolTile = 64;
 // Shared-memory layout of a pool block (one head h of one batch element),
 // in bytes from the start; the head's weight operands qf_h [C, I] and Wv_h
 // [D, C] are staged at the end where they fit (stage_w), else read from
-// device memory.
+// device memory. folded_attention.py's _pool_wmma_smem repeats
+// total_unstaged for its shape switch: change both together.
 struct PoolSmem {
   int ldy, lds, ldv, lde, ldvb, ldq, ldw;
   size_t y, s, vt, tmp, P, stats, e, vb, qst, wst, total_unstaged, total;

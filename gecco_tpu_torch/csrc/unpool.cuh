@@ -1,9 +1,10 @@
-// WMMA device code of the folded unpool, kept for the unpool + MLP
-// megakernel (csrc/unpool_mlp.cu): the per-batch fold of the q/out
-// projections against the inducer-token k/v, and one point tile of the
-// attention + residual + output channel sums. csrc/unpool.cu (the Hopper
-// design of the same function) shares only unpool_bq_warp. The algebra is
-// described in unpool.cu.
+// WMMA device code of the folded unpool, for the unpool's WMMA body
+// (csrc/unpool_wmma.cu) and the unpool + MLP megakernel
+// (csrc/unpool_mlp.cu): the per-batch fold of the q/out projections against
+// the inducer-token k/v, and one point tile of the attention + residual +
+// output channel sums. csrc/unpool.cu (the Hopper design of the same
+// function) shares only unpool_bq_warp. The algebra is described in
+// unpool.cu.
 #pragma once
 
 #include "common.cuh"
@@ -65,7 +66,9 @@ __device__ __forceinline__ void unpool_fold_elem(
 // behind the other product, where they fit: dbl; else one buffer in turn),
 // which the fp32 output tile [TN, C] reuses after the last head (region0
 // bytes); then the head's logits s and probabilities p [TN, I]. Returns
-// the block's bytes, or 0 where no plan fits.
+// the block's bytes, or 0 where no plan fits. folded_attention.py's
+// _unpool_wmma_smem repeats this plan for its shape switch: change both
+// together.
 inline size_t unpool_smem_plan(int TN, int C, int I, int* dbl_out, size_t* region0_out) {
   const size_t ldx = C + kPad;
   for (int dbl = 1; dbl >= 0; --dbl) {

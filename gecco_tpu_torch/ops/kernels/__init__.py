@@ -3,7 +3,9 @@ beside its plain PyTorch version. Importing this package builds nothing.
 
 ``KERNELS`` lists every wrapper that launches a kernel, forward and
 backward (fourteen: eight forward, six backward); each counts its launches
-in ``.launches``."""
+in ``.launches``. Two of them have a second body, WMMA beside the Hopper
+design, chosen by shape (``folded_pool_ext``, ``folded_unpool``): those
+count its launches in ``.launches_wmma``, reported as ``<name>_wmma``."""
 
 from gecco_tpu_torch.ops.kernels.folded_attention import (
     folded_pool_ext,
@@ -32,13 +34,20 @@ KERNELS = (
 )
 
 
+TWO_BODIES = (folded_pool_ext, folded_unpool)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in TWO_BODIES:
+        fn.launches_wmma = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    counts.update({f"{fn.__name__}_wmma": fn.launches_wmma for fn in TWO_BODIES})
+    return counts
 
 
 __all__ = [
@@ -58,6 +67,7 @@ __all__ = [
     "rect_attention_fwd",
     "rect_attention_pallas",
     "KERNELS",
+    "TWO_BODIES",
     "launch_counts",
     "reset_launch_counts",
 ]

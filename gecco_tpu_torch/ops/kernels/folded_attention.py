@@ -14,6 +14,8 @@ through the plain forward, as the twins' ``jax.vjp``) for CPU tensors:
   the query fold, the chunks, the merge, the output projection, each with
   its plain version beside it). When a gradient is needed the forward also
   returns the softmax statistics (column max and sum) the backward reads.
+  The backward runs the v3 algebra in five passes, each with its plain
+  piece beside it (``_pool_bwd_*_ref``).
 - ``folded_pool_layer`` (``csrc/pool.cu``; backward ``csrc/pool_bwd.cu``):
   the resident pool, the same pooling with the set-level GroupNorm
   statistics of the stream computed on the card (``prenorm``, returned
@@ -36,7 +38,12 @@ and a fourth runs the second and third as one launch:
   ``fused_mlp_residual`` (``_unpool_mlp_composed``), whose backwards are
   the kernels above, as the JAX package's custom_vjp does.
 
-A CUDA tensor never falls back to a plain version. Each forward wrapper
+The pool and unpool forwards each keep a second, WMMA body
+(``csrc/*_wmma.cu``) for the shapes their Hopper design does not take;
+``_pool_ext_body`` and ``_unpool_body`` choose by shape, and a shape that
+neither body takes raises, as one that the pool backward
+(``_pool_ext_bwd_fits``) does not take does. A CUDA tensor never falls
+back to a plain version. Each forward wrapper
 counts its kernel launches in ``.launches``; each backward has its own
 wrapper (``*_bwd``) and counter. As in the JAX package, the backward kernels
 take the incoming cotangent rounded to the activation dtype, and the small
@@ -188,11 +195,52 @@ def _pool_merge_ref(m, l, p, wo, num_heads: int) -> tuple:
     return h0, mm, ll
 
 
+# csrc/common.cuh's kMaxSmem (a block's shared memory on sm_90), kPad and
+# kPadF (the bf16 and fp32 row padding) and csrc/pool.cuh's kPoolTile, which
+# the mirrors below of the WMMA bodies' shared-memory plans read
+# (test_torch_kernels.py holds them to the headers' values)
+_MAX_SMEM, _PAD, _PADF, _POOL_TILE = 232448, 8, 4, 64
+
+
+def _pool_wmma_smem(c: int, i: int, d: int) -> int:
+    """Bytes of one block of the WMMA pool body: csrc/pool.cuh PoolSmem's
+    ``total_unstaged`` (change both together): the stream tile, logits,
+    values, the tile's e^T v, the accumulator, the statistics and the bf16
+    e and v."""
+    t = _POOL_TILE
+    return (t * (c + _PAD) * 2 + t * (i + _PADF) * 4 + t * (d + _PADF) * 4
+            + i * (d + _PADF) * 4 + i * d * 4 + 3 * i * 4 + t * (i + _PAD) * 2
+            + t * (d + _PAD) * 2)
+
+
+def _pool_ext_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
+    """Which forward body of ``folded_pool_ext`` takes these shapes on the
+    card: "hopper" (csrc/pool_ext.cu, TMA and wgmma: I == 64, D == 48,
+    H % 8 == 0, C % 64 == 0, C <= 768) where it can, else "wmma"
+    (csrc/pool_ext_wmma.cu: C % 64, D % 16 and I % 16 == 0, one block's
+    shared memory within the SM's); both need N % 64 and B*I % 64 == 0.
+    Raises ValueError with both bodies' conditions otherwise."""
+    d = c // num_heads
+    common = c % num_heads == 0 and n % 64 == 0 and (b * i) % 64 == 0
+    if common and i == 64 and d == 48 and num_heads % 8 == 0 and c % 64 == 0 and c <= 768:
+        return "hopper"
+    if (common and c % 64 == 0 and d % 16 == 0 and i % 16 == 0
+            and _pool_wmma_smem(c, i, d) <= _MAX_SMEM):
+        return "wmma"
+    raise ValueError(
+        f"folded_pool_ext: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
+        f"(D={d}): the Hopper body needs I == 64, D == 48, H % 8 == 0, C % 64 == 0 and "
+        f"C <= 768; the WMMA body C % 64, D % 16, I % 16 == 0 and its block within "
+        f"{_MAX_SMEM} bytes of shared memory; both N % 64 == 0 and B*I % 64 == 0")
+
+
 def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
-    """The forward kernels (fold, chunks, merge, output projection) -> (h0,
+    """The forward kernels of the body ``_pool_ext_body`` picks -> (h0,
     qft, macc, sacc): the folded query qf^T [J, C] the logits were formed
     with, and the softmax's column max and sum [B, J] fp32, when ``stats``
-    (else Nones)."""
+    (else Nones). The Hopper body runs four launches (fold, chunks, merge,
+    output projection), the WMMA body two (per-head pool, output
+    projection) on a fold in PyTorch."""
     name = "folded_pool_ext"
     b, n, c = x.shape
     j, d = ind2.shape
@@ -201,24 +249,27 @@ def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
         name, dict(x=x, se=se, be=be, ind2=ind2, kvw=kvw, wo=wo),
         dict(x=_BF16, se=_F32, be=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16),
     )
-    _require(i == 64 and d == 48 and num_heads % 8 == 0, name,
-             f"I == 64, D == 48 and H % 8 == 0 (I={i}, D={d}, H={num_heads})")
-    _require(c % 64 == 0 and c <= 768, name, f"C % 64 == 0 and C <= 768 (C={c})")
-    rows = _POOL_CHUNK
-    _require(n % rows == 0, name, f"N % {rows} == 0 (N={n})")
-    _require((b * i) % 64 == 0, name, f"B*I % 64 == 0 (B={b}, I={i})")
+    body = _pool_ext_body(b, n, c, num_heads, i)
     dev = x.device
-    qft = torch.empty((j, c), dtype=_BF16, device=dev)
-    part_m = torch.empty((b, n // rows, j), dtype=_F32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_p = torch.empty((b, n // rows, j, d), dtype=_F32, device=dev)
     pooled = torch.empty((b, i, c), dtype=_BF16, device=dev)
     h0 = torch.empty_like(pooled)
     macc = torch.empty((b, j), dtype=_F32, device=dev) if stats else None
     sacc = torch.empty_like(macc) if stats else None
-    launch("pool_ext", "pool_ext_launch", x, se, be, ind2, kvw, wo, qft, part_m, part_l, part_p,
-           pooled, h0, macc, sacc, b, n, c, num_heads, i)
-    folded_pool_ext.launches += 1
+    if body == "hopper":
+        rows = _POOL_CHUNK
+        qft = torch.empty((j, c), dtype=_BF16, device=dev)
+        part_m = torch.empty((b, n // rows, j), dtype=_F32, device=dev)
+        part_l = torch.empty_like(part_m)
+        part_p = torch.empty((b, n // rows, j, d), dtype=_F32, device=dev)
+        launch("pool_ext", "pool_ext_launch", x, se, be, ind2, kvw, wo, qft, part_m, part_l,
+               part_p, pooled, h0, macc, sacc, b, n, c, num_heads, i)
+        folded_pool_ext.launches += 1
+    else:
+        qf = fold_qf(ind2, kvw, num_heads).contiguous()
+        launch("pool_ext_wmma", "pool_ext_wmma_launch", x, se, be, qf, kvw, wo, pooled, h0,
+               macc, sacc, b, n, c, num_heads, i)
+        folded_pool_ext.launches_wmma += 1
+        qft = qf.t().contiguous() if stats else None
     return (h0, qft, macc, sacc) if stats else (h0, None, None, None)
 
 
@@ -253,6 +304,7 @@ def folded_pool_ext(x, se, be, ind2, kvw, wo, num_heads: int) -> torch.Tensor:
 
 
 folded_pool_ext.launches = 0
+folded_pool_ext.launches_wmma = 0
 
 
 def _chain_dqf(dqf, dwv, ind2, kvw, num_heads: int) -> tuple:
@@ -277,6 +329,79 @@ def _pool_ext_bwd_ref(x, se, be, ind2, kvw, wo, g_h0, num_heads: int) -> tuple:
     return vjp(lambda *a: _pool_ext_ref(*a, num_heads), (x, se, be, ind2, kvw, wo), (g_h0,))
 
 
+def _prenormed(x, se, be) -> torch.Tensor:
+    """y = x * se + be rounded to x's dtype, as fp32."""
+    return (x.float() * se[:, None, :] + be[:, None, :]).to(x.dtype).float()
+
+
+def _pool_bwd_ety_ref(x, se, be, qft, macc) -> torch.Tensor:
+    """Plain version of ``pool_bwd_ety_kernel``: eTy = bf16(e)^T y [B, J, C]
+    in x's dtype, e = exp(max(y qf - macc, -80))."""
+    dt = x.dtype
+    y = _prenormed(x, se, be)
+    s = torch.einsum("bnc,jc->bnj", y, qft.float())
+    e = torch.exp(torch.clamp(s - macc[:, None], min=-80.0)).to(dt)
+    return torch.einsum("bnj,bnc->bjc", e.float(), y).to(dt)
+
+
+def _pool_bwd_fold_ref(ety, g_h0, kvw, wo, sacc, num_heads: int) -> tuple:
+    """Plain version of ``pool_bwd_fold_kernel`` (without W2) -> (tacc
+    [B, J] fp32, W3 [B, J, C] in ety's dtype, dWv and dWo [C, C] fp32):
+    DMs = (g_h0 @ Wo_h) / sacc and pacc / sacc rounded to ety's dtype."""
+    dt = ety.dtype
+    b, j, c = ety.shape
+    i, d = j // num_heads, c // num_heads
+    wv = kvw[c:].float().reshape(num_heads, d, c)
+    inv = (1.0 / sacc).reshape(b, num_heads, i, 1)
+    g = g_h0.float()
+    dms = torch.einsum("bio,ohd->bhid", g, wo.float().reshape(c, num_heads, d))
+    dms = (dms * inv).to(dt).float()
+    ety_h = ety.float().reshape(b, num_heads, i, c)
+    pacc = torch.einsum("bhic,hdc->bhid", ety_h, wv)
+    tacc = ((dms * pacc).sum(-1) * inv[..., 0]).reshape(b, j)
+    merged = (pacc * inv).to(dt).float()
+    dwo = torch.einsum("bio,bhid->ohd", g, merged).reshape(c, c)
+    dwv = torch.einsum("bhid,bhic->hdc", dms, ety_h).reshape(c, c)
+    w3 = torch.einsum("bhid,hdc->bhic", dms, wv).to(dt).reshape(b, j, c)
+    return tacc, w3, dwv, dwo
+
+
+def _pool_bwd_dy_ref(x, se, be, qft, w3, macc, tacc) -> tuple:
+    """Plain version of ``pool_bwd_dy_kernel`` -> (dx in x's dtype, dse,
+    dbe [B, C] fp32, ds [B, N, J] in x's dtype): ds = e (y W3^T - tacc)
+    where s - macc > -80, dy = ds qf^T + e W3 (e and ds rounded first)."""
+    dt = x.dtype
+    y = _prenormed(x, se, be)
+    z = torch.einsum("bnc,jc->bnj", y, qft.float()) - macc[:, None]
+    e = torch.exp(torch.clamp(z, min=-80.0))
+    dp = torch.einsum("bnc,bjc->bnj", y, w3.float())
+    ds = torch.where(z > -80.0, e * (dp - tacc[:, None]), 0.0).to(dt)
+    dy = (torch.einsum("bnj,jc->bnc", ds.float(), qft.float())
+          + torch.einsum("bnj,bjc->bnc", e.to(dt).float(), w3.float()))
+    return (dy * se[:, None]).to(dt), (dy * x.float()).sum(1), dy.sum(1), ds
+
+
+def _pool_bwd_dqf_ref(x, se, be, ds) -> torch.Tensor:
+    """Plain version of ``pool_bwd_dqf_kernel`` and its sum: dqf = the sum
+    over the batch of y^T ds [C, J] fp32."""
+    return torch.einsum("bnc,bnj->cj", _prenormed(x, se, be), ds.float())
+
+
+def _pool_ext_bwd_fits(b: int, n: int, c: int, num_heads: int, i: int) -> None:
+    """Raises ValueError unless the pool backward (csrc/pool_ext_bwd.cu)
+    takes these shapes on the card: C in (384, 768), I == 64, D % 16 == 0,
+    D <= 64 and N % 64 == 0 (then H is even, so J = 64 H is a multiple of
+    the dqf product's 128-column tile). The upsample demo's C 128 and the
+    three-head flagship's D 128 fall outside."""
+    d = c // num_heads
+    if not (c % num_heads == 0 and c in (384, 768) and i == 64 and d % 16 == 0 and d <= 64
+            and n % 64 == 0):
+        raise ValueError(
+            f"folded_pool_ext_bwd: the CUDA kernel does not take B={b}, N={n}, C={c}, "
+            f"H={num_heads}, I={i} (D={d}): it needs C in (384, 768), I == 64, D % 16 == 0, "
+            f"D <= 64 and N % 64 == 0")
+
+
 def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
                         num_heads: int) -> tuple:
     """Gradients of ``folded_pool_ext`` against ``g_h0`` [B, I, C], from
@@ -289,8 +414,7 @@ def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
         return _pool_ext_bwd_ref(x, se, be, ind2, kvw, wo, g_h0, num_heads)
     name = "folded_pool_ext_bwd"
     b, n, c = x.shape
-    j, d = ind2.shape
-    i = j // num_heads
+    i = ind2.shape[0] // num_heads
     g = g_h0.to(x.dtype).contiguous()
     check_cuda(
         name, dict(x=x, se=se, be=be, ind2=ind2, kvw=kvw, wo=wo, qft=qft, g=g, macc=macc,
@@ -298,26 +422,49 @@ def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
         dict(x=_BF16, se=_F32, be=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16, qft=_BF16, g=_BF16,
              macc=_F32, sacc=_F32),
     )
-    _require(i == 64 and d % 16 == 0 and c in (384, 768), name,
-             f"I == 64, D % 16 == 0 and C in (384, 768) (I={i}, D={d}, C={c})")
-    _require(n % 64 == 0, name, f"N % 64 == 0 (N={n})")
-    dev = x.device
-    qf = qft.t().contiguous()
-    ety = torch.empty((b, j, c), dtype=_BF16, device=dev)
-    w2 = torch.empty((b, c, j), dtype=_BF16, device=dev)
-    w3 = torch.empty((b, j, c), dtype=_BF16, device=dev)
-    tacc = torch.empty((b, j), dtype=_F32, device=dev)
-    ds = torch.empty((b, n, j), dtype=_BF16, device=dev)
-    dx = torch.empty_like(x)
-    dse = torch.zeros((b, c), dtype=_F32, device=dev)
-    dbe = torch.zeros_like(dse)
-    dqf = torch.zeros((c, j), dtype=_F32, device=dev)
-    dwv = torch.zeros((c, c), dtype=_F32, device=dev)
-    dwo = torch.zeros_like(dwv)
-    launch("pool_ext_bwd", "pool_ext_bwd_launch", x, se, be, qf, kvw, wo, g, macc, sacc,
-           ety, w2, w3, tacc, ds, dx, dse, dbe, dqf, dwv, dwo, b, n, c, num_heads, i)
-    folded_pool_ext_bwd.launches += 1
+    _pool_ext_bwd_fits(b, n, c, num_heads, i)
+    dx, dse, dbe, dqf, dwv, dwo, _ = _pool_ext_bwd_hopper(x, se, be, qft, kvw, wo, g, macc, sacc,
+                                                          num_heads)
     return dx, dse, dbe, *_chain_dqf(dqf, dwv, ind2, kvw, num_heads), dwo.to(wo.dtype)
+
+
+def _pool_ext_bwd_hopper(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int) -> tuple:
+    """The kernel (csrc/pool_ext_bwd.cu) -> (dx, dse, dbe, dqf, dwv, dwo,
+    intermediates): the last a dict of the passes' eTy, W3, tacc and ds,
+    which ``probes.pool_bwd`` holds against their plain pieces."""
+    b, n, c = x.shape
+    j = qft.shape[0]
+    i = j // num_heads
+    dev = x.device
+    buf = dict(
+        ety=torch.empty((b, j, c), dtype=_BF16, device=dev),
+        w3=torch.empty((b, j, c), dtype=_BF16, device=dev),
+        tacc=torch.empty((b, j), dtype=_F32, device=dev),
+        ds=torch.empty((b, n, j), dtype=_BF16, device=dev),
+        dx=torch.empty_like(x),
+        dse=torch.zeros((b, c), dtype=_F32, device=dev),
+        dbe=torch.zeros((b, c), dtype=_F32, device=dev),
+        dwv=torch.zeros((c, c), dtype=_F32, device=dev),
+        dwo=torch.zeros((c, c), dtype=_F32, device=dev),
+    )
+    dqf = torch.empty((c, j), dtype=_F32, device=dev)
+    splits = _dqf_splits(b * n // 64, c, j, x.device)
+    part = torch.empty((splits, c, j), dtype=_F32, device=x.device)
+    launch("pool_ext_bwd", "pool_ext_bwd_launch", x, se, be, qft, kvw, wo, g, macc, sacc,
+           torch.empty_like(x), buf["ety"], buf["w3"], buf["tacc"], buf["ds"], buf["dx"],
+           buf["dse"], buf["dbe"], part, dqf, buf["dwv"], buf["dwo"], b, n, c, num_heads, i,
+           splits)
+    folded_pool_ext_bwd.launches += 1
+    return (buf["dx"], buf["dse"], buf["dbe"], dqf, buf["dwv"], buf["dwo"],
+            {k: buf[k] for k in ("ety", "w3", "tacc", "ds")})
+
+
+def _dqf_splits(tiles: int, c: int, j: int, device) -> int:
+    """Splits of the B*N points in the pool backward's dqf product:
+    enough blocks of (128 x 128 output tile, split) to give every SM one,
+    at most one split per 64-point tile."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(tiles, -(-sms // ((c // 128) * (j // 128)))))
 
 
 folded_pool_ext_bwd.launches = 0
@@ -577,31 +724,73 @@ def _unpool_tiles_ref(x, kft, vft, brow, num_heads: int, residual: bool = True) 
     return attn.to(dt), torch.stack([attn.sum(1), (attn * attn).sum(1)], dim=1)
 
 
+def _unpool_wmma_smem(tn: int, c: int, i: int) -> int:
+    """Bytes of one point tile of the WMMA unpool body, or 0 where no plan
+    fits the SM: csrc/unpool.cuh ``unpool_smem_plan`` (change both
+    together)."""
+    for dbl in (1, 0):
+        region0 = max((tn + (1 + dbl) * i) * (c + _PAD) * 2, tn * (c + _PADF) * 4)
+        region0 = -(-region0 // 128) * 128
+        smem = region0 + tn * (i + _PADF) * 4 + tn * (i + _PAD) * 2
+        if smem <= _MAX_SMEM:
+            return smem
+    return 0
+
+
+def _unpool_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
+    """Which forward body of ``folded_unpool`` takes these shapes on the
+    card: "hopper" (csrc/unpool.cu, TMA and wgmma: I == 64, H even,
+    D % 16 == 0, D <= 64, C in (192, 384, 768), N % 64 == 0) where it can,
+    else "wmma" (csrc/unpool_wmma.cu: C % 16 and I % 16 == 0, a point tile
+    of 64 or 32 rows dividing N whose shared memory fits the SM). Raises
+    ValueError with both bodies' conditions otherwise."""
+    d = c // num_heads
+    if (c % num_heads == 0 and i == 64 and num_heads % 2 == 0 and d % 16 == 0 and d <= 64
+            and c in (192, 384, 768) and n % 64 == 0):
+        return "hopper"
+    try:
+        tn = _row_tile(n, c)
+    except ValueError:
+        tn = 0
+    if c % num_heads == 0 and c % 16 == 0 and i % 16 == 0 and tn and _unpool_wmma_smem(tn, c, i):
+        return "wmma"
+    raise ValueError(
+        f"folded_unpool: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
+        f"(D={d}): the Hopper body needs I == 64, H even, D % 16 == 0, D <= 64, "
+        f"C in (192, 384, 768) and N % 64 == 0; the WMMA body C % 16 == 0, I % 16 == 0 "
+        f"and a point tile (64 rows at C <= 384, 32 at C <= 768) dividing N whose block fits "
+        f"{_MAX_SMEM} bytes of shared memory")
+
+
 def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int, residual: bool, prenorm: bool):
-    """The forward kernels (bq, fold, point tiles) -> (out, sums)."""
+    """The forward kernels of the body ``_unpool_body`` picks (bq, fold,
+    point tiles) -> (out, sums)."""
     name = "folded_unpool"
     b, n, c = x.shape
     i = k.shape[1]
     j = num_heads * i
-    d = c // num_heads
     check_cuda(
         name, dict(x=x, se=se, be=be, k=k, v=v, wq=wq, wo=wo),
         dict(x=_BF16, se=_F32, be=_F32, k=_BF16, v=_BF16, wq=_BF16, wo=_BF16),
     )
-    _require(i == 64 and num_heads % 2 == 0 and d % 16 == 0 and d <= 64, name,
-             f"I == 64, H even, D % 16 == 0 and D <= 64 (I={i}, H={num_heads}, D={d})")
-    _require(c in (192, 384, 768) and n % 64 == 0, name,
-             f"C in (192, 384, 768) and N % 64 == 0 (C={c}, N={n})")
+    body = _unpool_body(b, n, c, num_heads, i)
     dev = x.device
     kft = torch.empty((b, j, c), dtype=_BF16, device=dev)
-    vft = torch.empty((b, c, j), dtype=_BF16, device=dev)
     brow = torch.empty((b, j), dtype=_F32, device=dev)
     bq = torch.empty((b, c), dtype=_F32, device=dev)
     out = torch.empty_like(x)
     sums = torch.zeros((b, 2, c), dtype=_F32, device=dev)
-    launch("unpool", "unpool_launch", x, se, be, k, v, wq, wo, bq, kft, vft, brow, out, sums,
-           b, n, c, num_heads, i, int(residual), int(prenorm))
-    folded_unpool.launches += 1
+    if body == "hopper":
+        vft = torch.empty((b, c, j), dtype=_BF16, device=dev)
+        launch("unpool", "unpool_launch", x, se, be, k, v, wq, wo, bq, kft, vft, brow, out,
+               sums, b, n, c, num_heads, i, int(residual), int(prenorm))
+        folded_unpool.launches += 1
+    else:
+        vf = torch.empty_like(kft)
+        launch("unpool_wmma", "unpool_wmma_launch", x, se, be, k, v, wq, wo.t().contiguous(),
+               bq, kft, vf, brow, out, sums, b, n, c, num_heads, i, _row_tile(n, c),
+               int(residual), int(prenorm))
+        folded_unpool.launches_wmma += 1
     return out, sums
 
 
@@ -636,6 +825,7 @@ def folded_unpool(x, se, be, k, v, wq, wo, num_heads: int, residual: bool = True
 
 
 folded_unpool.launches = 0
+folded_unpool.launches_wmma = 0
 
 
 def _unpool_bwd_ref(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residual: bool = True,

@@ -12,6 +12,7 @@ holds each against its plain version.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -23,6 +24,7 @@ import torch
 from gecco_tpu.ops.pallas import folded_attention as jfa
 from gecco_tpu.ops.pallas import hside as jhs
 from gecco_tpu_torch.ops import kernels
+from gecco_tpu_torch.ops.kernels import _build
 from gecco_tpu_torch.ops.kernels import folded_attention as tfa
 from gecco_tpu_torch.ops.kernels._grad import needs_grad
 from gecco_tpu_torch.ops.kernels import hside as ths
@@ -184,7 +186,7 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         "projective_gather": 0, "rect_attention_fwd": 0, "fused_unpool_mlp": 0,
         "folded_pool_layer": 0, "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0,
         "fused_mlp_residual_bwd": 0, "projective_gather_bwd": 0, "rect_attention_bwd": 0,
-        "folded_pool_layer_bwd": 0,
+        "folded_pool_layer_bwd": 0, "folded_pool_ext_wmma": 0, "folded_unpool_wmma": 0,
     }
 
 
@@ -484,3 +486,89 @@ def test_unpool_pieces_compose_to_the_plain_version(residual, prenorm, dtype):
     tol = 1e-4 if dtype == "float32" else 2e-2
     assert _maxrel(out.float().numpy(), ref_out.float().numpy()) < tol
     assert _maxrel(sums.numpy(), ref_sums.numpy()) < tol
+
+
+# (B, N, C, H, I) -> the bodies of the pool forward and the unpool forward
+# (None where that function raises for the shape), and whether the pool
+# backward's kernel takes the shape
+@pytest.mark.parametrize("shape,bodies,bwd", [
+    ((48, 2048, 384, 8, 64), ("hopper", "hopper"), True),  # the flagship (training batch)
+    ((2, 8192, 768, 16, 64), ("hopper", "hopper"), True),  # the 8k width
+    ((48, 2048, 128, 4, 64), ("wmma", "wmma"), False),  # the upsample demo's 3 x 128 model
+    ((48, 2048, 384, 3, 64), ("wmma", "wmma"), False),  # num_heads=3 at the flagship's width
+    ((48, 2000, 384, 8, 64), (None, None), False),  # N not a multiple of 64: no body
+], ids=["flagship", "8k", "demo", "heads3", "none"])
+def test_body_switches_choose_by_shape(shape, bodies, bwd):
+    """The pool and unpool forwards pick one of their two CUDA bodies by
+    shape alone, and a shape that neither takes raises ValueError naming
+    both bodies' conditions; a shape that the pool backward's one kernel
+    does not take raises ValueError naming its conditions."""
+    for switch, want in zip((tfa._pool_ext_body, tfa._unpool_body), bodies):
+        if want is None:
+            with pytest.raises(ValueError, match="Hopper body .* WMMA body"):
+                switch(*shape)
+        else:
+            assert switch(*shape) == want
+    if bwd:
+        tfa._pool_ext_bwd_fits(*shape)
+    else:
+        with pytest.raises(ValueError, match="does not take .* it needs C in"):
+            tfa._pool_ext_bwd_fits(*shape)
+
+
+def test_shared_memory_mirrors_use_the_headers_constants():
+    """The shape switches' Python mirrors of the WMMA bodies' shared-memory
+    plans read kMaxSmem, kPad, kPadF and kPoolTile at the values that
+    csrc/common.cuh and csrc/pool.cuh give them."""
+    text = (_build.CSRC / "common.cuh").read_text() + (_build.CSRC / "pool.cuh").read_text()
+    header = tuple(int(re.search(rf"constexpr \w+ {name} = (\d+);", text).group(1))
+                   for name in ("kMaxSmem", "kPad", "kPadF", "kPoolTile"))
+    assert (tfa._MAX_SMEM, tfa._PAD, tfa._PADF, tfa._POOL_TILE) == header
+
+
+def _pool_bwd_by_pieces(x, se, be, ind2, kvw, wo, g_h0, heads):
+    """The Hopper pool backward's plain pieces in the kernels' order, on the
+    forward's folded query and softmax statistics (its plain pieces)."""
+    qft = tfa._fold_qft_ref(ind2, kvw, heads)
+    _, macc, sacc = tfa._pool_merge_ref(*tfa._pool_partials_ref(x, se, be, qft, kvw, heads), wo,
+                                        heads)
+    ety = tfa._pool_bwd_ety_ref(x, se, be, qft, macc)
+    tacc, w3, dwv, dwo = tfa._pool_bwd_fold_ref(ety, g_h0, kvw, wo, sacc, heads)
+    dx, dse, dbe, ds = tfa._pool_bwd_dy_ref(x, se, be, qft, w3, macc, tacc)
+    dqf = tfa._pool_bwd_dqf_ref(x, se, be, ds)
+    return (dx, dse, dbe, *tfa._chain_dqf(dqf, dwv, ind2, kvw, heads), dwo.to(wo.dtype))
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+def test_pool_bwd_pieces_compose_to_the_plain_backward_in_fp32(drift):
+    """In fp32 (every rounding of the v3 algebra a no-op) the pieces
+    compose to autograd of the plain version within 1e-5 of each
+    gradient's max |ref|."""
+    ops = [torch.from_numpy(a) for a in _pool_args(13, drift)]
+    g_h0 = torch.from_numpy(_cotangent(np.random.default_rng(14), B, I, C))
+    got = _pool_bwd_by_pieces(*ops, g_h0, HEADS)
+    want = tfa._pool_ext_bwd_ref(*ops, g_h0, HEADS)
+    for name, a, r in zip(("dx", "dse", "dbe", "dind2", "dkvw", "dwo"), got, want):
+        assert _maxrel(a.numpy(), r.numpy()) < 1e-5, name
+
+
+def test_pool_bwd_pieces_match_the_jax_kernel_in_bf16():
+    """On bf16 operands with drifted logits the pieces are the JAX v3
+    kernel's algebra: against ``jax.vjp`` of the JAX op (the v3 Pallas
+    backward in interpret mode) every gradient agrees within 1e-3 of max
+    |ref|, the witness test's tolerance for dse and dbe (the others are
+    rounded to bf16 at the end in both)."""
+    bf = torch.bfloat16
+    args = _pool_args(3, True)
+    assert jfa._pool_bwd_mode(N, C, HEADS * I, C // HEADS) == "v3"
+    ops = [torch.from_numpy(a).to(bf if q in (0, 3, 4, 5) else torch.float32)
+           for q, a in enumerate(args)]
+    g_h0 = torch.from_numpy(
+        np.random.default_rng(9).standard_normal((B, I, C)).astype(np.float32)).to(bf)
+    got = _pool_bwd_by_pieces(*ops, g_h0, HEADS)
+    jops = [jnp.asarray(a.float().numpy(), jnp.bfloat16 if a.dtype == bf else jnp.float32)
+            for a in ops]
+    ref = jax.jit(lambda a, g: jax.vjp(lambda *p: jfa.folded_pool_ext(*p, HEADS), *a)[1](g))(
+        jops, jnp.asarray(g_h0.float().numpy(), jnp.bfloat16))
+    for name, a, r in zip(("dx", "dse", "dbe", "dind2", "dkvw", "dwo"), got, ref):
+        assert _maxrel(a.float().numpy(), r) < 1e-3, name

@@ -8,9 +8,10 @@ Phases (each raises on failure; nothing is caught):
 1. environment: torch, nvcc, the card's name and power limit;
 2. build: the fourteen CUDA kernels of ``gecco_tpu_torch/csrc`` (eight
    forward, six backward) and the WMMA bodies beside the two Hopper
-   forwards (fifteen libraries, the projective gather's forward and backward in
-   one) with nvcc for sm_90a, one process per source, all at once, with
-   ``ptxas -v``'s registers and spills;
+   forwards and the two Hopper backwards (seventeen libraries, the
+   projective gather's forward and backward in one) with nvcc for sm_90a,
+   one process per source, all at once, with ``ptxas -v``'s registers and
+   spills;
 3. forward kernels: each set-transformer kernel against its plain PyTorch
    version on the card, in bf16, at the sampler's flagship shapes (batch
    64; ordinary and drifted operands), the pool also at the 8k width; each
@@ -19,10 +20,12 @@ Phases (each raises on failure; nothing is caught):
    as the library yardstick (used nowhere in the port);
 4. backward kernels: each against autograd of its plain version on the
    card, in bf16, at the flagship's training shapes (batch 48; ordinary and
-   drifted operands, nonzero sums cotangents), the pool's also at the 8k
-   width; each output against its own tolerance (the pool's drifted dbe
-   beside a witness of its looser one); times, bounds and, for
+   drifted operands, nonzero sums cotangents), the pool's and the unpool's
+   also at the 8k width; each output against its own tolerance (the pool's
+   drifted dbe beside a witness of its looser one); times, bounds and, for
    pool and unpool, the backward of per-head ``scaled_dot_product_attention``;
+   the unpool backward's WMMA body beside its Hopper body at both widths;
+   the backwards' bodies at the demo model's and three heads' shapes;
 5. projective gather: the forward against its plain version and the
    backward against autograd of the plain version, at the 256^2 pyramid of
    the image-conditional model (batch 48, 2048 points) and at the 137^2
@@ -117,7 +120,14 @@ Phases (each raises on failure; nothing is caught):
    128, 4 heads of 32 channels, 64 inducers) samples 48 2048-point clouds
    with the 128-step Heun grid: the forwards' WMMA bodies (pool and unpool)
    and the h-side and MLP kernels 3 x 254 times each, the Hopper pool and
-   unpool never; then the 8-step sample against the plain path.
+   unpool never; then the 8-step sample against the plain path;
+19. demo training path: the same model trains at batch 48 as in phase 8
+   (ROADMAP.md C4): one step's gradient against the plain path, then 3 +
+   20 steps, per step and layer the forwards' WMMA bodies, the pool
+   backward's WMMA body, the unpool backward's Hopper body and the MLP
+   backward once each; then one gradient of the flagship with three heads
+   (C 384, D 128) against the plain path, which runs the WMMA bodies of
+   the pool and unpool forwards and backwards.
 
 Phase 3 also holds the pool's and unpool's WMMA bodies (the shapes the
 Hopper designs do not take) against their plain versions at the demo's
@@ -125,7 +135,14 @@ shapes, where it times them, and with three heads at the flagship's width,
 and fails unless those checks ran the WMMA bodies alone. Phase 4 holds the
 pool backward at both widths, ordinary and drifted, times it at both
 (median, min and max of 20 calls), and requires dqf (through dind2) to be
-the same bits in two calls.
+the same bits in two calls; it holds the unpool backward's Hopper and
+WMMA bodies at both widths, ordinary and drifted, times both at both
+(median, min and max of 20 calls each, in turns), and requires dkf and dvf
+(through dk and dv) to be the same bits in two calls of the Hopper body;
+and it holds the pool backward's WMMA body (the demo, three heads), the
+unpool backward's Hopper body (the demo) and WMMA body (three heads) and
+the MLP backward at C 128, and fails unless those checks ran the expected
+bodies.
 
 Phases 3, 4 and 14 also time, beside the SDPA yardstick of the pools and
 unpools, the whole function as a chain of PyTorch calls (pre-norm,
@@ -322,12 +339,19 @@ SOURCES = {
                              "gecco_tpu/ops/pallas/folded_attention.py:1154"),
     "folded_unpool_wmma": ("gecco_tpu_torch/csrc/unpool_wmma.cu",
                            "gecco_tpu/ops/pallas/folded_attention.py:2222"),
+    # the WMMA bodies beside the Hopper pool and unpool backwards, chosen by
+    # shape
+    "folded_pool_ext_bwd_wmma": ("gecco_tpu_torch/csrc/pool_ext_bwd_wmma.cu",
+                                 "gecco_tpu/ops/pallas/folded_attention.py:1843"),
+    "folded_unpool_bwd_wmma": ("gecco_tpu_torch/csrc/unpool_bwd_wmma.cu",
+                               "gecco_tpu/ops/pallas/folded_attention.py:2457"),
 }
 SET_FORWARD = ("folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual")
 BACKWARD = ("folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd",
             "rect_attention_bwd")
 FOLDED_BACKWARD = BACKWARD[:3]
 WMMA_FORWARD = ("folded_pool_ext_wmma", "folded_unpool_wmma")
+WMMA_BACKWARD = ("folded_pool_ext_bwd_wmma", "folded_unpool_bwd_wmma")
 GATHER = ("projective_gather", "projective_gather_bwd")
 
 
@@ -726,9 +750,11 @@ def pool_layer_bwd_tpu_algebra(x, scale, bias, ind2, kvw, wo, gind, g_h0, heads)
     return (dy * xc).sum(1) * inv, dy.sum(1)
 
 
-def backward_phase(device, shapes, big, dt, reps):
+def backward_phase(device, shapes, big, demo, heads3, dt, reps):
     """Every backward kernel against autograd of its plain version, each
-    output against its own tolerance; returns per-kernel records."""
+    output against its own tolerance; returns per-kernel records. The
+    unpool backward's two bodies at both widths; the bodies that the
+    ``demo`` model's and ``heads3``'s shapes take."""
     g = torch.Generator(device=device).manual_seed(2)
     r = lambda *sh: torch.randn(*sh, generator=g, device=device)
     # the chain yardsticks' cotangents, apart from the checks' draws
@@ -874,6 +900,128 @@ def backward_phase(device, shapes, big, dt, reps):
           f"{'the same bits' if same else 'DIFFER'}")
     if device.type == "cuda" and not same:
         raise AssertionError("the pool backward's dqf differs between two calls")
+
+    # the unpool backward's two bodies at both widths on the same operands,
+    # ordinary and drifted (the flagship's Hopper body is checked above);
+    # each body's time with its spread (20 calls each, in turns: 10 WMMA,
+    # 20 Hopper, 10 WMMA); dkf and dvf (through dk and dv, which only
+    # they feed) the same bits in two calls of the Hopper body. On the CPU
+    # both "bodies" are the plain version.
+    def unpool_bodies(shape, drift):
+        bb, nn_, cc, hh, ii = shape
+        ops = unpool_operands(g, bb, nn_, cc, hh, ii, drift, device, dt)
+        gg, gs = (0.1 * r(bb, nn_, cc)).to(dt), 1e-3 * r(bb, 2, cc)
+        plain = lambda: fa._unpool_bwd_ref(*ops, gg, gs, hh)
+        if device.type != "cuda":
+            return plain, plain, plain
+
+        def wmma():
+            dx, dse, dbe, dkf, dvf = fa._unpool_bwd_wmma(*ops, gg, gs, hh, True, True)
+            return (dx, dse, dbe, *fa._chain_unpool(dkf, dvf, *ops[3:], hh))
+
+        return lambda: fa.folded_unpool_bwd(*ops, gg, gs, hh), wmma, plain
+
+    un_rec = rec["folded_unpool_bwd"]
+    wm_rec = dict(un_rec)  # the same function at the same shapes: bound and yardsticks
+    wm_errs = []
+    for width, shape in widths.items():
+        key = "" if width == "flagship" else "_8k"
+        if device.type == "cuda" and fa._unpool_bwd_body(*shape) != "hopper":
+            raise AssertionError(f"the unpool backward at the {width} is not the Hopper body's")
+        for drift in (False, True):
+            hopper, wmma, plain = unpool_bodies(shape, drift)
+            tag = f"{width}, {'drift' if drift else 'ordinary'}"
+            if key:
+                compare("folded_unpool_bwd", f"Hopper body, {tag}", hopper, plain)
+            wm_errs.append(compare("folded_unpool_bwd", f"WMMA body, {tag}", wmma, plain))
+        hopper, wmma, _ = unpool_bodies(shape, False)
+        half = max(1, reps // 2)
+        t_w = time_all(wmma, device, half)
+        t_h = sorted(time_all(hopper, device, half) + time_all(hopper, device, half))
+        t_w = sorted(t_w + time_all(wmma, device, half))
+        for out, t, body in ((un_rec, t_h, "Hopper"), (wm_rec, t_w, "WMMA")):
+            out["ms" + key] = statistics.median(t)
+            out["ms_min_max" + key] = [t[0], t[-1]]
+            print(f"  folded_unpool_bwd, {body} body, at the {width}: median "
+                  f"{statistics.median(t):.3f} ms of {len(t)} calls (min {t[0]:.3f}, max "
+                  f"{t[-1]:.3f})")
+        first, again = hopper(), hopper()
+        sync(device)
+        same = torch.equal(first[3], again[3]) and torch.equal(first[4], again[4])
+        print(f"  folded_unpool_bwd at the {width}: dk and dv (from dkf and dvf) of two calls "
+              f"{'the same bits' if same else 'DIFFER'}")
+        if device.type == "cuda" and not same:
+            raise AssertionError("the unpool backward's dkf/dvf differ between two calls")
+    wm_rec["max_abs_err"] = max(wm_errs)
+
+    # the bodies that the demo model (C 128, 4 heads of 32) and three heads
+    # at the flagship's width take: the pool backward's WMMA body (its
+    # drifted dbe also against the v3 witness), the unpool's Hopper body
+    # (demo) and WMMA body (three heads), the MLP backward at C 128; each
+    # against the plain version, ordinary and drifted; timed at the demo's
+    # shapes (median of 20 calls)
+    db, dn, dc, dh, di = (demo[k] for k in ("batch", "n_points", "feature_dim", "num_heads",
+                                            "num_inducers"))
+    hshape = tuple(heads3[k] for k in ("batch", "n_points", "feature_dim", "num_heads",
+                                       "num_inducers"))
+    dshape = (db, dn, dc, dh, di)
+    kernels.reset_launch_counts()
+    pw_errs = []
+    for shape in (dshape, hshape):
+        for drift in (False, True):
+            tag = f"C {shape[2]}, {shape[3]} heads, {'drift' if drift else 'ordinary'}"
+            _, kernel, plain, witness = pool_case(*shape, drift)
+            pw_errs.append(compare("folded_pool_ext_bwd", f"WMMA body, {tag}", kernel, plain,
+                                   witness if drift else None))
+            hopper, wmma, plain = unpool_bodies(shape, drift)
+            compare("folded_unpool_bwd", tag, hopper, plain)
+    for drift in (False, True):
+        ops = mlp_operands(g, db, dn, dc, 2 * dc, drift, device, dt)
+        gg, gs = (0.1 * r(db, dn, dc)).to(dt), 1e-3 * r(db, 2, dc)
+        compare("fused_mlp_residual_bwd", f"C {dc}, {'drift' if drift else 'ordinary'}",
+                lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs),
+                lambda: fa._mlp_bwd_ref(*ops, gg, gs))
+    counts = kernels.launch_counts()
+    print(f"  launches of the backwards' bodies in these checks: "
+          f"{ {k: counts[k] for k in FOLDED_BACKWARD + WMMA_BACKWARD} }")
+    if device.type == "cuda" and not (counts["folded_pool_ext_bwd_wmma"] == 4
+                                      and counts["folded_pool_ext_bwd"] == 0
+                                      and counts["folded_unpool_bwd"] == 2
+                                      and counts["folded_unpool_bwd_wmma"] == 2
+                                      and counts["fused_mlp_residual_bwd"] == 2):
+        raise AssertionError(f"the demo and num_heads=3 shapes did not run the expected "
+                             f"backward bodies: {counts}")
+    ops, kernel, plain, _ = pool_case(*dshape, False)
+    pw_rec = dict(max_abs_err=max(pw_errs), ms=time_ms(kernel, device, reps),
+                  plain_ms=time_ms(plain, device, max(2, reps // 4)),
+                  library_ms=time_ms(sdpa_pool_bwd(ops, dh, g), device, reps),
+                  library_chain_ms=time_ms(chain_backward(chain_pool, ops, dh,
+                                                          ((0.1 * rc(db, di, dc)).to(dt),)),
+                                           device, reps))
+    dd, dj = dc // dh, dh * di
+    pw_rec["bound_ms"], pw_rec["bound_by"] = bound(
+        6 * 2 * db * dn * dc * dj + 6 * 2 * db * dj * dd * dc,
+        nbytes(*[a for a in ops if torch.is_tensor(a)], *kernel())
+        + 2 * db * di * dc + 2 * 4 * db * dj)
+    _, kernel, *_ = pool_case(*hshape, False)
+    pw_rec["ms_heads3"] = time_ms(kernel, device, reps)
+    hopper, wmma, _ = unpool_bodies(dshape, False)
+    un_rec["ms_demo"] = time_ms(hopper, device, reps)
+    _, wmma, _ = unpool_bodies(hshape, False)
+    wm_rec["ms_heads3"] = time_ms(wmma, device, reps)
+    ops = mlp_operands(g, db, dn, dc, 2 * dc, False, device, dt)
+    gg, gs = (0.1 * r(db, dn, dc)).to(dt), 1e-3 * r(db, 2, dc)
+    rec["fused_mlp_residual_bwd"]["ms_demo"] = time_ms(
+        lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs), device, reps)
+    print(f"  folded_pool_ext_bwd, WMMA body: {pw_rec['ms']:.3f} ms at the demo's shapes "
+          f"(plain {pw_rec['plain_ms']:.3f}, library {pw_rec['library_ms']:.3f}, chain "
+          f"{pw_rec['library_chain_ms']:.3f}, bound {pw_rec['bound_ms']:.3f} "
+          f"({pw_rec['bound_by']})), {pw_rec['ms_heads3']:.3f} ms with three heads at C {hshape[2]}; "
+          f"folded_unpool_bwd: Hopper body {un_rec['ms_demo']:.3f} ms at the demo's shapes, WMMA "
+          f"body {wm_rec['ms_heads3']:.3f} ms with three heads; fused_mlp_residual_bwd "
+          f"{rec['fused_mlp_residual_bwd']['ms_demo']:.3f} ms at the demo's shapes")
+    rec["folded_pool_ext_bwd_wmma"] = pw_rec
+    rec["folded_unpool_bwd_wmma"] = wm_rec
     return rec
 
 
@@ -1626,14 +1774,17 @@ def compare_grads(model, loss_fn, tol, impl="folded_pallas", witness=False):
               "(worst group)", worst_algebra, TOL_ALGEBRA_GRAD, "||err||/||ref||")
 
 
-def train_phase(device, n_layers, batch, n_points, card, steps, attn_impl="folded_pallas"):
-    """The flagship's train step on procedural clouds, the set transformer
-    on ``attn_impl``: the gradient of the kernel path against the plain
-    path, then ``steps`` = (warm-up, timed) steps; returns the per-kernel
-    launch counts of the timed steps and a record."""
+def train_phase(device, n_layers, batch, n_points, card, steps, attn_impl="folded_pallas",
+                dims=FLAGSHIP, expect=None):
+    """The flagship's (or the model of ``dims``') train step on procedural
+    clouds, the set transformer on ``attn_impl``: the gradient of the
+    kernel path against the plain path, then ``steps`` = (warm-up, timed)
+    steps, whose launch counts must be ``expect(timed)`` (by default each
+    set-transformer kernel once per layer and step); returns the
+    per-kernel launch counts of the timed steps and a record."""
     warmup, timed = steps
     model = build_flagship(device, torch.Generator().manual_seed(0), n_layers,
-                           attn_impl=attn_impl)
+                           attn_impl=attn_impl, dims=dims)
     gen = torch.Generator(device=device).manual_seed(1)
     rng = np.random.default_rng(0)
     data = [torch.from_numpy(make_clouds(rng, batch, n_points)).to(device) for _ in range(4)]
@@ -1669,7 +1820,9 @@ def train_phase(device, n_layers, batch, n_points, card, steps, attn_impl="folde
           + (f"{peak_gb:.3f} GiB" if peak_gb is not None else "not measured (no card)"))
     print(f"  losses: {' '.join(f'{v:.4f}' for v in losses)}")
     check_finite(losses, model, ema)
-    if attn_impl == "pallas":
+    if expect is not None:
+        expected = expect(timed)
+    elif attn_impl == "pallas":
         # the per-head path: each layer's pool and unpool, forward and backward
         expected = {k: 2 * n_layers * timed for k in ("rect_attention_fwd", "rect_attention_bwd")}
     else:
@@ -1684,6 +1837,39 @@ def train_phase(device, n_layers, batch, n_points, card, steps, attn_impl="folde
     profile_steps(run, PROFILE_STEPS, device)
     return counts, dict(ms_per_step=ms, clouds_per_s=batch * timed / seconds,
                         losses=losses, peak_gb=peak_gb)
+
+
+def demo_train_phase(device, demo_dims, batch, heads3_dims, card, steps):
+    """ROADMAP C4's two models train on the card: the upsample demo's
+    model (3 x 128, 4 heads) through ``train_phase`` (its gradient against
+    the plain path, then timed steps: the forwards' WMMA bodies, the pool
+    backward's WMMA body, the unpool backward's Hopper body and the MLP
+    backward, each once per layer and step); then one gradient of the
+    flagship with three heads (C 384, D 128) against the plain path, whose
+    kernel path runs the WMMA bodies of all four pool and unpool
+    functions. Returns both runs' launch counts and the demo's record."""
+    n_layers = demo_dims["n_layers"]
+    layers = lambda k: {name: k * n_layers for name in (
+        "folded_pool_ext_wmma", "fused_h_side", "folded_unpool_wmma", "fused_mlp_residual",
+        "folded_pool_ext_bwd_wmma", "folded_unpool_bwd", "fused_mlp_residual_bwd")}
+    counts, rec = train_phase(device, n_layers, batch, demo_dims["n_points"], card, steps,
+                              dims=demo_dims, expect=layers)
+
+    h_layers = heads3_dims["n_layers"]
+    model = build_flagship(device, torch.Generator().manual_seed(0), h_layers, dims=heads3_dims)
+    gen = torch.Generator(device=device).manual_seed(1)
+    data = torch.from_numpy(make_clouds(np.random.default_rng(0), batch,
+                                        heads3_dims["n_points"])).to(device)
+    sigma, noise = model.draw_sigma_noise(gen, data)
+    print(f"  num_heads=3 ({heads3_dims}), batch {batch}: one gradient, kernel path vs plain path")
+    kernels.reset_launch_counts()
+    compare_grads(model, lambda: model.loss_from(data, sigma, noise), TOL_TRAIN_GRAD)
+    h_counts = kernels.launch_counts()
+    check_counts("num_heads=3 gradient", h_counts, expected_counts(
+        {k: h_layers for k in ("folded_pool_ext_wmma", "fused_h_side", "folded_unpool_wmma",
+                               "fused_mlp_residual", "fused_mlp_residual_bwd")
+         + WMMA_BACKWARD}), device)
+    return counts, h_counts, rec
 
 
 def validate_phase(device, rehearse):
@@ -1726,13 +1912,17 @@ KERNEL_FUNCTIONS = {
     "folded_unpool": ("unpool_bq_kernel", "unpool_fold_k_kernel", "unpool_fold_v_kernel",
                       "unpool_tile_kernel"),
     "fused_mlp_residual": ("mlp_kernel",),
-    "folded_pool_ext_bwd": ("pool_bwd_prenorm_kernel", "pool_bwd_ety_kernel",
-                            "pool_bwd_dy_kernel", "pool_bwd_dqf_kernel",
-                            "pool_bwd_dqf_sum_kernel"),
-    "pool_bwd_fold_kernel (the pool backward's fold)": ("pool_bwd_fold_kernel",),
+    "folded_pool_ext_bwd": ("pool_bwd_ety_kernel", "pool_bwd_dy_kernel"),
+    "pool_bwd_fold_kernel (the pool backwards' fold)": ("pool_bwd_fold_kernel",),
+    "folded_pool_ext_bwd_wmma": ("pool_bwd_e_kernel", "pool_bwd_ety_cast_kernel",
+                                 "pool_bwd_dy_wmma_kernel"),
     "folded_pool_ext_wmma": ("pool_kernel",),
     "folded_unpool_wmma": ("unpool_fold_kernel", "unpool_kernel"),
-    "folded_unpool_bwd": ("unpool_bwd_fold_kernel", "unpool_bwd_kernel"),
+    "folded_unpool_bwd": ("unpool_bwd_heads_kernel", "unpool_bwd_rows_kernel"),
+    "unpool_bwd_fold_kernel (the unpool backwards' fold)": ("unpool_bwd_fold_kernel",),
+    "folded_unpool_bwd_wmma": ("unpool_bwd_kernel",),
+    "prenorm_kernel and wgrad_kernel (the Hopper backwards' shared pre-norm and weight "
+    "gradients)": ("prenorm_kernel", "wgrad_kernel", "wgrad_sum_kernel"),
     "fused_mlp_residual_bwd": ("mlp_bwd_kernel",),
     "atb_kernel (the weight-gradient products of the folded backwards)": ("atb_kernel",),
     "projective_gather": ("gather_kernel",),
@@ -2051,9 +2241,12 @@ def main():
         torch.set_num_threads(2)  # the tests run it beside other workers
         shapes = dict(batch=2, n_points=128, feature_dim=64, num_inducers=16, num_heads=4)
         big = dict(batch=1, n_points=256, feature_dim=128, num_inducers=16, num_heads=8)
-        demo_dims = dict(DEMO, feature_dim=32, num_inducers=16, n_points=128)
+        # 2 channels a group of 32 (at 1 a group, the GroupNorms zero some
+        # gradients outright, and the train check compares noise)
+        demo_dims = dict(DEMO, feature_dim=64, num_inducers=16, n_points=128)
         demo = dict(demo_dims, batch=2)
         heads3 = dict(shapes, feature_dim=48, num_heads=3)
+        heads3_dims = dict(demo_dims, n_layers=2, feature_dim=96, num_heads=3)
         dt, reps, n_layers, batch, n_points, n_steps = torch.bfloat16, 1, 2, 2, 128, 3
         train_batch = cond_batch = 2
         image_size, render_size = 32, 37
@@ -2068,6 +2261,7 @@ def main():
         demo_dims = DEMO
         demo = dict(DEMO, batch=DEMO_BATCH)
         heads3 = dict(shapes, num_heads=3)
+        heads3_dims = dict(FLAGSHIP, num_heads=3)
         dt, reps, n_layers, batch, n_points, n_steps = (
             torch.bfloat16, 20, FLAGSHIP["n_layers"], BATCH, FLAGSHIP["n_points"], N_STEPS)
         train_batch, cond_batch = TRAIN_BATCH, COND_BATCH
@@ -2109,7 +2303,8 @@ def main():
     train_shapes = dict(shapes, batch=train_batch)
     print(f"== backward kernels vs autograd of the plain versions ({train_shapes}; "
           f"8k pool {big}) on {card}")
-    rec.update(backward_phase(device, train_shapes, big, dt, reps))
+    rec.update(backward_phase(device, train_shapes, big, demo, dict(heads3, batch=train_batch),
+                              dt, reps))
 
     print(f"== projective gather vs plain versions (batch {cond_batch}, {n_points} points; "
           f"pyramids of {image_size}^2 and {render_size}^2 images) on {card}")
@@ -2192,6 +2387,13 @@ def main():
                                "fused_mlp_residual")})
     print(f"  {demo_path['clouds_per_s']:.3f} clouds/s on {card}")
 
+    print(f"== demo training path: scripts/demo_upsample_100k.py's model ({demo_dims}), batch "
+          f"{train_batch}, {train_steps[0]} + {train_steps[1]} steps (the backwards' bodies at "
+          f"C {demo_dims['feature_dim']}); then one gradient with three heads ({heads3_dims}), "
+          f"on {card}")
+    demo_train_counts, heads3_counts, demo_train = demo_train_phase(
+        device, demo_dims, train_batch, heads3_dims, card, train_steps)
+
     print("== summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
@@ -2203,6 +2405,8 @@ def main():
     print(f"  launches on the module-level folded path: {module_counts}")
     print(f"  launches on the upsample path: {up_counts}")
     print(f"  launches on the demo sampler path: {demo_counts}")
+    print(f"  launches on the demo training path: {demo_train_counts}")
+    print(f"  launches in the num_heads=3 gradient: {heads3_counts}")
     print(f"  sampler {path['clouds_per_s']:.3f} clouds/s (batch {batch}); train step "
           f"{train['ms_per_step']:.3f} ms (batch {train_batch}); conditional sampler "
           f"{cond_path['clouds_per_s']:.3f} clouds/s (batch {cond_batch}; ConvNeXt "
@@ -2216,7 +2420,8 @@ def main():
           f"points {up_path['seconds']:.3f} s ({up_path['points_per_s']:.1f} new points/s); "
           f"validation phase {val['seconds']:.1f} s (1-NN {val['one_nn']:.4f}, MMD "
           f"{val['mmd']:.4g}, COV {val['cov']:.4f}); demo sampler {demo_path['clouds_per_s']:.3f} "
-          f"clouds/s (batch {demo['batch']}); {card}")
+          f"clouds/s (batch {demo['batch']}); demo train step {demo_train['ms_per_step']:.3f} ms "
+          f"(batch {train_batch}); {card}")
     # launches: each kernel's count on the path that first brought it in
     # (printed above): the flagship sampler's for a set-transformer forward
     # kernel, the flagship training path's for a backward one, the
@@ -2226,7 +2431,9 @@ def main():
     # folded path's for the resident pool, split by variant: the sums-less
     # layer's run gave the pre-norm launches (nested under "prenorm", as
     # their times are), the Broadcast's runs the rest; the demo sampler's for
-    # the forwards' WMMA bodies
+    # the forwards' WMMA bodies, the demo training path's for the pool
+    # backward's WMMA body, the num_heads=3 gradient's for the unpool
+    # backward's
     pool_counts = {}
     for name in ("folded_pool_layer", "folded_pool_layer_bwd"):
         rec[name]["prenorm"]["launches"] = prenorm_counts.get(name, 0)
@@ -2235,7 +2442,9 @@ def main():
                      "rect_attention_fwd": ph_counts, "rect_attention_bwd": ph_train_counts,
                      "fused_unpool_mlp": mega_counts, "folded_pool_layer": pool_counts,
                      "folded_pool_layer_bwd": pool_counts, "folded_pool_ext_wmma": demo_counts,
-                     "folded_unpool_wmma": demo_counts}
+                     "folded_unpool_wmma": demo_counts,
+                     "folded_pool_ext_bwd_wmma": demo_train_counts,
+                     "folded_unpool_bwd_wmma": heads3_counts}
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=source_counts.get(name, train_counts if name in BACKWARD else counts)[name],

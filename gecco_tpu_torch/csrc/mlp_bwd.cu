@@ -13,7 +13,8 @@
 // per batch element: W = 768 FLOP per byte of the stream in and out at the
 // flagship). Design: the TPU kept the [TN, W] planes in VMEM and
 // accumulated the four weight gradients in output blocks carried across its
-// sequential grid. Here one block takes a 64-point tile (32 at C = 768) and
+// sequential grid. Here one block takes a 64-point tile (32 above C = 384;
+// C a multiple of 128 up to 768) and
 // walks W in 32-wide chunks twice: first for o (the fp32 [TN, C] sum in
 // registers), then, with g' formed, for da, dh and dy (registers again).
 // It writes bf16(a), bf16(dh) [B, N, W] and bf16(g') [B, N, C] to device
@@ -141,12 +142,22 @@ extern "C" int mlp_bwd_launch(const void* x, const void* se, const void* be, con
                               void* dbe, void* dw1t, void* db1, void* dw2t, void* db2, int B,
                               int N, int C, int W, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if ((C != 384 && C != 768) || W % 64 || N % 64) return (int)cudaErrorInvalidValue;
-  const int TN = C == 384 ? 64 : 32;
+  if (C % 128 || C > 768 || W % 64 || N % 64) return (int)cudaErrorInvalidValue;
+  // 64-point tiles while the [64, C] accumulator fits a warp's 12 tiles
+  // (C <= 384), else 32
+  const int TN = C <= 384 ? 64 : 32;
   const size_t smem = (size_t)2 * TN * (C + kPad) * 2 + (size_t)TN * (C + kPadF) * 4 +
                       (size_t)2 * TN * (kChunk + kPadF) * 4 + (size_t)TN * (kChunk + kPad) * 2;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const auto kernel = C == 384 ? mlp_bwd_kernel<4, 3> : mlp_bwd_kernel<2, 6>;
+  decltype(&mlp_bwd_kernel<4, 1>) kernel;
+  switch (C / 128) {
+    case 1: kernel = mlp_bwd_kernel<4, 1>; break;
+    case 2: kernel = mlp_bwd_kernel<4, 2>; break;
+    case 3: kernel = mlp_bwd_kernel<4, 3>; break;
+    case 4: kernel = mlp_bwd_kernel<2, 4>; break;
+    case 5: kernel = mlp_bwd_kernel<2, 5>; break;
+    default: kernel = mlp_bwd_kernel<2, 6>; break;
+  }
   cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(N / TN, B), kThreads, smem, st>>>(

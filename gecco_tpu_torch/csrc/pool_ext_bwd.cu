@@ -24,9 +24,9 @@
 // products per batch element, hundreds of FLOP per byte moved).
 //
 // Design (six launches):
-// 0. pool_bwd_prenorm_kernel: y = bf16(x * se + be) [B, N, C] once, which
-//    the three products below read by TMA (each would otherwise pre-norm
-//    its tiles again: pass 0 once per head).
+// 0. prenorm_kernel (backward.cuh): y = bf16(x * se + be) [B, N, C] once,
+//    which the three products below read by TMA (each would otherwise
+//    pre-norm its tiles again: pass 0 once per head).
 // 1. pool_bwd_ety_kernel, one block per (head h, b, 384 columns of C): the
 //    TMA brings the head's qf^T_h [64, C] once and y in 64-point tiles
 //    through a ring (three stages at C 384, one at 768). The first of two
@@ -36,8 +36,8 @@
 //    into their 192 columns of eTy_h (a [64, 192] fp32 accumulator each, 96
 //    registers a thread), y read MN-major by wgmma straight from the TMA
 //    tile. The accumulator leaves registers once, as bf16 eTy.
-// 2. pool_bwd_fold_kernel (WMMA, one block per (head, b)): DMs, pacc,
-//    tacc, W3 and the dWo/dWv blocks by fp32 atomics.
+// 2. pool_bwd_fold_kernel (backward.cuh, WMMA, one block per (head, b)):
+//    DMs, pacc, tacc, W3 and the dWo/dWv blocks by fp32 atomics.
 // 3. pool_bwd_dy_kernel, one block per (64-point tile, b, 384 columns):
 //    the y tile by TMA; J in chunks of JC rows (64 at C 384, 32 at 768) of
 //    qf^T and W3_b by TMA. Per chunk the first warpgroup forms s and the
@@ -50,17 +50,18 @@
 //    block for the sums). At C 768 two blocks share a tile, each forming the
 //    tile's logits again for its half of dy (a [64, 768] accumulator does
 //    not fit).
-// 4. pool_bwd_dqf_kernel, one block per (128 columns of J, 128 rows of C,
-//    split of the B*N points): y^T and ds by TMA through a four-stage ring,
-//    both read MN-major by wgmma; each split writes its fp32 partial [C, J]
-//    tile.
-// 5. pool_bwd_dqf_sum_kernel: dqf = the partials summed in split order,
-//    so dqf is the same bits from run to run (dWv, dWo, dse and dbe come
-//    from fp32 atomics and vary at their rounding).
+// 4. wgrad_kernel (wgrad.cuh), one block per (128 columns of J, 128 rows
+//    of C, split of the B*N points): y^T and ds by TMA through a
+//    four-stage ring, both read MN-major by wgmma; each split writes its
+//    fp32 partial [C, J] tile (one split writes dqf itself).
+// 5. wgrad_sum_kernel: dqf = the partials summed in split order, so dqf is
+//    the same bits from run to run (dWv, dWo, dse and dbe come from fp32
+//    atomics and vary at their rounding).
 #include <cmath>
 
 #include "backward.cuh"
 #include "hopper.cuh"
+#include "wgrad.cuh"
 
 using namespace gecco;
 using namespace gecco::hopper;
@@ -73,31 +74,10 @@ constexpr int kCB = 384;             // columns of C per block (eTy, dy)
 constexpr int kHalf = kCB / 2;       // columns per consumer warpgroup
 constexpr int kPanel = kTile * 128;  // one 64-column panel of a 64-row tile
 constexpr int kBwdThreads = 256;     // two consumer warpgroups
-constexpr int kDqfRing = 4;          // stages of the dqf kernel's ring
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
                                           ~(uintptr_t)1023);
-}
-
-// y = bf16(x * se + be) [B * N, C], 8 channels a thread: the stream all
-// three products read, formed once.
-__global__ void __launch_bounds__(kThreads)
-pool_bwd_prenorm_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
-                        const float* __restrict__ be, bf16* __restrict__ y, int N, int C,
-                        long long vecs) {
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= vecs) return;
-  const long long e0 = idx * 8;
-  const int c = (int)(e0 % C);
-  const size_t bc = (size_t)(e0 / ((long long)N * C)) * C + c;
-  int4 raw = __ldg(reinterpret_cast<const int4*>(x + e0));
-  bf16* v = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    v[e] = __float2bfloat16(__bfloat162float(v[e]) * __ldg(se + bc + e) + __ldg(be + bc + e));
-  }
-  *reinterpret_cast<int4*>(y + e0) = raw;
 }
 
 // ------------------------------------------------------------- pass 0 --
@@ -221,66 +201,6 @@ pool_bwd_ety_kernel(const __grid_constant__ CUtensorMap tm_y,
     *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(r + 8) * C + 8 * g + col) =
         __floats2bfloat162_rn(acc[4 * g + 2], acc[4 * g + 3]);
   }
-}
-
-// -------------------------------------------------------------- fold --
-
-// The per-batch fold, one block per (head h, batch element b). Shared
-// memory: the product buffer, DMs_h [I, D] and merged_h [I, D] bf16,
-// pacc_h [I, D] fp32.
-__global__ void __launch_bounds__(kThreads)
-pool_bwd_fold_kernel(const bf16* __restrict__ gh, const bf16* __restrict__ wo,
-                     const bf16* __restrict__ kvw, const float* __restrict__ sacc,
-                     const bf16* __restrict__ ety, float* __restrict__ tacc, bf16* __restrict__ w3,
-                     float* __restrict__ dwv, float* __restrict__ dwo, int C, int H, int I) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int D = C / H, J = H * I;
-  const int ldd = D + kPad, ldp = D + kPadF;
-  float* buf = reinterpret_cast<float*>(smem);
-  bf16* dms = reinterpret_cast<bf16*>(smem + kBlockProductSmem);
-  bf16* mrg = dms + (size_t)I * ldd;
-  float* pacc = reinterpret_cast<float*>(mrg + (size_t)I * ldd);
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const bf16* ghb = gh + (size_t)b * I * C;
-  const bf16* wv = kvw + (size_t)(C + h * D) * C;  // Wv_h [D, C]
-  const bf16* etyh = ety + ((size_t)b * J + h * I) * C;
-  const float* sb = sacc + (size_t)b * J + h * I;
-
-  // DMs_h = bf16((g_h0 @ Wo[:, hD:(h+1)D]) / sacc)
-  block_product<wmma::row_major, wmma::row_major>(
-      ghb, C, wo + h * D, C, I, D, C, buf,
-      [&](int r, int c, float v) { dms[r * ldd + c] = __float2bfloat16(v * (1.0f / sb[r])); });
-  // pacc_h = bf16(eTy_h) @ Wv_h^T
-  block_product<wmma::row_major, wmma::col_major>(
-      etyh, C, wv, C, I, D, C, buf, [&](int r, int c, float v) { pacc[r * ldp + c] = v; });
-  // tacc and the merged pooled values: one warp per row
-  for (int r = threadIdx.x / 32; r < I; r += kWarps) {
-    const float inv = 1.0f / sb[r];
-    float acc = 0.0f;
-    for (int c = threadIdx.x % 32; c < D; c += 32) {
-      const float p = pacc[r * ldp + c];
-      acc += __bfloat162float(dms[r * ldd + c]) * p;
-      mrg[r * ldd + c] = __float2bfloat16(p * inv);
-    }
-    for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (threadIdx.x % 32 == 0) tacc[(size_t)b * J + h * I + r] = acc * inv;
-  }
-  __syncthreads();
-  // dWo[:, hD:(h+1)D] += g_h0^T merged_h
-  block_product<wmma::col_major, wmma::row_major>(
-      ghb, C, mrg, ldd, C, D, I, buf,
-      [&](int r, int c, float v) { atomicAdd(dwo + (size_t)r * C + h * D + c, v); });
-  // W3[hI:(h+1)I, :] = DMs_h Wv_h
-  block_product<wmma::row_major, wmma::row_major>(
-      dms, ldd, wv, C, I, C, D, buf,
-      [&](int r, int c, float v) {
-        w3[((size_t)b * J + h * I + r) * C + c] = __float2bfloat16(v);
-      });
-  // dWv[hD:(h+1)D, :] += DMs_h^T eTy_h
-  block_product<wmma::col_major, wmma::row_major>(
-      dms, ldd, etyh, C, D, C, I, buf,
-      [&](int r, int c, float v) { atomicAdd(dwv + (size_t)(h * D + r) * C + c, v); });
 }
 
 // ------------------------------------------------------------- pass 1 --
@@ -464,80 +384,6 @@ pool_bwd_dy_kernel(const __grid_constant__ CUtensorMap tm_y,
   }
 }
 
-// ---------------------------------------------------------------- dqf --
-
-// One block per (128 columns of J, 128 rows of C, split of the point
-// tiles): partial dqf tile = sum over the split's rows of y^T ds.
-__global__ void __launch_bounds__(kBwdThreads, 1)
-pool_bwd_dqf_kernel(const __grid_constant__ CUtensorMap tm_y,
-                    const __grid_constant__ CUtensorMap tm_ds,
-                    float* __restrict__ part, int C, int J, int tiles, int splits) {
-  constexpr int kStage = 4 * kPanel;  // y panels [64, 128] then ds panels [64, 128]
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kDqfRing * kStage);
-  const int j0 = blockIdx.x * 128, c0 = blockIdx.y * 128, sp = blockIdx.z;
-  const int k0 = (int)((long long)sp * tiles / splits);
-  const int count = (int)((long long)(sp + 1) * tiles / splits) - k0;
-  auto stage = [&](int s) { return smem + s * kStage; };
-  auto load = [&](int u) {
-    const int s = u % kDqfRing, row = (k0 + u) * kTile;
-    bar_expect(full + s, kStage);
-    tma_load(stage(s), &tm_y, full + s, row, c0);
-    tma_load(stage(s) + kPanel, &tm_y, full + s, row, c0 + 64);
-    tma_load(stage(s) + 2 * kPanel, &tm_ds, full + s, row, j0);
-    tma_load(stage(s) + 3 * kPanel, &tm_ds, full + s, row, j0 + 64);
-  };
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kDqfRing; ++s) bar_init(full + s, 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int u = 0; u < kDqfRing && u < count; ++u) load(u);
-  }
-  const int w = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int col = 2 * (lane % 4), r = wi * 16 + lane / 4;
-  float acc[64];
-  zero(acc);
-  for (int u = 0; u < count; ++u) {
-    const int s = u % kDqfRing;
-    unsigned char* st = stage(s);
-    bar_wait(full + s, (u / kDqfRing) & 1);
-    // acc[64 channels of panel w, 128 columns of J] += y^T ds, both MN-major
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_tt<1, 1>(acc, desc_mn(st + w * kPanel + kk * 2048, kPanel),
-                     desc_mn(st + 2 * kPanel + kk * 2048, kPanel), 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    __syncthreads();  // both warpgroups are done with the stage
-    if (threadIdx.x == 0 && u + kDqfRing < count) load(u + kDqfRing);
-  }
-  float* out = part + (size_t)sp * C * J + (size_t)(c0 + w * 64) * J + j0;
-#pragma unroll
-  for (int g = 0; g < 16; ++g) {
-    *reinterpret_cast<float2*>(out + (size_t)r * J + 8 * g + col) =
-        make_float2(acc[4 * g], acc[4 * g + 1]);
-    *reinterpret_cast<float2*>(out + (size_t)(r + 8) * J + 8 * g + col) =
-        make_float2(acc[4 * g + 2], acc[4 * g + 3]);
-  }
-}
-
-// dqf = the splits' partials summed in split order
-__global__ void __launch_bounds__(kThreads)
-pool_bwd_dqf_sum_kernel(const float* __restrict__ part, float* __restrict__ dqf, int splits,
-                        int total) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  float s = 0.0f;
-  for (int sp = 0; sp < splits; ++sp) s += part[(size_t)sp * total + idx];
-  dqf[idx] = s;
-}
-
 }  // namespace
 
 extern "C" int pool_ext_bwd_launch(const void* x, const void* se, const void* be, const void* qft,
@@ -559,11 +405,9 @@ extern "C" int pool_ext_bwd_launch(const void* x, const void* se, const void* be
     return (int)cudaErrorInvalidValue;
   }
   // the pre-normed stream
-  {
-    const long long vecs = (long long)B * N * C / 8;
-    pool_bwd_prenorm_kernel<<<(unsigned)((vecs + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-        (const bf16*)x, (const float*)se, (const float*)be, (bf16*)y, N, C, vecs);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_prenorm((const bf16*)x, (const float*)se, (const float*)be, (bf16*)y, B, N,
+                            C, st)) != cudaSuccess) {
+    return (int)err;
   }
 
   // pass 0: as many stream stages as fit, up to three
@@ -578,14 +422,10 @@ extern "C" int pool_ext_bwd_launch(const void* x, const void* se, const void* be
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   // fold (no W2: pass 1 reads W3 for both)
-  {
-    const size_t smem = kBlockProductSmem + (size_t)2 * I * (D + kPad) * 2 +
-                        (size_t)I * (D + kPadF) * 4;
-    if ((err = set_smem((const void*)pool_bwd_fold_kernel, smem)) != cudaSuccess) return (int)err;
-    pool_bwd_fold_kernel<<<dim3(H, B), kThreads, smem, st>>>(
-        (const bf16*)gh, (const bf16*)wo, (const bf16*)kvw, (const float*)sacc,
-        (const bf16*)ety, (float*)tacc, (bf16*)w3, (float*)dwv, (float*)dwo, C, H, I);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_pool_bwd_fold((const bf16*)gh, (const bf16*)wo, (const bf16*)kvw,
+                                  (const float*)sacc, (const bf16*)ety, (float*)tacc, (bf16*)w3,
+                                  (float*)dwv, (float*)dwo, B, C, H, I, st)) != cudaSuccess) {
+    return (int)err;
   }
   // pass 1: chunks of 64 rows of J at C 384, 32 at C 768
   {
@@ -604,21 +444,6 @@ extern "C" int pool_ext_bwd_launch(const void* x, const void* se, const void* be
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   // dqf: split partials, then their sum in split order
-  {
-    CUtensorMap tm_ds;
-    if (encode_tiled(&tm_ds, ds, (uint64_t)B * N, J, kTile) != CUDA_SUCCESS) {
-      return (int)cudaErrorInvalidValue;
-    }
-    const int tiles = B * N / kTile;
-    if (splits > tiles) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)kDqfRing * 4 * kPanel + kDqfRing * 8 + 1024;
-    if ((err = set_smem((const void*)pool_bwd_dqf_kernel, smem)) != cudaSuccess) return (int)err;
-    pool_bwd_dqf_kernel<<<dim3(J / 128, C / 128, splits), kBwdThreads, smem, st>>>(
-        tm_y, tm_ds, (float*)dqf_part, C, J, tiles, splits);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const int total = C * J;
-    pool_bwd_dqf_sum_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-        (const float*)dqf_part, (float*)dqf, splits, total);
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_wgrad(y, ds, (float*)dqf_part, (float*)dqf, row_major(C, J), 1, B * N, C, J,
+                           splits, st);
 }

@@ -3,9 +3,10 @@ beside its plain PyTorch version. Importing this package builds nothing.
 
 ``KERNELS`` lists every wrapper that launches a kernel, forward and
 backward (fourteen: eight forward, six backward); each counts its launches
-in ``.launches``. Two of them have a second body, WMMA beside the Hopper
-design, chosen by shape (``folded_pool_ext``, ``folded_unpool``): those
-count its launches in ``.launches_wmma``, reported as ``<name>_wmma``."""
+in ``.launches``. Four of them have a second body, WMMA beside the Hopper
+design, chosen by shape (``folded_pool_ext``, ``folded_unpool`` and their
+backwards): those count its launches in ``.launches_wmma``, reported as
+``<name>_wmma``."""
 
 from gecco_tpu_torch.ops.kernels.folded_attention import (
     folded_pool_ext,
@@ -34,7 +35,7 @@ KERNELS = (
 )
 
 
-TWO_BODIES = (folded_pool_ext, folded_unpool)
+TWO_BODIES = (folded_pool_ext, folded_unpool, folded_pool_ext_bwd, folded_unpool_bwd)
 
 
 def reset_launch_counts() -> None:

@@ -8,7 +8,8 @@ kernels (``gecco_tpu_torch/csrc``) for CUDA tensors and run their plain
 versions (the JAX package's XLA twins, ported; the backward is autograd
 through the plain forward, as the twins' ``jax.vjp``) for CPU tensors:
 
-- ``folded_pool_ext`` (``csrc/pool_ext.cu``; backward ``csrc/pool_ext_bwd.cu``):
+- ``folded_pool_ext`` (``csrc/pool_ext.cu``; backward ``csrc/pool_ext_bwd.cu``,
+  WMMA body ``csrc/pool_ext_bwd_wmma.cu``):
   the pre-normed stream pooled onto the inducers by a softmax over the point
   axis, taken per chunk of points and merged across chunks (four launches:
   the query fold, the chunks, the merge, the output projection, each with
@@ -21,7 +22,8 @@ through the plain forward, as the twins' ``jax.vjp``) for CPU tensors:
   statistics of the stream computed on the card (``prenorm``, returned
   beside h0) or no pre-norm at all: the layer's sums-less route and the
   module-level pool.
-- ``folded_unpool`` (``csrc/unpool.cu``; backward ``csrc/unpool_bwd.cu``):
+- ``folded_unpool`` (``csrc/unpool.cu``; backward ``csrc/unpool_bwd.cu``,
+  WMMA body ``csrc/unpool_bwd_wmma.cu``):
   the points attend to the inducer tokens (per-head softmax, each head block
   with its own max), plus the residual and the output's channel sums; the
   ``residual`` and ``prenorm`` flags turn the x term and the pre-norm off
@@ -38,14 +40,15 @@ and a fourth runs the second and third as one launch:
   ``fused_mlp_residual`` (``_unpool_mlp_composed``), whose backwards are
   the kernels above, as the JAX package's custom_vjp does.
 
-The pool and unpool forwards each keep a second, WMMA body
+The pool and unpool forwards and backwards each keep a second, WMMA body
 (``csrc/*_wmma.cu``) for the shapes their Hopper design does not take;
-``_pool_ext_body`` and ``_unpool_body`` choose by shape, and a shape that
-neither body takes raises, as one that the pool backward
-(``_pool_ext_bwd_fits``) does not take does. A CUDA tensor never falls
-back to a plain version. Each forward wrapper
-counts its kernel launches in ``.launches``; each backward has its own
-wrapper (``*_bwd``) and counter. As in the JAX package, the backward kernels
+``_pool_ext_body``, ``_unpool_body``, ``_pool_ext_bwd_body`` and
+``_unpool_bwd_body`` choose by shape, and a shape that neither body takes
+raises, as one that the MLP backward's one body (``_mlp_bwd_body``) does
+not take does. A CUDA tensor never falls back to a plain version. Each
+forward wrapper counts its kernel launches in ``.launches`` (the WMMA
+body's in ``.launches_wmma``); each backward has its own wrapper
+(``*_bwd``) and counters. As in the JAX package, the backward kernels
 take the incoming cotangent rounded to the activation dtype, and the small
 chains from the folded operands' gradients to the weights' (``dqf`` to
 ``dind2``/``dWk``; ``dkf``/``dvf`` to ``dk``/``dv``/``dWq``/``dWo``) are
@@ -382,24 +385,40 @@ def _pool_bwd_dy_ref(x, se, be, qft, w3, macc, tacc) -> tuple:
 
 
 def _pool_bwd_dqf_ref(x, se, be, ds) -> torch.Tensor:
-    """Plain version of ``pool_bwd_dqf_kernel`` and its sum: dqf = the sum
+    """Plain version of the dqf product (``wgrad_kernel``) and its sum: dqf = the sum
     over the batch of y^T ds [C, J] fp32."""
     return torch.einsum("bnc,bnj->cj", _prenormed(x, se, be), ds.float())
 
 
-def _pool_ext_bwd_fits(b: int, n: int, c: int, num_heads: int, i: int) -> None:
-    """Raises ValueError unless the pool backward (csrc/pool_ext_bwd.cu)
-    takes these shapes on the card: C in (384, 768), I == 64, D % 16 == 0,
-    D <= 64 and N % 64 == 0 (then H is even, so J = 64 H is a multiple of
-    the dqf product's 128-column tile). The upsample demo's C 128 and the
-    three-head flagship's D 128 fall outside."""
+def _pool_bwd_fold_smem(c: int, i: int, d: int) -> int:
+    """Bytes of one block of the pool backward's fold (both bodies):
+    csrc/backward.cuh ``launch_pool_bwd_fold`` (change both together): the
+    product buffer, DMs_h and merged_h [I, D] bf16, pacc_h [I, D] fp32."""
+    return 64 * (64 + _PADF) * 4 + 2 * i * (d + _PAD) * 2 + i * (d + _PADF) * 4
+
+
+def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
+    """Which body of ``folded_pool_ext_bwd`` takes these shapes on the card:
+    "hopper" (csrc/pool_ext_bwd.cu, TMA and wgmma: C in (384, 768), I ==
+    64, D <= 64, J % 128 == 0) where it can, else "wmma"
+    (csrc/pool_ext_bwd_wmma.cu: C % 128 == 0, C <= 768, I % 16 and J % 64
+    == 0, the fold's block within the SM's shared memory); both need D % 16
+    and N % 64 == 0. The upsample demo's C 128 and the three-head
+    flagship's D 128 take the WMMA body. Raises ValueError with both
+    bodies' conditions otherwise."""
     d = c // num_heads
-    if not (c % num_heads == 0 and c in (384, 768) and i == 64 and d % 16 == 0 and d <= 64
-            and n % 64 == 0):
-        raise ValueError(
-            f"folded_pool_ext_bwd: the CUDA kernel does not take B={b}, N={n}, C={c}, "
-            f"H={num_heads}, I={i} (D={d}): it needs C in (384, 768), I == 64, D % 16 == 0, "
-            f"D <= 64 and N % 64 == 0")
+    j = num_heads * i
+    common = c % num_heads == 0 and d % 16 == 0 and n % 64 == 0
+    if common and c in (384, 768) and i == 64 and d <= 64 and j % 128 == 0:
+        return "hopper"
+    if (common and c % 128 == 0 and c <= 768 and i % 16 == 0 and j % 64 == 0
+            and _pool_bwd_fold_smem(c, i, d) <= _MAX_SMEM):
+        return "wmma"
+    raise ValueError(
+        f"folded_pool_ext_bwd: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
+        f"(D={d}): the Hopper body needs C in (384, 768), I == 64, D <= 64 and J % 128 == 0; "
+        f"the WMMA body C % 128 == 0, C <= 768, I % 16 == 0, J % 64 == 0 and its fold within "
+        f"{_MAX_SMEM} bytes of shared memory; both D % 16 == 0 and N % 64 == 0")
 
 
 def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
@@ -408,7 +427,8 @@ def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
     the forward's inputs, the folded query ``qft`` [J, C] its logits were
     formed with (so that the backward's logits are the forward's, as the
     statistics assume) and its softmax statistics ``macc``/``sacc`` [B, J]
-    -> (dx, dse, dbe, dind2, dkvw, dwo). CPU tensors take the plain version
+    -> (dx, dse, dbe, dind2, dkvw, dwo), through the body that
+    ``_pool_ext_bwd_body`` picks. CPU tensors take the plain version
     (which needs none of the forward's results)."""
     if x.device.type == "cpu":
         return _pool_ext_bwd_ref(x, se, be, ind2, kvw, wo, g_h0, num_heads)
@@ -422,9 +442,12 @@ def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
         dict(x=_BF16, se=_F32, be=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16, qft=_BF16, g=_BF16,
              macc=_F32, sacc=_F32),
     )
-    _pool_ext_bwd_fits(b, n, c, num_heads, i)
-    dx, dse, dbe, dqf, dwv, dwo, _ = _pool_ext_bwd_hopper(x, se, be, qft, kvw, wo, g, macc, sacc,
-                                                          num_heads)
+    if _pool_ext_bwd_body(b, n, c, num_heads, i) == "hopper":
+        dx, dse, dbe, dqf, dwv, dwo, _ = _pool_ext_bwd_hopper(x, se, be, qft, kvw, wo, g, macc,
+                                                              sacc, num_heads)
+    else:
+        dx, dse, dbe, dqf, dwv, dwo = _pool_ext_bwd_wmma(x, se, be, qft, kvw, wo, g, macc, sacc,
+                                                         num_heads)
     return dx, dse, dbe, *_chain_dqf(dqf, dwv, ind2, kvw, num_heads), dwo.to(wo.dtype)
 
 
@@ -448,8 +471,8 @@ def _pool_ext_bwd_hopper(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int)
         dwo=torch.zeros((c, c), dtype=_F32, device=dev),
     )
     dqf = torch.empty((c, j), dtype=_F32, device=dev)
-    splits = _dqf_splits(b * n // 64, c, j, x.device)
-    part = torch.empty((splits, c, j), dtype=_F32, device=x.device)
+    splits = _wgrad_splits(1, b * n // 64, c, j, x.device)
+    part = torch.empty((splits, c, j), dtype=_F32, device=x.device) if splits > 1 else None
     launch("pool_ext_bwd", "pool_ext_bwd_launch", x, se, be, qft, kvw, wo, g, macc, sacc,
            torch.empty_like(x), buf["ety"], buf["w3"], buf["tacc"], buf["ds"], buf["dx"],
            buf["dse"], buf["dbe"], part, dqf, buf["dwv"], buf["dwo"], b, n, c, num_heads, i,
@@ -459,15 +482,42 @@ def _pool_ext_bwd_hopper(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int)
             {k: buf[k] for k in ("ety", "w3", "tacc", "ds")})
 
 
-def _dqf_splits(tiles: int, c: int, j: int, device) -> int:
-    """Splits of the B*N points in the pool backward's dqf product:
-    enough blocks of (128 x 128 output tile, split) to give every SM one,
-    at most one split per 64-point tile."""
+def _pool_ext_bwd_wmma(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int) -> tuple:
+    """The WMMA body (csrc/pool_ext_bwd_wmma.cu), the same algebra as the
+    Hopper body's -> (dx, dse, dbe, dqf, dwv, dwo)."""
+    b, n, c = x.shape
+    j = qft.shape[0]
+    i = j // num_heads
+    dev = x.device
+    dx = torch.empty_like(x)
+    dse = torch.zeros((b, c), dtype=_F32, device=dev)
+    dbe = torch.zeros_like(dse)
+    dqf = torch.zeros((c, j), dtype=_F32, device=dev)
+    dwv = torch.zeros((c, c), dtype=_F32, device=dev)
+    dwo = torch.zeros_like(dwv)
+    launch("pool_ext_bwd_wmma", "pool_ext_bwd_wmma_launch", x, se, be, qft, kvw, wo, g, macc,
+           sacc, torch.empty((b, n, j), dtype=_BF16, device=dev),
+           torch.zeros((b, c, j), dtype=_F32, device=dev),
+           torch.empty((b, j, c), dtype=_BF16, device=dev),
+           torch.empty((b, j, c), dtype=_BF16, device=dev),
+           torch.empty((b, j), dtype=_F32, device=dev),
+           torch.empty((b, n, j), dtype=_BF16, device=dev), dx, dse, dbe, dqf, dwv, dwo,
+           b, n, c, num_heads, i)
+    folded_pool_ext_bwd.launches_wmma += 1
+    return dx, dse, dbe, dqf, dwv, dwo
+
+
+def _wgrad_splits(batch: int, tiles: int, m: int, p: int, device) -> int:
+    """Splits of each batch element's 64-row tiles in the Hopper backwards'
+    weight-gradient product (csrc/wgrad.cuh): enough blocks of (128 x 128
+    output tile, batch element, split) to give every SM one, at most one
+    split per tile."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(tiles, -(-sms // ((c // 128) * (j // 128)))))
+    return max(1, min(tiles, -(-sms // (batch * (m // 128) * (p // 128)))))
 
 
 folded_pool_ext_bwd.launches = 0
+folded_pool_ext_bwd.launches_wmma = 0
 
 
 # --------------------------------------------------------- resident pool --
@@ -836,18 +886,117 @@ def _unpool_bwd_ref(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residual
                (x, se, be, k, v, wq, wo), (g, g_sums))
 
 
+def _unpool_bwd_fold_ref(k, v, wq, wo, num_heads: int) -> tuple:
+    """Plain version of ``unpool_bwd_fold_kernel`` (both bodies): kft =
+    s * k_h @ wq_h and vf = v_h @ wo_h^T, [B, J, C] in k's dtype (no se:
+    the backward reads y explicitly)."""
+    dt = k.dtype
+    b, i, c = k.shape
+    d = c // num_heads
+    kft = (1.0 / d**0.5) * torch.einsum("bihd,hdc->bhic", k.float().reshape(b, i, num_heads, d),
+                                         wq.float().reshape(num_heads, d, c))
+    vf = torch.einsum("bihd,chd->bhic", v.float().reshape(b, i, num_heads, d),
+                      wo.float().reshape(c, num_heads, d))
+    return kft.reshape(b, -1, c).to(dt), vf.reshape(b, -1, c).to(dt)
+
+
+def _unpool_bwd_tiles_ref(x, se, be, kft, vf, g, g_sums, num_heads: int, residual: bool = True,
+                          prenorm: bool = True) -> tuple:
+    """Plain version of the Hopper body's point-wise passes (the heads and
+    rows kernels, both walks) -> (p, ds, d_attn [B, N, J or C] in x's
+    dtype, dx, dse, dbe [B, C] fp32): per head block its own max, e =
+    exp(max(. - m, -80)), p = e / sum e; attn = x + bf16(p) vf; d_attn = g +
+    gs1 + 2 attn gs2; dp = bf16(d_attn) vf^T; ds = p (dp - blocksum(dp p))
+    where the logit sits above the clamp; dy = bf16(ds) kft; dx = dy se +
+    d_attn."""
+    dt = x.dtype
+    b, n, c = x.shape
+    j = kft.shape[1]
+    y = _prenormed(x, se, be) if prenorm else x.float()
+    lg = torch.einsum("bnc,bjc->bnj", y, kft.float()).reshape(b, n, num_heads, j // num_heads)
+    z = lg - lg.amax(-1, keepdim=True)
+    e = torch.exp(torch.clamp(z, min=-80.0))
+    p = e / e.sum(-1, keepdim=True)
+    attn = torch.einsum("bnj,bjc->bnc", p.reshape(b, n, j).to(dt).float(), vf.float())
+    if residual:
+        attn = x.float() + attn
+    d_attn = g.float() + g_sums[:, 0:1].float() + 2.0 * attn * g_sums[:, 1:2].float()
+    dp = torch.einsum("bnc,bjc->bnj", d_attn.to(dt).float(), vf.float()).reshape(p.shape)
+    ds = torch.where(z > -80.0, p * (dp - (dp * p).sum(-1, keepdim=True)), 0.0)
+    ds = ds.reshape(b, n, j).to(dt)
+    dy = torch.einsum("bnj,bjc->bnc", ds.float(), kft.float())
+    dx = dy * se[:, None] if prenorm else dy
+    if residual:
+        dx = dx + d_attn
+    zero = torch.zeros((b, c), dtype=_F32, device=x.device)
+    dse, dbe = ((dy * x.float()).sum(1), dy.sum(1)) if prenorm else (zero, zero.clone())
+    return p.reshape(b, n, j).to(dt), ds, d_attn.to(dt), dx.to(dt), dse, dbe
+
+
+def _unpool_bwd_wgrad_ref(x, se, be, p, ds, d_attn, prenorm: bool = True) -> tuple:
+    """Plain version of the weight-gradient products -> (dkf [B, C, J], dvf
+    [B, J, C]) fp32: y^T bf16(ds) and bf16(p)^T bf16(d_attn) per batch
+    element."""
+    y = _prenormed(x, se, be) if prenorm else x.float()
+    return (torch.einsum("bnc,bnj->bcj", y, ds.float()),
+            torch.einsum("bnj,bnc->bjc", p.float(), d_attn.float()))
+
+
+def _chain_unpool(dkf, dvf, k, v, wq, wo, num_heads: int) -> tuple:
+    """The folded operands' gradients dkf [B, C, J] and dvf [B, J, C] fp32
+    through the fold jacobians -> (dk, dv, dwq, dwo) (plain PyTorch, as the
+    JAX package leaves them to XLA): one batched product per head for
+    each, over dkf as [H, C, B I] and dvf as [H, B I, C], views of the
+    Hopper body's per-head layout (copies of the WMMA body's)."""
+    b, i, c = k.shape
+    h = num_heads
+    d = c // h
+    scale = 1.0 / d**0.5
+    x = dkf.reshape(b, c, h, i).permute(2, 1, 0, 3).reshape(h, c, b * i)
+    y = dvf.reshape(b, h, i, c).permute(1, 0, 2, 3).reshape(h, b * i, c)
+    per_head = lambda t: t.float().reshape(b, i, h, d).permute(2, 0, 1, 3).reshape(h, b * i, d)
+    dk = scale * torch.bmm(wq.float().reshape(h, d, c), x)  # [H, D, B I]
+    dwq = scale * torch.bmm(per_head(k).transpose(1, 2), x.transpose(1, 2))  # [H, D, C]
+    dv = torch.bmm(y, wo.float().reshape(c, h, d).permute(1, 0, 2))  # [H, B I, D]
+    dwo = torch.bmm(y.transpose(1, 2), per_head(v))  # [H, C, D]
+    dk = dk.reshape(h, d, b, i).permute(2, 3, 0, 1).reshape(b, i, c)
+    dv = dv.reshape(h, b, i, d).permute(1, 2, 0, 3).reshape(b, i, c)
+    return (dk.to(k.dtype), dv.to(v.dtype), dwq.reshape(c, c).to(wq.dtype),
+            dwo.permute(1, 0, 2).reshape(c, c).to(wo.dtype))
+
+
+def _unpool_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
+    """Which body of ``folded_unpool_bwd`` takes these shapes on the card:
+    "hopper" (csrc/unpool_bwd.cu, TMA and wgmma: I == 64, H even, C % 128
+    == 0 and C <= 384 or C % 384 == 0) where it can, else "wmma"
+    (csrc/unpool_bwd_wmma.cu: C % 128 == 0, C <= 768, I % 16 == 0, I <= 64,
+    J % 64 == 0; its 32-point tile then fits the SM's shared memory); both
+    need D % 16 and N % 64 == 0. The three-head flagship takes the WMMA
+    body. Raises ValueError with both bodies' conditions otherwise."""
+    d = c // num_heads
+    common = c % num_heads == 0 and d % 16 == 0 and n % 64 == 0 and c % 128 == 0
+    if common and i == 64 and num_heads % 2 == 0 and (c <= 384 or c % 384 == 0):
+        return "hopper"
+    if common and c <= 768 and i % 16 == 0 and i <= 64 and (num_heads * i) % 64 == 0:
+        return "wmma"
+    raise ValueError(
+        f"folded_unpool_bwd: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
+        f"(D={d}): the Hopper body needs I == 64, H even and C <= 384 or C % 384 == 0; the "
+        f"WMMA body C <= 768, I % 16 == 0, I <= 64 and J % 64 == 0; both C % 128 == 0, "
+        f"D % 16 == 0 and N % 64 == 0")
+
+
 def folded_unpool_bwd(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residual: bool = True,
                       prenorm: bool = True) -> tuple:
     """Gradients of ``folded_unpool`` against ``g`` [B, N, C] and
-    ``g_sums`` [B, 2, C] -> (dx, dse, dbe, dk, dv, dwq, dwo); dse and dbe
-    are 0 without the pre-norm."""
+    ``g_sums`` [B, 2, C] -> (dx, dse, dbe, dk, dv, dwq, dwo), through the
+    body that ``_unpool_bwd_body`` picks; dse and dbe are 0 without the
+    pre-norm."""
     if x.device.type == "cpu":
         return _unpool_bwd_ref(x, se, be, k, v, wq, wo, g, g_sums, num_heads, residual, prenorm)
     name = "folded_unpool_bwd"
     b, n, c = x.shape
     i = k.shape[1]
-    j = num_heads * i
-    d = c // num_heads
     g = g.to(x.dtype).contiguous()
     g_sums = g_sums.float().contiguous()
     check_cuda(
@@ -855,39 +1004,72 @@ def folded_unpool_bwd(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residu
         dict(x=_BF16, se=_F32, be=_F32, k=_BF16, v=_BF16, wq=_BF16, wo=_BF16, g=_BF16,
              g_sums=_F32),
     )
-    _require(i == 64 and d % 16 == 0 and c in (384, 768), name,
-             f"I == 64, D % 16 == 0 and C in (384, 768) (I={i}, D={d}, C={c})")
-    _require(n % 64 == 0, name, f"N % 64 == 0 (N={n})")
+    run = _unpool_bwd_hopper if _unpool_bwd_body(b, n, c, num_heads, i) == "hopper" \
+        else _unpool_bwd_wmma
+    dx, dse, dbe, dkf, dvf = run(x, se, be, k, v, wq, wo, g, g_sums, num_heads, residual,
+                                 prenorm)
+    return (dx, dse, dbe, *_chain_unpool(dkf, dvf, k, v, wq, wo, num_heads))
+
+
+def _unpool_bwd_hopper(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residual: bool,
+                       prenorm: bool, mid: dict | None = None) -> tuple:
+    """The Hopper body (csrc/unpool_bwd.cu) -> (dx, dse, dbe, dkf, dvf),
+    dkf and dvf as [B, C, H, I] and [B, H, I, C] views of the per-head
+    layout the kernel writes; ``mid``, where given, receives the passes'
+    kft, vf, p, ds and d_attn, which ``probes.unpool_bwd`` holds against
+    their plain pieces."""
+    b, n, c = x.shape
+    i = k.shape[1]
+    j = num_heads * i
+    dev = x.device
+    buf = dict(
+        kft=torch.empty((b, j, c), dtype=_BF16, device=dev),
+        vf=torch.empty((b, j, c), dtype=_BF16, device=dev),
+        p=torch.empty((b, n, j), dtype=_BF16, device=dev),
+        ds=torch.empty((b, n, j), dtype=_BF16, device=dev),
+        d_attn=torch.empty_like(x),
+    )
+    dx = torch.empty_like(x)
+    dse = torch.zeros((b, c), dtype=_F32, device=dev)
+    dbe = torch.zeros_like(dse)
+    dkf = torch.empty((num_heads, c, b, i), dtype=_F32, device=dev)
+    dvf = torch.empty((num_heads, b, i, c), dtype=_F32, device=dev)
+    splits = _wgrad_splits(b, n // 64, c, j, dev)
+    launch("unpool_bwd", "unpool_bwd_launch", x, se, be, k, v, wq, wo, g, g_sums,
+           torch.empty_like(x) if prenorm else None, buf["kft"], buf["vf"], buf["p"], buf["ds"],
+           buf["d_attn"], torch.empty((b, n, c), dtype=_F32, device=dev) if residual else None,
+           dx, dse, dbe, dkf, dvf,
+           torch.empty((b * splits, c, j), dtype=_F32, device=dev) if splits > 1 else None,
+           b, n, c, num_heads, i, int(residual), int(prenorm), splits)
+    folded_unpool_bwd.launches += 1
+    if mid is not None:
+        mid.update(buf)
+    return dx, dse, dbe, dkf.permute(2, 1, 0, 3), dvf.permute(1, 0, 2, 3)
+
+
+def _unpool_bwd_wmma(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residual: bool,
+                     prenorm: bool) -> tuple:
+    """The WMMA body (csrc/unpool_bwd_wmma.cu) -> (dx, dse, dbe, dkf, dvf)."""
+    b, n, c = x.shape
+    i = k.shape[1]
+    j = num_heads * i
     dev = x.device
     kft = torch.empty((b, j, c), dtype=_BF16, device=dev)
-    vf = torch.empty_like(kft)
     p = torch.empty((b, n, j), dtype=_BF16, device=dev)
-    ds = torch.empty_like(p)
-    da = torch.empty_like(x)
     dx = torch.empty_like(x)
     dse = torch.zeros((b, c), dtype=_F32, device=dev)
     dbe = torch.zeros_like(dse)
     dkf = torch.zeros((b, c, j), dtype=_F32, device=dev)
     dvf = torch.zeros((b, j, c), dtype=_F32, device=dev)
-    launch("unpool_bwd", "unpool_bwd_launch", x, se, be, k, v, wq, wo, g, g_sums, kft, vf,
-           p, ds, da, dx, dse, dbe, dkf, dvf, b, n, c, num_heads, i, int(residual), int(prenorm))
-    folded_unpool_bwd.launches += 1
-    # the folded operands' gradients through the fold jacobians (plain
-    # PyTorch, as the JAX package leaves them to XLA)
-    scale = 1.0 / d**0.5
-    dkf_r = dkf.reshape(b, c, num_heads, i)
-    dvf_r = dvf.reshape(b, num_heads, i, c)
-    k_r = k.float().reshape(b, i, num_heads, d)
-    v_r = v.float().reshape(b, i, num_heads, d)
-    dk = scale * torch.einsum("hdc,bchi->bihd", wq.float().reshape(num_heads, d, c), dkf_r)
-    dwq = scale * torch.einsum("bihd,bchi->hdc", k_r, dkf_r)
-    dv = torch.einsum("chd,bhic->bihd", wo.float().reshape(c, num_heads, d), dvf_r)
-    dwo = torch.einsum("bihd,bhic->chd", v_r, dvf_r)
-    return (dx, dse, dbe, dk.reshape(b, i, c).to(k.dtype), dv.reshape(b, i, c).to(v.dtype),
-            dwq.reshape(c, c).to(wq.dtype), dwo.reshape(c, c).to(wo.dtype))
+    launch("unpool_bwd_wmma", "unpool_bwd_wmma_launch", x, se, be, k, v, wq, wo, g, g_sums, kft,
+           torch.empty_like(kft), p, torch.empty_like(p), torch.empty_like(x), dx, dse, dbe, dkf,
+           dvf, b, n, c, num_heads, i, int(residual), int(prenorm))
+    folded_unpool_bwd.launches_wmma += 1
+    return dx, dse, dbe, dkf, dvf
 
 
 folded_unpool_bwd.launches = 0
+folded_unpool_bwd.launches_wmma = 0
 
 
 # ------------------------------------------------------------- fused mlp --
@@ -954,6 +1136,18 @@ def _mlp_bwd_ref(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
     return vjp(_mlp_ref, (x, se, be, w1t, b1, w2t, b2), (g, g_sums))
 
 
+def _mlp_bwd_body(b: int, n: int, c: int, w: int) -> str:
+    """Which body of ``fused_mlp_residual_bwd`` takes these shapes on the
+    card: "wmma" (csrc/mlp_bwd.cu, the one body: C % 128 == 0, C <= 768,
+    W % 64 == 0, N % 64 == 0; 64-point tiles up to C 384, 32 above).
+    Raises ValueError with its conditions otherwise."""
+    if c % 128 == 0 and c <= 768 and w % 64 == 0 and n % 64 == 0:
+        return "wmma"
+    raise ValueError(
+        f"fused_mlp_residual_bwd: no CUDA body takes B={b}, N={n}, C={c}, W={w}: the WMMA "
+        f"body needs C % 128 == 0, C <= 768, W % 64 == 0 and N % 64 == 0")
+
+
 def fused_mlp_residual_bwd(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
     """Gradients of ``fused_mlp_residual`` against ``g`` [B, N, C] and
     ``g_sums`` [B, 2, C] -> (dx, dse, dbe, dw1t, db1, dw2t, db2)."""
@@ -969,9 +1163,7 @@ def fused_mlp_residual_bwd(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
         dict(x=_BF16, se=_F32, be=_F32, w1t=_BF16, b1=_F32, w2t=_BF16, b2=_F32, g=_BF16,
              g_sums=_F32),
     )
-    _require(c in (384, 768) and w % 64 == 0, name,
-             f"C in (384, 768) and W % 64 == 0 (C={c}, W={w})")
-    _require(n % 64 == 0, name, f"N % 64 == 0 (N={n})")
+    _mlp_bwd_body(b, n, c, w)
     dev = x.device
     a = torch.empty((b, n, w), dtype=_BF16, device=dev)
     dh = torch.empty_like(a)

@@ -187,6 +187,7 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         "folded_pool_layer": 0, "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0,
         "fused_mlp_residual_bwd": 0, "projective_gather_bwd": 0, "rect_attention_bwd": 0,
         "folded_pool_layer_bwd": 0, "folded_pool_ext_wmma": 0, "folded_unpool_wmma": 0,
+        "folded_pool_ext_bwd_wmma": 0, "folded_unpool_bwd_wmma": 0,
     }
 
 
@@ -488,32 +489,33 @@ def test_unpool_pieces_compose_to_the_plain_version(residual, prenorm, dtype):
     assert _maxrel(sums.numpy(), ref_sums.numpy()) < tol
 
 
-# (B, N, C, H, I) -> the bodies of the pool forward and the unpool forward
-# (None where that function raises for the shape), and whether the pool
-# backward's kernel takes the shape
+# (B, N, C, H, I) -> the bodies of the pool forward and the unpool forward,
+# and of the pool, unpool and MLP backwards (the MLP at W = 2C; None where
+# that function raises for the shape)
 @pytest.mark.parametrize("shape,bodies,bwd", [
-    ((48, 2048, 384, 8, 64), ("hopper", "hopper"), True),  # the flagship (training batch)
-    ((2, 8192, 768, 16, 64), ("hopper", "hopper"), True),  # the 8k width
-    ((48, 2048, 128, 4, 64), ("wmma", "wmma"), False),  # the upsample demo's 3 x 128 model
-    ((48, 2048, 384, 3, 64), ("wmma", "wmma"), False),  # num_heads=3 at the flagship's width
-    ((48, 2000, 384, 8, 64), (None, None), False),  # N not a multiple of 64: no body
+    ((48, 2048, 384, 8, 64), ("hopper", "hopper"), ("hopper", "hopper", "wmma")),  # the flagship
+    ((2, 8192, 768, 16, 64), ("hopper", "hopper"), ("hopper", "hopper", "wmma")),  # the 8k width
+    ((48, 2048, 128, 4, 64), ("wmma", "wmma"), ("wmma", "hopper", "wmma")),  # the demo's 3 x 128
+    ((48, 2048, 384, 3, 64), ("wmma", "wmma"), ("wmma", "wmma", "wmma")),  # num_heads=3
+    ((48, 2000, 384, 8, 64), (None, None), (None, None, None)),  # N not a multiple of 64
 ], ids=["flagship", "8k", "demo", "heads3", "none"])
 def test_body_switches_choose_by_shape(shape, bodies, bwd):
-    """The pool and unpool forwards pick one of their two CUDA bodies by
-    shape alone, and a shape that neither takes raises ValueError naming
-    both bodies' conditions; a shape that the pool backward's one kernel
+    """The pool and unpool forwards and backwards pick one of their two
+    CUDA bodies by shape alone, and a shape that neither takes raises
+    ValueError naming both bodies' conditions; the MLP backward's one body
+    takes the demo's and the three-head flagship's widths, and a shape it
     does not take raises ValueError naming its conditions."""
-    for switch, want in zip((tfa._pool_ext_body, tfa._unpool_body), bodies):
+    b, n, c = shape[:3]
+    switches = ((tfa._pool_ext_body, shape), (tfa._unpool_body, shape),
+                (tfa._pool_ext_bwd_body, shape), (tfa._unpool_bwd_body, shape),
+                (tfa._mlp_bwd_body, (b, n, c, 2 * c)))
+    for (switch, args), want in zip(switches, bodies + bwd):
         if want is None:
-            with pytest.raises(ValueError, match="Hopper body .* WMMA body"):
-                switch(*shape)
+            match = "WMMA body needs" if switch is tfa._mlp_bwd_body else "Hopper body .* WMMA body"
+            with pytest.raises(ValueError, match=match):
+                switch(*args)
         else:
-            assert switch(*shape) == want
-    if bwd:
-        tfa._pool_ext_bwd_fits(*shape)
-    else:
-        with pytest.raises(ValueError, match="does not take .* it needs C in"):
-            tfa._pool_ext_bwd_fits(*shape)
+            assert switch(*args) == want
 
 
 def test_shared_memory_mirrors_use_the_headers_constants():
@@ -572,3 +574,137 @@ def test_pool_bwd_pieces_match_the_jax_kernel_in_bf16():
         jops, jnp.asarray(g_h0.float().numpy(), jnp.bfloat16))
     for name, a, r in zip(("dx", "dse", "dbe", "dind2", "dkvw", "dwo"), got, ref):
         assert _maxrel(a.float().numpy(), r) < 1e-3, name
+
+
+def _unpool_bwd_by_pieces(x, se, be, k, v, wq, wo, g, g_sums, heads, residual=True,
+                          prenorm=True):
+    """The Hopper unpool backward's plain pieces in the kernels' order: the
+    fold, the point-wise passes, the weight-gradient products and the
+    chain to the weights."""
+    kft, vf = tfa._unpool_bwd_fold_ref(k, v, wq, wo, heads)
+    p, ds, d_attn, dx, dse, dbe = tfa._unpool_bwd_tiles_ref(x, se, be, kft, vf, g, g_sums, heads,
+                                                            residual, prenorm)
+    dkf, dvf = tfa._unpool_bwd_wgrad_ref(x, se, be, p, ds, d_attn, prenorm)
+    return (dx, dse, dbe, *tfa._chain_unpool(dkf, dvf, k, v, wq, wo, heads))
+
+
+UNPOOL_GRADS = ("dx", "dse", "dbe", "dk", "dv", "dwq", "dwo")
+
+
+@pytest.mark.parametrize("residual,prenorm", [(True, True), (False, False), (True, False),
+                                              (False, True)])
+def test_unpool_bwd_pieces_compose_to_the_plain_backward_in_fp32(residual, prenorm):
+    """In fp32 (every bf16 rounding of the kernels' algebra a no-op) the
+    pieces compose to autograd of the plain version, drifted logits and
+    a nonzero sums cotangent, within 1e-5 of each gradient's max |ref|, in
+    each flag variant (dse and dbe are 0 without the pre-norm)."""
+    ops = [torch.from_numpy(a) for a in _unpool_args(18, True)]
+    rng = np.random.default_rng(19)
+    g = torch.from_numpy(_cotangent(rng, B, N, C))
+    g_sums = torch.from_numpy(_cotangent(rng, B, 2, C, scale=1e-2))
+    got = _unpool_bwd_by_pieces(*ops, g, g_sums, HEADS, residual, prenorm)
+    want = tfa._unpool_bwd_ref(*ops, g, g_sums, HEADS, residual, prenorm)
+    for name, a, r in zip(UNPOOL_GRADS, got, want):
+        if prenorm or name not in ("dse", "dbe"):
+            assert _maxrel(a.numpy(), r.numpy()) < 1e-5, name
+        else:
+            assert not a.any() and not r.any(), name
+
+
+def test_unpool_bwd_pieces_match_the_jax_kernel_in_bf16():
+    """On bf16 operands with drifted logits the pieces are the JAX
+    kernel's algebra (kft, vf, p, d_attn and ds rounded to bf16): against
+    ``jax.vjp`` of the JAX op (its Pallas backward in interpret mode, run
+    as one ``jax.jit``) every gradient agrees within 1e-3 of max |ref|."""
+    bf = torch.bfloat16
+    args = _unpool_args(20, True)
+    rng = np.random.default_rng(21)
+    g = _cotangent(rng, B, N, C)
+    g_sums = _cotangent(rng, B, 2, C, scale=1e-2)
+    ops = [torch.from_numpy(a).to(torch.float32 if q in (1, 2) else bf)
+           for q, a in enumerate(args)]
+    got = _unpool_bwd_by_pieces(*ops, torch.from_numpy(g).to(bf), torch.from_numpy(g_sums),
+                                HEADS)
+    jops = [jnp.asarray(a.float().numpy(), jnp.bfloat16 if a.dtype == bf else jnp.float32)
+            for a in ops]
+    ref = jax.jit(lambda a, c: jax.vjp(lambda *q: jfa.folded_unpool(*q, HEADS), *a)[1](c))(
+        jops, (jnp.asarray(g, jnp.bfloat16), jnp.asarray(g_sums)))
+    for name, a, r in zip(UNPOOL_GRADS, got, ref):
+        assert _maxrel(a.float().numpy(), np.asarray(r, np.float32)) < 1e-3, name
+
+
+# the upsample demo's widths (scripts/demo_upsample_100k.py: C 128, 4 heads
+# of 32 channels), at a small point count and 16 inducers
+DEMO_C, DEMO_HEADS, DEMO_I, DEMO_N = 128, 4, 16, 128
+
+
+def _demo_args(seed, which):
+    rng = np.random.default_rng(seed)
+    c, i = DEMO_C, DEMO_I
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    x, se, be = r(B, DEMO_N, c), 1.0 + 0.1 * r(B, c), 0.1 * r(B, c)
+    if which == "pool":
+        return (x, se, be, r(DEMO_HEADS * i, c // DEMO_HEADS), r(2 * c, c) / c**0.5,
+                r(c, c) / c**0.5)
+    if which == "unpool":
+        return x, se, be, r(B, i, c), r(B, i, c), r(c, c) / c**0.5, r(c, c) / c**0.5
+    w = 2 * c
+    return x, se, be, r(c, w) / c**0.5, 0.1 * r(1, w), r(w, c) / w**0.5, 0.1 * r(1, c)
+
+
+def _within_a_bf16_step(a, ref, slack=1e-3) -> bool:
+    """Every element of ``a`` within one bf16 step (2^-7 of its binade's
+    base, the spacing at ``ref``'s magnitude) of ``ref``, plus ``slack`` of
+    max |ref|: two bf16 results of one algebra summed in other fp32 orders
+    may round apart by a step, now and then."""
+    a, ref = np.asarray(a, np.float32), np.asarray(ref, np.float32)
+    mag = np.abs(ref)
+    step = np.exp2(np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7.0)
+    return bool(np.all(np.abs(a - ref) <= step + slack * mag.max()))
+
+
+@pytest.mark.parametrize("which", ["pool", "unpool", "mlp"])
+def test_demo_width_gradients_match_the_jax_ops(which):
+    """At the upsample demo's widths (C 128, 4 heads, D 32), the widths
+    the backwards' WMMA bodies and the MLP backward's C 128 instance open
+    on the card: the pool's v3 pieces (the algebra both its bodies keep)
+    and the unpool's pieces on bf16 operands against ``jax.vjp`` of the
+    JAX op (its Pallas backward in interpret mode, one ``jax.jit``): the
+    fp32 gradients (dse, dbe) within 1e-3 of max |ref|, the bf16 ones
+    element by element within one bf16 step (both round the same fp32
+    algebra, summed in other orders; at this width a step apart in a few
+    elements of a few thousand). The MLP's gradients (autograd of its plain
+    version on the CPU) in fp32 at the MLP backward test's tolerance."""
+    bf = torch.bfloat16
+    args = _demo_args(22, which)
+    rng = np.random.default_rng(23)
+    if which == "mlp":
+        g = [_cotangent(rng, B, DEMO_N, DEMO_C), _cotangent(rng, B, 2, DEMO_C, scale=1e-2)]
+        port = _port_grads(tfa.fused_mlp_residual, args, g)
+        ref = jax.jit(lambda a, c: _jax_grads(jfa.fused_mlp_residual, a, c))(args, g)
+        _close_grads(port, ref, rtol=2e-4, atol=2e-4)
+        return
+    low = (0, 3, 4, 5) if which == "pool" else (0, 3, 4, 5, 6)
+    ops = [torch.from_numpy(a).to(bf if q in low else torch.float32) for q, a in enumerate(args)]
+    jops = [jnp.asarray(a.float().numpy(), jnp.bfloat16 if a.dtype == bf else jnp.float32)
+            for a in ops]
+    if which == "pool":
+        assert jfa._pool_bwd_mode(DEMO_N, DEMO_C, DEMO_HEADS * DEMO_I,
+                                  DEMO_C // DEMO_HEADS) == "v3"
+        g = _cotangent(rng, B, DEMO_I, DEMO_C)
+        got = _pool_bwd_by_pieces(*ops, torch.from_numpy(g).to(bf), DEMO_HEADS)
+        cot = jnp.asarray(g, jnp.bfloat16)
+        fn, names = jfa.folded_pool_ext, ("dx", "dse", "dbe", "dind2", "dkvw", "dwo")
+    else:
+        g = _cotangent(rng, B, DEMO_N, DEMO_C)
+        g_sums = _cotangent(rng, B, 2, DEMO_C, scale=1e-2)
+        got = _unpool_bwd_by_pieces(*ops, torch.from_numpy(g).to(bf), torch.from_numpy(g_sums),
+                                    DEMO_HEADS)
+        cot = (jnp.asarray(g, jnp.bfloat16), jnp.asarray(g_sums))
+        fn, names = jfa.folded_unpool, UNPOOL_GRADS
+    ref = jax.jit(lambda a, c: jax.vjp(lambda *q: fn(*q, DEMO_HEADS), *a)[1](c))(jops, cot)
+    for name, a, r in zip(names, got, ref):
+        if a.dtype == torch.float32:
+            assert _maxrel(a.numpy(), np.asarray(r, np.float32)) < 1e-3, name
+        else:
+            assert _within_a_bf16_step(a.float().numpy(), r), name

@@ -7,8 +7,8 @@ Phases (each raises on failure; nothing is caught):
 
 1. environment: torch, nvcc, the card's name and power limit;
 2. build: the fourteen CUDA kernels of ``gecco_tpu_torch/csrc`` (eight
-   forward, six backward) and the WMMA bodies beside the two Hopper
-   forwards and the two Hopper backwards (seventeen libraries, the
+   forward, six backward) and the WMMA bodies beside the three Hopper
+   forwards and the three Hopper backwards (nineteen libraries, the
    projective gather's forward and backward in one) with nvcc for sm_90a,
    one process per source, all at once, with ``ptxas -v``'s registers and
    spills;
@@ -118,30 +118,37 @@ Phases (each raises on failure; nothing is caught):
    [0, 1], MMD finite and non-negative;
 18. demo sampler path: ``scripts/demo_upsample_100k.py``'s default model (3 x
    128, 4 heads of 32 channels, 64 inducers) samples 48 2048-point clouds
-   with the 128-step Heun grid: the forwards' WMMA bodies (pool and unpool)
-   and the h-side and MLP kernels 3 x 254 times each, the Hopper pool and
-   unpool never; then the 8-step sample against the plain path;
+   with the 128-step Heun grid: the forwards' WMMA bodies (pool, unpool
+   and MLP) and the h-side kernel 3 x 254 times each, the Hopper pool,
+   unpool and MLP never; then the 8-step sample against the plain path;
 19. demo training path: the same model trains at batch 48 as in phase 8
    (ROADMAP.md C4): one step's gradient against the plain path, then 3 +
-   20 steps, per step and layer the forwards' WMMA bodies, the pool
-   backward's WMMA body, the unpool backward's Hopper body and the MLP
-   backward once each; then one gradient of the flagship with three heads
-   (C 384, D 128) against the plain path, which runs the WMMA bodies of
-   the pool and unpool forwards and backwards.
+   20 steps, per step and layer the forwards' WMMA bodies, the pool and
+   MLP backwards' WMMA bodies and the unpool backward's Hopper body once
+   each; then one gradient of the flagship with three heads (C 384, D 128)
+   against the plain path, which runs the WMMA bodies of the pool and
+   unpool forwards and backwards and the Hopper MLP forward and backward.
 
-Phase 3 also holds the pool's and unpool's WMMA bodies (the shapes the
-Hopper designs do not take) against their plain versions at the demo's
-shapes, where it times them, and with three heads at the flagship's width,
-and fails unless those checks ran the WMMA bodies alone. Phase 4 holds the
+Phase 3 also holds the pool's, unpool's and MLP's WMMA bodies (the shapes
+the Hopper designs do not take) against their plain versions at the demo's
+shapes, where it times them, the pool's and unpool's with three heads at
+the flagship's width (the MLP there: its Hopper body, the MLP seeing no
+heads), and fails unless those checks ran the expected bodies; it holds
+the MLP forward's Hopper body and WMMA body at the 8k width and times
+both in turns at the flagship's operands. Phase 4 holds the
 pool backward at both widths, ordinary and drifted, times it at both
 (median, min and max of 20 calls), and requires dqf (through dind2) to be
 the same bits in two calls; it holds the unpool backward's Hopper and
 WMMA bodies at both widths, ordinary and drifted, times both at both
 (median, min and max of 20 calls each, in turns), and requires dkf and dvf
 (through dk and dv) to be the same bits in two calls of the Hopper body;
-and it holds the pool backward's WMMA body (the demo, three heads), the
-unpool backward's Hopper body (the demo) and WMMA body (three heads) and
-the MLP backward at C 128, and fails unless those checks ran the expected
+it holds the MLP backward's Hopper and WMMA bodies at both widths,
+ordinary and drifted, times both at both in turns, and requires every
+gradient of the Hopper body (dw1t and dw2t among them) to be the same bits
+in two calls; and it holds the pool backward's WMMA body (the demo, three
+heads), the unpool backward's Hopper body (the demo) and WMMA body (three
+heads) and the MLP backward's WMMA body (the demo's C 128) and Hopper
+body (three heads' C 384), and fails unless those checks ran the expected
 bodies.
 
 Phases 3, 4 and 14 also time, beside the SDPA yardstick of the pools and
@@ -339,19 +346,24 @@ SOURCES = {
                              "gecco_tpu/ops/pallas/folded_attention.py:1154"),
     "folded_unpool_wmma": ("gecco_tpu_torch/csrc/unpool_wmma.cu",
                            "gecco_tpu/ops/pallas/folded_attention.py:2222"),
-    # the WMMA bodies beside the Hopper pool and unpool backwards, chosen by
-    # shape
+    "fused_mlp_residual_wmma": ("gecco_tpu_torch/csrc/mlp_wmma.cu",
+                                "gecco_tpu/ops/pallas/folded_attention.py:2798"),
+    # the WMMA bodies beside the Hopper pool, unpool and MLP backwards,
+    # chosen by shape
     "folded_pool_ext_bwd_wmma": ("gecco_tpu_torch/csrc/pool_ext_bwd_wmma.cu",
                                  "gecco_tpu/ops/pallas/folded_attention.py:1843"),
     "folded_unpool_bwd_wmma": ("gecco_tpu_torch/csrc/unpool_bwd_wmma.cu",
                                "gecco_tpu/ops/pallas/folded_attention.py:2457"),
+    "fused_mlp_residual_bwd_wmma": ("gecco_tpu_torch/csrc/mlp_bwd_wmma.cu",
+                                    "gecco_tpu/ops/pallas/folded_attention.py:2902"),
 }
 SET_FORWARD = ("folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual")
 BACKWARD = ("folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd",
             "rect_attention_bwd")
 FOLDED_BACKWARD = BACKWARD[:3]
-WMMA_FORWARD = ("folded_pool_ext_wmma", "folded_unpool_wmma")
-WMMA_BACKWARD = ("folded_pool_ext_bwd_wmma", "folded_unpool_bwd_wmma")
+WMMA_FORWARD = ("folded_pool_ext_wmma", "folded_unpool_wmma", "fused_mlp_residual_wmma")
+WMMA_BACKWARD = ("folded_pool_ext_bwd_wmma", "folded_unpool_bwd_wmma",
+                 "fused_mlp_residual_bwd_wmma")
 GATHER = ("projective_gather", "projective_gather_bwd")
 
 
@@ -456,6 +468,30 @@ def mlp_operands(g, b, n, c, w, drift, device, dt):
     x = r(b, n, c) * (head_scales(c, 8, True, device) if drift else 1.0)
     return (x.to(dt), 1.0 + 0.1 * r(b, c), 0.1 * r(b, c), (r(c, w) / c**0.5).to(dt),
             0.1 * r(1, w), (r(w, c) / w**0.5).to(dt), 0.1 * r(1, c))
+
+
+def mlp_wmma_fwd(ops):
+    """The MLP forward's WMMA body on any shape it takes (on the CPU, the
+    plain version)."""
+    return fa._mlp_wmma(*ops) if ops[0].is_cuda else fa._mlp_ref(*ops)
+
+
+def mlp_wmma_bwd(ops, gg, gs):
+    """The MLP backward's WMMA body, its weight gradients cast as
+    ``fused_mlp_residual_bwd`` casts them (on the CPU, the plain version)."""
+    if not ops[0].is_cuda:
+        return fa._mlp_bwd_ref(*ops, gg, gs)
+    dx, dse, dbe, dw1t, db1, dw2t, db2 = fa._mlp_bwd_wmma(*ops, gg, gs)
+    return dx, dse, dbe, dw1t.to(ops[3].dtype), db1, dw2t.to(ops[5].dtype), db2
+
+
+def bodies_in_turns(hopper, wmma, device, reps) -> dict:
+    """Both bodies of one function timed in turns: reps / 2 WMMA, reps
+    Hopper, reps / 2 WMMA calls -> sorted milliseconds per body."""
+    half = max(1, reps // 2)
+    t_w = time_all(wmma, device, half)
+    t_h = time_all(hopper, device, half) + time_all(hopper, device, half)
+    return {"hopper": sorted(t_h), "wmma": sorted(t_w + time_all(wmma, device, half))}
 
 
 # ------------------------------------------------------------ yardsticks --
@@ -605,6 +641,16 @@ def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
         lambda drift: mlp_operands(g, b, n, c, w, drift, device, dt), 2,
         4 * b * n * c * w,
         lambda a: [a[0], torch.empty(b, 2, c)])
+    # the MLP forward's two bodies on the flagship's operands, in turns (10
+    # WMMA, 20 Hopper, 10 WMMA calls), each time with its spread
+    mlp_rec, mlp_wm = rec["fused_mlp_residual"], {}
+    args = mlp_operands(g, b, n, c, w, False, device, dt)
+    for body, t in bodies_in_turns(lambda: fa.fused_mlp_residual(*args),
+                                       lambda: mlp_wmma_fwd(args), device, reps).items():
+        out = mlp_rec if body == "hopper" else mlp_wm
+        out["ms"], out["ms_min_max"] = statistics.median(t), [t[0], t[-1]]
+        print(f"  fused_mlp_residual, {body} body, at the flagship: median "
+              f"{statistics.median(t):.3f} ms of {len(t)} calls (min {t[0]:.3f}, max {t[-1]:.3f})")
 
     # the pool at the 8k width (C = 768, 16 heads, 8192 points)
     bb, nn_, cc, hh, ii = big["batch"], big["n_points"], big["feature_dim"], \
@@ -621,6 +667,23 @@ def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
         tag = "drift" if drift else "ordinary"
         check(f"folded_unpool 8k width [{tag}] out0", rel_err(got[0], want[0]), TOL_OUT)
         check(f"folded_unpool 8k width [{tag}] sums", rel_err(got[1], want[1]), TOL_SUMS)
+    # the MLP at the 8k width (C 768, W 1536): the Hopper body, and the WMMA
+    # body on the same operands; the Hopper body timed there
+    for drift in (False, True):
+        args = mlp_operands(g, bb, nn_, cc, 2 * cc, drift, device, dt)
+        tag = "drift" if drift else "ordinary"
+        want = fa._mlp_ref(*args)
+        for body, got in (("", fa.fused_mlp_residual(*args)), (" WMMA body", mlp_wmma_fwd(args))):
+            sync(device)
+            check(f"fused_mlp_residual{body} 8k width [{tag}] out0", rel_err(got[0], want[0]),
+                  TOL_OUT)
+            check(f"fused_mlp_residual{body} 8k width [{tag}] sums", rel_err(got[1], want[1]),
+                  TOL_SUMS)
+    args = mlp_operands(g, bb, nn_, cc, 2 * cc, False, device, dt)
+    mlp_rec["ms_8k"] = time_ms(lambda: fa.fused_mlp_residual(*args), device, reps)
+    mlp_rec["bound_ms_8k"] = bound(4 * bb * nn_ * cc * 2 * cc, 2 * nbytes(args[0]))[0]
+    print(f"  fused_mlp_residual at the 8k width: {mlp_rec['ms_8k']:.3f} ms (bound "
+          f"{mlp_rec['bound_ms_8k']:.3f} ms)")
 
     # the WMMA bodies of the pool and unpool forwards, which take the shapes
     # the Hopper designs do not: the upsample demo's model (timed there) and
@@ -642,6 +705,12 @@ def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
         4 * db * dn * dc * dj + 4 * db * dj * dc * dd,
         lambda a: [a[0], torch.empty(db, 2, dc)],
         lambda a: sdpa_unpool(a, dh), lambda a: chain_unpool(a, dh))
+    run("fused_mlp_residual_wmma", fa.fused_mlp_residual, fa._mlp_ref,
+        lambda drift: mlp_operands(g, db, dn, dc, 2 * dc, drift, device, dt), 2,
+        4 * db * dn * dc * 2 * dc,
+        lambda a: [a[0], torch.empty(db, 2, dc)])
+    rec["fused_mlp_residual_wmma"].update(
+        {"ms_flagship": mlp_wm["ms"], "ms_min_max_flagship": mlp_wm["ms_min_max"]})
     hb, hn, hc, hh3, hi = (heads3[k] for k in ("batch", "n_points", "feature_dim", "num_heads",
                                                "num_inducers"))
     for drift in (False, True):
@@ -654,14 +723,23 @@ def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
         sync(device)
         check(f"folded_unpool [{tag}] out0", rel_err(got[0], want[0]), TOL_OUT)
         check(f"folded_unpool [{tag}] sums", rel_err(got[1], want[1]), TOL_SUMS)
+        # the MLP sees no heads: at three heads its width is the flagship's
+        # (the Hopper body)
+        args = mlp_operands(g, hb, hn, hc, 2 * hc, drift, device, dt)
+        got, want = fa.fused_mlp_residual(*args), fa._mlp_ref(*args)
+        sync(device)
+        check(f"fused_mlp_residual [{tag}] out0", rel_err(got[0], want[0]), TOL_OUT)
+        check(f"fused_mlp_residual [{tag}] sums", rel_err(got[1], want[1]), TOL_SUMS)
     counts = kernels.launch_counts()
     print(f"  launches of the forwards' bodies in these checks: "
-          f"{ {k: counts[k] for k in SET_FORWARD[::2] + WMMA_FORWARD} }")
+          f"{ {k: counts[k] for k in SET_FORWARD[::2] + ('fused_mlp_residual',) + WMMA_FORWARD} }")
     if device.type == "cuda" and (counts["folded_pool_ext_wmma"] == 0
                                   or counts["folded_unpool_wmma"] == 0
-                                  or counts["folded_pool_ext"] or counts["folded_unpool"]):
-        raise AssertionError(f"the demo and num_heads=3 shapes did not run the WMMA bodies "
-                             f"alone: {counts}")
+                                  or counts["fused_mlp_residual_wmma"] == 0
+                                  or counts["folded_pool_ext"] or counts["folded_unpool"]
+                                  or counts["fused_mlp_residual"] != 2):
+        raise AssertionError(f"the demo and num_heads=3 shapes did not run the expected "
+                             f"bodies: {counts}")
     return rec
 
 
@@ -935,11 +1013,8 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
                 compare("folded_unpool_bwd", f"Hopper body, {tag}", hopper, plain)
             wm_errs.append(compare("folded_unpool_bwd", f"WMMA body, {tag}", wmma, plain))
         hopper, wmma, _ = unpool_bodies(shape, False)
-        half = max(1, reps // 2)
-        t_w = time_all(wmma, device, half)
-        t_h = sorted(time_all(hopper, device, half) + time_all(hopper, device, half))
-        t_w = sorted(t_w + time_all(wmma, device, half))
-        for out, t, body in ((un_rec, t_h, "Hopper"), (wm_rec, t_w, "WMMA")):
+        turns = bodies_in_turns(hopper, wmma, device, reps)
+        for out, t, body in ((un_rec, turns["hopper"], "Hopper"), (wm_rec, turns["wmma"], "WMMA")):
             out["ms" + key] = statistics.median(t)
             out["ms_min_max" + key] = [t[0], t[-1]]
             print(f"  folded_unpool_bwd, {body} body, at the {width}: median "
@@ -953,6 +1028,52 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
         if device.type == "cuda" and not same:
             raise AssertionError("the unpool backward's dkf/dvf differ between two calls")
     wm_rec["max_abs_err"] = max(wm_errs)
+
+    # the MLP backward's two bodies at both widths on the same operands,
+    # ordinary and drifted (the flagship's Hopper body is checked above);
+    # each body's time with its spread (in turns: 10 WMMA, 20 Hopper, 10
+    # WMMA calls); every output of the Hopper body, dw1t and dw2t among
+    # them, the same bits in two calls
+    mlp_rec, mlp_wm, mlp_wm_errs = rec["fused_mlp_residual_bwd"], {}, []
+    for width, (bb, nn_, cc) in {"flagship": (b, n, c),
+                                 "8k width": (big["batch"], big["n_points"],
+                                              big["feature_dim"])}.items():
+        key, ww = ("" if width == "flagship" else "_8k"), 2 * cc
+        if device.type == "cuda" and fa._mlp_bwd_body(bb, nn_, cc, ww) != "hopper":
+            raise AssertionError(f"the MLP backward at the {width} is not the Hopper body's")
+        for drift in (False, True):
+            ops = mlp_operands(g, bb, nn_, cc, ww, drift, device, dt)
+            gg, gs = (0.1 * r(bb, nn_, cc)).to(dt), 1e-3 * r(bb, 2, cc)
+            tag = f"{width}, {'drift' if drift else 'ordinary'}"
+            plain = lambda: fa._mlp_bwd_ref(*ops, gg, gs)
+            if key:
+                compare("fused_mlp_residual_bwd", f"Hopper body, {tag}",
+                        lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs), plain)
+            mlp_wm_errs.append(compare("fused_mlp_residual_bwd", f"WMMA body, {tag}",
+                                       lambda: mlp_wmma_bwd(ops, gg, gs), plain))
+        ops = mlp_operands(g, bb, nn_, cc, ww, False, device, dt)
+        gg, gs = (0.1 * r(bb, nn_, cc)).to(dt), 1e-3 * r(bb, 2, cc)
+        hopper = lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs)
+        turns = bodies_in_turns(hopper, lambda: mlp_wmma_bwd(ops, gg, gs), device, reps)
+        for body, t in turns.items():
+            # the WMMA body's own "ms" is the demo's, its serving width
+            out, suffix = (mlp_rec, key) if body == "hopper" else (mlp_wm, key or "_flagship")
+            out["ms" + suffix] = statistics.median(t)
+            out["ms_min_max" + suffix] = [t[0], t[-1]]
+            print(f"  fused_mlp_residual_bwd, {body} body, at the {width}: median "
+                  f"{statistics.median(t):.3f} ms of {len(t)} calls (min {t[0]:.3f}, max "
+                  f"{t[-1]:.3f})")
+        first, again = hopper(), hopper()
+        sync(device)
+        if key:
+            mlp_rec["bound_ms_8k"] = bound(6 * 2 * bb * nn_ * cc * ww,
+                                           nbytes(*ops, gg, gs, *first))[0]
+            print(f"  fused_mlp_residual_bwd bound at the 8k width: {mlp_rec['bound_ms_8k']:.3f} ms")
+        same = all(torch.equal(p, q) for p, q in zip(first, again))
+        print(f"  fused_mlp_residual_bwd at the {width}: every gradient (dw1t and dw2t among them) "
+              f"of two calls {'the same bits' if same else 'DIFFER'}")
+        if device.type == "cuda" and not same:
+            raise AssertionError("the MLP backward's gradients differ between two calls")
 
     # the bodies that the demo model (C 128, 4 heads of 32) and three heads
     # at the flagship's width take: the pool backward's WMMA body (its
@@ -975,12 +1096,20 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
                                    witness if drift else None))
             hopper, wmma, plain = unpool_bodies(shape, drift)
             compare("folded_unpool_bwd", tag, hopper, plain)
-    for drift in (False, True):
-        ops = mlp_operands(g, db, dn, dc, 2 * dc, drift, device, dt)
-        gg, gs = (0.1 * r(db, dn, dc)).to(dt), 1e-3 * r(db, 2, dc)
-        compare("fused_mlp_residual_bwd", f"C {dc}, {'drift' if drift else 'ordinary'}",
-                lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs),
-                lambda: fa._mlp_bwd_ref(*ops, gg, gs))
+    # the MLP backward at the demo's C 128 (the WMMA body) and at three
+    # heads' width, which is the flagship's C 384 (the Hopper body: the MLP
+    # sees no heads)
+    mlp_demo_errs = []
+    for (mb, mn, mc), what in (((db, dn, dc), "WMMA body, "), (hshape[:3], "three heads' width, ")):
+        for drift in (False, True):
+            ops = mlp_operands(g, mb, mn, mc, 2 * mc, drift, device, dt)
+            gg, gs = (0.1 * r(mb, mn, mc)).to(dt), 1e-3 * r(mb, 2, mc)
+            err = compare("fused_mlp_residual_bwd",
+                          f"{what}C {mc}, {'drift' if drift else 'ordinary'}",
+                          lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs),
+                          lambda: fa._mlp_bwd_ref(*ops, gg, gs))
+            if mc == dc:
+                mlp_demo_errs.append(err)
     counts = kernels.launch_counts()
     print(f"  launches of the backwards' bodies in these checks: "
           f"{ {k: counts[k] for k in FOLDED_BACKWARD + WMMA_BACKWARD} }")
@@ -988,6 +1117,7 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
                                       and counts["folded_pool_ext_bwd"] == 0
                                       and counts["folded_unpool_bwd"] == 2
                                       and counts["folded_unpool_bwd_wmma"] == 2
+                                      and counts["fused_mlp_residual_bwd_wmma"] == 2
                                       and counts["fused_mlp_residual_bwd"] == 2):
         raise AssertionError(f"the demo and num_heads=3 shapes did not run the expected "
                              f"backward bodies: {counts}")
@@ -1011,15 +1141,23 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
     wm_rec["ms_heads3"] = time_ms(wmma, device, reps)
     ops = mlp_operands(g, db, dn, dc, 2 * dc, False, device, dt)
     gg, gs = (0.1 * r(db, dn, dc)).to(dt), 1e-3 * r(db, 2, dc)
-    rec["fused_mlp_residual_bwd"]["ms_demo"] = time_ms(
-        lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs), device, reps)
+    kernel = lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs)
+    mlp_wm.update(max_abs_err=max(mlp_demo_errs), ms=time_ms(kernel, device, reps),
+                  plain_ms=time_ms(lambda: fa._mlp_bwd_ref(*ops, gg, gs), device,
+                                   max(2, reps // 4)), library_ms=None)
+    mlp_wm["bound_ms"], mlp_wm["bound_by"] = bound(
+        6 * 2 * db * dn * dc * 2 * dc,
+        nbytes(*[a for a in ops if torch.is_tensor(a)], *kernel()) + 2 * db * dn * dc
+        + 4 * 2 * db * dc)
+    rec["fused_mlp_residual_bwd_wmma"] = mlp_wm
     print(f"  folded_pool_ext_bwd, WMMA body: {pw_rec['ms']:.3f} ms at the demo's shapes "
           f"(plain {pw_rec['plain_ms']:.3f}, library {pw_rec['library_ms']:.3f}, chain "
           f"{pw_rec['library_chain_ms']:.3f}, bound {pw_rec['bound_ms']:.3f} "
           f"({pw_rec['bound_by']})), {pw_rec['ms_heads3']:.3f} ms with three heads at C {hshape[2]}; "
           f"folded_unpool_bwd: Hopper body {un_rec['ms_demo']:.3f} ms at the demo's shapes, WMMA "
-          f"body {wm_rec['ms_heads3']:.3f} ms with three heads; fused_mlp_residual_bwd "
-          f"{rec['fused_mlp_residual_bwd']['ms_demo']:.3f} ms at the demo's shapes")
+          f"body {wm_rec['ms_heads3']:.3f} ms with three heads; fused_mlp_residual_bwd, WMMA "
+          f"body: {mlp_wm['ms']:.3f} ms at the demo's shapes (plain {mlp_wm['plain_ms']:.3f}, "
+          f"bound {mlp_wm['bound_ms']:.3f} ({mlp_wm['bound_by']}))")
     rec["folded_pool_ext_bwd_wmma"] = pw_rec
     rec["folded_unpool_bwd_wmma"] = wm_rec
     return rec
@@ -1844,14 +1982,15 @@ def demo_train_phase(device, demo_dims, batch, heads3_dims, card, steps):
     model (3 x 128, 4 heads) through ``train_phase`` (its gradient against
     the plain path, then timed steps: the forwards' WMMA bodies, the pool
     backward's WMMA body, the unpool backward's Hopper body and the MLP
-    backward, each once per layer and step); then one gradient of the
-    flagship with three heads (C 384, D 128) against the plain path, whose
-    kernel path runs the WMMA bodies of all four pool and unpool
-    functions. Returns both runs' launch counts and the demo's record."""
+    backward's WMMA body, each once per layer and step); then one gradient
+    of the flagship with three heads (C 384, D 128) against the plain path,
+    whose kernel path runs the WMMA bodies of all four pool and unpool
+    functions and the Hopper MLP (the MLP sees no heads). Returns both
+    runs' launch counts and the demo's record."""
     n_layers = demo_dims["n_layers"]
     layers = lambda k: {name: k * n_layers for name in (
-        "folded_pool_ext_wmma", "fused_h_side", "folded_unpool_wmma", "fused_mlp_residual",
-        "folded_pool_ext_bwd_wmma", "folded_unpool_bwd", "fused_mlp_residual_bwd")}
+        "folded_pool_ext_wmma", "fused_h_side", "folded_unpool_wmma", "fused_mlp_residual_wmma",
+        "folded_pool_ext_bwd_wmma", "folded_unpool_bwd", "fused_mlp_residual_bwd_wmma")}
     counts, rec = train_phase(device, n_layers, batch, demo_dims["n_points"], card, steps,
                               dims=demo_dims, expect=layers)
 
@@ -1867,8 +2006,8 @@ def demo_train_phase(device, demo_dims, batch, heads3_dims, card, steps):
     h_counts = kernels.launch_counts()
     check_counts("num_heads=3 gradient", h_counts, expected_counts(
         {k: h_layers for k in ("folded_pool_ext_wmma", "fused_h_side", "folded_unpool_wmma",
-                               "fused_mlp_residual", "fused_mlp_residual_bwd")
-         + WMMA_BACKWARD}), device)
+                               "fused_mlp_residual", "fused_mlp_residual_bwd",
+                               "folded_pool_ext_bwd_wmma", "folded_unpool_bwd_wmma")}), device)
     return counts, h_counts, rec
 
 
@@ -1911,7 +2050,8 @@ KERNEL_FUNCTIONS = {
     "fused_h_side": ("hside_kernel",),
     "folded_unpool": ("unpool_bq_kernel", "unpool_fold_k_kernel", "unpool_fold_v_kernel",
                       "unpool_tile_kernel"),
-    "fused_mlp_residual": ("mlp_kernel",),
+    "fused_mlp_residual": ("mlp_act_kernel", "mlp_out_kernel"),
+    "fused_mlp_residual_wmma": ("mlp_kernel",),
     "folded_pool_ext_bwd": ("pool_bwd_ety_kernel", "pool_bwd_dy_kernel"),
     "pool_bwd_fold_kernel (the pool backwards' fold)": ("pool_bwd_fold_kernel",),
     "folded_pool_ext_bwd_wmma": ("pool_bwd_e_kernel", "pool_bwd_ety_cast_kernel",
@@ -1923,8 +2063,11 @@ KERNEL_FUNCTIONS = {
     "folded_unpool_bwd_wmma": ("unpool_bwd_kernel",),
     "prenorm_kernel and wgrad_kernel (the Hopper backwards' shared pre-norm and weight "
     "gradients)": ("prenorm_kernel", "wgrad_kernel", "wgrad_sum_kernel"),
-    "fused_mlp_residual_bwd": ("mlp_bwd_kernel",),
-    "atb_kernel (the weight-gradient products of the folded backwards)": ("atb_kernel",),
+    "fused_mlp_residual_bwd": ("mlp_bwd_act_kernel", "mlp_bwd_grad_kernel", "mlp_bwd_dh_kernel",
+                               "mlp_bwd_dx_kernel"),
+    "mlp_colsum_kernel (the Hopper MLP bodies' fixed-order column sums)": ("mlp_colsum_kernel",),
+    "fused_mlp_residual_bwd_wmma": ("mlp_bwd_kernel",),
+    "atb_kernel (the weight-gradient products of the WMMA backwards)": ("atb_kernel",),
     "projective_gather": ("gather_kernel",),
     "projective_gather_bwd": ("gather_bwd_kernel",),
     "rect_attention_fwd": ("rect_attn_fwd_kernel",),
@@ -2384,7 +2527,7 @@ def main():
         compare_batch=8, what="demo model's kernel path", dims=demo_dims,
         expect=lambda evals: {k: demo_dims["n_layers"] * evals for k in
                               ("folded_pool_ext_wmma", "fused_h_side", "folded_unpool_wmma",
-                               "fused_mlp_residual")})
+                               "fused_mlp_residual_wmma")})
     print(f"  {demo_path['clouds_per_s']:.3f} clouds/s on {card}")
 
     print(f"== demo training path: scripts/demo_upsample_100k.py's model ({demo_dims}), batch "
@@ -2431,8 +2574,8 @@ def main():
     # folded path's for the resident pool, split by variant: the sums-less
     # layer's run gave the pre-norm launches (nested under "prenorm", as
     # their times are), the Broadcast's runs the rest; the demo sampler's for
-    # the forwards' WMMA bodies, the demo training path's for the pool
-    # backward's WMMA body, the num_heads=3 gradient's for the unpool
+    # the forwards' WMMA bodies, the demo training path's for the pool and
+    # MLP backwards' WMMA bodies, the num_heads=3 gradient's for the unpool
     # backward's
     pool_counts = {}
     for name in ("folded_pool_layer", "folded_pool_layer_bwd"):
@@ -2442,9 +2585,10 @@ def main():
                      "rect_attention_fwd": ph_counts, "rect_attention_bwd": ph_train_counts,
                      "fused_unpool_mlp": mega_counts, "folded_pool_layer": pool_counts,
                      "folded_pool_layer_bwd": pool_counts, "folded_pool_ext_wmma": demo_counts,
-                     "folded_unpool_wmma": demo_counts,
+                     "folded_unpool_wmma": demo_counts, "fused_mlp_residual_wmma": demo_counts,
                      "folded_pool_ext_bwd_wmma": demo_train_counts,
-                     "folded_unpool_bwd_wmma": heads3_counts}
+                     "folded_unpool_bwd_wmma": heads3_counts,
+                     "fused_mlp_residual_bwd_wmma": demo_train_counts}
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=source_counts.get(name, train_counts if name in BACKWARD else counts)[name],

@@ -1,58 +1,76 @@
-// Fused pre-norm + Gaussian MLP + residual, with the output channel sums.
+// Fused pre-norm + Gaussian MLP + residual, with the output channel sums:
+// the Hopper body (TMA and wgmma), the sampler's.
 //
 // Replaces gecco_tpu/ops/pallas/folded_attention.py:_mlp_kernel (served by
-// fused_mlp_residual):
+// fused_mlp_residual), with its algebra and roundings:
 //   y = bf16(x * se + be);  h = y @ w1t + b1;  g = bf16(exp(-h^2 / 2))
-//   o = x + (g @ w2t + b2);  out = bf16(o);  sums[b] += [sum o | sum o^2]
+//   o = x + (g @ w2t + b2);  out = bf16(o);  sums[b] = [sum o | sum o^2]
 // (alpha and the normalized-activation affine are folded into w1t/b1 and
 // w2t/b2 by the caller).
 //
-// Bound on the H100: tensor-core operations (4*N*C*W per batch element
-// against 4*N*C bytes of stream in and out: W = 768 FLOP per byte at the
-// flagship, above the bf16 ridge of about 295). Design: one block per
-// 64-point tile (32 at C = 768) of one batch element; the normed tile
-// stays in shared memory and the [TN, W] hidden plane never leaves the SM:
-// W is walked in 64-wide chunks (32 at C = 768), both weight chunks staged
-// in shared memory behind the other product, each chunk's activation feeds
-// the second product at once, whose
-// [TN, C] fp32 output stays in registers across chunks. The TPU kernel's
-// sequential point-tile
-// axis carried the sums; here blocks run unordered and add them with one
-// fp32 atomic per channel (the wrapper zeroes the buffer). The device code
-// is in mlp.cuh, shared with csrc/unpool_mlp.cu.
-#include "mlp.cuh"
+// Bound on the H100: tensor-core operations (4 N C W per batch element
+// against 4 N C bytes of stream in and out: W = 768 FLOP per byte at the
+// flagship, above the bf16 ridge of about 295). Design (mlp_hopper.cuh):
+// the first walk of the Hopper backward (csrc/mlp_bwd.cu) and the
+// residual epilogue, four launches:
+// 0. prenorm_kernel (backward.cuh): y = bf16(x * se + be) [B N, C] once;
+// 1. mlp_act_kernel: g = bf16(exp(-(y @ w1t + b1)^2 / 2)) [B N, W], blocks
+//    of 128 rows x 192 columns, w1t read MN-major as TMA leaves it;
+// 2. mlp_out_kernel: o = (g @ w2t + b2) + x, out = bf16(o) and each
+//    128-row block's column sums of o and o^2;
+// 3. mlp_colsum_kernel: sums[b] = batch element b's row blocks added in
+//    order (no atomics: the same bits from call to call).
+// g makes one round trip through device memory in bf16 (0.4 GB at the
+// sampler's B 64), where the WMMA body streamed both weights through
+// shared memory once per 64 points (2.4 GB of L2 reads a call).
+#include "mlp_hopper.cuh"
 
 using namespace gecco;
+using namespace gecco::mlp;
 
 namespace {
 
-// One point tile per block (shared memory: mlp_smem_plan).
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
-mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const float* __restrict__ be,
-           const bf16* __restrict__ w1t, const float* __restrict__ b1,
-           const bf16* __restrict__ w2t, const float* __restrict__ b2, bf16* __restrict__ out,
-           float* __restrict__ sums, int N, int C, int W, int chunk, int region0) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  mlp_tile<ROWS>(x, se, be, w1t, b1, w2t, b2, out, sums, N, C, W, chunk, region0, blockIdx.y,
-                 blockIdx.x, smem);
-}
+MLP_GEMM_KERNEL(mlp_act_kernel, kBnWide, 1, kAct, kStagesWide)
+MLP_GEMM_KERNEL(mlp_out_kernel, kBnWide, 1, kOut, kStagesWide)
 
 }  // namespace
 
+// y [B N, C] and g [B N, W] bf16 and part [B N / 128, 2, C] fp32 are the
+// wrapper's scratch.
 extern "C" int mlp_launch(const void* x, const void* se, const void* be, const void* w1t,
-                          const void* b1, const void* w2t, const void* b2, void* out, void* sums,
-                          int B, int N, int C, int W, int TN, void* stream) {
-  int chunk = 0;
-  size_t region0 = 0;
-  const size_t smem = mlp_smem_plan(TN, C, W, &chunk, &region0);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  const auto kernel = TN == 64 ? mlp_kernel<4> : mlp_kernel<2>;
-  cudaError_t err = set_smem((const void*)kernel, smem);
+                          const void* b1, const void* w2t, const void* b2, void* y, void* g,
+                          void* part, void* out, void* sums, int B, int N, int C, int W,
+                          void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!hopper_takes(N, C, W)) return (int)cudaErrorInvalidValue;
+  const long long M = (long long)B * N;
+  cudaError_t err =
+      launch_prenorm((const bf16*)x, (const float*)se, (const float*)be, (bf16*)y, B, N, C, st);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(N / TN, B), kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)se, (const float*)be, (const bf16*)w1t, (const float*)b1,
-      (const bf16*)w2t, (const float*)b2, (bf16*)out, (float*)sums, N, C, W, chunk,
-      (int)region0);
-  return (int)cudaGetLastError();
+  CUtensorMap tm_y, tm_w1, tm_g, tm_w2;
+  if (!tmap(&tm_y, y, M, C, 64) || !tmap(&tm_w1, w1t, C, W, 64) || !tmap(&tm_g, g, M, W, 64) ||
+      !tmap(&tm_w2, w2t, W, C, 64)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  MlpEpi e1{};
+  e1.K = C;
+  e1.N = W;
+  e1.rows_b = N;
+  e1.bias = (const float*)b1;
+  e1.out = (bf16*)g;
+  err = launch_gemm<kBnWide, kAct, kStagesWide>(mlp_act_kernel, tm_y, tm_w1, tm_y, tm_w1, e1, M,
+                                                st);
+  if (err != cudaSuccess) return (int)err;
+  MlpEpi e2{};
+  e2.K = W;
+  e2.N = C;
+  e2.rows_b = N;
+  e2.bias = (const float*)b2;
+  e2.x = (const bf16*)x;
+  e2.out = (bf16*)out;
+  e2.part = (float*)part;
+  err = launch_gemm<kBnWide, kOut, kStagesWide>(mlp_out_kernel, tm_g, tm_w2, tm_g, tm_w2, e2, M,
+                                                st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_colsum((const float*)part, (float*)sums, B, N / kRows, 2, C, st);
 }

@@ -1,7 +1,7 @@
-// Device code of the fused MLP (csrc/mlp.cu), shared with the unpool + MLP
-// megakernel (csrc/unpool_mlp.cu): one point tile of pre-norm + Gaussian
-// MLP + residual + output channel sums. The algebra and the design are
-// described in mlp.cu.
+// Device code of the fused MLP's WMMA body (csrc/mlp_wmma.cu), shared with
+// the unpool + MLP megakernel (csrc/unpool_mlp.cu): one point tile of
+// pre-norm + Gaussian MLP + residual + output channel sums. The algebra and
+// the design are described in mlp_wmma.cu.
 #pragma once
 
 #include "common.cuh"

@@ -28,8 +28,12 @@ through the plain forward, as the twins' ``jax.vjp``) for CPU tensors:
   with its own max), plus the residual and the output's channel sums; the
   ``residual`` and ``prenorm`` flags turn the x term and the pre-norm off
   (the module-level unpool).
-- ``fused_mlp_residual`` (``csrc/mlp.cu``; backward ``csrc/mlp_bwd.cu``):
-  pre-norm + Gaussian MLP + residual, plus the output's channel sums.
+- ``fused_mlp_residual`` (``csrc/mlp.cu``, WMMA body ``csrc/mlp_wmma.cu``;
+  backward ``csrc/mlp_bwd.cu``, WMMA body ``csrc/mlp_bwd_wmma.cu``):
+  pre-norm + Gaussian MLP + residual, plus the output's channel sums. The
+  Hopper bodies run each product as one pass over the rows with the
+  algebra in its epilogue (``csrc/mlp_hopper.cuh``), each with its plain
+  piece beside it (``_mlp_act_ref``, ``_mlp_out_ref``, ``_mlp_bwd_*_ref``).
 
 and a fourth runs the second and third as one launch:
 
@@ -40,12 +44,11 @@ and a fourth runs the second and third as one launch:
   ``fused_mlp_residual`` (``_unpool_mlp_composed``), whose backwards are
   the kernels above, as the JAX package's custom_vjp does.
 
-The pool and unpool forwards and backwards each keep a second, WMMA body
-(``csrc/*_wmma.cu``) for the shapes their Hopper design does not take;
-``_pool_ext_body``, ``_unpool_body``, ``_pool_ext_bwd_body`` and
-``_unpool_bwd_body`` choose by shape, and a shape that neither body takes
-raises, as one that the MLP backward's one body (``_mlp_bwd_body``) does
-not take does. A CUDA tensor never falls back to a plain version. Each
+The pool, unpool and MLP forwards and backwards each keep a second, WMMA
+body (``csrc/*_wmma.cu``) for the shapes their Hopper design does not take;
+``_pool_ext_body``, ``_unpool_body``, ``_mlp_body`` and their backwards'
+``*_bwd_body`` choose by shape, and a shape that neither body takes
+raises. A CUDA tensor never falls back to a plain version. Each
 forward wrapper counts its kernel launches in ``.launches`` (the WMMA
 body's in ``.launches_wmma``); each backward has its own wrapper
 (``*_bwd``) and counters. As in the JAX package, the backward kernels
@@ -1085,6 +1088,52 @@ def _mlp_ref(x, se, be, w1t, b1, w2t, b2):
     return o.to(dt), torch.stack([o.sum(1), (o * o).sum(1)], dim=1)
 
 
+def _mlp_act_ref(y, w1t, b1) -> torch.Tensor:
+    """Plain version of the Hopper bodies' first pass (``mlp_act_kernel``,
+    ``mlp_bwd_act_kernel``) from the pre-normed y (``prenorm_kernel``;
+    ``_prenormed`` in x's dtype): exp(-h^2 / 2) rounded to y's dtype
+    [B, N, W], h = y @ w1t + b1."""
+    h = torch.einsum("bnc,cw->bnw", y.float(), w1t.float()) + b1[None]
+    return torch.exp(-0.5 * h * h).to(y.dtype)
+
+
+def _mlp_out_ref(x, g, w2t, b2) -> tuple:
+    """Plain version of the Hopper forward's second pass and its sums
+    (``mlp_out_kernel``, ``mlp_colsum_kernel``) from the first pass's g ->
+    (out in x's dtype, sums [B, 2, C] fp32): o = x + (g @ w2t + b2)."""
+    o = x.float() + (torch.einsum("bnw,wc->bnc", g.float(), w2t.float()) + b2[None])
+    return o.to(x.dtype), torch.stack([o.sum(1), (o * o).sum(1)], dim=1)
+
+
+def _mlp_hopper_takes(n: int, c: int, w: int) -> bool:
+    """The Hopper MLP bodies' shapes (csrc/mlp_hopper.cuh ``hopper_takes``):
+    C and W multiples of 384 (the single products' 192-column tiles, the
+    weight gradients' 128-wide ones), N of the 128-row block."""
+    return c % 384 == 0 and w % 384 == 0 and n % 128 == 0
+
+
+def _mlp_body(b: int, n: int, c: int, w: int) -> str:
+    """Which body of ``fused_mlp_residual`` takes these shapes on the card:
+    "hopper" (csrc/mlp.cu, TMA and wgmma: C % 384 == 0, W % 384 == 0, N %
+    128 == 0; the flagship's C 384 and the 8k width's C 768) where it can,
+    else "wmma" (csrc/mlp_wmma.cu: C % 16 == 0, W % 64 == 0 and a 64- or
+    32-point tile dividing N; the upsample demo's C 128). Raises ValueError
+    with both bodies' conditions otherwise."""
+    if _mlp_hopper_takes(n, c, w):
+        return "hopper"
+    try:
+        _row_tile(n, c)
+        tile = True
+    except ValueError:
+        tile = False
+    if c % 16 == 0 and w % 64 == 0 and tile:
+        return "wmma"
+    raise ValueError(
+        f"fused_mlp_residual: no CUDA body takes B={b}, N={n}, C={c}, W={w}: the Hopper body "
+        f"needs C % 384 == 0, W % 384 == 0 and N % 128 == 0; the WMMA body C % 16 == 0, W % 64 "
+        f"== 0 and a point tile of 64 (32 above C 384) dividing N")
+
+
 def _mlp_launch(x, se, be, w1t, b1, w2t, b2):
     name = "fused_mlp_residual"
     b, n, c = x.shape
@@ -1093,12 +1142,37 @@ def _mlp_launch(x, se, be, w1t, b1, w2t, b2):
         name, dict(x=x, se=se, be=be, w1t=w1t, b1=b1, w2t=w2t, b2=b2),
         dict(x=_BF16, se=_F32, be=_F32, w1t=_BF16, b1=_F32, w2t=_BF16, b2=_F32),
     )
-    _require(c % 16 == 0 and w % 64 == 0, name, f"C % 16 and W % 64 == 0 (C={c}, W={w})")
-    tn = _row_tile(n, c)
+    run = _mlp_hopper if _mlp_body(b, n, c, w) == "hopper" else _mlp_wmma
+    return run(x, se, be, w1t, b1, w2t, b2)
+
+
+def _mlp_hopper(x, se, be, w1t, b1, w2t, b2, mid: dict | None = None) -> tuple:
+    """The Hopper body (csrc/mlp.cu) -> (out, sums); ``mid``, where given,
+    receives the pre-normed y and the first pass's g, which
+    ``probes.mlp_bwd`` holds against their plain pieces."""
+    b, n, c = x.shape
+    w = w1t.shape[1]
+    dev = x.device
+    y, g = torch.empty_like(x), torch.empty((b, n, w), dtype=_BF16, device=dev)
+    out = torch.empty_like(x)
+    sums = torch.empty((b, 2, c), dtype=_F32, device=dev)
+    launch("mlp", "mlp_launch", x, se, be, w1t, b1, w2t, b2, y, g,
+           torch.empty((b * n // 128, 2, c), dtype=_F32, device=dev), out, sums, b, n, c, w)
+    fused_mlp_residual.launches += 1
+    if mid is not None:
+        mid.update(y=y, g=g)
+    return out, sums
+
+
+def _mlp_wmma(x, se, be, w1t, b1, w2t, b2) -> tuple:
+    """The WMMA body (csrc/mlp_wmma.cu) -> (out, sums)."""
+    b, n, c = x.shape
+    w = w1t.shape[1]
     out = torch.empty_like(x)
     sums = torch.zeros((b, 2, c), dtype=_F32, device=x.device)
-    launch("mlp", "mlp_launch", x, se, be, w1t, b1, w2t, b2, out, sums, b, n, c, w, tn)
-    fused_mlp_residual.launches += 1
+    launch("mlp_wmma", "mlp_wmma_launch", x, se, be, w1t, b1, w2t, b2, out, sums, b, n, c, w,
+           _row_tile(n, c))
+    fused_mlp_residual.launches_wmma += 1
     return out, sums
 
 
@@ -1122,12 +1196,14 @@ def fused_mlp_residual(x, se, be, w1t, b1, w2t, b2):
     """x [B, N, C]; se/be [B, C] fp32; w1t [C, W], b1 [1, W] fp32 (alpha
     folded); w2t [W, C], b2 [1, C] fp32 -> (x + mlp(x*se+be), output channel
     sums [B, 2, C] fp32), the sums feeding the next layer's pre-norm.
-    Differentiable in every tensor argument, through both outputs."""
+    Differentiable in every tensor argument, through both outputs; on the
+    card through the body that ``_mlp_body`` picks."""
     need = needs_grad(x, se, be, w1t, b1, w2t, b2)
     return _MLP.apply(x, se, be, w1t, b1, w2t, b2, need)
 
 
 fused_mlp_residual.launches = 0
+fused_mlp_residual.launches_wmma = 0
 
 
 def _mlp_bwd_ref(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
@@ -1136,21 +1212,63 @@ def _mlp_bwd_ref(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
     return vjp(_mlp_ref, (x, se, be, w1t, b1, w2t, b2), (g, g_sums))
 
 
+def _mlp_bwd_grad_ref(x, a, w2t, b2, g, g_sums) -> tuple:
+    """Plain version of ``mlp_bwd_grad_kernel`` and db2's sum, from the
+    first pass's a (``_mlp_act_ref``) -> (g' [B, N, C] fp32, bf16(g') in
+    x's dtype, db2 [1, C] fp32): o = a @ w2t + b2 + x, g' = g + gs1 + 2 o
+    gs2."""
+    o = (torch.einsum("bnw,wc->bnc", a.float(), w2t.float()) + b2[None]) + x.float()
+    gp = g.float() + g_sums[:, 0:1].float() + 2.0 * o * g_sums[:, 1:2].float()
+    return gp, gp.to(x.dtype), gp.sum((0, 1))[None]
+
+
+def _mlp_bwd_dh_ref(y, w1t, b1, w2t, gb) -> tuple:
+    """Plain version of ``mlp_bwd_dh_kernel`` and db1's sum, from the
+    pre-normed y and bf16(g') -> (dh in y's dtype [B, N, W], db1 [1, W]
+    fp32): h recomputed, a = exp(-h^2 / 2) in fp32, da = bf16(g') @ w2t^T,
+    dh = da a (-h)."""
+    h = torch.einsum("bnc,cw->bnw", y.float(), w1t.float()) + b1[None]
+    da = torch.einsum("bnc,wc->bnw", gb.float(), w2t.float())
+    dh = da * torch.exp(-0.5 * h * h) * (-h)
+    return dh.to(y.dtype), dh.sum((0, 1))[None]
+
+
+def _mlp_bwd_dx_ref(x, se, w1t, dh, gp) -> tuple:
+    """Plain version of ``mlp_bwd_dx_kernel`` and its sums -> (dx in x's
+    dtype, dse, dbe [B, C] fp32): dy = bf16(dh) @ w1t^T, dx = g' + dy se."""
+    dy = torch.einsum("bnw,cw->bnc", dh.float(), w1t.float())
+    return ((gp + dy * se[:, None]).to(x.dtype), (dy * x.float()).sum(1), dy.sum(1))
+
+
+def _mlp_bwd_wgrad_ref(y, a, dh, gb) -> tuple:
+    """Plain version of the weight-gradient products (``wgrad_kernel``) ->
+    (dw1t [C, W], dw2t [W, C]) fp32: y^T bf16(dh) and bf16(a)^T bf16(g')
+    over all rows."""
+    return (torch.einsum("bnc,bnw->cw", y.float(), dh.float()),
+            torch.einsum("bnw,bnc->wc", a.float(), gb.float()))
+
+
 def _mlp_bwd_body(b: int, n: int, c: int, w: int) -> str:
     """Which body of ``fused_mlp_residual_bwd`` takes these shapes on the
-    card: "wmma" (csrc/mlp_bwd.cu, the one body: C % 128 == 0, C <= 768,
-    W % 64 == 0, N % 64 == 0; 64-point tiles up to C 384, 32 above).
-    Raises ValueError with its conditions otherwise."""
+    card: "hopper" (csrc/mlp_bwd.cu, TMA and wgmma: C % 384 == 0, W % 384
+    == 0, N % 128 == 0; the flagship's C 384 and the 8k width's C 768)
+    where it can, else "wmma" (csrc/mlp_bwd_wmma.cu: C % 128 == 0, C <=
+    768, W % 64 == 0, N % 64 == 0; the upsample demo's C 128). Raises
+    ValueError with both bodies' conditions otherwise."""
+    if _mlp_hopper_takes(n, c, w):
+        return "hopper"
     if c % 128 == 0 and c <= 768 and w % 64 == 0 and n % 64 == 0:
         return "wmma"
     raise ValueError(
-        f"fused_mlp_residual_bwd: no CUDA body takes B={b}, N={n}, C={c}, W={w}: the WMMA "
-        f"body needs C % 128 == 0, C <= 768, W % 64 == 0 and N % 64 == 0")
+        f"fused_mlp_residual_bwd: no CUDA body takes B={b}, N={n}, C={c}, W={w}: the Hopper "
+        f"body needs C % 384 == 0, W % 384 == 0 and N % 128 == 0; the WMMA body C % 128 == 0, "
+        f"C <= 768, W % 64 == 0 and N % 64 == 0")
 
 
 def fused_mlp_residual_bwd(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
     """Gradients of ``fused_mlp_residual`` against ``g`` [B, N, C] and
-    ``g_sums`` [B, 2, C] -> (dx, dse, dbe, dw1t, db1, dw2t, db2)."""
+    ``g_sums`` [B, 2, C] -> (dx, dse, dbe, dw1t, db1, dw2t, db2), through
+    the body that ``_mlp_bwd_body`` picks."""
     if x.device.type == "cpu":
         return _mlp_bwd_ref(x, se, be, w1t, b1, w2t, b2, g, g_sums)
     name = "fused_mlp_residual_bwd"
@@ -1163,11 +1281,49 @@ def fused_mlp_residual_bwd(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
         dict(x=_BF16, se=_F32, be=_F32, w1t=_BF16, b1=_F32, w2t=_BF16, b2=_F32, g=_BF16,
              g_sums=_F32),
     )
-    _mlp_bwd_body(b, n, c, w)
+    run = _mlp_bwd_hopper if _mlp_bwd_body(b, n, c, w) == "hopper" else _mlp_bwd_wmma
+    dx, dse, dbe, dw1t, db1, dw2t, db2 = run(x, se, be, w1t, b1, w2t, b2, g, g_sums)
+    return (dx, dse, dbe, dw1t.to(w1t.dtype), db1.to(b1.dtype), dw2t.to(w2t.dtype),
+            db2.to(b2.dtype))
+
+
+def _mlp_bwd_hopper(x, se, be, w1t, b1, w2t, b2, g, g_sums, mid: dict | None = None) -> tuple:
+    """The Hopper body (csrc/mlp_bwd.cu) -> (dx, dse, dbe, dw1t, db1, dw2t,
+    db2), the weight and bias gradients fp32; ``mid``, where given,
+    receives the passes' y, a, g' (fp32), bf16(g') and dh, which
+    ``probes.mlp_bwd`` holds against their plain pieces."""
+    b, n, c = x.shape
+    w = w1t.shape[1]
+    dev = x.device
+    buf = dict(y=torch.empty_like(x), a=torch.empty((b, n, w), dtype=_BF16, device=dev),
+               gp=torch.empty((b, n, c), dtype=_F32, device=dev),
+               gb=torch.empty_like(x),
+               dh=torch.empty((b, n, w), dtype=_BF16, device=dev))
+    dx = torch.empty_like(x)
+    dsb = torch.empty((b, 2, c), dtype=_F32, device=dev)
+    dw1t = torch.empty((c, w), dtype=_F32, device=dev)
+    db1 = torch.empty((1, w), dtype=_F32, device=dev)
+    dw2t = torch.empty((w, c), dtype=_F32, device=dev)
+    db2 = torch.empty((1, c), dtype=_F32, device=dev)
+    splits = _wgrad_splits(1, b * n // 64, c, w, dev)
+    launch("mlp_bwd", "mlp_bwd_launch", x, se, be, w1t, b1, w2t, b2, g, g_sums,
+           buf["y"], buf["a"], buf["gb"], buf["gp"], buf["dh"],
+           torch.empty((b * n // 128, max(w, 2 * c)), dtype=_F32, device=dev),
+           torch.empty((splits, c, w), dtype=_F32, device=dev) if splits > 1 else None,
+           dx, dsb, dw1t, db1, dw2t, db2, b, n, c, w, splits)
+    fused_mlp_residual_bwd.launches += 1
+    if mid is not None:
+        mid.update(buf)
+    return dx, dsb[:, 0], dsb[:, 1], dw1t, db1, dw2t, db2
+
+
+def _mlp_bwd_wmma(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
+    """The WMMA body (csrc/mlp_bwd_wmma.cu) -> (dx, dse, dbe, dw1t, db1,
+    dw2t, db2), the weight and bias gradients fp32 (fp32 atomics)."""
+    b, n, c = x.shape
+    w = w1t.shape[1]
     dev = x.device
     a = torch.empty((b, n, w), dtype=_BF16, device=dev)
-    dh = torch.empty_like(a)
-    gb = torch.empty_like(x)
     dx = torch.empty_like(x)
     dse = torch.zeros((b, c), dtype=_F32, device=dev)
     dbe = torch.zeros_like(dse)
@@ -1175,14 +1331,15 @@ def fused_mlp_residual_bwd(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
     db1 = torch.zeros((1, w), dtype=_F32, device=dev)
     dw2t = torch.zeros((w, c), dtype=_F32, device=dev)
     db2 = torch.zeros((1, c), dtype=_F32, device=dev)
-    launch("mlp_bwd", "mlp_bwd_launch", x, se, be, w1t, b1, w2t, b2, g, g_sums, a, dh, gb,
-           dx, dse, dbe, dw1t, db1, dw2t, db2, b, n, c, w)
-    fused_mlp_residual_bwd.launches += 1
-    return (dx, dse, dbe, dw1t.to(w1t.dtype), db1.to(b1.dtype), dw2t.to(w2t.dtype),
-            db2.to(b2.dtype))
+    launch("mlp_bwd_wmma", "mlp_bwd_wmma_launch", x, se, be, w1t, b1, w2t, b2, g, g_sums, a,
+           torch.empty_like(a), torch.empty_like(x), dx, dse, dbe, dw1t, db1, dw2t, db2,
+           b, n, c, w)
+    fused_mlp_residual_bwd.launches_wmma += 1
+    return dx, dse, dbe, dw1t, db1, dw2t, db2
 
 
 fused_mlp_residual_bwd.launches = 0
+fused_mlp_residual_bwd.launches_wmma = 0
 
 
 # ----------------------------------------------------- fused unpool + mlp --

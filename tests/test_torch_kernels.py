@@ -187,7 +187,8 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         "folded_pool_layer": 0, "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0,
         "fused_mlp_residual_bwd": 0, "projective_gather_bwd": 0, "rect_attention_bwd": 0,
         "folded_pool_layer_bwd": 0, "folded_pool_ext_wmma": 0, "folded_unpool_wmma": 0,
-        "folded_pool_ext_bwd_wmma": 0, "folded_unpool_bwd_wmma": 0,
+        "fused_mlp_residual_wmma": 0, "folded_pool_ext_bwd_wmma": 0,
+        "folded_unpool_bwd_wmma": 0, "fused_mlp_residual_bwd_wmma": 0,
     }
 
 
@@ -489,30 +490,33 @@ def test_unpool_pieces_compose_to_the_plain_version(residual, prenorm, dtype):
     assert _maxrel(sums.numpy(), ref_sums.numpy()) < tol
 
 
-# (B, N, C, H, I) -> the bodies of the pool forward and the unpool forward,
-# and of the pool, unpool and MLP backwards (the MLP at W = 2C; None where
+# (B, N, C, H, I) -> the bodies of the pool, unpool and MLP forwards, and
+# of the pool, unpool and MLP backwards (the MLP at W = 2C; it sees no
+# heads, so three heads at C 384 are the flagship's width to it; None where
 # that function raises for the shape)
 @pytest.mark.parametrize("shape,bodies,bwd", [
-    ((48, 2048, 384, 8, 64), ("hopper", "hopper"), ("hopper", "hopper", "wmma")),  # the flagship
-    ((2, 8192, 768, 16, 64), ("hopper", "hopper"), ("hopper", "hopper", "wmma")),  # the 8k width
-    ((48, 2048, 128, 4, 64), ("wmma", "wmma"), ("wmma", "hopper", "wmma")),  # the demo's 3 x 128
-    ((48, 2048, 384, 3, 64), ("wmma", "wmma"), ("wmma", "wmma", "wmma")),  # num_heads=3
-    ((48, 2000, 384, 8, 64), (None, None), (None, None, None)),  # N not a multiple of 64
+    ((48, 2048, 384, 8, 64), ("hopper", "hopper", "hopper"),
+     ("hopper", "hopper", "hopper")),  # the flagship
+    ((2, 8192, 768, 16, 64), ("hopper", "hopper", "hopper"),
+     ("hopper", "hopper", "hopper")),  # the 8k width
+    ((48, 2048, 128, 4, 64), ("wmma", "wmma", "wmma"),
+     ("wmma", "hopper", "wmma")),  # the demo's 3 x 128
+    ((48, 2048, 384, 3, 64), ("wmma", "wmma", "hopper"),
+     ("wmma", "wmma", "hopper")),  # num_heads=3
+    ((48, 2000, 384, 8, 64), (None, None, None), (None, None, None)),  # N not a multiple of 64
 ], ids=["flagship", "8k", "demo", "heads3", "none"])
 def test_body_switches_choose_by_shape(shape, bodies, bwd):
-    """The pool and unpool forwards and backwards pick one of their two
-    CUDA bodies by shape alone, and a shape that neither takes raises
-    ValueError naming both bodies' conditions; the MLP backward's one body
-    takes the demo's and the three-head flagship's widths, and a shape it
-    does not take raises ValueError naming its conditions."""
+    """The pool, unpool and MLP forwards and backwards pick one of their
+    two CUDA bodies by shape alone, and a shape that neither takes raises
+    ValueError naming both bodies' conditions."""
     b, n, c = shape[:3]
-    switches = ((tfa._pool_ext_body, shape), (tfa._unpool_body, shape),
+    mlp = (b, n, c, 2 * c)
+    switches = ((tfa._pool_ext_body, shape), (tfa._unpool_body, shape), (tfa._mlp_body, mlp),
                 (tfa._pool_ext_bwd_body, shape), (tfa._unpool_bwd_body, shape),
-                (tfa._mlp_bwd_body, (b, n, c, 2 * c)))
+                (tfa._mlp_bwd_body, mlp))
     for (switch, args), want in zip(switches, bodies + bwd):
         if want is None:
-            match = "WMMA body needs" if switch is tfa._mlp_bwd_body else "Hopper body .* WMMA body"
-            with pytest.raises(ValueError, match=match):
+            with pytest.raises(ValueError, match="Hopper body .* WMMA body"):
                 switch(*args)
         else:
             assert switch(*args) == want
@@ -631,6 +635,96 @@ def test_unpool_bwd_pieces_match_the_jax_kernel_in_bf16():
         jops, (jnp.asarray(g, jnp.bfloat16), jnp.asarray(g_sums)))
     for name, a, r in zip(UNPOOL_GRADS, got, ref):
         assert _maxrel(a.float().numpy(), np.asarray(r, np.float32)) < 1e-3, name
+
+
+def _mlp_fwd_by_pieces(x, se, be, w1t, b1, w2t, b2):
+    """The Hopper MLP forward's plain pieces in the kernels' order: the
+    pre-norm, the first pass (g), the output pass and its sums."""
+    g = tfa._mlp_act_ref(tfa._prenormed(x, se, be).to(x.dtype), w1t, b1)
+    return tfa._mlp_out_ref(x, g, w2t, b2)
+
+
+def _mlp_bwd_by_pieces(x, se, be, w1t, b1, w2t, b2, g, g_sums):
+    """The Hopper MLP backward's plain pieces in the kernels' order: the
+    pre-norm; walk 1 (a, then o and g' with db2); walk 2 (dh with db1,
+    then dy: dx, dse, dbe); the two weight-gradient products."""
+    y = tfa._prenormed(x, se, be).to(x.dtype)
+    a = tfa._mlp_act_ref(y, w1t, b1)
+    gp, gb, db2 = tfa._mlp_bwd_grad_ref(x, a, w2t, b2, g, g_sums)
+    dh, db1 = tfa._mlp_bwd_dh_ref(y, w1t, b1, w2t, gb)
+    dx, dse, dbe = tfa._mlp_bwd_dx_ref(x, se, w1t, dh, gp)
+    dw1t, dw2t = tfa._mlp_bwd_wgrad_ref(y, a, dh, gb)
+    return dx, dse, dbe, dw1t, db1, dw2t, db2
+
+
+MLP_GRADS = ("dx", "dse", "dbe", "dw1t", "db1", "dw2t", "db2")
+
+
+def _mlp_drift_args(seed):
+    """The MLP's operands with the stream scaled per channel (60, 1, 0.1,
+    0.01 in turn, divided by 10) as the drift case of the backward test."""
+    args = list(_mlp_args(seed))
+    args[0] = args[0] * DRIFT[None, None, :] / 10
+    return args
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_pieces_compose_to_the_plain_version(dtype):
+    """The Hopper MLP forward's pieces compose to ``_mlp_ref``: in fp32
+    within 1e-5 of max |ref|; in bf16 (the same roundings: y, g, the
+    output) within 1e-3 of max |ref| for out, 1e-5 for the fp32 sums."""
+    dt = getattr(torch, dtype)
+    ops = [torch.from_numpy(a).to(dt if q in (0, 3, 5) else torch.float32)
+           for q, a in enumerate(_mlp_drift_args(24))]
+    (out, sums), (r_out, r_sums) = _mlp_fwd_by_pieces(*ops), tfa._mlp_ref(*ops)
+    assert _maxrel(out.float().numpy(), r_out.float().numpy()) < (1e-5 if dtype == "float32"
+                                                                   else 1e-3)
+    assert _maxrel(sums.numpy(), r_sums.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+def test_mlp_bwd_pieces_compose_to_the_plain_backward_in_fp32(drift):
+    """In fp32 (every bf16 rounding of the kernels' algebra a no-op) the
+    Hopper MLP backward's pieces compose to autograd of the plain version,
+    a nonzero sums cotangent, within 1e-5 of each gradient's max |ref|."""
+    ops = [torch.from_numpy(a) for a in (_mlp_drift_args(25) if drift else _mlp_args(25))]
+    rng = np.random.default_rng(26)
+    g = torch.from_numpy(_cotangent(rng, B, N, C))
+    g_sums = torch.from_numpy(_cotangent(rng, B, 2, C, scale=1e-2))
+    got = _mlp_bwd_by_pieces(*ops, g, g_sums)
+    want = tfa._mlp_bwd_ref(*ops, g, g_sums)
+    for name, a, r in zip(MLP_GRADS, got, want):
+        assert _maxrel(a.numpy(), r.numpy()) < 1e-5, name
+
+
+def test_mlp_bwd_pieces_match_the_jax_kernel_in_bf16():
+    """On bf16 operands with a drifted stream and a nonzero sums cotangent
+    the pieces are the JAX kernel's algebra (y, bf16(a), bf16(g') and
+    bf16(dh) rounded as ``_mlp_bwd_kernel`` rounds them): against
+    ``jax.vjp`` of the JAX op (its Pallas backward in interpret mode, run
+    as one ``jax.jit``) the bf16 gradients (dx, dw1t and dw2t, the last two
+    rounded to bf16 as the wrapper rounds them) element by element within
+    one bf16 step (both round the same fp32 algebra, summed in other
+    orders), the fp32 ones (dse, dbe, db1, db2) within 1e-3 of max |ref|."""
+    bf = torch.bfloat16
+    args = _mlp_drift_args(27)
+    rng = np.random.default_rng(28)
+    g = _cotangent(rng, B, N, C)
+    g_sums = _cotangent(rng, B, 2, C, scale=1e-2)
+    ops = [torch.from_numpy(a).to(bf if q in (0, 3, 5) else torch.float32)
+           for q, a in enumerate(args)]
+    got = _mlp_bwd_by_pieces(*ops, torch.from_numpy(g).to(bf), torch.from_numpy(g_sums))
+    jops = [jnp.asarray(a.float().numpy(), jnp.bfloat16 if a.dtype == bf else jnp.float32)
+            for a in ops]
+    ref = jax.jit(lambda a, c: jax.vjp(jfa.fused_mlp_residual, *a)[1](c))(
+        jops, (jnp.asarray(g, jnp.bfloat16), jnp.asarray(g_sums)))
+    for name, a, r in zip(MLP_GRADS, got, ref):
+        if r.dtype == jnp.bfloat16:
+            # dx, dw1t, dw2t: bf16 in both (the wrapper casts dw1t and dw2t
+            # to the weights' dtype, as jax.vjp returns them)
+            assert _within_a_bf16_step(a.to(bf).float().numpy(), r), name
+        else:
+            assert _maxrel(a.numpy(), np.asarray(r)) < 1e-3, name
 
 
 # the upsample demo's widths (scripts/demo_upsample_100k.py: C 128, 4 heads

@@ -7,9 +7,10 @@ Phases (each raises on failure; nothing is caught):
 
 1. environment: torch, nvcc, the card's name and power limit;
 2. build: the fourteen CUDA kernels of ``gecco_tpu_torch/csrc`` (eight
-   forward, six backward) and the WMMA bodies beside the three Hopper
-   forwards and the three Hopper backwards (nineteen libraries, the
-   projective gather's forward and backward in one) with nvcc for sm_90a,
+   forward, six backward), the WMMA bodies beside the three Hopper
+   forwards and the three Hopper backwards, and the pool backward's v1 and
+   v2/v2j bodies (twenty-one libraries, the projective gather's forward
+   and backward in one) with nvcc for sm_90a,
    one process per source, all at once, with ``ptxas -v``'s registers and
    spills;
 3. forward kernels: each set-transformer kernel against its plain PyTorch
@@ -25,7 +26,10 @@ Phases (each raises on failure; nothing is caught):
    drifted dbe beside a witness of its looser one); times, bounds and, for
    pool and unpool, the backward of per-head ``scaled_dot_product_attention``;
    the unpool backward's WMMA body beside its Hopper body at both widths;
-   the backwards' bodies at the demo model's and three heads' shapes;
+   the backwards' bodies at the demo model's and three heads' shapes; the
+   pool backward's v1, v2 and v2j bodies (``GECCO_POOL_BWD``) at both
+   widths, ordinary and drifted, against their plain versions and against
+   autograd of the plain version, timed in turns with the v3 Hopper body;
 5. projective gather: the forward against its plain version and the
    backward against autograd of the plain version, at the 256^2 pyramid of
    the image-conditional model (batch 48, 2048 points) and at the 137^2
@@ -127,7 +131,21 @@ Phases (each raises on failure; nothing is caught):
    MLP backwards' WMMA bodies and the unpool backward's Hopper body once
    each; then one gradient of the flagship with three heads (C 384, D 128)
    against the plain path, which runs the WMMA bodies of the pool and
-   unpool forwards and backwards and the Hopper MLP forward and backward.
+   unpool forwards and backwards and the Hopper MLP forward and backward;
+20. pool backward bodies on the training path: the flagship of phase 8
+   trains under ``GECCO_POOL_BWD`` forced to v1, v2 and v2j in turn (the
+   module global it sets at import, restored after): per body one step's
+   gradient against the plain path, then 3 + 5 steps, each layer's pool
+   backward through that body's kernel once per step, and the device's
+   busy time per step from the profiler beside the v3 step's (the wall
+   time of so few host-bound steps is reported, not compared);
+21. the wider kernel instances on a model's path (ROADMAP C1): the
+   flagship with 32 inducers on ``folded_pallas`` (the h-side's I 32
+   instance, the pool's and unpool's WMMA bodies) and the per-head
+   flagship with three heads (the rect attention's D 128 instances): each
+   samples 8 steps from one latent against the plain path and takes one
+   gradient against it, every function through a kernel, the launch
+   counts exact.
 
 Phase 3 also holds the pool's, unpool's and MLP's WMMA bodies (the shapes
 the Hopper designs do not take) against their plain versions at the demo's
@@ -168,6 +186,7 @@ without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -234,6 +253,8 @@ N_STEPS = 128
 BATCH = 64  # the flagship protocol of bench.py
 TRAIN_BATCH = 48  # configs/shapenet_airplane_unconditional.py
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+# timed steps of the flagship under each forced pool backward body
+TWOPASS_STEPS = 5
 GROUPS = 32
 # the image-conditional model (configs/shapenet_vol_conditional.py): batch
 # 48 for sampling (bench.py's conditional protocol) and training, 256^2
@@ -356,6 +377,13 @@ SOURCES = {
                                "gecco_tpu/ops/pallas/folded_attention.py:2457"),
     "fused_mlp_residual_bwd_wmma": ("gecco_tpu_torch/csrc/mlp_bwd_wmma.cu",
                                     "gecco_tpu/ops/pallas/folded_attention.py:2902"),
+    # the pool backward's opt-in bodies, forced by GECCO_POOL_BWD
+    "folded_pool_ext_bwd_v1": ("gecco_tpu_torch/csrc/pool_ext_bwd_v1.cu",
+                               "gecco_tpu/ops/pallas/folded_attention.py:1428"),
+    "folded_pool_ext_bwd_v2": ("gecco_tpu_torch/csrc/pool_ext_bwd_v2.cu",
+                               "gecco_tpu/ops/pallas/folded_attention.py:1563"),
+    "folded_pool_ext_bwd_v2j": ("gecco_tpu_torch/csrc/pool_ext_bwd_v2.cu",
+                                "gecco_tpu/ops/pallas/folded_attention.py:1718"),
 }
 SET_FORWARD = ("folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual")
 BACKWARD = ("folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd",
@@ -485,13 +513,28 @@ def mlp_wmma_bwd(ops, gg, gs):
     return dx, dse, dbe, dw1t.to(ops[3].dtype), db1, dw2t.to(ops[5].dtype), db2
 
 
-def bodies_in_turns(hopper, wmma, device, reps) -> dict:
-    """Both bodies of one function timed in turns: reps / 2 WMMA, reps
-    Hopper, reps / 2 WMMA calls -> sorted milliseconds per body."""
+def bodies_in_turns(hopper, wmma, device, reps, names=("hopper", "wmma")) -> dict:
+    """Two bodies of one function timed in turns: reps / 2 of the second
+    (by default the WMMA body), reps of the first (the Hopper body), reps /
+    2 of the second -> sorted milliseconds per body, keyed by ``names``."""
     half = max(1, reps // 2)
     t_w = time_all(wmma, device, half)
     t_h = time_all(hopper, device, half) + time_all(hopper, device, half)
-    return {"hopper": sorted(t_h), "wmma": sorted(t_w + time_all(wmma, device, half))}
+    return {names[0]: sorted(t_h), names[1]: sorted(t_w + time_all(wmma, device, half))}
+
+
+@contextlib.contextmanager
+def pool_bwd_forced(body):
+    """``GECCO_POOL_BWD`` forced to ``body`` in this process: the module
+    global that the variable sets at import, as the JAX package's tests
+    set theirs; restored after."""
+    keep = fa._POOL_BWD_ENV
+    fa._POOL_BWD_ENV = body
+    try:
+        yield
+    finally:
+        fa._POOL_BWD_ENV = keep
+
 
 
 # ------------------------------------------------------------ yardsticks --
@@ -631,6 +674,13 @@ def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
         lambda drift: hside_operands(g, b, i, c, w, drift, device, dt), 3,
         4 * b * i * c * w + 4 * b * i * c * c,
         lambda a: [torch.empty(3, b, i, c, dtype=dt)])
+    # the h-side's other instances (one per inducer count): 16, 32 and 48
+    for ii in (16, 32, 48):
+        for drift in (False, True):
+            args = hside_operands(g, b, ii, c, w, drift, device, dt)
+            for q, (a, r) in enumerate(zip(hs.fused_h_side(*args), hs._hside_ref(*args))):
+                check(f"fused_h_side I {ii} [{'drift' if drift else 'ordinary'}] out{q}",
+                      rel_err(a, r), TOL_OUT)
     run("folded_unpool", lambda *a: fa.folded_unpool(*a, heads),
         lambda *a: fa._unpool_ref(*a, heads),
         lambda drift: unpool_operands(g, b, n, c, heads, i, drift, device, dt), 2,
@@ -828,6 +878,116 @@ def pool_layer_bwd_tpu_algebra(x, scale, bias, ind2, kvw, wo, gind, g_h0, heads)
     return (dy * xc).sum(1) * inv, dy.sum(1)
 
 
+def twopass_checks(device, widths, g, dt, reps, pool_rec, compare) -> dict:
+    """The pool backward's v1, v2 and v2j bodies (``GECCO_POOL_BWD``) at
+    ``widths`` (the flagship's and the 8k width), ordinary and drifted:
+    each body's outputs (dx, dse, dbe, dqf, dWv, dWo) against its plain
+    version, the same algebra and roundings, at TOL_ALGEBRA_GRAD, dse and
+    dbe at TOL_AFFINE (the drifted dbe is a residue of cancelling terms,
+    summed over N in another order: chip readings up to 1.24e-2); each
+    through ``folded_pool_ext_bwd`` against autograd of the plain version
+    as the v3 bodies are held (the drifted dbe against the body's own
+    algebra, its witness); v2j the same bits as v2, and every output the
+    same bits in two calls. Times each body at both widths (median, min
+    and max of 20 calls, in turns with the v3 Hopper body) and its plain
+    version at the flagship's; the bound, library and chain times are row
+    8's (``pool_rec``: the same function at the same shapes). Returns one
+    record per body."""
+    bodies = kernels.TWOPASS_BODIES
+    r = lambda *sh: torch.randn(*sh, generator=g, device=device)
+    outs_named = ("dx", "dse", "dbe", "dqf", "dwv", "dwo")
+
+    def case(bb, nn_, cc, hh, ii, drift):
+        ops = pool_operands(g, bb, nn_, cc, hh, ii, drift, device, dt)
+        x, se, be, ind2, kvw, wo = ops
+        if device.type == "cuda":
+            _, qft, macc, sacc = fa._pool_ext_launch(*ops, hh, True)
+        else:
+            qft = fa._fold_qft_ref(ind2, kvw, hh)
+            _, macc, sacc = fa._pool_merge_ref(*fa._pool_partials_ref(x, se, be, qft, kvw, hh),
+                                               wo, hh)
+        gh = (0.1 * r(bb, ii, cc)).to(dt)
+        raw = (x, se, be, qft, kvw, wo, gh, macc, sacc, hh)
+        return ops, (qft, macc, sacc), gh, raw
+
+    def body_raw(body, raw):
+        """The body's outputs (on the CPU its plain version)."""
+        if device.type != "cuda":
+            return fa._TWOPASS_REFS[body](*raw)
+        x, se, be, qft, kvw, wo, gh, macc, sacc, hh = raw
+        return fa._pool_ext_bwd_twopass(x, se, be, qft, kvw, wo, gh, macc, sacc, hh, body)
+
+    errs = {body: [] for body in bodies}
+    kernels.reset_launch_counts()
+    for width, shape in widths.items():
+        for drift in (False, True):
+            tag = f"{width}, {'drift' if drift else 'ordinary'}"
+            ops, stats, gh, raw = case(*shape, drift)
+            hh = shape[3]
+            got = {}
+            for body in bodies:
+                first, again = body_raw(body, raw), body_raw(body, raw)
+                want = fa._TWOPASS_REFS[body](*raw)
+                sync(device)
+                for out, a, ref in zip(outs_named, first, want):
+                    tol = TOL_AFFINE if out in ("dse", "dbe") else TOL_ALGEBRA_GRAD
+                    check(f"folded_pool_ext_bwd_{body} [{tag}] {out} against its plain version",
+                          rel_err(a, ref), tol)
+                    errs[body].append(abs_err(a, ref))
+                same = all(torch.equal(p, q) for p, q in zip(first, again))
+                print(f"  folded_pool_ext_bwd_{body} [{tag}]: every output of two calls "
+                      f"{'the same bits' if same else 'DIFFER'}")
+                if device.type == "cuda" and not same:
+                    raise AssertionError(f"the {body} body's outputs differ between two calls")
+                got[body] = first
+                witness = (lambda b_=body: fa._TWOPASS_REFS[b_](*raw)[1:3]) if drift else None
+                with pool_bwd_forced(body):
+                    compare("folded_pool_ext_bwd", f"{body} body, {tag}",
+                            lambda: fa.folded_pool_ext_bwd(*ops, *stats, gh, hh),
+                            lambda: fa._pool_ext_bwd_ref(*ops, gh, hh), witness, body)
+            same = all(torch.equal(p, q) for p, q in zip(got["v2"], got["v2j"]))
+            print(f"  [{tag}] v2j against v2: {'the same bits' if same else 'DIFFER'}")
+            if device.type == "cuda" and not same:
+                raise AssertionError("the v2j body's outputs differ from the v2 body's")
+    counts = kernels.launch_counts()
+    print(f"  launches of the v1, v2 and v2j bodies in these checks: "
+          f"{ {k: counts[k] for k in counts if k.startswith('folded_pool_ext_bwd')} }")
+    # per body, width and operands: two calls of the body, one of the wrapper
+    want = 3 * 2 * len(widths)
+    if device.type == "cuda" and not (
+            all(counts[f"folded_pool_ext_bwd_{b_}"] == want for b_ in bodies)
+            and counts["folded_pool_ext_bwd"] == 0):
+        raise AssertionError(f"the forced pool backward did not run the forced bodies: {counts}")
+
+    rec = {body: dict(max_abs_err=max(errs[body]), bound_ms=pool_rec["bound_ms"],
+                      bound_by=pool_rec["bound_by"], bound_ms_8k=pool_rec["bound_ms_8k"],
+                      library_ms=pool_rec["library_ms"],
+                      library_chain_ms=pool_rec["library_chain_ms"]) for body in bodies}
+    for width, shape in widths.items():
+        key = "" if width == "flagship" else "_8k"
+        ops, stats, gh, raw = case(*shape, False)
+        hh = shape[3]
+        v3 = lambda: fa.folded_pool_ext_bwd(*ops, *stats, gh, hh)
+        for body in bodies:
+            def forced(b_=body):
+                with pool_bwd_forced(b_):
+                    return v3()
+
+            turns = bodies_in_turns(v3, forced, device, reps, names=("v3", body))
+            for name, t in turns.items():
+                field = "ms" if name == body else "v3_ms"
+                rec[body][field + key] = statistics.median(t)
+                rec[body][field + "_min_max" + key] = [t[0], t[-1]]
+            print(f"  folded_pool_ext_bwd at the {width}: {body} body median "
+                  f"{rec[body]['ms' + key]:.3f} ms of {len(turns[body])} calls (min "
+                  f"{turns[body][0]:.3f}, max {turns[body][-1]:.3f}), the v3 Hopper body "
+                  f"{rec[body]['v3_ms' + key]:.3f} in turns")
+            if not key:
+                rec[body]["plain_ms"] = time_ms(lambda: fa._TWOPASS_REFS[body](*raw), device,
+                                                max(2, reps // 4))
+    return {f"folded_pool_ext_bwd_{body}": rec[body] for body in bodies}
+
+
 def backward_phase(device, shapes, big, demo, heads3, dt, reps):
     """Every backward kernel against autograd of its plain version, each
     output against its own tolerance; returns per-kernel records. The
@@ -873,7 +1033,7 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
         "fused_mlp_residual_bwd": ("dx", "dse", "dbe", "dw1t", "db1", "dw2t", "db2"),
     }
 
-    def compare(name, tag, kernel, plain, witness=None):
+    def compare(name, tag, kernel, plain, witness=None, algebra="v3"):
         got, want = kernel(), plain()
         sync(device)
         errs = []
@@ -882,11 +1042,11 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
             if witness is not None and out == "dbe":
                 tol = TOL_POOL_DRIFT_DBE
                 v3 = witness()[1]
-                print(f"    witness: dbe by the v3 algebra in plain PyTorch against the plain "
-                      f"version: {rel_err(v3, ref):.3e}")
+                print(f"    witness: dbe by the {algebra} algebra in plain PyTorch against the "
+                      f"plain version: {rel_err(v3, ref):.3e}")
                 # on the CPU the "kernel" is the plain version itself
                 if device.type == "cuda":
-                    check(f"{name} [{tag}] dbe against the v3 algebra", rel_err(a, v3),
+                    check(f"{name} [{tag}] dbe against the {algebra} algebra", rel_err(a, v3),
                           TOL_AFFINE)
             check(f"{name} [{tag}] {out}", rel_err(a, ref), tol)
             errs.append(abs_err(a, ref))
@@ -978,6 +1138,7 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
           f"{'the same bits' if same else 'DIFFER'}")
     if device.type == "cuda" and not same:
         raise AssertionError("the pool backward's dqf differs between two calls")
+    rec.update(twopass_checks(device, widths, g, dt, reps, pool_rec, compare))
 
     # the unpool backward's two bodies at both widths on the same operands,
     # ordinary and drifted (the flagship's Hopper body is checked above);
@@ -1320,6 +1481,14 @@ def attn_operands(g, b, n, c, heads, i, direction, drift, device, dt):
     return split(r(b, n, c).to(dt)), split((r(b, i, c) * scales).to(dt)), split(r(b, i, c).to(dt))
 
 
+def WIDE_HEADS(batch):
+    """(C, heads, batch, drifts) of the rect attention's checks at heads
+    wider than 64: D 128 as the three-head flagship has them, at ``batch``,
+    and D 80, 96 and 112 at batch 4."""
+    return ((384, 3, batch, (False, True)), (320, 4, 4, (False,)), (384, 4, 4, (False,)),
+            (448, 4, 4, (False,)))
+
+
 def q_bytes(q) -> int:
     """Bytes of q's distinct elements (the pool's inducers once)."""
     return (q[0] if q.stride(0) == 0 else q).numel() * q.element_size()
@@ -1378,6 +1547,21 @@ def attention_phase(device, shapes, train_batch, big, dt, reps):
                   TOL_OUT)
             check(f"rect_attention_fwd [{tag(direction, drift, ' 8k width')}] lse",
                   rel_err(lse, rl), TOL_LSE)
+    # the instances for heads wider than 64: D 128 (three heads at C 384,
+    # the sampler's batch, ordinary and drifted), D 80, 96 and 112 (four
+    # heads, batch 4, ordinary)
+    for cc, hh, bb, drifts in WIDE_HEADS(b):
+        for direction in ("pool", "unpool"):
+            for drift in drifts:
+                q, k, v = attn_operands(g, bb, n, cc, hh, i, direction, drift, device, dt)
+                (o, lse), (ro, rl) = ia.rect_attention_fwd(q, k, v), \
+                    ia._rect_attention_ref(q, k, v)
+                sync(device)
+                wide = f" D {cc // hh}"
+                check(f"rect_attention_fwd [{tag(direction, drift, wide)}] o", rel_err(o, ro),
+                      TOL_OUT)
+                check(f"rect_attention_fwd [{tag(direction, drift, wide)}] lse",
+                      rel_err(lse, rl), TOL_LSE)
     bms, by = bound(tot["flops"], tot["bytes"])
     rec["rect_attention_fwd"] = dict(max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
                                      bound_ms=bms, bound_by=by, library_ms=tot["library_ms"])
@@ -1427,6 +1611,11 @@ def attention_phase(device, shapes, train_batch, big, dt, reps):
             bwd_check(tag(direction, drift, " 8k width"),
                       bwd_case(big["batch"], big["n_points"], big["feature_dim"], big["num_heads"],
                                big["num_inducers"], direction, drift))
+    for cc, hh, bb, drifts in WIDE_HEADS(train_batch):
+        for direction in ("pool", "unpool"):
+            for drift in drifts:
+                bwd_check(tag(direction, drift, f" D {cc // hh}"),
+                          bwd_case(bb, n, cc, hh, i, direction, drift))
     bms, by = bound(tot["flops"], tot["bytes"])
     rec["rect_attention_bwd"] = dict(max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
                                      bound_ms=bms, bound_by=by, library_ms=tot["library_ms"])
@@ -1972,9 +2161,9 @@ def train_phase(device, n_layers, batch, n_points, card, steps, attn_impl="folde
         nonlocal opt_state
         _, opt_state = step(model, ema, opt_state, data[0], gen)
 
-    profile_steps(run, PROFILE_STEPS, device)
+    busy = profile_steps(run, PROFILE_STEPS, device)
     return counts, dict(ms_per_step=ms, clouds_per_s=batch * timed / seconds,
-                        losses=losses, peak_gb=peak_gb)
+                        device_ms_per_step=busy, losses=losses, peak_gb=peak_gb)
 
 
 def demo_train_phase(device, demo_dims, batch, heads3_dims, card, steps):
@@ -2009,6 +2198,65 @@ def demo_train_phase(device, demo_dims, batch, heads3_dims, card, steps):
                                "fused_mlp_residual", "fused_mlp_residual_bwd",
                                "folded_pool_ext_bwd_wmma", "folded_unpool_bwd_wmma")}), device)
     return counts, h_counts, rec
+
+
+def twopass_train_phase(device, n_layers, batch, n_points, card, steps) -> tuple:
+    """The flagship's train step with ``GECCO_POOL_BWD`` forced to v1, v2
+    and v2j in turn (``train_phase``: one step's gradient against the plain
+    path, then ``steps``), each layer's pool backward through that body's
+    kernel once per step and no other pool backward. Returns per body the
+    launch counts of its timed steps and its record."""
+    out = {}
+    for body in kernels.TWOPASS_BODIES:
+        print(f"  GECCO_POOL_BWD={body}:")
+        names = SET_FORWARD + (f"folded_pool_ext_bwd_{body}",) + FOLDED_BACKWARD[1:]
+        with pool_bwd_forced(body):
+            out[body] = train_phase(device, n_layers, batch, n_points, card, steps,
+                                    expect=lambda timed, k=names: {n: n_layers * timed
+                                                                   for n in k})
+    return out
+
+
+def shapes_phase(device, n_layers, batch, compare_batch, cases) -> dict:
+    """The shapes that the h-side's and the rect attention's new instances
+    bring onto the card (ROADMAP C1). Per case (name -> (dims, attn_impl,
+    names launched per layer and evaluation, names launched per layer in a
+    gradient)): an 8-step sample
+    of ``compare_batch`` clouds from one latent, the kernel path against
+    the plain path (TOL_PATH), then one gradient at ``batch`` against the
+    plain path (TOL_TRAIN_GRAD), each run's launch counts exact: every
+    function through a kernel. Returns each case's counts."""
+    out = {}
+    for name, (dims, impl, per_eval, per_grad) in cases.items():
+        print(f"  {name} ({dims}, {impl}):")
+        model = build_flagship(device, torch.Generator().manual_seed(0), n_layers,
+                               attn_impl=impl, dims=dims)
+        gen = torch.Generator(device=device).manual_seed(1)
+        n = dims["n_points"]
+        latent = model.schedule.sample_latent(gen, (compare_batch, n, 3), device)
+        kernels.reset_launch_counts()
+        fused = model.sample_from_latent(latent, n_solver_steps=8)
+        counts = kernels.launch_counts()
+        if tuple(fused.shape) != (compare_batch, n, 3) or not bool(torch.isfinite(fused).all()):
+            raise AssertionError(f"{name}: sample of shape {tuple(fused.shape)} or non-finite")
+        evals = 2 * (8 - 1)
+        check_counts(f"{name} 8-step sample", counts,
+                     expected_counts({k: m * n_layers * evals for k, m in per_eval.items()}),
+                     device)
+        set_path(model, False)
+        plain = model.sample_from_latent(latent, n_solver_steps=8)
+        set_path(model, True, impl)
+        check(f"{name}: 8-step sample, kernel path vs plain path", rel_err(fused, plain), TOL_PATH)
+        data = torch.from_numpy(make_clouds(np.random.default_rng(0), batch, n)).to(device)
+        sigma, noise = model.draw_sigma_noise(gen, data)
+        kernels.reset_launch_counts()
+        compare_grads(model, lambda: model.loss_from(data, sigma, noise), TOL_TRAIN_GRAD, impl,
+                      witness=impl == "pallas")
+        grad_counts = kernels.launch_counts()
+        check_counts(f"{name} gradient", grad_counts,
+                     expected_counts({k: m * n_layers for k, m in per_grad.items()}), device)
+        out[name] = (counts, grad_counts)
+    return out
 
 
 def validate_phase(device, rehearse):
@@ -2067,6 +2315,9 @@ KERNEL_FUNCTIONS = {
                                "mlp_bwd_dx_kernel"),
     "mlp_colsum_kernel (the Hopper MLP bodies' fixed-order column sums)": ("mlp_colsum_kernel",),
     "fused_mlp_residual_bwd_wmma": ("mlp_bwd_kernel",),
+    "folded_pool_ext_bwd_v1/_v2/_v2j (the pool backward's two-pass bodies)": (
+        "twopass_fold_kernel", "twopass_pass0_kernel", "twopass_pass1_kernel",
+        "twopass_colsum_kernel"),
     "atb_kernel (the weight-gradient products of the WMMA backwards)": ("atb_kernel",),
     "projective_gather": ("gather_kernel",),
     "projective_gather_bwd": ("gather_bwd_kernel",),
@@ -2094,7 +2345,9 @@ def profile_steps(run, n, device):
     """``n`` train steps under ``torch.profiler``: device time per wrapper's
     kernels, the rest (PyTorch's own kernels: the plain glue, the h-side
     backward, the optimizer) by name, and the device's busy share of the
-    wall time (the profiler's own overhead included in the wall time)."""
+    wall time (the profiler's own overhead included in the wall time).
+    Returns the device's busy milliseconds per step (None without device
+    events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2126,7 +2379,7 @@ def profile_steps(run, n, device):
           f"{total:.3f} ms/step ({100 * total / wall_ms:.1f}% of the wall time)")
     if total == 0:
         print("  (no device time recorded)")
-        return
+        return None
     for k, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"    {ms:9.3f} ms/step  {100 * ms / total:5.1f}%  {k}")
     rest = sum(other.values())
@@ -2139,6 +2392,7 @@ def profile_steps(run, n, device):
              "convolutions (the ConvNeXt)": conv, "the rest": rest - conv}
     print("  split: " + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
                                   for k, v in split.items()))
+    return total
 
 
 def build_flagship(device, generator, n_layers, dt=torch.bfloat16, attn_impl="folded_pallas",
@@ -2393,7 +2647,7 @@ def main():
         dt, reps, n_layers, batch, n_points, n_steps = torch.bfloat16, 1, 2, 2, 128, 3
         train_batch = cond_batch = 2
         image_size, render_size = 32, 37
-        train_steps = (1, 2)
+        train_steps = twopass_steps = (1, 2)
         upsample = dict(n_new=300, n_steps=3, n_substeps=2, compare_new=200)
     else:
         if not torch.cuda.is_available():
@@ -2410,6 +2664,7 @@ def main():
         train_batch, cond_batch = TRAIN_BATCH, COND_BATCH
         image_size, render_size = IMAGE_SIZE, RENDER_SIZE
         train_steps = (TRAIN_WARMUP, TRAIN_STEPS)
+        twopass_steps = (TRAIN_WARMUP, TWOPASS_STEPS)
         upsample = dict(n_new=UPSAMPLE_NEW, n_steps=UPSAMPLE_STEPS, n_substeps=UPSAMPLE_SUBSTEPS,
                         compare_new=4096)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2537,6 +2792,37 @@ def main():
     demo_train_counts, heads3_counts, demo_train = demo_train_phase(
         device, demo_dims, train_batch, heads3_dims, card, train_steps)
 
+    print(f"== training path with the pool backward forced to v1, v2 and v2j: flagship "
+          f"x{n_layers} layers, batch {train_batch}, {n_points} points, {twopass_steps[0]} + "
+          f"{twopass_steps[1]} steps each, on {card}")
+    twopass_train = twopass_train_phase(device, n_layers, train_batch, n_points, card,
+                                        twopass_steps)
+    for body, (_, tp) in twopass_train.items():
+        # the comparison with v3 is the device's busy time per step; the
+        # wall time of so few host-bound steps is kept, labelled, as read
+        rec[f"folded_pool_ext_bwd_{body}"].update(
+            train_device_ms_per_step=tp["device_ms_per_step"],
+            v3_train_device_ms_per_step=train["device_ms_per_step"],
+            train_wall_ms_per_step_host_bound=tp["ms_per_step"])
+
+    print(f"== shapes of the wider kernel instances (ROADMAP C1): x{n_layers} layers, 8-step "
+          f"samples of 8 clouds and gradients at batch {train_batch}, on {card}")
+    shape_cases = {
+        "the flagship with 32 inducers": (
+            dict(FLAGSHIP, num_inducers=32, n_points=n_points), "folded_pallas",
+            dict(folded_pool_ext_wmma=1, fused_h_side=1, folded_unpool_wmma=1,
+                 fused_mlp_residual=1),
+            dict(folded_pool_ext_wmma=1, fused_h_side=1, folded_unpool_wmma=1,
+                 fused_mlp_residual=1, folded_pool_ext_bwd_wmma=1, folded_unpool_bwd_wmma=1,
+                 fused_mlp_residual_bwd=1)),
+        "the per-head flagship with three heads (D 128)": (
+            dict(FLAGSHIP, num_heads=3, n_points=n_points), "pallas",
+            # the gradient: the kernel pass and the witness's TPU-algebra pass
+            # both run the forward kernel, only the first the backward's
+            dict(rect_attention_fwd=2), dict(rect_attention_fwd=4, rect_attention_bwd=2)),
+    }
+    shape_counts = shapes_phase(device, n_layers, train_batch, 8, shape_cases)
+
     print("== summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
@@ -2550,6 +2836,18 @@ def main():
     print(f"  launches on the demo sampler path: {demo_counts}")
     print(f"  launches on the demo training path: {demo_train_counts}")
     print(f"  launches in the num_heads=3 gradient: {heads3_counts}")
+    for body, (tp_counts, _) in twopass_train.items():
+        print(f"  launches on the training path under GECCO_POOL_BWD={body}: {tp_counts}")
+    for name, (s_counts, g_counts) in shape_counts.items():
+        print(f"  launches of {name}: 8-step sample {s_counts}; gradient {g_counts}")
+    busy = lambda t: "not measured" if t is None else f"{t:.3f} ms"
+    print("  train step with the pool backward forced, device busy per step (torch.profiler): "
+          + ", ".join(f"{body} {busy(tp['device_ms_per_step'])}" for body, (_, tp) in
+                      twopass_train.items())
+          + f" (v3, the default: {busy(train['device_ms_per_step'])}, phase 8 of this run); "
+          + f"wall per step of {twopass_steps[1]} host-bound steps, not a comparison of the "
+          + "bodies: " + ", ".join(f"{body} {tp['ms_per_step']:.3f} ms" for body, (_, tp) in
+                                   twopass_train.items()))
     print(f"  sampler {path['clouds_per_s']:.3f} clouds/s (batch {batch}); train step "
           f"{train['ms_per_step']:.3f} ms (batch {train_batch}); conditional sampler "
           f"{cond_path['clouds_per_s']:.3f} clouds/s (batch {cond_batch}; ConvNeXt "
@@ -2576,7 +2874,8 @@ def main():
     # their times are), the Broadcast's runs the rest; the demo sampler's for
     # the forwards' WMMA bodies, the demo training path's for the pool and
     # MLP backwards' WMMA bodies, the num_heads=3 gradient's for the unpool
-    # backward's
+    # backward's; the forced-body training paths' for the pool backward's
+    # v1, v2 and v2j
     pool_counts = {}
     for name in ("folded_pool_layer", "folded_pool_layer_bwd"):
         rec[name]["prenorm"]["launches"] = prenorm_counts.get(name, 0)
@@ -2588,7 +2887,9 @@ def main():
                      "folded_unpool_wmma": demo_counts, "fused_mlp_residual_wmma": demo_counts,
                      "folded_pool_ext_bwd_wmma": demo_train_counts,
                      "folded_unpool_bwd_wmma": heads3_counts,
-                     "fused_mlp_residual_bwd_wmma": demo_train_counts}
+                     "fused_mlp_residual_bwd_wmma": demo_train_counts,
+                     **{f"folded_pool_ext_bwd_{body}": tp_counts
+                        for body, (tp_counts, _) in twopass_train.items()}}
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=source_counts.get(name, train_counts if name in BACKWARD else counts)[name],

@@ -17,7 +17,9 @@
 // weights from L2. Design: everything stays in one block's shared memory;
 // the [I, W] hidden plane is walked in 64-wide chunks whose activation feeds
 // the second product at once, accumulated in registers (in column chunks of
-// the output where I x C exceeds one pass of the register tiles).
+// the output where I x C exceeds one pass of the register tiles). One
+// instance per inducer count I = 16 ROWS, ROWS 1 to 4 (I 16 to 64; the
+// JAX kernel takes any I, the flagship's is 64).
 #include "common.cuh"
 
 using namespace gecco;
@@ -142,9 +144,17 @@ extern "C" int hside_launch(const void* h0, const void* s1n, const void* b1n, co
                             void* v, int B, int I, int C, int W, int G, int CC, void* stream) {
   const size_t smem = (size_t)I * C * 2 + ((size_t)I * C + I * kChunk + 2 * C) * 4 +
                       (size_t)I * kChunk * 2;
-  cudaError_t err = set_smem((const void*)hside_kernel<4>, smem);
+  decltype(&hside_kernel<4>) kernel;
+  switch (I) {
+    case 16: kernel = hside_kernel<1>; break;
+    case 32: kernel = hside_kernel<2>; break;
+    case 48: kernel = hside_kernel<3>; break;
+    case 64: kernel = hside_kernel<4>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  hside_kernel<4><<<B, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)h0, (const float*)s1n, (const float*)b1n, (const float*)s2n,
       (const float*)b2n, (const bf16*)w1t, (const float*)b1, (const bf16*)w2t, (const float*)b2,
       (const bf16*)wk, (const bf16*)wv, (bf16*)h, (bf16*)k, (bf16*)v, C, W, G, CC);

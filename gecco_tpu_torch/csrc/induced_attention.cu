@@ -25,7 +25,9 @@
 // at the end. q, k and v are read through their strides (the [B, N, C]
 // projections seen as [B, H, N, D], the pool's inducers with a zero batch
 // stride); o is written through its own. The rows of 4 lanes each do the
-// softmax of one query row, shuffle-reduced.
+// softmax of one query row, shuffle-reduced. One instance per head width
+// D = 16 DT, DT 1 to 8 (the JAX kernel takes any D; the flagship's is 48,
+// three heads at C 384 give 128).
 #include <cmath>
 
 #include "attention.cuh"
@@ -36,8 +38,8 @@ namespace {
 
 // Shared memory: q tile [64, D], k and v tiles [64, D] (bf16, row stride
 // D + 8), the probabilities p [64, 64] (bf16, row stride 72), the logits s
-// [64, 64] (fp32, row stride 68), which the output's halves reuse at the
-// end.
+// [64, 64] (fp32, row stride 68), which the output's halves [64, D] (row
+// stride D + 4) reuse at the end: the last region, as wide as the wider.
 template <int DT>
 __global__ void __launch_bounds__(kThreads)
 rect_attn_fwd_kernel(Operand q, Operand k, Operand v, bf16* __restrict__ o, Strides os,
@@ -122,7 +124,7 @@ cudaError_t launch_fwd(Operand q, Operand k, Operand v, void* o, Strides os, voi
                        int H, int M, int N, cudaStream_t st) {
   constexpr int D = 16 * DT, T = kAttnTile;
   const size_t smem = ((size_t)3 * T * (D + kPad) + (size_t)T * (T + kPad)) * 2 +
-                      (size_t)T * (T + kPadF) * 4;
+                      (size_t)T * (D > T ? D + kPadF : T + kPadF) * 4;
   const auto kernel = rect_attn_fwd_kernel<DT>;
   cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
@@ -149,6 +151,10 @@ extern "C" int rect_attention_fwd_launch(const void* q, const void* k, const voi
     case 32: return (int)launch_fwd<2>(qo, ko, vo, o, os, lse, B, H, M, N, st);
     case 48: return (int)launch_fwd<3>(qo, ko, vo, o, os, lse, B, H, M, N, st);
     case 64: return (int)launch_fwd<4>(qo, ko, vo, o, os, lse, B, H, M, N, st);
+    case 80: return (int)launch_fwd<5>(qo, ko, vo, o, os, lse, B, H, M, N, st);
+    case 96: return (int)launch_fwd<6>(qo, ko, vo, o, os, lse, B, H, M, N, st);
+    case 112: return (int)launch_fwd<7>(qo, ko, vo, o, os, lse, B, H, M, N, st);
+    case 128: return (int)launch_fwd<8>(qo, ko, vo, o, os, lse, B, H, M, N, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

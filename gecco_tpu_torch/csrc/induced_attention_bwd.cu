@@ -23,7 +23,8 @@
 // s and dp as two products into shared memory, p and ds elementwise
 // (rounded to bf16), then dv, dk (register strips) and dq (to shared
 // memory, then out). Operands are read, and outputs written, through their
-// strides.
+// strides. One instance per head width D = 16 DT, DT 1 to 8, as the
+// forward.
 #include <cmath>
 
 #include "attention.cuh"
@@ -34,8 +35,9 @@ namespace {
 
 // Shared memory: the k and v tiles [64, D] of the block, the q and g tiles
 // [64, D] of the query tile (bf16, row stride D + 8); s and dp [64, 64]
-// (fp32, row stride 68), the dq part [64, D] reusing s; p and ds [64, 64]
-// (bf16, row stride 72); the query tile's lse and delta [64].
+// (fp32, row stride 68), the dq part [64, D] (row stride D + 4) reusing s,
+// whose region is as wide as the wider; p and ds [64, 64] (bf16, row
+// stride 72); the query tile's lse and delta [64].
 template <int DT>
 __global__ void __launch_bounds__(kThreads)
 rect_attn_bwd_kernel(Operand q, Operand k, Operand v, Operand g, const float* __restrict__ lse,
@@ -44,6 +46,7 @@ rect_attn_bwd_kernel(Operand q, Operand k, Operand v, Operand g, const float* __
                      int N, float scale, int dq_atomic) {
   constexpr int D = 16 * DT, T = kAttnTile;
   constexpr int ld = D + kPad, lds = T + kPadF, ldp = T + kPad, ldo = D + kPadF;
+  constexpr int lss = lds > ldo ? lds : ldo;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + T * ld;
@@ -52,7 +55,7 @@ rect_attn_bwd_kernel(Operand q, Operand k, Operand v, Operand g, const float* __
   bf16* ps = gs + T * ld;
   bf16* dss = ps + T * ldp;
   float* ss = reinterpret_cast<float*>(dss + T * ldp);
-  float* dps = ss + T * lds;
+  float* dps = ss + T * lss;
   float* lse_s = dps + T * lds;
   float* delta_s = lse_s + T;
 
@@ -134,7 +137,7 @@ cudaError_t launch_bwd(Operand q, Operand k, Operand v, Operand g, const void* l
                        int B, int H, int M, int N, int dq_atomic, cudaStream_t st) {
   constexpr int D = 16 * DT, T = kAttnTile;
   const size_t smem = ((size_t)4 * T * (D + kPad) + (size_t)2 * T * (T + kPad)) * 2 +
-                      ((size_t)2 * T * (T + kPadF) + 2 * T) * 4;
+                      ((size_t)T * (D > T ? D + kPadF : T + kPadF) + T * (T + kPadF) + 2 * T) * 4;
   const auto kernel = rect_attn_bwd_kernel<DT>;
   cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
@@ -172,6 +175,18 @@ extern "C" int rect_attention_bwd_launch(const void* q, const void* k, const voi
                                 dq_atomic, st);
     case 64:
       return (int)launch_bwd<4>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
+                                dq_atomic, st);
+    case 80:
+      return (int)launch_bwd<5>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
+                                dq_atomic, st);
+    case 96:
+      return (int)launch_bwd<6>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
+                                dq_atomic, st);
+    case 112:
+      return (int)launch_bwd<7>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
+                                dq_atomic, st);
+    case 128:
+      return (int)launch_bwd<8>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
                                 dq_atomic, st);
     default:
       return (int)cudaErrorInvalidValue;

@@ -6,9 +6,12 @@ backward (fourteen: eight forward, six backward); each counts its launches
 in ``.launches``. Six of them have a second body, WMMA beside the Hopper
 design, chosen by shape (``folded_pool_ext``, ``folded_unpool``,
 ``fused_mlp_residual`` and their backwards): those count its launches in
-``.launches_wmma``, reported as ``<name>_wmma``."""
+``.launches_wmma``, reported as ``<name>_wmma``. The pool backward's v1,
+v2 and v2j bodies (``GECCO_POOL_BWD``) count theirs in ``.launches_v1``,
+``.launches_v2`` and ``.launches_v2j`` (``folded_pool_ext_bwd_v1`` ...)."""
 
 from gecco_tpu_torch.ops.kernels.folded_attention import (
+    TWOPASS_BODIES,
     folded_pool_ext,
     folded_pool_ext_bwd,
     folded_pool_layer,
@@ -44,11 +47,15 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in TWO_BODIES:
         fn.launches_wmma = 0
+    for body in TWOPASS_BODIES:
+        setattr(folded_pool_ext_bwd, f"launches_{body}", 0)
 
 
 def launch_counts() -> dict:
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts.update({f"{fn.__name__}_wmma": fn.launches_wmma for fn in TWO_BODIES})
+    counts.update({f"folded_pool_ext_bwd_{body}": getattr(folded_pool_ext_bwd, f"launches_{body}")
+                   for body in TWOPASS_BODIES})
     return counts
 
 
@@ -70,6 +77,7 @@ __all__ = [
     "rect_attention_pallas",
     "KERNELS",
     "TWO_BODIES",
+    "TWOPASS_BODIES",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -48,19 +48,25 @@ The pool, unpool and MLP forwards and backwards each keep a second, WMMA
 body (``csrc/*_wmma.cu``) for the shapes their Hopper design does not take;
 ``_pool_ext_body``, ``_unpool_body``, ``_mlp_body`` and their backwards'
 ``*_bwd_body`` choose by shape, and a shape that neither body takes
-raises. A CUDA tensor never falls back to a plain version. Each
-forward wrapper counts its kernel launches in ``.launches`` (the WMMA
-body's in ``.launches_wmma``); each backward has its own wrapper
-(``*_bwd``) and counters. As in the JAX package, the backward kernels
-take the incoming cotangent rounded to the activation dtype, and the small
-chains from the folded operands' gradients to the weights' (``dqf`` to
-``dind2``/``dWk``; ``dkf``/``dvf`` to ``dk``/``dv``/``dWq``/``dWo``) are
-plain PyTorch outside the kernels.
+raises. A CUDA tensor never falls back to a plain version. The pool
+backward has three more bodies, the JAX package's opt-in v1, v2 and v2j
+(``csrc/pool_ext_bwd_v1.cu``, ``csrc/pool_ext_bwd_v2.cu``), forced by
+``GECCO_POOL_BWD`` as in the JAX package (read once at import into
+``_POOL_BWD_ENV``) and counted in ``.launches_v1``, ``.launches_v2`` and
+``.launches_v2j``. Each forward wrapper counts its kernel
+launches in ``.launches`` (the WMMA body's in ``.launches_wmma``); each
+backward has its own wrapper (``*_bwd``) and counters. As in the JAX
+package, the backward kernels take the incoming cotangent rounded to the
+activation dtype, and the small chains from the folded operands'
+gradients to the weights' (``dqf`` to ``dind2``/``dWk``; ``dkf``/``dvf``
+to ``dk``/``dv``/``dWq``/``dWo``) are plain PyTorch outside the kernels.
 """
 
 from __future__ import annotations
 
 import functools
+import os
+import sys
 
 import torch
 
@@ -84,6 +90,34 @@ __all__ = [
 ]
 
 _BF16, _F32 = torch.bfloat16, torch.float32
+
+# GECCO_POOL_BWD forces the pool backward's body, with the JAX package's
+# values and meaning (gecco_tpu/ops/pallas/folded_attention.py
+# _parse_pool_bwd_env): "v1" the two-pass body with per-head [J, D]
+# accumulators and dp in both passes, "v2" the two-pass body with the
+# e^T v product in pass 0 and 1/sacc folded into the placement matrix,
+# "v2j" v2 taking 1/sacc as an operand, "v3" the fold-everything body.
+# Unset is v3. A forced body that does not take the shape raises on the
+# card. Read once at import, as the JAX package reads it; tests set the
+# module global.
+_POOL_BWD_MODES = (None, "v1", "v2", "v2j", "v3")
+TWOPASS_BODIES = ("v1", "v2", "v2j")
+
+
+def _parse_pool_bwd_env(value):
+    value = value or None
+    if value not in _POOL_BWD_MODES:
+        print(
+            f"[gecco_tpu_torch] ignoring invalid GECCO_POOL_BWD={value!r} "
+            f"(expected {'|'.join(m for m in _POOL_BWD_MODES if m)}); "
+            "using the shape-gated default",
+            file=sys.stderr,
+        )
+        return None
+    return value
+
+
+_POOL_BWD_ENV = _parse_pool_bwd_env(os.environ.get("GECCO_POOL_BWD"))
 
 
 def group_indicator(c: int, num_groups: int, device=None) -> torch.Tensor:
@@ -400,17 +434,35 @@ def _pool_bwd_fold_smem(c: int, i: int, d: int) -> int:
     return 64 * (64 + _PADF) * 4 + 2 * i * (d + _PAD) * 2 + i * (d + _PADF) * 4
 
 
+def _pool_twopass_takes(n: int, c: int, num_heads: int, i: int) -> bool:
+    """The shapes of the v1, v2 and v2j bodies (csrc/pool_bwd_twopass.cuh
+    ``twopass::takes``: change both together): the flagship's width (C 384,
+    8 heads) and the 8k width (C 768, 16 heads), I == 64 (so D == 48) and
+    N % 64 == 0."""
+    return c in (384, 768) and c == 48 * num_heads and i == 64 and n % 64 == 0
+
+
 def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
-    """Which body of ``folded_pool_ext_bwd`` takes these shapes on the card:
-    "hopper" (csrc/pool_ext_bwd.cu, TMA and wgmma: C in (384, 768), I ==
-    64, D <= 64, J % 128 == 0) where it can, else "wmma"
-    (csrc/pool_ext_bwd_wmma.cu: C % 128 == 0, C <= 768, I % 16 and J % 64
-    == 0, the fold's block within the SM's shared memory); both need D % 16
-    and N % 64 == 0. The upsample demo's C 128 and the three-head
-    flagship's D 128 take the WMMA body. Raises ValueError with both
-    bodies' conditions otherwise."""
+    """Which body of ``folded_pool_ext_bwd`` takes these shapes on the card.
+    Unset or "v3", ``GECCO_POOL_BWD`` gives the v3 algebra's: "hopper"
+    (csrc/pool_ext_bwd.cu, TMA and wgmma: C in (384, 768), I == 64, D <=
+    64, J % 128 == 0) where it can, else "wmma" (csrc/pool_ext_bwd_wmma.cu:
+    C % 128 == 0, C <= 768, I % 16 and J % 64 == 0, the fold's block
+    within the SM's shared memory); both need D % 16 and N % 64 == 0. The
+    upsample demo's C 128 and the three-head flagship's D 128 take the WMMA
+    body. Forced to "v1", "v2" or "v2j", that body (the JAX package's
+    opt-in bodies, ``_pool_twopass_takes``). Raises ValueError with the
+    chosen bodies' conditions otherwise."""
     d = c // num_heads
     j = num_heads * i
+    mode = _POOL_BWD_ENV
+    if mode in TWOPASS_BODIES:
+        if _pool_twopass_takes(n, c, num_heads, i):
+            return mode
+        raise ValueError(
+            f"folded_pool_ext_bwd: GECCO_POOL_BWD={mode} forces a body that does not take "
+            f"B={b}, N={n}, C={c}, H={num_heads}, I={i} (D={d}): the v1, v2 and v2j bodies "
+            f"need C in (384, 768), C == 48 H, I == 64 and N % 64 == 0")
     common = c % num_heads == 0 and d % 16 == 0 and n % 64 == 0
     if common and c in (384, 768) and i == 64 and d <= 64 and j % 128 == 0:
         return "hopper"
@@ -445,12 +497,16 @@ def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
         dict(x=_BF16, se=_F32, be=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16, qft=_BF16, g=_BF16,
              macc=_F32, sacc=_F32),
     )
-    if _pool_ext_bwd_body(b, n, c, num_heads, i) == "hopper":
+    body = _pool_ext_bwd_body(b, n, c, num_heads, i)
+    if body == "hopper":
         dx, dse, dbe, dqf, dwv, dwo, _ = _pool_ext_bwd_hopper(x, se, be, qft, kvw, wo, g, macc,
                                                               sacc, num_heads)
-    else:
+    elif body == "wmma":
         dx, dse, dbe, dqf, dwv, dwo = _pool_ext_bwd_wmma(x, se, be, qft, kvw, wo, g, macc, sacc,
                                                          num_heads)
+    else:
+        dx, dse, dbe, dqf, dwv, dwo = _pool_ext_bwd_twopass(x, se, be, qft, kvw, wo, g, macc,
+                                                            sacc, num_heads, body)
     return dx, dse, dbe, *_chain_dqf(dqf, dwv, ind2, kvw, num_heads), dwo.to(wo.dtype)
 
 
@@ -519,8 +575,138 @@ def _wgrad_splits(batch: int, tiles: int, m: int, p: int, device) -> int:
     return max(1, min(tiles, -(-sms // (batch * (m // 128) * (p // 128)))))
 
 
+# ------------------------------------------- pool backward: v1, v2, v2j --
+
+
+def _twopass_recompute(x, se, be, qft, kvw, macc, num_heads: int) -> tuple:
+    """The tile recompute of the v1, v2 and v2j bodies, fp32 values of
+    their roundings -> (y [B, N, C], z = s - macc and e = exp(max(z, -80))
+    [B, N, J], v [B, N, H, D]): y = bf16(x se + be), s = y qf, v =
+    bf16(y Wv^T)."""
+    dt = x.dtype
+    b, n, c = x.shape
+    y = _prenormed(x, se, be)
+    z = torch.einsum("bnc,jc->bnj", y, qft.float()) - macc[:, None]
+    v = torch.einsum("bnc,dc->bnd", y, kvw[c:].float()).to(dt).float()
+    return y, z, torch.exp(torch.clamp(z, min=-80.0)), v.reshape(b, n, num_heads, -1)
+
+
+def _twopass_dmerged(g_h0, wo, num_heads: int) -> torch.Tensor:
+    """g_h0 @ Wo per head, fp32 [B, H, I, D]: the per-head blocks of the
+    TPU bodies' [J, C] placement matrix (zero off its head's columns)."""
+    b, i, c = g_h0.shape
+    dm = torch.einsum("bio,oc->bic", g_h0.to(wo.dtype).float(), wo.float())
+    return dm.reshape(b, i, num_heads, c // num_heads).permute(0, 2, 1, 3)
+
+
+def _twopass_outputs(x, se, y, ds, dv, qft, kvw, g_h0, merged) -> tuple:
+    """The part that v1, v2 and v2j share: dy = bf16(ds) qf^T + bf16(dv)
+    Wv -> (dx in x's dtype, dse, dbe [B, C], dqf [C, J], dwv, dwo [C, C]
+    fp32); dwo = g_h0^T bf16(merged), merged [B, H, I, D]."""
+    b, n, c = x.shape
+    wv = kvw[c:].float()
+    dy = torch.einsum("bnj,jc->bnc", ds, qft.float()) + torch.einsum("bnd,dc->bnc", dv, wv)
+    dwo = torch.einsum("bio,bhid->ohd", g_h0.to(x.dtype).float(), merged).reshape(c, c)
+    return ((dy * se[:, None]).to(x.dtype), (dy * x.float()).sum(1), dy.sum(1),
+            torch.einsum("bnc,bnj->cj", y, ds), torch.einsum("bnd,bnc->dc", dv, y), dwo)
+
+
+def _pool_bwd_v1_ref(x, se, be, qft, kvw, wo, g_h0, macc, sacc, num_heads: int) -> tuple:
+    """Plain version of the v1 body (csrc/pool_ext_bwd_v1.cu; the JAX
+    package's ``_pool_ext_bwd_kernel_v1``) at its roundings -> (dx, dse,
+    dbe, dqf, dwv, dwo). Pass 0: DM = bf16(g_h0 Wo) per head, dp = v DM^T,
+    t = sum_n e dp, pacc = bf16(e)^T v; then t / sacc and merged =
+    bf16(pacc / sacc). Pass 1: p = e / sacc, ds = bf16(p (dp - t)) where
+    s - macc > -80, dv = bf16(bf16(p) DM)."""
+    dt = x.dtype
+    b, n, c = x.shape
+    j = qft.shape[0]
+    h = num_heads
+    y, z, e, v = _twopass_recompute(x, se, be, qft, kvw, macc, h)
+    dm = _twopass_dmerged(g_h0, wo, h).to(dt).float()
+    inv = 1.0 / sacc
+    dp = torch.einsum("bnhd,bhid->bnhi", v, dm).reshape(b, n, j)
+    t = (e * dp).sum(1) * inv
+    eh = e.to(dt).float().reshape(b, n, h, -1)
+    pacc = torch.einsum("bnhi,bnhd->bhid", eh, v)
+    merged = (pacc * inv.reshape(b, h, -1, 1)).to(dt).float()
+    p = e * inv[:, None]
+    ds = torch.where(z > -80.0, p * (dp - t[:, None]), 0.0).to(dt).float()
+    dv = torch.einsum("bnhi,bhid->bnhd", p.to(dt).float().reshape(b, n, h, -1), dm)
+    dv = dv.to(dt).float().reshape(b, n, c)
+    return _twopass_outputs(x, se, y, ds, dv, qft, kvw, g_h0, merged)
+
+
+def _pool_bwd_v2_ref(x, se, be, qft, kvw, wo, g_h0, macc, sacc, num_heads: int) -> tuple:
+    """Plain version of the v2 and v2j bodies (csrc/pool_ext_bwd_v2.cu; the
+    JAX package's ``_pool_ext_bwd_kernel`` and ``_pool_ext_bwd_kernel_v2j``,
+    one algebra) at their roundings -> (dx, dse, dbe, dqf, dwv, dwo). DMs =
+    bf16(g_h0 Wo / sacc) per head; pass 0: pacc = bf16(e)^T v, then T =
+    rowsum(DMs pacc) / sacc and merged = bf16(pacc / sacc); pass 1: ds =
+    bf16(e (v DMs^T - T)) where s - macc > -80, dv = bf16(bf16(e) DMs)."""
+    dt = x.dtype
+    b, n, c = x.shape
+    j = qft.shape[0]
+    h = num_heads
+    y, z, e, v = _twopass_recompute(x, se, be, qft, kvw, macc, h)
+    inv = (1.0 / sacc).reshape(b, h, -1, 1)
+    dms = (_twopass_dmerged(g_h0, wo, h) * inv).to(dt).float()
+    eh = e.to(dt).float().reshape(b, n, h, -1)
+    pacc = torch.einsum("bnhi,bnhd->bhid", eh, v)
+    tt = ((dms * pacc).sum(-1, keepdim=True) * inv).reshape(b, j)
+    merged = (pacc * inv).to(dt).float()
+    dp = torch.einsum("bnhd,bhid->bnhi", v, dms).reshape(b, n, j)
+    ds = torch.where(z > -80.0, e * (dp - tt[:, None]), 0.0).to(dt).float()
+    dv = torch.einsum("bnhi,bhid->bnhd", eh, dms).to(dt).float().reshape(b, n, c)
+    return _twopass_outputs(x, se, y, ds, dv, qft, kvw, g_h0, merged)
+
+
+# the plain version of each two-pass body (v2 and v2j are one algebra)
+_TWOPASS_REFS = {"v1": _pool_bwd_v1_ref, "v2": _pool_bwd_v2_ref, "v2j": _pool_bwd_v2_ref}
+
+
+def _pool_ext_bwd_twopass(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int,
+                          body: str) -> tuple:
+    """The v1 body (csrc/pool_ext_bwd_v1.cu) or the v2 or v2j body
+    (csrc/pool_ext_bwd_v2.cu) -> (dx, dse, dbe, dqf, dwv, dwo). v2j takes
+    1/sacc [B, J], formed here, where v1 and v2 take sacc and invert it in
+    the kernel. The weight gradients come from csrc/wgrad.cuh (fixed-order
+    split-K), dse and dbe from fixed-order tile partials: every output is
+    the same bits from call to call."""
+    b, n, c = x.shape
+    j = qft.shape[0]
+    i, d = j // num_heads, c // num_heads
+    dev = x.device
+    # the three weight gradients' products: dqf = y^T ds over the B N rows,
+    # dWv = dv^T y over them, dWo = g^T merged over the B I rows
+    products = ((b * n, j), (b * n, c), (b * i, c))
+    splits = [_wgrad_splits(1, rows // 64, c, p, dev) for rows, p in products]
+    part = max([s * c * p for s, (_, p) in zip(splits, products) if s > 1], default=0)
+    dsum = torch.empty((b, 2, c), dtype=_F32, device=dev)
+    dqf = torch.empty((c, j), dtype=_F32, device=dev)
+    dwv = torch.empty((c, c), dtype=_F32, device=dev)
+    dwo = torch.empty_like(dwv)
+    dx = torch.empty_like(x)
+    lib = "pool_ext_bwd_v1" if body == "v1" else "pool_ext_bwd_v2"
+    launch(lib, f"pool_ext_bwd_{body}_launch", x, se, be, qft, kvw, wo, g, macc,
+           torch.reciprocal(sacc) if body == "v2j" else sacc,
+           torch.empty_like(x), torch.empty((b, j, d), dtype=_BF16, device=dev),
+           torch.empty((b, j), dtype=_F32, device=dev),
+           torch.empty((b, i, c), dtype=_BF16, device=dev),
+           torch.empty((b, n, j), dtype=_BF16, device=dev), torch.empty_like(x),
+           torch.empty((b, n // 32, 2, c), dtype=_F32, device=dev),
+           torch.empty(part, dtype=_F32, device=dev) if part else None,
+           dx, dsum, dqf, dwv, dwo, b, n, c, num_heads, i, *splits)
+    setattr(folded_pool_ext_bwd, f"launches_{body}",
+            getattr(folded_pool_ext_bwd, f"launches_{body}") + 1)
+    return dx, dsum[:, 0], dsum[:, 1], dqf, dwv, dwo
+
+
 folded_pool_ext_bwd.launches = 0
 folded_pool_ext_bwd.launches_wmma = 0
+folded_pool_ext_bwd.launches_v1 = 0
+folded_pool_ext_bwd.launches_v2 = 0
+folded_pool_ext_bwd.launches_v2j = 0
 
 
 # --------------------------------------------------------- resident pool --

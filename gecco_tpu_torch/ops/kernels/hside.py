@@ -51,6 +51,12 @@ def _register_chunk(i: int, c: int) -> int:
     raise ValueError(f"fused_h_side: no column chunk for I={i}, C={c}")
 
 
+def _hside_takes(i: int, c: int, w: int, groups: int) -> bool:
+    """Whether the kernel takes these shapes: I in (16, 32, 48, 64) (one
+    instance each), C % 16, W % 64 and C % G == 0."""
+    return i in (16, 32, 48, 64) and c % 16 == 0 and w % 64 == 0 and c % groups == 0
+
+
 def _hside_launch(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv):
     name = "fused_h_side"
     b, i, c = h0.shape
@@ -62,9 +68,9 @@ def _hside_launch(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv):
         dict(h0=_BF16, s1=_F32, b1n=_F32, s2=_F32, b2n=_F32, w1t=_BF16, b1=_F32,
              w2t=_BF16, b2=_F32, wk=_BF16, wv=_BF16),
     )
-    if not (i == 64 and c % 16 == 0 and w % 64 == 0 and c % g == 0):
+    if not _hside_takes(i, c, w, g):
         raise ValueError(
-            f"{name}: the CUDA kernel needs I == 64, C % 16, W % 64 and C % G == 0 "
+            f"{name}: the CUDA kernel needs I in (16, 32, 48, 64), C % 16, W % 64 and C % G == 0 "
             f"(I={i}, C={c}, W={w}, G={g})"
         )
     h, k, v = (torch.empty_like(h0) for _ in range(3))

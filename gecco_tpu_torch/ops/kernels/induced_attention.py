@@ -78,8 +78,9 @@ def _check_shapes(name: str, q, k, v) -> None:
     if k.shape != (b, h, k.shape[2], d) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          "do not form [B, H, M, D] x [B, H, N, D]")
-    if d not in (16, 32, 48, 64):
-        raise ValueError(f"{name}: the CUDA kernel needs D in (16, 32, 48, 64), got D={d}")
+    if d % 16 or not 16 <= d <= 128:
+        raise ValueError(f"{name}: the CUDA kernel needs D % 16 == 0 and 16 <= D <= 128, "
+                         f"got D={d}")
 
 
 def _strides(t) -> tuple:

@@ -28,6 +28,7 @@ from gecco_tpu_torch.ops.kernels import _build
 from gecco_tpu_torch.ops.kernels import folded_attention as tfa
 from gecco_tpu_torch.ops.kernels._grad import needs_grad
 from gecco_tpu_torch.ops.kernels import hside as ths
+from gecco_tpu_torch.ops.kernels import induced_attention as tia
 from gecco_tpu_torch.ops.kernels.induced_attention import rect_attention_pallas
 from gecco_tpu_torch.ops.kernels.projective_gather import (
     _gather_ref,
@@ -189,6 +190,7 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         "folded_pool_layer_bwd": 0, "folded_pool_ext_wmma": 0, "folded_unpool_wmma": 0,
         "fused_mlp_residual_wmma": 0, "folded_pool_ext_bwd_wmma": 0,
         "folded_unpool_bwd_wmma": 0, "fused_mlp_residual_bwd_wmma": 0,
+        "folded_pool_ext_bwd_v1": 0, "folded_pool_ext_bwd_v2": 0, "folded_pool_ext_bwd_v2j": 0,
     }
 
 
@@ -522,6 +524,81 @@ def test_body_switches_choose_by_shape(shape, bodies, bwd):
             assert switch(*args) == want
 
 
+@pytest.mark.parametrize("case,takes", [
+    (("hside", 64, 384, 768, 32), True),  # the flagship's inducers
+    (("hside", 32, 384, 768, 32), True),  # 32 inducers
+    (("hside", 128, 384, 768, 32), False),  # one instance per I in (16, 32, 48, 64)
+    (("rect", 48), True),  # the per-head flagship
+    (("rect", 128), True),  # num_heads=3 at C 384
+    (("rect", 40), False),  # D % 16 != 0
+    (("rect", 144), False),  # D > 128
+], ids=["hside-I64", "hside-I32", "hside-I128", "rect-D48", "rect-D128", "rect-D40",
+        "rect-D144"])
+def test_hside_and_rect_attention_route_by_shape(case, takes):
+    """The h-side and the per-head attention (forward and backward share
+    ``_check_shapes``) take their kernel by shape alone: the h-side at I
+    16 to 64, the attention at D % 16 == 0 up to 128. On the card a shape
+    the kernel does not take raises (ROADMAP C1: the JAX package runs its
+    kernels there); malformed operands raise too."""
+    if case[0] == "hside":
+        assert ths._hside_takes(*case[1:]) is takes
+        return
+    d = case[1]
+    q, kv = torch.zeros(2, 3, 64, d), torch.zeros(2, 3, 100, d)
+    if takes:
+        tia._check_shapes("rect", q, kv, kv)
+    else:
+        with pytest.raises(ValueError, match="D % 16 == 0 and 16 <= D <= 128"):
+            tia._check_shapes("rect", q, kv, kv)
+    with pytest.raises(ValueError, match="do not form"):
+        tia._check_shapes("rect", q, kv, kv[..., :16])
+
+
+# the pool backward's bodies at the flagship, 8k, demo and three-head
+# shapes (as in test_body_switches_choose_by_shape) under each value of
+# GECCO_POOL_BWD
+POOL_BWD_SHAPES = ((48, 2048, 384, 8, 64), (2, 8192, 768, 16, 64), (48, 2048, 128, 4, 64),
+                   (48, 2048, 384, 3, 64))
+
+
+@pytest.mark.parametrize("mode,want", [
+    (None, ("hopper", "hopper", "wmma", "wmma")),
+    ("v1", ("v1", "v1", None, None)),
+    ("v2", ("v2", "v2", None, None)),
+    ("v2j", ("v2j", "v2j", None, None)),
+    ("v3", ("hopper", "hopper", "wmma", "wmma")),
+], ids=["unset", "v1", "v2", "v2j", "v3"])
+def test_pool_bwd_switch_takes_the_forced_body(monkeypatch, mode, want):
+    """GECCO_POOL_BWD as the JAX package reads it: unset or "v3", the v3
+    algebra's bodies; forced to v1, v2 or v2j, that body where its kernel
+    takes the shape (the flagship's and the 8k width), and on the card a
+    forced body that does not take the shape raises (None), as does N 2000
+    under every value."""
+    monkeypatch.setattr(tfa, "_POOL_BWD_ENV", mode)
+    for shape, body in zip(POOL_BWD_SHAPES, want):
+        if body is None:
+            with pytest.raises(ValueError, match=f"GECCO_POOL_BWD={mode} forces"):
+                tfa._pool_ext_bwd_body(*shape)
+        else:
+            assert tfa._pool_ext_bwd_body(*shape) == body
+    with pytest.raises(ValueError, match="does not take|no CUDA body takes"):
+        tfa._pool_ext_bwd_body(48, 2000, 384, 8, 64)
+
+
+def test_pool_bwd_env_parses_as_the_jax_package(capsys):
+    """The accepted values of GECCO_POOL_BWD are the JAX package's, and an
+    invalid value falls back to the shape-gated default (None) with the
+    JAX package's message under the port's name."""
+    for m in ("v1", "v2", "v2j", "v3"):
+        assert tfa._parse_pool_bwd_env(m) == m == jfa._parse_pool_bwd_env(m)
+    assert tfa._parse_pool_bwd_env("") is None and tfa._parse_pool_bwd_env(None) is None
+    capsys.readouterr()
+    assert tfa._parse_pool_bwd_env("v4") is None
+    ours = capsys.readouterr().err
+    assert jfa._parse_pool_bwd_env("v4") is None
+    assert ours.replace("[gecco_tpu_torch]", "[gecco_tpu]") == capsys.readouterr().err != ""
+
+
 def test_shared_memory_mirrors_use_the_headers_constants():
     """The shape switches' Python mirrors of the WMMA bodies' shared-memory
     plans read kMaxSmem, kPad, kPadF and kPoolTile at the values that
@@ -578,6 +655,52 @@ def test_pool_bwd_pieces_match_the_jax_kernel_in_bf16():
         jops, jnp.asarray(g_h0.float().numpy(), jnp.bfloat16))
     for name, a, r in zip(("dx", "dse", "dbe", "dind2", "dkvw", "dwo"), got, ref):
         assert _maxrel(a.float().numpy(), r) < 1e-3, name
+
+
+@pytest.mark.parametrize("mode", ["v1", "v2", "v2j"])
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+def test_pool_bwd_twopass_refs_match_the_jax_bodies(monkeypatch, mode, drift):
+    """The plain versions of the v1, v2 and v2j kernels (``_pool_bwd_v1_ref``;
+    ``_pool_bwd_v2_ref`` for both v2 and v2j) are the JAX package's bodies:
+    on bf16 operands, from the forward's folded query and statistics (the
+    port's plain pieces), against ``jax.vjp`` of the JAX op with
+    ``GECCO_POOL_BWD`` forced to that body (its Pallas kernel in interpret
+    mode, one ``jax.jit``; the forced body's tile fits, so no XLA twin
+    ran): dse and dbe within 1e-3 of max |ref| (readings up to 5.2e-5),
+    the bf16 gradients within 4e-3 of it, one bf16 step (readings up to
+    1.7e-3, dkvw: rounded once at the end in both). With drifted logits
+    autograd of the plain version departs from the body by more than 1e-3
+    in dse and dbe (readings 5.8e-3 to 2.4e-2): the body's bf16 roundings
+    of e or p, ds and dv, which its plain version keeps."""
+    monkeypatch.setattr(jfa, "_POOL_BWD_ENV", mode)
+    j, d = HEADS * I, C // HEADS
+    v1 = mode == "v1"
+    assert jfa._pool_bwd_mode(N, C, j, d) == mode
+    assert jfa._tile_fits(N, jfa._pool_ext_bwd_row_bytes(C, j, v1),
+                          jfa._pool_ext_bwd_fixed_bytes(C, j, d, v1, mode == "v2j"), cap=512)
+    bf = torch.bfloat16
+    ops = [torch.from_numpy(a).to(bf if q in (0, 3, 4, 5) else torch.float32)
+           for q, a in enumerate(_pool_args(3, drift))]
+    x, se, be, ind2, kvw, wo = ops
+    g_h0 = torch.from_numpy(
+        np.random.default_rng(9).standard_normal((B, I, C)).astype(np.float32)).to(bf)
+    qft = tfa._fold_qft_ref(ind2, kvw, HEADS)
+    _, macc, sacc = tfa._pool_merge_ref(*tfa._pool_partials_ref(x, se, be, qft, kvw, HEADS), wo,
+                                        HEADS)
+    dx, dse, dbe, dqf, dwv, dwo = tfa._TWOPASS_REFS[mode](x, se, be, qft, kvw, wo, g_h0, macc,
+                                                          sacc, HEADS)
+    got = (dx, dse, dbe, *tfa._chain_dqf(dqf, dwv, ind2, kvw, HEADS), dwo.to(wo.dtype))
+    jops = [jnp.asarray(a.float().numpy(), jnp.bfloat16 if a.dtype == bf else jnp.float32)
+            for a in ops]
+    ref = jax.jit(lambda a, g: jax.vjp(lambda *p: jfa.folded_pool_ext(*p, HEADS), *a)[1](g))(
+        jops, jnp.asarray(g_h0.float().numpy(), jnp.bfloat16))
+    leaves = [a.clone().requires_grad_(True) for a in ops]
+    tfa._pool_ext_ref(*leaves, HEADS).backward(g_h0)
+    for name, a, r, plain in zip(("dx", "dse", "dbe", "dind2", "dkvw", "dwo"), got, ref,
+                                 [leaf.grad for leaf in leaves]):
+        assert _maxrel(a.float().numpy(), r) < (1e-3 if name in ("dse", "dbe") else 4e-3), name
+        if drift and name in ("dse", "dbe"):
+            assert _maxrel(plain.float().numpy(), r) > 1e-3, name
 
 
 def _unpool_bwd_by_pieces(x, se, be, k, v, wq, wo, g, g_sums, heads, residual=True,

@@ -7,9 +7,9 @@ Phases (each raises on failure; nothing is caught):
 
 1. environment: torch, nvcc, the card's name and power limit;
 2. build: the fourteen CUDA kernels of ``gecco_tpu_torch/csrc`` (eight
-   forward, six backward), the WMMA bodies beside the three Hopper
+   forward, six backward), the WMMA bodies beside the four Hopper
    forwards and the three Hopper backwards, and the pool backward's v1 and
-   v2/v2j bodies (twenty-one libraries, the projective gather's forward
+   v2/v2j bodies (twenty-two libraries, the projective gather's forward
    and backward in one) with nvcc for sm_90a,
    one process per source, all at once, with ``ptxas -v``'s registers and
    spills;
@@ -42,7 +42,8 @@ Phases (each raises on failure; nothing is caught):
    reverse) at the sampler's batch 64, ordinary and drifted, and at the 8k
    width; its backward (dq, dk, dv) against autograd of the plain version
    at the training batch 48; ``scaled_dot_product_attention`` (forward,
-   and its backward) on the same q/k/v as the yardstick; the unpool + MLP
+   and its backward) on the same q/k/v as the yardstick; the instances for
+   heads wider than 64 (D 80-128) checked and timed; the unpool + MLP
    megakernel against the plain composition and the two separate kernels
    at the sampler's shapes, timed beside both;
 7. sampler path: the flagship (6 x 384, 64 inducers, 8 heads, bf16,
@@ -145,8 +146,27 @@ Phases (each raises on failure; nothing is caught):
    flagship with three heads (the rect attention's D 128 instances): each
    samples 8 steps from one latent against the plain path and takes one
    gradient against it, every function through a kernel, the launch
-   counts exact.
+   counts exact;
+22. ragged point counts (ROADMAP C1): every body of the point-tiled
+   functions (the pool, unpool and MLP forwards and backwards, Hopper and
+   WMMA bodies, and the resident pool with and without its pre-norm) at N
+   2000 (padded to 2048 on the card), the pools' also at N 2050 (a 64-point
+   chunk of padding alone), ordinary and drifted, against its plain
+   version at the unpadded N with the tolerance of its N 2048 check,
+   failing unless the expected body ran; the flagship on ``folded_pallas``
+   at N 2000 samples 8 steps from one latent against the plain path and
+   takes one gradient at batch 48 against it, every function through a
+   kernel, the launch counts exact; one evaluation at batch 64 timed at N
+   2000 and at N 2048, in turns.
 
+Phase 3 holds the h-side's Hopper body (``csrc/hside.cu``) at the
+flagship's, the 8k width's and the demo's shapes and at 16, 32 and 48
+inducers, ordinary and drifted, every output the same bits in two calls,
+each pass against its plain piece on the kernel's own inputs, and its WMMA
+body (``csrc/hside_wmma.cu``) at the flagship's operands and at C 192 (a
+width only it takes), the two bodies timed in turns; the h-side's chain
+yardstick is GroupNorm, Linear, the Gaussian, Linear, GroupNorm and the k
+and v projections as PyTorch calls.
 Phase 3 also holds the pool's, unpool's and MLP's WMMA bodies (the shapes
 the Hopper designs do not take) against their plain versions at the demo's
 shapes, where it times them, the pool's and unpool's with three heads at
@@ -230,6 +250,7 @@ from gecco_tpu_torch.ops.kernels import _build  # noqa: E402
 from gecco_tpu_torch.ops.kernels import folded_attention as fa  # noqa: E402
 from gecco_tpu_torch.ops.kernels import hside as hs  # noqa: E402
 from gecco_tpu_torch.ops.kernels import induced_attention as ia  # noqa: E402
+from gecco_tpu_torch.probes.hside import passes as hside_passes  # noqa: E402
 from gecco_tpu_torch.ops.kernels.projective_gather import (  # noqa: E402
     _gather_bwd_ref,
     _gather_ref,
@@ -333,11 +354,17 @@ TOL_TRAIN_GRAD = 5e-2
 # swapped for a plain PyTorch copy of the TPU kernel's algebra: the same
 # roundings, summed in other orders
 TOL_ALGEBRA_GRAD = 1e-2
+# phase 22's ragged point counts: 2000 pads to 2048 (the last 64-point chunk
+# holds 16 points); 2050 pads to 2176, its last chunk all padding
+RAGGED_NS = (2000, 2050)
 
 SOURCES = {
     "folded_pool_ext": ("gecco_tpu_torch/csrc/pool_ext.cu",
                         "gecco_tpu/ops/pallas/folded_attention.py:1154"),
     "fused_h_side": ("gecco_tpu_torch/csrc/hside.cu", "gecco_tpu/ops/pallas/hside.py:52"),
+    # the WMMA body beside it, for the shapes it does not take
+    "fused_h_side_wmma": ("gecco_tpu_torch/csrc/hside_wmma.cu",
+                          "gecco_tpu/ops/pallas/hside.py:52"),
     "folded_unpool": ("gecco_tpu_torch/csrc/unpool.cu",
                       "gecco_tpu/ops/pallas/folded_attention.py:2222"),
     "fused_mlp_residual": ("gecco_tpu_torch/csrc/mlp.cu",
@@ -603,6 +630,28 @@ def chain_unpool(ops, heads):
     return run
 
 
+def chain_hside(ops):
+    """The whole h-side as PyTorch calls: the set-level GroupNorm (over the
+    tokens and a group's channels) with the AdaGN affine, Linear, the
+    Gaussian activation, Linear, the second GroupNorm and affine, and the k
+    and v projections."""
+    h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv = ops
+    groups = gind.shape[1]
+    w1, w2, bb1, bb2 = w1t.t(), w2t.t(), b1[0].to(h0.dtype), b2[0].to(h0.dtype)
+    f = torch.nn.functional
+
+    def norm(z, s, b):
+        zn = f.group_norm(z.transpose(1, 2), groups).transpose(1, 2)
+        return zn * s[:, None].to(z.dtype) + b[:, None].to(z.dtype)
+
+    def run():
+        a = f.linear(norm(h0, s1, b1n), w1, bb1)
+        h = norm(f.linear(torch.exp(-0.5 * a * a), w2, bb2), s2, b2n)
+        return h, f.linear(h, wk), f.linear(h, wv)
+
+    return run
+
+
 def chain_backward(make_chain, ops, heads, cots):
     """The backward of a chain yardstick alone under autograd, to every
     operand (its forward run once, outside the timed call), against the
@@ -621,6 +670,80 @@ def check(name, err, tol, what="max|err|/max|ref|"):
     print(f"  {name}: {what} = {err:.3e} (tol {tol:.0e}) {status}")
     if err > tol:
         raise AssertionError(f"{name}: error {err:.3e} above tolerance {tol:.0e}")
+
+
+def hside_checks(device, g, shapes, big, demo, dt, reps, hopper_rec) -> dict:
+    """The h-side's Hopper body at the flagship's, the 8k width's and the
+    demo's shapes and at 16, 32 and 48 inducers, ordinary and drifted,
+    against the plain version (every output the same bits in two calls);
+    its passes against their plain pieces on the kernel's own inputs; the
+    WMMA body against the plain version on the flagship's operands and at
+    C 192 (a width only it takes), timed in turns with the Hopper body;
+    each check's body by its launch counts. Returns the WMMA body's record
+    and adds the Hopper body's I 16-48, 8k and demo times to
+    ``hopper_rec``."""
+    b, c, i = shapes["batch"], shapes["feature_dim"], shapes["num_inducers"]
+    cases = {"flagship": (b, i, c, 2 * c),
+             "8k width": (big["batch"], big["num_inducers"], big["feature_dim"],
+                          2 * big["feature_dim"]),
+             "demo": (demo["batch"], demo["num_inducers"], demo["feature_dim"],
+                      2 * demo["feature_dim"]),
+             **{f"I {ii}": (b, ii, c, 2 * c) for ii in (16, 32, 48)}}
+    hopper = device.type == "cuda"
+    for name, (bb, ii, cc, ww) in cases.items():
+        for drift in (False, True):
+            tag = f"{name}, {'drift' if drift else 'ordinary'}"
+            args = hside_operands(g, bb, ii, cc, ww, drift, device, dt)
+            first, want = hs.fused_h_side(*args), hs._hside_ref(*args)
+            sync(device)
+            for q, (a, r) in enumerate(zip(first, want)):
+                check(f"fused_h_side [{tag}] out{q}", rel_err(a, r), TOL_OUT)
+            again = hs.fused_h_side(*args)
+            if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                raise AssertionError(f"fused_h_side [{tag}]: two calls differ")
+            if hopper and not drift:
+                # each pass against its plain piece on the kernel's inputs
+                for piece, err in hside_passes(args).items():
+                    check(f"fused_h_side [{tag}] pass output {piece}", err,
+                          TOL_STATS if piece in ("hh", "slabs") else TOL_OUT)
+        if name != "flagship":
+            args = hside_operands(g, bb, ii, cc, ww, False, device, dt)
+            key = f"ms_{name.replace(' ', '_')}"
+            hopper_rec[key] = time_ms(lambda: hs.fused_h_side(*args), device, reps)
+            print(f"  fused_h_side at the {name} ({bb} x {ii} x {cc}, W {ww}): "
+                  f"{hopper_rec[key]:.3f} ms")
+    counts = kernels.launch_counts()
+    if hopper and (counts["fused_h_side"] == 0 or counts["fused_h_side_wmma"]):
+        raise AssertionError(f"the h-side checks did not run the Hopper body: {counts}")
+
+    # the WMMA body: on the flagship's operands (timed in turns with the
+    # Hopper body) and at C 192, which only it takes
+    wmma = hs._hside_wmma if hopper else hs._hside_ref
+    for drift in (False, True):
+        for bb, cc in ((b, c), (b, 192)):
+            tag = f"C {cc}, {'drift' if drift else 'ordinary'}"
+            args = hside_operands(g, bb, i, cc, 2 * cc, drift, device, dt)
+            fn = hs.fused_h_side if cc == 192 else wmma
+            for q, (a, r) in enumerate(zip(fn(*args), hs._hside_ref(*args))):
+                check(f"fused_h_side WMMA body [{tag}] out{q}", rel_err(a, r), TOL_OUT)
+    counts = kernels.launch_counts()
+    if hopper and counts["fused_h_side_wmma"] == 0:
+        raise AssertionError(f"the WMMA h-side did not run: {counts}")
+    args = hside_operands(g, b, i, c, 2 * c, False, device, dt)
+    turns = bodies_in_turns(lambda: hs.fused_h_side(*args), lambda: wmma(*args), device, reps)
+    for body, t in turns.items():
+        print(f"  fused_h_side, {body} body, at the flagship: median {statistics.median(t):.3f} "
+              f"ms of {len(t)} calls (min {t[0]:.3f}, max {t[-1]:.3f})")
+    hopper_rec["ms_in_turns"] = statistics.median(turns["hopper"])
+    hopper_rec["ms_min_max"] = [turns["hopper"][0], turns["hopper"][-1]]
+    w_args = hside_operands(g, b, i, 192, 384, False, device, dt)
+    return {"fused_h_side_wmma": dict(
+        max_abs_err=max(abs_err(a, r) for a, r in zip(wmma(*args), hs._hside_ref(*args))),
+        ms=statistics.median(turns["wmma"]), ms_min_max=[turns["wmma"][0], turns["wmma"][-1]],
+        plain_ms=hopper_rec["plain_ms"], bound_ms=hopper_rec["bound_ms"],
+        bound_by=hopper_rec["bound_by"], library_ms=None,
+        library_chain_ms=hopper_rec["library_chain_ms"],
+        ms_c192=time_ms(lambda: hs.fused_h_side(*w_args), device, reps))}
 
 
 def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
@@ -670,17 +793,12 @@ def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
         2 * b * n * c * j + 2 * b * n * c * c + 2 * b * n * j * d + 2 * b * i * c * c,
         lambda a: [torch.empty(b, i, c, dtype=dt)],
         lambda a: sdpa_pool(a, heads), lambda a: chain_pool(a, heads))
+    kernels.reset_launch_counts()
     run("fused_h_side", hs.fused_h_side, hs._hside_ref,
         lambda drift: hside_operands(g, b, i, c, w, drift, device, dt), 3,
         4 * b * i * c * w + 4 * b * i * c * c,
-        lambda a: [torch.empty(3, b, i, c, dtype=dt)])
-    # the h-side's other instances (one per inducer count): 16, 32 and 48
-    for ii in (16, 32, 48):
-        for drift in (False, True):
-            args = hside_operands(g, b, ii, c, w, drift, device, dt)
-            for q, (a, r) in enumerate(zip(hs.fused_h_side(*args), hs._hside_ref(*args))):
-                check(f"fused_h_side I {ii} [{'drift' if drift else 'ordinary'}] out{q}",
-                      rel_err(a, r), TOL_OUT)
+        lambda a: [torch.empty(3, b, i, c, dtype=dt)], chain=chain_hside)
+    rec.update(hside_checks(device, g, dict(shapes), big, demo, dt, reps, rec["fused_h_side"]))
     run("folded_unpool", lambda *a: fa.folded_unpool(*a, heads),
         lambda *a: fa._unpool_ref(*a, heads),
         lambda drift: unpool_operands(g, b, n, c, heads, i, drift, device, dt), 2,
@@ -1549,7 +1667,8 @@ def attention_phase(device, shapes, train_batch, big, dt, reps):
                   rel_err(lse, rl), TOL_LSE)
     # the instances for heads wider than 64: D 128 (three heads at C 384,
     # the sampler's batch, ordinary and drifted), D 80, 96 and 112 (four
-    # heads, batch 4, ordinary)
+    # heads, batch 4, ordinary); each timed on its ordinary operands
+    wide_ms = {}
     for cc, hh, bb, drifts in WIDE_HEADS(b):
         for direction in ("pool", "unpool"):
             for drift in drifts:
@@ -1562,9 +1681,15 @@ def attention_phase(device, shapes, train_batch, big, dt, reps):
                       TOL_OUT)
                 check(f"rect_attention_fwd [{tag(direction, drift, wide)}] lse",
                       rel_err(lse, rl), TOL_LSE)
+                if not drift:
+                    wide_ms[f"D{cc // hh}_B{bb}_{direction}"] = time_ms(
+                        lambda: ia.rect_attention_fwd(q, k, v), device, reps)
+    print("  rect_attention_fwd at the wider heads: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in wide_ms.items()))
     bms, by = bound(tot["flops"], tot["bytes"])
     rec["rect_attention_fwd"] = dict(max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
-                                     bound_ms=bms, bound_by=by, library_ms=tot["library_ms"])
+                                     bound_ms=bms, bound_by=by, library_ms=tot["library_ms"],
+                                     ms_wide_heads=wide_ms)
 
     # backward: dq, dk, dv at the training batch, then the 8k width
     def bwd_case(bb, nn_, cc, hh, ii, direction, drift):
@@ -1611,14 +1736,21 @@ def attention_phase(device, shapes, train_batch, big, dt, reps):
             bwd_check(tag(direction, drift, " 8k width"),
                       bwd_case(big["batch"], big["n_points"], big["feature_dim"], big["num_heads"],
                                big["num_inducers"], direction, drift))
+    wide_ms = {}
     for cc, hh, bb, drifts in WIDE_HEADS(train_batch):
         for direction in ("pool", "unpool"):
             for drift in drifts:
-                bwd_check(tag(direction, drift, f" D {cc // hh}"),
-                          bwd_case(bb, n, cc, hh, i, direction, drift))
+                ops = bwd_case(bb, n, cc, hh, i, direction, drift)
+                bwd_check(tag(direction, drift, f" D {cc // hh}"), ops)
+                if not drift:
+                    wide_ms[f"D{cc // hh}_B{bb}_{direction}"] = time_ms(
+                        lambda: ia.rect_attention_bwd(*ops), device, reps)
+    print("  rect_attention_bwd at the wider heads: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in wide_ms.items()))
     bms, by = bound(tot["flops"], tot["bytes"])
     rec["rect_attention_bwd"] = dict(max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
-                                     bound_ms=bms, bound_by=by, library_ms=tot["library_ms"])
+                                     bound_ms=bms, bound_by=by, library_ms=tot["library_ms"],
+                                     ms_wide_heads=wide_ms)
 
     # the megakernel at the sampler's shapes: against the plain composition
     # and the two separate kernels
@@ -2259,6 +2391,202 @@ def shapes_phase(device, n_layers, batch, compare_batch, cases) -> dict:
     return out
 
 
+def ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ns, n_layers):
+    """Phase 22: every body of the point-tiled functions at ragged point
+    counts ``ns`` (N 2000 pads to 2048; N 2050 pads to 2176, whose last
+    64-point chunk holds no point: the pools also take it), forward and
+    backward, ordinary and drifted, against its plain version at the
+    unpadded N with the tolerances of its N 2048 check, failing unless the
+    expected body ran; then the flagship on ``folded_pallas`` at ``ns[0]``
+    (an 8-step sample against the plain path, a gradient at
+    ``train_batch``, the launch counts exact) and one evaluation's time at
+    ``ns[0]`` beside one at the padded count. Returns the times."""
+    g = torch.Generator(device=device).manual_seed(9)
+    r = lambda *s: torch.randn(*s, generator=g, device=device)
+    c, heads, i = shapes["feature_dim"], shapes["num_heads"], shapes["num_inducers"]
+    dc, dh, di = demo["feature_dim"], demo["num_heads"], demo["num_inducers"]
+    hc, hh = heads3["feature_dim"], heads3["num_heads"]
+    sb, db, tb = shapes["batch"], demo["batch"], train_batch
+    tags = lambda n, drift: f"N {n}, {'drift' if drift else 'ordinary'}"
+
+    def ran(what, body, other):
+        counts = kernels.launch_counts()
+        print(f"    launches: {body} {counts[body]}, {other} {counts[other]}")
+        if device.type == "cuda" and (counts[body] == 0 or counts[other]):
+            raise AssertionError(f"{what}: expected the {body} body, got {counts}")
+
+    # forwards: (name, the body's counter, the other body's, operands at N, kernel, plain)
+    fwd = (
+        ("folded_pool_ext", "folded_pool_ext_wmma", ns,
+         lambda n, d: pool_operands(g, sb, n, c, heads, i, d, device, dt),
+         lambda *a: fa.folded_pool_ext(*a, heads), lambda *a: fa._pool_ext_ref(*a, heads)),
+        ("folded_pool_ext_wmma", "folded_pool_ext", ns,
+         lambda n, d: pool_operands(g, db, n, dc, dh, di, d, device, dt),
+         lambda *a: fa.folded_pool_ext(*a, dh), lambda *a: fa._pool_ext_ref(*a, dh)),
+        ("folded_unpool", "folded_unpool_wmma", ns[:1],
+         lambda n, d: unpool_operands(g, sb, n, c, heads, i, d, device, dt),
+         lambda *a: fa.folded_unpool(*a, heads), lambda *a: fa._unpool_ref(*a, heads)),
+        ("folded_unpool_wmma", "folded_unpool", ns[:1],
+         lambda n, d: unpool_operands(g, db, n, dc, dh, di, d, device, dt),
+         lambda *a: fa.folded_unpool(*a, dh), lambda *a: fa._unpool_ref(*a, dh)),
+        ("fused_mlp_residual", "fused_mlp_residual_wmma", ns[:1],
+         lambda n, d: mlp_operands(g, sb, n, c, 2 * c, d, device, dt),
+         fa.fused_mlp_residual, fa._mlp_ref),
+        ("fused_mlp_residual_wmma", "fused_mlp_residual", ns[:1],
+         lambda n, d: mlp_operands(g, db, n, dc, 2 * dc, d, device, dt),
+         fa.fused_mlp_residual, fa._mlp_ref),
+    )
+    with torch.no_grad():
+        for body, other, counts_ns, ops, kernel, plain in fwd:
+            kernels.reset_launch_counts()
+            for n in counts_ns:
+                for drift in (False, True):
+                    args = ops(n, drift)
+                    got, want = kernel(*args), plain(*args)
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = want if isinstance(want, tuple) else (want,)
+                    sync(device)
+                    for q, (a, ref) in enumerate(zip(got, want)):
+                        if q == 0 and tuple(a.shape) != tuple(ref.shape):
+                            raise AssertionError(f"{body}: shape {tuple(a.shape)}")
+                        check(f"{body} [{tags(n, drift)}] {'sums' if q else 'out'}",
+                              rel_err(a, ref), TOL_SUMS if q else TOL_OUT)
+            ran(body, body, other)
+
+    # backwards
+    def pool_bwd(bb, cc, hh_, ii):
+        def make(n, drift):
+            ops = pool_operands(g, bb, n, cc, hh_, ii, drift, device, dt)
+            if device.type == "cuda":
+                _, qft, macc, sacc = fa._pool_ext_launch(*ops, hh_, True)
+            else:
+                qft = macc = sacc = None
+            gh = (0.1 * r(bb, ii, cc)).to(dt)
+            return (lambda: fa.folded_pool_ext_bwd(*ops, qft, macc, sacc, gh, hh_),
+                    lambda: fa._pool_ext_bwd_ref(*ops, gh, hh_),
+                    lambda: pool_bwd_v3_affine(*ops, gh, hh_))
+        return make
+
+    def unpool_bwd(bb, cc, hh_, ii):
+        def make(n, drift):
+            ops = unpool_operands(g, bb, n, cc, hh_, ii, drift, device, dt)
+            gg, gs = (0.1 * r(bb, n, cc)).to(dt), 1e-3 * r(bb, 2, cc)
+            return (lambda: fa.folded_unpool_bwd(*ops, gg, gs, hh_),
+                    lambda: fa._unpool_bwd_ref(*ops, gg, gs, hh_), None)
+        return make
+
+    def mlp_bwd(bb, cc):
+        def make(n, drift):
+            ops = mlp_operands(g, bb, n, cc, 2 * cc, drift, device, dt)
+            gg, gs = (0.1 * r(bb, n, cc)).to(dt), 1e-3 * r(bb, 2, cc)
+            return (lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs),
+                    lambda: fa._mlp_bwd_ref(*ops, gg, gs), None)
+        return make
+
+    pool_names = ("dx", "dse", "dbe", "dind2", "dkvw", "dwo")
+    bwd = (
+        ("folded_pool_ext_bwd", "folded_pool_ext_bwd_wmma", ns, pool_bwd(tb, c, heads, i),
+         pool_names),
+        ("folded_pool_ext_bwd_wmma", "folded_pool_ext_bwd", ns, pool_bwd(tb, dc, dh, di),
+         pool_names),
+        ("folded_unpool_bwd", "folded_unpool_bwd_wmma", ns[:1], unpool_bwd(tb, c, heads, i),
+         ("dx", "dse", "dbe", "dk", "dv", "dwq", "dwo")),
+        ("folded_unpool_bwd_wmma", "folded_unpool_bwd", ns[:1], unpool_bwd(tb, hc, hh, i),
+         ("dx", "dse", "dbe", "dk", "dv", "dwq", "dwo")),
+        ("fused_mlp_residual_bwd", "fused_mlp_residual_bwd_wmma", ns[:1], mlp_bwd(tb, c),
+         ("dx", "dse", "dbe", "dw1t", "db1", "dw2t", "db2")),
+        ("fused_mlp_residual_bwd_wmma", "fused_mlp_residual_bwd", ns[:1], mlp_bwd(tb, dc),
+         ("dx", "dse", "dbe", "dw1t", "db1", "dw2t", "db2")),
+    )
+    for body, other, counts_ns, make, names in bwd:
+        kernels.reset_launch_counts()
+        for n in counts_ns:
+            for drift in (False, True):
+                kernel, plain, witness = make(n, drift)
+                got, want = kernel(), plain()
+                sync(device)
+                for out, a, ref in zip(names, got, want):
+                    tol = TOL_AFFINE if out in ("dse", "dbe") else TOL_GRAD
+                    if witness is not None and drift and out == "dbe":
+                        # the v3 algebra's residue, as in phase 4
+                        tol = TOL_POOL_DRIFT_DBE
+                        if device.type == "cuda":
+                            check(f"{body} [{tags(n, drift)}] dbe against the v3 algebra",
+                                  rel_err(a, witness()[1]), TOL_AFFINE)
+                    check(f"{body} [{tags(n, drift)}] {out}", rel_err(a, ref), tol)
+        ran(body, body, other)
+
+    # the resident pool, with and without its pre-norm
+    def layer_ops(bb, n, drift):
+        x, sc, bi, ind2, kvw, wo = pool_operands(g, bb, n, c, heads, i, drift, device, dt)
+        x = (1.5 * x.float() + 0.3 * r(1, 1, c)).to(dt)
+        return x, sc, bi, ind2, kvw, wo, fa.group_indicator(c, GROUPS, device)
+
+    kernels.reset_launch_counts()
+    for n in ns:
+        for prenorm in (True, False):
+            for drift in (False, True):
+                tag = f"{tags(n, drift)}, {'prenorm' if prenorm else 'no pre-norm'}"
+                ops = layer_ops(sb, n, drift)
+                with torch.no_grad():
+                    got = fa.folded_pool_layer(*ops, heads, prenorm)
+                    want = fa._pool_ref(*ops[:6], GROUPS, heads, prenorm)
+                sync(device)
+                for name, a, ref, tol in zip(("h0", "mean_c", "inv_c"), got, want,
+                                             (TOL_OUT, TOL_STATS, TOL_STATS)):
+                    check(f"folded_pool_layer [{tag}] {name}", rel_err(a, ref), tol)
+                ops = layer_ops(tb, n, drift)
+                if device.type == "cuda":
+                    _, mean, inv, fwd_ = fa._pool_layer_launch(*ops, heads, prenorm, True)
+                else:
+                    mean = inv = None
+                    fwd_ = (None, None, None, None)
+                cot = ((0.1 * r(tb, i, c)).to(dt), 1e-2 * r(tb, c), 1e-2 * r(tb, c))
+                got = fa.folded_pool_layer_bwd(*ops, mean, inv, *fwd_, *cot, heads, prenorm)
+                want = fa._pool_layer_bwd_ref(*ops, *cot, heads, prenorm)
+                sync(device)
+                for name, a, ref in zip(("dx", "dscale", "dbias", "dind2", "dkvw", "dwo"), got,
+                                        want):
+                    tol = TOL_AFFINE if name in ("dscale", "dbias") else TOL_GRAD
+                    if prenorm and drift and name == "dbias":
+                        # the TPU algebra's residue, as in phase 14
+                        tol = TOL_POOL_DRIFT_DBE
+                        if device.type == "cuda":
+                            alg = pool_layer_bwd_tpu_algebra(*ops, cot[0], heads)[1]
+                            check(f"folded_pool_layer_bwd [{tag}] dbias against the TPU "
+                                  f"algebra", rel_err(a, alg), TOL_AFFINE)
+                    check(f"folded_pool_layer_bwd [{tag}] {name}", rel_err(a, ref), tol)
+    counts = kernels.launch_counts()
+    print(f"    launches: folded_pool_layer {counts['folded_pool_layer']}, folded_pool_layer_bwd "
+          f"{counts['folded_pool_layer_bwd']}")
+    if device.type == "cuda" and not (counts["folded_pool_layer"]
+                                      and counts["folded_pool_layer_bwd"]):
+        raise AssertionError(f"the resident pool's kernels did not run: {counts}")
+
+    # the flagship at the ragged N: every function through a kernel
+    n = ns[0]
+    every = dict(folded_pool_ext=1, fused_h_side=1, folded_unpool=1, fused_mlp_residual=1)
+    shapes_phase(device, n_layers, train_batch, 8, {
+        f"the flagship at N {n}": (dict(FLAGSHIP, n_points=n), "folded_pallas", every,
+                                   dict(every, folded_pool_ext_bwd=1, folded_unpool_bwd=1,
+                                        fused_mlp_residual_bwd=1))})
+    # one evaluation at the ragged N and at its padded count, in turns
+    model = build_flagship(device, torch.Generator().manual_seed(0), n_layers)
+    n_pad = fa._n_pad(n)
+    x = {m: model.schedule.sample_latent(torch.Generator(device=device).manual_seed(2),
+                                         (sb, m, 3), device) for m in (n, n_pad)}
+    sigma = torch.full((sb,), 10.0, device=device)
+    times = {m: [] for m in (n, n_pad)}
+    with torch.no_grad():
+        for m in (n, n_pad, n_pad, n):
+            times[m] += time_all(lambda: model.denoise(sigma, x[m]), device, max(1, reps // 2))
+    out = {f"eval_ms_n{m}": statistics.median(t) for m, t in times.items()}
+    print(f"  one flagship evaluation at batch {sb}: N {n} {out[f'eval_ms_n{n}']:.3f} ms, "
+          f"N {n_pad} {out[f'eval_ms_n{n_pad}']:.3f} ms (median of {len(times[n])} each, "
+          f"in turns)")
+    return out
+
+
 def validate_phase(device, rehearse):
     """``gecco_tpu_torch.validate``'s loop, short: 20 steps of the flagship at
     batch 48 and one eval of 16 clouds with 8 Heun steps on the card (a
@@ -2295,7 +2623,9 @@ KERNEL_FUNCTIONS = {
     # linear_nt_kernel (pool.cuh) is the resident pool's output projection too
     "folded_pool_ext": ("pool_fold_kernel", "pool_chunk_kernel", "pool_merge_kernel",
                         "linear_nt_kernel"),
-    "fused_h_side": ("hside_kernel",),
+    "fused_h_side": ("hside_norm_kernel", "hside_act_kernel", "hside_out_kernel",
+                     "hside_kv_kernel"),
+    "fused_h_side_wmma": ("hside_kernel",),
     "folded_unpool": ("unpool_bq_kernel", "unpool_fold_k_kernel", "unpool_fold_v_kernel",
                       "unpool_tile_kernel"),
     "fused_mlp_residual": ("mlp_act_kernel", "mlp_out_kernel"),
@@ -2649,6 +2979,7 @@ def main():
         image_size, render_size = 32, 37
         train_steps = twopass_steps = (1, 2)
         upsample = dict(n_new=300, n_steps=3, n_substeps=2, compare_new=200)
+        ragged_ns = (100, 130)
     else:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")
@@ -2667,6 +2998,7 @@ def main():
         twopass_steps = (TRAIN_WARMUP, TWOPASS_STEPS)
         upsample = dict(n_new=UPSAMPLE_NEW, n_steps=UPSAMPLE_STEPS, n_substeps=UPSAMPLE_SUBSTEPS,
                         compare_new=4096)
+        ragged_ns = RAGGED_NS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2823,6 +3155,12 @@ def main():
     }
     shape_counts = shapes_phase(device, n_layers, train_batch, 8, shape_cases)
 
+    print(f"== ragged point counts (ROADMAP C1): every point-tiled body at N {ragged_ns} "
+          f"(forwards at batch {shapes['batch']}, backwards at {train_batch}; WMMA bodies at "
+          f"{demo} and {heads3}), then the flagship at N {ragged_ns[0]}, on {card}")
+    ragged = ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ragged_ns,
+                          n_layers)
+
     print("== summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
@@ -2862,7 +3200,9 @@ def main():
           f"validation phase {val['seconds']:.1f} s (1-NN {val['one_nn']:.4f}, MMD "
           f"{val['mmd']:.4g}, COV {val['cov']:.4f}); demo sampler {demo_path['clouds_per_s']:.3f} "
           f"clouds/s (batch {demo['batch']}); demo train step {demo_train['ms_per_step']:.3f} ms "
-          f"(batch {train_batch}); {card}")
+          f"(batch {train_batch}); one flagship evaluation at batch {shapes['batch']}: "
+          + ", ".join(f"{k[len('eval_ms_n'):]} points {v:.3f} ms" for k, v in ragged.items())
+          + f"; {card}")
     # launches: each kernel's count on the path that first brought it in
     # (printed above): the flagship sampler's for a set-transformer forward
     # kernel, the flagship training path's for a backward one, the

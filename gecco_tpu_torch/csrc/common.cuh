@@ -191,13 +191,14 @@ __device__ __forceinline__ void load_prenorm(bf16* y, int ld, const bf16* x, con
 // Residual epilogue shared by the unpool and MLP kernels:
 // o = x + (acc + bias) in fp32 (acc row stride lda; no x term where x is
 // null), stored as bf16, and
-// the channel sums of the fp32 o (before the cast) added into
+// the channel sums of the fp32 o (before the cast) over the first ``valid``
+// rows (the rest are a ragged point tail's padding) added into
 // sums[b] = [s1 | s2] with one atomic per channel and block. Blocks land in
 // no fixed order, so the fp32 sums vary from run to run at the level of
 // their rounding.
 __device__ __forceinline__ void residual_epilogue(const bf16* x, const float* acc, int lda,
                                                   const float* bias, bf16* out, float* sums,
-                                                  int rows, int C) {
+                                                  int rows, int C, int valid) {
   for (int c = threadIdx.x; c < C; c += kThreads) {
     const float bc = bias ? bias[c] : 0.0f;
     float s1 = 0.0f, s2 = 0.0f;
@@ -205,8 +206,10 @@ __device__ __forceinline__ void residual_epilogue(const bf16* x, const float* ac
       const size_t e = (size_t)r * C + c;
       const float o = (x ? __bfloat162float(x[e]) : 0.0f) + (acc[(size_t)r * lda + c] + bc);
       out[e] = __float2bfloat16(o);
-      s1 += o;
-      s2 += o * o;
+      if (r < valid) {
+        s1 += o;
+        s2 += o * o;
+      }
     }
     atomicAdd(sums + c, s1);
     atomicAdd(sums + C + c, s2);

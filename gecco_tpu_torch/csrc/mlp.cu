@@ -36,11 +36,11 @@ MLP_GEMM_KERNEL(mlp_out_kernel, kBnWide, 1, kOut, kStagesWide)
 }  // namespace
 
 // y [B N, C] and g [B N, W] bf16 and part [B N / 128, 2, C] fp32 are the
-// wrapper's scratch.
+// wrapper's scratch; the sums count each element's first n_valid points.
 extern "C" int mlp_launch(const void* x, const void* se, const void* be, const void* w1t,
                           const void* b1, const void* w2t, const void* b2, void* y, void* g,
                           void* part, void* out, void* sums, int B, int N, int C, int W,
-                          void* stream) {
+                          int n_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (!hopper_takes(N, C, W)) return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * N;
@@ -65,6 +65,7 @@ extern "C" int mlp_launch(const void* x, const void* se, const void* be, const v
   e2.K = W;
   e2.N = C;
   e2.rows_b = N;
+  e2.n_valid = n_valid;
   e2.bias = (const float*)b2;
   e2.x = (const bf16*)x;
   e2.out = (bf16*)out;

@@ -29,6 +29,7 @@ inline size_t mlp_smem_plan(int TN, int C, int W, int* chunk_out, size_t* region
   return 0;
 }
 
+// Rows from n_valid on (a ragged point tail's padding) stay out of the sums.
 // Shared memory: y [TN, C], the w1 chunk [C, chunk] and the w2 chunk
 // [chunk, C] (each staged asynchronously, one behind the other product),
 // which the fp32 output tile [TN, C] reuses after the last product
@@ -39,8 +40,8 @@ __device__ __forceinline__ void mlp_tile(const bf16* __restrict__ x, const float
                                          const bf16* __restrict__ w1t, const float* __restrict__ b1,
                                          const bf16* __restrict__ w2t, const float* __restrict__ b2,
                                          bf16* __restrict__ out, float* __restrict__ sums, int N,
-                                         int C, int W, int chunk, int region0, int b, int tile,
-                                         unsigned char* smem) {
+                                         int n_valid, int C, int W, int chunk, int region0, int b,
+                                         int tile, unsigned char* smem) {
   constexpr int TN = 16 * ROWS, COLS = kMaxFrags / ROWS;
   const int ldy = C + kPad, ldw1 = chunk + kPad, ldw2 = C + kPad;
   const int ldh = chunk + kPadF, ldg = chunk + kPad, ldo = C + kPadF;
@@ -81,7 +82,8 @@ __device__ __forceinline__ void mlp_tile(const bf16* __restrict__ x, const float
   __syncthreads();  // obuf reuses y, w1s and w2s
   acc_store(acc, obuf, ldo, C);
   __syncthreads();
-  residual_epilogue(x + base, obuf, ldo, b2, out + base, sums + (size_t)b * 2 * C, TN, C);
+  residual_epilogue(x + base, obuf, ldo, b2, out + base, sums + (size_t)b * 2 * C, TN, C,
+                    n_valid - tile * TN);
 }
 
 }  // namespace gecco

@@ -49,12 +49,13 @@ MLP_GEMM_KERNEL(mlp_bwd_dx_kernel, kBnWide, 0, kDx, kStagesWide)
 // [B N, W] bf16; gp [B N, C] and part [B N / 128, max(W, 2 C)] fp32; wpart
 // [splits, C, W] fp32 where splits > 1. Outputs: dx [B N, C] bf16, dsb
 // [B, 2, C] (dse, dbe), dw1t [C, W], db1 [W], dw2t [W, C], db2 [C] fp32.
+// Points from n_valid on are a ragged tail's zero padding (g zero there).
 extern "C" int mlp_bwd_launch(const void* x, const void* se, const void* be, const void* w1t,
                               const void* b1, const void* w2t, const void* b2, const void* g,
                               const void* gsums, void* y, void* a, void* gb, void* gp, void* dh,
                               void* part, void* wpart, void* dx, void* dsb, void* dw1t, void* db1,
                               void* dw2t, void* db2, int B, int N, int C, int W, int splits,
-                              void* stream) {
+                              int n_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (!hopper_takes(N, C, W)) return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * N;
@@ -86,6 +87,7 @@ extern "C" int mlp_bwd_launch(const void* x, const void* se, const void* be, con
   e.K = W;
   e.N = C;
   e.rows_b = N;
+  e.n_valid = n_valid;
   e.bias = (const float*)b2;
   e.x = (const bf16*)x;
   e.g = (const bf16*)g;

@@ -45,7 +45,7 @@ mlp_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
                const float* __restrict__ gsums, bf16* __restrict__ a_out, bf16* __restrict__ dh_out,
                bf16* __restrict__ gb_out, bf16* __restrict__ dx, float* __restrict__ dse,
                float* __restrict__ dbe, float* __restrict__ db1, float* __restrict__ db2, int N,
-               int C, int W) {
+               int n_valid, int C, int W) {
   constexpr int TN = 16 * ROWS;
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldy = C + kPad, ldf = C + kPadF;
@@ -90,7 +90,10 @@ mlp_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
     for (int r = 0; r < TN; ++r) {
       const size_t e = (size_t)r * C + c;
       const float o = (gp[r * ldf + c] + b2[c]) + __bfloat162float(x[base + e]);
-      const float gv = __bfloat162float(g[base + e]) + gs1[c] + 2.0f * o * gs2[c];
+      // the sums' cotangent reaches the first n_valid points only (the rest
+      // are a ragged tail's zero padding)
+      const float g0 = __bfloat162float(g[base + e]);
+      const float gv = n0 + r < n_valid ? g0 + gs1[c] + 2.0f * o * gs2[c] : g0;
       const bf16 gbv = __float2bfloat16(gv);
       gp[r * ldf + c] = gv;
       gb[r * ldy + c] = gbv;
@@ -142,9 +145,11 @@ extern "C" int mlp_bwd_wmma_launch(const void* x, const void* se, const void* be
                                    const void* b2, const void* g, const void* gsums, void* a,
                                    void* dh, void* gb, void* dx, void* dse, void* dbe, void* dw1t,
                                    void* db1, void* dw2t, void* db2, int B, int N, int C, int W,
-                                   void* stream) {
+                                   int n_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (C % 128 || C > 768 || W % 64 || N % 64) return (int)cudaErrorInvalidValue;
+  if (C % 128 || C > 768 || W % 64 || N % 64 || n_valid < 1 || n_valid > N) {
+    return (int)cudaErrorInvalidValue;
+  }
   // 64-point tiles while the [64, C] accumulator fits a warp's 12 tiles
   // (C <= 384), else 32
   const int TN = C <= 384 ? 64 : 32;
@@ -165,8 +170,8 @@ extern "C" int mlp_bwd_wmma_launch(const void* x, const void* se, const void* be
   kernel<<<dim3(N / TN, B), kThreads, smem, st>>>(
       (const bf16*)x, (const float*)se, (const float*)be, (const bf16*)w1t, (const float*)b1,
       (const bf16*)w2t, (const float*)b2, (const bf16*)g, (const float*)gsums, (bf16*)a,
-      (bf16*)dh, (bf16*)gb, (bf16*)dx, (float*)dse, (float*)dbe, (float*)db1, (float*)db2, N, C,
-      W);
+      (bf16*)dh, (bf16*)gb, (bf16*)dx, (float*)dse, (float*)dbe, (float*)db1, (float*)db2, N,
+      n_valid, C, W);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // dw1t = sum over all rows of y^T bf16(dh) [C, W];  dw2t = bf16(a)^T bf16(g') [W, C]
   err = launch_atb((const bf16*)x, C, (size_t)N * C, (const float*)se, (const float*)be,

@@ -37,10 +37,21 @@
 //   kDh   h = acc + b1, a = exp(-h^2 / 2), dh = acc2 * a * (-h);
 //         bf16(dh) -> out; column sums of dh
 //   kDx   dy = acc; dx = bf16(g' + dy * se); column sums of dy * x, dy
+// A ragged point count comes zero-padded to the 128-row block by the
+// wrapper: kOut leaves the padding rows (a batch element's rows from
+// n_valid on) out of its sums and kGrad gives them no share of the sums'
+// cotangent, so their g' is the padded g, zero, and every later sum and
+// weight gradient takes nothing from them.
+// and for the h-side (csrc/hside.cu), on its [B I, .] token rows:
+//   kHOut hh = acc + b2 -> gp (fp32); each warp's 16-row sums of hh, hh^2
+//   kKV   bf16(acc) -> out (columns < split) or out2 (the rest), each of
+//         row stride split; B from tm_b or tm_b2 likewise ([Wk; Wv] apart)
 // Column sums are fixed-order: a block sums its 128 rows (the thread's two
 // rows, shuffles over a warp's rows, then the eight warps in order) into
 // part[row block, sum, column]; mlp_colsum_kernel adds the row blocks in
-// order. Every output is the same bits from call to call.
+// order (kHOut writes each warp's 16 rows' sums, part[row / 16, sum,
+// column], for its caller to add per token set). Every output is the same
+// bits from call to call.
 #pragma once
 
 #include "backward.cuh"
@@ -57,7 +68,7 @@ constexpr int kBnDual = 128;         // column tile of the dual product
 constexpr int kStagesWide = 4;
 constexpr int kStagesDual = 3;
 
-enum Epi { kAct = 0, kOut = 1, kGrad = 2, kDh = 3, kDx = 4 };
+enum Epi { kAct = 0, kOut = 1, kGrad = 2, kDh = 3, kDx = 4, kHOut = 5, kKV = 6 };
 
 __host__ __device__ constexpr int epi_sums(int epi) {
   return epi == kOut || epi == kDx ? 2 : (epi == kGrad || epi == kDh ? 1 : 0);
@@ -68,6 +79,7 @@ struct MlpEpi {
   int K;              // depth of the product(s), a multiple of 64
   int N;              // output columns: the row stride of every [M, N] array below
   int rows_b;         // rows of one batch element (its points), a multiple of kRows
+  int n_valid;        // its points before the padding of a ragged tail (kOut, kGrad)
   const float* bias;  // [N]: b1 (kAct, kDh), b2 (kOut, kGrad)
   const bf16* x;      // [M, N]: the residual (kOut, kGrad), x of dse (kDx)
   const bf16* g;      // [M, N]: the output's cotangent (kGrad)
@@ -76,6 +88,9 @@ struct MlpEpi {
   float* gp;          // [M, N] fp32 g' (written by kGrad, read by kDx)
   bf16* out;          // [M, N]: a, out, bf16(g'), bf16(dh) or dx
   float* part;        // [M / kRows, sums, N]: the row blocks' column sums
+                      // (kHOut: [M / 16, 2, N], each warp's 16 rows')
+  int split;          // kKV: the columns of out; the rest go to out2
+  bf16* out2;         // kKV: [M, N - split]
 };
 
 // Shared memory of one instance, in bytes from a 1024-aligned base: the
@@ -125,6 +140,10 @@ __device__ __forceinline__ void mlp_gemm(const CUtensorMap* tm_a, const CUtensor
   uint64_t* empty = full + STAGES;
   const int n0 = blockIdx.x * BN, rb = blockIdx.y, row0 = rb * kRows;
   const int steps = e.K / 64;
+  // kKV: the columns from split on are a second product, B from tm_b2
+  const bool second = EPI == kKV && n0 >= e.split;
+  const CUtensorMap* tm_b0 = second ? tm_b2 : tm_b;
+  const int nb0 = second ? n0 - e.split : n0;
   auto stage = [&](int s) { return smem + s * L::kStage; };
   auto load = [&](int u) {
     const int s = u % STAGES, k0 = u * 64;
@@ -143,7 +162,7 @@ __device__ __forceinline__ void mlp_gemm(const CUtensorMap* tm_a, const CUtensor
         for (int p = 0; p < BN / 64; ++p) tma_load(b + p * kPanel, tm_b, full + s, k0, n0 + 64 * p);
       } else {
         // B [N, K] row-major: one box of BN rows
-        tma_load(b, op ? tm_b2 : tm_b, full + s, n0, k0);
+        tma_load(b, op ? tm_b2 : tm_b0, full + s, op ? n0 : nb0, k0);
       }
     }
   };
@@ -205,6 +224,8 @@ __device__ __forceinline__ void mlp_gemm(const CUtensorMap* tm_a, const CUtensor
   // n0 + 8 gi + col + {0, 1}
   const size_t row = (size_t)row0 + 64 * w + r;
   const int bidx = row0 / e.rows_b;
+  const int pt = (int)(row - (size_t)bidx * e.rows_b);  // the row's point in its element
+  const bool ok0 = pt < e.n_valid, ok1 = pt + 8 < e.n_valid;
   float* red = reinterpret_cast<float*>(smem + L::kRed);  // [sums][8 warps][BN]
 #pragma unroll
   for (int gi = 0; gi < BN / 8; ++gi) {
@@ -226,18 +247,22 @@ __device__ __forceinline__ void mlp_gemm(const CUtensorMap* tm_a, const CUtensor
       if constexpr (EPI == kOut) {
         st_bf2(e.out + i0, o0, o1);
         st_bf2(e.out + i1, o2, o3);
-        s0[0] = o0 + o2;
-        s0[1] = o1 + o3;
-        s1[0] = o0 * o0 + o2 * o2;
-        s1[1] = o1 * o1 + o3 * o3;
+        const float u0 = ok0 ? o0 : 0.0f, u1 = ok0 ? o1 : 0.0f;
+        const float u2 = ok1 ? o2 : 0.0f, u3 = ok1 ? o3 : 0.0f;
+        s0[0] = u0 + u2;
+        s0[1] = u1 + u3;
+        s1[0] = u0 * u0 + u2 * u2;
+        s1[1] = u1 * u1 + u3 * u3;
       } else {
         const float* gs1 = e.gs + (size_t)bidx * 2 * e.N;
         const float* gs2 = gs1 + e.N;
         const float a0 = __ldg(gs1 + c), a1 = __ldg(gs1 + c + 1);
         const float q0 = __ldg(gs2 + c), q1 = __ldg(gs2 + c + 1);
         const float2 g0 = ld_bf2(e.g + i0), g1 = ld_bf2(e.g + i1);
-        const float p0 = g0.x + a0 + 2.0f * o0 * q0, p1 = g0.y + a1 + 2.0f * o1 * q1;
-        const float p2 = g1.x + a0 + 2.0f * o2 * q0, p3 = g1.y + a1 + 2.0f * o3 * q1;
+        const float p0 = ok0 ? g0.x + a0 + 2.0f * o0 * q0 : g0.x;
+        const float p1 = ok0 ? g0.y + a1 + 2.0f * o1 * q1 : g0.y;
+        const float p2 = ok1 ? g1.x + a0 + 2.0f * o2 * q0 : g1.x;
+        const float p3 = ok1 ? g1.y + a1 + 2.0f * o3 * q1 : g1.y;
         st_bf2(e.out + i0, p0, p1);
         st_bf2(e.out + i1, p2, p3);
         *reinterpret_cast<float2*>(e.gp + i0) = make_float2(p0, p1);
@@ -256,6 +281,24 @@ __device__ __forceinline__ void mlp_gemm(const CUtensorMap* tm_a, const CUtensor
       st_bf2(e.out + i1, d2, d3);
       s0[0] = d0 + d2;
       s0[1] = d1 + d3;
+    } else if constexpr (EPI == kHOut) {
+      const float b0 = __ldg(e.bias + c), b1 = __ldg(e.bias + c + 1);
+      const float o0 = v0 + b0, o1 = v1 + b1, o2 = v2 + b0, o3 = v3 + b1;
+      *reinterpret_cast<float2*>(e.gp + i0) = make_float2(o0, o1);
+      *reinterpret_cast<float2*>(e.gp + i1) = make_float2(o2, o3);
+      // the warp's 16 rows, in a fixed order
+      const float q0 = rows_sum(o0 + o2), q1 = rows_sum(o1 + o3);
+      const float r0 = rows_sum(o0 * o0 + o2 * o2), r1 = rows_sum(o1 * o1 + o3 * o3);
+      if (lane < 4) {
+        float* pw = e.part + ((size_t)row0 / 16 + warp) * 2 * e.N + c;
+        *reinterpret_cast<float2*>(pw) = make_float2(q0, q1);
+        *reinterpret_cast<float2*>(pw + e.N) = make_float2(r0, r1);
+      }
+    } else if constexpr (EPI == kKV) {
+      const int ld = second ? e.N - e.split : e.split, cc = c - (second ? e.split : 0);
+      bf16* dst = second ? e.out2 : e.out;
+      st_bf2(dst + row * ld + cc, v0, v1);
+      st_bf2(dst + (row + 8) * ld + cc, v2, v3);
     } else {  // kDx
       const float* seb = e.se + (size_t)bidx * e.N;
       const float se0 = __ldg(seb + c), se1 = __ldg(seb + c + 1);
@@ -342,7 +385,10 @@ inline cudaError_t launch_gemm(GemmKernel kernel, const CUtensorMap& ta, const C
                                long long M, cudaStream_t st) {
   constexpr int smem = GemmSmem<BN, EPI, STAGES>::kTotal;
   static_assert(smem <= (int)kMaxSmem, "mlp_gemm: shared memory");
-  if (e.N % BN || e.K % 64 || M % kRows || e.rows_b % kRows) return cudaErrorInvalidValue;
+  if (e.N % BN || e.K % 64 || M % kRows || e.rows_b % kRows ||
+      ((EPI == kOut || EPI == kGrad) && (e.n_valid < 1 || e.n_valid > e.rows_b))) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
   CUtensorMap a = ta, b = tb, a2 = ta2, b2 = tb2;

@@ -34,27 +34,28 @@ __global__ void __launch_bounds__(kThreads)
 mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const float* __restrict__ be,
            const bf16* __restrict__ w1t, const float* __restrict__ b1,
            const bf16* __restrict__ w2t, const float* __restrict__ b2, bf16* __restrict__ out,
-           float* __restrict__ sums, int N, int C, int W, int chunk, int region0) {
+           float* __restrict__ sums, int N, int n_valid, int C, int W, int chunk, int region0) {
   extern __shared__ __align__(128) unsigned char smem[];
-  mlp_tile<ROWS>(x, se, be, w1t, b1, w2t, b2, out, sums, N, C, W, chunk, region0, blockIdx.y,
-                 blockIdx.x, smem);
+  mlp_tile<ROWS>(x, se, be, w1t, b1, w2t, b2, out, sums, N, n_valid, C, W, chunk, region0,
+                 blockIdx.y, blockIdx.x, smem);
 }
 
 }  // namespace
 
 extern "C" int mlp_wmma_launch(const void* x, const void* se, const void* be, const void* w1t,
                                const void* b1, const void* w2t, const void* b2, void* out,
-                               void* sums, int B, int N, int C, int W, int TN, void* stream) {
+                               void* sums, int B, int N, int C, int W, int TN, int n_valid,
+                               void* stream) {
   int chunk = 0;
   size_t region0 = 0;
   const size_t smem = mlp_smem_plan(TN, C, W, &chunk, &region0);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
+  if (smem == 0 || N % TN || n_valid < 1 || n_valid > N) return (int)cudaErrorInvalidValue;
   const auto kernel = TN == 64 ? mlp_kernel<4> : mlp_kernel<2>;
   cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(N / TN, B), kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const float*)se, (const float*)be, (const bf16*)w1t, (const float*)b1,
-      (const bf16*)w2t, (const float*)b2, (bf16*)out, (float*)sums, N, C, W, chunk,
+      (const bf16*)w2t, (const float*)b2, (bf16*)out, (float*)sums, N, n_valid, C, W, chunk,
       (int)region0);
   return (int)cudaGetLastError();
 }

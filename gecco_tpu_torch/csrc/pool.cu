@@ -35,6 +35,10 @@
 //      pool_ext.cu (pool.cuh's layout); the logits are computed twice;
 //   3. h0 = pooled @ Wo^T (pool.cuh's linear_nt_kernel).
 // The same kernels serve the flagship (C = 384) and the 8k width (C = 768).
+// A ragged N comes zero-padded to a multiple of 128 by the wrapper: the
+// statistics count the first n_valid points (the padding adds zero to the
+// sums) and the pool walks the tiles holding points, the rest of the last
+// masked out of the softmax.
 #include <cmath>
 
 #include "pool.cuh"
@@ -91,10 +95,10 @@ pool_layer_sums_kernel(const bf16* __restrict__ x, float* __restrict__ part, int
 // group), in a fixed order -> mean_c, inv_c [B, C].
 __global__ void __launch_bounds__(kThreads)
 pool_layer_stats_kernel(const float* __restrict__ part, float* __restrict__ mean,
-                        float* __restrict__ inv, int tiles, int N, int C, int G) {
+                        float* __restrict__ inv, int tiles, int n_valid, int C, int G) {
   __shared__ float sums[2][kThreads * 8];
   const int b = blockIdx.x, pg = C / G;
-  const float count = (float)N * (float)pg;
+  const float count = (float)n_valid * (float)pg;
   for (int c = threadIdx.x; c < C; c += kThreads) {
     float c1 = 0.0f, c2 = 0.0f;
     for (int t = 0; t < tiles; ++t) {
@@ -151,7 +155,7 @@ __global__ void __launch_bounds__(kThreads)
 pool_layer_kernel(const bf16* __restrict__ yin, const bf16* __restrict__ qf,
                   const bf16* __restrict__ kvw, bf16* __restrict__ pooled,
                   float* __restrict__ macc, float* __restrict__ sacc, float* __restrict__ pacc,
-                  int N, int C, int H, int I, int stage_w) {
+                  int N, int n_valid, int C, int H, int I, int stage_w) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = C / H, J = H * I;
   const PoolSmem L(C, I, D);
@@ -176,7 +180,9 @@ pool_layer_kernel(const bf16* __restrict__ yin, const bf16* __restrict__ qf,
   }
 
   // pass 1: the column max and sum of the logits, online across the tiles
-  for (int n0 = 0; n0 < N; n0 += kPoolTile) {
+  // holding points (the rows of the last from n_valid on are padding)
+  for (int n0 = 0; n0 < n_valid; n0 += kPoolTile) {
+    const int valid = n_valid - n0;
     stage(y, L.ldy, yin + ((size_t)b * N + n0) * C, C, kPoolTile, C);
     __syncthreads();
     gemm_to_smem<wmma::row_major, wmma::row_major>(y, L.ldy, qB, ldqB, s, L.lds, kPoolTile, I, C);
@@ -186,12 +192,14 @@ pool_layer_kernel(const bf16* __restrict__ yin, const bf16* __restrict__ qf,
     for (int i = threadIdx.x / 4; i < I; i += kThreads / 4) {
       const float mo = m[i];
       float tmax = -3.0e38f;
-      for (int r = threadIdx.x % 4; r < kPoolTile; r += 4) tmax = fmaxf(tmax, s[r * L.lds + i]);
+      for (int r = threadIdx.x % 4; r < kPoolTile && r < valid; r += 4) {
+        tmax = fmaxf(tmax, s[r * L.lds + i]);
+      }
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
       const float mn = fmaxf(mo, tmax);
       float sum = 0.0f;
-      for (int r = threadIdx.x % 4; r < kPoolTile; r += 4) {
+      for (int r = threadIdx.x % 4; r < kPoolTile && r < valid; r += 4) {
         sum += expf(fmaxf(s[r * L.lds + i] - mn, -80.0f));
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -204,8 +212,9 @@ pool_layer_kernel(const bf16* __restrict__ yin, const bf16* __restrict__ qf,
     __syncthreads();
   }
 
-  // pass 2: p = bf16(e / l) against the head's values
-  for (int n0 = 0; n0 < N; n0 += kPoolTile) {
+  // pass 2: p = bf16(e / l) against the head's values (0 on the padding)
+  for (int n0 = 0; n0 < n_valid; n0 += kPoolTile) {
+    const int valid = n_valid - n0;
     stage(y, L.ldy, yin + ((size_t)b * N + n0) * C, C, kPoolTile, C);
     __syncthreads();
     gemm_to_smem<wmma::row_major, wmma::row_major>(y, L.ldy, qB, ldqB, s, L.lds, kPoolTile, I, C);
@@ -213,7 +222,8 @@ pool_layer_kernel(const bf16* __restrict__ yin, const bf16* __restrict__ qf,
     __syncthreads();
     for (int t = threadIdx.x; t < kPoolTile * I; t += kThreads) {
       const int r = t / I, i = t % I;
-      p[r * L.lde + i] = __float2bfloat16(expf(fmaxf(s[r * L.lds + i] - m[i], -80.0f)) / l[i]);
+      p[r * L.lde + i] =
+          __float2bfloat16(r < valid ? expf(fmaxf(s[r * L.lds + i] - m[i], -80.0f)) / l[i] : 0.0f);
     }
     for (int t = threadIdx.x; t < kPoolTile * D; t += kThreads) {
       vb[(t / D) * L.ldvb + t % D] = __float2bfloat16(vt[(t / D) * L.ldv + t % D]);
@@ -251,10 +261,11 @@ extern "C" int pool_layer_launch(const void* x, const void* scale, const void* b
                                  const void* qf, const void* kvw, const void* wo, void* part,
                                  void* mean, void* inv, void* y, void* pooled, void* h0,
                                  void* macc, void* sacc, void* pacc, int B, int N, int C, int H,
-                                 int I, int G, void* stream) {
+                                 int I, int G, int n_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int D = C / H;
-  if (N % kPoolTile || C % 64 || C / 8 > kThreads || D % 16 || I % 16 || (B * I) % 64 ||
+  if (N % kPoolTile || n_valid < 1 || n_valid > N || C % 64 || C / 8 > kThreads || D % 16 ||
+      I % 16 || (B * I) % 64 ||
       (mean != nullptr && (G <= 0 || C % G))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -264,7 +275,7 @@ extern "C" int pool_layer_launch(const void* x, const void* scale, const void* b
                                                                          (float*)part, N, C);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     pool_layer_stats_kernel<<<B, kThreads, 0, st>>>((const float*)part, (float*)mean, (float*)inv,
-                                                    N / kPoolTile, N, C, G);
+                                                    N / kPoolTile, n_valid, C, G);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     pool_layer_norm_kernel<<<dim3(N / kPoolTile, B), kThreads, 0, st>>>(
         (const bf16*)x, (const float*)mean, (const float*)inv, (const float*)scale,
@@ -277,7 +288,7 @@ extern "C" int pool_layer_launch(const void* x, const void* scale, const void* b
   if ((err = set_smem((const void*)pool_layer_kernel, smem)) != cudaSuccess) return (int)err;
   pool_layer_kernel<<<dim3(H, B), kThreads, smem, st>>>(
       (const bf16*)(mean != nullptr ? y : x), (const bf16*)qf, (const bf16*)kvw, (bf16*)pooled,
-      (float*)macc, (float*)sacc, (float*)pacc, N, C, H, I, stage_w);
+      (float*)macc, (float*)sacc, (float*)pacc, N, n_valid, C, H, I, stage_w);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   linear_nt_kernel<<<dim3(C / 64, B * I / 64), kThreads, 0, st>>>(
       (const bf16*)pooled, (const bf16*)wo, (bf16*)h0, B * I, C, C);

@@ -38,6 +38,9 @@
 //      tile; the tile-0 blocks write dscale and dbias;
 //   4. dqf = sum_b y^T ds and dWv^T = sum_b y^T dv: backward.cuh's
 //      atb_kernel (fp32 atomics across the batch).
+// A ragged N comes zero-padded to a multiple of 128 by the wrapper: p is
+// zero on the points from n_valid on, so their ds, dv and dy are too, and
+// count is n_valid C/G.
 // The caller chains dqf to the inducers and Wk and transposes dWv^T
 // (plain PyTorch on [C, J] and [C, C]).
 #include <cmath>
@@ -104,8 +107,8 @@ pool_layer_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ mean
                       const bf16* __restrict__ dpool, bf16* __restrict__ ds_out,
                       bf16* __restrict__ dv_out,
                       float* __restrict__ dy_out, float* __restrict__ sdyxc,
-                      float* __restrict__ sdy, bf16* __restrict__ dx, int N, int C, int H, int I,
-                      int region0) {
+                      float* __restrict__ sdy, bf16* __restrict__ dx, int N, int n_valid, int C,
+                      int H, int I, int region0) {
   constexpr int TN = 16 * ROWS;
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = C / H, J = H * I;
@@ -141,7 +144,9 @@ pool_layer_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ mean
     for (int t = threadIdx.x; t < TN * I; t += kThreads) {
       const int r = t / I, i = t % I;
       const float z = s[r * lds + i] - mrow[j0 + i];
-      pb[r * ldp + i] = __float2bfloat16(expf(fmaxf(z, -80.0f)) / lrow[j0 + i]);
+      // p, and so ds and dv, is zero on the padding rows from n_valid on
+      pb[r * ldp + i] =
+          __float2bfloat16(n0 + r < n_valid ? expf(fmaxf(z, -80.0f)) / lrow[j0 + i] : 0.0f);
     }
     for (int t = threadIdx.x; t < TN * D; t += kThreads) {
       vb[(t / D) * ldvb + t % D] = __float2bfloat16(vt[(t / D) * ldv + t % D]);
@@ -204,11 +209,11 @@ pool_layer_bwd_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ d
                          const float* __restrict__ scale, const float* __restrict__ gmean,
                          const float* __restrict__ ginv, const float* __restrict__ sdyxc,
                          const float* __restrict__ sdy, bf16* __restrict__ dx,
-                         float* __restrict__ dscale, float* __restrict__ dbias, int N, int C,
-                         int G) {
+                         float* __restrict__ dscale, float* __restrict__ dbias, int N,
+                         int n_valid, int C, int G) {
   extern __shared__ float coef[];
   const int b = blockIdx.y, pg = C / G;
-  const float count = (float)N * (float)pg;
+  const float count = (float)n_valid * (float)pg;
   const size_t off = (size_t)b * C;
   for (int c = threadIdx.x; c < C; c += kThreads) {
     const int g0 = (c / pg) * pg;
@@ -251,11 +256,12 @@ extern "C" int pool_layer_bwd_launch(
     const void* ginv, const void* macc, const void* sacc, const void* pacc, void* dpool,
     void* tacc, void* ds, void* dv, void* dy, void* sdyxc, void* sdy, void* dx, void* dscale,
     void* dbias, void* dqf, void* dwvt, void* dwo, int B, int N, int C, int H, int I, int G,
-    void* stream) {
+    int n_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int J = H * I, D = C / H;
   const bool prenorm = mean != nullptr;
-  if (C % 64 || C > 768 || D % 16 || I % 16 || N % 64 || J % 64 || (prenorm && C % G)) {
+  if (C % 64 || C > 768 || D % 16 || I % 16 || N % 64 || J % 64 || (prenorm && C % G) ||
+      n_valid < 1 || n_valid > N) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err;
@@ -286,7 +292,8 @@ extern "C" int pool_layer_bwd_launch(
     kernel<<<dim3(N / TN, B), kThreads, smem, st>>>(
         (const bf16*)x, (const float*)mean, (const bf16*)y, (const bf16*)qf, (const bf16*)kvw,
         (const float*)macc, (const float*)sacc, (const float*)tacc, (const bf16*)dpool, (bf16*)ds,
-        (bf16*)dv, (float*)dy, (float*)sdyxc, (float*)sdy, (bf16*)dx, N, C, H, I, (int)region0);
+        (bf16*)dv, (float*)dy, (float*)sdyxc, (float*)sdy, (bf16*)dx, N, n_valid, C, H, I,
+        (int)region0);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   // 3. dx from the sums over all N
@@ -295,7 +302,7 @@ extern "C" int pool_layer_bwd_launch(
     pool_layer_bwd_dx_kernel<<<dim3(N / kDxTile, B), kThreads, smem, st>>>(
         (const bf16*)x, (const float*)dy, (const float*)mean, (const float*)inv,
         (const float*)scale, (const float*)gmean, (const float*)ginv, (const float*)sdyxc,
-        (const float*)sdy, (bf16*)dx, (float*)dscale, (float*)dbias, N, C, G);
+        (const float*)sdy, (bf16*)dx, (float*)dscale, (float*)dbias, N, n_valid, C, G);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   // 4. dqf = sum_b y_b^T bf16(ds_b) [C, J];  dWv^T = sum_b y_b^T bf16(dv_b) [C, C]

@@ -40,6 +40,9 @@
 // 3. pool_merge_kernel: per (b, j, d) the clamped rescale and sum over the
 //    chunks, pooled, and macc/sacc.
 // 4. linear_nt_kernel (pool.cuh): h0 = pooled @ Wo^T on the tensor cores.
+// A ragged N comes zero-padded to a multiple of 128 by the wrapper; the
+// points from n_valid on are masked out of the chunk's softmax, and a
+// chunk of padding alone adds exp(-80) * 0 to the merge.
 // A chunk is TM = 64 points, one m-block: two m-blocks a warpgroup (128
 // points, half the weight traffic and partials) ran faster on the H100 but
 // spilled at ptxas's 255 registers. The grid is B*N/64 x H/8 blocks: 2048
@@ -96,11 +99,16 @@ pool_fold_kernel(const bf16* __restrict__ ind2, const bf16* __restrict__ kvw,
   }
 }
 
+// kMask: the chunk's points may hold a ragged tail's padding (n_valid < N);
+// without it the masks fold away (they cost the pool forward ~10% at N
+// 2048 on the H100)
+template <bool kMask>
 __global__ void __launch_bounds__(kChunkThreads, 1)
 pool_chunk_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ se,
                   const float* __restrict__ be, float* __restrict__ part_m,
-                  float* __restrict__ part_l, float* __restrict__ part_p, int N, int C, int H) {
+                  float* __restrict__ part_l, float* __restrict__ part_p, int N, int n_valid,
+                  int C, int H) {
   constexpr int TM = kTM;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
@@ -170,6 +178,11 @@ pool_chunk_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
   __syncthreads();
 
   const int col = 2 * (lane % 4);  // first column of the thread's pairs
+  // whether the thread's rows r and r + 8 are points (not a ragged tail's
+  // padding): a padding row takes no part in the max, the sum or P_c, and a
+  // chunk of padding alone gives m_c = -inf, l_c = 0 and P_c = 0
+  const int pt = n0 + wi * 16 + lane / 4;
+  const bool ok0 = !kMask || pt < n_valid, ok1 = !kMask || pt + 8 < n_valid;
   for (int hh = 0; hh < 4; ++hh) {
     const int h = grp * kGroup + w * 4 + hh;
     // the logits s = y @ qf_h and v = y @ Wv_h^T, one K panel of each a stage
@@ -219,7 +232,8 @@ pool_chunk_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
     for (int g = 0; g < 8; ++g) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float m = fmaxf(s_acc[4 * g + e], s_acc[4 * g + 2 + e]);
+        float m = fmaxf(ok0 ? s_acc[4 * g + e] : -INFINITY,
+                        ok1 ? s_acc[4 * g + 2 + e] : -INFINITY);
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
@@ -239,8 +253,8 @@ pool_chunk_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float m = cm[2 * g + e];
-        const float e0 = expf(fmaxf(s_acc[4 * g + e] - m, -80.0f));
-        const float e1 = expf(fmaxf(s_acc[4 * g + 2 + e] - m, -80.0f));
+        const float e0 = ok0 ? expf(fmaxf(s_acc[4 * g + e] - m, -80.0f)) : 0.0f;
+        const float e1 = ok1 ? expf(fmaxf(s_acc[4 * g + 2 + e] - m, -80.0f)) : 0.0f;
         cl[2 * g + e] = e0 + e1;
         const int i = 8 * g + col + e;
         *reinterpret_cast<bf16*>(et + swz(i, r, kInd * 128)) = __float2bfloat16(e0);
@@ -326,13 +340,14 @@ pool_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ pa
 extern "C" int pool_ext_launch(const void* x, const void* se, const void* be, const void* ind2,
                                const void* kvw, const void* wo, void* qft, void* part_m,
                                void* part_l, void* part_p, void* pooled, void* h0, void* macc,
-                               void* sacc, int B, int N, int C, int H, int I, void* stream) {
+                               void* sacc, int B, int N, int C, int H, int I, int n_valid,
+                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int D = C / H, J = H * I;
   if (I != kInd || D != kHD || H % kGroup != 0 || C % 64 != 0 || C > 768) {
     return (int)cudaErrorInvalidValue;
   }
-  if (N % kTM != 0) return (int)cudaErrorInvalidValue;
+  if (N % kTM != 0 || n_valid < 1 || n_valid > N) return (int)cudaErrorInvalidValue;
   // 1/sqrt(D) rounded to fp32, as the plain fold's scalar
   const float scale = (float)(1.0 / sqrt((double)D));
   pool_fold_kernel<<<dim3(C / 64, H), kThreads, 0, st>>>((const bf16*)ind2, (const bf16*)kvw,
@@ -347,11 +362,12 @@ extern "C" int pool_ext_launch(const void* x, const void* se, const void* be, co
     return (int)cudaErrorInvalidValue;
   }
   const ChunkSmem L(C);
-  err = set_smem((const void*)pool_chunk_kernel, L.total);
+  const auto chunk = n_valid < N ? pool_chunk_kernel<true> : pool_chunk_kernel<false>;
+  err = set_smem((const void*)chunk, L.total);
   if (err != cudaSuccess) return (int)err;
-  pool_chunk_kernel<<<dim3(B * N / kTM, H / kGroup), kChunkThreads, L.total, st>>>(
+  chunk<<<dim3(B * N / kTM, H / kGroup), kChunkThreads, L.total, st>>>(
       tm_x, tm_q, tm_w, (const float*)se, (const float*)be, (float*)part_m, (float*)part_l,
-      (float*)part_p, N, C, H);
+      (float*)part_p, N, n_valid, C, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long elems = (long long)B * J * kHD;

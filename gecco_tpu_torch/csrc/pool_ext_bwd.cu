@@ -20,6 +20,10 @@
 //   dqf = sum over b and the points of y^T bf16(ds)          [C, J]
 // The caller chains dqf to the inducers and Wk (plain PyTorch).
 //
+// A ragged N comes zero-padded to a multiple of 128 by the wrapper: e and
+// ds are zero on the points from n_valid on, so the padding adds nothing to
+// eTy, dse, dbe or dqf.
+//
 // Bound on the H100: tensor-core operations (six [N, C] x [C, J]-sized
 // products per batch element, hundreds of FLOP per byte moved).
 //
@@ -94,15 +98,20 @@ struct EtySmem {
   }
 };
 
+// kMask (here and in pool_bwd_dy_kernel): the tiles may hold a ragged
+// tail's padding (n_valid < N); without it the masks fold away (they cost
+// the backward ~17% at N 2048 on the H100)
+template <bool kMask>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 pool_bwd_ety_kernel(const __grid_constant__ CUtensorMap tm_y,
                     const __grid_constant__ CUtensorMap tm_q,
-                    const float* __restrict__ macc, bf16* __restrict__ ety, int N, int C, int J,
-                    int stages) {
+                    const float* __restrict__ macc, bf16* __restrict__ ety, int N, int n_valid,
+                    int C, int J, int stages) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const EtySmem L(C, stages);
-  const int KP = C / 64, T = N / kTile, tile_bytes = KP * kPanel;
+  // the tiles holding points (a ragged tail's padding tiles add nothing)
+  const int KP = C / 64, T = (n_valid + kTile - 1) / kTile, tile_bytes = KP * kPanel;
   const int h = blockIdx.x, b = blockIdx.y, cs = blockIdx.z;
   unsigned char* qs = smem + L.q;
   unsigned char* et = smem + L.et;
@@ -163,6 +172,9 @@ pool_bwd_ety_kernel(const __grid_constant__ CUtensorMap tm_y,
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sacc);
+      // e is zero on the padding rows from n_valid on
+      const bool ok0 = !kMask || t * kTile + r < n_valid;
+      const bool ok1 = !kMask || t * kTile + r + 8 < n_valid;
 #pragma unroll
       for (int g = 0; g < 8; ++g) {
 #pragma unroll
@@ -170,9 +182,9 @@ pool_bwd_ety_kernel(const __grid_constant__ CUtensorMap tm_y,
           const int i = 8 * g + col + e;
           const float m = mcol[2 * g + e];
           *reinterpret_cast<bf16*>(et + swz(i, r, kPanel)) =
-              __float2bfloat16(expf(fmaxf(sacc[4 * g + e] - m, -80.0f)));
+              __float2bfloat16(ok0 ? expf(fmaxf(sacc[4 * g + e] - m, -80.0f)) : 0.0f);
           *reinterpret_cast<bf16*>(et + swz(i, r + 8, kPanel)) =
-              __float2bfloat16(expf(fmaxf(sacc[4 * g + 2 + e] - m, -80.0f)));
+              __float2bfloat16(ok1 ? expf(fmaxf(sacc[4 * g + 2 + e] - m, -80.0f)) : 0.0f);
         }
       }
       fence_async_smem();
@@ -223,7 +235,7 @@ struct DySmem {
   }
 };
 
-template <int JC>
+template <int JC, bool kMask>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 pool_bwd_dy_kernel(const __grid_constant__ CUtensorMap tm_y,
                    const __grid_constant__ CUtensorMap tm_q,
@@ -231,7 +243,7 @@ pool_bwd_dy_kernel(const __grid_constant__ CUtensorMap tm_y,
                    const float* __restrict__ se, const float* __restrict__ macc,
                    const float* __restrict__ tacc, bf16* __restrict__ ds_out,
                    bf16* __restrict__ dx, float* __restrict__ dse, float* __restrict__ dbe, int N,
-                   int C, int J) {
+                   int n_valid, int C, int J) {
   constexpr int JH = JC / 2;    // logit columns per warpgroup
   constexpr int CP = JC * 128;  // bytes of one 64-column panel of a chunk
   extern __shared__ unsigned char smem_raw[];
@@ -302,8 +314,10 @@ pool_bwd_dy_kernel(const __grid_constant__ CUtensorMap tm_y,
       for (int q = 0; q < 4; ++q) {
         const int e = q % 2;
         const float z = sa[4 * g + q] - __ldg(mb + jj + e);
-        ev[q] = expf(fmaxf(z, -80.0f));
-        dv[q] = z > -80.0f ? ev[q] * (pa[4 * g + q] - __ldg(tb + jj + e)) : 0.0f;
+        // e and ds are zero on the padding rows from n_valid on
+        const bool ok = !kMask || tile * kTile + r + 8 * (q / 2) < n_valid;
+        ev[q] = ok ? expf(fmaxf(z, -80.0f)) : 0.0f;
+        dv[q] = ok && z > -80.0f ? ev[q] * (pa[4 * g + q] - __ldg(tb + jj + e)) : 0.0f;
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -391,11 +405,11 @@ extern "C" int pool_ext_bwd_launch(const void* x, const void* se, const void* be
                                    const void* macc, const void* sacc, void* y, void* ety,
                                    void* w3, void* tacc, void* ds, void* dx, void* dse, void* dbe,
                                    void* dqf_part, void* dqf, void* dwv, void* dwo, int B, int N,
-                                   int C, int H, int I, int splits, void* stream) {
+                                   int C, int H, int I, int splits, int n_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int J = H * I, D = C / H, KP = C / 64;
   if ((C != 384 && C != 768) || I != kInd || D % 16 || D > 64 || N % kTile || J % 128 ||
-      splits < 1) {
+      splits < 1 || n_valid < 1 || n_valid > N) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err;
@@ -416,9 +430,10 @@ extern "C" int pool_ext_bwd_launch(const void* x, const void* se, const void* be
     if (stages > 3) stages = 3;
     if (stages < 1) return (int)cudaErrorInvalidValue;
     const EtySmem L(C, stages);
-    if ((err = set_smem((const void*)pool_bwd_ety_kernel, L.total)) != cudaSuccess) return (int)err;
-    pool_bwd_ety_kernel<<<dim3(H, B, C / kCB), kBwdThreads, L.total, st>>>(
-        tm_y, tm_q, (const float*)macc, (bf16*)ety, N, C, J, stages);
+    const auto ety_kernel = n_valid < N ? pool_bwd_ety_kernel<true> : pool_bwd_ety_kernel<false>;
+    if ((err = set_smem((const void*)ety_kernel, L.total)) != cudaSuccess) return (int)err;
+    ety_kernel<<<dim3(H, B, C / kCB), kBwdThreads, L.total, st>>>(
+        tm_y, tm_q, (const float*)macc, (bf16*)ety, N, n_valid, C, J, stages);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   // fold (no W2: pass 1 reads W3 for both)
@@ -436,11 +451,14 @@ extern "C" int pool_ext_bwd_launch(const void* x, const void* se, const void* be
       return (int)cudaErrorInvalidValue;
     }
     const DySmem L(C, JC);
-    const auto kernel = JC == 64 ? pool_bwd_dy_kernel<64> : pool_bwd_dy_kernel<32>;
+    const bool mask = n_valid < N;
+    const auto kernel = JC == 64
+                            ? (mask ? pool_bwd_dy_kernel<64, true> : pool_bwd_dy_kernel<64, false>)
+                            : (mask ? pool_bwd_dy_kernel<32, true> : pool_bwd_dy_kernel<32, false>);
     if ((err = set_smem((const void*)kernel, L.total)) != cudaSuccess) return (int)err;
     kernel<<<dim3(N / kTile, B, C / kCB), kBwdThreads, L.total, st>>>(
         tm_y, tm_qc, tm_w, (const bf16*)x, (const float*)se, (const float*)macc,
-        (const float*)tacc, (bf16*)ds, (bf16*)dx, (float*)dse, (float*)dbe, N, C, J);
+        (const float*)tacc, (bf16*)ds, (bf16*)dx, (float*)dse, (float*)dbe, N, n_valid, C, J);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   // dqf: split partials, then their sum in split order

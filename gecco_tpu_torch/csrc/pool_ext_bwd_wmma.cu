@@ -42,7 +42,8 @@ constexpr int kJC = 64;  // columns of J per chunk
 __global__ void __launch_bounds__(kThreads)
 pool_bwd_e_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
                   const float* __restrict__ be, const bf16* __restrict__ qft,
-                  const float* __restrict__ macc, bf16* __restrict__ e_out, int N, int C, int J) {
+                  const float* __restrict__ macc, bf16* __restrict__ e_out, int N, int n_valid,
+                  int C, int J) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldy = C + kPad;
   constexpr int lds = kJC + kPadF;
@@ -60,8 +61,9 @@ pool_bwd_e_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
     __syncthreads();
     for (int t = threadIdx.x; t < kTN * kJC; t += kThreads) {
       const int r = t / kJC, q = t % kJC;
-      e_out[(row0 + r) * J + j0 + q] =
-          __float2bfloat16(expf(fmaxf(s[r * lds + q] - mb[j0 + q], -80.0f)));
+      // zero on the padding rows from n_valid on
+      e_out[(row0 + r) * J + j0 + q] = __float2bfloat16(
+          n0 + r < n_valid ? expf(fmaxf(s[r * lds + q] - mb[j0 + q], -80.0f)) : 0.0f);
     }
     __syncthreads();  // s is rewritten by the next chunk
   }
@@ -88,7 +90,7 @@ pool_bwd_dy_wmma_kernel(const bf16* __restrict__ x, const float* __restrict__ se
                         const bf16* __restrict__ w3, const float* __restrict__ macc,
                         const float* __restrict__ tacc, bf16* __restrict__ ds_out,
                         bf16* __restrict__ dx, float* __restrict__ dse, float* __restrict__ dbe,
-                        int N, int C, int J) {
+                        int N, int n_valid, int C, int J) {
   constexpr int ROWS = kTN / 16;
   constexpr int lds = kJC + kPadF, ldp = kJC + kPad;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -119,8 +121,11 @@ pool_bwd_dy_wmma_kernel(const bf16* __restrict__ x, const float* __restrict__ se
     for (int t = threadIdx.x; t < kTN * kJC; t += kThreads) {
       const int r = t / kJC, q = t % kJC;
       const float z = s[r * lds + q] - mb[j0 + q];
-      const float e = expf(fmaxf(z, -80.0f));
-      const bf16 d = __float2bfloat16(z > -80.0f ? e * (pa[r * lds + q] - tb[j0 + q]) : 0.0f);
+      // e and ds are zero on the padding rows from n_valid on
+      const bool ok = n0 + r < n_valid;
+      const float e = ok ? expf(fmaxf(z, -80.0f)) : 0.0f;
+      const bf16 d =
+          __float2bfloat16(ok && z > -80.0f ? e * (pa[r * lds + q] - tb[j0 + q]) : 0.0f);
       eb[r * ldp + q] = __float2bfloat16(e);
       dsb[r * ldp + q] = d;
       ds_out[(row0 + r) * J + j0 + q] = d;
@@ -145,10 +150,11 @@ extern "C" int pool_ext_bwd_wmma_launch(const void* x, const void* se, const voi
                                         void* e, void* etyt, void* ety, void* w3, void* tacc,
                                         void* ds, void* dx, void* dse, void* dbe, void* dqf,
                                         void* dwv, void* dwo, int B, int N, int C, int H, int I,
-                                        void* stream) {
+                                        int n_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int J = H * I, D = C / H;
-  if (C % 128 || C > 768 || I % 16 || D % 16 || J % kJC || N % 64) {
+  if (C % 128 || C > 768 || I % 16 || D % 16 || J % kJC || N % 64 || n_valid < 1 ||
+      n_valid > N) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err;
@@ -158,7 +164,7 @@ extern "C" int pool_ext_bwd_wmma_launch(const void* x, const void* se, const voi
     if ((err = set_smem((const void*)pool_bwd_e_kernel, smem)) != cudaSuccess) return (int)err;
     pool_bwd_e_kernel<<<dim3(N / kTN, B), kThreads, smem, st>>>(
         (const bf16*)x, (const float*)se, (const float*)be, (const bf16*)qft, (const float*)macc,
-        (bf16*)e, N, C, J);
+        (bf16*)e, N, n_valid, C, J);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   // 2-3. eTy = bf16((y^T bf16(e))^T)
@@ -196,7 +202,7 @@ extern "C" int pool_ext_bwd_wmma_launch(const void* x, const void* se, const voi
     kernel<<<dim3(N / kTN, B), kThreads, smem, st>>>(
         (const bf16*)x, (const float*)se, (const float*)be, (const bf16*)qft, (const bf16*)w3,
         (const float*)macc, (const float*)tacc, (bf16*)ds, (bf16*)dx, (float*)dse, (float*)dbe, N,
-        C, J);
+        n_valid, C, J);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   // 6. dqf = sum over the batch of y_b^T bf16(ds_b) [C, J]

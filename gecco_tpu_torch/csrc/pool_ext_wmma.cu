@@ -44,8 +44,8 @@ namespace {
 __global__ void __launch_bounds__(kThreads)
 pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const float* __restrict__ be,
             const bf16* __restrict__ qf, const bf16* __restrict__ kvw, bf16* __restrict__ pooled,
-            float* __restrict__ macc, float* __restrict__ sacc, int N, int C, int H, int I,
-            int stage_w) {
+            float* __restrict__ macc, float* __restrict__ sacc, int N, int n_valid, int C, int H,
+            int I, int stage_w) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = C / H, J = H * I;
   const PoolSmem L(C, I, D);
@@ -70,7 +70,10 @@ pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const floa
     l[t] = 0.0f;
   }
 
-  for (int n0 = 0; n0 < N; n0 += kPoolTile) {
+  // the tiles holding points; the rows of the last from n_valid on (a
+  // ragged tail's padding) take no part in the max, the sum or P
+  for (int n0 = 0; n0 < n_valid; n0 += kPoolTile) {
+    const int valid = n_valid - n0;
     load_prenorm(y, L.ldy, x + ((size_t)b * N + n0) * C, se + (size_t)b * C, be + (size_t)b * C,
                  kPoolTile, C);
     __syncthreads();
@@ -80,7 +83,9 @@ pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const floa
     // column max over the tile: 4 lanes per column, shuffle-reduced
     for (int i = threadIdx.x / 4; i < I; i += kThreads / 4) {
       float tmax = -3.0e38f;
-      for (int r = threadIdx.x % 4; r < kPoolTile; r += 4) tmax = fmaxf(tmax, s[r * L.lds + i]);
+      for (int r = threadIdx.x % 4; r < kPoolTile && r < valid; r += 4) {
+        tmax = fmaxf(tmax, s[r * L.lds + i]);
+      }
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
       if (threadIdx.x % 4 == 0) {
@@ -95,7 +100,7 @@ pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const floa
     __syncthreads();
     for (int t = threadIdx.x; t < kPoolTile * I; t += kThreads) {
       const int r = t / I, i = t % I;
-      const float ev = expf(fmaxf(s[r * L.lds + i] - m[i], -80.0f));
+      const float ev = r < valid ? expf(fmaxf(s[r * L.lds + i] - m[i], -80.0f)) : 0.0f;
       s[r * L.lds + i] = ev;
       e[r * L.lde + i] = __float2bfloat16(ev);
     }
@@ -135,8 +140,9 @@ pool_kernel(const bf16* __restrict__ x, const float* __restrict__ se, const floa
 extern "C" int pool_ext_wmma_launch(const void* x, const void* se, const void* be, const void* qf,
                                     const void* kvw, const void* wo, void* pooled, void* h0,
                                     void* macc, void* sacc, int B, int N, int C, int H, int I,
-                                    void* stream) {
+                                    int n_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (N % kPoolTile || n_valid < 1 || n_valid > N) return (int)cudaErrorInvalidValue;
   const PoolSmem L(C, I, C / H);
   const int stage_w = L.total <= kMaxSmem;
   const size_t smem = stage_w ? L.total : L.total_unstaged;
@@ -144,7 +150,7 @@ extern "C" int pool_ext_wmma_launch(const void* x, const void* se, const void* b
   if (err != cudaSuccess) return (int)err;
   pool_kernel<<<dim3(H, B), kThreads, smem, st>>>(
       (const bf16*)x, (const float*)se, (const float*)be, (const bf16*)qf, (const bf16*)kvw,
-      (bf16*)pooled, (float*)macc, (float*)sacc, N, C, H, I, stage_w);
+      (bf16*)pooled, (float*)macc, (float*)sacc, N, n_valid, C, H, I, stage_w);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   linear_nt_kernel<<<dim3(C / 64, B * I / 64), kThreads, 0, st>>>(

@@ -38,7 +38,9 @@
 //    processing gives every head block its own max by construction. The
 //    epilogue stages the fp32 output in shared memory: o = x + attn, out =
 //    bf16(o), and the channel sums by one fp32 atomic per column and block
-//    (as csrc/common.cuh's residual_epilogue).
+//    (as csrc/common.cuh's residual_epilogue), over the points before
+//    n_valid: a ragged N comes zero-padded to a multiple of 128 by the
+//    wrapper, and the padding rows stay out of the sums.
 // CB is C at C <= 384 (the flagship: 2048 blocks at B 64, N 2048) and 192
 // at C = 768 (the 8k width: 4 column blocks, each forming the logits again).
 // The megakernel (csrc/unpool_mlp.cu) keeps unpool.cuh's WMMA device code.
@@ -231,7 +233,7 @@ __global__ void __launch_bounds__(384, 1)
 unpool_tile_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ x,
                    const float* __restrict__ brow, bf16* __restrict__ out,
-                   float* __restrict__ sums, int N, int C, int H, int residual) {
+                   float* __restrict__ sums, int N, int n_valid, int C, int H, int residual) {
   constexpr int CB = 2 * NW;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
@@ -326,6 +328,8 @@ unpool_tile_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_consta
           make_float2(o_acc[4 * g + 2], o_acc[4 * g + 3]);
     }
     named_sync(1, 256);
+    // rows from n_valid on (a ragged tail's padding) stay out of the sums
+    const int valid = n_valid - row0 % N;
     for (int c = threadIdx.x; c < CB; c += 256) {
       float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll 16
@@ -333,8 +337,10 @@ unpool_tile_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_consta
         const size_t e = (size_t)(row0 + r) * C + cbase + c;
         const float o = (residual ? __bfloat162float(x[e]) : 0.0f) + obuf[r * ldo + c];
         out[e] = __float2bfloat16(o);
-        s1 += o;
-        s2 += o * o;
+        if (r < valid) {
+          s1 += o;
+          s2 += o * o;
+        }
       }
       atomicAdd(sums + (size_t)b * 2 * C + cbase + c, s1);
       atomicAdd(sums + (size_t)b * 2 * C + C + cbase + c, s2);
@@ -347,10 +353,12 @@ unpool_tile_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_consta
 extern "C" int unpool_launch(const void* x, const void* se, const void* be, const void* k,
                              const void* v, const void* wq, const void* wo, void* bq, void* kft,
                              void* vft, void* brow, void* out, void* sums, int B, int N, int C,
-                             int H, int I, int residual, int prenorm, void* stream) {
+                             int H, int I, int residual, int prenorm, int n_valid,
+                             void* stream) {
   const int J = H * I, D = C / H;
   const int CB = C <= 384 ? C : 192;
-  if (I != kInd || N % kTile != 0 || H % 2 != 0 || D % 16 != 0 || D > 64 || C % CB != 0 ||
+  if (I != kInd || N % kTile != 0 || n_valid < 1 || n_valid > N || H % 2 != 0 || D % 16 != 0 ||
+      D > 64 || C % CB != 0 ||
       (CB != 384 && CB != 192)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -380,7 +388,7 @@ extern "C" int unpool_launch(const void* x, const void* se, const void* be, cons
   err = set_smem((const void*)kernel, L.total);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(B * N / kTile, C / CB), 384, L.total, st>>>(
-      tm_x, tm_k, tm_v, (const bf16*)x, (const float*)brow, (bf16*)out, (float*)sums, N, C, H,
-      residual);
+      tm_x, tm_k, tm_v, (const bf16*)x, (const float*)brow, (bf16*)out, (float*)sums, N, n_valid,
+      C, H, residual);
   return (int)cudaGetLastError();
 }

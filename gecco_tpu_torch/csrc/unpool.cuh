@@ -88,15 +88,15 @@ inline size_t unpool_smem_plan(int TN, int C, int I, int* dbl_out, size_t* regio
 
 // One point tile (rows tile * TN ...) of batch element b: logits, per-head
 // softmax, p @ vf, the residual (where ``residual``), out and the channel
-// sums.
+// sums over the rows before n_valid (the rest are a ragged tail's padding).
 template <int ROWS>
 __device__ __forceinline__ void unpool_tile(const bf16* __restrict__ x,
                                             const bf16* __restrict__ kft,
                                             const float* __restrict__ brow,
                                             const bf16* __restrict__ vf, bf16* __restrict__ out,
-                                            float* __restrict__ sums, int N, int C, int H, int I,
-                                            int dbl, int region0, int b, int tile,
-                                            bool residual, unsigned char* smem) {
+                                            float* __restrict__ sums, int N, int n_valid,
+                                            int C, int H, int I, int dbl, int region0, int b,
+                                            int tile, bool residual, unsigned char* smem) {
   constexpr int TN = 16 * ROWS, COLS = kMaxFrags / ROWS;
   const int ldx = C + kPad, lds = I + kPadF, ldp = I + kPad, ldo = C + kPadF;
   bf16* xs = reinterpret_cast<bf16*>(smem);                // [TN, C]
@@ -167,7 +167,7 @@ __device__ __forceinline__ void unpool_tile(const bf16* __restrict__ x,
   acc_store(acc, obuf, ldo, C);
   __syncthreads();
   residual_epilogue(residual ? x + base : nullptr, obuf, ldo, nullptr, out + base,
-                    sums + (size_t)b * 2 * C, TN, C);
+                    sums + (size_t)b * 2 * C, TN, C, n_valid - tile * TN);
 }
 
 }  // namespace gecco

@@ -14,7 +14,10 @@
 //   dp = bf16(d_attn) @ vf^T;  ds = p (dp - blocksum(dp p)) act
 //   dy = bf16(ds) @ kft;  dx = dy * se + d_attn;  dse += sum dy x, dbe += sum dy
 //   dkf[b] = y^T bf16(ds) [C, J];  dvf[b] = bf16(p)^T bf16(d_attn) [J, C]
-// The caller chains dkf/dvf to dk, dv, dWq and dWo (plain PyTorch).
+// The caller chains dkf/dvf to dk, dv, dWq and dWo (plain PyTorch). A
+// ragged N comes zero-padded (x and g) to a multiple of 128: the sums'
+// cotangent reaches only the first n_valid points of an element, so the
+// padding's d_attn, ds and dy are zero and add nothing to dse, dbe, dkf, dvf.
 //
 // Bound on the H100: tensor-core operations (six [N, C] x [C, J]-sized
 // products per batch element, J = 512 FLOP per byte of the stream at the
@@ -259,7 +262,8 @@ unpool_bwd_rows_kernel(const __grid_constant__ CUtensorMap tm_a,
                        const bf16* __restrict__ g, const float* __restrict__ gsums,
                        const float* __restrict__ se, float* __restrict__ da32,
                        bf16* __restrict__ da, bf16* __restrict__ dx, float* __restrict__ dse,
-                       float* __restrict__ dbe, int N, int C, int H, int residual, int items) {
+                       float* __restrict__ dbe, int N, int n_valid, int C, int H, int residual,
+                       int items) {
   constexpr int CB = 2 * NW;
   constexpr int kStage = (1 + CB / 64) * kPanel;
   extern __shared__ unsigned char smem_raw[];
@@ -319,6 +323,9 @@ unpool_bwd_rows_kernel(const __grid_constant__ CUtensorMap tm_a,
     if constexpr (MODE == 0) {
       const float* gs1 = gsums + (size_t)b * 2 * C;
       const float* gs2 = gs1 + C;
+      // the sums' cotangent reaches the first n_valid points only (the rest
+      // are a ragged tail's padding, g zero there: d_attn stays zero)
+      const int pt = row0 - b * N + r;
 #pragma unroll
       for (int q = 0; q < NW / 8; ++q) {
         const int c = cb0 + 8 * q + col;
@@ -326,6 +333,7 @@ unpool_bwd_rows_kernel(const __grid_constant__ CUtensorMap tm_a,
         const float2 g2 = *reinterpret_cast<const float2*>(gs2 + c);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
+          const bool on = pt + 8 * half < n_valid;
           const size_t e = (half ? e1 : e0) + c;
           float a0 = acc[4 * q + 2 * half], a1 = acc[4 * q + 2 * half + 1];
           if (residual) {
@@ -334,8 +342,8 @@ unpool_bwd_rows_kernel(const __grid_constant__ CUtensorMap tm_a,
             a1 = xv.y + a1;
           }
           const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g + e));
-          const float d0 = gv.x + g1.x + 2.0f * a0 * g2.x;
-          const float d1 = gv.y + g1.y + 2.0f * a1 * g2.y;
+          const float d0 = on ? gv.x + g1.x + 2.0f * a0 * g2.x : gv.x;
+          const float d1 = on ? gv.y + g1.y + 2.0f * a1 * g2.y : gv.y;
           *reinterpret_cast<__nv_bfloat162*>(da + e) = __floats2bfloat162_rn(d0, d1);
           if (residual) *reinterpret_cast<float2*>(da32 + e) = make_float2(d0, d1);
         }
@@ -417,8 +425,8 @@ int persistent_blocks(const void* kernel, size_t smem, int items) {
 template <int MODE>
 cudaError_t launch_rows(const CUtensorMap& tm_a, const CUtensorMap& tm_m, const bf16* x,
                         const bf16* g, const float* gsums, const float* se, float* da32, bf16* da,
-                        bf16* dx, float* dse, float* dbe, int B, int N, int C, int H, int residual,
-                        cudaStream_t st) {
+                        bf16* dx, float* dse, float* dbe, int B, int N, int n_valid, int C, int H,
+                        int residual, cudaStream_t st) {
   const int CB = C <= 384 ? C : 384;
   const int stage_bytes = (1 + CB / 64) * kPanel;
   const int red = MODE == 1 ? 2 * 2 * 4 * (CB / 2) * 4 : 0;  // [2 wg][2][4 warps][NW] fp32
@@ -430,7 +438,7 @@ cudaError_t launch_rows(const CUtensorMap& tm_a, const CUtensorMap& tm_m, const 
   if (err != cudaSuccess) return err;
   const int items = B * N / kTile * (C / CB);
   kernel<<<persistent_blocks((const void*)kernel, smem, items), kBwdThreads, smem, st>>>(
-      tm_a, tm_m, x, g, gsums, se, da32, da, dx, dse, dbe, N, C, H, residual, items);
+      tm_a, tm_m, x, g, gsums, se, da32, da, dx, dse, dbe, N, n_valid, C, H, residual, items);
   return cudaGetLastError();
 }
 
@@ -455,11 +463,12 @@ extern "C" int unpool_bwd_launch(const void* x, const void* se, const void* be, 
                                  const void* gsums, void* y, void* kft, void* vf, void* p,
                                  void* ds, void* da, void* da32, void* dx, void* dse, void* dbe,
                                  void* dkf, void* dvf, void* wpart, int B, int N, int C, int H,
-                                 int I, int residual, int prenorm, int splits, void* stream) {
+                                 int I, int residual, int prenorm, int splits, int n_valid,
+                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int J = H * I, D = C / H;
   if (I != kInd || H % 2 || C % 128 || (C > 384 && C % 384) || D % 16 || N % kTile ||
-      splits < 1) {
+      splits < 1 || n_valid < 1 || n_valid > N) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = launch_unpool_bwd_fold((const bf16*)k, (const bf16*)v, (const bf16*)wq,
@@ -488,15 +497,15 @@ extern "C" int unpool_bwd_launch(const void* x, const void* se, const void* be, 
   err = launch_heads<0>(tm_y, tm_k4, tm_da, tm_v4, (bf16*)p, B, N, C, H, st);
   if (err != cudaSuccess) return (int)err;
   err = launch_rows<0>(tm_p, tm_v, (const bf16*)x, (const bf16*)g, (const float*)gsums, se_p,
-                       (float*)da32, (bf16*)da, (bf16*)dx, (float*)dse, (float*)dbe, B, N, C, H,
-                       residual, st);
+                       (float*)da32, (bf16*)da, (bf16*)dx, (float*)dse, (float*)dbe, B, N, n_valid,
+                       C, H, residual, st);
   if (err != cudaSuccess) return (int)err;
   // ds, then dy into dx, dse, dbe
   err = launch_heads<1>(tm_y, tm_k4, tm_da, tm_v4, (bf16*)ds, B, N, C, H, st);
   if (err != cudaSuccess) return (int)err;
   err = launch_rows<1>(tm_ds, tm_k, (const bf16*)x, (const bf16*)g, (const float*)gsums, se_p,
-                       (float*)da32, (bf16*)da, (bf16*)dx, (float*)dse, (float*)dbe, B, N, C, H,
-                       residual, st);
+                       (float*)da32, (bf16*)da, (bf16*)dx, (float*)dse, (float*)dbe, B, N, n_valid,
+                       C, H, residual, st);
   if (err != cudaSuccess) return (int)err;
   // dkf[b] = y_b^T bf16(ds_b) [C, J];  dvf[b] = bf16(p_b)^T bf16(d_attn_b) [J, C]
   // laid out per head as the chain to the weights reads them: dkf as

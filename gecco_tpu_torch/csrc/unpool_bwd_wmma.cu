@@ -95,8 +95,8 @@ unpool_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
                   const bf16* __restrict__ vf, const bf16* __restrict__ g,
                   const float* __restrict__ gsums, bf16* __restrict__ p_out,
                   bf16* __restrict__ ds_out, bf16* __restrict__ da_out, bf16* __restrict__ dx,
-                  float* __restrict__ dse, float* __restrict__ dbe, int N, int C, int H, int I,
-                  int residual) {
+                  float* __restrict__ dse, float* __restrict__ dbe, int N, int n_valid, int C,
+                  int H, int I, int residual) {
   constexpr int TN = 16 * ROWS;
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldy = C + kPad, ldf = C + kPadF, lds = I + kPadF, ldp = I + kPad;
@@ -133,10 +133,13 @@ unpool_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
   __syncthreads();
   const float* gs1 = gsums + (size_t)b * 2 * C;
   const float* gs2 = gs1 + C;
+  // the sums' cotangent reaches the first n_valid points only (the rest are
+  // a ragged tail's zero padding)
   for (int t = threadIdx.x; t < TN * C; t += kThreads) {
     const int r = t / C, c = t % C;
     const float attn = (residual ? __bfloat162float(x[base + t]) : 0.0f) + da[r * ldf + c];
-    const float d = __bfloat162float(g[base + t]) + gs1[c] + 2.0f * attn * gs2[c];
+    const float gv = __bfloat162float(g[base + t]);
+    const float d = n0 + r < n_valid ? gv + gs1[c] + 2.0f * attn * gs2[c] : gv;
     const bf16 db = __float2bfloat16(d);
     da[r * ldf + c] = d;
     dab[r * ldy + c] = db;
@@ -176,10 +179,12 @@ extern "C" int unpool_bwd_wmma_launch(const void* x, const void* se, const void*
                                       const void* wo, const void* g, const void* gsums, void* kft,
                                       void* vf, void* p, void* ds, void* da, void* dx, void* dse,
                                       void* dbe, void* dkf, void* dvf, int B, int N, int C, int H,
-                                      int I, int residual, int prenorm, void* stream) {
+                                      int I, int residual, int prenorm, int n_valid,
+                                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int J = H * I, D = C / H;
-  if (C % 128 || C > 768 || I > 64 || I % 16 || D % 16 || N % 64 || J % 64) {
+  if (C % 128 || C > 768 || I > 64 || I % 16 || D % 16 || N % 64 || J % 64 || n_valid < 1 ||
+      n_valid > N) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = launch_unpool_bwd_fold((const bf16*)k, (const bf16*)v, (const bf16*)wq,
@@ -205,7 +210,7 @@ extern "C" int unpool_bwd_wmma_launch(const void* x, const void* se, const void*
   kernel<<<dim3(N / TN, B), kThreads, smem, st>>>(
       (const bf16*)x, se_p, be_p, (const bf16*)kft, (const bf16*)vf, (const bf16*)g,
       (const float*)gsums, (bf16*)p, (bf16*)ds, (bf16*)da, (bf16*)dx, (float*)dse, (float*)dbe, N,
-      C, H, I, residual);
+      n_valid, C, H, I, residual);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // dkf[b] = y_b^T bf16(ds_b) [C, J];  dvf[b] = bf16(p_b)^T bf16(d_attn_b) [J, C]

@@ -89,7 +89,7 @@ __global__ void __launch_bounds__(kThreads) unpool_mlp_kernel(const Args a) {
   // (3) the unpool's point tiles: x' and its sums
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     __syncthreads();  // the last tile's epilogue is done with the shared memory
-    unpool_tile<ROWS>(a.x, a.kft, a.brow, a.vf, a.xp, a.sums1, a.N, a.C, a.H, a.I, a.dbl,
+    unpool_tile<ROWS>(a.x, a.kft, a.brow, a.vf, a.xp, a.sums1, a.N, a.N, a.C, a.H, a.I, a.dbl,
                       a.region0_unpool, t / (a.N / TN), t % (a.N / TN), true, smem);
   }
   grid.sync();
@@ -115,8 +115,8 @@ __global__ void __launch_bounds__(kThreads) unpool_mlp_kernel(const Args a) {
   // (5) the MLP's point tiles on x'
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     __syncthreads();
-    mlp_tile<ROWS>(a.xp, a.se2, a.be2, a.w1t, a.b1, a.w2t, a.b2, a.out, a.sums, a.N, a.C, a.W,
-                   a.chunk, a.region0_mlp, t / (a.N / TN), t % (a.N / TN), smem);
+    mlp_tile<ROWS>(a.xp, a.se2, a.be2, a.w1t, a.b1, a.w2t, a.b2, a.out, a.sums, a.N, a.N, a.C,
+                   a.W, a.chunk, a.region0_mlp, t / (a.N / TN), t % (a.N / TN), smem);
   }
 }
 

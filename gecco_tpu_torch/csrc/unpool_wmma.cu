@@ -59,10 +59,10 @@ template <int ROWS>
 __global__ void __launch_bounds__(kThreads)
 unpool_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kft,
               const float* __restrict__ brow, const bf16* __restrict__ vf, bf16* __restrict__ out,
-              float* __restrict__ sums, int N, int C, int H, int I, int dbl, int region0,
-              int residual) {
+              float* __restrict__ sums, int N, int n_valid, int C, int H, int I, int dbl,
+              int region0, int residual) {
   extern __shared__ __align__(128) unsigned char smem[];
-  unpool_tile<ROWS>(x, kft, brow, vf, out, sums, N, C, H, I, dbl, region0, blockIdx.y,
+  unpool_tile<ROWS>(x, kft, brow, vf, out, sums, N, n_valid, C, H, I, dbl, region0, blockIdx.y,
                     blockIdx.x, residual != 0, smem);
 }
 
@@ -72,7 +72,7 @@ extern "C" int unpool_wmma_launch(const void* x, const void* se, const void* be,
                                   const void* v, const void* wq, const void* wo_t, void* bq,
                                   void* kft, void* vf, void* brow, void* out, void* sums, int B,
                                   int N, int C, int H, int I, int TN, int residual, int prenorm,
-                                  void* stream) {
+                                  int n_valid, void* stream) {
   const int J = H * I;
   // 1/sqrt(D) rounded once from double, as the JAX package's Python float
   const float scale = (float)(1.0 / sqrt((double)(C / H)));
@@ -90,12 +90,12 @@ extern "C" int unpool_wmma_launch(const void* x, const void* se, const void* be,
   int dbl = 0;
   size_t region0 = 0;
   const size_t smem = unpool_smem_plan(TN, C, I, &dbl, &region0);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
+  if (smem == 0 || N % TN || n_valid < 1 || n_valid > N) return (int)cudaErrorInvalidValue;
   const auto kernel = TN == 64 ? unpool_kernel<4> : unpool_kernel<2>;
   err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(N / TN, B), kThreads, smem, st>>>(
       (const bf16*)x, (const bf16*)kft, (const float*)brow, (const bf16*)vf, (bf16*)out,
-      (float*)sums, N, C, H, I, dbl, (int)region0, residual);
+      (float*)sums, N, n_valid, C, H, I, dbl, (int)region0, residual);
   return (int)cudaGetLastError();
 }

@@ -32,7 +32,7 @@ KERNEL_SOURCES = (
     "pool_ext", "hside", "unpool", "mlp", "pool_ext_bwd", "unpool_bwd", "mlp_bwd",
     "projective_gather", "induced_attention", "induced_attention_bwd", "unpool_mlp",
     "pool", "pool_bwd", "pool_ext_wmma", "unpool_wmma", "mlp_wmma", "pool_ext_bwd_wmma",
-    "unpool_bwd_wmma", "mlp_bwd_wmma", "pool_ext_bwd_v1", "pool_ext_bwd_v2",
+    "unpool_bwd_wmma", "mlp_bwd_wmma", "pool_ext_bwd_v1", "pool_ext_bwd_v2", "hside_wmma",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

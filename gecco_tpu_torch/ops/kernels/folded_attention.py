@@ -48,7 +48,14 @@ The pool, unpool and MLP forwards and backwards each keep a second, WMMA
 body (``csrc/*_wmma.cu``) for the shapes their Hopper design does not take;
 ``_pool_ext_body``, ``_unpool_body``, ``_mlp_body`` and their backwards'
 ``*_bwd_body`` choose by shape, and a shape that neither body takes
-raises. A CUDA tensor never falls back to a plain version. The pool
+raises. A CUDA tensor never falls back to a plain version. Any point
+count N >= 1 is taken: on the card each function zero-pads the point axis
+of its operands to the next multiple of 128 (``_pad_points``; no copy
+where N is one already), passes the bodies ``n_valid = N``, which mask the
+padding out of every reduction over points, and slices the outputs back to
+N. The plain versions and pieces take ``n_valid`` too (``_valid_rows``),
+so that a piece fed the padded operands composes to the plain version at
+N. The pool
 backward has three more bodies, the JAX package's opt-in v1, v2 and v2j
 (``csrc/pool_ext_bwd_v1.cu``, ``csrc/pool_ext_bwd_v2.cu``), forced by
 ``GECCO_POOL_BWD`` as in the JAX package (read once at import into
@@ -71,7 +78,7 @@ import sys
 import torch
 
 from gecco_tpu_torch.ops.kernels._build import check_cuda, launch, library
-from gecco_tpu_torch.ops.norms import group_norm_stats, stats_from_sums
+from gecco_tpu_torch.ops.norms import stats_from_sums
 from gecco_tpu_torch.ops.kernels._grad import needs_grad, vjp
 
 __all__ = [
@@ -155,18 +162,55 @@ def _require(cond: bool, name: str, what: str) -> None:
         raise ValueError(f"{name}: the CUDA kernel needs {what}")
 
 
+# the point axis of the bodies' operands is a multiple of this (the Hopper
+# MLP's 128-row block; every other body's tile divides it)
+_N_ALIGN = 128
+
+
+def _n_pad(n: int) -> int:
+    """The padded point count of N points: the next multiple of 128."""
+    return -(-n // _N_ALIGN) * _N_ALIGN
+
+
+def _pad_points(t: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """t [B, N, K] zero-padded on its point axis to n_pad rows; t itself
+    where N is n_pad already."""
+    n = t.shape[1]
+    return t if n == n_pad else torch.nn.functional.pad(t, (0, 0, 0, n_pad - n))
+
+
+def _unpad(t: torch.Tensor, n: int) -> torch.Tensor:
+    """The first n points of t [B, N_pad, K], contiguous (t itself where
+    N_pad is n)."""
+    return t if t.shape[1] == n else t[:, :n].contiguous()
+
+
+def _valid_rows(n: int, n_valid, device) -> torch.Tensor | None:
+    """[N, 1] bool mask of the first ``n_valid`` points, or None where all
+    N are points (``n_valid`` None or N): the plain pieces' form of the
+    bodies' padding masks."""
+    if n_valid is None or n_valid == n:
+        return None
+    return (torch.arange(n, device=device) < n_valid)[:, None]
+
+
 # ------------------------------------------------------------------ pool --
 
 
-def _pool_ref_from_y(y, ind2, kvw, wo, num_heads: int) -> torch.Tensor:
+def _pool_ref_from_y(y, ind2, kvw, wo, num_heads: int, n_valid=None) -> torch.Tensor:
     """The pool of the pre-normed stream y [B, N, C] onto the inducers, as
-    both plain versions compute it from y on: h0 [B, I, C] in y's dtype."""
+    both plain versions compute it from y on: h0 [B, I, C] in y's dtype;
+    the points from ``n_valid`` on (a ragged tail's padding) take no part
+    in the softmax."""
     dt = y.dtype
     b, n, c = y.shape
     j, d = ind2.shape
     i = j // num_heads
     qf = fold_qf(ind2.to(dt), kvw.to(dt), num_heads)
     logits = torch.einsum("bnc,cj->bnj", y.float(), qf.float())
+    ok = _valid_rows(n, n_valid, y.device)
+    if ok is not None:
+        logits = logits.masked_fill(~ok, -torch.inf)
     lg = logits.reshape(b, n, num_heads, i)
     p = torch.exp(lg - lg.amax(1, keepdim=True).detach())
     p = (p / p.sum(1, keepdim=True)).to(dt)
@@ -196,11 +240,13 @@ def _fold_qft_ref(ind2, kvw, num_heads: int) -> torch.Tensor:
     return fold_qf(ind2, kvw, num_heads).t()
 
 
-def _pool_partials_ref(x, se, be, qft, kvw, num_heads: int) -> tuple:
+def _pool_partials_ref(x, se, be, qft, kvw, num_heads: int, n_valid=None) -> tuple:
     """Plain version of ``pool_chunk_kernel``: per chunk of ``_POOL_CHUNK`` points
     of y = x*se+be, each column's max m and sum l of e = exp(max(s - m,
     -80)) [B, N/rows, J] and P = e^T @ v [B, N/rows, J, D], fp32 (e and v
-    rounded to x's dtype before the product)."""
+    rounded to x's dtype before the product). Points from ``n_valid`` on
+    (a ragged tail's padding) take no part: a chunk of padding alone gives
+    m = -inf, l = 0 and P = 0."""
     dt = x.dtype
     b, n, c = x.shape
     j = qft.shape[0]
@@ -208,10 +254,16 @@ def _pool_partials_ref(x, se, be, qft, kvw, num_heads: int) -> tuple:
     rows = _POOL_CHUNK
     k = n // rows
     y = (x.float() * se[:, None, :] + be[:, None, :]).to(dt)
-    s = torch.einsum("bnc,jc->bnj", y.float(), qft.float()).reshape(b, k, rows, j)
+    s = torch.einsum("bnc,jc->bnj", y.float(), qft.float())
     v = torch.einsum("bnc,dc->bnd", y.float(), kvw[c:].float()).to(dt)
+    ok = _valid_rows(n, n_valid, x.device)
+    if ok is not None:
+        s = s.masked_fill(~ok, -torch.inf)
+    s = s.reshape(b, k, rows, j)
     m = s.amax(2)
     e = torch.exp(torch.clamp(s - m[:, :, None], min=-80.0))
+    if ok is not None:
+        e = e.masked_fill(~ok.reshape(1, k, rows, 1), 0.0)
     p = torch.einsum(
         "bkrhi,bkrhd->bkhid", e.to(dt).float().reshape(b, k, rows, num_heads, i),
         v.float().reshape(b, k, rows, num_heads, d),
@@ -258,10 +310,10 @@ def _pool_ext_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     card: "hopper" (csrc/pool_ext.cu, TMA and wgmma: I == 64, D == 48,
     H % 8 == 0, C % 64 == 0, C <= 768) where it can, else "wmma"
     (csrc/pool_ext_wmma.cu: C % 64, D % 16 and I % 16 == 0, one block's
-    shared memory within the SM's); both need N % 64 and B*I % 64 == 0.
-    Raises ValueError with both bodies' conditions otherwise."""
+    shared memory within the SM's); both need B*I % 64 == 0 and take any N
+    (padded). Raises ValueError with both bodies' conditions otherwise."""
     d = c // num_heads
-    common = c % num_heads == 0 and n % 64 == 0 and (b * i) % 64 == 0
+    common = c % num_heads == 0 and n >= 1 and (b * i) % 64 == 0
     if common and i == 64 and d == 48 and num_heads % 8 == 0 and c % 64 == 0 and c <= 768:
         return "hopper"
     if (common and c % 64 == 0 and d % 16 == 0 and i % 16 == 0
@@ -271,7 +323,7 @@ def _pool_ext_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
         f"folded_pool_ext: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
         f"(D={d}): the Hopper body needs I == 64, D == 48, H % 8 == 0, C % 64 == 0 and "
         f"C <= 768; the WMMA body C % 64, D % 16, I % 16 == 0 and its block within "
-        f"{_MAX_SMEM} bytes of shared memory; both N % 64 == 0 and B*I % 64 == 0")
+        f"{_MAX_SMEM} bytes of shared memory; both B*I % 64 == 0")
 
 
 def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
@@ -291,6 +343,8 @@ def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
     )
     body = _pool_ext_body(b, n, c, num_heads, i)
     dev = x.device
+    n_pad = _n_pad(n)
+    x = _pad_points(x, n_pad)
     pooled = torch.empty((b, i, c), dtype=_BF16, device=dev)
     h0 = torch.empty_like(pooled)
     macc = torch.empty((b, j), dtype=_F32, device=dev) if stats else None
@@ -298,16 +352,16 @@ def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
     if body == "hopper":
         rows = _POOL_CHUNK
         qft = torch.empty((j, c), dtype=_BF16, device=dev)
-        part_m = torch.empty((b, n // rows, j), dtype=_F32, device=dev)
+        part_m = torch.empty((b, n_pad // rows, j), dtype=_F32, device=dev)
         part_l = torch.empty_like(part_m)
-        part_p = torch.empty((b, n // rows, j, d), dtype=_F32, device=dev)
+        part_p = torch.empty((b, n_pad // rows, j, d), dtype=_F32, device=dev)
         launch("pool_ext", "pool_ext_launch", x, se, be, ind2, kvw, wo, qft, part_m, part_l,
-               part_p, pooled, h0, macc, sacc, b, n, c, num_heads, i)
+               part_p, pooled, h0, macc, sacc, b, n_pad, c, num_heads, i, n)
         folded_pool_ext.launches += 1
     else:
         qf = fold_qf(ind2, kvw, num_heads).contiguous()
         launch("pool_ext_wmma", "pool_ext_wmma_launch", x, se, be, qf, kvw, wo, pooled, h0,
-               macc, sacc, b, n, c, num_heads, i)
+               macc, sacc, b, n_pad, c, num_heads, i, n)
         folded_pool_ext.launches_wmma += 1
         qft = qf.t().contiguous() if stats else None
     return (h0, qft, macc, sacc) if stats else (h0, None, None, None)
@@ -374,13 +428,16 @@ def _prenormed(x, se, be) -> torch.Tensor:
     return (x.float() * se[:, None, :] + be[:, None, :]).to(x.dtype).float()
 
 
-def _pool_bwd_ety_ref(x, se, be, qft, macc) -> torch.Tensor:
+def _pool_bwd_ety_ref(x, se, be, qft, macc, n_valid=None) -> torch.Tensor:
     """Plain version of ``pool_bwd_ety_kernel``: eTy = bf16(e)^T y [B, J, C]
-    in x's dtype, e = exp(max(y qf - macc, -80))."""
+    in x's dtype, e = exp(max(y qf - macc, -80)), zero on the points from
+    ``n_valid`` on (a ragged tail's padding)."""
     dt = x.dtype
     y = _prenormed(x, se, be)
     s = torch.einsum("bnc,jc->bnj", y, qft.float())
-    e = torch.exp(torch.clamp(s - macc[:, None], min=-80.0)).to(dt)
+    e = torch.exp(torch.clamp(s - macc[:, None], min=-80.0))
+    ok = _valid_rows(x.shape[1], n_valid, x.device)
+    e = (e if ok is None else e.masked_fill(~ok, 0.0)).to(dt)
     return torch.einsum("bnj,bnc->bjc", e.float(), y).to(dt)
 
 
@@ -406,14 +463,18 @@ def _pool_bwd_fold_ref(ety, g_h0, kvw, wo, sacc, num_heads: int) -> tuple:
     return tacc, w3, dwv, dwo
 
 
-def _pool_bwd_dy_ref(x, se, be, qft, w3, macc, tacc) -> tuple:
+def _pool_bwd_dy_ref(x, se, be, qft, w3, macc, tacc, n_valid=None) -> tuple:
     """Plain version of ``pool_bwd_dy_kernel`` -> (dx in x's dtype, dse,
     dbe [B, C] fp32, ds [B, N, J] in x's dtype): ds = e (y W3^T - tacc)
-    where s - macc > -80, dy = ds qf^T + e W3 (e and ds rounded first)."""
+    where s - macc > -80, dy = ds qf^T + e W3 (e and ds rounded first); e
+    and ds zero on the points from ``n_valid`` on."""
     dt = x.dtype
     y = _prenormed(x, se, be)
     z = torch.einsum("bnc,jc->bnj", y, qft.float()) - macc[:, None]
     e = torch.exp(torch.clamp(z, min=-80.0))
+    ok = _valid_rows(x.shape[1], n_valid, x.device)
+    if ok is not None:
+        e = e.masked_fill(~ok, 0.0)
     dp = torch.einsum("bnc,bjc->bnj", y, w3.float())
     ds = torch.where(z > -80.0, e * (dp - tacc[:, None]), 0.0).to(dt)
     dy = (torch.einsum("bnj,jc->bnc", ds.float(), qft.float())
@@ -448,11 +509,12 @@ def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     (csrc/pool_ext_bwd.cu, TMA and wgmma: C in (384, 768), I == 64, D <=
     64, J % 128 == 0) where it can, else "wmma" (csrc/pool_ext_bwd_wmma.cu:
     C % 128 == 0, C <= 768, I % 16 and J % 64 == 0, the fold's block
-    within the SM's shared memory); both need D % 16 and N % 64 == 0. The
-    upsample demo's C 128 and the three-head flagship's D 128 take the WMMA
-    body. Forced to "v1", "v2" or "v2j", that body (the JAX package's
-    opt-in bodies, ``_pool_twopass_takes``). Raises ValueError with the
-    chosen bodies' conditions otherwise."""
+    within the SM's shared memory); both need D % 16 == 0 and take any N
+    (padded). The upsample demo's C 128 and the three-head flagship's D 128
+    take the WMMA body. Forced to "v1", "v2" or "v2j", that
+    body (the JAX package's opt-in bodies, ``_pool_twopass_takes``: N % 64
+    == 0, no padding). Raises ValueError with the chosen bodies' conditions
+    otherwise."""
     d = c // num_heads
     j = num_heads * i
     mode = _POOL_BWD_ENV
@@ -463,7 +525,7 @@ def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
             f"folded_pool_ext_bwd: GECCO_POOL_BWD={mode} forces a body that does not take "
             f"B={b}, N={n}, C={c}, H={num_heads}, I={i} (D={d}): the v1, v2 and v2j bodies "
             f"need C in (384, 768), C == 48 H, I == 64 and N % 64 == 0")
-    common = c % num_heads == 0 and d % 16 == 0 and n % 64 == 0
+    common = c % num_heads == 0 and d % 16 == 0 and n >= 1
     if common and c in (384, 768) and i == 64 and d <= 64 and j % 128 == 0:
         return "hopper"
     if (common and c % 128 == 0 and c <= 768 and i % 16 == 0 and j % 64 == 0
@@ -473,7 +535,7 @@ def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
         f"folded_pool_ext_bwd: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
         f"(D={d}): the Hopper body needs C in (384, 768), I == 64, D <= 64 and J % 128 == 0; "
         f"the WMMA body C % 128 == 0, C <= 768, I % 16 == 0, J % 64 == 0 and its fold within "
-        f"{_MAX_SMEM} bytes of shared memory; both D % 16 == 0 and N % 64 == 0")
+        f"{_MAX_SMEM} bytes of shared memory; both D % 16 == 0")
 
 
 def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
@@ -512,9 +574,12 @@ def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
 
 def _pool_ext_bwd_hopper(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int) -> tuple:
     """The kernel (csrc/pool_ext_bwd.cu) -> (dx, dse, dbe, dqf, dwv, dwo,
-    intermediates): the last a dict of the passes' eTy, W3, tacc and ds,
-    which ``probes.pool_bwd`` holds against their plain pieces."""
-    b, n, c = x.shape
+    intermediates): the last a dict of the passes' eTy, W3, tacc and ds
+    (ds at the padded point count), which ``probes.pool_bwd`` holds against
+    their plain pieces."""
+    b, n_valid, c = x.shape
+    n = _n_pad(n_valid)
+    x = _pad_points(x, n)
     j = qft.shape[0]
     i = j // num_heads
     dev = x.device
@@ -535,16 +600,18 @@ def _pool_ext_bwd_hopper(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int)
     launch("pool_ext_bwd", "pool_ext_bwd_launch", x, se, be, qft, kvw, wo, g, macc, sacc,
            torch.empty_like(x), buf["ety"], buf["w3"], buf["tacc"], buf["ds"], buf["dx"],
            buf["dse"], buf["dbe"], part, dqf, buf["dwv"], buf["dwo"], b, n, c, num_heads, i,
-           splits)
+           splits, n_valid)
     folded_pool_ext_bwd.launches += 1
-    return (buf["dx"], buf["dse"], buf["dbe"], dqf, buf["dwv"], buf["dwo"],
+    return (_unpad(buf["dx"], n_valid), buf["dse"], buf["dbe"], dqf, buf["dwv"], buf["dwo"],
             {k: buf[k] for k in ("ety", "w3", "tacc", "ds")})
 
 
 def _pool_ext_bwd_wmma(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int) -> tuple:
     """The WMMA body (csrc/pool_ext_bwd_wmma.cu), the same algebra as the
     Hopper body's -> (dx, dse, dbe, dqf, dwv, dwo)."""
-    b, n, c = x.shape
+    b, n_valid, c = x.shape
+    n = _n_pad(n_valid)
+    x = _pad_points(x, n)
     j = qft.shape[0]
     i = j // num_heads
     dev = x.device
@@ -561,9 +628,9 @@ def _pool_ext_bwd_wmma(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int) -
            torch.empty((b, j, c), dtype=_BF16, device=dev),
            torch.empty((b, j), dtype=_F32, device=dev),
            torch.empty((b, n, j), dtype=_BF16, device=dev), dx, dse, dbe, dqf, dwv, dwo,
-           b, n, c, num_heads, i)
+           b, n, c, num_heads, i, n_valid)
     folded_pool_ext_bwd.launches_wmma += 1
-    return dx, dse, dbe, dqf, dwv, dwo
+    return _unpad(dx, n_valid), dse, dbe, dqf, dwv, dwo
 
 
 def _wgrad_splits(batch: int, tiles: int, m: int, p: int, device) -> int:
@@ -713,28 +780,32 @@ folded_pool_ext_bwd.launches_v2j = 0
 
 
 def _pool_ref(x, scale, bias, ind2, kvw, wo, num_groups: int, num_heads: int,
-              prenorm: bool = True) -> tuple:
+              prenorm: bool = True, n_valid=None) -> tuple:
     """Plain version (the JAX package's ``_pool_ref``) -> (h0 [B, I, C],
     mean_c, inv_c [B, C] fp32): with ``prenorm`` the set-level GroupNorm
     statistics of x and y = (x - mean_c) * (inv_c * scale) + bias; without,
-    y = x, mean 0 and inv 1."""
-    b, _, c = x.shape
+    y = x, mean 0 and inv 1. With ``n_valid``, the points from it on are a
+    ragged tail's zero padding, as the kernels see it: the statistics
+    count ``n_valid`` points and the softmax masks the rest."""
+    b, n, c = x.shape
     if prenorm:
-        mean_c, inv_c = group_norm_stats(x, num_groups)
+        xf = x.float()
+        mean_c, inv_c = stats_from_sums(xf.sum(1), (xf * xf).sum(1),
+                                        n if n_valid is None else n_valid, num_groups)
         y = ((x.float() - mean_c[:, None]) * (inv_c * scale)[:, None] + bias[:, None]).to(x.dtype)
     else:
         mean_c = torch.zeros((b, c), dtype=_F32, device=x.device)
         inv_c = torch.ones_like(mean_c)
         y = x
-    return _pool_ref_from_y(y, ind2, kvw, wo, num_heads), mean_c, inv_c
+    return _pool_ref_from_y(y, ind2, kvw, wo, num_heads, n_valid), mean_c, inv_c
 
 
 def _pool_layer_launch(x, scale, bias, ind2, kvw, wo, gind, num_heads: int, prenorm: bool,
                        stats: bool) -> tuple:
     """The forward kernels -> (h0, mean_c, inv_c, (m, l, P, y)): the
     softmax's column max and sum [B, J], the fp32 pooled values [B, I, C]
-    and the pre-normed stream y (x itself without the pre-norm) for the
-    backward where ``stats``, else Nones."""
+    and the pre-normed stream y (x itself without the pre-norm; at the
+    padded point count) for the backward where ``stats``, else Nones."""
     name = "folded_pool_layer"
     b, n, c = x.shape
     j, d = ind2.shape
@@ -746,11 +817,12 @@ def _pool_layer_launch(x, scale, bias, ind2, kvw, wo, gind, num_heads: int, pren
     )
     _require(tuple(gind.shape) == (c, groups) and c % groups == 0, name,
              f"gind of shape (C, G) with G dividing C = {c}, got {tuple(gind.shape)}")
-    _require(n % 64 == 0 and c % 64 == 0 and c <= 2048, name,
-             f"N % 64 == 0, C % 64 == 0 and C <= 2048 (N={n}, C={c})")
+    _require(c % 64 == 0 and c <= 2048, name, f"C % 64 == 0 and C <= 2048 (C={c})")
     _require(d % 16 == 0 and i % 16 == 0 and (b * i) % 64 == 0, name,
              f"D % 16, I % 16 and B*I % 64 == 0 (D={d}, I={i}, B={b})")
     dev = x.device
+    n_valid, n = n, _n_pad(n)
+    x = _pad_points(x, n)
     qf = fold_qf(ind2, kvw, num_heads).contiguous()
     if prenorm:
         part = torch.empty((b, n // 64, 2, c), dtype=_F32, device=dev)
@@ -770,7 +842,7 @@ def _pool_layer_launch(x, scale, bias, ind2, kvw, wo, gind, num_heads: int, pren
         pacc = torch.empty((b, i, c), dtype=_F32, device=dev)
     launch("pool", "pool_layer_launch", x, scale, bias, qf, kvw, wo, part,
            mean_c if prenorm else None, inv_c, y, pooled, h0, m, l, pacc, b, n, c, num_heads, i,
-           groups)
+           groups, n_valid)
     folded_pool_layer.launches += 1
     if not stats:
         return h0, mean_c, inv_c, (None, None, None, None)
@@ -855,9 +927,10 @@ def folded_pool_layer_bwd(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m,
     )
     _require(c % 64 == 0 and c <= 768 and d % 16 == 0 and i % 16 == 0 and j % 64 == 0, name,
              f"C % 64 == 0, C <= 768, D % 16, I % 16 and J % 64 == 0 (C={c}, D={d}, I={i})")
-    _require(n % 64 == 0 and c % groups == 0, name,
-             f"N % 64 == 0 and G dividing C (N={n}, C={c}, G={groups})")
+    _require(c % groups == 0, name, f"G dividing C (C={c}, G={groups})")
     dev = x.device
+    n_valid, n = n, _n_pad(n)
+    x, y = _pad_points(x, n), _pad_points(y, n)
     qf = fold_qf(ind2, kvw, num_heads).contiguous()
     dpool = torch.empty((b, i, c), dtype=_BF16, device=dev)
     tacc = torch.empty((b, j), dtype=_F32, device=dev)
@@ -878,9 +951,10 @@ def folded_pool_layer_bwd(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m,
         dbias = torch.zeros_like(dscale)
     launch("pool_bwd", "pool_layer_bwd_launch", x, mean_c if prenorm else None, inv_c, scale, y,
            qf, kvw, wo, g, g_mean, g_inv, m, l, pacc, dpool, tacc, ds, dv, dy, sdyxc, sdy, dx,
-           dscale, dbias, dqf, dwvt, dwo, b, n, c, num_heads, i, groups)
+           dscale, dbias, dqf, dwvt, dwo, b, n, c, num_heads, i, groups, n_valid)
     folded_pool_layer_bwd.launches += 1
-    return dx, dscale, dbias, *_chain_dqf(dqf, dwvt.t(), ind2, kvw, num_heads), dwo.to(wo.dtype)
+    return (_unpad(dx, n_valid), dscale, dbias, *_chain_dqf(dqf, dwvt.t(), ind2, kvw, num_heads),
+            dwo.to(wo.dtype))
 
 
 folded_pool_layer_bwd.launches = 0
@@ -946,10 +1020,12 @@ def _unpool_fold_ref(se, be, k, v, wq, wo, num_heads: int, prenorm: bool = True)
     return kft.reshape(b, j, c).to(dt), vft.reshape(b, c, j).to(dt), brow.reshape(b, j)
 
 
-def _unpool_tiles_ref(x, kft, vft, brow, num_heads: int, residual: bool = True) -> tuple:
+def _unpool_tiles_ref(x, kft, vft, brow, num_heads: int, residual: bool = True,
+                      n_valid=None) -> tuple:
     """Plain version of ``unpool_tile_kernel``: logits x @ kft^T + brow, a
     softmax per head block with its own max (exp argument clamped at -80),
-    bf16 p @ vf, the residual where ``residual`` -> (out, sums)."""
+    bf16 p @ vf, the residual where ``residual`` -> (out, sums); the points
+    from ``n_valid`` on (a ragged tail's padding) stay out of the sums."""
     dt = x.dtype
     b, n, _ = x.shape
     j = kft.shape[1]
@@ -960,7 +1036,16 @@ def _unpool_tiles_ref(x, kft, vft, brow, num_heads: int, residual: bool = True) 
     attn = torch.einsum("bnj,bcj->bnc", p.float(), vft.float())
     if residual:
         attn = x.float() + attn
-    return attn.to(dt), torch.stack([attn.sum(1), (attn * attn).sum(1)], dim=1)
+    return attn.to(dt), _row_sums(attn, n_valid)
+
+
+def _row_sums(o, n_valid=None) -> torch.Tensor:
+    """[B, 2, C] fp32 channel sums of o and o^2 over the points before
+    ``n_valid`` (all N where None)."""
+    ok = _valid_rows(o.shape[1], n_valid, o.device)
+    if ok is not None:
+        o = o.masked_fill(~ok, 0.0)
+    return torch.stack([o.sum(1), (o * o).sum(1)], dim=1)
 
 
 def _unpool_wmma_smem(tn: int, c: int, i: int) -> int:
@@ -979,26 +1064,26 @@ def _unpool_wmma_smem(tn: int, c: int, i: int) -> int:
 def _unpool_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     """Which forward body of ``folded_unpool`` takes these shapes on the
     card: "hopper" (csrc/unpool.cu, TMA and wgmma: I == 64, H even,
-    D % 16 == 0, D <= 64, C in (192, 384, 768), N % 64 == 0) where it can,
-    else "wmma" (csrc/unpool_wmma.cu: C % 16 and I % 16 == 0, a point tile
-    of 64 or 32 rows dividing N whose shared memory fits the SM). Raises
+    D % 16 == 0, D <= 64, C in (192, 384, 768)) where it can, else "wmma"
+    (csrc/unpool_wmma.cu: C % 16 and I % 16 == 0, a point tile of 64 or 32
+    rows whose shared memory fits the SM); both take any N (padded). Raises
     ValueError with both bodies' conditions otherwise."""
     d = c // num_heads
     if (c % num_heads == 0 and i == 64 and num_heads % 2 == 0 and d % 16 == 0 and d <= 64
-            and c in (192, 384, 768) and n % 64 == 0):
+            and c in (192, 384, 768) and n >= 1):
         return "hopper"
     try:
-        tn = _row_tile(n, c)
+        tn = _row_tile(_n_pad(n), c)
     except ValueError:
         tn = 0
     if c % num_heads == 0 and c % 16 == 0 and i % 16 == 0 and tn and _unpool_wmma_smem(tn, c, i):
         return "wmma"
     raise ValueError(
         f"folded_unpool: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
-        f"(D={d}): the Hopper body needs I == 64, H even, D % 16 == 0, D <= 64, "
-        f"C in (192, 384, 768) and N % 64 == 0; the WMMA body C % 16 == 0, I % 16 == 0 "
-        f"and a point tile (64 rows at C <= 384, 32 at C <= 768) dividing N whose block fits "
-        f"{_MAX_SMEM} bytes of shared memory")
+        f"(D={d}): the Hopper body needs I == 64, H even, D % 16 == 0, D <= 64 and "
+        f"C in (192, 384, 768); the WMMA body C % 16 == 0, I % 16 == 0 and a point tile "
+        f"(64 rows at C <= 384, 32 at C <= 768) whose block fits {_MAX_SMEM} bytes of "
+        f"shared memory")
 
 
 def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int, residual: bool, prenorm: bool):
@@ -1014,6 +1099,8 @@ def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int, residual: bool, pren
     )
     body = _unpool_body(b, n, c, num_heads, i)
     dev = x.device
+    n_valid, n = n, _n_pad(n)
+    x = _pad_points(x, n)
     kft = torch.empty((b, j, c), dtype=_BF16, device=dev)
     brow = torch.empty((b, j), dtype=_F32, device=dev)
     bq = torch.empty((b, c), dtype=_F32, device=dev)
@@ -1022,15 +1109,15 @@ def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int, residual: bool, pren
     if body == "hopper":
         vft = torch.empty((b, c, j), dtype=_BF16, device=dev)
         launch("unpool", "unpool_launch", x, se, be, k, v, wq, wo, bq, kft, vft, brow, out,
-               sums, b, n, c, num_heads, i, int(residual), int(prenorm))
+               sums, b, n, c, num_heads, i, int(residual), int(prenorm), n_valid)
         folded_unpool.launches += 1
     else:
         vf = torch.empty_like(kft)
         launch("unpool_wmma", "unpool_wmma_launch", x, se, be, k, v, wq, wo.t().contiguous(),
                bq, kft, vf, brow, out, sums, b, n, c, num_heads, i, _row_tile(n, c),
-               int(residual), int(prenorm))
+               int(residual), int(prenorm), n_valid)
         folded_unpool.launches_wmma += 1
-    return out, sums
+    return _unpad(out, n_valid), sums
 
 
 class _Unpool(torch.autograd.Function):
@@ -1090,14 +1177,15 @@ def _unpool_bwd_fold_ref(k, v, wq, wo, num_heads: int) -> tuple:
 
 
 def _unpool_bwd_tiles_ref(x, se, be, kft, vf, g, g_sums, num_heads: int, residual: bool = True,
-                          prenorm: bool = True) -> tuple:
+                          prenorm: bool = True, n_valid=None) -> tuple:
     """Plain version of the Hopper body's point-wise passes (the heads and
     rows kernels, both walks) -> (p, ds, d_attn [B, N, J or C] in x's
     dtype, dx, dse, dbe [B, C] fp32): per head block its own max, e =
     exp(max(. - m, -80)), p = e / sum e; attn = x + bf16(p) vf; d_attn = g +
     gs1 + 2 attn gs2; dp = bf16(d_attn) vf^T; ds = p (dp - blocksum(dp p))
     where the logit sits above the clamp; dy = bf16(ds) kft; dx = dy se +
-    d_attn."""
+    d_attn. The sums' cotangent reaches only the points before ``n_valid``
+    (the rest are a ragged tail's padding, g zero there)."""
     dt = x.dtype
     b, n, c = x.shape
     j = kft.shape[1]
@@ -1109,7 +1197,7 @@ def _unpool_bwd_tiles_ref(x, se, be, kft, vf, g, g_sums, num_heads: int, residua
     attn = torch.einsum("bnj,bjc->bnc", p.reshape(b, n, j).to(dt).float(), vf.float())
     if residual:
         attn = x.float() + attn
-    d_attn = g.float() + g_sums[:, 0:1].float() + 2.0 * attn * g_sums[:, 1:2].float()
+    d_attn = g.float() + _sums_cotangent(attn, g_sums, n_valid)
     dp = torch.einsum("bnc,bjc->bnj", d_attn.to(dt).float(), vf.float()).reshape(p.shape)
     ds = torch.where(z > -80.0, p * (dp - (dp * p).sum(-1, keepdim=True)), 0.0)
     ds = ds.reshape(b, n, j).to(dt)
@@ -1120,6 +1208,14 @@ def _unpool_bwd_tiles_ref(x, se, be, kft, vf, g, g_sums, num_heads: int, residua
     zero = torch.zeros((b, c), dtype=_F32, device=x.device)
     dse, dbe = ((dy * x.float()).sum(1), dy.sum(1)) if prenorm else (zero, zero.clone())
     return p.reshape(b, n, j).to(dt), ds, d_attn.to(dt), dx.to(dt), dse, dbe
+
+
+def _sums_cotangent(o, g_sums, n_valid=None) -> torch.Tensor:
+    """The cotangent g_sums [B, 2, C] of ``_row_sums(o)`` on o [B, N, C]:
+    gs1 + 2 o gs2 on the points before ``n_valid``, zero after."""
+    t = g_sums[:, 0:1].float() + 2.0 * o * g_sums[:, 1:2].float()
+    ok = _valid_rows(o.shape[1], n_valid, o.device)
+    return t if ok is None else t.masked_fill(~ok, 0.0)
 
 
 def _unpool_bwd_wgrad_ref(x, se, be, p, ds, d_attn, prenorm: bool = True) -> tuple:
@@ -1160,10 +1256,11 @@ def _unpool_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     == 0 and C <= 384 or C % 384 == 0) where it can, else "wmma"
     (csrc/unpool_bwd_wmma.cu: C % 128 == 0, C <= 768, I % 16 == 0, I <= 64,
     J % 64 == 0; its 32-point tile then fits the SM's shared memory); both
-    need D % 16 and N % 64 == 0. The three-head flagship takes the WMMA
-    body. Raises ValueError with both bodies' conditions otherwise."""
+    need D % 16 == 0 and take any N (padded). The three-head flagship takes
+    the WMMA body. Raises ValueError with both bodies' conditions
+    otherwise."""
     d = c // num_heads
-    common = c % num_heads == 0 and d % 16 == 0 and n % 64 == 0 and c % 128 == 0
+    common = c % num_heads == 0 and d % 16 == 0 and n >= 1 and c % 128 == 0
     if common and i == 64 and num_heads % 2 == 0 and (c <= 384 or c % 384 == 0):
         return "hopper"
     if common and c <= 768 and i % 16 == 0 and i <= 64 and (num_heads * i) % 64 == 0:
@@ -1171,8 +1268,8 @@ def _unpool_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     raise ValueError(
         f"folded_unpool_bwd: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
         f"(D={d}): the Hopper body needs I == 64, H even and C <= 384 or C % 384 == 0; the "
-        f"WMMA body C <= 768, I % 16 == 0, I <= 64 and J % 64 == 0; both C % 128 == 0, "
-        f"D % 16 == 0 and N % 64 == 0")
+        f"WMMA body C <= 768, I % 16 == 0, I <= 64 and J % 64 == 0; both C % 128 == 0 and "
+        f"D % 16 == 0")
 
 
 def folded_unpool_bwd(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residual: bool = True,
@@ -1206,8 +1303,10 @@ def _unpool_bwd_hopper(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, resid
     dkf and dvf as [B, C, H, I] and [B, H, I, C] views of the per-head
     layout the kernel writes; ``mid``, where given, receives the passes'
     kft, vf, p, ds and d_attn, which ``probes.unpool_bwd`` holds against
-    their plain pieces."""
-    b, n, c = x.shape
+    their plain pieces (p, ds and d_attn at the padded point count)."""
+    b, n_valid, c = x.shape
+    n = _n_pad(n_valid)
+    x, g = _pad_points(x, n), _pad_points(g, n)
     i = k.shape[1]
     j = num_heads * i
     dev = x.device
@@ -1229,17 +1328,19 @@ def _unpool_bwd_hopper(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, resid
            buf["d_attn"], torch.empty((b, n, c), dtype=_F32, device=dev) if residual else None,
            dx, dse, dbe, dkf, dvf,
            torch.empty((b * splits, c, j), dtype=_F32, device=dev) if splits > 1 else None,
-           b, n, c, num_heads, i, int(residual), int(prenorm), splits)
+           b, n, c, num_heads, i, int(residual), int(prenorm), splits, n_valid)
     folded_unpool_bwd.launches += 1
     if mid is not None:
         mid.update(buf)
-    return dx, dse, dbe, dkf.permute(2, 1, 0, 3), dvf.permute(1, 0, 2, 3)
+    return _unpad(dx, n_valid), dse, dbe, dkf.permute(2, 1, 0, 3), dvf.permute(1, 0, 2, 3)
 
 
 def _unpool_bwd_wmma(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residual: bool,
                      prenorm: bool) -> tuple:
     """The WMMA body (csrc/unpool_bwd_wmma.cu) -> (dx, dse, dbe, dkf, dvf)."""
-    b, n, c = x.shape
+    b, n_valid, c = x.shape
+    n = _n_pad(n_valid)
+    x, g = _pad_points(x, n), _pad_points(g, n)
     i = k.shape[1]
     j = num_heads * i
     dev = x.device
@@ -1252,9 +1353,9 @@ def _unpool_bwd_wmma(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residua
     dvf = torch.zeros((b, j, c), dtype=_F32, device=dev)
     launch("unpool_bwd_wmma", "unpool_bwd_wmma_launch", x, se, be, k, v, wq, wo, g, g_sums, kft,
            torch.empty_like(kft), p, torch.empty_like(p), torch.empty_like(x), dx, dse, dbe, dkf,
-           dvf, b, n, c, num_heads, i, int(residual), int(prenorm))
+           dvf, b, n, c, num_heads, i, int(residual), int(prenorm), n_valid)
     folded_unpool_bwd.launches_wmma += 1
-    return dx, dse, dbe, dkf, dvf
+    return _unpad(dx, n_valid), dse, dbe, dkf, dvf
 
 
 folded_unpool_bwd.launches = 0
@@ -1283,32 +1384,35 @@ def _mlp_act_ref(y, w1t, b1) -> torch.Tensor:
     return torch.exp(-0.5 * h * h).to(y.dtype)
 
 
-def _mlp_out_ref(x, g, w2t, b2) -> tuple:
+def _mlp_out_ref(x, g, w2t, b2, n_valid=None) -> tuple:
     """Plain version of the Hopper forward's second pass and its sums
     (``mlp_out_kernel``, ``mlp_colsum_kernel``) from the first pass's g ->
-    (out in x's dtype, sums [B, 2, C] fp32): o = x + (g @ w2t + b2)."""
+    (out in x's dtype, sums [B, 2, C] fp32): o = x + (g @ w2t + b2), the
+    sums over the points before ``n_valid`` (the rest are a ragged tail's
+    padding)."""
     o = x.float() + (torch.einsum("bnw,wc->bnc", g.float(), w2t.float()) + b2[None])
-    return o.to(x.dtype), torch.stack([o.sum(1), (o * o).sum(1)], dim=1)
+    return o.to(x.dtype), _row_sums(o, n_valid)
 
 
 def _mlp_hopper_takes(n: int, c: int, w: int) -> bool:
-    """The Hopper MLP bodies' shapes (csrc/mlp_hopper.cuh ``hopper_takes``):
-    C and W multiples of 384 (the single products' 192-column tiles, the
-    weight gradients' 128-wide ones), N of the 128-row block."""
-    return c % 384 == 0 and w % 384 == 0 and n % 128 == 0
+    """The Hopper MLP bodies' shapes (csrc/mlp_hopper.cuh ``hopper_takes``,
+    which sees the padded N): C and W multiples of 384 (the single
+    products' 192-column tiles, the weight gradients' 128-wide ones), N of
+    the 128-row block once padded."""
+    return c % 384 == 0 and w % 384 == 0 and _n_pad(n) % 128 == 0
 
 
 def _mlp_body(b: int, n: int, c: int, w: int) -> str:
     """Which body of ``fused_mlp_residual`` takes these shapes on the card:
-    "hopper" (csrc/mlp.cu, TMA and wgmma: C % 384 == 0, W % 384 == 0, N %
-    128 == 0; the flagship's C 384 and the 8k width's C 768) where it can,
-    else "wmma" (csrc/mlp_wmma.cu: C % 16 == 0, W % 64 == 0 and a 64- or
-    32-point tile dividing N; the upsample demo's C 128). Raises ValueError
-    with both bodies' conditions otherwise."""
+    "hopper" (csrc/mlp.cu, TMA and wgmma: C % 384 == 0, W % 384 == 0;
+    the flagship's C 384 and the 8k width's C 768) where it can, else
+    "wmma" (csrc/mlp_wmma.cu: C % 16 == 0, W % 64 == 0 and a 64- or
+    32-point tile; the upsample demo's C 128); both take any N (padded).
+    Raises ValueError with both bodies' conditions otherwise."""
     if _mlp_hopper_takes(n, c, w):
         return "hopper"
     try:
-        _row_tile(n, c)
+        _row_tile(_n_pad(n), c)
         tile = True
     except ValueError:
         tile = False
@@ -1316,8 +1420,8 @@ def _mlp_body(b: int, n: int, c: int, w: int) -> str:
         return "wmma"
     raise ValueError(
         f"fused_mlp_residual: no CUDA body takes B={b}, N={n}, C={c}, W={w}: the Hopper body "
-        f"needs C % 384 == 0, W % 384 == 0 and N % 128 == 0; the WMMA body C % 16 == 0, W % 64 "
-        f"== 0 and a point tile of 64 (32 above C 384) dividing N")
+        f"needs C % 384 == 0 and W % 384 == 0; the WMMA body C % 16 == 0, W % 64 == 0 and C "
+        f"<= 768")
 
 
 def _mlp_launch(x, se, be, w1t, b1, w2t, b2):
@@ -1329,13 +1433,15 @@ def _mlp_launch(x, se, be, w1t, b1, w2t, b2):
         dict(x=_BF16, se=_F32, be=_F32, w1t=_BF16, b1=_F32, w2t=_BF16, b2=_F32),
     )
     run = _mlp_hopper if _mlp_body(b, n, c, w) == "hopper" else _mlp_wmma
-    return run(x, se, be, w1t, b1, w2t, b2)
+    out, sums = run(_pad_points(x, _n_pad(n)), se, be, w1t, b1, w2t, b2, n_valid=n)
+    return _unpad(out, n), sums
 
 
-def _mlp_hopper(x, se, be, w1t, b1, w2t, b2, mid: dict | None = None) -> tuple:
-    """The Hopper body (csrc/mlp.cu) -> (out, sums); ``mid``, where given,
-    receives the pre-normed y and the first pass's g, which
-    ``probes.mlp_bwd`` holds against their plain pieces."""
+def _mlp_hopper(x, se, be, w1t, b1, w2t, b2, mid: dict | None = None, n_valid=None) -> tuple:
+    """The Hopper body (csrc/mlp.cu) on x [B, N, C], N a multiple of 128,
+    whose points from ``n_valid`` on are padding (None: none) -> (out,
+    sums); ``mid``, where given, receives the pre-normed y and the first
+    pass's g, which ``probes.mlp_bwd`` holds against their plain pieces."""
     b, n, c = x.shape
     w = w1t.shape[1]
     dev = x.device
@@ -1343,21 +1449,23 @@ def _mlp_hopper(x, se, be, w1t, b1, w2t, b2, mid: dict | None = None) -> tuple:
     out = torch.empty_like(x)
     sums = torch.empty((b, 2, c), dtype=_F32, device=dev)
     launch("mlp", "mlp_launch", x, se, be, w1t, b1, w2t, b2, y, g,
-           torch.empty((b * n // 128, 2, c), dtype=_F32, device=dev), out, sums, b, n, c, w)
+           torch.empty((b * n // 128, 2, c), dtype=_F32, device=dev), out, sums, b, n, c, w,
+           n if n_valid is None else n_valid)
     fused_mlp_residual.launches += 1
     if mid is not None:
         mid.update(y=y, g=g)
     return out, sums
 
 
-def _mlp_wmma(x, se, be, w1t, b1, w2t, b2) -> tuple:
-    """The WMMA body (csrc/mlp_wmma.cu) -> (out, sums)."""
+def _mlp_wmma(x, se, be, w1t, b1, w2t, b2, n_valid=None) -> tuple:
+    """The WMMA body (csrc/mlp_wmma.cu) on x [B, N, C], N a multiple of
+    128, whose points from ``n_valid`` on are padding -> (out, sums)."""
     b, n, c = x.shape
     w = w1t.shape[1]
     out = torch.empty_like(x)
     sums = torch.zeros((b, 2, c), dtype=_F32, device=x.device)
     launch("mlp_wmma", "mlp_wmma_launch", x, se, be, w1t, b1, w2t, b2, out, sums, b, n, c, w,
-           _row_tile(n, c))
+           _row_tile(n, c), n if n_valid is None else n_valid)
     fused_mlp_residual.launches_wmma += 1
     return out, sums
 
@@ -1398,13 +1506,13 @@ def _mlp_bwd_ref(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
     return vjp(_mlp_ref, (x, se, be, w1t, b1, w2t, b2), (g, g_sums))
 
 
-def _mlp_bwd_grad_ref(x, a, w2t, b2, g, g_sums) -> tuple:
+def _mlp_bwd_grad_ref(x, a, w2t, b2, g, g_sums, n_valid=None) -> tuple:
     """Plain version of ``mlp_bwd_grad_kernel`` and db2's sum, from the
     first pass's a (``_mlp_act_ref``) -> (g' [B, N, C] fp32, bf16(g') in
     x's dtype, db2 [1, C] fp32): o = a @ w2t + b2 + x, g' = g + gs1 + 2 o
-    gs2."""
+    gs2, without the sums' terms on the points from ``n_valid`` on."""
     o = (torch.einsum("bnw,wc->bnc", a.float(), w2t.float()) + b2[None]) + x.float()
-    gp = g.float() + g_sums[:, 0:1].float() + 2.0 * o * g_sums[:, 1:2].float()
+    gp = g.float() + _sums_cotangent(o, g_sums, n_valid)
     return gp, gp.to(x.dtype), gp.sum((0, 1))[None]
 
 
@@ -1437,18 +1545,18 @@ def _mlp_bwd_wgrad_ref(y, a, dh, gb) -> tuple:
 def _mlp_bwd_body(b: int, n: int, c: int, w: int) -> str:
     """Which body of ``fused_mlp_residual_bwd`` takes these shapes on the
     card: "hopper" (csrc/mlp_bwd.cu, TMA and wgmma: C % 384 == 0, W % 384
-    == 0, N % 128 == 0; the flagship's C 384 and the 8k width's C 768)
-    where it can, else "wmma" (csrc/mlp_bwd_wmma.cu: C % 128 == 0, C <=
-    768, W % 64 == 0, N % 64 == 0; the upsample demo's C 128). Raises
-    ValueError with both bodies' conditions otherwise."""
+    == 0; the flagship's C 384 and the 8k width's C 768) where it can, else
+    "wmma" (csrc/mlp_bwd_wmma.cu: C % 128 == 0, C <= 768, W % 64 == 0; the
+    upsample demo's C 128); both take any N (padded). Raises ValueError
+    with both bodies' conditions otherwise."""
     if _mlp_hopper_takes(n, c, w):
         return "hopper"
-    if c % 128 == 0 and c <= 768 and w % 64 == 0 and n % 64 == 0:
+    if c % 128 == 0 and c <= 768 and w % 64 == 0 and n >= 1:
         return "wmma"
     raise ValueError(
         f"fused_mlp_residual_bwd: no CUDA body takes B={b}, N={n}, C={c}, W={w}: the Hopper "
-        f"body needs C % 384 == 0, W % 384 == 0 and N % 128 == 0; the WMMA body C % 128 == 0, "
-        f"C <= 768, W % 64 == 0 and N % 64 == 0")
+        f"body needs C % 384 == 0 and W % 384 == 0; the WMMA body C % 128 == 0, C <= 768 and "
+        f"W % 64 == 0")
 
 
 def fused_mlp_residual_bwd(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
@@ -1468,16 +1576,20 @@ def fused_mlp_residual_bwd(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
              g_sums=_F32),
     )
     run = _mlp_bwd_hopper if _mlp_bwd_body(b, n, c, w) == "hopper" else _mlp_bwd_wmma
-    dx, dse, dbe, dw1t, db1, dw2t, db2 = run(x, se, be, w1t, b1, w2t, b2, g, g_sums)
-    return (dx, dse, dbe, dw1t.to(w1t.dtype), db1.to(b1.dtype), dw2t.to(w2t.dtype),
+    n_pad = _n_pad(n)
+    dx, dse, dbe, dw1t, db1, dw2t, db2 = run(_pad_points(x, n_pad), se, be, w1t, b1, w2t, b2,
+                                             _pad_points(g, n_pad), g_sums, n_valid=n)
+    return (_unpad(dx, n), dse, dbe, dw1t.to(w1t.dtype), db1.to(b1.dtype), dw2t.to(w2t.dtype),
             db2.to(b2.dtype))
 
 
-def _mlp_bwd_hopper(x, se, be, w1t, b1, w2t, b2, g, g_sums, mid: dict | None = None) -> tuple:
-    """The Hopper body (csrc/mlp_bwd.cu) -> (dx, dse, dbe, dw1t, db1, dw2t,
-    db2), the weight and bias gradients fp32; ``mid``, where given,
-    receives the passes' y, a, g' (fp32), bf16(g') and dh, which
-    ``probes.mlp_bwd`` holds against their plain pieces."""
+def _mlp_bwd_hopper(x, se, be, w1t, b1, w2t, b2, g, g_sums, mid: dict | None = None,
+                    n_valid=None) -> tuple:
+    """The Hopper body (csrc/mlp_bwd.cu) on x and g [B, N, C], N a multiple
+    of 128, whose points from ``n_valid`` on are zero padding -> (dx, dse,
+    dbe, dw1t, db1, dw2t, db2), the weight and bias gradients fp32;
+    ``mid``, where given, receives the passes' y, a, g' (fp32), bf16(g')
+    and dh, which ``probes.mlp_bwd`` holds against their plain pieces."""
     b, n, c = x.shape
     w = w1t.shape[1]
     dev = x.device
@@ -1496,16 +1608,18 @@ def _mlp_bwd_hopper(x, se, be, w1t, b1, w2t, b2, g, g_sums, mid: dict | None = N
            buf["y"], buf["a"], buf["gb"], buf["gp"], buf["dh"],
            torch.empty((b * n // 128, max(w, 2 * c)), dtype=_F32, device=dev),
            torch.empty((splits, c, w), dtype=_F32, device=dev) if splits > 1 else None,
-           dx, dsb, dw1t, db1, dw2t, db2, b, n, c, w, splits)
+           dx, dsb, dw1t, db1, dw2t, db2, b, n, c, w, splits, n if n_valid is None else n_valid)
     fused_mlp_residual_bwd.launches += 1
     if mid is not None:
         mid.update(buf)
     return dx, dsb[:, 0], dsb[:, 1], dw1t, db1, dw2t, db2
 
 
-def _mlp_bwd_wmma(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
-    """The WMMA body (csrc/mlp_bwd_wmma.cu) -> (dx, dse, dbe, dw1t, db1,
-    dw2t, db2), the weight and bias gradients fp32 (fp32 atomics)."""
+def _mlp_bwd_wmma(x, se, be, w1t, b1, w2t, b2, g, g_sums, n_valid=None) -> tuple:
+    """The WMMA body (csrc/mlp_bwd_wmma.cu) on x and g [B, N, C], N a
+    multiple of 128, whose points from ``n_valid`` on are zero padding ->
+    (dx, dse, dbe, dw1t, db1, dw2t, db2), the weight and bias gradients
+    fp32 (fp32 atomics)."""
     b, n, c = x.shape
     w = w1t.shape[1]
     dev = x.device
@@ -1519,7 +1633,7 @@ def _mlp_bwd_wmma(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
     db2 = torch.zeros((1, c), dtype=_F32, device=dev)
     launch("mlp_bwd_wmma", "mlp_bwd_wmma_launch", x, se, be, w1t, b1, w2t, b2, g, g_sums, a,
            torch.empty_like(a), torch.empty_like(x), dx, dse, dbe, dw1t, db1, dw2t, db2,
-           b, n, c, w)
+           b, n, c, w, n if n_valid is None else n_valid)
     fused_mlp_residual_bwd.launches_wmma += 1
     return dx, dse, dbe, dw1t, db1, dw2t, db2
 

@@ -1,0 +1,101 @@
+"""Two source trees of the port side by side on one card: the flagship
+sampler and each fused function's device time, tree by tree in the order
+given.
+
+    python3 gecco_tpu_torch/probes/trees.py PARENT CHANGE CHANGE PARENT
+
+Each argument is the root of a checkout (``git archive`` of a commit, say):
+for each, in turn, a fresh process imports that tree's ``chip_smoke.py``
+and package (its kernels built from its own sources) and measures
+(1) ``chip_smoke.main_path``: the flagship (6 x 384, 64 inducers, 8
+heads, bf16, ``folded_pallas``) samples 64 clouds of 2048 points with the
+128-step Heun grid after a 2-step warm-up, host clock to a synchronize,
+and its 8-step sample against the plain path; (2) the device milliseconds
+per call (``torch.profiler``, 20 calls after 3) of the pool, h-side,
+unpool and MLP forwards at batch 64 and of the three folded backwards at
+batch 48, on operands drawn as ``chip_smoke.py`` draws them. It prints one
+JSON line per tree and the card's name and power limit. Run by file path,
+not with ``-m``, so that each tree's package is the one imported. Needs
+the card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+
+def measure(tree: str) -> dict:
+    """The measurements of one tree, in this process (its package first on
+    the path)."""
+    sys.path.insert(0, tree)
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+
+    if os.path.dirname(os.path.abspath(cs.__file__)) != tree:
+        raise RuntimeError(f"imported {cs.__file__}, not the tree {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    _, sample, _ = cs.main_path(dev, cs.BATCH, cs.FLAGSHIP["n_points"], cs.FLAGSHIP["n_layers"],
+                                cs.N_STEPS, compare_batch=8)
+    fa, hs, dt = cs.fa, cs.hs, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(1)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    b, tb, n, c, h, i, w = 64, 48, 2048, 384, 8, 64, 768
+    pool = cs.pool_operands(g, b, n, c, h, i, False, dev, dt)
+    hside = cs.hside_operands(g, b, i, c, w, False, dev, dt)
+    unpool = cs.unpool_operands(g, b, n, c, h, i, False, dev, dt)
+    mlp = cs.mlp_operands(g, b, n, c, w, False, dev, dt)
+    bpool = cs.pool_operands(g, tb, n, c, h, i, False, dev, dt)
+    _, qft, macc, sacc = fa._pool_ext_launch(*bpool, h, True)
+    gh = (0.1 * r(tb, i, c)).to(dt)
+    bunpool = cs.unpool_operands(g, tb, n, c, h, i, False, dev, dt)
+    bmlp = cs.mlp_operands(g, tb, n, c, w, False, dev, dt)
+    gg, gs = (0.1 * r(tb, n, c)).to(dt), 1e-3 * r(tb, 2, c)
+    runs = {
+        "folded_pool_ext": lambda: fa.folded_pool_ext(*pool, h),
+        "fused_h_side": lambda: hs.fused_h_side(*hside),
+        "folded_unpool": lambda: fa.folded_unpool(*unpool, h),
+        "fused_mlp_residual": lambda: fa.fused_mlp_residual(*mlp),
+        "folded_pool_ext_bwd": lambda: fa.folded_pool_ext_bwd(*bpool, qft, macc, sacc, gh, h),
+        "folded_unpool_bwd": lambda: fa.folded_unpool_bwd(*bunpool, gg, gs, h),
+        "fused_mlp_residual_bwd": lambda: fa.fused_mlp_residual_bwd(*bmlp, gg, gs),
+    }
+    device_ms = {}
+    for name, fn in runs.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        device_ms[name] = sum(e.self_device_time_total for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA) / 1e3 / 20
+    return {"clouds_per_s": sample["clouds_per_s"], "eval_ms": sample["eval_ms"],
+            "device_ms": device_ms}
+
+
+def main():
+    if len(sys.argv) > 2 and sys.argv[1] == "--one":
+        print(json.dumps({"tree": sys.argv[2], **measure(os.path.abspath(sys.argv[2]))}))
+        return
+    if len(sys.argv) < 2:
+        raise SystemExit(__doc__)
+    for tree in sys.argv[1:]:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"probes.trees on {tree}:\n{res.stdout}\n{res.stderr}")
+        print(res.stdout.strip().splitlines()[-1], flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

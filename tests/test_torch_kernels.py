@@ -187,8 +187,8 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         "projective_gather": 0, "rect_attention_fwd": 0, "fused_unpool_mlp": 0,
         "folded_pool_layer": 0, "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0,
         "fused_mlp_residual_bwd": 0, "projective_gather_bwd": 0, "rect_attention_bwd": 0,
-        "folded_pool_layer_bwd": 0, "folded_pool_ext_wmma": 0, "folded_unpool_wmma": 0,
-        "fused_mlp_residual_wmma": 0, "folded_pool_ext_bwd_wmma": 0,
+        "folded_pool_layer_bwd": 0, "folded_pool_ext_wmma": 0, "fused_h_side_wmma": 0,
+        "folded_unpool_wmma": 0, "fused_mlp_residual_wmma": 0, "folded_pool_ext_bwd_wmma": 0,
         "folded_unpool_bwd_wmma": 0, "fused_mlp_residual_bwd_wmma": 0,
         "folded_pool_ext_bwd_v1": 0, "folded_pool_ext_bwd_v2": 0, "folded_pool_ext_bwd_v2j": 0,
     }
@@ -505,12 +505,15 @@ def test_unpool_pieces_compose_to_the_plain_version(residual, prenorm, dtype):
      ("wmma", "hopper", "wmma")),  # the demo's 3 x 128
     ((48, 2048, 384, 3, 64), ("wmma", "wmma", "hopper"),
      ("wmma", "wmma", "hopper")),  # num_heads=3
-    ((48, 2000, 384, 8, 64), (None, None, None), (None, None, None)),  # N not a multiple of 64
-], ids=["flagship", "8k", "demo", "heads3", "none"])
+    ((48, 2000, 384, 8, 64), ("hopper", "hopper", "hopper"),
+     ("hopper", "hopper", "hopper")),  # the flagship at a ragged N (padded to 2048)
+    ((48, 2000, 100, 4, 64), (None, None, None), (None, None, None)),  # C % 16 != 0
+], ids=["flagship", "8k", "demo", "heads3", "ragged", "none"])
 def test_body_switches_choose_by_shape(shape, bodies, bwd):
     """The pool, unpool and MLP forwards and backwards pick one of their
-    two CUDA bodies by shape alone, and a shape that neither takes raises
-    ValueError naming both bodies' conditions."""
+    two CUDA bodies by shape alone, any point count taking the bodies of
+    its padded count, and a shape that neither takes raises ValueError
+    naming both bodies' conditions."""
     b, n, c = shape[:3]
     mlp = (b, n, c, 2 * c)
     switches = ((tfa._pool_ext_body, shape), (tfa._unpool_body, shape), (tfa._mlp_body, mlp),
@@ -573,7 +576,8 @@ def test_pool_bwd_switch_takes_the_forced_body(monkeypatch, mode, want):
     algebra's bodies; forced to v1, v2 or v2j, that body where its kernel
     takes the shape (the flagship's and the 8k width), and on the card a
     forced body that does not take the shape raises (None), as does N 2000
-    under every value."""
+    under a forced body (the v1, v2 and v2j bodies take no ragged tail);
+    unset or "v3", N 2000 takes the Hopper body at its padded count."""
     monkeypatch.setattr(tfa, "_POOL_BWD_ENV", mode)
     for shape, body in zip(POOL_BWD_SHAPES, want):
         if body is None:
@@ -581,8 +585,11 @@ def test_pool_bwd_switch_takes_the_forced_body(monkeypatch, mode, want):
                 tfa._pool_ext_bwd_body(*shape)
         else:
             assert tfa._pool_ext_bwd_body(*shape) == body
-    with pytest.raises(ValueError, match="does not take|no CUDA body takes"):
-        tfa._pool_ext_bwd_body(48, 2000, 384, 8, 64)
+    if mode in (None, "v3"):
+        assert tfa._pool_ext_bwd_body(48, 2000, 384, 8, 64) == "hopper"
+    else:
+        with pytest.raises(ValueError, match=f"GECCO_POOL_BWD={mode} forces"):
+            tfa._pool_ext_bwd_body(48, 2000, 384, 8, 64)
 
 
 def test_pool_bwd_env_parses_as_the_jax_package(capsys):

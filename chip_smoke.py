@@ -7,9 +7,9 @@ Phases (each raises on failure; nothing is caught):
 
 1. environment: torch, nvcc, the card's name and power limit;
 2. build: the fourteen CUDA kernels of ``gecco_tpu_torch/csrc`` (eight
-   forward, six backward), the WMMA bodies beside the four Hopper
+   forward, six backward), the WMMA bodies beside the five Hopper
    forwards and the three Hopper backwards, and the pool backward's v1 and
-   v2/v2j bodies (twenty-two libraries, the projective gather's forward
+   v2/v2j bodies (twenty-three libraries, the projective gather's forward
    and backward in one) with nvcc for sm_90a,
    one process per source, all at once, with ``ptxas -v``'s registers and
    spills;
@@ -92,22 +92,29 @@ Phases (each raises on failure; nothing is caught):
    each, the separate unpool and MLP never; then the 8-step sample against
    the separate kernels' path and against the plain path; the variable is
    restored;
-14. resident pool: ``folded_pool_layer`` against its plain version with
-   and without its pre-norm (h0, and the GroupNorm statistics it computes),
-   ordinary and drifted, at the sampler's batch 64 and at the 8k width;
-   its backward against autograd of the plain version at the training
-   batch 48 and the 8k width, nonzero mean/inv cotangents (the drifted
-   dbias beside the witness of its looser tolerance); the unpool forward
-   and backward with both flags off at the flagship's shapes; times,
-   bounds and, without the pre-norm, per-head SDPA as the yardstick;
+14. resident pool: ``folded_pool_layer``'s Hopper body (``csrc/pool.cu``)
+   against its plain version with and without its pre-norm (h0, and the
+   GroupNorm statistics it computes), ordinary and drifted, at the
+   sampler's batch 64 and at the 8k width (batch 2 at N 8192, batch 64 at
+   N 2048), the body held by its counter; each of its passes against its
+   plain piece on the kernel's own inputs and every output the same bits
+   in two calls (``probes.pool_layer``); its WMMA body
+   (``csrc/pool_wmma.cu``) at the sampler's shapes, the two timed in
+   turns; the backward, on the Hopper body's saved tensors, against
+   autograd of the plain version at the training batch 48 and the 8k
+   width, nonzero mean/inv cotangents (the drifted dbias beside the
+   witness of its looser tolerance); the unpool forward and backward with
+   both flags off at the flagship's shapes; times, bounds and, without the
+   pre-norm, per-head SDPA as the yardstick;
 15. module-level folded path at the flagship's width: a ``Broadcast`` on
    ``folded_pallas`` (the resident pool without its pre-norm, the flag-free
    unpool) forward at batch 64 against ``xla`` and ``folded``, one gradient
    at batch 48 per parameter group and for x against the plain path in
    fp32 (the plain bf16 path printed beside it); a ``BroadcastingLayer``
    called without channel sums under ``torch.no_grad`` (the resident pool
-   with its statistics) against the plain layer; each run's launches
-   exact;
+   with its statistics) against the plain layer; a ``Broadcast`` with
+   three heads (the resident pool's and the unpool's WMMA bodies) against
+   ``xla``; each run's launches exact;
 16. upsample path: the flagship on ``folded_pallas`` upsamples one
    2048-point observation to 102,400 points through ``Diffusion.upsample``
    on ``scripts/demo_upsample_100k.py``'s protocol (64-step extended grid, 5
@@ -146,7 +153,17 @@ Phases (each raises on failure; nothing is caught):
    flagship with three heads (the rect attention's D 128 instances): each
    samples 8 steps from one latent against the plain path and takes one
    gradient against it, every function through a kernel, the launch
-   counts exact;
+   counts exact; then the shapes ROADMAP C1 listed as raising on the card,
+   at batch 8: the resident pool's Hopper body at 24, 128 and 256 inducers
+   and its WMMA body's column blocks (three heads, 256), the pool forward
+   and backward at 24 and 256, the unpool forward at 24, 192 and 256 and
+   backward at 24, 128 and 256, the h-side at 24, the rect attention at D
+   40 and 192 and the pool backward's v1, v2 and v2j bodies at N 2000 and
+   the demo's C 128, each against its plain version with the expected
+   body; then one model per item at two layers (128, 256 and 24
+   inducers; per head at D 40 and 192; N 2000 under each forced body):
+   8 steps from one latent and one gradient at batch 16 against the plain
+   path, every function through a kernel, the launch counts exact;
 22. ragged point counts (ROADMAP C1): every body of the point-tiled
    functions (the pool, unpool and MLP forwards and backwards, Hopper and
    WMMA bodies, and the resident pool with and without its pre-norm) at N
@@ -157,7 +174,7 @@ Phases (each raises on failure; nothing is caught):
    at N 2000 samples 8 steps from one latent against the plain path and
    takes one gradient at batch 48 against it, every function through a
    kernel, the launch counts exact; one evaluation at batch 64 timed at N
-   2000 and at N 2048, in turns.
+   2000 and at N 2048, in turns; the resident pool's launches exact.
 
 Phase 3 holds the h-side's Hopper body (``csrc/hside.cu``) at the
 flagship's, the 8k width's and the demo's shapes and at 16, 32 and 48
@@ -187,7 +204,8 @@ in two calls; and it holds the pool backward's WMMA body (the demo, three
 heads), the unpool backward's Hopper body (the demo) and WMMA body (three
 heads) and the MLP backward's WMMA body (the demo's C 128) and Hopper
 body (three heads' C 384), and fails unless those checks ran the expected
-bodies.
+bodies; it times the pool and unpool backwards' WMMA bodies with three
+heads beside the SDPA backward at those heads.
 
 Phases 3, 4 and 14 also time, beside the SDPA yardstick of the pools and
 unpools, the whole function as a chain of PyTorch calls (pre-norm,
@@ -196,9 +214,9 @@ backwards under autograd): ``library_chain_ms`` in the kernels' JSON line
 (null elsewhere).
 
 It prints the kernels' JSON line, then the card's name and power limit, then
-the device line, last. The resident pool's two entries there hold the
-variant without the pre-norm, the module-level ``Broadcast``'s, with its
-launches and SDPA yardstick; the pre-norm variant (the sums-less layer's)
+the device line, last. The resident pool's entries there (each body's, and
+the backward's) hold the variant without the pre-norm, the module-level
+``Broadcast``'s, with its launches and SDPA yardstick; the pre-norm variant (the sums-less layer's)
 sits under each one's ``prenorm`` key with its own launches and times. It imports nothing of JAX or of gecco_tpu, and fails
 without a CUDA device.
 """
@@ -251,6 +269,7 @@ from gecco_tpu_torch.ops.kernels import folded_attention as fa  # noqa: E402
 from gecco_tpu_torch.ops.kernels import hside as hs  # noqa: E402
 from gecco_tpu_torch.ops.kernels import induced_attention as ia  # noqa: E402
 from gecco_tpu_torch.probes.hside import passes as hside_passes  # noqa: E402
+from gecco_tpu_torch.probes.pool_layer import check_shape as pool_layer_passes  # noqa: E402
 from gecco_tpu_torch.ops.kernels.projective_gather import (  # noqa: E402
     _gather_bwd_ref,
     _gather_ref,
@@ -387,6 +406,9 @@ SOURCES = {
                          "gecco_tpu/ops/pallas/folded_attention.py:3176"),
     "folded_pool_layer": ("gecco_tpu_torch/csrc/pool.cu",
                           "gecco_tpu/ops/pallas/folded_attention.py:526"),
+    # the resident pool's WMMA body, for the shapes its Hopper body does not take
+    "folded_pool_layer_wmma": ("gecco_tpu_torch/csrc/pool_wmma.cu",
+                               "gecco_tpu/ops/pallas/folded_attention.py:526"),
     "folded_pool_layer_bwd": ("gecco_tpu_torch/csrc/pool_bwd.cu",
                               "gecco_tpu/ops/pallas/folded_attention.py:696"),
     # the WMMA bodies beside the two Hopper forwards, chosen by shape
@@ -1412,12 +1434,17 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
         6 * 2 * db * dn * dc * dj + 6 * 2 * db * dj * dd * dc,
         nbytes(*[a for a in ops if torch.is_tensor(a)], *kernel())
         + 2 * db * di * dc + 2 * 4 * db * dj)
-    _, kernel, *_ = pool_case(*hshape, False)
+    # the WMMA bodies with three heads, each beside its SDPA backward
+    # yardstick at those heads (the rows of PERF.md's table that rank them)
+    ops, kernel, *_ = pool_case(*hshape, False)
     pw_rec["ms_heads3"] = time_ms(kernel, device, reps)
+    pw_rec["library_ms_heads3"] = time_ms(sdpa_pool_bwd(ops, hshape[3], g), device, reps)
     hopper, wmma, _ = unpool_bodies(dshape, False)
     un_rec["ms_demo"] = time_ms(hopper, device, reps)
     _, wmma, _ = unpool_bodies(hshape, False)
     wm_rec["ms_heads3"] = time_ms(wmma, device, reps)
+    uops = unpool_operands(g, *hshape, False, device, dt)
+    wm_rec["library_ms_heads3"] = time_ms(sdpa_unpool_bwd(uops, hshape[3], g), device, reps)
     ops = mlp_operands(g, db, dn, dc, 2 * dc, False, device, dt)
     gg, gs = (0.1 * r(db, dn, dc)).to(dt), 1e-3 * r(db, 2, dc)
     kernel = lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs)
@@ -1432,9 +1459,11 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
     print(f"  folded_pool_ext_bwd, WMMA body: {pw_rec['ms']:.3f} ms at the demo's shapes "
           f"(plain {pw_rec['plain_ms']:.3f}, library {pw_rec['library_ms']:.3f}, chain "
           f"{pw_rec['library_chain_ms']:.3f}, bound {pw_rec['bound_ms']:.3f} "
-          f"({pw_rec['bound_by']})), {pw_rec['ms_heads3']:.3f} ms with three heads at C {hshape[2]}; "
-          f"folded_unpool_bwd: Hopper body {un_rec['ms_demo']:.3f} ms at the demo's shapes, WMMA "
-          f"body {wm_rec['ms_heads3']:.3f} ms with three heads; fused_mlp_residual_bwd, WMMA "
+          f"({pw_rec['bound_by']})), {pw_rec['ms_heads3']:.3f} ms with three heads at C "
+          f"{hshape[2]} (sdpa backward {pw_rec['library_ms_heads3']:.3f}); folded_unpool_bwd: "
+          f"Hopper body {un_rec['ms_demo']:.3f} ms at the demo's shapes, WMMA body "
+          f"{wm_rec['ms_heads3']:.3f} ms with three heads (sdpa backward "
+          f"{wm_rec['library_ms_heads3']:.3f}); fused_mlp_residual_bwd, WMMA "
           f"body: {mlp_wm['ms']:.3f} ms at the demo's shapes (plain {mlp_wm['plain_ms']:.3f}, "
           f"bound {mlp_wm['bound_ms']:.3f} ({mlp_wm['bound_by']}))")
     rec["folded_pool_ext_bwd_wmma"] = pw_rec
@@ -1799,13 +1828,17 @@ def attention_phase(device, shapes, train_batch, big, dt, reps):
 
 def resident_pool_phase(device, shapes, train_batch, big, dt, reps):
     """The resident pool's forward against its plain version (prenorm on
-    and off, ordinary and drifted, at the sampler's shapes and the 8k
-    width), its backward against autograd of the plain version (nonzero
-    mean/inv cotangents, at the training batch and the 8k width), and the
-    unpool with both flags off at the flagship's shapes; returns the
-    resident pool's records: each without its pre-norm (the module-level
-    Broadcast's route), with the pre-norm variant (the sums-less layer's
-    route) nested under ``prenorm``."""
+    and off, ordinary and drifted): its Hopper body at the sampler's shapes
+    and the 8k width (B 2 at N 8192 and the sampler's batch at N 2048),
+    pass by pass against its plain pieces with the same bits in two calls,
+    and its WMMA body at the sampler's shapes, the two timed in turns; its
+    backward on the Hopper body's saved tensors against autograd of the
+    plain version (nonzero mean/inv cotangents, at the training batch and
+    the 8k width); and the unpool with both flags off at the flagship's
+    shapes. Returns the resident pool's records (each body's): each
+    without its pre-norm (the module-level Broadcast's route), with the
+    pre-norm variant (the sums-less layer's route) nested under
+    ``prenorm``."""
     g = torch.Generator(device=device).manual_seed(6)
     r = lambda *sh: torch.randn(*sh, generator=g, device=device)
     b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
@@ -1831,9 +1864,10 @@ def resident_pool_phase(device, shapes, train_batch, big, dt, reps):
         return f"{norm}{width}, {'drift' if drift else 'ordinary'}"
 
     def variant_rec(fwd_name, prenorm, errs, **timed):
-        """The record of one variant; the variant that gave the module-level
-        path most of its launches (no pre-norm) at the top, the other nested
-        under ``prenorm``."""
+        """The record of one variant (``errs``: its max |err| per pre-norm
+        flag); the variant that gave the module-level path most of its
+        launches (no pre-norm) at the top, the other nested under
+        ``prenorm``."""
         r_ = dict(max_abs_err=max(errs[prenorm]), **timed)
         entry = rec.setdefault(fwd_name, {})
         if prenorm:
@@ -1841,30 +1875,63 @@ def resident_pool_phase(device, shapes, train_batch, big, dt, reps):
         else:
             entry.update(r_)
 
-    # forward
-    errs = {True: [], False: []}
-    for dims, width in (((b, n, c, heads, i), ""),
-                        ((big["batch"], big["n_points"], big["feature_dim"], big["num_heads"],
-                          big["num_inducers"]), " 8k width")):
+    # forward: the Hopper body at the flagship's width and at the 8k width
+    # (B 2 at N 8192, and the sampler's batch at N 2048), each call held to
+    # its body by the counters; the WMMA body at the flagship's width
+    errs = {body: {True: [], False: []} for body in ("hopper", "wmma")}
+    big_dims = (big["batch"], big["n_points"], big["feature_dim"], big["num_heads"],
+                big["num_inducers"])
+    big_b = (b, n, big["feature_dim"], big["num_heads"], big["num_inducers"])
+    fwd_cases = (((b, n, c, heads, i), "", "hopper"), (big_dims, " 8k width", "hopper"),
+                 (big_b, f" 8k width, batch {b}", "hopper"), ((b, n, c, heads, i), "", "wmma"))
+    counter = {"hopper": "folded_pool_layer", "wmma": "folded_pool_layer_wmma"}
+    for dims, width, body in fwd_cases:
         for prenorm in (True, False):
             for drift in (False, True):
                 ops = ops_for(*dims, drift)
+                kernels.reset_launch_counts()
                 with torch.no_grad():
-                    got = fa.folded_pool_layer(*ops, dims[3], prenorm)
+                    if device.type == "cuda":
+                        got = fa._pool_layer_launch(*ops, dims[3], prenorm, False, body=body)[:3]
+                    else:
+                        got = fa.folded_pool_layer(*ops, dims[3], prenorm)
                     want = fa._pool_ref(*ops[:6], GROUPS, dims[3], prenorm)
                 sync(device)
+                counts = kernels.launch_counts()
+                other = counter["wmma" if body == "hopper" else "hopper"]
+                if device.type == "cuda" and (body == "hopper"
+                                              and fa._pool_layer_body(*dims) != "hopper"
+                                              or counts[counter[body]] != 1 or counts[other]):
+                    raise AssertionError(f"folded_pool_layer{width}: expected its {body} body, "
+                                         f"got {counts}")
+                what = f"folded_pool_layer{'_wmma' if body == 'wmma' else ''}"
                 for name, a, ref, tol in zip(("h0", "mean_c", "inv_c"), got, want,
                                              (TOL_OUT, TOL_STATS, TOL_STATS)):
-                    check(f"folded_pool_layer [{tag(prenorm, drift, width)}] {name}",
-                          rel_err(a, ref), tol)
+                    check(f"{what} [{tag(prenorm, drift, width)}] {name}", rel_err(a, ref), tol)
                 if not width:
-                    errs[prenorm].append(abs_err(got[0], want[0]))
+                    errs[body][prenorm].append(abs_err(got[0], want[0]))
+    # the Hopper body pass by pass against its plain pieces on its own
+    # inputs, and the same bits in two calls (probes.pool_layer)
+    if device.type == "cuda":
+        failed = []
+        for dims, width in (((b, n, c, heads, i), ""), (big_b, f" 8k width, batch {b}")):
+            for drift in (False, True):
+                pool_layer_passes(ops_for(*dims, drift), dims[3], failed,
+                                  f"folded_pool_layer passes{width}, "
+                                  f"{'drift' if drift else 'ordinary'}")
+        if failed:
+            raise AssertionError("folded_pool_layer passes: " + "; ".join(failed))
     ops = ops_for(b, n, c, heads, i, False)
-    # the products: logits, values, p^T v, the output projection
+    # the products: logits (twice), values, p^T v, the output projection
     flops = 2 * b * n * c * j + 2 * b * n * c * c + 2 * b * n * j * d + 2 * b * i * c * c
     for prenorm in (True, False):
         with torch.no_grad():
-            ms = time_ms(lambda: fa.folded_pool_layer(*ops, heads, prenorm), device, reps)
+            if device.type == "cuda":
+                run = lambda body: (lambda: fa._pool_layer_launch(*ops, heads, prenorm, False,
+                                                                  body=body))
+            else:
+                run = lambda body: (lambda: fa.folded_pool_layer(*ops, heads, prenorm))
+            turns = bodies_in_turns(run("hopper"), run("wmma"), device, reps)
             plain_ms = time_ms(lambda: fa._pool_ref(*ops[:6], GROUPS, heads, prenorm), device,
                                max(2, reps // 4))
             lib_ms = None if prenorm else time_ms(sdpa_pool(unfolded(ops), heads), device, reps)
@@ -1877,10 +1944,18 @@ def resident_pool_phase(device, shapes, train_batch, big, dt, reps):
                         + 2 * 4 * b * c)
         lib_txt = (f"sdpa {lib_ms:.3f} ms, chain {chain_ms:.3f}" if lib_ms is not None
                    else "library none")
-        print(f"  folded_pool_layer ({tag(prenorm, False)}): kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, {lib_txt} ms, bound {bms:.3f} ms ({by})")
-        variant_rec("folded_pool_layer", prenorm, errs, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, library_ms=lib_ms, library_chain_ms=chain_ms)
+        t_h, t_w = turns["hopper"], turns["wmma"]
+        ms, wmma_ms = statistics.median(t_h), statistics.median(t_w)
+        print(f"  folded_pool_layer ({tag(prenorm, False)}): Hopper body {ms:.3f} ms "
+              f"({t_h[0]:.3f}-{t_h[-1]:.3f}), WMMA body {wmma_ms:.3f} ms ({t_w[0]:.3f}-"
+              f"{t_w[-1]:.3f}) in turns, plain {plain_ms:.3f} ms, {lib_txt} ms, bound {bms:.3f} "
+              f"ms ({by})")
+        for name, body, t_ms, t in (("folded_pool_layer", "hopper", ms, t_h),
+                                    ("folded_pool_layer_wmma", "wmma", wmma_ms, t_w)):
+            rec_errs = {k: v for k, v in errs[body].items()}
+            variant_rec(name, prenorm, rec_errs, ms=t_ms, ms_min_max=[t[0], t[-1]],
+                        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                        library_chain_ms=chain_ms)
 
     # backward
     names = ("dx", "dscale", "dbias", "dind2", "dkvw", "dwo")
@@ -1993,8 +2068,10 @@ def module_phase(device, shapes, train_batch, dt):
     the unpool's q/k gradients pass through the softmax backward's dp - t,
     a difference of near-equal numbers that the plain bf16 path takes
     after rounding dp (chip reading: 5.6e-2 between the two bf16 paths).
-    Returns the launch counts of the three runs together, and those of the
-    sums-less layer's run alone (the resident pool with its pre-norm)."""
+    Then a Broadcast with three heads forward (the resident pool's and the
+    unpool's WMMA bodies). Returns the launch counts of the runs together,
+    and those of the sums-less layer's run alone (the resident pool with
+    its pre-norm)."""
     b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
         shapes["num_heads"], shapes["num_inducers"]
     tb = train_batch
@@ -2061,6 +2138,19 @@ def module_phase(device, shapes, train_batch, dt):
     print(f"  the plain bf16 path's worst group against fp32: {worst_plain:.3e}")
     check(f"Broadcast gradient (batch {tb}), folded_pallas vs the plain path in fp32 "
           f"(worst group)", worst, TOL_TRAIN_GRAD, "||err||/||ref||")
+
+    # the resident pool's WMMA body: a Broadcast with three heads (D 128 at
+    # the flagship's C; two on a width that three do not divide)
+    h3 = 3 if c % 48 == 0 else 2
+    bc3 = Broadcast(c, i, 1, h3, **kw)
+    with torch.no_grad():
+        got = run(lambda: bc3(x, embed, attn_impl="folded_pallas"),
+                  {"folded_pool_layer_wmma": 1, "folded_unpool_wmma": 1},
+                  f"module-level Broadcast with {h3} heads")
+        ref = bc3(x, embed, attn_impl="xla")
+        for name, a, rr in zip(("out", "h"), got, ref):
+            check(f"Broadcast with {h3} heads (batch {b}) {name}, folded_pallas vs xla",
+                  rel_err(a, rr), TOL_PATH)
 
     with torch.no_grad():
         before = dict(total)
@@ -2350,45 +2440,53 @@ def twopass_train_phase(device, n_layers, batch, n_points, card, steps) -> tuple
 
 
 def shapes_phase(device, n_layers, batch, compare_batch, cases) -> dict:
-    """The shapes that the h-side's and the rect attention's new instances
-    bring onto the card (ROADMAP C1). Per case (name -> (dims, attn_impl,
-    names launched per layer and evaluation, names launched per layer in a
-    gradient)): an 8-step sample
+    """The shapes that ROADMAP C1 brought onto the card. Per case (name ->
+    (dims, attn_impl, names launched per layer and evaluation, names
+    launched per layer in a gradient[, the pool backward's body that
+    ``GECCO_POOL_BWD`` forces])): an 8-step sample
     of ``compare_batch`` clouds from one latent, the kernel path against
     the plain path (TOL_PATH), then one gradient at ``batch`` against the
     plain path (TOL_TRAIN_GRAD), each run's launch counts exact: every
     function through a kernel. Returns each case's counts."""
     out = {}
-    for name, (dims, impl, per_eval, per_grad) in cases.items():
-        print(f"  {name} ({dims}, {impl}):")
-        model = build_flagship(device, torch.Generator().manual_seed(0), n_layers,
-                               attn_impl=impl, dims=dims)
-        gen = torch.Generator(device=device).manual_seed(1)
-        n = dims["n_points"]
-        latent = model.schedule.sample_latent(gen, (compare_batch, n, 3), device)
-        kernels.reset_launch_counts()
-        fused = model.sample_from_latent(latent, n_solver_steps=8)
-        counts = kernels.launch_counts()
-        if tuple(fused.shape) != (compare_batch, n, 3) or not bool(torch.isfinite(fused).all()):
-            raise AssertionError(f"{name}: sample of shape {tuple(fused.shape)} or non-finite")
-        evals = 2 * (8 - 1)
-        check_counts(f"{name} 8-step sample", counts,
-                     expected_counts({k: m * n_layers * evals for k, m in per_eval.items()}),
-                     device)
-        set_path(model, False)
-        plain = model.sample_from_latent(latent, n_solver_steps=8)
-        set_path(model, True, impl)
-        check(f"{name}: 8-step sample, kernel path vs plain path", rel_err(fused, plain), TOL_PATH)
-        data = torch.from_numpy(make_clouds(np.random.default_rng(0), batch, n)).to(device)
-        sigma, noise = model.draw_sigma_noise(gen, data)
-        kernels.reset_launch_counts()
-        compare_grads(model, lambda: model.loss_from(data, sigma, noise), TOL_TRAIN_GRAD, impl,
-                      witness=impl == "pallas")
-        grad_counts = kernels.launch_counts()
-        check_counts(f"{name} gradient", grad_counts,
-                     expected_counts({k: m * n_layers for k, m in per_grad.items()}), device)
-        out[name] = (counts, grad_counts)
+    for name, (dims, impl, per_eval, per_grad, *forced) in cases.items():
+        with pool_bwd_forced(forced[0] if forced else fa._POOL_BWD_ENV):
+            out[name] = shape_case(device, n_layers, batch, compare_batch, name, dims, impl,
+                                   per_eval, per_grad)
     return out
+
+
+def shape_case(device, n_layers, batch, compare_batch, name, dims, impl, per_eval,
+               per_grad) -> tuple:
+    """One case of ``shapes_phase`` -> its sample's and gradient's counts."""
+    print(f"  {name} ({dims}, {impl}):")
+    model = build_flagship(device, torch.Generator().manual_seed(0), n_layers,
+                           attn_impl=impl, dims=dims)
+    gen = torch.Generator(device=device).manual_seed(1)
+    n = dims["n_points"]
+    latent = model.schedule.sample_latent(gen, (compare_batch, n, 3), device)
+    kernels.reset_launch_counts()
+    fused = model.sample_from_latent(latent, n_solver_steps=8)
+    counts = kernels.launch_counts()
+    if tuple(fused.shape) != (compare_batch, n, 3) or not bool(torch.isfinite(fused).all()):
+        raise AssertionError(f"{name}: sample of shape {tuple(fused.shape)} or non-finite")
+    evals = 2 * (8 - 1)
+    check_counts(f"{name} 8-step sample", counts,
+                 expected_counts({k: m * n_layers * evals for k, m in per_eval.items()}),
+                 device)
+    set_path(model, False)
+    plain = model.sample_from_latent(latent, n_solver_steps=8)
+    set_path(model, True, impl)
+    check(f"{name}: 8-step sample, kernel path vs plain path", rel_err(fused, plain), TOL_PATH)
+    data = torch.from_numpy(make_clouds(np.random.default_rng(0), batch, n)).to(device)
+    sigma, noise = model.draw_sigma_noise(gen, data)
+    kernels.reset_launch_counts()
+    compare_grads(model, lambda: model.loss_from(data, sigma, noise), TOL_TRAIN_GRAD, impl,
+                  witness=impl == "pallas")
+    grad_counts = kernels.launch_counts()
+    check_counts(f"{name} gradient", grad_counts,
+                 expected_counts({k: m * n_layers for k, m in per_grad.items()}), device)
+    return counts, grad_counts
 
 
 def ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ns, n_layers):
@@ -2557,11 +2655,16 @@ def ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ns, n_laye
                                   f"algebra", rel_err(a, alg), TOL_AFFINE)
                     check(f"folded_pool_layer_bwd [{tag}] {name}", rel_err(a, ref), tol)
     counts = kernels.launch_counts()
-    print(f"    launches: folded_pool_layer {counts['folded_pool_layer']}, folded_pool_layer_bwd "
+    print(f"    launches: folded_pool_layer {counts['folded_pool_layer']}, folded_pool_layer_wmma "
+          f"{counts['folded_pool_layer_wmma']}, folded_pool_layer_bwd "
           f"{counts['folded_pool_layer_bwd']}")
-    if device.type == "cuda" and not (counts["folded_pool_layer"]
-                                      and counts["folded_pool_layer_bwd"]):
-        raise AssertionError(f"the resident pool's kernels did not run: {counts}")
+    # per N, flag and operands: the forward, the backward's forward, the backward
+    cases = len(ns) * 2 * 2
+    if device.type == "cuda" and (counts["folded_pool_layer"] != 2 * cases
+                                  or counts["folded_pool_layer_wmma"]
+                                  or counts["folded_pool_layer_bwd"] != cases):
+        raise AssertionError(f"the resident pool's Hopper body and backward did not run "
+                             f"exactly: {counts}")
 
     # the flagship at the ragged N: every function through a kernel
     n = ns[0]
@@ -2585,6 +2688,192 @@ def ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ns, n_laye
           f"N {n_pad} {out[f'eval_ms_n{n_pad}']:.3f} ms (median of {len(times[n])} each, "
           f"in turns)")
     return out
+
+
+def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
+    """Phase 21's checks of the shapes that ROADMAP C1 listed as raising on
+    the card (the JAX package runs its kernels there), each function
+    against its plain version at the tolerances of its checks at the
+    flagship's shapes, ordinary and drifted, failing unless the expected
+    body ran: the resident pool's Hopper body at 24, 128 and 256 inducers
+    and its WMMA body's column blocks (three heads, 256); the pool forward
+    and backward at 24 and 256 inducers; the unpool forward at 24, 192 and
+    256 and its backward at 24, 128 and 256; the h-side at 24; the rect
+    attention at D 40 and 192, both directions; the pool backward's v1, v2
+    and v2j bodies at N 2000 and at the demo's width. Then one model per
+    item at two layers (``shapes_phase``): an 8-step sample and a gradient,
+    every function through a kernel. Returns the models' launch counts."""
+    g = torch.Generator(device=device).manual_seed(11)
+    r = lambda *sh: torch.randn(*sh, generator=g, device=device)
+    n, c, heads = shapes["n_points"], shapes["feature_dim"], shapes["num_heads"]
+    b = 2 if rehearse else 8
+    # the rect attention's widths, (C, H): D 40 and D 192
+    rect = ((160, 4), (192, 1)) if rehearse else ((320, 8), (384, 2))
+    tags = lambda what, drift: f"{what}, {'drift' if drift else 'ordinary'}"
+
+    def ran(what, body, other=None):
+        """The expected body ran (and the other did not), then the counters
+        are reset."""
+        counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        if device.type == "cuda" and (counts[body] == 0 or (other and counts[other])):
+            raise AssertionError(f"{what}: expected the {body} body, got {counts}")
+
+    def hold(what, got, want, names, tols):
+        sync(device)
+        for name, a, ref, tol in zip(names, got, want, tols):
+            if tuple(a.shape) != tuple(ref.shape):
+                raise AssertionError(f"{what} {name}: shape {tuple(a.shape)}, "
+                                     f"expected {tuple(ref.shape)}")
+            check(f"{what} {name}", rel_err(a, ref), tol)
+
+    kernels.reset_launch_counts()
+    # the resident pool: (C, H, I, the body's counter)
+    h3 = 3 if c % 48 == 0 else 2  # the WMMA body's heads: D 128 at the flagship's C
+    layer_cases = ((c, heads, 24, "folded_pool_layer"), (c, heads, 128, "folded_pool_layer"),
+                   (c, heads, 256, "folded_pool_layer"), (c, h3, 256, "folded_pool_layer_wmma"))
+    for cc, hh, ii, body in layer_cases:
+        for drift in (False, True):
+            x, sc, bi, ind2, kvw, wo = pool_operands(g, b, n, cc, hh, ii, drift, device, dt)
+            x = (1.5 * x.float() + 0.3 * r(1, 1, cc)).to(dt)
+            ops = (x, sc, bi, ind2, kvw, wo, fa.group_indicator(cc, GROUPS, device))
+            for prenorm in (True, False):
+                with torch.no_grad():
+                    got = fa.folded_pool_layer(*ops, hh, prenorm)
+                    want = fa._pool_ref(*ops[:6], GROUPS, hh, prenorm)
+                hold(f"folded_pool_layer [{tags(f'{hh} heads, I {ii}', drift)}, "
+                     f"{'prenorm' if prenorm else 'no pre-norm'}]", got, want,
+                     ("h0", "mean_c", "inv_c"), (TOL_OUT, TOL_STATS, TOL_STATS))
+        ran(f"folded_pool_layer at {hh} heads, I {ii}", body)
+
+    # the pool forward and backward (their WMMA bodies)
+    for ii in (24, 256):
+        for drift in (False, True):
+            ops = pool_operands(g, b, n, c, heads, ii, drift, device, dt)
+            with torch.no_grad():
+                got, want = fa.folded_pool_ext(*ops, heads), fa._pool_ext_ref(*ops, heads)
+            hold(f"folded_pool_ext [{tags(f'I {ii}', drift)}]", (got,), (want,), ("h0",),
+                 (TOL_OUT,))
+            ran(f"folded_pool_ext at I {ii}", "folded_pool_ext_wmma", "folded_pool_ext")
+            if device.type == "cuda":
+                _, qft, macc, sacc = fa._pool_ext_launch(*ops, heads, True)
+            else:
+                qft = macc = sacc = None
+            kernels.reset_launch_counts()
+            gh = (0.1 * r(b, ii, c)).to(dt)
+            got = fa.folded_pool_ext_bwd(*ops, qft, macc, sacc, gh, heads)
+            want = fa._pool_ext_bwd_ref(*ops, gh, heads)
+            names = ("dx", "dse", "dbe", "dind2", "dkvw", "dwo")
+            tols = [TOL_AFFINE if k in ("dse", "dbe") else TOL_GRAD for k in names]
+            if drift:
+                # the v3 algebra's residue in the drifted dbe, as in phase 4:
+                # held against the algebra itself
+                tols[2] = TOL_POOL_DRIFT_DBE
+                if device.type == "cuda":
+                    check(f"folded_pool_ext_bwd [{tags(f'I {ii}', drift)}] dbe against the v3 "
+                          f"algebra", rel_err(got[2], pool_bwd_v3_affine(*ops, gh, heads)[1]),
+                          TOL_AFFINE)
+            hold(f"folded_pool_ext_bwd [{tags(f'I {ii}', drift)}]", got, want, names, tols)
+            ran(f"folded_pool_ext_bwd at I {ii}", "folded_pool_ext_bwd_wmma",
+                "folded_pool_ext_bwd")
+
+    # the unpool forward and backward (their WMMA bodies)
+    unames = ("dx", "dse", "dbe", "dk", "dv", "dwq", "dwo")
+    for ii in (24, 128, 192, 256):
+        for drift in (False, True):
+            ops = unpool_operands(g, b, n, c, heads, ii, drift, device, dt)
+            if ii != 128:
+                with torch.no_grad():
+                    got, want = fa.folded_unpool(*ops, heads), fa._unpool_ref(*ops, heads)
+                hold(f"folded_unpool [{tags(f'I {ii}', drift)}]", got, want, ("out", "sums"),
+                     (TOL_OUT, TOL_SUMS))
+                ran(f"folded_unpool at I {ii}", "folded_unpool_wmma", "folded_unpool")
+            if ii != 192:
+                gg, gs = (0.1 * r(b, n, c)).to(dt), 1e-3 * r(b, 2, c)
+                got = fa.folded_unpool_bwd(*ops, gg, gs, heads)
+                want = fa._unpool_bwd_ref(*ops, gg, gs, heads)
+                hold(f"folded_unpool_bwd [{tags(f'I {ii}', drift)}]", got, want, unames,
+                     [TOL_AFFINE if k in ("dse", "dbe") else TOL_GRAD for k in unames])
+                ran(f"folded_unpool_bwd at I {ii}", "folded_unpool_bwd_wmma",
+                    "folded_unpool_bwd")
+
+    # the h-side at a ragged I (its Hopper body, the padding masked)
+    for drift in (False, True):
+        ops = hside_operands(g, b, 24, c, 2 * c, drift, device, dt)
+        with torch.no_grad():
+            got, want = hs.fused_h_side(*ops), hs._hside_ref(*ops)
+        hold(f"fused_h_side [{tags('I 24', drift)}]", got, want, ("h", "k", "v"),
+             (TOL_OUT,) * 3)
+    ran("fused_h_side at I 24", "fused_h_side", "fused_h_side_wmma")
+
+    # the rect attention at D 40 (8 heads at C 320) and D 192 (2 heads at C
+    # 384), both directions, forward and backward
+    for cc, hh in rect:
+        for direction in ("pool", "unpool"):
+            for drift in (False, True):
+                q, k, v = attn_operands(g, b, n, cc, hh, 64, direction, drift, device, dt)
+                what = tags(f"D {cc // hh}, {direction}", drift)
+                o, lse = ia.rect_attention_fwd(q, k, v)
+                hold(f"rect_attention_fwd [{what}]", (o, lse), ia._rect_attention_ref(q, k, v),
+                     ("o", "lse"), (TOL_OUT, TOL_LSE))
+                gg = torch.randn(o.shape, generator=g, device=device).to(dt)
+                hold(f"rect_attention_bwd [{what}]", ia.rect_attention_bwd(q, k, v, o, lse, gg),
+                     ia._rect_attention_bwd_ref(q, k, v, gg), ("dq", "dk", "dv"),
+                     (TOL_GRAD,) * 3)
+        ran(f"rect_attention_fwd at D {cc // hh}", "rect_attention_fwd")
+
+    # the pool backward's v1, v2 and v2j bodies at a ragged N and at the
+    # demo's width, against their plain versions (the same algebra)
+    outs = ("dx", "dse", "dbe", "dqf", "dwv", "dwo")
+    for bb, nn_, cc, hh in ((b, n - 48, c, heads), (b, n, 128, 4)):
+        for drift in (False, True):
+            ops = pool_operands(g, bb, nn_, cc, hh, 64, drift, device, dt)
+            x, se, be, ind2, kvw, wo = ops
+            if device.type == "cuda":
+                _, qft, macc, sacc = fa._pool_ext_launch(*ops, hh, True)
+            else:
+                qft = fa._fold_qft_ref(ind2, kvw, hh)
+                xp = fa._pad_points(x, fa._n_pad(nn_))
+                _, macc, sacc = fa._pool_merge_ref(
+                    *fa._pool_partials_ref(xp, se, be, qft, kvw, hh, nn_), wo, hh)
+            kernels.reset_launch_counts()
+            gh = (0.1 * r(bb, 64, cc)).to(dt)
+            raw = (x, se, be, qft, kvw, wo, gh, macc, sacc, hh)
+            for body in kernels.TWOPASS_BODIES:
+                if device.type == "cuda":
+                    with pool_bwd_forced(body):
+                        picked = fa._pool_ext_bwd_body(bb, nn_, cc, hh, 64)
+                    if picked != body:
+                        raise AssertionError(f"GECCO_POOL_BWD={body} at N {nn_}, C {cc}: "
+                                             f"{picked}")
+                got = (fa._pool_ext_bwd_twopass(*raw, body) if device.type == "cuda"
+                       else fa._TWOPASS_REFS[body](*raw))
+                hold(f"folded_pool_ext_bwd_{body} [{tags(f'N {nn_}, C {cc}', drift)}]", got,
+                     fa._TWOPASS_REFS[body](*raw), outs,
+                     [TOL_AFFINE if k in ("dse", "dbe") else TOL_ALGEBRA_GRAD for k in outs])
+                ran(f"folded_pool_ext_bwd_{body} at N {nn_}, C {cc}",
+                    f"folded_pool_ext_bwd_{body}")
+
+    # one model per item, two layers: every function through a kernel
+    wmma = dict(folded_pool_ext_wmma=1, fused_h_side=1, folded_unpool_wmma=1,
+                fused_mlp_residual=1)
+    wmma_grad = dict(wmma, folded_pool_ext_bwd_wmma=1, folded_unpool_bwd_wmma=1,
+                     fused_mlp_residual_bwd=1)
+    every = dict(folded_pool_ext=1, fused_h_side=1, folded_unpool=1, fused_mlp_residual=1)
+    per_head = (dict(rect_attention_fwd=2), dict(rect_attention_fwd=4, rect_attention_bwd=2))
+    base = dict(FLAGSHIP, feature_dim=c, num_heads=heads, n_points=n_points)
+    cases = {f"the flagship with {ii} inducers": (dict(base, num_inducers=ii), "folded_pallas",
+                                                  wmma, wmma_grad)
+             for ii in (128, 256, 24)}
+    for cc, hh in rect:
+        cases[f"the per-head flagship at D {cc // hh} ({hh} heads at C {cc})"] = (
+            dict(base, feature_dim=cc, num_heads=hh), "pallas", *per_head)
+    for body in kernels.TWOPASS_BODIES:
+        cases[f"the flagship at N {n_points - 48} under GECCO_POOL_BWD={body}"] = (
+            dict(base, n_points=n_points - 48), "folded_pallas", every,
+            dict(every, folded_unpool_bwd=1, fused_mlp_residual_bwd=1,
+                 **{f"folded_pool_ext_bwd_{body}": 1}), body)
+    return shapes_phase(device, 2, b if rehearse else 16, 8, cases)
 
 
 def validate_phase(device, rehearse):
@@ -2654,8 +2943,11 @@ KERNEL_FUNCTIONS = {
     "rect_attention_fwd": ("rect_attn_fwd_kernel",),
     "rect_attention_bwd": ("rect_attn_bwd_kernel",),
     "fused_unpool_mlp": ("unpool_mlp_kernel",),
-    "folded_pool_layer": ("pool_layer_sums_kernel", "pool_layer_stats_kernel",
-                          "pool_layer_norm_kernel", "pool_layer_kernel"),
+    "folded_pool_layer": ("pool_layer_pass_kernel", "pool_layer_merge_kernel",
+                          "pool_layer_sum_kernel"),
+    "folded_pool_layer_wmma": ("pool_layer_kernel",),
+    "pool_layer_sums/stats/norm_kernel (the resident pool bodies' shared pre-norm)": (
+        "pool_layer_sums_kernel", "pool_layer_stats_kernel", "pool_layer_norm_kernel"),
     "folded_pool_layer_bwd": ("pool_layer_bwd_fold_kernel", "pool_layer_bwd_kernel",
                               "pool_layer_bwd_dx_kernel"),
 }
@@ -3155,6 +3447,11 @@ def main():
     }
     shape_counts = shapes_phase(device, n_layers, train_batch, 8, shape_cases)
 
+    print(f"== ROADMAP C1's shapes: every function at the shapes it raised at on the card "
+          f"(batch {shapes['batch']}), then one model per shape at two layers, on {card}")
+    c1_counts = c1_phase(device, dt, shapes, n_points, args.rehearse)
+    shape_counts.update(c1_counts)
+
     print(f"== ragged point counts (ROADMAP C1): every point-tiled body at N {ragged_ns} "
           f"(forwards at batch {shapes['batch']}, backwards at {train_batch}; WMMA bodies at "
           f"{demo} and {heads3}), then the flagship at N {ragged_ns[0]}, on {card}")
@@ -3209,21 +3506,22 @@ def main():
     # conditional sampler's for the gather and the conditional training
     # path's for its backward, the per-head paths' for the rect attention,
     # the megakernel sampler's for the megakernel and the module-level
-    # folded path's for the resident pool, split by variant: the sums-less
-    # layer's run gave the pre-norm launches (nested under "prenorm", as
-    # their times are), the Broadcast's runs the rest; the demo sampler's for
+    # folded path's for the resident pool (its WMMA body's: the three-head
+    # Broadcast's), split by variant: the sums-less layer's run gave the
+    # pre-norm launches (nested under "prenorm", as their times are), the
+    # Broadcast's runs the rest; the demo sampler's for
     # the forwards' WMMA bodies, the demo training path's for the pool and
     # MLP backwards' WMMA bodies, the num_heads=3 gradient's for the unpool
     # backward's; the forced-body training paths' for the pool backward's
     # v1, v2 and v2j
     pool_counts = {}
-    for name in ("folded_pool_layer", "folded_pool_layer_bwd"):
+    for name in ("folded_pool_layer", "folded_pool_layer_wmma", "folded_pool_layer_bwd"):
         rec[name]["prenorm"]["launches"] = prenorm_counts.get(name, 0)
         pool_counts[name] = module_counts.get(name, 0) - prenorm_counts.get(name, 0)
     source_counts = {"projective_gather": cond_counts, "projective_gather_bwd": cond_train_counts,
                      "rect_attention_fwd": ph_counts, "rect_attention_bwd": ph_train_counts,
                      "fused_unpool_mlp": mega_counts, "folded_pool_layer": pool_counts,
-                     "folded_pool_layer_bwd": pool_counts, "folded_pool_ext_wmma": demo_counts,
+                     "folded_pool_layer_wmma": pool_counts, "folded_pool_layer_bwd": pool_counts, "folded_pool_ext_wmma": demo_counts,
                      "folded_unpool_wmma": demo_counts, "fused_mlp_residual_wmma": demo_counts,
                      "folded_pool_ext_bwd_wmma": demo_train_counts,
                      "folded_unpool_bwd_wmma": heads3_counts,

@@ -31,9 +31,10 @@
 // 5. hside_kv_kernel (kKV): [k | v] = h @ [Wk; Wv]^T, one product of 2C
 //    columns whose tiles read Wk or Wv by their column.
 // Every sum is in a fixed order: every output is the same bits from call to
-// call. Any I that is a multiple of 16 fits (the sets are 16-row aligned);
-// the row blocks run over B I padded to 128 rows (the padding rows' results
-// are never read).
+// call. Any I that is a multiple of 16 fits (the sets are 16-row aligned),
+// and a ragged I comes zero-padded to one by the wrapper (i_valid: the
+// statistics count and sum the set's rows before it); the row blocks run
+// over B I padded to 128 rows (the padding rows' results are never read).
 #include "mlp_hopper.cuh"
 
 using namespace gecco;
@@ -53,29 +54,37 @@ __device__ __forceinline__ float ld_f(const bf16* p) { return __bfloat162float(*
 __device__ __forceinline__ float ld_f(const float* p) { return *p; }
 
 // One block per (set b, slab q of 16 rows). The set's channel sums of z and
-// z^2 over its I rows: from z itself (FROM_PART false: h0, 8 channels per
-// 16-byte load, rp row phases added in order) or from the out pass's slab
-// sums part [M / 16, 2, C] (added in slab order); then per group (C / G
-// contiguous channels, in order) mean = g1 / count, inv = 1 / sqrt(max(g2 /
-// count - mean^2, 0) + 1e-5); then out = bf16((z - mean) * (inv * s) +
-// bias) for the block's 16 rows, with the plain version's separate
+// z^2 over its first Iv of I rows (the rest a ragged I's zero padding): from
+// z itself (FROM_PART false: h0, 8 channels per 16-byte load, rp row phases
+// added in order; the padding rows are 0) or from the out pass's slab sums
+// part [M / 16, 2, C] (added in slab order; a slab holding padding rows is
+// summed from z's rows before Iv instead); then per group (C / G contiguous
+// channels, in order) mean = g1 / count, inv = 1 / sqrt(max(g2 / count -
+// mean^2, 0) + 1e-5), count = Iv C / G; then out = bf16((z - mean) * (inv *
+// s) + bias) for the block's 16 rows, with the plain version's separate
 // roundings (no fused multiply-add).
 template <bool FROM_PART, class T>
 __global__ void __launch_bounds__(kThreads)
 hside_norm_kernel(const T* __restrict__ z, const float* __restrict__ part,
                   const float* __restrict__ scale, const float* __restrict__ bias,
-                  bf16* __restrict__ out, int I, int C, int G) {
+                  bf16* __restrict__ out, int I, int Iv, int C, int G) {
   __shared__ float red[2][2048];
   __shared__ float stat[2][2048];  // the channels' mean and inv * scale
   const int b = blockIdx.x, q = blockIdx.y, slabs = I / kSlab;
   const size_t set0 = (size_t)b * I;
   if constexpr (FROM_PART) {
+    const int whole = Iv / kSlab;  // the slabs free of padding
     for (int c = threadIdx.x; c < C; c += kThreads) {
       float s1 = 0.0f, s2 = 0.0f;
-      for (int k = 0; k < slabs; ++k) {
+      for (int k = 0; k < whole; ++k) {
         const float* pk = part + (set0 / kSlab + k) * 2 * C;
         s1 += pk[c];
         s2 += pk[C + c];
+      }
+      for (int r = whole * kSlab; r < Iv; ++r) {
+        const float f = ld_f(z + (set0 + r) * C + c);
+        s1 += f;
+        s2 += f * f;
       }
       red[0][c] = s1;
       red[1][c] = s2;
@@ -117,7 +126,7 @@ hside_norm_kernel(const T* __restrict__ z, const float* __restrict__ part,
   }
   __syncthreads();
   const int pg = C / G;
-  const float count = (float)(I * pg);
+  const float count = (float)(Iv * pg);
   for (int g = threadIdx.x; g < G; g += kThreads) {
     float g1 = 0.0f, g2 = 0.0f;
     for (int c = g * pg; c < (g + 1) * pg; ++c) {
@@ -155,6 +164,7 @@ static bool hopper_takes(int I, int C, int W, int G) {
   return I % kSlab == 0 && C % kBn == 0 && W % kBn == 0 && C <= 2048 && G > 0 && C % G == 0;
 }
 
+// i_valid: each set's rows before a ragged I's zero padding (I where none).
 // Scratch from the wrapper: y1 and h [Mp, C] bf16 (h is an output: its
 // first B I rows), g [Mp, W] bf16, hh [Mp, C] and part [Mp / 16, 2, C]
 // fp32; k and v [Mp, C] bf16 (their first B I rows are the outputs). Mp is
@@ -163,13 +173,14 @@ extern "C" int hside_launch(const void* h0, const void* s1n, const void* b1n, co
                             const void* b2n, const void* w1t, const void* b1, const void* w2t,
                             const void* b2, const void* wk, const void* wv, void* y1, void* g,
                             void* hh, void* part, void* h, void* k, void* v, int B, int I, int C,
-                            int W, int G, void* stream) {
+                            int W, int G, int i_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!hopper_takes(I, C, W, G)) return (int)cudaErrorInvalidValue;
+  if (!hopper_takes(I, C, W, G) || i_valid < 1 || i_valid > I) return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * I, Mp = (M + kRows - 1) / kRows * kRows;
   const dim3 norm_grid(B, I / kSlab);
   hside_norm_kernel<false, bf16><<<norm_grid, kThreads, 0, st>>>(
-      (const bf16*)h0, nullptr, (const float*)s1n, (const float*)b1n, (bf16*)y1, I, C, G);
+      (const bf16*)h0, nullptr, (const float*)s1n, (const float*)b1n, (bf16*)y1, I, i_valid, C,
+      G);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tm_y1, tm_w1, tm_g, tm_w2, tm_h, tm_wk, tm_wv;
@@ -196,8 +207,8 @@ extern "C" int hside_launch(const void* h0, const void* s1n, const void* b1n, co
   err = launch_gemm<kBn, kHOut, kStages>(hside_out_kernel, tm_g, tm_w2, tm_g, tm_w2, e, Mp, st);
   if (err != cudaSuccess) return (int)err;
   hside_norm_kernel<true, float><<<norm_grid, kThreads, 0, st>>>(
-      (const float*)hh, (const float*)part, (const float*)s2n, (const float*)b2n, (bf16*)h, I, C,
-      G);
+      (const float*)hh, (const float*)part, (const float*)s2n, (const float*)b2n, (bf16*)h, I,
+      i_valid, C, G);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   e = MlpEpi{};
   e.K = C;

@@ -27,7 +27,10 @@
 // stride); o is written through its own. The rows of 4 lanes each do the
 // softmax of one query row, shuffle-reduced. One instance per head width
 // D = 16 DT, DT 1 to 8 (the JAX kernel takes any D; the flagship's is 48,
-// three heads at C 384 give 128).
+// three heads at C 384 give 128), and D 192 for the widths above (the
+// backward's block does not fit beyond it): the wrapper zero-pads a head
+// width to the next instance's and passes the real one for the softmax
+// scale.
 #include <cmath>
 
 #include "attention.cuh"
@@ -121,15 +124,17 @@ rect_attn_fwd_kernel(Operand q, Operand k, Operand v, bf16* __restrict__ o, Stri
 
 template <int DT>
 cudaError_t launch_fwd(Operand q, Operand k, Operand v, void* o, Strides os, void* lse, int B,
-                       int H, int M, int N, cudaStream_t st) {
+                       int H, int M, int N, int d_real, cudaStream_t st) {
   constexpr int D = 16 * DT, T = kAttnTile;
   const size_t smem = ((size_t)3 * T * (D + kPad) + (size_t)T * (T + kPad)) * 2 +
                       (size_t)T * (D > T ? D + kPadF : T + kPadF) * 4;
   const auto kernel = rect_attn_fwd_kernel<DT>;
   cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
-  // 1/sqrt(D) rounded once from double, as the JAX package's Python float
-  const float scale = (float)(1.0 / sqrt((double)D));
+  // 1/sqrt(D) of the real head width (the operands may carry zero columns
+  // up to the instance's), rounded once from double, as the JAX package's
+  // Python float
+  const float scale = (float)(1.0 / sqrt((double)d_real));
   kernel<<<dim3((M + T - 1) / T, H, B), kThreads, smem, st>>>(
       q, k, v, (bf16*)o, os, (float*)lse, H, M, N, scale);
   return cudaGetLastError();
@@ -137,24 +142,29 @@ cudaError_t launch_fwd(Operand q, Operand k, Operand v, void* o, Strides os, voi
 
 }  // namespace
 
+// D: the operands' head width, one of the instances' (16 to 128 in steps of
+// 16, and 192); d_real <= D: the real head width, whose zero-padded
+// columns add nothing to q k^T and give zero output columns.
 extern "C" int rect_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                          void* lse, int qsb, int qsh, int qsr, int ksb, int ksh,
                                          int ksr, int vsb, int vsh, int vsr, int osb, int osh,
-                                         int osr, int B, int H, int M, int N, int D,
+                                         int osr, int B, int H, int M, int N, int D, int d_real,
                                          void* stream) {
   const Operand qo{(const bf16*)q, qsb, qsh, qsr}, ko{(const bf16*)k, ksb, ksh, ksr},
       vo{(const bf16*)v, vsb, vsh, vsr};
   const Strides os{osb, osh, osr};
   cudaStream_t st = (cudaStream_t)stream;
+  if (d_real < 1 || d_real > D) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return (int)launch_fwd<1>(qo, ko, vo, o, os, lse, B, H, M, N, st);
-    case 32: return (int)launch_fwd<2>(qo, ko, vo, o, os, lse, B, H, M, N, st);
-    case 48: return (int)launch_fwd<3>(qo, ko, vo, o, os, lse, B, H, M, N, st);
-    case 64: return (int)launch_fwd<4>(qo, ko, vo, o, os, lse, B, H, M, N, st);
-    case 80: return (int)launch_fwd<5>(qo, ko, vo, o, os, lse, B, H, M, N, st);
-    case 96: return (int)launch_fwd<6>(qo, ko, vo, o, os, lse, B, H, M, N, st);
-    case 112: return (int)launch_fwd<7>(qo, ko, vo, o, os, lse, B, H, M, N, st);
-    case 128: return (int)launch_fwd<8>(qo, ko, vo, o, os, lse, B, H, M, N, st);
+    case 16: return (int)launch_fwd<1>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
+    case 32: return (int)launch_fwd<2>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
+    case 48: return (int)launch_fwd<3>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
+    case 64: return (int)launch_fwd<4>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
+    case 80: return (int)launch_fwd<5>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
+    case 96: return (int)launch_fwd<6>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
+    case 112: return (int)launch_fwd<7>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
+    case 128: return (int)launch_fwd<8>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
+    case 192: return (int)launch_fwd<12>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

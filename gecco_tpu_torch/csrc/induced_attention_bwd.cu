@@ -23,7 +23,7 @@
 // s and dp as two products into shared memory, p and ds elementwise
 // (rounded to bf16), then dv, dk (register strips) and dq (to shared
 // memory, then out). Operands are read, and outputs written, through their
-// strides. One instance per head width D = 16 DT, DT 1 to 8, as the
+// strides. One instance per head width D = 16 DT, DT 1 to 8 and 12, as the
 // forward.
 #include <cmath>
 
@@ -134,14 +134,14 @@ rect_attn_bwd_kernel(Operand q, Operand k, Operand v, Operand g, const float* __
 template <int DT>
 cudaError_t launch_bwd(Operand q, Operand k, Operand v, Operand g, const void* lse,
                        const void* delta, void* dq, Strides dqs, void* dk, void* dv, Strides dkvs,
-                       int B, int H, int M, int N, int dq_atomic, cudaStream_t st) {
+                       int B, int H, int M, int N, int dq_atomic, int d_real, cudaStream_t st) {
   constexpr int D = 16 * DT, T = kAttnTile;
   const size_t smem = ((size_t)4 * T * (D + kPad) + (size_t)2 * T * (T + kPad)) * 2 +
                       ((size_t)T * (D > T ? D + kPadF : T + kPadF) + T * (T + kPadF) + 2 * T) * 4;
   const auto kernel = rect_attn_bwd_kernel<DT>;
   cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale = (float)(1.0 / sqrt((double)d_real));
   kernel<<<dim3((N + T - 1) / T, H, B), kThreads, smem, st>>>(
       q, k, v, g, (const float*)lse, (const float*)delta, dq, dqs, (bf16*)dk, (bf16*)dv, dkvs,
       H, M, N, scale, dq_atomic);
@@ -151,43 +151,47 @@ cudaError_t launch_bwd(Operand q, Operand k, Operand v, Operand g, const void* l
 }  // namespace
 
 // dq: fp32 (atomics; zeroed by the caller) when dq_atomic, else bf16; dq's
-// strides serve both; dk and dv share theirs.
+// strides serve both; dk and dv share theirs. D and d_real as the forward's.
 extern "C" int rect_attention_bwd_launch(const void* q, const void* k, const void* v,
                                          const void* g, const void* lse, const void* delta,
                                          void* dq, void* dk, void* dv, int qsb, int qsh, int qsr,
                                          int ksb, int ksh, int ksr, int vsb, int vsh, int vsr,
                                          int gsb, int gsh, int gsr, int dqsb, int dqsh, int dqsr,
                                          int dksb, int dksh, int dksr, int B, int H, int M, int N,
-                                         int D, int dq_atomic, void* stream) {
+                                         int D, int d_real, int dq_atomic, void* stream) {
   const Operand qo{(const bf16*)q, qsb, qsh, qsr}, ko{(const bf16*)k, ksb, ksh, ksr},
       vo{(const bf16*)v, vsb, vsh, vsr}, go{(const bf16*)g, gsb, gsh, gsr};
   const Strides dqs{dqsb, dqsh, dqsr}, dkvs{dksb, dksh, dksr};
   cudaStream_t st = (cudaStream_t)stream;
+  if (d_real < 1 || d_real > D) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 16:
       return (int)launch_bwd<1>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
-                                dq_atomic, st);
+                                dq_atomic, d_real, st);
     case 32:
       return (int)launch_bwd<2>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
-                                dq_atomic, st);
+                                dq_atomic, d_real, st);
     case 48:
       return (int)launch_bwd<3>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
-                                dq_atomic, st);
+                                dq_atomic, d_real, st);
     case 64:
       return (int)launch_bwd<4>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
-                                dq_atomic, st);
+                                dq_atomic, d_real, st);
     case 80:
       return (int)launch_bwd<5>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
-                                dq_atomic, st);
+                                dq_atomic, d_real, st);
     case 96:
       return (int)launch_bwd<6>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
-                                dq_atomic, st);
+                                dq_atomic, d_real, st);
     case 112:
       return (int)launch_bwd<7>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
-                                dq_atomic, st);
+                                dq_atomic, d_real, st);
     case 128:
       return (int)launch_bwd<8>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
-                                dq_atomic, st);
+                                dq_atomic, d_real, st);
+    case 192:
+      return (int)launch_bwd<12>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
+                                 dq_atomic, d_real, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

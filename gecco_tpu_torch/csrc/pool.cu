@@ -1,294 +1,399 @@
 // Resident attention pool onto the inducers, with the set-level GroupNorm
-// statistics computed on the card (folded_pool_layer).
+// statistics computed on the card (folded_pool_layer): the Hopper body.
 //
 // Replaces gecco_tpu/ops/pallas/folded_attention.py:_pool_kernel. Per batch
-// element b, with ``prenorm``:
-//   s1, s2 = channel sums of x over N; per group g of C/G contiguous
-//   channels (count = N * C/G): mean_g = g1 / count, var_g = g2 / count -
-//   mean_g^2, inv_g = 1 / sqrt(max(var_g, 0) + 1e-5); mean_c, inv_c [B, C]
-//   are outputs;  y = bf16((x - mean_c) * (inv_c * scale) + bias)
-// and without it y = x (the wrapper returns mean 0 and inv 1). Then per
-// head h:
-//   s = y @ qf[:, hI:(h+1)I] [N, I] fp32; m = column max over the N points;
-//   l = sum_n exp(max(s - m, -80));  p = bf16(exp(max(s - m, -80)) / l)
+// element b, with ``prenorm``, mean_c, inv_c [B, C] and y = bf16((x -
+// mean_c) * (inv_c * scale) + bias) (pool_layer.cuh), and without it y = x.
+// Then per head h, over the N points:
+//   s = y @ qf[:, hI:(h+1)I] [N, I] fp32;  M = column max of s;
+//   L = sum_n exp(max(s - M, -80));  p = bf16(exp(max(s - M, -80)) / L)
 //   v = bf16(y @ Wv_h^T) [N, D];  P_h = p^T v [I, D] fp32
 //   pooled[b, :, hD:(h+1)D] = bf16(P_h);  h0 = bf16(pooled @ Wo^T) [I, C]
-// Where a gradient will be taken the column max m and sum l [B, J], the
-// fp32 P [B, I, C] and y [B, N, C] are kept for the backward (pool_bwd.cu).
+// p is normalised by the global column max and sum before its bf16
+// rounding (the TPU kernel's rounding point), unlike the online softmax of
+// pool_ext.cu, which rounds e against a chunk's own max and rescales in its
+// merge. M, L [B, J] (macc, sacc), the fp32 P [B, I, C] (pacc) and y are
+// what the backward (pool_bwd.cu) reads.
 //
-// Bound on the H100: tensor-core operations (2*N*C*(J + C) + 2*N*J*D per
-// batch element against 2*N*C bytes of stream). Design: the TPU kernel held
-// one batch element's whole [N, J] logit block in VMEM (4 MB fp32 at the
-// flagship, 32 MB at the 8k width); a block has 227 KB of shared memory. So
-// the stream goes by 64-point tiles:
-//   1. the statistics: the channel sums of each tile (one block per tile
-//      and batch element), then one block per batch element folds them per
-//      group in a fixed order (a group is a run of C/G channels, so no
-//      indicator product) into mean_c and inv_c; then y, written once to
-//      device memory: every head's block reads each tile twice, and
-//      normalising it there cost more than the pool itself;
-//   2. the pool: one block per (head, batch element), two passes over the
-//      tiles of y: the running column max and sum of the logits, then p
-//      normalised before its bf16 rounding (the TPU kernel's rounding
-//      point) against the head's values, P in shared memory. The head's qf
-//      and Wv slices are staged in shared memory where they fit, as in
-//      pool_ext.cu (pool.cuh's layout); the logits are computed twice;
-//   3. h0 = pooled @ Wo^T (pool.cuh's linear_nt_kernel).
-// The same kernels serve the flagship (C = 384) and the 8k width (C = 768).
-// A ragged N comes zero-padded to a multiple of 128 by the wrapper: the
-// statistics count the first n_valid points (the padding adds zero to the
-// sums) and the pool walks the tiles holding points, the rest of the last
-// masked out of the softmax.
+// Bound on the H100: tensor-core operations, 2*N*C*(J + C) + 2*N*J*D per
+// batch element against 2*N*C bytes of stream.
+//
+// Design: the TPU kernel held one batch element's [N, J] logits in VMEM;
+// here the stream goes by 64-point chunks, in two passes with pool_ext.cu's
+// tools (TMA in the 128-byte swizzle, wgmma with register accumulators):
+// 1. with the pre-norm, its statistics and y, written once (pool_layer.cuh);
+// 2. pass A, pool_layer_pass_kernel<false>, one block per (chunk, group of
+//    8 heads), two warpgroups of four heads each: the y tile by TMA, read
+//    once for all eight heads; each warpgroup streams the K panels of its
+//    heads' qf^T through its own three-stage TMA ring and accumulates the
+//    logits of 64 inducer columns at a time (m64n64 wgmma) in registers;
+//    the chunk's column max m_c and sum l_c of exp(max(s - m_c, -80)) go to
+//    device memory [B, chunks, J];
+// 3. pool_layer_merge_kernel: per (b, j), in chunk order, M = max m_c and
+//    L = sum exp(max(m_c - M, -80)) l_c -> macc, sacc;
+// 4. pass B, pool_layer_pass_kernel<true>, the same grid: the logits again
+//    and, beside the first block of columns, v = y Wv_h^T (m64n48), then p
+//    against M and L, bf16 p^T and v^T into shared memory, and the chunk's
+//    P_c = p^T v by one more wgmma, written as fp32 partials [B, chunks, J,
+//    D]. No rescale is needed, so their sum is plain;
+// 5. pool_layer_sum_kernel: pacc = the partials summed in chunk order,
+//    pooled = bf16(pacc);
+// 6. h0 = pooled @ Wo^T (pool.cuh's linear_nt_kernel).
+// The logits are computed twice, as in the WMMA body; every sum runs in a
+// fixed order, so the outputs are the same bits from call to call. Any
+// I % 16 == 0 is taken: a head's inducers go by blocks of 64 columns, and a
+// block's columns past I (the next head's rows of qf^T, or TMA's zero fill
+// past J) take no part. A ragged N comes zero-padded to a multiple of 128 by
+// the wrapper: with kMask the points from n_valid on are masked out (a chunk
+// of padding alone gives m_c = -inf, l_c = 0 and P_c = 0); without it
+// (N % 128 == 0) the masks fold away, as in pool_ext.cu.
 #include <cmath>
 
+#include "hopper.cuh"
 #include "pool.cuh"
+#include "pool_layer.cuh"
 
 using namespace gecco;
+using namespace gecco::hopper;
 
 namespace {
 
-// part[b, tile] = [sum x | sum x^2] [2, C] over the 64 rows of one tile of
-// batch element b: each thread sums 8 channels (one 16-byte vector) over
-// every rp-th row, then the row phases are added in shared memory.
-__global__ void __launch_bounds__(kThreads)
-pool_layer_sums_kernel(const bf16* __restrict__ x, float* __restrict__ part, int N, int C) {
-  __shared__ float red[2][kThreads * 8];
-  const int vecs = C / 8, rp = kThreads / vecs;
-  const int tile = blockIdx.x, b = blockIdx.y, tiles = gridDim.x;
-  const int v = threadIdx.x % vecs, r0 = threadIdx.x / vecs;
-  float s1[8], s2[8];
-#pragma unroll
-  for (int q = 0; q < 8; ++q) s1[q] = s2[q] = 0.0f;
-  if (r0 < rp) {
-    const bf16* xb = x + ((size_t)b * N + (size_t)tile * kPoolTile) * C + v * 8;
-    for (int r = r0; r < kPoolTile; r += rp) {
-      int4 raw = __ldg(reinterpret_cast<const int4*>(xb + (size_t)r * C));
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const float f = __bfloat162float(e[q]);
-        s1[q] += f;
-        s2[q] += f * f;
-      }
+constexpr int kHD = 48;        // channels per head (D)
+constexpr int kGroup = 8;      // heads per block: four per warpgroup
+constexpr int kTM = 64;        // points per chunk: one 64-row m-block
+constexpr int kIB = 64;        // inducer columns per block of logits
+constexpr int kRing = 3;       // stages of each warpgroup's weight ring
+constexpr int kQBytes = kIB * 128;   // one K panel of a column block of qf^T_h
+constexpr int kWBytes = kHD * 128;   // one K panel of Wv_h [48, 64]
+constexpr int kStageBytes = kQBytes + kWBytes;
+constexpr int kPassThreads = 256;
+
+// Shared-memory layout of a pass block, in bytes from a 1024-aligned base
+// (pass A leaves the Wv half of each stage and the v^T tile unused).
+struct PassSmem {
+  int y, stages, et, vt, red, bars, total;
+  __host__ __device__ explicit PassSmem(int C) {
+    y = 0;
+    stages = y + (C / 64) * kTM * 128;
+    et = stages + 2 * kRing * kStageBytes;
+    vt = et + 2 * kIB * 128;
+    red = vt + 2 * kHD * 128;
+    bars = red + 2 * 2 * 4 * kIB * 4;
+    total = bars + (1 + 2 * 2 * kRing) * 8 + 1024;  // + alignment slack
+  }
+};
+
+// kPool false: pass A (part_m, part_l); true: pass B (part_p, reading macc
+// and sacc). kMask: the chunk's points may hold a ragged tail's padding.
+template <bool kPool, bool kMask>
+__global__ void __launch_bounds__(kPassThreads, 1)
+pool_layer_pass_kernel(const __grid_constant__ CUtensorMap tm_y,
+                       const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ macc,
+                       const float* __restrict__ sacc, float* __restrict__ part_m,
+                       float* __restrict__ part_l, float* __restrict__ part_p, int N, int n_valid,
+                       int C, int H, int I) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~(uintptr_t)1023);
+  const PassSmem L(C);
+  const int KP = C / 64, J = H * I, NB = (I + kIB - 1) / kIB;
+  const int tile = blockIdx.x, grp = blockIdx.y;
+  const int b = tile * kTM / N, n0 = tile * kTM % N, nch = N / kTM, ch = n0 / kTM;
+  unsigned char* y = smem + L.y;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* yfull = bars;
+  uint64_t* full = bars + 1;              // [2][kRing]
+  uint64_t* empty = full + 2 * kRing;     // [2][kRing]
+  auto stage = [&](int w, int s) { return smem + L.stages + (w * kRing + s) * kStageBytes; };
+
+  if (threadIdx.x == 0) {
+    bar_init(yfull, 1);
+    for (int q = 0; q < 2 * kRing; ++q) {
+      bar_init(full + q, 1);
+      bar_init(empty + q, 4);  // one arrive per warp of the consumer
     }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      red[0][r0 * C + v * 8 + q] = s1[q];
-      red[1][r0 * C + v * 8 + q] = s2[q];
-    }
+    fence_barrier_init();
   }
   __syncthreads();
-  float* out = part + ((size_t)b * tiles + tile) * 2 * C;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float a1 = 0.0f, a2 = 0.0f;
-    for (int r = 0; r < rp; ++r) {
-      a1 += red[0][r * C + c];
-      a2 += red[1][r * C + c];
-    }
-    out[c] = a1;
-    out[C + c] = a2;
-  }
-}
 
-// One block per batch element: each channel's sums over the tiles (one
-// thread per channel), then each group's over its channels (one thread per
-// group), in a fixed order -> mean_c, inv_c [B, C].
-__global__ void __launch_bounds__(kThreads)
-pool_layer_stats_kernel(const float* __restrict__ part, float* __restrict__ mean,
-                        float* __restrict__ inv, int tiles, int n_valid, int C, int G) {
-  __shared__ float sums[2][kThreads * 8];
-  const int b = blockIdx.x, pg = C / G;
-  const float count = (float)n_valid * (float)pg;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float c1 = 0.0f, c2 = 0.0f;
-    for (int t = 0; t < tiles; ++t) {
-      const float* pt = part + ((size_t)b * tiles + t) * 2 * C;
-      c1 += pt[c];
-      c2 += pt[C + c];
-    }
-    sums[0][c] = c1;
-    sums[1][c] = c2;
+  const int w = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  // warpgroup w owns heads grp*8 + 4w ... + 3; its first thread keeps its
+  // ring filled: item it is K panel it % KP of column block it / KP % NB of
+  // head it / (KP NB), beside the K panel of Wv_h for the first block in
+  // pass B
+  const bool loader = threadIdx.x % 128 == 0;
+  const int items = 4 * NB * KP;
+  auto load_stage = [&](int it) {
+    const int hh = it / (NB * KP), ib = it / KP % NB, kp = it % KP, s = it % kRing;
+    const int h = grp * kGroup + w * 4 + hh;
+    const bool wv = kPool && ib == 0;
+    bar_expect(full + w * kRing + s, kQBytes + (wv ? kWBytes : 0));
+    tma_load(stage(w, s), &tm_q, full + w * kRing + s, h * I + ib * kIB, kp * 64);
+    if (wv) tma_load(stage(w, s) + kQBytes, &tm_w, full + w * kRing + s, C + h * kHD, kp * 64);
+  };
+  if (threadIdx.x == 0) {
+    bar_expect(yfull, KP * kTM * 128);
+    for (int p = 0; p < KP; ++p) tma_load(y + p * kTM * 128, &tm_y, yfull, tile * kTM, p * 64);
   }
-  __syncthreads();
-  for (int g = threadIdx.x; g < G; g += kThreads) {
-    float g1 = 0.0f, g2 = 0.0f;
-    for (int c = g * pg; c < (g + 1) * pg; ++c) {
-      g1 += sums[0][c];
-      g2 += sums[1][c];
-    }
-    const float mean_g = g1 / count;
-    const float var_g = g2 / count - mean_g * mean_g;
-    const float inv_g = 1.0f / sqrtf(fmaxf(var_g, 0.0f) + 1e-5f);
-    for (int c = g * pg; c < (g + 1) * pg; ++c) {
-      mean[(size_t)b * C + c] = mean_g;
-      inv[(size_t)b * C + c] = inv_g;
-    }
+  if (loader) {
+    for (int it = 0; it < kRing && it < items; ++it) load_stage(it);
   }
-}
+  unsigned char* et = smem + L.et + w * kIB * 128;  // p^T [kIB, kTM]
+  unsigned char* vt = smem + L.vt + w * kHD * 128;  // v^T [D, kTM]
+  float* red_m = reinterpret_cast<float*>(smem + L.red) + w * 2 * 4 * kIB;  // [4][kIB]
+  float* red_l = red_m + 4 * kIB;
+  bar_wait(yfull, 0);
 
-// y = bf16((x - mean_c) * (inv_c * scale) + bias), the GroupNorm + AdaGN
-// pre-norm in the TPU kernel's form (not the collapsed x * se + be), one
-// block per (64-point tile, b), 8 channels per 16-byte load.
-__global__ void __launch_bounds__(kThreads)
-pool_layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ mean,
-                       const float* __restrict__ inv, const float* __restrict__ scale,
-                       const float* __restrict__ bias, bf16* __restrict__ y, int N, int C) {
-  const int b = blockIdx.y, vecs = C / 8;
-  const size_t base = ((size_t)b * N + (size_t)blockIdx.x * kPoolTile) * C, off = (size_t)b * C;
-  for (int t = threadIdx.x; t < kPoolTile * vecs; t += kThreads) {
-    const int c0 = (t % vecs) * 8;
-    const size_t e = base + (size_t)(t / vecs) * C + c0;
-    int4 raw = __ldg(reinterpret_cast<const int4*>(x + e));
-    bf16* v = reinterpret_cast<bf16*>(&raw);
+  const int col = 2 * (lane % 4);       // first column of the thread's pairs
+  const int r = wi * 16 + lane / 4;     // the thread's rows r and r + 8
+  // whether rows r and r + 8 are points (not a ragged tail's padding)
+  const bool ok0 = !kMask || n0 + r < n_valid, ok1 = !kMask || n0 + r + 8 < n_valid;
+  int it = 0;
+  for (int hh = 0; hh < 4; ++hh) {
+    const int h = grp * kGroup + w * 4 + hh;
+    for (int ib = 0; ib < NB; ++ib) {
+      const int i_base = ib * kIB;  // the block's first inducer of head h
+      const bool with_v = kPool && ib == 0;
+      // the logits s = y @ qf_h (64 columns) and, with_v, v = y @ Wv_h^T
+      float s_acc[kIB / 2];
+      float v_acc[kHD / 2];
+      for (int kp = 0; kp < KP; ++kp, ++it) {
+        const int s = it % kRing;
+        bar_wait(full + w * kRing + s, (it / kRing) & 1);
+        const uint64_t dq = desc(stage(w, s)), dy = desc(y + kp * kTM * 128);
+        wgmma_fence();
+        if (with_v) {
+          const uint64_t dw = desc(stage(w, s) + kQBytes);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const size_t c = off + c0 + q;
-      v[q] = __float2bfloat16((__bfloat162float(v[q]) - mean[c]) * (inv[c] * scale[c]) + bias[c]);
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_ss<kIB>(s_acc, dy + 2 * kk, dq + 2 * kk, (kp | kk) != 0);
+            wgmma_ss<kHD>(v_acc, dy + 2 * kk, dw + 2 * kk, (kp | kk) != 0);
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_ss<kIB>(s_acc, dy + 2 * kk, dq + 2 * kk, (kp | kk) != 0);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s_acc);
+        if (with_v) fence_regs(v_acc);
+        if (lane == 0) bar_arrive(empty + w * kRing + s);
+        // refill the stage once all four warps are done with it
+        if (loader && it + kRing < items) {
+          bar_wait(empty + w * kRing + s, (it / kRing) & 1);
+          load_stage(it + kRing);
+        }
+      }
+      // every warp of the warpgroup is done with the last block's shared
+      // tiles (reductions, p^T and its product)
+      named_sync(2 + w, 128);
+
+      if constexpr (!kPool) {
+        // column max over the chunk's points
+        float cm[16];
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float m = fmaxf(ok0 ? s_acc[4 * g + e] : -INFINITY,
+                            ok1 ? s_acc[4 * g + 2 + e] : -INFINITY);
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+            if (lane < 4) red_m[wi * kIB + 8 * g + col + e] = m;
+          }
+        }
+        named_sync(2 + w, 128);
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int c = 8 * (q / 2) + col + q % 2;
+          cm[q] = fmaxf(fmaxf(red_m[c], red_m[kIB + c]),
+                        fmaxf(red_m[2 * kIB + c], red_m[3 * kIB + c]));
+        }
+        // the column sum of e = exp(max(s - m_c, -80))
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int g = q / 2, e = q % 2;
+          float l = (ok0 ? expf(fmaxf(s_acc[4 * g + e] - cm[q], -80.0f)) : 0.0f) +
+                    (ok1 ? expf(fmaxf(s_acc[4 * g + 2 + e] - cm[q], -80.0f)) : 0.0f);
+          l += __shfl_xor_sync(0xffffffffu, l, 4);
+          l += __shfl_xor_sync(0xffffffffu, l, 8);
+          l += __shfl_xor_sync(0xffffffffu, l, 16);
+          if (lane < 4) red_l[wi * kIB + 8 * g + col + e] = l;
+        }
+        named_sync(2 + w, 128);
+        if (wi == 0 && lane < 4) {
+          const size_t base = ((size_t)b * nch + ch) * J + (size_t)h * I + i_base;
+#pragma unroll
+          for (int q = 0; q < 16; ++q) {
+            const int c = 8 * (q / 2) + col + q % 2;
+            if (i_base + c < I) {
+              part_m[base + c] = cm[q];
+              part_l[base + c] =
+                  red_l[c] + red_l[kIB + c] + red_l[2 * kIB + c] + red_l[3 * kIB + c];
+            }
+          }
+        }
+      } else {
+        // bf16 v^T once per head, which frees v's registers
+        if (with_v) {
+#pragma unroll
+          for (int g = 0; g < kHD / 8; ++g) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int d = 8 * g + col + e;
+              *reinterpret_cast<bf16*>(vt + swz(d, r, kHD * 128)) =
+                  __float2bfloat16(v_acc[4 * g + e]);
+              *reinterpret_cast<bf16*>(vt + swz(d, r + 8, kHD * 128)) =
+                  __float2bfloat16(v_acc[4 * g + 2 + e]);
+            }
+          }
+        }
+        // p = bf16(exp(max(s - M, -80)) / L), 0 on the padding and past I
+        const float* mrow = macc + (size_t)b * J + (size_t)h * I + i_base;
+        const float* lrow = sacc + (size_t)b * J + (size_t)h * I + i_base;
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 8 * g + col + e;
+            const bool in = i_base + i < I;
+            const float m = in ? __ldg(mrow + i) : 0.0f, l = in ? __ldg(lrow + i) : 1.0f;
+            const float p0 = ok0 && in ? expf(fmaxf(s_acc[4 * g + e] - m, -80.0f)) / l : 0.0f;
+            const float p1 = ok1 && in ? expf(fmaxf(s_acc[4 * g + 2 + e] - m, -80.0f)) / l : 0.0f;
+            *reinterpret_cast<bf16*>(et + swz(i, r, kIB * 128)) = __float2bfloat16(p0);
+            *reinterpret_cast<bf16*>(et + swz(i, r + 8, kIB * 128)) = __float2bfloat16(p1);
+          }
+        }
+        fence_async_smem();
+        named_sync(2 + w, 128);
+
+        // P_c = p^T @ v over the chunk's points
+        float p_acc[kHD / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTM / 16; ++kk) {
+          wgmma_ss<kHD>(p_acc, desc(et) + 2 * kk, desc(vt) + 2 * kk, kk != 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(p_acc);
+
+        const size_t base = ((size_t)b * nch + ch) * J + (size_t)h * I + i_base;
+#pragma unroll
+        for (int g = 0; g < kHD / 8; ++g) {
+          const int d = 8 * g + col;
+          if (i_base + r < I) {
+            *reinterpret_cast<float2*>(part_p + (base + r) * kHD + d) =
+                make_float2(p_acc[4 * g], p_acc[4 * g + 1]);
+          }
+          if (i_base + r + 8 < I) {
+            *reinterpret_cast<float2*>(part_p + (base + r + 8) * kHD + d) =
+                make_float2(p_acc[4 * g + 2], p_acc[4 * g + 3]);
+          }
+        }
+      }
     }
-    *reinterpret_cast<int4*>(y + e) = raw;
   }
 }
 
-// One block per (head h, batch element b) over the pre-normed stream y;
-// shared memory: pool.cuh's PoolSmem.
+// Per (b, j), in chunk order: M = max m_c, L = sum exp(max(m_c - M, -80))
+// l_c (a chunk of padding alone adds exp(-80) * 0).
 __global__ void __launch_bounds__(kThreads)
-pool_layer_kernel(const bf16* __restrict__ yin, const bf16* __restrict__ qf,
-                  const bf16* __restrict__ kvw, bf16* __restrict__ pooled,
-                  float* __restrict__ macc, float* __restrict__ sacc, float* __restrict__ pacc,
-                  int N, int n_valid, int C, int H, int I, int stage_w) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int D = C / H, J = H * I;
-  const PoolSmem L(C, I, D);
-  bf16* y = reinterpret_cast<bf16*>(smem + L.y);        // [kPoolTile, C]
-  float* s = reinterpret_cast<float*>(smem + L.s);      // [kPoolTile, I] logits
-  float* vt = reinterpret_cast<float*>(smem + L.vt);    // [kPoolTile, D] fp32 v
-  float* tmp = reinterpret_cast<float*>(smem + L.tmp);  // [I, D] the tile's p^T v
-  float* P = reinterpret_cast<float*>(smem + L.P);      // [I, D] accumulator
-  float* m = reinterpret_cast<float*>(smem + L.stats);  // [I] column max
-  float* l = m + I;                                     // [I] column sum
-  bf16* p = reinterpret_cast<bf16*>(smem + L.e);        // [kPoolTile, I] bf16 p
-  bf16* vb = reinterpret_cast<bf16*>(smem + L.vb);      // [kPoolTile, D] bf16 v
+pool_layer_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
+                        float* __restrict__ macc, float* __restrict__ sacc, int B, int nch,
+                        int J) {
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= B * J) return;
+  const int b = idx / J, j = idx % J;
+  const float* pm = part_m + (size_t)b * nch * J + j;
+  const float* pl = part_l + (size_t)b * nch * J + j;
+  float M = -3.0e38f;
+  for (int c = 0; c < nch; ++c) M = fmaxf(M, pm[(size_t)c * J]);
+  float Lsum = 0.0f;
+  for (int c = 0; c < nch; ++c) {
+    Lsum += expf(fmaxf(pm[(size_t)c * J] - M, -80.0f)) * pl[(size_t)c * J];
+  }
+  macc[idx] = M;
+  sacc[idx] = Lsum;
+}
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const bf16 *qB, *wB;
-  int ldqB, ldwB;
-  pool_head_operands(smem, L, qf, kvw, C, H, I, h, stage_w, &qB, &ldqB, &wB, &ldwB);
-  for (int t = threadIdx.x; t < I * D; t += kThreads) P[t] = 0.0f;
-  for (int t = threadIdx.x; t < I; t += kThreads) {
-    m[t] = -3.0e38f;
-    l[t] = 0.0f;
-  }
-
-  // pass 1: the column max and sum of the logits, online across the tiles
-  // holding points (the rows of the last from n_valid on are padding)
-  for (int n0 = 0; n0 < n_valid; n0 += kPoolTile) {
-    const int valid = n_valid - n0;
-    stage(y, L.ldy, yin + ((size_t)b * N + n0) * C, C, kPoolTile, C);
-    __syncthreads();
-    gemm_to_smem<wmma::row_major, wmma::row_major>(y, L.ldy, qB, ldqB, s, L.lds, kPoolTile, I, C);
-    __syncthreads();
-    // 4 lanes per column, shuffle-reduced; each reads the old max before
-    // the shuffles, and lane 0 writes after them
-    for (int i = threadIdx.x / 4; i < I; i += kThreads / 4) {
-      const float mo = m[i];
-      float tmax = -3.0e38f;
-      for (int r = threadIdx.x % 4; r < kPoolTile && r < valid; r += 4) {
-        tmax = fmaxf(tmax, s[r * L.lds + i]);
-      }
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-      const float mn = fmaxf(mo, tmax);
-      float sum = 0.0f;
-      for (int r = threadIdx.x % 4; r < kPoolTile && r < valid; r += 4) {
-        sum += expf(fmaxf(s[r * L.lds + i] - mn, -80.0f));
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (threadIdx.x % 4 == 0) {
-        l[i] = l[i] * expf(fmaxf(mo - mn, -80.0f)) + sum;
-        m[i] = mn;
-      }
-    }
-    __syncthreads();
-  }
-
-  // pass 2: p = bf16(e / l) against the head's values (0 on the padding)
-  for (int n0 = 0; n0 < n_valid; n0 += kPoolTile) {
-    const int valid = n_valid - n0;
-    stage(y, L.ldy, yin + ((size_t)b * N + n0) * C, C, kPoolTile, C);
-    __syncthreads();
-    gemm_to_smem<wmma::row_major, wmma::row_major>(y, L.ldy, qB, ldqB, s, L.lds, kPoolTile, I, C);
-    gemm_to_smem<wmma::row_major, wmma::col_major>(y, L.ldy, wB, ldwB, vt, L.ldv, kPoolTile, D, C);
-    __syncthreads();
-    for (int t = threadIdx.x; t < kPoolTile * I; t += kThreads) {
-      const int r = t / I, i = t % I;
-      p[r * L.lde + i] =
-          __float2bfloat16(r < valid ? expf(fmaxf(s[r * L.lds + i] - m[i], -80.0f)) / l[i] : 0.0f);
-    }
-    for (int t = threadIdx.x; t < kPoolTile * D; t += kThreads) {
-      vb[(t / D) * L.ldvb + t % D] = __float2bfloat16(vt[(t / D) * L.ldv + t % D]);
-    }
-    __syncthreads();
-    // p^T is p [kPoolTile, I] read as a column-major [I, kPoolTile] operand
-    gemm_to_smem<wmma::col_major, wmma::row_major>(p, L.lde, vb, L.ldvb, tmp, L.ldv, I, D,
-                                                   kPoolTile);
-    __syncthreads();
-    for (int t = threadIdx.x; t < I * D; t += kThreads) P[t] += tmp[(t / D) * L.ldv + t % D];
-    __syncthreads();
-  }
-
-  const size_t ob = (size_t)b * I * C + h * D;
-  for (int t = threadIdx.x; t < I * D; t += kThreads) {
-    const int i = t / D, d = t % D;
-    pooled[ob + (size_t)i * C + d] = __float2bfloat16(P[t]);
-    if (pacc != nullptr) pacc[ob + (size_t)i * C + d] = P[t];
-  }
-  if (macc != nullptr) {
-    for (int i = threadIdx.x; i < I; i += kThreads) {
-      macc[(size_t)b * J + h * I + i] = m[i];
-      sacc[(size_t)b * J + h * I + i] = l[i];
-    }
-  }
+// Per (b, j, d), in chunk order: pacc = the sum of the chunks' P_c (where
+// asked), pooled = bf16 of it, both in the [B, I, C] layout.
+__global__ void __launch_bounds__(kThreads)
+pool_layer_sum_kernel(const float* __restrict__ part_p, float* __restrict__ pacc,
+                      bf16* __restrict__ pooled, int B, int nch, int C, int H, int I) {
+  const int J = H * I;
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (long long)B * J * kHD) return;
+  const int d = (int)(idx % kHD), j = (int)(idx / kHD % J), b = (int)(idx / ((long long)kHD * J));
+  const float* pp = part_p + ((size_t)b * nch * J + j) * kHD + d;
+  float P = 0.0f;
+  for (int c = 0; c < nch; ++c) P += pp[(size_t)c * J * kHD];
+  const size_t o = ((size_t)b * I + j % I) * C + (size_t)(j / I) * kHD + d;
+  pooled[o] = __float2bfloat16(P);
+  if (pacc != nullptr) pacc[o] = P;
 }
 
 }  // namespace
 
-// With the pre-norm (mean non-null), part [B, N / 64, 2, C] fp32 is
-// scratch and mean, inv and y [B, N, C] are written; without, mean and y
-// must be null (inv, scale and bias are not read) and the pool reads x.
-// macc/sacc/pacc null where no gradient will be taken.
+// qft [J, C] is the folded query transposed. With the pre-norm (mean
+// non-null), part [B, N / 64, 2, C] fp32 is scratch and mean, inv and y
+// [B, N, C] are written; without, mean and y must be null and the passes
+// read x. part_m, part_l [B, N / 64, J] and part_p [B, N / 64, J, D] fp32
+// are scratch; macc, sacc [B, J] are always written, pacc where non-null.
 extern "C" int pool_layer_launch(const void* x, const void* scale, const void* bias,
-                                 const void* qf, const void* kvw, const void* wo, void* part,
-                                 void* mean, void* inv, void* y, void* pooled, void* h0,
-                                 void* macc, void* sacc, void* pacc, int B, int N, int C, int H,
-                                 int I, int G, int n_valid, void* stream) {
+                                 const void* qft, const void* kvw, const void* wo, void* part,
+                                 void* mean, void* inv, void* y, void* part_m, void* part_l,
+                                 void* part_p, void* macc, void* sacc, void* pooled, void* h0,
+                                 void* pacc, int B, int N, int C, int H, int I, int G,
+                                 int n_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int D = C / H;
-  if (N % kPoolTile || n_valid < 1 || n_valid > N || C % 64 || C / 8 > kThreads || D % 16 ||
-      I % 16 || (B * I) % 64 ||
-      (mean != nullptr && (G <= 0 || C % G))) {
+  const int D = C / H, J = H * I;
+  if (C % H || D != kHD || H % kGroup || C % 64 || C > 768 || I % 16 || (B * I) % 64 ||
+      N % 128 || n_valid < 1 || n_valid > N || (mean != nullptr && (G <= 0 || C % G))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err;
-  if (mean != nullptr) {
-    pool_layer_sums_kernel<<<dim3(N / kPoolTile, B), kThreads, 0, st>>>((const bf16*)x,
-                                                                         (float*)part, N, C);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    pool_layer_stats_kernel<<<B, kThreads, 0, st>>>((const float*)part, (float*)mean, (float*)inv,
-                                                    N / kPoolTile, n_valid, C, G);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    pool_layer_norm_kernel<<<dim3(N / kPoolTile, B), kThreads, 0, st>>>(
-        (const bf16*)x, (const float*)mean, (const float*)inv, (const float*)scale,
-        (const float*)bias, (bf16*)y, N, C);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (mean != nullptr &&
+      (err = pool_layer_prenorm((const bf16*)x, (const float*)scale, (const float*)bias,
+                                (float*)part, (float*)mean, (float*)inv, (bf16*)y, B, N, C, G,
+                                n_valid, st)) != cudaSuccess) {
+    return (int)err;
   }
-  const PoolSmem L(C, I, D);
-  const int stage_w = L.total <= kMaxSmem;
-  const size_t smem = stage_w ? L.total : L.total_unstaged;
-  if ((err = set_smem((const void*)pool_layer_kernel, smem)) != cudaSuccess) return (int)err;
-  pool_layer_kernel<<<dim3(H, B), kThreads, smem, st>>>(
-      (const bf16*)(mean != nullptr ? y : x), (const bf16*)qf, (const bf16*)kvw, (bf16*)pooled,
-      (float*)macc, (float*)sacc, (float*)pacc, N, n_valid, C, H, I, stage_w);
+  const void* ys = mean != nullptr ? y : x;
+  CUtensorMap tm_y, tm_q, tm_w;
+  if (encode_tiled(&tm_y, ys, (uint64_t)B * N, C, kTM) != CUDA_SUCCESS ||
+      encode_tiled(&tm_q, qft, J, C, kIB) != CUDA_SUCCESS ||
+      encode_tiled(&tm_w, kvw, 2 * (uint64_t)C, C, kHD) != CUDA_SUCCESS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const PassSmem L(C);
+  const bool mask = n_valid < N;
+  const dim3 grid(B * N / kTM, H / kGroup);
+  const auto pass_a =
+      mask ? pool_layer_pass_kernel<false, true> : pool_layer_pass_kernel<false, false>;
+  const auto pass_b =
+      mask ? pool_layer_pass_kernel<true, true> : pool_layer_pass_kernel<true, false>;
+  if ((err = set_smem((const void*)pass_a, L.total)) != cudaSuccess) return (int)err;
+  if ((err = set_smem((const void*)pass_b, L.total)) != cudaSuccess) return (int)err;
+  pass_a<<<grid, kPassThreads, L.total, st>>>(tm_y, tm_q, tm_w, nullptr, nullptr, (float*)part_m,
+                                              (float*)part_l, nullptr, N, n_valid, C, H, I);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  pool_layer_merge_kernel<<<(B * J + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      (const float*)part_m, (const float*)part_l, (float*)macc, (float*)sacc, B, N / kTM, J);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  pass_b<<<grid, kPassThreads, L.total, st>>>(tm_y, tm_q, tm_w, (const float*)macc,
+                                              (const float*)sacc, nullptr, nullptr,
+                                              (float*)part_p, N, n_valid, C, H, I);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long elems = (long long)B * J * kHD;
+  pool_layer_sum_kernel<<<(unsigned)((elems + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      (const float*)part_p, (float*)pacc, (bf16*)pooled, B, N / kTM, C, H, I);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   linear_nt_kernel<<<dim3(C / 64, B * I / 64), kThreads, 0, st>>>(
       (const bf16*)pooled, (const bf16*)wo, (bf16*)h0, B * I, C, C);

@@ -11,10 +11,10 @@ namespace gecco {
 
 constexpr int kPoolTile = 64;
 
-// Shared-memory layout of a pool block (one head h of one batch element),
-// in bytes from the start; the head's weight operands qf_h [C, I] and Wv_h
-// [D, C] are staged at the end where they fit (stage_w), else read from
-// device memory. folded_attention.py's _pool_wmma_smem repeats
+// Shared-memory layout of a pool block (I columns of one head h of one
+// batch element), in bytes from the start; the block's weight operands,
+// I columns of qf_h [C, I] and Wv_h [D, C], are staged at the end where
+// they fit (stage_w), else read from device memory. folded_attention.py's _pool_wmma_smem repeats
 // total_unstaged for its shape switch: change both together.
 struct PoolSmem {
   int ldy, lds, ldv, lde, ldvb, ldq, ldw;
@@ -37,24 +37,40 @@ struct PoolSmem {
   }
 };
 
-// The operands of head h: qf_h (columns hI.. of qf [C, J]) and Wv_h =
-// kvw[C + hD : C + (h+1)D, :], read as a column-major [C, D] operand; staged
-// in the block's shared memory where stage_w, else pointers into device
-// memory. Ends with the staging copies issued (the caller's next barrier
-// makes them visible).
+// The column block of a WMMA pool block: the most of a head's I columns
+// (I itself, else the largest multiple of 16 that divides I) whose layout
+// without the staged weights fits the SM's shared memory; 0 where not even
+// 16 fit. Each block then owns one block of one head's columns: the
+// softmax over the points is per column, so the blocks are independent.
+// folded_attention.py's _pool_wmma_block repeats this: change both
+// together.
+inline int pool_wmma_block(int C, int I, int D) {
+  for (int ib = I; ib >= 16; ib -= 16) {
+    if (I % ib == 0 && PoolSmem(C, ib, D).total_unstaged <= kMaxSmem) return ib;
+  }
+  return 0;
+}
+
+// The operands of the block: qf_h's columns i0 ... i0 + IB (of qf [C, J],
+// head h's from hI) and Wv_h = kvw[C + hD : C + (h+1)D, :], read as a
+// column-major [C, D] operand; staged in the block's shared memory (L laid
+// out for IB columns) where stage_w, else pointers into device memory.
+// Ends with the staging copies issued (the caller's next barrier makes
+// them visible).
 __device__ __forceinline__ void pool_head_operands(unsigned char* smem, const PoolSmem& L,
                                                    const bf16* qf, const bf16* kvw, int C, int H,
-                                                   int I, int h, int stage_w, const bf16** qB,
-                                                   int* ldqB, const bf16** wB, int* ldwB) {
+                                                   int I, int IB, int i0, int h, int stage_w,
+                                                   const bf16** qB, int* ldqB, const bf16** wB,
+                                                   int* ldwB) {
   const int D = C / H, J = H * I;
-  *qB = qf + h * I;
+  *qB = qf + h * I + i0;
   *ldqB = J;
   *wB = kvw + (size_t)(C + h * D) * C;
   *ldwB = C;
   if (stage_w) {
     bf16* qst = reinterpret_cast<bf16*>(smem + L.qst);
     bf16* wst = reinterpret_cast<bf16*>(smem + L.wst);
-    stage(qst, L.ldq, *qB, J, C, I);
+    stage(qst, L.ldq, *qB, J, C, IB);
     stage(wst, L.ldw, *wB, C, D, C);
     *qB = qst;
     *ldqB = L.ldq;

@@ -29,6 +29,10 @@
 // head-diagonal [I, D] blocks are ever nonzero or read, so these kernels
 // keep those blocks alone, and no placement matrix exists.
 //
+// A ragged N comes zero-padded to a multiple of 128 by the wrapper: e is 0
+// on the points from n_valid on in both passes, so they add nothing to
+// pacc, t, ds, dv, dy or the weight gradients.
+//
 // Bound on the H100: tensor-core operations (s, v, e^T v, dp, dv, dy's two
 // products and the three weight gradients: ~2 [N, C] x [C, J]-sized
 // products of each kind per batch element). Design (a simple body: WMMA
@@ -62,11 +66,17 @@ enum Alg { kV1 = 0, kV2 = 1 };
 
 constexpr int kTN = 32;  // points per tile of both passes
 
+inline bool fits(int C, int I, int D);
+
 // The shapes these bodies take (folded_attention.py _pool_twopass_takes:
-// change both together): the flagship's width (C 384, 8 heads) and the 8k
-// width (C 768, 16 heads), I == 64, D == 48, N % 64 == 0.
-inline bool takes(int N, int C, int H, int I) {
-  return (C == 384 || C == 768) && C == 48 * H && I == 64 && N % 64 == 0;
+// change both together): C % 128 == 0 up to 768 (the pass-1 register tiles
+// and wgrad.cuh's 128 x 128 tiles), D % 16 == 0, I % 16 == 0 with J % 128
+// == 0 and B I % 64 == 0 (wgrad.cuh), N % 64 == 0 (a ragged N comes padded
+// to 128s), and both passes' blocks within the SM's shared memory.
+inline bool takes(int B, int N, int C, int H, int I) {
+  const int D = C / H;
+  return C % 128 == 0 && C <= 768 && C % H == 0 && D % 16 == 0 && I % 16 == 0 &&
+         (H * I) % 128 == 0 && (B * I) % 64 == 0 && N % 64 == 0 && fits(C, I, D);
 }
 
 // 1/sacc of column idx: read (v2j, GIVEN) or formed here (v1, v2)
@@ -160,6 +170,12 @@ struct Pass1Smem {
   }
 };
 
+// both passes' blocks within the SM's shared memory (folded_attention.py
+// _twopass_smem repeats the two layouts: change them together)
+inline bool fits(int C, int I, int D) {
+  return Pass0Smem(C, I, D).total <= kMaxSmem && Pass1Smem(C, I, D).total <= kMaxSmem;
+}
+
 // s_h = y @ qf_h [kTN, I] and v_h = bf16(y @ Wv_h^T) [kTN, D] of the staged
 // y tile (both passes), qf^T_h and Wv_h read as column-major operands in
 // place; the fp32 v_h passes through vf. Ends on a barrier.
@@ -184,8 +200,8 @@ __global__ void __launch_bounds__(kThreads)
 twopass_pass0_kernel(const bf16* __restrict__ y, const bf16* __restrict__ qft,
                      const bf16* __restrict__ kvw, const float* __restrict__ macc,
                      const float* __restrict__ norm, const bf16* __restrict__ dm,
-                     float* __restrict__ tacc, bf16* __restrict__ merged, int N, int C, int H,
-                     int I) {
+                     float* __restrict__ tacc, bf16* __restrict__ merged, int N, int n_valid,
+                     int C, int H, int I) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = C / H, J = H * I, h = blockIdx.x, b = blockIdx.y;
   const Pass0Smem L(C, I, D);
@@ -214,7 +230,8 @@ twopass_pass0_kernel(const bf16* __restrict__ y, const bf16* __restrict__ qft,
     tile_logits_values(ys, ldy, qfh, wvh, s, lds, vf, ldvf, vb, ldvb, C, I, D);
     for (int t = threadIdx.x; t < kTN * I; t += kThreads) {
       const int r = t / I, q = t % I;
-      const float e = expf(fmaxf(s[r * lds + q] - mb[q], -80.0f));
+      // a ragged tail's padding rows (from n_valid on) take no part
+      const float e = n0 + r < n_valid ? expf(fmaxf(s[r * lds + q] - mb[q], -80.0f)) : 0.0f;
       s[r * lds + q] = e;
       eb[r * ldeb + q] = __float2bfloat16(e);
     }
@@ -259,7 +276,7 @@ twopass_pass1_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
                      const float* __restrict__ norm, const bf16* __restrict__ dm,
                      const float* __restrict__ tacc, bf16* __restrict__ ds_out,
                      bf16* __restrict__ dv_out, bf16* __restrict__ dx, float* __restrict__ part,
-                     int N, int C, int H, int I) {
+                     int N, int n_valid, int C, int H, int I) {
   constexpr int ROWS = kTN / 16;
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = C / H, J = H * I, b = blockIdx.y, tile = blockIdx.x, n0 = tile * kTN;
@@ -294,7 +311,8 @@ twopass_pass1_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
     for (int t = threadIdx.x; t < kTN * I; t += kThreads) {
       const int r = t / I, q = t % I;
       const float z = s[r * lds + q] - macc[col0 + q];
-      const float e = expf(fmaxf(z, -80.0f));
+      // e, and so ds and dv, 0 on a ragged tail's padding rows
+      const float e = n0 + r < n_valid ? expf(fmaxf(z, -80.0f)) : 0.0f;
       float d, w;
       if (ALG == kV1) {
         w = e * inv_norm<GIVEN>(norm, col0 + q);  // p
@@ -358,14 +376,28 @@ template <int ALG, bool GIVEN, int COLS>
 inline cudaError_t launch_pass1(const bf16* x, const float* se, const bf16* y, const bf16* qft,
                                 const bf16* kvw, const float* macc, const float* norm,
                                 const bf16* dm, const float* tacc, bf16* ds, bf16* dv, bf16* dx,
-                                float* part, int B, int N, int C, int H, int I, cudaStream_t st) {
+                                float* part, int B, int N, int n_valid, int C, int H, int I,
+                                cudaStream_t st) {
   auto kernel = twopass_pass1_kernel<ALG, GIVEN, COLS>;
   const size_t smem = Pass1Smem(C, I, C / H).total;
   cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(N / kTN, B), kThreads, smem, st>>>(x, se, y, qft, kvw, macc, norm, dm, tacc, ds,
-                                                  dv, dx, part, N, C, H, I);
+                                                  dv, dx, part, N, n_valid, C, H, I);
   return cudaGetLastError();
+}
+
+// pass 1's instance for C (COLS = C / 128 register tile columns a warp)
+template <int ALG, bool GIVEN>
+inline decltype(&launch_pass1<ALG, GIVEN, 1>) pass1_for(int C) {
+  switch (C / 128) {
+    case 1: return launch_pass1<ALG, GIVEN, 1>;
+    case 2: return launch_pass1<ALG, GIVEN, 2>;
+    case 3: return launch_pass1<ALG, GIVEN, 3>;
+    case 4: return launch_pass1<ALG, GIVEN, 4>;
+    case 5: return launch_pass1<ALG, GIVEN, 5>;
+    default: return launch_pass1<ALG, GIVEN, 6>;
+  }
 }
 
 // The whole backward of one body (see the top of this file). norm is sacc
@@ -378,8 +410,8 @@ inline cudaError_t launch(const void* x, const void* se, const void* be, const v
                           const void* norm, void* y, void* dm, void* tacc, void* merged, void* ds,
                           void* dv, void* colpart, void* wpart, void* dx, void* dsum, void* dqf,
                           void* dwv, void* dwo, int B, int N, int C, int H, int I, int s_qf,
-                          int s_wv, int s_wo, cudaStream_t st) {
-  if (!takes(N, C, H, I)) return cudaErrorInvalidValue;
+                          int s_wv, int s_wo, int n_valid, cudaStream_t st) {
+  if (!takes(B, N, C, H, I) || n_valid < 1 || n_valid > N) return cudaErrorInvalidValue;
   const int D = C / H, J = H * I;
   cudaError_t err;
   // 0. y = bf16(x se + be)
@@ -402,23 +434,16 @@ inline cudaError_t launch(const void* x, const void* se, const void* be, const v
     if ((err = set_smem((const void*)kernel, smem)) != cudaSuccess) return err;
     kernel<<<dim3(H, B), kThreads, smem, st>>>((const bf16*)y, (const bf16*)qft, (const bf16*)kvw,
                                               (const float*)macc, (const float*)norm,
-                                              (const bf16*)dm, (float*)tacc, (bf16*)merged, N, C,
-                                              H, I);
+                                              (const bf16*)dm, (float*)tacc, (bf16*)merged, N,
+                                              n_valid, C, H, I);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   // 3. pass 1: ds, dv, dx and the dse/dbe partials
-  err = C == 384 ? launch_pass1<ALG, GIVEN, 3>((const bf16*)x, (const float*)se, (const bf16*)y,
-                                               (const bf16*)qft, (const bf16*)kvw,
-                                               (const float*)macc, (const float*)norm,
-                                               (const bf16*)dm, (const float*)tacc, (bf16*)ds,
-                                               (bf16*)dv, (bf16*)dx, (float*)colpart, B, N, C, H,
-                                               I, st)
-                 : launch_pass1<ALG, GIVEN, 6>((const bf16*)x, (const float*)se, (const bf16*)y,
-                                               (const bf16*)qft, (const bf16*)kvw,
-                                               (const float*)macc, (const float*)norm,
-                                               (const bf16*)dm, (const float*)tacc, (bf16*)ds,
-                                               (bf16*)dv, (bf16*)dx, (float*)colpart, B, N, C, H,
-                                               I, st);
+  err = pass1_for<ALG, GIVEN>(C)((const bf16*)x, (const float*)se, (const bf16*)y,
+                                 (const bf16*)qft, (const bf16*)kvw, (const float*)macc,
+                                 (const float*)norm, (const bf16*)dm, (const float*)tacc,
+                                 (bf16*)ds, (bf16*)dv, (bf16*)dx, (float*)colpart, B, N, n_valid,
+                                 C, H, I, st);
   if (err != cudaSuccess) return err;
   // 4. dse, dbe
   {

@@ -16,8 +16,8 @@ extern "C" int pool_ext_bwd_v1_launch(const void* x, const void* se, const void*
                                       void* dm, void* tacc, void* merged, void* ds, void* dv,
                                       void* colpart, void* wpart, void* dx, void* dsum, void* dqf,
                                       void* dwv, void* dwo, int B, int N, int C, int H, int I,
-                                      int s_qf, int s_wv, int s_wo, void* stream) {
+                                      int s_qf, int s_wv, int s_wo, int n_valid, void* stream) {
   return (int)twopass::launch<twopass::kV1, false>(
       x, se, be, qft, kvw, wo, gh, macc, sacc, y, dm, tacc, merged, ds, dv, colpart, wpart, dx,
-      dsum, dqf, dwv, dwo, B, N, C, H, I, s_qf, s_wv, s_wo, (cudaStream_t)stream);
+      dsum, dqf, dwv, dwo, B, N, C, H, I, s_qf, s_wv, s_wo, n_valid, (cudaStream_t)stream);
 }

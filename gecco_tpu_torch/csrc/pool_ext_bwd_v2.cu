@@ -20,10 +20,10 @@ extern "C" int pool_ext_bwd_v2_launch(const void* x, const void* se, const void*
                                       void* dm, void* tacc, void* merged, void* ds, void* dv,
                                       void* colpart, void* wpart, void* dx, void* dsum, void* dqf,
                                       void* dwv, void* dwo, int B, int N, int C, int H, int I,
-                                      int s_qf, int s_wv, int s_wo, void* stream) {
+                                      int s_qf, int s_wv, int s_wo, int n_valid, void* stream) {
   return (int)twopass::launch<twopass::kV2, false>(
       x, se, be, qft, kvw, wo, gh, macc, sacc, y, dm, tacc, merged, ds, dv, colpart, wpart, dx,
-      dsum, dqf, dwv, dwo, B, N, C, H, I, s_qf, s_wv, s_wo, (cudaStream_t)stream);
+      dsum, dqf, dwv, dwo, B, N, C, H, I, s_qf, s_wv, s_wo, n_valid, (cudaStream_t)stream);
 }
 
 // isc: the [B, J] 1/sacc
@@ -33,8 +33,9 @@ extern "C" int pool_ext_bwd_v2j_launch(const void* x, const void* se, const void
                                        void* dm, void* tacc, void* merged, void* ds, void* dv,
                                        void* colpart, void* wpart, void* dx, void* dsum,
                                        void* dqf, void* dwv, void* dwo, int B, int N, int C,
-                                       int H, int I, int s_qf, int s_wv, int s_wo, void* stream) {
+                                       int H, int I, int s_qf, int s_wv, int s_wo, int n_valid,
+                                       void* stream) {
   return (int)twopass::launch<twopass::kV2, true>(
       x, se, be, qft, kvw, wo, gh, macc, isc, y, dm, tacc, merged, ds, dv, colpart, wpart, dx,
-      dsum, dqf, dwv, dwo, B, N, C, H, I, s_qf, s_wv, s_wo, (cudaStream_t)stream);
+      dsum, dqf, dwv, dwo, B, N, C, H, I, s_qf, s_wv, s_wo, n_valid, (cudaStream_t)stream);
 }

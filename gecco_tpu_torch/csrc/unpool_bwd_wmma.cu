@@ -1,6 +1,6 @@
 // Backward of the folded unpool attention + residual (folded_unpool): the
 // WMMA body, for the shapes the Hopper body (csrc/unpool_bwd.cu) does not
-// take (an odd head count, I != 64).
+// take (an odd head count, I != 64, a ragged I).
 //
 // Replaces gecco_tpu/ops/pallas/folded_attention.py:_unpool_bwd_kernel, in
 // all four variants of its flags: with ``prenorm`` off y = x (no dse, dbe;
@@ -33,8 +33,10 @@
 // product (backward.cuh atb_kernel), one output tile per block over all N of
 // one batch element. The fp32 d_attn of the tile stays in shared memory for
 // dx; the tile is 32 points so that it, y, bf16(d_attn) and the head's
-// buffers fit one block's 227 KB. C a multiple of 128 up to 768: the 8
-// warps keep C / 128 column tiles each.
+// buffers fit one block's 227 KB, or 16 where the head's [TN, I] buffers
+// need it (many inducers at C 768). C a multiple of 128 up to 768: the 8
+// warps keep C / 128 column tiles each. A ragged I comes zero-padded to 16s
+// and its padding is masked out of each head's softmax.
 #include <cmath>
 
 #include "backward.cuh"
@@ -47,30 +49,32 @@ namespace {
 // stride lds, ldp for the bf16 outputs), LANES threads per row,
 // shuffle-reduced: its own max m, e = exp(max(s - m, -80)), p = e / sum e,
 // and bf16(p) to pb. With dp != nullptr it continues into the softmax
-// backward: ds = p (dp - sum dp p) [s - m > -80], bf16 to dsb.
+// backward: ds = p (dp - sum dp p) [s - m > -80], bf16 to dsb. The columns
+// from iv on (a ragged I's zero padding) take no part: their p and ds are 0.
 template <int TN>
 __device__ __forceinline__ void head_softmax(float* s, int lds, bf16* pb, int ldp,
-                                             const float* dp, bf16* dsb, int I) {
+                                             const float* dp, bf16* dsb, int I, int iv) {
   constexpr int LANES = kThreads / TN;
   const int r = threadIdx.x / LANES, part = threadIdx.x % LANES;
   float* row = s + r * lds;
   float m = -3.0e38f;
-  for (int q = part; q < I; q += LANES) m = fmaxf(m, row[q]);
+  for (int q = part; q < iv; q += LANES) m = fmaxf(m, row[q]);
 #pragma unroll
   for (int off = 1; off < LANES; off *= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
   float sum = 0.0f;
-  for (int q = part; q < I; q += LANES) sum += expf(fmaxf(row[q] - m, -80.0f));
+  for (int q = part; q < iv; q += LANES) sum += expf(fmaxf(row[q] - m, -80.0f));
 #pragma unroll
   for (int off = 1; off < LANES; off *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (dp == nullptr) {
     for (int q = part; q < I; q += LANES) {
-      pb[r * ldp + q] = __float2bfloat16(expf(fmaxf(row[q] - m, -80.0f)) / sum);
+      pb[r * ldp + q] =
+          __float2bfloat16(q < iv ? expf(fmaxf(row[q] - m, -80.0f)) / sum : 0.0f);
     }
     return;
   }
   const float* dprow = dp + r * lds;
   float t = 0.0f;
-  for (int q = part; q < I; q += LANES) {
+  for (int q = part; q < iv; q += LANES) {
     const float z = row[q] - m;
     const float p = expf(fmaxf(z, -80.0f)) / sum;
     t += dprow[q] * p;
@@ -79,9 +83,9 @@ __device__ __forceinline__ void head_softmax(float* s, int lds, bf16* pb, int ld
   for (int off = 1; off < LANES; off *= 2) t += __shfl_xor_sync(0xffffffffu, t, off);
   for (int q = part; q < I; q += LANES) {
     const float z = row[q] - m;
-    const float p = expf(fmaxf(z, -80.0f)) / sum;
+    const float p = q < iv ? expf(fmaxf(z, -80.0f)) / sum : 0.0f;
     pb[r * ldp + q] = __float2bfloat16(p);
-    dsb[r * ldp + q] = __float2bfloat16(z > -80.0f ? p * (dprow[q] - t) : 0.0f);
+    dsb[r * ldp + q] = __float2bfloat16(q < iv && z > -80.0f ? p * (dprow[q] - t) : 0.0f);
   }
 }
 
@@ -96,7 +100,7 @@ unpool_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
                   const float* __restrict__ gsums, bf16* __restrict__ p_out,
                   bf16* __restrict__ ds_out, bf16* __restrict__ da_out, bf16* __restrict__ dx,
                   float* __restrict__ dse, float* __restrict__ dbe, int N, int n_valid, int C,
-                  int H, int I, int residual) {
+                  int H, int I, int iv, int residual) {
   constexpr int TN = 16 * ROWS;
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldy = C + kPad, ldf = C + kPadF, lds = I + kPadF, ldp = I + kPad;
@@ -125,7 +129,7 @@ unpool_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
     gemm_to_smem<wmma::row_major, wmma::col_major>(y, ldy, kb + (size_t)h * I * C, C, s, lds, TN,
                                                    I, C);
     __syncthreads();
-    head_softmax<TN>(s, lds, pb, ldp, nullptr, nullptr, I);
+    head_softmax<TN>(s, lds, pb, ldp, nullptr, nullptr, I, iv);
     __syncthreads();
     gemm_acc<ROWS, COLS, wmma::row_major>(acc, pb, ldp, vb + (size_t)h * I * C, C, C, I);
   }
@@ -155,7 +159,7 @@ unpool_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
     gemm_to_smem<wmma::row_major, wmma::col_major>(dab, ldy, vb + (size_t)h * I * C, C, dp, lds,
                                                    TN, I, C);
     __syncthreads();
-    head_softmax<TN>(s, lds, pb, ldp, dp, dsb, I);
+    head_softmax<TN>(s, lds, pb, ldp, dp, dsb, I, iv);
     __syncthreads();
     for (int t = threadIdx.x; t < TN * I; t += kThreads) {
       const int r = t / I, q = t % I;
@@ -172,45 +176,62 @@ unpool_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
                         dse + (size_t)b * C, dbe + (size_t)b * C, TN, C);
 }
 
+// The point tile of the main kernel: 32 rows where its shared memory fits,
+// else 16; 0 where neither fits. folded_attention.py's
+// _unpool_bwd_wmma_tile repeats this: change both together.
+static size_t bwd_smem(int TN, int C, int I) {
+  return (size_t)2 * TN * (C + kPad) * 2 + (size_t)TN * (C + kPadF) * 4 +
+         (size_t)2 * TN * (I + kPadF) * 4 + (size_t)2 * TN * (I + kPad) * 2;
+}
+
+static int bwd_tile(int C, int I) {
+  for (int tn = 32; tn >= 16; tn /= 2) {
+    if (bwd_smem(tn, C, I) <= kMaxSmem) return tn;
+  }
+  return 0;
+}
+
+template <int ROWS>
+static decltype(&unpool_bwd_kernel<2, 1>) bwd_kernel(int C) {
+  switch (C / 128) {
+    case 1: return unpool_bwd_kernel<ROWS, 1>;
+    case 2: return unpool_bwd_kernel<ROWS, 2>;
+    case 3: return unpool_bwd_kernel<ROWS, 3>;
+    case 4: return unpool_bwd_kernel<ROWS, 4>;
+    case 5: return unpool_bwd_kernel<ROWS, 5>;
+    default: return unpool_bwd_kernel<ROWS, 6>;
+  }
+}
+
 }  // namespace
 
+// i_valid: each head's inducers before a ragged I's zero padding.
 extern "C" int unpool_bwd_wmma_launch(const void* x, const void* se, const void* be,
                                       const void* k, const void* v, const void* wq,
                                       const void* wo, const void* g, const void* gsums, void* kft,
                                       void* vf, void* p, void* ds, void* da, void* dx, void* dse,
                                       void* dbe, void* dkf, void* dvf, int B, int N, int C, int H,
-                                      int I, int residual, int prenorm, int n_valid,
+                                      int I, int residual, int prenorm, int n_valid, int i_valid,
                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int J = H * I, D = C / H;
-  if (C % 128 || C > 768 || I > 64 || I % 16 || D % 16 || N % 64 || J % 64 || n_valid < 1 ||
-      n_valid > N) {
+  const int J = H * I, D = C / H, TN = bwd_tile(C, I);
+  if (C % 128 || C > 768 || I % 16 || D % 16 || N % 64 || J % 64 || n_valid < 1 ||
+      n_valid > N || i_valid < 1 || i_valid > I || TN == 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = launch_unpool_bwd_fold((const bf16*)k, (const bf16*)v, (const bf16*)wq,
                                            (const bf16*)wo, (bf16*)kft, (bf16*)vf, B, C, H, I, st);
   if (err != cudaSuccess) return (int)err;
 
-  constexpr int TN = 32;
-  const size_t smem = (size_t)2 * TN * (C + kPad) * 2 + (size_t)TN * (C + kPadF) * 4 +
-                      (size_t)2 * TN * (I + kPadF) * 4 + (size_t)2 * TN * (I + kPad) * 2;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  decltype(&unpool_bwd_kernel<2, 1>) kernel;
-  switch (C / 128) {
-    case 1: kernel = unpool_bwd_kernel<2, 1>; break;
-    case 2: kernel = unpool_bwd_kernel<2, 2>; break;
-    case 3: kernel = unpool_bwd_kernel<2, 3>; break;
-    case 4: kernel = unpool_bwd_kernel<2, 4>; break;
-    case 5: kernel = unpool_bwd_kernel<2, 5>; break;
-    default: kernel = unpool_bwd_kernel<2, 6>; break;
-  }
+  const size_t smem = bwd_smem(TN, C, I);
+  const auto kernel = TN == 32 ? bwd_kernel<2>(C) : bwd_kernel<1>(C);
   if ((err = set_smem((const void*)kernel, smem)) != cudaSuccess) return (int)err;
   const float* se_p = prenorm ? (const float*)se : nullptr;
   const float* be_p = prenorm ? (const float*)be : nullptr;
   kernel<<<dim3(N / TN, B), kThreads, smem, st>>>(
       (const bf16*)x, se_p, be_p, (const bf16*)kft, (const bf16*)vf, (const bf16*)g,
       (const float*)gsums, (bf16*)p, (bf16*)ds, (bf16*)da, (bf16*)dx, (float*)dse, (float*)dbe, N,
-      n_valid, C, H, I, residual);
+      n_valid, C, H, I, i_valid, residual);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // dkf[b] = y_b^T bf16(ds_b) [C, J];  dvf[b] = bf16(p_b)^T bf16(d_attn_b) [J, C]

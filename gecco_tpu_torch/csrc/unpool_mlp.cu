@@ -83,7 +83,7 @@ __global__ void __launch_bounds__(kThreads) unpool_mlp_kernel(const Args a) {
   const long long per_b = (long long)J * a.C + J;
   for (long long e = tid; e < a.B * per_b; e += threads) {
     unpool_fold_elem(a.se1, a.bq, a.k, a.v, a.wq, a.wo_t, a.kft, a.vf, a.brow, a.C, a.H, a.I,
-                     a.scale, (int)(e / per_b), (int)(e % per_b));
+                     a.I, a.scale, (int)(e / per_b), (int)(e % per_b));
   }
   grid.sync();
   // (3) the unpool's point tiles: x' and its sums

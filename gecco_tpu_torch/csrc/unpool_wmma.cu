@@ -11,7 +11,8 @@
 //   brow[hI+i]   = s * (be @ wq_h^T) . k_h[i]                [J] fp32
 //   vf[hI+i, :]  = bf16(v_h[i] @ wo_h^T)                      [J, C]
 // then per point: logits = x @ kft^T + brow; a softmax over each head's
-// I-wide block with THAT block's own max (exp argument clamped at -80);
+// I-wide block with THAT block's own max (exp argument clamped at -80; a
+// ragged I comes zero-padded to 16s with its padding's logits at -inf);
 // attn = bf16(p) @ vf; o = x + attn; out = bf16(o); sums[b] += [o | o^2].
 //
 // Bound on the H100: tensor-core operations (4*N*C*J per batch element
@@ -23,7 +24,10 @@
 // per block and walks the heads: each head's kft_h and vf_h are staged in
 // shared memory (asynchronously, each behind the other product where both
 // buffers fit), its [TN, I] logits and softmax live there too, and
-// its p @ vf_h adds into a [TN, C] fp32 accumulator held in registers. Per-head processing gives every head
+// its p @ vf_h adds into a [TN, C] fp32 accumulator held in registers; where
+// the staged operands do not fit (from 192 inducers at C 384), the products
+// read kft_h and vf_h from device memory (unpool.cuh's unpool_smem_plan).
+// Per-head processing gives every head
 // block its own max by construction. Sums as in mlp.cu (fp32 atomics).
 // The device code is in unpool.cuh, shared with csrc/unpool_mlp.cu.
 #include <cmath>
@@ -47,11 +51,11 @@ unpool_fold_kernel(const float* __restrict__ se, const float* __restrict__ bq,
                    const bf16* __restrict__ k, const bf16* __restrict__ v,
                    const bf16* __restrict__ wq, const bf16* __restrict__ wo_t,
                    bf16* __restrict__ kft, bf16* __restrict__ vf, float* __restrict__ brow,
-                   int C, int H, int I, float scale) {
+                   int C, int H, int I, int iv, float scale) {
   const int J = H * I;
   const int idx = blockIdx.x * kThreads + threadIdx.x;
   if (idx >= J * C + J) return;
-  unpool_fold_elem(se, bq, k, v, wq, wo_t, kft, vf, brow, C, H, I, scale, blockIdx.y, idx);
+  unpool_fold_elem(se, bq, k, v, wq, wo_t, kft, vf, brow, C, H, I, iv, scale, blockIdx.y, idx);
 }
 
 // One point tile per block (shared memory: unpool_smem_plan).
@@ -72,11 +76,12 @@ extern "C" int unpool_wmma_launch(const void* x, const void* se, const void* be,
                                   const void* v, const void* wq, const void* wo_t, void* bq,
                                   void* kft, void* vf, void* brow, void* out, void* sums, int B,
                                   int N, int C, int H, int I, int TN, int residual, int prenorm,
-                                  int n_valid, void* stream) {
+                                  int n_valid, int i_valid, void* stream) {
   const int J = H * I;
   // 1/sqrt(D) rounded once from double, as the JAX package's Python float
   const float scale = (float)(1.0 / sqrt((double)(C / H)));
   cudaStream_t st = (cudaStream_t)stream;
+  if (i_valid < 1 || i_valid > I) return (int)cudaErrorInvalidValue;
   if (prenorm) {
     unpool_bq_kernel<<<dim3((C + kWarps - 1) / kWarps, B), kThreads, 0, st>>>(
         (const float*)be, (const bf16*)wq, (float*)bq, C);
@@ -84,7 +89,7 @@ extern "C" int unpool_wmma_launch(const void* x, const void* se, const void* be,
   unpool_fold_kernel<<<dim3((J * C + J + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(
       prenorm ? (const float*)se : nullptr, prenorm ? (const float*)bq : nullptr,
       (const bf16*)k, (const bf16*)v, (const bf16*)wq,
-      (const bf16*)wo_t, (bf16*)kft, (bf16*)vf, (float*)brow, C, H, I, scale);
+      (const bf16*)wo_t, (bf16*)kft, (bf16*)vf, (float*)brow, C, H, I, i_valid, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   int dbl = 0;

@@ -17,11 +17,14 @@ through the plain forward, as the twins' ``jax.vjp``) for CPU tensors:
   returns the softmax statistics (column max and sum) the backward reads.
   The backward runs the v3 algebra in five passes, each with its plain
   piece beside it (``_pool_bwd_*_ref``).
-- ``folded_pool_layer`` (``csrc/pool.cu``; backward ``csrc/pool_bwd.cu``):
-  the resident pool, the same pooling with the set-level GroupNorm
-  statistics of the stream computed on the card (``prenorm``, returned
-  beside h0) or no pre-norm at all: the layer's sums-less route and the
-  module-level pool.
+- ``folded_pool_layer`` (``csrc/pool.cu``, WMMA body ``csrc/pool_wmma.cu``;
+  backward ``csrc/pool_bwd.cu``): the resident pool, the same pooling with
+  the set-level GroupNorm statistics of the stream computed on the card
+  (``prenorm``, returned beside h0) or no pre-norm at all: the layer's
+  sums-less route and the module-level pool. The Hopper body runs two
+  passes over point chunks (the softmax's column max and sum, then p
+  normalised by them against the values), each with its plain piece
+  beside it (``_pool_layer_*_ref``).
 - ``folded_unpool`` (``csrc/unpool.cu``; backward ``csrc/unpool_bwd.cu``,
   WMMA body ``csrc/unpool_bwd_wmma.cu``):
   the points attend to the inducer tokens (per-head softmax, each head block
@@ -44,11 +47,11 @@ and a fourth runs the second and third as one launch:
   ``fused_mlp_residual`` (``_unpool_mlp_composed``), whose backwards are
   the kernels above, as the JAX package's custom_vjp does.
 
-The pool, unpool and MLP forwards and backwards each keep a second, WMMA
-body (``csrc/*_wmma.cu``) for the shapes their Hopper design does not take;
-``_pool_ext_body``, ``_unpool_body``, ``_mlp_body`` and their backwards'
-``*_bwd_body`` choose by shape, and a shape that neither body takes
-raises. A CUDA tensor never falls back to a plain version. Any point
+The pool, unpool and MLP forwards and backwards and the resident pool each
+keep a second, WMMA body (``csrc/*_wmma.cu``) for the shapes their Hopper
+design does not take; ``_pool_ext_body``, ``_unpool_body``, ``_mlp_body``,
+``_pool_layer_body`` and the backwards' ``*_bwd_body`` choose by shape,
+and a shape that neither body takes raises. A CUDA tensor never falls back to a plain version. Any point
 count N >= 1 is taken: on the card each function zero-pads the point axis
 of its operands to the next multiple of 128 (``_pad_points``; no copy
 where N is one already), passes the bodies ``n_valid = N``, which mask the
@@ -173,8 +176,8 @@ def _n_pad(n: int) -> int:
 
 
 def _pad_points(t: torch.Tensor, n_pad: int) -> torch.Tensor:
-    """t [B, N, K] zero-padded on its point axis to n_pad rows; t itself
-    where N is n_pad already."""
+    """t [B, N, K] zero-padded on its point (or inducer) axis to n_pad rows;
+    t itself where N is n_pad already."""
     n = t.shape[1]
     return t if n == n_pad else torch.nn.functional.pad(t, (0, 0, 0, n_pad - n))
 
@@ -183,6 +186,36 @@ def _unpad(t: torch.Tensor, n: int) -> torch.Tensor:
     """The first n points of t [B, N_pad, K], contiguous (t itself where
     N_pad is n)."""
     return t if t.shape[1] == n else t[:, :n].contiguous()
+
+
+# the inducer count of the bodies' operands is a multiple of this (the
+# tensor-core tile); a ragged I is zero-padded to it per head
+_I_ALIGN = 16
+
+
+def _i_pad(i: int) -> int:
+    """The padded inducer count of I inducers: the next multiple of 16."""
+    return -(-i // _I_ALIGN) * _I_ALIGN
+
+
+def _pad_heads(t: torch.Tensor, num_heads: int, i_pad: int) -> torch.Tensor:
+    """t [H I, K] (rows (h, i)) zero-padded per head to [H i_pad, K]; t
+    itself where I is i_pad already."""
+    j, k = t.shape
+    i = j // num_heads
+    if i == i_pad:
+        return t
+    out = t.new_zeros((num_heads, i_pad, k))
+    out[:, :i] = t.reshape(num_heads, i, k)
+    return out.reshape(num_heads * i_pad, k)
+
+
+def _unpad_heads(t: torch.Tensor, num_heads: int, i: int) -> torch.Tensor:
+    """The first i rows of each head of t [H i_pad, K] -> [H i, K]."""
+    j, k = t.shape
+    if j == num_heads * i:
+        return t
+    return t.reshape(num_heads, j // num_heads, k)[:, :i].reshape(num_heads * i, k)
 
 
 def _valid_rows(n: int, n_valid, device) -> torch.Tensor | None:
@@ -305,25 +338,40 @@ def _pool_wmma_smem(c: int, i: int, d: int) -> int:
             + t * (d + _PAD) * 2)
 
 
+def _pool_wmma_block(c: int, i: int, d: int) -> int:
+    """The column block of a WMMA pool block (both pool forwards' WMMA
+    bodies): I itself, else the largest multiple of 16 dividing I, whose
+    layout (``_pool_wmma_smem``) fits the SM's shared memory; 0 where not
+    even 16 columns fit. csrc/pool.cuh ``pool_wmma_block`` (change both
+    together)."""
+    for ib in range(i, 15, -16):
+        if i % ib == 0 and _pool_wmma_smem(c, ib, d) <= _MAX_SMEM:
+            return ib
+    return 0
+
+
 def _pool_ext_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     """Which forward body of ``folded_pool_ext`` takes these shapes on the
     card: "hopper" (csrc/pool_ext.cu, TMA and wgmma: I == 64, D == 48,
     H % 8 == 0, C % 64 == 0, C <= 768) where it can, else "wmma"
-    (csrc/pool_ext_wmma.cu: C % 64, D % 16 and I % 16 == 0, one block's
-    shared memory within the SM's); both need B*I % 64 == 0 and take any N
-    (padded). Raises ValueError with both bodies' conditions otherwise."""
+    (csrc/pool_ext_wmma.cu: C % 64, D % 16 and I % 16 == 0, a block of 16
+    of a head's columns within the SM's shared memory: ``_pool_wmma_block``,
+    any I at C <= 768); both need B*I % 64 == 0 and take any N (padded)
+    and any I (a ragged I zero-padded to 16s: its padding inducers' columns
+    are pooled and sliced off, the I of these conditions the padded one).
+    Raises ValueError with both bodies' conditions otherwise."""
     d = c // num_heads
+    i = _i_pad(i)
     common = c % num_heads == 0 and n >= 1 and (b * i) % 64 == 0
     if common and i == 64 and d == 48 and num_heads % 8 == 0 and c % 64 == 0 and c <= 768:
         return "hopper"
-    if (common and c % 64 == 0 and d % 16 == 0 and i % 16 == 0
-            and _pool_wmma_smem(c, i, d) <= _MAX_SMEM):
+    if common and c % 64 == 0 and d % 16 == 0 and _pool_wmma_block(c, i, d):
         return "wmma"
     raise ValueError(
         f"folded_pool_ext: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
         f"(D={d}): the Hopper body needs I == 64, D == 48, H % 8 == 0, C % 64 == 0 and "
-        f"C <= 768; the WMMA body C % 64, D % 16, I % 16 == 0 and its block within "
-        f"{_MAX_SMEM} bytes of shared memory; both B*I % 64 == 0")
+        f"C <= 768; the WMMA body C % 64, D % 16, I % 16 == 0 and a block of 16 columns "
+        f"within {_MAX_SMEM} bytes of shared memory; both B*I % 64 == 0")
 
 
 def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
@@ -345,6 +393,9 @@ def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
     dev = x.device
     n_pad = _n_pad(n)
     x = _pad_points(x, n_pad)
+    i_valid, i = i, _i_pad(i)
+    ind2 = _pad_heads(ind2, num_heads, i)
+    j = num_heads * i
     pooled = torch.empty((b, i, c), dtype=_BF16, device=dev)
     h0 = torch.empty_like(pooled)
     macc = torch.empty((b, j), dtype=_F32, device=dev) if stats else None
@@ -364,6 +415,8 @@ def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
                macc, sacc, b, n_pad, c, num_heads, i, n)
         folded_pool_ext.launches_wmma += 1
         qft = qf.t().contiguous() if stats else None
+    if i != i_valid:  # the statistics stay padded: the backward takes them so
+        h0 = h0[:, :i_valid].contiguous()
     return (h0, qft, macc, sacc) if stats else (h0, None, None, None)
 
 
@@ -495,12 +548,31 @@ def _pool_bwd_fold_smem(c: int, i: int, d: int) -> int:
     return 64 * (64 + _PADF) * 4 + 2 * i * (d + _PAD) * 2 + i * (d + _PADF) * 4
 
 
-def _pool_twopass_takes(n: int, c: int, num_heads: int, i: int) -> bool:
+def _twopass_smem(c: int, i: int, d: int) -> int:
+    """Bytes of the larger block of the v1, v2 and v2j bodies' two passes:
+    csrc/pool_bwd_twopass.cuh ``Pass0Smem`` and ``Pass1Smem`` (change them
+    together), each region rounded up to 128 bytes."""
+    r = lambda n: -(-n // 128) * 128
+    t = 32  # the passes' point tile, kTN
+    pass0 = (r(t * (c + _PAD) * 2) + r(t * (i + _PADF) * 4) + r(t * (d + _PADF) * 4)
+             + r(t * (d + _PAD) * 2) + r(t * (i + _PAD) * 2) + r(i * (d + _PADF) * 4)
+             + r(i * (d + _PAD) * 2) + r(t * (i + _PADF) * 4) + r(i * 4))
+    pass1 = (r(max(t * (c + _PAD) * 2, t * (c + _PADF) * 4)) + 2 * r(t * (i + _PADF) * 4)
+             + r(t * (d + _PADF) * 4) + r(t * (d + _PAD) * 2) + r(i * (d + _PAD) * 2)
+             + 2 * r(t * (i + _PAD) * 2) + r(t * (d + _PAD) * 2))
+    return max(pass0, pass1)
+
+
+def _pool_twopass_takes(b: int, n: int, c: int, num_heads: int, i: int) -> bool:
     """The shapes of the v1, v2 and v2j bodies (csrc/pool_bwd_twopass.cuh
-    ``twopass::takes``: change both together): the flagship's width (C 384,
-    8 heads) and the 8k width (C 768, 16 heads), I == 64 (so D == 48) and
-    N % 64 == 0."""
-    return c in (384, 768) and c == 48 * num_heads and i == 64 and n % 64 == 0
+    ``twopass::takes``: change both together): C % 128 == 0 up to 768, D %
+    16 == 0, I % 16 == 0 with J % 128 == 0 and B*I % 64 == 0, both passes'
+    blocks within the SM's shared memory (``_twopass_smem``), and any N (a
+    ragged N zero-padded to 128s and masked)."""
+    d = c // num_heads
+    return (c % 128 == 0 and c <= 768 and c % num_heads == 0 and d % 16 == 0 and i % 16 == 0
+            and (num_heads * i) % 128 == 0 and (b * i) % 64 == 0 and n >= 1
+            and _twopass_smem(c, i, d) <= _MAX_SMEM)
 
 
 def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
@@ -512,19 +584,21 @@ def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     within the SM's shared memory); both need D % 16 == 0 and take any N
     (padded). The upsample demo's C 128 and the three-head flagship's D 128
     take the WMMA body. Forced to "v1", "v2" or "v2j", that
-    body (the JAX package's opt-in bodies, ``_pool_twopass_takes``: N % 64
-    == 0, no padding). Raises ValueError with the chosen bodies' conditions
-    otherwise."""
+    body (the JAX package's opt-in bodies, ``_pool_twopass_takes``).
+    Raises ValueError with the chosen bodies' conditions otherwise. A
+    ragged I takes the bodies of its count padded to 16s."""
     d = c // num_heads
+    i = _i_pad(i)
     j = num_heads * i
     mode = _POOL_BWD_ENV
     if mode in TWOPASS_BODIES:
-        if _pool_twopass_takes(n, c, num_heads, i):
+        if _pool_twopass_takes(b, n, c, num_heads, i):
             return mode
         raise ValueError(
             f"folded_pool_ext_bwd: GECCO_POOL_BWD={mode} forces a body that does not take "
             f"B={b}, N={n}, C={c}, H={num_heads}, I={i} (D={d}): the v1, v2 and v2j bodies "
-            f"need C in (384, 768), C == 48 H, I == 64 and N % 64 == 0")
+            f"need C % 128 == 0, C <= 768, D % 16 == 0, J % 128 == 0, B*I % 64 == 0 and both "
+            f"passes' blocks within {_MAX_SMEM} bytes of shared memory")
     common = c % num_heads == 0 and d % 16 == 0 and n >= 1
     if common and c in (384, 768) and i == 64 and d <= 64 and j % 128 == 0:
         return "hopper"
@@ -546,13 +620,17 @@ def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
     statistics assume) and its softmax statistics ``macc``/``sacc`` [B, J]
     -> (dx, dse, dbe, dind2, dkvw, dwo), through the body that
     ``_pool_ext_bwd_body`` picks. CPU tensors take the plain version
-    (which needs none of the forward's results)."""
+    (which needs none of the forward's results). A ragged I goes
+    zero-padded to 16s as in the forward, whose qft and statistics are
+    padded already; the padding inducers take a zero cotangent."""
     if x.device.type == "cpu":
         return _pool_ext_bwd_ref(x, se, be, ind2, kvw, wo, g_h0, num_heads)
     name = "folded_pool_ext_bwd"
     b, n, c = x.shape
     i = ind2.shape[0] // num_heads
-    g = g_h0.to(x.dtype).contiguous()
+    ip = _i_pad(i)
+    ind2_in, ind2 = ind2, _pad_heads(ind2, num_heads, ip)
+    g = _pad_points(g_h0.to(x.dtype), ip).contiguous()
     check_cuda(
         name, dict(x=x, se=se, be=be, ind2=ind2, kvw=kvw, wo=wo, qft=qft, g=g, macc=macc,
                    sacc=sacc),
@@ -569,7 +647,9 @@ def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
     else:
         dx, dse, dbe, dqf, dwv, dwo = _pool_ext_bwd_twopass(x, se, be, qft, kvw, wo, g, macc,
                                                             sacc, num_heads, body)
-    return dx, dse, dbe, *_chain_dqf(dqf, dwv, ind2, kvw, num_heads), dwo.to(wo.dtype)
+    dind2, dkvw = _chain_dqf(dqf, dwv, ind2, kvw, num_heads)
+    return (dx, dse, dbe, _unpad_heads(dind2, num_heads, i).to(ind2_in.dtype), dkvw,
+            dwo.to(wo.dtype))
 
 
 def _pool_ext_bwd_hopper(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int) -> tuple:
@@ -645,17 +725,20 @@ def _wgrad_splits(batch: int, tiles: int, m: int, p: int, device) -> int:
 # ------------------------------------------- pool backward: v1, v2, v2j --
 
 
-def _twopass_recompute(x, se, be, qft, kvw, macc, num_heads: int) -> tuple:
+def _twopass_recompute(x, se, be, qft, kvw, macc, num_heads: int, n_valid=None) -> tuple:
     """The tile recompute of the v1, v2 and v2j bodies, fp32 values of
     their roundings -> (y [B, N, C], z = s - macc and e = exp(max(z, -80))
     [B, N, J], v [B, N, H, D]): y = bf16(x se + be), s = y qf, v =
-    bf16(y Wv^T)."""
+    bf16(y Wv^T); e is 0 on the points from ``n_valid`` on (a ragged
+    tail's padding)."""
     dt = x.dtype
     b, n, c = x.shape
     y = _prenormed(x, se, be)
     z = torch.einsum("bnc,jc->bnj", y, qft.float()) - macc[:, None]
     v = torch.einsum("bnc,dc->bnd", y, kvw[c:].float()).to(dt).float()
-    return y, z, torch.exp(torch.clamp(z, min=-80.0)), v.reshape(b, n, num_heads, -1)
+    e = torch.exp(torch.clamp(z, min=-80.0))
+    ok = _valid_rows(n, n_valid, x.device)
+    return y, z, (e if ok is None else e.masked_fill(~ok, 0.0)), v.reshape(b, n, num_heads, -1)
 
 
 def _twopass_dmerged(g_h0, wo, num_heads: int) -> torch.Tensor:
@@ -678,18 +761,20 @@ def _twopass_outputs(x, se, y, ds, dv, qft, kvw, g_h0, merged) -> tuple:
             torch.einsum("bnc,bnj->cj", y, ds), torch.einsum("bnd,bnc->dc", dv, y), dwo)
 
 
-def _pool_bwd_v1_ref(x, se, be, qft, kvw, wo, g_h0, macc, sacc, num_heads: int) -> tuple:
+def _pool_bwd_v1_ref(x, se, be, qft, kvw, wo, g_h0, macc, sacc, num_heads: int,
+                     n_valid=None) -> tuple:
     """Plain version of the v1 body (csrc/pool_ext_bwd_v1.cu; the JAX
     package's ``_pool_ext_bwd_kernel_v1``) at its roundings -> (dx, dse,
     dbe, dqf, dwv, dwo). Pass 0: DM = bf16(g_h0 Wo) per head, dp = v DM^T,
     t = sum_n e dp, pacc = bf16(e)^T v; then t / sacc and merged =
     bf16(pacc / sacc). Pass 1: p = e / sacc, ds = bf16(p (dp - t)) where
-    s - macc > -80, dv = bf16(bf16(p) DM)."""
+    s - macc > -80, dv = bf16(bf16(p) DM). The points from ``n_valid`` on
+    (a ragged tail's padding) take no part."""
     dt = x.dtype
     b, n, c = x.shape
     j = qft.shape[0]
     h = num_heads
-    y, z, e, v = _twopass_recompute(x, se, be, qft, kvw, macc, h)
+    y, z, e, v = _twopass_recompute(x, se, be, qft, kvw, macc, h, n_valid)
     dm = _twopass_dmerged(g_h0, wo, h).to(dt).float()
     inv = 1.0 / sacc
     dp = torch.einsum("bnhd,bhid->bnhi", v, dm).reshape(b, n, j)
@@ -704,18 +789,21 @@ def _pool_bwd_v1_ref(x, se, be, qft, kvw, wo, g_h0, macc, sacc, num_heads: int) 
     return _twopass_outputs(x, se, y, ds, dv, qft, kvw, g_h0, merged)
 
 
-def _pool_bwd_v2_ref(x, se, be, qft, kvw, wo, g_h0, macc, sacc, num_heads: int) -> tuple:
+def _pool_bwd_v2_ref(x, se, be, qft, kvw, wo, g_h0, macc, sacc, num_heads: int,
+                     n_valid=None) -> tuple:
     """Plain version of the v2 and v2j bodies (csrc/pool_ext_bwd_v2.cu; the
     JAX package's ``_pool_ext_bwd_kernel`` and ``_pool_ext_bwd_kernel_v2j``,
     one algebra) at their roundings -> (dx, dse, dbe, dqf, dwv, dwo). DMs =
     bf16(g_h0 Wo / sacc) per head; pass 0: pacc = bf16(e)^T v, then T =
     rowsum(DMs pacc) / sacc and merged = bf16(pacc / sacc); pass 1: ds =
-    bf16(e (v DMs^T - T)) where s - macc > -80, dv = bf16(bf16(e) DMs)."""
+    bf16(e (v DMs^T - T)) where s - macc > -80, dv = bf16(bf16(e) DMs).
+    The points from ``n_valid`` on (a ragged tail's padding) take no
+    part."""
     dt = x.dtype
     b, n, c = x.shape
     j = qft.shape[0]
     h = num_heads
-    y, z, e, v = _twopass_recompute(x, se, be, qft, kvw, macc, h)
+    y, z, e, v = _twopass_recompute(x, se, be, qft, kvw, macc, h, n_valid)
     inv = (1.0 / sacc).reshape(b, h, -1, 1)
     dms = (_twopass_dmerged(g_h0, wo, h) * inv).to(dt).float()
     eh = e.to(dt).float().reshape(b, n, h, -1)
@@ -739,8 +827,11 @@ def _pool_ext_bwd_twopass(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int
     1/sacc [B, J], formed here, where v1 and v2 take sacc and invert it in
     the kernel. The weight gradients come from csrc/wgrad.cuh (fixed-order
     split-K), dse and dbe from fixed-order tile partials: every output is
-    the same bits from call to call."""
-    b, n, c = x.shape
+    the same bits from call to call. A ragged N goes zero-padded to 128s,
+    its padding masked in both passes."""
+    b, n_valid, c = x.shape
+    n = _n_pad(n_valid)
+    x = _pad_points(x, n)
     j = qft.shape[0]
     i, d = j // num_heads, c // num_heads
     dev = x.device
@@ -763,10 +854,10 @@ def _pool_ext_bwd_twopass(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int
            torch.empty((b, n, j), dtype=_BF16, device=dev), torch.empty_like(x),
            torch.empty((b, n // 32, 2, c), dtype=_F32, device=dev),
            torch.empty(part, dtype=_F32, device=dev) if part else None,
-           dx, dsum, dqf, dwv, dwo, b, n, c, num_heads, i, *splits)
+           dx, dsum, dqf, dwv, dwo, b, n, c, num_heads, i, *splits, n_valid)
     setattr(folded_pool_ext_bwd, f"launches_{body}",
             getattr(folded_pool_ext_bwd, f"launches_{body}") + 1)
-    return dx, dsum[:, 0], dsum[:, 1], dqf, dwv, dwo
+    return _unpad(dx, n_valid), dsum[:, 0], dsum[:, 1], dqf, dwv, dwo
 
 
 folded_pool_ext_bwd.launches = 0
@@ -800,12 +891,97 @@ def _pool_ref(x, scale, bias, ind2, kvw, wo, num_groups: int, num_heads: int,
     return _pool_ref_from_y(y, ind2, kvw, wo, num_heads, n_valid), mean_c, inv_c
 
 
+def _pool_layer_chunks_ref(y, qft, n_valid=None) -> tuple:
+    """Plain version of the Hopper body's pass A: per chunk of
+    ``_POOL_CHUNK`` points of y [B, N, C] each column's max m_c of the
+    logits s = y qf and sum l_c of exp(max(s - m_c, -80)) [B, N/64, J]
+    fp32. Points from ``n_valid`` on take no part: a chunk of padding alone
+    gives m_c = -inf and l_c = 0."""
+    b, n, _ = y.shape
+    k = n // _POOL_CHUNK
+    s = torch.einsum("bnc,jc->bnj", y.float(), qft.float())
+    ok = _valid_rows(n, n_valid, y.device)
+    if ok is not None:
+        s = s.masked_fill(~ok, -torch.inf)
+    s = s.reshape(b, k, _POOL_CHUNK, -1)
+    m = s.amax(2)
+    e = torch.exp(torch.clamp(s - m[:, :, None], min=-80.0))
+    if ok is not None:
+        e = e.masked_fill(~ok.reshape(1, k, _POOL_CHUNK, 1), 0.0)
+    return m, e.sum(2)
+
+
+def _pool_layer_merge_ref(m, l) -> tuple:
+    """Plain version of ``pool_layer_merge_kernel``: the softmax's column
+    max M = max m_c and sum L = sum exp(max(m_c - M, -80)) l_c [B, J]."""
+    mm = m.amax(1)
+    return mm, (torch.exp(torch.clamp(m - mm[:, None], min=-80.0)) * l).sum(1)
+
+
+def _pool_layer_partials_ref(y, qft, kvw, macc, sacc, num_heads: int, n_valid=None):
+    """Plain version of the Hopper body's pass B: per chunk of
+    ``_POOL_CHUNK`` points, P_c = p^T v [B, N/64, J, D] fp32 with p =
+    bf16(exp(max(s - M, -80)) / L) (the TPU kernel's rounding point; 0 on
+    the points from ``n_valid`` on) and v = bf16(y Wv_h^T)."""
+    dt = y.dtype
+    b, n, c = y.shape
+    j = qft.shape[0]
+    i, d, k = j // num_heads, c // num_heads, n // _POOL_CHUNK
+    s = torch.einsum("bnc,jc->bnj", y.float(), qft.float())
+    p = torch.exp(torch.clamp(s - macc[:, None], min=-80.0)) / sacc[:, None]
+    ok = _valid_rows(n, n_valid, y.device)
+    if ok is not None:
+        p = p.masked_fill(~ok, 0.0)
+    v = torch.einsum("bnc,dc->bnd", y.float(), kvw[c:].float()).to(dt)
+    pp = torch.einsum(
+        "bkrhi,bkrhd->bkhid", p.to(dt).float().reshape(b, k, _POOL_CHUNK, num_heads, i),
+        v.float().reshape(b, k, _POOL_CHUNK, num_heads, d))
+    return pp.reshape(b, k, j, d)
+
+
+def _pool_layer_sum_ref(part_p, num_heads: int) -> torch.Tensor:
+    """Plain version of ``pool_layer_sum_kernel``: the chunks' P_c summed,
+    pacc [B, I, C] fp32 (head h's values in columns hD..(h+1)D)."""
+    pp = part_p.sum(1)
+    b, j, d = pp.shape
+    i = j // num_heads
+    return pp.reshape(b, num_heads, i, d).permute(0, 2, 1, 3).reshape(b, i, num_heads * d)
+
+
+def _pool_layer_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
+    """Which body of ``folded_pool_layer`` takes these shapes on the card:
+    "hopper" (csrc/pool.cu, TMA and wgmma: D == 48, H % 8 == 0, C <= 768;
+    the flagship's and the 8k width) where it can, else "wmma"
+    (csrc/pool_wmma.cu: D % 16 == 0, C <= 2048 and a block of 16 of a head's
+    columns within the SM's shared memory: ``_pool_wmma_block``, any I at C
+    <= 768); both need C % 64 == 0 and B*I % 64 == 0 and take any N
+    (padded) and any I (a ragged I zero-padded to 16s, the I of these
+    conditions the padded one, as in ``_pool_ext_body``). Raises ValueError
+    with both bodies' conditions otherwise."""
+    d = c // num_heads
+    i = _i_pad(i)
+    common = c % num_heads == 0 and c % 64 == 0 and (b * i) % 64 == 0 and n >= 1
+    if common and d == 48 and num_heads % 8 == 0 and c <= 768:
+        return "hopper"
+    if common and d % 16 == 0 and c <= 2048 and _pool_wmma_block(c, i, d):
+        return "wmma"
+    raise ValueError(
+        f"folded_pool_layer: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
+        f"(D={d}): the Hopper body needs D == 48, H % 8 == 0 and C <= 768; the WMMA body "
+        f"D % 16 == 0, C <= 2048 and a block of 16 columns within {_MAX_SMEM} bytes of "
+        f"shared memory; both C % 64 == 0 and B*I % 64 == 0 (I padded to 16s)")
+
+
 def _pool_layer_launch(x, scale, bias, ind2, kvw, wo, gind, num_heads: int, prenorm: bool,
-                       stats: bool) -> tuple:
-    """The forward kernels -> (h0, mean_c, inv_c, (m, l, P, y)): the
-    softmax's column max and sum [B, J], the fp32 pooled values [B, I, C]
-    and the pre-normed stream y (x itself without the pre-norm; at the
-    padded point count) for the backward where ``stats``, else Nones."""
+                       stats: bool, mid: dict | None = None, body: str | None = None) -> tuple:
+    """The forward kernels of ``body`` ("hopper" or "wmma"; where None, the
+    one ``_pool_layer_body`` picks, which must take the shapes) -> (h0,
+    mean_c, inv_c, (m, l, P, y)): the softmax's column max and sum [B, J],
+    the fp32 pooled values [B, I, C] and the pre-normed stream y (x itself
+    without the pre-norm; at the padded point count) for the backward where
+    ``stats``, else Nones. ``mid``, where given, receives the Hopper body's
+    intermediates (qft, the passes' partials, pooled), which
+    ``probes.pool_layer`` holds against their plain pieces."""
     name = "folded_pool_layer"
     b, n, c = x.shape
     j, d = ind2.shape
@@ -817,13 +993,14 @@ def _pool_layer_launch(x, scale, bias, ind2, kvw, wo, gind, num_heads: int, pren
     )
     _require(tuple(gind.shape) == (c, groups) and c % groups == 0, name,
              f"gind of shape (C, G) with G dividing C = {c}, got {tuple(gind.shape)}")
-    _require(c % 64 == 0 and c <= 2048, name, f"C % 64 == 0 and C <= 2048 (C={c})")
-    _require(d % 16 == 0 and i % 16 == 0 and (b * i) % 64 == 0, name,
-             f"D % 16, I % 16 and B*I % 64 == 0 (D={d}, I={i}, B={b})")
+    picked = _pool_layer_body(b, n, c, num_heads, i)
+    body = body or picked
     dev = x.device
     n_valid, n = n, _n_pad(n)
     x = _pad_points(x, n)
-    qf = fold_qf(ind2, kvw, num_heads).contiguous()
+    i_valid, i = i, _i_pad(i)
+    ind2 = _pad_heads(ind2, num_heads, i)
+    j = num_heads * i
     if prenorm:
         part = torch.empty((b, n // 64, 2, c), dtype=_F32, device=dev)
         mean_c = torch.empty((b, c), dtype=_F32, device=dev)
@@ -835,15 +1012,32 @@ def _pool_layer_launch(x, scale, bias, ind2, kvw, wo, gind, num_heads: int, pren
         inv_c = torch.ones_like(mean_c)
     pooled = torch.empty((b, i, c), dtype=_BF16, device=dev)
     h0 = torch.empty_like(pooled)
-    m = l = pacc = None
-    if stats:
+    pacc = torch.empty((b, i, c), dtype=_F32, device=dev) if stats else None
+    if body == "hopper":
+        qft = fold_qf(ind2, kvw, num_heads).t().contiguous()
+        k = n // _POOL_CHUNK
+        part_m = torch.empty((b, k, j), dtype=_F32, device=dev)
+        part_l = torch.empty_like(part_m)
+        part_p = torch.empty((b, k, j, d), dtype=_F32, device=dev)
         m = torch.empty((b, j), dtype=_F32, device=dev)
         l = torch.empty_like(m)
-        pacc = torch.empty((b, i, c), dtype=_F32, device=dev)
-    launch("pool", "pool_layer_launch", x, scale, bias, qf, kvw, wo, part,
-           mean_c if prenorm else None, inv_c, y, pooled, h0, m, l, pacc, b, n, c, num_heads, i,
-           groups, n_valid)
-    folded_pool_layer.launches += 1
+        launch("pool", "pool_layer_launch", x, scale, bias, qft, kvw, wo, part,
+               mean_c if prenorm else None, inv_c, y, part_m, part_l, part_p, m, l, pooled, h0,
+               pacc, b, n, c, num_heads, i, groups, n_valid)
+        folded_pool_layer.launches += 1
+        if mid is not None:
+            mid.update(qft=qft, part_m=part_m, part_l=part_l, part_p=part_p, m=m, l=l,
+                       pooled=pooled, y=x if y is None else y)
+    else:
+        qf = fold_qf(ind2, kvw, num_heads).contiguous()
+        m = torch.empty((b, j), dtype=_F32, device=dev) if stats else None
+        l = torch.empty_like(m) if stats else None
+        launch("pool_wmma", "pool_layer_wmma_launch", x, scale, bias, qf, kvw, wo, part,
+               mean_c if prenorm else None, inv_c, y, pooled, h0, m, l, pacc, b, n, c,
+               num_heads, i, groups, n_valid)
+        folded_pool_layer.launches_wmma += 1
+    if i != i_valid:  # the backward's m, l and pacc stay padded
+        h0 = h0[:, :i_valid].contiguous()
     if not stats:
         return h0, mean_c, inv_c, (None, None, None, None)
     return h0, mean_c, inv_c, (m, l, pacc, x if y is None else y)
@@ -885,6 +1079,7 @@ def folded_pool_layer(x, scale, bias, ind2, kvw, wo, gind, num_heads: int,
 
 
 folded_pool_layer.launches = 0
+folded_pool_layer.launches_wmma = 0
 
 
 def _pool_layer_bwd_ref(x, scale, bias, ind2, kvw, wo, gind, g_h0, g_mean, g_inv,
@@ -899,6 +1094,19 @@ def _pool_layer_bwd_ref(x, scale, bias, ind2, kvw, wo, gind, g_h0, g_mean, g_inv
     return vjp(lambda *a: _pool_ref(*a, groups, num_heads, False)[0], args, (g_h0,))
 
 
+def _pool_layer_bwd_smem(c: int, i: int, d: int) -> int:
+    """Bytes of the larger block of the resident pool backward's fold and
+    main kernel: csrc/pool_bwd.cu ``pool_layer_bwd_launch`` (change both
+    together); the main kernel's point tile is 64 rows up to C 384, else
+    32."""
+    fold = 64 * (64 + _PADF) * 4 + 2 * i * (d + _PAD) * 2
+    tn = 64 if c <= 384 else 32
+    region0 = -(-max(tn * (c + _PAD) * 2, tn * (c + _PADF) * 4) // 128) * 128
+    main = (region0 + 2 * tn * (i + _PADF) * 4 + tn * (d + _PADF) * 4 + 2 * tn * (i + _PAD) * 2
+            + 2 * tn * (d + _PAD) * 2)
+    return max(fold, main)
+
+
 def folded_pool_layer_bwd(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m, l, pacc, y,
                           g_h0, g_mean, g_inv, num_heads: int, prenorm: bool = True) -> tuple:
     """Gradients of ``folded_pool_layer`` against the cotangents of its
@@ -907,16 +1115,19 @@ def folded_pool_layer_bwd(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m,
     softmax's ``m``/``l`` [B, J], its fp32 pooled values ``pacc``
     [B, I, C] and its pre-normed stream ``y`` [B, N, C] -> (dx, dscale,
     dbias, dind2, dkvw, dwo). CPU tensors take the plain version (which
-    needs none of the forward's results)."""
+    needs none of the forward's results). A ragged I goes zero-padded to 16s
+    as in the forward, whose m, l and pacc are padded already."""
     if x.device.type == "cpu":
         return _pool_layer_bwd_ref(x, scale, bias, ind2, kvw, wo, gind, g_h0, g_mean, g_inv,
                                    num_heads, prenorm)
     name = "folded_pool_layer_bwd"
     b, n, c = x.shape
+    i_valid = ind2.shape[0] // num_heads
+    i = _i_pad(i_valid)
+    ind2_in, ind2 = ind2, _pad_heads(ind2, num_heads, i)
     j, d = ind2.shape
-    i = j // num_heads
     groups = gind.shape[1]
-    g = g_h0.to(x.dtype).contiguous()
+    g = _pad_points(g_h0.to(x.dtype), i).contiguous()
     g_mean, g_inv = g_mean.float().contiguous(), g_inv.float().contiguous()
     check_cuda(
         name, dict(x=x, scale=scale, bias=bias, ind2=ind2, kvw=kvw, wo=wo, g=g, g_mean=g_mean,
@@ -927,6 +1138,9 @@ def folded_pool_layer_bwd(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m,
     )
     _require(c % 64 == 0 and c <= 768 and d % 16 == 0 and i % 16 == 0 and j % 64 == 0, name,
              f"C % 64 == 0, C <= 768, D % 16, I % 16 and J % 64 == 0 (C={c}, D={d}, I={i})")
+    _require(_pool_layer_bwd_smem(c, i, d) <= _MAX_SMEM, name,
+             f"its blocks within {_MAX_SMEM} bytes of shared memory (C={c}, D={d}, I={i}: "
+             f"{_pool_layer_bwd_smem(c, i, d)}; at C 384 and D 48 up to 128 inducers)")
     _require(c % groups == 0, name, f"G dividing C (C={c}, G={groups})")
     dev = x.device
     n_valid, n = n, _n_pad(n)
@@ -953,8 +1167,9 @@ def folded_pool_layer_bwd(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m,
            qf, kvw, wo, g, g_mean, g_inv, m, l, pacc, dpool, tacc, ds, dv, dy, sdyxc, sdy, dx,
            dscale, dbias, dqf, dwvt, dwo, b, n, c, num_heads, i, groups, n_valid)
     folded_pool_layer_bwd.launches += 1
-    return (_unpad(dx, n_valid), dscale, dbias, *_chain_dqf(dqf, dwvt.t(), ind2, kvw, num_heads),
-            dwo.to(wo.dtype))
+    dind2, dkvw = _chain_dqf(dqf, dwvt.t(), ind2, kvw, num_heads)
+    return (_unpad(dx, n_valid), dscale, dbias,
+            _unpad_heads(dind2, num_heads, i_valid).to(ind2_in.dtype), dkvw, dwo.to(wo.dtype))
 
 
 folded_pool_layer_bwd.launches = 0
@@ -1051,8 +1266,9 @@ def _row_sums(o, n_valid=None) -> torch.Tensor:
 def _unpool_wmma_smem(tn: int, c: int, i: int) -> int:
     """Bytes of one point tile of the WMMA unpool body, or 0 where no plan
     fits the SM: csrc/unpool.cuh ``unpool_smem_plan`` (change both
-    together)."""
-    for dbl in (1, 0):
+    together): the head operands staged in two buffers, in one, or read
+    from device memory."""
+    for dbl in (1, 0, -1):
         region0 = max((tn + (1 + dbl) * i) * (c + _PAD) * 2, tn * (c + _PADF) * 4)
         region0 = -(-region0 // 128) * 128
         smem = region0 + tn * (i + _PADF) * 4 + tn * (i + _PAD) * 2
@@ -1065,9 +1281,12 @@ def _unpool_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     """Which forward body of ``folded_unpool`` takes these shapes on the
     card: "hopper" (csrc/unpool.cu, TMA and wgmma: I == 64, H even,
     D % 16 == 0, D <= 64, C in (192, 384, 768)) where it can, else "wmma"
-    (csrc/unpool_wmma.cu: C % 16 and I % 16 == 0, a point tile of 64 or 32
-    rows whose shared memory fits the SM); both take any N (padded). Raises
-    ValueError with both bodies' conditions otherwise."""
+    (csrc/unpool_wmma.cu: C % 16 == 0 and a point tile of 64 or 32 rows
+    whose shared memory fits the SM, its head operands staged or, from 192
+    inducers at C 384, read from device memory: at C 384 up to 336
+    inducers, at C 768 up to 688); both take any N (padded),
+    and the WMMA body any I (a ragged I zero-padded to 16s and masked).
+    Raises ValueError with both bodies' conditions otherwise."""
     d = c // num_heads
     if (c % num_heads == 0 and i == 64 and num_heads % 2 == 0 and d % 16 == 0 and d <= 64
             and c in (192, 384, 768) and n >= 1):
@@ -1076,12 +1295,12 @@ def _unpool_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
         tn = _row_tile(_n_pad(n), c)
     except ValueError:
         tn = 0
-    if c % num_heads == 0 and c % 16 == 0 and i % 16 == 0 and tn and _unpool_wmma_smem(tn, c, i):
+    if c % num_heads == 0 and c % 16 == 0 and tn and _unpool_wmma_smem(tn, c, _i_pad(i)):
         return "wmma"
     raise ValueError(
         f"folded_unpool: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
         f"(D={d}): the Hopper body needs I == 64, H even, D % 16 == 0, D <= 64 and "
-        f"C in (192, 384, 768); the WMMA body C % 16 == 0, I % 16 == 0 and a point tile "
+        f"C in (192, 384, 768); the WMMA body C % 16 == 0 and a point tile "
         f"(64 rows at C <= 384, 32 at C <= 768) whose block fits {_MAX_SMEM} bytes of "
         f"shared memory")
 
@@ -1101,6 +1320,9 @@ def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int, residual: bool, pren
     dev = x.device
     n_valid, n = n, _n_pad(n)
     x = _pad_points(x, n)
+    i_valid, i = i, _i_pad(i)
+    k, v = _pad_points(k, i), _pad_points(v, i)
+    j = num_heads * i
     kft = torch.empty((b, j, c), dtype=_BF16, device=dev)
     brow = torch.empty((b, j), dtype=_F32, device=dev)
     bq = torch.empty((b, c), dtype=_F32, device=dev)
@@ -1115,7 +1337,7 @@ def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int, residual: bool, pren
         vf = torch.empty_like(kft)
         launch("unpool_wmma", "unpool_wmma_launch", x, se, be, k, v, wq, wo.t().contiguous(),
                bq, kft, vf, brow, out, sums, b, n, c, num_heads, i, _row_tile(n, c),
-               int(residual), int(prenorm), n_valid)
+               int(residual), int(prenorm), n_valid, i_valid)
         folded_unpool.launches_wmma += 1
     return _unpad(out, n_valid), sums
 
@@ -1250,26 +1472,42 @@ def _chain_unpool(dkf, dvf, k, v, wq, wo, num_heads: int) -> tuple:
             dwo.permute(1, 0, 2).reshape(c, c).to(wo.dtype))
 
 
+def _unpool_bwd_wmma_tile(c: int, i: int) -> int:
+    """The point tile of the WMMA unpool backward's main kernel: 32 rows
+    where its shared memory fits, else 16; 0 where neither fits.
+    csrc/unpool_bwd_wmma.cu ``bwd_tile`` (change both together)."""
+    for tn in (32, 16):
+        smem = (2 * tn * (c + _PAD) * 2 + tn * (c + _PADF) * 4 + 2 * tn * (i + _PADF) * 4
+                + 2 * tn * (i + _PAD) * 2)
+        if smem <= _MAX_SMEM:
+            return tn
+    return 0
+
+
 def _unpool_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     """Which body of ``folded_unpool_bwd`` takes these shapes on the card:
     "hopper" (csrc/unpool_bwd.cu, TMA and wgmma: I == 64, H even, C % 128
     == 0 and C <= 384 or C % 384 == 0) where it can, else "wmma"
-    (csrc/unpool_bwd_wmma.cu: C % 128 == 0, C <= 768, I % 16 == 0, I <= 64,
-    J % 64 == 0; its 32-point tile then fits the SM's shared memory); both
-    need D % 16 == 0 and take any N (padded). The three-head flagship takes
-    the WMMA body. Raises ValueError with both bodies' conditions
+    (csrc/unpool_bwd_wmma.cu: C % 128 == 0, C <= 768, J % 64 == 0 and a
+    point tile of 32 or 16 rows within the SM's shared memory,
+    ``_unpool_bwd_wmma_tile``: at C 384 up to 944 inducers, at C 768 up to
+    688); both need D % 16 == 0 and take any N (padded), and the WMMA body
+    a ragged I (zero-padded to 16s and masked). The three-head flagship
+    takes the WMMA body. Raises ValueError with both bodies' conditions
     otherwise."""
     d = c // num_heads
+    ip = _i_pad(i)
     common = c % num_heads == 0 and d % 16 == 0 and n >= 1 and c % 128 == 0
     if common and i == 64 and num_heads % 2 == 0 and (c <= 384 or c % 384 == 0):
         return "hopper"
-    if common and c <= 768 and i % 16 == 0 and i <= 64 and (num_heads * i) % 64 == 0:
+    if (common and c <= 768 and (num_heads * ip) % 64 == 0
+            and _unpool_bwd_wmma_tile(c, ip)):
         return "wmma"
     raise ValueError(
         f"folded_unpool_bwd: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
         f"(D={d}): the Hopper body needs I == 64, H even and C <= 384 or C % 384 == 0; the "
-        f"WMMA body C <= 768, I % 16 == 0, I <= 64 and J % 64 == 0; both C % 128 == 0 and "
-        f"D % 16 == 0")
+        f"WMMA body C <= 768, J % 64 == 0 (I padded to 16s) and a point tile of 16 rows "
+        f"within {_MAX_SMEM} bytes of shared memory; both C % 128 == 0 and D % 16 == 0")
 
 
 def folded_unpool_bwd(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residual: bool = True,
@@ -1337,11 +1575,15 @@ def _unpool_bwd_hopper(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, resid
 
 def _unpool_bwd_wmma(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residual: bool,
                      prenorm: bool) -> tuple:
-    """The WMMA body (csrc/unpool_bwd_wmma.cu) -> (dx, dse, dbe, dkf, dvf)."""
+    """The WMMA body (csrc/unpool_bwd_wmma.cu) -> (dx, dse, dbe, dkf, dvf);
+    a ragged I goes zero-padded to 16s, its padding masked in the kernel
+    and sliced off dkf and dvf."""
     b, n_valid, c = x.shape
     n = _n_pad(n_valid)
     x, g = _pad_points(x, n), _pad_points(g, n)
-    i = k.shape[1]
+    i_valid = k.shape[1]
+    i = _i_pad(i_valid)
+    k, v = _pad_points(k, i), _pad_points(v, i)
     j = num_heads * i
     dev = x.device
     kft = torch.empty((b, j, c), dtype=_BF16, device=dev)
@@ -1353,8 +1595,11 @@ def _unpool_bwd_wmma(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residua
     dvf = torch.zeros((b, j, c), dtype=_F32, device=dev)
     launch("unpool_bwd_wmma", "unpool_bwd_wmma_launch", x, se, be, k, v, wq, wo, g, g_sums, kft,
            torch.empty_like(kft), p, torch.empty_like(p), torch.empty_like(x), dx, dse, dbe, dkf,
-           dvf, b, n, c, num_heads, i, int(residual), int(prenorm), n_valid)
+           dvf, b, n, c, num_heads, i, int(residual), int(prenorm), n_valid, i_valid)
     folded_unpool_bwd.launches_wmma += 1
+    if i != i_valid:  # the padding inducers' columns and rows
+        cols = (torch.arange(j, device=dev) % i) < i_valid
+        dkf, dvf = dkf[:, :, cols], dvf[:, cols]
     return _unpad(dx, n_valid), dse, dbe, dkf, dvf
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from gecco_tpu_torch.ops.kernels._build import check_cuda, launch
+from gecco_tpu_torch.ops.kernels.folded_attention import _i_pad, _pad_points
 from gecco_tpu_torch.ops.kernels._grad import needs_grad, vjp
 from gecco_tpu_torch.ops.norms import group_norm_stats, stats_from_sums
 
@@ -49,15 +50,18 @@ def _hside_ref(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv):
 _SLAB = 16
 
 
-def _hside_norm_ref(z, scale, bias, num_groups: int, dtype, sums=None) -> torch.Tensor:
+def _hside_norm_ref(z, scale, bias, num_groups: int, dtype, sums=None,
+                    i_valid=None) -> torch.Tensor:
     """Plain version of ``hside_norm_kernel``: (z - mean) * (inv * scale) +
     bias rounded to ``dtype``, over z [B, I, C] (h0, or the fp32 hh), the
     set-level group statistics from the channel sums ``sums`` [B, 2, C]
-    where given (norm_2's, the out pass's slabs added), else from z."""
+    where given (norm_2's, the out pass's slabs added), else from z's rows
+    before ``i_valid`` (the rest a ragged I's padding; None: all)."""
+    iv = z.shape[1] if i_valid is None else i_valid
     if sums is None:
-        zf = z.float()
+        zf = z[:, :iv].float()
         sums = torch.stack([zf.sum(1), (zf * zf).sum(1)], dim=1)
-    mean, inv = stats_from_sums(sums[:, 0], sums[:, 1], z.shape[1], num_groups)
+    mean, inv = stats_from_sums(sums[:, 0], sums[:, 1], iv, num_groups)
     return ((z.float() - mean[:, None]) * (inv * scale)[:, None] + bias[:, None]).to(dtype)
 
 
@@ -115,20 +119,21 @@ def _hside_takes(i: int, c: int, w: int, groups: int) -> bool:
 
 def _hside_body(i: int, c: int, w: int, groups: int) -> str:
     """Which body of ``fused_h_side`` takes these shapes on the card:
-    "hopper" (csrc/hside.cu: I % 16 == 0, C % 128 == 0, W % 128 == 0, C <=
-    2048; the flagship, the 8k width, the demo and any I of 16s) where it
-    can, else "wmma" (csrc/hside_wmma.cu: I in (16, 32, 48, 64), C % 16 ==
-    0, W % 64 == 0, its block within the SM's shared memory). Both need G
-    dividing C. Raises ValueError with both bodies' conditions otherwise."""
-    if _hside_hopper_takes(i, c, w, groups):
+    "hopper" (csrc/hside.cu: C % 128 == 0, W % 128 == 0, C <= 2048; the
+    flagship, the 8k width, the demo, any I: a ragged I zero-padded to 16s,
+    its padding rows out of both norms' statistics) where it can, else
+    "wmma" (csrc/hside_wmma.cu: I in (16, 32, 48, 64), C % 16 == 0, W % 64
+    == 0, its block within the SM's shared memory). Both need G dividing C.
+    Raises ValueError with both bodies' conditions otherwise."""
+    if _hside_hopper_takes(_i_pad(i), c, w, groups):
         return "hopper"
     if _hside_takes(i, c, w, groups):
         return "wmma"
     raise ValueError(
         f"fused_h_side: no CUDA body takes I={i}, C={c}, W={w}, G={groups}: the Hopper body "
-        f"needs I % 16 == 0, C % 128 == 0, W % 128 == 0 and C <= 2048; the WMMA body I in "
-        f"(16, 32, 48, 64), C % 16 == 0, W % 64 == 0 and its block within {_MAX_SMEM} bytes "
-        f"of shared memory; both C % G == 0")
+        f"needs C % 128 == 0, W % 128 == 0 and C <= 2048; the WMMA body I in (16, 32, 48, "
+        f"64), C % 16 == 0, W % 64 == 0 and its block within {_MAX_SMEM} bytes of shared "
+        f"memory; both C % G == 0")
 
 
 def _hside_launch(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv):
@@ -148,9 +153,12 @@ def _hside_launch(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv):
 def _hside_hopper(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv,
                   mid: dict | None = None) -> tuple:
     """The Hopper body (csrc/hside.cu) -> (h, k, v); ``mid``, where given,
-    receives the passes' y1, g, hh and slab sums (at the B I rows), which
-    ``chip_smoke.py`` holds against their plain pieces. The passes run over
-    the B I rows padded to the 128-row block."""
+    receives the passes' y1, g, hh and slab sums (at the B I rows; a ragged
+    I's at its padded count), which ``chip_smoke.py`` holds against their
+    plain pieces. The passes run over the B I rows padded to the 128-row
+    block; a ragged I is zero-padded to 16s first and sliced back after."""
+    i_valid = h0.shape[1]
+    h0 = _pad_points(h0, _i_pad(i_valid))
     b, i, c = h0.shape
     w = w1t.shape[1]
     m = b * i
@@ -164,11 +172,13 @@ def _hside_hopper(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv,
     shape = (b, i, c) if mp == m else (mp, c)
     h, k, v = (torch.empty(shape, dtype=_BF16, device=dev) for _ in range(3))
     launch("hside", "hside_launch", h0, s1, b1n, s2, b2n, w1t, b1, w2t, b2, wk, wv, buf["y1"],
-           buf["g"], buf["hh"], buf["part"], h, k, v, b, i, c, w, gind.shape[1])
+           buf["g"], buf["hh"], buf["part"], h, k, v, b, i, c, w, gind.shape[1], i_valid)
     fused_h_side.launches += 1
     if mid is not None:
         mid.update({name: t[:m // _SLAB if name == "part" else m] for name, t in buf.items()})
-    return (h, k, v) if mp == m else tuple(t[:m].view(b, i, c) for t in (h, k, v))
+    out = (h, k, v) if mp == m else tuple(t[:m].view(b, i, c) for t in (h, k, v))
+    return out if i == i_valid else tuple(t[:, :i_valid].contiguous() for t in out)
+
 
 
 def _hside_wmma(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv) -> tuple:

@@ -20,7 +20,10 @@ against the I inducer tokens).
 - ``rect_attention_pallas``: the differentiable function over the two.
 
 CUDA tensors launch the kernels (a CUDA tensor never takes a plain
-version); CPU tensors run the plain versions (the backward is autograd
+version): one instance per head width 16 to 128 in steps of 16 and 192; a
+head width between is zero-padded to the next (its zero columns add
+nothing to q k^T and give zero output columns, and the softmax scale is
+1/sqrt of the real width, passed in). CPU tensors run the plain versions (the backward is autograd
 through the plain forward, as the twins' ``jax.vjp``). The kernels read q,
 k and v through their strides: the [B, H, N, D] views that the set
 transformer's ``_split_heads`` makes of its [B, N, C] projections (and the
@@ -73,14 +76,33 @@ def _strided(name: str, tensors: dict, device) -> dict:
     return out
 
 
+# the head widths of the kernels' instances (csrc/induced_attention.cu and
+# induced_attention_bwd.cu: change both together)
+_WIDTHS = (16, 32, 48, 64, 80, 96, 112, 128, 192)
+
+
+def _d_pad(d: int) -> int:
+    """The instance that takes head width D: the narrowest of ``_WIDTHS``
+    at least D wide."""
+    return next(w for w in _WIDTHS if w >= d)
+
+
 def _check_shapes(name: str, q, k, v) -> None:
+    """Raise unless q, k and v form [B, H, M, D] x [B, H, N, D] with D <= 192
+    (any narrower D is zero-padded to an instance's width)."""
     b, h, m, d = q.shape
     if k.shape != (b, h, k.shape[2], d) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          "do not form [B, H, M, D] x [B, H, N, D]")
-    if d % 16 or not 16 <= d <= 128:
-        raise ValueError(f"{name}: the CUDA kernel needs D % 16 == 0 and 16 <= D <= 128, "
-                         f"got D={d}")
+    if not 1 <= d <= _WIDTHS[-1]:
+        raise ValueError(f"{name}: the CUDA kernel needs 1 <= D <= {_WIDTHS[-1]}, got D={d}")
+
+
+def _pad_width(t, dp: int):
+    """t [..., D] zero-padded on its last axis to dp columns; t itself where
+    D is dp."""
+    d = t.shape[-1]
+    return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
 
 
 def _strides(t) -> tuple:
@@ -97,16 +119,19 @@ def rect_attention_fwd(q, k, v) -> tuple:
     if q.device.type != "cuda":
         raise ValueError(f"{name}: q must be a CUDA tensor, got {q.device}")
     _check_shapes(name, q, k, v)
-    ops = _strided(name, dict(q=q, k=k, v=v), q.device)
+    d = q.shape[-1]
+    dp = _d_pad(d)
+    ops = _strided(name, dict(q=_pad_width(q, dp), k=_pad_width(k, dp), v=_pad_width(v, dp)),
+                   q.device)
     q, k, v = ops["q"], ops["k"], ops["v"]
-    b, h, m, d = q.shape
+    b, h, m, _ = q.shape
     n = k.shape[2]
-    o = torch.empty((b, m, h, d), dtype=_BF16, device=q.device).transpose(1, 2)
+    o = torch.empty((b, m, h, dp), dtype=_BF16, device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, m), dtype=_F32, device=q.device)
     launch("induced_attention", "rect_attention_fwd_launch", q, k, v, o, lse,
-           *_strides(q), *_strides(k), *_strides(v), *_strides(o), b, h, m, n, d)
+           *_strides(q), *_strides(k), *_strides(v), *_strides(o), b, h, m, n, dp, d)
     rect_attention_fwd.launches += 1
-    return o, lse
+    return (o if dp == d else o[..., :d]), lse
 
 
 rect_attention_fwd.launches = 0
@@ -130,26 +155,31 @@ def rect_attention_bwd(q, k, v, o, lse, g) -> tuple:
         raise ValueError(f"{name}: q must be a CUDA tensor, got {q.device}")
     _check_shapes(name, q, k, v)
     delta = (g.float() * o.float()).sum(-1).contiguous()
-    ops = _strided(name, dict(q=q, k=k, v=v, g=g.to(_BF16)), q.device)
+    d = q.shape[-1]
+    dp = _d_pad(d)
+    ops = _strided(name, dict(q=_pad_width(q, dp), k=_pad_width(k, dp), v=_pad_width(v, dp),
+                              g=_pad_width(g.to(_BF16), dp)), q.device)
     q, k, v, g16 = ops["q"], ops["k"], ops["v"], ops["g"]
     if lse.dtype != _F32 or not lse.is_contiguous():
         raise ValueError(f"{name}: lse must be a contiguous {_F32} tensor")
-    b, h, m, d = q.shape
+    b, h, m, _ = q.shape
     n = k.shape[2]
     dev = q.device
-    dk = torch.empty((b, n, h, d), dtype=_BF16, device=dev).transpose(1, 2)
+    dk = torch.empty((b, n, h, dp), dtype=_BF16, device=dev).transpose(1, 2)
     dv = torch.empty_like(dk)
     # one key tile: each block writes its query rows' dq whole; more: the
     # key tiles' parts meet in an fp32 buffer through atomics
-    dq = torch.empty((b, m, h, d), dtype=_BF16, device=dev).transpose(1, 2)
+    dq = torch.empty((b, m, h, dp), dtype=_BF16, device=dev).transpose(1, 2)
     dq32 = torch.zeros_like(dq, dtype=_F32) if n > _TILE else None
     launch("induced_attention_bwd", "rect_attention_bwd_launch", q, k, v, g16, lse, delta,
            dq32 if dq32 is not None else dq, dk, dv,
            *_strides(q), *_strides(k), *_strides(v), *_strides(g16), *_strides(dq), *_strides(dk),
-           b, h, m, n, d, int(dq32 is not None))
+           b, h, m, n, dp, d, int(dq32 is not None))
     rect_attention_bwd.launches += 1
     if dq32 is not None:
         dq = dq32.to(_BF16)
+    if dp != d:
+        dq, dk, dv = (t[..., :d] for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -111,12 +111,15 @@ def test_hside_slab_sums_are_the_out_pass_rows():
     ((64, 192, 384, 32), "wmma"),     # C % 128 != 0
     ((64, 48, 128, 8), "wmma"),       # C % 128 != 0
     ((128, 192, 384, 32), None),      # neither: I > 64 and C % 128 != 0
-    ((20, 384, 768, 32), None),       # I % 16 != 0
-], ids=["flagship", "8k", "demo", "I16", "I128", "C192", "C48", "none-I128-C192", "none-I20"])
+    ((20, 384, 768, 32), "hopper"),   # I % 16 != 0: zero-padded to 32
+    ((20, 192, 384, 32), None),       # neither: I % 16 != 0 and C % 128 != 0
+], ids=["flagship", "8k", "demo", "I16", "I128", "C192", "C48", "none-I128-C192", "I20",
+        "none-I20-C192"])
 def test_hside_body_switch_chooses_by_shape(shape, body):
     """The h-side picks its Hopper body wherever it takes the shape (every
-    configuration's), its WMMA body where only that one does, and raises
-    naming both bodies' conditions otherwise."""
+    configuration's, and a ragged I padded to 16s), its WMMA body where
+    only that one does, and raises naming both bodies' conditions
+    otherwise."""
     if body is None:
         with pytest.raises(ValueError, match="Hopper body .* WMMA body"):
             ths._hside_body(*shape)

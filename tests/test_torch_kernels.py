@@ -188,6 +188,7 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         "folded_pool_layer": 0, "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0,
         "fused_mlp_residual_bwd": 0, "projective_gather_bwd": 0, "rect_attention_bwd": 0,
         "folded_pool_layer_bwd": 0, "folded_pool_ext_wmma": 0, "fused_h_side_wmma": 0,
+        "folded_pool_layer_wmma": 0,
         "folded_unpool_wmma": 0, "fused_mlp_residual_wmma": 0, "folded_pool_ext_bwd_wmma": 0,
         "folded_unpool_bwd_wmma": 0, "fused_mlp_residual_bwd_wmma": 0,
         "folded_pool_ext_bwd_v1": 0, "folded_pool_ext_bwd_v2": 0, "folded_pool_ext_bwd_v2j": 0,
@@ -533,16 +534,18 @@ def test_body_switches_choose_by_shape(shape, bodies, bwd):
     (("hside", 128, 384, 768, 32), False),  # one instance per I in (16, 32, 48, 64)
     (("rect", 48), True),  # the per-head flagship
     (("rect", 128), True),  # num_heads=3 at C 384
-    (("rect", 40), False),  # D % 16 != 0
-    (("rect", 144), False),  # D > 128
+    (("rect", 40), True),  # D % 16 != 0: zero-padded to the D 48 instance
+    (("rect", 144), True),  # D > 128: zero-padded to the D 192 instance
+    (("rect", 200), False),  # D > 192: no instance's block fits
 ], ids=["hside-I64", "hside-I32", "hside-I128", "rect-D48", "rect-D128", "rect-D40",
-        "rect-D144"])
+        "rect-D144", "rect-D200"])
 def test_hside_and_rect_attention_route_by_shape(case, takes):
-    """The h-side and the per-head attention (forward and backward share
-    ``_check_shapes``) take their kernel by shape alone: the h-side at I
-    16 to 64, the attention at D % 16 == 0 up to 128. On the card a shape
-    the kernel does not take raises (ROADMAP C1: the JAX package runs its
-    kernels there); malformed operands raise too."""
+    """The h-side's WMMA body and the per-head attention (forward and
+    backward share ``_check_shapes``) take their kernel by shape alone: the
+    WMMA h-side at I 16 to 64, the attention at any D up to 192 (a width
+    between its instances zero-padded to the next, ``_d_pad``). On the card
+    a shape the kernel does not take raises; malformed operands raise
+    too."""
     if case[0] == "hside":
         assert ths._hside_takes(*case[1:]) is takes
         return
@@ -551,7 +554,7 @@ def test_hside_and_rect_attention_route_by_shape(case, takes):
     if takes:
         tia._check_shapes("rect", q, kv, kv)
     else:
-        with pytest.raises(ValueError, match="D % 16 == 0 and 16 <= D <= 128"):
+        with pytest.raises(ValueError, match="1 <= D <= 192"):
             tia._check_shapes("rect", q, kv, kv)
     with pytest.raises(ValueError, match="do not form"):
         tia._check_shapes("rect", q, kv, kv[..., :16])
@@ -566,18 +569,18 @@ POOL_BWD_SHAPES = ((48, 2048, 384, 8, 64), (2, 8192, 768, 16, 64), (48, 2048, 12
 
 @pytest.mark.parametrize("mode,want", [
     (None, ("hopper", "hopper", "wmma", "wmma")),
-    ("v1", ("v1", "v1", None, None)),
-    ("v2", ("v2", "v2", None, None)),
-    ("v2j", ("v2j", "v2j", None, None)),
+    ("v1", ("v1", "v1", "v1", None)),
+    ("v2", ("v2", "v2", "v2", None)),
+    ("v2j", ("v2j", "v2j", "v2j", None)),
     ("v3", ("hopper", "hopper", "wmma", "wmma")),
 ], ids=["unset", "v1", "v2", "v2j", "v3"])
 def test_pool_bwd_switch_takes_the_forced_body(monkeypatch, mode, want):
     """GECCO_POOL_BWD as the JAX package reads it: unset or "v3", the v3
     algebra's bodies; forced to v1, v2 or v2j, that body where its kernel
-    takes the shape (the flagship's and the 8k width), and on the card a
-    forced body that does not take the shape raises (None), as does N 2000
-    under a forced body (the v1, v2 and v2j bodies take no ragged tail);
-    unset or "v3", N 2000 takes the Hopper body at its padded count."""
+    takes the shape (the flagship's, the 8k and the demo's widths), and on
+    the card a forced body that does not take the shape raises (None: three
+    heads, whose J = 192 is no multiple of the weight-gradient tile's 128);
+    N 2000 takes the chosen body at its padded count."""
     monkeypatch.setattr(tfa, "_POOL_BWD_ENV", mode)
     for shape, body in zip(POOL_BWD_SHAPES, want):
         if body is None:
@@ -585,11 +588,8 @@ def test_pool_bwd_switch_takes_the_forced_body(monkeypatch, mode, want):
                 tfa._pool_ext_bwd_body(*shape)
         else:
             assert tfa._pool_ext_bwd_body(*shape) == body
-    if mode in (None, "v3"):
-        assert tfa._pool_ext_bwd_body(48, 2000, 384, 8, 64) == "hopper"
-    else:
-        with pytest.raises(ValueError, match=f"GECCO_POOL_BWD={mode} forces"):
-            tfa._pool_ext_bwd_body(48, 2000, 384, 8, 64)
+    assert tfa._pool_ext_bwd_body(48, 2000, 384, 8, 64) == (
+        "hopper" if mode in (None, "v3") else mode)
 
 
 def test_pool_bwd_env_parses_as_the_jax_package(capsys):

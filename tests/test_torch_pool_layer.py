@@ -213,3 +213,122 @@ def test_pool_layer_bwd_wrapper_is_autograd_of_the_plain_version():
                             [torch.from_numpy(c) for c in cot])
     for a, x in zip(got, leaves):
         torch.testing.assert_close(a, x.grad, rtol=0, atol=0)
+
+
+# ------------------------------------- the Hopper body's passes, plainly --
+
+
+def _pool_layer_by_pieces(x, scale, bias, ind2, kvw, wo, prenorm, heads, n_valid=None):
+    """The Hopper body's plain pieces in its kernels' order (the pre-norm,
+    pass A's chunk max and sum, the merge, pass B's un-rescaled chunk
+    partials, their sum, the output projection) -> (h0, M, L, pacc)."""
+    _, mean, inv = tfa._pool_ref(x, scale, bias, ind2, kvw, wo, GROUPS, heads, prenorm, n_valid)
+    y = (((x.float() - mean[:, None]) * (inv * scale)[:, None] + bias[:, None]).to(x.dtype)
+         if prenorm else x)
+    qft = tfa.fold_qf(ind2, kvw, heads).t()
+    macc, sacc = tfa._pool_layer_merge_ref(*tfa._pool_layer_chunks_ref(y, qft, n_valid))
+    part_p = tfa._pool_layer_partials_ref(y, qft, kvw, macc, sacc, heads, n_valid)
+    pacc = tfa._pool_layer_sum_ref(part_p, heads)
+    return (pacc.to(x.dtype).float() @ wo.float().t()).to(x.dtype), macc, sacc, pacc
+
+
+def _column_stats(x, scale, bias, ind2, kvw, wo, prenorm, heads):
+    """The softmax's column max and sum over all N points [B, J], as the
+    plain version forms its logits."""
+    _, mean, inv = tfa._pool_ref(x, scale, bias, ind2, kvw, wo, GROUPS, heads, prenorm)
+    y = (((x.float() - mean[:, None]) * (inv * scale)[:, None] + bias[:, None]).to(x.dtype)
+         if prenorm else x)
+    s = torch.einsum("bnc,cj->bnj", y.float(), tfa.fold_qf(ind2, kvw, heads).float())
+    m = s.amax(1)
+    return m, torch.exp(s - m[:, None]).sum(1)
+
+
+@pytest.mark.parametrize("case", [
+    (128, True, False), (128, True, True), (128, False, False), (128, False, True),
+    (100, True, True), (100, False, True)],
+    ids=["prenorm-plain", "prenorm-drift", "raw-plain", "raw-drift", "ragged-prenorm",
+         "ragged-raw"])
+def test_pool_layer_pieces_compose_to_the_plain_version_and_jax(case):
+    """The Hopper body's plain pieces (``_pool_layer_chunks_ref``,
+    ``_pool_layer_merge_ref``, ``_pool_layer_partials_ref``,
+    ``_pool_layer_sum_ref``) compose in fp32 to h0 of the plain version
+    ``_pool_ref`` and of the JAX op (``_pool_kernel`` in interpret mode, one
+    ``jax.jit``) at the forward tolerances of ``test_pool_layer_matches_jax``
+    (rtol 1e-4, atol 1e-5; 1e-4 with drifted logits); the merged M and L are
+    the softmax's column max and sum over the N points (rtol 1e-5). A ragged
+    N (100 points zero-padded to 128, one chunk holding 36 of them) gives the
+    unpadded N's h0 with ``n_valid``."""
+    n, prenorm, drift = case
+    args = list(_pool_args(20, drift))
+    x_pad = torch.from_numpy(args[0]).clone()
+    x_pad[:, n:] = 0.0
+    args[0] = args[0][:, :n]
+    ops = [torch.from_numpy(a) for a in args]
+    h0, macc, sacc, _ = _pool_layer_by_pieces(x_pad, *ops[1:], prenorm, HEADS,
+                                              None if n == N else n)
+    want = tfa._pool_ref(*ops, GROUPS, HEADS, prenorm)[0]
+    gind = jnp.asarray(_gind())
+    ref = jax.jit(lambda a: jfa.folded_pool_layer(*a, gind, HEADS, prenorm)[0])(
+        tuple(map(jnp.asarray, args)))
+    for r in (want, ref):
+        _assert_close(h0, r, 1e-4, 1e-4 if drift else 1e-5, False, "h0")
+    m, l = _column_stats(*ops, prenorm, HEADS)
+    torch.testing.assert_close(macc, m, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(sacc, l, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("i", [128, 256], ids=["I128", "I256"])
+def test_pool_layer_takes_many_inducers_as_jax(i):
+    """ROADMAP C1, the resident pool at 128 and 256 inducers: the JAX
+    package's resident kernel computes there on the CPU (interpret mode; at
+    this small width its VMEM gate ``pool_vmem_ok`` admits it), and the
+    port's plain version and the Hopper body's pieces agree with it at the
+    forward tolerances (rtol 1e-4, atol 1e-5); on the card the Hopper body
+    takes these shapes at the flagship's width (``_pool_layer_body``)."""
+    heads, c = 4, 64
+    d = c // heads
+    rng = np.random.default_rng(21)
+    x = (1.5 * rng.standard_normal((1, N, c)) + 0.3 * rng.standard_normal(c)).astype(np.float32)
+    args = (x, (1.0 + 0.1 * rng.standard_normal((1, c))).astype(np.float32),
+            (0.1 * rng.standard_normal((1, c))).astype(np.float32),
+            (rng.standard_normal((heads * i, d)) / 2).astype(np.float32),
+            (rng.standard_normal((2 * c, c)) / 8).astype(np.float32),
+            (rng.standard_normal((c, c)) / 8).astype(np.float32))
+    assert jfa.pool_vmem_ok(N, c, heads * i)
+    gind = jnp.asarray(np.array(jfa.group_indicator(c, GROUPS)))
+    ref = jax.jit(lambda a: jfa.folded_pool_layer(*a, gind, heads, True))(
+        tuple(map(jnp.asarray, args)))
+    ops = [torch.from_numpy(a) for a in args]
+    port = tfa._pool_ref(*ops, GROUPS, heads, True)
+    for name, a, r in zip(("h0", "mean_c", "inv_c"), port, ref):
+        _assert_close(a, r, 1e-4, 1e-5, False, name)
+    _assert_close(_pool_layer_by_pieces(*ops, True, heads)[0], ref[0], 1e-4, 1e-5, False,
+                  "h0 by the pieces")
+    assert tfa._pool_layer_body(64, 2048, 384, 8, i) == "hopper"
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((64, 2048, 384, 8, 64), "hopper"), ((2, 8192, 768, 16, 64), "hopper"),
+    ((64, 2048, 768, 16, 64), "hopper"), ((64, 2000, 384, 8, 64), "hopper"),
+    ((64, 2048, 384, 8, 16), "hopper"), ((64, 2048, 384, 8, 512), "hopper"),
+    ((64, 2048, 128, 4, 64), "wmma"), ((64, 2048, 384, 3, 64), "wmma"),
+    ((64, 2048, 384, 12, 240), "wmma"), ((64, 2048, 384, 12, 256), "wmma"),
+    ((64, 2048, 384, 3, 256), "wmma"), ((64, 2048, 2048, 64, 64), None),
+    ((64, 2048, 384, 8, 24), "hopper"), ((1, 2048, 384, 8, 16), None)],
+    ids=["flagship", "8k", "8k-B64", "ragged", "I16", "I512", "demo", "three-heads",
+         "wmma-I240", "wmma-I256", "three-heads-I256", "C2048", "I24", "B1-I16"])
+def test_pool_layer_switch_chooses_by_shape(shape, want):
+    """``_pool_layer_body``: the Hopper body at D 48 with H % 8 == 0 and C
+    <= 768 at any I of 16s (the flagship's and the 8k width, any N);
+    elsewhere the WMMA body, whose blocks take a head's columns whole where
+    they fit the SM's shared memory (at C 384 with D 32 up to 240 of them)
+    and else in column blocks (``_pool_wmma_block``: 128 of 256); a ragged
+    I (24) takes the bodies of its count padded to 16s (32); a shape neither
+    takes raises ValueError naming both bodies' bounds (C 2048, whose stream
+    tile alone exceeds a block's shared memory; B*I % 64 != 0 at B 1, I
+    16)."""
+    if want is None:
+        with pytest.raises(ValueError, match="no CUDA body takes"):
+            tfa._pool_layer_body(*shape)
+    else:
+        assert tfa._pool_layer_body(*shape) == want

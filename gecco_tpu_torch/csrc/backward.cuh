@@ -66,15 +66,22 @@ inline cudaError_t launch_prenorm(const bf16* x, const float* se, const float* b
 }
 
 // The pool backward's per-batch fold (both bodies), one block per (head h,
-// batch element b), from eTy [B, J, C] bf16, the cotangent g_h0 [B, I, C]
-// and the forward's column sums sacc [B, J]:
+// batch element b, block of up to 64 of the head's inducer rows), from eTy
+// [B, J, C] bf16, the cotangent g_h0 [B, I, C] and the forward's column
+// sums sacc [B, J]:
 //   DMs_h = bf16((g_h0 @ Wo[:, hD:(h+1)D]) / sacc)         [I, D]
 //   pacc_h = eTy_h @ Wv_h^T;  tacc = rowsum(DMs_h * pacc_h) / sacc
 //   dWo[:, hD:(h+1)D] += g_h0^T bf16(pacc_h / sacc);  dWv[hD:(h+1)D] += DMs_h^T eTy_h
 //   W3[hI:(h+1)I] = bf16(DMs_h Wv_h)                        [I, C]
 // (the v3 algebra's W2 = bf16(Wv^T DMs^T) is W3^T: the same fp32 sums, so
-// the dy pass reads W3 for both). Shared memory: the product buffer,
-// DMs_h and merged_h [I, D] bf16, pacc_h [I, D] fp32.
+// the dy pass reads W3 for both). Every row of DMs, pacc, tacc, merged and
+// W3 is its own, so a block forms those of its rows only, and adds its
+// rows' share of dWo and dWv through the atomics; at I <= 64 one block
+// takes a head's rows, and its bytes do not grow with I beyond. Shared
+// memory: the product buffer, the rows' DMs_h and merged_h [min(I, 64), D]
+// bf16 and pacc_h [min(I, 64), D] fp32.
+constexpr int kFoldRows = 64;
+
 __global__ void __launch_bounds__(kThreads)
 pool_bwd_fold_kernel(const bf16* __restrict__ gh, const bf16* __restrict__ wo,
                      const bf16* __restrict__ kvw, const float* __restrict__ sacc,
@@ -83,26 +90,28 @@ pool_bwd_fold_kernel(const bf16* __restrict__ gh, const bf16* __restrict__ wo,
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = C / H, J = H * I;
   const int ldd = D + kPad, ldp = D + kPadF;
+  const int cap = min(I, kFoldRows);  // rows a block's buffers hold
   float* buf = reinterpret_cast<float*>(smem);
   bf16* dms = reinterpret_cast<bf16*>(smem + kBlockProductSmem);
-  bf16* mrg = dms + (size_t)I * ldd;
-  float* pacc = reinterpret_cast<float*>(mrg + (size_t)I * ldd);
+  bf16* mrg = dms + (size_t)cap * ldd;
+  float* pacc = reinterpret_cast<float*>(mrg + (size_t)cap * ldd);
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const bf16* ghb = gh + (size_t)b * I * C;
+  const int h = blockIdx.x, b = blockIdx.y, r0 = blockIdx.z * kFoldRows;
+  const int rows = min(kFoldRows, I - r0);  // a multiple of 16
+  const bf16* ghb = gh + ((size_t)b * I + r0) * C;
   const bf16* wv = kvw + (size_t)(C + h * D) * C;  // Wv_h [D, C]
-  const bf16* etyh = ety + ((size_t)b * J + h * I) * C;
-  const float* sb = sacc + (size_t)b * J + h * I;
+  const bf16* etyh = ety + ((size_t)b * J + h * I + r0) * C;
+  const float* sb = sacc + (size_t)b * J + h * I + r0;
 
   // DMs_h = bf16((g_h0 @ Wo[:, hD:(h+1)D]) / sacc)
   block_product<wmma::row_major, wmma::row_major>(
-      ghb, C, wo + h * D, C, I, D, C, buf,
+      ghb, C, wo + h * D, C, rows, D, C, buf,
       [&](int r, int c, float v) { dms[r * ldd + c] = __float2bfloat16(v * (1.0f / sb[r])); });
   // pacc_h = bf16(eTy_h) @ Wv_h^T
   block_product<wmma::row_major, wmma::col_major>(
-      etyh, C, wv, C, I, D, C, buf, [&](int r, int c, float v) { pacc[r * ldp + c] = v; });
+      etyh, C, wv, C, rows, D, C, buf, [&](int r, int c, float v) { pacc[r * ldp + c] = v; });
   // tacc and the merged pooled values: one warp per row
-  for (int r = threadIdx.x / 32; r < I; r += kWarps) {
+  for (int r = threadIdx.x / 32; r < rows; r += kWarps) {
     const float inv = 1.0f / sb[r];
     float acc = 0.0f;
     for (int c = threadIdx.x % 32; c < D; c += 32) {
@@ -111,37 +120,42 @@ pool_bwd_fold_kernel(const bf16* __restrict__ gh, const bf16* __restrict__ wo,
       mrg[r * ldd + c] = __float2bfloat16(p * inv);
     }
     for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (threadIdx.x % 32 == 0) tacc[(size_t)b * J + h * I + r] = acc * inv;
+    if (threadIdx.x % 32 == 0) tacc[(size_t)b * J + h * I + r0 + r] = acc * inv;
   }
   __syncthreads();
-  // dWo[:, hD:(h+1)D] += g_h0^T merged_h
+  // dWo[:, hD:(h+1)D] += g_h0^T merged_h over the block's rows
   block_product<wmma::col_major, wmma::row_major>(
-      ghb, C, mrg, ldd, C, D, I, buf,
+      ghb, C, mrg, ldd, C, D, rows, buf,
       [&](int r, int c, float v) { atomicAdd(dwo + (size_t)r * C + h * D + c, v); });
-  // W3[hI:(h+1)I, :] = DMs_h Wv_h
+  // W3[hI + r0 + r, :] = DMs_h Wv_h
   block_product<wmma::row_major, wmma::row_major>(
-      dms, ldd, wv, C, I, C, D, buf,
+      dms, ldd, wv, C, rows, C, D, buf,
       [&](int r, int c, float v) {
-        w3[((size_t)b * J + h * I + r) * C + c] = __float2bfloat16(v);
+        w3[((size_t)b * J + h * I + r0 + r) * C + c] = __float2bfloat16(v);
       });
-  // dWv[hD:(h+1)D, :] += DMs_h^T eTy_h
+  // dWv[hD:(h+1)D, :] += DMs_h^T eTy_h over the block's rows
   block_product<wmma::col_major, wmma::row_major>(
-      dms, ldd, etyh, C, D, C, I, buf,
+      dms, ldd, etyh, C, D, C, rows, buf,
       [&](int r, int c, float v) { atomicAdd(dwv + (size_t)(h * D + r) * C + c, v); });
+}
+
+// the fold's block bytes (folded_attention.py _pool_bwd_fold_smem: change
+// both together)
+inline size_t pool_bwd_fold_smem(int D, int I) {
+  const size_t rows = I < kFoldRows ? I : kFoldRows;
+  return kBlockProductSmem + 2 * rows * (D + kPad) * 2 + rows * (D + kPadF) * 4;
 }
 
 inline cudaError_t launch_pool_bwd_fold(const bf16* gh, const bf16* wo, const bf16* kvw,
                                         const float* sacc, const bf16* ety, float* tacc, bf16* w3,
                                         float* dwv, float* dwo, int B, int C, int H, int I,
                                         cudaStream_t st) {
-  const int D = C / H;
-  const size_t smem =
-      kBlockProductSmem + (size_t)2 * I * (D + kPad) * 2 + (size_t)I * (D + kPadF) * 4;
+  const size_t smem = pool_bwd_fold_smem(C / H, I);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = set_smem((const void*)pool_bwd_fold_kernel, smem);
   if (err != cudaSuccess) return err;
-  pool_bwd_fold_kernel<<<dim3(H, B), kThreads, smem, st>>>(gh, wo, kvw, sacc, ety, tacc, w3, dwv,
-                                                          dwo, C, H, I);
+  pool_bwd_fold_kernel<<<dim3(H, B, (I + kFoldRows - 1) / kFoldRows), kThreads, smem, st>>>(
+      gh, wo, kvw, sacc, ety, tacc, w3, dwv, dwo, C, H, I);
   return cudaGetLastError();
 }
 

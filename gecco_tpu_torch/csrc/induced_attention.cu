@@ -27,10 +27,9 @@
 // stride); o is written through its own. The rows of 4 lanes each do the
 // softmax of one query row, shuffle-reduced. One instance per head width
 // D = 16 DT, DT 1 to 8 (the JAX kernel takes any D; the flagship's is 48,
-// three heads at C 384 give 128), and D 192 for the widths above (the
-// backward's block does not fit beyond it): the wrapper zero-pads a head
-// width to the next instance's and passes the real one for the softmax
-// scale.
+// three heads at C 384 give 128), D 192 and D 256 (three heads at C 768)
+// for the widths above: the wrapper zero-pads a head width to the next
+// instance's and passes the real one for the softmax scale.
 #include <cmath>
 
 #include "attention.cuh"
@@ -143,7 +142,7 @@ cudaError_t launch_fwd(Operand q, Operand k, Operand v, void* o, Strides os, voi
 }  // namespace
 
 // D: the operands' head width, one of the instances' (16 to 128 in steps of
-// 16, and 192); d_real <= D: the real head width, whose zero-padded
+// 16, 192 and 256); d_real <= D: the real head width, whose zero-padded
 // columns add nothing to q k^T and give zero output columns.
 extern "C" int rect_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                          void* lse, int qsb, int qsh, int qsr, int ksb, int ksh,
@@ -165,6 +164,7 @@ extern "C" int rect_attention_fwd_launch(const void* q, const void* k, const voi
     case 112: return (int)launch_fwd<7>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
     case 128: return (int)launch_fwd<8>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
     case 192: return (int)launch_fwd<12>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
+    case 256: return (int)launch_fwd<16>(qo, ko, vo, o, os, lse, B, H, M, N, d_real, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -23,8 +23,9 @@
 // s and dp as two products into shared memory, p and ds elementwise
 // (rounded to bf16), then dv, dk (register strips) and dq (to shared
 // memory, then out). Operands are read, and outputs written, through their
-// strides. One instance per head width D = 16 DT, DT 1 to 8 and 12, as the
-// forward.
+// strides. One instance per head width D = 16 DT, DT 1 to 8, 12 and 16, as
+// the forward; at D 256 a grid dimension over two 128-column slices of dk,
+// dv and dq (each block forms s and dp at full D again).
 #include <cmath>
 
 #include "attention.cuh"
@@ -35,17 +36,20 @@ namespace {
 
 // Shared memory: the k and v tiles [64, D] of the block, the q and g tiles
 // [64, D] of the query tile (bf16, row stride D + 8); s and dp [64, 64]
-// (fp32, row stride 68), the dq part [64, D] (row stride D + 4) reusing s,
-// whose region is as wide as the wider; p and ds [64, 64] (bf16, row
-// stride 72); the query tile's lse and delta [64].
-template <int DT>
+// (fp32, row stride 68), the dq part [64, DS] (row stride DS + 4) reusing
+// s, whose region is as wide as the wider; p and ds [64, 64] (bf16, row
+// stride 72); the query tile's lse and delta [64]. A block keeps dk, dv
+// and dq for one slice of DS = 16 ST of the D columns (blockIdx.x % the
+// D / DS slices): s and dp take every column, so each slice's block forms
+// them at full D again; one slice (ST = DT) up to D 192.
+template <int DT, int ST>
 __global__ void __launch_bounds__(kThreads)
 rect_attn_bwd_kernel(Operand q, Operand k, Operand v, Operand g, const float* __restrict__ lse,
                      const float* __restrict__ delta, void* __restrict__ dq, Strides dqs,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, Strides dkvs, int H, int M,
                      int N, float scale, int dq_atomic) {
-  constexpr int D = 16 * DT, T = kAttnTile;
-  constexpr int ld = D + kPad, lds = T + kPadF, ldp = T + kPad, ldo = D + kPadF;
+  constexpr int D = 16 * DT, DS = 16 * ST, T = kAttnTile;
+  constexpr int ld = D + kPad, lds = T + kPadF, ldp = T + kPad, ldo = DS + kPadF;
   constexpr int lss = lds > ldo ? lds : ldo;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
@@ -59,7 +63,9 @@ rect_attn_bwd_kernel(Operand q, Operand k, Operand v, Operand g, const float* __
   float* lse_s = dps + T * lds;
   float* delta_s = lse_s + T;
 
-  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * T;
+  constexpr int kSlices = DT / ST;
+  const int b = blockIdx.z, h = blockIdx.y, n0 = (blockIdx.x / kSlices) * T;
+  const int c0 = (blockIdx.x % kSlices) * DS;  // the block's first column of dq, dk, dv
   const int nv = min(T, N - n0);
   const int warp = threadIdx.x / 32;
   const int strip = (warp % 4) * 16, k0 = (warp / 4) * 32;
@@ -68,9 +74,9 @@ rect_attn_bwd_kernel(Operand q, Operand k, Operand v, Operand g, const float* __
 
   stage_rows(ks, ld, k.at(b, h, n0), k.s.sr, T, nv, D);
   stage_rows(vs, ld, v.at(b, h, n0), v.s.sr, T, nv, D);
-  FragC dk_acc[DT], dv_acc[DT];
+  FragC dk_acc[ST], dv_acc[ST];
 #pragma unroll
-  for (int t = 0; t < DT; ++t) {
+  for (int t = 0; t < ST; ++t) {
     wmma::fill_fragment(dk_acc[t], 0.0f);
     wmma::fill_fragment(dv_acc[t], 0.0f);
   }
@@ -97,19 +103,19 @@ rect_attn_bwd_kernel(Operand q, Operand k, Operand v, Operand g, const float* __
       dss[r * ldp + c] = __float2bfloat16(ds);
     }
     __syncthreads();
-    // dv += p^T g and dk += ds^T q over this query tile (p, ds read as
-    // column-major [64 keys, 64 queries] operands)
-    warp_rows_acc<DT, wmma::col_major, wmma::row_major>(dv_acc, ps, ldp, gs, ld, strip, k0,
+    // dv += p^T g and dk += ds^T q over this query tile, the slice's
+    // columns (p, ds read as column-major [64 keys, 64 queries] operands)
+    warp_rows_acc<ST, wmma::col_major, wmma::row_major>(dv_acc, ps, ldp, gs + c0, ld, strip, k0,
                                                          k0 + 32);
-    warp_rows_acc<DT, wmma::col_major, wmma::row_major>(dk_acc, dss, ldp, qs, ld, strip, k0,
-                                                         k0 + 32);
-    // this key tile's part of dq = ds k, into the logits' buffer
-    gemm_to_smem<wmma::row_major, wmma::row_major>(dss, ldp, ks, ld, ss, ldo, T, D, T);
+    warp_rows_acc<ST, wmma::col_major, wmma::row_major>(dk_acc, dss, ldp, qs + c0, ld, strip,
+                                                         k0, k0 + 32);
+    // this key tile's part of dq = ds k in the slice, into the logits' buffer
+    gemm_to_smem<wmma::row_major, wmma::row_major>(dss, ldp, ks + c0, ld, ss, ldo, T, DS, T);
     __syncthreads();
-    for (int e = threadIdx.x; e < mv * D; e += kThreads) {
-      const int r = e / D, d = e % D;
+    for (int e = threadIdx.x; e < mv * DS; e += kThreads) {
+      const int r = e / DS, d = e % DS;
       const float val = scale * ss[r * ldo + d];
-      const long long at = dqs.at(b, h, m0 + r) + d;
+      const long long at = dqs.at(b, h, m0 + r) + c0 + d;
       if (dq_atomic) {
         atomicAdd(reinterpret_cast<float*>(dq) + at, val);
       } else {
@@ -118,31 +124,35 @@ rect_attn_bwd_kernel(Operand q, Operand k, Operand v, Operand g, const float* __
     }
   }
   __syncthreads();  // every warp is done with ss
-  sum_halves<DT>(dk_acc, ss, ldo);
-  for (int e = threadIdx.x; e < nv * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    dk[dkvs.at(b, h, n0 + r) + d] = __float2bfloat16(scale * ss[r * ldo + d]);
+  sum_halves<ST>(dk_acc, ss, ldo);
+  for (int e = threadIdx.x; e < nv * DS; e += kThreads) {
+    const int r = e / DS, d = e % DS;
+    dk[dkvs.at(b, h, n0 + r) + c0 + d] = __float2bfloat16(scale * ss[r * ldo + d]);
   }
   __syncthreads();  // ss is read
-  sum_halves<DT>(dv_acc, ss, ldo);
-  for (int e = threadIdx.x; e < nv * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    dv[dkvs.at(b, h, n0 + r) + d] = __float2bfloat16(ss[r * ldo + d]);
+  sum_halves<ST>(dv_acc, ss, ldo);
+  for (int e = threadIdx.x; e < nv * DS; e += kThreads) {
+    const int r = e / DS, d = e % DS;
+    dv[dkvs.at(b, h, n0 + r) + c0 + d] = __float2bfloat16(ss[r * ldo + d]);
   }
 }
 
-template <int DT>
+// ST = DT (one slice) up to D 192; D 256 in two slices of 128 (two [64,
+// 256] fp32 register strips, dk and dv, would take 256 registers a thread,
+// and the block 238 KB of shared memory)
+template <int DT, int ST = DT>
 cudaError_t launch_bwd(Operand q, Operand k, Operand v, Operand g, const void* lse,
                        const void* delta, void* dq, Strides dqs, void* dk, void* dv, Strides dkvs,
                        int B, int H, int M, int N, int dq_atomic, int d_real, cudaStream_t st) {
-  constexpr int D = 16 * DT, T = kAttnTile;
+  constexpr int D = 16 * DT, DS = 16 * ST, T = kAttnTile;
+  static_assert(DT % ST == 0, "rect_attn_bwd_kernel: slices of equal width");
   const size_t smem = ((size_t)4 * T * (D + kPad) + (size_t)2 * T * (T + kPad)) * 2 +
-                      ((size_t)T * (D > T ? D + kPadF : T + kPadF) + T * (T + kPadF) + 2 * T) * 4;
-  const auto kernel = rect_attn_bwd_kernel<DT>;
+                      ((size_t)T * (DS > T ? DS + kPadF : T + kPadF) + T * (T + kPadF) + 2 * T) * 4;
+  const auto kernel = rect_attn_bwd_kernel<DT, ST>;
   cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
   const float scale = (float)(1.0 / sqrt((double)d_real));
-  kernel<<<dim3((N + T - 1) / T, H, B), kThreads, smem, st>>>(
+  kernel<<<dim3((N + T - 1) / T * (DT / ST), H, B), kThreads, smem, st>>>(
       q, k, v, g, (const float*)lse, (const float*)delta, dq, dqs, (bf16*)dk, (bf16*)dv, dkvs,
       H, M, N, scale, dq_atomic);
   return cudaGetLastError();
@@ -192,6 +202,9 @@ extern "C" int rect_attention_bwd_launch(const void* q, const void* k, const voi
     case 192:
       return (int)launch_bwd<12>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M, N,
                                  dq_atomic, d_real, st);
+    case 256:
+      return (int)launch_bwd<16, 8>(qo, ko, vo, go, lse, delta, dq, dqs, dk, dv, dkvs, B, H, M,
+                                    N, dq_atomic, d_real, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

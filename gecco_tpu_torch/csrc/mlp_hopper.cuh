@@ -27,7 +27,10 @@
 // barrier (one arrival per warpgroup) per stage; thread 0 refills a stage
 // once both warpgroups have released it, one wgmma group kept in flight. The
 // dual form (the backward's dh pass) runs two products of one depth into
-// two accumulators from two rings of operands.
+// two accumulators from two rings of operands. With K2 > 0 a single product
+// runs on past depth K into a second pair of operands (A2 [M, K2], B2 of
+// depth K2, B2 in B's layout): acc = A B + A2 B2 (csrc/pool_ext_bwd_twopass.cu's
+// dy = ds qf^T + dv Wv).
 //
 // Epilogues (EPI), on the accumulators in registers:
 //   kAct  a = bf16(exp(-h^2 / 2)), h = acc + b1                    -> out
@@ -36,7 +39,9 @@
 //         g' fp32 -> gp; column sums of g'
 //   kDh   h = acc + b1, a = exp(-h^2 / 2), dh = acc2 * a * (-h);
 //         bf16(dh) -> out; column sums of dh
-//   kDx   dy = acc; dx = bf16(g' + dy * se); column sums of dy * x, dy
+//   kDx   dy = acc; dx = bf16(g' + dy * se) (g' 0 where gp is null); column
+//         sums of dy * x, dy
+//   kF32  acc -> gp (fp32), no sums (the two-pass pool backward's logits)
 // A ragged point count comes zero-padded to the 128-row block by the
 // wrapper: kOut leaves the padding rows (a batch element's rows from
 // n_valid on) out of its sums and kGrad gives them no share of the sums'
@@ -68,7 +73,7 @@ constexpr int kBnDual = 128;         // column tile of the dual product
 constexpr int kStagesWide = 4;
 constexpr int kStagesDual = 3;
 
-enum Epi { kAct = 0, kOut = 1, kGrad = 2, kDh = 3, kDx = 4, kHOut = 5, kKV = 6 };
+enum Epi { kAct = 0, kOut = 1, kGrad = 2, kDh = 3, kDx = 4, kHOut = 5, kKV = 6, kF32 = 7 };
 
 __host__ __device__ constexpr int epi_sums(int epi) {
   return epi == kOut || epi == kDx ? 2 : (epi == kGrad || epi == kDh ? 1 : 0);
@@ -91,6 +96,7 @@ struct MlpEpi {
                       // (kHOut: [M / 16, 2, N], each warp's 16 rows')
   int split;          // kKV: the columns of out; the rest go to out2
   bf16* out2;         // kKV: [M, N - split]
+  int K2;             // depth of a second operand pair (A2, B2) after K; 0: none
 };
 
 // Shared memory of one instance, in bytes from a 1024-aligned base: the
@@ -139,30 +145,34 @@ __device__ __forceinline__ void mlp_gemm(const CUtensorMap* tm_a, const CUtensor
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* empty = full + STAGES;
   const int n0 = blockIdx.x * BN, rb = blockIdx.y, row0 = rb * kRows;
-  const int steps = e.K / 64;
+  const int steps = (e.K + e.K2) / 64;
   // kKV: the columns from split on are a second product, B from tm_b2
   const bool second = EPI == kKV && n0 >= e.split;
   const CUtensorMap* tm_b0 = second ? tm_b2 : tm_b;
   const int nb0 = second ? n0 - e.split : n0;
   auto stage = [&](int s) { return smem + s * L::kStage; };
   auto load = [&](int u) {
-    const int s = u % STAGES, k0 = u * 64;
+    const int s = u % STAGES;
+    // past depth K (K2 > 0): the second operand pair
+    const bool snd = u * 64 >= e.K;
+    const int k0 = snd ? u * 64 - e.K : u * 64;
     unsigned char* st = stage(s);
     bar_expect(full + s, L::kStage);
 #pragma unroll
     for (int op = 0; op < (kDual ? 2 : 1); ++op) {
       unsigned char* a = st + op * (L::kA + L::kB);
       unsigned char* b = a + L::kA;
-      const CUtensorMap* ta = op ? tm_a2 : tm_a;
+      const CUtensorMap* ta = op || snd ? tm_a2 : tm_a;
       tma_load(a, ta, full + s, row0, k0);
       tma_load(a + kPanel, ta, full + s, row0 + 64, k0);
       if (op == 0 && TB) {
         // B [K, N] row-major: BN / 64 panels of 64 rows of K
+        const CUtensorMap* tb = snd ? tm_b2 : tm_b;
 #pragma unroll
-        for (int p = 0; p < BN / 64; ++p) tma_load(b + p * kPanel, tm_b, full + s, k0, n0 + 64 * p);
+        for (int p = 0; p < BN / 64; ++p) tma_load(b + p * kPanel, tb, full + s, k0, n0 + 64 * p);
       } else {
         // B [N, K] row-major: one box of BN rows
-        tma_load(b, op ? tm_b2 : tm_b0, full + s, op ? n0 : nb0, k0);
+        tma_load(b, op || snd ? tm_b2 : tm_b0, full + s, op ? n0 : nb0, k0);
       }
     }
   };
@@ -294,6 +304,9 @@ __device__ __forceinline__ void mlp_gemm(const CUtensorMap* tm_a, const CUtensor
         *reinterpret_cast<float2*>(pw) = make_float2(q0, q1);
         *reinterpret_cast<float2*>(pw + e.N) = make_float2(r0, r1);
       }
+    } else if constexpr (EPI == kF32) {
+      *reinterpret_cast<float2*>(e.gp + i0) = make_float2(v0, v1);
+      *reinterpret_cast<float2*>(e.gp + i1) = make_float2(v2, v3);
     } else if constexpr (EPI == kKV) {
       const int ld = second ? e.N - e.split : e.split, cc = c - (second ? e.split : 0);
       bf16* dst = second ? e.out2 : e.out;
@@ -302,8 +315,10 @@ __device__ __forceinline__ void mlp_gemm(const CUtensorMap* tm_a, const CUtensor
     } else {  // kDx
       const float* seb = e.se + (size_t)bidx * e.N;
       const float se0 = __ldg(seb + c), se1 = __ldg(seb + c + 1);
-      const float2 p0 = *reinterpret_cast<const float2*>(e.gp + i0);
-      const float2 p1 = *reinterpret_cast<const float2*>(e.gp + i1);
+      const float2 p0 =
+          e.gp ? *reinterpret_cast<const float2*>(e.gp + i0) : make_float2(0.0f, 0.0f);
+      const float2 p1 =
+          e.gp ? *reinterpret_cast<const float2*>(e.gp + i1) : make_float2(0.0f, 0.0f);
       st_bf2(e.out + i0, p0.x + v0 * se0, p0.y + v1 * se1);
       st_bf2(e.out + i1, p1.x + v2 * se0, p1.y + v3 * se1);
       const float2 x0 = ld_bf2(e.x + i0), x1 = ld_bf2(e.x + i1);
@@ -385,7 +400,8 @@ inline cudaError_t launch_gemm(GemmKernel kernel, const CUtensorMap& ta, const C
                                long long M, cudaStream_t st) {
   constexpr int smem = GemmSmem<BN, EPI, STAGES>::kTotal;
   static_assert(smem <= (int)kMaxSmem, "mlp_gemm: shared memory");
-  if (e.N % BN || e.K % 64 || M % kRows || e.rows_b % kRows ||
+  if (e.N % BN || e.K % 64 || e.K2 % 64 || (e.K2 && EPI == kDh) || M % kRows ||
+      e.rows_b % kRows ||
       ((EPI == kOut || EPI == kGrad) && (e.n_valid < 1 || e.n_valid > e.rows_b))) {
     return cudaErrorInvalidValue;
   }

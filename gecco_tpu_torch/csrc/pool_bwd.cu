@@ -28,8 +28,11 @@
 //   1. fold: one block per (head, b) forms dpool_h and t_h and adds dWo's
 //      block (fp32 atomics). t needs no pass over the points: sum_n dp p =
 //      sum_d dpool P, from the forward's fp32 P;
-//   2. main: one block per (point tile, b) walks the heads: the tile's
-//      logits and values again, dp, dv, ds, and dy [TN, C] fp32 in
+//   2. main: one block per (point tile, b) walks the heads (64 points a
+//      tile up to C 384, else 32, halved down to 16 where the tile's
+//      [TN, I] planes would not fit; the fold's [I, D] blocks then bound I:
+//      960 inducers at C 384 and D 48, 912 at C 768): the tile's logits
+//      and values again, dp, dv, ds, and dy [TN, C] fp32 in
 //      registers; it writes bf16(ds) [B, N, J] and bf16(dv) [B, N, C] for
 //      the weight gradients; with the pre-norm the fp32 dy [B, N, C] and the
 //      channel sums of dy xc and dy (fp32 atomics), without it dx;
@@ -243,6 +246,33 @@ pool_layer_bwd_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ d
   }
 }
 
+// The main kernel's shared memory at a TN-point tile: region0 (the y tile,
+// later the fp32 dy tile), then s and dp [TN, I] fp32, v / dv [TN, D]
+// fp32, bf16 p and ds [TN, I], bf16 v and dv [TN, D]
+// (folded_attention.py _pool_layer_bwd_smem: change both together).
+inline size_t main_region0(int TN, int C) {
+  size_t region0 = (size_t)TN * (C + kPad) * 2;
+  const size_t out_tile = (size_t)TN * (C + kPadF) * 4;
+  if (out_tile > region0) region0 = out_tile;
+  return (region0 + 127) / 128 * 128;
+}
+
+inline size_t main_smem(int TN, int C, int I, int D) {
+  return main_region0(TN, C) + (size_t)2 * TN * (I + kPadF) * 4 +
+         (size_t)TN * (D + kPadF) * 4 + (size_t)2 * TN * (I + kPad) * 2 +
+         (size_t)2 * TN * (D + kPad) * 2;
+}
+
+// The point tile of the main kernel: 64 points up to C 384, else 32, and
+// half of that (down to 16) while the [TN, I] planes do not fit; 0 where
+// none does.
+inline int main_tile(int C, int I, int D) {
+  for (int TN = C <= 384 ? 64 : 32; TN >= 16; TN /= 2) {
+    if (main_smem(TN, C, I, D) <= kMaxSmem) return TN;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // y is the forward's pre-normed stream (x itself without the pre-norm).
@@ -276,18 +306,18 @@ extern "C" int pool_layer_bwd_launch(
         (float*)dwo, C, H, I);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  // 2. main: 64-point tiles up to C = 384, 32-point tiles above
+  // 2. main: the widest point tile whose block fits
   {
+    const int TN = main_tile(C, I, D);
+    if (TN == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = main_smem(TN, C, I, D);
     const bool narrow = C <= 384;
-    const int TN = narrow ? 64 : 32;
-    size_t region0 = (size_t)TN * (C + kPad) * 2;
-    const size_t out_tile = (size_t)TN * (C + kPadF) * 4;
-    if (out_tile > region0) region0 = out_tile;
-    region0 = (region0 + 127) / 128 * 128;
-    const size_t smem = region0 + (size_t)2 * TN * (I + kPadF) * 4 + (size_t)TN * (D + kPadF) * 4 +
-                        (size_t)2 * TN * (I + kPad) * 2 + (size_t)2 * TN * (D + kPad) * 2;
-    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-    const auto kernel = narrow ? pool_layer_bwd_kernel<4, 3> : pool_layer_bwd_kernel<2, 6>;
+    const auto kernel = TN == 64   ? pool_layer_bwd_kernel<4, 3>
+                        : TN == 32 ? (narrow ? pool_layer_bwd_kernel<2, 3>
+                                             : pool_layer_bwd_kernel<2, 6>)
+                                   : (narrow ? pool_layer_bwd_kernel<1, 3>
+                                             : pool_layer_bwd_kernel<1, 6>);
+    const size_t region0 = main_region0(TN, C);
     if ((err = set_smem((const void*)kernel, smem)) != cudaSuccess) return (int)err;
     kernel<<<dim3(N / TN, B), kThreads, smem, st>>>(
         (const bf16*)x, (const float*)mean, (const bf16*)y, (const bf16*)qf, (const bf16*)kvw,

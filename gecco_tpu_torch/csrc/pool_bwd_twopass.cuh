@@ -70,13 +70,14 @@ inline bool fits(int C, int I, int D);
 
 // The shapes these bodies take (folded_attention.py _pool_twopass_takes:
 // change both together): C % 128 == 0 up to 768 (the pass-1 register tiles
-// and wgrad.cuh's 128 x 128 tiles), D % 16 == 0, I % 16 == 0 with J % 128
-// == 0 and B I % 64 == 0 (wgrad.cuh), N % 64 == 0 (a ragged N comes padded
-// to 128s), and both passes' blocks within the SM's shared memory.
+// and wgrad.cuh's 128-row tiles), D % 16 == 0, I % 16 == 0 with J % 64 ==
+// 0 (wgrad.cuh's 64-column tail; three heads of 64 inducers give J 192)
+// and B I % 64 == 0 (wgrad.cuh), N % 64 == 0 (a ragged N comes padded to
+// 128s), and both passes' blocks within the SM's shared memory.
 inline bool takes(int B, int N, int C, int H, int I) {
   const int D = C / H;
   return C % 128 == 0 && C <= 768 && C % H == 0 && D % 16 == 0 && I % 16 == 0 &&
-         (H * I) % 128 == 0 && (B * I) % 64 == 0 && N % 64 == 0 && fits(C, I, D);
+         (H * I) % 64 == 0 && (B * I) % 64 == 0 && N % 64 == 0 && fits(C, I, D);
 }
 
 // 1/sacc of column idx: read (v2j, GIVEN) or formed here (v1, v2)

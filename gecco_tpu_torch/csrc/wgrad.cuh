@@ -92,13 +92,18 @@ wgrad_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ C
   // ``lay`` puts it
   const WgradLayout L = splits > 1 ? row_major(M, P) : lay;
   const int m = m0 + w * 64 + r;
+  // a 64-column tail (P % 128 == 64): the last block's second panel lies
+  // past P (TMA filled it with zeros) and is not written
+  const bool whole = p0 + 128 <= P;
 #pragma unroll
   for (int g = 0; g < 16; ++g) {
     const int p = p0 + 8 * g + col;
-    *reinterpret_cast<float2*>(out + L.at(blockIdx.z, m, p)) =
-        make_float2(acc[4 * g], acc[4 * g + 1]);
-    *reinterpret_cast<float2*>(out + L.at(blockIdx.z, m + 8, p)) =
-        make_float2(acc[4 * g + 2], acc[4 * g + 3]);
+    if (g < 8 || whole) {
+      *reinterpret_cast<float2*>(out + L.at(blockIdx.z, m, p)) =
+          make_float2(acc[4 * g], acc[4 * g + 1]);
+      *reinterpret_cast<float2*>(out + L.at(blockIdx.z, m + 8, p)) =
+          make_float2(acc[4 * g + 2], acc[4 * g + 3]);
+    }
   }
 }
 
@@ -115,12 +120,13 @@ wgrad_sum_kernel(const float* __restrict__ part, float* __restrict__ out, WgradL
 }
 
 // out = A_b^T B_b per batch element, laid out by ``lay``; ``part`` holds
-// nb * splits partials [M, P] where splits > 1 (unread otherwise). M and P
-// multiples of 128, rows_b of 64, 1 <= splits <= rows_b / 64.
+// nb * splits partials [M, P] where splits > 1 (unread otherwise). M a
+// multiple of 128, P of 64 (a 64-column tail takes a block of its own),
+// rows_b of 64, 1 <= splits <= rows_b / 64.
 inline cudaError_t launch_wgrad(const void* a, const void* bm, float* part, float* out,
                                 WgradLayout lay, int nb, int rows_b, int M, int P, int splits,
                                 cudaStream_t st) {
-  if (M % 128 || P % 128 || rows_b % 64 || splits < 1 || splits > rows_b / 64) {
+  if (M % 128 || P % 64 || rows_b % 64 || splits < 1 || splits > rows_b / 64) {
     return cudaErrorInvalidValue;
   }
   CUtensorMap tm_a, tm_b;
@@ -131,7 +137,7 @@ inline cudaError_t launch_wgrad(const void* a, const void* bm, float* part, floa
   const size_t smem = (size_t)kWgradRing * 4 * kWgradPanel + kWgradRing * 8 + 1024;
   cudaError_t err = set_smem((const void*)wgrad_kernel, smem);
   if (err != cudaSuccess) return err;
-  wgrad_kernel<<<dim3(P / 128, M / 128, nb * splits), 256, smem, st>>>(
+  wgrad_kernel<<<dim3((P + 127) / 128, M / 128, nb * splits), 256, smem, st>>>(
       tm_a, tm_b, splits > 1 ? part : out, lay, M, P, rows_b, splits);
   if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
   const long long n = (long long)nb * M * P;

@@ -9,7 +9,9 @@ design, chosen by shape (``folded_pool_ext``, ``fused_h_side``,
 three folded backwards): those count its launches in
 ``.launches_wmma``, reported as ``<name>_wmma``. The pool backward's v1,
 v2 and v2j bodies (``GECCO_POOL_BWD``) count theirs in ``.launches_v1``,
-``.launches_v2`` and ``.launches_v2j`` (``folded_pool_ext_bwd_v1`` ...)."""
+``.launches_v2`` and ``.launches_v2j`` (``folded_pool_ext_bwd_v1`` ...) where
+their Hopper body runs, and in ``.launches_v1_wmma`` ...
+(``folded_pool_ext_bwd_v1_wmma`` ...) where their WMMA body does."""
 
 from gecco_tpu_torch.ops.kernels.folded_attention import (
     TWOPASS_BODIES,
@@ -50,13 +52,15 @@ def reset_launch_counts() -> None:
         fn.launches_wmma = 0
     for body in TWOPASS_BODIES:
         setattr(folded_pool_ext_bwd, f"launches_{body}", 0)
+        setattr(folded_pool_ext_bwd, f"launches_{body}_wmma", 0)
 
 
 def launch_counts() -> dict:
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts.update({f"{fn.__name__}_wmma": fn.launches_wmma for fn in TWO_BODIES})
-    counts.update({f"folded_pool_ext_bwd_{body}": getattr(folded_pool_ext_bwd, f"launches_{body}")
-                   for body in TWOPASS_BODIES})
+    for body in TWOPASS_BODIES:
+        for name in (body, f"{body}_wmma"):
+            counts[f"folded_pool_ext_bwd_{name}"] = getattr(folded_pool_ext_bwd, f"launches_{name}")
     return counts
 
 

@@ -541,11 +541,19 @@ def _pool_bwd_dqf_ref(x, se, be, ds) -> torch.Tensor:
     return torch.einsum("bnc,bnj->cj", _prenormed(x, se, be), ds.float())
 
 
+# inducer rows of a head per block of the pool backward's fold
+# (csrc/backward.cuh kFoldRows)
+_FOLD_ROWS = 64
+
+
 def _pool_bwd_fold_smem(c: int, i: int, d: int) -> int:
     """Bytes of one block of the pool backward's fold (both bodies):
-    csrc/backward.cuh ``launch_pool_bwd_fold`` (change both together): the
-    product buffer, DMs_h and merged_h [I, D] bf16, pacc_h [I, D] fp32."""
-    return 64 * (64 + _PADF) * 4 + 2 * i * (d + _PAD) * 2 + i * (d + _PADF) * 4
+    csrc/backward.cuh ``pool_bwd_fold_smem`` (change both together): the
+    product buffer, DMs_h and merged_h of the block's rows [min(I, 64), D]
+    bf16, their pacc_h [min(I, 64), D] fp32. A block takes up to 64 of a
+    head's inducer rows, so the bytes stop growing with I there."""
+    rows = min(i, _FOLD_ROWS)
+    return 64 * (64 + _PADF) * 4 + 2 * rows * (d + _PAD) * 2 + rows * (d + _PADF) * 4
 
 
 def _twopass_smem(c: int, i: int, d: int) -> int:
@@ -566,12 +574,13 @@ def _twopass_smem(c: int, i: int, d: int) -> int:
 def _pool_twopass_takes(b: int, n: int, c: int, num_heads: int, i: int) -> bool:
     """The shapes of the v1, v2 and v2j bodies (csrc/pool_bwd_twopass.cuh
     ``twopass::takes``: change both together): C % 128 == 0 up to 768, D %
-    16 == 0, I % 16 == 0 with J % 128 == 0 and B*I % 64 == 0, both passes'
-    blocks within the SM's shared memory (``_twopass_smem``), and any N (a
-    ragged N zero-padded to 128s and masked)."""
+    16 == 0, I % 16 == 0 with J % 64 == 0 (the weight gradients' 64-column
+    tail) and B*I % 64 == 0, both passes' blocks within the SM's shared
+    memory (``_twopass_smem``), and any N (a ragged N zero-padded to 128s
+    and masked)."""
     d = c // num_heads
     return (c % 128 == 0 and c <= 768 and c % num_heads == 0 and d % 16 == 0 and i % 16 == 0
-            and (num_heads * i) % 128 == 0 and (b * i) % 64 == 0 and n >= 1
+            and (num_heads * i) % 64 == 0 and (b * i) % 64 == 0 and n >= 1
             and _twopass_smem(c, i, d) <= _MAX_SMEM)
 
 
@@ -583,8 +592,12 @@ def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     C % 128 == 0, C <= 768, I % 16 and J % 64 == 0, the fold's block
     within the SM's shared memory); both need D % 16 == 0 and take any N
     (padded). The upsample demo's C 128 and the three-head flagship's D 128
-    take the WMMA body. Forced to "v1", "v2" or "v2j", that
-    body (the JAX package's opt-in bodies, ``_pool_twopass_takes``).
+    take the WMMA body. Forced to "v1", "v2" or "v2j", that algebra (the
+    JAX package's opt-in bodies, ``_pool_twopass_takes``): its Hopper body
+    ("v1", "v2", "v2j"; csrc/pool_ext_bwd_twopass.cu,
+    ``_pool_twopass_hopper_takes``: the flagship's and the 8k width's
+    training shapes) where it can, else its WMMA body ("v1_wmma" ...).
+    The chosen name is the counter's, ``folded_pool_ext_bwd_<name>``.
     Raises ValueError with the chosen bodies' conditions otherwise. A
     ragged I takes the bodies of its count padded to 16s."""
     d = c // num_heads
@@ -592,12 +605,14 @@ def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     j = num_heads * i
     mode = _POOL_BWD_ENV
     if mode in TWOPASS_BODIES:
-        if _pool_twopass_takes(b, n, c, num_heads, i):
+        if _pool_twopass_hopper_takes(b, n, c, num_heads, i):
             return mode
+        if _pool_twopass_takes(b, n, c, num_heads, i):
+            return f"{mode}_wmma"
         raise ValueError(
             f"folded_pool_ext_bwd: GECCO_POOL_BWD={mode} forces a body that does not take "
             f"B={b}, N={n}, C={c}, H={num_heads}, I={i} (D={d}): the v1, v2 and v2j bodies "
-            f"need C % 128 == 0, C <= 768, D % 16 == 0, J % 128 == 0, B*I % 64 == 0 and both "
+            f"need C % 128 == 0, C <= 768, D % 16 == 0, J % 64 == 0, B*I % 64 == 0 and both "
             f"passes' blocks within {_MAX_SMEM} bytes of shared memory")
     common = c % num_heads == 0 and d % 16 == 0 and n >= 1
     if common and c in (384, 768) and i == 64 and d <= 64 and j % 128 == 0:
@@ -645,8 +660,10 @@ def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
         dx, dse, dbe, dqf, dwv, dwo = _pool_ext_bwd_wmma(x, se, be, qft, kvw, wo, g, macc, sacc,
                                                          num_heads)
     else:
+        algebra, _, impl = body.partition("_")
         dx, dse, dbe, dqf, dwv, dwo = _pool_ext_bwd_twopass(x, se, be, qft, kvw, wo, g, macc,
-                                                            sacc, num_heads, body)
+                                                            sacc, num_heads, algebra,
+                                                            impl or "hopper")
     dind2, dkvw = _chain_dqf(dqf, dwv, ind2, kvw, num_heads)
     return (dx, dse, dbe, _unpad_heads(dind2, num_heads, i).to(ind2_in.dtype), dkvw,
             dwo.to(wo.dtype))
@@ -716,29 +733,42 @@ def _pool_ext_bwd_wmma(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int) -
 def _wgrad_splits(batch: int, tiles: int, m: int, p: int, device) -> int:
     """Splits of each batch element's 64-row tiles in the Hopper backwards'
     weight-gradient product (csrc/wgrad.cuh): enough blocks of (128 x 128
-    output tile, batch element, split) to give every SM one, at most one
-    split per tile."""
+    output tile, a 64-column tail's included, batch element, split) to give
+    every SM one, at most one split per tile."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(tiles, -(-sms // (batch * (m // 128) * (p // 128)))))
+    return max(1, min(tiles, -(-sms // (batch * (m // 128) * -(-p // 128)))))
 
 
 # ------------------------------------------- pool backward: v1, v2, v2j --
 
 
+def _twopass_sv_ref(x, se, be, qft, kvw) -> tuple:
+    """The logits and values of the v1, v2 and v2j bodies (the Hopper
+    body's two products over C) -> (S = y qf [B, N, J] fp32, V = bf16(y
+    Wv^T) [B, N, C] in x's dtype), y = bf16(x se + be)."""
+    c = x.shape[2]
+    y = _prenormed(x, se, be)
+    return (torch.einsum("bnc,jc->bnj", y, qft.float()),
+            torch.einsum("bnc,dc->bnd", y, kvw[c:].float()).to(x.dtype))
+
+
+def _twopass_e(s, macc, n_valid=None) -> tuple:
+    """(z = s - macc, e = exp(max(z, -80))), e 0 on the points from
+    ``n_valid`` on (a ragged tail's padding)."""
+    z = s - macc[:, None]
+    e = torch.exp(torch.clamp(z, min=-80.0))
+    ok = _valid_rows(s.shape[1], n_valid, s.device)
+    return z, (e if ok is None else e.masked_fill(~ok, 0.0))
+
+
 def _twopass_recompute(x, se, be, qft, kvw, macc, num_heads: int, n_valid=None) -> tuple:
     """The tile recompute of the v1, v2 and v2j bodies, fp32 values of
     their roundings -> (y [B, N, C], z = s - macc and e = exp(max(z, -80))
-    [B, N, J], v [B, N, H, D]): y = bf16(x se + be), s = y qf, v =
-    bf16(y Wv^T); e is 0 on the points from ``n_valid`` on (a ragged
-    tail's padding)."""
-    dt = x.dtype
-    b, n, c = x.shape
-    y = _prenormed(x, se, be)
-    z = torch.einsum("bnc,jc->bnj", y, qft.float()) - macc[:, None]
-    v = torch.einsum("bnc,dc->bnd", y, kvw[c:].float()).to(dt).float()
-    e = torch.exp(torch.clamp(z, min=-80.0))
-    ok = _valid_rows(n, n_valid, x.device)
-    return y, z, (e if ok is None else e.masked_fill(~ok, 0.0)), v.reshape(b, n, num_heads, -1)
+    [B, N, J], v [B, N, H, D])."""
+    b, n, _ = x.shape
+    s, v = _twopass_sv_ref(x, se, be, qft, kvw)
+    z, e = _twopass_e(s, macc, n_valid)
+    return _prenormed(x, se, be), z, e, v.float().reshape(b, n, num_heads, -1)
 
 
 def _twopass_dmerged(g_h0, wo, num_heads: int) -> torch.Tensor:
@@ -819,22 +849,126 @@ def _pool_bwd_v2_ref(x, se, be, qft, kvw, wo, g_h0, macc, sacc, num_heads: int,
 # the plain version of each two-pass body (v2 and v2j are one algebra)
 _TWOPASS_REFS = {"v1": _pool_bwd_v1_ref, "v2": _pool_bwd_v2_ref, "v2j": _pool_bwd_v2_ref}
 
+# points per range of the Hopper two-pass body's pass-0 partials
+# (csrc/pool_ext_bwd_twopass.cu kRangeTiles x kTile)
+_TWOPASS_RANGE = 512
+
+
+def _twopass_fold_ref(g_h0, wo, sacc, num_heads: int, v1: bool) -> torch.Tensor:
+    """Plain version of ``twopass_fold_kernel``: DM_h = bf16(g_h0 Wo_h)
+    (v1) or DMs_h = bf16(g_h0 Wo_h / sacc) (v2, v2j) -> [B, J, D] in
+    g_h0's dtype."""
+    b, i, c = g_h0.shape
+    dm = _twopass_dmerged(g_h0, wo, num_heads)
+    if not v1:
+        dm = dm * (1.0 / sacc).reshape(b, num_heads, i, 1)
+    return dm.to(g_h0.dtype).reshape(b, num_heads * i, c // num_heads)
+
+
+def _twopass_ranges_ref(s, v, dm, macc, num_heads: int, v1: bool, n_valid=None) -> tuple:
+    """Plain version of ``twopass_range_kernel`` -> (the ranges' partials
+    pacc [R, B, J, D] fp32, and for v1 t [R, B, J], else None): per range
+    of 512 points pacc_h = bf16(e_h)^T v_h, t = sum e dp with dp = v_h
+    DM_h^T (fp32 e)."""
+    b, n, j = s.shape
+    h = num_heads
+    i, d = j // h, dm.shape[2]
+    _, e = _twopass_e(s, macc, n_valid)
+    eb = e.to(v.dtype).float().reshape(b, n, h, i)
+    vh = v.float().reshape(b, n, h, d)
+    dp = (torch.einsum("bnhd,bhid->bnhi", vh, dm.float().reshape(b, h, i, d)).reshape(b, n, j)
+          if v1 else None)
+    pp, tp = [], []
+    for r0 in range(0, n, _TWOPASS_RANGE):
+        rows = slice(r0, r0 + _TWOPASS_RANGE)
+        pp.append(torch.einsum("bnhi,bnhd->bhid", eb[:, rows], vh[:, rows]).reshape(b, j, d))
+        if v1:
+            tp.append((e[:, rows] * dp[:, rows]).sum(1))
+    return torch.stack(pp), (torch.stack(tp) if v1 else None)
+
+
+def _twopass_merge_ref(ppart, tpart, dm, sacc, dtype) -> tuple:
+    """Plain version of ``twopass_merge_kernel`` -> (tacc [B, J] fp32,
+    merged [B, J, D] in ``dtype``): pacc = the ranges' partials summed in
+    range order, merged = bf16(pacc / sacc), tacc = (v1, ``tpart`` given:
+    the ranges' t summed; v2: rowsum(DMs pacc)) / sacc."""
+    pacc, inv = ppart[0], 1.0 / sacc
+    for part in ppart[1:]:
+        pacc = pacc + part
+    if tpart is not None:
+        t = tpart[0]
+        for part in tpart[1:]:
+            t = t + part
+    else:
+        t = (dm.float() * pacc).sum(-1)
+    return t * inv, (pacc * inv[..., None]).to(dtype)
+
+
+def _twopass_tiles_ref(s, v, dm, macc, sacc, tacc, num_heads: int, v1: bool,
+                       n_valid=None) -> tuple:
+    """Plain version of ``twopass_tile_kernel`` -> (ds [B, N, J], dv
+    [B, N, C] in v's dtype): dp = v_h DM_h^T, w = p = e / sacc (v1) or e
+    (v2), ds = bf16(w (dp - tacc)) where s - macc > -80, dv = bf16(bf16(w)
+    DM_h)."""
+    dt = v.dtype
+    b, n, j = s.shape
+    h = num_heads
+    i, d = j // h, dm.shape[2]
+    z, e = _twopass_e(s, macc, n_valid)
+    dmh = dm.float().reshape(b, h, i, d)
+    dp = torch.einsum("bnhd,bhid->bnhi", v.float().reshape(b, n, h, d), dmh).reshape(b, n, j)
+    w = e * (1.0 / sacc)[:, None] if v1 else e
+    ds = torch.where(z > -80.0, w * (dp - tacc[:, None]), 0.0).to(dt)
+    dv = torch.einsum("bnhi,bhid->bnhd", w.to(dt).float().reshape(b, n, h, i), dmh)
+    return ds, dv.to(dt).reshape(b, n, h * d)
+
+
+def _twopass_pieces(x, se, be, qft, kvw, wo, g_h0, macc, sacc, num_heads: int, v1: bool,
+                    n_valid=None) -> tuple:
+    """The Hopper two-pass body's plain pieces composed -> (dx, dse, dbe,
+    dqf, dwv, dwo), ``_pool_bwd_v1_ref`` (``v1``) or ``_pool_bwd_v2_ref``."""
+    dt = x.dtype
+    b, i, c = g_h0.shape
+    dm = _twopass_fold_ref(g_h0, wo, sacc, num_heads, v1)
+    s, v = _twopass_sv_ref(x, se, be, qft, kvw)
+    tacc, merged = _twopass_merge_ref(
+        *_twopass_ranges_ref(s, v, dm, macc, num_heads, v1, n_valid), dm, sacc, dt)
+    ds, dv = _twopass_tiles_ref(s, v, dm, macc, sacc, tacc, num_heads, v1, n_valid)
+    merged = merged.float().reshape(b, num_heads, i, c // num_heads)
+    return _twopass_outputs(x, se, _prenormed(x, se, be), ds.float(), dv.float(), qft, kvw, g_h0,
+                            merged)
+
+
+def _pool_twopass_hopper_takes(b: int, n: int, c: int, num_heads: int, i: int) -> bool:
+    """The shapes of the Hopper two-pass body (csrc/pool_ext_bwd_twopass.cu
+    ``body_takes``: change both together): 64 inducers and D 48 a head,
+    C a multiple of 384 up to 768 (the flagship's C 384 with 8 heads, the
+    8k width's C 768 with 16), any N (a ragged N zero-padded to 128s)."""
+    return i == 64 and c == 48 * num_heads and c % 384 == 0 and c <= 768 and n >= 1
+
 
 def _pool_ext_bwd_twopass(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int,
-                          body: str) -> tuple:
-    """The v1 body (csrc/pool_ext_bwd_v1.cu) or the v2 or v2j body
-    (csrc/pool_ext_bwd_v2.cu) -> (dx, dse, dbe, dqf, dwv, dwo). v2j takes
-    1/sacc [B, J], formed here, where v1 and v2 take sacc and invert it in
-    the kernel. The weight gradients come from csrc/wgrad.cuh (fixed-order
-    split-K), dse and dbe from fixed-order tile partials: every output is
-    the same bits from call to call. A ragged N goes zero-padded to 128s,
-    its padding masked in both passes."""
+                          body: str, impl: str | None = None, mid: dict | None = None) -> tuple:
+    """The v1 body or the v2 or v2j body -> (dx, dse, dbe, dqf, dwv, dwo):
+    the Hopper body (csrc/pool_ext_bwd_twopass.cu) where
+    ``_pool_twopass_hopper_takes``, else the WMMA body
+    (csrc/pool_ext_bwd_v1.cu, csrc/pool_ext_bwd_v2.cu); ``impl`` ("hopper"
+    or "wmma") forces one, for timing the two in turns. v2j takes 1/sacc
+    [B, J], formed here, where v1 and v2 take sacc and invert it in the
+    kernel. The weight gradients come from csrc/wgrad.cuh (fixed-order
+    split-K), dse and dbe from fixed-order partials: every output is the
+    same bits from call to call. A ragged N goes zero-padded to 128s, its
+    padding masked in both passes. With ``mid`` a dict, the Hopper body
+    leaves its intermediates there (y, dm, s, v, ppart, tpart, tacc,
+    merged, ds, dv) for ``probes.pool_bwd_twopass``."""
     b, n_valid, c = x.shape
     n = _n_pad(n_valid)
     x = _pad_points(x, n)
     j = qft.shape[0]
     i, d = j // num_heads, c // num_heads
     dev = x.device
+    if impl is None:
+        impl = "hopper" if _pool_twopass_hopper_takes(b, n, c, num_heads, i) else "wmma"
     # the three weight gradients' products: dqf = y^T ds over the B N rows,
     # dWv = dv^T y over them, dWo = g^T merged over the B I rows
     products = ((b * n, j), (b * n, c), (b * i, c))
@@ -845,26 +979,44 @@ def _pool_ext_bwd_twopass(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int
     dwv = torch.empty((c, c), dtype=_F32, device=dev)
     dwo = torch.empty_like(dwv)
     dx = torch.empty_like(x)
-    lib = "pool_ext_bwd_v1" if body == "v1" else "pool_ext_bwd_v2"
-    launch(lib, f"pool_ext_bwd_{body}_launch", x, se, be, qft, kvw, wo, g, macc,
-           torch.reciprocal(sacc) if body == "v2j" else sacc,
-           torch.empty_like(x), torch.empty((b, j, d), dtype=_BF16, device=dev),
-           torch.empty((b, j), dtype=_F32, device=dev),
-           torch.empty((b, i, c), dtype=_BF16, device=dev),
-           torch.empty((b, n, j), dtype=_BF16, device=dev), torch.empty_like(x),
-           torch.empty((b, n // 32, 2, c), dtype=_F32, device=dev),
-           torch.empty(part, dtype=_F32, device=dev) if part else None,
-           dx, dsum, dqf, dwv, dwo, b, n, c, num_heads, i, *splits, n_valid)
-    setattr(folded_pool_ext_bwd, f"launches_{body}",
-            getattr(folded_pool_ext_bwd, f"launches_{body}") + 1)
+    wpart = torch.empty(part, dtype=_F32, device=dev) if part else None
+    norm = torch.reciprocal(sacc) if body == "v2j" else sacc
+    if impl == "hopper":
+        ranges = -(-n // _TWOPASS_RANGE)
+        buf = dict(y=torch.empty_like(x), dm=torch.empty((b, j, d), dtype=_BF16, device=dev),
+                   s=torch.empty((b, n, j), dtype=_F32, device=dev), v=torch.empty_like(x),
+                   ppart=torch.empty((ranges, b, j, d), dtype=_F32, device=dev),
+                   tpart=torch.empty((ranges, b, j), dtype=_F32, device=dev),
+                   tacc=torch.empty((b, j), dtype=_F32, device=dev),
+                   merged=torch.empty((b, i, c), dtype=_BF16, device=dev),
+                   ds=torch.empty((b, n, j), dtype=_BF16, device=dev), dv=torch.empty_like(x))
+        launch("pool_ext_bwd_twopass", f"pool_ext_bwd_{body}_hopper_launch", x, se, be, qft, kvw,
+               wo, g, macc, norm, buf["y"], buf["dm"], buf["s"], buf["v"], buf["ppart"],
+               buf["tpart"], buf["tacc"], buf["merged"], buf["ds"], buf["dv"],
+               torch.empty((b * n // 128, 2, c), dtype=_F32, device=dev), wpart, dx, dsum, dqf,
+               dwv, dwo, b, n, c, num_heads, i, *splits, n_valid)
+        counter = f"launches_{body}"
+        if mid is not None:
+            mid.update(buf)
+    else:
+        lib = "pool_ext_bwd_v1" if body == "v1" else "pool_ext_bwd_v2"
+        launch(lib, f"pool_ext_bwd_{body}_launch", x, se, be, qft, kvw, wo, g, macc, norm,
+               torch.empty_like(x), torch.empty((b, j, d), dtype=_BF16, device=dev),
+               torch.empty((b, j), dtype=_F32, device=dev),
+               torch.empty((b, i, c), dtype=_BF16, device=dev),
+               torch.empty((b, n, j), dtype=_BF16, device=dev), torch.empty_like(x),
+               torch.empty((b, n // 32, 2, c), dtype=_F32, device=dev), wpart,
+               dx, dsum, dqf, dwv, dwo, b, n, c, num_heads, i, *splits, n_valid)
+        counter = f"launches_{body}_wmma"
+    setattr(folded_pool_ext_bwd, counter, getattr(folded_pool_ext_bwd, counter) + 1)
     return _unpad(dx, n_valid), dsum[:, 0], dsum[:, 1], dqf, dwv, dwo
 
 
 folded_pool_ext_bwd.launches = 0
 folded_pool_ext_bwd.launches_wmma = 0
-folded_pool_ext_bwd.launches_v1 = 0
-folded_pool_ext_bwd.launches_v2 = 0
-folded_pool_ext_bwd.launches_v2j = 0
+for _body in TWOPASS_BODIES:
+    setattr(folded_pool_ext_bwd, f"launches_{_body}", 0)
+    setattr(folded_pool_ext_bwd, f"launches_{_body}_wmma", 0)
 
 
 # --------------------------------------------------------- resident pool --
@@ -1094,17 +1246,32 @@ def _pool_layer_bwd_ref(x, scale, bias, ind2, kvw, wo, gind, g_h0, g_mean, g_inv
     return vjp(lambda *a: _pool_ref(*a, groups, num_heads, False)[0], args, (g_h0,))
 
 
+def _pool_layer_bwd_main_smem(tn: int, c: int, i: int, d: int) -> int:
+    """Bytes of the resident pool backward's main block at a ``tn``-point
+    tile: csrc/pool_bwd.cu ``main_smem`` (change both together)."""
+    region0 = -(-max(tn * (c + _PAD) * 2, tn * (c + _PADF) * 4) // 128) * 128
+    return (region0 + 2 * tn * (i + _PADF) * 4 + tn * (d + _PADF) * 4 + 2 * tn * (i + _PAD) * 2
+            + 2 * tn * (d + _PAD) * 2)
+
+
+def _pool_layer_bwd_tile(c: int, i: int, d: int) -> int:
+    """The main kernel's point tile (csrc/pool_bwd.cu ``main_tile``): 64
+    up to C 384, else 32, halved down to 16 while the block does not fit;
+    0 where none does."""
+    tn = 64 if c <= 384 else 32
+    while tn >= 16 and _pool_layer_bwd_main_smem(tn, c, i, d) > _MAX_SMEM:
+        tn //= 2
+    return tn if tn >= 16 else 0
+
+
 def _pool_layer_bwd_smem(c: int, i: int, d: int) -> int:
     """Bytes of the larger block of the resident pool backward's fold and
-    main kernel: csrc/pool_bwd.cu ``pool_layer_bwd_launch`` (change both
-    together); the main kernel's point tile is 64 rows up to C 384, else
-    32."""
+    main kernel at the main kernel's tile (``_pool_layer_bwd_tile``; its
+    16-point block where none fits): csrc/pool_bwd.cu
+    ``pool_layer_bwd_launch`` (change both together)."""
     fold = 64 * (64 + _PADF) * 4 + 2 * i * (d + _PAD) * 2
-    tn = 64 if c <= 384 else 32
-    region0 = -(-max(tn * (c + _PAD) * 2, tn * (c + _PADF) * 4) // 128) * 128
-    main = (region0 + 2 * tn * (i + _PADF) * 4 + tn * (d + _PADF) * 4 + 2 * tn * (i + _PAD) * 2
-            + 2 * tn * (d + _PAD) * 2)
-    return max(fold, main)
+    tn = _pool_layer_bwd_tile(c, i, d) or 16
+    return max(fold, _pool_layer_bwd_main_smem(tn, c, i, d))
 
 
 def folded_pool_layer_bwd(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m, l, pacc, y,
@@ -1140,7 +1307,8 @@ def folded_pool_layer_bwd(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m,
              f"C % 64 == 0, C <= 768, D % 16, I % 16 and J % 64 == 0 (C={c}, D={d}, I={i})")
     _require(_pool_layer_bwd_smem(c, i, d) <= _MAX_SMEM, name,
              f"its blocks within {_MAX_SMEM} bytes of shared memory (C={c}, D={d}, I={i}: "
-             f"{_pool_layer_bwd_smem(c, i, d)}; at C 384 and D 48 up to 128 inducers)")
+             f"{_pool_layer_bwd_smem(c, i, d)}; at D 48 up to 960 inducers at C 384, 912 at "
+             f"C 768)")
     _require(c % groups == 0, name, f"G dividing C (C={c}, G={groups})")
     dev = x.device
     n_valid, n = n, _n_pad(n)

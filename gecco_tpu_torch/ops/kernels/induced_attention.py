@@ -20,8 +20,9 @@ against the I inducer tokens).
 - ``rect_attention_pallas``: the differentiable function over the two.
 
 CUDA tensors launch the kernels (a CUDA tensor never takes a plain
-version): one instance per head width 16 to 128 in steps of 16 and 192; a
-head width between is zero-padded to the next (its zero columns add
+version): one instance per head width 16 to 128 in steps of 16, 192 and
+256 (the backward's in two 128-column slices); a head width between is
+zero-padded to the next (its zero columns add
 nothing to q k^T and give zero output columns, and the softmax scale is
 1/sqrt of the real width, passed in). CPU tensors run the plain versions (the backward is autograd
 through the plain forward, as the twins' ``jax.vjp``). The kernels read q,
@@ -78,7 +79,7 @@ def _strided(name: str, tensors: dict, device) -> dict:
 
 # the head widths of the kernels' instances (csrc/induced_attention.cu and
 # induced_attention_bwd.cu: change both together)
-_WIDTHS = (16, 32, 48, 64, 80, 96, 112, 128, 192)
+_WIDTHS = (16, 32, 48, 64, 80, 96, 112, 128, 192, 256)
 
 
 def _d_pad(d: int) -> int:
@@ -88,7 +89,7 @@ def _d_pad(d: int) -> int:
 
 
 def _check_shapes(name: str, q, k, v) -> None:
-    """Raise unless q, k and v form [B, H, M, D] x [B, H, N, D] with D <= 192
+    """Raise unless q, k and v form [B, H, M, D] x [B, H, N, D] with D <= 256
     (any narrower D is zero-padded to an instance's width)."""
     b, h, m, d = q.shape
     if k.shape != (b, h, k.shape[2], d) or v.shape != k.shape:

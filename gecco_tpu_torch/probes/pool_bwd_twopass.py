@@ -3,18 +3,23 @@ launch.
 
     python3 -m gecco_tpu_torch.probes.pool_bwd_twopass
 
-``csrc/pool_bwd_twopass.cuh`` (instances in ``csrc/pool_ext_bwd_v1.cu``
-and ``csrc/pool_ext_bwd_v2.cu``) runs the pre-norm, the fold (DM or DMs),
-pass 0 (per head and batch element over all points), pass 1 (per point
-tile), the column sums and three weight-gradient products. At the
-flagship's training shapes (B 48, N 2048, C 384, 8 heads) and the 8k width
-(B 2, N 8192, C 768, 16 heads), ordinary and with drifted logits, this
-holds each body's outputs against its plain version (``_pool_bwd_v1_ref``,
-``_pool_bwd_v2_ref``), checks that two calls give the same bits and that
-v2j gives v2's, times the v3 Hopper body and each of the three (20
-calls each) on the ordinary operands, and splits each body's device time
-by launch with ``torch.profiler``. It prints the card's name and power limit
-and one JSON line. Needs the card.
+Each algebra has two bodies: the Hopper body (``csrc/pool_ext_bwd_twopass.cu``:
+the pre-norm, the fold, the S and V products, pass 0's range partials,
+their merge, pass 1 per tile, the dy product with dx and the column sums'
+partials, the column sums, three weight-gradient products) at the
+flagship's and the 8k width, and the WMMA body
+(``csrc/pool_bwd_twopass.cuh``, instances in ``csrc/pool_ext_bwd_v1.cu``
+and ``csrc/pool_ext_bwd_v2.cu``) for every other shape. At the flagship's
+training shapes (B 48, N 2048, C 384, 8 heads) and the 8k width (B 2, N
+8192, C 768, 16 heads), ordinary and with drifted logits, this holds both
+bodies' outputs against the plain version (``_pool_bwd_v1_ref``,
+``_pool_bwd_v2_ref``), each pass of the Hopper body against its plain
+piece fed the kernel's own inputs to that pass (so a fault shows in the
+pass that makes it), checks that two calls give the same bits and that
+v2j gives v2's, times the v3 Hopper body, the Hopper body and the WMMA
+body of each algebra in turns (20 calls each) on the ordinary operands,
+and splits both bodies' device time by launch with ``torch.profiler``. It
+prints the card's name and power limit and one JSON line. Needs the card.
 """
 
 from __future__ import annotations
@@ -30,6 +35,75 @@ from gecco_tpu_torch.ops.kernels import folded_attention as fa
 from gecco_tpu_torch.probes.pool_bwd import SHAPES, launch_split, operands, rel, timed
 
 OUTPUTS = ("dx", "dse", "dbe", "dqf", "dwv", "dwo")
+IMPLS = ("hopper", "wmma")
+# a pass against its plain piece on the kernel's own inputs: the bf16
+# outputs a few bf16 steps (2^-8) of the largest value, the fp32 ones
+# (logits, partials, tacc) summed in other orders
+TOL_PASS, TOL_FP32 = 2e-2, 1e-3
+FP32_PASSES = ("s", "ppart", "tpart", "tacc")
+
+
+def raw_operands(g, b, n, c, heads, i, drift, device):
+    """The two-pass bodies' arguments: the pool's operands, the forward's
+    folded query and statistics, a bf16 cotangent."""
+    ops = operands(g, b, n, c, heads, i, drift, device)
+    x, se, be, _, kvw, wo = ops
+    _, qft, macc, sacc = fa._pool_ext_launch(*ops, heads, True)
+    gh = (0.1 * torch.randn(b, i, c, generator=g, device=device)).to(x.dtype)
+    return ops, (x, se, be, qft, kvw, wo, gh, macc, sacc, heads)
+
+
+def passes(raw, body) -> dict:
+    """Each pass of the Hopper body of ``body`` against its plain piece on
+    the kernel's own inputs -> max|err|/max|ref| per pass."""
+    x, se, be, qft, kvw, wo, gh, macc, sacc, heads = raw
+    v1 = body == "v1"
+    mid = {}
+    outs = fa._pool_ext_bwd_twopass(*raw, body, "hopper", mid)
+    b, n_valid, c = x.shape
+    n = mid["s"].shape[1]
+    j = qft.shape[0]
+    i, d = j // heads, c // heads
+    nv = n_valid if n_valid < n else None
+    y = mid["y"].float()
+    s = torch.einsum("bnc,jc->bnj", y, qft.float())
+    v = torch.einsum("bnc,dc->bnd", y, kvw[c:].float()).to(x.dtype)
+    ppart, tpart = fa._twopass_ranges_ref(mid["s"], mid["v"], mid["dm"], macc, heads, v1, nv)
+    tacc, merged = fa._twopass_merge_ref(mid["ppart"], mid["tpart"] if v1 else None, mid["dm"],
+                                         sacc, x.dtype)
+    ds, dv = fa._twopass_tiles_ref(mid["s"], mid["v"], mid["dm"], macc, sacc, mid["tacc"], heads,
+                                   v1, nv)
+    merged_k = mid["merged"].reshape(b, i, heads, d).permute(0, 2, 1, 3)
+    xp = fa._pad_points(x, n)
+    rest = fa._twopass_outputs(xp, se, y, mid["ds"].float(), mid["dv"].float(), qft, kvw, gh,
+                               merged_k.float())
+    out = {
+        "dm": rel(mid["dm"], fa._twopass_fold_ref(gh, wo, sacc, heads, v1)),
+        "s": rel(mid["s"], s), "v": rel(mid["v"], v), "ppart": rel(mid["ppart"], ppart),
+        "tacc": rel(mid["tacc"], tacc), "merged": rel(merged_k.reshape(b, j, d), merged),
+        "ds": rel(mid["ds"], ds), "dv": rel(mid["dv"], dv),
+        "dx": rel(outs[0], rest[0][:, :n_valid]),
+        **{k: rel(a, r) for k, a, r in zip(OUTPUTS[1:], outs[1:], rest[1:])},
+    }
+    if v1:
+        out["tpart"] = rel(mid["tpart"], tpart)
+    return out
+
+
+def pass_failures(errs: dict) -> list:
+    """The passes beyond their tolerances."""
+    return [f"{k} {v:.3e}" for k, v in errs.items()
+            if v > (TOL_FP32 if k in FP32_PASSES else TOL_PASS)]
+
+
+def in_turns(fns: dict, reps=20) -> dict:
+    """Each of ``fns`` timed in turns (reps / 2 calls each forward, then
+    reps / 2 each in reverse order) -> sorted milliseconds per name."""
+    out = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            out[k] += timed(fns[k], max(1, reps // 2))
+    return {k: sorted(v) for k, v in out.items()}
 
 
 def main():
@@ -40,45 +114,60 @@ def main():
                           check=True, capture_output=True, text=True).stdout.strip()
     g = torch.Generator(device=dev).manual_seed(1)
     result = {}
+    failed = []
     for width, (b, n, c, heads, i) in SHAPES.items():
         for drift in (False, True):
-            ops = operands(g, b, n, c, heads, i, drift, dev)
-            x, se, be, _, kvw, wo = ops
-            _, qft, macc, sacc = fa._pool_ext_launch(*ops, heads, True)
-            gh = (0.1 * torch.randn(b, i, c, generator=g, device=dev)).to(x.dtype)
-            raw = (x, se, be, qft, kvw, wo, gh, macc, sacc, heads)
+            _, raw = raw_operands(g, b, n, c, heads, i, drift, dev)
             tag = f"{width}, {'drift' if drift else 'ordinary'}"
             outs = {}
             for body in BODIES:
-                got = fa._pool_ext_bwd_twopass(*raw, body)
-                again = fa._pool_ext_bwd_twopass(*raw, body)
                 ref = fa._TWOPASS_REFS[body](*raw)
-                errs = {k: rel(a, r) for k, a, r in zip(OUTPUTS, got, ref)}
-                same = all(torch.equal(p, q) for p, q in zip(got, again))
-                outs[body] = got
-                print(f"  {tag}, {body}: against its plain version (max|err|/max|ref|): "
-                      + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                      + f"; two calls {'the same bits' if same else 'DIFFER'}")
-                result[f"{tag}, {body}"] = {"errors": errs, "same_bits": same}
-            v2j = all(torch.equal(p, q) for p, q in zip(outs["v2"], outs["v2j"]))
-            print(f"  {tag}: v2j against v2 {'the same bits' if v2j else 'DIFFER'}")
-            result[f"{tag}, v2j is v2"] = v2j
+                for impl in IMPLS:
+                    got = fa._pool_ext_bwd_twopass(*raw, body, impl)
+                    again = fa._pool_ext_bwd_twopass(*raw, body, impl)
+                    errs = {k: rel(a, r) for k, a, r in zip(OUTPUTS, got, ref)}
+                    same = all(torch.equal(p, q) for p, q in zip(got, again))
+                    outs[body, impl] = got
+                    print(f"  {tag}, {body} {impl}: against its plain version "
+                          f"(max|err|/max|ref|): " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                                               errs.items())
+                          + f"; two calls {'the same bits' if same else 'DIFFER'}")
+                    result[f"{tag}, {body} {impl}"] = {"errors": errs, "same_bits": same}
+                    if not same:
+                        failed.append(f"{tag}, {body} {impl}: two calls differ")
+                p = passes(raw, body)
+                print(f"  {tag}, {body} hopper passes against their pieces: "
+                      + ", ".join(f"{k} {v:.3e}" for k, v in p.items()))
+                result[f"{tag}, {body} passes"] = p
+                failed += [f"{tag}, {body} pass {f}" for f in pass_failures(p)]
+            for impl in IMPLS:
+                v2j = all(torch.equal(p, q) for p, q in zip(outs["v2", impl], outs["v2j", impl]))
+                print(f"  {tag}: {impl} v2j against v2 {'the same bits' if v2j else 'DIFFER'}")
+                result[f"{tag}, {impl} v2j is v2"] = v2j
+                if not v2j:
+                    failed.append(f"{tag}, {impl}: v2j differs from v2")
             if not drift:
                 case = raw
-        v3 = timed(lambda: fa._pool_ext_bwd_hopper(*case))
-        print(f"  {width}, v3 Hopper body: median {statistics.median(v3):.3f} ms")
-        result[f"{width}, v3"] = {"median_ms": statistics.median(v3)}
         for body in BODIES:
-            call = lambda b_=body: fa._pool_ext_bwd_twopass(*case, b_)
-            t = timed(call)
-            split = launch_split(call)
-            print(f"  {width}, {body}: median {statistics.median(t):.3f} ms of {len(t)} (min "
-                  f"{min(t):.3f}, max {max(t):.3f}); per launch (ms): "
-                  + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-            result[f"{width}, {body}"] = {"median_ms": statistics.median(t),
-                                          "min_max_ms": [min(t), max(t)], "per_launch_ms": split}
+            fns = {"v3": lambda: fa._pool_ext_bwd_hopper(*case),
+                   **{impl: (lambda b_=body, m=impl: fa._pool_ext_bwd_twopass(*case, b_, m))
+                      for impl in IMPLS}}
+            turns = in_turns(fns)
+            print(f"  {width}, {body} in turns (ms of 20 calls, median (min, max)): "
+                  + ", ".join(f"{k} {statistics.median(t):.3f} ({t[0]:.3f}, {t[-1]:.3f})"
+                              for k, t in turns.items()))
+            rec = {k: {"median_ms": statistics.median(t), "min_max_ms": [t[0], t[-1]]}
+                   for k, t in turns.items()}
+            for impl in IMPLS:
+                split = launch_split(fns[impl])
+                print(f"  {width}, {body} {impl}: per launch (ms): "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+                rec[impl]["per_launch_ms"] = split
+            result[f"{width}, {body}"] = rec
     print(card)
     print(json.dumps(result))
+    if failed:
+        raise SystemExit("probes.pool_bwd_twopass: " + "; ".join(failed))
 
 
 if __name__ == "__main__":

@@ -192,6 +192,8 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         "folded_unpool_wmma": 0, "fused_mlp_residual_wmma": 0, "folded_pool_ext_bwd_wmma": 0,
         "folded_unpool_bwd_wmma": 0, "fused_mlp_residual_bwd_wmma": 0,
         "folded_pool_ext_bwd_v1": 0, "folded_pool_ext_bwd_v2": 0, "folded_pool_ext_bwd_v2j": 0,
+        "folded_pool_ext_bwd_v1_wmma": 0, "folded_pool_ext_bwd_v2_wmma": 0,
+        "folded_pool_ext_bwd_v2j_wmma": 0,
     }
 
 
@@ -536,13 +538,14 @@ def test_body_switches_choose_by_shape(shape, bodies, bwd):
     (("rect", 128), True),  # num_heads=3 at C 384
     (("rect", 40), True),  # D % 16 != 0: zero-padded to the D 48 instance
     (("rect", 144), True),  # D > 128: zero-padded to the D 192 instance
-    (("rect", 200), False),  # D > 192: no instance's block fits
+    (("rect", 200), True),  # D > 192: zero-padded to the D 256 instance
+    (("rect", 272), False),  # D > 256: no instance
 ], ids=["hside-I64", "hside-I32", "hside-I128", "rect-D48", "rect-D128", "rect-D40",
-        "rect-D144", "rect-D200"])
+        "rect-D144", "rect-D200", "rect-D272"])
 def test_hside_and_rect_attention_route_by_shape(case, takes):
     """The h-side's WMMA body and the per-head attention (forward and
     backward share ``_check_shapes``) take their kernel by shape alone: the
-    WMMA h-side at I 16 to 64, the attention at any D up to 192 (a width
+    WMMA h-side at I 16 to 64, the attention at any D up to 256 (a width
     between its instances zero-padded to the next, ``_d_pad``). On the card
     a shape the kernel does not take raises; malformed operands raise
     too."""
@@ -554,7 +557,7 @@ def test_hside_and_rect_attention_route_by_shape(case, takes):
     if takes:
         tia._check_shapes("rect", q, kv, kv)
     else:
-        with pytest.raises(ValueError, match="1 <= D <= 192"):
+        with pytest.raises(ValueError, match="1 <= D <= 256"):
             tia._check_shapes("rect", q, kv, kv)
     with pytest.raises(ValueError, match="do not form"):
         tia._check_shapes("rect", q, kv, kv[..., :16])
@@ -569,27 +572,27 @@ POOL_BWD_SHAPES = ((48, 2048, 384, 8, 64), (2, 8192, 768, 16, 64), (48, 2048, 12
 
 @pytest.mark.parametrize("mode,want", [
     (None, ("hopper", "hopper", "wmma", "wmma")),
-    ("v1", ("v1", "v1", "v1", None)),
-    ("v2", ("v2", "v2", "v2", None)),
-    ("v2j", ("v2j", "v2j", "v2j", None)),
+    ("v1", ("v1", "v1", "v1_wmma", "v1_wmma")),
+    ("v2", ("v2", "v2", "v2_wmma", "v2_wmma")),
+    ("v2j", ("v2j", "v2j", "v2j_wmma", "v2j_wmma")),
     ("v3", ("hopper", "hopper", "wmma", "wmma")),
 ], ids=["unset", "v1", "v2", "v2j", "v3"])
 def test_pool_bwd_switch_takes_the_forced_body(monkeypatch, mode, want):
     """GECCO_POOL_BWD as the JAX package reads it: unset or "v3", the v3
-    algebra's bodies; forced to v1, v2 or v2j, that body where its kernel
-    takes the shape (the flagship's, the 8k and the demo's widths), and on
-    the card a forced body that does not take the shape raises (None: three
-    heads, whose J = 192 is no multiple of the weight-gradient tile's 128);
-    N 2000 takes the chosen body at its padded count."""
+    algebra's bodies; forced to v1, v2 or v2j, that algebra's Hopper body
+    at the flagship's and the 8k width (D 48, 64 inducers) and its WMMA
+    body at the demo's width and at three heads (J 192, through the weight
+    gradients' 64-column tail); on the card a forced body that does not
+    take the shape raises (B I % 64 != 0); N 2000 takes the chosen body at
+    its padded count."""
     monkeypatch.setattr(tfa, "_POOL_BWD_ENV", mode)
     for shape, body in zip(POOL_BWD_SHAPES, want):
-        if body is None:
-            with pytest.raises(ValueError, match=f"GECCO_POOL_BWD={mode} forces"):
-                tfa._pool_ext_bwd_body(*shape)
-        else:
-            assert tfa._pool_ext_bwd_body(*shape) == body
+        assert tfa._pool_ext_bwd_body(*shape) == body
     assert tfa._pool_ext_bwd_body(48, 2000, 384, 8, 64) == (
         "hopper" if mode in (None, "v3") else mode)
+    if mode in ("v1", "v2", "v2j"):
+        with pytest.raises(ValueError, match=f"GECCO_POOL_BWD={mode} forces"):
+            tfa._pool_ext_bwd_body(1, 2048, 384, 3, 16)
 
 
 def test_pool_bwd_env_parses_as_the_jax_package(capsys):
@@ -708,6 +711,85 @@ def test_pool_bwd_twopass_refs_match_the_jax_bodies(monkeypatch, mode, drift):
         assert _maxrel(a.float().numpy(), r) < (1e-3 if name in ("dse", "dbe") else 4e-3), name
         if drift and name in ("dse", "dbe"):
             assert _maxrel(plain.float().numpy(), r) > 1e-3, name
+
+
+@pytest.mark.parametrize("v1", [True, False], ids=["v1", "v2"])
+@pytest.mark.parametrize("n,n_valid", [(1152, None), (1152, 1100)], ids=["N1152", "ragged"])
+def test_twopass_hopper_pieces_compose_to_the_plain_bodies(v1, n, n_valid):
+    """The Hopper two-pass body's plain pieces (``_twopass_fold_ref``, the
+    S and V products ``_twopass_sv_ref``, pass 0's range partials
+    ``_twopass_ranges_ref`` over three ranges of 512 points, their
+    fixed-order ``_twopass_merge_ref``, pass 1 per tile
+    ``_twopass_tiles_ref``, then dy and the weight gradients) compose to
+    ``_pool_bwd_v1_ref`` / ``_pool_bwd_v2_ref`` in fp32 within 1e-5 of max
+    |ref| (the same operations, the sums over points split by range), at a
+    ragged tail too (``n_valid``)."""
+    rng = np.random.default_rng(12)
+    c, heads, i = 96, 2, 64
+    x = torch.from_numpy(rng.standard_normal((B, n, c)).astype(np.float32))
+    se = torch.from_numpy((1.0 + 0.1 * rng.standard_normal((B, c))).astype(np.float32))
+    be = torch.from_numpy((0.1 * rng.standard_normal((B, c))).astype(np.float32))
+    ind2 = torch.from_numpy((rng.standard_normal((heads * i, c // heads)) / 2).astype(np.float32))
+    kvw = torch.from_numpy((rng.standard_normal((2 * c, c)) / c**0.5).astype(np.float32))
+    wo = torch.from_numpy((rng.standard_normal((c, c)) / c**0.5).astype(np.float32))
+    g_h0 = torch.from_numpy(rng.standard_normal((B, i, c)).astype(np.float32))
+    qft = tfa._fold_qft_ref(ind2, kvw, heads)
+    _, macc, sacc = tfa._pool_merge_ref(
+        *tfa._pool_partials_ref(x, se, be, qft, kvw, heads, n_valid), wo, heads)
+    raw = (x, se, be, qft, kvw, wo, g_h0, macc, sacc, heads)
+    got = tfa._twopass_pieces(*raw, v1, n_valid)
+    want = (tfa._pool_bwd_v1_ref if v1 else tfa._pool_bwd_v2_ref)(*raw, n_valid)
+    assert -(-n // tfa._TWOPASS_RANGE) == 3
+    for name, a, r in zip(("dx", "dse", "dbe", "dqf", "dwv", "dwo"), got, want):
+        assert _maxrel(a, r) < 1e-5, name
+
+
+@pytest.mark.parametrize("mode", ["v1", "v2", "v2j"])
+@pytest.mark.parametrize("shape", [(64, 4, 16, N), (48, 3, 64, 128), (64, 4, 16, 200)],
+                         ids=["C64", "J192", "ragged"])
+def test_twopass_hopper_pieces_match_the_jax_bodies(monkeypatch, mode, shape):
+    """The Hopper two-pass body's plain pieces composed (``_twopass_pieces``)
+    are the JAX package's v1, v2 and v2j bodies: on bf16 operands against
+    ``jax.vjp`` of the JAX op with ``GECCO_POOL_BWD`` forced to that body
+    (its Pallas kernel in interpret mode, one ``jax.jit``; the tile fits,
+    no XLA twin), at C 64, at three heads of 64 inducers (J 192) and at a
+    ragged N 200 (the pieces on the stream zero-padded to 256 with
+    ``n_valid``): dse and dbe within 1e-3 of max |ref|, the bf16 gradients
+    within 4e-3 (``test_pool_bwd_twopass_refs_match_the_jax_bodies``'
+    tolerances)."""
+    monkeypatch.setattr(jfa, "_POOL_BWD_ENV", mode)
+    c, heads, i, n = shape
+    j, d = heads * i, c // heads
+    v1 = mode == "v1"
+    assert jfa._pool_bwd_mode(n, c, j, d) == mode
+    assert jfa._tile_fits(n, jfa._pool_ext_bwd_row_bytes(c, j, v1),
+                          jfa._pool_ext_bwd_fixed_bytes(c, j, d, v1, mode == "v2j"), cap=512)
+    bf = torch.bfloat16
+    rng = np.random.default_rng(13)
+    args = [rng.standard_normal((B, n, c)).astype(np.float32),
+            (1.0 + 0.1 * rng.standard_normal((B, c))).astype(np.float32),
+            (0.1 * rng.standard_normal((B, c))).astype(np.float32),
+            (rng.standard_normal((j, d)) / 2).astype(np.float32),
+            (rng.standard_normal((2 * c, c)) / 8).astype(np.float32),
+            (rng.standard_normal((c, c)) / 8).astype(np.float32)]
+    ops = [torch.from_numpy(a).to(bf if q in (0, 3, 4, 5) else torch.float32)
+           for q, a in enumerate(args)]
+    x, se, be, ind2, kvw, wo = ops
+    g_h0 = torch.from_numpy(rng.standard_normal((B, i, c)).astype(np.float32)).to(bf)
+    qft = tfa._fold_qft_ref(ind2, kvw, heads)
+    xp = tfa._pad_points(x, tfa._n_pad(n))
+    n_valid = n if n != xp.shape[1] else None
+    _, macc, sacc = tfa._pool_merge_ref(
+        *tfa._pool_partials_ref(xp, se, be, qft, kvw, heads, n_valid), wo, heads)
+    dx, dse, dbe, dqf, dwv, dwo = tfa._twopass_pieces(xp, se, be, qft, kvw, wo, g_h0, macc, sacc,
+                                                      heads, v1, n_valid)
+    got = (dx[:, :n], dse, dbe, *tfa._chain_dqf(dqf, dwv, ind2, kvw, heads), dwo.to(wo.dtype))
+    jops = [jnp.asarray(a.float().numpy(), jnp.bfloat16 if a.dtype == bf else jnp.float32)
+            for a in ops]
+    ref = jax.jit(lambda a, g: jax.vjp(lambda *p: jfa.folded_pool_ext(*p, heads), *a)[1](g))(
+        jops, jnp.asarray(g_h0.float().numpy(), jnp.bfloat16))
+    for name, a, r in zip(("dx", "dse", "dbe", "dind2", "dkvw", "dwo"), got, ref):
+        assert _maxrel(a.float().numpy(), r) < (1e-3 if name in ("dse", "dbe") else 4e-3), name
 
 
 def _unpool_bwd_by_pieces(x, se, be, k, v, wq, wo, g, g_sums, heads, residual=True,

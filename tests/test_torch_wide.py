@@ -2,10 +2,12 @@
 
 For each: the JAX package computes there (its Pallas kernels in interpret
 mode, each case one ``jax.jit``), the port's plain version agrees with it,
-and the padded algebra that the card's bodies run there (a ragged inducer
-count zero-padded to 16s and masked, a head width zero-padded to the next
-rect-attention instance, a ragged point tail of the pool backward's v1, v2
-and v2j bodies) composes in plain PyTorch to the unpadded plain version.
+and the padded or blocked algebra that the card's bodies run there (a
+ragged inducer count zero-padded to 16s and masked, a head width
+zero-padded to the next rect-attention instance, a ragged point tail of
+the pool backward's v1, v2 and v2j bodies, the pool backward's fold in
+blocks of 64 inducer rows, dqf through a 64-column tail) composes in
+plain PyTorch to the plain version.
 The switches choose a body for each shape. fp32 tolerances are the JAX
 package's own tests' (forward rtol 1e-4, atol 1e-5; backward rtol 5e-4,
 atol 5e-5), scaled by max |ref| for drifted logits as in
@@ -223,10 +225,12 @@ def test_hside_takes_a_ragged_inducer_count(i):
 # ------------------------------------------------- the rect attention --
 
 
-@pytest.mark.parametrize("d", [40, 192])
+@pytest.mark.parametrize("d", [40, 192, 256])
 @pytest.mark.parametrize("direction", ["pool", "unpool"])
 def test_rect_attention_takes_any_head_width(direction, d):
-    """The per-head attention at D 40 and 192: the JAX op
+    """The per-head attention at D 40, 192 and 256 (three heads at C 768;
+    the backward's instance there keeps dq, dk and dv in two 128-column
+    slices, each forming the logits at full D): the JAX op
     (``rect_attention_pallas``, forward and backward kernels in interpret
     mode) against the port's plain version, o and dq, dk, dv (rtol 1e-4,
     atol 1e-5); and the kernels' padded algebra (q, k, v zero-padded to
@@ -296,6 +300,135 @@ def test_twopass_bodies_take_a_ragged_tail(monkeypatch, mode):
         assert _maxrel(a.float().numpy(), r) < (1e-3 if name in ("dse", "dbe") else 4e-3), name
 
 
+# ------------------- the pool backward's fold and the resident backward --
+
+
+def _wide_pool_args(seed, c, heads, i, n=N, b=1):
+    rng = np.random.default_rng(seed)
+    d = c // heads
+    return (rng.standard_normal((b, n, c)).astype(np.float32),
+            (1.0 + 0.1 * rng.standard_normal((b, c))).astype(np.float32),
+            (0.1 * rng.standard_normal((b, c))).astype(np.float32),
+            (rng.standard_normal((heads * i, d)) / 2).astype(np.float32),
+            (rng.standard_normal((2 * c, c)) / c**0.5).astype(np.float32),
+            (rng.standard_normal((c, c)) / c**0.5).astype(np.float32))
+
+
+def test_pool_backward_fold_takes_256_inducers_at_three_heads():
+    """The pool backward at three heads of C 384 (D 128) and 256 inducers,
+    where the fold once held a head's [I, D] blocks whole (up to ~200
+    inducers): the JAX op (its v3 backward kernel in interpret mode: the
+    tile fits, no XLA twin) against the port's plain version (rtol 5e-4,
+    atol 5e-5 of the gradients, 1e-4 / 1e-5 of h0); and the fold in
+    blocks of 64 of each head's rows (``pool_bwd_fold_kernel``'s third grid
+    dimension: each block's DMs, pacc, tacc, merged and W3 rows, its share
+    of dWo and dWv added) composes to the whole fold within 1e-5 of max
+    |ref|."""
+    c, heads, i = 384, 3, 256
+    j, d = heads * i, c // heads
+    assert tfa._pool_ext_bwd_body(8, 2048, c, heads, i) == "wmma"
+    assert tfa._pool_bwd_fold_smem(c, i, d) == tfa._pool_bwd_fold_smem(c, 64, d)
+    fixed = jfa._pool_ext_bwd_fixed_bytes(c, j, d, False, True) + 4 * j * c
+    assert jfa._pool_bwd_mode(N, c, j, d) == "v3"
+    assert jfa._tile_fits(N, jfa._pool_ext_bwd_row_bytes(c, j), fixed,
+                          cap=jfa._POOL_BWD_V3_TILE_CAP)
+    args = _wide_pool_args(90, c, heads, i)
+    cot = (np.random.default_rng(91).standard_normal((1, i, c)).astype(np.float32),)
+    (ref,), jgrads = _jax_vjp(lambda *a: (jfa.folded_pool_ext(*a, heads),), args, cot)
+    (port,), grads = _grads(lambda *a: tfa.folded_pool_ext(*a, heads), args, cot)
+    _close(port, ref, 1e-4, 1e-5, "h0")
+    for q, (a, r) in enumerate(zip(grads, jgrads)):
+        _close(a, r, 5e-4, 5e-5, f"gradient of argument {q}")
+    x, se, be, ind2, kvw, wo = (torch.from_numpy(a) for a in args)
+    g = torch.from_numpy(cot[0])
+    qft = tfa._fold_qft_ref(ind2, kvw, heads)
+    _, macc, sacc = tfa._pool_merge_ref(*tfa._pool_partials_ref(x, se, be, qft, kvw, heads), wo,
+                                        heads)
+    ety = tfa._pool_bwd_ety_ref(x, se, be, qft, macc)
+    whole = tfa._pool_bwd_fold_ref(ety, g, kvw, wo, sacc, heads)
+    tacc, w3 = torch.zeros_like(whole[0]), torch.zeros_like(whole[1])
+    dwv, dwo = torch.zeros_like(whole[2]), torch.zeros_like(whole[3])
+    rows = tfa._FOLD_ROWS
+    for r0 in range(0, i, rows):
+        cols = torch.cat([torch.arange(h * i + r0, h * i + r0 + rows) for h in range(heads)])
+        t_b, w3_b, dwv_b, dwo_b = tfa._pool_bwd_fold_ref(ety[:, cols], g[:, r0:r0 + rows], kvw,
+                                                          wo, sacc[:, cols], heads)
+        tacc[:, cols], w3[:, cols] = t_b, w3_b
+        dwv += dwv_b
+        dwo += dwo_b
+    for name, a, r in zip(("tacc", "w3", "dwv", "dwo"), (tacc, w3, dwv, dwo), whole):
+        assert _maxrel(a, r) < 1e-5, name
+
+
+def test_resident_pool_backward_takes_256_inducers():
+    """The resident pool's backward at C 384, 8 heads (D 48) and 256
+    inducers, where its main kernel's 64-point block no longer fits: the
+    JAX op (``_pool_bwd_kernel`` in interpret mode: its VMEM gate holds at
+    these shapes) against the port's plain version, h0, mean and inv and
+    every gradient (rtol 1e-4 / atol 1e-5 forward, 5e-4 / 5e-5 backward);
+    and the main kernel's tile (``_pool_layer_bwd_tile``) falls to 32
+    points, within shared memory, at C 384 and C 768."""
+    c, heads, i = 384, 8, 256
+    assert jfa.pool_bwd_vmem_ok(N, c, heads * i)
+    for cc, hh in ((384, 8), (768, 16)):
+        assert tfa._pool_layer_bwd_tile(cc, i, cc // hh) == 32
+        assert tfa._pool_layer_bwd_smem(cc, i, cc // hh) <= tfa._MAX_SMEM
+    args = _wide_pool_args(92, c, heads, i)
+    gind = np.array(jfa.group_indicator(c, GROUPS))
+    rng = np.random.default_rng(93)
+    cot = (rng.standard_normal((1, i, c)).astype(np.float32),
+           (0.1 * rng.standard_normal((1, c))).astype(np.float32),
+           (0.1 * rng.standard_normal((1, c))).astype(np.float32))
+    ref, jgrads = _jax_vjp(
+        lambda *a: jfa.folded_pool_layer(*a, jnp.asarray(gind), heads, True), args, cot)
+    port, grads = _grads(
+        lambda *a: tfa.folded_pool_layer(*a, torch.from_numpy(gind), heads, True), args, cot)
+    for name, a, r in zip(("h0", "mean_c", "inv_c"), port, ref):
+        _close(a, r, 1e-4, 1e-5, name)
+    for q, (a, r) in enumerate(zip(grads, jgrads)):
+        _close(a, r, 5e-4, 5e-5, f"gradient of argument {q}")
+
+
+@pytest.mark.parametrize("mode", ["v1", "v2", "v2j"])
+def test_twopass_bodies_take_three_heads(monkeypatch, mode):
+    """The pool backward's v1, v2 and v2j bodies at three heads of 64
+    inducers (J 192: no multiple of 128) and C 384 (D 128): the JAX op with
+    ``GECCO_POOL_BWD`` forced to that body (its Pallas kernel in interpret
+    mode, as at the flagship's N 2048) against the body's plain version in
+    fp32 (rtol 5e-4, atol 5e-5: the JAX package's backward tolerances); the
+    switch takes that body at the three-head flagship, and dqf = y^T ds
+    through the weight gradients' 64-column tail (ds's columns
+    zero-padded to 256, the product sliced) equals the plain product."""
+    monkeypatch.setattr(jfa, "_POOL_BWD_ENV", mode)
+    monkeypatch.setattr(tfa, "_POOL_BWD_ENV", mode)
+    c, heads, i = 384, 3, 64
+    j, d = heads * i, c // heads
+    v1 = mode == "v1"
+    for n in (N, 2048):
+        assert jfa._pool_bwd_mode(n, c, j, d) == mode
+        assert jfa._tile_fits(n, jfa._pool_ext_bwd_row_bytes(c, j, v1),
+                              jfa._pool_ext_bwd_fixed_bytes(c, j, d, v1, mode == "v2j"), cap=512)
+    assert tfa._pool_ext_bwd_body(8, 2048, c, heads, i) == f"{mode}_wmma"
+    args = _wide_pool_args(94, c, heads, i, b=2)
+    x, se, be, ind2, kvw, wo = (torch.from_numpy(a) for a in args)
+    g_h0 = np.random.default_rng(95).standard_normal((2, i, c)).astype(np.float32)
+    g = torch.from_numpy(g_h0)
+    qft = tfa._fold_qft_ref(ind2, kvw, heads)
+    _, macc, sacc = tfa._pool_merge_ref(*tfa._pool_partials_ref(x, se, be, qft, kvw, heads), wo,
+                                        heads)
+    dx, dse, dbe, dqf, dwv, dwo = tfa._TWOPASS_REFS[mode](x, se, be, qft, kvw, wo, g, macc,
+                                                          sacc, heads)
+    got = (dx, dse, dbe, *tfa._chain_dqf(dqf, dwv, ind2, kvw, heads), dwo)
+    _, ref = _jax_vjp(lambda *a: (jfa.folded_pool_ext(*a, heads),), args, (g_h0,))
+    for name, a, r in zip(("dx", "dse", "dbe", "dind2", "dkvw", "dwo"), got, ref):
+        _close(a, r, 5e-4, 5e-5, name)
+    # the 64-column tail: ds [B N, J] zero-padded to 256 columns, y^T ds sliced
+    y = tfa._prenormed(x, se, be).reshape(-1, c)
+    ds = torch.randn(y.shape[0], j, generator=torch.Generator().manual_seed(96))
+    padded = y.t() @ torch.nn.functional.pad(ds, (0, 256 - j))
+    assert _maxrel(padded[:, :j], y.t() @ ds) < 1e-5 and not padded[:, j:].any()
+
+
 # ------------------------------------------------------------ switches --
 
 
@@ -312,24 +445,23 @@ def test_switches_take_every_inducer_count(shape, want):
     pool take 24 to 256 inducers at the flagship's and the 8k width
     (``_pool_ext_body``, ``_unpool_body``, ``_unpool_bwd_body``,
     ``_pool_layer_body``), where each raised on the card before, and the
-    h-side and the pool backward there too (at D 48: at three heads' D 128
-    the pool backward's fold holds a head's [I, D] blocks whole, up to 192
-    inducers)."""
+    h-side and the pool backward there too (three heads' D 128 included:
+    its fold takes a head's rows in blocks of 64)."""
     switches = (tfa._pool_ext_body, tfa._unpool_body, tfa._unpool_bwd_body, tfa._pool_layer_body)
     assert tuple(s(*shape) for s in switches) == want
     b, n, c, h, i = shape
     assert ths._hside_body(i, c, 2 * c, 32) == "hopper"
-    if c // h == 48:
-        assert tfa._pool_ext_bwd_body(*shape) == "wmma"
+    assert tfa._pool_ext_bwd_body(*shape) == "wmma"
 
 
 def test_mirrors_of_the_new_plans_use_the_sources_constants():
     """The Python mirrors read the constants the CUDA sources give: the
     rect attention's instance widths (forward and backward), the two-pass
     bodies' point tile, the inducer alignment (the h-side's slab), and the
-    WMMA unpool backward's tiles; the column block of a WMMA pool block
-    divides I and fits; the two-pass bodies and the resident pool's
-    backward fit where their switches and checks say."""
+    WMMA unpool backward's tiles, the pool backward fold's row block and
+    the resident pool backward's point tiles; the column block of a WMMA
+    pool block divides I and fits; the two-pass bodies and the resident
+    pool's backward fit where their switches and checks say."""
     for name in ("induced_attention.cu", "induced_attention_bwd.cu"):
         text = (_build.CSRC / name).read_text()
         widths = tuple(int(w) for w in re.findall(r"case (\d+):", text))
@@ -343,10 +475,24 @@ def test_mirrors_of_the_new_plans_use_the_sources_constants():
     for c, i, d in ((384, 256, 48), (768, 512, 48), (384, 240, 32), (128, 64, 32)):
         ib = tfa._pool_wmma_block(c, i, d)
         assert ib and i % ib == 0 and tfa._pool_wmma_smem(c, ib, d) <= tfa._MAX_SMEM
+    text = (_build.CSRC / "backward.cuh").read_text()
+    assert int(re.search(r"constexpr int kFoldRows = (\d+);", text).group(1)) == tfa._FOLD_ROWS
+    text = (_build.CSRC / "pool_bwd.cu").read_text()
+    assert "for (int TN = C <= 384 ? 64 : 32; TN >= 16; TN /= 2)" in text
     assert tfa._pool_twopass_takes(48, 2048, 128, 4, 64)
-    assert not tfa._pool_twopass_takes(48, 2048, 384, 3, 64)
+    # three heads of 64 inducers: J 192, through the weight gradients'
+    # 64-column tail
+    assert tfa._pool_twopass_takes(48, 2048, 384, 3, 64)
+    assert not tfa._pool_twopass_takes(48, 2048, 384, 3, 56)
     # the resident pool's backward: the flagship's, the 8k and three heads'
-    # widths fit, and at C 384 up to 128 inducers
+    # widths fit, at C 384 and D 48 up to 960 inducers (the main kernel's
+    # tile halved where its planes grow), at C 768 up to 912
     fits = lambda c, i, d: tfa._pool_layer_bwd_smem(c, i, d) <= tfa._MAX_SMEM
     assert fits(384, 64, 48) and fits(768, 64, 48) and fits(384, 64, 128)
-    assert fits(384, 128, 48) and not fits(384, 144, 48)
+    assert fits(384, 128, 48) and fits(384, 144, 48) and fits(384, 256, 48)
+    assert fits(384, 960, 48) and not fits(384, 976, 48)
+    assert fits(768, 912, 48) and not fits(768, 928, 48)
+    assert [tfa._pool_layer_bwd_tile(384, i, 48) for i in (64, 128, 144, 512)] == [64, 64, 32, 16]
+    assert tfa._pool_layer_bwd_tile(768, 64, 48) == 32
+    # the fold's block bytes stop growing at 64 rows
+    assert tfa._pool_bwd_fold_smem(384, 256, 128) == tfa._pool_bwd_fold_smem(384, 64, 128)

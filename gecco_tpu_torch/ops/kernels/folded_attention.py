@@ -948,7 +948,7 @@ def _pool_twopass_hopper_takes(b: int, n: int, c: int, num_heads: int, i: int) -
 
 
 def _pool_ext_bwd_twopass(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int,
-                          body: str, impl: str | None = None, mid: dict | None = None) -> tuple:
+                          body: str, impl: str | None = None) -> tuple:
     """The v1 body or the v2 or v2j body -> (dx, dse, dbe, dqf, dwv, dwo):
     the Hopper body (csrc/pool_ext_bwd_twopass.cu) where
     ``_pool_twopass_hopper_takes``, else the WMMA body
@@ -958,58 +958,84 @@ def _pool_ext_bwd_twopass(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int
     kernel. The weight gradients come from csrc/wgrad.cuh (fixed-order
     split-K), dse and dbe from fixed-order partials: every output is the
     same bits from call to call. A ragged N goes zero-padded to 128s, its
-    padding masked in both passes. With ``mid`` a dict, the Hopper body
-    leaves its intermediates there (y, dm, s, v, ppart, tpart, tacc,
-    merged, ds, dv) for ``probes.pool_bwd_twopass``."""
+    padding masked in both passes."""
+    b, n, c = x.shape
+    i = qft.shape[0] // num_heads
+    if impl is None:
+        impl = "hopper" if _pool_twopass_hopper_takes(b, n, c, num_heads, i) else "wmma"
+    if impl == "hopper":
+        return _twopass_hopper(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads, body)[0]
+    x, n_valid, out, wargs = _twopass_setup(x, qft, num_heads)
+    b, n, c = x.shape
+    j, d = qft.shape[0], c // num_heads
+    dev = x.device
+    lib = "pool_ext_bwd_v1" if body == "v1" else "pool_ext_bwd_v2"
+    launch(lib, f"pool_ext_bwd_{body}_launch", x, se, be, qft, kvw, wo, g, macc,
+           torch.reciprocal(sacc) if body == "v2j" else sacc,
+           torch.empty_like(x), torch.empty((b, j, d), dtype=_BF16, device=dev),
+           torch.empty((b, j), dtype=_F32, device=dev),
+           torch.empty((b, i, c), dtype=_BF16, device=dev),
+           torch.empty((b, n, j), dtype=_BF16, device=dev), torch.empty_like(x),
+           torch.empty((b, n // 32, 2, c), dtype=_F32, device=dev), *wargs, n_valid)
+    counter = f"launches_{body}_wmma"
+    setattr(folded_pool_ext_bwd, counter, getattr(folded_pool_ext_bwd, counter) + 1)
+    return _twopass_outputs_of(out, n_valid)
+
+
+def _twopass_setup(x, qft, num_heads: int) -> tuple:
+    """What both two-pass bodies share -> (x zero-padded to 128 points,
+    n_valid, the outputs' buffers, the launch's trailing arguments: the
+    weight-gradient partials, the outputs, the shape and the splits of the
+    three weight-gradient products)."""
     b, n_valid, c = x.shape
     n = _n_pad(n_valid)
     x = _pad_points(x, n)
     j = qft.shape[0]
-    i, d = j // num_heads, c // num_heads
     dev = x.device
-    if impl is None:
-        impl = "hopper" if _pool_twopass_hopper_takes(b, n, c, num_heads, i) else "wmma"
     # the three weight gradients' products: dqf = y^T ds over the B N rows,
     # dWv = dv^T y over them, dWo = g^T merged over the B I rows
-    products = ((b * n, j), (b * n, c), (b * i, c))
+    products = ((b * n, j), (b * n, c), (b * (j // num_heads), c))
     splits = [_wgrad_splits(1, rows // 64, c, p, dev) for rows, p in products]
     part = max([s * c * p for s, (_, p) in zip(splits, products) if s > 1], default=0)
-    dsum = torch.empty((b, 2, c), dtype=_F32, device=dev)
-    dqf = torch.empty((c, j), dtype=_F32, device=dev)
-    dwv = torch.empty((c, c), dtype=_F32, device=dev)
-    dwo = torch.empty_like(dwv)
-    dx = torch.empty_like(x)
+    out = dict(dx=torch.empty_like(x), dsum=torch.empty((b, 2, c), dtype=_F32, device=dev),
+               dqf=torch.empty((c, j), dtype=_F32, device=dev),
+               dwv=torch.empty((c, c), dtype=_F32, device=dev),
+               dwo=torch.empty((c, c), dtype=_F32, device=dev))
     wpart = torch.empty(part, dtype=_F32, device=dev) if part else None
-    norm = torch.reciprocal(sacc) if body == "v2j" else sacc
-    if impl == "hopper":
-        ranges = -(-n // _TWOPASS_RANGE)
-        buf = dict(y=torch.empty_like(x), dm=torch.empty((b, j, d), dtype=_BF16, device=dev),
-                   s=torch.empty((b, n, j), dtype=_F32, device=dev), v=torch.empty_like(x),
-                   ppart=torch.empty((ranges, b, j, d), dtype=_F32, device=dev),
-                   tpart=torch.empty((ranges, b, j), dtype=_F32, device=dev),
-                   tacc=torch.empty((b, j), dtype=_F32, device=dev),
-                   merged=torch.empty((b, i, c), dtype=_BF16, device=dev),
-                   ds=torch.empty((b, n, j), dtype=_BF16, device=dev), dv=torch.empty_like(x))
-        launch("pool_ext_bwd_twopass", f"pool_ext_bwd_{body}_hopper_launch", x, se, be, qft, kvw,
-               wo, g, macc, norm, buf["y"], buf["dm"], buf["s"], buf["v"], buf["ppart"],
-               buf["tpart"], buf["tacc"], buf["merged"], buf["ds"], buf["dv"],
-               torch.empty((b * n // 128, 2, c), dtype=_F32, device=dev), wpart, dx, dsum, dqf,
-               dwv, dwo, b, n, c, num_heads, i, *splits, n_valid)
-        counter = f"launches_{body}"
-        if mid is not None:
-            mid.update(buf)
-    else:
-        lib = "pool_ext_bwd_v1" if body == "v1" else "pool_ext_bwd_v2"
-        launch(lib, f"pool_ext_bwd_{body}_launch", x, se, be, qft, kvw, wo, g, macc, norm,
-               torch.empty_like(x), torch.empty((b, j, d), dtype=_BF16, device=dev),
-               torch.empty((b, j), dtype=_F32, device=dev),
-               torch.empty((b, i, c), dtype=_BF16, device=dev),
-               torch.empty((b, n, j), dtype=_BF16, device=dev), torch.empty_like(x),
-               torch.empty((b, n // 32, 2, c), dtype=_F32, device=dev), wpart,
-               dx, dsum, dqf, dwv, dwo, b, n, c, num_heads, i, *splits, n_valid)
-        counter = f"launches_{body}_wmma"
+    wargs = (wpart, out["dx"], out["dsum"], out["dqf"], out["dwv"], out["dwo"], b, n, c,
+             num_heads, j // num_heads, *splits)
+    return x, n_valid, out, wargs
+
+
+def _twopass_outputs_of(out: dict, n_valid: int) -> tuple:
+    return (_unpad(out["dx"], n_valid), out["dsum"][:, 0], out["dsum"][:, 1], out["dqf"],
+            out["dwv"], out["dwo"])
+
+
+def _twopass_hopper(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int,
+                    body: str) -> tuple:
+    """The Hopper two-pass body -> (the six outputs, its intermediates: y,
+    dm, s, v, ppart, tpart, tacc, merged, ds, dv, which
+    ``probes.pool_bwd_twopass`` holds against the plain pieces)."""
+    x, n_valid, out, wargs = _twopass_setup(x, qft, num_heads)
+    b, n, c = x.shape
+    j = qft.shape[0]
+    i, d = j // num_heads, c // num_heads
+    dev = x.device
+    ranges = -(-n // _TWOPASS_RANGE)
+    buf = dict(y=torch.empty_like(x), dm=torch.empty((b, j, d), dtype=_BF16, device=dev),
+               s=torch.empty((b, n, j), dtype=_F32, device=dev), v=torch.empty_like(x),
+               ppart=torch.empty((ranges, b, j, d), dtype=_F32, device=dev),
+               tpart=torch.empty((ranges, b, j), dtype=_F32, device=dev),
+               tacc=torch.empty((b, j), dtype=_F32, device=dev),
+               merged=torch.empty((b, i, c), dtype=_BF16, device=dev),
+               ds=torch.empty((b, n, j), dtype=_BF16, device=dev), dv=torch.empty_like(x))
+    launch("pool_ext_bwd_twopass", f"pool_ext_bwd_{body}_hopper_launch", x, se, be, qft, kvw,
+           wo, g, macc, torch.reciprocal(sacc) if body == "v2j" else sacc, *buf.values(),
+           torch.empty((b * n // 128, 2, c), dtype=_F32, device=dev), *wargs, n_valid)
+    counter = f"launches_{body}"
     setattr(folded_pool_ext_bwd, counter, getattr(folded_pool_ext_bwd, counter) + 1)
-    return _unpad(dx, n_valid), dsum[:, 0], dsum[:, 1], dqf, dwv, dwo
+    return _twopass_outputs_of(out, n_valid), buf
 
 
 folded_pool_ext_bwd.launches = 0

@@ -18,8 +18,11 @@ piece fed the kernel's own inputs to that pass (so a fault shows in the
 pass that makes it), checks that two calls give the same bits and that
 v2j gives v2's, times the v3 Hopper body, the Hopper body and the WMMA
 body of each algebra in turns (20 calls each) on the ordinary operands,
-and splits both bodies' device time by launch with ``torch.profiler``. It
-prints the card's name and power limit and one JSON line. Needs the card.
+splits both bodies' device time by launch with ``torch.profiler``, reads
+what the Hopper body's fp32 logits S cost (its bytes, and the rates of
+the three kernels that write and read it) and the memory each body's
+call holds at its peak. It prints the card's name and power limit and one
+JSON line. Needs the card.
 """
 
 from __future__ import annotations
@@ -58,8 +61,7 @@ def passes(raw, body) -> dict:
     the kernel's own inputs -> max|err|/max|ref| per pass."""
     x, se, be, qft, kvw, wo, gh, macc, sacc, heads = raw
     v1 = body == "v1"
-    mid = {}
-    outs = fa._pool_ext_bwd_twopass(*raw, body, "hopper", mid)
+    outs, mid = fa._twopass_hopper(*raw, body)
     b, n_valid, c = x.shape
     n = mid["s"].shape[1]
     j = qft.shape[0]
@@ -104,6 +106,36 @@ def in_turns(fns: dict, reps=20) -> dict:
         for k in order:
             out[k] += timed(fns[k], max(1, reps // 2))
     return {k: sorted(v) for k, v in out.items()}
+
+
+def peak_mb(fn) -> float:
+    """MB that one call of ``fn`` holds at its peak above what was
+    allocated before it (scratch and outputs)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 1e6
+
+
+def s_traffic(b, n, c, heads, i, split) -> dict:
+    """What the Hopper body's fp32 logits S [B N, J] cost: its MB, the MB
+    each of the three kernels that write or read it moves (each operand
+    once) and the rate each reached in ``split``'s device time, and the
+    least time S's own three passes take at 3.35 TB/s."""
+    j, d = heads * i, c // heads
+    ranges = -(-n // fa._TWOPASS_RANGE)
+    s_b, y_b, dm_b = 4 * b * n * j, 2 * b * n * c, 2 * b * j * d
+    moved = {"twopass_s_kernel": y_b + 2 * j * c + s_b,
+             "twopass_range_kernel": s_b + y_b + dm_b + 4 * ranges * b * j * (d + 1),
+             "twopass_tile_kernel": s_b + y_b + dm_b + 4 * b * j + 2 * b * n * j + y_b}
+    out = {"s_mb": s_b / 1e6, "s_floor_ms": 3 * s_b / 3.35e9}
+    for k, by in moved.items():
+        out[k] = {"mb": by / 1e6, "ms": split[k], "tb_per_s": by / split[k] / 1e9}
+    return out
 
 
 def main():
@@ -163,6 +195,15 @@ def main():
                 print(f"  {width}, {body} {impl}: per launch (ms): "
                       + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
                 rec[impl]["per_launch_ms"] = split
+            rec["s_traffic"] = st = s_traffic(b, n, c, heads, i, rec["hopper"]["per_launch_ms"])
+            print(f"  {width}, {body} hopper: S {st['s_mb']:.1f} MB fp32, its three passes "
+                  f">= {st['s_floor_ms']:.3f} ms at 3.35 TB/s; "
+                  + ", ".join(f"{k} {v['mb']:.1f} MB in {v['ms']:.3f} ms = "
+                              f"{v['tb_per_s']:.2f} TB/s" for k, v in st.items()
+                              if isinstance(v, dict)))
+            rec["peak_mb"] = {k: peak_mb(f) for k, f in fns.items()}
+            print(f"  {width}, {body}: MB a call holds above its inputs at its peak: "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in rec["peak_mb"].items()))
             result[f"{width}, {body}"] = rec
     print(card)
     print(json.dumps(result))

@@ -273,3 +273,51 @@ def test_rect_bwd_witness_matches_the_jax_kernel_in_bf16():
         assert np.abs(w.float().numpy() - r).max() < 1e-3 * scale, name
         if name != "dv":
             assert np.abs(plain.grad.float().numpy() - r).max() > 1e-3 * scale, name
+
+
+def test_rect_bwd_witness_departs_from_fp32_at_d256():
+    """The departure for which ``chip_smoke.py`` holds the per-head model's
+    gradient at D 256 to ``rect_bwd_tpu_algebra``'s witness rather than to
+    the plain path is the JAX kernel's own: at D 256 (one head, the
+    unpool's 256 queries against 64 keys, bf16, values sharing a common
+    part as the unpool's values at init do, so dp - delta cancels), the
+    JAX ``_bwd_kernel``'s dq and dk (``jax.vjp`` of
+    ``rect_attention_pallas`` in interpret mode) depart from fp32 autograd
+    of the plain version by more than 1.5x what bf16 autograd of the plain
+    version does (delta from the bf16 o), and the witness gives the JAX
+    kernel's dq, dk and dv within 4e-3 of max |ref| (one bf16 step, 2^-8,
+    of the largest value: both sides round their outputs to bf16; the
+    tolerance of ``test_pool_bwd_twopass_refs_match_the_jax_bodies``)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    rng = np.random.default_rng(12)
+    b, n, i, d = 2, 256, 64, 256
+    q = 3.0 * rng.standard_normal((b, 1, n, d))
+    k = rng.standard_normal((b, 1, i, d))
+    v = rng.standard_normal((1, 1, 1, d)) + 0.05 * rng.standard_normal((b, 1, i, d))
+    g = rng.standard_normal((b, 1, n, d))
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+
+    @jax.jit
+    def jax_side(q, k, v, g):
+        o, lse = _forward_impl(q, k, v)
+        return o, lse, jax.vjp(rect_attention_pallas, q, k, v)[1](g)
+
+    o, lse, ref = jax_side(jq, jk, jv, jg)
+    bf = torch.bfloat16
+    tq, tk, tv, tg = (torch.from_numpy(np.asarray(a, np.float32)).to(bf) for a in (jq, jk, jv, jg))
+    witness = chip_smoke.rect_bwd_tpu_algebra(
+        tq, tk, tv, torch.from_numpy(np.array(o, np.float32)).to(bf),
+        torch.from_numpy(np.array(lse, np.float32)), tg)
+    fp32 = [a.float().requires_grad_(True) for a in (tq, tk, tv)]
+    tia._rect_attention_ref(*fp32)[0].backward(tg.float())
+    bf16 = [a.clone().requires_grad_(True) for a in (tq, tk, tv)]
+    tia._rect_attention_ref(*bf16)[0].backward(tg)
+    dev = lambda a, r: float(np.linalg.norm(a - r) / np.linalg.norm(r))
+    for name, w, r, exact, plain in zip(("dq", "dk", "dv"), witness, ref, fp32, bf16):
+        r = np.asarray(r, np.float32)
+        assert np.abs(w.float().numpy() - r).max() < 4e-3 * np.abs(r).max(), name
+        if name != "dv":
+            want = exact.grad.numpy()
+            assert dev(r, want) > 1.5 * dev(plain.grad.float().numpy(), want), name

@@ -396,9 +396,9 @@ def test_twopass_bodies_take_three_heads(monkeypatch, mode):
     ``GECCO_POOL_BWD`` forced to that body (its Pallas kernel in interpret
     mode, as at the flagship's N 2048) against the body's plain version in
     fp32 (rtol 5e-4, atol 5e-5: the JAX package's backward tolerances); the
-    switch takes that body at the three-head flagship, and dqf = y^T ds
-    through the weight gradients' 64-column tail (ds's columns
-    zero-padded to 256, the product sliced) equals the plain product."""
+    switch takes that body at the three-head flagship. The weight
+    gradients' 64-column tail (``wgrad.cuh``) that J 192 takes on the card
+    is held there (``chip_smoke.py``'s phase 21)."""
     monkeypatch.setattr(jfa, "_POOL_BWD_ENV", mode)
     monkeypatch.setattr(tfa, "_POOL_BWD_ENV", mode)
     c, heads, i = 384, 3, 64
@@ -422,11 +422,6 @@ def test_twopass_bodies_take_three_heads(monkeypatch, mode):
     _, ref = _jax_vjp(lambda *a: (jfa.folded_pool_ext(*a, heads),), args, (g_h0,))
     for name, a, r in zip(("dx", "dse", "dbe", "dind2", "dkvw", "dwo"), got, ref):
         _close(a, r, 5e-4, 5e-5, name)
-    # the 64-column tail: ds [B N, J] zero-padded to 256 columns, y^T ds sliced
-    y = tfa._prenormed(x, se, be).reshape(-1, c)
-    ds = torch.randn(y.shape[0], j, generator=torch.Generator().manual_seed(96))
-    padded = y.t() @ torch.nn.functional.pad(ds, (0, 256 - j))
-    assert _maxrel(padded[:, :j], y.t() @ ds) < 1e-5 and not padded[:, j:].any()
 
 
 # ------------------------------------------------------------ switches --

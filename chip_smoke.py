@@ -29,10 +29,11 @@ Phases (each raises on failure; nothing is caught):
    the unpool backward's WMMA body beside its Hopper body at both widths;
    the backwards' bodies at the demo model's and three heads' shapes; the
    pool backward's v1, v2 and v2j algebras (``GECCO_POOL_BWD``) at both
-   widths, ordinary and drifted, each in its Hopper body and its WMMA body,
-   against their plain versions, the Hopper body's passes against their
-   plain pieces, and through the wrapper against autograd of the plain
-   version; the two bodies and the v3 Hopper body timed in turns;
+   widths and at three heads, ordinary and drifted, each in its Hopper
+   body and its WMMA body, against their plain versions, the Hopper body's
+   passes against their plain pieces, and through the wrapper against
+   autograd of the plain version; the two bodies and the v3 body timed in
+   turns beside SDPA's backward; the WMMA body at the demo's C 128;
 5. projective gather: the forward against its plain version and the
    backward against autograd of the plain version, at the 256^2 pyramid of
    the image-conditional model (batch 48, 2048 points) and at the 137^2
@@ -46,7 +47,8 @@ Phases (each raises on failure; nothing is caught):
    width; its backward (dq, dk, dv) against autograd of the plain version
    at the training batch 48; ``scaled_dot_product_attention`` (forward,
    and its backward) on the same q/k/v as the yardstick; the instances for
-   heads wider than 64 (D 80-128) checked and timed; the unpool + MLP
+   heads wider than 64 (D 80-128) checked and timed, D 256 timed beside its
+   bound and SDPA's (forward and backward); the unpool + MLP
    megakernel against the plain composition and the two separate kernels
    at the sampler's shapes, timed beside both;
 7. sampler path: the flagship (6 x 384, 64 inducers, 8 heads, bf16,
@@ -103,10 +105,15 @@ Phases (each raises on failure; nothing is caught):
    plain piece on the kernel's own inputs and every output the same bits
    in two calls (``probes.pool_layer``); its WMMA body
    (``csrc/pool_wmma.cu``) at the sampler's shapes, the two timed in
-   turns; the backward, on the Hopper body's saved tensors, against
-   autograd of the plain version at the training batch 48 and the 8k
-   width, nonzero mean/inv cotangents (the drifted dbias beside the
-   witness of its looser tolerance); the unpool forward and backward with
+   turns; the backward, on the Hopper forward's saved tensors, against
+   autograd of the plain version, nonzero mean/inv cotangents (the
+   drifted dbias beside the witness of its looser tolerance): its Hopper
+   body (``csrc/pool_bwd.cu``) at the training batch 48 and the 8k width,
+   each pass against its plain piece and every output the same bits in
+   two calls (``probes.pool_layer_bwd``), its WMMA body
+   (``csrc/pool_bwd_wmma.cu``) forced at batch 48 and at its own three
+   heads, each call held to its body, the two timed in turns with device
+   times beside SDPA's backward; the unpool forward and backward with
    both flags off at the flagship's shapes; times, bounds and, without the
    pre-norm, per-head SDPA as the yardstick;
 15. module-level folded path at the flagship's width: a ``Broadcast`` on
@@ -116,8 +123,9 @@ Phases (each raises on failure; nothing is caught):
    fp32 (the plain bf16 path printed beside it); a ``BroadcastingLayer``
    called without channel sums under ``torch.no_grad`` (the resident pool
    with its statistics) against the plain layer; a ``Broadcast`` with
-   three heads (the resident pool's and the unpool's WMMA bodies) against
-   ``xla``; each run's launches exact;
+   three heads (the resident pool's and the unpool's WMMA bodies, forward
+   and backward) against ``xla`` and its gradient against the plain path
+   in fp32; each run's launches exact;
 16. upsample path: the flagship on ``folded_pallas`` upsamples one
    2048-point observation to 102,400 points through ``Diffusion.upsample``
    on ``scripts/demo_upsample_100k.py``'s protocol (64-step extended grid, 5
@@ -159,16 +167,18 @@ Phases (each raises on failure; nothing is caught):
    counts exact; then the shapes ROADMAP C1 listed as raising on the card,
    at batch 8: the resident pool's Hopper body at 24, 128 and 256 inducers
    and its WMMA body's column blocks (three heads, 256), its backward at
-   256 inducers at the flagship's and the 8k width (the main kernel's
-   32-point tile), the pool forward and backward at 24 and 256 and with
+   256 inducers at the flagship's and the 8k width (the Hopper body's four
+   column blocks) and with three heads (the WMMA body's 32-point tile),
+   the pool forward and backward at 24 and 256 and with
    three heads at 256 (the fold in 64-row blocks), the unpool forward at
    24, 192 and 256 and backward at 24, 128 and 256, the h-side at 24, the
    rect attention at D 40, 192 and 256 (the backward's two column slices)
-   and the pool backward's v1, v2 and v2j bodies at N 2000 (Hopper), the
-   demo's C 128 and three heads (J 192; WMMA), each against its plain
-   version with the expected body; then one model per item at two layers
-   (128, 256 and 24 inducers, three heads with 256; per head at D 40, 192
-   and 256; N 2000 and three heads under each forced body): 8 steps from
+   and the pool backward's v1, v2 and v2j bodies at N 2000 and three heads
+   (J 192, D 128; Hopper) and the demo's C 128 (WMMA), each against its
+   plain version with the expected body; then one model per item at two
+   layers (128, 256 and 24 inducers, three heads with 256; per head at D
+   40, 192 and 256; N 2000, three heads and the demo's width under each
+   forced body): 8 steps from
    one latent and one gradient at batch 16 against the plain path, every
    function through a kernel, the launch counts exact; and a ``Broadcast``
    with 256 inducers (the resident pool's only gradient path) forward and
@@ -282,6 +292,7 @@ from gecco_tpu_torch.probes.pool_bwd import launch_split  # noqa: E402
 from gecco_tpu_torch.probes.pool_bwd_twopass import pass_failures as twopass_pass_failures  # noqa: E402,E501
 from gecco_tpu_torch.probes.pool_bwd_twopass import passes as twopass_passes  # noqa: E402
 from gecco_tpu_torch.probes.pool_layer import check_shape as pool_layer_passes  # noqa: E402
+from gecco_tpu_torch.probes.pool_layer_bwd import check_shape as pool_layer_bwd_passes  # noqa: E402,E501
 from gecco_tpu_torch.ops.kernels.projective_gather import (  # noqa: E402
     _gather_bwd_ref,
     _gather_ref,
@@ -423,6 +434,10 @@ SOURCES = {
                                "gecco_tpu/ops/pallas/folded_attention.py:526"),
     "folded_pool_layer_bwd": ("gecco_tpu_torch/csrc/pool_bwd.cu",
                               "gecco_tpu/ops/pallas/folded_attention.py:696"),
+    # the resident pool backward's WMMA body, for the shapes its Hopper body
+    # does not take
+    "folded_pool_layer_bwd_wmma": ("gecco_tpu_torch/csrc/pool_bwd_wmma.cu",
+                                   "gecco_tpu/ops/pallas/folded_attention.py:696"),
     # the WMMA bodies beside the two Hopper forwards, chosen by shape
     "folded_pool_ext_wmma": ("gecco_tpu_torch/csrc/pool_ext_wmma.cu",
                              "gecco_tpu/ops/pallas/folded_attention.py:1154"),
@@ -439,14 +454,14 @@ SOURCES = {
     "fused_mlp_residual_bwd_wmma": ("gecco_tpu_torch/csrc/mlp_bwd_wmma.cu",
                                     "gecco_tpu/ops/pallas/folded_attention.py:2902"),
     # the pool backward's opt-in bodies, forced by GECCO_POOL_BWD: the
-    # Hopper body at the flagship's and the 8k width
+    # Hopper body at the flagship's and the 8k width and three heads
     "folded_pool_ext_bwd_v1": ("gecco_tpu_torch/csrc/pool_ext_bwd_twopass.cu",
                                "gecco_tpu/ops/pallas/folded_attention.py:1428"),
     "folded_pool_ext_bwd_v2": ("gecco_tpu_torch/csrc/pool_ext_bwd_twopass.cu",
                                "gecco_tpu/ops/pallas/folded_attention.py:1563"),
     "folded_pool_ext_bwd_v2j": ("gecco_tpu_torch/csrc/pool_ext_bwd_twopass.cu",
                                 "gecco_tpu/ops/pallas/folded_attention.py:1718"),
-    # and their WMMA body, for every other shape
+    # and their WMMA body, for every other shape (the demo's C 128)
     "folded_pool_ext_bwd_v1_wmma": ("gecco_tpu_torch/csrc/pool_ext_bwd_v1.cu",
                                     "gecco_tpu/ops/pallas/folded_attention.py:1428"),
     "folded_pool_ext_bwd_v2_wmma": ("gecco_tpu_torch/csrc/pool_ext_bwd_v2.cu",
@@ -1050,9 +1065,9 @@ def pool_layer_bwd_tpu_algebra(x, scale, bias, ind2, kvw, wo, gind, g_h0, heads)
 
 def twopass_checks(device, widths, own, g, dt, reps, pool_rec, compare) -> dict:
     """The pool backward's v1, v2 and v2j algebras (``GECCO_POOL_BWD``) at
-    ``widths`` (the flagship's and the 8k width), ordinary and drifted,
-    each in its two bodies (the Hopper body, which the switch takes there,
-    and the WMMA body, forced): each body's outputs (dx, dse, dbe, dqf,
+    ``widths`` (the flagship's and the 8k width, three heads), ordinary and
+    drifted, each in its two bodies (the Hopper body, which the switch
+    takes there, and the WMMA body, forced): each body's outputs (dx, dse, dbe, dqf,
     dWv, dWo) against its plain version, the same algebra and roundings,
     at TOL_ALGEBRA_GRAD, dse and dbe at TOL_AFFINE (the drifted dbe is a
     residue of cancelling terms, summed over N in another order: chip
@@ -1066,15 +1081,26 @@ def twopass_checks(device, widths, own, g, dt, reps, pool_rec, compare) -> dict:
     and SDPA's backward (the yardstick) in turns at both widths (median,
     min and max of 20 calls each), reads each one's device time, and its
     plain version at the flagship's; the bound, library and chain times
-    are row 8's (``pool_rec``: the same function at the same shapes). The
-    WMMA body also at its own shapes ``own`` (three heads), where its
-    record's time, plain time, bound and yardstick are taken. Returns one
-    record per body."""
+    are row 8's (``pool_rec``: the same function at the same shapes), the
+    bound at three heads this function's. Each width's readings carry its
+    suffix (none, ``_8k``, ``_3h``). The WMMA body also at its own shapes
+    ``own`` (the demo's C 128), where its record's time, plain time, bound
+    and yardstick are taken. Returns one record per body."""
     bodies = kernels.TWOPASS_BODIES
     r = lambda *sh: torch.randn(*sh, generator=g, device=device)
     outs_named = ("dx", "dse", "dbe", "dqf", "dwv", "dwo")
     impls = ("hopper", "wmma")
     key = lambda body, impl: body if impl == "hopper" else f"{body}_wmma"
+    suffix = {"flagship": "", "8k width": "_8k", "three heads": "_3h"}
+
+    def bound_at(shape, ops, outs):
+        """The bound at ``shape``: row 8's products and bytes (each input
+        read once, the cotangent and the statistics too, each gradient
+        written once)."""
+        bb, nn_, cc, hh, ii = shape
+        return bound(6 * 2 * bb * nn_ * cc * hh * ii + 6 * 2 * bb * hh * ii * (cc // hh) * cc,
+                     nbytes(*[a for a in ops if torch.is_tensor(a)], *outs)
+                     + 2 * bb * ii * cc + 2 * 4 * bb * hh * ii)
 
     def case(bb, nn_, cc, hh, ii, drift):
         ops = pool_operands(g, bb, nn_, cc, hh, ii, drift, device, dt)
@@ -1157,10 +1183,14 @@ def twopass_checks(device, widths, own, g, dt, reps, pool_rec, compare) -> dict:
     label = {"v3": "the v3 Hopper body", "sdpa": "SDPA's backward",
              "hopper": "the hopper body", "wmma": "the wmma body"}
     for width, shape in widths.items():
-        wk = "" if width == "flagship" else "_8k"
+        wk = suffix[width]
         ops, stats, gh, raw = case(*shape, False)
         hh = shape[3]
         v3 = lambda: fa.folded_pool_ext_bwd(*ops, *stats, gh, hh)
+        if wk == "_3h":
+            b3 = bound_at(shape, ops, v3())
+            for rr in rec.values():
+                rr.update(bound_ms_3h=b3[0], bound_by_3h=b3[1])
         lib = sdpa_pool_bwd(ops, hh, g)
         dev = {"v3": device_ms(v3, device), "sdpa": device_ms(lib, device)}
         for body in bodies:
@@ -1192,17 +1222,14 @@ def twopass_checks(device, widths, own, g, dt, reps, pool_rec, compare) -> dict:
                 for impl in impls:
                     rec[key(body, impl)]["plain_ms"] = plain_ms
 
-    # the WMMA body at its own shapes (three heads: J 192, D 128, where
-    # phase 21's models run it): its time, device time, plain version,
+    # the WMMA body at its own shapes (the demo's C 128, where phase 21's
+    # demo-width models run it): its time, device time, plain version,
     # bound and SDPA backward yardstick there are the ``_wmma`` entries' (the
     # flagship-shape readings above kept as ``*_flagship``)
     bb, nn_, cc, hh, ii = own
     ops, stats, gh, raw = case(*own, False)
     lib = sdpa_pool_bwd(ops, hh, g)
-    outs = fa.folded_pool_ext_bwd(*ops, *stats, gh, hh)
-    own_bound = bound(6 * 2 * bb * nn_ * cc * hh * ii + 6 * 2 * bb * hh * ii * (cc // hh) * cc,
-                      nbytes(*[a for a in ops if torch.is_tensor(a)], *outs)
-                      + 2 * bb * ii * cc + 2 * 4 * bb * hh * ii)
+    own_bound = bound_at(own, ops, fa.folded_pool_ext_bwd(*ops, *stats, gh, hh))
     own_lib = dict(library_ms=time_ms(lib, device, reps), library_device_ms=device_ms(lib, device),
                    library_chain_ms=None)
     for body in bodies:
@@ -1217,7 +1244,7 @@ def twopass_checks(device, widths, own, g, dt, reps, pool_rec, compare) -> dict:
                   plain_ms=time_ms(lambda b_=body: fa._TWOPASS_REFS[b_](*raw), device,
                                    max(2, reps // 4)), **own_lib)
         print(f"  folded_pool_ext_bwd_{body}_wmma at its own shapes (B {bb}, N {nn_}, C {cc}, "
-              f"{hh} heads, I {ii}): median {rr['ms']:.3f} ({t[0]:.3f}, {t[-1]:.3f}) ms of "
+              f"{hh} heads, I {ii}; the demo's width): median {rr['ms']:.3f} ({t[0]:.3f}, {t[-1]:.3f}) ms of "
               f"{len(t)} calls, device {fmt_ms(rr['device_ms'])}, plain {rr['plain_ms']:.3f} "
               f"ms, bound {own_bound[0]:.3f} ms ({own_bound[1]}), sdpa backward "
               f"{own_lib['library_ms']:.3f} ms (device {fmt_ms(own_lib['library_device_ms'])})")
@@ -1374,9 +1401,14 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
           f"{'the same bits' if same else 'DIFFER'}")
     if device.type == "cuda" and not same:
         raise AssertionError("the pool backward's dqf differs between two calls")
-    hshape = tuple(heads3[k] for k in ("batch", "n_points", "feature_dim", "num_heads",
-                                       "num_inducers"))
-    rec.update(twopass_checks(device, widths, hshape, g, dt, reps, pool_rec, compare))
+    dims = ("batch", "n_points", "feature_dim", "num_heads", "num_inducers")
+    hshape = tuple(heads3[k] for k in dims)
+    # the two-pass bodies at three heads too (their Hopper body's D 128
+    # instance); their WMMA body's own shapes the demo's, at the training
+    # batch
+    dshape = tuple(dict(demo, batch=b)[k] for k in dims)
+    rec.update(twopass_checks(device, dict(widths, **{"three heads": hshape}), dshape, g, dt,
+                              reps, pool_rec, compare))
 
     # the unpool backward's two bodies at both widths on the same operands,
     # ordinary and drifted (the flagship's Hopper body is checked above);
@@ -1732,6 +1764,10 @@ def WIDE_HEADS(batch):
             (448, 4, 4, (False,)))
 
 
+# the rect attention's widest instance, (C, heads): D 256 (phase 21's)
+D256 = (768, 3)
+
+
 def q_bytes(q) -> int:
     """Bytes of q's distinct elements (the pool's inducers once)."""
     return (q[0] if q.stride(0) == 0 else q).numel() * q.element_size()
@@ -1811,10 +1847,26 @@ def attention_phase(device, shapes, train_batch, big, dt, reps):
                         lambda: ia.rect_attention_fwd(q, k, v), device, reps)
     print("  rect_attention_fwd at the wider heads: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in wide_ms.items()))
+    # the widest instance, D 256 (three heads at C 768, phase 21's): each
+    # direction's time at the sampler's batch beside its bound and SDPA's
+    d256 = {}
+    for direction in ("pool", "unpool"):
+        q, k, v = attn_operands(g, b, n, D256[0], D256[1], i, direction, False, device, dt)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        m_rows, n_keys, dd = q.shape[2], k.shape[2], q.shape[3]
+        bms, by = bound(4 * b * D256[1] * m_rows * n_keys * dd,
+                        q_bytes(q) + nbytes(k, v) + b * D256[1] * m_rows * (2 * dd + 4))
+        d256[direction] = dict(
+            ms=time_ms(lambda: ia.rect_attention_fwd(q, k, v), device, reps), bound_ms=bms,
+            bound_by=by, library_ms=time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc),
+                                            device, reps))
+    print(f"  rect_attention_fwd at D 256 (batch {b}): "
+          + ", ".join(f"{k} kernel {v['ms']:.3f} ms, sdpa {v['library_ms']:.3f} ms, bound "
+                      f"{v['bound_ms']:.3f} ms ({v['bound_by']})" for k, v in d256.items()))
     bms, by = bound(tot["flops"], tot["bytes"])
     rec["rect_attention_fwd"] = dict(max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
                                      bound_ms=bms, bound_by=by, library_ms=tot["library_ms"],
-                                     ms_wide_heads=wide_ms)
+                                     ms_wide_heads=wide_ms, d256=d256)
 
     # backward: dq, dk, dv at the training batch, then the 8k width
     def bwd_case(bb, nn_, cc, hh, ii, direction, drift):
@@ -1872,10 +1924,26 @@ def attention_phase(device, shapes, train_batch, big, dt, reps):
                         lambda: ia.rect_attention_bwd(*ops), device, reps)
     print("  rect_attention_bwd at the wider heads: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in wide_ms.items()))
+    # D 256 at the training batch: time, bound and SDPA's backward
+    d256 = {}
+    for direction in ("pool", "unpool"):
+        ops = bwd_case(train_batch, n, D256[0], D256[1], i, direction, False)
+        q, k, v, o, lse, gg = ops
+        m_rows, n_keys, dd = q.shape[2], k.shape[2], q.shape[3]
+        bms, by = bound(10 * train_batch * D256[1] * m_rows * n_keys * dd,
+                        q_bytes(q) + nbytes(k, v, o, gg, lse) + nbytes(q.expand_as(o), k, v))
+        d256[direction] = dict(
+            ms=time_ms(lambda: ia.rect_attention_bwd(*ops), device, reps), bound_ms=bms,
+            bound_by=by,
+            library_ms=time_ms(sdpa_backward(*(t.contiguous() for t in (q, k, v)), g), device,
+                               reps))
+    print(f"  rect_attention_bwd at D 256 (batch {train_batch}): "
+          + ", ".join(f"{k} kernel {v['ms']:.3f} ms, sdpa backward {v['library_ms']:.3f} ms, "
+                      f"bound {v['bound_ms']:.3f} ms ({v['bound_by']})" for k, v in d256.items()))
     bms, by = bound(tot["flops"], tot["bytes"])
     rec["rect_attention_bwd"] = dict(max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
                                      bound_ms=bms, bound_by=by, library_ms=tot["library_ms"],
-                                     ms_wide_heads=wide_ms)
+                                     ms_wide_heads=wide_ms, d256=d256)
 
     # the megakernel at the sampler's shapes: against the plain composition
     # and the two separate kernels
@@ -1928,13 +1996,16 @@ def resident_pool_phase(device, shapes, train_batch, big, dt, reps):
     and the 8k width (B 2 at N 8192 and the sampler's batch at N 2048),
     pass by pass against its plain pieces with the same bits in two calls,
     and its WMMA body at the sampler's shapes, the two timed in turns; its
-    backward on the Hopper body's saved tensors against autograd of the
-    plain version (nonzero mean/inv cotangents, at the training batch and
-    the 8k width); and the unpool with both flags off at the flagship's
-    shapes. Returns the resident pool's records (each body's): each
-    without its pre-norm (the module-level Broadcast's route), with the
-    pre-norm variant (the sums-less layer's route) nested under
-    ``prenorm``."""
+    backward on the Hopper forward's saved tensors against autograd of the
+    plain version (nonzero mean/inv cotangents): the Hopper body at the
+    training batch and the 8k width, pass by pass against its plain pieces
+    with the same bits in two calls (``probes.pool_layer_bwd``), the WMMA
+    body forced at the training batch and at its own shapes (three heads),
+    the two timed in turns, each beside SDPA's backward in device time; and
+    the unpool with both flags off at the flagship's shapes. Returns the
+    resident pool's records (each body's): each without its pre-norm (the
+    module-level Broadcast's route), with the pre-norm variant (the
+    sums-less layer's route) nested under ``prenorm``."""
     g = torch.Generator(device=device).manual_seed(6)
     r = lambda *sh: torch.randn(*sh, generator=g, device=device)
     b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
@@ -2053,10 +2124,17 @@ def resident_pool_phase(device, shapes, train_batch, big, dt, reps):
                         plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
                         library_chain_ms=chain_ms)
 
-    # backward
+    # backward: the Hopper body (the switch's pick at the flagship's and
+    # the 8k width) and the WMMA body (forced at the flagship's shapes; the
+    # switch's pick at three heads, D 128), each call held to its body by
+    # the counters, against autograd of the plain version
     names = ("dx", "dscale", "dbias", "dind2", "dkvw", "dwo")
+    bwd_counter = {"hopper": "folded_pool_layer_bwd", "wmma": "folded_pool_layer_bwd_wmma"}
 
-    def bwd_case(dims, drift, prenorm):
+    def bwd_case(dims, drift, prenorm, body=None):
+        """The backward's operands at ``dims`` -> (operands, the forward's
+        results and the cotangents, the kernel (``body`` forced on the
+        card), the plain version, the TPU algebra's witness)."""
         ops = ops_for(*dims, drift)
         bb, _, cc, hh, ii = dims
         if device.type == "cuda":
@@ -2065,16 +2143,26 @@ def resident_pool_phase(device, shapes, train_batch, big, dt, reps):
             mean = inv = None
             fwd = (None, None, None, None)
         cot = ((0.1 * r(bb, ii, cc)).to(dt), 1e-2 * r(bb, cc), 1e-2 * r(bb, cc))
-        kernel = lambda: fa.folded_pool_layer_bwd(*ops, mean, inv, *fwd, *cot, hh, prenorm)
+        if device.type == "cuda" and body is not None:
+            kernel = lambda: fa._pool_layer_bwd_launch(*ops, mean, inv, *fwd, *cot, hh, prenorm,
+                                                       body=body)
+        else:
+            kernel = lambda: fa.folded_pool_layer_bwd(*ops, mean, inv, *fwd, *cot, hh, prenorm)
         plain = lambda: fa._pool_layer_bwd_ref(*ops, *cot, hh, prenorm)
         witness = lambda: pool_layer_bwd_tpu_algebra(*ops, cot[0], hh)
         # the forward's results and the cotangents (y is x without the pre-norm)
         extra = [t for t in (mean, inv, *fwd, *cot) if t is not None and t is not ops[0]]
         return ops, extra, kernel, plain, witness
 
-    def bwd_check(label, kernel, plain, witness=None):
+    def bwd_check(label, kernel, plain, witness=None, body="hopper"):
+        what = bwd_counter[body]
+        kernels.reset_launch_counts()
         got, want = kernel(), plain()
         sync(device)
+        counts = kernels.launch_counts()
+        other = bwd_counter["wmma" if body == "hopper" else "hopper"]
+        if device.type == "cuda" and (counts[what] != 1 or counts[other]):
+            raise AssertionError(f"{what} [{label}]: expected its {body} body, got {counts}")
         for name, a, ref in zip(names, got, want):
             tol = TOL_AFFINE if name in ("dscale", "dbias") else TOL_GRAD
             if witness is not None and name == "dbias":
@@ -2084,47 +2172,97 @@ def resident_pool_phase(device, shapes, train_batch, big, dt, reps):
                       f"version: {rel_err(alg, ref):.3e}")
                 # on the CPU the "kernel" is the plain version itself
                 if device.type == "cuda":
-                    check(f"folded_pool_layer_bwd [{label}] dbias against the TPU algebra",
-                          rel_err(a, alg), TOL_AFFINE)
-            check(f"folded_pool_layer_bwd [{label}] {name}", rel_err(a, ref), tol)
+                    check(f"{what} [{label}] dbias against the TPU algebra", rel_err(a, alg),
+                          TOL_AFFINE)
+            check(f"{what} [{label}] {name}", rel_err(a, ref), tol)
         return max(abs_err(a, ref) for a, ref in zip(got, want))
 
-    errs = {True: [], False: []}
+    errs = {body: {True: [], False: []} for body in ("hopper", "wmma")}
     train_dims = (train_batch, n, c, heads, i)
     big_dims = (big["batch"], big["n_points"], big["feature_dim"], big["num_heads"],
                 big["num_inducers"])
-    for dims, width in ((train_dims, ""), (big_dims, " 8k width")):
+    # the WMMA body's own shapes: three heads (D 128 at the flagship's C;
+    # two on a width that three do not divide)
+    h3 = 3 if c % 48 == 0 else 2
+    own_dims = (train_batch, n, c, h3, i)
+    # (shapes, label, body, the body forced, whether its record's max |err|)
+    bwd_cases = ((train_dims, "", "hopper", None, True),
+                 (big_dims, " 8k width", "hopper", None, False),
+                 (train_dims, "", "wmma", "wmma", False),
+                 (own_dims, f" {h3} heads", "wmma", None, True))
+    for dims, width, body, forced, recorded in bwd_cases:
         for prenorm in (True, False):
             for drift in (False, True):
-                _, _, kernel, plain, witness = bwd_case(dims, drift, prenorm)
+                _, _, kernel, plain, witness = bwd_case(dims, drift, prenorm, forced)
                 err = bwd_check(tag(prenorm, drift, width), kernel, plain,
-                                witness if prenorm and drift else None)
-                if not width:
-                    errs[prenorm].append(err)
+                                witness if prenorm and drift else None, body)
+                if recorded:
+                    errs[body][prenorm].append(err)
+    # the Hopper body pass by pass against its plain pieces on its own
+    # inputs, the whole against the TPU algebra's pieces composed, and the
+    # same bits in two calls (probes.pool_layer_bwd)
+    if device.type == "cuda":
+        failed = []
+        for dims, width in ((train_dims, ""), (big_dims, " 8k width")):
+            for drift in (False, True):
+                pool_layer_bwd_passes(ops_for(*dims, drift), dims[3], g, failed,
+                                      f"folded_pool_layer_bwd passes{width}, "
+                                      f"{'drift' if drift else 'ordinary'}", drift)
+        if failed:
+            raise AssertionError("folded_pool_layer_bwd passes: " + "; ".join(failed))
     tb = train_batch
-    # the products the gradient needs: logits and values (p and v), dp, dv,
-    # ds qf^T, dv Wv, dqf, dWv; the fold's dpool and dWo
-    flops = tb * (2 * n * (3 * c * j + 3 * c * c + 2 * j * d) + 4 * i * c * c)
+
+    def bwd_flops(hh):
+        # the products the gradient needs: logits and values (p and v), dp,
+        # dv, ds qf^T, dv Wv, dqf, dWv; dpool and dWo
+        jj, dd = hh * i, c // hh
+        return tb * (2 * n * (3 * c * jj + 3 * c * c + 2 * jj * dd) + 4 * i * c * c)
+
     for prenorm in (True, False):
-        ops, extra, kernel, plain, _ = bwd_case(train_dims, False, prenorm)
-        ms = time_ms(kernel, device, reps)
+        # both bodies at the flagship's shapes, in turns, with their device
+        # times (no host time to launch a lone call) beside SDPA's backward's
+        ops, extra, hopper, plain, _ = bwd_case(train_dims, False, prenorm, "hopper")
+        wmma = bwd_case(train_dims, False, prenorm, "wmma")[2]
+        turns = bodies_in_turns(hopper, wmma, device, reps)
         plain_ms = time_ms(plain, device, max(2, reps // 4))
         lib = None if prenorm else sdpa_pool_bwd(unfolded(ops), heads, g)
         lib_ms = None if lib is None else time_ms(lib, device, reps)
-        # device times (no host time to launch a lone call): the kernel and
-        # its yardstick, the factor PERF.md ranks by
-        dev = dict(device_ms=device_ms(kernel, device),
-                   library_device_ms=None if lib is None else device_ms(lib, device))
+        lib_dev = None if lib is None else device_ms(lib, device)
+        dev = {k: device_ms(f, device) for k, f in (("hopper", hopper), ("wmma", wmma))}
         # each input read once (the operands, the forward's statistics and
         # the cotangents), each gradient written once
-        bms, by = bound(flops, nbytes(*ops) + nbytes(*extra) + nbytes(*kernel()))
+        bms, by = bound(bwd_flops(heads), nbytes(*ops) + nbytes(*extra) + nbytes(*hopper()))
+        t_h, t_w = turns["hopper"], turns["wmma"]
         lib_txt = f"sdpa backward {lib_ms:.3f}" if lib_ms is not None else "library none"
-        print(f"  folded_pool_layer_bwd ({tag(prenorm, False)}, batch {tb}): kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, {lib_txt} ms, bound {bms:.3f} ms ({by}); device "
-              f"{fmt_ms(dev['device_ms'])}, sdpa backward's device "
-              f"{fmt_ms(dev['library_device_ms'])}")
-        variant_rec("folded_pool_layer_bwd", prenorm, errs, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, library_ms=lib_ms, **dev)
+        print(f"  folded_pool_layer_bwd ({tag(prenorm, False)}, batch {tb}): Hopper body "
+              f"{statistics.median(t_h):.3f} ms ({t_h[0]:.3f}-{t_h[-1]:.3f}), WMMA body "
+              f"{statistics.median(t_w):.3f} ms ({t_w[0]:.3f}-{t_w[-1]:.3f}) in turns, plain "
+              f"{plain_ms:.3f} ms, {lib_txt} ms, bound {bms:.3f} ms ({by}); device: Hopper "
+              f"{fmt_ms(dev['hopper'])}, WMMA {fmt_ms(dev['wmma'])}, sdpa backward "
+              f"{fmt_ms(lib_dev)}")
+        variant_rec("folded_pool_layer_bwd", prenorm, errs["hopper"],
+                    ms=statistics.median(t_h), ms_min_max=[t_h[0], t_h[-1]],
+                    device_ms=dev["hopper"], wmma_ms=statistics.median(t_w),
+                    wmma_ms_min_max=[t_w[0], t_w[-1]], wmma_device_ms=dev["wmma"],
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                    library_device_ms=lib_dev)
+        # the WMMA body at its own shapes (three heads), its record's
+        ops, extra, kernel, plain, _ = bwd_case(own_dims, False, prenorm)
+        t = sorted(time_all(kernel, device, reps))
+        lib = None if prenorm else sdpa_pool_bwd(unfolded(ops), h3, g)
+        bms, by = bound(bwd_flops(h3), nbytes(*ops) + nbytes(*extra) + nbytes(*kernel()))
+        own = dict(ms=statistics.median(t), ms_min_max=[t[0], t[-1]],
+                   device_ms=device_ms(kernel, device),
+                   plain_ms=time_ms(plain, device, max(2, reps // 4)), bound_ms=bms, bound_by=by,
+                   library_ms=None if lib is None else time_ms(lib, device, reps),
+                   library_device_ms=None if lib is None else device_ms(lib, device),
+                   flagship_ms=statistics.median(t_w), flagship_device_ms=dev["wmma"])
+        print(f"  folded_pool_layer_bwd_wmma ({tag(prenorm, False)}, batch {tb}, {h3} heads): "
+              f"{own['ms']:.3f} ms ({t[0]:.3f}-{t[-1]:.3f}), device {fmt_ms(own['device_ms'])}, "
+              f"plain {own['plain_ms']:.3f} ms, bound {bms:.3f} ms ({by}), sdpa backward "
+              + (f"{own['library_ms']:.3f} ms, device {fmt_ms(own['library_device_ms'])}"
+                 if lib is not None else "none"))
+        variant_rec("folded_pool_layer_bwd_wmma", prenorm, errs["wmma"], **own)
 
     # the unpool with both flags off (the module-level unpool)
     with torch.no_grad():
@@ -2171,8 +2309,8 @@ def module_phase(device, shapes, train_batch, dt):
     the unpool's q/k gradients pass through the softmax backward's dp - t,
     a difference of near-equal numbers that the plain bf16 path takes
     after rounding dp (chip reading: 5.6e-2 between the two bf16 paths).
-    Then a Broadcast with three heads forward (the resident pool's and the
-    unpool's WMMA bodies). Returns the launch counts of the runs together,
+    Then a Broadcast with three heads forward and gradient (the resident
+    pool's and the unpool's WMMA bodies). Returns the launch counts of the runs together,
     and those of the sums-less layer's run alone (the resident pool with
     its pre-norm)."""
     b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
@@ -2216,8 +2354,9 @@ def module_phase(device, shapes, train_batch, dt):
                        {"folded_pool_layer": 1, "folded_unpool": 1, "folded_pool_layer_bwd": 1,
                         "folded_unpool_bwd": 1}, f"Broadcast gradient (batch {tb})")
 
-    # the resident pool's WMMA body: a Broadcast with three heads (D 128 at
-    # the flagship's C; two on a width that three do not divide)
+    # the resident pool's WMMA bodies: a Broadcast with three heads (D 128
+    # at the flagship's C; two on a width that three do not divide),
+    # forward and gradient
     h3 = 3 if c % 48 == 0 else 2
     bc3 = Broadcast(c, i, 1, h3, **kw)
     with torch.no_grad():
@@ -2228,6 +2367,10 @@ def module_phase(device, shapes, train_batch, dt):
         for name, a, rr in zip(("out", "h"), got, ref):
             check(f"Broadcast with {h3} heads (batch {b}) {name}, folded_pallas vs xla",
                   rel_err(a, rr), TOL_PATH)
+    broadcast_gradient(bc3, x[:tb], embed[:tb], dt, run,
+                       {"folded_pool_layer_wmma": 1, "folded_unpool_wmma": 1,
+                        "folded_pool_layer_bwd_wmma": 1, "folded_unpool_bwd_wmma": 1},
+                       f"Broadcast with {h3} heads gradient (batch {tb})")
 
     with torch.no_grad():
         before = dict(total)
@@ -2297,6 +2440,7 @@ def broadcast_case(device, shapes, train_batch, dt) -> tuple:
     pool, unpool = pick("folded_pool_layer", fa._pool_layer_body), \
         pick("folded_unpool", fa._unpool_body)
     unpool_bwd = pick("folded_unpool_bwd", fa._unpool_bwd_body)
+    pool_bwd = pick("folded_pool_layer_bwd", fa._pool_layer_bwd_body)
     counts = []
 
     def run(fn, expected, what):
@@ -2316,7 +2460,7 @@ def broadcast_case(device, shapes, train_batch, dt) -> tuple:
         for name, a, rr in zip(("out", "h"), got, ref):
             check(f"{what} (batch {b}) {name}, folded_pallas vs xla", rel_err(a, rr), TOL_PATH)
     broadcast_gradient(bc, x[:train_batch], embed[:train_batch], dt, run,
-                       {pool: 1, unpool: 1, "folded_pool_layer_bwd": 1, unpool_bwd: 1},
+                       {pool: 1, unpool: 1, pool_bwd: 1, unpool_bwd: 1},
                        f"{what} gradient (batch {train_batch})")
     return counts[0], counts[1]
 
@@ -2842,7 +2986,8 @@ def ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ns, n_laye
     cases = len(ns) * 2 * 2
     if device.type == "cuda" and (counts["folded_pool_layer"] != 2 * cases
                                   or counts["folded_pool_layer_wmma"]
-                                  or counts["folded_pool_layer_bwd"] != cases):
+                                  or counts["folded_pool_layer_bwd"] != cases
+                                  or counts["folded_pool_layer_bwd_wmma"]):
         raise AssertionError(f"the resident pool's Hopper body and backward did not run "
                              f"exactly: {counts}")
 
@@ -2879,10 +3024,12 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
     and its WMMA body's column blocks (three heads, 256); the pool forward
     and backward at 24 and 256 inducers; the unpool forward at 24, 192 and
     256 and its backward at 24, 128 and 256; the h-side at 24; the rect
-    attention at D 40 and 192, both directions; the pool backward's v1, v2
-    and v2j bodies at N 2000 and at the demo's width. Then one model per
-    item at two layers (``shapes_phase``): an 8-step sample and a gradient,
-    every function through a kernel. Returns the models' launch counts."""
+    attention at D 40 and 192, both directions; the resident pool's
+    backward at 256 inducers (both bodies); the pool backward's v1, v2 and
+    v2j bodies at N 2000, at three heads (their Hopper body) and at the
+    demo's width (their WMMA body). Then one model per item at two layers
+    (``shapes_phase``): an 8-step sample and a gradient, every function
+    through a kernel. Returns the models' launch counts."""
     g = torch.Generator(device=device).manual_seed(11)
     r = lambda *sh: torch.randn(*sh, generator=g, device=device)
     n, c, heads = shapes["n_points"], shapes["feature_dim"], shapes["num_heads"]
@@ -2926,13 +3073,16 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
                      ("h0", "mean_c", "inv_c"), (TOL_OUT, TOL_STATS, TOL_STATS))
         ran(f"folded_pool_layer at {hh} heads, I {ii}", body)
 
-    # the resident pool's backward at 256 inducers (its main kernel's
-    # 32-point tile) at the flagship's and the 8k width, with and without
-    # the pre-norm, on the Hopper forward's saved tensors, as phase 14
-    # holds it at 64 (the drifted dbias with the pre-norm beside its
-    # witness)
+    # the resident pool's backward at 256 inducers at the flagship's and the
+    # 8k width (its Hopper body: four blocks of 64 inducer columns a head)
+    # and at three heads (its WMMA body: the main kernel's 32-point tile),
+    # with and without the pre-norm, on the forward's saved tensors, as
+    # phase 14 holds it at 64 (the drifted dbias with the pre-norm beside
+    # its witness)
     lnames = ("dx", "dscale", "dbias", "dind2", "dkvw", "dwo")
-    for cc, hh in ((c, heads), (2 * c, 2 * heads)):
+    for cc, hh, body in ((c, heads, "folded_pool_layer_bwd"),
+                         (2 * c, 2 * heads, "folded_pool_layer_bwd"),
+                         (c, h3, "folded_pool_layer_bwd_wmma")):
         for drift in (False, True):
             x, sc, bi, ind2, kvw, wo = pool_operands(g, b, n, cc, hh, 256, drift, device, dt)
             x = (1.5 * x.float() + 0.3 * r(1, 1, cc)).to(dt)
@@ -2944,9 +3094,10 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
                     mean = inv = None
                     fwd = (None, None, None, None)
                 cot = ((0.1 * r(b, 256, cc)).to(dt), 1e-2 * r(b, cc), 1e-2 * r(b, cc))
+                kernels.reset_launch_counts()
                 got = fa.folded_pool_layer_bwd(*ops, mean, inv, *fwd, *cot, hh, prenorm)
                 want = fa._pool_layer_bwd_ref(*ops, *cot, hh, prenorm)
-                what = (f"folded_pool_layer_bwd [{tags(f'{hh} heads, I 256', drift)}, "
+                what = (f"{body} [{tags(f'{hh} heads, I 256', drift)}, "
                         f"{'prenorm' if prenorm else 'no pre-norm'}]")
                 tols = [TOL_AFFINE if k in ("dscale", "dbias") else TOL_GRAD for k in lnames]
                 if prenorm and drift:
@@ -2956,7 +3107,9 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
                         check(f"{what} dbias against the TPU algebra", rel_err(got[2], alg),
                               TOL_AFFINE)
                 hold(what, got, want, lnames, tols)
-        ran(f"folded_pool_layer_bwd at {hh} heads, I 256", "folded_pool_layer_bwd")
+                ran(f"{body} at {hh} heads, I 256", body,
+                    "folded_pool_layer_bwd_wmma" if body == "folded_pool_layer_bwd"
+                    else "folded_pool_layer_bwd")
 
     # the pool forward and backward (their WMMA bodies), three heads' at 256
     # inducers through the fold's 64-row blocks
@@ -3036,12 +3189,12 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
                      (TOL_GRAD,) * 3)
         ran(f"rect_attention_fwd at D {cc // hh}", "rect_attention_fwd")
 
-    # the pool backward's v1, v2 and v2j bodies at a ragged N (the Hopper
-    # body), at the demo's width and at three heads (J 192: the weight
-    # gradients' 64-column tail) (the WMMA body), against their plain
-    # versions (the same algebra)
+    # the pool backward's v1, v2 and v2j bodies at a ragged N and at three
+    # heads (J 192: the S product's 64-column tiles and the weight
+    # gradients' 64-column tail; D 128) (the Hopper body), and at the demo's
+    # width (the WMMA body), against their plain versions (the same algebra)
     outs = ("dx", "dse", "dbe", "dqf", "dwv", "dwo")
-    twopass_cases = ((b, n - 48, c, heads, ""), (b, n, 128, 4, "_wmma"), (b, n, c, h3, "_wmma"))
+    twopass_cases = ((b, n - 48, c, heads, ""), (b, n, 128, 4, "_wmma"), (b, n, c, h3, ""))
     for bb, nn_, cc, hh, impl in twopass_cases:
         for drift in (False, True):
             ops = pool_operands(g, bb, nn_, cc, hh, 64, drift, device, dt)
@@ -3077,6 +3230,8 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
                 fused_mlp_residual=1)
     wmma_grad = dict(wmma, folded_pool_ext_bwd_wmma=1, folded_unpool_bwd_wmma=1,
                      fused_mlp_residual_bwd=1)
+    demo = dict(folded_pool_ext_wmma=1, fused_h_side=1, folded_unpool_wmma=1,
+                fused_mlp_residual_wmma=1)
     every = dict(folded_pool_ext=1, fused_h_side=1, folded_unpool=1, fused_mlp_residual=1)
     per_head = (dict(rect_attention_fwd=2), dict(rect_attention_fwd=4, rect_attention_bwd=2))
     base = dict(FLAGSHIP, feature_dim=c, num_heads=heads, n_points=n_points)
@@ -3100,6 +3255,11 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
         cases[f"the flagship with {h3} heads under GECCO_POOL_BWD={body}"] = (
             dict(base, num_heads=h3), "folded_pallas", wmma,
             dict(wmma, folded_unpool_bwd_wmma=1, fused_mlp_residual_bwd=1,
+                 **{f"folded_pool_ext_bwd_{body}": 1}), dict(pool_bwd=body))
+        # the demo's width (C 128, four heads): the WMMA two-pass body
+        cases[f"the demo's width under GECCO_POOL_BWD={body}"] = (
+            dict(base, feature_dim=128, num_heads=4), "folded_pallas", demo,
+            dict(demo, folded_unpool_bwd=1, fused_mlp_residual_bwd_wmma=1,
                  **{f"folded_pool_ext_bwd_{body}_wmma": 1}), dict(pool_bwd=body))
     out = shapes_phase(device, 2, b if rehearse else 16, 8, cases)
     # the resident pool runs on no model's path: its backward at 256
@@ -3170,8 +3330,8 @@ KERNEL_FUNCTIONS = {
     "mlp_colsum_kernel (the Hopper MLP bodies' fixed-order column sums)": ("mlp_colsum_kernel",),
     "fused_mlp_residual_bwd_wmma": ("mlp_bwd_kernel",),
     "folded_pool_ext_bwd_v1/_v2/_v2j (the pool backward's two-pass Hopper body)": (
-        "twopass_s_kernel", "twopass_v_kernel", "twopass_range_kernel", "twopass_merge_kernel",
-        "twopass_tile_kernel", "twopass_dy_kernel"),
+        "twopass_s_kernel", "twopass_s64_kernel", "twopass_v_kernel", "twopass_range_kernel",
+        "twopass_merge_kernel", "twopass_tile_kernel", "twopass_dy_kernel"),
     "folded_pool_ext_bwd_v1/_v2/_v2j_wmma (the pool backward's two-pass WMMA body)": (
         "twopass_pass0_kernel", "twopass_pass1_kernel"),
     "twopass_fold/colsum_kernel (both two-pass bodies' fold and column sums)": (
@@ -3187,8 +3347,11 @@ KERNEL_FUNCTIONS = {
     "folded_pool_layer_wmma": ("pool_layer_kernel",),
     "pool_layer_sums/stats/norm_kernel (the resident pool bodies' shared pre-norm)": (
         "pool_layer_sums_kernel", "pool_layer_stats_kernel", "pool_layer_norm_kernel"),
-    "folded_pool_layer_bwd": ("pool_layer_bwd_fold_kernel", "pool_layer_bwd_kernel",
-                              "pool_layer_bwd_dx_kernel"),
+    "folded_pool_layer_bwd": ("layer_bwd_dpool_kernel", "layer_bwd_t_kernel",
+                              "layer_bwd_pass_kernel", "layer_bwd_dy_kernel",
+                              "layer_bwd_dx_kernel"),
+    "folded_pool_layer_bwd_wmma": ("pool_layer_bwd_fold_kernel", "pool_layer_bwd_kernel",
+                                   "pool_layer_bwd_dx_kernel"),
 }
 PROFILE_STEPS = 3
 # cuDNN's and PyTorch's convolution kernels and cuDNN's layout transforms
@@ -3746,35 +3909,37 @@ def main():
     # conditional sampler's for the gather and the conditional training
     # path's for its backward, the per-head paths' for the rect attention,
     # the megakernel sampler's for the megakernel and the module-level
-    # folded path's for the resident pool (its WMMA body's: the three-head
-    # Broadcast's), split by variant: the sums-less layer's run gave the
+    # folded path's for the resident pool and its backward (their WMMA
+    # bodies': the three-head Broadcast's), split by variant: the sums-less layer's run gave the
     # pre-norm launches (nested under "prenorm", as their times are), the
     # Broadcast's runs the rest; the demo sampler's for
     # the forwards' WMMA bodies, the demo training path's for the pool and
     # MLP backwards' WMMA bodies, the num_heads=3 gradient's for the unpool
     # backward's; the forced-body training paths' for the pool backward's
-    # v1, v2 and v2j (their Hopper body), phase 21's three-head model's
+    # v1, v2 and v2j (their Hopper body), phase 21's demo-width model's
     # gradient under each for their WMMA body
     pool_counts = {}
-    for name in ("folded_pool_layer", "folded_pool_layer_wmma", "folded_pool_layer_bwd"):
+    for name in ("folded_pool_layer", "folded_pool_layer_wmma", "folded_pool_layer_bwd",
+                 "folded_pool_layer_bwd_wmma"):
         rec[name]["prenorm"]["launches"] = prenorm_counts.get(name, 0)
         pool_counts[name] = module_counts.get(name, 0) - prenorm_counts.get(name, 0)
     source_counts = {"projective_gather": cond_counts, "projective_gather_bwd": cond_train_counts,
                      "rect_attention_fwd": ph_counts, "rect_attention_bwd": ph_train_counts,
                      "fused_unpool_mlp": mega_counts, "folded_pool_layer": pool_counts,
-                     "folded_pool_layer_wmma": pool_counts, "folded_pool_layer_bwd": pool_counts, "folded_pool_ext_wmma": demo_counts,
+                     "folded_pool_layer_wmma": pool_counts, "folded_pool_layer_bwd": pool_counts,
+                     "folded_pool_layer_bwd_wmma": pool_counts,
+                     "folded_pool_ext_wmma": demo_counts,
                      "folded_unpool_wmma": demo_counts, "fused_mlp_residual_wmma": demo_counts,
                      "folded_pool_ext_bwd_wmma": demo_train_counts,
                      "folded_unpool_bwd_wmma": heads3_counts,
                      "fused_mlp_residual_bwd_wmma": demo_train_counts,
                      **{f"folded_pool_ext_bwd_{body}": tp_counts
                         for body, (tp_counts, _) in twopass_train.items()},
-                     # the WMMA two-pass bodies: the three-head model's
+                     # the WMMA two-pass bodies: the demo-width model's
                      # gradient under each forced body (phase 21)
-                     **{f"folded_pool_ext_bwd_{body}_wmma": g_counts
-                        for name, (_, g_counts) in shape_counts.items()
-                        for body in kernels.TWOPASS_BODIES
-                        if name.endswith(f"heads under GECCO_POOL_BWD={body}")}}
+                     **{f"folded_pool_ext_bwd_{body}_wmma":
+                        shape_counts[f"the demo's width under GECCO_POOL_BWD={body}"][1]
+                        for body in kernels.TWOPASS_BODIES}}
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=source_counts.get(name, train_counts if name in BACKWARD else counts)[name],

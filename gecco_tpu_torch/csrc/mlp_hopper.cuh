@@ -42,6 +42,9 @@
 //   kDx   dy = acc; dx = bf16(g' + dy * se) (g' 0 where gp is null); column
 //         sums of dy * x, dy
 //   kF32  acc -> gp (fp32), no sums (the two-pass pool backward's logits)
+//   kDy   dy = acc (the resident pool backward's, csrc/pool_bwd.cu): with
+//         gp, fp32 dy -> gp and column sums of dy * (x - mean), dy; without,
+//         bf16(dy) -> out and no sums
 // A ragged point count comes zero-padded to the 128-row block by the
 // wrapper: kOut leaves the padding rows (a batch element's rows from
 // n_valid on) out of its sums and kGrad gives them no share of the sums'
@@ -73,10 +76,11 @@ constexpr int kBnDual = 128;         // column tile of the dual product
 constexpr int kStagesWide = 4;
 constexpr int kStagesDual = 3;
 
-enum Epi { kAct = 0, kOut = 1, kGrad = 2, kDh = 3, kDx = 4, kHOut = 5, kKV = 6, kF32 = 7 };
+enum Epi { kAct = 0, kOut = 1, kGrad = 2, kDh = 3, kDx = 4, kHOut = 5, kKV = 6, kF32 = 7,
+           kDy = 8 };
 
 __host__ __device__ constexpr int epi_sums(int epi) {
-  return epi == kOut || epi == kDx ? 2 : (epi == kGrad || epi == kDh ? 1 : 0);
+  return epi == kOut || epi == kDx || epi == kDy ? 2 : (epi == kGrad || epi == kDh ? 1 : 0);
 }
 
 // What an epilogue reads and writes; unused pointers are null.
@@ -90,10 +94,12 @@ struct MlpEpi {
   const bf16* g;      // [M, N]: the output's cotangent (kGrad)
   const float* gs;    // [B, 2, N]: the sums' cotangent (kGrad)
   const float* se;    // [B, N] (kDx)
-  float* gp;          // [M, N] fp32 g' (written by kGrad, read by kDx)
+  const float* mean;  // [B, N]: the pre-norm's channel means (kDy)
+  float* gp;          // [M, N] fp32 g' (written by kGrad, read by kDx), dy (kDy)
   bf16* out;          // [M, N]: a, out, bf16(g'), bf16(dh) or dx
   float* part;        // [M / kRows, sums, N]: the row blocks' column sums
-                      // (kHOut: [M / 16, 2, N], each warp's 16 rows')
+                      // (kHOut: [M / 16, 2, N], each warp's 16 rows'; kDy
+                      // without gp: null)
   int split;          // kKV: the columns of out; the rest go to out2
   bf16* out2;         // kKV: [M, N - split]
   int K2;             // depth of a second operand pair (A2, B2) after K; 0: none
@@ -307,6 +313,21 @@ __device__ __forceinline__ void mlp_gemm(const CUtensorMap* tm_a, const CUtensor
     } else if constexpr (EPI == kF32) {
       *reinterpret_cast<float2*>(e.gp + i0) = make_float2(v0, v1);
       *reinterpret_cast<float2*>(e.gp + i1) = make_float2(v2, v3);
+    } else if constexpr (EPI == kDy) {
+      if (e.gp != nullptr) {
+        *reinterpret_cast<float2*>(e.gp + i0) = make_float2(v0, v1);
+        *reinterpret_cast<float2*>(e.gp + i1) = make_float2(v2, v3);
+        const float* mb = e.mean + (size_t)bidx * e.N;
+        const float m0 = __ldg(mb + c), m1 = __ldg(mb + c + 1);
+        const float2 x0 = ld_bf2(e.x + i0), x1 = ld_bf2(e.x + i1);
+        s0[0] = v0 * (x0.x - m0) + v2 * (x1.x - m0);
+        s0[1] = v1 * (x0.y - m1) + v3 * (x1.y - m1);
+        s1[0] = v0 + v2;
+        s1[1] = v1 + v3;
+      } else {
+        st_bf2(e.out + i0, v0, v1);
+        st_bf2(e.out + i1, v2, v3);
+      }
     } else if constexpr (EPI == kKV) {
       const int ld = second ? e.N - e.split : e.split, cc = c - (second ? e.split : 0);
       bf16* dst = second ? e.out2 : e.out;
@@ -338,7 +359,7 @@ __device__ __forceinline__ void mlp_gemm(const CUtensorMap* tm_a, const CUtensor
       }
     }
   }
-  if constexpr (kSums > 0) {
+  if (kSums > 0 && (EPI != kDy || e.part != nullptr)) {
     __syncthreads();
     for (int k = threadIdx.x; k < kSums * BN; k += kGemmThreads) {
       const int q = k / BN, cc = k % BN;

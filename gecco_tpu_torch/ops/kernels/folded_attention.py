@@ -18,13 +18,15 @@ through the plain forward, as the twins' ``jax.vjp``) for CPU tensors:
   The backward runs the v3 algebra in five passes, each with its plain
   piece beside it (``_pool_bwd_*_ref``).
 - ``folded_pool_layer`` (``csrc/pool.cu``, WMMA body ``csrc/pool_wmma.cu``;
-  backward ``csrc/pool_bwd.cu``): the resident pool, the same pooling with
+  backward ``csrc/pool_bwd.cu``, WMMA body ``csrc/pool_bwd_wmma.cu``): the
+  resident pool, the same pooling with
   the set-level GroupNorm statistics of the stream computed on the card
   (``prenorm``, returned beside h0) or no pre-norm at all: the layer's
   sums-less route and the module-level pool. The Hopper body runs two
   passes over point chunks (the softmax's column max and sum, then p
   normalised by them against the values), each with its plain piece
-  beside it (``_pool_layer_*_ref``).
+  beside it (``_pool_layer_*_ref``); so do the backward's
+  (``_pool_layer_bwd_*_ref``).
 - ``folded_unpool`` (``csrc/unpool.cu``; backward ``csrc/unpool_bwd.cu``,
   WMMA body ``csrc/unpool_bwd_wmma.cu``):
   the points attend to the inducer tokens (per-head softmax, each head block
@@ -596,7 +598,8 @@ def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     JAX package's opt-in bodies, ``_pool_twopass_takes``): its Hopper body
     ("v1", "v2", "v2j"; csrc/pool_ext_bwd_twopass.cu,
     ``_pool_twopass_hopper_takes``: the flagship's and the 8k width's
-    training shapes) where it can, else its WMMA body ("v1_wmma" ...).
+    training shapes, three heads' D 128) where it can, else its WMMA body
+    ("v1_wmma" ...: the demo's C 128).
     The chosen name is the counter's, ``folded_pool_ext_bwd_<name>``.
     Raises ValueError with the chosen bodies' conditions otherwise. A
     ragged I takes the bodies of its count padded to 16s."""
@@ -941,10 +944,13 @@ def _twopass_pieces(x, se, be, qft, kvw, wo, g_h0, macc, sacc, num_heads: int, v
 
 def _pool_twopass_hopper_takes(b: int, n: int, c: int, num_heads: int, i: int) -> bool:
     """The shapes of the Hopper two-pass body (csrc/pool_ext_bwd_twopass.cu
-    ``body_takes``: change both together): 64 inducers and D 48 a head,
-    C a multiple of 384 up to 768 (the flagship's C 384 with 8 heads, the
-    8k width's C 768 with 16), any N (a ragged N zero-padded to 128s)."""
-    return i == 64 and c == 48 * num_heads and c % 384 == 0 and c <= 768 and n >= 1
+    ``body_takes``: change both together): 64 inducers a head of D 48 or
+    128, C a multiple of 384 up to 768 (the flagship's C 384 with 8 heads,
+    the 8k width's C 768 with 16; three heads at C 384, J 192), any N (a
+    ragged N zero-padded to 128s). The demo's C 128 (D 32) takes the WMMA
+    body."""
+    return (i == 64 and num_heads > 0 and c % num_heads == 0 and c // num_heads in (48, 128)
+            and c % 384 == 0 and c <= 768 and n >= 1)
 
 
 def _pool_ext_bwd_twopass(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int,
@@ -1273,15 +1279,15 @@ def _pool_layer_bwd_ref(x, scale, bias, ind2, kvw, wo, gind, g_h0, g_mean, g_inv
 
 
 def _pool_layer_bwd_main_smem(tn: int, c: int, i: int, d: int) -> int:
-    """Bytes of the resident pool backward's main block at a ``tn``-point
-    tile: csrc/pool_bwd.cu ``main_smem`` (change both together)."""
+    """Bytes of the WMMA body's main block at a ``tn``-point tile:
+    csrc/pool_bwd_wmma.cu ``main_smem`` (change both together)."""
     region0 = -(-max(tn * (c + _PAD) * 2, tn * (c + _PADF) * 4) // 128) * 128
     return (region0 + 2 * tn * (i + _PADF) * 4 + tn * (d + _PADF) * 4 + 2 * tn * (i + _PAD) * 2
             + 2 * tn * (d + _PAD) * 2)
 
 
 def _pool_layer_bwd_tile(c: int, i: int, d: int) -> int:
-    """The main kernel's point tile (csrc/pool_bwd.cu ``main_tile``): 64
+    """The WMMA body's point tile (csrc/pool_bwd_wmma.cu ``main_tile``): 64
     up to C 384, else 32, halved down to 16 while the block does not fit;
     0 where none does."""
     tn = 64 if c <= 384 else 32
@@ -1291,13 +1297,161 @@ def _pool_layer_bwd_tile(c: int, i: int, d: int) -> int:
 
 
 def _pool_layer_bwd_smem(c: int, i: int, d: int) -> int:
-    """Bytes of the larger block of the resident pool backward's fold and
-    main kernel at the main kernel's tile (``_pool_layer_bwd_tile``; its
-    16-point block where none fits): csrc/pool_bwd.cu
-    ``pool_layer_bwd_launch`` (change both together)."""
+    """Bytes of the larger block of the WMMA body's fold and main kernel
+    at the main kernel's tile (``_pool_layer_bwd_tile``; its 16-point block
+    where none fits): csrc/pool_bwd_wmma.cu ``pool_layer_bwd_wmma_launch``
+    (change both together)."""
     fold = 64 * (64 + _PADF) * 4 + 2 * i * (d + _PAD) * 2
     tn = _pool_layer_bwd_tile(c, i, d) or 16
     return max(fold, _pool_layer_bwd_main_smem(tn, c, i, d))
+
+
+def _pool_layer_bwd_pass_smem(c: int) -> int:
+    """Bytes of the Hopper body's pass block (csrc/pool_bwd.cu ``PassSmem``:
+    change both together): up to C 384 the y tile of 128 points and one
+    ring of qf^T and Wv_h panels (three stages) that both warpgroups read,
+    at C 768 the y tile of 64 points and a ring of two stages for each
+    warpgroup; then each warpgroup's dpool_h block and its transpose and
+    its block's column statistics [3, 64] fp32, the barriers and 1024
+    bytes of alignment slack."""
+    pair = c <= 384
+    rows, rings, ring = (128, 1, 3) if pair else (64, 2, 2)
+    op, stage, dpt, stat = 64 * 128, 64 * 128 + 48 * 128, 48 * 128, 3 * 64 * 4
+    return ((c // 64) * rows * 128 + rings * ring * stage + 2 * (op + dpt + stat)
+            + (1 + 2 * 2 * 3) * 8 + 1024)
+
+
+def _pool_layer_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
+    """Which body of ``folded_pool_layer_bwd`` takes these shapes on the
+    card: "hopper" (csrc/pool_bwd.cu, TMA, wgmma and Hopper GEMMs: D == 48,
+    H % 8 == 0, C in (384, 768) and B*I % 64 == 0, any I in blocks of 64
+    columns; the shapes of the resident pool's Hopper forward) where it can,
+    else "wmma" (csrc/pool_bwd_wmma.cu: C % 64 == 0, C <= 768, D % 16 == 0,
+    J % 64 == 0 and its blocks within the SM's shared memory,
+    ``_pool_layer_bwd_smem``: three heads' D 128). Both take any N (padded)
+    and any I (a ragged I zero-padded to 16s, the I of these conditions
+    the padded one). The chosen name is the counter's suffix
+    (``folded_pool_layer_bwd``, ``folded_pool_layer_bwd_wmma``). Raises
+    ValueError with both bodies' conditions otherwise."""
+    d = c // num_heads if num_heads else 0
+    i = _i_pad(i)
+    j = num_heads * i
+    common = num_heads > 0 and c % num_heads == 0 and n >= 1 and b >= 1
+    if common and d == 48 and num_heads % 8 == 0 and c in (384, 768) and (b * i) % 64 == 0:
+        return "hopper"
+    if (common and c % 64 == 0 and c <= 768 and d % 16 == 0 and j % 64 == 0
+            and _pool_layer_bwd_smem(c, i, d) <= _MAX_SMEM):
+        return "wmma"
+    raise ValueError(
+        f"folded_pool_layer_bwd: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
+        f"(D={d}): the Hopper body needs D == 48, H % 8 == 0, C in (384, 768) and B*I % 64 == "
+        f"0; the WMMA body C % 64 == 0, C <= 768, D % 16 == 0, J % 64 == 0 and its blocks "
+        f"within {_MAX_SMEM} bytes of shared memory (at D 48 up to 960 inducers at C 384, 912 "
+        f"at C 768)")
+
+
+def _pool_layer_bwd_fold_ref(g, wo, pacc, num_heads: int) -> tuple:
+    """Plain version of the Hopper body's first two launches -> (dpool =
+    bf16(g Wo) [B, I, C] (the dpool GEMM), tacc [B, J] fp32 and merged =
+    bf16(P) [B, I, C] (``layer_bwd_t_kernel``)), g the cotangent of h0 in
+    the stream's dtype, pacc the forward's fp32 P [B, I, C]: t[h I + i] =
+    sum_d dpool[i, h D + d] P[i, h D + d], which is sum_n dp p."""
+    dpool = torch.einsum("bio,oc->bic", g.float(), wo.float()).to(g.dtype)
+    return dpool, _pool_layer_bwd_t_ref(dpool, pacc, num_heads), pacc.to(g.dtype)
+
+
+def _pool_layer_bwd_t_ref(dpool, pacc, num_heads: int) -> torch.Tensor:
+    """Plain version of ``layer_bwd_t_kernel``'s t [B, J] fp32: t[h I + i]
+    = sum_d dpool[i, h D + d] P[i, h D + d], dpool [B, I, C] bf16."""
+    b, i, c = dpool.shape
+    t = (dpool.float() * pacc).reshape(b, i, num_heads, c // num_heads).sum(-1)
+    return t.transpose(1, 2).reshape(b, num_heads * i)
+
+
+def _pool_layer_bwd_tiles_ref(y, qft, kvw, macc, sacc, dpool, tacc, num_heads: int,
+                              n_valid=None) -> tuple:
+    """Plain version of ``layer_bwd_pass_kernel`` -> (ds [B, N, J], dv
+    [B, N, C] in y's dtype): z = y qf - M, p = bf16(exp(max(z, -80)) / L)
+    (0 on the points from ``n_valid`` on), v = bf16(y Wv^T), dp = v_h
+    dpool_h^T, ds = bf16(p (dp - t)) where z > -80, dv = bf16(p dpool_h)."""
+    dt = y.dtype
+    b, n, c = y.shape
+    j = qft.shape[0]
+    h = num_heads
+    i, d = j // h, c // h
+    z = torch.einsum("bnc,jc->bnj", y.float(), qft.float()) - macc[:, None]
+    p = torch.exp(torch.clamp(z, min=-80.0)) / sacc[:, None]
+    ok = _valid_rows(n, n_valid, y.device)
+    if ok is not None:
+        p = p.masked_fill(~ok, 0.0)
+    p = p.to(dt).float()
+    v = torch.einsum("bnc,dc->bnd", y.float(), kvw[c:].float()).to(dt).float()
+    dph = dpool.float().reshape(b, i, h, d)
+    dp = torch.einsum("bnhd,bihd->bnhi", v.reshape(b, n, h, d), dph).reshape(b, n, j)
+    ds = torch.where(z > -80.0, p * (dp - tacc[:, None]), 0.0).to(dt)
+    dv = torch.einsum("bnhi,bihd->bnhd", p.reshape(b, n, h, i), dph).reshape(b, n, c)
+    return ds, dv.to(dt)
+
+
+def _pool_layer_bwd_dy_ref(ds, dv, qft, kvw) -> torch.Tensor:
+    """Plain version of the dy product: dy = ds qf^T + dv Wv [B, N, C]
+    fp32."""
+    c = dv.shape[2]
+    return (torch.einsum("bnj,jc->bnc", ds.float(), qft.float())
+            + torch.einsum("bnd,dc->bnc", dv.float(), kvw[c:].float()))
+
+
+def _pool_layer_bwd_dx_ref(x, dy, mean_c, inv_c, scale, g_mean, g_inv, num_groups: int,
+                           prenorm: bool = True, n_valid=None) -> tuple:
+    """Plain version of the dy product's epilogue, its column sums and
+    ``layer_bwd_dx_kernel`` -> (dx in x's dtype, dscale, dbias [B, C]
+    fp32): without the pre-norm dx = bf16(dy) and no gradient of scale and
+    bias; with it the GroupNorm's backward from sum_n dy (x - mean_c) and
+    sum_n dy (the header of csrc/pool_bwd.cu), a group counting ``n_valid``
+    points (the padding's dy is 0)."""
+    b, n, c = x.shape
+    if not prenorm:
+        zero = torch.zeros((b, c), dtype=_F32, device=x.device)
+        return dy.to(x.dtype), zero, zero.clone()
+    pg = c // num_groups
+    count = (n if n_valid is None else n_valid) * pg
+    sxc = (dy * (x.float() - mean_c[:, None])).sum(1)
+    s1 = dy.sum(1)
+    group = lambda t: t.reshape(b, num_groups, pg).sum(-1).repeat_interleave(pg, dim=1)
+    dvar = -0.5 * inv_c**3 * group(sxc * scale + g_inv)
+    dmean = group(-s1 * (inv_c * scale) + g_mean) - 2.0 * mean_c * dvar
+    dx = (dy * (inv_c * scale)[:, None] + x.float() * (2.0 * (dvar / count))[:, None]
+          + (dmean / count)[:, None])
+    return dx.to(x.dtype), sxc * inv_c, s1
+
+
+def _pool_layer_bwd_wgrad_ref(y, ds, dv, g, merged) -> tuple:
+    """Plain version of the three ``wgrad_kernel`` products -> (dqf = the
+    batch's y^T ds [C, J], dwv = dv^T y [C, C] in Wv's layout, dwo = g^T
+    merged [C, C]), fp32."""
+    return (torch.einsum("bnc,bnj->cj", y.float(), ds.float()),
+            torch.einsum("bnd,bnc->dc", dv.float(), y.float()),
+            torch.einsum("bio,bic->oc", g.float(), merged.float()))
+
+
+def _pool_layer_bwd_pieces(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m, l, pacc, y,
+                           g_h0, g_mean, g_inv, num_heads: int, prenorm: bool = True,
+                           n_valid=None) -> tuple:
+    """The Hopper body's plain pieces composed on the forward's saved
+    tensors (``folded_pool_layer_bwd``'s arguments) -> (dx, dscale, dbias,
+    dind2, dkvw, dwo): the TPU kernel's algebra, which departs from
+    ``_pool_layer_bwd_ref`` (autograd of the plain version) only by its
+    bf16 roundings."""
+    g = g_h0.to(x.dtype)
+    qft = fold_qf(ind2, kvw, num_heads).t()
+    dpool, tacc, merged = _pool_layer_bwd_fold_ref(g, wo, pacc, num_heads)
+    ds, dv = _pool_layer_bwd_tiles_ref(y, qft, kvw, m, l, dpool, tacc, num_heads, n_valid)
+    dx, dscale, dbias = _pool_layer_bwd_dx_ref(x, _pool_layer_bwd_dy_ref(ds, dv, qft, kvw),
+                                               mean_c, inv_c, scale, g_mean, g_inv,
+                                               gind.shape[1], prenorm, n_valid)
+    dqf, dwv, dwo = _pool_layer_bwd_wgrad_ref(y, ds, dv, g, merged)
+    dind2, dkvw = _chain_dqf(dqf, dwv, ind2, kvw, num_heads)
+    return dx, dscale, dbias, dind2, dkvw, dwo.to(wo.dtype)
 
 
 def folded_pool_layer_bwd(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m, l, pacc, y,
@@ -1307,12 +1461,27 @@ def folded_pool_layer_bwd(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m,
     the forward's inputs, its statistics ``mean_c``/``inv_c``, its
     softmax's ``m``/``l`` [B, J], its fp32 pooled values ``pacc``
     [B, I, C] and its pre-normed stream ``y`` [B, N, C] -> (dx, dscale,
-    dbias, dind2, dkvw, dwo). CPU tensors take the plain version (which
-    needs none of the forward's results). A ragged I goes zero-padded to 16s
-    as in the forward, whose m, l and pacc are padded already."""
+    dbias, dind2, dkvw, dwo), through the body that ``_pool_layer_bwd_body``
+    picks. CPU tensors take the plain version (which needs none of the
+    forward's results). A ragged I goes zero-padded to 16s as in the
+    forward, whose m, l and pacc are padded already."""
     if x.device.type == "cpu":
         return _pool_layer_bwd_ref(x, scale, bias, ind2, kvw, wo, gind, g_h0, g_mean, g_inv,
                                    num_heads, prenorm)
+    return _pool_layer_bwd_launch(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m, l, pacc,
+                                  y, g_h0, g_mean, g_inv, num_heads, prenorm)
+
+
+def _pool_layer_bwd_launch(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m, l, pacc, y,
+                           g_h0, g_mean, g_inv, num_heads: int, prenorm: bool = True,
+                           body: str | None = None, mid: dict | None = None) -> tuple:
+    """The kernels of ``body`` ("hopper" or "wmma"; where None, the one
+    ``_pool_layer_bwd_body`` picks, which must take the shapes) -> the
+    gradients as ``folded_pool_layer_bwd`` returns them. ``mid``, where
+    given, receives the Hopper body's intermediates (qft, dpool, tacc,
+    merged, ds, dv, and with the pre-norm dy and dsum, all at the padded
+    point count), which ``probes.pool_layer_bwd`` holds against the plain
+    pieces."""
     name = "folded_pool_layer_bwd"
     b, n, c = x.shape
     i_valid = ind2.shape[0] // num_heads
@@ -1329,44 +1498,78 @@ def folded_pool_layer_bwd(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m,
              g_mean=_F32, g_inv=_F32, mean_c=_F32, inv_c=_F32, m=_F32, l=_F32, pacc=_F32,
              y=_BF16),
     )
-    _require(c % 64 == 0 and c <= 768 and d % 16 == 0 and i % 16 == 0 and j % 64 == 0, name,
-             f"C % 64 == 0, C <= 768, D % 16, I % 16 and J % 64 == 0 (C={c}, D={d}, I={i})")
-    _require(_pool_layer_bwd_smem(c, i, d) <= _MAX_SMEM, name,
-             f"its blocks within {_MAX_SMEM} bytes of shared memory (C={c}, D={d}, I={i}: "
-             f"{_pool_layer_bwd_smem(c, i, d)}; at D 48 up to 960 inducers at C 384, 912 at "
-             f"C 768)")
     _require(c % groups == 0, name, f"G dividing C (C={c}, G={groups})")
+    picked = _pool_layer_bwd_body(b, n, c, num_heads, i_valid)
+    body = body or picked
     dev = x.device
     n_valid, n = n, _n_pad(n)
     x, y = _pad_points(x, n), _pad_points(y, n)
-    qf = fold_qf(ind2, kvw, num_heads).contiguous()
-    dpool = torch.empty((b, i, c), dtype=_BF16, device=dev)
-    tacc = torch.empty((b, j), dtype=_F32, device=dev)
     ds = torch.empty((b, n, j), dtype=_BF16, device=dev)
     dv = torch.empty_like(x)
     dx = torch.empty_like(x)
-    dqf = torch.zeros((c, j), dtype=_F32, device=dev)
-    dwvt = torch.zeros((c, c), dtype=_F32, device=dev)
-    dwo = torch.zeros_like(dwvt)
-    if prenorm:
-        dy = torch.empty((b, n, c), dtype=_F32, device=dev)
-        sdyxc = torch.zeros((b, c), dtype=_F32, device=dev)
-        sdy = torch.zeros_like(sdyxc)
-        dscale, dbias = torch.empty_like(sdyxc), torch.empty_like(sdyxc)
+    if body == "hopper":
+        qft = fold_qf(ind2, kvw, num_heads).t().contiguous()
+        # g's B I rows zero-padded to the GEMMs' 128-row block
+        mg = -(-b * i // 128) * 128
+        gp = g.reshape(b * i, c)
+        if mg != b * i:
+            gp = torch.cat([gp, gp.new_zeros((mg - b * i, c))])
+        products = ((b * n, j), (b * n, c), (b * i, c))  # dqf, dWv, dWo
+        splits = [_wgrad_splits(1, rows // 64, c, p, dev) for rows, p in products]
+        part = max([s_ * c * p for s_, (_, p) in zip(splits, products) if s_ > 1], default=0)
+        buf = dict(dpool=torch.empty((mg, c), dtype=_BF16, device=dev),
+                   tacc=torch.empty((b, j), dtype=_F32, device=dev),
+                   merged=torch.empty((b, i, c), dtype=_BF16, device=dev), ds=ds, dv=dv)
+        if prenorm:
+            buf.update(dy=torch.empty((b, n, c), dtype=_F32, device=dev),
+                       part=torch.empty((b * n // 128, 2, c), dtype=_F32, device=dev),
+                       dsum=torch.empty((b, 2, c), dtype=_F32, device=dev))
+            dscale, dbias = (torch.empty((b, c), dtype=_F32, device=dev) for _ in range(2))
+        else:
+            dscale, dbias = (torch.zeros((b, c), dtype=_F32, device=dev) for _ in range(2))
+        dqf = torch.empty((c, j), dtype=_F32, device=dev)
+        dwv = torch.empty((c, c), dtype=_F32, device=dev)
+        dwo = torch.empty_like(dwv)
+        launch("pool_bwd", "pool_layer_bwd_launch", x, mean_c if prenorm else None, inv_c, scale,
+               y, qft, kvw, wo, gp, g_mean, g_inv, m, l, pacc, buf["dpool"], buf["tacc"],
+               buf["merged"], ds, dv, buf.get("dy"), buf.get("part"), buf.get("dsum"), dx,
+               dscale, dbias, torch.empty(part, dtype=_F32, device=dev) if part else None, dqf,
+               dwv, dwo, b, n, c, num_heads, i, groups, mg, *splits, n_valid)
+        folded_pool_layer_bwd.launches += 1
+        if mid is not None:
+            mid.update(qft=qft, **{k: v for k, v in buf.items() if k != "part"})
+            mid["dpool"] = buf["dpool"][:b * i].reshape(b, i, c)
     else:
-        dy = sdyxc = sdy = None
-        dscale = torch.zeros((b, c), dtype=_F32, device=dev)
-        dbias = torch.zeros_like(dscale)
-    launch("pool_bwd", "pool_layer_bwd_launch", x, mean_c if prenorm else None, inv_c, scale, y,
-           qf, kvw, wo, g, g_mean, g_inv, m, l, pacc, dpool, tacc, ds, dv, dy, sdyxc, sdy, dx,
-           dscale, dbias, dqf, dwvt, dwo, b, n, c, num_heads, i, groups, n_valid)
-    folded_pool_layer_bwd.launches += 1
-    dind2, dkvw = _chain_dqf(dqf, dwvt.t(), ind2, kvw, num_heads)
+        _require(_pool_layer_bwd_smem(c, i, d) <= _MAX_SMEM, name,
+                 f"the WMMA body's blocks within {_MAX_SMEM} bytes of shared memory (C={c}, "
+                 f"D={d}, I={i}: {_pool_layer_bwd_smem(c, i, d)})")
+        qf = fold_qf(ind2, kvw, num_heads).contiguous()
+        dqf = torch.zeros((c, j), dtype=_F32, device=dev)
+        dwvt = torch.zeros((c, c), dtype=_F32, device=dev)
+        dwo = torch.zeros_like(dwvt)
+        if prenorm:
+            dy = torch.empty((b, n, c), dtype=_F32, device=dev)
+            sdyxc = torch.zeros((b, c), dtype=_F32, device=dev)
+            sdy = torch.zeros_like(sdyxc)
+            dscale, dbias = torch.empty_like(sdyxc), torch.empty_like(sdyxc)
+        else:
+            dy = sdyxc = sdy = None
+            dscale = torch.zeros((b, c), dtype=_F32, device=dev)
+            dbias = torch.zeros_like(dscale)
+        launch("pool_bwd_wmma", "pool_layer_bwd_wmma_launch", x, mean_c if prenorm else None,
+               inv_c, scale, y, qf, kvw, wo, g, g_mean, g_inv, m, l, pacc,
+               torch.empty((b, i, c), dtype=_BF16, device=dev),
+               torch.empty((b, j), dtype=_F32, device=dev), ds, dv, dy, sdyxc, sdy, dx, dscale,
+               dbias, dqf, dwvt, dwo, b, n, c, num_heads, i, groups, n_valid)
+        folded_pool_layer_bwd.launches_wmma += 1
+        dwv = dwvt.t()
+    dind2, dkvw = _chain_dqf(dqf, dwv, ind2, kvw, num_heads)
     return (_unpad(dx, n_valid), dscale, dbias,
             _unpad_heads(dind2, num_heads, i_valid).to(ind2_in.dtype), dkvw, dwo.to(wo.dtype))
 
 
 folded_pool_layer_bwd.launches = 0
+folded_pool_layer_bwd.launches_wmma = 0
 
 
 # ---------------------------------------------------------------- unpool --

@@ -1,7 +1,7 @@
 """The pool backward's v1, v2 and v2j bodies, checked, timed and split by
 launch.
 
-    python3 -m gecco_tpu_torch.probes.pool_bwd_twopass
+    python3 -m gecco_tpu_torch.probes.pool_bwd_twopass [--heads 3]
 
 Each algebra has two bodies: the Hopper body (``csrc/pool_ext_bwd_twopass.cu``:
 the pre-norm, the fold, the S and V products, pass 0's range partials,
@@ -16,17 +16,22 @@ bodies' outputs against the plain version (``_pool_bwd_v1_ref``,
 ``_pool_bwd_v2_ref``), each pass of the Hopper body against its plain
 piece fed the kernel's own inputs to that pass (so a fault shows in the
 pass that makes it), checks that two calls give the same bits and that
-v2j gives v2's, times the v3 Hopper body, the Hopper body and the WMMA
-body of each algebra in turns (20 calls each) on the ordinary operands,
+v2j gives v2's, times the v3 body (the one its switch picks), the Hopper
+body and the WMMA body of each algebra in turns (20 calls each) on the
+ordinary operands, reads SDPA's backward on the unfolded q/k/v in device
+time beside them,
 splits both bodies' device time by launch with ``torch.profiler``, reads
 what the Hopper body's fp32 logits S cost (its bytes, and the rates of
 the three kernels that write and read it) and the memory each body's
-call holds at its peak. It prints the card's name and power limit and one
-JSON line. Needs the card.
+call holds at its peak. With ``--heads 3`` it does so at three heads of
+64 inducers at C 384 instead (B 48, N 2048: D 128, J 192, the Hopper
+body's D 128 instance; v3 there is its WMMA body). It prints the card's
+name and power limit and one JSON line. Needs the card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -36,6 +41,9 @@ import torch
 from gecco_tpu_torch.ops.kernels import TWOPASS_BODIES as BODIES
 from gecco_tpu_torch.ops.kernels import folded_attention as fa
 from gecco_tpu_torch.probes.pool_bwd import SHAPES, launch_split, operands, rel, timed
+
+# --heads 3: three heads of 64 inducers at the flagship's C (D 128, J 192)
+SHAPES_3H = {"three heads": (48, 2048, 384, 3, 64)}
 
 OUTPUTS = ("dx", "dse", "dbe", "dqf", "dwv", "dwo")
 IMPLS = ("hopper", "wmma")
@@ -129,7 +137,9 @@ def s_traffic(b, n, c, heads, i, split) -> dict:
     j, d = heads * i, c // heads
     ranges = -(-n // fa._TWOPASS_RANGE)
     s_b, y_b, dm_b = 4 * b * n * j, 2 * b * n * c, 2 * b * j * d
-    moved = {"twopass_s_kernel": y_b + 2 * j * c + s_b,
+    # the S product's kernel: 128-column tiles, 64 where J % 128 != 0
+    s_kernel = "twopass_s_kernel" if j % 128 == 0 else "twopass_s64_kernel"
+    moved = {s_kernel: y_b + 2 * j * c + s_b,
              "twopass_range_kernel": s_b + y_b + dm_b + 4 * ranges * b * j * (d + 1),
              "twopass_tile_kernel": s_b + y_b + dm_b + 4 * b * j + 2 * b * n * j + y_b}
     out = {"s_mb": s_b / 1e6, "s_floor_ms": 3 * s_b / 3.35e9}
@@ -138,7 +148,27 @@ def s_traffic(b, n, c, heads, i, split) -> dict:
     return out
 
 
+def sdpa_bwd(ops, heads, g):
+    """SDPA's backward on the pool's unfolded q/k/v (``chip_smoke.py``'s
+    yardstick), the forward run once outside the call."""
+    x, se, be, ind2, kvw, _ = ops
+    b, n, c = x.shape
+    d = c // heads
+    y = (x.float() * se[:, None] + be[:, None]).to(x.dtype)
+    split = lambda t: t.reshape(b, -1, heads, d).transpose(1, 2).contiguous().requires_grad_(True)
+    k, v = (split(t) for t in (y @ kvw.T).chunk(2, dim=-1))
+    q = ind2.reshape(heads, -1, d)[None].expand(b, -1, -1, -1).contiguous().requires_grad_(True)
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    go = torch.randn(out.shape, generator=g, device=out.device).to(out.dtype)
+    return lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True)
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--heads", type=int, choices=(3,), default=None,
+                    help="three heads of 64 inducers at C 384 instead of the flagship's and the "
+                         "8k width")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probes.pool_bwd_twopass: no CUDA device")
     dev = torch.device("cuda")
@@ -147,9 +177,9 @@ def main():
     g = torch.Generator(device=dev).manual_seed(1)
     result = {}
     failed = []
-    for width, (b, n, c, heads, i) in SHAPES.items():
+    for width, (b, n, c, heads, i) in (SHAPES_3H if args.heads == 3 else SHAPES).items():
         for drift in (False, True):
-            _, raw = raw_operands(g, b, n, c, heads, i, drift, dev)
+            ops, raw = raw_operands(g, b, n, c, heads, i, drift, dev)
             tag = f"{width}, {'drift' if drift else 'ordinary'}"
             outs = {}
             for body in BODIES:
@@ -179,9 +209,14 @@ def main():
                 if not v2j:
                     failed.append(f"{tag}, {impl}: v2j differs from v2")
             if not drift:
-                case = raw
+                case, case_ops = raw, ops
+        v3 = (fa._pool_ext_bwd_hopper if fa._pool_ext_bwd_body(b, n, c, heads, i) == "hopper"
+              else fa._pool_ext_bwd_wmma)
+        sdpa_ms = sum(launch_split(sdpa_bwd(case_ops, heads, g)).values())
+        print(f"  {width}: SDPA's backward, device {sdpa_ms:.3f} ms a call")
+        result[f"{width}, sdpa backward device ms"] = sdpa_ms
         for body in BODIES:
-            fns = {"v3": lambda: fa._pool_ext_bwd_hopper(*case),
+            fns = {"v3": lambda: v3(*case),
                    **{impl: (lambda b_=body, m=impl: fa._pool_ext_bwd_twopass(*case, b_, m))
                       for impl in IMPLS}}
             turns = in_turns(fns)
@@ -190,7 +225,7 @@ def main():
                               for k, t in turns.items()))
             rec = {k: {"median_ms": statistics.median(t), "min_max_ms": [t[0], t[-1]]}
                    for k, t in turns.items()}
-            for impl in IMPLS:
+            for impl in ("v3", *IMPLS):
                 split = launch_split(fns[impl])
                 print(f"  {width}, {body} {impl}: per launch (ms): "
                       + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))

@@ -1,6 +1,6 @@
 """Two source trees of the port side by side on one card: the flagship
-sampler and each fused function's device time, tree by tree in the order
-given.
+sampler and train step and each fused function's device time, tree by
+tree in the order given.
 
     python3 gecco_tpu_torch/probes/trees.py PARENT CHANGE CHANGE PARENT
 
@@ -11,10 +11,15 @@ and package (its kernels built from its own sources) and measures
 heads, bf16, ``folded_pallas``) samples 64 clouds of 2048 points with the
 128-step Heun grid after a 2-step warm-up, host clock to a synchronize,
 and its 8-step sample against the plain path; (2) the device milliseconds
-per call (``torch.profiler``, 20 calls after 3) of the pool, h-side,
-unpool and MLP forwards at batch 64 and of the three folded backwards at
-batch 48, on operands drawn as ``chip_smoke.py`` draws them. It prints one
-JSON line per tree and the card's name and power limit. Run by file path,
+of one of the sampler's evaluations at batch 64 (``torch.profiler``, 10
+evaluations after 3); (3) ``chip_smoke.train_phase``: the flagship's
+train step at batch 48 (its gradient against the plain path, 3 + 20
+steps, the device's busy milliseconds per step over 3 profiled steps);
+(4) the device milliseconds per call (``torch.profiler``, 20 calls after
+3) of the pool, h-side, unpool and MLP forwards at batch 64 and of the
+three folded backwards at batch 48, on operands drawn as
+``chip_smoke.py`` draws them. It prints one JSON line per tree and the
+card's name and power limit. Run by file path,
 not with ``-m``, so that each tree's package is the one imported. Needs
 the card.
 """
@@ -27,13 +32,29 @@ import subprocess
 import sys
 
 
+def profiled_ms(fn, calls, warmup=3) -> float:
+    """Device milliseconds per call of ``fn`` (``torch.profiler``, the
+    device's own events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
 def measure(tree: str) -> dict:
     """The measurements of one tree, in this process (its package first on
     the path)."""
     sys.path.insert(0, tree)
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
 
@@ -43,6 +64,15 @@ def measure(tree: str) -> dict:
     dev = torch.device("cuda")
     _, sample, _ = cs.main_path(dev, cs.BATCH, cs.FLAGSHIP["n_points"], cs.FLAGSHIP["n_layers"],
                                 cs.N_STEPS, compare_batch=8)
+    model = cs.build_flagship(dev, torch.Generator().manual_seed(0), cs.FLAGSHIP["n_layers"])
+    x = model.schedule.sample_latent(torch.Generator(device=dev).manual_seed(2),
+                                     (cs.BATCH, cs.FLAGSHIP["n_points"], 3), dev)
+    sigma = torch.full((cs.BATCH,), 10.0, device=dev)
+    with torch.no_grad():
+        eval_device_ms = profiled_ms(lambda: model.denoise(sigma, x), 10)
+    del model
+    _, train = cs.train_phase(dev, cs.FLAGSHIP["n_layers"], cs.TRAIN_BATCH,
+                              cs.FLAGSHIP["n_points"], "the card", (3, 20))
     fa, hs, dt = cs.fa, cs.hs, torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(1)
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
@@ -66,19 +96,10 @@ def measure(tree: str) -> dict:
         "folded_unpool_bwd": lambda: fa.folded_unpool_bwd(*bunpool, gg, gs, h),
         "fused_mlp_residual_bwd": lambda: fa.fused_mlp_residual_bwd(*bmlp, gg, gs),
     }
-    device_ms = {}
-    for name, fn in runs.items():
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                fn()
-            torch.cuda.synchronize()
-        device_ms[name] = sum(e.self_device_time_total for e in prof.key_averages()
-                              if e.device_type == DeviceType.CUDA) / 1e3 / 20
+    device_ms = {name: profiled_ms(fn, 20) for name, fn in runs.items()}
     return {"clouds_per_s": sample["clouds_per_s"], "eval_ms": sample["eval_ms"],
-            "device_ms": device_ms}
+            "eval_device_ms": eval_device_ms, "train_ms_per_step": train["ms_per_step"],
+            "train_device_ms_per_step": train["device_ms_per_step"], "device_ms": device_ms}
 
 
 def main():

@@ -191,6 +191,7 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         "folded_pool_layer_wmma": 0,
         "folded_unpool_wmma": 0, "fused_mlp_residual_wmma": 0, "folded_pool_ext_bwd_wmma": 0,
         "folded_unpool_bwd_wmma": 0, "fused_mlp_residual_bwd_wmma": 0,
+        "folded_pool_layer_bwd_wmma": 0,
         "folded_pool_ext_bwd_v1": 0, "folded_pool_ext_bwd_v2": 0, "folded_pool_ext_bwd_v2j": 0,
         "folded_pool_ext_bwd_v1_wmma": 0, "folded_pool_ext_bwd_v2_wmma": 0,
         "folded_pool_ext_bwd_v2j_wmma": 0,
@@ -572,17 +573,18 @@ POOL_BWD_SHAPES = ((48, 2048, 384, 8, 64), (2, 8192, 768, 16, 64), (48, 2048, 12
 
 @pytest.mark.parametrize("mode,want", [
     (None, ("hopper", "hopper", "wmma", "wmma")),
-    ("v1", ("v1", "v1", "v1_wmma", "v1_wmma")),
-    ("v2", ("v2", "v2", "v2_wmma", "v2_wmma")),
-    ("v2j", ("v2j", "v2j", "v2j_wmma", "v2j_wmma")),
+    ("v1", ("v1", "v1", "v1_wmma", "v1")),
+    ("v2", ("v2", "v2", "v2_wmma", "v2")),
+    ("v2j", ("v2j", "v2j", "v2j_wmma", "v2j")),
     ("v3", ("hopper", "hopper", "wmma", "wmma")),
 ], ids=["unset", "v1", "v2", "v2j", "v3"])
 def test_pool_bwd_switch_takes_the_forced_body(monkeypatch, mode, want):
     """GECCO_POOL_BWD as the JAX package reads it: unset or "v3", the v3
     algebra's bodies; forced to v1, v2 or v2j, that algebra's Hopper body
-    at the flagship's and the 8k width (D 48, 64 inducers) and its WMMA
-    body at the demo's width and at three heads (J 192, through the weight
-    gradients' 64-column tail); on the card a forced body that does not
+    at the flagship's and the 8k width (D 48, 64 inducers) and at three
+    heads (D 128, J 192: the S product's 64-column tiles and the weight
+    gradients' 64-column tail), and its WMMA body at the demo's width (C
+    128); on the card a forced body that does not
     take the shape raises (B I % 64 != 0); N 2000 takes the chosen body at
     its padded count."""
     monkeypatch.setattr(tfa, "_POOL_BWD_ENV", mode)

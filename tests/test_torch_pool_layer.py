@@ -332,3 +332,124 @@ def test_pool_layer_switch_chooses_by_shape(shape, want):
             tfa._pool_layer_body(*shape)
     else:
         assert tfa._pool_layer_body(*shape) == want
+
+
+# ------------------------------- the Hopper backward's passes, plainly --
+
+
+def _pool_layer_saved(x, scale, bias, ind2, kvw, wo, prenorm, n_valid=None):
+    """What the forward saves for the backward, by the Hopper forward's
+    plain pieces: mean_c, inv_c, M, L [B, J], the fp32 P [B, I, C] and the
+    pre-normed stream y (x without the pre-norm)."""
+    _, mean, inv = tfa._pool_ref(x, scale, bias, ind2, kvw, wo, GROUPS, HEADS, prenorm, n_valid)
+    y = (((x.float() - mean[:, None]) * (inv * scale)[:, None] + bias[:, None]).to(x.dtype)
+         if prenorm else x)
+    qft = tfa.fold_qf(ind2, kvw, HEADS).t()
+    macc, sacc = tfa._pool_layer_merge_ref(*tfa._pool_layer_chunks_ref(y, qft, n_valid))
+    part_p = tfa._pool_layer_partials_ref(y, qft, kvw, macc, sacc, HEADS, n_valid)
+    return mean, inv, macc, sacc, tfa._pool_layer_sum_ref(part_p, HEADS), y
+
+
+def _pool_layer_cots(seed, prenorm):
+    """The cotangents of h0, mean_c and inv_c (the last two zero without the
+    pre-norm, whose mean and inv are constants)."""
+    rng = np.random.default_rng(seed)
+    g_h0 = torch.from_numpy(rng.standard_normal((B, I, C)).astype(np.float32))
+    g_mean, g_inv = (torch.from_numpy((0.1 * rng.standard_normal((B, C))).astype(np.float32))
+                     * prenorm for _ in range(2))
+    return g_h0, g_mean, g_inv
+
+
+@pytest.mark.parametrize("case", [
+    (N, True, False), (N, True, True), (N, False, False), (N, False, True),
+    (100, True, True), (100, False, True)],
+    ids=["prenorm-plain", "prenorm-drift", "raw-plain", "raw-drift", "ragged-prenorm",
+         "ragged-raw"])
+def test_pool_layer_bwd_pieces_compose_to_the_plain_version(case):
+    """The Hopper backward's plain pieces (``_pool_layer_bwd_fold_ref``,
+    ``_pool_layer_bwd_tiles_ref``, ``_pool_layer_bwd_dy_ref``,
+    ``_pool_layer_bwd_dx_ref``, ``_pool_layer_bwd_wgrad_ref``, composed by
+    ``_pool_layer_bwd_pieces`` on the forward's saved tensors) give in fp32
+    every gradient of ``_pool_layer_bwd_ref`` (autograd of the plain
+    version) within 1e-5 of max |ref|: the same algebra (t = sum_d dpool P
+    is sum_n dp p), its roundings no-ops in fp32, its sums in other orders
+    (readings up to 2.4e-6, the drifted dbias). Without the pre-norm dscale
+    and dbias are exactly zero on both sides. A ragged N (100 points
+    zero-padded to 128, ``n_valid``) gives the unpadded N's gradients."""
+    n, prenorm, drift = case
+    args = list(_pool_args(20, drift))
+    x_pad = torch.from_numpy(args[0]).clone()
+    x_pad[:, n:] = 0.0
+    args[0] = args[0][:, :n]
+    ops = [torch.from_numpy(a) for a in args]
+    gind = torch.from_numpy(_gind())
+    cots = _pool_layer_cots(21, prenorm)
+    n_valid = None if n == N else n
+    saved = _pool_layer_saved(x_pad, *ops[1:], prenorm, n_valid)
+    got = tfa._pool_layer_bwd_pieces(x_pad, *ops[1:], gind, *saved, *cots, HEADS, prenorm,
+                                     n_valid)
+    want = tfa._pool_layer_bwd_ref(*ops, gind, *cots, HEADS, prenorm)
+    for name, a, r in zip(("dx", "dscale", "dbias", "dind2", "dkvw", "dwo"), got, want):
+        a = a[:, :n] if name == "dx" else a
+        if not prenorm and name in ("dscale", "dbias"):
+            assert not a.any() and not r.any(), name
+            continue
+        assert float((a - r).abs().max()) < 1e-5 * float(r.abs().max()), name
+
+
+@pytest.mark.parametrize("prenorm", PRENORM, ids=["prenorm", "no-prenorm"])
+def test_pool_layer_bwd_pieces_match_the_jax_kernel_in_bf16(prenorm):
+    """The Hopper backward's plain pieces on bf16 operands with drifted
+    logits, from the forward's saved tensors (its plain pieces), against
+    ``jax.vjp`` of the JAX op (``_pool_bwd_kernel`` in interpret mode, one
+    ``jax.jit``): dscale and dbias within 1e-3 of max |ref| (fp32 sums in
+    other orders, ``test_pool_layer_bwd_witness_matches_the_jax_kernel_in_bf16``'
+    limit), the bf16 gradients within 4e-3 of it, one bf16 step (readings
+    up to 7.5e-5: the same algebra and roundings), where autograd of the
+    plain version departs by ~1e-2 (bf16 p before the softmax backward)."""
+    bf = torch.bfloat16
+    ops = [torch.from_numpy(a).to(bf if q in (0, 3, 4, 5) else torch.float32)
+           for q, a in enumerate(_pool_args(0, True))]
+    g_h0, g_mean, g_inv = _pool_layer_cots(22, prenorm)
+    g_h0 = g_h0.to(bf)
+    gind = torch.from_numpy(_gind())
+    saved = _pool_layer_saved(*ops, prenorm)
+    got = tfa._pool_layer_bwd_pieces(*ops, gind, *saved, g_h0, g_mean, g_inv, HEADS, prenorm)
+    jops = [jnp.asarray(a.float().numpy(), jnp.bfloat16 if a.dtype == bf else jnp.float32)
+            for a in ops]
+    jg = jnp.asarray(_gind())
+    _, ref = _jax_vjp(lambda *a: jfa.folded_pool_layer(*a, jg, HEADS, prenorm), jops,
+                      (jnp.asarray(g_h0.float().numpy(), jnp.bfloat16), g_mean.numpy(),
+                       g_inv.numpy()))
+    for name, a, r in zip(("dx", "dscale", "dbias", "dind2", "dkvw", "dwo"), got, ref):
+        r = np.asarray(r, np.float32)
+        if not prenorm and name in ("dscale", "dbias"):
+            assert not a.any() and not r.any(), name
+            continue
+        tol = 1e-3 if name in ("dscale", "dbias") else 4e-3
+        assert np.abs(a.float().numpy() - r).max() < tol * np.abs(r).max(), name
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((48, 2048, 384, 8, 64), "hopper"), ((2, 8192, 768, 16, 64), "hopper"),
+    ((48, 2000, 384, 8, 64), "hopper"), ((48, 2048, 384, 8, 256), "hopper"),
+    ((48, 2048, 768, 16, 256), "hopper"), ((48, 2048, 384, 8, 24), "hopper"),
+    ((48, 2048, 384, 8, 976), "hopper"), ((48, 2048, 384, 3, 64), "wmma"),
+    ((48, 2048, 384, 3, 256), "wmma"), ((48, 2048, 128, 4, 64), "wmma"),
+    ((48, 2048, 384, 24, 64), "wmma"), ((1, 2048, 384, 8, 16), "wmma"),
+    ((48, 2048, 2048, 64, 64), None)],
+    ids=["flagship", "8k", "ragged", "I256", "8k-I256", "I24", "I976", "three-heads",
+         "three-heads-I256", "demo", "D16", "B1-I16", "C2048"])
+def test_pool_layer_bwd_switch_chooses_by_shape(shape, want):
+    """``_pool_layer_bwd_body``: the Hopper body (csrc/pool_bwd.cu) at D 48
+    with H % 8 == 0, C 384 or 768 and B*I % 64 == 0, any N (a ragged N
+    padded) and any I by blocks of 64 columns (24 padded to 32, 976, where
+    the WMMA body's tile no longer fits); elsewhere the WMMA body
+    (csrc/pool_bwd_wmma.cu), three heads' D 128 at 64 and 256 inducers,
+    the demo's C 128, D 16, and B*I % 64 != 0 among them; a shape neither
+    takes raises ValueError naming both bodies' bounds (C 2048)."""
+    if want is None:
+        with pytest.raises(ValueError, match="no CUDA body takes"):
+            tfa._pool_layer_bwd_body(*shape)
+    else:
+        assert tfa._pool_layer_bwd_body(*shape) == want

@@ -396,9 +396,10 @@ def test_twopass_bodies_take_three_heads(monkeypatch, mode):
     ``GECCO_POOL_BWD`` forced to that body (its Pallas kernel in interpret
     mode, as at the flagship's N 2048) against the body's plain version in
     fp32 (rtol 5e-4, atol 5e-5: the JAX package's backward tolerances); the
-    switch takes that body at the three-head flagship. The weight
-    gradients' 64-column tail (``wgrad.cuh``) that J 192 takes on the card
-    is held there (``chip_smoke.py``'s phase 21)."""
+    switch takes that body's Hopper instance at the three-head flagship
+    (csrc/pool_ext_bwd_twopass.cu at D 128). The S product's 64-column
+    tiles and the weight gradients' 64-column tail (``wgrad.cuh``) that J
+    192 takes on the card are held there (``chip_smoke.py``'s phase 21)."""
     monkeypatch.setattr(jfa, "_POOL_BWD_ENV", mode)
     monkeypatch.setattr(tfa, "_POOL_BWD_ENV", mode)
     c, heads, i = 384, 3, 64
@@ -408,7 +409,7 @@ def test_twopass_bodies_take_three_heads(monkeypatch, mode):
         assert jfa._pool_bwd_mode(n, c, j, d) == mode
         assert jfa._tile_fits(n, jfa._pool_ext_bwd_row_bytes(c, j, v1),
                               jfa._pool_ext_bwd_fixed_bytes(c, j, d, v1, mode == "v2j"), cap=512)
-    assert tfa._pool_ext_bwd_body(8, 2048, c, heads, i) == f"{mode}_wmma"
+    assert tfa._pool_ext_bwd_body(8, 2048, c, heads, i) == mode
     args = _wide_pool_args(94, c, heads, i, b=2)
     x, se, be, ind2, kvw, wo = (torch.from_numpy(a) for a in args)
     g_h0 = np.random.default_rng(95).standard_normal((2, i, c)).astype(np.float32)
@@ -422,6 +423,26 @@ def test_twopass_bodies_take_three_heads(monkeypatch, mode):
     _, ref = _jax_vjp(lambda *a: (jfa.folded_pool_ext(*a, heads),), args, (g_h0,))
     for name, a, r in zip(("dx", "dse", "dbe", "dind2", "dkvw", "dwo"), got, ref):
         _close(a, r, 5e-4, 5e-5, name)
+
+
+@pytest.mark.parametrize("mode", ["v1", "v2", "v2j"])
+@pytest.mark.parametrize("shape,hopper", [
+    ((48, 2048, 384, 8, 64), True), ((2, 8192, 768, 16, 64), True),
+    ((48, 2048, 384, 3, 64), True), ((48, 2000, 384, 3, 64), True),
+    ((48, 2048, 768, 6, 64), True), ((48, 2048, 128, 4, 64), False),
+    ((48, 2048, 384, 4, 64), False), ((48, 2048, 384, 3, 128), False)],
+    ids=["flagship", "8k", "three-heads", "three-heads-ragged", "six-heads-C768", "demo",
+         "D96", "three-heads-I128"])
+def test_twopass_hopper_body_takes_three_heads_not_the_demo(monkeypatch, shape, hopper, mode):
+    """``_pool_twopass_hopper_takes`` (csrc/pool_ext_bwd_twopass.cu
+    ``body_takes``): the Hopper two-pass body's instances at D 48 (the
+    flagship's and the 8k width) and D 128 (three heads at C 384, six at C
+    768), 64 inducers a head, any N; the demo's C 128 (D 32), D 96 and 128
+    inducers take the WMMA body, which the forced switch names
+    ``<mode>_wmma``."""
+    monkeypatch.setattr(tfa, "_POOL_BWD_ENV", mode)
+    assert tfa._pool_twopass_hopper_takes(*shape) == hopper
+    assert tfa._pool_ext_bwd_body(*shape) == (mode if hopper else f"{mode}_wmma")
 
 
 # ------------------------------------------------------------ switches --
@@ -472,8 +493,14 @@ def test_mirrors_of_the_new_plans_use_the_sources_constants():
         assert ib and i % ib == 0 and tfa._pool_wmma_smem(c, ib, d) <= tfa._MAX_SMEM
     text = (_build.CSRC / "backward.cuh").read_text()
     assert int(re.search(r"constexpr int kFoldRows = (\d+);", text).group(1)) == tfa._FOLD_ROWS
-    text = (_build.CSRC / "pool_bwd.cu").read_text()
+    text = (_build.CSRC / "pool_bwd_wmma.cu").read_text()
     assert "for (int TN = C <= 384 ? 64 : 32; TN >= 16; TN /= 2)" in text
+    # the resident pool backward's Hopper pass block (csrc/pool_bwd.cu
+    # PassSmem: three ring stages, two at C 768) fits at both widths
+    text = (_build.CSRC / "pool_bwd.cu").read_text()
+    assert int(re.search(r"constexpr int kMaxRing = (\d+);", text).group(1)) == 3
+    assert "ring = C <= 384 ? kMaxRing : 2;" in text
+    assert all(tfa._pool_layer_bwd_pass_smem(c) <= tfa._MAX_SMEM for c in (384, 768))
     assert tfa._pool_twopass_takes(48, 2048, 128, 4, 64)
     # three heads of 64 inducers: J 192, through the weight gradients'
     # 64-column tail

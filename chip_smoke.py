@@ -815,8 +815,10 @@ def hside_checks(device, g, shapes, big, demo, dt, reps, hopper_rec) -> dict:
 
 def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
     """Every kernel against its plain version; returns per-kernel records.
-    The forwards' WMMA bodies at the ``demo`` model's shapes (timed) and
-    with ``heads3``'s three heads."""
+    The pool and unpool forwards' Hopper and WMMA bodies at the ``demo``
+    model's shapes (each timed, then both in turns), the MLP's WMMA body
+    there, and the WMMA bodies at their own shapes, ``heads3``'s three
+    heads."""
     g = torch.Generator(device=device).manual_seed(1)
     b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
         shapes["num_heads"], shapes["num_inducers"]
@@ -920,26 +922,65 @@ def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
     print(f"  fused_mlp_residual at the 8k width: {mlp_rec['ms_8k']:.3f} ms (bound "
           f"{mlp_rec['bound_ms_8k']:.3f} ms)")
 
-    # the WMMA bodies of the pool and unpool forwards, which take the shapes
-    # the Hopper designs do not: the upsample demo's model (timed there) and
-    # three heads at the flagship's width; each run's WMMA launches counted
+    # the pool and unpool forwards at the upsample demo's shapes (C 128, four
+    # heads of 32): the Hopper bodies, which take them, and the WMMA bodies
+    # forced there through the launchers' private body argument, each held
+    # against its plain version and timed; then both in turns on the same
+    # operands (the WMMA bodies' own shapes: three heads, below)
     db, dn, dc, dh, di = (demo[k] for k in ("batch", "n_points", "feature_dim", "num_heads",
                                             "num_inducers"))
     dd, dj = dc // dh, dh * di
-    kernels.reset_launch_counts()
-    run("folded_pool_ext_wmma", lambda *a: fa.folded_pool_ext(*a, dh),
-        lambda *a: fa._pool_ext_ref(*a, dh),
-        lambda drift: pool_operands(g, db, dn, dc, dh, di, drift, device, dt), 1,
-        2 * db * dn * dc * dj + 2 * db * dn * dc * dc + 2 * db * dn * dj * dd
+    cuda = device.type == "cuda"
+    pool_wmma = (lambda *a: fa._pool_ext_launch(*a, dh, False, body="wmma")[0]) if cuda else \
+        (lambda *a: fa.folded_pool_ext(*a, dh))
+    unpool_wmma = (lambda *a: fa._unpool_launch(*a, dh, True, True, body="wmma")) if cuda else \
+        (lambda *a: fa.folded_unpool(*a, dh))
+    demo_pool = dict(
+        ref=lambda *a: fa._pool_ext_ref(*a, dh),
+        ops=lambda drift: pool_operands(g, db, dn, dc, dh, di, drift, device, dt), nouts=1,
+        flops=2 * db * dn * dc * dj + 2 * db * dn * dc * dc + 2 * db * dn * dj * dd
         + 2 * db * di * dc * dc,
-        lambda a: [torch.empty(db, di, dc, dtype=dt)],
-        lambda a: sdpa_pool(a, dh), lambda a: chain_pool(a, dh))
-    run("folded_unpool_wmma", lambda *a: fa.folded_unpool(*a, dh),
-        lambda *a: fa._unpool_ref(*a, dh),
-        lambda drift: unpool_operands(g, db, dn, dc, dh, di, drift, device, dt), 2,
-        4 * db * dn * dc * dj + 4 * db * dj * dc * dd,
-        lambda a: [a[0], torch.empty(db, 2, dc)],
-        lambda a: sdpa_unpool(a, dh), lambda a: chain_unpool(a, dh))
+        in_out=lambda a: [torch.empty(db, di, dc, dtype=dt)],
+        library=lambda a: sdpa_pool(a, dh), chain=lambda a: chain_pool(a, dh))
+    demo_unpool = dict(
+        ref=lambda *a: fa._unpool_ref(*a, dh),
+        ops=lambda drift: unpool_operands(g, db, dn, dc, dh, di, drift, device, dt), nouts=2,
+        flops=4 * db * dn * dc * dj + 4 * db * dj * dc * dd,
+        in_out=lambda a: [a[0], torch.empty(db, 2, dc)],
+        library=lambda a: sdpa_unpool(a, dh), chain=lambda a: chain_unpool(a, dh))
+    demo_ran = {}
+    for name, hopper, wmma, kw in (
+            ("folded_pool_ext", lambda *a: fa.folded_pool_ext(*a, dh), pool_wmma, demo_pool),
+            ("folded_unpool", lambda *a: fa.folded_unpool(*a, dh), unpool_wmma, demo_unpool)):
+        for body, fn in ((f"{name}_wmma", wmma), (f"{name} (demo)", hopper)):
+            kernels.reset_launch_counts()
+            run(body, fn, **kw)
+            demo_ran[body] = kernels.launch_counts()
+        # the Hopper body's demo record goes beside its flagship numbers
+        demo_rec = rec.pop(f"{name} (demo)")
+        rec[name].update({f"{k}_demo": v for k, v in demo_rec.items()})
+        args = kw["ops"](False)
+        turns = bodies_in_turns(lambda: hopper(*args), lambda: wmma(*args), device, reps)
+        for body, t in turns.items():
+            out = rec[name] if body == "hopper" else rec[f"{name}_wmma"]
+            key = "ms_in_turns_demo" if body == "hopper" else "ms"
+            out[key], out[f"{key}_min_max"] = statistics.median(t), [t[0], t[-1]]
+            print(f"  {name}, {body} body, at the demo: median {statistics.median(t):.3f} ms of "
+                  f"{len(t)} calls in turns (min {t[0]:.3f}, max {t[-1]:.3f})")
+        if cuda:
+            rec[f"{name}_wmma"]["device_ms_demo"] = device_ms(lambda: wmma(*args), device)
+            rec[name]["device_ms_demo"] = device_ms(lambda: hopper(*args), device)
+            print(f"  {name} at the demo, device time: Hopper body "
+                  f"{fmt_ms(rec[name]['device_ms_demo'])}, WMMA body "
+                  f"{fmt_ms(rec[f'{name}_wmma']['device_ms_demo'])}")
+    if cuda:
+        for body, counts in demo_ran.items():
+            fn = body.split(" ")[0]
+            hop = fn.removesuffix("_wmma")
+            want, other = (fn, hop) if fn.endswith("_wmma") else (hop, f"{hop}_wmma")
+            if counts[want] == 0 or counts[other]:
+                raise AssertionError(f"{body} at the demo did not run its body alone: {counts}")
+    kernels.reset_launch_counts()
     run("fused_mlp_residual_wmma", fa.fused_mlp_residual, fa._mlp_ref,
         lambda drift: mlp_operands(g, db, dn, dc, 2 * dc, drift, device, dt), 2,
         4 * db * dn * dc * 2 * dc,
@@ -973,8 +1014,8 @@ def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
                                   or counts["fused_mlp_residual_wmma"] == 0
                                   or counts["folded_pool_ext"] or counts["folded_unpool"]
                                   or counts["fused_mlp_residual"] != 2):
-        raise AssertionError(f"the demo and num_heads=3 shapes did not run the expected "
-                             f"bodies: {counts}")
+        raise AssertionError(f"the demo's MLP and the num_heads=3 shapes did not run the "
+                             f"expected bodies: {counts}")
     return rec
 
 
@@ -2713,16 +2754,17 @@ def train_phase(device, n_layers, batch, n_points, card, steps, attn_impl="folde
 def demo_train_phase(device, demo_dims, batch, heads3_dims, card, steps):
     """ROADMAP C4's two models train on the card: the upsample demo's
     model (3 x 128, 4 heads) through ``train_phase`` (its gradient against
-    the plain path, then timed steps: the forwards' WMMA bodies, the pool
-    backward's WMMA body, the unpool backward's Hopper body and the MLP
-    backward's WMMA body, each once per layer and step); then one gradient
+    the plain path, then timed steps: the Hopper pool and unpool forwards,
+    the MLP forward's WMMA body, the pool backward's WMMA body, the unpool
+    backward's Hopper body and the MLP backward's WMMA body, each once per
+    layer and step); then one gradient
     of the flagship with three heads (C 384, D 128) against the plain path,
     whose kernel path runs the WMMA bodies of all four pool and unpool
     functions and the Hopper MLP (the MLP sees no heads). Returns both
     runs' launch counts and the demo's record."""
     n_layers = demo_dims["n_layers"]
     layers = lambda k: {name: k * n_layers for name in (
-        "folded_pool_ext_wmma", "fused_h_side", "folded_unpool_wmma", "fused_mlp_residual_wmma",
+        "folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual_wmma",
         "folded_pool_ext_bwd_wmma", "folded_unpool_bwd", "fused_mlp_residual_bwd_wmma")}
     counts, rec = train_phase(device, n_layers, batch, demo_dims["n_points"], card, steps,
                               dims=demo_dims, expect=layers)
@@ -2837,20 +2879,28 @@ def ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ns, n_laye
         if device.type == "cuda" and (counts[body] == 0 or counts[other]):
             raise AssertionError(f"{what}: expected the {body} body, got {counts}")
 
-    # forwards: (name, the body's counter, the other body's, operands at N, kernel, plain)
+    # forwards: (name, the body's counter, the other body's, operands at N,
+    # kernel, plain): the Hopper pool and unpool at the flagship's and the
+    # demo's widths, their WMMA bodies at three heads
     fwd = (
         ("folded_pool_ext", "folded_pool_ext_wmma", ns,
          lambda n, d: pool_operands(g, sb, n, c, heads, i, d, device, dt),
          lambda *a: fa.folded_pool_ext(*a, heads), lambda *a: fa._pool_ext_ref(*a, heads)),
-        ("folded_pool_ext_wmma", "folded_pool_ext", ns,
+        ("folded_pool_ext", "folded_pool_ext_wmma", ns,
          lambda n, d: pool_operands(g, db, n, dc, dh, di, d, device, dt),
          lambda *a: fa.folded_pool_ext(*a, dh), lambda *a: fa._pool_ext_ref(*a, dh)),
+        ("folded_pool_ext_wmma", "folded_pool_ext", ns,
+         lambda n, d: pool_operands(g, sb, n, hc, hh, i, d, device, dt),
+         lambda *a: fa.folded_pool_ext(*a, hh), lambda *a: fa._pool_ext_ref(*a, hh)),
         ("folded_unpool", "folded_unpool_wmma", ns[:1],
          lambda n, d: unpool_operands(g, sb, n, c, heads, i, d, device, dt),
          lambda *a: fa.folded_unpool(*a, heads), lambda *a: fa._unpool_ref(*a, heads)),
-        ("folded_unpool_wmma", "folded_unpool", ns[:1],
+        ("folded_unpool", "folded_unpool_wmma", ns[:1],
          lambda n, d: unpool_operands(g, db, n, dc, dh, di, d, device, dt),
          lambda *a: fa.folded_unpool(*a, dh), lambda *a: fa._unpool_ref(*a, dh)),
+        ("folded_unpool_wmma", "folded_unpool", ns[:1],
+         lambda n, d: unpool_operands(g, sb, n, hc, hh, i, d, device, dt),
+         lambda *a: fa.folded_unpool(*a, hh), lambda *a: fa._unpool_ref(*a, hh)),
         ("fused_mlp_residual", "fused_mlp_residual_wmma", ns[:1],
          lambda n, d: mlp_operands(g, sb, n, c, 2 * c, d, device, dt),
          fa.fused_mlp_residual, fa._mlp_ref),
@@ -3230,8 +3280,7 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
                 fused_mlp_residual=1)
     wmma_grad = dict(wmma, folded_pool_ext_bwd_wmma=1, folded_unpool_bwd_wmma=1,
                      fused_mlp_residual_bwd=1)
-    demo = dict(folded_pool_ext_wmma=1, fused_h_side=1, folded_unpool_wmma=1,
-                fused_mlp_residual_wmma=1)
+    demo = dict(folded_pool_ext=1, fused_h_side=1, folded_unpool=1, fused_mlp_residual_wmma=1)
     every = dict(folded_pool_ext=1, fused_h_side=1, folded_unpool=1, fused_mlp_residual=1)
     per_head = (dict(rect_attention_fwd=2), dict(rect_attention_fwd=4, rect_attention_bwd=2))
     base = dict(FLAGSHIP, feature_dim=c, num_heads=heads, n_points=n_points)
@@ -3720,8 +3769,8 @@ def main():
                 elif "registers" in line or "spill" in line:
                     print(f"  {name} {entry}: {line.strip()}")
 
-    print(f"== forward kernels vs plain versions ({shapes}; 8k pool {big}; WMMA bodies at "
-          f"{demo} and {heads3}) on {card}")
+    print(f"== forward kernels vs plain versions ({shapes}; 8k pool {big}; both pool and "
+          f"unpool bodies at {demo}, the WMMA bodies at {heads3}) on {card}")
     rec = kernel_phase(device, shapes, big, demo, heads3, dt, reps)
 
     train_shapes = dict(shapes, batch=train_batch)
@@ -3802,12 +3851,13 @@ def main():
     val = validate_phase(device, args.rehearse)
 
     print(f"== demo sampler path: scripts/demo_upsample_100k.py's model ({demo_dims}), batch "
-          f"{demo['batch']}, {n_steps}-step Heun (the forwards' WMMA bodies), on {card}")
+          f"{demo['batch']}, {n_steps}-step Heun (the Hopper pool and unpool, the MLP's WMMA "
+          f"body), on {card}")
     demo_counts, demo_path, _ = main_path(
         device, demo["batch"], demo_dims["n_points"], demo_dims["n_layers"], n_steps,
         compare_batch=8, what="demo model's kernel path", dims=demo_dims,
         expect=lambda evals: {k: demo_dims["n_layers"] * evals for k in
-                              ("folded_pool_ext_wmma", "fused_h_side", "folded_unpool_wmma",
+                              ("folded_pool_ext", "fused_h_side", "folded_unpool",
                                "fused_mlp_residual_wmma")})
     print(f"  {demo_path['clouds_per_s']:.3f} clouds/s on {card}")
 
@@ -3912,10 +3962,10 @@ def main():
     # folded path's for the resident pool and its backward (their WMMA
     # bodies': the three-head Broadcast's), split by variant: the sums-less layer's run gave the
     # pre-norm launches (nested under "prenorm", as their times are), the
-    # Broadcast's runs the rest; the demo sampler's for
-    # the forwards' WMMA bodies, the demo training path's for the pool and
-    # MLP backwards' WMMA bodies, the num_heads=3 gradient's for the unpool
-    # backward's; the forced-body training paths' for the pool backward's
+    # Broadcast's runs the rest; the demo sampler's for the MLP forward's
+    # WMMA body, the num_heads=3 gradient's for the pool and unpool
+    # forwards' WMMA bodies and the unpool backward's, the demo training
+    # path's for the pool and MLP backwards' WMMA bodies; the forced-body training paths' for the pool backward's
     # v1, v2 and v2j (their Hopper body), phase 21's demo-width model's
     # gradient under each for their WMMA body
     pool_counts = {}
@@ -3928,8 +3978,8 @@ def main():
                      "fused_unpool_mlp": mega_counts, "folded_pool_layer": pool_counts,
                      "folded_pool_layer_wmma": pool_counts, "folded_pool_layer_bwd": pool_counts,
                      "folded_pool_layer_bwd_wmma": pool_counts,
-                     "folded_pool_ext_wmma": demo_counts,
-                     "folded_unpool_wmma": demo_counts, "fused_mlp_residual_wmma": demo_counts,
+                     "folded_pool_ext_wmma": heads3_counts,
+                     "folded_unpool_wmma": heads3_counts, "fused_mlp_residual_wmma": demo_counts,
                      "folded_pool_ext_bwd_wmma": demo_train_counts,
                      "folded_unpool_bwd_wmma": heads3_counts,
                      "fused_mlp_residual_bwd_wmma": demo_train_counts,

@@ -1,6 +1,7 @@
 // Tiled online-softmax attention pool onto the inducers: the WMMA body,
-// for the shapes the Hopper design (csrc/pool_ext.cu: I == 64, D == 48,
-// H % 8 == 0) does not take, e.g. D 32 or 128 (the wrapper's
+// for the shapes the Hopper design (csrc/pool_ext.cu: I == 64, D in (16,
+// 32, 48, 64), H % 4 == 0, C % 64 == 0 up to 768) does not take, e.g.
+// three heads (D 128) or another inducer count (the wrapper's
 // _pool_ext_body chooses by shape).
 //
 // Replaces gecco_tpu/ops/pallas/folded_attention.py:_pool_ext_kernel_wfold

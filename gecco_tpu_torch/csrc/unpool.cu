@@ -23,9 +23,10 @@
 //    wo read in place as a column-major operand; vf is written transposed,
 //    [B, C, J], so that both operands of the main kernel are K-major; brow
 //    beside kft.
-// 3. unpool_tile_kernel, one block per (64-point tile, CB output columns):
-//    a producer warpgroup keeps three TMA streams going (the x tile, each
-//    consumer's ring of kft_h panels, and a ring of vf_h^T slabs [CB, I]),
+// 3. unpool_tile_kernel<NW>, one block per (64-point tile, CB = 2 NW output
+//    columns): a producer warpgroup keeps three TMA streams going (the x
+//    tile, each consumer's ring of kft_h panels, and a ring of vf_h^T slabs
+//    [CB, I], in boxes of CB rows, or of CB / 2 above 256),
 //    and two consumer warpgroups split the output columns (CB / 2 each, a
 //    [64, CB/2] fp32 accumulator in registers) and take the heads' logits
 //    in turn: warpgroup h % 2 forms head h's [64, I] logits by wgmma in
@@ -41,8 +42,12 @@
 //    (as csrc/common.cuh's residual_epilogue), over the points before
 //    n_valid: a ragged N comes zero-padded to a multiple of 128 by the
 //    wrapper, and the padding rows stay out of the sums.
-// CB is C at C <= 384 (the flagship: 2048 blocks at B 64, N 2048) and 192
-// at C = 768 (the 8k width: 4 column blocks, each forming the logits again).
+// CB is C at C <= 384 (the flagship: 2048 blocks at B 64, N 2048; the
+// upsample demo's C 128: 1536 blocks at B 48) and 192 above (the 8k width's
+// C 768: 4 column blocks, each forming the logits again).
+// Shapes: I == 64, H even, D = C / H a multiple of 16 up to 64, C % 64 == 0
+// up to 384 or C % 192 == 0 above; the rest (three heads, another I) take
+// csrc/unpool_wmma.cu.
 // The megakernel (csrc/unpool_mlp.cu) keeps unpool.cuh's WMMA device code.
 #include <cmath>
 
@@ -227,14 +232,15 @@ __device__ __forceinline__ void unpool_product(const TileCtx& t, float (&o_acc)[
   }
 }
 
-// One 64-point tile and CB = 2 * NW output columns per block.
+// One 64-point tile and CB = 2 * NW output columns per block; the vf slabs
+// come in boxes of VBOX rows (TMA's boxes hold at most 256).
 template <int NW>
 __global__ void __launch_bounds__(384, 1)
 unpool_tile_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ x,
                    const float* __restrict__ brow, bf16* __restrict__ out,
                    float* __restrict__ sums, int N, int n_valid, int C, int H, int residual) {
-  constexpr int CB = 2 * NW;
+  constexpr int CB = 2 * NW, VBOX = CB <= 256 ? CB : CB / 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -293,7 +299,7 @@ unpool_tile_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_consta
         const int s = h % kVRing;
         if (h >= kVRing) bar_wait(vempty + s, ((h / kVRing) - 1) & 1);
         bar_expect(vfull + s, CB * 128);
-        for (int r = 0; r < CB; r += 192) {
+        for (int r = 0; r < CB; r += VBOX) {
           tma_load(vstage(s) + r * 128, &tm_v, vfull + s, b * C + cbase + r, h * kInd);
         }
       }
@@ -315,35 +321,86 @@ unpool_tile_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_consta
       unpool_product<NW>(t, o_acc, h);
     }
 
-    // epilogue: the fp32 output through shared memory (over the rings)
-    constexpr int ldo = CB + kPadF;
-    float* obuf = reinterpret_cast<float*>(smem + L.kring);
-    named_sync(1, 256);  // both consumers are done with the rings
-    fence_async_smem();
+    if constexpr (CB <= 128) {
+      // epilogue from the registers (a block of at most 128 columns: too
+      // little work to stage): o = x + attn with x read from the tile in
+      // shared memory, out = bf16(o) stored from the registers, and the
+      // column sums over the thread's two rows, the eight lanes of a column
+      // by shuffles, the warpgroup's four warps through shared memory (its
+      // own kft ring, free once its logits are done), one atomic each per
+      // column and block
+      float* red = reinterpret_cast<float*>(kstage(w, 0));  // [4 warps][2][NW]
+      fence_async_smem();
+      // rows from n_valid on (a ragged tail's padding) stay out of the sums
+      const int valid = n_valid - row0 % N;
+      const bool ok0 = r0 < valid, ok1 = r0 + 8 < valid;
 #pragma unroll
-    for (int g = 0; g < NW / 8; ++g) {
-      const int c = w * NW + 8 * g + col;
-      *reinterpret_cast<float2*>(obuf + r0 * ldo + c) = make_float2(o_acc[4 * g], o_acc[4 * g + 1]);
-      *reinterpret_cast<float2*>(obuf + (r0 + 8) * ldo + c) =
-          make_float2(o_acc[4 * g + 2], o_acc[4 * g + 3]);
-    }
-    named_sync(1, 256);
-    // rows from n_valid on (a ragged tail's padding) stay out of the sums
-    const int valid = n_valid - row0 % N;
-    for (int c = threadIdx.x; c < CB; c += 256) {
-      float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll 16
-      for (int r = 0; r < kTile; ++r) {
-        const size_t e = (size_t)(row0 + r) * C + cbase + c;
-        const float o = (residual ? __bfloat162float(x[e]) : 0.0f) + obuf[r * ldo + c];
-        out[e] = __float2bfloat16(o);
-        if (r < valid) {
-          s1 += o;
-          s2 += o * o;
+      for (int g = 0; g < NW / 8; ++g) {
+        const int c = cbase + w * NW + 8 * g + col;
+        float2 x0 = make_float2(0.0f, 0.0f), x1 = x0;
+        if (residual) {
+          x0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + swz(r0, c, kPanel)));
+          x1 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(xs + swz(r0 + 8, c, kPanel)));
+        }
+        const float o00 = x0.x + o_acc[4 * g], o01 = x0.y + o_acc[4 * g + 1];
+        const float o10 = x1.x + o_acc[4 * g + 2], o11 = x1.y + o_acc[4 * g + 3];
+        const size_t e0 = (size_t)(row0 + r0) * C + c, e1 = e0 + (size_t)8 * C;
+        *reinterpret_cast<__nv_bfloat162*>(out + e0) = __floats2bfloat162_rn(o00, o01);
+        *reinterpret_cast<__nv_bfloat162*>(out + e1) = __floats2bfloat162_rn(o10, o11);
+        float q[4] = {(ok0 ? o00 : 0.0f) + (ok1 ? o10 : 0.0f), (ok0 ? o01 : 0.0f) + (ok1 ? o11 : 0.0f),
+                      (ok0 ? o00 * o00 : 0.0f) + (ok1 ? o10 * o10 : 0.0f),
+                      (ok0 ? o01 * o01 : 0.0f) + (ok1 ? o11 * o11 : 0.0f)};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          q[k] += __shfl_xor_sync(0xffffffffu, q[k], 4);
+          q[k] += __shfl_xor_sync(0xffffffffu, q[k], 8);
+          q[k] += __shfl_xor_sync(0xffffffffu, q[k], 16);
+        }
+        if (lane < 4) {
+          const int cw = 8 * g + col;
+          *reinterpret_cast<float2*>(red + (wi * 2) * NW + cw) = make_float2(q[0], q[1]);
+          *reinterpret_cast<float2*>(red + (wi * 2 + 1) * NW + cw) = make_float2(q[2], q[3]);
         }
       }
-      atomicAdd(sums + (size_t)b * 2 * C + cbase + c, s1);
-      atomicAdd(sums + (size_t)b * 2 * C + C + cbase + c, s2);
+      named_sync(2 + w, 128);
+      for (int t = threadIdx.x % 128; t < 2 * NW; t += 128) {
+        const int k = t / NW, cw = t % NW;
+        const float v = red[k * NW + cw] + red[(2 + k) * NW + cw] + red[(4 + k) * NW + cw] +
+                        red[(6 + k) * NW + cw];
+        atomicAdd(sums + (size_t)b * 2 * C + k * C + cbase + w * NW + cw, v);
+      }
+    } else {
+      // epilogue: the fp32 output through shared memory (over the rings)
+      constexpr int ldo = CB + kPadF;
+      float* obuf = reinterpret_cast<float*>(smem + L.kring);
+      named_sync(1, 256);  // both consumers are done with the rings
+      fence_async_smem();
+#pragma unroll
+      for (int g = 0; g < NW / 8; ++g) {
+        const int c = w * NW + 8 * g + col;
+        *reinterpret_cast<float2*>(obuf + r0 * ldo + c) = make_float2(o_acc[4 * g], o_acc[4 * g + 1]);
+        *reinterpret_cast<float2*>(obuf + (r0 + 8) * ldo + c) =
+            make_float2(o_acc[4 * g + 2], o_acc[4 * g + 3]);
+      }
+      named_sync(1, 256);
+      // rows from n_valid on (a ragged tail's padding) stay out of the sums
+      const int valid = n_valid - row0 % N;
+      for (int c = threadIdx.x; c < CB; c += 256) {
+        float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll 16
+        for (int r = 0; r < kTile; ++r) {
+          const size_t e = (size_t)(row0 + r) * C + cbase + c;
+          const float o = (residual ? __bfloat162float(x[e]) : 0.0f) + obuf[r * ldo + c];
+          out[e] = __float2bfloat16(o);
+          if (r < valid) {
+            s1 += o;
+            s2 += o * o;
+          }
+        }
+        atomicAdd(sums + (size_t)b * 2 * C + cbase + c, s1);
+        atomicAdd(sums + (size_t)b * 2 * C + C + cbase + c, s2);
+      }
     }
   }
 }
@@ -356,10 +413,11 @@ extern "C" int unpool_launch(const void* x, const void* se, const void* be, cons
                              int H, int I, int residual, int prenorm, int n_valid,
                              void* stream) {
   const int J = H * I, D = C / H;
+  // the column block: C up to 384 (2 NW for NW in 32 ... 192), else 192
   const int CB = C <= 384 ? C : 192;
-  if (I != kInd || N % kTile != 0 || n_valid < 1 || n_valid > N || H % 2 != 0 || D % 16 != 0 ||
-      D > 64 || C % CB != 0 ||
-      (CB != 384 && CB != 192)) {
+  if (I != kInd || N % kTile != 0 || n_valid < 1 || n_valid > N || H % 2 != 0 || C % H != 0 ||
+      D % 16 != 0 || D > 64 || C % 64 != 0 || C % CB != 0 ||
+      TileSmem(C, CB).total > (int)kMaxSmem) {
     return (int)cudaErrorInvalidValue;
   }
   // 1/sqrt(D) rounded once from double, as the JAX package's Python float
@@ -380,11 +438,19 @@ extern "C" int unpool_launch(const void* x, const void* se, const void* be, cons
   CUtensorMap tm_x, tm_k, tm_v;
   if (encode_tiled(&tm_x, x, (uint64_t)B * N, C, kTile) != CUDA_SUCCESS ||
       encode_tiled(&tm_k, kft, (uint64_t)B * J, C, kInd) != CUDA_SUCCESS ||
-      encode_tiled(&tm_v, vft, (uint64_t)B * C, J, 192) != CUDA_SUCCESS) {
+      encode_tiled(&tm_v, vft, (uint64_t)B * C, J, CB <= 256 ? CB : CB / 2) != CUDA_SUCCESS) {
     return (int)cudaErrorInvalidValue;
   }
   const TileSmem L(C, CB);
-  const auto kernel = CB == 384 ? unpool_tile_kernel<192> : unpool_tile_kernel<96>;
+  decltype(&unpool_tile_kernel<96>) kernel;
+  switch (CB) {
+    case 64: kernel = unpool_tile_kernel<32>; break;
+    case 128: kernel = unpool_tile_kernel<64>; break;
+    case 192: kernel = unpool_tile_kernel<96>; break;
+    case 256: kernel = unpool_tile_kernel<128>; break;
+    case 320: kernel = unpool_tile_kernel<160>; break;
+    default: kernel = unpool_tile_kernel<192>; break;
+  }
   err = set_smem((const void*)kernel, L.total);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(B * N / kTile, C / CB), 384, L.total, st>>>(

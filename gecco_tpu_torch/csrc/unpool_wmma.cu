@@ -1,7 +1,8 @@
 // Folded unpool attention + residual, with the output channel sums: the
 // WMMA body, for the shapes the Hopper design (csrc/unpool.cu: I == 64, H
-// even, D <= 64, C in (192, 384, 768)) does not take, e.g. C 128 or three
-// heads (the wrapper's _unpool_body chooses by shape).
+// even, D % 16 == 0, D <= 64, C % 64 == 0 up to 384 or C % 192 == 0 above)
+// does not take, e.g. three heads or another inducer count (the wrapper's
+// _unpool_body chooses by shape).
 //
 // Replaces gecco_tpu/ops/pallas/folded_attention.py:_unpool_kernel (served
 // by folded_unpool), with its two flags: ``prenorm`` (with it off, y = x:

@@ -53,8 +53,13 @@ The pool, unpool and MLP forwards and backwards and the resident pool each
 keep a second, WMMA body (``csrc/*_wmma.cu``) for the shapes their Hopper
 design does not take; ``_pool_ext_body``, ``_unpool_body``, ``_mlp_body``,
 ``_pool_layer_body`` and the backwards' ``*_bwd_body`` choose by shape,
-and a shape that neither body takes raises. A CUDA tensor never falls back to a plain version. Any point
-count N >= 1 is taken: on the card each function zero-pads the point axis
+and a shape that neither body takes raises. The pool and unpool forwards'
+Hopper bodies take 64 inducers a head of D 16 to 64 channels (the pool D
+in 16, 32, 48, 64 and H % 4 == 0, the unpool D % 16 and H even, C % 64
+up to 384 or C % 192 above): the flagship, the 8k width and the upsample
+demo's C 128 with four heads of 32; three heads (D 128) or another
+inducer count take their WMMA bodies. A CUDA tensor never falls back to a
+plain version. Any point count N >= 1 is taken: on the card each function zero-pads the point axis
 of its operands to the next multiple of 128 (``_pad_points``; no copy
 where N is one already), passes the bodies ``n_valid = N``, which mask the
 padding out of every reduction over points, and slices the outputs back to
@@ -267,6 +272,38 @@ def _pool_ext_ref(x, se, be, ind2, kvw, wo, num_heads: int) -> torch.Tensor:
 # points per chunk of the pool's chunk kernel (csrc/pool_ext.cu kTM): the
 # partials are sized by it
 _POOL_CHUNK = 64
+# the head widths of the chunk kernel's instances (csrc/pool_ext.cu
+# chunk_smem's cases)
+_POOL_HOPPER_WIDTHS = (16, 32, 48, 64)
+
+
+def _pool_ext_group(num_heads: int) -> int:
+    """Heads per block of the chunk kernel (csrc/pool_ext.cu's G): 8 where H
+    % 8 == 0, else 4 (two heads per consumer warpgroup)."""
+    return 8 if num_heads % 8 == 0 else 4
+
+
+def _pool_ext_smem(c: int, d: int, g: int) -> int:
+    """Bytes of one block of the Hopper pool's chunk kernel: csrc/pool_ext.cu
+    ``ChunkSmem<HD, G>`` (change both together): the y tile, each
+    warpgroup's weight ring (three stages at G 8, two at G 4) of a qf^T and
+    a Wv_h panel, e^T and v^T, the reductions, the barriers and the
+    alignment slack."""
+    ring = 3 if g == 8 else 2
+    return ((c // 64) * _POOL_CHUNK * 128 + 2 * ring * (64 * 128 + d * 128) + 2 * 64 * 128
+            + 2 * d * 128 + 2 * 2 * 4 * 64 * 4 + (1 + 4 * ring) * 8 + 1024)
+
+
+def _pool_ext_hopper_takes(c: int, num_heads: int, i: int) -> bool:
+    """The shapes of the Hopper pool's chunk kernel (csrc/pool_ext.cu
+    ``chunk_smem``: change both together): I == 64, C % 64 == 0 up to 768,
+    H % 4 == 0, D = C / H in ``_POOL_HOPPER_WIDTHS``, the block's shared
+    memory within the SM's."""
+    if i != 64 or num_heads < 1 or c % num_heads or c % 64 or c > 768 or num_heads % 4:
+        return False
+    d = c // num_heads
+    return (d in _POOL_HOPPER_WIDTHS
+            and _pool_ext_smem(c, d, _pool_ext_group(num_heads)) <= _MAX_SMEM)
 
 
 def _fold_qft_ref(ind2, kvw, num_heads: int) -> torch.Tensor:
@@ -354,8 +391,10 @@ def _pool_wmma_block(c: int, i: int, d: int) -> int:
 
 def _pool_ext_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     """Which forward body of ``folded_pool_ext`` takes these shapes on the
-    card: "hopper" (csrc/pool_ext.cu, TMA and wgmma: I == 64, D == 48,
-    H % 8 == 0, C % 64 == 0, C <= 768) where it can, else "wmma"
+    card: "hopper" (csrc/pool_ext.cu, TMA and wgmma: I == 64, D in (16, 32,
+    48, 64), H % 4 == 0, C % 64 == 0, C <= 768: ``_pool_ext_hopper_takes``;
+    the flagship, the 8k width and the upsample demo's C 128) where it can,
+    else "wmma"
     (csrc/pool_ext_wmma.cu: C % 64, D % 16 and I % 16 == 0, a block of 16
     of a head's columns within the SM's shared memory: ``_pool_wmma_block``,
     any I at C <= 768); both need B*I % 64 == 0 and take any N (padded)
@@ -365,24 +404,27 @@ def _pool_ext_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     d = c // num_heads
     i = _i_pad(i)
     common = c % num_heads == 0 and n >= 1 and (b * i) % 64 == 0
-    if common and i == 64 and d == 48 and num_heads % 8 == 0 and c % 64 == 0 and c <= 768:
+    if common and _pool_ext_hopper_takes(c, num_heads, i):
         return "hopper"
     if common and c % 64 == 0 and d % 16 == 0 and _pool_wmma_block(c, i, d):
         return "wmma"
     raise ValueError(
         f"folded_pool_ext: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
-        f"(D={d}): the Hopper body needs I == 64, D == 48, H % 8 == 0, C % 64 == 0 and "
-        f"C <= 768; the WMMA body C % 64, D % 16, I % 16 == 0 and a block of 16 columns "
-        f"within {_MAX_SMEM} bytes of shared memory; both B*I % 64 == 0")
+        f"(D={d}): the Hopper body needs I == 64, D in {_POOL_HOPPER_WIDTHS}, H % 4 == 0, "
+        f"C % 64 == 0 and C <= 768; the WMMA body C % 64, D % 16, I % 16 == 0 and a block "
+        f"of 16 columns within {_MAX_SMEM} bytes of shared memory; both B*I % 64 == 0")
 
 
-def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
+def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool,
+                     body: str | None = None):
     """The forward kernels of the body ``_pool_ext_body`` picks -> (h0,
     qft, macc, sacc): the folded query qf^T [J, C] the logits were formed
     with, and the softmax's column max and sum [B, J] fp32, when ``stats``
     (else Nones). The Hopper body runs four launches (fold, chunks, merge,
     output projection), the WMMA body two (per-head pool, output
-    projection) on a fold in PyTorch."""
+    projection) on a fold in PyTorch. ``body`` ("hopper" or "wmma") forces
+    one where both take the shapes, for timing the two in turns; a forced
+    body that does not take them fails its launch."""
     name = "folded_pool_ext"
     b, n, c = x.shape
     j, d = ind2.shape
@@ -391,7 +433,7 @@ def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool):
         name, dict(x=x, se=se, be=be, ind2=ind2, kvw=kvw, wo=wo),
         dict(x=_BF16, se=_F32, be=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16),
     )
-    body = _pool_ext_body(b, n, c, num_heads, i)
+    body = body or _pool_ext_body(b, n, c, num_heads, i)
     dev = x.device
     n_pad = _n_pad(n)
     x = _pad_points(x, n_pad)
@@ -1674,10 +1716,40 @@ def _unpool_wmma_smem(tn: int, c: int, i: int) -> int:
     return 0
 
 
+# points per block of the Hopper unpool (csrc/unpool.cu kTile)
+_UNPOOL_TILE = 64
+
+
+def _unpool_tile_smem(c: int) -> int:
+    """Bytes of one block of the Hopper unpool's tile kernel: csrc/unpool.cu
+    ``TileSmem(C, CB)`` (change both together) at its column block CB (C up
+    to 384, else 192): the x tile, both consumers' kft rings (four panels
+    each), the vf ring (two slabs of CB rows), the two p buffers, the
+    barriers and the alignment slack."""
+    cb = c if c <= 384 else 192
+    panel = _UNPOOL_TILE * 128
+    return (c // 64) * panel + 2 * 4 * panel + 2 * cb * 128 + 2 * panel + (1 + 16 + 8) * 8 + 1024
+
+
+def _unpool_hopper_takes(c: int, num_heads: int, i: int) -> bool:
+    """The shapes of the Hopper unpool (csrc/unpool.cu ``unpool_launch``'s
+    check: change both together): I == 64, H even, D = C / H a multiple of
+    16 up to 64, C % 64 == 0 up to 384 (one column block of C) or C % 192
+    == 0 above (blocks of 192), the block's shared memory within the
+    SM's."""
+    if i != 64 or num_heads < 1 or c % num_heads or num_heads % 2 or c % 64:
+        return False
+    d = c // num_heads
+    return (d % 16 == 0 and d <= 64 and (c <= 384 or c % 192 == 0)
+            and _unpool_tile_smem(c) <= _MAX_SMEM)
+
+
 def _unpool_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     """Which forward body of ``folded_unpool`` takes these shapes on the
     card: "hopper" (csrc/unpool.cu, TMA and wgmma: I == 64, H even,
-    D % 16 == 0, D <= 64, C in (192, 384, 768)) where it can, else "wmma"
+    D % 16 == 0, D <= 64, C % 64 == 0 up to 384 or C % 192 == 0 above:
+    ``_unpool_hopper_takes``; the flagship, the 8k width and the upsample
+    demo's C 128) where it can, else "wmma"
     (csrc/unpool_wmma.cu: C % 16 == 0 and a point tile of 64 or 32 rows
     whose shared memory fits the SM, its head operands staged or, from 192
     inducers at C 384, read from device memory: at C 384 up to 336
@@ -1685,8 +1757,7 @@ def _unpool_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     and the WMMA body any I (a ragged I zero-padded to 16s and masked).
     Raises ValueError with both bodies' conditions otherwise."""
     d = c // num_heads
-    if (c % num_heads == 0 and i == 64 and num_heads % 2 == 0 and d % 16 == 0 and d <= 64
-            and c in (192, 384, 768) and n >= 1):
+    if n >= 1 and _unpool_hopper_takes(c, num_heads, i):
         return "hopper"
     try:
         tn = _row_tile(_n_pad(n), c)
@@ -1697,14 +1768,17 @@ def _unpool_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     raise ValueError(
         f"folded_unpool: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
         f"(D={d}): the Hopper body needs I == 64, H even, D % 16 == 0, D <= 64 and "
-        f"C in (192, 384, 768); the WMMA body C % 16 == 0 and a point tile "
+        f"C % 64 == 0 up to 384 or C % 192 == 0 above; the WMMA body C % 16 == 0 and a point tile "
         f"(64 rows at C <= 384, 32 at C <= 768) whose block fits {_MAX_SMEM} bytes of "
         f"shared memory")
 
 
-def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int, residual: bool, prenorm: bool):
+def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int, residual: bool, prenorm: bool,
+                   body: str | None = None):
     """The forward kernels of the body ``_unpool_body`` picks (bq, fold,
-    point tiles) -> (out, sums)."""
+    point tiles) -> (out, sums). ``body`` ("hopper" or "wmma") forces one
+    where both take the shapes, for timing the two in turns; a forced body
+    that does not take them fails its launch."""
     name = "folded_unpool"
     b, n, c = x.shape
     i = k.shape[1]
@@ -1713,7 +1787,7 @@ def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int, residual: bool, pren
         name, dict(x=x, se=se, be=be, k=k, v=v, wq=wq, wo=wo),
         dict(x=_BF16, se=_F32, be=_F32, k=_BF16, v=_BF16, wq=_BF16, wo=_BF16),
     )
-    body = _unpool_body(b, n, c, num_heads, i)
+    body = body or _unpool_body(b, n, c, num_heads, i)
     dev = x.device
     n_valid, n = n, _n_pad(n)
     x = _pad_points(x, n)

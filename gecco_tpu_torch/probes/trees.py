@@ -1,6 +1,6 @@
 """Two source trees of the port side by side on one card: the flagship
-sampler and train step and each fused function's device time, tree by
-tree in the order given.
+sampler and train step, the upsample demo model's evaluation, and each
+fused function's device time, tree by tree in the order given.
 
     python3 gecco_tpu_torch/probes/trees.py PARENT CHANGE CHANGE PARENT
 
@@ -15,10 +15,15 @@ of one of the sampler's evaluations at batch 64 (``torch.profiler``, 10
 evaluations after 3); (3) ``chip_smoke.train_phase``: the flagship's
 train step at batch 48 (its gradient against the plain path, 3 + 20
 steps, the device's busy milliseconds per step over 3 profiled steps);
-(4) the device milliseconds per call (``torch.profiler``, 20 calls after
-3) of the pool, h-side, unpool and MLP forwards at batch 64 and of the
-three folded backwards at batch 48, on operands drawn as
-``chip_smoke.py`` draws them. It prints one JSON line per tree and the
+(4) the upsample demo's model (``chip_smoke.DEMO``: 3 x 128, 64
+inducers, 4 heads of 32) sampling 48 clouds as (1) does, each function
+through the body the tree's switches pick for it, and the device
+milliseconds of one of its evaluations at batch 48 (10 evaluations
+after 3); (5) the device milliseconds per call
+(``torch.profiler``, 20 calls after 3) of the pool, h-side, unpool and
+MLP forwards at batch 64 and of the three folded backwards at batch 48,
+on operands drawn as ``chip_smoke.py`` draws them, and of the pool and
+unpool forwards at the demo's width and batch 48 (``*_demo``). It prints one JSON line per tree and the
 card's name and power limit. Run by file path,
 not with ``-m``, so that each tree's package is the one imported. Needs
 the card.
@@ -71,6 +76,24 @@ def measure(tree: str) -> dict:
     with torch.no_grad():
         eval_device_ms = profiled_ms(lambda: model.denoise(sigma, x), 10)
     del model
+    dd = cs.DEMO
+    shape = (cs.DEMO_BATCH, dd["n_points"], dd["feature_dim"], dd["num_heads"],
+             dd["num_inducers"])
+    picked = lambda name, body: name if body == "hopper" else f"{name}_wmma"
+    names = (picked("folded_pool_ext", cs.fa._pool_ext_body(*shape)), "fused_h_side",
+             picked("folded_unpool", cs.fa._unpool_body(*shape)),
+             picked("fused_mlp_residual", cs.fa._mlp_body(*shape[:3], 2 * shape[2])))
+    _, demo_sample, _ = cs.main_path(
+        dev, cs.DEMO_BATCH, dd["n_points"], dd["n_layers"], cs.N_STEPS, compare_batch=8,
+        what="demo model's kernel path", dims=dd,
+        expect=lambda evals: {k: dd["n_layers"] * evals for k in names})
+    demo = cs.build_flagship(dev, torch.Generator().manual_seed(0), dd["n_layers"], dims=dd)
+    xd = demo.schedule.sample_latent(torch.Generator(device=dev).manual_seed(2),
+                                     (cs.DEMO_BATCH, dd["n_points"], 3), dev)
+    sigma_d = torch.full((cs.DEMO_BATCH,), 10.0, device=dev)
+    with torch.no_grad():
+        demo_eval_device_ms = profiled_ms(lambda: demo.denoise(sigma_d, xd), 10)
+    del demo
     _, train = cs.train_phase(dev, cs.FLAGSHIP["n_layers"], cs.TRAIN_BATCH,
                               cs.FLAGSHIP["n_points"], "the card", (3, 20))
     fa, hs, dt = cs.fa, cs.hs, torch.bfloat16
@@ -87,6 +110,9 @@ def measure(tree: str) -> dict:
     bunpool = cs.unpool_operands(g, tb, n, c, h, i, False, dev, dt)
     bmlp = cs.mlp_operands(g, tb, n, c, w, False, dev, dt)
     gg, gs = (0.1 * r(tb, n, c)).to(dt), 1e-3 * r(tb, 2, c)
+    db, dc, dh = cs.DEMO_BATCH, dd["feature_dim"], dd["num_heads"]
+    dpool = cs.pool_operands(g, db, n, dc, dh, i, False, dev, dt)
+    dunpool = cs.unpool_operands(g, db, n, dc, dh, i, False, dev, dt)
     runs = {
         "folded_pool_ext": lambda: fa.folded_pool_ext(*pool, h),
         "fused_h_side": lambda: hs.fused_h_side(*hside),
@@ -95,10 +121,14 @@ def measure(tree: str) -> dict:
         "folded_pool_ext_bwd": lambda: fa.folded_pool_ext_bwd(*bpool, qft, macc, sacc, gh, h),
         "folded_unpool_bwd": lambda: fa.folded_unpool_bwd(*bunpool, gg, gs, h),
         "fused_mlp_residual_bwd": lambda: fa.fused_mlp_residual_bwd(*bmlp, gg, gs),
+        "folded_pool_ext_demo": lambda: fa.folded_pool_ext(*dpool, dh),
+        "folded_unpool_demo": lambda: fa.folded_unpool(*dunpool, dh),
     }
     device_ms = {name: profiled_ms(fn, 20) for name, fn in runs.items()}
     return {"clouds_per_s": sample["clouds_per_s"], "eval_ms": sample["eval_ms"],
-            "eval_device_ms": eval_device_ms, "train_ms_per_step": train["ms_per_step"],
+            "eval_device_ms": eval_device_ms, "demo_clouds_per_s": demo_sample["clouds_per_s"],
+            "demo_eval_device_ms": demo_eval_device_ms,
+            "train_ms_per_step": train["ms_per_step"],
             "train_device_ms_per_step": train["device_ms_per_step"], "device_ms": device_ms}
 
 

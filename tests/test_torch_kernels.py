@@ -505,7 +505,7 @@ def test_unpool_pieces_compose_to_the_plain_version(residual, prenorm, dtype):
      ("hopper", "hopper", "hopper")),  # the flagship
     ((2, 8192, 768, 16, 64), ("hopper", "hopper", "hopper"),
      ("hopper", "hopper", "hopper")),  # the 8k width
-    ((48, 2048, 128, 4, 64), ("wmma", "wmma", "wmma"),
+    ((48, 2048, 128, 4, 64), ("hopper", "hopper", "wmma"),
      ("wmma", "hopper", "wmma")),  # the demo's 3 x 128
     ((48, 2048, 384, 3, 64), ("wmma", "wmma", "hopper"),
      ("wmma", "wmma", "hopper")),  # num_heads=3
@@ -529,6 +529,36 @@ def test_body_switches_choose_by_shape(shape, bodies, bwd):
                 switch(*args)
         else:
             assert switch(*args) == want
+
+
+# (B, N, C, H, I) -> the bodies of the pool and unpool forwards: the
+# Hopper pool takes I 64 at D 16, 32, 48 or 64 and H % 4 == 0 (G 8 heads a
+# block where H % 8 == 0, else 4); the Hopper unpool I 64, H even, D % 16 up
+# to 64 and C % 64 up to 384 (one column block) or C % 192 above
+@pytest.mark.parametrize("shape,bodies", [
+    ((48, 2048, 64, 4, 64), ("hopper", "hopper")),  # D 16, four heads
+    ((48, 2048, 256, 4, 64), ("hopper", "hopper")),  # D 64, four heads; the unpool at C 256
+    ((48, 2048, 128, 8, 64), ("hopper", "hopper")),  # D 16, eight heads
+    ((48, 2048, 512, 8, 64), ("hopper", "wmma")),  # C 512: neither <= 384 nor % 192
+    ((48, 2048, 384, 6, 64), ("wmma", "hopper")),  # D 64, H % 4 != 0
+    ((48, 2048, 320, 10, 64), ("wmma", "hopper")),  # the unpool's 320-column block
+    ((48, 2048, 384, 3, 64), ("wmma", "wmma")),  # three heads (D 128)
+    ((48, 2048, 128, 4, 48), ("wmma", "wmma")),  # I 48 at the demo's width
+    ((48, 2048, 128, 4, 16), ("wmma", "wmma")),  # I 16 at the demo's width
+    ((48, 2048, 192, 2, 64), ("wmma", "wmma")),  # D 96: wider than either instance
+], ids=["D16-H4", "D64-H4-C256", "D16-H8", "C512", "H6", "C320", "heads3", "I48", "I16", "D96"])
+def test_forward_switches_take_the_new_widths(shape, bodies):
+    """The pool and unpool forwards' Hopper bodies take the widths their
+    templated instances cover (the upsample demo's among them) and no
+    other: three heads and an inducer count other than 64 stay on the WMMA
+    bodies. The mirrors agree with the shared-memory plans: every Hopper
+    pick fits the SM."""
+    b, n, c, h, i = shape
+    assert (tfa._pool_ext_body(*shape), tfa._unpool_body(*shape)) == bodies
+    if bodies[0] == "hopper":
+        assert tfa._pool_ext_smem(c, c // h, tfa._pool_ext_group(h)) <= tfa._MAX_SMEM
+    if bodies[1] == "hopper":
+        assert tfa._unpool_tile_smem(c) <= tfa._MAX_SMEM
 
 
 @pytest.mark.parametrize("case,takes", [
@@ -1016,3 +1046,80 @@ def test_demo_width_gradients_match_the_jax_ops(which):
             assert _maxrel(a.numpy(), np.asarray(r, np.float32)) < 1e-3, name
         else:
             assert _within_a_bf16_step(a.float().numpy(), r), name
+
+
+def _demo_forward_args(seed, which, i, drift):
+    """Operands of the pool or unpool forward at the upsample demo's widths
+    (C 128, 4 heads of 32 channels) with ``i`` inducers and N 256; drifted
+    per head as ``DRIFT`` (head 0's logits ~60x head 1's)."""
+    c, heads = DEMO_C, DEMO_HEADS
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    x, se, be = r(B, 2 * DEMO_N, c), 1.0 + 0.1 * r(B, c), 0.1 * r(B, c)
+    drift_c = np.repeat(np.array([60.0, 1.0, 0.1, 0.01], np.float32), c // heads)
+    if which == "pool":
+        kvw = r(2 * c, c) / c**0.5
+        if drift:
+            kvw[:c] *= drift_c[:, None]
+        return x, se, be, r(heads * i, c // heads), kvw, r(c, c) / c**0.5
+    k = r(B, i, c)
+    if drift:
+        k *= drift_c[None, None, :]
+    return x, se, be, k, r(B, i, c), r(c, c) / c**0.5, r(c, c) / c**0.5
+
+
+def _demo_forward_pieces(which, ops):
+    """The plain pieces of the Hopper pool (the fold, the chunk partials at
+    ``_POOL_CHUNK`` points, the merge) or unpool (the fold, the point
+    tiles), composed -> h0, or (out, sums)."""
+    if which == "pool":
+        x, se, be, ind2, kvw, wo = ops
+        qft = tfa._fold_qft_ref(ind2, kvw, DEMO_HEADS)
+        m, l, p = tfa._pool_partials_ref(x, se, be, qft, kvw, DEMO_HEADS)
+        assert p.shape == (B, x.shape[1] // tfa._POOL_CHUNK, ind2.shape[0], DEMO_C // DEMO_HEADS)
+        return (tfa._pool_merge_ref(m, l, p, wo, DEMO_HEADS)[0],)
+    x, se, be, k, v, wq, wo = ops
+    kft, vft, brow = tfa._unpool_fold_ref(se, be, k, v, wq, wo, DEMO_HEADS)
+    return tfa._unpool_tiles_ref(x, kft, vft, brow, DEMO_HEADS)
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+@pytest.mark.parametrize("i", [64, 16], ids=["I64", "I16"])
+@pytest.mark.parametrize("which", ["pool", "unpool"])
+def test_demo_width_forward_pieces_match_the_plain_and_jax_kernels(which, i, drift):
+    """At the upsample demo's widths (C 128, 4 heads of 32 channels), which
+    the Hopper pool and unpool forwards take on the card: their plain
+    pieces compose to the plain version and match the JAX kernel
+    (``folded_pool_ext`` / ``folded_unpool``, its Pallas kernel in
+    interpret mode, one ``jax.jit``) on ordinary and drifted operands, at
+    the tolerances of ``test_pool_pieces_compose_to_the_plain_version`` and
+    ``test_unpool_pieces_compose_to_the_plain_version``: in fp32 to
+    rounding, in bf16 within a few bf16 steps. The unpool's drifted bf16
+    case is held to the JAX kernel alone: its pieces fold se into wq before
+    the rounding, as the TPU kernel does, and the plain version after it
+    (a departure of ~8e-2 there, by design, as in that test)."""
+    args = _demo_forward_args(31, which, i, drift)
+    low = (0, 3, 4, 5) if which == "pool" else (0, 3, 4, 5, 6)
+    ref_fn = tfa._pool_ext_ref if which == "pool" else tfa._unpool_ref
+    jax_fn = jfa.folded_pool_ext if which == "pool" else jfa.folded_unpool
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        ops = [torch.from_numpy(a).to(dt if q in low else torch.float32)
+               for q, a in enumerate(args)]
+        got = _demo_forward_pieces(which, ops)
+        plain = ref_fn(*ops, DEMO_HEADS)
+        plain = plain if isinstance(plain, tuple) else (plain,)
+        jops = [jnp.asarray(a.float().numpy(), jnp.bfloat16 if a.dtype == torch.bfloat16
+                            else jnp.float32) for a in ops]
+        ref = jax.jit(lambda *a: jax_fn(*a, DEMO_HEADS))(*jops)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        if dtype == "bfloat16":
+            tol = 2e-2
+        else:
+            tol = 1e-5 if which == "pool" else 1e-4
+        by_design = which == "unpool" and drift and dtype == "bfloat16"
+        for q, (a, p_, r) in enumerate(zip(got, plain, ref)):
+            a = a.float().numpy()
+            if not by_design:
+                assert _maxrel(a, p_.float().numpy()) < tol, (dtype, q, "plain")
+            assert _maxrel(a, np.asarray(r, np.float32)) < tol, (dtype, q, "jax")

@@ -477,7 +477,9 @@ def test_mirrors_of_the_new_plans_use_the_sources_constants():
     WMMA unpool backward's tiles, the pool backward fold's row block and
     the resident pool backward's point tiles; the column block of a WMMA
     pool block divides I and fits; the two-pass bodies and the resident
-    pool's backward fit where their switches and checks say."""
+    pool's backward fit where their switches and checks say; the Hopper
+    pool forward's point chunk, head widths and ring depths, and the Hopper
+    unpool's point tile, rings and column blocks."""
     for name in ("induced_attention.cu", "induced_attention_bwd.cu"):
         text = (_build.CSRC / name).read_text()
         widths = tuple(int(w) for w in re.findall(r"case (\d+):", text))
@@ -518,3 +520,26 @@ def test_mirrors_of_the_new_plans_use_the_sources_constants():
     assert tfa._pool_layer_bwd_tile(768, 64, 48) == 32
     # the fold's block bytes stop growing at 64 rows
     assert tfa._pool_bwd_fold_smem(384, 256, 128) == tfa._pool_bwd_fold_smem(384, 64, 128)
+    # the Hopper pool forward's chunk kernel: its point chunk, its head
+    # widths (chunk_smem's cases), its ring depth by heads a block; the
+    # Hopper unpool's point tile, rings and column blocks (2 NW per
+    # unpool_tile_kernel<NW>: C itself up to 384, else 192)
+    text = (_build.CSRC / "pool_ext.cu").read_text()
+    assert int(re.search(r"constexpr int kTM = (\d+);", text).group(1)) == tfa._POOL_CHUNK
+    launch = text[text.index("int chunk_smem("):]
+    widths = tuple(int(w) for w in re.findall(r"case (\d+): total", launch))
+    assert widths == tfa._POOL_HOPPER_WIDTHS
+    assert "kRing = G == 8 ? 3 : 2;" in text and "H % 4 != 0" in launch
+    assert "const bool g8 = H % 8 == 0;" in launch and tfa._pool_ext_group(12) == 4
+    text = (_build.CSRC / "unpool.cu").read_text()
+    assert int(re.search(r"constexpr int kTile = (\d+);", text).group(1)) == tfa._UNPOOL_TILE
+    assert int(re.search(r"constexpr int kKRing = (\d+);", text).group(1)) == 4
+    assert int(re.search(r"constexpr int kVRing = (\d+);", text).group(1)) == 2
+    blocks = {int(cb): 2 * int(nw) for cb, nw in
+              re.findall(r"case (\d+): kernel = unpool_tile_kernel<(\d+)>", text)}
+    assert all(cb == w for cb, w in blocks.items()) and 384 not in blocks
+    assert "default: kernel = unpool_tile_kernel<192>;" in text
+    assert "const int CB = C <= 384 ? C : 192;" in text
+    for c in range(64, 385, 64):
+        assert c in blocks or c == 384
+        assert tfa._unpool_hopper_takes(c, c // 32, 64)

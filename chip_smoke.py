@@ -27,7 +27,11 @@ Phases (each raises on failure; nothing is caught):
    drifted dbe beside a witness of its looser one); times, bounds and, for
    pool and unpool, the backward of per-head ``scaled_dot_product_attention``;
    the unpool backward's WMMA body beside its Hopper body at both widths;
-   the backwards' bodies at the demo model's and three heads' shapes; the
+   the pool and unpool backwards' Hopper bodies at the demo model's and
+   three heads' shapes (dqf, dkf and dvf the same bits in two calls), each
+   timed in turns with its WMMA body forced on the same operands beside
+   SDPA's backward and the bound, the WMMA bodies held at 48 inducers of
+   the demo's width; the MLP backward's bodies there; the
    pool backward's v1, v2 and v2j algebras (``GECCO_POOL_BWD``) at both
    widths and at three heads, ordinary and drifted, each in its Hopper
    body and its WMMA body, against their plain versions, the Hopper body's
@@ -123,9 +127,10 @@ Phases (each raises on failure; nothing is caught):
    fp32 (the plain bf16 path printed beside it); a ``BroadcastingLayer``
    called without channel sums under ``torch.no_grad`` (the resident pool
    with its statistics) against the plain layer; a ``Broadcast`` with
-   three heads (the resident pool's and the unpool's WMMA bodies, forward
-   and backward) against ``xla`` and its gradient against the plain path
-   in fp32; each run's launches exact;
+   three heads (the resident pool's WMMA bodies forward and backward, the
+   unpool forward's WMMA body and its backward's Hopper body) against
+   ``xla`` and its gradient against the plain path in fp32; each run's
+   launches exact;
 16. upsample path: the flagship on ``folded_pallas`` upsamples one
    2048-point observation to 102,400 points through ``Diffusion.upsample``
    on ``scripts/demo_upsample_100k.py``'s protocol (64-step extended grid, 5
@@ -141,16 +146,18 @@ Phases (each raises on failure; nothing is caught):
    [0, 1], MMD finite and non-negative;
 18. demo sampler path: ``scripts/demo_upsample_100k.py``'s default model (3 x
    128, 4 heads of 32 channels, 64 inducers) samples 48 2048-point clouds
-   with the 128-step Heun grid: the forwards' WMMA bodies (pool, unpool
-   and MLP) and the h-side kernel 3 x 254 times each, the Hopper pool,
-   unpool and MLP never; then the 8-step sample against the plain path;
+   with the 128-step Heun grid: the Hopper pool and unpool, the MLP's
+   WMMA body and the h-side kernel 3 x 254 times each, the pool's and
+   unpool's WMMA bodies and the Hopper MLP never; then the 8-step sample
+   against the plain path;
 19. demo training path: the same model trains at batch 48 as in phase 8
    (ROADMAP.md C4): one step's gradient against the plain path, then 3 +
-   20 steps, per step and layer the forwards' WMMA bodies, the pool and
-   MLP backwards' WMMA bodies and the unpool backward's Hopper body once
-   each; then one gradient of the flagship with three heads (C 384, D 128)
-   against the plain path, which runs the WMMA bodies of the pool and
-   unpool forwards and backwards and the Hopper MLP forward and backward;
+   20 steps, per step and layer the Hopper pool and unpool forwards and
+   backwards, the h-side and the MLP's WMMA bodies (forward and backward)
+   once each; then one gradient of the flagship with three heads (C 384,
+   D 128) against the plain path, which runs the pool and unpool
+   forwards' WMMA bodies, their backwards' Hopper bodies and the Hopper
+   MLP forward and backward;
 20. pool backward bodies on the training path: the flagship of phase 8
    trains under ``GECCO_POOL_BWD`` forced to v1, v2 and v2j in turn (the
    module global it sets at import, restored after): per body one step's
@@ -185,7 +192,10 @@ Phases (each raises on failure; nothing is caught):
    gradient against the plain path;
 22. ragged point counts (ROADMAP C1): every body of the point-tiled
    functions (the pool, unpool and MLP forwards and backwards, Hopper and
-   WMMA bodies, and the resident pool with and without its pre-norm) at N
+   WMMA bodies, the pool and unpool backwards' Hopper bodies at the
+   flagship's, the demo's and three heads' widths and their WMMA bodies at
+   48 inducers of the demo's width, and the resident pool with and without
+   its pre-norm) at N
    2000 (padded to 2048 on the card), the pools' also at N 2050 (a 64-point
    chunk of padding alone), ordinary and drifted, against its plain
    version at the unpadded N with the tolerance of its N 2048 check,
@@ -219,12 +229,13 @@ WMMA bodies at both widths, ordinary and drifted, times both at both
 it holds the MLP backward's Hopper and WMMA bodies at both widths,
 ordinary and drifted, times both at both in turns, and requires every
 gradient of the Hopper body (dw1t and dw2t among them) to be the same bits
-in two calls; and it holds the pool backward's WMMA body (the demo, three
-heads), the unpool backward's Hopper body (the demo) and WMMA body (three
-heads) and the MLP backward's WMMA body (the demo's C 128) and Hopper
-body (three heads' C 384), and fails unless those checks ran the expected
-bodies; it times the pool and unpool backwards' WMMA bodies with three
-heads beside the SDPA backward at those heads.
+in two calls; and it holds the pool and unpool backwards' Hopper bodies
+(the demo, three heads) and WMMA bodies (48 inducers at the demo's
+width), the MLP backward's WMMA body (the demo's C 128) and Hopper body
+(three heads' C 384), and fails unless those checks ran the expected
+bodies; it times each pool and unpool backward's Hopper body in turns with
+its WMMA body at the demo's and three heads' shapes, beside the SDPA
+backward and the bound there.
 
 Phases 3, 4 and 14 also time, beside the SDPA yardstick of the pools and
 unpools, the whole function as a chain of PyTorch calls (pre-norm,
@@ -1458,18 +1469,20 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
     # they feed) the same bits in two calls of the Hopper body. On the CPU
     # both "bodies" are the plain version.
     def unpool_bodies(shape, drift):
+        """-> (operands, the wrapper, the WMMA body forced on the same
+        operands, the plain version)."""
         bb, nn_, cc, hh, ii = shape
         ops = unpool_operands(g, bb, nn_, cc, hh, ii, drift, device, dt)
         gg, gs = (0.1 * r(bb, nn_, cc)).to(dt), 1e-3 * r(bb, 2, cc)
         plain = lambda: fa._unpool_bwd_ref(*ops, gg, gs, hh)
         if device.type != "cuda":
-            return plain, plain, plain
+            return ops, plain, plain, plain
 
         def wmma():
             dx, dse, dbe, dkf, dvf = fa._unpool_bwd_wmma(*ops, gg, gs, hh, True, True)
             return (dx, dse, dbe, *fa._chain_unpool(dkf, dvf, *ops[3:], hh))
 
-        return lambda: fa.folded_unpool_bwd(*ops, gg, gs, hh), wmma, plain
+        return ops, lambda: fa.folded_unpool_bwd(*ops, gg, gs, hh), wmma, plain
 
     un_rec = rec["folded_unpool_bwd"]
     wm_rec = dict(un_rec)  # the same function at the same shapes: bound and yardsticks
@@ -1479,12 +1492,12 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
         if device.type == "cuda" and fa._unpool_bwd_body(*shape) != "hopper":
             raise AssertionError(f"the unpool backward at the {width} is not the Hopper body's")
         for drift in (False, True):
-            hopper, wmma, plain = unpool_bodies(shape, drift)
+            _, hopper, wmma, plain = unpool_bodies(shape, drift)
             tag = f"{width}, {'drift' if drift else 'ordinary'}"
             if key:
                 compare("folded_unpool_bwd", f"Hopper body, {tag}", hopper, plain)
             wm_errs.append(compare("folded_unpool_bwd", f"WMMA body, {tag}", wmma, plain))
-        hopper, wmma, _ = unpool_bodies(shape, False)
+        _, hopper, wmma, _ = unpool_bodies(shape, False)
         turns = bodies_in_turns(hopper, wmma, device, reps)
         for out, t, body in ((un_rec, turns["hopper"], "Hopper"), (wm_rec, turns["wmma"], "WMMA")):
             out["ms" + key] = statistics.median(t)
@@ -1499,7 +1512,6 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
               f"{'the same bits' if same else 'DIFFER'}")
         if device.type == "cuda" and not same:
             raise AssertionError("the unpool backward's dkf/dvf differ between two calls")
-    wm_rec["max_abs_err"] = max(wm_errs)
 
     # the MLP backward's two bodies at both widths on the same operands,
     # ordinary and drifted (the flagship's Hopper body is checked above);
@@ -1547,28 +1559,74 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
         if device.type == "cuda" and not same:
             raise AssertionError("the MLP backward's gradients differ between two calls")
 
-    # the bodies that the demo model (C 128, 4 heads of 32) and three heads
-    # at the flagship's width take: the pool backward's WMMA body (its
-    # drifted dbe also against the v3 witness), the unpool's Hopper body
-    # (demo) and WMMA body (three heads), the MLP backward at C 128; each
-    # against the plain version, ordinary and drifted; timed at the demo's
-    # shapes (median of 20 calls)
+    # the pool and unpool backwards at the demo model's shapes (C 128, 4
+    # heads of 32) and with three heads at the flagship's width (D 128, J
+    # 192), which their Hopper bodies take: each against autograd of its
+    # plain version, ordinary and drifted (the pool's drifted dbe also
+    # against the v3 witness); dqf (through dind2) and dkf, dvf (through dk,
+    # dv) the same bits in two calls; then each Hopper body and its WMMA body
+    # forced on the same operands, in turns (10 WMMA, 20 Hopper, 10 WMMA
+    # calls), with both bodies' device times, SDPA's backward and the bound
+    # beside them. The WMMA bodies are held where they still serve: 48
+    # inducers at the demo's width. The MLP backward at the demo's C 128
+    # (its WMMA body) and at three heads' width (the flagship's C 384: the
+    # Hopper body, the MLP sees no heads).
     db, dn, dc, dh, di = (demo[k] for k in ("batch", "n_points", "feature_dim", "num_heads",
                                             "num_inducers"))
-    dshape = (db, dn, dc, dh, di)
+    new_shapes = {"demo": (db, dn, dc, dh, di), "heads3": hshape}
+    wshape = (db, dn, dc, dh, 48)  # the WMMA bodies' own: another I
+    cuda = device.type == "cuda"
+
+    def pool_bodies(shape, drift):
+        """-> (operands, the wrapper, the WMMA body forced on the same
+        operands (on the CPU the plain version), the plain version, the v3
+        witness)."""
+        bb, nn_, cc, hh, ii = shape
+        ops = pool_operands(g, bb, nn_, cc, hh, ii, drift, device, dt)
+        gh = (0.1 * r(bb, ii, cc)).to(dt)
+        plain = lambda: fa._pool_ext_bwd_ref(*ops, gh, hh)
+        witness = lambda: pool_bwd_v3_affine(*ops, gh, hh)
+        if not cuda:
+            return ops, plain, plain, plain, witness
+        x, se, be, ind2, kvw, wo = ops
+        _, qft, macc, sacc = fa._pool_ext_launch(*ops, hh, True)
+
+        def wmma():
+            dx, dse, dbe, dqf, dwv, dwo = fa._pool_ext_bwd_wmma(x, se, be, qft, kvw, wo, gh, macc,
+                                                                sacc, hh)
+            return (dx, dse, dbe, *fa._chain_dqf(dqf, dwv, ind2, kvw, hh), dwo.to(wo.dtype))
+
+        return (ops, lambda: fa.folded_pool_ext_bwd(*ops, qft, macc, sacc, gh, hh), wmma, plain,
+                witness)
+
+    def bwd_bound(name, shape, ops, outs):
+        """The bound at ``shape``: the products and bytes of ``cases``."""
+        bb, nn_, cc, hh, ii = shape
+        jj, dd = hh * ii, cc // hh
+        if name == "folded_pool_ext_bwd":
+            flops = 6 * 2 * bb * nn_ * cc * jj + 6 * 2 * bb * jj * dd * cc
+            cot = 2 * bb * ii * cc + 2 * 4 * bb * jj
+        else:
+            flops = 6 * 2 * bb * nn_ * cc * jj + 2 * 2 * bb * jj * dd * cc
+            cot = 2 * bb * nn_ * cc + 4 * 2 * bb * cc
+        return bound(flops, nbytes(*[a for a in ops if torch.is_tensor(a)], *outs) + cot)
+
     kernels.reset_launch_counts()
-    pw_errs = []
-    for shape in (dshape, hshape):
+    for shape in new_shapes.values():
         for drift in (False, True):
-            tag = f"C {shape[2]}, {shape[3]} heads, {'drift' if drift else 'ordinary'}"
-            _, kernel, plain, witness = pool_case(*shape, drift)
-            pw_errs.append(compare("folded_pool_ext_bwd", f"WMMA body, {tag}", kernel, plain,
-                                   witness if drift else None))
-            hopper, wmma, plain = unpool_bodies(shape, drift)
+            tag = f"Hopper body, C {shape[2]}, {shape[3]} heads, {'drift' if drift else 'ordinary'}"
+            _, hopper, _, plain, witness = pool_bodies(shape, drift)
+            compare("folded_pool_ext_bwd", tag, hopper, plain, witness if drift else None)
+            _, hopper, _, plain = unpool_bodies(shape, drift)
             compare("folded_unpool_bwd", tag, hopper, plain)
-    # the MLP backward at the demo's C 128 (the WMMA body) and at three
-    # heads' width, which is the flagship's C 384 (the Hopper body: the MLP
-    # sees no heads)
+    pw_errs = []
+    for drift in (False, True):
+        tag = f"WMMA body, C {dc}, {dh} heads, I {wshape[4]}, {'drift' if drift else 'ordinary'}"
+        _, kernel, _, plain, witness = pool_bodies(wshape, drift)
+        pw_errs.append(compare("folded_pool_ext_bwd", tag, kernel, plain,
+                               witness if drift else None))
+        _, kernel, _, plain = unpool_bodies(wshape, drift)
+        wm_errs.append(compare("folded_unpool_bwd", tag, kernel, plain))
     mlp_demo_errs = []
     for (mb, mn, mc), what in (((db, dn, dc), "WMMA body, "), (hshape[:3], "three heads' width, ")):
         for drift in (False, True):
@@ -1583,37 +1641,79 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
     counts = kernels.launch_counts()
     print(f"  launches of the backwards' bodies in these checks: "
           f"{ {k: counts[k] for k in FOLDED_BACKWARD + WMMA_BACKWARD} }")
-    if device.type == "cuda" and not (counts["folded_pool_ext_bwd_wmma"] == 4
-                                      and counts["folded_pool_ext_bwd"] == 0
-                                      and counts["folded_unpool_bwd"] == 2
-                                      and counts["folded_unpool_bwd_wmma"] == 2
-                                      and counts["fused_mlp_residual_bwd_wmma"] == 2
-                                      and counts["fused_mlp_residual_bwd"] == 2):
-        raise AssertionError(f"the demo and num_heads=3 shapes did not run the expected "
+    if cuda and not (counts["folded_pool_ext_bwd"] == 4 and counts["folded_pool_ext_bwd_wmma"] == 2
+                     and counts["folded_unpool_bwd"] == 4
+                     and counts["folded_unpool_bwd_wmma"] == 2
+                     and counts["fused_mlp_residual_bwd_wmma"] == 2
+                     and counts["fused_mlp_residual_bwd"] == 2):
+        raise AssertionError(f"the demo, num_heads=3 and I 48 shapes did not run the expected "
                              f"backward bodies: {counts}")
-    ops, kernel, plain, _ = pool_case(*dshape, False)
-    pw_rec = dict(max_abs_err=max(pw_errs), ms=time_ms(kernel, device, reps),
-                  plain_ms=time_ms(plain, device, max(2, reps // 4)),
-                  library_ms=time_ms(sdpa_pool_bwd(ops, dh, g), device, reps),
-                  library_chain_ms=time_ms(chain_backward(chain_pool, ops, dh,
-                                                          ((0.1 * rc(db, di, dc)).to(dt),)),
-                                           device, reps))
-    dd, dj = dc // dh, dh * di
-    pw_rec["bound_ms"], pw_rec["bound_by"] = bound(
-        6 * 2 * db * dn * dc * dj + 6 * 2 * db * dj * dd * dc,
-        nbytes(*[a for a in ops if torch.is_tensor(a)], *kernel())
-        + 2 * db * di * dc + 2 * 4 * db * dj)
-    # the WMMA bodies with three heads, each beside its SDPA backward
-    # yardstick at those heads (the rows of PERF.md's table that rank them)
-    ops, kernel, *_ = pool_case(*hshape, False)
-    pw_rec["ms_heads3"] = time_ms(kernel, device, reps)
-    pw_rec["library_ms_heads3"] = time_ms(sdpa_pool_bwd(ops, hshape[3], g), device, reps)
-    hopper, wmma, _ = unpool_bodies(dshape, False)
-    un_rec["ms_demo"] = time_ms(hopper, device, reps)
-    _, wmma, _ = unpool_bodies(hshape, False)
-    wm_rec["ms_heads3"] = time_ms(wmma, device, reps)
-    uops = unpool_operands(g, *hshape, False, device, dt)
-    wm_rec["library_ms_heads3"] = time_ms(sdpa_unpool_bwd(uops, hshape[3], g), device, reps)
+
+    # each Hopper body against its WMMA body, in turns, at the new shapes
+    pool_rec, pw_rec = rec["folded_pool_ext_bwd"], {}
+    for width, shape in new_shapes.items():
+        sfx = f"_{width}"
+        ops, hopper, wmma, _, _ = pool_bodies(shape, False)
+        uops, u_hopper, u_wmma, _ = unpool_bodies(shape, False)
+        first, again = hopper(), hopper()
+        u_first, u_again = u_hopper(), u_hopper()
+        sync(device)
+        same = (torch.equal(first[3], again[3]) and torch.equal(u_first[3], u_again[3])
+                and torch.equal(u_first[4], u_again[4]))
+        print(f"  at the {width}'s shapes: the pool's dind2 (from dqf), the unpool's dk and dv "
+              f"(from dkf and dvf) of two calls {'the same bits' if same else 'DIFFER'}")
+        if cuda and not same:
+            raise AssertionError(f"a backward's weight gradients differ between two calls at "
+                                 f"the {width}'s shapes")
+        for name, h_rec, w_rec, hop, wm, args, lib, outs in (
+                ("folded_pool_ext_bwd", pool_rec, pw_rec, hopper, wmma, ops,
+                 sdpa_pool_bwd(ops, shape[3], g), first),
+                ("folded_unpool_bwd", un_rec, wm_rec, u_hopper, u_wmma, uops,
+                 sdpa_unpool_bwd(uops, shape[3], g), u_first)):
+            turns = bodies_in_turns(hop, wm, device, reps)
+            for out, t in ((h_rec, turns["hopper"]), (w_rec, turns["wmma"])):
+                out["ms" + sfx], out["ms_min_max" + sfx] = statistics.median(t), [t[0], t[-1]]
+            h_rec["device_ms" + sfx] = device_ms(hop, device)
+            w_rec["device_ms" + sfx] = device_ms(wm, device)
+            h_rec["library_ms" + sfx] = time_ms(lib, device, reps)
+            h_rec["library_device_ms" + sfx] = device_ms(lib, device)
+            h_rec["bound_ms" + sfx], h_rec["bound_by" + sfx] = bwd_bound(name, shape, args, outs)
+            print(f"  {name} at the {width}'s shapes {shape}, in turns (median, min, max of "
+                  f"{len(turns['hopper'])} calls): Hopper body {h_rec['ms' + sfx]:.3f} "
+                  f"({turns['hopper'][0]:.3f}, {turns['hopper'][-1]:.3f}) ms, WMMA body "
+                  f"{w_rec['ms' + sfx]:.3f} ({turns['wmma'][0]:.3f}, {turns['wmma'][-1]:.3f}) "
+                  f"ms; device time a call: Hopper {fmt_ms(h_rec['device_ms' + sfx])}, WMMA "
+                  f"{fmt_ms(w_rec['device_ms' + sfx])}, sdpa backward "
+                  f"{fmt_ms(h_rec['library_device_ms' + sfx])} (event time "
+                  f"{h_rec['library_ms' + sfx]:.3f} ms); bound {h_rec['bound_ms' + sfx]:.3f} ms "
+                  f"({h_rec['bound_by' + sfx]})")
+
+    # the WMMA bodies' own records at the shape they serve (I 48 at the
+    # demo's width); the unpool's flagship readings above kept as
+    # ``*_flagship``
+    for k in ("ms", "ms_min_max", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "library_chain_ms"):
+        wm_rec[k + "_flagship"] = wm_rec.pop(k)
+    wb, wn, wc, wh, wi = wshape
+    pool_w = pool_bodies(wshape, False)
+    unpool_w = unpool_bodies(wshape, False)
+    for name, w_rec, errs, (ops, kernel, plain), library, chain in (
+            ("folded_pool_ext_bwd", pw_rec, pw_errs, (pool_w[0], pool_w[1], pool_w[3]),
+             sdpa_pool_bwd(pool_w[0], wh, g),
+             chain_backward(chain_pool, pool_w[0], wh, ((0.1 * rc(wb, wi, wc)).to(dt),))),
+            ("folded_unpool_bwd", wm_rec, wm_errs, (unpool_w[0], unpool_w[1], unpool_w[3]),
+             sdpa_unpool_bwd(unpool_w[0], wh, g),
+             chain_backward(chain_unpool, unpool_w[0], wh,
+                            ((0.1 * rc(wb, wn, wc)).to(dt), 1e-3 * rc(wb, 2, wc))))):
+        w_rec.update(max_abs_err=max(errs), ms=time_ms(kernel, device, reps),
+                     plain_ms=time_ms(plain, device, max(2, reps // 4)),
+                     library_ms=time_ms(library, device, reps),
+                     library_chain_ms=time_ms(chain, device, reps))
+        w_rec["bound_ms"], w_rec["bound_by"] = bwd_bound(name, wshape, ops, kernel())
+        print(f"  {name}, WMMA body, at its own shapes {wshape}: {w_rec['ms']:.3f} ms (plain "
+              f"{w_rec['plain_ms']:.3f}, library {w_rec['library_ms']:.3f}, chain "
+              f"{w_rec['library_chain_ms']:.3f}, bound {w_rec['bound_ms']:.3f} "
+              f"({w_rec['bound_by']}))")
     ops = mlp_operands(g, db, dn, dc, 2 * dc, False, device, dt)
     gg, gs = (0.1 * r(db, dn, dc)).to(dt), 1e-3 * r(db, 2, dc)
     kernel = lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs)
@@ -1625,16 +1725,9 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
         nbytes(*[a for a in ops if torch.is_tensor(a)], *kernel()) + 2 * db * dn * dc
         + 4 * 2 * db * dc)
     rec["fused_mlp_residual_bwd_wmma"] = mlp_wm
-    print(f"  folded_pool_ext_bwd, WMMA body: {pw_rec['ms']:.3f} ms at the demo's shapes "
-          f"(plain {pw_rec['plain_ms']:.3f}, library {pw_rec['library_ms']:.3f}, chain "
-          f"{pw_rec['library_chain_ms']:.3f}, bound {pw_rec['bound_ms']:.3f} "
-          f"({pw_rec['bound_by']})), {pw_rec['ms_heads3']:.3f} ms with three heads at C "
-          f"{hshape[2]} (sdpa backward {pw_rec['library_ms_heads3']:.3f}); folded_unpool_bwd: "
-          f"Hopper body {un_rec['ms_demo']:.3f} ms at the demo's shapes, WMMA body "
-          f"{wm_rec['ms_heads3']:.3f} ms with three heads (sdpa backward "
-          f"{wm_rec['library_ms_heads3']:.3f}); fused_mlp_residual_bwd, WMMA "
-          f"body: {mlp_wm['ms']:.3f} ms at the demo's shapes (plain {mlp_wm['plain_ms']:.3f}, "
-          f"bound {mlp_wm['bound_ms']:.3f} ({mlp_wm['bound_by']}))")
+    print(f"  fused_mlp_residual_bwd, WMMA body: {mlp_wm['ms']:.3f} ms at the demo's shapes "
+          f"(plain {mlp_wm['plain_ms']:.3f}, bound {mlp_wm['bound_ms']:.3f} "
+          f"({mlp_wm['bound_by']}))")
     rec["folded_pool_ext_bwd_wmma"] = pw_rec
     rec["folded_unpool_bwd_wmma"] = wm_rec
     return rec
@@ -2351,7 +2444,8 @@ def module_phase(device, shapes, train_batch, dt):
     a difference of near-equal numbers that the plain bf16 path takes
     after rounding dp (chip reading: 5.6e-2 between the two bf16 paths).
     Then a Broadcast with three heads forward and gradient (the resident
-    pool's and the unpool's WMMA bodies). Returns the launch counts of the runs together,
+    pool's and the unpool forward's WMMA bodies, the unpool backward's
+    Hopper body). Returns the launch counts of the runs together,
     and those of the sums-less layer's run alone (the resident pool with
     its pre-norm)."""
     b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
@@ -2410,7 +2504,7 @@ def module_phase(device, shapes, train_batch, dt):
                   rel_err(a, rr), TOL_PATH)
     broadcast_gradient(bc3, x[:tb], embed[:tb], dt, run,
                        {"folded_pool_layer_wmma": 1, "folded_unpool_wmma": 1,
-                        "folded_pool_layer_bwd_wmma": 1, "folded_unpool_bwd_wmma": 1},
+                        "folded_pool_layer_bwd_wmma": 1, "folded_unpool_bwd": 1},
                        f"Broadcast with {h3} heads gradient (batch {tb})")
 
     with torch.no_grad():
@@ -2755,17 +2849,16 @@ def demo_train_phase(device, demo_dims, batch, heads3_dims, card, steps):
     """ROADMAP C4's two models train on the card: the upsample demo's
     model (3 x 128, 4 heads) through ``train_phase`` (its gradient against
     the plain path, then timed steps: the Hopper pool and unpool forwards,
-    the MLP forward's WMMA body, the pool backward's WMMA body, the unpool
-    backward's Hopper body and the MLP backward's WMMA body, each once per
-    layer and step); then one gradient
-    of the flagship with three heads (C 384, D 128) against the plain path,
-    whose kernel path runs the WMMA bodies of all four pool and unpool
-    functions and the Hopper MLP (the MLP sees no heads). Returns both
-    runs' launch counts and the demo's record."""
+    the MLP forward's WMMA body, the Hopper pool and unpool backwards and
+    the MLP backward's WMMA body, each once per layer and step); then one
+    gradient of the flagship with three heads (C 384, D 128) against the
+    plain path, whose kernel path runs the pool and unpool forwards' WMMA
+    bodies, their backwards' Hopper bodies and the Hopper MLP (the MLP sees
+    no heads). Returns both runs' launch counts and the demo's record."""
     n_layers = demo_dims["n_layers"]
     layers = lambda k: {name: k * n_layers for name in (
         "folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual_wmma",
-        "folded_pool_ext_bwd_wmma", "folded_unpool_bwd", "fused_mlp_residual_bwd_wmma")}
+        "folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd_wmma")}
     counts, rec = train_phase(device, n_layers, batch, demo_dims["n_points"], card, steps,
                               dims=demo_dims, expect=layers)
 
@@ -2782,7 +2875,7 @@ def demo_train_phase(device, demo_dims, batch, heads3_dims, card, steps):
     check_counts("num_heads=3 gradient", h_counts, expected_counts(
         {k: h_layers for k in ("folded_pool_ext_wmma", "fused_h_side", "folded_unpool_wmma",
                                "fused_mlp_residual", "fused_mlp_residual_bwd",
-                               "folded_pool_ext_bwd_wmma", "folded_unpool_bwd_wmma")}), device)
+                               "folded_pool_ext_bwd", "folded_unpool_bwd")}), device)
     return counts, h_counts, rec
 
 
@@ -2956,15 +3049,25 @@ def ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ns, n_laye
         return make
 
     pool_names = ("dx", "dse", "dbe", "dind2", "dkvw", "dwo")
+    # the pool and unpool backwards' Hopper bodies at the flagship's, the
+    # demo's and three heads' widths, their WMMA bodies at 48 inducers of
+    # the demo's width
+    unpool_names = ("dx", "dse", "dbe", "dk", "dv", "dwq", "dwo")
     bwd = (
         ("folded_pool_ext_bwd", "folded_pool_ext_bwd_wmma", ns, pool_bwd(tb, c, heads, i),
          pool_names),
-        ("folded_pool_ext_bwd_wmma", "folded_pool_ext_bwd", ns, pool_bwd(tb, dc, dh, di),
+        ("folded_pool_ext_bwd", "folded_pool_ext_bwd_wmma", ns, pool_bwd(tb, dc, dh, di),
+         pool_names),
+        ("folded_pool_ext_bwd", "folded_pool_ext_bwd_wmma", ns[:1], pool_bwd(tb, hc, hh, i),
+         pool_names),
+        ("folded_pool_ext_bwd_wmma", "folded_pool_ext_bwd", ns[:1], pool_bwd(tb, dc, dh, 48),
          pool_names),
         ("folded_unpool_bwd", "folded_unpool_bwd_wmma", ns[:1], unpool_bwd(tb, c, heads, i),
-         ("dx", "dse", "dbe", "dk", "dv", "dwq", "dwo")),
-        ("folded_unpool_bwd_wmma", "folded_unpool_bwd", ns[:1], unpool_bwd(tb, hc, hh, i),
-         ("dx", "dse", "dbe", "dk", "dv", "dwq", "dwo")),
+         unpool_names),
+        ("folded_unpool_bwd", "folded_unpool_bwd_wmma", ns[:1], unpool_bwd(tb, hc, hh, i),
+         unpool_names),
+        ("folded_unpool_bwd_wmma", "folded_unpool_bwd", ns[:1], unpool_bwd(tb, dc, dh, 48),
+         unpool_names),
         ("fused_mlp_residual_bwd", "fused_mlp_residual_bwd_wmma", ns[:1], mlp_bwd(tb, c),
          ("dx", "dse", "dbe", "dw1t", "db1", "dw2t", "db2")),
         ("fused_mlp_residual_bwd_wmma", "fused_mlp_residual_bwd", ns[:1], mlp_bwd(tb, dc),
@@ -3303,7 +3406,7 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
                  **{f"folded_pool_ext_bwd_{body}": 1}), dict(pool_bwd=body))
         cases[f"the flagship with {h3} heads under GECCO_POOL_BWD={body}"] = (
             dict(base, num_heads=h3), "folded_pallas", wmma,
-            dict(wmma, folded_unpool_bwd_wmma=1, fused_mlp_residual_bwd=1,
+            dict(wmma, folded_unpool_bwd=1, fused_mlp_residual_bwd=1,
                  **{f"folded_pool_ext_bwd_{body}": 1}), dict(pool_bwd=body))
         # the demo's width (C 128, four heads): the WMMA two-pass body
         cases[f"the demo's width under GECCO_POOL_BWD={body}"] = (
@@ -3775,7 +3878,8 @@ def main():
 
     train_shapes = dict(shapes, batch=train_batch)
     print(f"== backward kernels vs autograd of the plain versions ({train_shapes}; "
-          f"8k pool {big}) on {card}")
+          f"8k pool {big}; the Hopper and WMMA pool and unpool backwards at {demo} and "
+          f"{dict(heads3, batch=train_batch)}) on {card}")
     rec.update(backward_phase(device, train_shapes, big, demo, dict(heads3, batch=train_batch),
                               dt, reps))
 
@@ -3862,9 +3966,9 @@ def main():
     print(f"  {demo_path['clouds_per_s']:.3f} clouds/s on {card}")
 
     print(f"== demo training path: scripts/demo_upsample_100k.py's model ({demo_dims}), batch "
-          f"{train_batch}, {train_steps[0]} + {train_steps[1]} steps (the backwards' bodies at "
-          f"C {demo_dims['feature_dim']}); then one gradient with three heads ({heads3_dims}), "
-          f"on {card}")
+          f"{train_batch}, {train_steps[0]} + {train_steps[1]} steps (the Hopper pool and unpool "
+          f"backwards, the MLP backward's WMMA body); then one gradient with three heads "
+          f"({heads3_dims}), on {card}")
     demo_train_counts, heads3_counts, demo_train = demo_train_phase(
         device, demo_dims, train_batch, heads3_dims, card, train_steps)
 
@@ -3906,7 +4010,7 @@ def main():
     shape_counts.update(c1_counts)
 
     print(f"== ragged point counts (ROADMAP C1): every point-tiled body at N {ragged_ns} "
-          f"(forwards at batch {shapes['batch']}, backwards at {train_batch}; WMMA bodies at "
+          f"(forwards at batch {shapes['batch']}, backwards at {train_batch}; at the widths of "
           f"{demo} and {heads3}), then the flagship at N {ragged_ns[0]}, on {card}")
     ragged = ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ragged_ns,
                           n_layers)
@@ -3960,14 +4064,16 @@ def main():
     # path's for its backward, the per-head paths' for the rect attention,
     # the megakernel sampler's for the megakernel and the module-level
     # folded path's for the resident pool and its backward (their WMMA
-    # bodies': the three-head Broadcast's), split by variant: the sums-less layer's run gave the
-    # pre-norm launches (nested under "prenorm", as their times are), the
-    # Broadcast's runs the rest; the demo sampler's for the MLP forward's
-    # WMMA body, the num_heads=3 gradient's for the pool and unpool
-    # forwards' WMMA bodies and the unpool backward's, the demo training
-    # path's for the pool and MLP backwards' WMMA bodies; the forced-body training paths' for the pool backward's
-    # v1, v2 and v2j (their Hopper body), phase 21's demo-width model's
-    # gradient under each for their WMMA body
+    # bodies': the three-head Broadcast's), split by variant: the sums-less
+    # layer's run gave the pre-norm launches (nested under "prenorm", as
+    # their times are), the Broadcast's runs the rest; the demo sampler's
+    # for the MLP forward's WMMA body, the num_heads=3 gradient's for the
+    # pool and unpool forwards' WMMA bodies, the demo training path's for
+    # the MLP backward's WMMA body, the gradient of the flagship with 32
+    # inducers (phase 21) for the pool and unpool backwards' WMMA bodies;
+    # the forced-body training paths' for the pool backward's v1, v2 and
+    # v2j (their Hopper body), phase 21's demo-width model's gradient under
+    # each for their WMMA body
     pool_counts = {}
     for name in ("folded_pool_layer", "folded_pool_layer_wmma", "folded_pool_layer_bwd",
                  "folded_pool_layer_bwd_wmma"):
@@ -3980,8 +4086,8 @@ def main():
                      "folded_pool_layer_bwd_wmma": pool_counts,
                      "folded_pool_ext_wmma": heads3_counts,
                      "folded_unpool_wmma": heads3_counts, "fused_mlp_residual_wmma": demo_counts,
-                     "folded_pool_ext_bwd_wmma": demo_train_counts,
-                     "folded_unpool_bwd_wmma": heads3_counts,
+                     "folded_pool_ext_bwd_wmma": shape_counts["the flagship with 32 inducers"][1],
+                     "folded_unpool_bwd_wmma": shape_counts["the flagship with 32 inducers"][1],
                      "fused_mlp_residual_bwd_wmma": demo_train_counts,
                      **{f"folded_pool_ext_bwd_{body}": tp_counts
                         for body, (tp_counts, _) in twopass_train.items()},

@@ -2,8 +2,9 @@
 // the Hopper body (TMA and wgmma), the train step's.
 //
 // Replaces gecco_tpu/ops/pallas/folded_attention.py:_pool_ext_bwd_kernel_v3
-// (the "fold everything" body that _pool_bwd_mode picks at the flagship and
-// the 8k width), with the same algebra and the same bf16 roundings. With
+// (the "fold everything" body that _pool_bwd_mode picks at the flagship,
+// the 8k width, the upsample demo's width and three heads), with the same
+// algebra and the same bf16 roundings. With
 // y = bf16(x * se + be), s = y @ qf [N, J] (qf^T = qft, the forward's
 // folded query), the forward's column max macc and sum sacc [J],
 // e = exp(max(s - macc, -80)) and the cotangent g_h0 [I, C], per batch
@@ -27,33 +28,47 @@
 // Bound on the H100: tensor-core operations (six [N, C] x [C, J]-sized
 // products per batch element, hundreds of FLOP per byte moved).
 //
+// Shapes: I == 64, C in (128, 384, 768), D = C / H a multiple of 16 and
+// the fold's block within the SM's shared memory (backward.cuh
+// pool_bwd_fold_smem): the flagship (C 384, 8 heads of 48), the 8k width
+// (C 768, 16 of 48), the upsample demo's width (C 128, 4 of 32) and three
+// heads (C 384, 3 of 128, J 192: pass 1 walks J in 64-row chunks and the
+// dqf product takes a 64-column tail). No pass needs D <= 64 or J % 128
+// == 0: the fold takes a head's rows in 64-row blocks at any D % 16 and
+// the weight gradients a 64-column tail. The rest (I != 64, C 256, 512,
+// 640) take csrc/pool_ext_bwd_wmma.cu.
+//
 // Design (six launches):
 // 0. prenorm_kernel (backward.cuh): y = bf16(x * se + be) [B, N, C] once,
 //    which the three products below read by TMA (each would otherwise
 //    pre-norm its tiles again: pass 0 once per head).
-// 1. pool_bwd_ety_kernel, one block per (head h, b, 384 columns of C): the
-//    TMA brings the head's qf^T_h [64, C] once and y in 64-point tiles
-//    through a ring (three stages at C 384, one at 768). The first of two
-//    warpgroups forms the head's logits by one m64n64 wgmma into registers
-//    (two narrower ones would read the tile from shared memory twice) and
-//    e there, and writes bf16 e^T to shared memory; then both add e^T @ y
-//    into their 192 columns of eTy_h (a [64, 192] fp32 accumulator each, 96
-//    registers a thread), y read MN-major by wgmma straight from the TMA
-//    tile. The accumulator leaves registers once, as bf16 eTy.
+// 1. pool_bwd_ety_kernel<CB>, one block per (head h, b, CB columns of C):
+//    the TMA brings the head's qf^T_h [64, C] once and y in 64-point tiles
+//    through a ring (three stages at C 128 and 384, one at 768). The
+//    first of two warpgroups forms the head's logits by one m64n64 wgmma
+//    into registers (two narrower ones would read the tile from shared
+//    memory twice) and e there, and writes bf16 e^T to shared memory; then
+//    both add e^T @ y into their CB / 2 columns of eTy_h (a [64, CB / 2]
+//    fp32 accumulator each: 96 registers a thread at CB 384, 32 at 128), y
+//    read MN-major by wgmma straight from the TMA tile. The accumulator
+//    leaves registers once, as bf16 eTy. CB is 384 at C 384 and 768, 128
+//    at C 128, whose grid (H x B = 192 blocks at the demo, each walking
+//    its element's 32 tiles) would leave a third of the SMs idle at one
+//    block a SM: its blocks run two a SM.
 // 2. pool_bwd_fold_kernel (backward.cuh, WMMA, one block per (head, b)):
 //    DMs, pacc, tacc, W3 and the dWo/dWv blocks by fp32 atomics.
-// 3. pool_bwd_dy_kernel, one block per (64-point tile, b, 384 columns):
-//    the y tile by TMA; J in chunks of JC rows (64 at C 384, 32 at 768) of
-//    qf^T and W3_b by TMA. Per chunk the first warpgroup forms s and the
-//    second y @ W3^T, each one wgmma of the chunk's width, the second's
-//    handed over through shared memory; the first forms e and ds in
-//    registers, bf16 into shared memory (and ds to device memory for the
-//    dqf product); both then add bf16(ds) @ qf^T + bf16(e) @ W3 into their
-//    192 columns of dy, the chunk read MN-major. The epilogue takes
-//    dx, dse and dbe from the registers (one fp32 atomic per column and
-//    block for the sums). At C 768 two blocks share a tile, each forming the
-//    tile's logits again for its half of dy (a [64, 768] accumulator does
-//    not fit).
+// 3. pool_bwd_dy_kernel<CB, JC>, one block per (64-point tile, b, CB
+//    columns): the y tile by TMA; J in chunks of JC rows (64 at C 128 and
+//    384, 32 at 768) of qf^T and W3_b by TMA. Per chunk the first
+//    warpgroup forms s and the second y @ W3^T, each one wgmma of the
+//    chunk's width, the second's handed over through shared memory; the
+//    first forms e and ds in registers, bf16 into shared memory (and ds to
+//    device memory for the dqf product); both then add bf16(ds) @ qf^T +
+//    bf16(e) @ W3 into their CB / 2 columns of dy, the chunk read MN-major.
+//    The epilogue takes dx, dse and dbe from the registers (one fp32
+//    atomic per column and block for the sums). At C 768 two blocks share
+//    a tile, each forming the tile's logits again for its half of dy (a
+//    [64, 768] accumulator does not fit); at C 128 two blocks share a SM.
 // 4. wgrad_kernel (wgrad.cuh), one block per (128 columns of J, 128 rows
 //    of C, split of the B*N points): y^T and ds by TMA through a
 //    four-stage ring, both read MN-major by wgmma; each split writes its
@@ -74,10 +89,21 @@ namespace {
 
 constexpr int kInd = 64;             // inducers per head (I)
 constexpr int kTile = 64;            // points per tile: one 64-row m-block
-constexpr int kCB = 384;             // columns of C per block (eTy, dy)
-constexpr int kHalf = kCB / 2;       // columns per consumer warpgroup
 constexpr int kPanel = kTile * 128;  // one 64-column panel of a 64-row tile
 constexpr int kBwdThreads = 256;     // two consumer warpgroups
+
+// The constants of a column block: CB columns of C a block (eTy, dy), CB /
+// 2 a consumer warpgroup. <384> is the flagship's, the 8k width's and three
+// heads'; <128> the upsample demo's, whose blocks (64-column accumulators)
+// share a SM two at a time, within the 128 registers a thread that leaves:
+// on the H100 one block a SM (no spill) took pass 0 from 0.065 to 0.084 ms
+// at the demo and pass 1 from 0.144 to 0.161, where both spill ~110 bytes
+// at two (PERF.md row 8).
+template <int CB>
+struct Cols {
+  static constexpr int kHalf = CB / 2;
+  static constexpr int kMinBlocks = CB == 128 ? 2 : 1;
+};
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
@@ -101,12 +127,13 @@ struct EtySmem {
 // kMask (here and in pool_bwd_dy_kernel): the tiles may hold a ragged
 // tail's padding (n_valid < N); without it the masks fold away (they cost
 // the backward ~17% at N 2048 on the H100)
-template <bool kMask>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+template <int CB, bool kMask>
+__global__ void __launch_bounds__(kBwdThreads, Cols<CB>::kMinBlocks)
 pool_bwd_ety_kernel(const __grid_constant__ CUtensorMap tm_y,
                     const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ macc, bf16* __restrict__ ety, int N, int n_valid,
                     int C, int J, int stages) {
+  constexpr int kHalf = Cols<CB>::kHalf;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const EtySmem L(C, stages);
@@ -148,7 +175,7 @@ pool_bwd_ety_kernel(const __grid_constant__ CUtensorMap tm_y,
     mcol[2 * g] = __ldg(mb + 8 * g + col);
     mcol[2 * g + 1] = __ldg(mb + 8 * g + col + 1);
   }
-  const int cb0 = cs * kCB + w * kHalf;  // the warpgroup's first column of eTy
+  const int cb0 = cs * CB + w * kHalf;  // the warpgroup's first column of eTy
   float acc[kHalf / 2];
   zero(acc);
   bar_wait(qfull, 0);
@@ -191,7 +218,7 @@ pool_bwd_ety_kernel(const __grid_constant__ CUtensorMap tm_y,
     }
     __syncthreads();
 
-    // eTy[:, cb0 .. cb0 + 192] += e^T @ y, y read MN-major from the tile
+    // eTy[:, cb0 .. cb0 + CB / 2] += e^T @ y, y read MN-major from the tile
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -221,7 +248,8 @@ pool_bwd_ety_kernel(const __grid_constant__ CUtensorMap tm_y,
 // and W3 rows, bf16 ds and e [64, JC] (whose 16 KB the epilogue's column
 // sums reuse), the barriers. One chunk buffer: two (32-row chunks, so that
 // the next loads while one computes) ran 7% slower at the flagship on the
-// H100, the narrower logits products costing more than the hidden loads.
+// H100, the narrower logits products costing more than the hidden loads;
+// at C 128 two 64-row chunk buffers took pass 1 from 0.140 to 0.144 ms.
 struct DySmem {
   int y, qc, wc, ds, e, bars, total;
   __host__ __device__ DySmem(int C, int JC) {
@@ -235,8 +263,8 @@ struct DySmem {
   }
 };
 
-template <int JC, bool kMask>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+template <int CB, int JC, bool kMask>
+__global__ void __launch_bounds__(kBwdThreads, Cols<CB>::kMinBlocks)
 pool_bwd_dy_kernel(const __grid_constant__ CUtensorMap tm_y,
                    const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_w, const bf16* __restrict__ x,
@@ -244,6 +272,7 @@ pool_bwd_dy_kernel(const __grid_constant__ CUtensorMap tm_y,
                    const float* __restrict__ tacc, bf16* __restrict__ ds_out,
                    bf16* __restrict__ dx, float* __restrict__ dse, float* __restrict__ dbe, int N,
                    int n_valid, int C, int J) {
+  constexpr int kHalf = Cols<CB>::kHalf;
   constexpr int JH = JC / 2;    // logit columns per warpgroup
   constexpr int CP = JC * 128;  // bytes of one 64-column panel of a chunk
   extern __shared__ unsigned char smem_raw[];
@@ -281,7 +310,7 @@ pool_bwd_dy_kernel(const __grid_constant__ CUtensorMap tm_y,
   const float* tb = tacc + (size_t)b * J;
   const int w = threadIdx.x / 128, t128 = threadIdx.x % 128, wi = t128 / 32, lane = t128 % 32;
   const int col = 2 * (lane % 4), r = wi * 16 + lane / 4;
-  const int cb0 = cs * kCB + w * kHalf;  // the warpgroup's first column of dy
+  const int cb0 = cs * CB + w * kHalf;  // the warpgroup's first column of dy
   bar_wait(yfull, 0);
 
   float dy[kHalf / 2];
@@ -335,7 +364,7 @@ pool_bwd_dy_kernel(const __grid_constant__ CUtensorMap tm_y,
     fence_async_smem();
     __syncthreads();
 
-    // dy[:, cb0 .. cb0 + 192] += bf16(ds) @ qf^T + bf16(e) @ W3, the chunk
+    // dy[:, cb0 .. cb0 + CB / 2] += bf16(ds) @ qf^T + bf16(e) @ W3, the chunk
     // read MN-major
     wgmma_fence();
 #pragma unroll
@@ -353,7 +382,7 @@ pool_bwd_dy_kernel(const __grid_constant__ CUtensorMap tm_y,
   // dx = bf16(dy * se); the column sums of dy * x and dy over the tile's
   // rows: shuffles over a warp's rows, then the four warps through shared
   // memory (the ds/e tiles), one atomic per column and block
-  float* red = reinterpret_cast<float*>(dss) + w * 2 * 4 * kHalf;  // [2][4 warps][192]
+  float* red = reinterpret_cast<float*>(dss) + w * 2 * 4 * kHalf;  // [2][4 warps][CB / 2]
   const float* seb = se + (size_t)b * C;
   const bf16* xrow = x + (size_t)row0 * C;
   bf16* dxb = dx + (size_t)row0 * C;
@@ -408,10 +437,11 @@ extern "C" int pool_ext_bwd_launch(const void* x, const void* se, const void* be
                                    int C, int H, int I, int splits, int n_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int J = H * I, D = C / H, KP = C / 64;
-  if ((C != 384 && C != 768) || I != kInd || D % 16 || D > 64 || N % kTile || J % 128 ||
+  if ((C != 128 && C != 384 && C != 768) || C % H || I != kInd || D % 16 || N % kTile ||
       splits < 1 || n_valid < 1 || n_valid > N) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool mask = n_valid < N, narrow = C == 128;
   cudaError_t err;
   CUtensorMap tm_y, tm_q;
   if (encode_tiled(&tm_y, y, (uint64_t)B * N, C, kTile) != CUDA_SUCCESS ||
@@ -424,15 +454,18 @@ extern "C" int pool_ext_bwd_launch(const void* x, const void* se, const void* be
     return (int)err;
   }
 
-  // pass 0: as many stream stages as fit, up to three
+  // pass 0: as many stream stages as fit, up to three (at C 128 two, three
+  // and four timed within 2% of each other on the H100)
   {
     int stages = (int)((kMaxSmem - EtySmem(C, 0).total) / (KP * kPanel));
     if (stages > 3) stages = 3;
     if (stages < 1) return (int)cudaErrorInvalidValue;
     const EtySmem L(C, stages);
-    const auto ety_kernel = n_valid < N ? pool_bwd_ety_kernel<true> : pool_bwd_ety_kernel<false>;
+    const auto ety_kernel =
+        narrow ? (mask ? pool_bwd_ety_kernel<128, true> : pool_bwd_ety_kernel<128, false>)
+               : (mask ? pool_bwd_ety_kernel<384, true> : pool_bwd_ety_kernel<384, false>);
     if ((err = set_smem((const void*)ety_kernel, L.total)) != cudaSuccess) return (int)err;
-    ety_kernel<<<dim3(H, B, C / kCB), kBwdThreads, L.total, st>>>(
+    ety_kernel<<<dim3(H, B, narrow ? 1 : C / 384), kBwdThreads, L.total, st>>>(
         tm_y, tm_q, (const float*)macc, (bf16*)ety, N, n_valid, C, J, stages);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
@@ -442,21 +475,24 @@ extern "C" int pool_ext_bwd_launch(const void* x, const void* se, const void* be
                                   (float*)dwv, (float*)dwo, B, C, H, I, st)) != cudaSuccess) {
     return (int)err;
   }
-  // pass 1: chunks of 64 rows of J at C 384, 32 at C 768
+  // pass 1: chunks of 64 rows of J at C 128 and 384, 32 at C 768 (at C
+  // 128, 32 and 128 rows took 7% and 28% longer on the H100)
   {
-    const int JC = C == 384 ? 64 : 32;
+    const int JC = C == 768 ? 32 : 64;
     CUtensorMap tm_qc, tm_w;
     if (encode_tiled(&tm_qc, qft, J, C, JC) != CUDA_SUCCESS ||
         encode_tiled(&tm_w, w3, (uint64_t)B * J, C, JC) != CUDA_SUCCESS) {
       return (int)cudaErrorInvalidValue;
     }
     const DySmem L(C, JC);
-    const bool mask = n_valid < N;
-    const auto kernel = JC == 64
-                            ? (mask ? pool_bwd_dy_kernel<64, true> : pool_bwd_dy_kernel<64, false>)
-                            : (mask ? pool_bwd_dy_kernel<32, true> : pool_bwd_dy_kernel<32, false>);
+    const auto kernel =
+        narrow ? (mask ? pool_bwd_dy_kernel<128, 64, true> : pool_bwd_dy_kernel<128, 64, false>)
+        : JC == 64 ? (mask ? pool_bwd_dy_kernel<384, 64, true>
+                           : pool_bwd_dy_kernel<384, 64, false>)
+                   : (mask ? pool_bwd_dy_kernel<384, 32, true>
+                           : pool_bwd_dy_kernel<384, 32, false>);
     if ((err = set_smem((const void*)kernel, L.total)) != cudaSuccess) return (int)err;
-    kernel<<<dim3(N / kTile, B, C / kCB), kBwdThreads, L.total, st>>>(
+    kernel<<<dim3(N / kTile, B, narrow ? 1 : C / 384), kBwdThreads, L.total, st>>>(
         tm_y, tm_qc, tm_w, (const bf16*)x, (const float*)se, (const float*)macc,
         (const float*)tacc, (bf16*)ds, (bf16*)dx, (float*)dse, (float*)dbe, N, n_valid, C, J);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

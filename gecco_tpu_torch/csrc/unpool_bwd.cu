@@ -53,6 +53,17 @@
 //    atomics and vary at their rounding).
 // Kept bf16 roundings: kft, vf, p, d_attn and ds, as the TPU kernel's;
 // softmax statistics, dp and ds stay fp32 until rounded.
+//
+// Shapes: I == 64, C % 128 == 0 and C <= 384 or C % 384 == 0, D = C / H a
+// multiple of 16, any H: the flagship (C 384, 8 heads), the 8k width (C
+// 768, 16), the upsample demo's width (C 128, 4) and three heads (C 384,
+// 3 of 128). At an H that 4 does not divide the heads kernel's last block
+// of four computes the heads past H on whatever rows follow (the next
+// element's, or TMA's zeros past the tensor's end, whose box of 256 kft or
+// vf rows reaches past B * J at the last element) and stores none of them;
+// at an odd H, J % 128 == 64, dkf's P side and dvf's M side take
+// wgrad.cuh's 64-column and 64-row tails. The rest (I != 64, C 640) take
+// csrc/unpool_bwd_wmma.cu.
 #include <cmath>
 
 #include "backward.cuh"
@@ -467,7 +478,7 @@ extern "C" int unpool_bwd_launch(const void* x, const void* se, const void* be, 
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int J = H * I, D = C / H;
-  if (I != kInd || H % 2 || C % 128 || (C > 384 && C % 384) || D % 16 || N % kTile ||
+  if (I != kInd || C % H || C % 128 || (C > 384 && C % 384) || D % 16 || N % kTile ||
       splits < 1 || n_valid < 1 || n_valid > N) {
     return (int)cudaErrorInvalidValue;
   }

@@ -8,9 +8,13 @@
 // its 64-row tiles): both operands by TMA through a four-stage ring in the
 // 128-byte swizzle, read MN-major by wgmma as TMA leaves them (hopper.cuh
 // desc_mn); warpgroup w keeps rows 64 w .. 64 w + 64 of the tile, a [64, 128]
-// fp32 accumulator. With one split a block writes its tile of out; with
-// more, each split writes its partial and wgrad_sum_kernel adds them in
-// split order, so out is the same bits from run to run. Element (b, m, p)
+// fp32 accumulator. P takes a 64-column tail (P % 128 == 64: the pool
+// backward's dqf and the unpool backward's dkf at three heads, J 192); M a
+// 64-row tail in the kMTail instance (the unpool backward's dvf at three
+// heads), whose last row block's second warpgroup has no rows. With one
+// split a block writes its tile of out; with more, each split writes its
+// partial and wgrad_sum_kernel adds them in split order, so out is the
+// same bits from run to run. Element (b, m, p)
 // of out lies at b sb + (m / 64) smh + (m % 64) sm + (p / 64) sph + p % 64
 // (WgradLayout): row-major [nb, M, P], or a layout that puts a head's 64
 // rows or columns where the caller's chain reads them.
@@ -36,6 +40,9 @@ __host__ __device__ inline WgradLayout row_major(int M, int P) {
   return WgradLayout{(long long)M * P, 64LL * P, P, 64};
 }
 
+// kMTail: M % 128 == 64 (the instance without it is the flagship's and the
+// 8k width's)
+template <bool kMTail>
 __global__ void __launch_bounds__(256, 1)
 wgrad_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
              float* __restrict__ out, WgradLayout lay, int M, int P, int rows_b, int splits) {
@@ -69,6 +76,10 @@ wgrad_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ C
   }
   const int w = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int col = 2 * (lane % 4), r = wi * 16 + lane / 4;
+  // a 64-row tail (kMTail, M % 128 == 64): the last block's second
+  // warpgroup's rows lie past M (TMA filled its A panel with zeros); it
+  // forms and writes nothing
+  const bool rows = !kMTail || m0 + w * 64 < M;
   float acc[64];
   zero(acc);
   for (int u = 0; u < count; ++u) {
@@ -76,15 +87,17 @@ wgrad_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ C
     unsigned char* st = stage(s);
     bar_wait(full + s, (u / kWgradRing) & 1);
     // acc[64 rows of M (panel w), 128 columns of P] += A^T B, both MN-major
-    wgmma_fence();
+    if (rows) {
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_tt<1, 1>(acc, desc_mn(st + w * kWgradPanel + kk * 2048, kWgradPanel),
-                     desc_mn(st + 2 * kWgradPanel + kk * 2048, kWgradPanel), 1);
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_tt<1, 1>(acc, desc_mn(st + w * kWgradPanel + kk * 2048, kWgradPanel),
+                       desc_mn(st + 2 * kWgradPanel + kk * 2048, kWgradPanel), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
     __syncthreads();  // both warpgroups are done with the stage
     if (threadIdx.x == 0 && u + kWgradRing < count) load(u + kWgradRing);
   }
@@ -95,6 +108,7 @@ wgrad_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ C
   // a 64-column tail (P % 128 == 64): the last block's second panel lies
   // past P (TMA filled it with zeros) and is not written
   const bool whole = p0 + 128 <= P;
+  if (!rows) return;
 #pragma unroll
   for (int g = 0; g < 16; ++g) {
     const int p = p0 + 8 * g + col;
@@ -120,13 +134,14 @@ wgrad_sum_kernel(const float* __restrict__ part, float* __restrict__ out, WgradL
 }
 
 // out = A_b^T B_b per batch element, laid out by ``lay``; ``part`` holds
-// nb * splits partials [M, P] where splits > 1 (unread otherwise). M a
-// multiple of 128, P of 64 (a 64-column tail takes a block of its own),
-// rows_b of 64, 1 <= splits <= rows_b / 64.
+// nb * splits partials [M, P] where splits > 1 (unread otherwise). M and P
+// multiples of 64 (a 64-row or 64-column tail takes a block of its own; a
+// row tail runs the kMTail instance), rows_b of 64, 1 <= splits <= rows_b /
+// 64.
 inline cudaError_t launch_wgrad(const void* a, const void* bm, float* part, float* out,
                                 WgradLayout lay, int nb, int rows_b, int M, int P, int splits,
                                 cudaStream_t st) {
-  if (M % 128 || P % 64 || rows_b % 64 || splits < 1 || splits > rows_b / 64) {
+  if (M % 64 || P % 64 || rows_b % 64 || splits < 1 || splits > rows_b / 64) {
     return cudaErrorInvalidValue;
   }
   CUtensorMap tm_a, tm_b;
@@ -135,9 +150,10 @@ inline cudaError_t launch_wgrad(const void* a, const void* bm, float* part, floa
     return cudaErrorInvalidValue;
   }
   const size_t smem = (size_t)kWgradRing * 4 * kWgradPanel + kWgradRing * 8 + 1024;
-  cudaError_t err = set_smem((const void*)wgrad_kernel, smem);
+  const auto kernel = M % 128 ? wgrad_kernel<true> : wgrad_kernel<false>;
+  cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
-  wgrad_kernel<<<dim3((P + 127) / 128, M / 128, nb * splits), 256, smem, st>>>(
+  kernel<<<dim3((P + 127) / 128, (M + 127) / 128, nb * splits), 256, smem, st>>>(
       tm_a, tm_b, splits > 1 ? part : out, lay, M, P, rows_b, splits);
   if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
   const long long n = (long long)nb * M * P;

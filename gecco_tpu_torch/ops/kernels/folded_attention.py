@@ -58,10 +58,14 @@ Hopper bodies take 64 inducers a head of D 16 to 64 channels (the pool D
 in 16, 32, 48, 64 and H % 4 == 0, the unpool D % 16 and H even, C % 64
 up to 384 or C % 192 above): the flagship, the 8k width and the upsample
 demo's C 128 with four heads of 32; three heads (D 128) or another
-inducer count take their WMMA bodies. A CUDA tensor never falls back to a
-plain version. Any point count N >= 1 is taken: on the card each function zero-pads the point axis
-of its operands to the next multiple of 128 (``_pad_points``; no copy
-where N is one already), passes the bodies ``n_valid = N``, which mask the
+inducer count take their WMMA bodies. The pool and unpool backwards'
+Hopper bodies take 64 inducers a head at any D % 16 (the pool's at C 128,
+384 or 768, the unpool's at C % 128 up to 384 or C % 384 above): the
+flagship, the 8k width, the demo's width and three heads. A CUDA tensor
+never falls back to a plain version. Any point count N >= 1 is taken: on
+the card each function zero-pads the point axis of its operands to the
+next multiple of 128 (``_pad_points``; no copy where N is one already),
+passes the bodies ``n_valid = N``, which mask the
 padding out of every reduction over points, and slices the outputs back to
 N. The plain versions and pieces take ``n_valid`` too (``_valid_rows``),
 so that a piece fed the padded operands composes to the plain version at
@@ -600,6 +604,19 @@ def _pool_bwd_fold_smem(c: int, i: int, d: int) -> int:
     return 64 * (64 + _PADF) * 4 + 2 * rows * (d + _PAD) * 2 + rows * (d + _PADF) * 4
 
 
+def _pool_ext_bwd_smem(c: int) -> tuple:
+    """Bytes of the Hopper pool backward's pass-0 and pass-1 blocks at C
+    128, 384 or 768: csrc/pool_ext_bwd.cu ``EtySmem`` at the launcher's ring
+    depth (as many 64-point stages as fit, up to three) and ``DySmem`` at
+    its chunk (64 rows of J, 32 at C 768); change them together. At C 128
+    two blocks of each pass share a SM."""
+    panel, kp = 64 * 128, c // 64
+    stages = min(3, (_MAX_SMEM - (kp + 1) * panel - 8 - 1024) // (kp * panel))
+    jc = 32 if c == 768 else 64
+    return ((1 + stages) * kp * panel + panel + (1 + stages) * 8 + 1024,
+            kp * panel + 2 * kp * jc * 128 + 2 * panel + 2 * 8 + 1024)
+
+
 def _twopass_smem(c: int, i: int, d: int) -> int:
     """Bytes of the larger block of the v1, v2 and v2j bodies' two passes:
     csrc/pool_bwd_twopass.cuh ``Pass0Smem`` and ``Pass1Smem`` (change them
@@ -631,17 +648,17 @@ def _pool_twopass_takes(b: int, n: int, c: int, num_heads: int, i: int) -> bool:
 def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     """Which body of ``folded_pool_ext_bwd`` takes these shapes on the card.
     Unset or "v3", ``GECCO_POOL_BWD`` gives the v3 algebra's: "hopper"
-    (csrc/pool_ext_bwd.cu, TMA and wgmma: C in (384, 768), I == 64, D <=
-    64, J % 128 == 0) where it can, else "wmma" (csrc/pool_ext_bwd_wmma.cu:
-    C % 128 == 0, C <= 768, I % 16 and J % 64 == 0, the fold's block
-    within the SM's shared memory); both need D % 16 == 0 and take any N
-    (padded). The upsample demo's C 128 and the three-head flagship's D 128
-    take the WMMA body. Forced to "v1", "v2" or "v2j", that algebra (the
-    JAX package's opt-in bodies, ``_pool_twopass_takes``): its Hopper body
-    ("v1", "v2", "v2j"; csrc/pool_ext_bwd_twopass.cu,
-    ``_pool_twopass_hopper_takes``: the flagship's and the 8k width's
-    training shapes, three heads' D 128) where it can, else its WMMA body
-    ("v1_wmma" ...: the demo's C 128).
+    (csrc/pool_ext_bwd.cu, TMA and wgmma: C in (128, 384, 768), I == 64:
+    the flagship, the 8k width, the upsample demo's C 128 and three heads'
+    D 128) where it can, else "wmma" (csrc/pool_ext_bwd_wmma.cu: C % 128
+    == 0, C <= 768, I % 16 and J % 64 == 0: another I, C 256, 512 or 640);
+    both need D % 16 == 0 and the fold's block within the SM's shared
+    memory (``_pool_bwd_fold_smem``), and take any N (padded). Forced to
+    "v1", "v2" or "v2j", that algebra (the JAX package's opt-in bodies,
+    ``_pool_twopass_takes``): its Hopper body ("v1", "v2", "v2j";
+    csrc/pool_ext_bwd_twopass.cu, ``_pool_twopass_hopper_takes``: the
+    flagship's and the 8k width's training shapes, three heads' D 128)
+    where it can, else its WMMA body ("v1_wmma" ...: the demo's C 128).
     The chosen name is the counter's, ``folded_pool_ext_bwd_<name>``.
     Raises ValueError with the chosen bodies' conditions otherwise. A
     ragged I takes the bodies of its count padded to 16s."""
@@ -659,17 +676,18 @@ def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
             f"B={b}, N={n}, C={c}, H={num_heads}, I={i} (D={d}): the v1, v2 and v2j bodies "
             f"need C % 128 == 0, C <= 768, D % 16 == 0, J % 64 == 0, B*I % 64 == 0 and both "
             f"passes' blocks within {_MAX_SMEM} bytes of shared memory")
-    common = c % num_heads == 0 and d % 16 == 0 and n >= 1
-    if common and c in (384, 768) and i == 64 and d <= 64 and j % 128 == 0:
+    common = (c % num_heads == 0 and d % 16 == 0 and n >= 1
+              and _pool_bwd_fold_smem(c, i, d) <= _MAX_SMEM)
+    if (common and c in (128, 384, 768) and i == 64
+            and max(_pool_ext_bwd_smem(c)) <= _MAX_SMEM):
         return "hopper"
-    if (common and c % 128 == 0 and c <= 768 and i % 16 == 0 and j % 64 == 0
-            and _pool_bwd_fold_smem(c, i, d) <= _MAX_SMEM):
+    if common and c % 128 == 0 and c <= 768 and i % 16 == 0 and j % 64 == 0:
         return "wmma"
     raise ValueError(
         f"folded_pool_ext_bwd: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
-        f"(D={d}): the Hopper body needs C in (384, 768), I == 64, D <= 64 and J % 128 == 0; "
-        f"the WMMA body C % 128 == 0, C <= 768, I % 16 == 0, J % 64 == 0 and its fold within "
-        f"{_MAX_SMEM} bytes of shared memory; both D % 16 == 0")
+        f"(D={d}): the Hopper body needs C in (128, 384, 768) and I == 64; the WMMA body "
+        f"C % 128 == 0, C <= 768, I % 16 == 0 and J % 64 == 0; both D % 16 == 0 and the "
+        f"fold's block within {_MAX_SMEM} bytes of shared memory")
 
 
 def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
@@ -1957,26 +1975,26 @@ def _unpool_bwd_wmma_tile(c: int, i: int) -> int:
 
 def _unpool_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     """Which body of ``folded_unpool_bwd`` takes these shapes on the card:
-    "hopper" (csrc/unpool_bwd.cu, TMA and wgmma: I == 64, H even, C % 128
-    == 0 and C <= 384 or C % 384 == 0) where it can, else "wmma"
-    (csrc/unpool_bwd_wmma.cu: C % 128 == 0, C <= 768, J % 64 == 0 and a
-    point tile of 32 or 16 rows within the SM's shared memory,
+    "hopper" (csrc/unpool_bwd.cu, TMA and wgmma: I == 64, C % 128 == 0 and
+    C <= 384 or C % 384 == 0, any H: the flagship, the 8k width, the
+    upsample demo's C 128 and three heads' D 128) where it can, else
+    "wmma" (csrc/unpool_bwd_wmma.cu: C % 128 == 0, C <= 768, J % 64 == 0
+    and a point tile of 32 or 16 rows within the SM's shared memory,
     ``_unpool_bwd_wmma_tile``: at C 384 up to 944 inducers, at C 768 up to
-    688); both need D % 16 == 0 and take any N (padded), and the WMMA body
-    a ragged I (zero-padded to 16s and masked). The three-head flagship
-    takes the WMMA body. Raises ValueError with both bodies' conditions
-    otherwise."""
+    688; another I, C 640); both need D % 16 == 0 and take any N (padded),
+    and the WMMA body a ragged I (zero-padded to 16s and masked). Raises
+    ValueError with both bodies' conditions otherwise."""
     d = c // num_heads
     ip = _i_pad(i)
     common = c % num_heads == 0 and d % 16 == 0 and n >= 1 and c % 128 == 0
-    if common and i == 64 and num_heads % 2 == 0 and (c <= 384 or c % 384 == 0):
+    if common and i == 64 and (c <= 384 or c % 384 == 0):
         return "hopper"
     if (common and c <= 768 and (num_heads * ip) % 64 == 0
             and _unpool_bwd_wmma_tile(c, ip)):
         return "wmma"
     raise ValueError(
         f"folded_unpool_bwd: no CUDA body takes B={b}, N={n}, C={c}, H={num_heads}, I={i} "
-        f"(D={d}): the Hopper body needs I == 64, H even and C <= 384 or C % 384 == 0; the "
+        f"(D={d}): the Hopper body needs I == 64 and C <= 384 or C % 384 == 0; the "
         f"WMMA body C <= 768, J % 64 == 0 (I padded to 16s) and a point tile of 16 rows "
         f"within {_MAX_SMEM} bytes of shared memory; both C % 128 == 0 and D % 16 == 0")
 

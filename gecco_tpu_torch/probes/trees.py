@@ -19,12 +19,16 @@ steps, the device's busy milliseconds per step over 3 profiled steps);
 inducers, 4 heads of 32) sampling 48 clouds as (1) does, each function
 through the body the tree's switches pick for it, and the device
 milliseconds of one of its evaluations at batch 48 (10 evaluations
-after 3); (5) the device milliseconds per call
+after 3); (5) the demo model's train step at batch 48 as (3) measures
+the flagship's (``demo_train_*``), each function through the body the
+tree's switches pick for it; (6) the device milliseconds per call
 (``torch.profiler``, 20 calls after 3) of the pool, h-side, unpool and
 MLP forwards at batch 64 and of the three folded backwards at batch 48,
-on operands drawn as ``chip_smoke.py`` draws them, and of the pool and
-unpool forwards at the demo's width and batch 48 (``*_demo``). It prints one JSON line per tree and the
-card's name and power limit. Run by file path,
+on operands drawn as ``chip_smoke.py`` draws them, of the pool and
+unpool forwards and backwards at the demo's width and batch 48
+(``*_demo``), and of the pool and unpool backwards with three heads at
+the flagship's width and batch 48 (``*_heads3``). It prints one JSON line
+per tree and the card's name and power limit. Run by file path,
 not with ``-m``, so that each tree's package is the one imported. Needs
 the card.
 """
@@ -96,6 +100,14 @@ def measure(tree: str) -> dict:
     del demo
     _, train = cs.train_phase(dev, cs.FLAGSHIP["n_layers"], cs.TRAIN_BATCH,
                               cs.FLAGSHIP["n_points"], "the card", (3, 20))
+    tshape = (cs.TRAIN_BATCH, *shape[1:])
+    step_names = names + (
+        picked("folded_pool_ext_bwd", cs.fa._pool_ext_bwd_body(*tshape)),
+        picked("folded_unpool_bwd", cs.fa._unpool_bwd_body(*tshape)),
+        picked("fused_mlp_residual_bwd", cs.fa._mlp_bwd_body(*tshape[:3], 2 * tshape[2])))
+    _, demo_train = cs.train_phase(
+        dev, dd["n_layers"], cs.TRAIN_BATCH, dd["n_points"], "the card", (3, 20), dims=dd,
+        expect=lambda timed: {k: dd["n_layers"] * timed for k in step_names})
     fa, hs, dt = cs.fa, cs.hs, torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(1)
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
@@ -113,6 +125,14 @@ def measure(tree: str) -> dict:
     db, dc, dh = cs.DEMO_BATCH, dd["feature_dim"], dd["num_heads"]
     dpool = cs.pool_operands(g, db, n, dc, dh, i, False, dev, dt)
     dunpool = cs.unpool_operands(g, db, n, dc, dh, i, False, dev, dt)
+    # the backwards at the demo's width and with three heads (batch 48)
+    bwd_cases = {}
+    for key, (cc, hh) in (("demo", (dc, dh)), ("heads3", (c, 3))):
+        ops = cs.pool_operands(g, tb, n, cc, hh, i, False, dev, dt)
+        stats = fa._pool_ext_launch(*ops, hh, True)[1:]
+        uops = cs.unpool_operands(g, tb, n, cc, hh, i, False, dev, dt)
+        cots = ((0.1 * r(tb, i, cc)).to(dt), (0.1 * r(tb, n, cc)).to(dt), 1e-3 * r(tb, 2, cc))
+        bwd_cases[key] = (ops, stats, uops, cots, hh)
     runs = {
         "folded_pool_ext": lambda: fa.folded_pool_ext(*pool, h),
         "fused_h_side": lambda: hs.fused_h_side(*hside),
@@ -123,13 +143,22 @@ def measure(tree: str) -> dict:
         "fused_mlp_residual_bwd": lambda: fa.fused_mlp_residual_bwd(*bmlp, gg, gs),
         "folded_pool_ext_demo": lambda: fa.folded_pool_ext(*dpool, dh),
         "folded_unpool_demo": lambda: fa.folded_unpool(*dunpool, dh),
+        **{f"{name}_{key}": fn for key, (ops, stats, uops, cots, hh) in bwd_cases.items()
+           for name, fn in (
+               ("folded_pool_ext_bwd",
+                lambda o=ops, s=stats, ct=cots, h_=hh: fa.folded_pool_ext_bwd(*o, *s, ct[0], h_)),
+               ("folded_unpool_bwd",
+                lambda o=uops, ct=cots, h_=hh: fa.folded_unpool_bwd(*o, *ct[1:], h_)))},
     }
     device_ms = {name: profiled_ms(fn, 20) for name, fn in runs.items()}
     return {"clouds_per_s": sample["clouds_per_s"], "eval_ms": sample["eval_ms"],
             "eval_device_ms": eval_device_ms, "demo_clouds_per_s": demo_sample["clouds_per_s"],
             "demo_eval_device_ms": demo_eval_device_ms,
             "train_ms_per_step": train["ms_per_step"],
-            "train_device_ms_per_step": train["device_ms_per_step"], "device_ms": device_ms}
+            "train_device_ms_per_step": train["device_ms_per_step"],
+            "demo_train_ms_per_step": demo_train["ms_per_step"],
+            "demo_train_device_ms_per_step": demo_train["device_ms_per_step"],
+            "device_ms": device_ms}
 
 
 def main():

@@ -7,10 +7,13 @@ split by launch.
 kernel twice (p, then ds), the rows kernel twice (d_attn, then dx, dse,
 dbe) and the weight-gradient products (dkf, dvf). At the flagship's
 training shapes (B 48, N 2048, C 384, 8 heads), the 8k width (B 2, N 8192,
-C 768, 16 heads) and the upsample demo's model (B 48, C 128, 4 heads),
-ordinary and with drifted logits, this holds each pass's outputs against
-its plain piece fed the kernel's own inputs to that pass (so a fault shows
-in the pass that makes it), and the whole backward of both bodies against
+C 768, 16 heads), the upsample demo's model (B 48, C 128, 4 heads) and
+three heads at the flagship's width (C 384, 3 heads of 128: J 192, whose
+last block of four heads reaches past the tensor's end and whose dvf
+takes the weight gradients' 64-row tail), ordinary and with drifted
+logits, this holds each pass's outputs against its plain piece fed the
+kernel's own inputs to that pass (so a fault shows in the pass that makes
+it), and the whole backward of both bodies against
 autograd of the plain version; the flag variants (residual, prenorm) at
 the flagship's shapes; dkf and dvf the same bits in two calls. It times
 both bodies in turns (40 calls each) on the ordinary operands and splits
@@ -30,7 +33,7 @@ from gecco_tpu_torch.ops.kernels import folded_attention as fa
 from gecco_tpu_torch.probes.pool_bwd import launch_split, rel, timed
 
 SHAPES = {"flagship": (48, 2048, 384, 8, 64), "8k width": (2, 8192, 768, 16, 64),
-          "demo": (48, 2048, 128, 4, 64)}
+          "demo": (48, 2048, 128, 4, 64), "three heads": (48, 2048, 384, 3, 64)}
 # each pass against its plain piece on the kernel's inputs: bf16 outputs a
 # few bf16 steps (2^-8) of their largest value (sums in other orders move
 # roundings); dkf and dvf fp32 sums of the same bf16 products

@@ -506,9 +506,9 @@ def test_unpool_pieces_compose_to_the_plain_version(residual, prenorm, dtype):
     ((2, 8192, 768, 16, 64), ("hopper", "hopper", "hopper"),
      ("hopper", "hopper", "hopper")),  # the 8k width
     ((48, 2048, 128, 4, 64), ("hopper", "hopper", "wmma"),
-     ("wmma", "hopper", "wmma")),  # the demo's 3 x 128
+     ("hopper", "hopper", "wmma")),  # the demo's 3 x 128
     ((48, 2048, 384, 3, 64), ("wmma", "wmma", "hopper"),
-     ("wmma", "wmma", "hopper")),  # num_heads=3
+     ("hopper", "hopper", "hopper")),  # num_heads=3
     ((48, 2000, 384, 8, 64), ("hopper", "hopper", "hopper"),
      ("hopper", "hopper", "hopper")),  # the flagship at a ragged N (padded to 2048)
     ((48, 2000, 100, 4, 64), (None, None, None), (None, None, None)),  # C % 16 != 0
@@ -561,6 +561,42 @@ def test_forward_switches_take_the_new_widths(shape, bodies):
         assert tfa._unpool_tile_smem(c) <= tfa._MAX_SMEM
 
 
+# (B, N, C, H, I) -> the bodies of the pool and unpool backwards: the
+# Hopper pool backward takes I 64 at C 128, 384 or 768 (any D % 16 whose
+# fold fits); the Hopper unpool backward I 64 at C % 128 up to 384 or C %
+# 384 above, any H (J % 128 == 64 through the weight gradients' tails)
+@pytest.mark.parametrize("shape,bodies", [
+    ((48, 2048, 128, 4, 64), ("hopper", "hopper")),  # the demo's four heads of 32
+    ((48, 2048, 384, 3, 64), ("hopper", "hopper")),  # three heads (D 128, J 192)
+    ((48, 2048, 128, 1, 64), ("hopper", "hopper")),  # one head of 128 (J 64)
+    ((48, 2048, 384, 6, 64), ("hopper", "hopper")),  # D 64
+    ((48, 2048, 384, 2, 64), ("hopper", "hopper")),  # D 192
+    ((48, 2048, 128, 4, 48), ("wmma", "wmma")),  # I 48 at the demo's width
+    ((48, 2048, 128, 4, 16), ("wmma", "wmma")),  # I 16 at the demo's width
+    ((48, 2048, 640, 5, 64), ("wmma", "wmma")),  # C 640
+    ((48, 2048, 256, 4, 64), ("wmma", "hopper")),  # C 256: the pool's column blocks
+    ((48, 2048, 384, 4, 64), ("hopper", "hopper")),  # D 96 at C 384: any D % 16
+    ((48, 2048, 192, 2, 64), (None, None)),  # D 96 at C 192: C % 128 != 0
+], ids=["demo", "heads3", "H1-C128", "D64", "D192", "I48", "I16", "C640", "C256", "D96-C384",
+        "D96"])
+def test_backward_switches_take_the_new_widths(shape, bodies):
+    """The pool and unpool backwards' Hopper bodies take the upsample
+    demo's width and three heads, and the shapes their launch checks
+    allow; another inducer count and C 640 stay on the WMMA bodies. Every
+    Hopper pool backward's blocks fit the SM: its fold
+    (``_pool_bwd_fold_smem``) and its two passes (``_pool_ext_bwd_smem``)."""
+    b, n, c, h, i = shape
+    for switch, want in zip((tfa._pool_ext_bwd_body, tfa._unpool_bwd_body), bodies):
+        if want is None:
+            with pytest.raises(ValueError, match="Hopper body .* WMMA body"):
+                switch(*shape)
+        else:
+            assert switch(*shape) == want
+    if bodies[0] == "hopper":
+        assert tfa._pool_bwd_fold_smem(c, i, c // h) <= tfa._MAX_SMEM
+        assert max(tfa._pool_ext_bwd_smem(c)) <= tfa._MAX_SMEM
+
+
 @pytest.mark.parametrize("case,takes", [
     (("hside", 64, 384, 768, 32), True),  # the flagship's inducers
     (("hside", 32, 384, 768, 32), True),  # 32 inducers
@@ -602,19 +638,19 @@ POOL_BWD_SHAPES = ((48, 2048, 384, 8, 64), (2, 8192, 768, 16, 64), (48, 2048, 12
 
 
 @pytest.mark.parametrize("mode,want", [
-    (None, ("hopper", "hopper", "wmma", "wmma")),
+    (None, ("hopper", "hopper", "hopper", "hopper")),
     ("v1", ("v1", "v1", "v1_wmma", "v1")),
     ("v2", ("v2", "v2", "v2_wmma", "v2")),
     ("v2j", ("v2j", "v2j", "v2j_wmma", "v2j")),
-    ("v3", ("hopper", "hopper", "wmma", "wmma")),
+    ("v3", ("hopper", "hopper", "hopper", "hopper")),
 ], ids=["unset", "v1", "v2", "v2j", "v3"])
 def test_pool_bwd_switch_takes_the_forced_body(monkeypatch, mode, want):
     """GECCO_POOL_BWD as the JAX package reads it: unset or "v3", the v3
-    algebra's bodies; forced to v1, v2 or v2j, that algebra's Hopper body
-    at the flagship's and the 8k width (D 48, 64 inducers) and at three
-    heads (D 128, J 192: the S product's 64-column tiles and the weight
-    gradients' 64-column tail), and its WMMA body at the demo's width (C
-    128); on the card a forced body that does not
+    algebra's Hopper body at all four shapes; forced to v1, v2 or v2j,
+    that algebra's Hopper body at the flagship's and the 8k width (D 48,
+    64 inducers) and at three heads (D 128, J 192: the S product's
+    64-column tiles and the weight gradients' 64-column tail), and its WMMA
+    body at the demo's width (C 128); on the card a forced body that does not
     take the shape raises (B I % 64 != 0); N 2000 takes the chosen body at
     its padded count."""
     monkeypatch.setattr(tfa, "_POOL_BWD_ENV", mode)
@@ -837,6 +873,7 @@ def _unpool_bwd_by_pieces(x, se, be, k, v, wq, wo, g, g_sums, heads, residual=Tr
 
 
 UNPOOL_GRADS = ("dx", "dse", "dbe", "dk", "dv", "dwq", "dwo")
+POOL_GRADS = ("dx", "dse", "dbe", "dind2", "dkvw", "dwo")
 
 
 @pytest.mark.parametrize("residual,prenorm", [(True, True), (False, False), (True, False),
@@ -879,6 +916,114 @@ def test_unpool_bwd_pieces_match_the_jax_kernel_in_bf16():
         jops, (jnp.asarray(g, jnp.bfloat16), jnp.asarray(g_sums)))
     for name, a, r in zip(UNPOOL_GRADS, got, ref):
         assert _maxrel(a.float().numpy(), np.asarray(r, np.float32)) < 1e-3, name
+
+
+# the head layouts that the Hopper pool and unpool backwards take on the
+# card beyond the base one above (C 64, four heads of 16): the upsample
+# demo's four heads of 32, and three heads of 32 and of 128 channels (J 192
+# at 64 inducers: the weight gradients' 64-column and 64-row tails on the
+# card); (C, H, I, B, N), at a small B and N
+BWD_LAYOUTS = {"demo": (128, 4, 64, 2, 128), "heads3-D32": (96, 3, 64, 2, 128),
+               "heads3-D128": (384, 3, 64, 1, 128)}
+
+
+def _layout_args(seed, which, layout, drift):
+    """Pool or unpool operands at a ``BWD_LAYOUTS`` layout; drifted as
+    ``DRIFT`` per head (60, 1, 0.1, 0.01 in turn)."""
+    c, heads, i, b, n = BWD_LAYOUTS[layout]
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    scale = np.resize(np.array([60.0, 1.0, 0.1, 0.01], np.float32), heads).repeat(c // heads)
+    x, se, be = r(b, n, c), 1.0 + 0.1 * r(b, c), 0.1 * r(b, c)
+    if which == "pool":
+        kvw = r(2 * c, c) / c**0.5
+        if drift:
+            kvw[:c] *= scale[:, None]
+        return x, se, be, r(heads * i, c // heads), kvw, r(c, c) / c**0.5
+    k = r(b, i, c)
+    if drift:
+        k *= scale
+    return x, se, be, k, r(b, i, c), r(c, c) / c**0.5, r(c, c) / c**0.5
+
+
+def _layout_cotangents(seed, which, layout):
+    c, _, i, b, n = BWD_LAYOUTS[layout]
+    rng = np.random.default_rng(seed)
+    if which == "pool":
+        return (_cotangent(rng, b, i, c),)
+    return _cotangent(rng, b, n, c), _cotangent(rng, b, 2, c, scale=1e-2)
+
+
+def _layout_pieces(which, ops, cots, heads):
+    if which == "pool":
+        return _pool_bwd_by_pieces(*ops, *cots, heads)
+    return _unpool_bwd_by_pieces(*ops, *cots, heads)
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+@pytest.mark.parametrize("layout", list(BWD_LAYOUTS))
+@pytest.mark.parametrize("which", ["pool", "unpool"])
+def test_bwd_pieces_compose_to_the_plain_backward_at_the_hopper_layouts(which, layout, drift):
+    """At the demo's four heads of 32 and at three heads (of 32 and of 128
+    channels), the layouts the Hopper pool and unpool backwards open on the
+    card: in fp32 the pieces compose to autograd of the plain version
+    within 1e-5 of each gradient's max |ref|, as at the base layout
+    (``test_pool_bwd_pieces_compose_to_the_plain_backward_in_fp32``,
+    ``test_unpool_bwd_pieces_compose_to_the_plain_backward_in_fp32``); with
+    drifted logits (in the hundreds at these widths) within 2e-5, the fp32
+    rounding of a logit's share that ``_close_grads`` allows a drifted
+    gradient."""
+    heads = BWD_LAYOUTS[layout][1]
+    ops = [torch.from_numpy(a) for a in _layout_args(41, which, layout, drift)]
+    cots = [torch.from_numpy(a) for a in _layout_cotangents(42, which, layout)]
+    got = _layout_pieces(which, ops, cots, heads)
+    if which == "pool":
+        want, names = tfa._pool_ext_bwd_ref(*ops, *cots, heads), POOL_GRADS
+    else:
+        want, names = tfa._unpool_bwd_ref(*ops, *cots, heads), UNPOOL_GRADS
+    for name, a, r in zip(names, got, want):
+        assert _maxrel(a.numpy(), r.numpy()) < (2e-5 if drift else 1e-5), name
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["plain", "drift"])
+@pytest.mark.parametrize("layout", list(BWD_LAYOUTS))
+@pytest.mark.parametrize("which", ["pool", "unpool"])
+def test_bwd_pieces_match_the_jax_kernels_at_the_hopper_layouts(which, layout, drift):
+    """At the same layouts, on bf16 operands, the pieces are the JAX
+    kernels' algebra (the pool's v3, whose mode the JAX package picks
+    there): against ``jax.vjp`` of the JAX op (its Pallas backward in
+    interpret mode, one ``jax.jit``) the fp32 gradients (dse, dbe) within
+    1e-3 of max |ref|, the bf16 ones element by element within one bf16
+    step and 1e-3 of max |ref| (``_within_a_bf16_step``, as at the demo's
+    width in ``test_demo_width_gradients_match_the_jax_ops``). With drifted
+    logits (in the hundreds at D 128) both limits are 2e-3: there the two
+    sides' fp32 sums, in other orders, flip the bf16 roundings of e and ds
+    on a few points, and the pool's dx, dse and dind2 read up to 1.9e-3 at
+    three heads of 128 (autograd of the plain version departs 2-8%)."""
+    bf = torch.bfloat16
+    c, heads, i, b, n = BWD_LAYOUTS[layout]
+    args = _layout_args(43, which, layout, drift)
+    cots = _layout_cotangents(44, which, layout)
+    if which == "pool":
+        assert jfa._pool_bwd_mode(n, c, heads * i, c // heads) == "v3"
+        low, fn, names = (0, 3, 4, 5), jfa.folded_pool_ext, POOL_GRADS
+        tcots = [torch.from_numpy(cots[0]).to(bf)]
+        jcot = jnp.asarray(cots[0], jnp.bfloat16)
+    else:
+        low, fn, names = (0, 3, 4, 5, 6), jfa.folded_unpool, UNPOOL_GRADS
+        tcots = [torch.from_numpy(cots[0]).to(bf), torch.from_numpy(cots[1])]
+        jcot = (jnp.asarray(cots[0], jnp.bfloat16), jnp.asarray(cots[1]))
+    ops = [torch.from_numpy(a).to(bf if q in low else torch.float32) for q, a in enumerate(args)]
+    got = _layout_pieces(which, ops, tcots, heads)
+    jops = [jnp.asarray(a.float().numpy(), jnp.bfloat16 if a.dtype == bf else jnp.float32)
+            for a in ops]
+    ref = jax.jit(lambda a, g: jax.vjp(lambda *q: fn(*q, heads), *a)[1](g))(jops, jcot)
+    tol = 2e-3 if drift else 1e-3
+    for name, a, r in zip(names, got, ref):
+        if a.dtype == torch.float32:
+            assert _maxrel(a.numpy(), np.asarray(r, np.float32)) < tol, name
+        else:
+            assert _within_a_bf16_step(a.float().numpy(), r, tol), name
 
 
 def _mlp_fwd_by_pieces(x, se, be, w1t, b1, w2t, b2):

@@ -479,7 +479,10 @@ def test_mirrors_of_the_new_plans_use_the_sources_constants():
     pool block divides I and fits; the two-pass bodies and the resident
     pool's backward fit where their switches and checks say; the Hopper
     pool forward's point chunk, head widths and ring depths, and the Hopper
-    unpool's point tile, rings and column blocks."""
+    unpool's point tile, rings and column blocks; the Hopper pool
+    backward's column-block instances (128 and 384 columns, their blocks a
+    SM and pass-0 ring depths, ``_pool_ext_bwd_smem``) and the weight
+    gradients' 64-row tail instance."""
     for name in ("induced_attention.cu", "induced_attention_bwd.cu"):
         text = (_build.CSRC / name).read_text()
         widths = tuple(int(w) for w in re.findall(r"case (\d+):", text))
@@ -543,3 +546,22 @@ def test_mirrors_of_the_new_plans_use_the_sources_constants():
     for c in range(64, 385, 64):
         assert c in blocks or c == 384
         assert tfa._unpool_hopper_takes(c, c // 32, 64)
+    # the Hopper pool backward's column blocks (Cols<CB>: two blocks a SM at
+    # 128 columns, one at 384), the instances its launcher picks, its ring
+    # depth, and the C it takes
+    text = (_build.CSRC / "pool_ext_bwd.cu").read_text()
+    assert "kMinBlocks = CB == 128 ? 2 : 1;" in text
+    launch = text[text.index('extern "C" int pool_ext_bwd_launch('):]
+    assert "(C != 128 && C != 384 && C != 768)" in launch and "const int JC = C == 768" in launch
+    assert set(re.findall(r"pool_bwd_ety_kernel<(\d+), ", launch)) == {"128", "384"}
+    assert set(re.findall(r"pool_bwd_dy_kernel<(\d+, \d+), ", launch)) == {
+        "128, 64", "384, 64", "384, 32"}
+    assert re.search(r"int stages = \(int\)\(\(kMaxSmem - EtySmem\(C, 0\).total\)", launch)
+    assert "if (stages > 3) stages = 3;" in launch
+    assert tfa._pool_ext_bwd_smem(384)[0] == (1 + 3) * 6 * 8192 + 8192 + 4 * 8 + 1024
+    # two blocks of each pass share a SM at C 128 (the SM's 1 KB a block)
+    assert 2 * (max(tfa._pool_ext_bwd_smem(128)) + 1024) <= tfa._MAX_SMEM + 1024
+    # the weight gradients' 64-row tail: its own instance, picked by M
+    text = (_build.CSRC / "wgrad.cuh").read_text()
+    assert "template <bool kMTail>" in text
+    assert "M % 128 ? wgrad_kernel<true> : wgrad_kernel<false>" in text

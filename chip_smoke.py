@@ -7,11 +7,11 @@ Phases (each raises on failure; nothing is caught):
 
 1. environment: torch, nvcc, the card's name and power limit;
 2. build: the fourteen CUDA kernels of ``gecco_tpu_torch/csrc`` (eight
-   forward, six backward), the WMMA bodies beside the five Hopper
-   forwards and the three Hopper backwards, and the pool backward's v1,
-   v2 and v2j bodies, Hopper (one library) and WMMA (two) (twenty-four
-   libraries, the projective gather's forward and backward in one) with
-   nvcc for sm_90a,
+   forward, six backward), the WMMA bodies beside the Hopper forwards and
+   backwards (the rect attention's two included), and the pool
+   backward's v1, v2 and v2j bodies, Hopper (one library) and WMMA (two)
+   (twenty-seven libraries, the projective gather's forward and backward
+   in one) with nvcc for sm_90a,
    one process per source, all at once, with ``ptxas -v``'s registers and
    spills;
 3. forward kernels: each set-transformer kernel against its plain PyTorch
@@ -44,15 +44,21 @@ Phases (each raises on failure; nothing is caught):
    pyramid of the dataset's renders, coordinates in [-0.1, 1.1]; times,
    bounds and ``grid_sample`` (forward, and its autograd backward) as the
    library yardstick;
-6. per-head attention and megakernel: the rect-attention forward (o and
-   lse) against its plain version in both directions of the per-head
-   model (pool: 64 inducer queries against 2048 points; unpool: the
-   reverse) at the sampler's batch 64, ordinary and drifted, and at the 8k
-   width; its backward (dq, dk, dv) against autograd of the plain version
-   at the training batch 48; ``scaled_dot_product_attention`` (forward,
-   and its backward) on the same q/k/v as the yardstick; the instances for
-   heads wider than 64 (D 80-128) checked and timed, D 256 timed beside its
-   bound and SDPA's (forward and backward); the unpool + MLP
+6. per-head attention and megakernel: the rect attention's Hopper and
+   WMMA bodies on the same operands, forward (o and lse) against its plain
+   version in both directions of the per-head model (pool: 64 inducer
+   queries against 2048 points; unpool: the reverse) at the sampler's
+   batch 64, ordinary and drifted, at D 48 (the flagship), D 128 (three
+   heads), the 8k width and D 128 at 8192 points; the backward (dq, dk,
+   dv) against autograd of the plain version and against the TPU
+   algebra's witness (``rect_bwd_tpu_algebra``) there at the training
+   batch 48; the Hopper bodies' outputs the same bits in two calls, the
+   switch picking them at those shapes; each direction's two bodies timed
+   in turns at D 48 and D 128 with their device time
+   (``torch.profiler``), ``scaled_dot_product_attention`` (forward, and
+   its backward) on the same q/k/v as the yardstick and the bound; the
+   WMMA body's instances at D 80-112 checked and timed, D 256 timed beside
+   its bound and SDPA's (forward and backward); the unpool + MLP
    megakernel against the plain composition and the two separate kernels
    at the sampler's shapes, timed beside both;
 7. sampler path: the flagship (6 x 384, 64 inducers, 8 heads, bf16,
@@ -89,12 +95,14 @@ Phases (each raises on failure; nothing is caught):
    convolutions, the rest);
 11. per-head sampler path: the flagship with ``attn_impl="pallas"`` (the
    per-head modules, their attention through the rect-attention kernel)
-   samples as in phase 7: the rect-attention forward 6 x 2 x 254 times, no
-   other kernel; then the 8-step sample against the plain path;
+   samples as in phase 7: the rect attention's Hopper forward 6 x 2 x 254
+   times, its WMMA body and every other kernel never; then the 8-step
+   sample against the plain path;
 12. per-head training path: the same model trains at batch 48 as in phase
    8: one step's gradient against the plain path per parameter group, then
-   3 + 20 steps, the rect-attention forward and backward 12 times each per
-   step and no other kernel, finite losses and parameters, peak memory;
+   3 + 20 steps, the rect attention's Hopper forward and backward 12 times
+   each per step and no other kernel (their WMMA bodies never), finite
+   losses and parameters, peak memory;
 13. megakernel sampler path: the flagship of phase 7 with
    ``GECCO_UNPOOL_MLP_MEGAKERNEL=1`` set in the process samples at batch
    64: per sample the megakernel, the pool and the h-side 6 x 254 times
@@ -179,7 +187,8 @@ Phases (each raises on failure; nothing is caught):
    the pool forward and backward at 24 and 256 and with
    three heads at 256 (the fold in 64-row blocks), the unpool forward at
    24, 192 and 256 and backward at 24, 128 and 256, the h-side at 24, the
-   rect attention at D 40, 192 and 256 (the backward's two column slices)
+   rect attention at D 40, 192 and 256 (its WMMA bodies; the backward's
+   two column slices at 256)
    and the pool backward's v1, v2 and v2j bodies at N 2000 and three heads
    (J 192, D 128; Hopper) and the demo's C 128 (WMMA), each against its
    plain version with the expected body; then one model per item at two
@@ -436,6 +445,12 @@ SOURCES = {
                            "gecco_tpu/ops/pallas/induced_attention.py:67"),
     "rect_attention_bwd": ("gecco_tpu_torch/csrc/induced_attention_bwd.cu",
                            "gecco_tpu/ops/pallas/induced_attention.py:241"),
+    # the rect attention's WMMA bodies, for the head widths and layouts its
+    # Hopper bodies do not take
+    "rect_attention_fwd_wmma": ("gecco_tpu_torch/csrc/induced_attention_wmma.cu",
+                                "gecco_tpu/ops/pallas/induced_attention.py:67"),
+    "rect_attention_bwd_wmma": ("gecco_tpu_torch/csrc/induced_attention_bwd_wmma.cu",
+                                "gecco_tpu/ops/pallas/induced_attention.py:241"),
     "fused_unpool_mlp": ("gecco_tpu_torch/csrc/unpool_mlp.cu",
                          "gecco_tpu/ops/pallas/folded_attention.py:3176"),
     "folded_pool_layer": ("gecco_tpu_torch/csrc/pool.cu",
@@ -1892,14 +1907,26 @@ def attn_operands(g, b, n, c, heads, i, direction, drift, device, dt):
 
 def WIDE_HEADS(batch):
     """(C, heads, batch, drifts) of the rect attention's checks at heads
-    wider than 64: D 128 as the three-head flagship has them, at ``batch``,
-    and D 80, 96 and 112 at batch 4."""
-    return ((384, 3, batch, (False, True)), (320, 4, 4, (False,)), (384, 4, 4, (False,)),
-            (448, 4, 4, (False,)))
+    wider than 64 that its WMMA body takes: D 80, 96 and 112 (four heads,
+    batch 4, ordinary). D 128, three heads at C 384, both bodies take:
+    ``attention_phase`` holds and times it beside the flagship's D 48."""
+    return ((320, 4, 4, (False,)), (384, 4, 4, (False,)), (448, 4, 4, (False,)))
 
 
-# the rect attention's widest instance, (C, heads): D 256 (phase 21's)
+# the rect attention's widest instance, (C, heads): D 256 (phase 21's);
+# and D 128, three heads at the flagship's width (both bodies take it)
 D256 = (768, 3)
+D128 = (384, 3)
+# its bodies, by the name of their entry points
+RECT_BODIES = ("hopper", "wmma")
+
+
+def merged_randn(g, like):
+    """Normal draws of ``like``'s shape [B, H, rows, D] in the merged-heads
+    layout [B, rows, H, D] that the per-head modules' cotangents have (the
+    gradient of ``_merge_heads``), in ``like``'s dtype."""
+    b, h, m, d = like.shape
+    return torch.randn(b, m, h, d, generator=g, device=like.device).to(like.dtype).transpose(1, 2)
 
 
 def q_bytes(q) -> int:
@@ -1907,82 +1934,157 @@ def q_bytes(q) -> int:
     return (q[0] if q.stride(0) == 0 else q).numel() * q.element_size()
 
 
+def rect_fwd_body(body):
+    """The rect attention forward's ``body`` ("hopper", "wmma") on the
+    card; the plain version on the CPU."""
+    fn = ia._rect_attention_fwd_hopper if body == "hopper" else ia._rect_attention_fwd_wmma
+    return lambda q, k, v: fn(q, k, v) if q.is_cuda else ia._rect_attention_ref(q, k, v)
+
+
+def rect_bwd_body(body):
+    """The rect attention backward's ``body`` on the card, from (q, k, v,
+    o, lse, g); autograd of the plain version on the CPU."""
+    fn = ia._rect_attention_bwd_hopper if body == "hopper" else ia._rect_attention_bwd_wmma
+    return lambda *ops: fn(*ops) if ops[0].is_cuda else ia._rect_attention_bwd_ref(*ops[:3],
+                                                                                    ops[5])
+
+
 def attention_phase(device, shapes, train_batch, big, dt, reps):
-    """The rect-attention forward and backward kernels and the unpool + MLP
-    megakernel against their plain versions; returns per-kernel records. A
-    rect-attention record sums a layer's two calls (pool and unpool)."""
+    """The rect attention's forward and backward, each body (Hopper and
+    WMMA) on the same operands, and the unpool + MLP megakernel against
+    their plain versions; returns per-kernel records. A rect-attention
+    record sums a layer's two calls (pool and unpool) at the flagship's
+    shapes: ``rect_attention_fwd`` / ``_bwd`` the Hopper body's,
+    ``..._wmma`` the WMMA body's, the two timed in turns on the same
+    operands."""
     import torch.nn.functional as F
 
     g = torch.Generator(device=device).manual_seed(4)
     b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
         shapes["num_heads"], shapes["num_inducers"]
     d, j, w = c // heads, heads * i, 2 * c
+    on_card = device.type == "cuda"
     rec = {}
+    suffix = {"hopper": "", "wmma": "_wmma"}
 
     def tag(direction, drift, width=""):
         return f"{direction}{width}, {'drift' if drift else 'ordinary'}"
 
-    # forward: o and lse, both directions at the sampler's batch, then the 8k width
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0)
-    errs = []
-    for direction in ("pool", "unpool"):
-        for drift in (False, True):
-            q, k, v = attn_operands(g, b, n, c, heads, i, direction, drift, device, dt)
-            (o, lse), (ro, rl) = ia.rect_attention_fwd(q, k, v), ia._rect_attention_ref(q, k, v)
-            sync(device)
-            check(f"rect_attention_fwd [{tag(direction, drift)}] o", rel_err(o, ro), TOL_OUT)
-            check(f"rect_attention_fwd [{tag(direction, drift)}] lse", rel_err(lse, rl), TOL_LSE)
-            errs.append(abs_err(o, ro))
-        q, k, v = attn_operands(g, b, n, c, heads, i, direction, False, device, dt)
-        ms = time_ms(lambda: ia.rect_attention_fwd(q, k, v), device, reps)
-        plain_ms = time_ms(lambda: ia._rect_attention_ref(q, k, v), device, max(2, reps // 4))
+    def same_bits(what, first, second):
+        if on_card and not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"{what}: not the same bits in two calls")
+
+    def hopper_picked(what, body):
+        if on_card and body != "hopper":
+            raise AssertionError(f"{what}: the switch picked the {body} body, not the Hopper one")
+
+    def fwd_hold(label, q, k, v, body):
+        """The forward's ``body`` against the plain version, o and lse (the
+        Hopper body's the same bits in two calls) -> max |err| of o."""
+        run = rect_fwd_body(body)
+        got, want, again = run(q, k, v), ia._rect_attention_ref(q, k, v), run(q, k, v)
+        sync(device)
+        name = f"rect_attention_fwd{suffix[body]} [{label}]"
+        check(f"{name} o", rel_err(got[0], want[0]), TOL_OUT)
+        check(f"{name} lse", rel_err(got[1], want[1]), TOL_LSE)
+        if body == "hopper":
+            same_bits(name, got, again)
+        return abs_err(got[0], want[0])
+
+    def fwd_times(q, k, v):
+        """Each body's median ms (in turns) and device ms, the plain
+        version's and SDPA's ms, the operations and the bytes."""
+        runs = {body: (lambda body=body: rect_fwd_body(body)(q, k, v)) for body in RECT_BODIES}
+        turns = bodies_in_turns(runs["hopper"], runs["wmma"], device, reps)
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc), device, reps)
-        m_rows, n_keys = q.shape[2], k.shape[2]
-        flops = 4 * b * heads * m_rows * n_keys * d
-        # q once, k, v; o (bf16) and lse (fp32) written
-        bytes_ = q_bytes(q) + nbytes(k, v) + b * heads * m_rows * (2 * d + 4)
-        bms, by = bound(flops, bytes_)
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                         ("flops", flops), ("bytes", bytes_)):
-            tot[key] += val
-        print(f"  rect_attention_fwd {direction} (q {tuple(q.shape)}, k/v {tuple(k.shape)}): "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, "
-              f"bound {bms:.3f} ms ({by})")
-    for direction in ("pool", "unpool"):
-        for drift in (False, True):
-            q, k, v = attn_operands(g, big["batch"], big["n_points"], big["feature_dim"],
-                                    big["num_heads"], big["num_inducers"], direction, drift,
-                                    device, dt)
-            (o, lse), (ro, rl) = ia.rect_attention_fwd(q, k, v), ia._rect_attention_ref(q, k, v)
-            sync(device)
-            check(f"rect_attention_fwd [{tag(direction, drift, ' 8k width')}] o", rel_err(o, ro),
-                  TOL_OUT)
-            check(f"rect_attention_fwd [{tag(direction, drift, ' 8k width')}] lse",
-                  rel_err(lse, rl), TOL_LSE)
-    # the instances for heads wider than 64: D 128 (three heads at C 384,
-    # the sampler's batch, ordinary and drifted), D 80, 96 and 112 (four
-    # heads, batch 4, ordinary); each timed on its ordinary operands
+        bb, hh, m_rows, dd = q.shape
+        return dict(**{f"{body}_ms": statistics.median(turns[body]) for body in RECT_BODIES},
+                    **{f"{body}_device_ms": device_ms(runs[body], device) for body in RECT_BODIES},
+                    plain_ms=time_ms(lambda: ia._rect_attention_ref(q, k, v), device,
+                                     max(2, reps // 4)),
+                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc),
+                                       device, reps),
+                    # q once, k, v; o (bf16) and lse (fp32) written
+                    flops=4 * bb * hh * m_rows * k.shape[2] * dd,
+                    bytes=q_bytes(q) + nbytes(k, v) + bb * hh * m_rows * (2 * dd + 4))
+
+    def show(name, what, t):
+        bms, by = bound(t["flops"], t["bytes"])
+        print(f"  {name} {what}: Hopper {t['hopper_ms']:.3f} ms (device "
+              f"{fmt_ms(t['hopper_device_ms'])}), WMMA {t['wmma_ms']:.3f} ms (device "
+              f"{fmt_ms(t['wmma_device_ms'])}), in turns; plain {t['plain_ms']:.3f} ms, sdpa "
+              f"{t['library_ms']:.3f} ms, bound {bms:.3f} ms ({by})")
+        return dict(t, bound_ms=bms, bound_by=by)
+
+    def records(name, times, errs, **extra):
+        """The Hopper and WMMA records of one function from its directions'
+        times at the flagship."""
+        tot = lambda key: sum(t[key] for t in times.values())
+        dev = lambda body: (None if not on_card else tot(f"{body}_device_ms"))
+        bms, by = bound(tot("flops"), tot("bytes"))
+        for body in RECT_BODIES:
+            rec[name + suffix[body]] = dict(
+                max_abs_err=max(errs[body]), ms=tot(f"{body}_ms"), device_ms=dev(body),
+                plain_ms=tot("plain_ms"), bound_ms=bms, bound_by=by,
+                library_ms=tot("library_ms"),
+                directions={k: {key: t[key] for key in (f"{body}_ms", f"{body}_device_ms",
+                                                         "plain_ms", "library_ms", "bound_ms")}
+                            for k, t in times.items()},
+                **(extra if body == "hopper" else {}))
+
+    # forward: both bodies against the plain version at the sampler's batch
+    # (the switch picks the Hopper body there), at the 8k width and at D 128
+    # (three heads), ordinary and drifted; each direction's bodies timed in
+    # turns at the flagship and at D 128
+    errs = {body: [] for body in RECT_BODIES}
+    times, times128 = {}, {}
+    for cc, hh, where in ((c, heads, times), (*D128, times128)):
+        for direction in ("pool", "unpool"):
+            width = "" if where is times else f" D {cc // hh}"
+            for drift in (False, True):
+                q, k, v = attn_operands(g, b, n, cc, hh, i, direction, drift, device, dt)
+                hopper_picked(f"rect_attention_fwd at {tag(direction, drift, width)}",
+                              ia._rect_fwd_body(q, k, v))
+                for body in RECT_BODIES:
+                    err = fwd_hold(tag(direction, drift, width), q, k, v, body)
+                    if where is times:
+                        errs[body].append(err)
+            q, k, v = attn_operands(g, b, n, cc, hh, i, direction, False, device, dt)
+            where[direction] = show("rect_attention_fwd",
+                                    f"{direction}{width} (q {tuple(q.shape)}, k/v "
+                                    f"{tuple(k.shape)})", fwd_times(q, k, v))
+    # the 8k width, and D 128 at its point count (the pool forward's k tiles
+    # too many to stay resident: streamed twice)
+    long_cases = ((big["feature_dim"], big["num_heads"], " 8k width"),
+                  (*D128, " 8k points, D 128"))
+    for cc, hh, width in long_cases:
+        for direction in ("pool", "unpool"):
+            for drift in (False, True):
+                q, k, v = attn_operands(g, big["batch"], big["n_points"], cc, hh,
+                                        big["num_inducers"], direction, drift, device, dt)
+                hopper_picked(f"rect_attention_fwd at {tag(direction, drift, width)}",
+                              ia._rect_fwd_body(q, k, v))
+                for body in RECT_BODIES:
+                    fwd_hold(tag(direction, drift, width), q, k, v, body)
+    # the WMMA body's instances for heads wider than 64 that the Hopper body
+    # does not take: D 80, 96 and 112 (four heads, batch 4, ordinary),
+    # through the switch, each timed
     wide_ms = {}
     for cc, hh, bb, drifts in WIDE_HEADS(b):
         for direction in ("pool", "unpool"):
             for drift in drifts:
                 q, k, v = attn_operands(g, bb, n, cc, hh, i, direction, drift, device, dt)
-                (o, lse), (ro, rl) = ia.rect_attention_fwd(q, k, v), \
-                    ia._rect_attention_ref(q, k, v)
-                sync(device)
-                wide = f" D {cc // hh}"
-                check(f"rect_attention_fwd [{tag(direction, drift, wide)}] o", rel_err(o, ro),
-                      TOL_OUT)
-                check(f"rect_attention_fwd [{tag(direction, drift, wide)}] lse",
-                      rel_err(lse, rl), TOL_LSE)
+                if ia._rect_fwd_body(q, k, v) != "wmma":
+                    raise AssertionError(f"rect_attention_fwd at D {cc // hh}: not the WMMA body")
+                fwd_hold(tag(direction, drift, f" D {cc // hh}"), q, k, v, "wmma")
                 if not drift:
                     wide_ms[f"D{cc // hh}_B{bb}_{direction}"] = time_ms(
                         lambda: ia.rect_attention_fwd(q, k, v), device, reps)
-    print("  rect_attention_fwd at the wider heads: "
+    print("  rect_attention_fwd's WMMA body at the wider heads: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in wide_ms.items()))
-    # the widest instance, D 256 (three heads at C 768, phase 21's): each
-    # direction's time at the sampler's batch beside its bound and SDPA's
+    # the widest instance, D 256 (three heads at C 768, phase 21's; the WMMA
+    # body): each direction's time at the sampler's batch beside its bound
+    # and SDPA's
     d256 = {}
     for direction in ("pool", "unpool"):
         q, k, v = attn_operands(g, b, n, D256[0], D256[1], i, direction, False, device, dt)
@@ -1994,71 +2096,107 @@ def attention_phase(device, shapes, train_batch, big, dt, reps):
             ms=time_ms(lambda: ia.rect_attention_fwd(q, k, v), device, reps), bound_ms=bms,
             bound_by=by, library_ms=time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc),
                                             device, reps))
-    print(f"  rect_attention_fwd at D 256 (batch {b}): "
+    print(f"  rect_attention_fwd at D 256 (batch {b}, the WMMA body): "
           + ", ".join(f"{k} kernel {v['ms']:.3f} ms, sdpa {v['library_ms']:.3f} ms, bound "
                       f"{v['bound_ms']:.3f} ms ({v['bound_by']})" for k, v in d256.items()))
-    bms, by = bound(tot["flops"], tot["bytes"])
-    rec["rect_attention_fwd"] = dict(max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
-                                     bound_ms=bms, bound_by=by, library_ms=tot["library_ms"],
-                                     ms_wide_heads=wide_ms, d256=d256)
+    records("rect_attention_fwd", times, errs, d128=times128)
+    rec["rect_attention_fwd_wmma"].update(ms_wide_heads=wide_ms, d256=d256, d128=times128)
 
-    # backward: dq, dk, dv at the training batch, then the 8k width
+    # backward: both bodies against autograd of the plain version and
+    # against the TPU algebra's witness at the training batch, the 8k width
+    # and D 128, ordinary and drifted; timed in turns at the flagship and D 128
     def bwd_case(bb, nn_, cc, hh, ii, direction, drift):
         q, k, v = attn_operands(g, bb, nn_, cc, hh, ii, direction, drift, device, dt)
         o, lse = ia.rect_attention_fwd(q, k, v)
-        gg = torch.randn(o.shape, generator=g, device=device).to(dt)
-        return (q, k, v, o, lse, gg)
+        return (q, k, v, o, lse, merged_randn(g, o))
 
-    def bwd_check(label, ops):
-        got, want = ia.rect_attention_bwd(*ops), ia._rect_attention_bwd_ref(*ops[:3], ops[5])
+    def bwd_hold(label, ops, body):
+        """The backward's ``body`` against autograd of the plain version and
+        against the TPU algebra's witness (the Hopper body's dq, dk, dv the
+        same bits in two calls) -> max |err|."""
+        run = rect_bwd_body(body)
+        got, again = run(*ops), run(*ops)
+        want, alg = ia._rect_attention_bwd_ref(*ops[:3], ops[5]), ia._rect_bwd_tpu_algebra(*ops)
         sync(device)
-        for name, a, ref in zip(("dq", "dk", "dv"), got, want):
-            check(f"rect_attention_bwd [{label}] {name}", rel_err(a, ref), TOL_GRAD)
-        alg = rect_bwd_tpu_algebra(*ops)
-        print(f"    against the TPU algebra in plain PyTorch: "
-              f"{max(rel_err(a, ref) for a, ref in zip(got, alg)):.3e}")
+        name = f"rect_attention_bwd{suffix[body]} [{label}]"
+        for key, a, ref, wit in zip(("dq", "dk", "dv"), got, want, alg):
+            check(f"{name} {key}", rel_err(a, ref), TOL_GRAD)
+            # on the CPU the "body" is the plain version, not the TPU algebra
+            if on_card:
+                check(f"{name} {key} against the TPU algebra in plain PyTorch", rel_err(a, wit),
+                      TOL_GRAD)
+        if body == "hopper":
+            same_bits(name, got, again)
         return max(abs_err(a, ref) for a, ref in zip(got, want))
 
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0)
-    errs = []
-    for direction in ("pool", "unpool"):
-        for drift in (False, True):
-            ops = bwd_case(train_batch, n, c, heads, i, direction, drift)
-            errs.append(bwd_check(tag(direction, drift), ops))
-        ops = bwd_case(train_batch, n, c, heads, i, direction, False)
+    def bwd_times(ops):
         q, k, v, o, lse, gg = ops
-        ms = time_ms(lambda: ia.rect_attention_bwd(*ops), device, reps)
-        plain_ms = time_ms(lambda: ia._rect_attention_bwd_ref(q, k, v, gg), device,
-                           max(2, reps // 4))
-        lib_ms = time_ms(sdpa_backward(*(t.contiguous() for t in (q, k, v)), g), device, reps)
-        m_rows, n_keys = q.shape[2], k.shape[2]
-        # s (p from lse), dp, dq, dk, dv
-        flops = 10 * train_batch * heads * m_rows * n_keys * d
-        # q once, k, v, o, g, lse read; dq, dk, dv written
-        bytes_ = q_bytes(q) + nbytes(k, v, o, gg, lse) + nbytes(q.expand_as(o), k, v)
-        bms, by = bound(flops, bytes_)
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                         ("flops", flops), ("bytes", bytes_)):
-            tot[key] += val
-        print(f"  rect_attention_bwd {direction} (batch {train_batch}): kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+        runs = {body: (lambda body=body: rect_bwd_body(body)(*ops)) for body in RECT_BODIES}
+        turns = bodies_in_turns(runs["hopper"], runs["wmma"], device, reps)
+        bb, hh, m_rows, dd = q.shape
+        return dict(**{f"{body}_ms": statistics.median(turns[body]) for body in RECT_BODIES},
+                    **{f"{body}_device_ms": device_ms(runs[body], device) for body in RECT_BODIES},
+                    plain_ms=time_ms(lambda: ia._rect_attention_bwd_ref(q, k, v, gg), device,
+                                     max(2, reps // 4)),
+                    library_ms=time_ms(sdpa_backward(*(t.contiguous() for t in (q, k, v)), g),
+                                       device, reps),
+                    # s (p from lse), dp, dq, dk, dv
+                    flops=10 * bb * hh * m_rows * k.shape[2] * dd,
+                    # q once, k, v, o, g, lse read; dq, dk, dv written
+                    bytes=q_bytes(q) + nbytes(k, v, o, gg, lse) + nbytes(q.expand_as(o), k, v))
+
+    errs = {body: [] for body in RECT_BODIES}
+    times, times128 = {}, {}
+    for cc, hh, where in ((c, heads, times), (*D128, times128)):
+        for direction in ("pool", "unpool"):
+            width = "" if where is times else f" D {cc // hh}"
+            for drift in (False, True):
+                ops = bwd_case(train_batch, n, cc, hh, i, direction, drift)
+                hopper_picked(f"rect_attention_bwd at {tag(direction, drift, width)}",
+                              ia._rect_bwd_body(*ops[:4], ops[5]))
+                for body in RECT_BODIES:
+                    err = bwd_hold(tag(direction, drift, width), ops, body)
+                    if where is times:
+                        errs[body].append(err)
+            ops = bwd_case(train_batch, n, cc, hh, i, direction, False)
+            where[direction] = show("rect_attention_bwd",
+                                    f"{direction}{width} (batch {train_batch})", bwd_times(ops))
+    for cc, hh, width in long_cases:
+        for direction in ("pool", "unpool"):
+            for drift in (False, True):
+                ops = bwd_case(big["batch"], big["n_points"], cc, hh, big["num_inducers"],
+                               direction, drift)
+                hopper_picked(f"rect_attention_bwd at {tag(direction, drift, width)}",
+                              ia._rect_bwd_body(*ops[:4], ops[5]))
+                for body in RECT_BODIES:
+                    bwd_hold(tag(direction, drift, width), ops, body)
+    # a cotangent in fp32: the Hopper backward takes delta from the wrapper,
+    # formed from that cotangent (as the JAX package forms it), against the
+    # plain pieces given it (on the CPU the pieces themselves)
     for direction in ("pool", "unpool"):
-        for drift in (False, True):
-            bwd_check(tag(direction, drift, " 8k width"),
-                      bwd_case(big["batch"], big["n_points"], big["feature_dim"], big["num_heads"],
-                               big["num_inducers"], direction, drift))
+        q, k, v, o, lse, gg = bwd_case(train_batch, n, c, heads, i, direction, False)
+        g32 = gg.float()
+        want = ia._rect_bwd_pieces(q, k, v, o, lse, g32, (g32 * o.float()).sum(-1))
+        got = ia._rect_attention_bwd_hopper(q, k, v, o, lse, g32) if on_card else want
+        sync(device)
+        for key, a, ref in zip(("dq", "dk", "dv"), got, want):
+            check(f"rect_attention_bwd [{direction}, fp32 cotangent] {key} against the plain "
+                  f"pieces", rel_err(a, ref), TOL_GRAD)
     wide_ms = {}
     for cc, hh, bb, drifts in WIDE_HEADS(train_batch):
         for direction in ("pool", "unpool"):
             for drift in drifts:
                 ops = bwd_case(bb, n, cc, hh, i, direction, drift)
-                bwd_check(tag(direction, drift, f" D {cc // hh}"), ops)
+                if ia._rect_bwd_body(*ops[:4], ops[5]) != "wmma":
+                    raise AssertionError(f"rect_attention_bwd at D {cc // hh}: not the WMMA body")
+                bwd_hold(tag(direction, drift, f" D {cc // hh}"), ops, "wmma")
                 if not drift:
                     wide_ms[f"D{cc // hh}_B{bb}_{direction}"] = time_ms(
                         lambda: ia.rect_attention_bwd(*ops), device, reps)
-    print("  rect_attention_bwd at the wider heads: "
+    print("  rect_attention_bwd's WMMA body at the wider heads: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in wide_ms.items()))
-    # D 256 at the training batch: time, bound and SDPA's backward
+    # D 256 at the training batch (the WMMA body): time, bound and SDPA's
+    # backward
     d256 = {}
     for direction in ("pool", "unpool"):
         ops = bwd_case(train_batch, n, D256[0], D256[1], i, direction, False)
@@ -2071,13 +2209,11 @@ def attention_phase(device, shapes, train_batch, big, dt, reps):
             bound_by=by,
             library_ms=time_ms(sdpa_backward(*(t.contiguous() for t in (q, k, v)), g), device,
                                reps))
-    print(f"  rect_attention_bwd at D 256 (batch {train_batch}): "
+    print(f"  rect_attention_bwd at D 256 (batch {train_batch}, the WMMA body): "
           + ", ".join(f"{k} kernel {v['ms']:.3f} ms, sdpa backward {v['library_ms']:.3f} ms, "
                       f"bound {v['bound_ms']:.3f} ms ({v['bound_by']})" for k, v in d256.items()))
-    bms, by = bound(tot["flops"], tot["bytes"])
-    rec["rect_attention_bwd"] = dict(max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
-                                     bound_ms=bms, bound_by=by, library_ms=tot["library_ms"],
-                                     ms_wide_heads=wide_ms, d256=d256)
+    records("rect_attention_bwd", times, errs, d128=times128)
+    rec["rect_attention_bwd_wmma"].update(ms_wide_heads=wide_ms, d256=d256, d128=times128)
 
     # the megakernel at the sampler's shapes: against the plain composition
     # and the two separate kernels
@@ -2688,22 +2824,9 @@ def check_finite(losses, *models):
                 raise AssertionError(f"non-finite parameter {name} after training")
 
 
-def rect_bwd_tpu_algebra(q, k, v, o, lse, g):
-    """dq, dk, dv by the TPU kernel's own algebra (``_bwd_kernel``, the
-    header of ``csrc/induced_attention_bwd.cu``) in plain PyTorch: delta
-    from the bf16 o, p from lse, ds and p rounded to bf16 before the
-    products. The witness of the per-head path's unpool q/k gradients."""
-    bf = torch.bfloat16
-    scale = 1.0 / q.shape[-1] ** 0.5
-    delta = (g.float() * o.float()).sum(-1, keepdim=True)
-    g16 = g.to(bf).float()
-    s = torch.einsum("bhmd,bhnd->bhmn", q.float(), k.float()) * scale
-    p = torch.exp(s - lse[..., None])
-    ds = (p * (torch.einsum("bhmd,bhnd->bhmn", g16, v.float()) - delta)).to(bf).float()
-    dq = torch.einsum("bhmn,bhnd->bhmd", ds, k.float()) * scale
-    dk = torch.einsum("bhmn,bhmd->bhnd", ds, q.float()) * scale
-    dv = torch.einsum("bhmn,bhmd->bhnd", p.to(bf).float(), g16)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+# the TPU kernel's own backward algebra in plain PyTorch (the witness of the
+# per-head path's unpool q/k gradients), kept here under its old name
+rect_bwd_tpu_algebra = ia._rect_bwd_tpu_algebra
 
 
 def compare_grads(model, loss_fn, tol, impl="folded_pallas", witness=False, against="plain"):
@@ -3340,7 +3463,8 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
                 hold(f"rect_attention_bwd [{what}]", ia.rect_attention_bwd(q, k, v, o, lse, gg),
                      ia._rect_attention_bwd_ref(q, k, v, gg), ("dq", "dk", "dv"),
                      (TOL_GRAD,) * 3)
-        ran(f"rect_attention_fwd at D {cc // hh}", "rect_attention_fwd")
+        ran(f"rect_attention_fwd at D {cc // hh}", "rect_attention_fwd_wmma",
+            "rect_attention_fwd")
 
     # the pool backward's v1, v2 and v2j bodies at a ragged N and at three
     # heads (J 192: the S product's 64-column tiles and the weight
@@ -3385,7 +3509,9 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
                      fused_mlp_residual_bwd=1)
     demo = dict(folded_pool_ext=1, fused_h_side=1, folded_unpool=1, fused_mlp_residual_wmma=1)
     every = dict(folded_pool_ext=1, fused_h_side=1, folded_unpool=1, fused_mlp_residual=1)
-    per_head = (dict(rect_attention_fwd=2), dict(rect_attention_fwd=4, rect_attention_bwd=2))
+    # the per-head models at D 40, 192 and 256: the rect attention's WMMA bodies
+    per_head = (dict(rect_attention_fwd_wmma=2),
+                dict(rect_attention_fwd_wmma=4, rect_attention_bwd_wmma=2))
     base = dict(FLAGSHIP, feature_dim=c, num_heads=heads, n_points=n_points)
     cases = {f"the flagship with {ii} inducers": (dict(base, num_inducers=ii), "folded_pallas",
                                                   wmma, wmma_grad)
@@ -3491,8 +3617,10 @@ KERNEL_FUNCTIONS = {
     "atb_kernel (the weight-gradient products of the WMMA backwards)": ("atb_kernel",),
     "projective_gather": ("gather_kernel",),
     "projective_gather_bwd": ("gather_bwd_kernel",),
-    "rect_attention_fwd": ("rect_attn_fwd_kernel",),
-    "rect_attention_bwd": ("rect_attn_bwd_kernel",),
+    "rect_attention_fwd": ("rect_fwd_hopper_kernel",),
+    "rect_attention_fwd_wmma": ("rect_attn_fwd_kernel",),
+    "rect_attention_bwd": ("rect_bwd_hopper_kernel",),
+    "rect_attention_bwd_wmma": ("rect_attn_bwd_kernel",),
     "fused_unpool_mlp": ("unpool_mlp_kernel",),
     "folded_pool_layer": ("pool_layer_pass_kernel", "pool_layer_merge_kernel",
                           "pool_layer_sum_kernel"),
@@ -4074,6 +4202,7 @@ def main():
     # the forced-body training paths' for the pool backward's v1, v2 and
     # v2j (their Hopper body), phase 21's demo-width model's gradient under
     # each for their WMMA body
+    per_head_d40 = next(k for k in shape_counts if k.startswith("the per-head flagship at D 40"))
     pool_counts = {}
     for name in ("folded_pool_layer", "folded_pool_layer_wmma", "folded_pool_layer_bwd",
                  "folded_pool_layer_bwd_wmma"):
@@ -4081,6 +4210,10 @@ def main():
         pool_counts[name] = module_counts.get(name, 0) - prenorm_counts.get(name, 0)
     source_counts = {"projective_gather": cond_counts, "projective_gather_bwd": cond_train_counts,
                      "rect_attention_fwd": ph_counts, "rect_attention_bwd": ph_train_counts,
+                     # the rect attention's WMMA bodies: the per-head model at
+                     # D 40's sample and gradient (phase 21)
+                     "rect_attention_fwd_wmma": shape_counts[per_head_d40][0],
+                     "rect_attention_bwd_wmma": shape_counts[per_head_d40][1],
                      "fused_unpool_mlp": mega_counts, "folded_pool_layer": pool_counts,
                      "folded_pool_layer_wmma": pool_counts, "folded_pool_layer_bwd": pool_counts,
                      "folded_pool_layer_bwd_wmma": pool_counts,

@@ -3,11 +3,12 @@ beside its plain PyTorch version. Importing this package builds nothing.
 
 ``KERNELS`` lists every wrapper that launches a kernel, forward and
 backward (fourteen: eight forward, six backward); each counts its launches
-in ``.launches``. Nine of them have a second body, WMMA beside the Hopper
+in ``.launches``. Eleven of them have a second body, WMMA beside the Hopper
 design, chosen by shape (``folded_pool_ext``, ``fused_h_side``,
 ``folded_unpool``, ``fused_mlp_residual``, ``folded_pool_layer``, the three
-folded backwards and ``folded_pool_layer_bwd``): those count its launches in
-``.launches_wmma``, reported as ``<name>_wmma``. The pool backward's v1,
+folded backwards, ``folded_pool_layer_bwd``, ``rect_attention_fwd`` and
+``rect_attention_bwd``): those count its launches in ``.launches_wmma``,
+reported as ``<name>_wmma``. The pool backward's v1,
 v2 and v2j bodies (``GECCO_POOL_BWD``) count theirs in ``.launches_v1``,
 ``.launches_v2`` and ``.launches_v2j`` (``folded_pool_ext_bwd_v1`` ...) where
 their Hopper body runs, and in ``.launches_v1_wmma`` ...
@@ -43,7 +44,7 @@ KERNELS = (
 
 TWO_BODIES = (folded_pool_ext, fused_h_side, folded_unpool, fused_mlp_residual,
               folded_pool_layer, folded_pool_ext_bwd, folded_unpool_bwd, fused_mlp_residual_bwd,
-              folded_pool_layer_bwd)
+              folded_pool_layer_bwd, rect_attention_fwd, rect_attention_bwd)
 
 
 def reset_launch_counts() -> None:

@@ -33,7 +33,8 @@ KERNEL_SOURCES = (
     "projective_gather", "induced_attention", "induced_attention_bwd", "unpool_mlp",
     "pool", "pool_bwd", "pool_ext_wmma", "unpool_wmma", "mlp_wmma", "pool_ext_bwd_wmma",
     "unpool_bwd_wmma", "mlp_bwd_wmma", "pool_ext_bwd_v1", "pool_ext_bwd_v2", "hside_wmma",
-    "pool_wmma", "pool_ext_bwd_twopass", "pool_bwd_wmma",
+    "pool_wmma", "pool_ext_bwd_twopass", "pool_bwd_wmma", "induced_attention_wmma",
+    "induced_attention_bwd_wmma",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

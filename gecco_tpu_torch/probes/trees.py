@@ -31,6 +31,15 @@ the flagship's width and batch 48 (``*_heads3``). It prints one JSON line
 per tree and the card's name and power limit. Run by file path,
 not with ``-m``, so that each tree's package is the one imported. Needs
 the card.
+
+    python3 gecco_tpu_torch/probes/trees.py --per-head PARENT CHANGE CHANGE PARENT
+
+measures instead, tree by tree: the device milliseconds of one of the
+flagship's sampler evaluations at batch 64 (as (2)) and of its train step
+at batch 48 (as (3)), then the same of the per-head flagship
+(``attn_impl="pallas"``: the rect attention's forward and backward
+kernels, the rest cuBLAS and PyTorch), its step's gradient held as
+``chip_smoke.py`` holds it.
 """
 
 from __future__ import annotations
@@ -161,14 +170,48 @@ def measure(tree: str) -> dict:
             "device_ms": device_ms}
 
 
+def measure_per_head(tree: str) -> dict:
+    """The flagship's and the per-head flagship's evaluation and train
+    step, device milliseconds, in this process (the tree's package first on
+    the path)."""
+    sys.path.insert(0, tree)
+    import torch
+
+    import chip_smoke as cs
+
+    if os.path.dirname(os.path.abspath(cs.__file__)) != tree:
+        raise RuntimeError(f"imported {cs.__file__}, not the tree {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {}
+    for impl, key in (("folded_pallas", ""), ("pallas", "per_head_")):
+        model = cs.build_flagship(dev, torch.Generator().manual_seed(0), cs.FLAGSHIP["n_layers"],
+                                  attn_impl=impl)
+        x = model.schedule.sample_latent(torch.Generator(device=dev).manual_seed(2),
+                                         (cs.BATCH, cs.FLAGSHIP["n_points"], 3), dev)
+        sigma = torch.full((cs.BATCH,), 10.0, device=dev)
+        with torch.no_grad():
+            out[f"{key}eval_device_ms"] = profiled_ms(lambda: model.denoise(sigma, x), 10)
+        del model
+        _, train = cs.train_phase(dev, cs.FLAGSHIP["n_layers"], cs.TRAIN_BATCH,
+                                  cs.FLAGSHIP["n_points"], "the card", (3, 20), attn_impl=impl)
+        out[f"{key}train_device_ms_per_step"] = train["device_ms_per_step"]
+        out[f"{key}train_ms_per_step"] = train["ms_per_step"]
+    return out
+
+
 def main():
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        print(json.dumps({"tree": sys.argv[2], **measure(os.path.abspath(sys.argv[2]))}))
+    per_head = len(sys.argv) > 1 and sys.argv[1] == "--per-head"
+    args = sys.argv[2:] if per_head else sys.argv[1:]
+    if len(args) > 1 and args[0] == "--one":
+        fn = measure_per_head if per_head else measure
+        print(json.dumps({"tree": args[1], **fn(os.path.abspath(args[1]))}))
         return
-    if len(sys.argv) < 2:
+    if not args:
         raise SystemExit(__doc__)
-    for tree in sys.argv[1:]:
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+    for tree in args:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              *(["--per-head"] if per_head else []), "--one", tree],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"probes.trees on {tree}:\n{res.stdout}\n{res.stderr}")

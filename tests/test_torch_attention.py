@@ -321,3 +321,97 @@ def test_rect_bwd_witness_departs_from_fp32_at_d256():
         if name != "dv":
             want = exact.grad.numpy()
             assert dev(r, want) > 1.5 * dev(plain.grad.float().numpy(), want), name
+
+
+# -------------------------------------- the Hopper bodies' plain pieces --
+
+# (queries, keys) of the pieces' cases: the pool (a ragged I of 48
+# inducers against a ragged N of 200 points) and the unpool (the reverse)
+PIECE_SHAPES = {"pool": (48, 200), "unpool": (200, 48)}
+
+
+def _piece_operands(seed, direction, d, drift):
+    """q, k, v and the cotangent g, two heads of width d; with ``drift``
+    head 0's keys scaled 60x (logits in the hundreds)."""
+    rng = np.random.default_rng(seed)
+    m, n = PIECE_SHAPES[direction]
+    q, g = (rng.standard_normal((B, 2, m, d)) for _ in range(2))
+    k, v = (rng.standard_normal((B, 2, n, d)) for _ in range(2))
+    if drift:
+        k = k * DRIFT[:2, None, None]
+    return tuple(a.astype(np.float32) for a in (q, k, v, g))
+
+
+@jax.jit
+def _jax_fwd_bwd(q, k, v, g):
+    """The JAX kernels in interpret mode: the forward's o and lse, and the
+    vjp of g through ``rect_attention_pallas``."""
+    o, lse = _forward_impl(q, k, v)
+    return o, lse, jax.vjp(rect_attention_pallas, q, k, v)[1](g)
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["ordinary", "drift"])
+@pytest.mark.parametrize("d", [48, 32])
+@pytest.mark.parametrize("direction", ["pool", "unpool"])
+def test_rect_forward_pieces_compose(monkeypatch, direction, d, drift):
+    """The Hopper forward's algebra in plain pieces (``_rect_fwd_pieces``:
+    the pool direction's ranges of key tiles, each range's running (max,
+    sum), their merge in rank order, the normalised p's parts of p @ v
+    summed in rank order; the unpool direction's one pass) at a ragged N
+    of 200 and a ragged I of 48, the ranges two tiles long (the pool's four
+    key tiles in two ranges): in fp32 it is the plain version (rtol 1e-4,
+    atol 1e-5 scaled with max |ref| under drift, the JAX tests'
+    tolerances); in bf16 it gives ``_forward_impl``'s o (interpret mode)
+    within one bf16 step of the largest value (2^-7 of max |ref|: both
+    round p, then o, to bf16) and its lse (rtol 1e-5)."""
+    monkeypatch.setattr(tia, "_RANGE_TILES", 2)
+    q, k, v, g = _piece_operands(20 + d, direction, d, drift)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    o, lse = tia._rect_fwd_pieces(tq, tk, tv)
+    ro, rl = tia._rect_attention_ref(tq, tk, tv)
+    np.testing.assert_allclose(f32(o), f32(ro), rtol=1e-4, atol=_atol(ro, drift, 1e-5))
+    np.testing.assert_allclose(f32(lse), f32(rl), rtol=1e-5, atol=1e-5)
+    jo, jl, _ = _jax_fwd_bwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g)))
+    bf = torch.bfloat16
+    o16, l16 = tia._rect_fwd_pieces(tq.to(bf), tk.to(bf), tv.to(bf))
+    assert o16.dtype == bf
+    assert rel_err(o16, jo) <= 2 ** -7
+    np.testing.assert_allclose(f32(l16), f32(jl), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("drift", [False, True], ids=["ordinary", "drift"])
+@pytest.mark.parametrize("d", [48, 32])
+@pytest.mark.parametrize("direction", ["pool", "unpool"])
+def test_rect_backward_pieces_compose(monkeypatch, direction, d, drift):
+    """The Hopper backward's algebra in plain pieces (``_rect_bwd_pieces``:
+    key-major tiles, p and ds rounded to the operands' dtype before the
+    three products, the gradient a block accumulates over its range summed
+    over the ranges in rank order, delta formed as the kernel forms it
+    from the bf16 g and o, ``_rect_delta_ref``), the ranges two tiles long,
+    at a ragged N of 200 and a ragged I of 48: in fp32 it is autograd of
+    the plain version (rtol 1e-4, atol 1e-5 scaled with max |ref| under
+    drift); in bf16, fed ``_forward_impl``'s own o and lse, it gives
+    ``jax.vjp`` of ``rect_attention_pallas`` (``_bwd_kernel`` in
+    interpret mode) within one bf16 step of the largest value (2^-7 of max
+    |ref|), dq, dk and dv; and its delta is the JAX package's."""
+    monkeypatch.setattr(tia, "_RANGE_TILES", 2)
+    q, k, v, g = _piece_operands(30 + d, direction, d, drift)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    o, lse = tia._rect_attention_ref(tq, tk, tv)
+    got = tia._rect_bwd_pieces(tq, tk, tv, o, lse, tg)
+    want = tia._rect_attention_bwd_ref(tq, tk, tv, tg)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(f32(a), f32(r), rtol=1e-4, atol=_atol(r, drift, 1e-5),
+                                   err_msg=name)
+    jo, jl, ref = _jax_fwd_bwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g)))
+    bf = torch.bfloat16
+    o16 = torch.from_numpy(np.array(jo, np.float32)).to(bf)
+    l16 = torch.from_numpy(np.array(jl, np.float32))
+    g16 = tg.to(bf)
+    got = tia._rect_bwd_pieces(tq.to(bf), tk.to(bf), tv.to(bf), o16, l16, g16)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == bf, name
+        assert rel_err(a, r) <= 2 ** -7, name
+    jdelta = jnp.sum(jnp.asarray(g16.float().numpy()) * jnp.asarray(o16.float().numpy()), -1)
+    np.testing.assert_allclose(f32(tia._rect_delta_ref(g16, o16)), np.asarray(jdelta),
+                               rtol=1e-6, atol=1e-6)

@@ -254,6 +254,88 @@ def test_rect_attention_takes_any_head_width(direction, d):
     assert _maxrel(o[..., :d], port.detach()) < 1e-5
 
 
+def _module_operands(direction, d, heads=2, b=2, n=256, i=64):
+    """q, k, v, o and the cotangent g as the per-head modules hand them to
+    the rect attention (bf16): [B, H, rows, D] views of [B, rows, C]
+    tensors (heads adjacent); the pool's q the [H, I, D] inducers broadcast
+    over the batch (a zero batch stride), its k and v the two halves of a
+    [B, N, 2C] projection; o and g in the merged-heads layout."""
+    c = heads * d
+    split = lambda t: t.reshape(t.shape[0], t.shape[1], heads, d).transpose(1, 2)
+    bf = torch.bfloat16
+    if direction == "pool":
+        q = torch.zeros(heads, i, d, dtype=bf)[None].expand(b, -1, -1, -1)
+        k, v = (split(t) for t in torch.zeros(b, n, 2 * c, dtype=bf).chunk(2, dim=-1))
+    else:
+        q, k, v = split(torch.zeros(b, n, c, dtype=bf)), *(split(torch.zeros(b, i, c, dtype=bf))
+                                                            for _ in range(2))
+    o, g = (split(torch.zeros(b, q.shape[2], c, dtype=bf)) for _ in range(2))
+    return q, k, v, o, g
+
+
+@pytest.mark.parametrize("d, want", [(48, "hopper"), (32, "hopper"), (64, "hopper"),
+                                     (128, "hopper"), (40, "wmma"), (80, "wmma"),
+                                     (192, "wmma"), (256, "wmma")])
+@pytest.mark.parametrize("direction", ["pool", "unpool"])
+def test_rect_switch_takes_the_hopper_widths(direction, d, want):
+    """The rect attention's switches (``_rect_fwd_body``,
+    ``_rect_bwd_body``) on the per-head modules' operands (the pool's q the
+    inducers with a zero batch stride): the Hopper bodies at D 48, 32, 64
+    and 128, the WMMA bodies at D 40, 80, 192 and 256; each Hopper pick's
+    block within the SM's shared memory, forward and backward."""
+    q, k, v, o, g = _module_operands(direction, d)
+    assert tia._rect_fwd_body(q, k, v) == want
+    assert tia._rect_bwd_body(q, k, v, o, g) == want
+    if want == "hopper":
+        pool = direction == "pool"
+        assert tia._rect_fwd_smem(d, pool) <= tia._MAX_SMEM
+        assert tia._rect_bwd_smem(d, pool) <= tia._MAX_SMEM
+
+
+@pytest.mark.parametrize("case", ["contiguous long side", "contiguous cotangent",
+                                  "row stride", "fp32", "both sides long",
+                                  "contiguous short side"])
+@pytest.mark.parametrize("direction", ["pool", "unpool"])
+def test_rect_switch_takes_the_wmma_body_for_other_layouts(direction, case):
+    """The long side's operands go to the Hopper bodies by TMA, which needs
+    the heads adjacent and strides in multiples of 8 elements: a
+    contiguous [B, H, N, D] operand there (heads not adjacent), a
+    cotangent drawn so where it is streamed (the unpool direction), a row
+    stride not a multiple of 8, fp32 operands and both sides longer than
+    one 64-row tile take the WMMA bodies; the short side is staged by
+    threads and may be contiguous (or a stride-0 broadcast, above)."""
+    q, k, v, o, g = _module_operands(direction, 48)
+    long_side = ("k", "v") if direction == "pool" else ("q",)
+    ops = dict(q=q, k=k, v=v, o=o, g=g)
+    if case == "contiguous long side":
+        ops.update({key: ops[key].contiguous() for key in long_side})
+        want = "wmma"
+    elif case == "contiguous cotangent":
+        ops["g"] = g.contiguous()
+        want = ("hopper", "wmma" if direction == "unpool" else "hopper")
+    elif case == "row stride":
+        # two heads of 48 adjacent, their rows 100 elements apart (not a
+        # multiple of 8)
+        wide = torch.zeros(2, ops[long_side[0]].shape[2], 100, dtype=torch.bfloat16)
+        view = wide[..., :96].unflatten(-1, (2, 48)).transpose(1, 2)
+        assert view.stride() == (wide.shape[1] * 100, 48, 100, 1)
+        ops.update({key: view for key in long_side})
+        want = "wmma"
+    elif case == "fp32":
+        ops.update(q=q.float(), k=k.float(), v=v.float())
+        want = "wmma"
+    elif case == "both sides long":
+        ops = dict(zip("qkvog", _module_operands(direction, 48, i=128)))
+        want = "wmma"
+    else:
+        short = ("q",) if direction == "pool" else ("k", "v")
+        ops.update({key: ops[key].contiguous() for key in short})
+        want = "hopper"
+    fwd_want, bwd_want = want if isinstance(want, tuple) else (want, want)
+    assert tia._rect_fwd_body(ops["q"], ops["k"], ops["v"]) == fwd_want
+    assert tia._rect_bwd_body(*(ops[key] for key in "qkvog")) == bwd_want
+
+
 # ------------------------------- the pool backward's v1, v2 and v2j bodies --
 
 
@@ -483,10 +565,35 @@ def test_mirrors_of_the_new_plans_use_the_sources_constants():
     backward's column-block instances (128 and 384 columns, their blocks a
     SM and pass-0 ring depths, ``_pool_ext_bwd_smem``) and the weight
     gradients' 64-row tail instance."""
-    for name in ("induced_attention.cu", "induced_attention_bwd.cu"):
+    for name in ("induced_attention_wmma.cu", "induced_attention_bwd_wmma.cu"):
         text = (_build.CSRC / name).read_text()
         widths = tuple(int(w) for w in re.findall(r"case (\d+):", text))
         assert widths == tia._WIDTHS, name
+    # the rect attention's Hopper bodies: their widths, tile, plan and ring
+    # depths (the blocks' bytes, _rect_fwd_smem and _rect_bwd_smem)
+    for name in ("induced_attention.cu", "induced_attention_bwd.cu"):
+        text = (_build.CSRC / name).read_text()
+        widths = tuple(int(w) for w in re.findall(r"case (\d+):", text))
+        assert widths == tia._HOPPER_WIDTHS, name
+    text = (_build.CSRC / "rect_hopper.cuh").read_text()
+    for const, mirror in (("kT", tia._TILE), ("kRangeTiles", tia._RANGE_TILES),
+                          ("kMaxCluster", tia._MAX_CLUSTER)):
+        assert int(re.search(rf"constexpr int {const} = (\d+);", text).group(1)) == mirror, const
+    assert "constexpr size_t kMaxSmemBytes = 232448;" in text and tia._MAX_SMEM == 232448
+    text = (_build.CSRC / "induced_attention.cu").read_text()
+    assert int(re.search(r"constexpr int kUnpoolStages = (\d+);", text).group(1)) == \
+        tia._FWD_STAGES[False]
+    assert int(re.search(r"constexpr int kPoolStages = (\d+);", text).group(1)) == \
+        tia._FWD_STAGES[True]
+    assert "static constexpr int kStage = kPool ? 2 * TB : TB;" in text
+    assert "static constexpr int total = bars + kStages * 8 + 1024;" in text
+    text = (_build.CSRC / "induced_attention_bwd.cu").read_text()
+    assert "static constexpr int kStages = panels<D>() == 1 ? 3 : 2;" in text
+    assert "static constexpr int kStage = (kPool ? 2 : 3) * TB;" in text
+    assert "static constexpr int ring = dss + kPanel;" in text
+    assert [tia._rect_plan(nt, True) for nt in (1, 16, 17, 32, 128, 200)] == \
+        [(1, 1), (1, 16), (2, 9), (2, 16), (8, 16), (8, 25)]
+    assert tia._rect_plan(200, False) == (13, 16)
     text = (_build.CSRC / "pool_bwd_twopass.cuh").read_text()
     assert int(re.search(r"constexpr int kTN = (\d+);", text).group(1)) == 32
     text = (_build.CSRC / "hside.cu").read_text()

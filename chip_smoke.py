@@ -59,8 +59,12 @@ Phases (each raises on failure; nothing is caught):
    its backward) on the same q/k/v as the yardstick and the bound; the
    WMMA body's instances at D 80-112 checked and timed, D 256 timed beside
    its bound and SDPA's (forward and backward); the unpool + MLP
-   megakernel against the plain composition and the two separate kernels
-   at the sampler's shapes, timed beside both;
+   megakernel's Hopper body (``csrc/unpool_mlp.cu``) against the plain
+   composition and the two separate kernels at the sampler's shapes,
+   ordinary and drifted, at N 2048 and 2000, the same bits in two calls,
+   its WMMA body (``csrc/unpool_mlp_wmma.cu``) forced on the same operands
+   at N 2048; the two bodies timed in turns with their device time, beside
+   the separate kernels', the plain version's and the bound;
 7. sampler path: the flagship (6 x 384, 64 inducers, 8 heads, bf16,
    ``attn_impl="folded_pallas"``) from the port's seeded init samples
    2048-point clouds with the 128-step Heun grid through
@@ -105,9 +109,11 @@ Phases (each raises on failure; nothing is caught):
    losses and parameters, peak memory;
 13. megakernel sampler path: the flagship of phase 7 with
    ``GECCO_UNPOOL_MLP_MEGAKERNEL=1`` set in the process samples at batch
-   64: per sample the megakernel, the pool and the h-side 6 x 254 times
-   each, the separate unpool and MLP never; then the 8-step sample against
-   the separate kernels' path and against the plain path; the variable is
+   64: per sample the megakernel's Hopper body, the pool and the h-side 6
+   x 254 times each, its WMMA body and the separate unpool and MLP never;
+   then the upsample demo's model (3 x 128) at batch 48 the same way
+   through the WMMA body (3 x 254); each 8-step sample against the
+   separate kernels' path and against the plain path; the variable is
    restored;
 14. resident pool: ``folded_pool_layer``'s Hopper body (``csrc/pool.cu``)
    against its plain version with and without its pre-norm (h0, and the
@@ -399,9 +405,10 @@ UPSAMPLE_NEW, UPSAMPLE_STEPS, UPSAMPLE_SUBSTEPS = 102_400, 64, 5
 # (and, where the keys span several tiles, through a running max and sum)
 TOL_LSE = 1e-5
 # the megakernel's 8-step sample against the separate kernels' path: the
-# same algebra (its unpool is unpool.cuh's WMMA form of unpool.cu's), but
-# fp32 sums in other orders (the logits, the mlp_norm statistics by fp32
-# atomics) and rsqrtf, which move bf16 roundings of the pre-norm
+# same algebra (the WMMA body's unpool is unpool.cuh's WMMA form of
+# unpool.cu's), but fp32 sums in other orders (the logits; the mlp_norm
+# statistics in rank order, or by the WMMA body's fp32 atomics) and
+# rsqrtf, which move bf16 roundings of the pre-norm
 TOL_MEGA_PATH = 3e-2
 # one train step's gradient, kernel path vs plain (xla) path from the same
 # weights, batch, sigma and noise, bf16 activations through 6 layers:
@@ -453,6 +460,9 @@ SOURCES = {
                                 "gecco_tpu/ops/pallas/induced_attention.py:241"),
     "fused_unpool_mlp": ("gecco_tpu_torch/csrc/unpool_mlp.cu",
                          "gecco_tpu/ops/pallas/folded_attention.py:3176"),
+    # the megakernel's WMMA body, for the shapes its Hopper body does not take
+    "fused_unpool_mlp_wmma": ("gecco_tpu_torch/csrc/unpool_mlp_wmma.cu",
+                              "gecco_tpu/ops/pallas/folded_attention.py:3176"),
     "folded_pool_layer": ("gecco_tpu_torch/csrc/pool.cu",
                           "gecco_tpu/ops/pallas/folded_attention.py:526"),
     # the resident pool's WMMA body, for the shapes its Hopper body does not take
@@ -1949,10 +1959,11 @@ def rect_bwd_body(body):
                                                                                     ops[5])
 
 
-def attention_phase(device, shapes, train_batch, big, dt, reps):
+def attention_phase(device, shapes, train_batch, big, dt, reps, ragged_n):
     """The rect attention's forward and backward, each body (Hopper and
-    WMMA) on the same operands, and the unpool + MLP megakernel against
-    their plain versions; returns per-kernel records. A rect-attention
+    WMMA) on the same operands, and the unpool + MLP megakernel's two
+    bodies (also at the ragged N ``ragged_n``) against their plain
+    versions; returns per-kernel records. A rect-attention
     record sums a layer's two calls (pool and unpool) at the flagship's
     shapes: ``rect_attention_fwd`` / ``_bwd`` the Hopper body's,
     ``..._wmma`` the WMMA body's, the two timed in turns on the same
@@ -2215,45 +2226,73 @@ def attention_phase(device, shapes, train_batch, big, dt, reps):
     records("rect_attention_bwd", times, errs, d128=times128)
     rec["rect_attention_bwd_wmma"].update(ms_wide_heads=wide_ms, d256=d256, d128=times128)
 
-    # the megakernel at the sampler's shapes: against the plain composition
-    # and the two separate kernels
-    def mega_ops(drift):
+    # the megakernel at the sampler's shapes: its Hopper body against the
+    # plain composition and the separate unpool and MLP kernels, ordinary
+    # and drifted, at N 2048 and the ragged 2000, the same bits in two
+    # calls; its WMMA body forced on the same operands at N 2048
+    def mega_ops(drift, n_pts):
         r = lambda *sh: torch.randn(*sh, generator=g, device=device)
-        ops = unpool_operands(g, b, n, c, heads, i, drift, device, dt)
+        ops = unpool_operands(g, b, n_pts, c, heads, i, drift, device, dt)
         mlp = mlp_operands(g, 1, 64, c, w, False, device, dt)[3:]
         return (*ops, 1.0 + 0.2 * r(b, c), 0.2 * r(b, c)), mlp
 
     gind = fa.group_indicator(c, GROUPS, device)
-    errs = []
+
+    def mega_body(body, ops, mlp, n_pts):
+        """One body of the megakernel forced (on the CPU the plain version)."""
+        if not on_card:
+            return fa._unpool_mlp_ref(*ops, *mlp, heads, GROUPS, n_pts)
+        return fa._unpool_mlp_launch(*ops, gind, *mlp, heads, GROUPS, n_pts, body=body)
+
+    errs = {"hopper": [], "wmma": []}
     with torch.no_grad():
-        for drift in (False, True):
-            ops, mlp = mega_ops(drift)
-            got = fa.fused_unpool_mlp(*ops, gind, *mlp, heads, GROUPS, n)
-            want = fa._unpool_mlp_ref(*ops, *mlp, heads, GROUPS, n)
-            sep = fa._unpool_mlp_composed(*ops, *mlp, heads, GROUPS, n)
-            sync(device)
-            t_ = "drift" if drift else "ordinary"
-            check(f"fused_unpool_mlp [{t_}] out", rel_err(got[0], want[0]), TOL_OUT)
-            check(f"fused_unpool_mlp [{t_}] sums", rel_err(got[1], want[1]), TOL_SUMS)
-            check(f"  against the separate unpool and MLP kernels [{t_}] out",
-                  rel_err(got[0], sep[0]), TOL_OUT)
-            check(f"  against the separate unpool and MLP kernels [{t_}] sums",
-                  rel_err(got[1], sep[1]), TOL_SUMS)
-            errs.append(abs_err(got[0], want[0]))
-        ops, mlp = mega_ops(False)
-        ms = time_ms(lambda: fa.fused_unpool_mlp(*ops, gind, *mlp, heads, GROUPS, n), device, reps)
+        for n_pts in (n, ragged_n):
+            for drift in (False, True):
+                ops, mlp = mega_ops(drift, n_pts)
+                got = fa.fused_unpool_mlp(*ops, gind, *mlp, heads, GROUPS, n_pts)
+                same_bits(f"fused_unpool_mlp at N {n_pts}",
+                          got, fa.fused_unpool_mlp(*ops, gind, *mlp, heads, GROUPS, n_pts))
+                want = fa._unpool_mlp_ref(*ops, *mlp, heads, GROUPS, n_pts)
+                sep = fa._unpool_mlp_composed(*ops, *mlp, heads, GROUPS, n_pts)
+                sync(device)
+                t_ = f"N {n_pts}, {'drift' if drift else 'ordinary'}"
+                check(f"fused_unpool_mlp [{t_}] out", rel_err(got[0], want[0]), TOL_OUT)
+                check(f"fused_unpool_mlp [{t_}] sums", rel_err(got[1], want[1]), TOL_SUMS)
+                check(f"  against the separate unpool and MLP kernels [{t_}] out",
+                      rel_err(got[0], sep[0]), TOL_OUT)
+                check(f"  against the separate unpool and MLP kernels [{t_}] sums",
+                      rel_err(got[1], sep[1]), TOL_SUMS)
+                errs["hopper"].append(abs_err(got[0], want[0]))
+                if n_pts % 64 == 0:
+                    wm = mega_body("wmma", ops, mlp, n_pts)
+                    sync(device)
+                    check(f"  its WMMA body [{t_}] out", rel_err(wm[0], want[0]), TOL_OUT)
+                    check(f"  its WMMA body [{t_}] sums", rel_err(wm[1], want[1]), TOL_SUMS)
+                    errs["wmma"].append(abs_err(wm[0], want[0]))
+        ops, mlp = mega_ops(False, n)
+        runs = {"hopper": lambda: fa.fused_unpool_mlp(*ops, gind, *mlp, heads, GROUPS, n),
+                "wmma": lambda: mega_body("wmma", ops, mlp, n)}
+        turns = bodies_in_turns(runs["hopper"], runs["wmma"], device, reps)
+        separate = lambda: fa._unpool_mlp_composed(*ops, *mlp, heads, GROUPS, n)
+        sep_ms = time_ms(separate, device, reps)
         plain_ms = time_ms(lambda: fa._unpool_mlp_ref(*ops, *mlp, heads, GROUPS, n), device,
                            max(2, reps // 4))
-        sep_ms = time_ms(lambda: fa._unpool_mlp_composed(*ops, *mlp, heads, GROUPS, n), device,
-                         reps)
+        dev_ms = {k: device_ms(fn, device) for k, fn in (*runs.items(), ("separate", separate))}
     # the unpool's products and fold, and the MLP's; every input read once,
     # out and the sums written once
     flops = 4 * b * n * c * j + 4 * b * j * c * d + 4 * b * n * c * w
     bms, by = bound(flops, nbytes(*ops, *mlp) + nbytes(ops[0]) + 4 * b * 2 * c)
-    rec["fused_unpool_mlp"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                   bound_by=by, library_ms=None)
-    print(f"  fused_unpool_mlp: kernel {ms:.3f} ms, the separate unpool + MLP kernels "
-          f"{sep_ms:.3f} ms, plain {plain_ms:.3f} ms, library none, bound {bms:.3f} ms ({by})")
+    for body in ("hopper", "wmma"):
+        rec[f"fused_unpool_mlp{suffix[body]}"] = dict(
+            max_abs_err=max(errs[body]), ms=statistics.median(turns[body]), plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=None, device_ms=dev_ms[body],
+            separate_ms=sep_ms, separate_device_ms=dev_ms["separate"])
+    ms_dev = lambda k: "not measured" if dev_ms[k] is None else f"{dev_ms[k]:.3f} ms"
+    print(f"  fused_unpool_mlp (B {b}, N {n}), in turns: Hopper body "
+          f"{statistics.median(turns['hopper']):.3f} ms (device {ms_dev('hopper')}), WMMA body "
+          f"{statistics.median(turns['wmma']):.3f} ms (device {ms_dev('wmma')}); the separate "
+          f"unpool + MLP kernels {sep_ms:.3f} ms (device {ms_dev('separate')}), plain "
+          f"{plain_ms:.3f} ms, library none, bound {bms:.3f} ms ({by})")
     return rec
 
 
@@ -3588,8 +3627,9 @@ KERNEL_FUNCTIONS = {
     "fused_h_side": ("hside_norm_kernel", "hside_act_kernel", "hside_out_kernel",
                      "hside_kv_kernel"),
     "fused_h_side_wmma": ("hside_kernel",),
-    "folded_unpool": ("unpool_bq_kernel", "unpool_fold_k_kernel", "unpool_fold_v_kernel",
-                      "unpool_tile_kernel"),
+    "folded_unpool": ("unpool_tile_kernel",),
+    "unpool_bq/fold_k/fold_v_kernel (the Hopper unpool's and the megakernel's shared fold)": (
+        "unpool_bq_kernel", "unpool_fold_k_kernel", "unpool_fold_v_kernel"),
     "fused_mlp_residual": ("mlp_act_kernel", "mlp_out_kernel"),
     "fused_mlp_residual_wmma": ("mlp_kernel",),
     "folded_pool_ext_bwd": ("pool_bwd_ety_kernel", "pool_bwd_dy_kernel"),
@@ -3621,7 +3661,8 @@ KERNEL_FUNCTIONS = {
     "rect_attention_fwd_wmma": ("rect_attn_fwd_kernel",),
     "rect_attention_bwd": ("rect_bwd_hopper_kernel",),
     "rect_attention_bwd_wmma": ("rect_attn_bwd_kernel",),
-    "fused_unpool_mlp": ("unpool_mlp_kernel",),
+    "fused_unpool_mlp": ("unpool_mlp_cluster_kernel",),
+    "fused_unpool_mlp_wmma": ("unpool_mlp_kernel",),
     "folded_pool_layer": ("pool_layer_pass_kernel", "pool_layer_merge_kernel",
                           "pool_layer_sum_kernel"),
     "folded_pool_layer_wmma": ("pool_layer_kernel",),
@@ -3905,30 +3946,44 @@ def main_path(device, batch, n_points, n_layers, n_steps, compare_batch,
                         eval_ms=eval_ms), (model, latent, fused)
 
 
-def megakernel_path(device, batch, n_points, n_layers, n_steps, compare_batch):
+def megakernel_path(device, batch, n_points, n_layers, n_steps, compare_batch, demo_dims,
+                    demo_batch):
     """The folded flagship sampler with ``GECCO_UNPOOL_MLP_MEGAKERNEL=1``
-    set in this process (restored after): per sample the megakernel, the
-    pool and the h-side once per layer and evaluation, the separate unpool
-    and MLP never; the 8-step sample against the plain path, then against
-    the separate kernels' path from the same latent."""
+    set in this process (restored after): per sample the megakernel's
+    Hopper body, the pool and the h-side once per layer and evaluation, its
+    WMMA body and the separate unpool and MLP never; then the upsample
+    demo's model (C 128, whose shapes only the WMMA body takes) the same
+    way with the WMMA body. Each 8-step sample against the plain path, then
+    against the separate kernels' path from the same latent. Returns the
+    flagship's counts and record and the demo's counts and record."""
     key = "GECCO_UNPOOL_MLP_MEGAKERNEL"
     before = os.environ.get(key)
     os.environ[key] = "1"
+    runs = {}
+    what = {"flagship": "megakernel path", "demo model": "the demo model's megakernel path"}
     try:
-        counts, rec, (model, latent, mega) = main_path(
-            device, batch, n_points, n_layers, n_steps, compare_batch, what="megakernel path",
-            expect=lambda evals: {k: n_layers * evals for k in
-                                  ("folded_pool_ext", "fused_h_side", "fused_unpool_mlp")})
+        for name, b, dims, body in (("flagship", batch, FLAGSHIP, "fused_unpool_mlp"),
+                                    ("demo model", demo_batch, demo_dims,
+                                     "fused_unpool_mlp_wmma")):
+            layers = n_layers if name == "flagship" else dims["n_layers"]
+            runs[name] = main_path(
+                device, b, n_points if name == "flagship" else dims["n_points"], layers, n_steps,
+                compare_batch, what=what[name], dims=dims,
+                expect=lambda evals, layers=layers, body=body: {
+                    k: layers * evals for k in ("folded_pool_ext", "fused_h_side", body)})
+            print(f"  {name}: {runs[name][1]['clouds_per_s']:.3f} clouds/s (batch {b})")
         os.environ.pop(key)
-        separate = model.sample_from_latent(latent, n_solver_steps=8)
+        separate = {name: model.sample_from_latent(latent, n_solver_steps=8)
+                    for name, (_, _, (model, latent, _)) in runs.items()}
     finally:
         if before is None:
             os.environ.pop(key, None)
         else:
             os.environ[key] = before
-    check("8-step sample, megakernel path vs the separate kernels' path",
-          rel_err(mega, separate), TOL_MEGA_PATH)
-    return counts, rec
+    for name, (_, _, (_, _, mega)) in runs.items():
+        check(f"8-step sample, {what[name]} vs the separate kernels' path",
+              rel_err(mega, separate[name]), TOL_MEGA_PATH)
+    return (*runs["flagship"][:2], *runs["demo model"][:2])
 
 
 def main():
@@ -4017,7 +4072,7 @@ def main():
 
     print(f"== per-head attention and megakernel vs plain versions (sampler batch "
           f"{shapes['batch']}, training batch {train_batch}; 8k {big}) on {card}")
-    rec.update(attention_phase(device, shapes, train_batch, big, dt, reps))
+    rec.update(attention_phase(device, shapes, train_batch, big, dt, reps, ragged_ns[0]))
 
     print(f"== resident pool and flag-free unpool vs plain versions (sampler batch "
           f"{shapes['batch']}, training batch {train_batch}; 8k {big}) on {card}")
@@ -4062,9 +4117,11 @@ def main():
     print(f"== megakernel sampler path: flagship x{n_layers} layers, folded_pallas with "
           f"GECCO_UNPOOL_MLP_MEGAKERNEL=1, batch {batch}, {n_points} points, {n_steps}-step Heun, "
           f"on {card}")
-    mega_counts, mega_path = megakernel_path(device, batch, n_points, n_layers, n_steps,
-                                             compare_batch=8)
-    print(f"  {mega_path['clouds_per_s']:.3f} clouds/s on {card}")
+    mega_counts, mega_path, mega_demo_counts, mega_demo_path = megakernel_path(
+        device, batch, n_points, n_layers, n_steps, compare_batch=8, demo_dims=demo_dims,
+        demo_batch=demo["batch"])
+    print(f"  {mega_path['clouds_per_s']:.3f} clouds/s on {card} (the demo model through the "
+          f"WMMA body: {mega_demo_path['clouds_per_s']:.3f} clouds/s)")
 
     print(f"== module-level folded path: Broadcast and BroadcastingLayer at C "
           f"{shapes['feature_dim']}, {shapes['num_heads']} heads, {shapes['num_inducers']} "
@@ -4151,6 +4208,7 @@ def main():
     print(f"  launches on the per-head sampler path: {ph_counts}")
     print(f"  launches on the per-head training path: {ph_train_counts}")
     print(f"  launches on the megakernel sampler path: {mega_counts}")
+    print(f"  launches on the demo model's megakernel sampler path: {mega_demo_counts}")
     print(f"  launches on the module-level folded path: {module_counts}")
     print(f"  launches on the upsample path: {up_counts}")
     print(f"  launches on the demo sampler path: {demo_counts}")
@@ -4177,7 +4235,8 @@ def main():
           f"{ph_path['clouds_per_s']:.3f} clouds/s ({ph_path['eval_ms']:.3f} ms per evaluation); "
           f"per-head train step {ph_train['ms_per_step']:.3f} ms (batch {train_batch}); "
           f"megakernel sampler {mega_path['clouds_per_s']:.3f} clouds/s "
-          f"({mega_path['eval_ms']:.3f} ms per evaluation); upsample to {upsample['n_new']} "
+          f"({mega_path['eval_ms']:.3f} ms per evaluation; the demo model's through the WMMA "
+          f"body {mega_demo_path['clouds_per_s']:.3f}); upsample to {upsample['n_new']} "
           f"points {up_path['seconds']:.3f} s ({up_path['points_per_s']:.1f} new points/s); "
           f"validation phase {val['seconds']:.1f} s (1-NN {val['one_nn']:.4f}, MMD "
           f"{val['mmd']:.4g}, COV {val['cov']:.4f}); demo sampler {demo_path['clouds_per_s']:.3f} "
@@ -4214,7 +4273,8 @@ def main():
                      # D 40's sample and gradient (phase 21)
                      "rect_attention_fwd_wmma": shape_counts[per_head_d40][0],
                      "rect_attention_bwd_wmma": shape_counts[per_head_d40][1],
-                     "fused_unpool_mlp": mega_counts, "folded_pool_layer": pool_counts,
+                     "fused_unpool_mlp": mega_counts,
+                     "fused_unpool_mlp_wmma": mega_demo_counts, "folded_pool_layer": pool_counts,
                      "folded_pool_layer_wmma": pool_counts, "folded_pool_layer_bwd": pool_counts,
                      "folded_pool_layer_bwd_wmma": pool_counts,
                      "folded_pool_ext_wmma": heads3_counts,

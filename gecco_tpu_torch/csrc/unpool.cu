@@ -52,7 +52,7 @@
 #include <cmath>
 
 #include "hopper.cuh"
-#include "unpool.cuh"
+#include "unpool_fold.cuh"
 
 using namespace gecco;
 using namespace gecco::hopper;
@@ -76,69 +76,6 @@ struct TileSmem {
     total = bars + (1 + 4 * kKRing + 4 * kVRing) * 8 + 1024;  // + alignment slack
   }
 };
-
-__global__ void __launch_bounds__(kThreads)
-unpool_bq_kernel(const float* __restrict__ be, const bf16* __restrict__ wq, float* __restrict__ bq,
-                 int C) {
-  const int o = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (o >= C) return;
-  unpool_bq_warp(be, wq, bq, C, blockIdx.y, o);
-}
-
-// kft and brow for 64 channels of head h of batch element b (I == 64; D a
-// multiple of 16). Without the pre-norm (se and bq null) wq is folded as it
-// is and brow is 0.
-__global__ void __launch_bounds__(kThreads)
-unpool_fold_k_kernel(const float* __restrict__ se, const float* __restrict__ bq,
-                     const bf16* __restrict__ k, const bf16* __restrict__ wq,
-                     bf16* __restrict__ kft, float* __restrict__ brow, int C, int H, float scale) {
-  constexpr int ldw = 64 + kPad;
-  __shared__ __align__(128) bf16 wqs[64 * ldw];  // [D <= 64, 64] bf16(wq_h * se)
-  __shared__ __align__(128) float tile[64 * 64];
-  const int c0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int D = C / H, J = H * kInd;
-  for (int t = threadIdx.x; t < D * 64; t += kThreads) {
-    const int d = t / 64, c = t % 64;
-    const float sc = se ? se[(size_t)b * C + c0 + c] : 1.0f;
-    wqs[d * ldw + c] =
-        __float2bfloat16(__bfloat162float(wq[(size_t)(h * D + d) * C + c0 + c]) * sc);
-  }
-  __syncthreads();
-  const bf16* kb = k + (size_t)b * kInd * C + h * D;  // [I, D], row stride C
-  gemm_to_smem<wmma::row_major, wmma::row_major>(kb, C, wqs, ldw, tile, 64, 64, 64, D);
-  __syncthreads();
-  for (int t = threadIdx.x; t < 64 * 64; t += kThreads) {
-    kft[((size_t)b * J + h * kInd + t / 64) * C + c0 + t % 64] = __float2bfloat16(scale * tile[t]);
-  }
-  if (blockIdx.x == 0 && threadIdx.x < kInd) {
-    const int i = threadIdx.x;
-    float acc = 0.0f;
-    for (int d = 0; bq != nullptr && d < D; ++d) {
-      acc += bq[(size_t)b * C + h * D + d] * __bfloat162float(kb[(size_t)i * C + d]);
-    }
-    brow[(size_t)b * J + h * kInd + i] = scale * acc;
-  }
-}
-
-// vf^T [B, C, J] for 64 channels of head h of batch element b: vf_h =
-// v_h @ wo_h^T with wo[c0 + c, hD + d] read in place as a column-major
-// operand; neighbouring threads write neighbouring j.
-__global__ void __launch_bounds__(kThreads)
-unpool_fold_v_kernel(const bf16* __restrict__ v, const bf16* __restrict__ wo,
-                     bf16* __restrict__ vft, int C, int H) {
-  constexpr int ldt = 64 + kPadF;
-  __shared__ __align__(128) float tile[64 * ldt];
-  const int c0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const int D = C / H, J = H * kInd;
-  gemm_to_smem<wmma::row_major, wmma::col_major>(v + (size_t)b * kInd * C + h * D, C,
-                                                 wo + (size_t)c0 * C + h * D, C, tile, ldt, 64,
-                                                 64, D);
-  __syncthreads();
-  for (int t = threadIdx.x; t < 64 * 64; t += kThreads) {
-    const int c = t / 64, i = t % 64;
-    vft[((size_t)b * C + c0 + c) * J + h * kInd + i] = __float2bfloat16(tile[i * ldt + c]);
-  }
-}
 
 // What a consumer warpgroup of unpool_tile_kernel works on.
 struct TileCtx {
@@ -423,16 +360,10 @@ extern "C" int unpool_launch(const void* x, const void* se, const void* be, cons
   // 1/sqrt(D) rounded once from double, as the JAX package's Python float
   const float scale = (float)(1.0 / sqrt((double)D));
   cudaStream_t st = (cudaStream_t)stream;
-  if (prenorm) {
-    unpool_bq_kernel<<<dim3((C + kWarps - 1) / kWarps, B), kThreads, 0, st>>>(
-        (const float*)be, (const bf16*)wq, (float*)bq, C);
-  }
-  unpool_fold_k_kernel<<<dim3(C / 64, H, B), kThreads, 0, st>>>(
-      prenorm ? (const float*)se : nullptr, prenorm ? (const float*)bq : nullptr,
-      (const bf16*)k, (const bf16*)wq, (bf16*)kft, (float*)brow, C, H, scale);
-  unpool_fold_v_kernel<<<dim3(C / 64, H, B), kThreads, 0, st>>>(
-      (const bf16*)v, (const bf16*)wo, (bf16*)vft, C, H);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = fold::launch_unpool_fold(
+      (const float*)se, (const float*)be, (const bf16*)k, (const bf16*)v, (const bf16*)wq,
+      (const bf16*)wo, (float*)bq, (bf16*)kft, (bf16*)vft, (float*)brow, B, C, H, prenorm != 0,
+      scale, st);
   if (err != cudaSuccess) return (int)err;
 
   CUtensorMap tm_x, tm_k, tm_v;

@@ -233,8 +233,9 @@ class BroadcastingLayer(nn.Module):
         it: only when no network key is threaded, i.e. in sampling. The
         port threads no key; no gradient being recorded stands in for it
         (``Diffusion.sample`` runs under ``torch.no_grad``, the loss with
-        grad on). On CUDA tensors the shapes must also fit the kernel
-        (``unpool_mlp_fits_sm``, one SM's shared memory), else the two
+        grad on). On CUDA tensors a body of the kernel must also take the
+        shapes (``unpool_mlp_fits_sm``: the Hopper body's cluster, or the
+        WMMA body's point tile in one SM's shared memory), else the two
         kernels run; the plain version on CPU tensors has no such limit."""
         b, n, c = x.shape
         dt = x.dtype
@@ -279,7 +280,7 @@ class BroadcastingLayer(nn.Module):
         mlp_ops = _fold_mlp_operands(self.mlp, dt)
         if (os.environ.get("GECCO_UNPOOL_MLP_MEGAKERNEL") == "1" and not torch.is_grad_enabled()
                 and (x.device.type == "cpu"
-                     or unpool_mlp_fits_sm(n, c, k.shape[1], mlp_ops[0].shape[1]))):
+                     or unpool_mlp_fits_sm(n, c, k.shape[1], mlp_ops[0].shape[1], num_heads))):
             groups = self.mlp_norm.num_groups
             x, out_sums = fused_unpool_mlp(
                 x, se1, be1, k, v, wq, wo,

@@ -42,12 +42,18 @@ through the plain forward, as the twins' ``jax.vjp``) for CPU tensors:
 
 and a fourth runs the second and third as one launch:
 
-- ``fused_unpool_mlp`` (``csrc/unpool_mlp.cu``): unpool + residual, the
-  mlp_norm statistics of the result from its channel sums, then the MLP +
-  residual and the output's channel sums (the sampler's opt-in
-  megakernel). Its backward recomputes through ``folded_unpool`` and
-  ``fused_mlp_residual`` (``_unpool_mlp_composed``), whose backwards are
-  the kernels above, as the JAX package's custom_vjp does.
+- ``fused_unpool_mlp`` (``csrc/unpool_mlp.cu``, WMMA body
+  ``csrc/unpool_mlp_wmma.cu``): unpool + residual, the mlp_norm statistics
+  of the result from its channel sums, then the MLP + residual and the
+  output's channel sums (the sampler's opt-in megakernel). The Hopper body
+  runs one cluster of blocks per batch element, each block holding its
+  points' x' in shared memory between the two halves; the cluster's sums
+  meet in rank order. Its plain pieces (``_unpool_mlp_block_sums_ref``,
+  ``_unpool_mlp_merge_ref``) compose with the unpool's and the MLP's to
+  the plain version (``_unpool_mlp_pieces``). Its backward recomputes
+  through ``folded_unpool`` and ``fused_mlp_residual``
+  (``_unpool_mlp_composed``), whose backwards are the kernels above, as
+  the JAX package's custom_vjp does.
 
 The pool, unpool and MLP forwards and backwards and the resident pool each
 keep a second, WMMA body (``csrc/*_wmma.cu``) for the shapes their Hopper
@@ -85,13 +91,12 @@ to ``dk``/``dv``/``dWq``/``dWo``) are plain PyTorch outside the kernels.
 
 from __future__ import annotations
 
-import functools
 import os
 import sys
 
 import torch
 
-from gecco_tpu_torch.ops.kernels._build import check_cuda, launch, library
+from gecco_tpu_torch.ops.kernels._build import check_cuda, launch
 from gecco_tpu_torch.ops.norms import stats_from_sums
 from gecco_tpu_torch.ops.kernels._grad import needs_grad, vjp
 
@@ -1692,23 +1697,27 @@ def _unpool_fold_ref(se, be, k, v, wq, wo, num_heads: int, prenorm: bool = True)
     return kft.reshape(b, j, c).to(dt), vft.reshape(b, c, j).to(dt), brow.reshape(b, j)
 
 
-def _unpool_tiles_ref(x, kft, vft, brow, num_heads: int, residual: bool = True,
-                      n_valid=None) -> tuple:
-    """Plain version of ``unpool_tile_kernel``: logits x @ kft^T + brow, a
-    softmax per head block with its own max (exp argument clamped at -80),
-    bf16 p @ vf, the residual where ``residual`` -> (out, sums); the points
-    from ``n_valid`` on (a ragged tail's padding) stay out of the sums."""
-    dt = x.dtype
+def _unpool_attn_ref(x, kft, vft, brow, num_heads: int, residual: bool = True):
+    """The point tiles' fp32 output before its rounding: logits x @ kft^T +
+    brow, a softmax per head block with its own max (exp argument clamped
+    at -80), bf16 p @ vf, plus x where ``residual``."""
     b, n, _ = x.shape
     j = kft.shape[1]
     logits = torch.einsum("bnc,bjc->bnj", x.float(), kft.float()) + brow[:, None]
     lg = logits.reshape(b, n, num_heads, j // num_heads)
     e = torch.exp(torch.clamp(lg - lg.amax(-1, keepdim=True), min=-80.0))
-    p = (e / e.sum(-1, keepdim=True)).reshape(b, n, j).to(dt)
+    p = (e / e.sum(-1, keepdim=True)).reshape(b, n, j).to(x.dtype)
     attn = torch.einsum("bnj,bcj->bnc", p.float(), vft.float())
-    if residual:
-        attn = x.float() + attn
-    return attn.to(dt), _row_sums(attn, n_valid)
+    return x.float() + attn if residual else attn
+
+
+def _unpool_tiles_ref(x, kft, vft, brow, num_heads: int, residual: bool = True,
+                      n_valid=None) -> tuple:
+    """Plain version of ``unpool_tile_kernel`` (``_unpool_attn_ref``) ->
+    (out, sums); the points from ``n_valid`` on (a ragged tail's padding)
+    stay out of the sums."""
+    attn = _unpool_attn_ref(x, kft, vft, brow, num_heads, residual)
+    return attn.to(x.dtype), _row_sums(attn, n_valid)
 
 
 def _row_sums(o, n_valid=None) -> torch.Tensor:
@@ -2397,6 +2406,52 @@ def _unpool_mlp_ref(x, se1, be1, k, v, wq, wo, sc2, bi2, w1t, b1, w2t, b2,
     return _mlp_ref(xr, se2, be2, w1t, b1, w2t, b2)
 
 
+def _unpool_mlp_block_sums_ref(o, n_valid=None) -> torch.Tensor:
+    """Plain version of the Hopper megakernel's block sums
+    (csrc/unpool_mlp.cu, the epilogues of (a) and (c)): from o [B, N, C]
+    fp32 (x' or out before their rounding), N a multiple of 128, each
+    128-point block's channel sums of o and o^2 [B, N / 128, 2, C], its
+    first 64-point tile's with the second's added; the points from
+    ``n_valid`` on (a ragged tail's padding) stay out."""
+    b, n, c = o.shape
+    ok = _valid_rows(n, n_valid, o.device)
+    if ok is not None:
+        o = o.masked_fill(~ok, 0.0)
+    t = o.reshape(b, n // _MEGA_ROWS, 2, _MEGA_ROWS // 2, c)
+    s = torch.stack([t.sum(3), (t * t).sum(3)], dim=3)
+    return s[:, :, 0] + s[:, :, 1]
+
+
+def _unpool_mlp_merge_ref(block_sums) -> torch.Tensor:
+    """The cluster's sums [B, 2, C]: the blocks' [B, CS, 2, C] added in rank
+    order (csrc/unpool_mlp.cu (b) and (d))."""
+    out = block_sums[:, 0]
+    for r in range(1, block_sums.shape[1]):
+        out = out + block_sums[:, r]
+    return out
+
+
+def _unpool_mlp_pieces(x, se1, be1, k, v, wq, wo, sc2, bi2, w1t, b1, w2t, b2,
+                       num_heads: int, num_groups: int, n_tokens: int) -> tuple:
+    """The Hopper megakernel's algebra from plain pieces, on x zero-padded
+    to 128s as the wrapper pads it -> (out [B, N, C], sums): the fold and
+    the unpool's tiles (x'), x''s block sums merged in rank order and
+    collapsed (``_affine_from_sums``), y = bf16(x' se2 + be2), the MLP's
+    two products, out's block sums merged likewise."""
+    n_valid = x.shape[1]
+    x = _pad_points(x, _n_pad(n_valid))
+    dt = x.dtype
+    kft, vft, brow = _unpool_fold_ref(se1, be1, k, v, wq, wo, num_heads)
+    o1 = _unpool_attn_ref(x, kft, vft, brow, num_heads)
+    xr = o1.to(dt)
+    se2, be2 = _affine_from_sums(_unpool_mlp_merge_ref(_unpool_mlp_block_sums_ref(o1, n_valid)),
+                                 n_tokens, sc2, bi2, num_groups)
+    g = _mlp_act_ref(_prenormed(xr, se2, be2).to(dt), w1t, b1)
+    o2 = xr.float() + (torch.einsum("bnw,wc->bnc", g.float(), w2t.float()) + b2[None])
+    sums = _unpool_mlp_merge_ref(_unpool_mlp_block_sums_ref(o2, n_valid))
+    return _unpad(o2.to(dt), n_valid), sums
+
+
 def _unpool_mlp_composed(x, se1, be1, k, v, wq, wo, sc2, bi2, w1t, b1, w2t, b2,
                          num_heads: int, num_groups: int, n_tokens: int) -> tuple:
     """The same function through the two differentiable fused functions
@@ -2408,24 +2463,99 @@ def _unpool_mlp_composed(x, se1, be1, k, v, wq, wo, sc2, bi2, w1t, b1, w2t, b2,
     return fused_mlp_residual(xr, se2, be2, w1t, b1, w2t, b2)
 
 
-@functools.lru_cache(maxsize=None)
-def unpool_mlp_fits_sm(n: int, c: int, i: int, w: int) -> bool:
-    """Whether the megakernel takes these shapes on the card: a point tile
-    divides N, C and I are multiples of 16, and one block's shared memory
-    (a point tile of the unpool, and one of the MLP, with their staging)
-    fits the 227 KB of one SM (asks the built kernel library). The plain
-    version has no such limit, so CPU tensors need no gate."""
+# the Hopper megakernel's block: two 64-point tiles of x' held in shared
+# memory; a cluster of up to 16 blocks a batch element (csrc/unpool_mlp.cu
+# kBlockRows, kMaxCluster)
+_MEGA_ROWS = 128
+_MEGA_CLUSTER = 16
+
+
+def _unpool_mlp_hopper_smem(c: int) -> int:
+    """Bytes of one block of the megakernel's Hopper body: csrc/unpool_mlp.cu
+    ``Smem`` (change both together): x' (two 64-point tiles of C columns),
+    both consumers' three-stage K-panel rings, one [C, 64] slab, the two p
+    buffers, the warps' column sums [2][4][2][C / 4] fp32, three [2, C] fp32
+    buffers (the block's x' and out sums, se2 | be2), 22 barriers (the two
+    x tiles', both rings', both slab halves', the p buffers') and the
+    alignment slack."""
+    panel = 64 * 128
+    return (2 * (c // 64) * panel + 2 * 3 * panel + c * 128 + 2 * panel + 2 * 4 * 2 * (c // 4) * 4
+            + 3 * 2 * c * 4 + 22 * 8 + 1024)
+
+
+def _unpool_mlp_hopper_takes(n: int, c: int, num_heads: int, i: int, w: int) -> bool:
+    """The shapes of the megakernel's Hopper body (csrc/unpool_mlp.cu
+    ``takes``: change both together): C == 384, I == 64, H even, D = C / H
+    a multiple of 16 up to 64, W % 128 == 0, and N, padded to 128s, at
+    most one cluster of 16 blocks of 128 points (2048)."""
+    if c != 384 or i != 64 or num_heads < 2 or num_heads % 2 or c % num_heads:
+        return False
+    d = c // num_heads
+    return (d % 16 == 0 and d <= 64 and w >= 128 and w % 128 == 0
+            and 1 <= n and _n_pad(n) <= _MEGA_CLUSTER * _MEGA_ROWS
+            and _unpool_mlp_hopper_smem(c) <= _MAX_SMEM)
+
+
+def _mlp_wmma_smem(tn: int, c: int, w: int) -> int:
+    """Bytes of one point tile of the WMMA MLP device code, or 0 where no
+    plan fits the SM or its chunk does not divide W: csrc/mlp.cuh
+    ``mlp_smem_plan`` (change both together)."""
+    for chunk in (64, 32):
+        ldy = c + _PAD
+        region0 = (tn * ldy + c * (chunk + _PAD) + chunk * ldy) * 2
+        region0 = max(region0, tn * (c + _PADF) * 4)
+        region0 = -(-region0 // 128) * 128
+        smem = region0 + tn * (chunk + _PADF) * 4 + tn * (chunk + _PAD) * 2
+        if smem <= _MAX_SMEM:
+            return smem if w % chunk == 0 else 0
+    return 0
+
+
+def _unpool_mlp_wmma_tile(n: int, c: int, i: int, w: int) -> int:
+    """The point tile of the megakernel's WMMA body (csrc/unpool_mlp_wmma.cu
+    ``plan``), or 0 where it does not take the shapes: a tile dividing N
+    (no ragged tail), C and I multiples of 16, and both the unpool's and
+    the MLP's tile plans within one SM (``_unpool_wmma_smem``,
+    ``_mlp_wmma_smem``)."""
     try:
         tn = _row_tile(n, c)
     except ValueError:
-        return False
-    if c % 16 or i % 16:
-        return False
-    return library("unpool_mlp").unpool_mlp_smem(c, i, w, tn) > 0
+        return 0
+    if c % 16 or i % 16 or not (_unpool_wmma_smem(tn, c, i) and _mlp_wmma_smem(tn, c, w)):
+        return 0
+    return tn
+
+
+def _unpool_mlp_body(n: int, c: int, num_heads: int, i: int, w: int) -> str | None:
+    """Which body of ``fused_unpool_mlp`` takes these shapes on the card:
+    "hopper" (csrc/unpool_mlp.cu, a cluster per batch element holding x' in
+    shared memory: ``_unpool_mlp_hopper_takes``; the flagship, any N up to
+    2048) where it can, else "wmma" (csrc/unpool_mlp_wmma.cu, one
+    cooperative launch: ``_unpool_mlp_wmma_tile``; the upsample demo's C
+    128, N beyond one cluster), else None: the layer then runs the separate
+    unpool and MLP kernels, as the JAX package's ``unpool_mlp_vmem_ok``
+    gate does. Decided from the shapes alone, before any launch."""
+    if _unpool_mlp_hopper_takes(n, c, num_heads, i, w):
+        return "hopper"
+    if c % num_heads == 0 and _unpool_mlp_wmma_tile(n, c, i, w):
+        return "wmma"
+    return None
+
+
+def unpool_mlp_fits_sm(n: int, c: int, i: int, w: int, num_heads: int) -> bool:
+    """Whether a body of the megakernel takes these shapes on the card
+    (``_unpool_mlp_body``). The plain version has no such limit, so CPU
+    tensors need no gate."""
+    return _unpool_mlp_body(n, c, num_heads, i, w) is not None
 
 
 def _unpool_mlp_launch(x, se1, be1, k, v, wq, wo, sc2, bi2, gind, w1t, b1, w2t, b2,
-                       num_heads: int, num_groups: int, n_tokens: int) -> tuple:
+                       num_heads: int, num_groups: int, n_tokens: int,
+                       body: str | None = None) -> tuple:
+    """The kernels of the body ``_unpool_mlp_body`` picks -> (out, sums).
+    ``body`` ("hopper" or "wmma") forces one where both take the shapes,
+    for timing the two in turns; a forced body that does not take them
+    fails its launch."""
     name = "fused_unpool_mlp"
     b, n, c = x.shape
     i = k.shape[1]
@@ -2439,24 +2569,33 @@ def _unpool_mlp_launch(x, se1, be1, k, v, wq, wo, sc2, bi2, gind, w1t, b1, w2t, 
     )
     _require(tuple(gind.shape) == (c, num_groups), name,
              f"gind of shape (C, G) = ({c}, {num_groups}), got {tuple(gind.shape)}")
-    _require(unpool_mlp_fits_sm(n, c, i, w), name,
-             f"a point tile dividing N, C % 16, I % 16 and one SM's shared memory "
-             f"(N={n}, C={c}, I={i}, W={w})")
+    body = body or _unpool_mlp_body(n, c, num_heads, i, w)
+    _require(body is not None, name,
+             f"C 384, I 64, H even, D % 16 == 0, D <= 64, W % 128 == 0 and N <= 2048 (the "
+             f"Hopper body), or a point tile dividing N, C % 16, I % 16 and one SM's shared "
+             f"memory (the WMMA body); got N={n}, C={c}, H={num_heads}, I={i}, W={w}")
     dev = x.device
     kft = torch.empty((b, j, c), dtype=_BF16, device=dev)
-    vf = torch.empty_like(kft)
     bq = torch.empty((b, c), dtype=_F32, device=dev)
     brow = torch.empty((b, j), dtype=_F32, device=dev)
-    xp = torch.empty_like(x)
-    sums1 = torch.zeros((b, 2, c), dtype=_F32, device=dev)
-    se2 = torch.empty((b, c), dtype=_F32, device=dev)
-    be2 = torch.empty_like(se2)
+    if body == "hopper":
+        n_valid, n = n, _n_pad(n)
+        x = _pad_points(x, n)
+        out = torch.empty_like(x)
+        sums = torch.empty((b, 2, c), dtype=_F32, device=dev)
+        launch("unpool_mlp", "unpool_mlp_launch", x, se1, be1, k, v, wq, wo, sc2, bi2, w1t, b1,
+               w2t, b2, bq, kft, torch.empty((b, c, j), dtype=_BF16, device=dev), brow, out,
+               sums, b, n, c, num_heads, i, w, num_groups, n_valid, n_tokens)
+        fused_unpool_mlp.launches += 1
+        return _unpad(out, n_valid), sums
     out = torch.empty_like(x)
     sums = torch.zeros((b, 2, c), dtype=_F32, device=dev)
-    launch("unpool_mlp", "unpool_mlp_launch", x, se1, be1, k, v, wq, wo.t().contiguous(), sc2,
-           bi2, w1t, b1, w2t, b2, bq, kft, vf, brow, xp, sums1, se2, be2, out, sums,
-           b, n, c, num_heads, i, w, num_groups, n_tokens, _row_tile(n, c))
-    fused_unpool_mlp.launches += 1
+    launch("unpool_mlp_wmma", "unpool_mlp_wmma_launch", x, se1, be1, k, v, wq,
+           wo.t().contiguous(), sc2, bi2, w1t, b1, w2t, b2, bq, kft, torch.empty_like(kft), brow,
+           torch.empty_like(x), torch.zeros((b, 2, c), dtype=_F32, device=dev),
+           torch.empty((b, c), dtype=_F32, device=dev),
+           torch.empty((b, c), dtype=_F32, device=dev), out, sums, b, n, c, num_heads, i, w, num_groups, n_tokens, _row_tile(n, c))
+    fused_unpool_mlp.launches_wmma += 1
     return out, sums
 
 
@@ -2502,3 +2641,4 @@ def fused_unpool_mlp(x, se1, be1, k, v, wq, wo, sc2, bi2, gind, w1t, b1, w2t, b2
 
 
 fused_unpool_mlp.launches = 0
+fused_unpool_mlp.launches_wmma = 0

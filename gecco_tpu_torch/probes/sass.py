@@ -1,15 +1,15 @@
 """Whether two source trees build the same machine code for the pool and
-unpool forwards' and backwards' flagship and 8k-width kernels and for the
-rect attention's WMMA bodies.
+unpool forwards' and backwards' flagship and 8k-width kernels, the unpool's
+fold, the rect attention's WMMA bodies and the megakernel's WMMA body.
 
     python3 gecco_tpu_torch/probes/sass.py PARENT CHANGE
 
 Each argument is the root of a checkout whose libraries are built (run
 ``chip_smoke.py`` or ``probes/trees.py`` there first). For each kernel
-below, found by name in PARENT's library and in CHANGE's (the rect
-attention's WMMA bodies moved from ``induced_attention.cu`` and
-``induced_attention_bwd.cu`` to ``induced_attention_wmma.cu`` and
-``induced_attention_bwd_wmma.cu``, unchanged), this reads both libraries'
+below, found by name in PARENT's library and in CHANGE's (the
+megakernel's WMMA body moved from ``unpool_mlp.cu`` to
+``unpool_mlp_wmma.cu``, the unpool's fold from ``unpool.cu`` to
+``unpool_fold.cuh``, unchanged), this reads both libraries'
 SASS with ``cuobjdump -sass``, drops the addresses and encodings, and
 prints whether the instruction lists are identical (and the first few
 instructions that differ). Needs the CUDA toolkit (the card's machine);
@@ -34,7 +34,9 @@ from pathlib import Path
 # backward's heads and rows kernels (384 columns a block), and the weight
 # gradients' kernel (no row tail) in both backwards' libraries; every
 # instance of the rect attention's WMMA bodies, forward (head width 16 DT)
-# and backward (DT, and the DT of a column slice)
+# and backward (DT, and the DT of a column slice); the unpool's three fold
+# kernels; both instances of the megakernel's WMMA body (64- and 32-point
+# tiles)
 PAIRS = (
     ("pool_ext", "pool_ext", "17pool_chunk_kernelILi48ELi8ELb0E"),
     ("pool_ext", "pool_ext", "17pool_chunk_kernelILi48ELi8ELb1E"),
@@ -48,12 +50,15 @@ PAIRS = (
     *(("unpool_bwd", "unpool_bwd", f"23unpool_bwd_heads_kernelILi{m}E") for m in (0, 1)),
     *(("unpool_bwd", "unpool_bwd", f"22unpool_bwd_rows_kernelILi{m}ELi192E") for m in (0, 1)),
     ("unpool_bwd", "unpool_bwd", "12wgrad_kernelILb0EE"),
-    *(("induced_attention", "induced_attention_wmma", f"20rect_attn_fwd_kernelILi{dt}E")
+    *(("induced_attention_wmma", "induced_attention_wmma", f"20rect_attn_fwd_kernelILi{dt}E")
       for dt in (1, 2, 3, 4, 5, 6, 7, 8, 12, 16)),
-    *(("induced_attention_bwd", "induced_attention_bwd_wmma",
+    *(("induced_attention_bwd_wmma", "induced_attention_bwd_wmma",
        f"20rect_attn_bwd_kernelILi{dt}ELi{st}E")
       for dt, st in ((1, 1), (2, 2), (3, 3), (4, 4), (5, 5), (6, 6), (7, 7), (8, 8), (12, 12),
                      (16, 8))),
+    *(("unpool", "unpool", name) for name in ("16unpool_bq_kernel", "20unpool_fold_k_kernel",
+                                              "20unpool_fold_v_kernel")),
+    *(("unpool_mlp", "unpool_mlp_wmma", f"17unpool_mlp_kernelILi{rows}E") for rows in (4, 2)),
 )
 
 @functools.lru_cache(maxsize=None)

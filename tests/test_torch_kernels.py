@@ -192,7 +192,7 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         "folded_unpool_wmma": 0, "fused_mlp_residual_wmma": 0, "folded_pool_ext_bwd_wmma": 0,
         "folded_unpool_bwd_wmma": 0, "fused_mlp_residual_bwd_wmma": 0,
         "folded_pool_layer_bwd_wmma": 0, "rect_attention_fwd_wmma": 0,
-        "rect_attention_bwd_wmma": 0,
+        "rect_attention_bwd_wmma": 0, "fused_unpool_mlp_wmma": 0,
         "folded_pool_ext_bwd_v1": 0, "folded_pool_ext_bwd_v2": 0, "folded_pool_ext_bwd_v2j": 0,
         "folded_pool_ext_bwd_v1_wmma": 0, "folded_pool_ext_bwd_v2_wmma": 0,
         "folded_pool_ext_bwd_v2j_wmma": 0,

@@ -8,10 +8,11 @@ Phases (each raises on failure; nothing is caught):
 1. environment: torch, nvcc, the card's name and power limit;
 2. build: the fourteen CUDA kernels of ``gecco_tpu_torch/csrc`` (eight
    forward, six backward), the WMMA bodies beside the Hopper forwards and
-   backwards (the rect attention's two included), and the pool
-   backward's v1, v2 and v2j bodies, Hopper (one library) and WMMA (two)
-   (twenty-seven libraries, the projective gather's forward and backward
-   in one) with nvcc for sm_90a,
+   backwards (the rect attention's two included), the projective gather's
+   SIMT bodies beside its Hopper ones, and the pool backward's v1, v2 and
+   v2j bodies, Hopper (one library) and WMMA (two) (twenty-nine libraries,
+   the projective gather's forward and backward in one, their SIMT bodies
+   in another) with nvcc for sm_90a,
    one process per source, all at once, with ``ptxas -v``'s registers and
    spills;
 3. forward kernels: each set-transformer kernel against its plain PyTorch
@@ -40,10 +41,18 @@ Phases (each raises on failure; nothing is caught):
    turns beside SDPA's backward; the WMMA body at the demo's C 128;
 5. projective gather: the forward against its plain version and the
    backward against autograd of the plain version, at the 256^2 pyramid of
-   the image-conditional model (batch 48, 2048 points) and at the 137^2
-   pyramid of the dataset's renders, coordinates in [-0.1, 1.1]; times,
-   bounds and ``grid_sample`` (forward, and its autograd backward) as the
-   library yardstick;
+   the image-conditional model (batch 48, 2048 points) on coordinates in
+   [-0.1, 1.1] and on the model's own (``diffusion_to_hw`` of
+   ``make_conditional_batch``'s clean clouds), and at the 137^2 pyramid of
+   the dataset's renders; at the model's pyramid, on both coordinate sets,
+   the Hopper forward the same bits as its SIMT body, the Hopper backward
+   the same bits in two calls and within 1.25x the SIMT body's error, each
+   function's two bodies timed in turns with their device time, the
+   host's time to make a call, the bound from the set's touched bytes and
+   ``grid_sample`` (forward, and its autograd backward) as the library
+   yardstick; then ``lookup_pyramid(..., impl="pallas")`` forward and
+   backward at widths only the SIMT bodies take (C 36, 68, 132), each SIMT
+   body launched once;
 6. per-head attention and megakernel: the rect attention's Hopper and
    WMMA bodies on the same operands, forward (o and lse) against its plain
    version in both directions of the per-head model (pool: 64 inducer
@@ -325,6 +334,8 @@ from gecco_tpu_torch.ops.kernels.projective_gather import (  # noqa: E402
     projective_gather,
     projective_gather_bwd,
 )
+from gecco_tpu_torch.ops.projective import lookup_pyramid  # noqa: E402
+from gecco_tpu_torch.probes import gather as gather_probe  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
 # outside the tensor cores, HBM3
@@ -448,6 +459,11 @@ SOURCES = {
                           "gecco_tpu/ops/pallas/projective_gather.py:40"),
     "projective_gather_bwd": ("gecco_tpu_torch/csrc/projective_gather.cu",
                               "gecco_tpu/ops/pallas/projective_gather.py:86"),
+    # the gather's SIMT bodies, for the shapes its Hopper bodies do not take
+    "projective_gather_simt": ("gecco_tpu_torch/csrc/projective_gather_simt.cu",
+                               "gecco_tpu/ops/pallas/projective_gather.py:40"),
+    "projective_gather_bwd_simt": ("gecco_tpu_torch/csrc/projective_gather_simt.cu",
+                                   "gecco_tpu/ops/pallas/projective_gather.py:86"),
     "rect_attention_fwd": ("gecco_tpu_torch/csrc/induced_attention.cu",
                            "gecco_tpu/ops/pallas/induced_attention.py:67"),
     "rect_attention_bwd": ("gecco_tpu_torch/csrc/induced_attention_bwd.cu",
@@ -513,6 +529,8 @@ WMMA_FORWARD = ("folded_pool_ext_wmma", "folded_unpool_wmma", "fused_mlp_residua
 WMMA_BACKWARD = ("folded_pool_ext_bwd_wmma", "folded_unpool_bwd_wmma",
                  "fused_mlp_residual_bwd_wmma")
 GATHER = ("projective_gather", "projective_gather_bwd")
+# and their SIMT bodies, for the profiles' split
+GATHER_KERNELS = (*GATHER, "projective_gather_simt", "projective_gather_bwd_simt")
 
 
 def sh(*cmd) -> str:
@@ -1761,14 +1779,19 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
 # ------------------------------------------------------ projective gather --
 
 
-def gather_operands(g, b, n, image_size, dt, device):
+def gather_operands(g, b, n, image_size, dt, device, coords="uniform"):
     """The ConvNeXt-tiny pyramid of ``image_size``^2 images (strides 4, 8,
-    16; VALID convolutions, so 137 gives 34, 17, 8) and hw01 in
-    [-0.1, 1.1], so that corners fall outside the image on every side."""
+    16; VALID convolutions, so 137 gives 34, 17, 8) and hw01: uniform in
+    [-0.1, 1.1], so that corners fall outside the image on every side, or
+    ("model") the coordinates the conditional model hands the gather,
+    ``diffusion_to_hw`` of ``make_conditional_batch``'s clean clouds, which
+    crowd onto the objects' silhouettes."""
     levels, size = [], (image_size - 4) // 4 + 1
     for c in CTX_DIMS:
         levels.append(torch.randn(b, size, size, c, generator=g, device=device).to(dt))
         size = (size - 2) // 2 + 1
+    if coords == "model":
+        return levels, gather_probe.model_hw01(b, n, device)
     hw01 = -0.1 + 1.2 * torch.rand(b, n, 2, generator=g, device=device)
     return levels, hw01
 
@@ -1813,84 +1836,206 @@ def grid_sample_yardstick(levels, hw01):
     return xs, run
 
 
+# the gather's SIMT-only widths (C % 8 != 0) for the entry point's path
+SIMT_CTX_DIMS = (36, 68, 132)
+
+
+def gather_checks(device, g, levels, hw01, dt, tag):
+    """The default bodies through the wrappers on one operand set: the
+    forward against its plain version (and ``grid_sample``), the backward,
+    with and without the coordinate gradient, against autograd of the plain
+    version in fp32. Returns (the forward's output, its max abs error, the
+    backward's, the cotangent, the yardstick)."""
+    with torch.no_grad():
+        got, want = projective_gather(levels, hw01), _gather_ref(hw01, *levels)
+        sync(device)
+        check(f"projective_gather {tag}", rel_err(got, want), TOL_OUT)
+        fwd_err = abs_err(got, want)
+        xs, lib = grid_sample_yardstick(levels, hw01)
+        lib_out = torch.cat([o[:, :, 0].transpose(1, 2) for o in lib(xs)], dim=-1)
+        check(f"  grid_sample (the yardstick) {tag} against the plain version",
+              rel_err(lib_out, want), TOL_OUT)
+    cot = torch.randn(got.shape, generator=g, device=device).to(dt)
+    dhw, dlv = projective_gather_bwd(levels, hw01, cot, coords_grad=True)
+    _, dlv_only = projective_gather_bwd(levels, hw01, cot, coords_grad=False)
+    ref32 = _gather_bwd_ref([lv.float() for lv in levels], hw01, cot.float())
+    ref16 = _gather_bwd_ref(levels, hw01, cot)
+    sync(device)
+    bwd_err = 0.0
+    for q, (a, a_only, r32, r16) in enumerate(zip(dlv, dlv_only, ref32[1], ref16[1])):
+        check(f"projective_gather_bwd {tag} dF level {q}", rel_err(a, r32), TOL_GATHER_DF)
+        check(f"projective_gather_bwd {tag} dF level {q} (no coordinate gradient)",
+              rel_err(a_only, r32), TOL_GATHER_DF)
+        print(f"    against the plain version's own bf16 autograd: {rel_err(a, r16):.3e}")
+        bwd_err = max(bwd_err, abs_err(a, r32))
+    check(f"projective_gather_bwd {tag} d hw01", rel_err(dhw, ref32[0]), TOL_GATHER_DCOORD)
+    print(f"    against the plain version's own bf16 autograd: {rel_err(dhw, ref16[0]):.3e}")
+    return got, fwd_err, bwd_err, cot, (xs, lib)
+
+
+def gather_bodies(levels, hw01, cot, tag) -> dict:
+    """On the card, the two bodies of each function on one operand set: the
+    Hopper forward the same bits as the SIMT body; the Hopper backward the
+    same bits in two calls, and within TOL_GATHER_DF / TOL_GATHER_DCOORD of
+    autograd of the plain version in fp32 and no further than 1.25x the
+    SIMT body's error, per output."""
+    rec = gather_probe.check_bodies(levels, hw01, cot)
+    print(f"  {tag}: the Hopper forward "
+          f"{'the same bits as' if rec['fwd_equal'] else 'DIFFERS from'} the SIMT body; the "
+          f"Hopper backward "
+          f"{'the same bits' if rec['bwd_same_bits'] else 'DIFFERENT bits'} in two calls")
+    if not (rec["fwd_equal"] and rec["bwd_same_bits"] and rec["bwd_only_equal"]):
+        raise AssertionError(f"projective gather {tag}: {rec}")
+    for k, err in rec["bwd_err"].items():
+        old = rec["bwd_err_simt"][k]
+        check(f"projective_gather_bwd {tag} {k}, Hopper body (SIMT body {old:.3e})", err,
+              TOL_GATHER_DCOORD if k == "dhw01" else TOL_GATHER_DF)
+        check("  its error over the SIMT body's, at most 1.25", err / max(old, 1e-30), 1.25,
+              what="ratio")
+    return rec
+
+
+def gather_times(device, levels, hw01, cot, yardstick, reps, tag) -> tuple:
+    """Each function's two bodies in turns on one operand set, with their
+    device time (``torch.profiler``), the host's time to make a call, the
+    bound from this set's touched bytes, the plain version and
+    ``grid_sample`` (forward, and its autograd backward) -> the forward's
+    and the backward's records, Hopper and SIMT."""
+    b, n = hw01.shape[:2]
+    c_tot = sum(lv.shape[3] for lv in levels)
+    read = touched_bytes(levels, hw01)
+    xs, lib = yardstick
+    t = gather_probe.time_bodies(levels, hw01, cot, reps)
+    with torch.no_grad():
+        plain_ms = time_ms(lambda: _gather_ref(hw01, *levels), device, max(2, reps // 4))
+        lib_ms = time_ms(lambda: lib(xs), device, reps)
+        lib_dev = device_ms(lambda: lib(xs), device)
+    out = projective_gather(levels, hw01)
+    # four fp32 multiply-adds per channel and point
+    bms, by = bound(8 * b * n * c_tot, read + nbytes(hw01, out), PEAK_FP32_FLOPS)
+    fwd = {}
+    for body in ("new", "old"):
+        r = t["forward"][body]
+        fwd[body] = dict(ms=r["ms"], ms_min_max=r["ms_min_max"], device_ms=r["device_ms"],
+                         host_ms=r["host_ms"], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib_ms, library_device_ms=lib_dev)
+    print(f"  projective_gather {tag}, in turns: Hopper {fwd['new']['ms']:.4f} ms (device "
+          f"{fwd['new']['device_ms']:.4f}, host {fwd['new']['host_ms']:.4f}), SIMT "
+          f"{fwd['old']['ms']:.4f} ms (device {fwd['old']['device_ms']:.4f}, host "
+          f"{fwd['old']['host_ms']:.4f}); plain {plain_ms:.3f} ms, grid_sample {lib_ms:.3f} ms "
+          f"(device {fmt_ms(lib_dev)}), bound {bms:.4f} ms ({by}; {read / 1e6:.1f} MB of the "
+          f"{nbytes(*levels) / 1e6:.1f} MB pyramid read)")
+
+    plain_ms = time_ms(lambda: _gather_bwd_ref(levels, hw01, cot), device, max(2, reps // 4))
+    leaves = [x.detach().requires_grad_(True) for x in xs]
+    lib_outs = lib(leaves)
+    lib_cots = [torch.randn(o.shape, device=o.device).to(o.dtype) for o in lib_outs]
+    lib_bwd = lambda: torch.autograd.grad(lib_outs, leaves, lib_cots, retain_graph=True)
+    lib_ms, lib_dev = time_ms(lib_bwd, device, reps), device_ms(lib_bwd, device)
+    # dF: a multiply-add per corner and channel, each level's gradient
+    # written whole; the coordinates' dot products are not part of the
+    # train step's call
+    bms, by = bound(8 * b * n * c_tot, nbytes(cot, hw01, *levels), PEAK_FP32_FLOPS)
+    # with the coordinate gradient: also the corners read and d hw01 written
+    bms_c, _ = bound(16 * b * n * c_tot, nbytes(cot, *levels) + 2 * nbytes(hw01) + read,
+                     PEAK_FP32_FLOPS)
+    bwd = {}
+    for body in ("new", "old"):
+        r, rc = t["backward"][body], t["backward_coords"][body]
+        bwd[body] = dict(ms=r["ms"], ms_min_max=r["ms_min_max"], device_ms=r["device_ms"],
+                         per_launch_ms=r["per_launch_ms"], host_ms=r["host_ms"],
+                         ms_coords=rc["ms"], device_ms_coords=rc["device_ms"],
+                         bound_ms_coords=bms_c, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib_ms, library_device_ms=lib_dev)
+    for what, sfx in (("dF only, as in training", ""), ("with the coordinate gradient", "_coords")):
+        print(f"  projective_gather_bwd {tag} ({what}), in turns: Hopper "
+              f"{bwd['new']['ms' + sfx]:.4f} ms (device {bwd['new']['device_ms' + sfx]:.4f}), "
+              f"SIMT {bwd['old']['ms' + sfx]:.4f} ms (device {bwd['old']['device_ms' + sfx]:.4f});"
+              f" bound {bwd['new']['bound_ms' + sfx]:.4f} ms")
+    print(f"    Hopper backward by launch: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in bwd["new"]["per_launch_ms"].items())
+        + f"; host {bwd['new']['host_ms']:.4f} ms (SIMT {bwd['old']['host_ms']:.4f}); plain "
+        f"{plain_ms:.3f} ms, grid_sample backward {lib_ms:.3f} ms (device {fmt_ms(lib_dev)})")
+    return fwd, bwd
+
+
+def gather_simt_path(device, g, b, n, image_size, dt):
+    """The entry point a model calls, ``lookup_pyramid(..., impl="pallas")``,
+    forward and backward under autograd at widths only the SIMT bodies take
+    (``SIMT_CTX_DIMS``, C % 8 != 0): each SIMT body launched once and
+    nothing else, against the plain version. Returns the launch counts."""
+    levels, size = [], (image_size - 4) // 4 + 1
+    for c in SIMT_CTX_DIMS:
+        levels.append(torch.randn(b, size, size, c, generator=g, device=device).to(dt))
+        size = (size - 2) // 2 + 1
+    hw01 = -0.1 + 1.2 * torch.rand(b, n, 2, generator=g, device=device)
+    leaves = [lv.detach().requires_grad_(True) for lv in levels]
+    coords = hw01.detach().requires_grad_(True)
+    cot = torch.randn(b, n, sum(SIMT_CTX_DIMS), generator=g, device=device).to(dt)
+    sync(device)
+    kernels.reset_launch_counts()
+    out = lookup_pyramid(leaves, coords, impl="pallas")
+    torch.autograd.backward(out, cot)
+    sync(device)
+    counts = kernels.launch_counts()
+    check_counts("gather entry point at SIMT-only widths", counts,
+                 expected_counts(dict(projective_gather_simt=1, projective_gather_bwd_simt=1)),
+                 device)
+    with torch.no_grad():
+        check(f"projective_gather SIMT body, C {SIMT_CTX_DIMS}",
+              rel_err(out, _gather_ref(hw01, *levels)), TOL_OUT)
+    ref = _gather_bwd_ref([lv.float() for lv in levels], hw01, cot.float())
+    for q, (a, r) in enumerate(zip(leaves, ref[1])):
+        check(f"projective_gather_bwd SIMT body, C {SIMT_CTX_DIMS}, dF level {q}",
+              rel_err(a.grad, r), TOL_GATHER_DF)
+    check(f"projective_gather_bwd SIMT body, C {SIMT_CTX_DIMS}, d hw01",
+          rel_err(coords.grad, ref[0]), TOL_GATHER_DCOORD)
+    return counts
+
+
 def gather_phase(device, b, n, image_size, render_size, dt, reps):
-    """The gather's forward against its plain version and its backward
-    against autograd of the plain version (run in fp32 on the same
-    inputs), at the model's pyramid and at the renders' pyramid; times and
-    bounds at the model's. On the CPU the gather runs its plain version, so
-    the rehearsal holds it in fp32."""
+    """The gather's default bodies through its wrappers: the forward against
+    its plain version and the backward against autograd of the plain
+    version (run in fp32 on the same inputs), at the model's pyramid on
+    uniform coordinates and on the model's own, and at the renders' pyramid.
+    On the card, at the model's pyramid and on both coordinate sets, the
+    Hopper and SIMT bodies against each other (``gather_bodies``) and timed
+    in turns (``gather_times``). Then the entry point at the SIMT bodies'
+    widths. On the CPU the gather runs its plain version, so the rehearsal
+    holds it in fp32. Returns the records and the SIMT path's counts."""
     g = torch.Generator(device=device).manual_seed(3)
     dt = dt if device.type == "cuda" else torch.float32
     rec = {}
-    for size in (image_size, render_size):
-        levels, hw01 = gather_operands(g, b, n, size, dt, device)
+    for size, coords in ((image_size, "uniform"), (image_size, "model"), (render_size, "uniform")):
+        levels, hw01 = gather_operands(g, b, n, size, dt, device, coords)
         shapes = [tuple(lv.shape[1:]) for lv in levels]
-        with torch.no_grad():
-            got, want = projective_gather(levels, hw01), _gather_ref(hw01, *levels)
-            sync(device)
-            check(f"projective_gather {size}^2 pyramid {shapes}", rel_err(got, want), TOL_OUT)
-            fwd_err = abs_err(got, want)
-            xs, lib = grid_sample_yardstick(levels, hw01)
-            lib_out = torch.cat([o[:, :, 0].transpose(1, 2) for o in lib(xs)], dim=-1)
-            check(f"  grid_sample (the yardstick) {size}^2 against the plain version",
-                  rel_err(lib_out, want), TOL_OUT)
-        cot = torch.randn(got.shape, generator=g, device=device).to(dt)
-        dhw, dlv = projective_gather_bwd(levels, hw01, cot, coords_grad=True)
-        _, dlv_only = projective_gather_bwd(levels, hw01, cot, coords_grad=False)
-        ref32 = _gather_bwd_ref([lv.float() for lv in levels], hw01, cot.float())
-        ref16 = _gather_bwd_ref(levels, hw01, cot)
-        sync(device)
-        bwd_err = 0.0
-        for q, (a, a_only, r32, r16) in enumerate(zip(dlv, dlv_only, ref32[1], ref16[1])):
-            check(f"projective_gather_bwd {size}^2 dF level {q}", rel_err(a, r32), TOL_GATHER_DF)
-            check(f"projective_gather_bwd {size}^2 dF level {q} (no coordinate gradient)",
-                  rel_err(a_only, r32), TOL_GATHER_DF)
-            print(f"    against the plain version's own bf16 autograd: {rel_err(a, r16):.3e}")
-            bwd_err = max(bwd_err, abs_err(a, r32))
-        check(f"projective_gather_bwd {size}^2 d hw01", rel_err(dhw, ref32[0]), TOL_GATHER_DCOORD)
-        print(f"    against the plain version's own bf16 autograd: {rel_err(dhw, ref16[0]):.3e}")
+        tag = f"{size}^2 pyramid {shapes}, {coords} coordinates"
+        got, fwd_err, bwd_err, cot, yardstick = gather_checks(device, g, levels, hw01, dt, tag)
         if size != image_size:
             continue
-
-        # times and bounds at the model's pyramid
-        c_tot = sum(CTX_DIMS)
-        read = touched_bytes(levels, hw01)
-        with torch.no_grad():
+        sfx = "" if coords == "uniform" else "_model"
+        if device.type != "cuda":
+            # the rehearsal: the wrappers' plain versions, no bodies to compare
             ms = time_ms(lambda: projective_gather(levels, hw01), device, reps)
-            plain_ms = time_ms(lambda: _gather_ref(hw01, *levels), device, max(2, reps // 4))
-            lib_ms = time_ms(lambda: lib(xs), device, reps)
-        # four fp32 multiply-adds per channel and point
-        bms, by = bound(8 * b * n * c_tot, read + nbytes(hw01, got), PEAK_FP32_FLOPS)
-        rec["projective_gather"] = dict(max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms,
-                                        bound_ms=bms, bound_by=by, library_ms=lib_ms)
-        print(f"  projective_gather: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, grid_sample "
-              f"{lib_ms:.3f} ms, bound {bms:.3f} ms ({by}; {read / 1e6:.1f} MB of the "
-              f"{nbytes(*levels) / 1e6:.1f} MB pyramid read)")
-
-        # the backward as the train step runs it (no coordinate gradient),
-        # and with it (the likelihood's VJP will need it)
-        ms = time_ms(lambda: projective_gather_bwd(levels, hw01, cot, coords_grad=False),
-                     device, reps)
-        ms_coords = time_ms(lambda: projective_gather_bwd(levels, hw01, cot, coords_grad=True),
-                            device, reps)
-        plain_ms = time_ms(lambda: _gather_bwd_ref(levels, hw01, cot), device, max(2, reps // 4))
-        xs = [x.requires_grad_(True) for x in xs]
-        lib_outs = lib(xs)
-        lib_cots = [torch.randn(o.shape, generator=g, device=device).to(o.dtype) for o in lib_outs]
-        lib_ms = time_ms(lambda: torch.autograd.grad(lib_outs, xs, lib_cots, retain_graph=True),
-                         device, reps)
-        # dF: a multiply-add per corner and channel; the coordinates' dot
-        # products are not part of the train step's call
-        bms, by = bound(8 * b * n * c_tot, nbytes(cot, hw01, *levels), PEAK_FP32_FLOPS)
-        bms_c, _ = bound(16 * b * n * c_tot, nbytes(cot, hw01, *levels, dhw) + read,
-                         PEAK_FP32_FLOPS)
-        rec["projective_gather_bwd"] = dict(max_abs_err=bwd_err, ms=ms, plain_ms=plain_ms,
-                                            bound_ms=bms, bound_by=by, library_ms=lib_ms)
-        print(f"  projective_gather_bwd (dF only, as in training): kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, grid_sample backward {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
-        print(f"  projective_gather_bwd with the coordinate gradient: kernel {ms_coords:.3f} ms, "
-              f"bound {bms_c:.3f} ms")
-    return rec
+            for name, err in (("projective_gather", fwd_err), ("projective_gather_simt", fwd_err),
+                              ("projective_gather_bwd", bwd_err),
+                              ("projective_gather_bwd_simt", bwd_err)):
+                rec.setdefault(name, {}).update({k + sfx: v for k, v in dict(
+                    max_abs_err=err, ms=ms, plain_ms=ms, bound_ms=0.0, bound_by="bytes",
+                    library_ms=None).items()})
+            continue
+        bodies = gather_bodies(levels, hw01, cot, tag)
+        fwd, bwd = gather_times(device, levels, hw01, cot, yardstick, reps, tag)
+        for name, r, err in (
+                ("projective_gather", fwd["new"], bodies["fwd_abs_err"]),
+                ("projective_gather_simt", fwd["old"], bodies["fwd_abs_err"]),
+                ("projective_gather_bwd", bwd["new"], bodies["bwd_abs_err"]),
+                ("projective_gather_bwd_simt", bwd["old"], bodies["bwd_abs_err_simt"])):
+            rec.setdefault(name, {}).update({k + sfx: v for k, v in
+                                             dict(r, max_abs_err=err).items()})
+    print(f"  the entry point at the SIMT bodies' widths C {SIMT_CTX_DIMS}:")
+    simt_counts = gather_simt_path(device, g, b, n, image_size, dt)
+    return rec, simt_counts
 
 
 # ----------------------------------------- per-head attention, megakernel --
@@ -3655,8 +3800,10 @@ KERNEL_FUNCTIONS = {
     "twopass_fold/colsum_kernel (both two-pass bodies' fold and column sums)": (
         "twopass_fold_kernel", "twopass_colsum_kernel"),
     "atb_kernel (the weight-gradient products of the WMMA backwards)": ("atb_kernel",),
-    "projective_gather": ("gather_kernel",),
-    "projective_gather_bwd": ("gather_bwd_kernel",),
+    "projective_gather": ("gather_fwd_kernel",),
+    "projective_gather_bwd": ("gather_bin_kernel", "gather_pixel_kernel", "gather_coord_kernel"),
+    "projective_gather_simt": ("gather_kernel",),
+    "projective_gather_bwd_simt": ("gather_bwd_kernel",),
     "rect_attention_fwd": ("rect_fwd_hopper_kernel",),
     "rect_attention_fwd_wmma": ("rect_attn_fwd_kernel",),
     "rect_attention_bwd": ("rect_bwd_hopper_kernel",),
@@ -3731,7 +3878,7 @@ def profile_steps(run, n, device):
     print(f"    {rest:9.3f} ms/step  {100 * rest / total:5.1f}%  PyTorch's own kernels, of which:")
     for k, ms in sorted(other.items(), key=lambda kv: -kv[1])[:10]:
         print(f"      {ms:9.3f} ms/step  {k[:100]}")
-    gather = sum(v for k, v in groups.items() if k in GATHER)
+    gather = sum(v for k, v in groups.items() if k in GATHER_KERNELS)
     conv = sum(v for k, v in other.items() if CONV_KERNEL.search(k))
     split = {"projective gather": gather, "set-transformer kernels": sum(groups.values()) - gather,
              "convolutions (the ConvNeXt)": conv, "the rest": rest - conv}
@@ -4068,7 +4215,9 @@ def main():
 
     print(f"== projective gather vs plain versions (batch {cond_batch}, {n_points} points; "
           f"pyramids of {image_size}^2 and {render_size}^2 images) on {card}")
-    rec.update(gather_phase(device, cond_batch, n_points, image_size, render_size, dt, reps))
+    gather_rec, gather_simt_counts = gather_phase(device, cond_batch, n_points, image_size,
+                                                  render_size, dt, reps)
+    rec.update(gather_rec)
 
     print(f"== per-head attention and megakernel vs plain versions (sampler batch "
           f"{shapes['batch']}, training batch {train_batch}; 8k {big}) on {card}")
@@ -4268,6 +4417,10 @@ def main():
         rec[name]["prenorm"]["launches"] = prenorm_counts.get(name, 0)
         pool_counts[name] = module_counts.get(name, 0) - prenorm_counts.get(name, 0)
     source_counts = {"projective_gather": cond_counts, "projective_gather_bwd": cond_train_counts,
+                     # the gather's SIMT bodies: the entry point at their
+                     # widths (phase 5)
+                     "projective_gather_simt": gather_simt_counts,
+                     "projective_gather_bwd_simt": gather_simt_counts,
                      "rect_attention_fwd": ph_counts, "rect_attention_bwd": ph_train_counts,
                      # the rect attention's WMMA bodies: the per-head model at
                      # D 40's sample and gradient (phase 21)

@@ -2,14 +2,16 @@
 beside its plain PyTorch version. Importing this package builds nothing.
 
 ``KERNELS`` lists every wrapper that launches a kernel, forward and
-backward (fourteen: eight forward, six backward); each counts its launches
-in ``.launches``. Twelve of them have a second body, WMMA beside the Hopper
-design, chosen by shape (``folded_pool_ext``, ``fused_h_side``,
+backward (fourteen: eight forward, six backward); each counts its default
+body's launches in ``.launches``. Twelve of them have a second body, WMMA
+beside the Hopper design, chosen by shape (``folded_pool_ext``, ``fused_h_side``,
 ``folded_unpool``, ``fused_mlp_residual``, ``folded_pool_layer``, the three
 folded backwards, ``folded_pool_layer_bwd``, ``rect_attention_fwd``,
 ``rect_attention_bwd`` and ``fused_unpool_mlp``): those count its launches
 in ``.launches_wmma``,
-reported as ``<name>_wmma``. The pool backward's v1,
+reported as ``<name>_wmma``. The projective gather's forward and backward
+have a SIMT body beside the Hopper one (``SIMT_BODIES``), counted in
+``.launches_simt`` and reported as ``<name>_simt``. The pool backward's v1,
 v2 and v2j bodies (``GECCO_POOL_BWD``) count theirs in ``.launches_v1``,
 ``.launches_v2`` and ``.launches_v2j`` (``folded_pool_ext_bwd_v1`` ...) where
 their Hopper body runs, and in ``.launches_v1_wmma`` ...
@@ -46,6 +48,7 @@ KERNELS = (
 TWO_BODIES = (folded_pool_ext, fused_h_side, folded_unpool, fused_mlp_residual,
               folded_pool_layer, folded_pool_ext_bwd, folded_unpool_bwd, fused_mlp_residual_bwd,
               folded_pool_layer_bwd, rect_attention_fwd, rect_attention_bwd, fused_unpool_mlp)
+SIMT_BODIES = (projective_gather, projective_gather_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -53,6 +56,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in TWO_BODIES:
         fn.launches_wmma = 0
+    for fn in SIMT_BODIES:
+        fn.launches_simt = 0
     for body in TWOPASS_BODIES:
         setattr(folded_pool_ext_bwd, f"launches_{body}", 0)
         setattr(folded_pool_ext_bwd, f"launches_{body}_wmma", 0)
@@ -61,6 +66,7 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts.update({f"{fn.__name__}_wmma": fn.launches_wmma for fn in TWO_BODIES})
+    counts.update({f"{fn.__name__}_simt": fn.launches_simt for fn in SIMT_BODIES})
     for body in TWOPASS_BODIES:
         for name in (body, f"{body}_wmma"):
             counts[f"folded_pool_ext_bwd_{name}"] = getattr(folded_pool_ext_bwd, f"launches_{name}")
@@ -84,6 +90,7 @@ __all__ = [
     "rect_attention_fwd",
     "rect_attention_pallas",
     "KERNELS",
+    "SIMT_BODIES",
     "TWO_BODIES",
     "TWOPASS_BODIES",
     "launch_counts",

@@ -1,15 +1,17 @@
 """Whether two source trees build the same machine code for the pool and
 unpool forwards' and backwards' flagship and 8k-width kernels, the unpool's
-fold, the rect attention's WMMA bodies and the megakernel's WMMA body.
+fold, the rect attention's WMMA bodies, the megakernel's WMMA body and the
+projective gather's SIMT bodies.
 
     python3 gecco_tpu_torch/probes/sass.py PARENT CHANGE
 
 Each argument is the root of a checkout whose libraries are built (run
 ``chip_smoke.py`` or ``probes/trees.py`` there first). For each kernel
-below, found by name in PARENT's library and in CHANGE's (the
-megakernel's WMMA body moved from ``unpool_mlp.cu`` to
-``unpool_mlp_wmma.cu``, the unpool's fold from ``unpool.cu`` to
-``unpool_fold.cuh``, unchanged), this reads both libraries'
+below, found by name in PARENT's library and in CHANGE's (a pair names
+both: the gather's first kernels moved from ``projective_gather.cu`` to
+``projective_gather_simt.cu``, unchanged; a parent from before the
+megakernel's WMMA body moved to ``unpool_mlp_wmma.cu`` has it in
+``unpool_mlp``), this reads both libraries'
 SASS with ``cuobjdump -sass``, drops the addresses and encodings, and
 prints whether the instruction lists are identical (and the first few
 instructions that differ). Needs the CUDA toolkit (the card's machine);
@@ -58,7 +60,12 @@ PAIRS = (
                      (16, 8))),
     *(("unpool", "unpool", name) for name in ("16unpool_bq_kernel", "20unpool_fold_k_kernel",
                                               "20unpool_fold_v_kernel")),
-    *(("unpool_mlp", "unpool_mlp_wmma", f"17unpool_mlp_kernelILi{rows}E") for rows in (4, 2)),
+    *(("unpool_mlp_wmma", "unpool_mlp_wmma", f"17unpool_mlp_kernelILi{rows}E")
+      for rows in (4, 2)),
+    # the gather's first kernels, moved unchanged from projective_gather.cu
+    # to projective_gather_simt.cu
+    ("projective_gather", "projective_gather_simt", "13gather_kernelE"),
+    ("projective_gather", "projective_gather_simt", "17gather_bwd_kernelE"),
 )
 
 @functools.lru_cache(maxsize=None)

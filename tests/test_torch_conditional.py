@@ -30,9 +30,12 @@ from gecco_tpu_torch.convert import load_jax_params, to_jax_params
 from gecco_tpu_torch.data import CAMERA_K, make_conditional_batch
 from gecco_tpu_torch.ops import projective
 from gecco_tpu_torch.ops.kernels import projective_gather, projective_gather_bwd
+from gecco_tpu_torch.ops.kernels.projective_gather import _gather_bwd_binned_ref
 from gecco_tpu_torch.train import conditional_optimizer, make_ema, make_train_step
 from torch_parity import (
+    GATHER_COORDS,
     f32,
+    gather_coords,
     j,
     jax_conditional_model,
     jax_params,
@@ -192,6 +195,51 @@ def test_lookup_gradients_match_jax(impl, pyramid):
     (out * t(g)).sum().backward()
     for a, r in zip(leaves, ref):
         np.testing.assert_allclose(f32(a.grad), f32(r), rtol=1e-4, atol=1e-4)
+
+
+@jax.jit
+def _jax_lookup_grads(hw01, g, *levels):
+    """``jax.grad`` of the gather through ``bilinear_lookup_pallas`` (its
+    backward kernel in interpret mode) in every level and the coordinates,
+    one jit for all coordinate sets."""
+    def loss(hw, *lvs):
+        outs = [bilinear_lookup_pallas(lv, hw * jnp.array(lv.shape[1:3], jnp.float32))
+                for lv in lvs]
+        return (jnp.concatenate(outs, -1) * g).sum()
+
+    return jax.grad(loss, argnums=tuple(range(1 + len(levels))))(hw01, *levels)
+
+
+@pytest.mark.parametrize("coords", GATHER_COORDS)
+def test_gather_bwd_binned_ref_matches_jax(coords):
+    """The Hopper backward's algebra in plain PyTorch
+    (``_gather_bwd_binned_ref``: a stable bin by floor cell, each pixel the
+    sum over its four neighbouring cells' points, the coordinate gradient
+    per point) against ``jax.grad`` of ``bilinear_lookup_pallas``, in fp32,
+    at the JAX test's rtol/atol 1e-4, on each coordinate set of the renders'
+    pyramid. The JAX backward kernel forms its weights as products with
+    one-hot masks, so a NaN coordinate puts NaN into its dF and coordinate
+    gradients: on the outside set it gets the same points with NaN swapped
+    for 1e9 (which,
+    like NaN, has no corner in the image), and the port's NaN points are
+    held to contributing nothing (dF the same as with 1e9, their
+    coordinate gradient 0)."""
+    levels, _ = _pyramid(3, "137-renders")
+    rng = np.random.default_rng(4)
+    hw01 = gather_coords(coords, rng, B, 64, levels[0].shape[1:3])
+    g = rng.standard_normal((B, 64, sum(lv.shape[-1] for lv in levels))).astype(np.float32)
+    jax_hw01 = np.where(np.isnan(hw01), np.float32(1e9), hw01)
+    ref = _jax_lookup_grads(j(jax_hw01), j(g), *(j(lv) for lv in levels))
+    tl = [t(lv) for lv in levels]
+    dhw, dlevels = _gather_bwd_binned_ref(tl, t(hw01), t(g))
+    for a, r in zip([dhw, *dlevels], ref):
+        np.testing.assert_allclose(f32(a), f32(r), rtol=1e-4, atol=1e-4)
+    if coords == "outside":
+        assert np.isnan(hw01).any()
+        again, dlevels_1e9 = _gather_bwd_binned_ref(tl, t(jax_hw01), t(g))
+        for a, r in zip(dlevels, dlevels_1e9):
+            torch.testing.assert_close(a, r, rtol=0, atol=0)
+        assert (f32(dhw)[np.isnan(hw01).any(-1)] == 0).all()
 
 
 # ---------------------------------------------------------------- ConvNeXt --

@@ -31,10 +31,13 @@ from gecco_tpu_torch.ops.kernels import hside as ths
 from gecco_tpu_torch.ops.kernels import induced_attention as tia
 from gecco_tpu_torch.ops.kernels.induced_attention import rect_attention_pallas
 from gecco_tpu_torch.ops.kernels.projective_gather import (
+    _gather_body,
+    _gather_bwd_binned_ref,
     _gather_ref,
     projective_gather,
     projective_gather_bwd,
 )
+from torch_parity import GATHER_COORDS, gather_coords
 
 REPO = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-4, 1e-5
@@ -195,7 +198,8 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         "rect_attention_bwd_wmma": 0, "fused_unpool_mlp_wmma": 0,
         "folded_pool_ext_bwd_v1": 0, "folded_pool_ext_bwd_v2": 0, "folded_pool_ext_bwd_v2j": 0,
         "folded_pool_ext_bwd_v1_wmma": 0, "folded_pool_ext_bwd_v2_wmma": 0,
-        "folded_pool_ext_bwd_v2j_wmma": 0,
+        "folded_pool_ext_bwd_v2j_wmma": 0, "projective_gather_simt": 0,
+        "projective_gather_bwd_simt": 0,
     }
 
 
@@ -410,6 +414,89 @@ def test_projective_gather_bwd_wrapper_matches_autograd_of_the_plain_version():
     none, again = projective_gather_bwd(lv_t, torch.from_numpy(hw01), torch.from_numpy(g),
                                             coords_grad=False)
     assert none is None and all(torch.equal(a, b) for a, b in zip(again, dlevels))
+
+
+@pytest.mark.parametrize("coords", GATHER_COORDS)
+def test_gather_bwd_binned_ref_matches_autograd_of_the_plain_version(coords):
+    """The Hopper backward's algebra in plain PyTorch (a stable bin by floor
+    cell, each pixel the sum over its four neighbouring cells' points, the
+    coordinate gradient per point) against autograd of the plain forward, in
+    fp32, on each coordinate set. Points with NaN or +-1e9 coordinates
+    contribute nothing: their coordinate gradient is 0 (autograd's is held
+    at the finite points only: its weight products carry a NaN coordinate's
+    NaN into its own gradient)."""
+    levels, _ = _gather_args(31)
+    rng = np.random.default_rng(32)
+    hw01 = gather_coords(coords, rng, B, 96, levels[0].shape[1:3])
+    g = _cotangent(rng, B, 96, sum(lv.shape[-1] for lv in levels))
+    dhw, dlevels = _gather_bwd_binned_ref([torch.from_numpy(lv) for lv in levels],
+                                          torch.from_numpy(hw01), torch.from_numpy(g))
+    want = _port_grads(lambda hw, *lv: _gather_ref(hw, *lv), [hw01, *levels], [g])
+    for q, (a, r) in enumerate(zip(dlevels, want[1:])):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"dF of level {q}")
+    finite = np.isfinite(hw01).all(-1) & (np.abs(hw01) < 1e3).all(-1)
+    np.testing.assert_allclose(dhw.numpy()[finite], want[0].numpy()[finite], rtol=1e-4,
+                               atol=1e-4)
+    assert (dhw.numpy()[~finite] == 0).all()
+    assert (coords == "outside") == (not finite.all())
+
+
+def _switch_case(case):
+    """Levels (bf16, on the CPU: the switch reads shapes and addresses only),
+    hw01 and g of one case of ``test_gather_body_switch``."""
+    widths, n, shift, g_shift = {
+        "C % 8": ((8, 16, 32), 64, 0, 0),
+        "C 2048": ((2048,), 64, 0, 0),
+        "C 96, 192, 384, N 4096": ((96, 192, 384), 4096, 0, 0),
+        "C % 8 != 0": ((6, 16), 64, 0, 0),
+        "C 2056": ((2056,), 64, 0, 0),
+        "8-byte aligned": ((8, 16), 64, 4, 0),
+        "N 4097": ((8, 16), 4097, 0, 0),
+        "g 8-byte aligned": ((8, 16), 64, 0, 4),
+        "odd C": ((7, 16), 64, 0, 0),
+        "2-byte aligned": ((8, 16), 64, 1, 0),
+        "five levels": ((8,) * 5, 64, 0, 0),
+        "no level": ((), 64, 0, 0),
+    }[case]
+
+    def shifted(shape, by):
+        # ``by`` bf16 elements past an aligned allocation
+        return torch.empty(int(np.prod(shape)) + by, dtype=torch.bfloat16)[by:].view(shape)
+
+    levels = [shifted((1, 4, 4, c), shift) for c in widths]
+    g = shifted((1, n, sum(widths)), g_shift)
+    return levels, torch.zeros(1, n, 2), g
+
+
+@pytest.mark.parametrize("case, forward, backward", [
+    ("C % 8", "hopper", "hopper"),
+    ("C 2048", "hopper", "hopper"),
+    ("C 96, 192, 384, N 4096", "hopper", "hopper"),
+    ("C % 8 != 0", "simt", "simt"),
+    ("C 2056", "simt", "simt"),
+    ("8-byte aligned", "simt", "simt"),
+    ("N 4097", "hopper", "simt"),
+    ("g 8-byte aligned", "hopper", "simt"),
+    ("odd C", None, None),
+    ("2-byte aligned", None, None),
+    ("five levels", None, None),
+    ("no level", None, None),
+])
+def test_gather_body_switch(case, forward, backward):
+    """Which body of the gather takes which operands on the card: the
+    Hopper bodies every C % 8 == 0 up to 2048, 16-byte aligned (the
+    backward also N <= 4096 and g 16-byte aligned), the SIMT bodies every
+    even C, 4-byte aligned; 1 to 4 levels. Where neither takes them the
+    switch raises with both bodies' conditions."""
+    levels, hw01, g = _switch_case(case)
+    if forward is None:
+        for extra in ((), (g,)):
+            with pytest.raises(ValueError, match="Hopper body needs .* SIMT body"):
+                _gather_body(levels, hw01, *extra)
+        return
+    assert _gather_body(levels, hw01) == forward
+    assert _gather_body(levels, hw01, g) == backward
 
 
 def test_pool_bwd_witness_matches_the_jax_kernel_in_bf16():

@@ -169,3 +169,38 @@ def rel_err(a, ref) -> float:
     """max |a - ref| / max |ref|."""
     a, ref = f32(a), f32(ref)
     return float(np.abs(a - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+# the projective gather's coordinate sets: uniform in [-0.1, 1.1] (corners
+# outside the image on every side); crowded into a few pixels; on integer
+# pixel coordinates of the first level and on its last row and column (and
+# on 1.0, whose corners all lie outside); NaN and +-1e9, which have no
+# corner in the image, among uniform points
+GATHER_COORDS = ("uniform", "crowded", "grid", "outside")
+
+
+def gather_coords(kind: str, rng: np.random.Generator, b: int, n: int, size) -> np.ndarray:
+    """hw01 [b, n, 2] float32 of one of ``GATHER_COORDS``; ``size`` the
+    first level's (H, W)."""
+    hw = rng.uniform(-0.1, 1.1, (b, n, 2))
+    if kind == "crowded":
+        centres = rng.uniform(0.2, 0.8, (b, 3, 2))
+        hw = centres[np.arange(b)[:, None], rng.integers(0, 3, (b, n))]
+        hw = hw + rng.uniform(0.0, 0.01, (b, n, 2))
+    elif kind == "grid":
+        scale = np.array(size, np.float32)
+        k = np.stack([rng.integers(0, s + 1, (b, n)) for s in size], -1)
+        k[:, : n // 4, 0] = size[0] - 1
+        k[:, n // 4: n // 2, 1] = size[1] - 1
+        # the float32 hw01 whose product with the size is the integer itself
+        x = (k / scale).astype(np.float32)
+        for near in (np.nextafter(x, np.float32(np.inf)), np.nextafter(x, np.float32(-np.inf))):
+            x = np.where(x * scale != k, near, x)
+        assert np.array_equal(x * scale, k)
+        return x
+    elif kind == "outside":
+        bad = rng.choice(np.array([np.nan, 1e9, -1e9]), size=(b, n, 2))
+        hw = np.where(rng.uniform(size=(b, n, 2)) < 0.3, bad, hw)
+    elif kind != "uniform":
+        raise ValueError(kind)
+    return hw.astype(np.float32)

@@ -52,7 +52,12 @@ Phases (each raises on failure; nothing is caught):
    ``grid_sample`` (forward, and its autograd backward) as the library
    yardstick; then ``lookup_pyramid(..., impl="pallas")`` forward and
    backward at widths only the SIMT bodies take (C 36, 68, 132), each SIMT
-   body launched once;
+   body launched once; then the SIMT bodies' other instances (the model's
+   pyramid in fp32, odd C 3, 35 and 131, a 2-byte-aligned level, six
+   levels: two launches each way) forward and backward with the coordinate
+   gradient against the plain version in fp32, the launches exact, the
+   Hopper bodies still taking the model's bf16 pyramid, each instance
+   timed in turns with the bf16 SIMT body beside its bound;
 6. per-head attention and megakernel: the rect attention's Hopper and
    WMMA bodies on the same operands, forward (o and lse) against its plain
    version in both directions of the per-head model (pool: 64 inducer
@@ -227,7 +232,28 @@ Phases (each raises on failure; nothing is caught):
    at N 2000 samples 8 steps from one latent against the plain path and
    takes one gradient at batch 48 against it, every function through a
    kernel, the launch counts exact; one evaluation at batch 64 timed at N
-   2000 and at N 2048, in turns; the resident pool's launches exact.
+   2000 and at N 2048, in turns; the resident pool's launches exact;
+23. other samplers: the flagship of phase 7 at batch 64 and 2048 points
+   through ``sample_stochastic`` (the config's 128 steps on the extended
+   grid, churn 0.5: 255 evaluations, each forward kernel 6 x 255 times),
+   ``sample_inpaint`` (1024 known points completed by 1024, 2 substeps,
+   churn 0.5: 510 evaluations), ``sample(..., temperature=0.8)`` on an
+   8-step grid (its latent 0.8 times the draw) and ``score``, no backward
+   kernel; the conditional model's ``sample_stochastic`` at batch 48 (the
+   ConvNeXt once, the gather forward 255 times); each against the plain
+   path from the same draws on an 8-step grid, wall time and clouds/s;
+24. likelihood: ``LogpMetric(n_solver_steps=24)`` (``evaluate_logp``) of
+   48 clouds of 2048 points, on the flagship (23 transitions, 46
+   evaluations and VJPs: each forward and each backward kernel 6 x 46
+   times) and on the conditional model with remat (each forward kernel 12
+   x 46, each backward 6 x 46, the gather forward 46 times and its Hopper
+   backward 46 times with the coordinate gradient, its SIMT bodies never,
+   the ConvNeXt once); no parameter gets a ``.grad``; seconds per batch
+   and a ``torch.profiler`` split (forward kernels, backward kernels and
+   their weight-gradient passes apart, the gather, PyTorch's own); then
+   from one Rademacher draw on a 4-step grid at batch 8 the kernel path
+   against the plain path, every ``LogpDetails`` field to its own
+   tolerance, the plain path in fp32 printed beside as the witness.
 
 Phase 3 holds the h-side's Hopper body (``csrc/hside.cu``) at the
 flagship's, the 8k width's and the demo's shapes and at 16, 32 and 48
@@ -302,6 +328,7 @@ from gecco_tpu_torch import (  # noqa: E402
     UVLReparam,
 )
 from gecco_tpu_torch.data import make_clouds, make_conditional_batch  # noqa: E402
+from gecco_tpu_torch.metrics import LogpMetric  # noqa: E402
 from gecco_tpu_torch.models import (  # noqa: E402
     ConvNeXtExtractor,
     RayNetwork,
@@ -329,8 +356,11 @@ from gecco_tpu_torch.probes.pool_bwd_twopass import passes as twopass_passes  # 
 from gecco_tpu_torch.probes.pool_layer import check_shape as pool_layer_passes  # noqa: E402
 from gecco_tpu_torch.probes.pool_layer_bwd import check_shape as pool_layer_bwd_passes  # noqa: E402,E501
 from gecco_tpu_torch.ops.kernels.projective_gather import (  # noqa: E402
+    _gather_body,
     _gather_bwd_ref,
+    _gather_bwd_simt as pg_simt_bwd,
     _gather_ref,
+    _gather_simt as pg_simt_fwd,
     projective_gather,
     projective_gather_bwd,
 )
@@ -392,6 +422,9 @@ TOL_AFFINE = 3e-2
 # the coordinate gradient is fp32 throughout in both, summed in other orders
 TOL_GATHER_DF = 1e-2
 TOL_GATHER_DCOORD = 1e-3
+# the gather's fp32 SIMT instance against the plain version in fp32: the
+# same sums in other orders (the backward's fp32 atomics in no order)
+TOL_GATHER_F32 = 1e-4
 # the pool's dbe with drifted logits only. The softmax over the points is
 # invariant to a shift of every point, so the sum over N of its ds term
 # cancels exactly in the plain version; the TPU kernel's algebra (v3, which
@@ -437,6 +470,29 @@ TOL_ALGEBRA_GRAD = 1e-2
 # phase 22's ragged point counts: 2000 pads to 2048 (the last 64-point chunk
 # holds 16 points); 2050 pads to 2176, its last chunk all padding
 RAGGED_NS = (2000, 2050)
+
+# phase 24: the configs' LogpMetric(n_solver_steps=24); the kernel path
+# against the plain path from one Rademacher draw on a 4-step grid at batch
+# 8, bf16 activations, each field to its largest value on the plain path.
+# The reverse ODE's first transition leaves sigma_min, where the field
+# (x - D(x)) / sigma divides the bf16 denoiser's error by 0.002, and carries
+# it to sigma_max: chip readings (H100, 700 W) of the plain bf16 path against
+# the plain fp32 path on the conditional model: latent 6.9e-2, delta_jacobian
+# 2.4e-2 (the flagship: 6.1e-3, 2.7e-4), the kernel path's about twice
+# (the kernels round e, p, ds and dh to bf16 as the TPU kernels do). So:
+# the latent and the trajectory (diffusion space) 2e-1; delta_jacobian
+# (e^T J e integrated) 5e-2; prior_logp (the latent's sum of squares, its
+# error averaged over the cloud) 1e-3; delta_reparam the same plain code on
+# both paths, 1e-6; logp, the sum of three terms of ~1e4-5e4 that cancel to
+# a few thousand, to the largest sum of its terms' magnitudes, 5e-2;
+# trajectory_data on the states at sigma <= 1 only (above, the UVL map's
+# exp of the depth overflows or amplifies the state's error beyond meaning),
+# 2e-1. The plain fp32 path is printed beside as the witness of both.
+LOGP_STEPS = 24
+TOL_LOGP = dict(logp=5e-2, prior_logp=1e-3, delta_reparam=1e-6, delta_jacobian=5e-2,
+                trajectory_diff=2e-1, trajectory_data=2e-1, latent=2e-1)
+# phase 23: inpainting completes clouds of 1024 known points by 1024
+INPAINT_KNOWN = 1024
 
 SOURCES = {
     "folded_pool_ext": ("gecco_tpu_torch/csrc/pool_ext.cu",
@@ -1838,6 +1894,10 @@ def grid_sample_yardstick(levels, hw01):
 
 # the gather's SIMT-only widths (C % 8 != 0) for the entry point's path
 SIMT_CTX_DIMS = (36, 68, 132)
+# the SIMT bodies' single-channel instances: odd C; and a pyramid of six
+# levels (the model's three, then three smaller ones), two launches each way
+SIMT_ODD_DIMS = (3, 35, 131)
+SIX_LEVEL_DIMS = (*CTX_DIMS, 48, 24, 16)
 
 
 def gather_checks(device, g, levels, hw01, dt, tag):
@@ -1993,6 +2053,111 @@ def gather_simt_path(device, g, b, n, image_size, dt):
     return counts
 
 
+def simt_instances(device, g, b, n, image_size, dt) -> tuple:
+    """The operands only the SIMT bodies take, beside the model's own bf16
+    pyramid ``base`` and its coordinates: the pyramid in fp32; odd C
+    (``SIMT_ODD_DIMS``); the first level 2-byte aligned (one bf16 element
+    past an aligned allocation); six levels (``SIX_LEVEL_DIMS``). Returns
+    (hw01, base, {name: (levels, launches per call)})."""
+    base, hw01 = gather_operands(g, b, n, image_size, dt, device)
+
+    def pyramid(dims, size):
+        out = []
+        for c in dims:
+            out.append(torch.randn(b, size, size, c, generator=g, device=device).to(dt))
+            size = max(1, (size - 2) // 2 + 1)
+        return out
+
+    buf = torch.empty(base[0].numel() + 1, dtype=dt, device=device)
+    shifted = buf[1:].view(base[0].shape)
+    shifted.copy_(base[0])
+    six = base + pyramid(SIX_LEVEL_DIMS[3:], max(1, (base[-1].shape[1] - 2) // 2 + 1))
+    return hw01, base, {
+        "fp32": ([lv.float() for lv in base], 1),
+        f"odd C {SIMT_ODD_DIMS}": (pyramid(SIMT_ODD_DIMS, base[0].shape[1]), 1),
+        "2-byte aligned": ([shifted, *base[1:]], 1),
+        "six levels": (six, 2),
+    }
+
+
+def gather_simt_instances(device, g, b, n, image_size, dt, reps) -> dict:
+    """The SIMT bodies' new instances (``simt_instances``) through the
+    wrappers, forward and backward with the coordinate gradient, against
+    the plain version run in fp32 on the same inputs: each picked by the
+    switch, launched as often as its levels' groups (one launch a group of
+    four levels each way) and nothing else; the Hopper bodies still take
+    the model's bf16 pyramid. On the card each instance is timed in turns
+    with the bf16 SIMT body on the model's pyramid, beside its bound.
+    Returns the SIMT rows' records, keyed by instance."""
+    hw01, base, cases = simt_instances(device, g, b, n, image_size, dt)
+    cot_base = torch.randn(b, n, sum(CTX_DIMS), generator=g, device=device).to(dt)
+    if device.type == "cuda":
+        want = ("hopper", "hopper")
+        got = (_gather_body(base, hw01), _gather_body(base, hw01, cot_base))
+        if got != want:
+            raise AssertionError(f"the model's bf16 pyramid went to {got}, not the Hopper bodies")
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            projective_gather(base, hw01)
+        projective_gather_bwd(base, hw01, cot_base, True)
+        sync(device)
+        check_counts("gather at the model's bf16 pyramid", kernels.launch_counts(),
+                     expected_counts(dict(projective_gather=1, projective_gather_bwd=1)), device)
+    fwd, bwd = {}, {}
+    for name, (levels, launches) in cases.items():
+        f32 = levels[0].dtype == torch.float32
+        cot = torch.randn(b, n, sum(lv.shape[3] for lv in levels), generator=g,
+                          device=device).to(levels[0].dtype)
+        body = (_gather_body(levels, hw01), _gather_body(levels, hw01, cot))
+        if body != ("simt", "simt"):
+            raise AssertionError(f"gather {name}: the switch picked {body}")
+        sync(device)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            out = projective_gather(levels, hw01)
+        dhw, dlv = projective_gather_bwd(levels, hw01, cot, True)
+        sync(device)
+        check_counts(f"gather SIMT body, {name}", kernels.launch_counts(),
+                     expected_counts(dict(projective_gather_simt=launches,
+                                          projective_gather_bwd_simt=launches)), device)
+        lv32 = [lv.float() for lv in levels]
+        with torch.no_grad():
+            want = _gather_ref(hw01, *lv32)
+        ref = _gather_bwd_ref(lv32, hw01, cot.float())
+        sync(device)
+        check(f"projective_gather SIMT body, {name}", rel_err(out, want),
+              TOL_GATHER_F32 if f32 else TOL_OUT)
+        for q, (a, r) in enumerate(zip(dlv, ref[1])):
+            check(f"projective_gather_bwd SIMT body, {name}, dF level {q}", rel_err(a, r),
+                  TOL_GATHER_F32 if f32 else TOL_GATHER_DF)
+        check(f"projective_gather_bwd SIMT body, {name}, d hw01", rel_err(dhw, ref[0]),
+              TOL_GATHER_F32 if f32 else TOL_GATHER_DCOORD)
+        fwd[name] = dict(max_abs_err=abs_err(out, want))
+        bwd[name] = dict(max_abs_err=max(abs_err(a, r) for a, r in zip(dlv, ref[1])))
+        if device.type != "cuda":
+            continue
+        read = touched_bytes(levels, hw01)
+        c_tot = sum(lv.shape[3] for lv in levels)
+        t = gather_probe.in_turns(lambda: pg_simt_fwd(hw01, levels),
+                                  lambda: pg_simt_fwd(hw01, base), reps)
+        bms, by = bound(8 * b * n * c_tot, read + nbytes(hw01, out), PEAK_FP32_FLOPS)
+        fwd[name].update(ms=gather_probe.med(t["new"]), bf16_simt_ms=gather_probe.med(t["old"]),
+                         bound_ms=bms, bound_by=by)
+        t = gather_probe.in_turns(lambda: pg_simt_bwd(levels, hw01, cot, True),
+                                  lambda: pg_simt_bwd(base, hw01, cot_base, True), reps)
+        bms, by = bound(16 * b * n * c_tot, nbytes(cot, *levels) + 2 * nbytes(hw01) + read,
+                        PEAK_FP32_FLOPS)
+        bwd[name].update(ms=gather_probe.med(t["new"]), bf16_simt_ms=gather_probe.med(t["old"]),
+                         bound_ms=bms, bound_by=by)
+        print(f"  SIMT {name}, in turns with the bf16 SIMT body on the model's pyramid: forward "
+              f"{fwd[name]['ms']:.4f} ms (bf16 {fwd[name]['bf16_simt_ms']:.4f}; bound "
+              f"{fwd[name]['bound_ms']:.4f}), backward with the coordinate gradient "
+              f"{bwd[name]['ms']:.4f} ms (bf16 {bwd[name]['bf16_simt_ms']:.4f}; bound "
+              f"{bwd[name]['bound_ms']:.4f})")
+    return {"projective_gather_simt": {"instances": fwd},
+            "projective_gather_bwd_simt": {"instances": bwd}}
+
+
 def gather_phase(device, b, n, image_size, render_size, dt, reps):
     """The gather's default bodies through its wrappers: the forward against
     its plain version and the backward against autograd of the plain
@@ -2035,6 +2200,9 @@ def gather_phase(device, b, n, image_size, render_size, dt, reps):
                                              dict(r, max_abs_err=err).items()})
     print(f"  the entry point at the SIMT bodies' widths C {SIMT_CTX_DIMS}:")
     simt_counts = gather_simt_path(device, g, b, n, image_size, dt)
+    print("  the SIMT bodies' fp32, odd-C, 2-byte-aligned and six-level instances:")
+    for name, r in gather_simt_instances(device, g, b, n, image_size, dt, reps).items():
+        rec.setdefault(name, {}).update(r)
     return rec, simt_counts
 
 
@@ -3833,13 +4001,12 @@ def kernel_function(name: str) -> str:
     return ids[0] if ids else name
 
 
-def profile_steps(run, n, device):
-    """``n`` train steps under ``torch.profiler``: device time per wrapper's
-    kernels, the rest (PyTorch's own kernels: the plain glue, the h-side
-    backward, the optimizer) by name, and the device's busy share of the
-    wall time (the profiler's own overhead included in the wall time).
-    Returns the device's busy milliseconds per step (None without device
-    events)."""
+def device_events(run, n, device) -> tuple:
+    """``n`` calls of ``run`` under ``torch.profiler`` -> (wall ms per call,
+    the profiler's own overhead included; {device event name: ms per
+    call}), the device's own events (kernels, copies) only: a host-side
+    range (an aten op, an autograd Function) also carries the device time of
+    the kernels it launched as its "self" time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3851,19 +4018,28 @@ def profile_steps(run, n, device):
             run()
         sync(device)
         wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    events = {}
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        if evt.device_type == DeviceType.CUDA and us > 0:
+            events[evt.key] = events.get(evt.key, 0.0) + us / 1e3 / n
+    return wall_ms, events
+
+
+def profile_steps(run, n, device):
+    """``n`` train steps under ``torch.profiler``: device time per wrapper's
+    kernels, the rest (PyTorch's own kernels: the plain glue, the h-side
+    backward, the optimizer) by name, and the device's busy share of the
+    wall time (the profiler's own overhead included in the wall time).
+    Returns the device's busy milliseconds per step (None without device
+    events)."""
+    wall_ms, events = device_events(run, n, device)
     owner = {f: k for k, fs in KERNEL_FUNCTIONS.items() for f in fs}
     groups, other = {}, {}
-    for evt in prof.key_averages():
-        # the device's own events (kernels, copies) only: a host-side range
-        # (an aten op, an autograd Function) also carries the device time of
-        # the kernels it launched as its "self" time
-        us = evt.self_device_time_total
-        if evt.device_type != DeviceType.CUDA or us <= 0:
-            continue
-        ms = us / 1e3 / n
-        k = owner.get(kernel_function(evt.key))
+    for key, ms in events.items():
+        k = owner.get(kernel_function(key))
         if k is None:
-            other[evt.key] = other.get(evt.key, 0.0) + ms
+            other[key] = other.get(key, 0.0) + ms
         else:
             groups[k] = groups.get(k, 0.0) + ms
     total = sum(groups.values()) + sum(other.values())
@@ -4133,6 +4309,299 @@ def megakernel_path(device, batch, n_points, n_layers, n_steps, compare_batch, d
     return (*runs["flagship"][:2], *runs["demo model"][:2])
 
 
+def sampler_run(what, run, device, shape, expected) -> tuple:
+    """One sampler call on a clean count: finite clouds of ``shape``, the
+    launch counts ``expected`` exactly -> (clouds, counts, seconds)."""
+    sync(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if tuple(out.shape) != tuple(shape) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: shape {tuple(out.shape)} or non-finite values")
+    check_counts(what, counts, expected_counts(expected), device)
+    print(f"  {what}: {tuple(out.shape)} in {seconds:.3f} s, {shape[0] / seconds:.3f} clouds/s")
+    return out, counts, seconds
+
+
+def both_paths(model, run, fused_impl="folded_pallas") -> list:
+    """``run()`` on the kernel path, then on the plain path (set back after)."""
+    outs = []
+    for fused in (True, False):
+        set_path(model, fused, fused_impl)
+        outs.append(run())
+    set_path(model, True, fused_impl)
+    return outs
+
+
+def samplers_phase(device, batch, cond_batch, n_points, n_layers, n_steps, image_size,
+                   compare_batch, compare_steps=8) -> dict:
+    """Phase 23: the flagship's stochastic sampler (churn 0.5, the extended
+    grid: 2 (n_steps - 1) + 1 evaluations), inpainting (1024 known points
+    completed by n_points - 1024, 2 substeps, churn 0.5: twice that),
+    ``sample(..., temperature=0.8)`` on a ``compare_steps`` grid and ``score``, each
+    forward kernel launched once per layer and evaluation and no other
+    kernel; then the conditional model's stochastic sampler (the ConvNeXt
+    once, the gather once per evaluation). Each against the plain path from
+    the same generator seed (the same draws) on a ``compare_steps`` grid
+    at ``compare_batch``. Returns the wall times and clouds/s."""
+    model = build_flagship(device, torch.Generator().manual_seed(0), n_layers, n_steps=n_steps)
+    gen = torch.Generator(device=device).manual_seed(0)
+    shape = (batch, n_points, 3)
+    model.sample_stochastic(gen, shape, s_churn=0.5, n_solver_steps=2)  # warm-up
+    evals = 2 * (n_steps - 1) + 1
+    forward = lambda e, layers=n_layers: {k: layers * e for k in SET_FORWARD}
+    rec = {}
+    _, _, sec = sampler_run("flagship sample_stochastic", lambda: model.sample_stochastic(
+        gen, shape, s_churn=0.5), device, shape, forward(evals))
+    rec["stochastic"] = dict(batch=batch, seconds=sec, clouds_per_s=batch / sec, evals=evals)
+
+    rng = np.random.default_rng(6)
+    known_n = min(INPAINT_KNOWN, n_points // 2)
+    known = torch.from_numpy(make_clouds(rng, batch, known_n)).to(device)
+    m_new = n_points - known_n
+    _, _, sec = sampler_run("flagship sample_inpaint", lambda: model.sample_inpaint(
+        gen, known, m_new, s_churn=0.5, n_substeps=2), device, (batch, m_new, 3),
+        forward(2 * evals))
+    rec["inpaint"] = dict(batch=batch, seconds=sec, clouds_per_s=batch / sec, evals=2 * evals,
+                          known=known_n, new=m_new)
+
+    out, _, sec = sampler_run(
+        f"flagship sample(temperature=0.8), {compare_steps} steps", lambda: model.sample(
+            gen, shape, n_solver_steps=compare_steps, temperature=0.8), device, shape,
+        forward(2 * (compare_steps - 1)))
+    details = model.sample(torch.Generator(device=device).manual_seed(4), (2, n_points, 3),
+                           n_solver_steps=2, temperature=0.8, return_details=True)
+    latent = model.schedule.sample_latent(torch.Generator(device=device).manual_seed(4),
+                                          (2, n_points, 3), device)
+    if not torch.equal(details.latent, 0.8 * latent):
+        raise AssertionError("sample(temperature=0.8) did not draw 0.8 times the latent")
+
+    x = model.reparam.data_to_diffusion(out, None)
+    with torch.no_grad():
+        sync(device)
+        kernels.reset_launch_counts()
+        score = model.score(1.0, x)
+        sync(device)
+        check_counts("flagship score", kernels.launch_counts(), expected_counts(forward(1)),
+                     device)
+        plain = both_paths(model, lambda: model.score(1.0, x))[1]
+    check("score at sigma 1 of the tempered clouds, kernel path vs plain path",
+          rel_err(score, plain), TOL_OUT)
+
+    cb = compare_batch
+    full = model.schedule
+    model.schedule = dataclasses.replace(full, n_solver_steps=compare_steps)
+    seeded = lambda: torch.Generator(device=device).manual_seed(3)
+    for what, run in (
+            ("sample_stochastic", lambda: model.sample_stochastic(seeded(), (cb, n_points, 3),
+                                                                  s_churn=0.5)),
+            ("sample_inpaint", lambda: model.sample_inpaint(seeded(), known[:cb], m_new,
+                                                            s_churn=0.5, n_substeps=2)),
+            ("sample(temperature=0.8)", lambda: model.sample(seeded(), (cb, n_points, 3),
+                                                             temperature=0.8))):
+        check(f"{compare_steps}-step {what} of {cb} clouds, kernel path vs plain path",
+              rel_err(*both_paths(model, run)), TOL_PATH)
+    model.schedule = full
+    del model
+
+    cond = build_conditional(device, torch.Generator().manual_seed(0), n_layers)
+    cond.schedule = dataclasses.replace(cond.schedule, n_solver_steps=n_steps)
+    (_, raw), = conditional_batches(device, 1, cond_batch, n_points, image_size, seed=5)
+    cshape = (cond_batch, n_points, 3)
+    cond.sample_stochastic(gen, cshape, raw_ctx=raw, s_churn=0.5, n_solver_steps=2)  # warm-up
+    calls = []
+    hook = cond.cond.register_forward_hook(lambda *a: calls.append(1))
+    _, _, sec = sampler_run("conditional sample_stochastic", lambda: cond.sample_stochastic(
+        gen, cshape, raw_ctx=raw, s_churn=0.5), device, cshape,
+        dict(forward(evals), projective_gather=evals))
+    hook.remove()
+    if len(calls) != 1:
+        raise AssertionError(f"the ConvNeXt ran {len(calls)} times in one sample_stochastic")
+    rec["conditional_stochastic"] = dict(batch=cond_batch, seconds=sec,
+                                         clouds_per_s=cond_batch / sec, evals=evals)
+    small = Context3d(image=raw.image[:cb], K=raw.K[:cb])
+    outs = both_paths(cond, lambda: cond.sample_stochastic(seeded(), (cb, n_points, 3),
+                                                           raw_ctx=small, s_churn=0.5,
+                                                           n_solver_steps=compare_steps))
+    diffs = [cond.reparam.data_to_diffusion(o, small) for o in outs]
+    check(f"{compare_steps}-step conditional sample_stochastic (diffusion space), kernel path "
+          "vs plain path",
+          rel_err(*diffs), TOL_PATH)
+    return rec
+
+
+# the logp profile's classes, by kernel function (KERNEL_FUNCTIONS' names)
+WGRAD_FUNCTIONS = ("wgrad_kernel", "wgrad_sum_kernel")
+LOGP_CLASSES = {
+    "forward kernels": ("folded_pool_ext", "fused_h_side", "folded_unpool",
+                        "fused_mlp_residual",
+                        "unpool_bq/fold_k/fold_v_kernel (the Hopper unpool's and the "
+                        "megakernel's shared fold)"),
+    "backward kernels": ("folded_pool_ext_bwd", "pool_bwd_fold_kernel (the pool backwards' fold)",
+                         "folded_unpool_bwd",
+                         "unpool_bwd_fold_kernel (the unpool backwards' fold)",
+                         "fused_mlp_residual_bwd"),
+    "gather": GATHER_KERNELS,
+}
+
+
+def logp_profile(run, device) -> dict:
+    """One likelihood batch under ``torch.profiler``: device ms by class.
+    The backward kernels' weight-gradient passes (``wgrad.cuh``: dqf, dkf,
+    dvf, dw1t, dw2t) apart from their other passes; ``prenorm_kernel``
+    (the backwards' pre-norm) with the backward kernels; the MLP bodies'
+    column sums (the forward's channel sums, the backward's bias and
+    affine gradients) in a class of their own; PyTorch's own kernels (the
+    glue, the h-side's backward, the ConvNeXt) the rest."""
+    wall_ms, events = device_events(run, 1, device)
+    owner = {f: cls for cls, names in LOGP_CLASSES.items() for k in names
+             for f in KERNEL_FUNCTIONS[k]}
+    owner.update({f: "backward kernels: weight-gradient passes (wgrad.cuh)"
+                  for f in WGRAD_FUNCTIONS})
+    owner["prenorm_kernel"] = "backward kernels"
+    owner["mlp_colsum_kernel"] = "MLP column sums (forward sums, backward bias gradients)"
+    split = {}
+    for key, ms in events.items():
+        cls = owner.get(kernel_function(key), "PyTorch's own kernels")
+        split[cls] = split.get(cls, 0.0) + ms
+    total = sum(split.values())
+    print(f"  profile of one batch (torch.profiler): {wall_ms:.1f} ms wall, device busy "
+          f"{total:.1f} ms")
+    if total == 0:
+        print("  (no device time recorded)")
+        return {}
+    for cls, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+        print(f"    {ms:10.1f} ms  {100 * ms / total:5.1f}%  {cls}")
+    return dict(wall_ms=wall_ms, device_ms=total, split_ms=split)
+
+
+def logp_field_err(field, a, ref, sigmas) -> float:
+    """One ``LogpDetails`` field of ``a`` against ``ref``: max |a - ref| over
+    the entries finite in both (their non-finite entries must agree), to
+    max |ref|; logp to the largest sum of its terms' magnitudes;
+    trajectory_data on the states at sigma <= 1 (``sigmas``: the
+    trajectory's)."""
+    x, r = getattr(a, field), getattr(ref, field)
+    if field == "trajectory_data":
+        keep = sigmas <= 1.0
+        x, r = x[keep], r[keep]
+    finite = torch.isfinite(r)
+    if not torch.equal(torch.isfinite(x), finite):
+        raise AssertionError(f"likelihood {field}: the paths' non-finite entries differ")
+    err = float((x[finite] - r[finite]).abs().max())
+    if field == "logp":
+        scale = ref.prior_logp.abs() + ref.delta_jacobian.abs() + ref.delta_reparam.abs()
+    else:
+        scale = r[finite].abs()
+    return err / max(float(scale.max()), 1e-30)
+
+
+def logp_phase(device, batch, n_points, n_layers, n_steps, image_size, compare_batch) -> dict:
+    """Phase 24: ``LogpMetric(n_solver_steps=n_steps)`` (``evaluate_logp``)
+    on one batch of the flagship and of the conditional model (remat): per
+    evaluation each forward kernel once per layer (twice under remat), each
+    backward kernel once per layer, the conditional model's gather forward
+    and its Hopper backward with the coordinate gradient once, the ConvNeXt
+    once a batch; no parameter gets a ``.grad``; then each path against the
+    plain path from one Rademacher draw on a 4-step grid at
+    ``compare_batch``, every ``LogpDetails`` field within ``TOL_LOGP``
+    (``logp_field_err``), the plain path in fp32 printed beside as the
+    witness of both. Returns seconds per batch and the profile's split, by
+    model."""
+    pgm = sys.modules[_gather_body.__module__]
+    evals = 2 * (n_steps - 1)
+    metric = LogpMetric(n_solver_steps=n_steps)
+    rec = {}
+    for name in ("flagship", "conditional"):
+        conditional = name == "conditional"
+        if conditional:
+            model = build_conditional(device, torch.Generator().manual_seed(0), n_layers)
+            (data, raw), = conditional_batches(device, 1, batch, n_points, image_size, seed=6)
+            small = Context3d(image=raw.image[:compare_batch], K=raw.K[:compare_batch])
+        else:
+            model = build_flagship(device, torch.Generator().manual_seed(0), n_layers)
+            data = torch.from_numpy(make_clouds(np.random.default_rng(7), batch, n_points))
+            data, raw, small = data.to(device), None, None
+        gen = torch.Generator(device=device).manual_seed(0)
+        if device.type == "cuda":
+            model.evaluate_logp(gen, data, raw_ctx=raw, n_solver_steps=2)  # warm-up
+        calls, coords = [], []
+        hook = model.cond.register_forward_hook(lambda *a: calls.append(1))
+        real = pgm._gather_bwd_hopper
+
+        def spy(levels, hw01, g, coords_grad=True):
+            coords.append(coords_grad)
+            return real(levels, hw01, g, coords_grad)
+
+        pgm._gather_bwd_hopper = spy
+        try:
+            sync(device)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            terms = metric(model, data, raw, gen)
+            sync(device)
+            seconds = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+        finally:
+            pgm._gather_bwd_hopper = real
+            hook.remove()
+        layers_fwd = 2 * n_layers if conditional else n_layers
+        expected = {k: layers_fwd * evals for k in SET_FORWARD}
+        expected.update({k: n_layers * evals for k in FOLDED_BACKWARD})
+        if conditional:
+            expected.update(projective_gather=evals, projective_gather_bwd=evals)
+        check_counts(f"{name} likelihood", counts, expected_counts(expected), device)
+        if device.type == "cuda" and coords != [True] * (evals if conditional else 0):
+            raise AssertionError(f"{name} likelihood: the Hopper gather backward's coordinate "
+                                 f"gradient flags {coords}")
+        if conditional and len(calls) != 1:
+            raise AssertionError(f"the ConvNeXt ran {len(calls)} times in one likelihood batch")
+        for k, v in terms.items():
+            if tuple(v.shape) != (batch,) or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{name} likelihood {k}: {v}")
+        if any(p.grad is not None for p in model.parameters()):
+            raise AssertionError(f"{name} likelihood wrote a parameter's .grad")
+        print(f"  {name}: LogpMetric(n_solver_steps={n_steps}) of {batch} clouds in "
+              f"{seconds:.3f} s ({evals} evaluations and VJPs; total logp mean "
+              f"{float(terms['total'].mean()):.1f}, det-jac {float(terms['det-jac'].mean()):.1f})")
+        prof = (logp_profile(lambda: metric(model, data, raw, gen), device)
+                if device.type == "cuda" else {})
+
+        eps = torch.randint(0, 2, (1, compare_batch, n_points, 3), device=device,
+                            generator=torch.Generator(device=device).manual_seed(8))
+        eps = (2.0 * eps - 1.0)
+        run = lambda m: m.evaluate_logp_from(data[:compare_batch], eps, raw_ctx=small,
+                                             n_solver_steps=4, return_details=True)
+        kernel, plain = both_paths(model, lambda: run(model))
+        if any(p.grad is not None for p in model.parameters()):
+            raise AssertionError(f"{name} likelihood wrote a parameter's .grad")
+        # the trajectory's states: after each transition of the increasing grid
+        sigmas = model.schedule.solver_grid(4, device=device).flip(0)[1:]
+        del model
+        build = build_conditional if conditional else build_flagship
+        witness = build(device, torch.Generator().manual_seed(0), n_layers, dt=torch.float32)
+        set_path(witness, False)
+        fp32 = run(witness)
+        del witness
+        failed = []
+        for field, tol in TOL_LOGP.items():
+            errs = [logp_field_err(field, d, plain, sigmas) for d in (kernel, fp32)]
+            errs.append(logp_field_err(field, plain, fp32, sigmas))
+            ok = errs[0] <= tol
+            failed += [] if ok else [field]
+            print(f"  {name} 4-step likelihood {field}, kernel path vs plain path: {errs[0]:.3e} "
+                  f"(tol {tol:.0e}) {'ok' if ok else 'FAIL'}; the fp32 plain path vs the kernel "
+                  f"path {logp_field_err(field, kernel, fp32, sigmas):.3e}, vs the bf16 plain "
+                  f"path {errs[2]:.3e}")
+        if failed:
+            raise AssertionError(f"{name} likelihood, kernel path vs plain path: {failed}")
+        rec[name] = dict(batch=batch, seconds=seconds, evals=evals, counts=counts, **prof)
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -4156,6 +4625,7 @@ def main():
         train_steps = twopass_steps = (1, 2)
         upsample = dict(n_new=300, n_steps=3, n_substeps=2, compare_new=200)
         ragged_ns = (100, 130)
+        logp_steps = 3
     else:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")
@@ -4175,6 +4645,7 @@ def main():
         upsample = dict(n_new=UPSAMPLE_NEW, n_steps=UPSAMPLE_STEPS, n_substeps=UPSAMPLE_SUBSTEPS,
                         compare_new=4096)
         ragged_ns = RAGGED_NS
+        logp_steps = LOGP_STEPS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4349,6 +4820,19 @@ def main():
     ragged = ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ragged_ns,
                           n_layers)
 
+    print(f"== other samplers: the flagship x{n_layers} layers at batch {batch}, {n_points} "
+          f"points, the {n_steps}-step extended grid, churn 0.5: sample_stochastic, "
+          f"sample_inpaint (2 substeps), sample(temperature=0.8), score; the conditional "
+          f"model's sample_stochastic at batch {cond_batch}, on {card}")
+    samplers = samplers_phase(device, batch, cond_batch, n_points, n_layers, n_steps, image_size,
+                              compare_batch=min(8, batch), compare_steps=5 if args.rehearse else 8)
+
+    print(f"== likelihood: LogpMetric(n_solver_steps={logp_steps}) at batch {cond_batch} x "
+          f"{n_points} points, the flagship x{n_layers} layers and the conditional model "
+          f"(remat), on {card}")
+    logp = logp_phase(device, cond_batch, n_points, n_layers, logp_steps, image_size,
+                      compare_batch=min(8, cond_batch))
+
     print("== summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
@@ -4392,6 +4876,15 @@ def main():
           f"clouds/s (batch {demo['batch']}); demo train step {demo_train['ms_per_step']:.3f} ms "
           f"(batch {train_batch}); one flagship evaluation at batch {shapes['batch']}: "
           + ", ".join(f"{k[len('eval_ms_n'):]} points {v:.3f} ms" for k, v in ragged.items())
+          + f"; {card}")
+    print("  other samplers: " + ", ".join(
+        f"{k} {v['clouds_per_s']:.3f} clouds/s ({v['seconds']:.3f} s, batch {v['batch']}, "
+        f"{v['evals']} evaluations)" for k, v in samplers.items()) + f"; {card}")
+    print("  likelihood per batch: " + ", ".join(
+        f"{k} {v['seconds']:.3f} s (batch {v['batch']}, {v['evals']} evaluations and VJPs"
+        + (f"; device busy {v['device_ms']:.1f} ms, of which the discarded weight-gradient "
+           f"passes {v['split_ms'].get(next(c for c in v['split_ms'] if 'weight' in c), 0):.1f}"
+           f" ms" if v.get("split_ms") else "") + ")" for k, v in logp.items())
           + f"; {card}")
     # launches: each kernel's count on the path that first brought it in
     # (printed above): the flagship sampler's for a set-transformer forward

@@ -15,7 +15,7 @@ from gecco_tpu_torch.diffusion import (
     Schedule,
 )
 from gecco_tpu_torch.reparam import GaussianReparam, Reparam, UVLReparam
-from gecco_tpu_torch.types import Context3d, Example, SampleDetails
+from gecco_tpu_torch.types import Context3d, Example, LogpDetails, SampleDetails
 
 __version__ = "0.1.0"
 
@@ -30,6 +30,7 @@ __all__ = [
     "UVLReparam",
     "Context3d",
     "Example",
+    "LogpDetails",
     "SampleDetails",
     "__version__",
 ]

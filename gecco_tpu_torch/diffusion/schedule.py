@@ -63,9 +63,12 @@ class Schedule:
             return dataclasses.replace(self, n_solver_steps=n_steps).solver_grid(device=device)
         return self.t_i(torch.arange(self.n_solver_steps, dtype=torch.float32, device=device))
 
-    def extended_solver_grid(self, device=None) -> torch.Tensor:
+    def extended_solver_grid(self, n_steps: Optional[int] = None, device=None) -> torch.Tensor:
         """fp32 sigmas ``[t_0 .. t_N]``: the stochastic samplers step one
         index past sigma_min, evaluating t_i at i = N."""
+        if n_steps is not None and n_steps != self.n_solver_steps:
+            return dataclasses.replace(self, n_solver_steps=n_steps).extended_solver_grid(
+                device=device)
         return self.t_i(torch.arange(self.n_solver_steps + 1, dtype=torch.float32, device=device))
 
     def sample_latent(self, generator: torch.Generator, shape, device=None) -> torch.Tensor:

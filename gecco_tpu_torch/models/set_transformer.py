@@ -256,6 +256,15 @@ class BroadcastingLayer(nn.Module):
         else:
             ind2 = bc.pool.inducers.reshape(-1, c // num_heads).to(dt)
             kvw, wo_p = bc.pool.kv_proj.weight.to(dt), bc.pool.out_proj.weight.to(dt)
+            # Grad mode stands in for the JAX package's network key, but
+            # the two part in the exact likelihood: there grad is on (its
+            # divergence is a VJP) and JAX threads no key. They route alike
+            # only because the fused chain always supplies ``in_sums``
+            # (``SetTransformer.forward``, as JAX's chain does), so both
+            # take folded_pool_ext; the sums-less branches below run only
+            # for a layer called on its own. (Under the opt-in megakernel
+            # JAX's likelihood takes fused_unpool_mlp, whose gradient is the
+            # separate kernels'; the port runs those kernels under grad.)
             if in_sums is not None:
                 se1, be1 = norm.scale_bias_from_sums(in_sums, n, embed)
                 h0 = folded_pool_ext(x, se1, be1, ind2, kvw, wo_p, num_heads)

@@ -11,9 +11,9 @@ the backward likewise; for CPU tensors both run the plain version,
 and autograd through it. A CUDA tensor never falls back to the plain
 version.
 
-- The Hopper bodies (``csrc/projective_gather.cu``), where every level's C
-  is a multiple of 8 (up to 2048) and 16-byte aligned, and, for the
-  backward, N <= 4096: the forward ``gather_fwd_kernel`` (16-byte accesses,
+- The Hopper bodies (``csrc/projective_gather.cu``), where the levels are
+  bf16, 1 to 4 of them, every level's C a multiple of 8 (up to 2048) and
+  16-byte aligned, and, for the backward, N <= 4096: the forward ``gather_fwd_kernel`` (16-byte accesses,
   the block's output rows written contiguously; counted in
   ``projective_gather.launches``); the backward a stable bin of the points
   by floor cell, then one pass per output pixel that sums its neighbouring
@@ -21,10 +21,17 @@ version.
   once, and the coordinate gradient per point when asked for (one call,
   however many launches, counted in ``projective_gather_bwd.launches``).
   No atomics: the gradient is the same bits on every call.
-- The SIMT bodies (``csrc/projective_gather_simt.cu``, one warp per point on
-  bf16 channel pairs, the backward adding into a zeroed fp32 buffer with
-  atomics and cast after) for the rest: C even and 4-byte aligned. Counted
-  in ``.launches_simt`` of each wrapper.
+- The SIMT bodies (``csrc/projective_gather_simt.cu``, one warp per point,
+  bf16 or fp32, on channel pairs where a level's are aligned and on single
+  channels elsewhere; the backward adding into a zeroed fp32 buffer with
+  atomics and cast after) for everything else: fp32 levels, any C, any
+  alignment, any N, and any number of levels, launched in groups of
+  ``_MAX_LEVELS`` (each forward launch writes its levels' columns of the
+  one output; each backward launch its levels' gradients, the coordinate
+  gradient continued from the launch before, so the levels are summed in
+  order). Counted in ``.launches_simt`` of each wrapper, once a launch.
+  The switch raises only where there is no level or the levels' dtypes
+  differ; a dtype other than bf16 and fp32 raises in the operands' check.
 
 ``_gather_hopper``, ``_gather_simt``, ``_gather_bwd_hopper`` and
 ``_gather_bwd_simt`` run one body whatever the switch says.
@@ -51,6 +58,10 @@ from gecco_tpu_torch.ops.projective import lookup_pyramid
 __all__ = ["projective_gather", "projective_gather_bwd"]
 
 _BF16, _F32 = torch.bfloat16, torch.float32
+# the element types the SIMT bodies take, by their code in its C interface
+_DTYPES = {_BF16: 0, _F32: 1}
+# levels a launch takes (csrc/projective_gather.cu and
+# csrc/projective_gather_simt.cu kMaxLevels)
 _MAX_LEVELS = 4
 # the Hopper bodies' limits (csrc/projective_gather.cu: kChunk, kPixThreads,
 # kMaxPoints; change both together)
@@ -64,21 +75,25 @@ def _gather_ref(hw01, *levels) -> torch.Tensor:
 
 def _check(name, hw01, levels, g=None):
     """Raise unless the operands are contiguous CUDA tensors on one device
-    (hw01 fp32, the levels and g bf16) and hw01 is [B, N, 2] with 1 to 4
-    levels [B, H, W, C]. The common case is one pass over the tensors;
-    ``check_cuda`` names the operand at fault."""
+    (hw01 fp32; the levels, and g, all bf16 or all fp32) and hw01 is [B, N,
+    2] with at least one level [B, H, W, C]. The common case is one pass
+    over the tensors; ``check_cuda`` names the operand at fault."""
     rest = (*levels, g) if g is not None else levels
     dev = hw01.device
+    dt = levels[0].dtype if levels else None
     if not (dev.type == "cuda" and hw01.dtype == _F32 and hw01.is_contiguous()
-            and all(t.device == dev and t.dtype == _BF16 and t.is_contiguous() for t in rest)):
+            and dt in _DTYPES
+            and all(t.device == dev and t.dtype == dt and t.is_contiguous() for t in rest)):
+        if dt not in _DTYPES:
+            raise ValueError(f"{name}: the levels must be bf16 or fp32, got {dt}")
         tensors = {"hw01": hw01, **{f"level{q}": lv for q, lv in enumerate(levels)}}
-        dtypes = {"hw01": _F32, **{f"level{q}": _BF16 for q in range(len(levels))}}
+        dtypes = {"hw01": _F32, **{f"level{q}": dt for q in range(len(levels))}}
         if g is not None:
-            tensors["g"], dtypes["g"] = g, _BF16
+            tensors["g"], dtypes["g"] = g, dt
         check_cuda(name, tensors, dtypes)
     b, n = hw01.shape[:2]
-    if not (hw01.shape == (b, n, 2) and 1 <= len(levels) <= _MAX_LEVELS):
-        raise ValueError(f"{name}: hw01 must be [B, N, 2] and 1 to {_MAX_LEVELS} levels")
+    if hw01.shape != (b, n, 2):
+        raise ValueError(f"{name}: hw01 must be [B, N, 2], got {tuple(hw01.shape)}")
     for lv in levels:
         if lv.ndim != 4 or lv.shape[0] != b:
             raise ValueError(f"{name}: each level must be [B, H, W, C], got {tuple(lv.shape)}")
@@ -86,27 +101,24 @@ def _check(name, hw01, levels, g=None):
 
 def _gather_body(levels, hw01, g=None) -> str:
     """Which body takes these operands on the card (the backward's where
-    ``g`` is given): "hopper" where every level's C is a multiple of 8 up
-    to 2048 and its data 16-byte aligned (the backward: also N <= 4096, g
-    16-byte and hw01 8-byte aligned), else "simt" where every C is even and
-    4-byte aligned; both take 1 to 4 levels. Raises ValueError with both
-    bodies' conditions otherwise."""
-    count_ok = 1 <= len(levels) <= _MAX_LEVELS
-    hopper = count_ok and all(lv.shape[-1] % _CHUNK == 0 and lv.shape[-1] <= _MAX_C
-                              and lv.data_ptr() % 16 == 0 for lv in levels)
+    ``g`` is given): "hopper" where the levels are bf16, 1 to 4 of them,
+    every level's C a multiple of 8 up to 2048 and its data 16-byte aligned
+    (the backward: also N <= 4096, g 16-byte and hw01 8-byte aligned), else
+    "simt". Raises ValueError where there is no level or the levels'
+    dtypes differ."""
+    if not levels:
+        raise ValueError("projective_gather: no level to look up")
+    dtypes = {lv.dtype for lv in levels}
+    if len(dtypes) > 1:
+        raise ValueError(f"projective_gather: the levels' dtypes differ: "
+                         f"{[lv.dtype for lv in levels]}")
+    hopper = (levels[0].dtype == _BF16 and len(levels) <= _MAX_LEVELS
+              and all(lv.shape[-1] % _CHUNK == 0 and lv.shape[-1] <= _MAX_C
+                      and lv.data_ptr() % 16 == 0 for lv in levels))
     if g is not None:
         hopper = (hopper and hw01.shape[1] <= _MAX_POINTS and g.data_ptr() % 16 == 0
                   and hw01.data_ptr() % 8 == 0)
-    if hopper:
-        return "hopper"
-    if count_ok and all(lv.shape[-1] % 2 == 0 and lv.data_ptr() % 4 == 0 for lv in levels):
-        return "simt"
-    raise ValueError(
-        f"projective_gather: no CUDA body takes {len(levels)} levels of C "
-        f"{[lv.shape[-1] for lv in levels]}: the Hopper body needs every C % 8 == 0 and "
-        f"C <= {_MAX_C}, the levels 16-byte aligned (the backward also N <= {_MAX_POINTS}, g "
-        f"16-byte and hw01 8-byte aligned); the SIMT body every C even and the levels 4-byte "
-        f"aligned; both 1 to {_MAX_LEVELS} levels")
+    return "hopper" if hopper else "simt"
 
 
 # the Hopper bodies' C interface (csrc/projective_gather.cu), its ctypes
@@ -154,23 +166,32 @@ def _gather_hopper(hw01, levels) -> torch.Tensor:
     return out
 
 
-def _level_args(levels) -> list:
-    """The SIMT bodies' level pointers (None past the last level) and (H,
-    W, C) per level (zeros past the last)."""
-    ptrs = list(levels) + [None] * (_MAX_LEVELS - len(levels))
-    hwc = [d for lv in levels for d in lv.shape[1:]] + [0] * 3 * (_MAX_LEVELS - len(levels))
-    return [*ptrs, len(levels), *hwc]
+def _groups(levels) -> list:
+    """The levels in launches of at most ``_MAX_LEVELS``: per launch its
+    levels, their pointers (None past the last), [L, the first level's
+    column in the concatenated row] and (H, W, C) per level (zeros past
+    the last)."""
+    out, col = [], 0
+    for q in range(0, len(levels), _MAX_LEVELS):
+        grp = list(levels[q:q + _MAX_LEVELS])
+        pad = _MAX_LEVELS - len(grp)
+        hwc = [d for lv in grp for d in lv.shape[1:]] + [0] * 3 * pad
+        out.append((grp, [*grp, *[None] * pad], [len(grp), col], hwc))
+        col += sum(lv.shape[3] for lv in grp)
+    return out
 
 
 def _gather_simt(hw01, levels) -> torch.Tensor:
-    """The SIMT forward (csrc/projective_gather_simt.cu gather_kernel)."""
+    """The SIMT forward (csrc/projective_gather_simt.cu gather_kernel), one
+    launch per group of ``_MAX_LEVELS`` levels."""
     b, n = hw01.shape[:2]
-    out = torch.empty((b, n, sum(lv.shape[3] for lv in levels)), dtype=_BF16,
-                      device=hw01.device)
-    args = _level_args(levels)
-    launch("projective_gather_simt", "gather_launch", hw01, *args[:_MAX_LEVELS], out, b, n,
-           *args[_MAX_LEVELS:])
-    projective_gather.launches_simt += 1
+    ctot = sum(lv.shape[3] for lv in levels)
+    dt = levels[0].dtype
+    out = torch.empty((b, n, ctot), dtype=dt, device=hw01.device)
+    for _, ptrs, lc, hwc in _groups(levels):
+        launch("projective_gather_simt", "gather_launch", hw01, *ptrs, out, _DTYPES[dt], b, n,
+               *lc, ctot, *hwc)
+        projective_gather.launches_simt += 1
     return out
 
 
@@ -305,15 +326,20 @@ def _gather_bwd_hopper(levels, hw01, g, coords_grad: bool = True) -> tuple:
 
 def _gather_bwd_simt(levels, hw01, g, coords_grad: bool = True) -> tuple:
     """The SIMT backward (csrc/projective_gather_simt.cu gather_bwd_kernel:
-    fp32 atomics into a zeroed buffer, cast to the levels' dtype after)."""
+    fp32 atomics into a zeroed buffer, cast to the levels' dtype after),
+    one launch per group of ``_MAX_LEVELS`` levels in order, each after the
+    first continuing the coordinate gradient of those before it."""
     b, n = hw01.shape[:2]
+    ctot = sum(lv.shape[3] for lv in levels)
     sizes = [lv.numel() for lv in levels]
     df = torch.zeros(sum(sizes), dtype=_F32, device=hw01.device)
     dhw01 = torch.empty((b, n, 2), dtype=_F32, device=hw01.device) if coords_grad else None
-    args = _level_args(levels)
-    launch("projective_gather_simt", "gather_bwd_launch", hw01, *args[:_MAX_LEVELS], g, df,
-           dhw01, b, n, *args[_MAX_LEVELS:])
-    projective_gather_bwd.launches_simt += 1
+    at = 0
+    for q, (grp, ptrs, lc, hwc) in enumerate(_groups(levels)):
+        launch("projective_gather_simt", "gather_bwd_launch", hw01, *ptrs, g, df[at:], dhw01,
+               _DTYPES[levels[0].dtype], int(q > 0), b, n, *lc, ctot, *hwc)
+        projective_gather_bwd.launches_simt += 1
+        at += sum(lv.numel() for lv in grp)
     return dhw01, [part.view(lv.shape).to(lv.dtype) for part, lv in zip(df.split(sizes), levels)]
 
 

@@ -1,17 +1,15 @@
 """Whether two source trees build the same machine code for the pool and
 unpool forwards' and backwards' flagship and 8k-width kernels, the unpool's
 fold, the rect attention's WMMA bodies, the megakernel's WMMA body and the
-projective gather's SIMT bodies.
+projective gather's Hopper bodies.
 
     python3 gecco_tpu_torch/probes/sass.py PARENT CHANGE
 
 Each argument is the root of a checkout whose libraries are built (run
 ``chip_smoke.py`` or ``probes/trees.py`` there first). For each kernel
 below, found by name in PARENT's library and in CHANGE's (a pair names
-both: the gather's first kernels moved from ``projective_gather.cu`` to
-``projective_gather_simt.cu``, unchanged; a parent from before the
-megakernel's WMMA body moved to ``unpool_mlp_wmma.cu`` has it in
-``unpool_mlp``), this reads both libraries'
+both: a parent from before the megakernel's WMMA body moved to
+``unpool_mlp_wmma.cu`` has it in ``unpool_mlp``), this reads both libraries'
 SASS with ``cuobjdump -sass``, drops the addresses and encodings, and
 prints whether the instruction lists are identical (and the first few
 instructions that differ). Needs the CUDA toolkit (the card's machine);
@@ -38,7 +36,9 @@ from pathlib import Path
 # instance of the rect attention's WMMA bodies, forward (head width 16 DT)
 # and backward (DT, and the DT of a column slice); the unpool's three fold
 # kernels; both instances of the megakernel's WMMA body (64- and 32-point
-# tiles)
+# tiles); the gather's Hopper forward and its backward's three kernels (the
+# SIMT bodies are templated on the element type since they took fp32, so
+# their code is new)
 PAIRS = (
     ("pool_ext", "pool_ext", "17pool_chunk_kernelILi48ELi8ELb0E"),
     ("pool_ext", "pool_ext", "17pool_chunk_kernelILi48ELi8ELb1E"),
@@ -62,10 +62,9 @@ PAIRS = (
                                               "20unpool_fold_v_kernel")),
     *(("unpool_mlp_wmma", "unpool_mlp_wmma", f"17unpool_mlp_kernelILi{rows}E")
       for rows in (4, 2)),
-    # the gather's first kernels, moved unchanged from projective_gather.cu
-    # to projective_gather_simt.cu
-    ("projective_gather", "projective_gather_simt", "13gather_kernelE"),
-    ("projective_gather", "projective_gather_simt", "17gather_bwd_kernelE"),
+    *(("projective_gather", "projective_gather", name)
+      for name in ("17gather_fwd_kernelE", "17gather_bin_kernelE", "19gather_pixel_kernelE",
+                   "19gather_coord_kernelE")),
 )
 
 @functools.lru_cache(maxsize=None)

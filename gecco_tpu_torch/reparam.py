@@ -1,7 +1,7 @@
 """Data <-> diffusion space maps (counterpart of ``gecco_tpu/reparam.py``:
-``Reparam``, ``GaussianReparam`` and ``UVLReparam``). The statistics are
-buffers, so they take no gradient (the JAX package's ``stop_gradient``).
-The log-det-Jacobians belong to the likelihood and are not ported yet."""
+``Reparam``, ``GaussianReparam`` and ``UVLReparam``), with the
+log-abs-det-Jacobians the exact likelihood adds. The statistics are
+buffers, so they take no gradient (the JAX package's ``stop_gradient``)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,13 @@ class Reparam(nn.Module):
     def diffusion_to_data(self, diff, ctx=None):
         return diff
 
+    def ladj_data_to_diffusion(self, data, ctx=None):
+        """log|det J| of data -> diffusion, summed per example: [..., N, D] -> [...]."""
+        return torch.zeros(data.shape[:-2], dtype=data.dtype, device=data.device)
+
+    def ladj_diffusion_to_data(self, diff, ctx=None):
+        return torch.zeros(diff.shape[:-2], dtype=diff.dtype, device=diff.device)
+
 
 class GaussianReparam(Reparam):
     """Per-axis affine normalisation ``(data - mean) / std``."""
@@ -33,11 +40,25 @@ class GaussianReparam(Reparam):
         self.register_buffer("mean", torch.as_tensor(mean, dtype=torch.float32).to(dev))
         self.register_buffer("std", torch.as_tensor(std, dtype=torch.float32).to(dev))
 
+    @classmethod
+    def from_data(cls, points, *, device=None) -> "GaussianReparam":
+        """Fit the mean and (population) std per axis from a [..., N, D]
+        sample of the dataset."""
+        pts = torch.as_tensor(points, dtype=torch.float32).reshape(-1, points.shape[-1])
+        return cls(pts.mean(dim=0), pts.std(dim=0, correction=0), device=device)
+
     def data_to_diffusion(self, data, ctx=None):
         return (data - self.mean.to(data.dtype)) / self.std.to(data.dtype)
 
     def diffusion_to_data(self, diff, ctx=None):
         return diff * self.std.to(diff.dtype) + self.mean.to(diff.dtype)
+
+    def ladj_data_to_diffusion(self, data, ctx=None):
+        ladj = -torch.log(self.std).sum() * data.shape[-2]
+        return ladj.to(data.dtype).expand(data.shape[:-2])
+
+    def ladj_diffusion_to_data(self, diff, ctx=None):
+        return -self.ladj_data_to_diffusion(diff, ctx)
 
 
 class UVLReparam(Reparam):
@@ -89,3 +110,38 @@ class UVLReparam(Reparam):
         """uvl -> (h, w) in [0, 1]^2 (``K`` unused: the frustum coordinates
         are image coordinates already)."""
         return self.uvl_to_hwd(diff)[..., :2]
+
+    def _ladj_hwd_to_uvl(self, hwd):
+        """The element-wise part, in closed form: [..., N, 3] -> [...].
+        d/ds arctanh((2 s - 1) / a) = (2 / a) / (1 - ((2 s - 1) / a)^2),
+        d/dd log(d) = 1 / d, then the division by ``uvl_std``."""
+        a = self.logit_scale
+
+        def log_d01(s):
+            z = (2 * s - 1.0) / a
+            return torch.log((2.0 / a) / (1.0 - z**2))
+
+        ladj = (log_d01(hwd[..., 0]) + log_d01(hwd[..., 1]) - torch.log(hwd[..., 2])
+                - torch.log(self.uvl_std).sum())
+        return ladj.sum(dim=-1)
+
+    def _ladj_xyz_to_hwd(self, xyz, K):
+        """The camera projection's part: per point the log|det| of the 3 x 3
+        Jacobian of xyz -> (h, w, d) by ``torch.func.jacrev``, summed over
+        the points: [..., N, 3] -> [...]."""
+        from torch.func import jacrev, vmap
+
+        def single(p, k):
+            return torch.cat([project_points(p, k).flip(-1), torch.linalg.vector_norm(p)[None]])
+
+        flat = xyz.reshape(-1, xyz.shape[-2], 3)
+        ks = K.expand(*xyz.shape[:-2], 3, 3).reshape(-1, 3, 3)
+        jac = vmap(vmap(jacrev(single), in_dims=(0, None)))(flat, ks)  # [B', N, 3, 3]
+        return torch.linalg.slogdet(jac)[1].sum(-1).reshape(xyz.shape[:-2])
+
+    def ladj_data_to_diffusion(self, data, ctx=None):
+        return (self._ladj_xyz_to_hwd(data, ctx.K)
+                + self._ladj_hwd_to_uvl(self.xyz_to_hwd(data, ctx.K)))
+
+    def ladj_diffusion_to_data(self, diff, ctx=None):
+        return -self.ladj_data_to_diffusion(self.diffusion_to_data(diff, ctx), ctx)

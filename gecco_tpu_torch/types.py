@@ -1,12 +1,12 @@
 """Batched records (counterpart of ``gecco_tpu.types``: ``Context3d``,
-``Example`` and ``SampleDetails``). Every tensor carries the batch axis
+``Example``, ``SampleDetails`` and ``LogpDetails``). Every tensor carries the batch axis
 first; NamedTuples, as in the JAX package."""
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
-__all__ = ["Context3d", "Example", "SampleDetails"]
+__all__ = ["Context3d", "Example", "LogpDetails", "SampleDetails"]
 
 
 class Context3d(NamedTuple):
@@ -31,3 +31,16 @@ class SampleDetails(NamedTuple):
     sample_data: Any  # [B, N, D] final state in data space
     trajectory_diff: Any  # [T-1, B, N, D] state after every transition
     trajectory_data: Any
+
+
+class LogpDetails(NamedTuple):
+    """The exact likelihood's terms (``Diffusion.evaluate_logp``): logp =
+    prior_logp + delta_jacobian + delta_reparam, each [B]."""
+
+    logp: Any  # [B] log-density of the data-space cloud
+    prior_logp: Any  # [B] the latent under N(0, sigma_max^2)
+    delta_reparam: Any  # [B] log|det| of the data -> diffusion map
+    delta_jacobian: Any  # [B] the integrated divergence of the flow
+    trajectory_diff: Any  # [T-1, B, N, D] state after every transition
+    trajectory_data: Any
+    latent: Any  # [B, N, D] the state at sigma_max

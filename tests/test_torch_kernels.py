@@ -443,8 +443,8 @@ def test_gather_bwd_binned_ref_matches_autograd_of_the_plain_version(coords):
 
 
 def _switch_case(case):
-    """Levels (bf16, on the CPU: the switch reads shapes and addresses only),
-    hw01 and g of one case of ``test_gather_body_switch``."""
+    """Levels (on the CPU: the switch reads shapes, dtypes and addresses
+    only), hw01 and g of one case of ``test_gather_body_switch``."""
     widths, n, shift, g_shift = {
         "C % 8": ((8, 16, 32), 64, 0, 0),
         "C 2048": ((2048,), 64, 0, 0),
@@ -457,15 +457,19 @@ def _switch_case(case):
         "odd C": ((7, 16), 64, 0, 0),
         "2-byte aligned": ((8, 16), 64, 1, 0),
         "five levels": ((8,) * 5, 64, 0, 0),
+        "fp32": ((96, 192, 384), 64, 0, 0),
+        "mixed dtypes": ((8, 16), 64, 0, 0),
         "no level": ((), 64, 0, 0),
     }[case]
+    dtypes = {"fp32": (torch.float32,) * 3,
+              "mixed dtypes": (torch.bfloat16, torch.float32)}.get(case, (torch.bfloat16,) * 5)
 
-    def shifted(shape, by):
-        # ``by`` bf16 elements past an aligned allocation
-        return torch.empty(int(np.prod(shape)) + by, dtype=torch.bfloat16)[by:].view(shape)
+    def shifted(shape, by, dt=torch.bfloat16):
+        # ``by`` elements past an aligned allocation
+        return torch.empty(int(np.prod(shape)) + by, dtype=dt)[by:].view(shape)
 
-    levels = [shifted((1, 4, 4, c), shift) for c in widths]
-    g = shifted((1, n, sum(widths)), g_shift)
+    levels = [shifted((1, 4, 4, c), shift, dt) for c, dt in zip(widths, dtypes)]
+    g = shifted((1, n, sum(widths)), g_shift, dtypes[0])
     return levels, torch.zeros(1, n, 2), g
 
 
@@ -478,25 +482,83 @@ def _switch_case(case):
     ("8-byte aligned", "simt", "simt"),
     ("N 4097", "hopper", "simt"),
     ("g 8-byte aligned", "hopper", "simt"),
-    ("odd C", None, None),
-    ("2-byte aligned", None, None),
-    ("five levels", None, None),
-    ("no level", None, None),
+    ("odd C", "simt", "simt"),
+    ("2-byte aligned", "simt", "simt"),
+    ("five levels", "simt", "simt"),
+    ("fp32", "simt", "simt"),
+    ("mixed dtypes", "dtypes differ", None),
+    ("no level", "no level", None),
 ])
 def test_gather_body_switch(case, forward, backward):
     """Which body of the gather takes which operands on the card: the
-    Hopper bodies every C % 8 == 0 up to 2048, 16-byte aligned (the
-    backward also N <= 4096 and g 16-byte aligned), the SIMT bodies every
-    even C, 4-byte aligned; 1 to 4 levels. Where neither takes them the
-    switch raises with both bodies' conditions."""
+    Hopper bodies bf16 levels, 1 to 4 of them, every C % 8 == 0 up to 2048,
+    16-byte aligned (the backward also N <= 4096 and g 16-byte aligned),
+    the SIMT bodies everything else (fp32, odd C, 2-byte alignment, more
+    than four levels). The switch raises only where there is no level or
+    the levels' dtypes differ, and says which."""
     levels, hw01, g = _switch_case(case)
-    if forward is None:
+    if backward is None:
         for extra in ((), (g,)):
-            with pytest.raises(ValueError, match="Hopper body needs .* SIMT body"):
+            with pytest.raises(ValueError, match=forward):
                 _gather_body(levels, hw01, *extra)
         return
     assert _gather_body(levels, hw01) == forward
     assert _gather_body(levels, hw01, g) == backward
+
+
+@jax.jit
+def _jax_lookup_and_grads(hw01, g, *levels):
+    """The JAX gather, one ``bilinear_lookup_pallas`` per level (its
+    kernels in interpret mode), and ``jax.grad`` of <out, g> in the
+    coordinates and every level, in one jit."""
+    from gecco_tpu.ops.pallas.projective_gather import lookup_pyramid_pallas
+
+    def loss(hw, *lvs):
+        out = lookup_pyramid_pallas(lvs, hw)
+        return (out.astype(jnp.float32) * g).sum(), out
+
+    grads, out = jax.grad(loss, argnums=tuple(range(1 + len(levels))), has_aux=True)(
+        hw01, *levels)
+    return out, grads
+
+
+@pytest.mark.parametrize("case, widths, sizes, dtype, tol", [
+    # fp32: the same function summed in other orders (the JAX kernel's
+    # one-hot products), a few fp32 steps
+    ("fp32, odd C", (3, 35, 131), (16, 8, 4), "float32", 1e-5),
+    ("fp32, five levels", (8, 6, 5, 4, 3), (16, 12, 8, 5, 3), "float32", 1e-5),
+    # bf16: the plain version rounds each corner's product to bf16, the JAX
+    # kernel its one-hot weights, so a few bf16 steps (2^-8) of the largest
+    # value; the gradients are fp32 sums of bf16 products
+    ("bf16, five levels of odd C", (3, 5, 7, 9, 11), (16, 12, 8, 5, 3), "bfloat16", 2e-2),
+])
+def test_gather_plain_matches_jax_where_only_the_simt_body_takes(case, widths, sizes, dtype,
+                                                                 tol):
+    """The operands that only the SIMT bodies take on the card (fp32
+    levels, odd C, more than four levels: two launches of each), through
+    the port's plain version on the CPU, against the JAX package's gather
+    (``lookup_pyramid_pallas``: one Pallas call per level, any dtype and
+    C), forward and backward with the coordinate gradient, on uniform
+    coordinates with corners outside the image: max |err| / max |ref| per
+    output within ``tol``."""
+    rng = np.random.default_rng(31)
+    levels = [rng.standard_normal((B, h, h, c)).astype(np.float32) for c, h in zip(widths, sizes)]
+    hw01 = gather_coords("uniform", rng, B, 96, (sizes[0], sizes[0]))
+    g = rng.standard_normal((B, 96, sum(widths))).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    out_j, grads_j = _jax_lookup_and_grads(jnp.asarray(hw01), jnp.asarray(g),
+                                           *(jnp.asarray(lv, jdt) for lv in levels))
+    lv_t = [torch.from_numpy(lv).to(tdt) for lv in levels]
+    hw_t = torch.from_numpy(hw01)
+    out = projective_gather(lv_t, hw_t)
+    assert out.dtype == tdt and out.shape == (B, 96, sum(widths))
+    dhw, dlevels = projective_gather_bwd(lv_t, hw_t, torch.from_numpy(g).to(tdt))
+    for what, a, r in [("out", out, out_j), ("d hw01", dhw, grads_j[0]),
+                       *((f"dF level {q}", d, r) for q, (d, r) in
+                         enumerate(zip(dlevels, grads_j[1:])))]:
+        a, r = a.float().numpy(), np.asarray(r, np.float32)
+        err = np.abs(a - r).max() / max(np.abs(r).max(), 1e-30)
+        assert err < tol, f"{case} {what}: {err:.3e}"
 
 
 def test_pool_bwd_witness_matches_the_jax_kernel_in_bf16():

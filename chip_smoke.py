@@ -10,9 +10,10 @@ Phases (each raises on failure; nothing is caught):
    forward, six backward), the WMMA bodies beside the Hopper forwards and
    backwards (the rect attention's two included), the projective gather's
    SIMT bodies beside its Hopper ones, and the pool backward's v1, v2 and
-   v2j bodies, Hopper (one library) and WMMA (two) (twenty-nine libraries,
-   the projective gather's forward and backward in one, their SIMT bodies
-   in another) with nvcc for sm_90a,
+   v2j bodies, Hopper (one library) and WMMA (two), and the fp32 routes'
+   SIMT kernels (``csrc/f32_simt.cu``) (thirty libraries, the projective
+   gather's forward and backward in one, their SIMT bodies in another)
+   with nvcc for sm_90a,
    one process per source, all at once, with ``ptxas -v``'s registers and
    spills;
 3. forward kernels: each set-transformer kernel against its plain PyTorch
@@ -254,6 +255,37 @@ Phases (each raises on failure; nothing is caught):
    from one Rademacher draw on a 4-step grid at batch 8 the kernel path
    against the plain path, every ``LogpDetails`` field to its own
    tolerance, the plain path in fp32 printed beside as the witness.
+25. fp32 routes (ROADMAP C5): each of the eleven wrappers with a route
+   of its own (the rect attention's forward and backward, the pool,
+   h-side, unpool and MLP forwards, the three folded backwards, the
+   resident pool and its backward) on fp32 operands at the flagship's
+   shapes (batch 8), ordinary and drifted, against its plain version in
+   fp32 or in fp64 (|err| <= 1e-5 + 1e-4 |ref|, the absolute term 2e-5 of
+   max |ref| for drifted operands; not for the channel sums and gradients
+   of ordinary operands), every output's error against the plain version
+   in fp64 at most 4x the plain fp32 version's own; its ``launches_f32``
+   advancing; each timed in
+   turns with its bf16 body on bf16 operands of the same shapes, beside
+   its plain version in fp32, the bound at the fp32 peak and, for the
+   rect attention, SDPA in fp32; the megakernel's fp32 case (the unpool's
+   and the MLP's routes, once each) likewise; then two-layer fp32
+   flagships on ``folded_pallas`` and per head each sample 8 steps at
+   batch 8 (within 1e-5 of the plain path) and take 3 train steps, and a
+   module-level ``Broadcast`` (forward and gradient) and a sums-less layer
+   run, every launch on the fp32 route, the counts exact;
+26. the Trainer: the port's flagship config
+   (``gecco_tpu_torch/configs/shapenet_airplane_unconditional.py``: 6 x
+   384, bf16, ``folded_pallas``, batch 48, 2048 points) trains through
+   ``gecco_tpu_torch.train.train`` on a PointFlow-layout tree of 96 + 96
+   procedural clouds written to a temporary directory: the validation smoke
+   test, 30 steps with a checkpoint and a validation (SupervisedMetric,
+   LogpMetric(24), the loss, BenchmarkCallback) every 15, on one batch (the
+   cuts printed); then a fresh Trainer resumes from the newest checkpoint
+   at step 30 and takes 30 steps (each set-transformer kernel 6 times a
+   step, exactly), and ``gecco_tpu_torch.infer`` samples 64 clouds from the
+   final checkpoint's EMA weights; the steady ms/step (the 19 steps after
+   the resumed run's first two loss fetches: the loader's start and the
+   first fetch window left out) and the validations' seconds.
 
 Phase 3 holds the h-side's Hopper body (``csrc/hside.cu``) at the
 flagship's, the 8k width's and the demo's shapes and at 16, 32 and 48
@@ -309,9 +341,11 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -327,7 +361,9 @@ from gecco_tpu_torch import (  # noqa: E402
     LogUniformSchedule,
     UVLReparam,
 )
+from gecco_tpu_torch.config import load_config  # noqa: E402
 from gecco_tpu_torch.data import make_clouds, make_conditional_batch  # noqa: E402
+from gecco_tpu_torch.infer import __main__ as infer_main  # noqa: E402
 from gecco_tpu_torch.metrics import LogpMetric  # noqa: E402
 from gecco_tpu_torch.models import (  # noqa: E402
     ConvNeXtExtractor,
@@ -346,6 +382,8 @@ from gecco_tpu_torch.train import (  # noqa: E402
     make_train_step,
 )
 from gecco_tpu_torch.ops.kernels import _build  # noqa: E402
+from gecco_tpu_torch.train import trainer as trainer_mod  # noqa: E402
+from gecco_tpu_torch.utils.logging import JsonlWriter  # noqa: E402
 from gecco_tpu_torch.ops.kernels import folded_attention as fa  # noqa: E402
 from gecco_tpu_torch.ops.kernels import hside as hs  # noqa: E402
 from gecco_tpu_torch.ops.kernels import induced_attention as ia  # noqa: E402
@@ -577,6 +615,15 @@ SOURCES = {
     "folded_pool_ext_bwd_v2j_wmma": ("gecco_tpu_torch/csrc/pool_ext_bwd_v2.cu",
                                      "gecco_tpu/ops/pallas/folded_attention.py:1718"),
 }
+# the fp32 routes (csrc/f32_simt.cu), each replacing for fp32 operands the
+# TPU kernel its wrapper's bf16 bodies replace
+SOURCES.update({
+    f"{name}_f32": ("gecco_tpu_torch/csrc/f32_simt.cu", SOURCES[name][1])
+    for name in ("rect_attention_fwd", "rect_attention_bwd", "folded_pool_ext", "fused_h_side",
+                 "folded_unpool", "fused_mlp_residual", "folded_pool_ext_bwd",
+                 "folded_unpool_bwd", "fused_mlp_residual_bwd", "folded_pool_layer",
+                 "folded_pool_layer_bwd")
+})
 SET_FORWARD = ("folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual")
 BACKWARD = ("folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd",
             "rect_attention_bwd")
@@ -3988,6 +4035,9 @@ KERNEL_FUNCTIONS = {
                               "layer_bwd_dx_kernel"),
     "folded_pool_layer_bwd_wmma": ("pool_layer_bwd_fold_kernel", "pool_layer_bwd_kernel",
                                    "pool_layer_bwd_dx_kernel"),
+    "the fp32 routes' SIMT kernels (csrc/f32_simt.cu)": (
+        "gemm_kernel", "softmax_kernel", "softmax_rows_kernel", "softmax_bwd_kernel",
+        "softmax_bwd_rows_kernel", "reduce_kernel", "affine_kernel"),
 }
 PROFILE_STEPS = 3
 # cuDNN's and PyTorch's convolution kernels and cuDNN's layout transforms
@@ -4602,6 +4652,575 @@ def logp_phase(device, batch, n_points, n_layers, n_steps, image_size, compare_b
     return rec
 
 
+
+# ----------------------------------------------- phase 25: the fp32 route --
+
+# the eleven wrappers that count an fp32 route (csrc/f32_simt.cu), each
+# under ``<name>_f32`` in the kernels line; which TPU kernel each replaces.
+# The megakernel's fp32 case runs the unpool's and the MLP's routes
+# (F32_MEGA_CHECK)
+F32_WRAPPERS = ("rect_attention_fwd", "rect_attention_bwd", "folded_pool_ext", "fused_h_side",
+                "folded_unpool", "fused_mlp_residual", "folded_pool_ext_bwd",
+                "folded_unpool_bwd", "fused_mlp_residual_bwd", "folded_pool_layer",
+                "folded_pool_layer_bwd")
+F32_MEGA_CHECK = "fused_unpool_mlp"
+# Each output of an fp32 route is held two ways:
+# - the JAX tests' fp32 tolerance, |err| <= atol + rtol |ref| elementwise,
+#   rtol 1e-4, atol 1e-5 or 2e-5 of max |ref| on drifted operands, against
+#   the plain version in fp32 or in fp64 (``fp64_plain``), whichever reads
+#   lower: where the route is nearer exact than the fp32 plain version,
+#   their difference is that version's own error. Not for the channel sums
+#   (F32_SUMS) and the gradients of ordinary operands: they sum over 2048
+#   to 16384 rows, where no fp32 order comes within 1e-5 of the exact sum;
+# - every output, the witness: the route's largest error against the fp64
+#   plain version at most F32_WITNESS times the fp32 plain version's own
+#   (both are fixed-order fp32 sums, the route's in runs of 64).
+F32_RTOL, F32_ATOL, F32_SHARE, F32_WITNESS = 1e-4, 1e-5, 2e-5, 4.0
+# the wrappers whose second output is the channel sums of the first over
+# the points
+F32_SUMS = ("folded_unpool", "fused_mlp_residual", "fused_unpool_mlp")
+# an fp32 model's 8-step sample, the kernel path (the fp32 route) against
+# the plain path: fp32 sums in other orders through every layer and step
+# (chip readings 8.8e-8 to 8.6e-7 of max |ref|)
+TOL_F32_PATH = 1e-5
+
+
+class _Fp64Plain(torch.overrides.TorchFunctionMode):
+    """The plain versions with fp32 promoted to fp64: their fp32 casts
+    (``.float()``, ``.to(torch.float32)``) and fp32 buffers become fp64,
+    and any op that still yields a narrower float is recorded."""
+
+    def __init__(self):
+        super().__init__()
+        self.narrow = set()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        wide = lambda a: torch.float64 if a is torch.float32 else a
+        if func is torch.Tensor.float and args[0].dtype == torch.float64:
+            return args[0]
+        if func is torch.Tensor.to:
+            args = tuple(wide(a) for a in args)
+        if "dtype" in kwargs:
+            kwargs["dtype"] = wide(kwargs["dtype"])
+        out = func(*args, **kwargs)
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if torch.is_tensor(t) and t.is_floating_point() and t.dtype != torch.float64:
+                self.narrow.add(f"{getattr(func, '__name__', func)} -> {t.dtype}")
+        return out
+
+
+def fp64_plain(fn, *args):
+    """``fn`` (a plain version) on fp64 copies of ``args``' float tensors,
+    its fp32 arithmetic in fp64 (``_Fp64Plain``): the witness of how far
+    an fp32 result is from exact. Raises where an op stays narrower."""
+    wide = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args]
+    mode = _Fp64Plain()
+    with mode:
+        out = fn(*wide)
+    if mode.narrow:
+        raise AssertionError(f"fp64 witness of {getattr(fn, '__name__', fn)}: "
+                             f"{sorted(mode.narrow)}")
+    return out
+
+
+def f32_close(name, got, ref, ref64, drift: bool, grads=False, sums=False) -> float:
+    """Each output of ``got`` (the route) held to the tolerance against
+    ``ref`` (the plain version in fp32) or ``ref64`` (in fp64), atol
+    F32_SHARE of max |ref| where ``drift``, except on ordinary operands the
+    gradients (``grads``: every output) and the channel sums (``sums``: the
+    second output); and every output to the witness, F32_WITNESS times the
+    fp32 plain version's largest error against ``ref64``. Returns the
+    largest absolute error against the fp32 plain version outside the
+    channel sums."""
+    as_list = lambda t: list(t) if isinstance(t, (tuple, list)) else [t]
+    worst = 0.0
+    for q, (a, r, r64) in enumerate(zip(as_list(got), as_list(ref), as_list(ref64))):
+        a, r, r64 = a.float(), r.float(), r64.double()
+        atol = max(F32_ATOL, F32_SHARE * float(r.abs().max())) if drift else F32_ATOL
+        ratio = lambda want: (float(((a.double() - want.double()).abs()
+                                     / (atol + F32_RTOL * want.double().abs())).max())
+                              if r.numel() else 0.0)
+        r32, r64_ = ratio(r), ratio(r64)
+        e_route = float((a.double() - r64).abs().max()) if r.numel() else 0.0
+        e_plain = float((r.double() - r64).abs().max()) if r.numel() else 0.0
+        times = e_route / e_plain if e_plain else (0.0 if e_route == 0 else float("inf"))
+        toleranced = drift or not (grads or (sums and q == 1))
+        ok = times <= F32_WITNESS and (min(r32, r64_) <= 1.0 or not toleranced)
+        print(f"  {name} out{q}: max |err| / (atol {atol:.1e} + rtol |ref|) = {r32:.3e} against "
+              f"fp32, {r64_:.3e} against fp64 ({'limit 1' if toleranced else 'not held'}); "
+              f"largest error against fp64: route {e_route:.3e}, plain fp32 {e_plain:.3e}, "
+              f"{times:.3f}x (limit {F32_WITNESS:g}x) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} out{q}: {times:.3f}x the plain fp32 version's error "
+                                 f"against fp64; max |err| / (atol + rtol |ref|) {r32:.3e} "
+                                 f"against fp32, {r64_:.3e} against fp64")
+        if not (sums and q == 1):  # as phase 3, the sums' error is not the kernel line's
+            worst = max(worst, abs_err(a, r))
+    return worst
+
+
+def f32_cases(device, g, b, n, c, heads, i, groups):
+    """name -> (make(dt, drift) -> (run, ref, ref64, tensors), forward
+    flops): each wrapper at the shapes given, its operands in ``dt`` (fp32:
+    the route; bf16: its bf16 body), ``run`` the wrapper's call, ``ref``
+    its plain version's and ``ref64`` the plain version's in fp64 on the
+    same operands (``fp64_plain``), ``tensors`` the inputs whose bytes
+    bound it."""
+    w = 2 * c
+    d = c // heads
+    j = heads * i
+
+    def cot(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device=device))
+
+    def plain(fn, *args):
+        """``ref`` and ``ref64``: the plain version ``fn`` on ``args``."""
+        return (lambda: fn(*args)), (lambda: fp64_plain(fn, *args))
+
+    def rect(direction, bwd):
+        def make(dt, drift):
+            q, k, v = attn_operands(g, b, n, c, heads, i, direction, drift, device, dt)
+            if not bwd:
+                return (lambda: ia.rect_attention_fwd(q, k, v),
+                        *plain(ia._rect_attention_ref, q, k, v), [q, k, v])
+            o, lse = ia.rect_attention_fwd(q, k, v)
+            go = merged_randn(g, o)
+            return (lambda: ia.rect_attention_bwd(q, k, v, o, lse, go),
+                    *plain(ia._rect_attention_bwd_ref, q, k, v, go), [q, k, v, o, go])
+        return make
+
+    def pool(bwd):
+        def make(dt, drift):
+            ops = pool_operands(g, b, n, c, heads, i, drift, device, dt)
+            if not bwd:
+                return (lambda: fa.folded_pool_ext(*ops, heads),
+                        *plain(fa._pool_ext_ref, *ops, heads), list(ops))
+            # the forward's folded query and statistics (on the CPU the
+            # plain backward takes none)
+            _, qft, macc, sacc = (fa._pool_ext_launch(*ops, heads, True) if device.type == "cuda"
+                                  else (None,) * 4)
+            gh = cot(b, i, c).to(dt)
+            return (lambda: fa.folded_pool_ext_bwd(*ops, qft, macc, sacc, gh, heads),
+                    *plain(fa._pool_ext_bwd_ref, *ops, gh, heads), [*ops, gh])
+        return make
+
+    def layer(bwd):
+        gind = fa.group_indicator(c, groups, device)
+
+        def make(dt, drift):
+            ops = pool_operands(g, b, n, c, heads, i, drift, device, dt)
+            if not bwd:
+                return (lambda: fa.folded_pool_layer(*ops, gind, heads, True),
+                        *plain(fa._pool_ref, *ops, groups, heads, True), list(ops))
+            h0, mean, inv, saved = (fa._pool_layer_launch(*ops, gind, heads, True, True)
+                                    if device.type == "cuda" else (None, None, None, (None,) * 4))
+            gs = (cot(b, i, c).to(dt), cot(b, c, scale=1e-2), cot(b, c, scale=1e-2))
+            return (lambda: fa.folded_pool_layer_bwd(*ops, gind, mean, inv, *saved, *gs, heads,
+                                                     True),
+                    *plain(fa._pool_layer_bwd_ref, *ops, gind, *gs, heads, True),
+                    [*ops, *gs])
+        return make
+
+    def hside(dt, drift):
+        ops = hside_operands(g, b, i, c, w, drift, device, dt)
+        return (lambda: hs.fused_h_side(*ops), *plain(hs._hside_ref, *ops), list(ops))
+
+    def unpool(bwd):
+        def make(dt, drift):
+            ops = unpool_operands(g, b, n, c, heads, i, drift, device, dt)
+            if not bwd:
+                return (lambda: fa.folded_unpool(*ops, heads),
+                        *plain(fa._unpool_ref, *ops, heads), list(ops))
+            go, gs = cot(b, n, c).to(dt), cot(b, 2, c, scale=1e-2)
+            return (lambda: fa.folded_unpool_bwd(*ops, go, gs, heads),
+                    *plain(fa._unpool_bwd_ref, *ops, go, gs, heads), [*ops, go, gs])
+        return make
+
+    def mlp(bwd):
+        def make(dt, drift):
+            ops = mlp_operands(g, b, n, c, w, drift, device, dt)
+            if not bwd:
+                return (lambda: fa.fused_mlp_residual(*ops), *plain(fa._mlp_ref, *ops),
+                        list(ops))
+            go, gs = cot(b, n, c).to(dt), cot(b, 2, c, scale=1e-2)
+            return (lambda: fa.fused_mlp_residual_bwd(*ops, go, gs),
+                    *plain(fa._mlp_bwd_ref, *ops, go, gs), [*ops, go, gs])
+        return make
+
+    def mega(dt, drift):
+        up = unpool_operands(g, b, n, c, heads, i, drift, device, dt)
+        ml = mlp_operands(g, b, n, c, w, False, device, dt)[3:]
+        sc2, bi2 = 1.0 + 0.2 * cot(b, c), 0.2 * cot(b, c)
+        gind = fa.group_indicator(c, groups, device)
+        return (lambda: fa.fused_unpool_mlp(*up, sc2, bi2, gind, *ml, heads, groups, n),
+                *plain(fa._unpool_mlp_ref, *up, sc2, bi2, *ml, heads, groups, n),
+                [*up, sc2, bi2, *ml])
+
+    rect_flops = 4 * b * heads * i * n * d
+    pool_flops = 2 * b * n * c * j + 2 * b * n * c * c + 2 * b * n * j * d + 2 * b * i * c * c
+    unpool_flops = 4 * b * n * c * j + 4 * b * j * c * d
+    mlp_flops = 4 * b * n * c * w
+    # a backward's gradient products: twice its forward's
+    return {
+        "rect_attention_fwd": (rect("pool", False), rect_flops),
+        "rect_attention_bwd": (rect("pool", True), 2 * rect_flops),
+        "folded_pool_ext": (pool(False), pool_flops),
+        "fused_h_side": (hside, 4 * b * i * c * w + 4 * b * i * c * c),
+        "folded_unpool": (unpool(False), unpool_flops),
+        "fused_mlp_residual": (mlp(False), mlp_flops),
+        "folded_pool_ext_bwd": (pool(True), 2 * pool_flops),
+        "folded_unpool_bwd": (unpool(True), 2 * unpool_flops),
+        "fused_mlp_residual_bwd": (mlp(True), 2 * mlp_flops),
+        "folded_pool_layer": (layer(False), pool_flops),
+        "folded_pool_layer_bwd": (layer(True), 2 * pool_flops),
+        "fused_unpool_mlp": (mega, unpool_flops + mlp_flops),
+    }
+
+
+def f32_library(name, make, heads, g):
+    """The one PyTorch call computing the same function, where there is
+    one, on the route's fp32 operands: per-head
+    ``scaled_dot_product_attention`` (and its backward) for the attentions,
+    the pools' and unpools' as phases 3 and 4 time it for their bf16
+    bodies."""
+    ops = make(torch.float32, False)[-1]
+    if name.startswith("rect_attention"):
+        q, k, v = ops[:3]
+        if name.endswith("bwd"):
+            return sdpa_backward(q, k, v, g)
+        return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    if name in ("folded_pool_ext", "folded_pool_layer"):
+        return sdpa_pool(ops[:6], heads)
+    if name in ("folded_pool_ext_bwd", "folded_pool_layer_bwd"):
+        return sdpa_pool_bwd(ops[:6], heads, g)
+    if name == "folded_unpool":
+        return sdpa_unpool(ops[:7], heads)
+    if name == "folded_unpool_bwd":
+        return sdpa_unpool_bwd(ops[:7], heads, g)
+    return None
+
+
+def f32_phase(device, shapes, reps, n_layers, batch, n_points, rehearse) -> tuple:
+    """Phase 25: every fp32 route against its plain version in fp32 at the
+    flagship's shapes (batch ``shapes['batch']``), ordinary and drifted, its
+    launch counter advancing; each timed in turns with its bf16 body on bf16
+    operands of the same shapes beside the plain version, the bound and the
+    library call; the megakernel's fp32 case (the unpool's and the MLP's
+    routes) against its plain version; then an fp32 flagship of
+    ``n_layers`` layers on
+    ``folded_pallas`` and one on the per-head ``pallas`` path each sample 8
+    steps (against the plain path) and take 3 train steps, and a
+    module-level ``Broadcast`` (the resident pool, forward and gradient)
+    and a sums-less layer (its pre-norm) run, all on the fp32 route.
+    Returns (records, the launch counts of those model runs)."""
+    g = torch.Generator(device=device).manual_seed(25)
+    b, n, c, heads, i = (shapes[k] for k in ("batch", "n_points", "feature_dim", "num_heads",
+                                             "num_inducers"))
+    cases = f32_cases(device, g, b, n, c, heads, i, GROUPS)
+    rec = {}
+    for name in F32_WRAPPERS:
+        make, flops = cases[name]
+        errs = []
+        for drift in (False, True):
+            run, ref, ref64, _ = make(torch.float32, drift)
+            before = kernels.launch_counts()[f"{name}_f32"]
+            got = run()
+            if device.type == "cuda" and kernels.launch_counts()[f"{name}_f32"] != before + 1:
+                raise AssertionError(f"{name}: the fp32 route did not run")
+            errs.append(f32_close(f"{name} fp32 [{'drift' if drift else 'ordinary'}]", got,
+                                  ref(), ref64(), drift, grads=name.endswith("bwd"),
+                                  sums=name in F32_SUMS))
+        run, ref, _, tensors = make(torch.float32, False)
+        run16 = make(torch.bfloat16, False)[0]
+        turns = bodies_in_turns(run, run16, device, reps, ("f32", "bf16"))
+        ms, ms16 = (statistics.median(turns[k]) for k in ("f32", "bf16"))
+        plain_ms = time_ms(ref, device, max(2, reps // 4))
+        library = f32_library(name, make, heads, g)
+        lib_ms = time_ms(library, device, reps) if library else None
+        out = run()
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        bms, by = bound(flops, nbytes(*{id(t): t for t in tensors}.values(),
+                                      *[t for t in outs if torch.is_tensor(t)]),
+                        PEAK_FP32_FLOPS)
+        rec[f"{name}_f32"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                  bound_by=by, library_ms=lib_ms, bf16_body_ms=ms16)
+        print(f"  {name}_f32: route {ms:.3f} ms (its bf16 body {ms16:.3f} ms, in turns), plain "
+              f"fp32 {plain_ms:.3f} ms, library {fmt_ms(lib_ms)}, bound {bms:.3f} ms ({by})")
+
+    # the megakernel's fp32 case: the unpool's and the MLP's routes, once each
+    for drift in (False, True):
+        run, ref, ref64, _ = cases[F32_MEGA_CHECK][0](torch.float32, drift)
+        before = kernels.launch_counts()
+        got = run()
+        moved = {k: v - before[k] for k, v in kernels.launch_counts().items() if v != before[k]}
+        if device.type == "cuda" and moved != {"folded_unpool_f32": 1,
+                                               "fused_mlp_residual_f32": 1}:
+            raise AssertionError(f"{F32_MEGA_CHECK} fp32: launches {moved}, expected the "
+                                 "unpool's and the MLP's fp32 routes once each")
+        f32_close(f"{F32_MEGA_CHECK} fp32 [{'drift' if drift else 'ordinary'}]", got, ref(),
+                  ref64(), drift, sums=True)
+
+    counts = {}
+
+    def add(got):
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+
+    for impl, what in (("folded_pallas", "fp32 flagship"), ("pallas", "fp32 per-head flagship")):
+        model = build_flagship(device, torch.Generator().manual_seed(25), n_layers,
+                               dt=torch.float32, attn_impl=impl)
+        gen = torch.Generator(device=device).manual_seed(26)
+        kernels.reset_launch_counts()
+        latent = model.schedule.sample_latent(gen, (batch, n_points, 3), device)
+        fused = model.sample_from_latent(latent, n_solver_steps=8)
+        sync(device)
+        got = kernels.launch_counts()
+        evals = 2 * 7
+        names = (("rect_attention_fwd",) if impl == "pallas" else
+                 ("folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual"))
+        per_layer = 2 if impl == "pallas" else 1
+        check_counts(f"{what} sampler", got, expected_counts(
+            {f"{k}_f32": per_layer * n_layers * evals for k in names}), device)
+        add(got)
+        set_path(model, False)
+        plain = model.sample_from_latent(latent, n_solver_steps=8)
+        set_path(model, True, impl)
+        check(f"{what}: 8-step sample, fp32 route vs plain path", rel_err(fused, plain),
+              TOL_F32_PATH)
+        opt = flagship_optimizer()
+        ema, state = make_ema(model), opt.init(list(model.parameters()))
+        step = make_train_step(opt, ema_alpha=0.999)
+        data = torch.from_numpy(make_clouds(np.random.default_rng(25), batch, n_points)).to(device)
+        kernels.reset_launch_counts()
+        losses = []
+        for _ in range(3):
+            loss, state = step(model, ema, state, data, gen)
+            losses.append(float(loss))
+        got = kernels.launch_counts()
+        bwd = (("rect_attention_bwd",) if impl == "pallas" else
+               ("folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd"))
+        check_counts(f"{what} training", got, expected_counts(
+            {f"{k}_f32": per_layer * n_layers * 3 for k in names + bwd}), device)
+        check_finite(losses, model, ema)
+        add(got)
+        print(f"  {what}: 8-step sample at batch {batch} and 3 train steps (losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}) on the fp32 route")
+
+    gen = torch.Generator().manual_seed(28)
+    bc = Broadcast(c, i, 1, heads, device=device, generator=gen)
+    layer = BroadcastingLayer(c, i, 1, heads, device=device, generator=gen)
+    x = torch.randn(batch, n_points, c, generator=g, device=device)
+    embed = 80.0 * torch.rand(batch, 1, generator=g, device=device)
+    kernels.reset_launch_counts()
+    xg = x.clone().requires_grad_(True)
+    out, _ = bc(xg, embed, attn_impl="folded_pallas")
+    (out**2).sum().backward()
+    with torch.no_grad():
+        lay = layer(x, embed, "folded_pallas")[0]
+        lay_plain = layer(x, embed, "xla")[0]
+    got = kernels.launch_counts()
+    check_counts("fp32 module-level Broadcast (forward and gradient) and sums-less layer", got,
+                 expected_counts({"folded_pool_layer_f32": 2, "folded_unpool_f32": 2,
+                                  "folded_pool_layer_bwd_f32": 1, "folded_unpool_bwd_f32": 1,
+                                  "fused_h_side_f32": 1, "fused_mlp_residual_f32": 1}), device)
+    add(got)
+    check("fp32 sums-less BroadcastingLayer, folded_pallas vs xla", rel_err(lay, lay_plain),
+          TOL_F32_PATH)
+    if not bool(torch.isfinite(xg.grad).all()):
+        raise AssertionError("fp32 Broadcast: non-finite gradient")
+    return rec, counts
+
+
+
+# --------------------------------------------- phase 26: the Trainer --
+
+CONFIG = "gecco_tpu_torch/configs/shapenet_airplane_unconditional.py"
+# the rehearsal's cuts of the config (its text, copied): two layers of 64
+# channels, 16 inducers, 4 heads, 64 points, batch 4, 3-step samplers and a
+# 2-step likelihood
+REHEARSAL_CUTS = (("n_layers=6", "n_layers=2"), ("feature_dim=384", "feature_dim=64"),
+                  ("num_inducers=64", "num_inducers=16"), ("num_heads=8", "num_heads=4"),
+                  ("n_solver_steps=128", "n_solver_steps=3"),
+                  ("LogpMetric(n_solver_steps=24)", "LogpMetric(n_solver_steps=2)"),
+                  ("N_POINTS = 2048", "N_POINTS = 64"), ("BATCH = 48", "BATCH = 4"))
+# phase 25's batch of the routes' checks and of its fp32 models, and their
+# depth
+F32_BATCH, F32_LAYERS = 8, 2
+# the Trainer phase's cuts of the config's run: 30 steps with a checkpoint
+# and validation every 15, one validation batch (8 in the config), 96
+# training and 96 validation clouds (the callback scores as many), then 30
+# steps resumed from the last checkpoint (the Trainer fetching the loss
+# every 10, its default) and 64 clouds sampled by the CLI
+TRAINER_STEPS, TRAINER_SAVE_EVERY, TRAINER_VAL_BATCHES = 30, 15, 1
+TRAINER_CLOUDS, TRAINER_RESUMED, TRAINER_INFER, TRAINER_LOSS_SYNC = 96, 30, 64, 10
+
+
+def write_pointflow_tree(root, n_clouds, n_points, seed) -> None:
+    """A PointFlow-layout tree of procedural clouds under ``root``: the
+    airplane synset's train and val splits, one .npy a cloud."""
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        d = Path(root) / "02691156" / split
+        d.mkdir(parents=True)
+        for q, cloud in enumerate(make_clouds(rng, n_clouds, n_points)):
+            np.save(d / f"cloud{q:04d}.npy", cloud)
+
+
+def trainer_phase(device, n_points, steps, save_every, val_batches, n_clouds, resumed,
+                  loss_sync, n_infer, infer_batch, n_steps, rehearse) -> tuple:
+    """Phase 26: the port's flagship config trains through
+    ``gecco_tpu_torch.train.train`` on a PointFlow-layout tree of procedural
+    clouds: ``steps`` steps at the config's width and batch, a checkpoint
+    and a validation (SupervisedMetric, LogpMetric(24), the loss and
+    BenchmarkCallback) every ``save_every``, after the smoke test; then a
+    fresh Trainer resumes from the newest checkpoint at the right step and
+    takes ``resumed`` more, fetching the loss every ``loss_sync``, each
+    set-transformer kernel 6 times a step, and ``python -m
+    gecco_tpu_torch.infer`` samples ``n_infer`` clouds from its EMA
+    weights. The steady ms/step: from the end of the resumed run's second
+    loss fetch (its first step's, then ``loss_sync`` steps' later) to its
+    last, on the host clock at each fetch's return. Returns (the resumed
+    run's launch counts, a record)."""
+    tmp = Path(tempfile.mkdtemp(prefix="gecco-trainer-"))
+    key = "SHAPENET_PF_ROOT"
+    keep_root = os.environ.get(key)
+    keep_val = trainer_mod.Trainer.validation_phase
+    keep_writer = trainer_mod.make_writer
+    keep_save = trainer_mod.Trainer.save
+    val_seconds, save_seconds = [], []
+    fetched = {}  # step -> host clock when its loss came back from the card
+
+    def timed_writer(path):
+        writer = JsonlWriter(path) if rehearse else keep_writer(path)
+        add = writer.add_scalar
+
+        def add_scalar(tag, scalar_value=None, global_step=0, **kw):
+            if tag == "train/loss":
+                fetched[global_step] = time.perf_counter()
+            add(tag, scalar_value=scalar_value, global_step=global_step, **kw)
+
+        writer.add_scalar = add_scalar
+        return writer
+
+    def timed_save(self, *a, **kw):
+        sync(device)
+        t0 = time.perf_counter()
+        keep_save(self, *a, **kw)
+        save_seconds.append(time.perf_counter() - t0)
+
+    def timed_validation(self, *a, **kw):
+        t0 = time.perf_counter()
+        keep_val(self, *a, **kw)
+        sync(device)
+        val_seconds.append(time.perf_counter() - t0)
+
+    try:
+        write_pointflow_tree(tmp / "data", n_clouds, n_points, 26)
+        os.environ[key] = str(tmp / "data")
+        config_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), CONFIG)
+        if rehearse:
+            text = Path(config_path).read_text()
+            for a, b in REHEARSAL_CUTS:
+                if a not in text:
+                    raise AssertionError(f"rehearsal: {a!r} not in {CONFIG}")
+                text = text.replace(a, b)
+            config_path = str(tmp / "config.py")
+            Path(config_path).write_text(text)
+        config = load_config(config_path)
+        run_dir = tmp / "run"
+        run_dir.mkdir()
+        trainer_mod.Trainer.validation_phase = timed_validation
+        if rehearse:
+            # the JSONL writer: TensorBoard's imports TensorFlow where that
+            # is installed, seconds of the rehearsal's time
+            trainer_mod.make_writer = JsonlWriter
+        cut = dict(num_steps=steps - 1, save_every=save_every, n_validation_batches=val_batches,
+                   device=device)
+        print(f"  cuts: {steps} steps (config {config.NUM_STEPS}), checkpoint and validation "
+              f"every {save_every} (config 10000), {val_batches} validation batch(es) (config 8), "
+              f"{n_clouds} train and {n_clouds} validation clouds of {n_points} points; batch "
+              f"{config.BATCH}")
+        t0 = time.perf_counter()
+        first = config.train(config.make_model, config.make_train_loader(),
+                             config.make_val_loader(), str(run_dir), **cut)
+        sync(device)
+        first_s = time.perf_counter() - t0
+        names = sorted(os.listdir(run_dir))
+        print(f"  first run: {first_s:.1f} s for {steps} steps, {len(val_seconds)} validations "
+              f"and the smoke test; run dir {names}")
+        for want in (f"checkpoint-step-{steps - 1}", f"final-checkpoint-{steps - 1}",
+                     "benchmark-checkpoints", "best-checkpoints"):
+            if want not in names:
+                raise AssertionError(f"trainer: {want} missing from the run dir {names}")
+        trainer_mod.Trainer.validation_phase = keep_val
+        trainer_mod.Trainer.save = timed_save
+        trainer_mod.make_writer = timed_writer
+        resume = trainer_mod.Trainer(
+            model=config.make_model, train_dataloader=config.make_train_loader(),
+            val_dataloader=config.make_val_loader(), save_path=str(run_dir),
+            save_every=save_every * 100, num_steps=steps + resumed - 1,
+            optimizer=flagship_optimizer(config.NUM_STEPS), skip_smoke_test=True,
+            loss_sync_every=loss_sync, device=device)
+        resume.recover_from_checkpoint(fail_if_unavailable=True)
+        if resume.initial_step_number != steps:
+            raise AssertionError(f"trainer resumed at step {resume.initial_step_number}, "
+                                 f"expected {steps}")
+        sync(device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        resume.fit()
+        sync(device)
+        resumed_s = time.perf_counter() - t0
+        trainer_mod.Trainer.save = keep_save
+        counts = kernels.launch_counts()
+        if not rehearse:
+            check_counts("resumed Trainer", counts, expected_counts(
+                {k: FLAGSHIP["n_layers"] * resumed for k in SET_FORWARD + FOLDED_BACKWARD}),
+                device)
+        if f"final-checkpoint-{steps + resumed - 1}" not in os.listdir(run_dir):
+            raise AssertionError("trainer: the resumed run wrote no final checkpoint")
+        out = tmp / "samples.npz"
+        t0 = time.perf_counter()
+        argv = [config_path, str(run_dir / f"final-checkpoint-{steps + resumed - 1}"), "--n-samples",
+                str(n_infer), "--batch-size", str(infer_batch), "--n-points", str(n_points),
+                "--output", str(out), "--device", str(device)]
+        if n_steps is not None:
+            argv += ["--n-solver-steps", str(n_steps)]
+        samples = infer_main.main(argv)
+        infer_s = time.perf_counter() - t0
+        if samples.shape != (n_infer, n_points, 3) or not np.isfinite(samples).all():
+            raise AssertionError(f"infer: samples {samples.shape} or non-finite values")
+        # the steady steps: from the second fetch's return to the last's
+        first, last = steps + loss_sync, steps + resumed - 1
+        if sorted(fetched) != list(range(steps, last + 1)) or last <= first:
+            raise AssertionError(f"trainer: losses fetched for steps {sorted(fetched)}, "
+                                 f"expected {steps}..{last} over more than {loss_sync} steps")
+        ms = 1e3 * (fetched[last] - fetched[first]) / (last - first)
+        # the whole resumed run's, less its final checkpoint's write: the
+        # loader's start and the first step's fetch inside
+        whole_ms = 1e3 * (resumed_s - sum(save_seconds)) / resumed
+        val = statistics.median(val_seconds) if val_seconds else float("nan")
+        print(f"  resumed at step {steps}: {resumed} steps, the loss fetched every {loss_sync}; "
+              f"steady {ms:.3f} ms/step over steps {first + 1}-{last} (host clock between the "
+              f"fetches' returns); the whole run {whole_ms:.3f} ms/step ({resumed_s:.3f} s with "
+              f"the loader's start, less the final checkpoint's {sum(save_seconds):.3f} s); "
+              f"validation {val:.3f} s each ({', '.join(f'{v:.3f}' for v in val_seconds)} s: "
+              f"the smoke test's two batches, then one batch and the callback); infer "
+              f"{n_infer} clouds in {infer_s:.3f} s")
+        return counts, dict(ms_per_step=ms, whole_ms_per_step=whole_ms, val_seconds=val_seconds,
+                            first_s=first_s, infer_s=infer_s, save_s=sum(save_seconds))
+    finally:
+        trainer_mod.Trainer.validation_phase = keep_val
+        trainer_mod.Trainer.save = keep_save
+        trainer_mod.make_writer = keep_writer
+        if keep_root is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = keep_root
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -4626,6 +5245,9 @@ def main():
         upsample = dict(n_new=300, n_steps=3, n_substeps=2, compare_new=200)
         ragged_ns = (100, 130)
         logp_steps = 3
+        f32_batch, f32_layers = 2, 2
+        trainer_cfg = dict(steps=4, save_every=2, val_batches=1, n_clouds=8, resumed=3,
+                           loss_sync=1, n_infer=3, infer_batch=2, n_steps=2)
     else:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")
@@ -4646,6 +5268,12 @@ def main():
                         compare_new=4096)
         ragged_ns = RAGGED_NS
         logp_steps = LOGP_STEPS
+        f32_batch, f32_layers = F32_BATCH, F32_LAYERS
+        trainer_cfg = dict(steps=TRAINER_STEPS, save_every=TRAINER_SAVE_EVERY,
+                           val_batches=TRAINER_VAL_BATCHES, n_clouds=TRAINER_CLOUDS,
+                           resumed=TRAINER_RESUMED, loss_sync=TRAINER_LOSS_SYNC,
+                           n_infer=TRAINER_INFER,
+                           infer_batch=TRAINER_INFER, n_steps=None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4833,6 +5461,22 @@ def main():
     logp = logp_phase(device, cond_batch, n_points, n_layers, logp_steps, image_size,
                       compare_batch=min(8, cond_batch))
 
+    f32_shapes = dict(shapes, batch=f32_batch)
+    print(f"== fp32 routes: each against its plain version in fp32 at {f32_shapes}, timed in "
+          f"turns with its bf16 body; then fp32 models of {f32_layers} layers ({f32_batch} x "
+          f"{n_points} points) on folded_pallas and per head sample 8 steps and take 3 train "
+          f"steps, a module-level Broadcast and a sums-less layer, "
+          f"on {card}")
+    f32_rec, f32_counts = f32_phase(device, f32_shapes, reps, f32_layers, f32_batch, n_points,
+                                    args.rehearse)
+    rec.update(f32_rec)
+
+    print(f"== Trainer: {CONFIG} through gecco_tpu_torch.train.train on a PointFlow tree of "
+          f"procedural {n_points}-point clouds, then a resumed Trainer and the infer CLI, on "
+          f"{card}")
+    trainer_counts, trainer_rec = trainer_phase(device, n_points, **trainer_cfg,
+                                                rehearse=args.rehearse)
+
     print("== summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
@@ -4844,6 +5488,8 @@ def main():
     print(f"  launches on the demo model's megakernel sampler path: {mega_demo_counts}")
     print(f"  launches on the module-level folded path: {module_counts}")
     print(f"  launches on the upsample path: {up_counts}")
+    print(f"  launches on the fp32 models' paths (phase 25): {f32_counts}")
+    print(f"  launches on the resumed Trainer's {trainer_cfg['resumed']} steps: {trainer_counts}")
     print(f"  launches on the demo sampler path: {demo_counts}")
     print(f"  launches on the demo training path: {demo_train_counts}")
     print(f"  launches in the num_heads=3 gradient: {heads3_counts}")
@@ -4886,6 +5532,12 @@ def main():
            f"passes {v['split_ms'].get(next(c for c in v['split_ms'] if 'weight' in c), 0):.1f}"
            f" ms" if v.get("split_ms") else "") + ")" for k, v in logp.items())
           + f"; {card}")
+    print(f"  Trainer (phase 26): steady {trainer_rec['ms_per_step']:.3f} ms/step (the "
+          f"resumed run's {trainer_rec['whole_ms_per_step']:.3f} with the loader's start) at "
+          f"batch {TRAIN_BATCH if not args.rehearse else 4}; "
+          f"validation " + ", ".join(f"{v:.3f}" for v in trainer_rec["val_seconds"])
+          + f" s; the first run {trainer_rec['first_s']:.1f} s; infer "
+          f"{trainer_rec['infer_s']:.3f} s; {card}")
     # launches: each kernel's count on the path that first brought it in
     # (printed above): the flagship sampler's for a set-transformer forward
     # kernel, the flagship training path's for a backward one, the
@@ -4934,7 +5586,9 @@ def main():
                      # gradient under each forced body (phase 21)
                      **{f"folded_pool_ext_bwd_{body}_wmma":
                         shape_counts[f"the demo's width under GECCO_POOL_BWD={body}"][1]
-                        for body in kernels.TWOPASS_BODIES}}
+                        for body in kernels.TWOPASS_BODIES},
+                     # the fp32 routes: phase 25's fp32 models
+                     **{name: f32_counts for name in SOURCES if name.endswith("_f32")}}
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=source_counts.get(name, train_counts if name in BACKWARD else counts)[name],

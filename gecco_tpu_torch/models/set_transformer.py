@@ -289,7 +289,8 @@ class BroadcastingLayer(nn.Module):
         mlp_ops = _fold_mlp_operands(self.mlp, dt)
         if (os.environ.get("GECCO_UNPOOL_MLP_MEGAKERNEL") == "1" and not torch.is_grad_enabled()
                 and (x.device.type == "cpu"
-                     or unpool_mlp_fits_sm(n, c, k.shape[1], mlp_ops[0].shape[1], num_heads))):
+                     or unpool_mlp_fits_sm(n, c, k.shape[1], mlp_ops[0].shape[1], num_heads,
+                                           dt))):
             groups = self.mlp_norm.num_groups
             x, out_sums = fused_unpool_mlp(
                 x, se1, be1, k, v, wq, wo,

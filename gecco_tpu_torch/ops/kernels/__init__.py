@@ -9,7 +9,10 @@ beside the Hopper design, chosen by shape (``folded_pool_ext``, ``fused_h_side``
 folded backwards, ``folded_pool_layer_bwd``, ``rect_attention_fwd``,
 ``rect_attention_bwd`` and ``fused_unpool_mlp``): those count its launches
 in ``.launches_wmma``,
-reported as ``<name>_wmma``. The projective gather's forward and backward
+reported as ``<name>_wmma``, and all twelve an fp32 route for fp32 operands
+(``f32.py``, ``csrc/f32_simt.cu``), counted in ``.launches_f32`` and
+reported as ``<name>_f32`` (``F32_BODIES``; the megakernel's runs the
+unpool's and the MLP's, which count it). The projective gather's forward and backward
 have a SIMT body beside the Hopper one (``SIMT_BODIES``), counted in
 ``.launches_simt`` and reported as ``<name>_simt``. The pool backward's v1,
 v2 and v2j bodies (``GECCO_POOL_BWD``) count theirs in ``.launches_v1``,
@@ -49,6 +52,10 @@ TWO_BODIES = (folded_pool_ext, fused_h_side, folded_unpool, fused_mlp_residual,
               folded_pool_layer, folded_pool_ext_bwd, folded_unpool_bwd, fused_mlp_residual_bwd,
               folded_pool_layer_bwd, rect_attention_fwd, rect_attention_bwd, fused_unpool_mlp)
 SIMT_BODIES = (projective_gather, projective_gather_bwd)
+# the wrappers counting an fp32 route, csrc/f32_simt.cu (ops/kernels/f32.py):
+# the gather's SIMT bodies take fp32 themselves, and the megakernel's fp32
+# case runs the unpool's and the MLP's routes, counted there
+F32_BODIES = tuple(fn for fn in TWO_BODIES if fn is not fused_unpool_mlp)
 
 
 def reset_launch_counts() -> None:
@@ -58,6 +65,8 @@ def reset_launch_counts() -> None:
         fn.launches_wmma = 0
     for fn in SIMT_BODIES:
         fn.launches_simt = 0
+    for fn in F32_BODIES:
+        fn.launches_f32 = 0
     for body in TWOPASS_BODIES:
         setattr(folded_pool_ext_bwd, f"launches_{body}", 0)
         setattr(folded_pool_ext_bwd, f"launches_{body}_wmma", 0)
@@ -67,6 +76,7 @@ def launch_counts() -> dict:
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts.update({f"{fn.__name__}_wmma": fn.launches_wmma for fn in TWO_BODIES})
     counts.update({f"{fn.__name__}_simt": fn.launches_simt for fn in SIMT_BODIES})
+    counts.update({f"{fn.__name__}_f32": fn.launches_f32 for fn in F32_BODIES})
     for body in TWOPASS_BODIES:
         for name in (body, f"{body}_wmma"):
             counts[f"folded_pool_ext_bwd_{name}"] = getattr(folded_pool_ext_bwd, f"launches_{name}")
@@ -91,6 +101,7 @@ __all__ = [
     "rect_attention_pallas",
     "KERNELS",
     "SIMT_BODIES",
+    "F32_BODIES",
     "TWO_BODIES",
     "TWOPASS_BODIES",
     "launch_counts",

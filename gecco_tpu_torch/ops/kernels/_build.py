@@ -34,7 +34,7 @@ KERNEL_SOURCES = (
     "pool", "pool_bwd", "pool_ext_wmma", "unpool_wmma", "mlp_wmma", "pool_ext_bwd_wmma",
     "unpool_bwd_wmma", "mlp_bwd_wmma", "pool_ext_bwd_v1", "pool_ext_bwd_v2", "hside_wmma",
     "pool_wmma", "pool_ext_bwd_twopass", "pool_bwd_wmma", "induced_attention_wmma",
-    "induced_attention_bwd_wmma", "unpool_mlp_wmma", "projective_gather_simt",
+    "induced_attention_bwd_wmma", "unpool_mlp_wmma", "projective_gather_simt", "f32_simt",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -96,6 +96,7 @@ import sys
 
 import torch
 
+from gecco_tpu_torch.ops.kernels import f32
 from gecco_tpu_torch.ops.kernels._build import check_cuda, launch
 from gecco_tpu_torch.ops.norms import stats_from_sums
 from gecco_tpu_torch.ops.kernels._grad import needs_grad, vjp
@@ -179,6 +180,12 @@ def _row_tile(n: int, c: int) -> int:
 def _require(cond: bool, name: str, what: str) -> None:
     if not cond:
         raise ValueError(f"{name}: the CUDA kernel needs {what}")
+
+
+def _check(name: str, tensors: dict, dtypes: dict, dt) -> None:
+    """``check_cuda`` against the bf16 bodies' ``dtypes``, or, where the
+    operands' route dtype ``dt`` is fp32, against fp32 for every one."""
+    check_cuda(name, tensors, {k: _F32 for k in tensors} if dt == _F32 else dtypes)
 
 
 # the point axis of the bodies' operands is a multiple of this (the Hopper
@@ -398,9 +405,10 @@ def _pool_wmma_block(c: int, i: int, d: int) -> int:
     return 0
 
 
-def _pool_ext_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
+def _pool_ext_body(b: int, n: int, c: int, num_heads: int, i: int, dtype=_BF16) -> str:
     """Which forward body of ``folded_pool_ext`` takes these shapes on the
-    card: "hopper" (csrc/pool_ext.cu, TMA and wgmma: I == 64, D in (16, 32,
+    card: "f32" (``f32.pool_ext_fwd``, any shape) for fp32 operands; for
+    bf16 ones "hopper" (csrc/pool_ext.cu, TMA and wgmma: I == 64, D in (16, 32,
     48, 64), H % 4 == 0, C % 64 == 0, C <= 768: ``_pool_ext_hopper_takes``;
     the flagship, the 8k width and the upsample demo's C 128) where it can,
     else "wmma"
@@ -410,6 +418,8 @@ def _pool_ext_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     and any I (a ragged I zero-padded to 16s: its padding inducers' columns
     are pooled and sliced off, the I of these conditions the padded one).
     Raises ValueError with both bodies' conditions otherwise."""
+    if dtype == _F32:
+        return "f32"
     d = c // num_heads
     i = _i_pad(i)
     common = c % num_heads == 0 and n >= 1 and (b * i) % 64 == 0
@@ -438,11 +448,14 @@ def _pool_ext_launch(x, se, be, ind2, kvw, wo, num_heads: int, stats: bool,
     b, n, c = x.shape
     j, d = ind2.shape
     i = j // num_heads
-    check_cuda(
-        name, dict(x=x, se=se, be=be, ind2=ind2, kvw=kvw, wo=wo),
-        dict(x=_BF16, se=_F32, be=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16),
-    )
-    body = body or _pool_ext_body(b, n, c, num_heads, i)
+    dt = f32.route(name, dict(x=x, ind2=ind2, kvw=kvw, wo=wo))
+    _check(name, dict(x=x, se=se, be=be, ind2=ind2, kvw=kvw, wo=wo),
+           dict(x=_BF16, se=_F32, be=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16), dt)
+    body = body or _pool_ext_body(b, n, c, num_heads, i, dt)
+    if body == "f32":
+        h0, qft, macc, sacc = f32.pool_ext_fwd(x, se, be, ind2, kvw, wo, num_heads)
+        folded_pool_ext.launches_f32 += 1
+        return (h0, qft, macc, sacc) if stats else (h0, None, None, None)
     dev = x.device
     n_pad = _n_pad(n)
     x = _pad_points(x, n_pad)
@@ -505,6 +518,7 @@ def folded_pool_ext(x, se, be, ind2, kvw, wo, num_heads: int) -> torch.Tensor:
 
 folded_pool_ext.launches = 0
 folded_pool_ext.launches_wmma = 0
+folded_pool_ext.launches_f32 = 0
 
 
 def _chain_dqf(dqf, dwv, ind2, kvw, num_heads: int) -> tuple:
@@ -650,9 +664,11 @@ def _pool_twopass_takes(b: int, n: int, c: int, num_heads: int, i: int) -> bool:
             and _twopass_smem(c, i, d) <= _MAX_SMEM)
 
 
-def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
+def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int, dtype=_BF16) -> str:
     """Which body of ``folded_pool_ext_bwd`` takes these shapes on the card.
-    Unset or "v3", ``GECCO_POOL_BWD`` gives the v3 algebra's: "hopper"
+    For fp32 operands "f32" (``f32.pool_ext_bwd``, any shape; v3 and the
+    forced v1, v2 and v2j compute the same function, so one fp32 route
+    serves them all). For bf16 ones: unset or "v3", ``GECCO_POOL_BWD`` gives the v3 algebra's: "hopper"
     (csrc/pool_ext_bwd.cu, TMA and wgmma: C in (128, 384, 768), I == 64:
     the flagship, the 8k width, the upsample demo's C 128 and three heads'
     D 128) where it can, else "wmma" (csrc/pool_ext_bwd_wmma.cu: C % 128
@@ -667,6 +683,8 @@ def _pool_ext_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     The chosen name is the counter's, ``folded_pool_ext_bwd_<name>``.
     Raises ValueError with the chosen bodies' conditions otherwise. A
     ragged I takes the bodies of its count padded to 16s."""
+    if dtype == _F32:
+        return "f32"
     d = c // num_heads
     i = _i_pad(i)
     j = num_heads * i
@@ -711,6 +729,15 @@ def folded_pool_ext_bwd(x, se, be, ind2, kvw, wo, qft, macc, sacc, g_h0,
     name = "folded_pool_ext_bwd"
     b, n, c = x.shape
     i = ind2.shape[0] // num_heads
+    dt = f32.route(name, dict(x=x, ind2=ind2, kvw=kvw, wo=wo, qft=qft))
+    if _pool_ext_bwd_body(b, n, c, num_heads, i, dt) == "f32":
+        g = g_h0.to(_F32).contiguous()
+        _check(name, dict(x=x, se=se, be=be, ind2=ind2, kvw=kvw, wo=wo, qft=qft, g=g,
+                          macc=macc, sacc=sacc), {}, _F32)
+        dx, dse, dbe, dqf, dwv, dwo = f32.pool_ext_bwd(x, se, be, qft, kvw, wo, macc, sacc, g,
+                                                       num_heads)
+        folded_pool_ext_bwd.launches_f32 += 1
+        return (dx, dse, dbe, *_chain_dqf(dqf, dwv, ind2, kvw, num_heads), dwo)
     ip = _i_pad(i)
     ind2_in, ind2 = ind2, _pad_heads(ind2, num_heads, ip)
     g = _pad_points(g_h0.to(x.dtype), ip).contiguous()
@@ -1111,6 +1138,7 @@ def _twopass_hopper(x, se, be, qft, kvw, wo, g, macc, sacc, num_heads: int,
 
 folded_pool_ext_bwd.launches = 0
 folded_pool_ext_bwd.launches_wmma = 0
+folded_pool_ext_bwd.launches_f32 = 0
 for _body in TWOPASS_BODIES:
     setattr(folded_pool_ext_bwd, f"launches_{_body}", 0)
     setattr(folded_pool_ext_bwd, f"launches_{_body}_wmma", 0)
@@ -1197,9 +1225,10 @@ def _pool_layer_sum_ref(part_p, num_heads: int) -> torch.Tensor:
     return pp.reshape(b, num_heads, i, d).permute(0, 2, 1, 3).reshape(b, i, num_heads * d)
 
 
-def _pool_layer_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
+def _pool_layer_body(b: int, n: int, c: int, num_heads: int, i: int, dtype=_BF16) -> str:
     """Which body of ``folded_pool_layer`` takes these shapes on the card:
-    "hopper" (csrc/pool.cu, TMA and wgmma: D == 48, H % 8 == 0, C <= 768;
+    "f32" (``f32.pool_layer_fwd``, any shape) for fp32 operands; for bf16
+    ones "hopper" (csrc/pool.cu, TMA and wgmma: D == 48, H % 8 == 0, C <= 768;
     the flagship's and the 8k width) where it can, else "wmma"
     (csrc/pool_wmma.cu: D % 16 == 0, C <= 2048 and a block of 16 of a head's
     columns within the SM's shared memory: ``_pool_wmma_block``, any I at C
@@ -1207,6 +1236,8 @@ def _pool_layer_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     (padded) and any I (a ragged I zero-padded to 16s, the I of these
     conditions the padded one, as in ``_pool_ext_body``). Raises ValueError
     with both bodies' conditions otherwise."""
+    if dtype == _F32:
+        return "f32"
     d = c // num_heads
     i = _i_pad(i)
     common = c % num_heads == 0 and c % 64 == 0 and (b * i) % 64 == 0 and n >= 1
@@ -1236,14 +1267,18 @@ def _pool_layer_launch(x, scale, bias, ind2, kvw, wo, gind, num_heads: int, pren
     j, d = ind2.shape
     i = j // num_heads
     groups = gind.shape[1]
-    check_cuda(
-        name, dict(x=x, scale=scale, bias=bias, ind2=ind2, kvw=kvw, wo=wo),
-        dict(x=_BF16, scale=_F32, bias=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16),
-    )
+    dt = f32.route(name, dict(x=x, ind2=ind2, kvw=kvw, wo=wo))
+    _check(name, dict(x=x, scale=scale, bias=bias, ind2=ind2, kvw=kvw, wo=wo),
+           dict(x=_BF16, scale=_F32, bias=_F32, ind2=_BF16, kvw=_BF16, wo=_BF16), dt)
     _require(tuple(gind.shape) == (c, groups) and c % groups == 0, name,
              f"gind of shape (C, G) with G dividing C = {c}, got {tuple(gind.shape)}")
-    picked = _pool_layer_body(b, n, c, num_heads, i)
+    picked = _pool_layer_body(b, n, c, num_heads, i, dt)
     body = body or picked
+    if body == "f32":
+        h0, mean_c, inv_c, saved = f32.pool_layer_fwd(x, scale, bias, ind2, kvw, wo, groups,
+                                                      num_heads, prenorm)
+        folded_pool_layer.launches_f32 += 1
+        return h0, mean_c, inv_c, saved if stats else (None, None, None, None)
     dev = x.device
     n_valid, n = n, _n_pad(n)
     x = _pad_points(x, n)
@@ -1329,6 +1364,7 @@ def folded_pool_layer(x, scale, bias, ind2, kvw, wo, gind, num_heads: int,
 
 folded_pool_layer.launches = 0
 folded_pool_layer.launches_wmma = 0
+folded_pool_layer.launches_f32 = 0
 
 
 def _pool_layer_bwd_ref(x, scale, bias, ind2, kvw, wo, gind, g_h0, g_mean, g_inv,
@@ -1386,9 +1422,11 @@ def _pool_layer_bwd_pass_smem(c: int) -> int:
             + (1 + 2 * 2 * 3) * 8 + 1024)
 
 
-def _pool_layer_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
+def _pool_layer_bwd_body(b: int, n: int, c: int, num_heads: int, i: int,
+                         dtype=_BF16) -> str:
     """Which body of ``folded_pool_layer_bwd`` takes these shapes on the
-    card: "hopper" (csrc/pool_bwd.cu, TMA, wgmma and Hopper GEMMs: D == 48,
+    card: "f32" (``f32.pool_layer_bwd``, any shape) for fp32 operands; for
+    bf16 ones "hopper" (csrc/pool_bwd.cu, TMA, wgmma and Hopper GEMMs: D == 48,
     H % 8 == 0, C in (384, 768) and B*I % 64 == 0, any I in blocks of 64
     columns; the shapes of the resident pool's Hopper forward) where it can,
     else "wmma" (csrc/pool_bwd_wmma.cu: C % 64 == 0, C <= 768, D % 16 == 0,
@@ -1398,6 +1436,8 @@ def _pool_layer_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     the padded one). The chosen name is the counter's suffix
     (``folded_pool_layer_bwd``, ``folded_pool_layer_bwd_wmma``). Raises
     ValueError with both bodies' conditions otherwise."""
+    if dtype == _F32:
+        return "f32"
     d = c // num_heads if num_heads else 0
     i = _i_pad(i)
     j = num_heads * i
@@ -1550,6 +1590,18 @@ def _pool_layer_bwd_launch(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m
     name = "folded_pool_layer_bwd"
     b, n, c = x.shape
     i_valid = ind2.shape[0] // num_heads
+    dt = f32.route(name, dict(x=x, ind2=ind2, kvw=kvw, wo=wo, y=y))
+    if (body or _pool_layer_bwd_body(b, n, c, num_heads, i_valid, dt)) == "f32":
+        g = g_h0.to(_F32).contiguous()
+        g_mean, g_inv = g_mean.float().contiguous(), g_inv.float().contiguous()
+        _check(name, dict(x=x, scale=scale, bias=bias, ind2=ind2, kvw=kvw, wo=wo, g=g,
+                          g_mean=g_mean, g_inv=g_inv, mean_c=mean_c, inv_c=inv_c, m=m, l=l,
+                          pacc=pacc, y=y), {}, _F32)
+        dx, dscale, dbias, dqf, dwv, dwo = f32.pool_layer_bwd(
+            x, scale, ind2, kvw, wo, gind.shape[1], mean_c, inv_c, m, l, pacc, y, g, g_mean,
+            g_inv, num_heads, prenorm)
+        folded_pool_layer_bwd.launches_f32 += 1
+        return (dx, dscale, dbias, *_chain_dqf(dqf, dwv, ind2, kvw, num_heads), dwo)
     i = _i_pad(i_valid)
     ind2_in, ind2 = ind2, _pad_heads(ind2, num_heads, i)
     j, d = ind2.shape
@@ -1635,6 +1687,7 @@ def _pool_layer_bwd_launch(x, scale, bias, ind2, kvw, wo, gind, mean_c, inv_c, m
 
 folded_pool_layer_bwd.launches = 0
 folded_pool_layer_bwd.launches_wmma = 0
+folded_pool_layer_bwd.launches_f32 = 0
 
 
 # ---------------------------------------------------------------- unpool --
@@ -1771,9 +1824,10 @@ def _unpool_hopper_takes(c: int, num_heads: int, i: int) -> bool:
             and _unpool_tile_smem(c) <= _MAX_SMEM)
 
 
-def _unpool_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
+def _unpool_body(b: int, n: int, c: int, num_heads: int, i: int, dtype=_BF16) -> str:
     """Which forward body of ``folded_unpool`` takes these shapes on the
-    card: "hopper" (csrc/unpool.cu, TMA and wgmma: I == 64, H even,
+    card: "f32" (``f32.unpool_fwd``, any shape) for fp32 operands; for bf16
+    ones "hopper" (csrc/unpool.cu, TMA and wgmma: I == 64, H even,
     D % 16 == 0, D <= 64, C % 64 == 0 up to 384 or C % 192 == 0 above:
     ``_unpool_hopper_takes``; the flagship, the 8k width and the upsample
     demo's C 128) where it can, else "wmma"
@@ -1783,6 +1837,8 @@ def _unpool_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     inducers, at C 768 up to 688); both take any N (padded),
     and the WMMA body any I (a ragged I zero-padded to 16s and masked).
     Raises ValueError with both bodies' conditions otherwise."""
+    if dtype == _F32:
+        return "f32"
     d = c // num_heads
     if n >= 1 and _unpool_hopper_takes(c, num_heads, i):
         return "hopper"
@@ -1810,11 +1866,13 @@ def _unpool_launch(x, se, be, k, v, wq, wo, num_heads: int, residual: bool, pren
     b, n, c = x.shape
     i = k.shape[1]
     j = num_heads * i
-    check_cuda(
-        name, dict(x=x, se=se, be=be, k=k, v=v, wq=wq, wo=wo),
-        dict(x=_BF16, se=_F32, be=_F32, k=_BF16, v=_BF16, wq=_BF16, wo=_BF16),
-    )
-    body = body or _unpool_body(b, n, c, num_heads, i)
+    dt = f32.route(name, dict(x=x, k=k, v=v, wq=wq, wo=wo))
+    _check(name, dict(x=x, se=se, be=be, k=k, v=v, wq=wq, wo=wo),
+           dict(x=_BF16, se=_F32, be=_F32, k=_BF16, v=_BF16, wq=_BF16, wo=_BF16), dt)
+    body = body or _unpool_body(b, n, c, num_heads, i, dt)
+    if body == "f32":
+        folded_unpool.launches_f32 += 1
+        return f32.unpool_fwd(x, se, be, k, v, wq, wo, num_heads, residual, prenorm)
     dev = x.device
     n_valid, n = n, _n_pad(n)
     x = _pad_points(x, n)
@@ -1872,6 +1930,7 @@ def folded_unpool(x, se, be, k, v, wq, wo, num_heads: int, residual: bool = True
 
 folded_unpool.launches = 0
 folded_unpool.launches_wmma = 0
+folded_unpool.launches_f32 = 0
 
 
 def _unpool_bwd_ref(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residual: bool = True,
@@ -1982,8 +2041,9 @@ def _unpool_bwd_wmma_tile(c: int, i: int) -> int:
     return 0
 
 
-def _unpool_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
+def _unpool_bwd_body(b: int, n: int, c: int, num_heads: int, i: int, dtype=_BF16) -> str:
     """Which body of ``folded_unpool_bwd`` takes these shapes on the card:
+    "f32" (``f32.unpool_bwd``, any shape) for fp32 operands; for bf16 ones
     "hopper" (csrc/unpool_bwd.cu, TMA and wgmma: I == 64, C % 128 == 0 and
     C <= 384 or C % 384 == 0, any H: the flagship, the 8k width, the
     upsample demo's C 128 and three heads' D 128) where it can, else
@@ -1993,6 +2053,8 @@ def _unpool_bwd_body(b: int, n: int, c: int, num_heads: int, i: int) -> str:
     688; another I, C 640); both need D % 16 == 0 and take any N (padded),
     and the WMMA body a ragged I (zero-padded to 16s and masked). Raises
     ValueError with both bodies' conditions otherwise."""
+    if dtype == _F32:
+        return "f32"
     d = c // num_heads
     ip = _i_pad(i)
     common = c % num_heads == 0 and d % 16 == 0 and n >= 1 and c % 128 == 0
@@ -2019,15 +2081,18 @@ def folded_unpool_bwd(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residu
     name = "folded_unpool_bwd"
     b, n, c = x.shape
     i = k.shape[1]
+    dt = f32.route(name, dict(x=x, k=k, v=v, wq=wq, wo=wo))
     g = g.to(x.dtype).contiguous()
     g_sums = g_sums.float().contiguous()
-    check_cuda(
-        name, dict(x=x, se=se, be=be, k=k, v=v, wq=wq, wo=wo, g=g, g_sums=g_sums),
-        dict(x=_BF16, se=_F32, be=_F32, k=_BF16, v=_BF16, wq=_BF16, wo=_BF16, g=_BF16,
-             g_sums=_F32),
-    )
-    run = _unpool_bwd_hopper if _unpool_bwd_body(b, n, c, num_heads, i) == "hopper" \
-        else _unpool_bwd_wmma
+    _check(name, dict(x=x, se=se, be=be, k=k, v=v, wq=wq, wo=wo, g=g, g_sums=g_sums),
+           dict(x=_BF16, se=_F32, be=_F32, k=_BF16, v=_BF16, wq=_BF16, wo=_BF16, g=_BF16,
+                g_sums=_F32), dt)
+    body = _unpool_bwd_body(b, n, c, num_heads, i, dt)
+    if body == "f32":
+        run = f32.unpool_bwd
+        folded_unpool_bwd.launches_f32 += 1
+    else:
+        run = _unpool_bwd_hopper if body == "hopper" else _unpool_bwd_wmma
     dx, dse, dbe, dkf, dvf = run(x, se, be, k, v, wq, wo, g, g_sums, num_heads, residual,
                                  prenorm)
     return (dx, dse, dbe, *_chain_unpool(dkf, dvf, k, v, wq, wo, num_heads))
@@ -2103,6 +2168,7 @@ def _unpool_bwd_wmma(x, se, be, k, v, wq, wo, g, g_sums, num_heads: int, residua
 
 folded_unpool_bwd.launches = 0
 folded_unpool_bwd.launches_wmma = 0
+folded_unpool_bwd.launches_f32 = 0
 
 
 # ------------------------------------------------------------- fused mlp --
@@ -2145,13 +2211,16 @@ def _mlp_hopper_takes(n: int, c: int, w: int) -> bool:
     return c % 384 == 0 and w % 384 == 0 and _n_pad(n) % 128 == 0
 
 
-def _mlp_body(b: int, n: int, c: int, w: int) -> str:
+def _mlp_body(b: int, n: int, c: int, w: int, dtype=_BF16) -> str:
     """Which body of ``fused_mlp_residual`` takes these shapes on the card:
+    "f32" (``f32.mlp_fwd``, any shape) for fp32 operands; for bf16 ones
     "hopper" (csrc/mlp.cu, TMA and wgmma: C % 384 == 0, W % 384 == 0;
     the flagship's C 384 and the 8k width's C 768) where it can, else
     "wmma" (csrc/mlp_wmma.cu: C % 16 == 0, W % 64 == 0 and a 64- or
     32-point tile; the upsample demo's C 128); both take any N (padded).
     Raises ValueError with both bodies' conditions otherwise."""
+    if dtype == _F32:
+        return "f32"
     if _mlp_hopper_takes(n, c, w):
         return "hopper"
     try:
@@ -2171,11 +2240,14 @@ def _mlp_launch(x, se, be, w1t, b1, w2t, b2):
     name = "fused_mlp_residual"
     b, n, c = x.shape
     w = w1t.shape[1]
-    check_cuda(
-        name, dict(x=x, se=se, be=be, w1t=w1t, b1=b1, w2t=w2t, b2=b2),
-        dict(x=_BF16, se=_F32, be=_F32, w1t=_BF16, b1=_F32, w2t=_BF16, b2=_F32),
-    )
-    run = _mlp_hopper if _mlp_body(b, n, c, w) == "hopper" else _mlp_wmma
+    dt = f32.route(name, dict(x=x, w1t=w1t, w2t=w2t))
+    _check(name, dict(x=x, se=se, be=be, w1t=w1t, b1=b1, w2t=w2t, b2=b2),
+           dict(x=_BF16, se=_F32, be=_F32, w1t=_BF16, b1=_F32, w2t=_BF16, b2=_F32), dt)
+    body = _mlp_body(b, n, c, w, dt)
+    if body == "f32":
+        fused_mlp_residual.launches_f32 += 1
+        return f32.mlp_fwd(x, se, be, w1t, b1, w2t, b2)
+    run = _mlp_hopper if body == "hopper" else _mlp_wmma
     out, sums = run(_pad_points(x, _n_pad(n)), se, be, w1t, b1, w2t, b2, n_valid=n)
     return _unpad(out, n), sums
 
@@ -2241,6 +2313,7 @@ def fused_mlp_residual(x, se, be, w1t, b1, w2t, b2):
 
 fused_mlp_residual.launches = 0
 fused_mlp_residual.launches_wmma = 0
+fused_mlp_residual.launches_f32 = 0
 
 
 def _mlp_bwd_ref(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
@@ -2285,13 +2358,16 @@ def _mlp_bwd_wgrad_ref(y, a, dh, gb) -> tuple:
             torch.einsum("bnw,bnc->wc", a.float(), gb.float()))
 
 
-def _mlp_bwd_body(b: int, n: int, c: int, w: int) -> str:
+def _mlp_bwd_body(b: int, n: int, c: int, w: int, dtype=_BF16) -> str:
     """Which body of ``fused_mlp_residual_bwd`` takes these shapes on the
-    card: "hopper" (csrc/mlp_bwd.cu, TMA and wgmma: C % 384 == 0, W % 384
+    card: "f32" (``f32.mlp_bwd``, any shape) for fp32 operands; for bf16
+    ones "hopper" (csrc/mlp_bwd.cu, TMA and wgmma: C % 384 == 0, W % 384
     == 0; the flagship's C 384 and the 8k width's C 768) where it can, else
     "wmma" (csrc/mlp_bwd_wmma.cu: C % 128 == 0, C <= 768, W % 64 == 0; the
     upsample demo's C 128); both take any N (padded). Raises ValueError
     with both bodies' conditions otherwise."""
+    if dtype == _F32:
+        return "f32"
     if _mlp_hopper_takes(n, c, w):
         return "hopper"
     if c % 128 == 0 and c <= 768 and w % 64 == 0 and n >= 1:
@@ -2311,14 +2387,17 @@ def fused_mlp_residual_bwd(x, se, be, w1t, b1, w2t, b2, g, g_sums) -> tuple:
     name = "fused_mlp_residual_bwd"
     b, n, c = x.shape
     w = w1t.shape[1]
+    dt = f32.route(name, dict(x=x, w1t=w1t, w2t=w2t))
     g = g.to(x.dtype).contiguous()
     g_sums = g_sums.float().contiguous()
-    check_cuda(
-        name, dict(x=x, se=se, be=be, w1t=w1t, b1=b1, w2t=w2t, b2=b2, g=g, g_sums=g_sums),
-        dict(x=_BF16, se=_F32, be=_F32, w1t=_BF16, b1=_F32, w2t=_BF16, b2=_F32, g=_BF16,
-             g_sums=_F32),
-    )
-    run = _mlp_bwd_hopper if _mlp_bwd_body(b, n, c, w) == "hopper" else _mlp_bwd_wmma
+    _check(name, dict(x=x, se=se, be=be, w1t=w1t, b1=b1, w2t=w2t, b2=b2, g=g, g_sums=g_sums),
+           dict(x=_BF16, se=_F32, be=_F32, w1t=_BF16, b1=_F32, w2t=_BF16, b2=_F32, g=_BF16,
+                g_sums=_F32), dt)
+    body = _mlp_bwd_body(b, n, c, w, dt)
+    if body == "f32":
+        fused_mlp_residual_bwd.launches_f32 += 1
+        return f32.mlp_bwd(x, se, be, w1t, b1, w2t, b2, g, g_sums)
+    run = _mlp_bwd_hopper if body == "hopper" else _mlp_bwd_wmma
     n_pad = _n_pad(n)
     dx, dse, dbe, dw1t, db1, dw2t, db2 = run(_pad_points(x, n_pad), se, be, w1t, b1, w2t, b2,
                                              _pad_points(g, n_pad), g_sums, n_valid=n)
@@ -2383,6 +2462,7 @@ def _mlp_bwd_wmma(x, se, be, w1t, b1, w2t, b2, g, g_sums, n_valid=None) -> tuple
 
 fused_mlp_residual_bwd.launches = 0
 fused_mlp_residual_bwd.launches_wmma = 0
+fused_mlp_residual_bwd.launches_f32 = 0
 
 
 # ----------------------------------------------------- fused unpool + mlp --
@@ -2526,15 +2606,19 @@ def _unpool_mlp_wmma_tile(n: int, c: int, i: int, w: int) -> int:
     return tn
 
 
-def _unpool_mlp_body(n: int, c: int, num_heads: int, i: int, w: int) -> str | None:
+def _unpool_mlp_body(n: int, c: int, num_heads: int, i: int, w: int,
+                     dtype=_BF16) -> str | None:
     """Which body of ``fused_unpool_mlp`` takes these shapes on the card:
-    "hopper" (csrc/unpool_mlp.cu, a cluster per batch element holding x' in
+    "f32" (the unpool's and the MLP's fp32 routes in turn, any shape) for
+    fp32 operands; for bf16 ones "hopper" (csrc/unpool_mlp.cu, a cluster per batch element holding x' in
     shared memory: ``_unpool_mlp_hopper_takes``; the flagship, any N up to
     2048) where it can, else "wmma" (csrc/unpool_mlp_wmma.cu, one
     cooperative launch: ``_unpool_mlp_wmma_tile``; the upsample demo's C
     128, N beyond one cluster), else None: the layer then runs the separate
     unpool and MLP kernels, as the JAX package's ``unpool_mlp_vmem_ok``
     gate does. Decided from the shapes alone, before any launch."""
+    if dtype == _F32:
+        return "f32"
     if _unpool_mlp_hopper_takes(n, c, num_heads, i, w):
         return "hopper"
     if c % num_heads == 0 and _unpool_mlp_wmma_tile(n, c, i, w):
@@ -2542,11 +2626,11 @@ def _unpool_mlp_body(n: int, c: int, num_heads: int, i: int, w: int) -> str | No
     return None
 
 
-def unpool_mlp_fits_sm(n: int, c: int, i: int, w: int, num_heads: int) -> bool:
-    """Whether a body of the megakernel takes these shapes on the card
-    (``_unpool_mlp_body``). The plain version has no such limit, so CPU
-    tensors need no gate."""
-    return _unpool_mlp_body(n, c, num_heads, i, w) is not None
+def unpool_mlp_fits_sm(n: int, c: int, i: int, w: int, num_heads: int, dtype=_BF16) -> bool:
+    """Whether a body of the megakernel takes these shapes and operand
+    dtype on the card (``_unpool_mlp_body``). The plain version has no such
+    limit, so CPU tensors need no gate."""
+    return _unpool_mlp_body(n, c, num_heads, i, w, dtype) is not None
 
 
 def _unpool_mlp_launch(x, se1, be1, k, v, wq, wo, sc2, bi2, gind, w1t, b1, w2t, b2,
@@ -2561,15 +2645,18 @@ def _unpool_mlp_launch(x, se1, be1, k, v, wq, wo, sc2, bi2, gind, w1t, b1, w2t, 
     i = k.shape[1]
     j = num_heads * i
     w = w1t.shape[1]
-    check_cuda(
-        name, dict(x=x, se1=se1, be1=be1, k=k, v=v, wq=wq, wo=wo, sc2=sc2, bi2=bi2, w1t=w1t,
-                   b1=b1, w2t=w2t, b2=b2),
-        dict(x=_BF16, se1=_F32, be1=_F32, k=_BF16, v=_BF16, wq=_BF16, wo=_BF16, sc2=_F32,
-             bi2=_F32, w1t=_BF16, b1=_F32, w2t=_BF16, b2=_F32),
-    )
+    dt = f32.route(name, dict(x=x, k=k, v=v, wq=wq, wo=wo, w1t=w1t, w2t=w2t))
+    _check(name, dict(x=x, se1=se1, be1=be1, k=k, v=v, wq=wq, wo=wo, sc2=sc2, bi2=bi2, w1t=w1t,
+                      b1=b1, w2t=w2t, b2=b2),
+           dict(x=_BF16, se1=_F32, be1=_F32, k=_BF16, v=_BF16, wq=_BF16, wo=_BF16, sc2=_F32,
+                bi2=_F32, w1t=_BF16, b1=_F32, w2t=_BF16, b2=_F32), dt)
     _require(tuple(gind.shape) == (c, num_groups), name,
              f"gind of shape (C, G) = ({c}, {num_groups}), got {tuple(gind.shape)}")
-    body = body or _unpool_mlp_body(n, c, num_heads, i, w)
+    body = body or _unpool_mlp_body(n, c, num_heads, i, w, dt)
+    if body == "f32":
+        # the unpool's and the MLP's fp32 routes, counted there
+        return _unpool_mlp_composed(x, se1, be1, k, v, wq, wo, sc2, bi2, w1t, b1, w2t, b2,
+                                    num_heads, num_groups, n_tokens)
     _require(body is not None, name,
              f"C 384, I 64, H even, D % 16 == 0, D <= 64, W % 128 == 0 and N <= 2048 (the "
              f"Hopper body), or a point tile dividing N, C % 16, I % 16 and one SM's shared "

@@ -20,8 +20,9 @@ from __future__ import annotations
 
 import torch
 
-from gecco_tpu_torch.ops.kernels._build import check_cuda, launch
-from gecco_tpu_torch.ops.kernels.folded_attention import _i_pad, _pad_points
+from gecco_tpu_torch.ops.kernels import f32
+from gecco_tpu_torch.ops.kernels._build import launch
+from gecco_tpu_torch.ops.kernels.folded_attention import _check, _i_pad, _pad_points
 from gecco_tpu_torch.ops.kernels._grad import needs_grad, vjp
 from gecco_tpu_torch.ops.norms import group_norm_stats, stats_from_sums
 
@@ -117,17 +118,20 @@ def _hside_takes(i: int, c: int, w: int, groups: int) -> bool:
             and _hside_wmma_smem(i, c) <= _MAX_SMEM)
 
 
-def _hside_body(i: int, c: int, w: int, groups: int) -> str:
-    """Which body of ``fused_h_side`` takes these shapes on the card:
-    "hopper" (csrc/hside.cu: C % 128 == 0, W % 128 == 0, C <= 2048; the
+def _hside_body(i: int, c: int, w: int, groups: int, dtype=_BF16) -> str:
+    """Which body of ``fused_h_side`` takes these shapes on the card: "f32"
+    (``f32.hside_fwd``, any shape with G dividing C) for fp32 operands; for
+    bf16 ones "hopper" (csrc/hside.cu: C % 128 == 0, W % 128 == 0, C <= 2048; the
     flagship, the 8k width, the demo, any I: a ragged I zero-padded to 16s,
     its padding rows out of both norms' statistics) where it can, else
     "wmma" (csrc/hside_wmma.cu: I in (16, 32, 48, 64), C % 16 == 0, W % 64
     == 0, its block within the SM's shared memory). Both need G dividing C.
     Raises ValueError with both bodies' conditions otherwise."""
-    if _hside_hopper_takes(_i_pad(i), c, w, groups):
+    if dtype == _F32 and c % groups == 0:
+        return "f32"
+    if dtype != _F32 and _hside_hopper_takes(_i_pad(i), c, w, groups):
         return "hopper"
-    if _hside_takes(i, c, w, groups):
+    if dtype != _F32 and _hside_takes(i, c, w, groups):
         return "wmma"
     raise ValueError(
         f"fused_h_side: no CUDA body takes I={i}, C={c}, W={w}, G={groups}: the Hopper body "
@@ -140,13 +144,16 @@ def _hside_launch(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv):
     name = "fused_h_side"
     b, i, c = h0.shape
     w = w1t.shape[1]
-    check_cuda(
-        name,
-        dict(h0=h0, s1=s1, b1n=b1n, s2=s2, b2n=b2n, w1t=w1t, b1=b1, w2t=w2t, b2=b2, wk=wk, wv=wv),
-        dict(h0=_BF16, s1=_F32, b1n=_F32, s2=_F32, b2n=_F32, w1t=_BF16, b1=_F32,
-             w2t=_BF16, b2=_F32, wk=_BF16, wv=_BF16),
-    )
-    run = _hside_hopper if _hside_body(i, c, w, gind.shape[1]) == "hopper" else _hside_wmma
+    dt = f32.route(name, dict(h0=h0, w1t=w1t, w2t=w2t, wk=wk, wv=wv))
+    _check(name,
+           dict(h0=h0, s1=s1, b1n=b1n, s2=s2, b2n=b2n, w1t=w1t, b1=b1, w2t=w2t, b2=b2, wk=wk, wv=wv),
+           dict(h0=_BF16, s1=_F32, b1n=_F32, s2=_F32, b2n=_F32, w1t=_BF16, b1=_F32, w2t=_BF16,
+                b2=_F32, wk=_BF16, wv=_BF16), dt)
+    body = _hside_body(i, c, w, gind.shape[1], dt)
+    if body == "f32":
+        fused_h_side.launches_f32 += 1
+        return f32.hside_fwd(h0, s1, b1n, s2, b2n, gind.shape[1], w1t, b1, w2t, b2, wk, wv)
+    run = _hside_hopper if body == "hopper" else _hside_wmma
     return run(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv)
 
 
@@ -220,3 +227,4 @@ def fused_h_side(h0, s1, b1n, s2, b2n, gind, w1t, b1, w2t, b2, wk, wv):
 
 fused_h_side.launches = 0
 fused_h_side.launches_wmma = 0
+fused_h_side.launches_f32 = 0

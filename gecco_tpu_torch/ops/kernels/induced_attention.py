@@ -62,6 +62,7 @@ import math
 
 import torch
 
+from gecco_tpu_torch.ops.kernels import f32
 from gecco_tpu_torch.ops.kernels._build import launch
 from gecco_tpu_torch.ops.kernels._grad import needs_grad, vjp
 
@@ -306,18 +307,25 @@ def _hopper_takes(short: tuple, long: tuple, m: int, n: int, d: int) -> bool:
 
 
 def _rect_fwd_body(q, k, v) -> str:
-    """The forward's body: "hopper" where the Hopper body takes the shapes
-    and layouts (the unpool direction, N <= 64, streams q; the pool
-    direction, M <= 64 < N, streams k and v), else "wmma"."""
+    """The forward's body: "f32" (``f32.rect_fwd``, any shape and layout)
+    for fp32 operands; for bf16 ones "hopper" where the Hopper body takes
+    the shapes and layouts (the unpool direction, N <= 64, streams q; the
+    pool direction, M <= 64 < N, streams k and v), else "wmma". Raises for
+    operands of mixed dtypes."""
+    if f32.route("rect_attention_fwd", dict(q=q, k=k, v=v)) == _F32:
+        return "f32"
     m, n, d = q.shape[2], k.shape[2], q.shape[-1]
     short, long = ((k, v), (q,)) if n <= _TILE else ((q,), (k, v))
     return "hopper" if _hopper_takes(short, long, m, n, d) else "wmma"
 
 
 def _rect_bwd_body(q, k, v, o, g) -> str:
-    """The backward's body, as ``_rect_fwd_body`` with g and o (bf16) on
-    the query side: streamed with q in the unpool direction, staged with it
-    in the pool direction."""
+    """The backward's body, as ``_rect_fwd_body`` ("f32" for fp32 q, k, v
+    and o, whatever g's dtype) with g and o (bf16) on the query side:
+    streamed with q in the unpool direction, staged with it in the pool
+    direction."""
+    if f32.route("rect_attention_bwd", dict(q=q, k=k, v=v, o=o)) == _F32:
+        return "f32"
     m, n, d = q.shape[2], k.shape[2], q.shape[-1]
     short, long = ((k, v), (q, g, o)) if n <= _TILE else ((q, g, o), (k, v))
     return "hopper" if _hopper_takes(short, long, m, n, d) else "wmma"
@@ -392,9 +400,22 @@ def rect_attention_fwd(q, k, v) -> tuple:
     the body ``_rect_fwd_body`` picks."""
     if q.device.type == "cpu":
         return _rect_attention_ref(q, k, v)
-    if _rect_fwd_body(q, k, v) == "hopper":
+    body = _rect_fwd_body(q, k, v)
+    if body == "f32":
+        return _rect_attention_fwd_f32(q, k, v)
+    if body == "hopper":
         return _rect_attention_fwd_hopper(q, k, v)
     return _rect_attention_fwd_wmma(q, k, v)
+
+
+def _rect_attention_fwd_f32(q, k, v) -> tuple:
+    """The fp32 route (``f32.rect_fwd``: csrc/f32_simt.cu), counted in
+    ``rect_attention_fwd.launches_f32``: any head width and layout."""
+    name = "rect_attention_fwd"
+    _check_cuda(name, q, dict(k=k, v=v))
+    _check_shapes(name, q, k, v)
+    rect_attention_fwd.launches_f32 += 1
+    return f32.rect_fwd(q, k, v)
 
 
 def _rect_attention_fwd_hopper(q, k, v) -> tuple:
@@ -441,6 +462,7 @@ def _rect_attention_fwd_wmma(q, k, v) -> tuple:
 
 rect_attention_fwd.launches = 0
 rect_attention_fwd.launches_wmma = 0
+rect_attention_fwd.launches_f32 = 0
 
 
 def rect_attention_bwd(q, k, v, o, lse, g) -> tuple:
@@ -451,9 +473,28 @@ def rect_attention_bwd(q, k, v, o, lse, g) -> tuple:
     the body ``_rect_bwd_body`` picks."""
     if q.device.type == "cpu":
         return _rect_attention_bwd_ref(q, k, v, g)
-    if _rect_bwd_body(q, k, v, o, g.to(_BF16)) == "hopper":
+    body = _rect_bwd_body(q, k, v, o, g if g.dtype == _F32 and o.dtype == _F32 else g.to(_BF16))
+    if body == "f32":
+        return _rect_attention_bwd_f32(q, k, v, o, lse, g)
+    if body == "hopper":
         return _rect_attention_bwd_hopper(q, k, v, o, lse, g)
     return _rect_attention_bwd_wmma(q, k, v, o, lse, g)
+
+
+def _rect_attention_bwd_f32(q, k, v, o, lse, g) -> tuple:
+    """The fp32 route (``f32.rect_bwd``: csrc/f32_simt.cu), counted in
+    ``rect_attention_bwd.launches_f32``: delta from the fp32 o and g in
+    fp32."""
+    name = "rect_attention_bwd"
+    _check_cuda(name, q, dict(k=k, v=v, o=o, lse=lse, g=g))
+    _check_shapes(name, q, k, v)
+    if o.shape != q.shape or g.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(f"{name}: o {tuple(o.shape)}, g {tuple(g.shape)} and lse "
+                         f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    if lse.dtype != _F32:
+        raise ValueError(f"{name}: lse must be {_F32}, got {lse.dtype}")
+    rect_attention_bwd.launches_f32 += 1
+    return f32.rect_bwd(q, k, v, o, lse, g)
 
 
 def _rect_attention_bwd_hopper(q, k, v, o, lse, g) -> tuple:
@@ -527,6 +568,7 @@ def _rect_attention_bwd_wmma(q, k, v, o, lse, g) -> tuple:
 
 rect_attention_bwd.launches = 0
 rect_attention_bwd.launches_wmma = 0
+rect_attention_bwd.launches_f32 = 0
 
 
 class _RectAttention(torch.autograd.Function):

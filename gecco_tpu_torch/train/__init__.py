@@ -1,5 +1,6 @@
-"""Training (counterpart of ``gecco_tpu/train``): the train step and the
-optimizer. The ``Trainer`` loop, checkpoints and CLIs are not ported yet."""
+"""Training (counterpart of ``gecco_tpu/train``): the train step, the
+optimizer and the ``Trainer`` loop; ``python -m gecco_tpu_torch.train
+<config.py>`` trains a config."""
 
 from gecco_tpu_torch.train.optim import (
     adabelief,
@@ -13,8 +14,10 @@ from gecco_tpu_torch.train.optim import (
     warmup_cosine_decay_schedule,
 )
 from gecco_tpu_torch.train.step import ema_update, make_ema, make_train_step
+from gecco_tpu_torch.train.trainer import Trainer, train
 
 __all__ = [
+    "Trainer",
     "adabelief",
     "apply_updates",
     "chain",
@@ -26,5 +29,6 @@ __all__ = [
     "make_train_step",
     "scale_by_belief",
     "scale_by_learning_rate",
+    "train",
     "warmup_cosine_decay_schedule",
 ]

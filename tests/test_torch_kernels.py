@@ -200,6 +200,7 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
         "folded_pool_ext_bwd_v1_wmma": 0, "folded_pool_ext_bwd_v2_wmma": 0,
         "folded_pool_ext_bwd_v2j_wmma": 0, "projective_gather_simt": 0,
         "projective_gather_bwd_simt": 0,
+        **{f"{fn.__name__}_f32": 0 for fn in kernels.F32_BODIES},
     }
 
 

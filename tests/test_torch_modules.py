@@ -228,4 +228,6 @@ def test_chip_smoke_rehearsal_runs_its_phases_on_the_cpu():
     assert "kernel path vs plain path: max" in res.stdout.split("== upsample path")[-1]
     assert "folded_unpool 8k width [drift] sums" in res.stdout
     assert "scores ok" in res.stdout.split("== validation")[-1]
+    assert "fp32 sums-less BroadcastingLayer, folded_pallas vs xla" in res.stdout
+    assert "resumed at step 4" in res.stdout.split("== Trainer")[-1]
     assert '"ok": true' not in res.stdout

@@ -301,9 +301,10 @@ def test_rect_switch_takes_the_wmma_body_for_other_layouts(direction, case):
     the heads adjacent and strides in multiples of 8 elements: a
     contiguous [B, H, N, D] operand there (heads not adjacent), a
     cotangent drawn so where it is streamed (the unpool direction), a row
-    stride not a multiple of 8, fp32 operands and both sides longer than
-    one 64-row tile take the WMMA bodies; the short side is staged by
-    threads and may be contiguous (or a stride-0 broadcast, above)."""
+    stride not a multiple of 8 and both sides longer than one 64-row tile
+    take the WMMA bodies; fp32 operands take the fp32 route; the short
+    side is staged by threads and may be contiguous (or a stride-0
+    broadcast, above)."""
     q, k, v, o, g = _module_operands(direction, 48)
     long_side = ("k", "v") if direction == "pool" else ("q",)
     ops = dict(q=q, k=k, v=v, o=o, g=g)
@@ -322,8 +323,8 @@ def test_rect_switch_takes_the_wmma_body_for_other_layouts(direction, case):
         ops.update({key: view for key in long_side})
         want = "wmma"
     elif case == "fp32":
-        ops.update(q=q.float(), k=k.float(), v=v.float())
-        want = "wmma"
+        ops.update(q=q.float(), k=k.float(), v=v.float(), o=o.float())
+        want = "f32"
     elif case == "both sides long":
         ops = dict(zip("qkvog", _module_operands(direction, 48, i=128)))
         want = "wmma"

@@ -46,9 +46,10 @@ Phases (each raises on failure; nothing is caught):
    [-0.1, 1.1] and on the model's own (``diffusion_to_hw`` of
    ``make_conditional_batch``'s clean clouds), and at the 137^2 pyramid of
    the dataset's renders; at the model's pyramid, on both coordinate sets,
-   the Hopper forward the same bits as its SIMT body, the Hopper backward
-   the same bits in two calls and within 1.25x the SIMT body's error, each
-   function's two bodies timed in turns with their device time, the
+   and at the renders' (34^2, 17^2, 8^2), the Hopper forward the same bits
+   as its SIMT body, the Hopper backward the same bits in two calls and
+   within 1.25x the SIMT body's error, each function's two bodies timed in
+   turns with their device time, the
    host's time to make a call, the bound from the set's touched bytes and
    ``grid_sample`` (forward, and its autograd backward) as the library
    yardstick; then ``lookup_pyramid(..., impl="pallas")`` forward and
@@ -285,7 +286,32 @@ Phases (each raises on failure; nothing is caught):
    step, exactly), and ``gecco_tpu_torch.infer`` samples 64 clouds from the
    final checkpoint's EMA weights; the steady ms/step (the 19 steps after
    the resumed run's first two loss fetches: the loader's start and the
-   first fetch window left out) and the validations' seconds.
+   first fetch window left out) and the validations' seconds;
+27. the image-conditional config: the port's
+   ``gecco_tpu_torch/configs/shapenet_vol_conditional.py`` (UVL,
+   ConvNeXt-tiny on 137^2 renders, ``RayNetwork(lookup_impl="pallas")``, 6
+   x 384 with remat, batch 48, 2048 points) trains through
+   ``gecco_tpu_torch.train.train`` on an Occupancy-Networks tree of 96 +
+   96 procedural posed objects of 24 views each, written as jpgs and read
+   back through ``ShapeNetVol``: the smoke test, 20 steps with a
+   checkpoint and a validation on one batch (SupervisedMetric,
+   LogpMetric(24), the loss), then a fresh Trainer resumes at step 20 and
+   takes 20 steps (each set-transformer forward kernel 12 times a step,
+   each backward 6, the gather's forward and backward once, exactly); the
+   renders' pyramid 34^2, 17^2, 8^2, the gather's body on it (Hopper), the
+   steady ms/step and the validations' seconds;
+28. the other new paths: the Taskonomy config's model at full width on
+   256^2 procedural images, 3 train steps; ``GlobalConditioningNetwork``
+   over a 6 x 384 backbone (embed 1 + 384, ConvNeXt-tiny in global mode)
+   samples an 8-step grid at batch 48 (held against the plain path at
+   batch 8) and takes 2 train steps; the pc15k and 8k configs' models 2
+   train steps each at their width, batch and point count (every step's
+   launches exact, its time printed); the ConvNeXt converter's pyramid
+   (a seeded torchvision-layout convnext_tiny state dict) against the
+   plain NCHW forward of the state dict in fp32; the EMD metrics on 8 pairs
+   of 2048-point clouds (``auction_emd`` against ``scipy_emd`` within 1e-5
+   relative, ``sinkhorn_emd`` on the card against the CPU at 1e-4, seconds
+   a pair) and ``BenchmarkCallback("emd")``/``("emd_exact")`` on 8 clouds.
 
 Phase 3 holds the h-side's Hopper body (``csrc/hside.cu``) at the
 flagship's, the 8k width's and the demo's shapes and at 16, 32 and 48
@@ -338,6 +364,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import os
 import re
@@ -347,6 +374,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -383,6 +411,7 @@ from gecco_tpu_torch.train import (  # noqa: E402
 )
 from gecco_tpu_torch.ops.kernels import _build  # noqa: E402
 from gecco_tpu_torch.train import trainer as trainer_mod  # noqa: E402
+from gecco_tpu_torch.types import to_device  # noqa: E402
 from gecco_tpu_torch.utils.logging import JsonlWriter  # noqa: E402
 from gecco_tpu_torch.ops.kernels import folded_attention as fa  # noqa: E402
 from gecco_tpu_torch.ops.kernels import hside as hs  # noqa: E402
@@ -2210,9 +2239,10 @@ def gather_phase(device, b, n, image_size, render_size, dt, reps):
     its plain version and the backward against autograd of the plain
     version (run in fp32 on the same inputs), at the model's pyramid on
     uniform coordinates and on the model's own, and at the renders' pyramid.
-    On the card, at the model's pyramid and on both coordinate sets, the
-    Hopper and SIMT bodies against each other (``gather_bodies``) and timed
-    in turns (``gather_times``). Then the entry point at the SIMT bodies'
+    On the card, at the model's pyramid on both coordinate sets and at the
+    renders' (records under ``_<render_size>``), the Hopper and SIMT bodies
+    against each other (``gather_bodies``) and timed in turns
+    (``gather_times``). Then the entry point at the SIMT bodies'
     widths. On the CPU the gather runs its plain version, so the rehearsal
     holds it in fp32. Returns the records and the SIMT path's counts."""
     g = torch.Generator(device=device).manual_seed(3)
@@ -2223,10 +2253,12 @@ def gather_phase(device, b, n, image_size, render_size, dt, reps):
         shapes = [tuple(lv.shape[1:]) for lv in levels]
         tag = f"{size}^2 pyramid {shapes}, {coords} coordinates"
         got, fwd_err, bwd_err, cot, yardstick = gather_checks(device, g, levels, hw01, dt, tag)
-        if size != image_size:
-            continue
-        sfx = "" if coords == "uniform" else "_model"
+        # the renders' pyramid under its size (_137), the model's coordinates
+        # under _model
+        sfx = f"_{size}" if size != image_size else ("" if coords == "uniform" else "_model")
         if device.type != "cuda":
+            if size != image_size:
+                continue
             # the rehearsal: the wrappers' plain versions, no bodies to compare
             ms = time_ms(lambda: projective_gather(levels, hw01), device, reps)
             for name, err in (("projective_gather", fwd_err), ("projective_gather_simt", fwd_err),
@@ -4051,16 +4083,19 @@ def kernel_function(name: str) -> str:
     return ids[0] if ids else name
 
 
-def device_events(run, n, device) -> tuple:
+def device_events(run, n, device, host=True) -> tuple:
     """``n`` calls of ``run`` under ``torch.profiler`` -> (wall ms per call,
     the profiler's own overhead included; {device event name: ms per
     call}), the device's own events (kernels, copies) only: a host-side
     range (an aten op, an autograd Function) also carries the device time of
-    the kernels it launched as its "self" time."""
+    the kernels it launched as its "self" time. ``host=False`` traces the
+    device alone: the host's ops are most of a long trace's events, and
+    the profiler takes minutes to sort a million (a likelihood batch's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    acts = ([ProfilerActivity.CPU] if host or device.type != "cuda" else []) + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
     sync(device)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -4138,7 +4173,7 @@ def build_conditional(device, generator, n_layers, dt=torch.bfloat16):
     )
     net = RayNetwork(backbone, reparam, f["feature_dim"], sum(CTX_DIMS), lookup_impl="pallas",
                      device=device, generator=generator)
-    cond = ConvNeXtExtractor(dt, device=device, generator=generator)
+    cond = ConvNeXtExtractor(compute_dtype=dt, device=device, generator=generator)
     # move each block's layer scale off its 1e-6 init (as the CPU parity
     # tests do), so that the blocks, not only the stem and downsamples,
     # shape the pyramid and its gradient
@@ -4506,7 +4541,7 @@ def logp_profile(run, device) -> dict:
     column sums (the forward's channel sums, the backward's bias and
     affine gradients) in a class of their own; PyTorch's own kernels (the
     glue, the h-side's backward, the ConvNeXt) the rest."""
-    wall_ms, events = device_events(run, 1, device)
+    wall_ms, events = device_events(run, 1, device, host=False)
     owner = {f: cls for cls, names in LOGP_CLASSES.items() for k in names
              for f in KERNEL_FUNCTIONS[k]}
     owner.update({f: "backward kernels: weight-gradient passes (wgrad.cuh)"
@@ -5221,11 +5256,540 @@ def trainer_phase(device, n_points, steps, save_every, val_batches, n_clouds, re
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------- phase 27: the image-conditional config --
+
+VOL_CONFIG = "gecco_tpu_torch/configs/shapenet_vol_conditional.py"
+# the config's run cut for the card: 96 training and 96 validation objects
+# of 24 views each (4608 items a split), 20 steps with a checkpoint and a
+# validation on one batch (8 in the config), then 20 steps resumed from it,
+# the loss fetched every 5
+VOL_STEPS, VOL_RESUMED, VOL_OBJECTS, VOL_VIEWS, VOL_LOSS_SYNC = 20, 20, 96, 24, 5
+# each object's cloud: make_clouds' points (0.35 std), stored at scale 0.5
+# and seen from 2 units (as make_conditional_batch places its clouds), so
+# that every point of every view lies inside the frustum
+VOL_RAW_POINTS, VOL_SCALE, VOL_DISTANCE = 3000, 0.5, 2.0
+# the rehearsal's cuts of a config's text: two layers of 64 channels, 16
+# inducers, 4 heads, batch 2, 64 points (128 at the 8k config), 3-step
+# samplers and a 2-step likelihood
+CONFIG_CUTS = (("n_layers=6", "n_layers=2"), ("n_layers=12", "n_layers=2"),
+               ("feature_dim=384", "feature_dim=64"), ("feature_dim=768", "feature_dim=64"),
+               ("num_inducers=64", "num_inducers=16"), ("num_heads=8", "num_heads=4"),
+               ("num_heads=16", "num_heads=4"), ("n_solver_steps=128", "n_solver_steps=3"),
+               ("LogpMetric(n_solver_steps=24)", "LogpMetric(n_solver_steps=2)"),
+               ("N_POINTS = 2048", "N_POINTS = 64"), ("N_POINTS = 8192", "N_POINTS = 128"),
+               ("BATCH = 48", "BATCH = 2"), ("BATCH = 16", "BATCH = 2"))
+
+
+def load_cut_config(path: str, tmp: Path, rehearse: bool):
+    """The config at ``path`` (relative to the repo's root), or, in the
+    rehearsal, a copy of its text under ``tmp`` with ``CONFIG_CUTS``
+    applied where they occur (its depth must be among them)."""
+    full = os.path.join(os.path.dirname(os.path.abspath(__file__)), path)
+    if not rehearse:
+        return load_config(full)
+    text = Path(full).read_text()
+    if not any(a in text for a, _ in CONFIG_CUTS[:2]):
+        raise AssertionError(f"rehearsal: no depth to cut in {path}")
+    for a, b in CONFIG_CUTS:
+        text = text.replace(a, b)
+    cut = tmp / Path(path).name
+    cut.write_text(text)
+    return load_config(str(cut))
+
+
+def vol_camera_mats(rng, n_views) -> dict:
+    """``cameras.npz``'s matrices for ``n_views`` views: a turn about y and a
+    tilt about x, the object ``VOL_DISTANCE`` ahead; the intrinsics of
+    ``CAMERA_K`` in pixels of the 137^2 render (the loader divides by 138)."""
+    from gecco_tpu_torch.data import CAMERA_K
+    from gecco_tpu_torch.data.shapenet_vol import IM_SIZE
+
+    mats = {}
+    for v in range(n_views):
+        a, b = 2 * np.pi * v / n_views, rng.uniform(-0.4, 0.4)
+        ry = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+        rx = np.array([[1, 0, 0], [0, np.cos(b), -np.sin(b)], [0, np.sin(b), np.cos(b)]])
+        t = np.array([[0.0], [0.0], [VOL_DISTANCE]])
+        mats[f"world_mat_{v}"] = np.concatenate([rx @ ry, t], axis=1).astype(np.float32)
+        mats[f"camera_mat_{v}"] = (CAMERA_K * np.array([[IM_SIZE + 1], [IM_SIZE + 1], [1.0]])
+                                   ).astype(np.float32)
+    return mats
+
+
+def write_vol_tree(root, n_objects, n_views, seed) -> None:
+    """An Occupancy-Networks tree of procedural objects under ``root``: one
+    synset, ``n_objects`` objects in each of its train and val lists, each
+    a cloud, ``n_views`` cameras and their 137^2 renders (jpgs of uniform
+    noise, as the conditional benchmark's images are)."""
+    from PIL import Image
+
+    from gecco_tpu_torch.data.shapenet_vol import IM_SIZE
+
+    rng = np.random.default_rng(seed)
+    synset = Path(root) / "02691156"
+    for split in ("train", "val"):
+        names = []
+        for q, cloud in enumerate(make_clouds(rng, n_objects, VOL_RAW_POINTS)):
+            obj = synset / f"{split}{q:04d}"
+            (obj / "img_choy2016").mkdir(parents=True)
+            np.savez(obj / "pointcloud.npz", points=cloud, scale=np.float32(VOL_SCALE),
+                     loc=np.zeros(3, np.float32))
+            np.savez(obj / "img_choy2016" / "cameras.npz", **vol_camera_mats(rng, n_views))
+            for v in range(n_views):
+                img = rng.integers(0, 256, (IM_SIZE, IM_SIZE, 3), dtype=np.uint8)
+                Image.fromarray(img).save(obj / "img_choy2016" / f"{v:03d}.jpg", quality=90)
+            names.append(obj.name)
+        (synset / f"{split}.lst").write_text("\n".join(names) + "\n")
+
+
+def conditional_config_phase(device, steps, resumed, n_objects, n_views, loss_sync,
+                             rehearse) -> tuple:
+    """Phase 27: the port's ShapeNet-vol conditional config trains through
+    ``gecco_tpu_torch.train.train`` on a tree of procedural posed objects
+    read back through ``ShapeNetVol`` (137^2 jpg renders, 24 views):
+    the validation smoke test, ``steps`` steps at the config's width and
+    batch with a checkpoint and a validation (SupervisedMetric,
+    LogpMetric(24), the loss) on one batch; then a fresh Trainer resumes at
+    step ``steps`` and takes ``resumed`` more, every set-transformer
+    forward kernel twice a layer and step (remat), every backward once, the
+    gather's forward and backward once a step, the gather's body named and
+    the pyramid's level sizes (34, 17, 8) checked. Returns (the resumed
+    run's counts, a record)."""
+    tmp = Path(tempfile.mkdtemp(prefix="gecco-vol-"))
+    key = "SHAPENET_VOL_ROOT"
+    keep_root = os.environ.get(key)
+    keep_val = trainer_mod.Trainer.validation_phase
+    keep_writer = trainer_mod.make_writer
+    val_seconds, fetched = [], {}
+
+    def timed_writer(path):
+        writer = JsonlWriter(path)
+        add = writer.add_scalar
+
+        def add_scalar(tag, scalar_value=None, global_step=0, **kw):
+            if tag == "train/loss":
+                fetched[global_step] = time.perf_counter()
+            add(tag, scalar_value=scalar_value, global_step=global_step, **kw)
+
+        writer.add_scalar = add_scalar
+        return writer
+
+    def timed_validation(self, *a, **kw):
+        t0 = time.perf_counter()
+        keep_val(self, *a, **kw)
+        sync(device)
+        val_seconds.append(time.perf_counter() - t0)
+
+    try:
+        t0 = time.perf_counter()
+        write_vol_tree(tmp / "data", n_objects, n_views, 27)
+        os.environ[key] = str(tmp / "data")
+        print(f"  wrote {2 * n_objects} objects x {n_views} views (137^2 jpgs) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        config = load_cut_config(VOL_CONFIG, tmp, rehearse)
+        run_dir = tmp / "run"
+        run_dir.mkdir()
+        trainer_mod.Trainer.validation_phase = timed_validation
+        trainer_mod.make_writer = timed_writer
+        print(f"  cuts: {steps} steps (config {config.NUM_STEPS}), a checkpoint and a validation "
+              f"at step {steps - 1} (config every 10000) on 1 batch (config 8), {n_objects} train "
+              f"and {n_objects} validation objects of {n_views} views; batch {config.BATCH}, "
+              f"{config.N_POINTS} points")
+        t0 = time.perf_counter()
+        first = config.train(config.make_model, config.make_train_loader(),
+                             config.make_val_loader(), str(run_dir), num_steps=steps - 1,
+                             save_every=steps, n_validation_batches=1, device=device)
+        sync(device)
+        first_s = time.perf_counter() - t0
+        names = sorted(os.listdir(run_dir))
+        print(f"  first run: {first_s:.1f} s for {steps} steps, the smoke test and "
+              f"{len(val_seconds) - 1} validation(s); run dir {names}")
+        for want in (f"checkpoint-step-{steps - 1}", f"final-checkpoint-{steps - 1}",
+                     "best-checkpoints"):
+            if want not in names:
+                raise AssertionError(f"conditional config: {want} missing from {names}")
+        if len(val_seconds) != 2:
+            raise AssertionError(f"conditional config: {len(val_seconds)} validations, expected "
+                                 f"the smoke test and one")
+
+        # the pyramid of the renders, and the gather's body on it
+        model = first.model
+        batch = to_device(next(iter(config.make_val_loader())), device)
+        with torch.no_grad():
+            ctx = model.cond(batch.ctx)
+            hw01 = model.reparam.diffusion_to_hw(
+                model.reparam.data_to_diffusion(batch.points, batch.ctx), ctx.K)
+        sizes = [tuple(f.shape[1:3]) for f in ctx.features]
+        body = _gather_body(list(ctx.features), hw01)
+        print(f"  the renders' pyramid {[tuple(f.shape[1:]) for f in ctx.features]} "
+              f"({str(ctx.features[0].dtype)}); the gather's body on it: {body}")
+        if sizes != [(34, 34), (17, 17), (8, 8)]:
+            raise AssertionError(f"conditional config: pyramid sizes {sizes}")
+        if device.type == "cuda" and body != "hopper":
+            raise AssertionError(f"conditional config: the gather takes its {body} body")
+        del first, model, ctx, batch
+
+        resume = trainer_mod.Trainer(
+            model=config.make_model, train_dataloader=config.make_train_loader(),
+            val_dataloader=config.make_val_loader(), save_path=str(run_dir),
+            save_every=steps * 100, num_steps=steps + resumed - 1,
+            optimizer=conditional_optimizer(), skip_smoke_test=True, loss_sync_every=loss_sync,
+            device=device)
+        resume.recover_from_checkpoint(fail_if_unavailable=True)
+        if resume.initial_step_number != steps:
+            raise AssertionError(f"conditional config resumed at step "
+                                 f"{resume.initial_step_number}, expected {steps}")
+        fetched.clear()
+        sync(device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        resume.fit()
+        sync(device)
+        resumed_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        n_layers = len(resume.model.network.backbone.layers)
+        expected = {k: 2 * n_layers * resumed for k in SET_FORWARD}
+        expected.update({k: n_layers * resumed for k in FOLDED_BACKWARD})
+        expected.update({k: resumed for k in GATHER})
+        if not rehearse:
+            check_counts("resumed conditional Trainer", counts, expected_counts(expected), device)
+        if f"final-checkpoint-{steps + resumed - 1}" not in os.listdir(run_dir):
+            raise AssertionError("conditional config: the resumed run wrote no final checkpoint")
+        first_fetch, last = steps + loss_sync, steps + resumed - 1
+        if sorted(fetched) != list(range(steps, last + 1)) or last <= first_fetch:
+            raise AssertionError(f"conditional config: losses fetched for {sorted(fetched)}")
+        ms = 1e3 * (fetched[last] - fetched[first_fetch]) / (last - first_fetch)
+        print(f"  resumed at step {steps}: {resumed} steps in {resumed_s:.3f} s, the loss fetched "
+              f"every {loss_sync}; steady {ms:.3f} ms/step over steps {first_fetch + 1}-{last} "
+              f"(host clock between the fetches' returns); validation {val_seconds[1]:.3f} s "
+              f"(one batch of each metric), the smoke test's two batches {val_seconds[0]:.3f} s")
+        return counts, dict(ms_per_step=ms, resumed_s=resumed_s, val_seconds=val_seconds,
+                            first_s=first_s, body=body)
+    finally:
+        trainer_mod.Trainer.validation_phase = keep_val
+        trainer_mod.make_writer = keep_writer
+        if keep_root is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = keep_root
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------ phase 28: the other new paths --
+
+TASK_CONFIG = "gecco_tpu_torch/configs/taskonomy_conditional.py"
+PC15K_CONFIG = "gecco_tpu_torch/configs/shapenet_pc15k_all.py"
+SCALED_CONFIG = "gecco_tpu_torch/configs/shapenet_scaled_8k.py"
+# the train steps each model of phase 28 takes (after one untimed step),
+# the global model's sampler grid, the EMD's clouds
+OTHER_STEPS, GLOBAL_SAMPLE_STEPS, EMD_PAIRS = (3, 2), 8, 8
+# the points of the auction's comparison with its iterations issued one by
+# one (host-bound: ~1 ms an iteration on the card)
+EMD_EAGER_POINTS = 256
+# auction_emd's totals against scipy's Hungarian (tests/test_metrics.py's);
+# sinkhorn on the card against the same call on the CPU: fp32 sums over 2048
+# points in other orders, through 100 iterations
+TOL_EMD, TOL_SINKHORN = 1e-5, 1e-4
+# the converter's pyramid against the plain NCHW forward of the same state
+# dict, both fp32 (no TF32): convolutions and GEMMs summing in other orders
+TOL_CONVERTER = 1e-4
+
+
+def convnext_state_dict(g, size: str) -> dict:
+    """A torchvision ``convnext_<size>`` state dict of seeded values, every
+    stage (the clipped one too), on the generator's device."""
+    from gecco_tpu_torch.models.convnext import CONVNEXT_CONFIGS
+
+    depths, widths = CONVNEXT_CONFIGS[size]
+    dev = g.device
+    rnd = lambda *s: 0.1 * torch.randn(*s, generator=g, device=dev)
+    pos = lambda *s: 0.5 + torch.rand(*s, generator=g, device=dev)
+    state = {"features.0.0.weight": rnd(widths[0], 3, 4, 4), "features.0.0.bias": rnd(widths[0]),
+             "features.0.1.weight": pos(widths[0]), "features.0.1.bias": rnd(widths[0])}
+    for k, (d, w) in enumerate(zip(depths, widths)):
+        for q in range(d):
+            p = f"features.{2 * k + 1}.{q}"
+            state.update({
+                f"{p}.block.0.weight": rnd(w, 1, 7, 7), f"{p}.block.0.bias": rnd(w),
+                f"{p}.block.2.weight": pos(w), f"{p}.block.2.bias": rnd(w),
+                f"{p}.block.3.weight": rnd(4 * w, w) / 4, f"{p}.block.3.bias": rnd(4 * w),
+                f"{p}.block.5.weight": rnd(w, 4 * w) / 8, f"{p}.block.5.bias": rnd(w),
+                f"{p}.layer_scale": 0.3 * torch.rand(w, 1, 1, generator=g, device=dev)})
+        if k + 1 < len(widths):
+            p = f"features.{2 * k + 2}"
+            state.update({f"{p}.0.weight": pos(w), f"{p}.0.bias": rnd(w),
+                          f"{p}.1.weight": rnd(widths[k + 1], w, 2, 2) / 4,
+                          f"{p}.1.bias": rnd(widths[k + 1])})
+    return state
+
+
+def plain_convnext(state, x, depths):
+    """The state dict's ConvNeXt in NCHW, as torchvision computes it, one
+    map a stage of ``depths``."""
+    import torch.nn.functional as F
+
+    def ln(y, w, b):
+        return F.layer_norm(y.permute(0, 2, 3, 1), y.shape[1:2], w, b, 1e-6).permute(0, 3, 1, 2)
+
+    x = ln(F.conv2d(x, state["features.0.0.weight"], state["features.0.0.bias"], stride=4),
+           state["features.0.1.weight"], state["features.0.1.bias"])
+    maps = []
+    for k, d in enumerate(depths):
+        for q in range(d):
+            p = f"features.{2 * k + 1}.{q}"
+            y = F.conv2d(x, state[f"{p}.block.0.weight"], state[f"{p}.block.0.bias"], padding=3,
+                         groups=x.shape[1]).permute(0, 2, 3, 1)
+            y = F.layer_norm(y, y.shape[-1:], state[f"{p}.block.2.weight"],
+                             state[f"{p}.block.2.bias"], 1e-6)
+            y = F.linear(F.gelu(F.linear(y, state[f"{p}.block.3.weight"],
+                                         state[f"{p}.block.3.bias"])),
+                         state[f"{p}.block.5.weight"], state[f"{p}.block.5.bias"])
+            x = x + state[f"{p}.layer_scale"] * y.permute(0, 3, 1, 2)
+        maps.append(x)
+        if k + 1 < len(depths):
+            p = f"features.{2 * k + 2}"
+            x = F.conv2d(ln(x, state[f"{p}.0.weight"], state[f"{p}.0.bias"]),
+                         state[f"{p}.1.weight"], state[f"{p}.1.bias"], stride=2)
+    return maps
+
+
+def model_steps(what, model, batches, opt, steps, device, expect) -> dict:
+    """``steps`` timed train steps of ``model`` after one untimed step, on
+    ``batches`` [(points, raw_ctx)]: their launch counts exactly
+    ``expect(steps)``, the losses finite; returns ms/step and the counts."""
+    ema = make_ema(model)
+    opt_state = opt.init(list(model.parameters()))
+    step = make_train_step(opt, ema_alpha=0.999)
+    gen = torch.Generator(device=device).manual_seed(28)
+    pts, raw = batches[0]
+    loss, opt_state = step(model, ema, opt_state, pts, gen, raw_ctx=raw)
+    sync(device)
+    kernels.reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for q in range(steps):
+        pts, raw = batches[q % len(batches)]
+        loss, opt_state = step(model, ema, opt_state, pts, gen, raw_ctx=raw)
+        losses.append(loss)
+    sync(device)
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    counts = kernels.launch_counts()
+    losses = [float(v) for v in losses]
+    print(f"  {what}: {steps} train steps at batch {pts.shape[0]} x {pts.shape[1]} points: "
+          f"{ms:.3f} ms/step; losses {' '.join(f'{v:.4f}' for v in losses)}")
+    check_finite(losses, model, ema)
+    check_counts(what, counts, expected_counts(expect(steps)), device)
+    return dict(ms_per_step=ms, counts=counts)
+
+
+def layer_counts(model, steps, evals=0) -> dict:
+    """The set-transformer kernels' launches of ``steps`` train steps (remat:
+    the forwards twice) and ``evals`` evaluations without a gradient."""
+    backbone = model.network.backbone
+    n = len(backbone.layers)
+    out = {k: n * (steps * (2 if backbone.remat else 1) + evals) for k in SET_FORWARD}
+    out.update({k: n * steps for k in FOLDED_BACKWARD})
+    return out
+
+
+def emd_checks(device, n_points, pairs, rehearse) -> dict:
+    """The EMD metrics on ``pairs`` pairs of ``n_points``-point procedural
+    clouds: ``auction_emd``'s totals against ``scipy_emd``'s (both matching
+    on the card's distance matrices), ``sinkhorn_emd`` on the card against
+    the same call on the CPU, each one's seconds a pair; then
+    ``BenchmarkCallback("emd")`` and ``("emd_exact")`` on ``pairs`` clouds
+    against perturbed copies."""
+    from gecco_tpu_torch import metrics as metrics_mod
+    from gecco_tpu_torch.benchmark import BenchmarkCallback
+    from gecco_tpu_torch.geometry import distance_matrix
+    from gecco_tpu_torch.metrics import auction_emd, auction_lsa, scipy_emd, sinkhorn_emd
+
+    rng = np.random.default_rng(28)
+    a = torch.from_numpy(make_clouds(rng, pairs, n_points)).to(device)
+    b = torch.from_numpy(make_clouds(rng, pairs, n_points)).to(device)
+    rec = {}
+    for name, fn in (("auction_emd", auction_emd), ("scipy_emd", scipy_emd),
+                     ("sinkhorn_emd", sinkhorn_emd)):
+        sync(device)
+        t0 = time.perf_counter()
+        rec[name] = fn(a, b)
+        sync(device)
+        rec[f"{name}_s_per_pair"] = (time.perf_counter() - t0) / pairs
+    check("auction_emd's totals against scipy_emd's (Hungarian), worst pair",
+          float(((rec["auction_emd"] - rec["scipy_emd"]).abs() / rec["scipy_emd"].abs()).max()),
+          TOL_EMD, "|err|/|ref|")
+    # the auction's captured iterations against the same iterations issued
+    # one by one, on the same costs: the same columns
+    cost = distance_matrix(a[:4, :EMD_EAGER_POINTS], b[:4, :EMD_EAGER_POINTS])
+    cols = auction_lsa(cost)
+    keep = metrics_mod._AUCTION_GRAPHS
+    try:
+        metrics_mod._AUCTION_GRAPHS = False
+        eager = auction_lsa(cost)
+    finally:
+        metrics_mod._AUCTION_GRAPHS = keep
+    same = bool(torch.equal(cols, eager))
+    print(f"  auction_lsa at {EMD_EAGER_POINTS} points, 4 pairs: the replayed iterations (CUDA "
+          f"graphs on the card) {'the same columns as' if same else 'DIFFER from'} the "
+          f"iterations issued one by one")
+    if not same:
+        raise AssertionError("auction_lsa: the captured iterations differ from the eager ones")
+    print(f"  EMD of {pairs} pairs of {n_points}-point clouds: auction "
+          f"{rec['auction_emd_s_per_pair']:.3f} s a pair, scipy (Hungarian on the host) "
+          f"{rec['scipy_emd_s_per_pair']:.3f}, sinkhorn {rec['sinkhorn_emd_s_per_pair']:.4f}; "
+          f"totals {' '.join(f'{v:.5f}' for v in rec['auction_emd'].tolist())}")
+    data = make_clouds(rng, pairs, n_points)
+    samples = (data + 0.05 * rng.standard_normal(data.shape)).astype(np.float32)
+    # Sinkhorn's CPU reference (~30 s on the card's host at 2048 points)
+    # runs beside the callbacks, which wait on the card
+    with ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(sinkhorn_emd, a.cpu(), b.cpu())
+        for name in ("emd", "emd_exact"):
+            sync(device)
+            t0 = time.perf_counter()
+            cb = BenchmarkCallback(data, batch_size=pairs, distance_fn=name, device=device)
+            scalars, _ = cb.call_without_logging(samples)
+            seconds = time.perf_counter() - t0
+            if not all(np.isfinite(v) for v in scalars.values()) or not np.isfinite(cb.d_dd).all():
+                raise AssertionError(f"BenchmarkCallback({name!r}): {scalars}")
+            print(f"  BenchmarkCallback({name!r}) on {pairs} clouds ({3 * pairs * pairs} "
+                  f"distances; the CPU's Sinkhorn beside it): {seconds:.3f} s; "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in scalars.items()))
+            rec[f"callback_{name}_s"] = seconds
+        cpu = cpu.result()
+    check("sinkhorn_emd on the card against the same call on the CPU, worst pair",
+          float(((rec["sinkhorn_emd"].cpu() - cpu).abs() / cpu.abs()).max()), TOL_SINKHORN,
+          "|err|/|ref|")
+    return rec
+
+
+def other_paths_phase(device, image_size, rehearse) -> dict:
+    """Phase 28: the Taskonomy config's model at full width on
+    ``image_size``^2 procedural images takes train steps;
+    ``GlobalConditioningNetwork`` over a full-width backbone (embed 1 +
+    384) samples an 8-step grid against the plain path and takes train
+    steps; the pc15k and 8k configs' models take train steps at their
+    width, batch and point count; the converter's pyramid against the
+    plain NCHW forward of a seeded ConvNeXt-tiny state dict; the EMD
+    metrics. Every step's launches exact. Returns {name: record}."""
+    from gecco_tpu_torch.models import GlobalConditioningNetwork
+    from gecco_tpu_torch.models.convnext import CONVNEXT_CONFIGS, ConvNeXt, \
+        load_torchvision_state_dict
+    from gecco_tpu_torch.train import adabelief, chain, clip_by_global_norm
+
+    tmp = Path(tempfile.mkdtemp(prefix="gecco-configs-"))
+    out, (steps, short) = {}, OTHER_STEPS
+    gen = lambda s: torch.Generator().manual_seed(s)
+    try:
+        # the Taskonomy config's model (remat; mlp_blowup 2)
+        config = load_cut_config(TASK_CONFIG, tmp, rehearse)
+        model = config.make_model(gen(0), device=device)
+        batches = conditional_batches(device, 2, config.BATCH, config.N_POINTS, image_size, 28)
+        out["taskonomy"] = model_steps(
+            "taskonomy_conditional model", model, batches, conditional_optimizer(), steps, device,
+            lambda s: dict(layer_counts(model, s), projective_gather=s,
+                           projective_gather_bwd=s))
+        del model
+
+        # GlobalConditioningNetwork over the flagship-width backbone
+        c_last = CONVNEXT_CONFIGS["tiny"][1][2]
+        batch, n_points = config.BATCH, config.N_POINTS
+        width = 64 if rehearse else FLAGSHIP["feature_dim"]
+        f = dict(FLAGSHIP, feature_dim=width, n_layers=2 if rehearse else FLAGSHIP["n_layers"],
+                 num_inducers=16 if rehearse else 64, num_heads=4 if rehearse else 8)
+        backbone = SetTransformer(f["n_layers"], width, f["num_inducers"], embed_dim=1 + c_last,
+                                  num_heads=f["num_heads"], compute_dtype=torch.bfloat16,
+                                  attn_impl="folded_pallas", device=device, generator=gen(1))
+        net = GlobalConditioningNetwork(backbone, width, device=device, generator=gen(1))
+        cond = ConvNeXtExtractor("tiny", "global", device=device, generator=gen(1))
+        for name, p in cond.named_parameters():  # the blocks shape the map too
+            if name.endswith("layer_scale"):
+                with torch.no_grad():
+                    p.add_(0.3 * torch.randn(p.shape, generator=gen(2)).to(device))
+        model = Diffusion(net, LogUniformSchedule(sigma_max=165.0, n_solver_steps=N_STEPS),
+                          reparam=GaussianReparam([0.0, 0.0, 2.0], [0.18] * 3, device=device),
+                          cond=cond)
+        (pts, raw), = conditional_batches(device, 1, batch, n_points, image_size, 29)
+        g = torch.Generator(device=device).manual_seed(30)
+        model.sample(g, tuple(pts.shape), raw_ctx=raw, n_solver_steps=3)  # warm-up
+        sync(device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        sample = model.sample(g, tuple(pts.shape), raw_ctx=raw, n_solver_steps=GLOBAL_SAMPLE_STEPS)
+        sync(device)
+        sample_s = time.perf_counter() - t0
+        evals = 2 * (GLOBAL_SAMPLE_STEPS - 1)
+        if not bool(torch.isfinite(sample).all()):
+            raise AssertionError("global model: non-finite samples")
+        print(f"  GlobalConditioningNetwork ({f['n_layers']} x {width}, embed 1 + {c_last}): "
+              f"{GLOBAL_SAMPLE_STEPS}-step sample at batch {batch} in {sample_s:.3f} s "
+              f"({evals} evaluations)")
+        check_counts("global model's sampler", kernels.launch_counts(),
+                     expected_counts(layer_counts(model, 0, evals)), device)
+        small = min(8, batch)
+        latent = model.schedule.sample_latent(g, (small, n_points, 3), device)
+        raw_small = Context3d(image=raw.image[:small], K=raw.K[:small])
+        diffs = []
+        for fused in (True, False):
+            set_path(model, fused)
+            diffs.append(model.sample_from_latent(latent, raw_ctx=raw_small,
+                                                  n_solver_steps=GLOBAL_SAMPLE_STEPS,
+                                                  return_details=True).sample_diff)
+        set_path(model, True)
+        check(f"{GLOBAL_SAMPLE_STEPS}-step global-model sample (diffusion space), kernel path vs "
+              f"plain path", rel_err(*diffs), TOL_PATH)
+        out["global"] = model_steps(
+            "global model", model, [(pts, raw)], conditional_optimizer(), short, device,
+            lambda s: layer_counts(model, s))
+        out["global"]["sample_s"] = sample_s
+        del model, net, backbone, cond
+
+        # the pc15k and 8k configs' models at their width, batch and points
+        plain_opt = lambda: chain(clip_by_global_norm(1.0), adabelief(3e-4))
+        rng = np.random.default_rng(31)
+        for key_, path in (("pc15k", PC15K_CONFIG), ("scaled_8k", SCALED_CONFIG)):
+            config = load_cut_config(path, tmp, rehearse)
+            model = config.make_model(gen(3), device=device)
+            pts = torch.from_numpy(make_clouds(rng, config.BATCH, config.N_POINTS)).to(device)
+            out[key_] = model_steps(f"{Path(path).stem} model", model, [(pts, None)],
+                                    plain_opt(), short, device, lambda s: layer_counts(model, s))
+            del model
+
+        # the converter: a seeded convnext_tiny state dict, fp32
+        g = torch.Generator(device=device).manual_seed(32)
+        state = convnext_state_dict(g, "tiny")
+        depths = CONVNEXT_CONFIGS["tiny"][0][:3]
+        convnext = ConvNeXt("tiny", compute_dtype=torch.float32, device=device, generator=gen(4))
+        load_torchvision_state_dict(convnext, state)
+        from gecco_tpu_torch.data.shapenet_vol import IM_SIZE
+
+        images = torch.rand(8, IM_SIZE, IM_SIZE, 3, generator=g, device=device)
+        with torch.no_grad():
+            maps = convnext(images)
+            plain = plain_convnext(state, images.permute(0, 3, 1, 2), depths)
+        for q, (m, p) in enumerate(zip(maps, plain)):
+            check(f"converted convnext_tiny, stage {q} {tuple(m.shape[1:])} against the plain NCHW "
+                  f"forward of the state dict (fp32)", rel_err(m, p.permute(0, 2, 3, 1)),
+                  TOL_CONVERTER)
+        del convnext, state, maps, plain
+
+        out["emd"] = emd_checks(device, 128 if rehearse else FLAGSHIP["n_points"],
+                                2 if rehearse else EMD_PAIRS, rehearse)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny shapes on the CPU (plain versions), then exit 1 without a result")
     args = ap.parse_args()
+    t_start = time.perf_counter()
+
+    def stage(text: str) -> None:
+        """A phase's header, with the seconds since the script started."""
+        print(f"== {text} [{time.perf_counter() - t_start:.0f} s]", flush=True)
 
     if args.rehearse:
         device = torch.device("cpu")
@@ -5248,6 +5812,7 @@ def main():
         f32_batch, f32_layers = 2, 2
         trainer_cfg = dict(steps=4, save_every=2, val_batches=1, n_clouds=8, resumed=3,
                            loss_sync=1, n_infer=3, infer_batch=2, n_steps=2)
+        vol_cfg = dict(steps=4, resumed=3, n_objects=2, n_views=VOL_VIEWS, loss_sync=1)
     else:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")
@@ -5274,10 +5839,12 @@ def main():
                            resumed=TRAINER_RESUMED, loss_sync=TRAINER_LOSS_SYNC,
                            n_infer=TRAINER_INFER,
                            infer_batch=TRAINER_INFER, n_steps=None)
+        vol_cfg = dict(steps=VOL_STEPS, resumed=VOL_RESUMED, n_objects=VOL_OBJECTS,
+                       n_views=VOL_VIEWS, loss_sync=VOL_LOSS_SYNC)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    print("== environment")
+    stage("environment")
     print(f"  torch {torch.__version__}, cuda {torch.version.cuda}")
     card = "cpu rehearsal"
     if device.type == "cuda":
@@ -5285,7 +5852,7 @@ def main():
         card = sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader")
         card = card.splitlines()[0]
 
-    print("== build")
+    stage("build")
     if device.type == "cuda":
         t0 = time.perf_counter()
         reports = _build.build_all()
@@ -5301,41 +5868,41 @@ def main():
                 elif "registers" in line or "spill" in line:
                     print(f"  {name} {entry}: {line.strip()}")
 
-    print(f"== forward kernels vs plain versions ({shapes}; 8k pool {big}; both pool and "
+    stage(f"forward kernels vs plain versions ({shapes}; 8k pool {big}; both pool and "
           f"unpool bodies at {demo}, the WMMA bodies at {heads3}) on {card}")
     rec = kernel_phase(device, shapes, big, demo, heads3, dt, reps)
 
     train_shapes = dict(shapes, batch=train_batch)
-    print(f"== backward kernels vs autograd of the plain versions ({train_shapes}; "
+    stage(f"backward kernels vs autograd of the plain versions ({train_shapes}; "
           f"8k pool {big}; the Hopper and WMMA pool and unpool backwards at {demo} and "
           f"{dict(heads3, batch=train_batch)}) on {card}")
     rec.update(backward_phase(device, train_shapes, big, demo, dict(heads3, batch=train_batch),
                               dt, reps))
 
-    print(f"== projective gather vs plain versions (batch {cond_batch}, {n_points} points; "
+    stage(f"projective gather vs plain versions (batch {cond_batch}, {n_points} points; "
           f"pyramids of {image_size}^2 and {render_size}^2 images) on {card}")
     gather_rec, gather_simt_counts = gather_phase(device, cond_batch, n_points, image_size,
                                                   render_size, dt, reps)
     rec.update(gather_rec)
 
-    print(f"== per-head attention and megakernel vs plain versions (sampler batch "
+    stage(f"per-head attention and megakernel vs plain versions (sampler batch "
           f"{shapes['batch']}, training batch {train_batch}; 8k {big}) on {card}")
     rec.update(attention_phase(device, shapes, train_batch, big, dt, reps, ragged_ns[0]))
 
-    print(f"== resident pool and flag-free unpool vs plain versions (sampler batch "
+    stage(f"resident pool and flag-free unpool vs plain versions (sampler batch "
           f"{shapes['batch']}, training batch {train_batch}; 8k {big}) on {card}")
     rec.update(resident_pool_phase(device, shapes, train_batch, big, dt, reps))
 
-    print(f"== sampler path: flagship x{n_layers} layers, batch {batch}, {n_points} points, "
+    stage(f"sampler path: flagship x{n_layers} layers, batch {batch}, {n_points} points, "
           f"{n_steps}-step Heun, on {card}")
     counts, path, _ = main_path(device, batch, n_points, n_layers, n_steps, compare_batch=8)
     print(f"  {path['clouds_per_s']:.3f} clouds/s on {card}")
 
-    print(f"== training path: flagship x{n_layers} layers, batch {train_batch}, {n_points} "
+    stage(f"training path: flagship x{n_layers} layers, batch {train_batch}, {n_points} "
           f"points, {train_steps[0]} + {train_steps[1]} steps, on {card}")
     train_counts, train = train_phase(device, n_layers, train_batch, n_points, card, train_steps)
 
-    print(f"== conditional sampler path: ConvNeXt-tiny + RayNetwork + x{n_layers} layers, "
+    stage(f"conditional sampler path: ConvNeXt-tiny + RayNetwork + x{n_layers} layers, "
           f"batch {cond_batch}, {image_size}^2 images, {n_points} points, {n_steps}-step Heun, "
           f"on {card}")
     cond_counts, cond_path = conditional_sample_path(
@@ -5343,13 +5910,13 @@ def main():
         reps=reps)
     print(f"  {cond_path['clouds_per_s']:.3f} clouds/s on {card}")
 
-    print(f"== conditional training path: x{n_layers} layers with remat, batch {cond_batch}, "
+    stage(f"conditional training path: x{n_layers} layers with remat, batch {cond_batch}, "
           f"{image_size}^2 images, {n_points} points, {train_steps[0]} + {train_steps[1]} steps, "
           f"on {card}")
     cond_train_counts, cond_train = conditional_train_phase(
         device, n_layers, cond_batch, n_points, image_size, card, train_steps)
 
-    print(f"== per-head sampler path: flagship x{n_layers} layers, attn_impl=\"pallas\", batch "
+    stage(f"per-head sampler path: flagship x{n_layers} layers, attn_impl=\"pallas\", batch "
           f"{batch}, {n_points} points, {n_steps}-step Heun, on {card}")
     ph_counts, ph_path, _ = main_path(
         device, batch, n_points, n_layers, n_steps, compare_batch=8, attn_impl="pallas",
@@ -5357,12 +5924,12 @@ def main():
         expect=lambda evals: {"rect_attention_fwd": 2 * n_layers * evals})
     print(f"  {ph_path['clouds_per_s']:.3f} clouds/s on {card}")
 
-    print(f"== per-head training path: flagship x{n_layers} layers, attn_impl=\"pallas\", batch "
+    stage(f"per-head training path: flagship x{n_layers} layers, attn_impl=\"pallas\", batch "
           f"{train_batch}, {n_points} points, {train_steps[0]} + {train_steps[1]} steps, on {card}")
     ph_train_counts, ph_train = train_phase(device, n_layers, train_batch, n_points, card,
                                             train_steps, attn_impl="pallas")
 
-    print(f"== megakernel sampler path: flagship x{n_layers} layers, folded_pallas with "
+    stage(f"megakernel sampler path: flagship x{n_layers} layers, folded_pallas with "
           f"GECCO_UNPOOL_MLP_MEGAKERNEL=1, batch {batch}, {n_points} points, {n_steps}-step Heun, "
           f"on {card}")
     mega_counts, mega_path, mega_demo_counts, mega_demo_path = megakernel_path(
@@ -5371,23 +5938,23 @@ def main():
     print(f"  {mega_path['clouds_per_s']:.3f} clouds/s on {card} (the demo model through the "
           f"WMMA body: {mega_demo_path['clouds_per_s']:.3f} clouds/s)")
 
-    print(f"== module-level folded path: Broadcast and BroadcastingLayer at C "
+    stage(f"module-level folded path: Broadcast and BroadcastingLayer at C "
           f"{shapes['feature_dim']}, {shapes['num_heads']} heads, {shapes['num_inducers']} "
           f"inducers, {n_points} points (batch {shapes['batch']}, gradient at {train_batch}) "
           f"on {card}")
     module_counts, prenorm_counts = module_phase(device, dict(shapes, n_points=n_points),
                                                  train_batch, dt)
 
-    print(f"== upsample path: flagship x{n_layers} layers, one {n_points}-point cloud to "
+    stage(f"upsample path: flagship x{n_layers} layers, one {n_points}-point cloud to "
           f"{upsample['n_new']} points, {upsample['n_steps']}-step extended grid, "
           f"{upsample['n_substeps']} substeps, churn 0.5, on {card}")
     up_counts, up_path = upsample_path(device, n_layers, n_points, **upsample)
 
-    print(f"== validation: gecco_tpu_torch.validate's loop, then one eval of the EMA model's "
+    stage(f"validation: gecco_tpu_torch.validate's loop, then one eval of the EMA model's "
           f"samples against held-out clouds, on {card}")
     val = validate_phase(device, args.rehearse)
 
-    print(f"== demo sampler path: scripts/demo_upsample_100k.py's model ({demo_dims}), batch "
+    stage(f"demo sampler path: scripts/demo_upsample_100k.py's model ({demo_dims}), batch "
           f"{demo['batch']}, {n_steps}-step Heun (the Hopper pool and unpool, the MLP's WMMA "
           f"body), on {card}")
     demo_counts, demo_path, _ = main_path(
@@ -5398,14 +5965,14 @@ def main():
                                "fused_mlp_residual_wmma")})
     print(f"  {demo_path['clouds_per_s']:.3f} clouds/s on {card}")
 
-    print(f"== demo training path: scripts/demo_upsample_100k.py's model ({demo_dims}), batch "
+    stage(f"demo training path: scripts/demo_upsample_100k.py's model ({demo_dims}), batch "
           f"{train_batch}, {train_steps[0]} + {train_steps[1]} steps (the Hopper pool and unpool "
           f"backwards, the MLP backward's WMMA body); then one gradient with three heads "
           f"({heads3_dims}), on {card}")
     demo_train_counts, heads3_counts, demo_train = demo_train_phase(
         device, demo_dims, train_batch, heads3_dims, card, train_steps)
 
-    print(f"== training path with the pool backward forced to v1, v2 and v2j: flagship "
+    stage(f"training path with the pool backward forced to v1, v2 and v2j: flagship "
           f"x{n_layers} layers, batch {train_batch}, {n_points} points, {twopass_steps[0]} + "
           f"{twopass_steps[1]} steps each, on {card}")
     twopass_train = twopass_train_phase(device, n_layers, train_batch, n_points, card,
@@ -5418,7 +5985,7 @@ def main():
             v3_train_device_ms_per_step=train["device_ms_per_step"],
             train_wall_ms_per_step_host_bound=tp["ms_per_step"])
 
-    print(f"== shapes of the wider kernel instances (ROADMAP C1): x{n_layers} layers, 8-step "
+    stage(f"shapes of the wider kernel instances (ROADMAP C1): x{n_layers} layers, 8-step "
           f"samples of 8 clouds and gradients at batch {train_batch}, on {card}")
     shape_cases = {
         "the flagship with 32 inducers": (
@@ -5437,32 +6004,32 @@ def main():
     }
     shape_counts = shapes_phase(device, n_layers, train_batch, 8, shape_cases)
 
-    print(f"== ROADMAP C1's shapes: every function at the shapes it raised at on the card "
+    stage(f"ROADMAP C1's shapes: every function at the shapes it raised at on the card "
           f"(batch {shapes['batch']}), then one model per shape at two layers, on {card}")
     c1_counts = c1_phase(device, dt, shapes, n_points, args.rehearse)
     shape_counts.update(c1_counts)
 
-    print(f"== ragged point counts (ROADMAP C1): every point-tiled body at N {ragged_ns} "
+    stage(f"ragged point counts (ROADMAP C1): every point-tiled body at N {ragged_ns} "
           f"(forwards at batch {shapes['batch']}, backwards at {train_batch}; at the widths of "
           f"{demo} and {heads3}), then the flagship at N {ragged_ns[0]}, on {card}")
     ragged = ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ragged_ns,
                           n_layers)
 
-    print(f"== other samplers: the flagship x{n_layers} layers at batch {batch}, {n_points} "
+    stage(f"other samplers: the flagship x{n_layers} layers at batch {batch}, {n_points} "
           f"points, the {n_steps}-step extended grid, churn 0.5: sample_stochastic, "
           f"sample_inpaint (2 substeps), sample(temperature=0.8), score; the conditional "
           f"model's sample_stochastic at batch {cond_batch}, on {card}")
     samplers = samplers_phase(device, batch, cond_batch, n_points, n_layers, n_steps, image_size,
                               compare_batch=min(8, batch), compare_steps=5 if args.rehearse else 8)
 
-    print(f"== likelihood: LogpMetric(n_solver_steps={logp_steps}) at batch {cond_batch} x "
+    stage(f"likelihood: LogpMetric(n_solver_steps={logp_steps}) at batch {cond_batch} x "
           f"{n_points} points, the flagship x{n_layers} layers and the conditional model "
           f"(remat), on {card}")
     logp = logp_phase(device, cond_batch, n_points, n_layers, logp_steps, image_size,
                       compare_batch=min(8, cond_batch))
 
     f32_shapes = dict(shapes, batch=f32_batch)
-    print(f"== fp32 routes: each against its plain version in fp32 at {f32_shapes}, timed in "
+    stage(f"fp32 routes: each against its plain version in fp32 at {f32_shapes}, timed in "
           f"turns with its bf16 body; then fp32 models of {f32_layers} layers ({f32_batch} x "
           f"{n_points} points) on folded_pallas and per head sample 8 steps and take 3 train "
           f"steps, a module-level Broadcast and a sums-less layer, "
@@ -5471,13 +6038,29 @@ def main():
                                     args.rehearse)
     rec.update(f32_rec)
 
-    print(f"== Trainer: {CONFIG} through gecco_tpu_torch.train.train on a PointFlow tree of "
+    stage(f"Trainer: {CONFIG} through gecco_tpu_torch.train.train on a PointFlow tree of "
           f"procedural {n_points}-point clouds, then a resumed Trainer and the infer CLI, on "
           f"{card}")
     trainer_counts, trainer_rec = trainer_phase(device, n_points, **trainer_cfg,
                                                 rehearse=args.rehearse)
 
-    print("== summary")
+    from gecco_tpu_torch.data import image_io
+
+    decoder = "cv2" if hasattr(image_io, "cv2") else "PIL"
+    stage(f"conditional config: {VOL_CONFIG} through gecco_tpu_torch.train.train on a "
+          f"ShapeNet-vol tree of procedural posed objects (137^2 jpg renders, read back by "
+          f"ShapeNetVol through {decoder}), then a resumed Trainer, on {card}")
+    vol_counts, vol_rec = conditional_config_phase(device, **vol_cfg, rehearse=args.rehearse)
+
+    stage(f"other new paths: the Taskonomy config's model on {image_size}^2 images, "
+          f"GlobalConditioningNetwork, the pc15k and 8k configs' models, the ConvNeXt "
+          f"converter, the EMD metrics, on {card}")
+    if importlib.util.find_spec("h5py") is None:
+        print("  h5py does not import here: the Taskonomy reader runs in the CPU tests only "
+              "(tests/test_torch_datasets.py); its config's model trains on procedural images")
+    other = other_paths_phase(device, image_size, args.rehearse)
+
+    stage("summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
     print(f"  launches on the conditional sampler path: {cond_counts}")
@@ -5538,6 +6121,20 @@ def main():
           f"validation " + ", ".join(f"{v:.3f}" for v in trainer_rec["val_seconds"])
           + f" s; the first run {trainer_rec['first_s']:.1f} s; infer "
           f"{trainer_rec['infer_s']:.3f} s; {card}")
+    print(f"  conditional config through the Trainer (phase 27): steady "
+          f"{vol_rec['ms_per_step']:.3f} ms/step at batch {COND_BATCH if not args.rehearse else 2}"
+          f" on 137^2 renders (the gather's {vol_rec['body']} body); validation "
+          + ", ".join(f"{v:.3f}" for v in vol_rec["val_seconds"])
+          + f" s (the smoke test's two batches, then one); the first run {vol_rec['first_s']:.1f}"
+          f" s; launches of the {vol_cfg['resumed']} resumed steps {vol_counts}; {card}")
+    emd = other.pop("emd")
+    print("  other paths (phase 28): " + ", ".join(
+        f"{k} {v['ms_per_step']:.3f} ms/step" for k, v in other.items())
+          + f"; global model's {GLOBAL_SAMPLE_STEPS}-step sample {other['global']['sample_s']:.3f}"
+          f" s; EMD a pair: auction {emd['auction_emd_s_per_pair']:.3f} s, scipy "
+          f"{emd['scipy_emd_s_per_pair']:.3f} s, sinkhorn {emd['sinkhorn_emd_s_per_pair']:.4f} s;"
+          f" BenchmarkCallback emd {emd['callback_emd_s']:.3f} s, emd_exact "
+          f"{emd['callback_emd_exact_s']:.3f} s; {card}")
     # launches: each kernel's count on the path that first brought it in
     # (printed above): the flagship sampler's for a set-transformer forward
     # kernel, the flagship training path's for a backward one, the

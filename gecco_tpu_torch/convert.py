@@ -10,7 +10,11 @@ Some of its modules are stacked: each leaf under one of ``STACKED_PREFIXES``
 names its parameters and buffers by the same paths, with the layer or block
 index after the prefix (``network.backbone.layers.3.broadcast.pool.kv_proj.weight``,
 ``cond.backbone.stages.2.8.dw_kernel``). The convolution kernels keep the
-JAX package's HWIO layout in the port, so they move unchanged.
+JAX package's HWIO layout in the port, so they move unchanged. This covers
+a ConvNeXt of any size and stage count, in either mode, and each network
+wrapper (``UnconditionalPointNetwork``, ``RayNetwork``,
+``GlobalConditioningNetwork``), whose leaves carry the same names in both
+packages.
 
 The JAX pytree of the image-conditional model holds its reparam twice, as
 ``reparam`` and ``network.reparam``; the port's ``RayNetwork`` keeps the

@@ -4,6 +4,7 @@ from gecco_tpu_torch.models.convnext import (
     ConvNeXtBlock,
     ConvNeXtExtractor,
     FeaturePyramidContext,
+    load_torchvision_state_dict,
 )
 from gecco_tpu_torch.models.mlp import MLP
 from gecco_tpu_torch.models.normalization import AdaGN
@@ -14,13 +15,19 @@ from gecco_tpu_torch.models.set_transformer import (
     SetTransformer,
     Unpool,
 )
-from gecco_tpu_torch.models.wrappers import RayNetwork, UnconditionalPointNetwork
+from gecco_tpu_torch.models.wrappers import (
+    GlobalConditioningNetwork,
+    LinearLift,
+    RayNetwork,
+    UnconditionalPointNetwork,
+)
 
 __all__ = [
     "ConvNeXt",
     "ConvNeXtBlock",
     "ConvNeXtExtractor",
     "FeaturePyramidContext",
+    "load_torchvision_state_dict",
     "GaussianActivation",
     "MLP",
     "AdaGN",
@@ -29,6 +36,8 @@ __all__ = [
     "BroadcastingLayer",
     "SetTransformer",
     "Unpool",
+    "GlobalConditioningNetwork",
+    "LinearLift",
     "RayNetwork",
     "UnconditionalPointNetwork",
 ]

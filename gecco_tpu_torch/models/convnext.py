@@ -11,13 +11,19 @@ extractor contiguous in C, the layout the projective gather reads. The
 convolutions are ``torch.nn.functional.conv2d`` calls, as the JAX package
 leaves them to XLA. Each stage's blocks are an ``nn.ModuleList`` (the JAX
 package stacks them and scans). No stochastic depth.
+
+``load_torchvision_state_dict`` fills a ConvNeXt of any size from a
+torchvision ``convnext_*`` state dict (its OIHW kernels to the HWIO
+parameters), ``load_pretrained_npz`` from such a dict saved as an npz. No
+weights are fetched.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
+from typing import Any, Mapping, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -25,16 +31,22 @@ from torch import nn
 from gecco_tpu_torch.utils.modules import Linear, resolve_device
 
 __all__ = [
+    "CONVNEXT_CONFIGS",
     "ConvNeXt",
     "ConvNeXtBlock",
     "ConvNeXtExtractor",
     "FeaturePyramidContext",
+    "load_pretrained_npz",
+    "load_torchvision_state_dict",
 ]
 
-# ConvNeXt-tiny (torchvision convnext_tiny) clipped to its first three
-# stages: blocks and channels per stage
-DEPTHS = (3, 3, 9)
-WIDTHS = (96, 192, 384)
+# blocks and channels per stage (torchvision convnext_{tiny,small,base,large})
+CONVNEXT_CONFIGS = {
+    "tiny": ((3, 3, 9, 3), (96, 192, 384, 768)),
+    "small": ((3, 3, 27, 3), (96, 192, 384, 768)),
+    "base": ((3, 3, 27, 3), (128, 256, 512, 1024)),
+    "large": ((3, 3, 27, 3), (192, 384, 768, 1536)),
+}
 
 _LN_EPS = 1e-6  # torchvision ConvNeXt LayerNorm epsilon
 
@@ -94,7 +106,8 @@ class ConvNeXtBlock(nn.Module):
     """dwconv 7x7 -> LN -> Linear(4x) -> exact GELU -> Linear -> layer
     scale, residual."""
 
-    def __init__(self, dim: int, *, device=None, generator=None):
+    def __init__(self, dim: int, layer_scale_init: float = 1e-6, *, device=None,
+                 generator=None):
         super().__init__()
         dev = resolve_device(device)
         self.dw_kernel = nn.Parameter(_trunc_normal((7, 7, 1, dim), 0.02, generator).to(dev))
@@ -102,7 +115,7 @@ class ConvNeXtBlock(nn.Module):
         self.norm = _LayerNormAffine(dim, device=dev)
         self.pw1 = Linear(dim, 4 * dim, device=dev, generator=generator)
         self.pw2 = Linear(4 * dim, dim, device=dev, generator=generator)
-        self.layer_scale = nn.Parameter(torch.full((dim,), 1e-6, device=dev))
+        self.layer_scale = nn.Parameter(torch.full((dim,), layer_scale_init, device=dev))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = _conv(x, self.dw_kernel, stride=1, groups=x.shape[-1]) + self.dw_bias.to(x.dtype)
@@ -123,22 +136,26 @@ class _Downsample(nn.Module):
 
 
 class ConvNeXt(nn.Module):
-    """ConvNeXt-tiny's stem + its first three stages with the downsamples
-    between them: maps at strides 4, 8 and 16."""
+    """The stem and the first ``n_stages`` stages of a torchvision ConvNeXt
+    of ``size`` (``CONVNEXT_CONFIGS``), with the downsamples between them;
+    the reference clips the rest. At three stages: maps at strides 4, 8 and
+    16."""
 
-    def __init__(self, compute_dtype=torch.bfloat16, *, device=None, generator=None):
+    def __init__(self, size: str = "tiny", n_stages: int = 3, compute_dtype=torch.bfloat16, *,
+                 device=None, generator=None):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(device=dev, generator=generator)
-        self.stem_kernel = nn.Parameter(_trunc_normal((4, 4, 3, WIDTHS[0]), 0.02, generator).to(dev))
-        self.stem_bias = nn.Parameter(torch.zeros(WIDTHS[0], device=dev))
-        self.stem_norm = _LayerNormAffine(WIDTHS[0], device=dev)
+        depths, widths = (c[:n_stages] for c in CONVNEXT_CONFIGS[size])
+        self.stem_kernel = nn.Parameter(_trunc_normal((4, 4, 3, widths[0]), 0.02, generator).to(dev))
+        self.stem_bias = nn.Parameter(torch.zeros(widths[0], device=dev))
+        self.stem_norm = _LayerNormAffine(widths[0], device=dev)
         self.stages = nn.ModuleList()
         self.downs = nn.ModuleList()
-        for i, (d, w) in enumerate(zip(DEPTHS, WIDTHS)):
+        for i, (d, w) in enumerate(zip(depths, widths)):
             self.stages.append(nn.ModuleList(ConvNeXtBlock(w, **kw) for _ in range(d)))
-            if i + 1 < len(WIDTHS):
-                self.downs.append(_Downsample(w, WIDTHS[i + 1], **kw))
+            if i + 1 < len(widths):
+                self.downs.append(_Downsample(w, widths[i + 1], **kw))
         self.compute_dtype = compute_dtype
 
     def forward(self, images: torch.Tensor) -> list:
@@ -160,13 +177,85 @@ class ConvNeXt(nn.Module):
 
 
 class ConvNeXtExtractor(nn.Module):
-    """Conditioner: the ConvNeXt on ``ctx_raw.image`` -> the feature pyramid
-    of all three stages (the JAX package's ``size="tiny", mode="local"``)."""
+    """Conditioner: the ConvNeXt of ``size`` on ``ctx_raw.image`` -> the
+    feature pyramid; ``mode="local"`` keeps the three stages' maps,
+    ``"global"`` the last only (for ``GlobalConditioningNetwork``)."""
 
-    def __init__(self, compute_dtype=torch.bfloat16, *, device=None, generator=None):
+    def __init__(self, size: str = "tiny", mode: str = "local", compute_dtype=torch.bfloat16, *,
+                 device=None, generator=None):
         super().__init__()
-        self.backbone = ConvNeXt(compute_dtype, device=device, generator=generator)
+        if mode not in ("local", "global"):
+            raise ValueError(f"mode must be 'local' or 'global', got {mode!r}")
+        self.backbone = ConvNeXt(size, compute_dtype=compute_dtype, device=device,
+                                 generator=generator)
+        self.mode = mode
 
     def forward(self, ctx_raw) -> FeaturePyramidContext:
         maps = self.backbone(ctx_raw.image)
+        if self.mode == "global":
+            maps = maps[-1:]
         return FeaturePyramidContext(features=tuple(maps), K=ctx_raw.K, wmat=ctx_raw.wmat)
+
+
+def load_pretrained_npz(extractor: ConvNeXtExtractor, npz_path: str) -> ConvNeXtExtractor:
+    """Load a torchvision ``convnext_*`` state dict saved as an npz (an
+    array a key) into ``extractor``'s ConvNeXt, in place."""
+    with np.load(npz_path) as data:
+        state_dict = {k: data[k] for k in data.files}
+    load_torchvision_state_dict(extractor.backbone, state_dict)
+    return extractor
+
+
+def load_torchvision_state_dict(model: ConvNeXt, state_dict: Mapping[str, Any]) -> ConvNeXt:
+    """Fill ``model`` in place from a torchvision ``convnext_*`` state dict
+    (tensors or numpy arrays keyed ``features.{i}...``):
+
+    - ``features.0.{0,1}``: the stem convolution [C, 3, 4, 4] -> HWIO, its
+      LayerNorm;
+    - ``features.{2k+1}.{j}.block.{0,2,3,5}`` and ``.layer_scale``: block j
+      of stage k (the depthwise kernel [C, 1, 7, 7] -> [7, 7, 1, C], the
+      LayerNorm, the two linears [out, in] as they are);
+    - ``features.{2k+2}.{0,1}``: the downsample's LayerNorm and its
+      convolution [C2, C1, 2, 2] -> HWIO.
+
+    The keys of the stages the model clips are not read. Raises
+    ``ValueError`` on a shape that does not fit; nothing is copied then."""
+
+    def arr(name):
+        t = state_dict[name]
+        return np.asarray(t.detach().cpu().numpy() if hasattr(t, "detach") else t, np.float32)
+
+    def hwio(name):
+        return arr(name).transpose(2, 3, 1, 0)  # OIHW -> HWIO
+
+    values = {"stem_kernel": hwio("features.0.0.weight"), "stem_bias": arr("features.0.0.bias"),
+              "stem_norm.gamma": arr("features.0.1.weight"),
+              "stem_norm.beta": arr("features.0.1.bias")}
+    for k, stage in enumerate(model.stages):
+        for j in range(len(stage)):
+            p, q = f"features.{2 * k + 1}.{j}", f"stages.{k}.{j}"
+            values.update({
+                f"{q}.dw_kernel": hwio(f"{p}.block.0.weight"),
+                f"{q}.dw_bias": arr(f"{p}.block.0.bias"),
+                f"{q}.norm.gamma": arr(f"{p}.block.2.weight"),
+                f"{q}.norm.beta": arr(f"{p}.block.2.bias"),
+                f"{q}.pw1.weight": arr(f"{p}.block.3.weight"),
+                f"{q}.pw1.bias": arr(f"{p}.block.3.bias"),
+                f"{q}.pw2.weight": arr(f"{p}.block.5.weight"),
+                f"{q}.pw2.bias": arr(f"{p}.block.5.bias"),
+                f"{q}.layer_scale": arr(f"{p}.layer_scale").reshape(-1),
+            })
+    for k in range(len(model.downs)):
+        p, q = f"features.{2 * k + 2}", f"downs.{k}"
+        values.update({f"{q}.norm.gamma": arr(f"{p}.0.weight"),
+                       f"{q}.norm.beta": arr(f"{p}.0.bias"),
+                       f"{q}.kernel": hwio(f"{p}.1.weight"), f"{q}.bias": arr(f"{p}.1.bias")})
+    params = dict(model.named_parameters())
+    for name, value in values.items():
+        if tuple(value.shape) != tuple(params[name].shape):
+            raise ValueError(f"{name}: state dict shape {value.shape} != model shape "
+                             f"{tuple(params[name].shape)}")
+    with torch.no_grad():
+        for name, value in values.items():
+            params[name].copy_(torch.from_numpy(value).to(params[name].device))
+    return model

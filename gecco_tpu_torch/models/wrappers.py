@@ -1,6 +1,6 @@
 """Denoiser networks around the set-transformer backbone (counterpart of
-``gecco_tpu.models.wrappers``: ``UnconditionalPointNetwork`` and
-``RayNetwork``).
+``gecco_tpu.models.wrappers``: ``UnconditionalPointNetwork`` (alias
+``LinearLift``), ``GlobalConditioningNetwork`` and ``RayNetwork``).
 
 Network contract: ``net(t [B], x [B, N, 3], ctx, hs=None, return_h=False)
 -> [B, N, 3]`` where ``t`` is the preconditioned noise level (c_noise) and
@@ -20,7 +20,7 @@ from gecco_tpu_torch.ops.norms import group_norm, stats_from_sums
 from gecco_tpu_torch.ops.projective import LOOKUP_IMPLS, lookup_pyramid
 from gecco_tpu_torch.utils.modules import Linear
 
-__all__ = ["RayNetwork", "UnconditionalPointNetwork"]
+__all__ = ["GlobalConditioningNetwork", "LinearLift", "RayNetwork", "UnconditionalPointNetwork"]
 
 
 def _embed_channel_sums(linear: Linear, x: torch.Tensor) -> torch.Tensor:
@@ -82,6 +82,38 @@ class UnconditionalPointNetwork(nn.Module):
         del ctx
         features = self.xyz_embed(x)  # [B, N, C]
         embed = t[..., None]  # [B, 1]: the noise level itself is the embed
+        in_sums = _embed_channel_sums(self.xyz_embed, x)
+        processed, *stored, sums = self.backbone(features, embed, hs=hs, return_h=return_h,
+                                                 in_sums=in_sums, with_sums=True)
+        y = _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype)
+        return (y, *stored) if return_h else y
+
+
+# the reference's name for the same computation
+LinearLift = UnconditionalPointNetwork
+
+
+class GlobalConditioningNetwork(nn.Module):
+    """Image-conditional denoiser on one global feature: the mean over the
+    pixels of the conditioner's single map (``ConvNeXtExtractor(...,
+    mode="global")``) is concatenated to t as the backbone's embed (1 + C
+    channels); xyz embed -> backbone with its channel sums -> GroupNorm ->
+    Linear head, as ``UnconditionalPointNetwork``."""
+
+    def __init__(self, backbone: SetTransformer, feature_dim: int, geometry_dim: int = 3,
+                 output_norm_groups: int = 32, *, device=None, generator=None):
+        super().__init__()
+        self.xyz_embed = Linear(geometry_dim, feature_dim, device=device, generator=generator)
+        self.backbone = backbone
+        self.output_proj = Linear(feature_dim, geometry_dim, device=device, generator=generator)
+        self.output_norm_groups = output_norm_groups
+
+    def forward(self, t: torch.Tensor, x: torch.Tensor, ctx: Any,
+                hs: Optional[torch.Tensor] = None, return_h: bool = False):
+        (global_features,) = ctx.features  # [B, h, w, C]
+        img_embed = global_features.mean(dim=(-3, -2))  # [B, C]
+        embed = torch.cat([t[..., None], img_embed.to(t.dtype)], dim=-1)
+        features = self.xyz_embed(x)
         in_sums = _embed_channel_sums(self.xyz_embed, x)
         processed, *stored, sums = self.backbone(features, embed, hs=hs, return_h=return_h,
                                                  in_sums=in_sums, with_sums=True)

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-__all__ = ["check_points", "check_sigma_batch"]
+__all__ = ["check_image_batch", "check_points", "check_sigma_batch"]
 
 
 def check_points(x, name: str = "points", dims: int = 3):
@@ -20,3 +20,13 @@ def check_sigma_batch(sigma, batch: int):
             f"sigma batch {sigma.shape[0]} does not match points batch {batch}"
         )
     return sigma
+
+
+def check_image_batch(image, name: str = "ctx.image"):
+    """Raise unless ``image`` (where it is an array) is a channels-last
+    batch [B, H, W, C]."""
+    if image is not None and hasattr(image, "ndim") and image.ndim != 4:
+        raise ValueError(
+            f"{name} must be [B, H, W, C] channels-last (got {tuple(image.shape)})"
+        )
+    return image

@@ -230,4 +230,7 @@ def test_chip_smoke_rehearsal_runs_its_phases_on_the_cpu():
     assert "scores ok" in res.stdout.split("== validation")[-1]
     assert "fp32 sums-less BroadcastingLayer, folded_pallas vs xla" in res.stdout
     assert "resumed at step 4" in res.stdout.split("== Trainer")[-1]
+    assert "resumed at step 4" in res.stdout.split("== conditional config")[-1]
+    assert "global-model sample (diffusion space), kernel path vs plain path" in res.stdout
+    assert "auction_emd's totals against scipy_emd's" in res.stdout
     assert '"ok": true' not in res.stdout

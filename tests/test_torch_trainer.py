@@ -236,17 +236,15 @@ def test_benchmark_callback_matches_the_jax_one():
     data = rng.normal(size=(10, 32, 3)).astype(np.float32)
     samples = (data + 0.3 * rng.normal(size=data.shape)).astype(np.float32)
     samples[::3] = rng.normal(size=samples[::3].shape)
-    for name in ("chamfer", "chamfer_squared"):
+    for name in ("chamfer", "chamfer_squared", "emd", "emd_exact"):
         port = benchmark.BenchmarkCallback(data, batch_size=4, distance_fn=name, device="cpu")
         ref = jbench.BenchmarkCallback(data, batch_size=4, distance_fn=name)
+        assert port.distance_fn_name == ref.distance_fn_name
         np.testing.assert_allclose(port.d_dd, ref.d_dd, rtol=1e-5, atol=1e-6)
         got, want = port.call_without_logging(samples)[0], ref.call_without_logging(samples)[0]
         assert got.keys() == want.keys()
         for k in got:
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
-    for name in ("emd", "emd_exact"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            benchmark.BenchmarkCallback(data, distance_fn=name, device="cpu")
     loader = dataloader(Blobs(n=8), batch_size=4, fixed_sampler=True, num_workers=1)
     np.testing.assert_array_equal(benchmark.extract_data(loader, 6),
                                   jbench.extract_data(loader, 6))

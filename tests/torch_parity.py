@@ -6,6 +6,8 @@ Both sides get the same weights (the JAX model's, moved with
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,7 +135,7 @@ def torch_conditional_model(jmodel, attn_impl="folded_pallas", lookup_impl="pall
                               device="cpu", generator=gen, **shape)
     net = RayNetwork(backbone, reparam, shape["feature_dim"], sum(CTX_DIMS),
                      lookup_impl=lookup_impl, device="cpu", generator=gen)
-    cond = ConvNeXtExtractor(dtype, device="cpu", generator=gen)
+    cond = ConvNeXtExtractor(compute_dtype=dtype, device="cpu", generator=gen)
     if frozen:
         cond = Frozen(cond)
     sched = LogUniformSchedule(sigma_max=SIGMA_MAX, sigma_min=0.002, n_solver_steps=n_steps)
@@ -204,3 +206,49 @@ def gather_coords(kind: str, rng: np.random.Generator, b: int, n: int, size) -> 
     elif kind != "uniform":
         raise ValueError(kind)
     return hw.astype(np.float32)
+
+
+def write_shapenet_vol_object(root, rng, n_views=24, masks=None, n=1500, size=137):
+    """One object of the Occupancy-Networks layout under ``root``: a
+    normalised cloud with its loc and scale, ``n_views`` posed cameras (a
+    rotation about y, the object 2-4 units ahead, so that it lies inside
+    every view's frustum), their ``size``^2 jpg renders and, where
+    ``masks`` names views, their visibility masks."""
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "img_choy2016"), exist_ok=True)
+    np.savez(os.path.join(root, "pointcloud.npz"),
+             points=rng.uniform(-0.3, 0.3, size=(n, 3)).astype(np.float32),
+             scale=np.float32(rng.uniform(0.5, 1.5)),
+             loc=(0.05 * rng.normal(size=3)).astype(np.float32))
+    cams = {}
+    for i in range(n_views):
+        a = rng.uniform(0, 2 * np.pi)
+        rot = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+        shift = np.array([[0.0], [0.0], [rng.uniform(2, 4)]])
+        cams[f"world_mat_{i}"] = np.concatenate([rot, shift], axis=1).astype(np.float32)
+        f = rng.uniform(120, 160)
+        cams[f"camera_mat_{i}"] = np.array([[f, 0, 69.0], [0, f, 69.0], [0, 0, 1.0]], np.float32)
+    np.savez(os.path.join(root, "img_choy2016", "cameras.npz"), **cams)
+    for i in range(n_views):
+        img = (rng.random((size, size, 3)) * 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(root, "img_choy2016", f"{i:03d}.jpg"))
+    if masks:
+        np.savez(os.path.join(root, "per_view_point_masks.npz"),
+                 **{f"mask_{v}": rng.random(n) < 0.7 for v in masks})
+
+
+def write_shapenet_vol_tree(root, seed=0) -> str:
+    """Two synsets of the layout under ``root`` (3 and 2 objects), each
+    with ``train.lst`` (all but its last object) and ``val.lst`` (its
+    last); the second airplane ships masks for views 1 and 2."""
+    rng = np.random.default_rng(seed)
+    for synset, objs in (("02691156", ("a1", "a2", "a3")), ("03001627", ("c1", "c2"))):
+        for q, obj in enumerate(objs):
+            write_shapenet_vol_object(os.path.join(root, synset, obj), rng,
+                                      masks=(1, 2) if (synset, q) == ("02691156", 1) else None)
+        with open(os.path.join(root, synset, "train.lst"), "w") as fh:
+            fh.write("\n".join(objs[:-1]) + "\n")
+        with open(os.path.join(root, synset, "val.lst"), "w") as fh:
+            fh.write(objs[-1] + "\n")
+    return str(root)

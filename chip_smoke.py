@@ -311,7 +311,25 @@ Phases (each raises on failure; nothing is caught):
    plain NCHW forward of the state dict in fp32; the EMD metrics on 8 pairs
    of 2048-point clouds (``auction_emd`` against ``scipy_emd`` within 1e-5
    relative, ``sinkhorn_emd`` on the card against the CPU at 1e-4, seconds
-   a pair) and ``BenchmarkCallback("emd")``/``("emd_exact")`` on 8 clouds.
+   a pair) and ``BenchmarkCallback("emd")``/``("emd_exact")`` on 8 clouds;
+29. the reference-checkpoint path: the flagship with ``ref_jax_compat=True``
+   written to an ``.eqx`` (equinox-style scalar blobs between its
+   parameters, ``gecco_tpu_torch.compat``) and loaded into a model from
+   another seed, every parameter the same bits; its 128-step sample at
+   batch 64 with ``GECCO_UNPOOL_MLP_MEGAKERNEL=1`` set (the pool, h-side,
+   unpool and MLP kernels 6 x 254 times each, the megakernel never: it
+   applies the mlp_norm that the compat model skips) and clouds/s, then in
+   turns the same weights without the flag and the compat model again,
+   the switch off; its 8-step sample against its plain path; one fp32 evaluation of 2 clouds
+   (the fp32 routes) against ``gecco_tpu_torch.baselines.ref_denoise``
+   (|err| <= 1e-5 + 2e-4 |ref|), and the same weights without the flag at
+   least 1e-3 apart; 3 train steps at batch 48 (each forward and backward
+   kernel once a layer and step; ``mlp_norm`` without a gradient). Then a
+   flagship with ``activation=torch.nn.SiLU()`` on ``folded_pallas``, whose
+   MLPs do not fuse: its 8-step sample at batch 8 (the resident pool and
+   the unpool kernel once a layer and evaluation, no h-side or MLP kernel)
+   against its plain path, and 3 train steps (the tiled pool, the unpool
+   and their backwards, once a layer and step).
 
 Phase 3 holds the h-side's Hopper body (``csrc/hside.cu``) at the
 flagship's, the 8k width's and the demo's shapes and at 16, 32 and 48
@@ -4117,8 +4135,9 @@ def profile_steps(run, n, device):
     backward, the optimizer) by name, and the device's busy share of the
     wall time (the profiler's own overhead included in the wall time).
     Returns the device's busy milliseconds per step (None without device
-    events)."""
-    wall_ms, events = device_events(run, n, device)
+    events). On the CPU (the rehearsal), which records no device events,
+    one step."""
+    wall_ms, events = device_events(run, n if device.type == "cuda" else 1, device)
     owner = {f: k for k, fs in KERNEL_FUNCTIONS.items() for f in fs}
     groups, other = {}, {}
     for key, ms in events.items():
@@ -4149,11 +4168,11 @@ def profile_steps(run, n, device):
 
 
 def build_flagship(device, generator, n_layers, dt=torch.bfloat16, attn_impl="folded_pallas",
-                   n_steps=N_STEPS, dims=FLAGSHIP):
+                   n_steps=N_STEPS, dims=FLAGSHIP, **backbone_kw):
     f = dims
     backbone = SetTransformer(
         n_layers, f["feature_dim"], f["num_inducers"], embed_dim=1, num_heads=f["num_heads"],
-        compute_dtype=dt, attn_impl=attn_impl, device=device, generator=generator,
+        compute_dtype=dt, attn_impl=attn_impl, device=device, generator=generator, **backbone_kw,
     )
     net = UnconditionalPointNetwork(backbone, f["feature_dim"], device=device, generator=generator)
     sched = LogUniformSchedule(sigma_max=165.0, sigma_min=0.002, n_solver_steps=n_steps)
@@ -5780,6 +5799,170 @@ def other_paths_phase(device, image_size, rehearse) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------ phase 29: the reference-checkpoint path --
+
+# the compat flagship's train steps (after one untimed step) and the
+# comparisons' grid
+COMPAT_STEPS, COMPAT_COMPARE_STEPS = 3, 8
+# the compat model in fp32 on folded_pallas (the fp32 routes) against the
+# reference-structure arm in fp32: the JAX package's own bound for its arm
+# (tests/test_reference_baseline.py), elementwise |err| <= atol + rtol |ref|
+REF_RTOL, REF_ATOL = 2e-4, 1e-5
+# the same weights with ref_jax_compat off must move the fp32 output by far
+# more than fp32 roundings (max |err| / max |ref|)
+COMPAT_FLAG_MIN = 1e-3
+
+
+def compat_phase(device, batch, train_batch, n_points, n_layers, n_steps, compare_batch,
+                 dims=FLAGSHIP) -> dict:
+    """Phase 29: the compat flagship (``ref_jax_compat=True``) written to an
+    ``.eqx`` with equinox-style scalar blobs between its parameters and
+    loaded into a model from another seed (every parameter the same bits);
+    its 128-step sample at ``batch`` with ``GECCO_UNPOOL_MLP_MEGAKERNEL=1``
+    set (the megakernel must not launch: it applies mlp_norm); its 8-step
+    sample against its plain path; one fp32 evaluation of 2 clouds against
+    ``ref_denoise``, and the same weights without the flag apart from it;
+    train steps at ``train_batch`` (rows 8-10 each layer once a step,
+    ``mlp_norm`` without a gradient). Then a SiLU flagship on
+    ``folded_pallas``: its 8-step sample (the resident pool, the unpool
+    kernel, the h-side and the MLPs in PyTorch) against its plain path, and
+    train steps (the tiled pool, the unpool, their backwards). The models
+    have the widths of ``dims``. Returns {name: record}."""
+    from gecco_tpu_torch.baselines import ref_denoise
+    from gecco_tpu_torch.compat import (
+        export_flagship_to_eqx_order,
+        load_flagship_from_eqx,
+        read_eqx_arrays,
+    )
+
+    out = {}
+    rng = np.random.default_rng(29)
+    clouds = lambda b: torch.from_numpy(make_clouds(rng, b, n_points)).to(device)
+    tmp = Path(tempfile.mkdtemp(prefix="gecco-eqx-"))
+    key = "GECCO_UNPOOL_MLP_MEGAKERNEL"
+    before = os.environ.get(key)
+    try:
+        # (a) the .eqx round trip, scalar blobs between the parameters
+        src = build_flagship(device, torch.Generator().manual_seed(0), n_layers, dims=dims,
+                             ref_jax_compat=True)
+        arrays = export_flagship_to_eqx_order(src)
+        path = tmp / "ema.eqx"
+        with open(path, "wb") as f:
+            for i, a in enumerate(arrays):
+                np.save(f, np.float64(0.1))
+                if i % 3 == 0:
+                    np.save(f, np.int64(384))
+                np.save(f, a)
+        assert len(read_eqx_arrays(str(path))) == len(arrays)
+        model = load_flagship_from_eqx(
+            build_flagship(device, torch.Generator().manual_seed(1), n_layers, dims=dims,
+                           ref_jax_compat=True), str(path))
+        want, got = src.state_dict(), model.state_dict()
+        same = sum(torch.equal(want[k], got[k]) for k in want)
+        print(f"  .eqx round trip: {len(arrays)} parameters ({path.stat().st_size} bytes with "
+              f"the scalar blobs), {same} of {len(want)} tensors the same bits in a model from "
+              f"another seed")
+        if same != len(want):
+            raise AssertionError(".eqx round trip: parameters differ")
+        del src
+
+        # (b) the compat sample, the megakernel switched on; then, in turns,
+        # the same weights without the flag and the compat model again
+        # (the switch off: the same kernels but for the MLP's pre-norm)
+        os.environ[key] = "1"
+        gen = torch.Generator(device=device).manual_seed(29)
+        model.sample(gen, (batch, n_points, 3), n_solver_steps=2)  # warm-up
+        evals = 2 * (n_steps - 1)
+        backbone = model.network.backbone
+        turns = []
+        for what, compat in (("compat sample (GECCO_UNPOOL_MLP_MEGAKERNEL=1)", True),
+                             ("the same weights without ref_jax_compat", False),
+                             ("compat sample", True)):
+            backbone.ref_jax_compat = compat
+            _, counts, seconds = sampler_run(
+                what, lambda: model.sample(gen, (batch, n_points, 3), n_solver_steps=n_steps),
+                device, (batch, n_points, 3), {k: n_layers * evals for k in SET_FORWARD})
+            turns.append(batch / seconds)
+            if not turns[1:]:
+                out["compat_sample"] = dict(counts=counts, seconds=seconds, batch=batch,
+                                            clouds_per_s=batch / seconds)
+            os.environ.pop(key, None)
+        out["compat_sample"]["turns_clouds_per_s"] = turns
+
+        # (c) against its plain path, the reference arm, the flag off
+        latent = model.schedule.sample_latent(gen, (compare_batch, n_points, 3), device)
+        fused, plain = both_paths(model, lambda: model.sample_from_latent(
+            latent, n_solver_steps=COMPAT_COMPARE_STEPS))
+        check(f"compat {COMPAT_COMPARE_STEPS}-step sample, kernel path vs plain path",
+              rel_err(fused, plain), TOL_PATH)
+        backbone.compute_dtype = torch.float32
+        sigma = torch.tensor([0.5, 20.0], device=device)
+        x = torch.randn(2, n_points, 3, generator=gen, device=device) * (1 + sigma[:, None, None])
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            ours = model.denoise(sigma, x)
+            f32_counts = kernels.launch_counts()
+            ref = ref_denoise(model, sigma, x)
+            backbone.ref_jax_compat = False
+            default = model.denoise(sigma, x)
+            backbone.ref_jax_compat = True
+        excess = float(((ours - ref).abs() - REF_ATOL - REF_RTOL * ref.abs()).max())
+        print(f"  fp32 evaluation of 2 clouds against ref_denoise: max |err| "
+              f"{abs_err(ours, ref):.3e}, max(|err| - {REF_ATOL:g} - {REF_RTOL:g} |ref|) "
+              f"{excess:.3e}")
+        if excess > 0.0:
+            raise AssertionError("compat model in fp32 vs ref_denoise beyond its bound")
+        check_counts("compat fp32 evaluation", f32_counts, expected_counts(
+            {f"{k}_f32": n_layers for k in SET_FORWARD}), device)
+        flag = rel_err(default, ours)
+        print(f"  the same weights without ref_jax_compat: max|err|/max|ref| {flag:.3e} "
+              f"(at least {COMPAT_FLAG_MIN:g})")
+        if not flag >= COMPAT_FLAG_MIN:
+            raise AssertionError("ref_jax_compat does not change the function on the card")
+        backbone.compute_dtype = torch.bfloat16
+
+        # (d) the compat train steps
+        step_rec = model_steps("compat flagship", model, [(clouds(train_batch), None)],
+                               flagship_optimizer(), COMPAT_STEPS, device,
+                               lambda s: layer_counts(model, s))
+        grads = [p.grad for layer in backbone.layers for p in layer.mlp_norm.parameters()]
+        if any(g is not None and bool(g.any()) for g in grads):
+            raise AssertionError("compat train step: mlp_norm took a gradient")
+        print(f"  compat train step: mlp_norm's {len(grads)} parameters without a gradient")
+        out["compat_step"] = step_rec
+        del model, backbone
+
+        # (e) the SiLU flagship: the unfused fallbacks
+        model = build_flagship(device, torch.Generator().manual_seed(2), n_layers, dims=dims,
+                               activation=torch.nn.SiLU())
+        latent = model.schedule.sample_latent(gen, (compare_batch, n_points, 3), device)
+        run = lambda: model.sample_from_latent(latent, n_solver_steps=COMPAT_COMPARE_STEPS)
+        run()  # warm-up
+        evals = 2 * (COMPAT_COMPARE_STEPS - 1)
+        fused, counts, seconds = sampler_run(
+            f"SiLU flagship's {COMPAT_COMPARE_STEPS}-step sample", run, device,
+            (compare_batch, n_points, 3),
+            {k: n_layers * evals for k in ("folded_pool_layer", "folded_unpool")})
+        set_path(model, False)
+        plain = run()
+        set_path(model, True)
+        check(f"SiLU flagship's {COMPAT_COMPARE_STEPS}-step sample, kernel path vs plain path",
+              rel_err(fused, plain), TOL_PATH)
+        out["silu_sample"] = dict(counts=counts, seconds=seconds, batch=compare_batch)
+        out["silu_step"] = model_steps(
+            "SiLU flagship", model, [(clouds(train_batch), None)], flagship_optimizer(),
+            COMPAT_STEPS, device,
+            lambda s: {k: n_layers * s for k in ("folded_pool_ext", "folded_unpool",
+                                                 "folded_pool_ext_bwd", "folded_unpool_bwd")})
+        return out
+    finally:
+        if before is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = before
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -5805,7 +5988,7 @@ def main():
         dt, reps, n_layers, batch, n_points, n_steps = torch.bfloat16, 1, 2, 2, 128, 3
         train_batch = cond_batch = 2
         image_size, render_size = 32, 37
-        train_steps = twopass_steps = (1, 2)
+        train_steps = twopass_steps = (1, 1)
         upsample = dict(n_new=300, n_steps=3, n_substeps=2, compare_new=200)
         ragged_ns = (100, 130)
         logp_steps = 3
@@ -6060,6 +6243,14 @@ def main():
               "(tests/test_torch_datasets.py); its config's model trains on procedural images")
     other = other_paths_phase(device, image_size, args.rehearse)
 
+    stage(f"reference-checkpoint path: the compat flagship x{n_layers} layers (.eqx round "
+          f"trip, {n_steps}-step sample at batch {batch} with the megakernel switch on, "
+          f"against its plain path and ref_denoise, {COMPAT_STEPS} train steps at batch "
+          f"{train_batch}), then a SiLU flagship's unfused fallbacks, on {card}")
+    compat = compat_phase(device, batch, train_batch, n_points, n_layers, n_steps,
+                          min(8, batch),
+                          dict(shapes, n_layers=n_layers) if args.rehearse else FLAGSHIP)
+
     stage("summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
@@ -6135,6 +6326,18 @@ def main():
           f"{emd['scipy_emd_s_per_pair']:.3f} s, sinkhorn {emd['sinkhorn_emd_s_per_pair']:.4f} s;"
           f" BenchmarkCallback emd {emd['callback_emd_s']:.3f} s, emd_exact "
           f"{emd['callback_emd_exact_s']:.3f} s; {card}")
+    print(f"  reference-checkpoint path (phase 29): compat sample "
+          f"{compat['compat_sample']['clouds_per_s']:.3f} clouds/s (batch "
+          f"{compat['compat_sample']['batch']}, launches {compat['compat_sample']['counts']}; "
+          f"in turns compat / without the flag / compat "
+          + " / ".join(f"{v:.3f}" for v in compat['compat_sample']['turns_clouds_per_s'])
+          + "); "
+          f"compat train step {compat['compat_step']['ms_per_step']:.3f} ms (launches "
+          f"{compat['compat_step']['counts']}); SiLU flagship's {COMPAT_COMPARE_STEPS}-step "
+          f"sample {compat['silu_sample']['seconds']:.3f} s at batch "
+          f"{compat['silu_sample']['batch']} (launches {compat['silu_sample']['counts']}), "
+          f"its train step {compat['silu_step']['ms_per_step']:.3f} ms (launches "
+          f"{compat['silu_step']['counts']}); {card}")
     # launches: each kernel's count on the path that first brought it in
     # (printed above): the flagship sampler's for a set-transformer forward
     # kernel, the flagship training path's for a backward one, the

@@ -16,6 +16,11 @@ wrapper (``UnconditionalPointNetwork``, ``RayNetwork``,
 ``GlobalConditioningNetwork``), whose leaves carry the same names in both
 packages.
 
+A model whose MLPs take an activation without parameters (the JAX
+package's activation module without leaves, a ``torch.nn.SiLU``) has no
+``activation.alpha`` leaf in either package, and a ``ref_jax_compat`` model
+keeps its unused ``mlp_norm`` in both, so both move like any other.
+
 The JAX pytree of the image-conditional model holds its reparam twice, as
 ``reparam`` and ``network.reparam``; the port's ``RayNetwork`` keeps the
 model's reparam out of its module tree, so the port holds it once. Such a

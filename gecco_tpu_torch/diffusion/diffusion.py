@@ -12,7 +12,8 @@ port the numbers that ``jax.random`` drew: ``draw_sigma_noise`` and
 ``loss_from``; ``sample_from_latent``; ``sample_stochastic_from``,
 ``sample_inpaint_from`` and ``upsample_from``, which take every standard
 normal draw through one seam, ``normal(shape)``; ``evaluate_logp_from``,
-which takes the Rademacher probes.
+which takes the Rademacher probes. The loss's draws of dropout masks (the
+JAX package's network key) go through ``loss_from``'s ``dropout`` seam.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from gecco_tpu_torch.diffusion.samplers import (
     inpaint_sampler,
 )
 from gecco_tpu_torch.diffusion.schedule import Schedule
+from gecco_tpu_torch.models.mlp import DropoutFn, bernoulli_dropout
 from gecco_tpu_torch.reparam import Reparam
 from gecco_tpu_torch.types import LogpDetails, SampleDetails
 from gecco_tpu_torch.utils.checks import check_points, check_sigma_batch
@@ -66,13 +68,18 @@ class NoCond(nn.Module):
 
 
 class Diffusion(nn.Module):
+    """``divergence_fn(x_hat, x) -> [B]`` is the loss's per-example
+    divergence (``mse`` where None)."""
+
     def __init__(self, network: nn.Module, schedule: Schedule,
-                 reparam: Optional[Reparam] = None, cond: Optional[nn.Module] = None):
+                 reparam: Optional[Reparam] = None, cond: Optional[nn.Module] = None,
+                 divergence_fn: Optional[Callable] = None):
         super().__init__()
         self.network = network
         self.cond = cond if cond is not None else NoCond()
         self.reparam = reparam if reparam is not None else Reparam()
         self.schedule = schedule
+        self.divergence_fn = divergence_fn
 
     def _broadcast_sigma(self, sigma, x):
         check_points(x, "x")
@@ -81,15 +88,19 @@ class Diffusion(nn.Module):
         return sigma.expand(x.shape[:1])  # [B]
 
     def denoise(self, sigma, x: torch.Tensor, ctx: Any = None, hs: Optional[torch.Tensor] = None,
-                return_h: bool = False):
+                return_h: bool = False, dropout: Optional[DropoutFn] = None):
         """D(x; sigma) with EDM pre/post-conditioning; ``sigma`` scalar or [B].
         ``return_h=True`` also returns the network's inducer tokens, and
-        ``hs`` reuses them (the network's pool side skipped).
-        Differentiable: the sampling entry points turn autograd off."""
+        ``hs`` reuses them (the network's pool side skipped). ``dropout``:
+        the network's dropout masks (None: deterministic, as everywhere but
+        the loss). Differentiable: the sampling entry points turn autograd
+        off."""
         sig = self._broadcast_sigma(sigma, x)
         s = self.schedule
+        # a network without dropout need not take the argument
+        kw = {} if dropout is None else {"dropout": dropout}
         out = self.network(s.c_noise(sig), s.c_in(sig)[:, None, None] * x, ctx, hs=hs,
-                           return_h=return_h)
+                           return_h=return_h, **kw)
         f, *stored = out if return_h else (out,)
         x_hat = s.c_skip(sig)[:, None, None] * x + s.c_out(sig)[:, None, None] * f
         return (x_hat, *stored) if return_h else x_hat
@@ -127,22 +138,37 @@ class Diffusion(nn.Module):
         return sigma.to(points.device, points.dtype), noise.to(points.device, points.dtype)
 
     def loss_from(self, points: torch.Tensor, sigma: torch.Tensor, noise: torch.Tensor,
-                  raw_ctx: Any = None, loss_scale: float = 1.0) -> torch.Tensor:
+                  raw_ctx: Any = None, loss_scale: float = 1.0,
+                  dropout: Optional[DropoutFn] = None) -> torch.Tensor:
         """Denoising score-matching loss of data-space ``points`` [B, N, D]
         at the given ``sigma`` [B] and ``noise`` [B, N, D]: the mean over the
-        batch of ``lambda(sigma) * mse(D(x + sigma * noise; sigma), x)``."""
+        batch of ``lambda(sigma) * divergence(D(x + sigma * noise; sigma),
+        x)``, the network's dropout masks from ``dropout`` (None: none)."""
         check_points(points, "points")
         x = self.reparam.data_to_diffusion(points, raw_ctx)
         ctx = self.cond(raw_ctx)
-        x_hat = self.denoise(sigma, x + sigma[:, None, None] * noise, ctx)
+        x_hat = self.denoise(sigma, x + sigma[:, None, None] * noise, ctx, dropout=dropout)
         weight = self.schedule.loss_weight(sigma)
-        return loss_scale * torch.mean(weight * mse(x_hat, x))
+        div_fn = self.divergence_fn if self.divergence_fn is not None else mse
+        return loss_scale * torch.mean(weight * div_fn(x_hat, x))
 
     def loss(self, points: torch.Tensor, generator: torch.Generator, raw_ctx: Any = None,
-             loss_scale: float = 1.0) -> torch.Tensor:
-        """``loss_from`` at sigma and noise drawn from ``generator``."""
+             loss_scale: float = 1.0, train_in_inference_mode: bool = False) -> torch.Tensor:
+        """``loss_from`` at sigma and noise drawn from ``generator``, then the
+        dropout masks (``train_in_inference_mode=True``: no dropout, the JAX
+        package's withheld network key)."""
         sigma, noise = self.draw_sigma_noise(generator, points)
-        return self.loss_from(points, sigma, noise, raw_ctx, loss_scale)
+        dropout = None if train_in_inference_mode else self.dropout_masks(generator)
+        return self.loss_from(points, sigma, noise, raw_ctx, loss_scale, dropout)
+
+    def dropout_masks(self, generator: torch.Generator) -> Optional[DropoutFn]:
+        """The network's dropout masks drawn from ``generator``, or None
+        where no module of the network drops units (``dropout_p > 0``): a
+        network without dropout is called as before, without the
+        argument."""
+        if any(getattr(m, "dropout_p", 0.0) > 0.0 for m in self.network.modules()):
+            return bernoulli_dropout(generator)
+        return None
 
     @torch.no_grad()
     def sample(self, generator: torch.Generator, shape: tuple, raw_ctx: Any = None,

@@ -6,8 +6,9 @@ from gecco_tpu_torch.models.convnext import (
     FeaturePyramidContext,
     load_torchvision_state_dict,
 )
-from gecco_tpu_torch.models.mlp import MLP
-from gecco_tpu_torch.models.normalization import AdaGN
+from gecco_tpu_torch.models.embed import LinearSpaceEmbedding, LinearTimeEmbedding
+from gecco_tpu_torch.models.mlp import MLP, bernoulli_dropout
+from gecco_tpu_torch.models.normalization import AdaGN, AdaLN
 from gecco_tpu_torch.models.set_transformer import (
     AttentionPool,
     Broadcast,
@@ -15,6 +16,7 @@ from gecco_tpu_torch.models.set_transformer import (
     SetTransformer,
     Unpool,
 )
+from gecco_tpu_torch.models.gpt_init import gpt_init
 from gecco_tpu_torch.models.wrappers import (
     GlobalConditioningNetwork,
     LinearLift,
@@ -29,8 +31,13 @@ __all__ = [
     "FeaturePyramidContext",
     "load_torchvision_state_dict",
     "GaussianActivation",
+    "LinearSpaceEmbedding",
+    "LinearTimeEmbedding",
+    "gpt_init",
     "MLP",
+    "bernoulli_dropout",
     "AdaGN",
+    "AdaLN",
     "AttentionPool",
     "Broadcast",
     "BroadcastingLayer",

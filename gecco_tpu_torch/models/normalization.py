@@ -1,4 +1,6 @@
-"""Adaptive group norm (counterpart of ``gecco_tpu.models.normalization.AdaGN``).
+"""Adaptive norms (counterpart of ``gecco_tpu.models.normalization``:
+``AdaGN``, the set-level group norm, and ``AdaLN``, the per-token layer
+norm).
 
 The scale and bias are affine functions of a per-example embedding (the
 noise level), initialised to identity: the scale Linear has weight 0 and
@@ -12,10 +14,22 @@ from typing import Optional
 import torch
 from torch import nn
 
-from gecco_tpu_torch.ops.norms import group_norm, group_norm_stats, stats_from_sums
+from gecco_tpu_torch.ops.norms import group_norm, group_norm_stats, layer_norm, stats_from_sums
 from gecco_tpu_torch.utils.modules import Linear
 
-__all__ = ["AdaGN"]
+__all__ = ["AdaGN", "AdaLN"]
+
+
+def _identity_affine(module: nn.Module, num_features, embed_dim, device, generator) -> None:
+    """``module.scale_linear`` and ``module.bias_linear``: embed -> features,
+    initialised to the identity affine."""
+    module.scale_linear = Linear(embed_dim, num_features, device=device, generator=generator)
+    module.bias_linear = Linear(embed_dim, num_features, device=device, generator=generator)
+    with torch.no_grad():
+        module.scale_linear.weight.zero_()
+        module.scale_linear.bias.fill_(1.0)
+        module.bias_linear.weight.zero_()
+        module.bias_linear.bias.zero_()
 
 
 class AdaGN(nn.Module):
@@ -31,13 +45,7 @@ class AdaGN(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.scale_linear = Linear(embed_dim, num_features, device=device, generator=generator)
-        self.bias_linear = Linear(embed_dim, num_features, device=device, generator=generator)
-        with torch.no_grad():
-            self.scale_linear.weight.zero_()
-            self.scale_linear.bias.fill_(1.0)
-            self.bias_linear.weight.zero_()
-            self.bias_linear.bias.zero_()
+        _identity_affine(self, num_features, embed_dim, device, generator)
         self.num_groups = num_groups
 
     def forward(self, x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
@@ -68,3 +76,18 @@ class AdaGN(nn.Module):
         over the tokens) that a fused kernel emitted for its output."""
         stats = stats_from_sums(sums[:, 0], sums[:, 1], n_tokens, self.num_groups)
         return self._affine(*stats, embed)
+
+
+class AdaLN(nn.Module):
+    """Per-token layer norm with an embedding-conditioned affine."""
+
+    def __init__(self, num_features: int, embed_dim: int, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _identity_affine(self, num_features, embed_dim, device, generator)
+
+    def forward(self, x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+        # x: [B, N, C], embed: [B, E]
+        scale = self.scale_linear(embed)[..., None, :]
+        bias = self.bias_linear(embed)[..., None, :]
+        return scale.to(x.dtype) * layer_norm(x) + bias.to(x.dtype)

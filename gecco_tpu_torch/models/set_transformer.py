@@ -37,7 +37,25 @@ layer in the backward pass (``torch.utils.checkpoint``, the JAX package's
 forward kernel launched a second time per training step. ``return_h=True``
 returns the layers' inducer tokens ``[L, B, I, C]``, and ``hs=...`` reuses
 them (the pool side skipped: the cached evaluations of
-``Diffusion.upsample``). ``ref_jax_compat`` is not ported yet.
+``Diffusion.upsample``).
+
+``activation`` (default the Gaussian) is every MLP's; ``ref_jax_compat=True``
+applies each layer's second MLP to the un-normed residual stream, as
+gecco-jax does (its ``mlp_norm`` is computed and discarded there, and kept
+here, unused, so that its checkpoints load): the function of the released
+``.eqx`` weights (``gecco_tpu_torch.compat``). ``dropout=`` on ``forward``
+is the mask source of the MLPs' dropout (``models/mlp.py``), the port's
+counterpart of the JAX package's network key.
+
+On ``folded_pallas`` a part that the fused functions cannot take runs
+unfused, as in the JAX package: an MLP that is not fusable (``_mlp_fusable``:
+two layers with biases, the Gaussian activation, no dropout where a mask
+source is threaded) takes its h-side (norm_1, MLP, norm_2, then the k/v
+projections) or its residual MLP (with ``mlp_norm`` where the model is not
+in compat) in PyTorch; the statistics chain runs only where every layer's
+parts all fuse (the JAX package's ``chain_sums``), else each layer's pool
+takes its statistics itself. Under ``ref_jax_compat`` the fused MLP takes
+the identity pre-norm (``se2 = 1``, ``be2 = 0``) and the megakernel is off.
 """
 
 from __future__ import annotations
@@ -50,7 +68,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from gecco_tpu_torch.models.activation import GaussianActivation
-from gecco_tpu_torch.models.mlp import MLP
+from gecco_tpu_torch.models.mlp import MLP, DropoutFn
 from gecco_tpu_torch.models.normalization import AdaGN
 from gecco_tpu_torch.ops.attention import (
     pool_attention_folded,
@@ -91,13 +109,43 @@ def _fold_mlp_operands(mlp: MLP, dt) -> tuple:
     return w1t, b1.contiguous(), w2t.to(dt).contiguous(), b2.contiguous()
 
 
-def _mlp_fusable(mlp: MLP) -> bool:
-    """Whether an MLP matches the fused functions' operand convention."""
+def _mlp_fusable(mlp: MLP, dropout: Optional[DropoutFn]) -> bool:
+    """Whether an MLP matches the fused functions' operand convention (with
+    a mask source threaded, only an MLP without dropout does)."""
     return (
         len(mlp.layers) == 2
         and isinstance(mlp.activation, GaussianActivation)
+        and (dropout is None or mlp.dropout_p == 0.0)
         and all(layer.bias is not None for layer in mlp.layers)
     )
+
+
+def _hside_fusable(bc: "Broadcast", dropout: Optional[DropoutFn]) -> bool:
+    """Whether the h-side (norm_1, MLP, norm_2) runs as ``fused_h_side``."""
+    return (
+        _mlp_fusable(bc.mlp, dropout)
+        and isinstance(bc.norm_1, AdaGN)
+        and isinstance(bc.norm_2, AdaGN)
+        and bc.norm_1.num_groups == bc.norm_2.num_groups
+    )
+
+
+class _Replay:
+    """A layer's dropout masks: drawn from ``draw`` on the first pass and
+    replayed, from ``rewind()``, when the backward pass recomputes the layer
+    (``remat``), as the JAX package's checkpointed layer reuses its key."""
+
+    def __init__(self, draw: DropoutFn):
+        self.draw, self.masks, self.pos = draw, [], 0
+
+    def rewind(self) -> None:
+        self.pos = 0
+
+    def __call__(self, p_keep: float, shape: tuple) -> torch.Tensor:
+        if self.pos == len(self.masks):
+            self.masks.append(self.draw(p_keep, shape))
+        self.pos += 1
+        return self.masks[self.pos - 1]
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -168,18 +216,20 @@ class Broadcast(nn.Module):
     ``h`` the pool side is skipped."""
 
     def __init__(self, feature_dim, num_inducers, embed_dim, num_heads=8, mlp_blowup=2,
-                 *, device=None, generator=None):
+                 activation=None, *, device=None, generator=None):
         super().__init__()
         kw = dict(device=device, generator=generator)
         self.pool = AttentionPool(feature_dim, num_heads, num_inducers, **kw)
         self.norm_1 = AdaGN(feature_dim, embed_dim, **kw)
-        self.mlp = MLP(feature_dim, feature_dim, mlp_blowup * feature_dim, **kw)
+        self.mlp = MLP(feature_dim, feature_dim, mlp_blowup * feature_dim,
+                       activation=activation, **kw)
         self.norm_2 = AdaGN(feature_dim, embed_dim, **kw)
         self.unpool = Unpool(feature_dim, num_heads, **kw)
 
-    def forward(self, x, embed, h=None, attn_impl="xla"):
+    def forward(self, x, embed, h=None, attn_impl="xla", dropout: Optional[DropoutFn] = None):
         if h is None:
-            h = self.norm_2(self.mlp(self.norm_1(self.pool(x, attn_impl), embed)), embed)
+            h = self.norm_1(self.pool(x, attn_impl), embed)
+            h = self.norm_2(self.mlp(h, dropout), embed)
         return self.unpool(x, h, attn_impl), h
 
 
@@ -187,11 +237,13 @@ class BroadcastingLayer(nn.Module):
     """Pre-norm residual transformer layer built on Broadcast."""
 
     def __init__(self, feature_dim, num_inducers, embed_dim, num_heads=8, mlp_blowup=2,
-                 skip_scale=0.1, *, device=None, generator=None):
+                 skip_scale=0.1, activation=None, *, device=None, generator=None):
         super().__init__()
         kw = dict(device=device, generator=generator)
-        self.broadcast = Broadcast(feature_dim, num_inducers, embed_dim, num_heads, mlp_blowup, **kw)
-        self.mlp = MLP(feature_dim, feature_dim, mlp_blowup * feature_dim, **kw)
+        self.broadcast = Broadcast(feature_dim, num_inducers, embed_dim, num_heads, mlp_blowup,
+                                   activation, **kw)
+        self.mlp = MLP(feature_dim, feature_dim, mlp_blowup * feature_dim,
+                       activation=activation, **kw)
         self.broadcast_norm = AdaGN(feature_dim, embed_dim, **kw)
         self.mlp_norm = AdaGN(feature_dim, embed_dim, **kw)
         if skip_scale != 1.0:
@@ -201,19 +253,24 @@ class BroadcastingLayer(nn.Module):
                 self.mlp.layers[-1].weight.mul_(skip_scale)
 
     def forward(self, x, embed, attn_impl="xla", in_sums: Optional[torch.Tensor] = None,
-                h: Optional[torch.Tensor] = None, kv: Optional[tuple] = None):
+                h: Optional[torch.Tensor] = None, kv: Optional[tuple] = None,
+                dropout: Optional[DropoutFn] = None, mlp_on_unnormed: bool = False):
         """-> (x, h, out_sums). ``in_sums`` [B, 2, C] fp32 are the channel
         sums of ``x`` for the fused path; ``out_sums`` those of the output,
-        or None on the plain paths. ``h`` [B, I, C]: a cached inducer state
-        (the pool side is skipped); ``kv``: its unpool k/v projections,
-        hoisted by the caller (fused path only)."""
+        or None on the plain paths and where the MLP runs unfused. ``h``
+        [B, I, C]: a cached inducer state (the pool side is skipped);
+        ``kv``: its unpool k/v projections, hoisted by the caller (fused
+        path only). ``dropout``: the MLPs' mask source (the broadcast's MLP
+        draws first). ``mlp_on_unnormed``: the second MLP takes the
+        un-normed stream (``ref_jax_compat``)."""
         if attn_impl == "folded_pallas":
-            return self._fused_call(x, embed, in_sums, h, kv)
-        x_b, h = self.broadcast(self.broadcast_norm(x, embed), embed, h=h, attn_impl=attn_impl)
+            return self._fused_call(x, embed, in_sums, h, kv, dropout, mlp_on_unnormed)
+        x_b, h = self.broadcast(self.broadcast_norm(x, embed), embed, h=h, attn_impl=attn_impl,
+                                dropout=dropout)
         x = x + x_b
-        return x + self.mlp(self.mlp_norm(x, embed)), h, None
+        return x + self.mlp(x if mlp_on_unnormed else self.mlp_norm(x, embed), dropout), h, None
 
-    def _fused_call(self, x, embed, in_sums, h, kv):
+    def _fused_call(self, x, embed, in_sums, h, kv, dropout, mlp_on_unnormed):
         """The layer through the four fused functions: pool (pre-norm
         inline), h-side, unpool (+ residual + output sums), MLP (+ residual
         + output sums). Same function as the plain path.
@@ -236,7 +293,15 @@ class BroadcastingLayer(nn.Module):
         grad on). On CUDA tensors a body of the kernel must also take the
         shapes (``unpool_mlp_fits_sm``: the Hopper body's cluster, or the
         WMMA body's point tile in one SM's shared memory), else the two
-        kernels run; the plain version on CPU tensors has no such limit."""
+        kernels run; the plain version on CPU tensors has no such limit.
+        The megakernel applies ``mlp_norm``, so it is off under
+        ``mlp_on_unnormed``, and where the MLP does not fuse.
+
+        An MLP that does not fuse (``_mlp_fusable``) runs in PyTorch: the
+        h-side's as norm_1, MLP, norm_2 and the k/v projections; the
+        residual MLP after the unpool kernel, on ``mlp_norm``'s output or,
+        under ``mlp_on_unnormed``, on the stream itself. Under
+        ``mlp_on_unnormed`` the fused MLP takes the identity pre-norm."""
         b, n, c = x.shape
         dt = x.dtype
         bc = self.broadcast
@@ -248,23 +313,21 @@ class BroadcastingLayer(nn.Module):
                 se1, be1 = norm.scale_bias_from_sums(in_sums, n, embed)
             else:
                 se1, be1 = norm.effective_scale_bias(x, embed)
-            if kv is None:
-                hd = h.to(dt)
-                kv = (hd @ bc.unpool.k_proj.weight.to(dt).T,
-                      hd @ bc.unpool.v_proj.weight.to(dt).T)
-            k, v = kv
+            k, v = kv if kv is not None else (None, None)
         else:
             ind2 = bc.pool.inducers.reshape(-1, c // num_heads).to(dt)
             kvw, wo_p = bc.pool.kv_proj.weight.to(dt), bc.pool.out_proj.weight.to(dt)
-            # Grad mode stands in for the JAX package's network key, but
-            # the two part in the exact likelihood: there grad is on (its
-            # divergence is a VJP) and JAX threads no key. They route alike
-            # only because the fused chain always supplies ``in_sums``
-            # (``SetTransformer.forward``, as JAX's chain does), so both
-            # take folded_pool_ext; the sums-less branches below run only
-            # for a layer called on its own. (Under the opt-in megakernel
-            # JAX's likelihood takes fused_unpool_mlp, whose gradient is the
-            # separate kernels'; the port runs those kernels under grad.)
+            # Grad mode stands in for the JAX package's network key in the
+            # routing of a sums-less pool, but the two part in the exact
+            # likelihood and under ``train_in_inference_mode``: there grad
+            # is on and JAX threads no key. Where the statistics chain runs
+            # (every fusable model), ``in_sums`` is given and both take
+            # folded_pool_ext. Without the chain (an MLP that does not
+            # fuse) the JAX package takes the resident pool there and the
+            # port the tiled one: the same function through another kernel.
+            # (Under the opt-in megakernel JAX's likelihood takes
+            # fused_unpool_mlp, whose gradient is the separate kernels'; the
+            # port runs those kernels under grad.)
             if in_sums is not None:
                 se1, be1 = norm.scale_bias_from_sums(in_sums, n, embed)
                 h0 = folded_pool_ext(x, se1, be1, ind2, kvw, wo_p, num_heads)
@@ -277,17 +340,27 @@ class BroadcastingLayer(nn.Module):
                     group_indicator(c, norm.num_groups, x.device), num_heads, True,
                 )
                 se1, be1 = norm._affine(mean_c, inv_c, embed)
-            h, k, v = fused_h_side(
-                h0,
-                bc.norm_1.scale_linear(embed_f), bc.norm_1.bias_linear(embed_f),
-                bc.norm_2.scale_linear(embed_f), bc.norm_2.bias_linear(embed_f),
-                group_indicator(c, bc.norm_1.num_groups, x.device),
-                *_fold_mlp_operands(bc.mlp, dt),
-                bc.unpool.k_proj.weight.to(dt), bc.unpool.v_proj.weight.to(dt),
-            )
+            if _hside_fusable(bc, dropout):
+                h, k, v = fused_h_side(
+                    h0,
+                    bc.norm_1.scale_linear(embed_f), bc.norm_1.bias_linear(embed_f),
+                    bc.norm_2.scale_linear(embed_f), bc.norm_2.bias_linear(embed_f),
+                    group_indicator(c, bc.norm_1.num_groups, x.device),
+                    *_fold_mlp_operands(bc.mlp, dt),
+                    bc.unpool.k_proj.weight.to(dt), bc.unpool.v_proj.weight.to(dt),
+                )
+            else:
+                h = bc.norm_2(bc.mlp(bc.norm_1(h0, embed), dropout), embed)
+                k = None
+        if k is None:
+            hd = h.to(dt)
+            k = hd @ bc.unpool.k_proj.weight.to(dt).T
+            v = hd @ bc.unpool.v_proj.weight.to(dt).T
         wq, wo = bc.unpool.q_proj.weight.to(dt), bc.unpool.out_proj.weight.to(dt)
-        mlp_ops = _fold_mlp_operands(self.mlp, dt)
-        if (os.environ.get("GECCO_UNPOOL_MLP_MEGAKERNEL") == "1" and not torch.is_grad_enabled()
+        mlp_ok = _mlp_fusable(self.mlp, dropout)
+        mlp_ops = _fold_mlp_operands(self.mlp, dt) if mlp_ok else None
+        if (mlp_ok and not mlp_on_unnormed and os.environ.get("GECCO_UNPOOL_MLP_MEGAKERNEL") == "1"
+                and not torch.is_grad_enabled()
                 and (x.device.type == "cpu"
                      or unpool_mlp_fits_sm(n, c, k.shape[1], mlp_ops[0].shape[1], num_heads,
                                            dt))):
@@ -299,7 +372,15 @@ class BroadcastingLayer(nn.Module):
             )
             return x, h, out_sums
         x, sums = folded_unpool(x, se1, be1, k, v, wq, wo, num_heads)
-        se2, be2 = self.mlp_norm.scale_bias_from_sums(sums, n, embed)
+        if not mlp_ok:
+            y = x if mlp_on_unnormed else self.mlp_norm(x, embed)
+            return x + self.mlp(y, dropout), h, None
+        if mlp_on_unnormed:
+            # the identity pre-norm: the unpool's sums go unused
+            se2 = torch.ones((b, c), dtype=torch.float32, device=x.device)
+            be2 = torch.zeros((b, c), dtype=torch.float32, device=x.device)
+        else:
+            se2, be2 = self.mlp_norm.scale_bias_from_sums(sums, n, embed)
         x, out_sums = fused_mlp_residual(x, se2, be2, *mlp_ops)
         return x, h, out_sums
 
@@ -310,16 +391,17 @@ class SetTransformer(nn.Module):
 
     def __init__(self, n_layers, feature_dim, num_inducers, embed_dim, num_heads=8, mlp_blowup=2,
                  skip_scale=0.1, compute_dtype=torch.bfloat16, attn_impl="xla", remat=False,
-                 *, device=None, generator=None):
+                 activation=None, ref_jax_compat=False, *, device=None, generator=None):
         super().__init__()
         self.layers = nn.ModuleList(
             BroadcastingLayer(feature_dim, num_inducers, embed_dim, num_heads, mlp_blowup,
-                              skip_scale, device=device, generator=generator)
+                              skip_scale, activation, device=device, generator=generator)
             for _ in range(n_layers)
         )
         self.compute_dtype = compute_dtype
         self.attn_impl = attn_impl
         self.remat = remat
+        self.ref_jax_compat = ref_jax_compat
 
     @property
     def attn_impl(self) -> str:
@@ -329,17 +411,20 @@ class SetTransformer(nn.Module):
     def attn_impl(self, value: str) -> None:
         if value not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {value!r}")
-        if value == "folded_pallas":
-            for layer in self.layers:
-                norms = (layer.broadcast_norm, layer.mlp_norm, layer.broadcast.norm_1,
-                         layer.broadcast.norm_2)
-                if not (_mlp_fusable(layer.mlp) and _mlp_fusable(layer.broadcast.mlp)
-                        and all(isinstance(m, AdaGN) for m in norms)
-                        and layer.broadcast.norm_1.num_groups == layer.broadcast.norm_2.num_groups):
-                    raise ValueError("folded_pallas needs fusable MLPs and AdaGN norms")
         self._attn_impl = value
 
-    def forward(self, features, embed, hs=None, return_h=False, in_sums=None, with_sums=False):
+    def chains_sums(self, dropout: Optional[DropoutFn] = None) -> bool:
+        """Whether ``folded_pallas`` runs the statistics chain: every
+        layer's MLPs fuse and its norms are AdaGNs (JAX's ``chain_sums``)."""
+        return all(
+            _mlp_fusable(layer.mlp, dropout) and _mlp_fusable(layer.broadcast.mlp, dropout)
+            and all(isinstance(m, AdaGN) for m in (layer.broadcast_norm, layer.mlp_norm,
+                                                   layer.broadcast.norm_1, layer.broadcast.norm_2))
+            for layer in self.layers
+        )
+
+    def forward(self, features, embed, hs=None, return_h=False, in_sums=None, with_sums=False,
+                dropout: Optional[DropoutFn] = None):
         """``features`` [B, N, C], ``embed`` [B, E] -> [B, N, C], followed
         by the layers' inducer tokens [L, B, I, C] where ``return_h`` and by
         the output's channel sums (None off the fused path) where
@@ -347,15 +432,20 @@ class SetTransformer(nn.Module):
         layer's pool side skipped (on the fused path the unpool's k/v
         projections of all layers go first, in two batched products).
         ``in_sums`` ([B, 2, C] fp32): channel sums of ``features``, seeding
-        the fused path's statistics chain."""
+        the fused path's statistics chain (ignored where it does not run).
+        ``dropout``: the MLPs' mask source; the cached layers (``hs``) take
+        none, as in the JAX package."""
         in_dtype = features.dtype
         x = features.to(self.compute_dtype)
         # the embed (sigma itself, up to sigma_max) is rounded to the compute
         # dtype before the AdaGN linears, as in the JAX package
         embed = embed.to(self.compute_dtype)
+        if hs is not None:
+            dropout = None
         fused = self.attn_impl == "folded_pallas"
+        chain = fused and self.chains_sums(dropout)
         sums = None
-        if fused:
+        if chain:
             if in_sums is not None:
                 sums = in_sums.float()
             else:
@@ -370,13 +460,24 @@ class SetTransformer(nn.Module):
             kvs = list(zip(torch.einsum("lbic,ldc->lbid", hd, kw),
                            torch.einsum("lbic,ldc->lbid", hd, vw)))
         remat = self.remat and torch.is_grad_enabled() and hs is None
+        unnormed = self.ref_jax_compat
         stored = []
         for q, layer in enumerate(self.layers):
             if remat:
-                x, h, sums = checkpoint(layer, x, embed, self.attn_impl, sums, use_reentrant=False)
+                drop = None if dropout is None else _Replay(dropout)
+
+                def run(x, sums, layer=layer, drop=drop):
+                    if drop is not None:
+                        drop.rewind()
+                    return layer(x, embed, self.attn_impl, in_sums=sums, dropout=drop,
+                                 mlp_on_unnormed=unnormed)
+
+                x, h, out_sums = checkpoint(run, x, sums, use_reentrant=False)
             else:
                 h = None if hs is None else hs[q].to(x.dtype)
-                x, h, sums = layer(x, embed, self.attn_impl, in_sums=sums, h=h, kv=kvs[q])
+                x, h, out_sums = layer(x, embed, self.attn_impl, in_sums=sums, h=h, kv=kvs[q],
+                                       dropout=dropout, mlp_on_unnormed=unnormed)
+            sums = out_sums if chain else None
             stored.append(h)
         out = (x.to(in_dtype),)
         if return_h:

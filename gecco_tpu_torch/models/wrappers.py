@@ -2,10 +2,12 @@
 ``gecco_tpu.models.wrappers``: ``UnconditionalPointNetwork`` (alias
 ``LinearLift``), ``GlobalConditioningNetwork`` and ``RayNetwork``).
 
-Network contract: ``net(t [B], x [B, N, 3], ctx, hs=None, return_h=False)
--> [B, N, 3]`` where ``t`` is the preconditioned noise level (c_noise) and
-``x`` the c_in-scaled points; ``return_h=True`` also returns the backbone's
-inducer tokens [L, B, I, C], and ``hs`` reuses them (cached upsampling).
+Network contract: ``net(t [B], x [B, N, 3], ctx, hs=None, return_h=False,
+dropout=None) -> [B, N, 3]`` where ``t`` is the preconditioned noise level
+(c_noise) and ``x`` the c_in-scaled points; ``return_h=True`` also returns
+the backbone's inducer tokens [L, B, I, C], and ``hs`` reuses them (cached
+upsampling); ``dropout`` is the backbone MLPs' mask source (the JAX
+package's network key).
 """
 
 from __future__ import annotations
@@ -78,13 +80,13 @@ class UnconditionalPointNetwork(nn.Module):
         self.output_norm_groups = output_norm_groups
 
     def forward(self, t: torch.Tensor, x: torch.Tensor, ctx: Any = None,
-                hs: Optional[torch.Tensor] = None, return_h: bool = False):
+                hs: Optional[torch.Tensor] = None, return_h: bool = False, dropout=None):
         del ctx
         features = self.xyz_embed(x)  # [B, N, C]
         embed = t[..., None]  # [B, 1]: the noise level itself is the embed
         in_sums = _embed_channel_sums(self.xyz_embed, x)
         processed, *stored, sums = self.backbone(features, embed, hs=hs, return_h=return_h,
-                                                 in_sums=in_sums, with_sums=True)
+                                                 in_sums=in_sums, with_sums=True, dropout=dropout)
         y = _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype)
         return (y, *stored) if return_h else y
 
@@ -109,14 +111,14 @@ class GlobalConditioningNetwork(nn.Module):
         self.output_norm_groups = output_norm_groups
 
     def forward(self, t: torch.Tensor, x: torch.Tensor, ctx: Any,
-                hs: Optional[torch.Tensor] = None, return_h: bool = False):
+                hs: Optional[torch.Tensor] = None, return_h: bool = False, dropout=None):
         (global_features,) = ctx.features  # [B, h, w, C]
         img_embed = global_features.mean(dim=(-3, -2))  # [B, C]
         embed = torch.cat([t[..., None], img_embed.to(t.dtype)], dim=-1)
         features = self.xyz_embed(x)
         in_sums = _embed_channel_sums(self.xyz_embed, x)
         processed, *stored, sums = self.backbone(features, embed, hs=hs, return_h=return_h,
-                                                 in_sums=in_sums, with_sums=True)
+                                                 in_sums=in_sums, with_sums=True, dropout=dropout)
         y = _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype)
         return (y, *stored) if return_h else y
 
@@ -156,13 +158,14 @@ class RayNetwork(nn.Module):
         self._lookup_impl = value
 
     def forward(self, t: torch.Tensor, x: torch.Tensor, ctx: Any,
-                hs: Optional[torch.Tensor] = None, return_h: bool = False):
+                hs: Optional[torch.Tensor] = None, return_h: bool = False, dropout=None):
         xyz_features = self.xyz_embed(x)
         hw01 = self.reparam.diffusion_to_hw(x.float(), ctx.K)  # [B, N, 2]
         looked_up = lookup_pyramid(ctx.features, hw01, impl=self.lookup_impl)
         features = xyz_features + self.ctx_dim_reductor(looked_up).to(xyz_features.dtype)
         # no analytic in_sums: the backbone takes the sums of its input stream
         processed, *stored, sums = self.backbone(features, t[..., None], hs=hs,
-                                                 return_h=return_h, with_sums=True)
+                                                 return_h=return_h, with_sums=True,
+                                                 dropout=dropout)
         y = _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype)
         return (y, *stored) if return_h else y

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["group_norm", "group_norm_stats", "stats_from_sums"]
+__all__ = ["group_norm", "group_norm_stats", "layer_norm", "stats_from_sums"]
 
 
 def stats_from_sums(
@@ -48,3 +48,12 @@ def group_norm(x: torch.Tensor, num_groups: int = 32, eps: float = 1e-5) -> torc
     """Set-level group norm of ``x [..., N, C]`` without affine, in x's dtype."""
     mean_c, inv_c = group_norm_stats(x, num_groups, eps)
     return ((x.float() - mean_c[..., None, :]) * inv_c[..., None, :]).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-token layer norm of ``x [..., C]`` over the channels, no affine,
+    statistics in fp32, the result in x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    return ((xf - mean) / torch.sqrt(var + eps)).to(x.dtype)

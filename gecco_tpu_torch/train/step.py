@@ -38,7 +38,8 @@ def ema_update(ema: nn.Module, model: nn.Module, alpha: float) -> None:
     torch._foreach_add_(es, torch._foreach_mul(ps, 1.0 - alpha))
 
 
-def make_train_step(optimizer: Transform, loss_scale: float = 1.0, ema_alpha: float = 0.999):
+def make_train_step(optimizer: Transform, loss_scale: float = 1.0, ema_alpha: float = 0.999,
+                    train_in_inference_mode: bool = False):
     """The full train step ``step(model, ema, opt_state, points, generator,
     sigma=None, noise=None, raw_ctx=None) -> (loss, opt_state)``.
 
@@ -46,8 +47,9 @@ def make_train_step(optimizer: Transform, loss_scale: float = 1.0, ema_alpha: fl
     ``raw_ctx`` their conditioning (a ``Context3d`` for the image-conditional
     model, None for the unconditional one). Sigma and the noise are drawn
     from ``generator`` unless both are given (the tests feed the JAX
-    package's draws). After the step each parameter's ``.grad`` holds the
-    gradient of that step's loss."""
+    package's draws), then the network's dropout masks, unless
+    ``train_in_inference_mode`` (or no generator is given). After the step
+    each parameter's ``.grad`` holds the gradient of that step's loss."""
 
     def step(model: nn.Module, ema: nn.Module, opt_state, points: torch.Tensor,
              generator: Optional[torch.Generator] = None, sigma: Optional[torch.Tensor] = None,
@@ -57,7 +59,10 @@ def make_train_step(optimizer: Transform, loss_scale: float = 1.0, ema_alpha: fl
             sigma, noise = model.draw_sigma_noise(generator, points)
         for p in params:
             p.grad = None
-        loss = model.loss_from(points, sigma, noise, raw_ctx, loss_scale=loss_scale)
+        dropout = (None if train_in_inference_mode or generator is None
+                   else model.dropout_masks(generator))
+        loss = model.loss_from(points, sigma, noise, raw_ctx, loss_scale=loss_scale,
+                               dropout=dropout)
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         with torch.no_grad():

@@ -85,8 +85,9 @@ class Trainer:
     profile_path: Optional[str] = None
     skip_smoke_test: bool = False
     keep_all_checkpoints: bool = False
-    # run the model in inference mode (``nn.Module.eval``) while training,
-    # the JAX trainer's flag for its stochastic layers
+    # train without dropout (the train step draws no masks; the JAX
+    # trainer's flag for its stochastic layers), the model in
+    # ``nn.Module.eval`` mode
     train_in_inference_mode: bool = False
     # fetch train losses from the card in batches of this many steps: each
     # fetch waits for the card, so a fetch per step would keep the host from
@@ -268,7 +269,8 @@ class Trainer:
     def fit(self):
         self._init_opt_state()
         step_fn = make_train_step(self.optimizer, loss_scale=self.loss_scale,
-                                  ema_alpha=self.ema_alpha)
+                                  ema_alpha=self.ema_alpha,
+                                  train_in_inference_mode=self.train_in_inference_mode)
 
         if not (self.skip_smoke_test or self.profile_path is not None):
             print("[trainer] smoke-testing the validation phase...")

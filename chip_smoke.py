@@ -329,7 +329,32 @@ Phases (each raises on failure; nothing is caught):
    MLPs do not fuse: its 8-step sample at batch 8 (the resident pool and
    the unpool kernel once a layer and evaluation, no h-side or MLP kernel)
    against its plain path, and 3 train steps (the tiled pool, the unpool
-   and their backwards, once a layer and step).
+   and their backwards, once a layer and step);
+30. data-parallel training: two ranks of a gloo group on the one card (NCCL
+   refuses two ranks on a device; gloo all-reduces and broadcasts CUDA
+   tensors) each take 3 steps of the flagship at 24 clouds, their rows of
+   a global batch of 48 read by ``shard_by_process`` loaders, through
+   ``make_train_step(mesh=)`` (the draws made for the global batch, the
+   gradients and loss all-reduced): the two ranks' losses and weights the
+   same bits, each rank's forward and backward kernels once a layer and
+   step; against one process at batch 48 on the same draws, the losses,
+   each step's gradient, the weights after 3 steps and their moves (in the
+   groups that moved beyond fp32 rounding) within phase 8's tolerance; an
+   NCCL group of one issues no collective and takes one
+   process's steps; each side's ms/step. Then ``python -m
+   torch.distributed.run --nproc_per_node 2 -m gecco_tpu_torch.train
+   <config> --distributed --backend gloo`` trains the flagship config at 2
+   layers on a PointFlow tree of procedural clouds (one checkpoint set),
+   and a second launch resumes it on both ranks;
+31. the visualisation callbacks (``gecco_tpu_torch.vis``) on the demo's
+   model at 8 solver steps, each callback itself, its sampling through the
+   kernels and its arrays finite, drawing into a stub of pyplot (the card's
+   machine has no matplotlib; the figures are held on the CPU by
+   ``tests/test_torch_vis.py``);
+32. the drifted-magnitude certifier, ``gecco_tpu_torch.certify.main`` at the
+   flagship's shapes, gains 1 and 12, one seed: the five fused wrappers'
+   forward and input gradients against their plain versions, every
+   wrapper's kernels launched.
 
 Phase 3 holds the h-side's Hopper body (``csrc/hside.cu``) at the
 flagship's, the 8k width's and the demo's shapes and at 16, 32 and 48
@@ -408,7 +433,7 @@ from gecco_tpu_torch import (  # noqa: E402
     UVLReparam,
 )
 from gecco_tpu_torch.config import load_config  # noqa: E402
-from gecco_tpu_torch.data import make_clouds, make_conditional_batch  # noqa: E402
+from gecco_tpu_torch.data import dataloader, make_clouds, make_conditional_batch  # noqa: E402
 from gecco_tpu_torch.infer import __main__ as infer_main  # noqa: E402
 from gecco_tpu_torch.metrics import LogpMetric  # noqa: E402
 from gecco_tpu_torch.models import (  # noqa: E402
@@ -421,15 +446,27 @@ from gecco_tpu_torch.models.set_transformer import Broadcast, BroadcastingLayer 
 from gecco_tpu_torch import validate  # noqa: E402
 from gecco_tpu_torch.ops import kernels  # noqa: E402
 from gecco_tpu_torch.ops.norms import group_norm_stats  # noqa: E402
+from gecco_tpu_torch.parallel import (  # noqa: E402
+    Mesh,
+    init_distributed,
+    local_device,
+    make_mesh,
+    replicate,
+    shard_batch,
+    shutdown_distributed,
+)
 from gecco_tpu_torch.train import (  # noqa: E402
+    chain,
+    clip_by_global_norm,
     conditional_optimizer,
     flagship_optimizer,
     make_ema,
     make_train_step,
+    scale_by_learning_rate,
 )
 from gecco_tpu_torch.ops.kernels import _build  # noqa: E402
 from gecco_tpu_torch.train import trainer as trainer_mod  # noqa: E402
-from gecco_tpu_torch.types import to_device  # noqa: E402
+from gecco_tpu_torch.types import Example, to_device  # noqa: E402
 from gecco_tpu_torch.utils.logging import JsonlWriter  # noqa: E402
 from gecco_tpu_torch.ops.kernels import folded_attention as fa  # noqa: E402
 from gecco_tpu_torch.ops.kernels import hside as hs  # noqa: E402
@@ -3234,22 +3271,39 @@ def upsample_path(device, n_layers, n_points, n_new, n_steps, n_substeps, compar
     return counts, dict(seconds=seconds, points_per_s=n_new / seconds, cached_evals=cached)
 
 
-def param_groups(model) -> dict:
-    """Parameters grouped by their name without the layer index (e.g. all
+def group_of(name: str) -> str:
+    """A parameter's group: its name without the layer index (e.g. all
     layers' ``broadcast.pool.kv_proj.weight`` in one group); the ConvNeXt's
     by part: its stem, each stage and each downsample."""
+    parts = name.split(".")
+    if "layers" in parts:
+        k = parts.index("layers")
+        parts = parts[k + 2:]  # drop "...layers.<L>"
+    elif parts[0] == "cond":
+        k = parts.index("backbone") + 1
+        part = parts[k:k + 2] if parts[k] in ("stages", "downs") else ["stem"]
+        parts = parts[:k] + part
+    return ".".join(parts)
+
+
+def param_groups(model) -> dict:
+    """Parameters by ``group_of`` their name."""
     groups = {}
     for name, p in model.named_parameters():
-        parts = name.split(".")
-        if "layers" in parts:
-            k = parts.index("layers")
-            parts = parts[k + 2:]  # drop "...layers.<L>"
-        elif parts[0] == "cond":
-            k = parts.index("backbone") + 1
-            part = parts[k:k + 2] if parts[k] in ("stages", "downs") else ["stem"]
-            parts = parts[:k] + part
-        groups.setdefault(".".join(parts), []).append(p)
+        groups.setdefault(group_of(name), []).append(p)
     return groups
+
+
+def grouped_rel(a: dict, ref: dict) -> dict:
+    """{group: ||a - ref|| / ||ref||} over the named tensors of ``ref``
+    (phase 8's measure of a gradient), each group's tensors flattened
+    together."""
+    flat = lambda d, names: torch.cat([d[n].flatten().double() for n in names])
+    groups = {}
+    for name in ref:
+        groups.setdefault(group_of(name), []).append(name)
+    return {g: float((flat(a, ns) - flat(ref, ns)).norm() / flat(ref, ns).norm().clamp_min(1e-30))
+            for g, ns in groups.items()}
 
 
 def expected_counts(nonzero: dict) -> dict:
@@ -5101,12 +5155,14 @@ REHEARSAL_CUTS = (("n_layers=6", "n_layers=2"), ("feature_dim=384", "feature_dim
 # phase 25's batch of the routes' checks and of its fp32 models, and their
 # depth
 F32_BATCH, F32_LAYERS = 8, 2
-# the Trainer phase's cuts of the config's run: 30 steps with a checkpoint
-# and validation every 15, one validation batch (8 in the config), 96
-# training and 96 validation clouds (the callback scores as many), then 30
-# steps resumed from the last checkpoint (the Trainer fetching the loss
-# every 10, its default) and 64 clouds sampled by the CLI
-TRAINER_STEPS, TRAINER_SAVE_EVERY, TRAINER_VAL_BATCHES = 30, 15, 1
+# the Trainer phase's cuts of the config's run: 15 steps with a checkpoint
+# and validation at the 15th (30 steps and two validations before phase 30
+# came: a validation takes ~24 s of the script's limit), one validation
+# batch (8 in the config), 96 training and 96 validation clouds (the
+# callback scores as many), then 30 steps resumed from the last checkpoint
+# (the Trainer fetching the loss every 10, its default) and 64 clouds
+# sampled by the CLI
+TRAINER_STEPS, TRAINER_SAVE_EVERY, TRAINER_VAL_BATCHES = 15, 15, 1
 TRAINER_CLOUDS, TRAINER_RESUMED, TRAINER_INFER, TRAINER_LOSS_SYNC = 96, 30, 64, 10
 
 
@@ -5963,11 +6019,502 @@ def compat_phase(device, batch, train_batch, n_points, n_layers, n_steps, compar
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------- phase 30: data-parallel training --
+
+# the two ranks' steps: global batch 48 (24 a rank), 3 steps; the CLI's
+# run: the config's text cut to 2 layers, 4 steps with a checkpoint and a
+# validation every 4 on one batch (8-step samplers, a 2-step likelihood,
+# the callback on 48 clouds), then resumed for 2 more, on 96 clouds
+PARALLEL_STEPS = 3
+# the two ranks' optimizer: the global-norm clip, then SGD. AdaBelief's
+# first steps move each weight by about +-lr whatever its gradient's size,
+# so an element whose gradient is rounding noise steps either way, and the
+# flagship optimizer's warm-up (lr 0, 1.5e-7, 3e-7) makes the zero-initialised
+# AdaGN weights nothing but such steps; under SGD the weights' moves are
+# linear in the gradients, and phase 8's tolerance on them means what it
+# means on a gradient. The CLI below trains with the config's AdaBelief.
+PARALLEL_LR = 1e-2
+# the weights' moves over the steps are held per group where the group's
+# move (one process's) is at least this fraction of its weights' norm, 8
+# fp32 ulps an element: a move of N ulps, in two runs whose steps differ
+# by a fraction e, differs by ~sqrt(e / N) from the rounding of w + step
+# alone (a whole ulp where it flips), 2.5e-2 at phase 8's e ~ 5e-3 and
+# N = 8; below it the measure compares rounding (the pool's inducers move
+# ~1e-10 of their norm, the unpool's q and k projections ~9e-8)
+MOVE_FLOOR = 8 * 2.0 ** -23
+PARALLEL_CLI_STEPS, PARALLEL_CLI_RESUMED, PARALLEL_CLI_CLOUDS = 4, 2, 96
+PARALLEL_CLI_CUTS = (("n_layers=6", "n_layers=2"), ("n_solver_steps=128", "n_solver_steps=8"),
+                     ("LogpMetric(n_solver_steps=24)", "LogpMetric(n_solver_steps=2)"),
+                     ("save_every=10_000", "save_every=4"),
+                     ("n_validation_batches=8", "n_validation_batches=1"),
+                     ("n_examples=256", "n_examples=48"))
+# the CLI's ranks log to JSONL (the cut config patches the Trainer's
+# writer): TensorBoard's import brings in TensorFlow where it is installed,
+# seconds in each rank
+PARALLEL_CLI_WRITER = ("import gecco_tpu_torch.train.trainer as _trainer\n"
+                       "from gecco_tpu_torch.utils.logging import JsonlWriter as _JsonlWriter\n"
+                       "_trainer.make_writer = _JsonlWriter\n")
+
+
+class CloudSet:
+    """Procedural clouds (``make_clouds``) as a map-style dataset."""
+
+    def __init__(self, n, n_points, seed):
+        self.clouds = make_clouds(np.random.default_rng(seed), n, n_points)
+
+    def __len__(self):
+        return len(self.clouds)
+
+    def __getitem__(self, i):
+        return Example(self.clouds[i], None)
+
+
+def parallel_steps(device, mesh, n_layers, batch, n_points, steps) -> dict:
+    """``steps`` train steps of the flagship from its seeded init through
+    ``make_train_step(mesh=mesh)``, each on the rank's rows of a global
+    batch of ``batch`` that a ``shard_by_process`` loader reads (the whole
+    batch on a world of one), the draws from a generator seeded by the
+    step. Returns the losses, the weights, the launch counts and the
+    median wall time of the steps after the first, and every step's
+    (all-reduced) gradient."""
+    model = build_flagship(device, torch.Generator().manual_seed(0), n_layers)
+    replicate(model, mesh)
+    ema = make_ema(model)
+    opt = chain(clip_by_global_norm(1.0), scale_by_learning_rate(PARALLEL_LR))
+    opt_state = replicate(opt.init(list(model.parameters())), mesh)
+    step = make_train_step(opt, ema_alpha=0.999, mesh=mesh)
+    loader = dataloader(CloudSet(batch * steps, n_points, 30), batch_size=batch, num_steps=steps,
+                        num_workers=1, shard_by_process=True)
+    copy = lambda t: t.detach().to("cpu", torch.float64, copy=True)
+    init = {k: copy(p) for k, p in model.named_parameters()}
+    losses, times, grads = [], [], []
+    kernels.reset_launch_counts()
+    for k, data in enumerate(loader):
+        ex = shard_batch(data, mesh, device, local=True)
+        sync(device)
+        t0 = time.perf_counter()
+        loss, opt_state = step(model, ema, opt_state, ex.points,
+                               torch.Generator(device=device).manual_seed(300 + k))
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        grads.append({n: p.grad.detach().float().cpu() for n, p in model.named_parameters()})
+    weights = {k: copy(p) for k, p in model.named_parameters()}
+    return dict(losses=losses, counts=kernels.launch_counts(), rows=int(ex.points.shape[0]),
+                ms=1e3 * statistics.median(times[1:] or times), grads=grads, weights=weights,
+                moves={k: weights[k] - v for k, v in init.items()})
+
+
+def parallel_rank(rank: int, port: int, out: str, shape: str) -> None:
+    """A rank of phase 30's gloo group of two (``chip_smoke.py
+    --parallel-rank``): its steps, written to ``out/rank<rank>.pt``."""
+    shape = json.loads(shape)
+    device = torch.device(shape.pop("device"))
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    init_distributed(backend="gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                     rank=rank)
+    try:
+        mesh = make_mesh()
+        rec = parallel_steps(local_device(device), mesh, **shape)
+        torch.save(dict(rec, rank=mesh.rank, world=mesh.size), Path(out) / f"rank{rank}.pt")
+    finally:
+        shutdown_distributed()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argvs, env, timeout, what) -> list:
+    """The processes of ``argvs`` at once; their outputs, each checked for
+    exit code 0."""
+    procs = [subprocess.Popen(a, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env, cwd=os.path.dirname(os.path.abspath(__file__)))
+             for a in argvs]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, text in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: exit code {p.returncode}\n{text[-4000:]}")
+    return outs
+
+
+def parallel_phase(device, n_layers, batch, n_points, steps, cli, rehearse) -> tuple:
+    """Phase 30: data-parallel training. Two gloo ranks on this one card
+    (NCCL refuses two ranks on one device; gloo all-reduces and broadcasts
+    CUDA tensors through the host) take ``steps`` steps of the flagship at
+    the global batch ``batch``, each on its half from a ``shard_by_process``
+    loader: their losses and weights the same bits, and within phase 8's
+    tolerance of one process's at the whole batch on the same draws; each
+    rank's launch counts show the flagship's forward and backward kernels.
+    A group of one (NCCL on the card) gives one process's bits. Then
+    ``python -m torch.distributed.run --nproc_per_node 2 -m
+    gecco_tpu_torch.train <config> --distributed --backend gloo`` trains
+    the flagship config, cut by ``PARALLEL_CLI_CUTS``, on a PointFlow tree
+    of procedural clouds: one set of checkpoints, then a resumed run on
+    both ranks. Returns (rank 0's launch counts, a record)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    shape = dict(n_layers=n_layers, batch=batch, n_points=n_points, steps=steps)
+    tmp = Path(tempfile.mkdtemp(prefix="gecco-parallel-"))
+    try:
+        port = free_port()
+        t0 = time.perf_counter()
+        run_ranks([[sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r),
+                    str(port), str(tmp), json.dumps(dict(shape, device=device.type))]
+                   for r in range(2)], env, 600, "parallel rank")
+        ranks_s = time.perf_counter() - t0
+        r0, r1 = (torch.load(tmp / f"rank{r}.pt") for r in range(2))
+        if (r0["world"], r1["world"], r0["rows"], r1["rows"]) != (2, 2, batch // 2, batch // 2):
+            raise AssertionError(f"ranks: worlds {r0['world']}, {r1['world']}, rows "
+                                 f"{r0['rows']}, {r1['rows']}")
+        if r0["losses"] != r1["losses"]:
+            raise AssertionError(f"the ranks' losses differ: {r0['losses']} {r1['losses']}")
+        for k, v in r0["weights"].items():
+            if not torch.equal(v, r1["weights"][k]):
+                raise AssertionError(f"the ranks' weights differ at {k}")
+        expected = expected_counts({k: n_layers * steps for k in SET_FORWARD + FOLDED_BACKWARD})
+        for r, rec in enumerate((r0, r1)):
+            check_counts(f"rank {r}'s data-parallel training", rec["counts"], expected, device)
+
+        # against one process at the whole batch, phase 8's measure and
+        # tolerance (per parameter group, ||err|| / ||ref||)
+        one = parallel_steps(device, Mesh(), **shape)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"]))
+        check("2-rank losses vs one process at the whole batch", loss_err, TOL_TRAIN_GRAD,
+              "max relative")
+        g_errs = [grouped_rel(a, b) for a, b in zip(r0["grads"], one["grads"])]
+        w_err, m_err = (grouped_rel(r0[f], one[f]) for f in ("weights", "moves"))
+        norms = lambda d: {g: float(torch.cat([d[n].flatten() for n in d if group_of(n) == g])
+                                    .norm()) for g in w_err}
+        move_norm, weight_norm = norms(one["moves"]), norms(one["weights"])
+        held = [g for g in m_err if move_norm[g] >= MOVE_FLOOR * weight_norm[g]]
+        for g in w_err:
+            print(f"    {g}: each step's gradient "
+                  + " ".join(f"{e[g]:.3e}" for e in g_errs)
+                  + f", weights after {steps} steps {w_err[g]:.3e}, their moves {m_err[g]:.3e} "
+                  f"(||2 ranks - one|| / ||one||; the move {move_norm[g] / weight_norm[g]:.2e} "
+                  f"of the weights{'' if g in held else ', rounding: not held'})")
+        g_err = max(max(e.values()) for e in g_errs)
+        check(f"2-rank all-reduced gradient of each of the {steps} steps vs one process", g_err,
+              TOL_TRAIN_GRAD, "max over steps and groups of ||err|| / ||ref||")
+        check(f"2-rank weights after {steps} steps vs one process", max(w_err.values()),
+              TOL_TRAIN_GRAD, "max over groups of ||err|| / ||ref||")
+        if not held:
+            raise AssertionError(f"no group moved {MOVE_FLOOR:.2e} of its weights in {steps} steps")
+        left_out = sorted(set(m_err) - set(held))
+        print(f"  the moves' groups left out (moved under {MOVE_FLOOR:.2e} of their weights): "
+              f"{', '.join(left_out) or 'none'}")
+        check(f"2-rank weights' moves over {steps} steps vs one process ({len(held)} of "
+              f"{len(m_err)} groups)", max(m_err[g] for g in held), TOL_TRAIN_GRAD,
+              "max over the groups held of ||err|| / ||ref||")
+        m_err = max(m_err[g] for g in held)
+        w_err = max(w_err.values())
+        print(f"  losses: 2 ranks {' '.join(f'{v:.6f}' for v in r0['losses'])}; one process "
+              f"{' '.join(f'{v:.6f}' for v in one['losses'])}")
+
+        # a group of one: the step issues no collective (counted) and takes
+        # one process's steps. The card's step is not the same bits from
+        # run to run (the unpool's channel sums and the pool backward's dse,
+        # dbe, dWo and dWv add in fp32 atomics, csrc/unpool.cu and
+        # csrc/pool_ext_bwd.cu), so it is held at phase 8's tolerance beside
+        # a second run without a group; on the CPU the bits are the same
+        # (tests/test_torch_parallel.py)
+        again = parallel_steps(device, Mesh(), **shape)
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        init_distributed(backend=backend, init_method=f"tcp://localhost:{free_port()}",
+                         world_size=1, rank=0)
+        calls = []
+        keep = {n: getattr(torch.distributed, n) for n in ("all_reduce", "broadcast", "barrier")}
+        try:
+            mesh = make_mesh()
+            probe = torch.ones(1, device=device)
+            torch.distributed.all_reduce(probe)  # the group is live
+            for n, f in keep.items():
+                setattr(torch.distributed, n,
+                        lambda *a, _n=n, _f=f, **k: calls.append(_n) or _f(*a, **k))
+            grouped = parallel_steps(device, mesh, **shape)
+        finally:
+            for n, f in keep.items():
+                setattr(torch.distributed, n, f)
+            shutdown_distributed()
+        if calls or mesh.size != 1:
+            raise AssertionError(f"a {backend} group of one: mesh size {mesh.size}, collectives "
+                                 f"{calls}")
+        spread = {}
+        for what, run in ((f"a group of one (its probe all-reduce {float(probe)})", grouped),
+                          ("a second run without one", again)):
+            same = run["losses"] == one["losses"] and all(
+                torch.equal(v, one["weights"][k]) for k, v in run["weights"].items())
+            errs = [max(max(grouped_rel(a, b).values())
+                        for a, b in zip(run["grads"], one["grads"])),
+                    max(grouped_rel(run["weights"], one["weights"]).values())]
+            loss = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], one["losses"]))
+            spread[what] = max(errs + [loss])
+            print(f"  {what} against one process: the same bits: {same}; "
+                  f"losses {loss:.3e}, the steps' gradients {errs[0]:.3e}, weights {errs[1]:.3e} "
+                  f"(max relative; per group ||err|| / ||ref||)")
+        check(f"a {backend} group of one vs one process (no collective issued)",
+              spread[next(iter(spread))], TOL_TRAIN_GRAD, "max of the three")
+
+        cli_rec = parallel_cli(device, tmp, env, rehearse, **cli)
+        print(f"  2 ranks on one card (gloo): {r0['ms']:.3f} ms/step (rank 1 {r1['ms']:.3f}), "
+              f"one process at the whole batch {one['ms']:.3f} ms/step; both ranks' processes "
+              f"{ranks_s:.1f} s with their start (two ranks on one card say nothing of scaling)")
+        return r0["counts"], dict(ms_2rank=r0["ms"], ms_2rank_r1=r1["ms"], ms_one=one["ms"],
+                                  ranks_s=ranks_s, loss_err=loss_err, w_err=w_err,
+                                  g_err=g_err, m_err=m_err, **cli_rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def parallel_cli(device, tmp, env, rehearse, steps, resumed, n_clouds, n_points) -> dict:
+    """Phase 30's CLI: the cut config trained by two ranks under
+    ``torch.distributed.run``, then resumed (``resumed`` 0: not; each launch
+    starts three processes, ~12 s on the CPU, so the rehearsal launches
+    once, and ``tests/test_torch_parallel.py`` resumes two ranks' Trainer)."""
+    write_pointflow_tree(tmp / "data", n_clouds, n_points, 30)
+    env = dict(env, SHAPENET_PF_ROOT=str(tmp / "data"))
+    run_dir = tmp / "run"
+    run_dir.mkdir()
+    text = Path(os.path.dirname(os.path.abspath(__file__)), CONFIG).read_text()
+    cuts = dict(PARALLEL_CLI_CUTS, **dict(REHEARSAL_CUTS if rehearse else ()))
+    num = "NUM_STEPS = 1_000_000"
+    for a, b in (*cuts.items(), (num, num)):
+        if a not in text:
+            raise AssertionError(f"phase 30: {a!r} not in {CONFIG}")
+        text = text.replace(a, b)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+           "-m", "gecco_tpu_torch.train", str(run_dir / "config.py"), "--distributed",
+           "--backend", "gloo"] + (["--device", "cpu"] if device.type == "cpu" else [])
+    times = []
+    # NUM_STEPS batches make steps 0..NUM_STEPS - 1; a resumed run stops
+    # after step NUM_STEPS
+    runs = ((steps, steps - 1),) + (((steps + resumed - 1, steps + resumed - 1),) if resumed else ())
+    for n, last in runs:
+        (run_dir / "config.py").write_text(PARALLEL_CLI_WRITER
+                                           + text.replace(num, f"NUM_STEPS = {n}"))
+        t0 = time.perf_counter()
+        out = run_ranks([cmd], env, 600, "train --distributed")[0]
+        times.append(time.perf_counter() - t0)
+        names = sorted(os.listdir(run_dir))
+        print(f"  train --distributed to step {last}: {times[-1]:.1f} s; run dir {names}")
+        ranks = sorted(set(re.findall(r"Distributed: process (\d+)", out)))
+        if ranks != ["0", "1"]:
+            raise AssertionError(f"train --distributed: ranks {ranks} started\n{out[-3000:]}")
+        ckpts = [n for n in names if n.startswith(("checkpoint-step-", "final-checkpoint-"))]
+        first = last == steps - 1  # the first run: one checkpoint and the final one
+        if first and ckpts != [f"checkpoint-step-{last}", f"final-checkpoint-{last}"]:
+            raise AssertionError(f"train --distributed: checkpoints {ckpts}, expected one set")
+        for ckpt in ([f"checkpoint-step-{last}"] if first else []) + [f"final-checkpoint-{last}"]:
+            files = sorted(os.listdir(run_dir / ckpt)) if ckpt in names else None
+            if files != ["ema.pt", "meta.json", "model.pt", "opt.pt"]:
+                raise AssertionError(f"train --distributed: {ckpt} holds {files} ({names})")
+        if "metadata.json" not in names:
+            raise AssertionError(f"train --distributed: no metadata.json in {names}")
+    restored = out.count("[trainer] restored checkpoint")
+    if resumed and restored != 2:
+        raise AssertionError(f"train --distributed: {restored} ranks resumed, not 2\n"
+                             f"{out[-3000:]}")
+    print(f"  {'resumed on both ranks from step ' + str(steps - 1) if resumed else 'no resume'}; "
+          f"launcher, ranks and run " + " s and ".join(f"{t:.1f}" for t in times) + " s")
+    return dict(cli_s=times)
+
+
+# ----------------------------------- phase 31: the vis callbacks --
+
+VIS_STEPS = 8
+
+
+class StubArtist:
+    """A figure or axes of ``StubPyplot``: every method takes any arguments,
+    keeps the numpy arrays among them and returns another artist."""
+
+    def __init__(self, arrays: list):
+        self._arrays = arrays
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+
+        def call(*args, **kw):
+            self._arrays.extend(a for a in (*args, *kw.values()) if isinstance(a, np.ndarray))
+            return StubArtist(self._arrays)
+
+        return call
+
+
+class StubPyplot:
+    """The part of ``matplotlib.pyplot`` the vis callbacks call, drawing
+    nothing; ``arrays`` keeps what they plot."""
+
+    def __init__(self):
+        self.arrays = []
+
+    def figure(self, *args, **kw):
+        return StubArtist(self.arrays)
+
+    def subplots(self, nrows=1, ncols=1, squeeze=True, **kw):
+        axes = np.empty((nrows, ncols), object)
+        for i in np.ndindex(axes.shape):
+            axes[i] = StubArtist(self.arrays)
+        if squeeze:
+            axes = axes.item() if axes.size == 1 else axes.squeeze()
+        return StubArtist(self.arrays), axes
+
+    def get_cmap(self, name):
+        return lambda x, bytes=False: np.zeros(np.shape(x) + (4,), np.uint8)
+
+
+class RecordingWriter:
+    """A writer that keeps (kind, tag) per call and the arrays logged."""
+
+    def __init__(self):
+        self.calls, self.arrays = [], []
+
+    def __getattr__(self, kind):
+        def record(tag, *args, global_step=None, **kw):
+            self.calls.append((kind, tag))
+            self.arrays.extend(a for a in (*args, *kw.values()) if isinstance(a, np.ndarray))
+
+        return record
+
+
+def vis_phase(device, dims, n_points, rehearse) -> dict:
+    """Phase 31: every ``gecco_tpu_torch.vis`` callback, called as the
+    Trainer calls it, with a recording writer on the demo's model (2-D for
+    the toy figures, 3-D for the meshes and renders) at ``VIS_STEPS`` solver
+    steps: its sampling on the model's device through the kernels, what it
+    plots and logs finite, its tags the expected ones. Each module's pyplot
+    is a ``StubPyplot`` (the card's machine has no matplotlib), so only the
+    drawing is left out; ``tests/test_torch_vis.py`` holds the figures on
+    the CPU. Returns {callback: seconds}."""
+    from gecco_tpu_torch import vis
+    from gecco_tpu_torch.vis import conditional3d, trajectories, vis2d, vis3d
+
+    print("  pyplot stubbed: each callback samples, plots into a stub and logs; no figure drawn "
+          "(the figures are held on the CPU by tests/test_torch_vis.py)")
+    rng = np.random.default_rng(31)
+
+    def build(gd):
+        gen = torch.Generator().manual_seed(31)
+        backbone = SetTransformer(dims["n_layers"], dims["feature_dim"], dims["num_inducers"],
+                                  embed_dim=1, num_heads=dims["num_heads"],
+                                  compute_dtype=torch.bfloat16, attn_impl="folded_pallas",
+                                  device=device, generator=gen)
+        net = UnconditionalPointNetwork(backbone, dims["feature_dim"], geometry_dim=gd,
+                                        device=device, generator=gen)
+        sched = LogUniformSchedule(sigma_max=165.0, sigma_min=0.002, n_solver_steps=VIS_STEPS)
+        return Diffusion(net, sched, reparam=GaussianReparam([0.0] * gd, [0.35] * gd,
+                                                             device=device))
+
+    models = {gd: build(gd) for gd in (2, 3)}
+    data2 = (0.5 * rng.standard_normal((n_points, 2))).astype(np.float32)
+    clouds = make_clouds(rng, 8, n_points)
+    images = rng.random((4, 32, 32, 3)).astype(np.float32)
+    K = np.tile(np.eye(3, dtype=np.float32), (4, 1, 1))
+    pc = vis.PCVisCallback(n=8, n_steps=VIS_STEPS)
+    pc.set_batch(Example(clouds, None))
+    render = vis.ConditionalRenderCallback(n=4, n_steps=VIS_STEPS)
+    render.set_batch(Example(clouds[:4], Context3d(image=images, K=K)))
+    grid = 6 if rehearse else 24
+    # (name, model's geometry, callback, what it logs)
+    cases = [
+        ("make_sample_figures_callback", 2,
+         vis.make_sample_figures_callback(n_samples=4, n_points=n_points),
+         [("add_figure", "samples/scatter"), ("add_figure", "samples/trajectories")]),
+        ("make_denoise_callback", 2, vis.make_denoise_callback(data2, n_sigmas=6),
+         [("add_figure", "denoising")]),
+        ("make_logp_callback", 2, vis.make_logp_callback(data2, grid_res=grid),
+         [("add_figure", "logp/heatmap")]),
+        ("make_unconditional_sample_callback", 3,
+         vis.make_unconditional_sample_callback(n_samples=8, n_points=n_points),
+         [("add_mesh", "samples")]),
+        ("PCVisCallback", 3, pc, [("add_mesh", "val/samples")]),
+        ("ConditionalRenderCallback", 3, render, [("add_figure", "conditional/renders")]),
+    ]
+    modules = (vis2d, vis3d, trajectories, conditional3d)
+    keep = [m.plt for m in modules]
+    rec = {}
+    try:
+        for name, gd, callback, want in cases:
+            stub = StubPyplot()
+            for m in modules:
+                m.plt = lambda: stub
+            writer = RecordingWriter()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            callback(models[gd], writer, 0)
+            sync(device)
+            rec[name] = time.perf_counter() - t0
+            if writer.calls != want:
+                raise AssertionError(f"{name} logged {writer.calls}, expected {want}")
+            arrays = [a for a in stub.arrays + writer.arrays if a.dtype.kind == "f"]
+            if not arrays or not all(np.isfinite(a).all() for a in arrays):
+                raise AssertionError(f"{name}: {len(arrays)} arrays plotted and logged, "
+                                     f"not all finite")
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            if device.type == "cuda" and not counts:
+                raise AssertionError(f"{name}: no kernel launched")
+            print(f"  {name}: {rec[name]:.3f} s, logged {want}, {len(arrays)} float arrays "
+                  f"plotted and logged, all finite; launches {counts}")
+    finally:
+        for m, f in zip(modules, keep):
+            m.plt = f
+    return rec
+
+
+# -------------------------------------------- phase 32: the certifier --
+
+
+def certify_phase(device, rehearse) -> float:
+    """Phase 32: ``python -m gecco_tpu_torch.certify`` at the flagship's
+    shapes, gains 1 and 12, one seed (the rehearsal: a tiny shape on the
+    CPU); raises where it exits nonzero. Returns its seconds."""
+    from gecco_tpu_torch import certify
+
+    argv = ["--gains", "1", "12", "--seeds", "1"]
+    if rehearse:
+        argv += ["--cpu", "--batch", "2", "--n-points", "128", "--width-c", "64", "--inducers",
+                 "16", "--heads", "4", "--mlp-width", "128"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    code = certify.main(argv)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    if code != 0:
+        raise AssertionError(f"certify {' '.join(argv)} exited {code}")
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    print(f"  certify {' '.join(argv)}: exit 0 in {seconds:.1f} s; launches {counts}")
+    missing = [k for k in ("folded_pool_ext", "folded_pool_layer", "folded_unpool",
+                           "fused_mlp_residual", "fused_h_side", "folded_pool_ext_bwd",
+                           "folded_pool_layer_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd")
+               if not counts.get(k)]
+    if device.type == "cuda" and missing:
+        raise AssertionError(f"certify: no launch of {missing}")
+    return seconds
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny shapes on the CPU (plain versions), then exit 1 without a result")
+    ap.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "PORT", "DIR", "SHAPE"),
+                    help="run one rank of phase 30's gloo group of two (the script starts them)")
     args = ap.parse_args()
+    if args.parallel_rank:
+        rank, port, out, shape = args.parallel_rank
+        parallel_rank(int(rank), int(port), out, shape)
+        return
     t_start = time.perf_counter()
 
     def stage(text: str) -> None:
@@ -5996,6 +6543,8 @@ def main():
         trainer_cfg = dict(steps=4, save_every=2, val_batches=1, n_clouds=8, resumed=3,
                            loss_sync=1, n_infer=3, infer_batch=2, n_steps=2)
         vol_cfg = dict(steps=4, resumed=3, n_objects=2, n_views=VOL_VIEWS, loss_sync=1)
+        par_batch, par_steps = 4, 2
+        par_cli = dict(steps=4, resumed=0, n_clouds=8, n_points=64)
     else:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")
@@ -6024,6 +6573,9 @@ def main():
                            infer_batch=TRAINER_INFER, n_steps=None)
         vol_cfg = dict(steps=VOL_STEPS, resumed=VOL_RESUMED, n_objects=VOL_OBJECTS,
                        n_views=VOL_VIEWS, loss_sync=VOL_LOSS_SYNC)
+        par_batch, par_steps = TRAIN_BATCH, PARALLEL_STEPS
+        par_cli = dict(steps=PARALLEL_CLI_STEPS, resumed=PARALLEL_CLI_RESUMED,
+                       n_clouds=PARALLEL_CLI_CLOUDS, n_points=FLAGSHIP["n_points"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -6251,6 +6803,21 @@ def main():
                           min(8, batch),
                           dict(shapes, n_layers=n_layers) if args.rehearse else FLAGSHIP)
 
+    stage(f"data-parallel training: two gloo ranks on one card, the flagship x{n_layers} layers "
+          f"at global batch {par_batch} ({par_batch // 2} a rank, shard_by_process), {par_steps} "
+          f"steps, against one process at the whole batch; a group of one; then train "
+          f"--distributed on two ranks, the config cut to 2 layers, resumed, on {card}")
+    par_counts, par = parallel_phase(device, n_layers, par_batch, n_points, par_steps, par_cli,
+                                     args.rehearse)
+
+    stage(f"vis callbacks: every gecco_tpu_torch.vis callback on the demo's model "
+          f"({demo_dims}), {VIS_STEPS} solver steps, on {card}")
+    vis_rec = vis_phase(device, demo_dims, demo_dims["n_points"], args.rehearse)
+
+    stage(f"certifier: python -m gecco_tpu_torch.certify at the flagship's shapes, gains 1 "
+          f"and 12, one seed, on {card}")
+    certify_s = certify_phase(device, args.rehearse)
+
     stage("summary")
     print(f"  launches on the sampler path: {counts}")
     print(f"  launches on the training path: {train_counts}")
@@ -6267,6 +6834,7 @@ def main():
     print(f"  launches on the demo sampler path: {demo_counts}")
     print(f"  launches on the demo training path: {demo_train_counts}")
     print(f"  launches in the num_heads=3 gradient: {heads3_counts}")
+    print(f"  launches on rank 0 of the data-parallel steps (phase 30): {par_counts}")
     for body, (tp_counts, _) in twopass_train.items():
         print(f"  launches on the training path under GECCO_POOL_BWD={body}: {tp_counts}")
     for name, (s_counts, g_counts) in shape_counts.items():
@@ -6338,6 +6906,13 @@ def main():
           f"{compat['silu_sample']['batch']} (launches {compat['silu_sample']['counts']}), "
           f"its train step {compat['silu_step']['ms_per_step']:.3f} ms (launches "
           f"{compat['silu_step']['counts']}); {card}")
+    print(f"  data-parallel training (phase 30): 2 gloo ranks on one card "
+          f"{par['ms_2rank']:.3f} ms/step (rank 1 {par['ms_2rank_r1']:.3f}) at global batch "
+          f"{par_batch}, one process {par['ms_one']:.3f} ms/step at the same batch (two ranks on one "
+          f"card measure no scaling); train --distributed "
+          + " s and ".join(f"{v:.1f}" for v in par["cli_s"]) + f" s (first run, resumed); {card}")
+    print("  vis callbacks (phase 31): " + ", ".join(f"{k} {v:.3f} s" for k, v in vis_rec.items())
+          + f"; certify (phase 32) {certify_s:.1f} s; {card}")
     # launches: each kernel's count on the path that first brought it in
     # (printed above): the flagship sampler's for a set-transformer forward
     # kernel, the flagship training path's for a backward one, the

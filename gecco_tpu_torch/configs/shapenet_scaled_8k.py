@@ -72,8 +72,9 @@ def train(make_model, train_loader, val_loader, save_path, **overrides):
         ema_alpha=0.999,
         n_validation_batches=8,
         # the JAX config shards the points over the mesh where it has more
-        # than one device (shard_points): the port trains on one card, and
-        # multi-device training waits for ROADMAP A10
+        # than one device (shard_points): the port's data axis trains on
+        # several cards (train --distributed), but its seq axis, the point
+        # sharding, waits for ROADMAP A10b
     )
     kwargs.update(overrides)
     return train_fn(**kwargs)

@@ -20,6 +20,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from gecco_tpu_torch.parallel import mesh as _mesh
 from gecco_tpu_torch.types import tree_map
 
 __all__ = [
@@ -124,10 +125,17 @@ class DataLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.name = name
-        if shard_by_process:
-            raise NotImplementedError(
-                "shard_by_process (each rank loading its slice of the global "
-                "batch) comes with multi-device training, ROADMAP A10"
+        # data parallelism: ``batch_size`` is the GLOBAL batch; every rank
+        # runs the same (identically seeded) sampler and loads only its
+        # rows of each batch, which ``parallel.shard_batch(local=True)``
+        # then passes through
+        self.shard_by_process = shard_by_process
+        self.process_index = _mesh.process_index() if shard_by_process else 0
+        self.process_count = _mesh.process_count() if shard_by_process else 1
+        if batch_size % self.process_count != 0:
+            raise ValueError(
+                f"global batch {batch_size} not divisible by "
+                f"{self.process_count} processes"
             )
 
     def __len__(self):
@@ -137,14 +145,21 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def _batch_indices(self) -> Iterator[list]:
+        local = self.batch_size // self.process_count
+        lo, hi = self.process_index * local, (self.process_index + 1) * local
         batch = []
         for idx in self.sampler:
             batch.append(idx)
             if len(batch) == self.batch_size:
-                yield batch
+                yield batch[lo:hi]
                 batch = []
         if batch and not self.drop_last:
-            yield batch
+            # a short last batch: split evenly over the processes, or left
+            # out where it does not split (the JAX loader's [lo:hi] of it
+            # would give the processes unequal or empty slices)
+            tail, extra = divmod(len(batch), self.process_count)
+            if not extra:
+                yield batch[self.process_index * tail:(self.process_index + 1) * tail]
 
     def __iter__(self):
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)

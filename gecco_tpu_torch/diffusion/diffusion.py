@@ -19,7 +19,7 @@ JAX package's network key) go through ``loss_from``'s ``dropout`` seam.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -32,7 +32,7 @@ from gecco_tpu_torch.diffusion.samplers import (
     inpaint_sampler,
 )
 from gecco_tpu_torch.diffusion.schedule import Schedule
-from gecco_tpu_torch.models.mlp import DropoutFn, bernoulli_dropout
+from gecco_tpu_torch.models.mlp import DropoutFn, bernoulli_dropout, shard_dropout
 from gecco_tpu_torch.reparam import Reparam
 from gecco_tpu_torch.types import LogpDetails, SampleDetails
 from gecco_tpu_torch.utils.checks import check_points, check_sigma_batch
@@ -128,14 +128,25 @@ class Diffusion(nn.Module):
             raise ValueError("Both `ctx` and `raw_ctx` were provided.")
         return _tile_ctx(self.cond(raw_ctx) if ctx is None else ctx, n)
 
-    def draw_sigma_noise(self, generator: torch.Generator, points: torch.Tensor):
+    def draw_sigma_noise(self, generator: torch.Generator, points: torch.Tensor,
+                         shard: Tuple[int, int] = (0, 1)):
         """The loss's random draws for a batch ``points`` [B, N, D]: sigma [B]
         from the schedule and standard normal noise of the points' shape,
-        both made on the generator's device and moved to the points'."""
+        both made on the generator's device and moved to the points'.
+
+        ``shard=(rank, world)``: ``points`` are a rank's B rows of a global
+        batch of ``world * B``; the draws are made for the global batch, as
+        one process training on all of it makes them, and the rank's rows
+        returned."""
         check_points(points, "points")
-        sigma = self.schedule.sample_sigma(generator, points.shape[0])
-        noise = torch.randn(points.shape, generator=generator, device=generator.device)
-        return sigma.to(points.device, points.dtype), noise.to(points.device, points.dtype)
+        rank, world = shard
+        b = points.shape[0]
+        sigma = self.schedule.sample_sigma(generator, b * world)
+        noise = torch.randn((b * world, *points.shape[1:]), generator=generator,
+                            device=generator.device)
+        rows = slice(rank * b, (rank + 1) * b)
+        return (sigma[rows].to(points.device, points.dtype),
+                noise[rows].to(points.device, points.dtype))
 
     def loss_from(self, points: torch.Tensor, sigma: torch.Tensor, noise: torch.Tensor,
                   raw_ctx: Any = None, loss_scale: float = 1.0,
@@ -161,13 +172,15 @@ class Diffusion(nn.Module):
         dropout = None if train_in_inference_mode else self.dropout_masks(generator)
         return self.loss_from(points, sigma, noise, raw_ctx, loss_scale, dropout)
 
-    def dropout_masks(self, generator: torch.Generator) -> Optional[DropoutFn]:
+    def dropout_masks(self, generator: torch.Generator,
+                      shard: Tuple[int, int] = (0, 1)) -> Optional[DropoutFn]:
         """The network's dropout masks drawn from ``generator``, or None
         where no module of the network drops units (``dropout_p > 0``): a
         network without dropout is called as before, without the
-        argument."""
+        argument. ``shard=(rank, world)``: each mask is drawn for the global
+        batch and the rank's rows kept, as in ``draw_sigma_noise``."""
         if any(getattr(m, "dropout_p", 0.0) > 0.0 for m in self.network.modules()):
-            return bernoulli_dropout(generator)
+            return shard_dropout(bernoulli_dropout(generator), *shard)
         return None
 
     @torch.no_grad()

@@ -21,7 +21,7 @@ from torch import nn
 from gecco_tpu_torch.models.activation import GaussianActivation
 from gecco_tpu_torch.utils.modules import Linear, resolve_device
 
-__all__ = ["MLP", "DropoutFn", "bernoulli_dropout"]
+__all__ = ["MLP", "DropoutFn", "bernoulli_dropout", "shard_dropout"]
 
 # (p_keep, shape) -> bool mask of ``shape``, True where the unit is kept
 DropoutFn = Callable[[float, tuple], torch.Tensor]
@@ -34,6 +34,21 @@ def bernoulli_dropout(generator: torch.Generator) -> DropoutFn:
         return torch.rand(shape, generator=generator, device=generator.device) < p_keep
 
     return draw
+
+
+def shard_dropout(draw: DropoutFn, rank: int, world: int) -> DropoutFn:
+    """A mask source for rank ``rank`` of ``world``, whose masks' leading
+    axis is its rows of a global batch: each mask is drawn from ``draw``
+    at the global batch and the rank's rows kept (``draw`` itself on a
+    world of one)."""
+    if world == 1:
+        return draw
+
+    def sharded(p_keep: float, shape: tuple) -> torch.Tensor:
+        b = shape[0]
+        return draw(p_keep, (b * world, *shape[1:]))[rank * b:(rank + 1) * b]
+
+    return sharded
 
 
 def _make_activation(activation, device=None):

@@ -4,6 +4,14 @@
 The JAX step is a pure function that returns new trees; here the model's
 parameters and the EMA copy are updated in place (the counterpart of the
 JAX step's donated buffers), and the optimizer state is returned.
+
+Under a mesh of more than one rank the step does by hand what XLA inserts
+in the JAX step: sigma, the noise and the dropout masks are drawn for the
+global batch from the (identically seeded) generator and the rank's rows
+kept, and between the backward and the optimizer the gradients are
+averaged over the ranks (one all-reduce per dtype), so that the
+global-norm clip sees the global gradient; the loss is averaged too. A
+mesh of one, or none, issues no collective.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from gecco_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_
 from gecco_tpu_torch.train.optim import Transform, apply_updates
 
 __all__ = ["ema_update", "make_ema", "make_train_step"]
@@ -39,7 +48,7 @@ def ema_update(ema: nn.Module, model: nn.Module, alpha: float) -> None:
 
 
 def make_train_step(optimizer: Transform, loss_scale: float = 1.0, ema_alpha: float = 0.999,
-                    train_in_inference_mode: bool = False):
+                    train_in_inference_mode: bool = False, mesh: Optional[Mesh] = None):
     """The full train step ``step(model, ema, opt_state, points, generator,
     sigma=None, noise=None, raw_ctx=None) -> (loss, opt_state)``.
 
@@ -49,26 +58,35 @@ def make_train_step(optimizer: Transform, loss_scale: float = 1.0, ema_alpha: fl
     from ``generator`` unless both are given (the tests feed the JAX
     package's draws), then the network's dropout masks, unless
     ``train_in_inference_mode`` (or no generator is given). After the step
-    each parameter's ``.grad`` holds the gradient of that step's loss."""
+    each parameter's ``.grad`` holds the gradient of that step's loss.
+
+    ``mesh``: under more than one rank, ``points`` are this rank's rows of
+    the global batch (and ``sigma`` and ``noise``, where given, theirs);
+    the draws are the global batch's rows, the gradients and the returned
+    loss the means over the ranks."""
+    mesh = Mesh() if mesh is None else mesh
+    shard = (mesh.rank, mesh.size)
 
     def step(model: nn.Module, ema: nn.Module, opt_state, points: torch.Tensor,
              generator: Optional[torch.Generator] = None, sigma: Optional[torch.Tensor] = None,
              noise: Optional[torch.Tensor] = None, raw_ctx: Any = None):
         params = list(model.parameters())
         if sigma is None or noise is None:
-            sigma, noise = model.draw_sigma_noise(generator, points)
+            sigma, noise = model.draw_sigma_noise(generator, points, shard)
         for p in params:
             p.grad = None
         dropout = (None if train_in_inference_mode or generator is None
-                   else model.dropout_masks(generator))
+                   else model.dropout_masks(generator, shard))
         loss = model.loss_from(points, sigma, noise, raw_ctx, loss_scale=loss_scale,
                                dropout=dropout)
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        loss = loss.detach()
+        all_reduce_mean_([*grads, loss], mesh)
         with torch.no_grad():
             updates, opt_state = optimizer.update(grads, opt_state)
             apply_updates(params, updates)
             ema_update(ema, model, ema_alpha)
-        return loss.detach(), opt_state
+        return loss, opt_state
 
     return step

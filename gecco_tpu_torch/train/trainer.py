@@ -30,8 +30,25 @@ Every random draw comes from a generator seeded by ``seed`` and the step
 draws), so a run resumed from a checkpoint, fed the batches that followed
 it, takes the same steps bit for bit as one never stopped. The model, the
 EMA copy and the optimizer state live on ``device``: the card unless the
-caller asks for the CPU. Multi-device training (the JAX trainer's
-``mesh``, ``shard_points`` and ``donate_buffers``) waits for ROADMAP A10.
+caller asks for the CPU.
+
+Data parallelism (the JAX trainer's ``mesh``): under a process group of
+more than one rank (``parallel.init_distributed``), each rank trains on
+``cuda:{LOCAL_RANK % device_count}`` with its rows of each global batch
+(``parallel.shard_batch``, or the loader's own with
+``shard_by_process=True``); the weights, the EMA and the optimizer state
+are broadcast from rank 0 before the first step, and the train step
+averages the gradients and the loss over the ranks, so every rank keeps
+the same weights, logs the same losses and stops at the same step on a
+non-finite one. Rank 0 alone writes the checkpoints, the best ones and the
+logs, and the ranks wait for it at a barrier after each checkpoint; every
+rank reads one on resume. Every rank runs validation on the same batches
+and draws, then takes rank 0's values (the card's sums are not the same
+bits from call to call), so all make the same best-checkpoint choices and
+meet at the same barriers. Point sharding
+(``shard_points=True``, the mesh's ``seq`` axis) waits for ROADMAP A10b,
+and ``donate_buffers`` stays the JAX package's: the port updates in
+place.
 """
 
 from __future__ import annotations
@@ -50,11 +67,11 @@ import torch
 
 from gecco_tpu_torch.config import CHECKPOINT_SAVE_RE, CHECKPOINT_SAVE_TEMPLATE, latest_checkpoint
 from gecco_tpu_torch.metrics import LossMetric, Metric
+from gecco_tpu_torch.parallel import local_device, make_mesh, replicate, shard_batch
 from gecco_tpu_torch.train.optim import Transform, adabelief
 from gecco_tpu_torch.train.step import make_ema, make_train_step
 from gecco_tpu_torch.types import Example, NaNError, to_device, tree_leaves
 from gecco_tpu_torch.utils.logging import MockWriter, make_writer
-from gecco_tpu_torch.utils.modules import resolve_device
 
 __all__ = ["Trainer", "train"]
 
@@ -97,13 +114,23 @@ class Trainer:
     initial_step_number: int = 0
     current_best_metric: Dict[str, Tuple[int, float]] = field(default_factory=dict)
     device: Any = None
+    # the process group's layout (``parallel.make_mesh()`` by default: the
+    # whole group on the data axis, a world of one without a group)
+    mesh: Any = None
+    shard_points: bool = False
 
     ema_model: Any = None
     opt_state: Any = None
 
     def __post_init__(self):
         print(f"[trainer] run dir: {self.save_path}")
-        self.device = resolve_device(self.device)
+        if self.shard_points:
+            raise NotImplementedError(
+                "Trainer(shard_points=True): point sharding (the mesh's seq axis) "
+                "waits for ROADMAP A10b")
+        if self.mesh is None:
+            self.mesh = make_mesh()
+        self.device = local_device(self.device)
         if not hasattr(type(self.model), "loss"):
             assert callable(self.model), self.model
             self.model = self.model(torch.Generator().manual_seed(_seed(self.seed, _INIT)))
@@ -127,16 +154,19 @@ class Trainer:
     def save(self, dirname: str, step: int):
         """``model.pt``, ``ema.pt`` and ``opt.pt`` under ``dirname`` (in the
         run dir), so inference can load the EMA weights alone, and
-        ``meta.json`` with the step."""
-        path = os.path.abspath(os.path.join(self.save_path, dirname))
-        if os.path.exists(path):
-            shutil.rmtree(path)
-        os.makedirs(path)
-        torch.save(self.model.state_dict(), os.path.join(path, "model.pt"))
-        torch.save(self.ema_model.state_dict(), os.path.join(path, "ema.pt"))
-        torch.save(self.opt_state, os.path.join(path, "opt.pt"))
-        with open(os.path.join(path, "meta.json"), "w") as f:
-            json.dump({"step": step}, f)
+        ``meta.json`` with the step; written by rank 0, every rank waiting
+        for it."""
+        if self.mesh.is_main:
+            path = os.path.abspath(os.path.join(self.save_path, dirname))
+            if os.path.exists(path):
+                shutil.rmtree(path)
+            os.makedirs(path)
+            torch.save(self.model.state_dict(), os.path.join(path, "model.pt"))
+            torch.save(self.ema_model.state_dict(), os.path.join(path, "ema.pt"))
+            torch.save(self.opt_state, os.path.join(path, "opt.pt"))
+            with open(os.path.join(path, "meta.json"), "w") as f:
+                json.dump({"step": step}, f)
+        self.mesh.barrier()
 
     def load(self, dirname: str):
         path = os.path.abspath(dirname)
@@ -168,6 +198,8 @@ class Trainer:
         return self
 
     def _prune_stale_checkpoints(self, step: int):
+        if not self.mesh.is_main:
+            return
         for name in os.listdir(self.save_path):
             m = CHECKPOINT_SAVE_RE.fullmatch(name)
             if m is not None and int(m.group(1)) < step:
@@ -179,9 +211,16 @@ class Trainer:
     def inference_model(self):
         return self.ema_model
 
-    def _to_device(self, data) -> Example:
+    def _to_device(self, data, train: bool = False) -> Example:
+        """A batch on the device without its extras: a train batch cut to
+        this rank's rows (``shard_batch``), a validation batch whole, so
+        that every rank computes the same metrics."""
         example = data if isinstance(data, Example) else Example(*data)
-        return to_device(example._replace(extras=()), self.device)
+        example = example._replace(extras=())
+        if not train:
+            return to_device(example, self.device)
+        return shard_batch(example, self.mesh, self.device,
+                           local=getattr(self.train_dataloader, "shard_by_process", False))
 
     def _run_metrics_over(self, dataloader, n_batches=None,
                           generator: Optional[torch.Generator] = None) -> Dict[str, float]:
@@ -221,11 +260,16 @@ class Trainer:
         phase_id = self._phase_id(step)
         metrics = self.metrics_loop(n_batches=n_batches,
                                     generator=self._phase_generator(phase_id))
+        # rank 0's values on every rank: a best-checkpoint choice made on
+        # values that differ in their last bits would send one rank alone
+        # into save()'s barrier
+        metrics = self.mesh.broadcast_object(metrics)
         for k, v in metrics.items():
             logger.add_scalar(f"val-means/{k}", scalar_value=v, global_step=phase_id)
             self._track_best_metric(k, v, step, _smoke_test)
-        for callback in self.callbacks:
-            callback(model=self.inference_model, logger=logger, epoch=phase_id)
+        if self.mesh.is_main:  # the callbacks only log
+            for callback in self.callbacks:
+                callback(model=self.inference_model, logger=logger, epoch=phase_id)
 
     def _track_best_metric(self, metric_key, metric_value, step, _smoke_test):
         # the reference tracks these two families
@@ -250,7 +294,7 @@ class Trainer:
             self.current_best_metric.pop(metric_key, None)
         if path_to_create is not None:
             self.save(os.path.relpath(path_to_create, self.save_path), step)
-        if path_to_delete is not None and os.path.exists(path_to_delete):
+        if path_to_delete is not None and os.path.exists(path_to_delete) and self.mesh.is_main:
             shutil.rmtree(path_to_delete)
 
     @property
@@ -268,9 +312,12 @@ class Trainer:
 
     def fit(self):
         self._init_opt_state()
+        for tree in (self.model, self.ema_model, self.opt_state):
+            replicate(tree, self.mesh)
         step_fn = make_train_step(self.optimizer, loss_scale=self.loss_scale,
                                   ema_alpha=self.ema_alpha,
-                                  train_in_inference_mode=self.train_in_inference_mode)
+                                  train_in_inference_mode=self.train_in_inference_mode,
+                                  mesh=self.mesh)
 
         if not (self.skip_smoke_test or self.profile_path is not None):
             print("[trainer] smoke-testing the validation phase...")
@@ -279,7 +326,8 @@ class Trainer:
 
         loss_ema = None
         loss_avg = 0.0
-        logger = make_writer(os.path.join(self.save_path, "tensorboard"))
+        logger = (make_writer(os.path.join(self.save_path, "tensorboard")) if self.mesh.is_main
+                  else MockWriter())
         step = self.initial_step_number
         data = None
         profiler = None
@@ -302,7 +350,7 @@ class Trainer:
                 loss_avg += (value - loss_avg) / (offset + 1)
                 loss_ema = value if loss_ema is None else value * 0.1 + loss_ema * 0.9
                 logger.add_scalar("train/loss", scalar_value=value, global_step=s)
-                if s % 100 == 0:
+                if s % 100 == 0 and self.mesh.is_main:
                     now = time.perf_counter()
                     rate = 100 / (now - t_last) if s > 0 else 0.0
                     t_last = now
@@ -320,7 +368,7 @@ class Trainer:
                     profiler.start()
                     profile_start = time.perf_counter()
                 self._train_mode()
-                example = self._to_device(data)
+                example = self._to_device(data, train=True)
                 loss, self.opt_state = step_fn(self.model, self.ema_model, self.opt_state,
                                                example.points, self.step_generator(step),
                                                raw_ctx=example.ctx)
@@ -352,8 +400,8 @@ class Trainer:
                     return
             drain_pending()
         except Exception as e:
-            if data is not None:
-                # the offending batch, for forensics
+            if data is not None and self.mesh.is_main:
+                # the offending batch (rank 0's rows), for forensics
                 try:
                     flat = {f"leaf_{i}": np.asarray(leaf)
                             for i, leaf in enumerate(tree_leaves(data))}

@@ -39,8 +39,8 @@ CONFIGS = ("shapenet_vol_conditional", "taskonomy_conditional", "shapenet_pc15k_
            "shapenet_scaled_8k")
 CONSTANTS = ("DATA_ROOT", "CATEGORY", "N_POINTS", "BATCH", "NUM_STEPS", "CTX_DIMS",
              "CONVNEXT_WEIGHTS", "FREEZE_CONDITIONER")
-# the JAX Trainer's knobs the port has none of: multi-device training
-# (ROADMAP A10) and XLA's buffer donation
+# the JAX Trainer's knobs the port's configs do not pass: point sharding
+# (ROADMAP A10b; the port's Trainer raises for it) and XLA's buffer donation
 JAX_ONLY = {"donate_buffers", "shard_points"}
 
 

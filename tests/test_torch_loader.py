@@ -89,21 +89,61 @@ def test_loader_error_reaches_the_consumer_and_the_thread_stops():
             if i >= 0:
                 raise ValueError("boom")
 
-    before = threading.active_count()
+    # the threads alive before (the JAX loader's producers, which it never
+    # joins, may still be ending); none that the loaders start may outlive them
+    before = set(threading.enumerate())
     with pytest.raises(ValueError, match="boom"):
         list(dataloader(Bad(4), batch_size=2, num_steps=1))
     # a loop left early stops its producer too
     it = iter(dataloader(Toy(50), batch_size=2, num_steps=25))
     next(it)
     it.close()
-    assert threading.active_count() == before
+    assert set(threading.enumerate()) <= before
 
 
 def test_shard_by_process_waits_for_multi_device_training():
-    """The JAX signature's ``shard_by_process`` raises until the loader
-    shards with DDP (ROADMAP A10), instead of being ignored."""
-    with pytest.raises(NotImplementedError, match="A10"):
-        dataloader(Toy(4), batch_size=2, num_steps=1, shard_by_process=True)
+    """``shard_by_process`` outside a process group is a world of one: the
+    whole global batch, as without it."""
+    whole = list(dataloader(Toy(10), batch_size=4, num_steps=3, num_workers=1))
+    sharded = dataloader(Toy(10), batch_size=4, num_steps=3, num_workers=1,
+                         shard_by_process=True)
+    assert (sharded.process_index, sharded.process_count) == (0, 1)
+    for a, b in zip(sharded, whole):
+        np.testing.assert_array_equal(a.points, b.points)
+
+
+@pytest.mark.parametrize("index", [0, 1])
+@pytest.mark.parametrize("fixed", [False, True])
+def test_shard_by_process_batches_match_the_jax_loader(monkeypatch, index, fixed):
+    """Process ``index`` of 2 loads its rows of each global batch, the same
+    bits as the JAX loader's at the same process index (both read it from
+    their package's process group, patched here)."""
+    import jax
+
+    from gecco_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "process_index", lambda: index)
+    monkeypatch.setattr(mesh, "process_count", lambda: 2)
+    monkeypatch.setattr(jax, "process_index", lambda: index)
+    monkeypatch.setattr(jax, "process_count", lambda: 2)
+    kw = dict(batch_size=4, num_steps=None if fixed else 5, fixed_sampler=fixed, num_workers=2,
+              shard_by_process=True)
+    port, ref = list(dataloader(Toy(12), **kw)), list(jloader.dataloader(Toy(12, JExample), **kw))
+    assert len(port) == len(ref) > 0
+    for a, b in zip(port, ref):
+        _same(a, b)
+    whole = list(dataloader(Toy(12), **dict(kw, shard_by_process=False)))
+    for a, b in zip(port, whole):
+        np.testing.assert_array_equal(a.points, b.points[2 * index:2 * index + 2])
+    with pytest.raises(ValueError, match="divisible"):
+        dataloader(Toy(10), batch_size=3, num_steps=1, shard_by_process=True)
+    # a short last batch is split evenly, or left out where it does not
+    # split (where the JAX loader gives the processes unequal slices)
+    tails = {n: list(dataloader(Toy(n), **dict(kw, fixed_sampler=True, num_steps=None)))
+             for n in (10, 11)}
+    fixed_whole = list(dataloader(Toy(10), batch_size=4, fixed_sampler=True, num_workers=1))
+    assert len(tails[10]) == 3 and len(tails[11]) == 2
+    np.testing.assert_array_equal(tails[10][-1].points, fixed_whole[-1].points[index:index + 1])
 
 
 def test_pointflow_dataset_matches_the_jax_one(tmp_path):

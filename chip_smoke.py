@@ -341,7 +341,16 @@ Phases (each raises on failure; nothing is caught):
    each step's gradient, the weights after 3 steps and their moves (in the
    groups that moved beyond fp32 rounding) within phase 8's tolerance; an
    NCCL group of one issues no collective and takes one
-   process's steps; each side's ms/step. Then ``python -m
+   process's steps; each side's ms/step. The same two ranks then form
+   ``make_mesh(data=1, seq=2)``, each holding every cloud and half of its
+   points (``shard_batch(shard_points=True)``), and train the 8k config's
+   model (12 x 768, bf16, remat) at its batch of 16 8192-point clouds for
+   3 steps, the image-conditional model and the per-head flagship at 2
+   layers for 2: the ranks' bits the same, each rank's launches exact
+   (no megakernel), the pool's kernels at the global N and the unpool's at
+   the rank's, and the losses, each step's gradient, the weights and their
+   moves within phase 8's tolerance of one process's (run in rank 0's
+   process); each side's ms/step. Then ``python -m
    torch.distributed.run --nproc_per_node 2 -m gecco_tpu_torch.train
    <config> --distributed --backend gloo`` trains the flagship config at 2
    layers on a PointFlow tree of procedural clouds (one checkpoint set),
@@ -407,6 +416,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import os
@@ -6104,19 +6114,176 @@ def parallel_steps(device, mesh, n_layers, batch, n_points, steps) -> dict:
                 moves={k: weights[k] - v for k, v in init.items()})
 
 
+# phase 30's point-sharded cases (the mesh's seq axis), on
+# the same two ranks as ``make_mesh(data=1, seq=2)``: each rank holds every
+# cloud of the global batch and half of its points. The 8k config's model
+# at its full width and depth (bf16, folded_pallas, remat) at its batch of
+# 16 8192-point clouds; the image-conditional model (UVL reparam,
+# ConvNeXt-tiny, RayNetwork, remat) and the per-head pallas flagship at 2
+# layers on batches of 16 2048-point clouds. Each against one process on
+# the same weights, batches and draws, phase 30's measures
+SEQ_CASES = {
+    "8k": dict(kind="8k", n_layers=12, batch=16, n_points=SCALED_8K["n_points"], steps=3,
+               dims=SCALED_8K),
+    "conditional": dict(kind="conditional", n_layers=2, batch=16, n_points=FLAGSHIP["n_points"],
+                        steps=2, dims=FLAGSHIP, image_size=IMAGE_SIZE),
+    "per-head": dict(kind="per-head", n_layers=2, batch=16, n_points=FLAGSHIP["n_points"],
+                     steps=2, dims=FLAGSHIP),
+}
+SEQ_WHAT = {"8k": "the 8k config's model (bf16, folded_pallas, remat)",
+            "conditional": "the image-conditional model (RayNetwork, UVL, ConvNeXt-tiny, remat)",
+            "per-head": "the per-head pallas flagship"}
+
+
+def seq_model(device, kind, n_layers, dims) -> Diffusion:
+    gen = torch.Generator().manual_seed(0)
+    if kind == "conditional":
+        return build_conditional(device, gen, n_layers)
+    if kind == "per-head":
+        return build_flagship(device, gen, n_layers, attn_impl="pallas", dims=dims)
+    return build_flagship(device, gen, n_layers, dims=dims, remat=True)
+
+
+@contextlib.contextmanager
+def point_counts():
+    """{"pool": set, "unpool": set}: the point count of every call of the
+    set transformer's pool and unpool (its folded wrappers, or the per-head
+    rect attention with the inducers on the query side for the pool and on
+    the key side for the unpool), while the block runs."""
+    from gecco_tpu_torch.models import set_transformer as st
+
+    seen = {"pool": set(), "unpool": set()}
+    keep = {name: getattr(st, name) for name in ("folded_pool_ext", "folded_unpool",
+                                                   "rect_attention")}
+
+    def rect(q, k, v, **kw):
+        seen["pool" if k.shape[-2] > q.shape[-2] else "unpool"].add(
+            max(q.shape[-2], k.shape[-2]))
+        return keep["rect_attention"](q, k, v, **kw)
+
+    def counted(role, name):
+        def call(x, *a, **kw):
+            seen[role].add(x.shape[1])
+            return keep[name](x, *a, **kw)
+        return call
+
+    st.folded_pool_ext = counted("pool", "folded_pool_ext")
+    st.folded_unpool = counted("unpool", "folded_unpool")
+    st.rect_attention = rect
+    try:
+        yield seen
+    finally:
+        for name, fn in keep.items():
+            setattr(st, name, fn)
+
+
+def seq_steps(device, mesh, kind, n_layers, batch, n_points, steps, dims,
+              image_size=None) -> dict:
+    """``steps`` train steps of a ``SEQ_CASES`` model from its seeded init
+    through ``make_train_step(mesh=mesh, shard_points=True)``, each on the
+    rank's points of a seeded global batch (the whole batch on a world of
+    one), the draws from a generator seeded by the step. Returns the
+    losses, each step's gradient, the weights and their moves (on the
+    device), the launch counts, the pool's and the unpool's point counts,
+    the median wall time of the steps after the first and the local batch's
+    shape."""
+    model = seq_model(device, kind, n_layers, dims)
+    ema = make_ema(model)
+    opt = chain(clip_by_global_norm(1.0), scale_by_learning_rate(PARALLEL_LR))
+    opt_state = opt.init(list(model.parameters()))
+    step = make_train_step(opt, ema_alpha=0.999, mesh=mesh, shard_points=True)
+    if kind == "conditional":
+        data = conditional_batches(device, steps, batch, n_points, image_size, seed=31)
+    else:
+        rng = np.random.default_rng(31)
+        data = [(torch.from_numpy(make_clouds(rng, batch, n_points)).to(device), None)
+                for _ in range(steps)]
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    losses, times, grads = [], [], []
+    kernels.reset_launch_counts()
+    with point_counts() as ns:
+        for k, (pts, raw) in enumerate(data):
+            ex = shard_batch(Example(pts, raw), mesh, device, shard_points=True)
+            sync(device)
+            t0 = time.perf_counter()
+            loss, opt_state = step(model, ema, opt_state, ex.points,
+                                   torch.Generator(device=device).manual_seed(400 + k),
+                                   raw_ctx=ex.ctx)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+            grads.append({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+    counts = kernels.launch_counts()
+    weights = {k: p.detach().clone() for k, p in model.named_parameters()}
+    return dict(losses=losses, grads=grads, weights=weights,
+                moves={k: weights[k] - v for k, v in init.items()}, counts=counts,
+                ns={k: sorted(v) for k, v in ns.items()},
+                ms=1e3 * statistics.median(times[1:] or times),
+                local=tuple(ex.points.shape[:2]))
+
+
+def seq_expected(kind, n_layers, steps) -> dict:
+    """A ``SEQ_CASES`` model's launches in ``steps`` steps on each rank: the
+    folded forwards once a layer and step, twice under remat, the
+    backwards once, no megakernel; the gather's forward and backward once a
+    step; the per-head route's pool and unpool forward and backward."""
+    if kind == "per-head":
+        return {k: 2 * n_layers * steps for k in ("rect_attention_fwd", "rect_attention_bwd")}
+    out = {k: 2 * n_layers * steps for k in SET_FORWARD}
+    out.update({k: n_layers * steps for k in FOLDED_BACKWARD})
+    if kind == "conditional":
+        out.update({k: steps for k in GATHER})
+    return out
+
+
+def seq_rank_case(device, mesh, case) -> dict:
+    """A ``SEQ_CASES`` case on this rank of ``mesh`` (data 1 x seq 2), then,
+    on rank 0, on one process at the whole batch in this process (no group
+    active: the reference issues no collective), while rank 1 waits. Each
+    rank's record: its counts, point counts, ms/step, local shape, losses
+    and a digest of its weights; rank 0's also the errors against one
+    process (phase 30's per-group measures) and one process's ms/step."""
+    rec = seq_steps(device, mesh, **case)
+    digest = hashlib.sha256(json.dumps(rec["losses"]).encode())
+    for k in sorted(rec["weights"]):
+        digest.update(rec["weights"][k].reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    digests = [None, None]
+    torch.distributed.all_gather_object(digests, digest.hexdigest())
+    out = {k: rec[k] for k in ("counts", "ns", "ms", "local", "losses")}
+    out["digests"] = digests
+    if mesh.rank == 0:
+        one = seq_steps(device, Mesh(), **case)
+        w_err, m_err = (grouped_rel(rec[f], one[f]) for f in ("weights", "moves"))
+        norms = lambda d: {g: float(torch.cat([d[n].flatten() for n in d if group_of(n) == g])
+                                    .double().norm()) for g in w_err}
+        out.update(one_ms=one["ms"], one_losses=one["losses"], one_ns=one["ns"],
+                   g_errs=[grouped_rel(a, b) for a, b in zip(rec["grads"], one["grads"])],
+                   w_err=w_err, m_err=m_err, move_norm=norms(one["moves"]),
+                   weight_norm=norms(one["weights"]))
+    torch.distributed.barrier()
+    return out
+
+
 def parallel_rank(rank: int, port: int, out: str, shape: str) -> None:
     """A rank of phase 30's gloo group of two (``chip_smoke.py
-    --parallel-rank``): its steps, written to ``out/rank<rank>.pt``."""
+    --parallel-rank``): its data-parallel steps, written to
+    ``out/rank<rank>.pt``, then the point-sharded cases of ``shape["seq"]``
+    (``SEQ_CASES``) on ``make_mesh(data=1, seq=2)``, written to
+    ``out/seq<rank>.pt``."""
     shape = json.loads(shape)
     device = torch.device(shape.pop("device"))
+    seq_cases = shape.pop("seq")
     if device.type == "cpu":
         torch.set_num_threads(1)
     init_distributed(backend="gloo", init_method=f"tcp://localhost:{port}", world_size=2,
                      rank=rank)
     try:
         mesh = make_mesh()
-        rec = parallel_steps(local_device(device), mesh, **shape)
+        device = local_device(device)
+        rec = parallel_steps(device, mesh, **shape)
         torch.save(dict(rec, rank=mesh.rank, world=mesh.size), Path(out) / f"rank{rank}.pt")
+        seq_mesh = make_mesh(data=1, seq=2)
+        torch.save({name: seq_rank_case(device, seq_mesh, case)
+                    for name, case in seq_cases.items()}, Path(out) / f"seq{rank}.pt")
     finally:
         shutdown_distributed()
 
@@ -6146,7 +6313,67 @@ def run_ranks(argvs, env, timeout, what) -> list:
     return outs
 
 
-def parallel_phase(device, n_layers, batch, n_points, steps, cli, rehearse) -> tuple:
+def seq_checks(tmp, seq_cases, device, card) -> dict:
+    """Phase 30's point-sharded cases, from both ranks' records: the ranks'
+    losses and weights the same bits; each rank's launch counts exactly
+    ``seq_expected``; the pool's kernels at the global N, the unpool's at
+    the rank's N; the losses, each step's gradient, the weights and their
+    moves within phase 8's tolerance of one process's, per parameter group.
+    Returns {case: (2-rank ms/step, rank 1's, one process's, the largest
+    error)}."""
+    r0, r1 = (torch.load(tmp / f"seq{r}.pt") for r in range(2))
+    out = {}
+    for name, case in seq_cases.items():
+        a, b = r0[name], r1[name]
+        n, steps, layers = case["n_points"], case["steps"], case["n_layers"]
+        print(f"  seq case {name}: {SEQ_WHAT[name]}, {layers} layers, global batch "
+              f"{case['batch']} x {n} points, each rank {a['local'][0]} x {a['local'][1]}, "
+              f"{steps} steps")
+        if a["digests"][0] != a["digests"][1] or a["losses"] != b["losses"]:
+            raise AssertionError(f"seq case {name}: the ranks' losses or weights differ")
+        if a["local"] != (case["batch"], n // 2):
+            raise AssertionError(f"seq case {name}: each rank held {a['local']}")
+        expected = expected_counts(seq_expected(case["kind"], layers, steps))
+        for r, rec in enumerate((a, b)):
+            check_counts(f"seq case {name}, rank {r}", rec["counts"], expected, device)
+            print(f"    rank {r}: the pool's kernels took N {rec['ns']['pool']}, the unpool's "
+                  f"N {rec['ns']['unpool']} (one process: {a['one_ns']})")
+            if rec["ns"] != {"pool": [n], "unpool": [n // 2]}:
+                raise AssertionError(f"seq case {name}, rank {r}: point counts {rec['ns']}, not "
+                                     f"the pool at {n} and the unpool at {n // 2}")
+        worst = [max(e, key=e.get) for e in a["g_errs"]]
+        print(f"    losses: 2 ranks {' '.join(f'{v:.6f}' for v in a['losses'])}; one process "
+              f"{' '.join(f'{v:.6f}' for v in a['one_losses'])}; each step's largest "
+              f"gradient error "
+              + ", ".join(f"{e[g]:.3e} at {g}" for e, g in zip(a["g_errs"], worst)))
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], a["one_losses"]))
+        check(f"seq case {name}: 2-rank losses vs one process", loss_err, TOL_TRAIN_GRAD,
+              "max relative")
+        g_err = max(max(e.values()) for e in a["g_errs"])
+        check(f"seq case {name}: each step's gradient vs one process", g_err, TOL_TRAIN_GRAD,
+              "max over steps and groups of ||err|| / ||ref||")
+        w_err = max(a["w_err"].values())
+        check(f"seq case {name}: weights after {steps} steps vs one process", w_err,
+              TOL_TRAIN_GRAD, "max over groups of ||err|| / ||ref||")
+        held = [g for g in a["m_err"] if a["move_norm"][g] >= MOVE_FLOOR * a["weight_norm"][g]]
+        if not held:
+            raise AssertionError(f"seq case {name}: no group moved {MOVE_FLOOR:.2e} of its "
+                                 f"weights")
+        m_err = max(a["m_err"][g] for g in held)
+        check(f"seq case {name}: the weights' moves vs one process ({len(held)} of "
+              f"{len(a['m_err'])} groups)", m_err, TOL_TRAIN_GRAD,
+              "max over the groups held of ||err|| / ||ref||")
+        print(f"    2 ranks on one card (gloo, the points gathered through the host): "
+              f"{a['ms']:.3f} ms/step (rank 1 {b['ms']:.3f}), one process {a['one_ms']:.3f} "
+              f"ms/step at the whole batch; {card} (two ranks on one card say nothing of "
+              f"scaling)")
+        out[name] = dict(ms_2rank=a["ms"], ms_2rank_r1=b["ms"], ms_one=a["one_ms"],
+                         err=max(loss_err, g_err, w_err, m_err))
+    return out
+
+
+def parallel_phase(device, n_layers, batch, n_points, steps, cli, rehearse, seq_cases,
+                   card) -> tuple:
     """Phase 30: data-parallel training. Two gloo ranks on this one card
     (NCCL refuses two ranks on one device; gloo all-reduces and broadcasts
     CUDA tensors through the host) take ``steps`` steps of the flagship at
@@ -6159,7 +6386,9 @@ def parallel_phase(device, n_layers, batch, n_points, steps, cli, rehearse) -> t
     gecco_tpu_torch.train <config> --distributed --backend gloo`` trains
     the flagship config, cut by ``PARALLEL_CLI_CUTS``, on a PointFlow tree
     of procedural clouds: one set of checkpoints, then a resumed run on
-    both ranks. Returns (rank 0's launch counts, a record)."""
+    both ranks. The same two ranks then take ``seq_cases`` on ``data 1 x
+    seq 2`` (``seq_checks``). Returns (rank 0's launch counts, a
+    record)."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     root = os.path.dirname(os.path.abspath(__file__))
@@ -6170,7 +6399,8 @@ def parallel_phase(device, n_layers, batch, n_points, steps, cli, rehearse) -> t
         port = free_port()
         t0 = time.perf_counter()
         run_ranks([[sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r),
-                    str(port), str(tmp), json.dumps(dict(shape, device=device.type))]
+                    str(port), str(tmp),
+                    json.dumps(dict(shape, device=device.type, seq=seq_cases))]
                    for r in range(2)], env, 600, "parallel rank")
         ranks_s = time.perf_counter() - t0
         r0, r1 = (torch.load(tmp / f"rank{r}.pt") for r in range(2))
@@ -6266,13 +6496,14 @@ def parallel_phase(device, n_layers, batch, n_points, steps, cli, rehearse) -> t
         check(f"a {backend} group of one vs one process (no collective issued)",
               spread[next(iter(spread))], TOL_TRAIN_GRAD, "max of the three")
 
+        seq = seq_checks(tmp, seq_cases, device, card)
         cli_rec = parallel_cli(device, tmp, env, rehearse, **cli)
         print(f"  2 ranks on one card (gloo): {r0['ms']:.3f} ms/step (rank 1 {r1['ms']:.3f}), "
               f"one process at the whole batch {one['ms']:.3f} ms/step; both ranks' processes "
               f"{ranks_s:.1f} s with their start (two ranks on one card say nothing of scaling)")
         return r0["counts"], dict(ms_2rank=r0["ms"], ms_2rank_r1=r1["ms"], ms_one=one["ms"],
                                   ranks_s=ranks_s, loss_err=loss_err, w_err=w_err,
-                                  g_err=g_err, m_err=m_err, **cli_rec)
+                                  g_err=g_err, m_err=m_err, seq=seq, **cli_rec)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -6545,6 +6776,14 @@ def main():
         vol_cfg = dict(steps=4, resumed=3, n_objects=2, n_views=VOL_VIEWS, loss_sync=1)
         par_batch, par_steps = 4, 2
         par_cli = dict(steps=4, resumed=0, n_clouds=8, n_points=64)
+        # the flagship's width: at C 64 the bf16 rounding of the ranks'
+        # partial cotangents moves the h-side alpha's gradient by ~13%
+        seq_cases = {
+            "8k": dict(SEQ_CASES["8k"], n_layers=2, batch=2, n_points=256, steps=2,
+                       dims=FLAGSHIP),
+            "conditional": dict(SEQ_CASES["conditional"], batch=2, n_points=128,
+                                image_size=image_size),
+            "per-head": dict(SEQ_CASES["per-head"], batch=2, n_points=128)}
     else:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")
@@ -6576,6 +6815,7 @@ def main():
         par_batch, par_steps = TRAIN_BATCH, PARALLEL_STEPS
         par_cli = dict(steps=PARALLEL_CLI_STEPS, resumed=PARALLEL_CLI_RESUMED,
                        n_clouds=PARALLEL_CLI_CLOUDS, n_points=FLAGSHIP["n_points"])
+        seq_cases = SEQ_CASES
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -6805,10 +7045,14 @@ def main():
 
     stage(f"data-parallel training: two gloo ranks on one card, the flagship x{n_layers} layers "
           f"at global batch {par_batch} ({par_batch // 2} a rank, shard_by_process), {par_steps} "
-          f"steps, against one process at the whole batch; a group of one; then train "
-          f"--distributed on two ranks, the config cut to 2 layers, resumed, on {card}")
+          f"steps, against one process at the whole batch; a group of one; the same ranks "
+          f"on data 1 x seq 2, each holding half of every cloud's points, on "
+          + "; ".join(f"{SEQ_WHAT[k]} x{v['n_layers']} layers, global batch {v['batch']} x "
+                      f"{v['n_points']} points, {v['steps']} steps" for k, v in seq_cases.items())
+          + f"; then train --distributed on two ranks, the config cut to 2 layers, resumed, "
+          f"on {card}")
     par_counts, par = parallel_phase(device, n_layers, par_batch, n_points, par_steps, par_cli,
-                                     args.rehearse)
+                                     args.rehearse, seq_cases, card)
 
     stage(f"vis callbacks: every gecco_tpu_torch.vis callback on the demo's model "
           f"({demo_dims}), {VIS_STEPS} solver steps, on {card}")
@@ -6910,7 +7154,11 @@ def main():
           f"{par['ms_2rank']:.3f} ms/step (rank 1 {par['ms_2rank_r1']:.3f}) at global batch "
           f"{par_batch}, one process {par['ms_one']:.3f} ms/step at the same batch (two ranks on one "
           f"card measure no scaling); train --distributed "
-          + " s and ".join(f"{v:.1f}" for v in par["cli_s"]) + f" s (first run, resumed); {card}")
+          + " s and ".join(f"{v:.1f}" for v in par["cli_s"]) + f" s (first run, resumed); "
+          + "; point-sharded on data 1 x seq 2: " + ", ".join(
+              f"{k} {v['ms_2rank']:.3f} ms/step (rank 1 {v['ms_2rank_r1']:.3f}), one process "
+              f"{v['ms_one']:.3f}, largest error {v['err']:.3e}" for k, v in par["seq"].items())
+          + f"; {card}")
     print("  vis callbacks (phase 31): " + ", ".join(f"{k} {v:.3f} s" for k, v in vis_rec.items())
           + f"; certify (phase 32) {certify_s:.1f} s; {card}")
     # launches: each kernel's count on the path that first brought it in

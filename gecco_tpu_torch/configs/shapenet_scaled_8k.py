@@ -3,7 +3,10 @@ twice the flagship's denoiser (12 layers of 768 channels, 64 inducers, 16
 heads, bf16, ``folded_pallas``, remat) on 8192-point airplane clouds at
 batch 16; LogUniform sigma_max 165; ``GaussianReparam`` (0, 0.35); the
 global-norm clip at 1 then AdaBelief at 3e-4; EMA 0.999; validation on 8
-batches of the loss.
+batches of the loss. Under a process group of more than one rank the
+Trainer takes ``shard_points``, as the JAX config does on more than one
+device; the default mesh puts every rank on the data axis, so the points
+are split only where the caller passes ``mesh=make_mesh(data, seq)``.
 
     SHAPENET_PF_ROOT=/path/to/ShapeNetCore.v2.PC15k \\
         python -m gecco_tpu_torch.train gecco_tpu_torch/configs/shapenet_scaled_8k.py
@@ -15,6 +18,7 @@ from gecco_tpu_torch.data import dataloader
 from gecco_tpu_torch.data.shapenet_pointflow import ShapeNetPointFlow
 from gecco_tpu_torch.diffusion import Diffusion, LogUniformSchedule
 from gecco_tpu_torch.models import SetTransformer, UnconditionalPointNetwork
+from gecco_tpu_torch.parallel import process_count
 from gecco_tpu_torch.reparam import GaussianReparam
 from gecco_tpu_torch.train import adabelief, chain, clip_by_global_norm
 from gecco_tpu_torch.train import train as train_fn
@@ -71,10 +75,7 @@ def train(make_model, train_loader, val_loader, save_path, **overrides):
         optimizer=chain(clip_by_global_norm(1.0), adabelief(3e-4)),
         ema_alpha=0.999,
         n_validation_batches=8,
-        # the JAX config shards the points over the mesh where it has more
-        # than one device (shard_points): the port's data axis trains on
-        # several cards (train --distributed), but its seq axis, the point
-        # sharding, waits for ROADMAP A10b
+        shard_points=process_count() > 1,
     )
     kwargs.update(overrides)
     return train_fn(**kwargs)

@@ -117,6 +117,7 @@ class DataLoader:
         drop_last: bool = True,
         name: Optional[str] = None,
         shard_by_process: bool = False,
+        mesh: Optional[_mesh.Mesh] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -128,10 +129,15 @@ class DataLoader:
         # data parallelism: ``batch_size`` is the GLOBAL batch; every rank
         # runs the same (identically seeded) sampler and loads only its
         # rows of each batch, which ``parallel.shard_batch(local=True)``
-        # then passes through
+        # then passes through. The rows are split by the mesh's data axis
+        # (``mesh``, or the whole group on the data axis where None), so
+        # that the seq ranks of one data row read the same rows
         self.shard_by_process = shard_by_process
-        self.process_index = _mesh.process_index() if shard_by_process else 0
-        self.process_count = _mesh.process_count() if shard_by_process else 1
+        self.process_index, self.process_count = 0, 1
+        if shard_by_process:
+            if mesh is None:
+                mesh = _mesh.Mesh(data=_mesh.process_count(), rank=_mesh.process_index())
+            self.process_index, self.process_count = mesh.data_index, mesh.data
         if batch_size % self.process_count != 0:
             raise ValueError(
                 f"global batch {batch_size} not divisible by "
@@ -216,6 +222,7 @@ def dataloader(
     drop_last: Optional[bool] = None,
     name: Optional[str] = None,
     shard_by_process: bool = False,
+    mesh=None,
 ) -> DataLoader:
     """Factory with the reference's sampler selection logic (util.py:65-107)."""
     if sequential_sampler and not fixed_sampler:
@@ -241,4 +248,5 @@ def dataloader(
         drop_last=drop,
         name=name,
         shard_by_process=shard_by_process,
+        mesh=mesh,
     )

@@ -129,24 +129,27 @@ class Diffusion(nn.Module):
         return _tile_ctx(self.cond(raw_ctx) if ctx is None else ctx, n)
 
     def draw_sigma_noise(self, generator: torch.Generator, points: torch.Tensor,
-                         shard: Tuple[int, int] = (0, 1)):
+                         shard: Tuple[int, int] = (0, 1),
+                         point_shard: Tuple[int, int] = (0, 1)):
         """The loss's random draws for a batch ``points`` [B, N, D]: sigma [B]
         from the schedule and standard normal noise of the points' shape,
         both made on the generator's device and moved to the points'.
 
         ``shard=(rank, world)``: ``points`` are a rank's B rows of a global
-        batch of ``world * B``; the draws are made for the global batch, as
-        one process training on all of it makes them, and the rank's rows
-        returned."""
+        batch of ``world * B``; ``point_shard=(index, count)``: they hold
+        slice ``index`` of ``count`` of each cloud's points. The draws are
+        made for the global batch at every point, as one process training
+        on all of it makes them, and the rank's rows and points returned."""
         check_points(points, "points")
         rank, world = shard
-        b = points.shape[0]
+        index, count = point_shard
+        b, n = points.shape[:2]
         sigma = self.schedule.sample_sigma(generator, b * world)
-        noise = torch.randn((b * world, *points.shape[1:]), generator=generator,
+        noise = torch.randn((b * world, n * count, *points.shape[2:]), generator=generator,
                             device=generator.device)
         rows = slice(rank * b, (rank + 1) * b)
         return (sigma[rows].to(points.device, points.dtype),
-                noise[rows].to(points.device, points.dtype))
+                noise[rows, index * n:(index + 1) * n].to(points.device, points.dtype))
 
     def loss_from(self, points: torch.Tensor, sigma: torch.Tensor, noise: torch.Tensor,
                   raw_ctx: Any = None, loss_scale: float = 1.0,
@@ -178,7 +181,9 @@ class Diffusion(nn.Module):
         where no module of the network drops units (``dropout_p > 0``): a
         network without dropout is called as before, without the
         argument. ``shard=(rank, world)``: each mask is drawn for the global
-        batch and the rank's rows kept, as in ``draw_sigma_noise``."""
+        batch and the rank's rows kept, as in ``draw_sigma_noise``; under
+        point sharding the layers keep the rank's points of the masks with
+        a point axis (``models.mlp.shard_point_dropout``)."""
         if any(getattr(m, "dropout_p", 0.0) > 0.0 for m in self.network.modules()):
             return shard_dropout(bernoulli_dropout(generator), *shard)
         return None

@@ -21,7 +21,7 @@ from torch import nn
 from gecco_tpu_torch.models.activation import GaussianActivation
 from gecco_tpu_torch.utils.modules import Linear, resolve_device
 
-__all__ = ["MLP", "DropoutFn", "bernoulli_dropout", "shard_dropout"]
+__all__ = ["MLP", "DropoutFn", "bernoulli_dropout", "shard_dropout", "shard_point_dropout"]
 
 # (p_keep, shape) -> bool mask of ``shape``, True where the unit is kept
 DropoutFn = Callable[[float, tuple], torch.Tensor]
@@ -47,6 +47,21 @@ def shard_dropout(draw: DropoutFn, rank: int, world: int) -> DropoutFn:
     def sharded(p_keep: float, shape: tuple) -> torch.Tensor:
         b = shape[0]
         return draw(p_keep, (b * world, *shape[1:]))[rank * b:(rank + 1) * b]
+
+    return sharded
+
+
+def shard_point_dropout(draw: DropoutFn, index: int, count: int) -> DropoutFn:
+    """A mask source for slice ``index`` of ``count`` of the point axis
+    (the masks' second axis) under point sharding: each mask is drawn from
+    ``draw`` at every rank's points and the slice kept (``draw`` itself on
+    a group of one)."""
+    if count == 1:
+        return draw
+
+    def sharded(p_keep: float, shape: tuple) -> torch.Tensor:
+        n = shape[1]
+        return draw(p_keep, (shape[0], n * count, *shape[2:]))[:, index * n:(index + 1) * n]
 
     return sharded
 

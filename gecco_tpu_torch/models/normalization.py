@@ -5,6 +5,10 @@ norm).
 The scale and bias are affine functions of a per-example embedding (the
 noise level), initialised to identity: the scale Linear has weight 0 and
 bias 1, the bias Linear weight 0 and bias 0.
+
+``group`` on ``AdaGN``'s calls is the points' group of a point-side norm
+under point sharding (``ops.norms.group_norm_stats``); a norm on the
+inducer tokens takes none.
 """
 
 from __future__ import annotations
@@ -48,11 +52,11 @@ class AdaGN(nn.Module):
         _identity_affine(self, num_features, embed_dim, device, generator)
         self.num_groups = num_groups
 
-    def forward(self, x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, embed: torch.Tensor, group=None) -> torch.Tensor:
         # x: [B, N, C], embed: [B, E]
         scale = self.scale_linear(embed)[..., None, :]
         bias = self.bias_linear(embed)[..., None, :]
-        normed = group_norm(x, self.num_groups)
+        normed = group_norm(x, self.num_groups, group=group)
         return scale.to(x.dtype) * normed + bias.to(x.dtype)
 
     def _affine(self, mean_c, inv_c, embed):
@@ -62,12 +66,12 @@ class AdaGN(nn.Module):
         return se, bias - mean_c * se
 
     def effective_scale_bias(
-        self, x: torch.Tensor, embed: torch.Tensor
+        self, x: torch.Tensor, embed: torch.Tensor, group=None
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Norm and affine collapsed into ``x * se + be``, both fp32 [B, C]:
         ``se = scale * inv_c``, ``be = bias - mean_c * se`` — the form the
         fused kernels apply inline while streaming the set."""
-        return self._affine(*group_norm_stats(x, self.num_groups), embed)
+        return self._affine(*group_norm_stats(x, self.num_groups, group=group), embed)
 
     def scale_bias_from_sums(
         self, sums: torch.Tensor, n_tokens: int, embed: torch.Tensor

@@ -56,6 +56,20 @@ in compat) in PyTorch; the statistics chain runs only where every layer's
 parts all fuse (the JAX package's ``chain_sums``), else each layer's pool
 takes its statistics itself. Under ``ref_jax_compat`` the fused MLP takes
 the identity pre-norm (``se2 = 1``, ``be2 = 0``) and the megakernel is off.
+
+Under point sharding (``parallel.sharding_points``: each rank of the
+points' group holds a slice of every cloud's points) the layers issue the
+collectives that the JAX package's partitioning rules insert: every pool
+takes the points gathered over the group (``gather_points``), so the pool
+kernel runs at the global N and its backward's dx goes back through the
+gather's adjoint; the point-side norms' channel sums (the statistics
+chain's, the unpool's and the MLP's emitted sums, the plain paths'
+GroupNorms) are summed over the group (``sum_over_points``) and normalised
+by the global N; the h-side, on the replicated inducer tokens, and the
+unpool and the MLP, on the rank's own points, issue none. The megakernel
+is off there, as in the JAX package: its statistics would be the shard's.
+A point-side MLP's dropout masks are drawn at the global N and the rank's
+slice kept.
 """
 
 from __future__ import annotations
@@ -68,7 +82,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from gecco_tpu_torch.models.activation import GaussianActivation
-from gecco_tpu_torch.models.mlp import MLP, DropoutFn
+from gecco_tpu_torch.models.mlp import MLP, DropoutFn, shard_point_dropout
 from gecco_tpu_torch.models.normalization import AdaGN
 from gecco_tpu_torch.ops.attention import (
     pool_attention_folded,
@@ -84,6 +98,13 @@ from gecco_tpu_torch.ops.kernels import (
     fused_unpool_mlp,
 )
 from gecco_tpu_torch.ops.kernels.folded_attention import group_indicator, unpool_mlp_fits_sm
+from gecco_tpu_torch.parallel.collectives import (
+    gather_points,
+    point_shard,
+    points_group,
+    sharding_points,
+    sum_over_points,
+)
 from gecco_tpu_torch.utils.modules import Linear, resolve_device
 
 __all__ = ["AttentionPool", "Unpool", "Broadcast", "BroadcastingLayer", "SetTransformer"]
@@ -148,6 +169,12 @@ class _Replay:
         return self.masks[self.pos - 1]
 
 
+def _point_dropout(dropout: Optional[DropoutFn], group) -> Optional[DropoutFn]:
+    """The mask source of a point-side MLP: its masks drawn at every rank's
+    points and this rank's slice kept under point sharding."""
+    return None if dropout is None else shard_point_dropout(dropout, *point_shard(group))
+
+
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, n, c = x.shape  # [B, N, C] -> [B, H, N, D]
     return x.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
@@ -173,7 +200,8 @@ class AttentionPool(nn.Module):
         self.num_heads = num_heads
 
     def forward(self, kv: torch.Tensor, attn_impl: str = "xla") -> torch.Tensor:
-        # [B, N, C] -> [B, I, C]
+        # [B, N, C] -> [B, I, C], over every point of the points' group
+        kv = gather_points(kv, points_group())
         if attn_impl in FOLDED:
             return pool_attention_folded(
                 kv, self.inducers, self.kv_proj.weight, self.out_proj.weight, self.num_heads,
@@ -262,15 +290,18 @@ class BroadcastingLayer(nn.Module):
         ``kv``: its unpool k/v projections, hoisted by the caller (fused
         path only). ``dropout``: the MLPs' mask source (the broadcast's MLP
         draws first). ``mlp_on_unnormed``: the second MLP takes the
-        un-normed stream (``ref_jax_compat``)."""
+        un-normed stream (``ref_jax_compat``). Under point sharding
+        ``in_sums`` and ``out_sums`` are the whole set's."""
+        group = points_group()
         if attn_impl == "folded_pallas":
-            return self._fused_call(x, embed, in_sums, h, kv, dropout, mlp_on_unnormed)
-        x_b, h = self.broadcast(self.broadcast_norm(x, embed), embed, h=h, attn_impl=attn_impl,
-                                dropout=dropout)
+            return self._fused_call(x, embed, in_sums, h, kv, dropout, mlp_on_unnormed, group)
+        x_b, h = self.broadcast(self.broadcast_norm(x, embed, group), embed, h=h,
+                                attn_impl=attn_impl, dropout=dropout)
         x = x + x_b
-        return x + self.mlp(x if mlp_on_unnormed else self.mlp_norm(x, embed), dropout), h, None
+        y = x if mlp_on_unnormed else self.mlp_norm(x, embed, group)
+        return x + self.mlp(y, _point_dropout(dropout, group)), h, None
 
-    def _fused_call(self, x, embed, in_sums, h, kv, dropout, mlp_on_unnormed):
+    def _fused_call(self, x, embed, in_sums, h, kv, dropout, mlp_on_unnormed, group):
         """The layer through the four fused functions: pool (pre-norm
         inline), h-side, unpool (+ residual + output sums), MLP (+ residual
         + output sums). Same function as the plain path.
@@ -301,8 +332,15 @@ class BroadcastingLayer(nn.Module):
         h-side's as norm_1, MLP, norm_2 and the k/v projections; the
         residual MLP after the unpool kernel, on ``mlp_norm``'s output or,
         under ``mlp_on_unnormed``, on the stream itself. Under
-        ``mlp_on_unnormed`` the fused MLP takes the identity pre-norm."""
+        ``mlp_on_unnormed`` the fused MLP takes the identity pre-norm.
+
+        ``group``: the points' group under point sharding. The pool takes
+        the gathered points (its pre-norm's statistics, where no sums are
+        given, those of the gathered points); the unpool's and the MLP's
+        emitted sums are summed over the group; every count of tokens is
+        the global N; the megakernel is off."""
         b, n, c = x.shape
+        n_all = n * point_shard(group)[1]
         dt = x.dtype
         bc = self.broadcast
         num_heads = bc.unpool.num_heads
@@ -310,9 +348,9 @@ class BroadcastingLayer(nn.Module):
         norm = self.broadcast_norm
         if h is not None:
             if in_sums is not None:
-                se1, be1 = norm.scale_bias_from_sums(in_sums, n, embed)
+                se1, be1 = norm.scale_bias_from_sums(in_sums, n_all, embed)
             else:
-                se1, be1 = norm.effective_scale_bias(x, embed)
+                se1, be1 = norm.effective_scale_bias(x, embed, group)
             k, v = kv if kv is not None else (None, None)
         else:
             ind2 = bc.pool.inducers.reshape(-1, c // num_heads).to(dt)
@@ -328,15 +366,16 @@ class BroadcastingLayer(nn.Module):
             # (Under the opt-in megakernel JAX's likelihood takes
             # fused_unpool_mlp, whose gradient is the separate kernels'; the
             # port runs those kernels under grad.)
+            x_all = gather_points(x, group)
             if in_sums is not None:
-                se1, be1 = norm.scale_bias_from_sums(in_sums, n, embed)
-                h0 = folded_pool_ext(x, se1, be1, ind2, kvw, wo_p, num_heads)
+                se1, be1 = norm.scale_bias_from_sums(in_sums, n_all, embed)
+                h0 = folded_pool_ext(x_all, se1, be1, ind2, kvw, wo_p, num_heads)
             elif torch.is_grad_enabled():
-                se1, be1 = norm.effective_scale_bias(x, embed)
-                h0 = folded_pool_ext(x, se1, be1, ind2, kvw, wo_p, num_heads)
+                se1, be1 = norm.effective_scale_bias(x_all, embed)
+                h0 = folded_pool_ext(x_all, se1, be1, ind2, kvw, wo_p, num_heads)
             else:
                 h0, mean_c, inv_c = folded_pool_layer(
-                    x, norm.scale_linear(embed_f), norm.bias_linear(embed_f), ind2, kvw, wo_p,
+                    x_all, norm.scale_linear(embed_f), norm.bias_linear(embed_f), ind2, kvw, wo_p,
                     group_indicator(c, norm.num_groups, x.device), num_heads, True,
                 )
                 se1, be1 = norm._affine(mean_c, inv_c, embed)
@@ -360,7 +399,7 @@ class BroadcastingLayer(nn.Module):
         mlp_ok = _mlp_fusable(self.mlp, dropout)
         mlp_ops = _fold_mlp_operands(self.mlp, dt) if mlp_ok else None
         if (mlp_ok and not mlp_on_unnormed and os.environ.get("GECCO_UNPOOL_MLP_MEGAKERNEL") == "1"
-                and not torch.is_grad_enabled()
+                and not torch.is_grad_enabled() and group is None
                 and (x.device.type == "cpu"
                      or unpool_mlp_fits_sm(n, c, k.shape[1], mlp_ops[0].shape[1], num_heads,
                                            dt))):
@@ -373,16 +412,17 @@ class BroadcastingLayer(nn.Module):
             return x, h, out_sums
         x, sums = folded_unpool(x, se1, be1, k, v, wq, wo, num_heads)
         if not mlp_ok:
-            y = x if mlp_on_unnormed else self.mlp_norm(x, embed)
-            return x + self.mlp(y, dropout), h, None
+            y = x if mlp_on_unnormed else self.mlp_norm(x, embed, group)
+            return x + self.mlp(y, _point_dropout(dropout, group)), h, None
         if mlp_on_unnormed:
             # the identity pre-norm: the unpool's sums go unused
             se2 = torch.ones((b, c), dtype=torch.float32, device=x.device)
             be2 = torch.zeros((b, c), dtype=torch.float32, device=x.device)
         else:
-            se2, be2 = self.mlp_norm.scale_bias_from_sums(sums, n, embed)
+            se2, be2 = self.mlp_norm.scale_bias_from_sums(sum_over_points(sums, group), n_all,
+                                                           embed)
         x, out_sums = fused_mlp_residual(x, se2, be2, *mlp_ops)
-        return x, h, out_sums
+        return x, h, sum_over_points(out_sums, group)
 
 
 class SetTransformer(nn.Module):
@@ -444,13 +484,14 @@ class SetTransformer(nn.Module):
             dropout = None
         fused = self.attn_impl == "folded_pallas"
         chain = fused and self.chains_sums(dropout)
+        group = points_group()
         sums = None
         if chain:
             if in_sums is not None:
                 sums = in_sums.float()
             else:
                 xf = x.float()
-                sums = torch.stack([xf.sum(1), (xf * xf).sum(1)], dim=1)
+                sums = sum_over_points(torch.stack([xf.sum(1), (xf * xf).sum(1)], dim=1), group)
         kvs = [None] * len(self.layers)
         if hs is not None and fused:
             hd = hs.to(x.dtype)
@@ -466,11 +507,14 @@ class SetTransformer(nn.Module):
             if remat:
                 drop = None if dropout is None else _Replay(dropout)
 
+                # the recompute runs in the backward pass: it issues the
+                # forward's collectives again, under the forward's group
                 def run(x, sums, layer=layer, drop=drop):
                     if drop is not None:
                         drop.rewind()
-                    return layer(x, embed, self.attn_impl, in_sums=sums, dropout=drop,
-                                 mlp_on_unnormed=unnormed)
+                    with sharding_points(group):
+                        return layer(x, embed, self.attn_impl, in_sums=sums, dropout=drop,
+                                     mlp_on_unnormed=unnormed)
 
                 x, h, out_sums = checkpoint(run, x, sums, use_reentrant=False)
             else:

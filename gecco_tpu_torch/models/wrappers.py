@@ -8,6 +8,12 @@ dropout=None) -> [B, N, 3]`` where ``t`` is the preconditioned noise level
 the backbone's inducer tokens [L, B, I, C], and ``hs`` reuses them (cached
 upsampling); ``dropout`` is the backbone MLPs' mask source (the JAX
 package's network key).
+
+Under point sharding (``parallel.sharding_points``) ``x`` holds the rank's
+slice of each cloud's points: the embedding's channel sums and the output
+GroupNorm's statistics are taken over the whole set (summed over the
+points' group, normalised by the global N), the projective lookup takes
+the rank's own points in the replicated images.
 """
 
 from __future__ import annotations
@@ -20,22 +26,27 @@ from torch import nn
 from gecco_tpu_torch.models.set_transformer import SetTransformer
 from gecco_tpu_torch.ops.norms import group_norm, stats_from_sums
 from gecco_tpu_torch.ops.projective import LOOKUP_IMPLS, lookup_pyramid
+from gecco_tpu_torch.parallel.collectives import point_shard, points_group, sum_over_points
 from gecco_tpu_torch.utils.modules import Linear
 
 __all__ = ["GlobalConditioningNetwork", "LinearLift", "RayNetwork", "UnconditionalPointNetwork"]
 
 
-def _embed_channel_sums(linear: Linear, x: torch.Tensor) -> torch.Tensor:
+def _embed_channel_sums(linear: Linear, x: torch.Tensor, group=None) -> torch.Tensor:
     """Channel sums ``[B, 2, C]`` (s1, s2 over tokens) of ``linear(x)`` from
     the [B, D, D] second moments of ``x`` (D = 3), without a pass over the
     [B, N, C] embedded stream: with ``f = x W^T + b``,
     ``s1 = (sum x) W^T + n b`` and
-    ``s2_c = w_c M w_c^T + 2 b_c (sum x . w_c) + n b_c^2``."""
+    ``s2_c = w_c M w_c^T + 2 b_c (sum x . w_c) + n b_c^2``. ``group``: the
+    points' group (the sum and the moments summed over it, n the global
+    N)."""
     xf = x.float()
-    n = xf.shape[-2]
+    n = xf.shape[-2] * point_shard(group)[1]
     w = linear.weight.float()  # [C, D]
-    proj = xf.sum(-2) @ w.T  # [B, C]
-    m = torch.einsum("bni,bnj->bij", xf, xf)
+    moments = sum_over_points(
+        torch.cat([xf.sum(-2)[:, None], torch.einsum("bni,bnj->bij", xf, xf)], dim=1), group)
+    proj = moments[:, 0] @ w.T  # [B, C]
+    m = moments[:, 1:]
     s2 = (torch.einsum("ci,bij->bcj", w, m) * w[None]).sum(-1)
     s1 = proj
     if linear.bias is not None:
@@ -45,12 +56,15 @@ def _embed_channel_sums(linear: Linear, x: torch.Tensor) -> torch.Tensor:
     return torch.stack([s1, s2], dim=1)
 
 
-def _folded_head(proj: Linear, num_groups: int, x: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:
+def _folded_head(proj: Linear, num_groups: int, x: torch.Tensor, sums: torch.Tensor,
+                 n_tokens: Optional[int] = None) -> torch.Tensor:
     """GroupNorm -> Linear head with the norm folded into per-batch
-    projection weights, statistics from the backbone's emitted channel sums:
-    ``((x - m) * inv) @ W^T + b = x @ (inv * W^T) + b'``."""
+    projection weights, statistics from the backbone's emitted channel sums
+    over ``n_tokens`` tokens (x's N where None): ``((x - m) * inv) @ W^T +
+    b = x @ (inv * W^T) + b'``."""
     sums = sums.float()
-    mean_c, inv_c = stats_from_sums(sums[:, 0], sums[:, 1], x.shape[1], num_groups)
+    n = x.shape[1] if n_tokens is None else n_tokens
+    mean_c, inv_c = stats_from_sums(sums[:, 0], sums[:, 1], n, num_groups)
     w = proj.weight.float()  # [D_out, C]
     wb = inv_c[:, :, None] * w.T[None]  # [B, C, D_out]
     bias = -torch.einsum("bc,dc->bd", mean_c * inv_c, w)
@@ -60,12 +74,15 @@ def _folded_head(proj: Linear, num_groups: int, x: torch.Tensor, sums: torch.Ten
     return y + bias[:, None, :]
 
 
-def _head(proj: Linear, num_groups: int, processed: torch.Tensor, sums, dtype) -> torch.Tensor:
+def _head(proj: Linear, num_groups: int, processed: torch.Tensor, sums, dtype,
+          group=None) -> torch.Tensor:
     """GroupNorm -> Linear: folded, from the backbone's channel sums, on the
-    fused path; as written on the plain path (``sums`` None)."""
+    fused path; as written on the plain path (``sums`` None). ``group``:
+    the points' group of ``processed``."""
     if sums is not None:
-        return _folded_head(proj, num_groups, processed, sums).to(dtype)
-    return proj(group_norm(processed, num_groups)).to(dtype)
+        n = processed.shape[1] * point_shard(group)[1]
+        return _folded_head(proj, num_groups, processed, sums, n).to(dtype)
+    return proj(group_norm(processed, num_groups, group=group)).to(dtype)
 
 
 class UnconditionalPointNetwork(nn.Module):
@@ -84,10 +101,11 @@ class UnconditionalPointNetwork(nn.Module):
         del ctx
         features = self.xyz_embed(x)  # [B, N, C]
         embed = t[..., None]  # [B, 1]: the noise level itself is the embed
-        in_sums = _embed_channel_sums(self.xyz_embed, x)
+        group = points_group()
+        in_sums = _embed_channel_sums(self.xyz_embed, x, group)
         processed, *stored, sums = self.backbone(features, embed, hs=hs, return_h=return_h,
                                                  in_sums=in_sums, with_sums=True, dropout=dropout)
-        y = _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype)
+        y = _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype, group)
         return (y, *stored) if return_h else y
 
 
@@ -116,10 +134,11 @@ class GlobalConditioningNetwork(nn.Module):
         img_embed = global_features.mean(dim=(-3, -2))  # [B, C]
         embed = torch.cat([t[..., None], img_embed.to(t.dtype)], dim=-1)
         features = self.xyz_embed(x)
-        in_sums = _embed_channel_sums(self.xyz_embed, x)
+        group = points_group()
+        in_sums = _embed_channel_sums(self.xyz_embed, x, group)
         processed, *stored, sums = self.backbone(features, embed, hs=hs, return_h=return_h,
                                                  in_sums=in_sums, with_sums=True, dropout=dropout)
-        y = _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype)
+        y = _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype, group)
         return (y, *stored) if return_h else y
 
 
@@ -167,5 +186,6 @@ class RayNetwork(nn.Module):
         processed, *stored, sums = self.backbone(features, t[..., None], hs=hs,
                                                  return_h=return_h, with_sums=True,
                                                  dropout=dropout)
-        y = _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype)
+        y = _head(self.output_proj, self.output_norm_groups, processed, sums, x.dtype,
+                  points_group())
         return (y, *stored) if return_h else y

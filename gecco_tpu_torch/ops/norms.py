@@ -2,12 +2,20 @@
 
 For a token set ``[..., N, C]`` the statistics of each group are taken over
 the group's channels AND all N tokens (the reference's channels-first
-GroupNorm), in fp32 whatever the activation dtype.
+GroupNorm), in fp32 whatever the activation dtype. Under point sharding a
+point-side norm passes its points' group (``parallel.points_group()``):
+its channel sums are summed over the group's ranks and its count is the
+global N. The norms on the replicated inducer tokens pass none.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
+
+from gecco_tpu_torch.parallel.collectives import point_shard, sum_over_points
 
 __all__ = ["group_norm", "group_norm_stats", "layer_norm", "stats_from_sums"]
 
@@ -34,19 +42,24 @@ def stats_from_sums(
 
 
 def group_norm_stats(
-    x: torch.Tensor, num_groups: int = 32, eps: float = 1e-5
+    x: torch.Tensor, num_groups: int = 32, eps: float = 1e-5,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(mean_c, inv_c)``, each ``[..., C]`` fp32, so that the norm is the
-    elementwise ``(x - mean_c) * inv_c``."""
+    elementwise ``(x - mean_c) * inv_c``; ``group``: the points' group of
+    ``x``'s shard of the set (None: x holds the whole set)."""
     xf = x.float()
+    sums = sum_over_points(torch.stack([xf.sum(-2), (xf * xf).sum(-2)]), group)
     return stats_from_sums(
-        xf.sum(-2), (xf * xf).sum(-2), x.shape[-2], num_groups, eps
+        sums[0], sums[1], x.shape[-2] * point_shard(group)[1], num_groups, eps
     )
 
 
-def group_norm(x: torch.Tensor, num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """Set-level group norm of ``x [..., N, C]`` without affine, in x's dtype."""
-    mean_c, inv_c = group_norm_stats(x, num_groups, eps)
+def group_norm(x: torch.Tensor, num_groups: int = 32, eps: float = 1e-5,
+               group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """Set-level group norm of ``x [..., N, C]`` without affine, in x's
+    dtype (``group``: as in ``group_norm_stats``)."""
+    mean_c, inv_c = group_norm_stats(x, num_groups, eps, group)
     return ((x.float() - mean_c[..., None, :]) * inv_c[..., None, :]).to(x.dtype)
 
 

@@ -1,21 +1,25 @@
-"""Process group and data-parallel helpers (counterpart of
+"""Process group, mesh and sharding helpers (counterpart of
 ``gecco_tpu/parallel/mesh.py``).
 
 The JAX package lays its devices out as a ``(data, seq)`` mesh and lets XLA
 insert the collectives. Here every rank is one process of a
-``torch.distributed`` group with the whole model on its own card, and the
-port does by hand what XLA inserts:
+``torch.distributed`` group with the whole model on its own card, laid out
+as the JAX mesh's ``reshape(data, seq)``: rank ``d * seq + s`` sits at
+``data`` index d and ``seq`` index s. The port does by hand what XLA
+inserts:
 
-- each rank trains on its rows of the global batch (``shard_batch``, or a
-  loader built with ``shard_by_process=True`` that reads only those rows);
-- after the backward the gradients are averaged over the ranks
+- each data row of ranks trains on its rows of the global batch
+  (``shard_batch``, or a loader built with ``shard_by_process=True`` that
+  reads only those rows);
+- with ``shard_points`` the ``seq`` ranks of a row each hold a slice of
+  every cloud's points, and the model's point reductions issue their
+  collectives over the row's ``seq`` group (``parallel.collectives``);
+- after the backward the gradients are averaged over the whole world
   (``all_reduce_mean_``: one all-reduce per dtype over one flat buffer),
   so every rank takes the same optimizer step and keeps the same weights;
 - the weights start equal: ``replicate`` broadcasts them from rank 0.
 
-A world of one issues no collective at all. Only the ``data`` axis is
-ported: point sharding (the ``seq`` axis, ``Trainer(shard_points=True)``)
-needs collectives inside the set transformer and waits for ROADMAP A10b.
+A world of one issues no collective at all.
 
 The backend is NCCL on the card and gloo on the CPU unless the caller names
 one. gloo also takes CUDA tensors (it stages them through the host itself),
@@ -26,14 +30,14 @@ device.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Iterable, Optional
+from dataclasses import dataclass, field
+from typing import Any, Iterable, Optional
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from gecco_tpu_torch.types import to_device, tree_leaves, tree_map
+from gecco_tpu_torch.types import Example, to_device, tree_leaves, tree_map
 from gecco_tpu_torch.utils.modules import resolve_device
 
 __all__ = [
@@ -48,9 +52,6 @@ __all__ = [
     "shard_batch",
     "shutdown_distributed",
 ]
-
-_SEQ = "point sharding (the mesh's seq axis, shard_points=True) waits for ROADMAP A10b"
-
 
 def init_distributed(**kwargs) -> int:
     """Join the process group (one call per process, before any device use)
@@ -115,16 +116,29 @@ def local_device(device=None) -> torch.device:
 @dataclass(frozen=True)
 class Mesh:
     """The ``(data, seq)`` layout over the default process group: ``data``
-    ranks, each holding the whole model and ``1 / data`` of the batch;
-    ``rank`` is this process's place on the data axis."""
+    rows of ``seq`` ranks, each rank holding the whole model; a row's ranks
+    share ``1 / data`` of the batch, and with ``shard_points`` each holds
+    ``1 / seq`` of its points. ``rank`` is this process's global rank,
+    ``seq_group`` its row's group (None where ``seq`` is 1)."""
 
     data: int = 1
     seq: int = 1
     rank: int = 0
+    seq_group: Any = field(default=None, compare=False, repr=False)
 
     @property
     def size(self) -> int:
         return self.data * self.seq
+
+    @property
+    def data_index(self) -> int:
+        """This rank's place on the data axis: which rows it holds."""
+        return self.rank // self.seq
+
+    @property
+    def seq_index(self) -> int:
+        """This rank's place on the seq axis: which points it holds."""
+        return self.rank % self.seq
 
     @property
     def is_main(self) -> bool:
@@ -147,45 +161,74 @@ class Mesh:
 
 
 def make_mesh(data: Optional[int] = None, seq: int = 1) -> Mesh:
-    """The ``(data, seq)`` mesh over the process group: ``data`` defaults
-    to, and must equal, the group's size (1 without a group)."""
-    if seq != 1:
-        raise NotImplementedError(f"make_mesh(seq={seq}): {_SEQ}")
+    """The ``(data, seq)`` mesh over the process group (a world of one
+    without a group): ``data`` defaults to the group's size over ``seq``,
+    and ``data * seq`` must equal the size. Where ``seq > 1`` every rank
+    makes every row's group, in the same order (``dist.new_group`` is
+    collective), and keeps its own."""
     world = process_count()
+    if seq < 1:
+        raise ValueError(f"seq must be at least 1, got {seq}")
     if data is None:
-        data = world
-    if data != world:
+        data = world // seq
+    if data * seq != world:
         raise ValueError(f"mesh {data}x{seq} != {world} processes")
-    return Mesh(data=data, seq=seq, rank=process_index())
+    rank = process_index()
+    seq_group = None
+    if seq > 1:
+        for d in range(data):
+            group = dist.new_group(list(range(d * seq, (d + 1) * seq)))
+            if d == rank // seq:
+                seq_group = group
+    return Mesh(data=data, seq=seq, rank=rank, seq_group=seq_group)
+
+
+def _cut(x, index: int, count: int, axis: int, what: str):
+    """Part ``index`` of ``count`` equal parts of ``x`` along ``axis``."""
+    if count == 1 or not hasattr(x, "shape") or len(x.shape) <= axis:
+        return x
+    size = x.shape[axis]
+    if size % count:
+        raise ValueError(f"{what} {size} not divisible by {count} ranks")
+    part = size // count
+    return x[(slice(None),) * axis + (slice(index * part, (index + 1) * part),)]
 
 
 def _rows(x, mesh: Mesh):
     """The rank's rows of a global batch leaf."""
-    if not hasattr(x, "shape") or len(x.shape) == 0:
-        return x
-    b = x.shape[0]
-    if b % mesh.data:
-        raise ValueError(f"global batch {b} not divisible by {mesh.data} ranks")
-    local = b // mesh.data
-    return x[mesh.rank * local:(mesh.rank + 1) * local]
+    return _cut(x, mesh.data_index, mesh.data, 0, "global batch")
+
+
+def _points(x, mesh: Mesh):
+    """The rank's points of a ``[B, N, ...]`` leaf."""
+    return _cut(x, mesh.seq_index, mesh.seq, 1, "point count")
 
 
 def shard_batch(batch, mesh: Mesh, device=None, local: bool = False,
                 shard_points: bool = False):
-    """A batch on ``device`` (``local_device``'s default), this rank's rows.
+    """A batch on ``device`` (``local_device``'s default), this rank's part.
 
     On a world of one this is a plain move. Otherwise a global batch (an
     ``Example``, or any record of arrays with the batch axis first) is cut
-    to the rank's rows: the points and every ``ctx`` and ``extras`` leaf
-    along their batch axis. ``local=True`` says the rows are the rank's
-    already (a ``DataLoader(shard_by_process=True)`` batch): they pass
-    through unchanged, as the JAX package takes process-local arrays.
+    to the rank's rows, by its data index: the points and every ``ctx`` and
+    ``extras`` leaf along their batch axis. ``local=True`` says the rows
+    are the rank's already (a ``DataLoader(shard_by_process=True)`` batch):
+    they pass through uncut, as the JAX package takes process-local arrays.
+
+    ``shard_points=True`` (under ``seq > 1``) also cuts the points along
+    their second axis, by the rank's seq index, ``local`` or not. Of an
+    ``Example`` only the points are cut so: the ``ctx`` and ``extras``
+    leaves (images, intrinsics) are replicated along ``seq``, as in the JAX
+    package; of any other record every leaf is.
     """
-    if shard_points:
-        raise NotImplementedError(f"shard_batch(shard_points=True): {_SEQ}")
     device = local_device(device)
-    if mesh.size > 1 and not local:
+    if mesh.data > 1 and not local:
         batch = tree_map(lambda x: _rows(x, mesh), batch)
+    if shard_points and mesh.seq > 1:
+        if isinstance(batch, Example):
+            batch = batch._replace(points=_points(batch.points, mesh))
+        else:
+            batch = tree_map(lambda x: _points(x, mesh), batch)
     return to_device(batch, device)
 
 

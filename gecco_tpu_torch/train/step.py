@@ -8,10 +8,21 @@ JAX step's donated buffers), and the optimizer state is returned.
 Under a mesh of more than one rank the step does by hand what XLA inserts
 in the JAX step: sigma, the noise and the dropout masks are drawn for the
 global batch from the (identically seeded) generator and the rank's rows
-kept, and between the backward and the optimizer the gradients are
-averaged over the ranks (one all-reduce per dtype), so that the
-global-norm clip sees the global gradient; the loss is averaged too. A
+kept (by its data index), and between the backward and the optimizer the
+gradients are averaged over the ranks (one all-reduce per dtype), so that
+the global-norm clip sees the global gradient; the loss is averaged too. A
 mesh of one, or none, issues no collective.
+
+With ``shard_points`` under a mesh whose ``seq`` axis is more than one,
+each rank holds its slice of every cloud's points too: the noise (and a
+point-side dropout mask) is drawn at every point and the rank's slice kept,
+and the forward and backward run under the row's points' group
+(``parallel.sharding_points``), whose collectives the model's point
+reductions issue. Each rank's loss is the mean over its rows and points, its
+backward seeded with it; the collectives' adjoints are exact, so the sum
+over the world of the ranks' gradients is the world's size times one
+process's, and the mean over the world is one process's gradient. The
+returned loss, the mean over the world, is one process's loss.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from gecco_tpu_torch.parallel.collectives import sharding_points
 from gecco_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_
 from gecco_tpu_torch.train.optim import Transform, apply_updates
 
@@ -48,7 +60,8 @@ def ema_update(ema: nn.Module, model: nn.Module, alpha: float) -> None:
 
 
 def make_train_step(optimizer: Transform, loss_scale: float = 1.0, ema_alpha: float = 0.999,
-                    train_in_inference_mode: bool = False, mesh: Optional[Mesh] = None):
+                    train_in_inference_mode: bool = False, mesh: Optional[Mesh] = None,
+                    shard_points: bool = False):
     """The full train step ``step(model, ema, opt_state, points, generator,
     sigma=None, noise=None, raw_ctx=None) -> (loss, opt_state)``.
 
@@ -63,23 +76,31 @@ def make_train_step(optimizer: Transform, loss_scale: float = 1.0, ema_alpha: fl
     ``mesh``: under more than one rank, ``points`` are this rank's rows of
     the global batch (and ``sigma`` and ``noise``, where given, theirs);
     the draws are the global batch's rows, the gradients and the returned
-    loss the means over the ranks."""
+    loss the means over the ranks. ``shard_points``: ``points`` (and
+    ``noise``, where given) are also the rank's slice of the point axis, by
+    its ``seq`` index."""
     mesh = Mesh() if mesh is None else mesh
-    shard = (mesh.rank, mesh.size)
+    shard = (mesh.data_index, mesh.data)
+    seq = shard_points and mesh.seq > 1
+    point_shard = (mesh.seq_index, mesh.seq) if seq else (0, 1)
+    group = mesh.seq_group if seq else None
+    if seq and group is None:
+        raise ValueError("shard_points over a mesh without its seq group: make it with make_mesh")
 
     def step(model: nn.Module, ema: nn.Module, opt_state, points: torch.Tensor,
              generator: Optional[torch.Generator] = None, sigma: Optional[torch.Tensor] = None,
              noise: Optional[torch.Tensor] = None, raw_ctx: Any = None):
         params = list(model.parameters())
         if sigma is None or noise is None:
-            sigma, noise = model.draw_sigma_noise(generator, points, shard)
+            sigma, noise = model.draw_sigma_noise(generator, points, shard, point_shard)
         for p in params:
             p.grad = None
         dropout = (None if train_in_inference_mode or generator is None
                    else model.dropout_masks(generator, shard))
-        loss = model.loss_from(points, sigma, noise, raw_ctx, loss_scale=loss_scale,
-                               dropout=dropout)
-        loss.backward()
+        with sharding_points(group):
+            loss = model.loss_from(points, sigma, noise, raw_ctx, loss_scale=loss_scale,
+                                   dropout=dropout)
+            loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         loss = loss.detach()
         all_reduce_mean_([*grads, loss], mesh)

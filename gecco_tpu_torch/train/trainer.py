@@ -45,10 +45,17 @@ logs, and the ranks wait for it at a barrier after each checkpoint; every
 rank reads one on resume. Every rank runs validation on the same batches
 and draws, then takes rank 0's values (the card's sums are not the same
 bits from call to call), so all make the same best-checkpoint choices and
-meet at the same barriers. Point sharding
-(``shard_points=True``, the mesh's ``seq`` axis) waits for ROADMAP A10b,
-and ``donate_buffers`` stays the JAX package's: the port updates in
-place.
+meet at the same barriers. ``donate_buffers`` stays the JAX package's: the
+port updates in place.
+
+Point sharding (``shard_points=True`` with ``mesh=parallel.make_mesh(data,
+seq)``): the ``seq`` ranks of a data row train on the same rows, each on
+its slice of every cloud's points, and the train step runs under the row's
+points' group. Validation and the metrics run on the whole clouds, with no
+group active, so every rank computes one process's values. A train loader
+that reads its own rows (``shard_by_process=True``) must be built on the
+same mesh (``dataloader(..., mesh=mesh)``), so that a row's ranks read the
+same rows.
 """
 
 from __future__ import annotations
@@ -124,12 +131,14 @@ class Trainer:
 
     def __post_init__(self):
         print(f"[trainer] run dir: {self.save_path}")
-        if self.shard_points:
-            raise NotImplementedError(
-                "Trainer(shard_points=True): point sharding (the mesh's seq axis) "
-                "waits for ROADMAP A10b")
         if self.mesh is None:
             self.mesh = make_mesh()
+        if getattr(self.train_dataloader, "shard_by_process", False):
+            rows = (self.train_dataloader.process_index, self.train_dataloader.process_count)
+            if rows != (self.mesh.data_index, self.mesh.data):
+                raise ValueError(f"the train loader reads rows {rows[0]} of {rows[1]}, the mesh's "
+                                 f"data axis holds {self.mesh.data_index} of {self.mesh.data}: "
+                                 f"build the loader with mesh=")
         self.device = local_device(self.device)
         if not hasattr(type(self.model), "loss"):
             assert callable(self.model), self.model
@@ -213,14 +222,16 @@ class Trainer:
 
     def _to_device(self, data, train: bool = False) -> Example:
         """A batch on the device without its extras: a train batch cut to
-        this rank's rows (``shard_batch``), a validation batch whole, so
-        that every rank computes the same metrics."""
+        this rank's rows and, with ``shard_points``, its points
+        (``shard_batch``), a validation batch whole, so that every rank
+        computes the same metrics."""
         example = data if isinstance(data, Example) else Example(*data)
-        example = example._replace(extras=())
+        example = example.discard_extras()
         if not train:
             return to_device(example, self.device)
         return shard_batch(example, self.mesh, self.device,
-                           local=getattr(self.train_dataloader, "shard_by_process", False))
+                           local=getattr(self.train_dataloader, "shard_by_process", False),
+                           shard_points=self.shard_points)
 
     def _run_metrics_over(self, dataloader, n_batches=None,
                           generator: Optional[torch.Generator] = None) -> Dict[str, float]:
@@ -317,7 +328,7 @@ class Trainer:
         step_fn = make_train_step(self.optimizer, loss_scale=self.loss_scale,
                                   ema_alpha=self.ema_alpha,
                                   train_in_inference_mode=self.train_in_inference_mode,
-                                  mesh=self.mesh)
+                                  mesh=self.mesh, shard_points=self.shard_points)
 
         if not (self.skip_smoke_test or self.profile_path is not None):
             print("[trainer] smoke-testing the validation phase...")

@@ -67,6 +67,10 @@ class Example(NamedTuple):
     ctx: Optional[Context3d] = None
     extras: Any = ()
 
+    def discard_extras(self) -> "Example":
+        """The example without its extras (the points and the context)."""
+        return self._replace(extras=())
+
 
 class SampleDetails(NamedTuple):
     latent: Any  # [B, N, D] initial state, drawn from N(0, sigma_max^2)

@@ -57,7 +57,7 @@ class ConditionalRenderCallback:
         self.batch: Optional[Example] = None
 
     def set_batch(self, batch: Example):
-        self.batch = batch_index(batch._replace(extras=()), slice(0, self.n))
+        self.batch = batch_index(batch.discard_extras(), slice(0, self.n))
 
     def __call__(self, model, logger, epoch: int):
         if self.batch is None or self.batch.ctx is None:

@@ -74,7 +74,7 @@ class PCVisCallback:
         self._logged_images = False
 
     def set_batch(self, batch: Example):
-        self.batch = batch_index(batch._replace(extras=()), slice(0, self.n))
+        self.batch = batch_index(batch.discard_extras(), slice(0, self.n))
 
     def __call__(self, model, logger, epoch: int):
         if self.batch is None:

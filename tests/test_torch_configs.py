@@ -39,9 +39,8 @@ CONFIGS = ("shapenet_vol_conditional", "taskonomy_conditional", "shapenet_pc15k_
            "shapenet_scaled_8k")
 CONSTANTS = ("DATA_ROOT", "CATEGORY", "N_POINTS", "BATCH", "NUM_STEPS", "CTX_DIMS",
              "CONVNEXT_WEIGHTS", "FREEZE_CONDITIONER")
-# the JAX Trainer's knobs the port's configs do not pass: point sharding
-# (ROADMAP A10b; the port's Trainer raises for it) and XLA's buffer donation
-JAX_ONLY = {"donate_buffers", "shard_points"}
+# the JAX Trainer's knob the port's configs do not pass: XLA's buffer donation
+JAX_ONLY = {"donate_buffers"}
 
 
 @pytest.fixture(autouse=True)
@@ -155,8 +154,17 @@ def test_config_matches_the_jax_one(name, monkeypatch, tmp_path):
         assert model.cond.mode == jm.cond.mode == "local"
         assert type(model.cond).__name__ == type(jm.cond).__name__ == "ConvNeXtExtractor"
 
+    if hasattr(cfg, "process_count"):
+        # point sharding where the world has more than one rank, as the JAX
+        # config shards the points over more than one device
+        monkeypatch.setattr(cfg, "process_count", jax.device_count)
+        assert jax.device_count() > 1
     kw, jkw = (_captured_train(c, monkeypatch, tmp_path) for c in (cfg, jcfg))
     assert set(kw) == set(jkw) - JAX_ONLY
+    assert kw.get("shard_points") == jkw.get("shard_points")
+    if "shard_points" in kw:
+        monkeypatch.setattr(cfg, "process_count", lambda: 1)
+        assert _captured_train(cfg, monkeypatch, tmp_path)["shard_points"] is False
     for k in ("save_every", "num_steps", "ema_alpha", "n_validation_batches", "save_path"):
         assert kw[k] == jkw[k], k
     assert [_metric(m) for m in kw.get("metrics", ())] == [

@@ -2,10 +2,11 @@
 ``shard_by_process``, the train step's and the ``Trainer``'s mesh) on the
 CPU, with gloo.
 
-In process: ``init_distributed`` outside a cluster, the ``seq`` axis and
-``shard_points`` raising, ``shard_batch``'s moves and slices, and a world
-of one (no group, or a group of one) giving the same bits as the step
-without a mesh and issuing no collective.
+In process: ``init_distributed`` outside a cluster, ``shard_batch``'s moves
+and slices, and a world of one (no group, or a group of one) giving the
+same bits as the step without a mesh and issuing no collective. Point
+sharding (the mesh's ``seq`` axis, ``shard_points``) is tested in
+``test_torch_seq.py``.
 
 Two gloo ranks run as subprocesses (this file, run with ``rank port dir``
 arguments) on a 1-layer fp32 flagship at C 64 with 4 inducers and 4 heads
@@ -227,16 +228,6 @@ def test_init_distributed_without_a_cluster_returns_0(monkeypatch):
     assert (mesh.data, mesh.seq, mesh.rank, mesh.size) == (1, 1, 0, 1)
     with pytest.raises(ValueError):
         make_mesh(data=2)
-
-
-def test_seq_axis_and_shard_points_raise_naming_a10b(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10b"):
-        make_mesh(seq=2)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        shard_batch(Example(np.zeros((2, 4, 3), np.float32)), Mesh(), "cpu", shard_points=True)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        Trainer(model=lambda g: port_model(), train_dataloader=[], val_dataloader=[],
-                save_path=str(tmp_path), device="cpu", shard_points=True)
 
 
 def _ctx_example(b=4):

@@ -33,7 +33,8 @@ Phases (each raises on failure; nothing is caught):
    three heads' shapes (dqf, dkf and dvf the same bits in two calls), each
    timed in turns with its WMMA body forced on the same operands beside
    SDPA's backward and the bound, the WMMA bodies held at 48 inducers of
-   the demo's width; the MLP backward's bodies there; the
+   the demo's width; the MLP backward's bodies there (its 128-column
+   Hopper passes against the WMMA body, in turns, also at a ragged N);
    pool backward's v1, v2 and v2j algebras (``GECCO_POOL_BWD``) at both
    widths and at three heads, ordinary and drifted, each in its Hopper
    body and its WMMA body, against their plain versions, the Hopper body's
@@ -177,17 +178,17 @@ Phases (each raises on failure; nothing is caught):
 18. demo sampler path: ``scripts/demo_upsample_100k.py``'s default model (3 x
    128, 4 heads of 32 channels, 64 inducers) samples 48 2048-point clouds
    with the 128-step Heun grid: the Hopper pool and unpool, the MLP's
-   WMMA body and the h-side kernel 3 x 254 times each, the pool's and
-   unpool's WMMA bodies and the Hopper MLP never; then the 8-step sample
-   against the plain path;
+   narrow Hopper body (``csrc/mlp_narrow.cu``) and the h-side kernel 3 x
+   254 times each, the pool's, unpool's and MLP's WMMA bodies and the MLP's
+   pass body never; then the 8-step sample against the plain path;
 19. demo training path: the same model trains at batch 48 as in phase 8
    (ROADMAP.md C4): one step's gradient against the plain path, then 3 +
    20 steps, per step and layer the Hopper pool and unpool forwards and
-   backwards, the h-side and the MLP's WMMA bodies (forward and backward)
-   once each; then one gradient of the flagship with three heads (C 384,
-   D 128) against the plain path, which runs the pool and unpool
-   forwards' WMMA bodies, their backwards' Hopper bodies and the Hopper
-   MLP forward and backward;
+   backwards, the h-side, the MLP's narrow forward and its backward's
+   128-column Hopper passes once each, no WMMA body; then one gradient of
+   the flagship with three heads (C 384, D 128) against the plain path,
+   which runs the pool and unpool forwards' WMMA bodies, their backwards'
+   Hopper bodies and the Hopper MLP forward and backward;
 20. pool backward bodies on the training path: the flagship of phase 8
    trains under ``GECCO_POOL_BWD`` forced to v1, v2 and v2j in turn (the
    module global it sets at import, restored after): per body one step's
@@ -375,7 +376,9 @@ yardstick is GroupNorm, Linear, the Gaussian, Linear, GroupNorm and the k
 and v projections as PyTorch calls.
 Phase 3 also holds the pool's, unpool's and MLP's WMMA bodies (the shapes
 the Hopper designs do not take) against their plain versions at the demo's
-shapes, where it times them, the pool's and unpool's with three heads at
+shapes, where it times them (the MLP forward's in turns with its narrow
+Hopper body, which serves that width, at N 2048 and 2000, the narrow body
+the same bits in two calls), the pool's and unpool's with three heads at
 the flagship's width (the MLP there: its Hopper body, the MLP seeing no
 heads), and fails unless those checks ran the expected bodies; it holds
 the MLP forward's Hopper body and WMMA body at the 8k width and times
@@ -386,13 +389,14 @@ the same bits in two calls; it holds the unpool backward's Hopper and
 WMMA bodies at both widths, ordinary and drifted, times both at both
 (median, min and max of 20 calls each, in turns), and requires dkf and dvf
 (through dk and dv) to be the same bits in two calls of the Hopper body;
-it holds the MLP backward's Hopper and WMMA bodies at both widths,
-ordinary and drifted, times both at both in turns, and requires every
+it holds the MLP backward's Hopper and WMMA bodies at both widths and the
+demo's (C 128: the Hopper body's 128-column passes; also at N 2000),
+ordinary and drifted, times both at each in turns, and requires every
 gradient of the Hopper body (dw1t and dw2t among them) to be the same bits
 in two calls; and it holds the pool and unpool backwards' Hopper bodies
 (the demo, three heads) and WMMA bodies (48 inducers at the demo's
-width), the MLP backward's WMMA body (the demo's C 128) and Hopper body
-(three heads' C 384), and fails unless those checks ran the expected
+width), the MLP backward's Hopper body (the demo's C 128, three heads'
+C 384), and fails unless those checks ran the expected
 bodies; it times each pool and unpool backward's Hopper body in turns with
 its WMMA body at the demo's and three heads' shapes, beside the SDPA
 backward and the bound there.
@@ -637,6 +641,9 @@ SOURCES = {
                       "gecco_tpu/ops/pallas/folded_attention.py:2222"),
     "fused_mlp_residual": ("gecco_tpu_torch/csrc/mlp.cu",
                            "gecco_tpu/ops/pallas/folded_attention.py:2798"),
+    # the narrow body beside it: C 128 (the demo's), both weights resident
+    "fused_mlp_residual_narrow": ("gecco_tpu_torch/csrc/mlp_narrow.cu",
+                                  "gecco_tpu/ops/pallas/folded_attention.py:2798"),
     "folded_pool_ext_bwd": ("gecco_tpu_torch/csrc/pool_ext_bwd.cu",
                             "gecco_tpu/ops/pallas/folded_attention.py:1843"),
     "folded_unpool_bwd": ("gecco_tpu_torch/csrc/unpool_bwd.cu",
@@ -723,6 +730,7 @@ BACKWARD = ("folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd"
             "rect_attention_bwd")
 FOLDED_BACKWARD = BACKWARD[:3]
 WMMA_FORWARD = ("folded_pool_ext_wmma", "folded_unpool_wmma", "fused_mlp_residual_wmma")
+MLP_FORWARD = ("fused_mlp_residual", "fused_mlp_residual_narrow")
 WMMA_BACKWARD = ("folded_pool_ext_bwd_wmma", "folded_unpool_bwd_wmma",
                  "fused_mlp_residual_bwd_wmma")
 GATHER = ("projective_gather", "projective_gather_bwd")
@@ -834,18 +842,27 @@ def mlp_operands(g, b, n, c, w, drift, device, dt):
 
 
 def mlp_wmma_fwd(ops):
-    """The MLP forward's WMMA body on any shape it takes (on the CPU, the
-    plain version)."""
-    return fa._mlp_wmma(*ops) if ops[0].is_cuda else fa._mlp_ref(*ops)
+    """The MLP forward's WMMA body on any shape it takes, a ragged N padded
+    as the wrapper pads it (on the CPU, the plain version)."""
+    if not ops[0].is_cuda:
+        return fa._mlp_ref(*ops)
+    n = ops[0].shape[1]
+    out, sums = fa._mlp_wmma(fa._pad_points(ops[0], fa._n_pad(n)), *ops[1:], n_valid=n)
+    return fa._unpad(out, n), sums
 
 
 def mlp_wmma_bwd(ops, gg, gs):
-    """The MLP backward's WMMA body, its weight gradients cast as
-    ``fused_mlp_residual_bwd`` casts them (on the CPU, the plain version)."""
+    """The MLP backward's WMMA body, a ragged N padded and its weight
+    gradients cast as ``fused_mlp_residual_bwd`` does them (on the CPU, the
+    plain version)."""
     if not ops[0].is_cuda:
         return fa._mlp_bwd_ref(*ops, gg, gs)
-    dx, dse, dbe, dw1t, db1, dw2t, db2 = fa._mlp_bwd_wmma(*ops, gg, gs)
-    return dx, dse, dbe, dw1t.to(ops[3].dtype), db1, dw2t.to(ops[5].dtype), db2
+    n = ops[0].shape[1]
+    pad = lambda t: fa._pad_points(t, fa._n_pad(n))
+    dx, dse, dbe, dw1t, db1, dw2t, db2 = fa._mlp_bwd_wmma(pad(ops[0]), *ops[1:], pad(gg), gs,
+                                                          n_valid=n)
+    return (fa._unpad(dx, n), dse, dbe, dw1t.to(ops[3].dtype), db1, dw2t.to(ops[5].dtype),
+            db2)
 
 
 def device_ms(fn, device):
@@ -1064,12 +1081,74 @@ def hside_checks(device, g, shapes, big, demo, dt, reps, hopper_rec) -> dict:
         ms_c192=time_ms(lambda: hs.fused_h_side(*w_args), device, reps))}
 
 
+def mlp_narrow_checks(device, g, demo, dt, reps, run, rec) -> None:
+    """The MLP forward at the ``demo`` model's shapes (C 128, W 256): its
+    narrow Hopper body (``csrc/mlp_narrow.cu``, through the wrapper) and its
+    WMMA body forced on the same operands, each through kernel_phase's
+    ``run`` into ``rec`` (against the plain version, ordinary and drifted;
+    timed; the bound), then at a ragged N (2000 on the card), ordinary and
+    drifted, against the plain version; the narrow body's out and sums the
+    same bits in two calls at both N, its tiles' column sums against their
+    plain piece (``_mlp_narrow_tiles_ref``); then the two bodies in turns (10
+    WMMA, 20 narrow, 10 WMMA calls) on the same operands, each with its
+    device time (the WMMA body's "ms" is its reading in turns)."""
+    db, dn, dc = demo["batch"], demo["n_points"], demo["feature_dim"]
+    dw, ragged = 2 * dc, demo["n_points"] - 48  # N 2000 on the card
+    cuda = device.type == "cuda"
+    if cuda and fa._mlp_body(db, dn, dc, dw) != "narrow":
+        raise AssertionError("the MLP forward at the demo's shapes is not the narrow body's")
+    ops = lambda n: lambda drift: mlp_operands(g, db, n, dc, dw, drift, device, dt)
+    bodies = {"narrow": ("fused_mlp_residual_narrow", fa.fused_mlp_residual),
+              "wmma": ("fused_mlp_residual_wmma", lambda *a: mlp_wmma_fwd(a))}
+    for name, fn in bodies.values():
+        run(name, fn, fa._mlp_ref, ops(dn), 2, 4 * db * dn * dc * dw,
+            lambda a: [a[0], torch.empty(db, 2, dc)])
+        for drift in (False, True):
+            args = ops(ragged)(drift)
+            got, want = fn(*args), fa._mlp_ref(*args)
+            sync(device)
+            tag = f"N {ragged}, {'drift' if drift else 'ordinary'}"
+            check(f"{name} [{tag}] out0", rel_err(got[0], want[0]), TOL_OUT)
+            check(f"{name} [{tag}] sums", rel_err(got[1], want[1]), TOL_SUMS)
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], abs_err(got[0], want[0]))
+    for nn_ in (dn, ragged):
+        args = ops(nn_)(True)
+        first, again = fa.fused_mlp_residual(*args), fa.fused_mlp_residual(*args)
+        sync(device)
+        same = all(torch.equal(p, q) for p, q in zip(first, again))
+        print(f"  fused_mlp_residual, narrow body, at N {nn_}: out and sums of two calls "
+              f"{'the same bits' if same else 'DIFFER'}")
+        if cuda and not same:
+            raise AssertionError("the narrow MLP forward's outputs differ between two calls")
+        # the kernel's per-tile column sums against their plain piece (on
+        # the CPU, the piece itself), on the padded operands
+        xp = [fa._pad_points(args[0], fa._n_pad(nn_)), *args[1:]]
+        part_ref = fa._mlp_narrow_tiles_ref(*xp, n_valid=nn_)[1]
+        mid = {"part": part_ref}
+        if cuda:
+            fa._mlp_narrow(*xp, mid=mid, n_valid=nn_)
+        check(f"mlp_narrow_kernel's tile sums at N {nn_}", rel_err(mid["part"], part_ref),
+              TOL_SUMS)
+    args = ops(dn)(False)
+    calls = {"narrow": lambda: fa.fused_mlp_residual(*args), "wmma": lambda: mlp_wmma_fwd(args)}
+    turns = bodies_in_turns(calls["narrow"], calls["wmma"], device, reps,
+                            names=("narrow", "wmma"))
+    for body, t in turns.items():
+        out = rec[bodies[body][0]]
+        key = "ms_in_turns" if body == "narrow" else "ms"
+        out[key], out[f"{key}_min_max"] = statistics.median(t), [t[0], t[-1]]
+        out["device_ms"] = device_ms(calls[body], device)
+        print(f"  fused_mlp_residual, {body} body, at the demo: median {statistics.median(t):.3f} "
+              f"ms of {len(t)} calls in turns (min {t[0]:.3f}, max {t[-1]:.3f}); device time "
+              f"{fmt_ms(out['device_ms'])}; bound {out['bound_ms']:.3f} ms ({out['bound_by']})")
+
+
 def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
     """Every kernel against its plain version; returns per-kernel records.
     The pool and unpool forwards' Hopper and WMMA bodies at the ``demo``
-    model's shapes (each timed, then both in turns), the MLP's WMMA body
-    there, and the WMMA bodies at their own shapes, ``heads3``'s three
-    heads."""
+    model's shapes (each timed, then both in turns), the MLP's narrow
+    Hopper body and WMMA body there (``mlp_narrow_checks``), and the WMMA
+    bodies at their own shapes, ``heads3``'s three heads."""
     g = torch.Generator(device=device).manual_seed(1)
     b, n, c, heads, i = shapes["batch"], shapes["n_points"], shapes["feature_dim"], \
         shapes["num_heads"], shapes["num_inducers"]
@@ -1231,11 +1310,12 @@ def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
             want, other = (fn, hop) if fn.endswith("_wmma") else (hop, f"{hop}_wmma")
             if counts[want] == 0 or counts[other]:
                 raise AssertionError(f"{body} at the demo did not run its body alone: {counts}")
+    # the MLP forward at the demo's shapes: its narrow Hopper body, which
+    # takes them, and its WMMA body forced on the same operands, each
+    # against the plain version (ordinary and drifted, also at a ragged N);
+    # the narrow body the same bits in two calls; both timed in turns
     kernels.reset_launch_counts()
-    run("fused_mlp_residual_wmma", fa.fused_mlp_residual, fa._mlp_ref,
-        lambda drift: mlp_operands(g, db, dn, dc, 2 * dc, drift, device, dt), 2,
-        4 * db * dn * dc * 2 * dc,
-        lambda a: [a[0], torch.empty(db, 2, dc)])
+    mlp_narrow_checks(device, g, demo, dt, reps, run, rec)
     rec["fused_mlp_residual_wmma"].update(
         {"ms_flagship": mlp_wm["ms"], "ms_min_max_flagship": mlp_wm["ms_min_max"]})
     hb, hn, hc, hh3, hi = (heads3[k] for k in ("batch", "n_points", "feature_dim", "num_heads",
@@ -1259,10 +1339,11 @@ def kernel_phase(device, shapes, big, demo, heads3, dt, reps):
         check(f"fused_mlp_residual [{tag}] sums", rel_err(got[1], want[1]), TOL_SUMS)
     counts = kernels.launch_counts()
     print(f"  launches of the forwards' bodies in these checks: "
-          f"{ {k: counts[k] for k in SET_FORWARD[::2] + ('fused_mlp_residual',) + WMMA_FORWARD} }")
+          f"{ {k: counts[k] for k in SET_FORWARD[::2] + MLP_FORWARD + WMMA_FORWARD} }")
     if device.type == "cuda" and (counts["folded_pool_ext_wmma"] == 0
                                   or counts["folded_unpool_wmma"] == 0
                                   or counts["fused_mlp_residual_wmma"] == 0
+                                  or counts["fused_mlp_residual_narrow"] == 0
                                   or counts["folded_pool_ext"] or counts["folded_unpool"]
                                   or counts["fused_mlp_residual"] != 2):
         raise AssertionError(f"the demo's MLP and the num_heads=3 shapes did not run the "
@@ -1753,16 +1834,21 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
         if device.type == "cuda" and not same:
             raise AssertionError("the unpool backward's dkf/dvf differ between two calls")
 
-    # the MLP backward's two bodies at both widths on the same operands,
-    # ordinary and drifted (the flagship's Hopper body is checked above);
-    # each body's time with its spread (in turns: 10 WMMA, 20 Hopper, 10
-    # WMMA calls); every output of the Hopper body, dw1t and dw2t among
-    # them, the same bits in two calls
+    # the MLP backward's two bodies at both widths and the demo's (C 128:
+    # the Hopper body's 128-column passes) on the same operands, ordinary
+    # and drifted (the flagship's Hopper body is checked above), the demo's
+    # also at a ragged N (2000 on the card); each body's time with its
+    # spread (in turns: 10 WMMA, 20 Hopper, 10 WMMA calls), at the demo with
+    # both device times; every output of the Hopper body, dw1t and dw2t
+    # among them, the same bits in two calls
     mlp_rec, mlp_wm, mlp_wm_errs = rec["fused_mlp_residual_bwd"], {}, []
+    db, dn, dc = demo["batch"], demo["n_points"], demo["feature_dim"]
     for width, (bb, nn_, cc) in {"flagship": (b, n, c),
                                  "8k width": (big["batch"], big["n_points"],
-                                              big["feature_dim"])}.items():
-        key, ww = ("" if width == "flagship" else "_8k"), 2 * cc
+                                              big["feature_dim"]),
+                                 "demo": (db, dn, dc),
+                                 f"demo at N {dn - 48}": (db, dn - 48, dc)}.items():
+        key, ww = {"flagship": "", "8k width": "_8k", "demo": "_demo"}.get(width), 2 * cc
         if device.type == "cuda" and fa._mlp_bwd_body(bb, nn_, cc, ww) != "hopper":
             raise AssertionError(f"the MLP backward at the {width} is not the Hopper body's")
         for drift in (False, True):
@@ -1770,34 +1856,50 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
             gg, gs = (0.1 * r(bb, nn_, cc)).to(dt), 1e-3 * r(bb, 2, cc)
             tag = f"{width}, {'drift' if drift else 'ordinary'}"
             plain = lambda: fa._mlp_bwd_ref(*ops, gg, gs)
-            if key:
-                compare("fused_mlp_residual_bwd", f"Hopper body, {tag}",
-                        lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs), plain)
-            mlp_wm_errs.append(compare("fused_mlp_residual_bwd", f"WMMA body, {tag}",
-                                       lambda: mlp_wmma_bwd(ops, gg, gs), plain))
-        ops = mlp_operands(g, bb, nn_, cc, ww, False, device, dt)
+            if key != "":
+                err = compare("fused_mlp_residual_bwd", f"Hopper body, {tag}",
+                              lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs), plain)
+                if cc == dc:
+                    mlp_rec["max_abs_err_demo"] = max(mlp_rec.get("max_abs_err_demo", 0.0), err)
+            err = compare("fused_mlp_residual_bwd", f"WMMA body, {tag}",
+                          lambda: mlp_wmma_bwd(ops, gg, gs), plain)
+            if cc == dc:
+                mlp_wm_errs.append(err)
+        ops = mlp_operands(g, bb, nn_, cc, ww, True, device, dt)
         gg, gs = (0.1 * r(bb, nn_, cc)).to(dt), 1e-3 * r(bb, 2, cc)
         hopper = lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs)
-        turns = bodies_in_turns(hopper, lambda: mlp_wmma_bwd(ops, gg, gs), device, reps)
-        for body, t in turns.items():
-            # the WMMA body's own "ms" is the demo's, its serving width
-            out, suffix = (mlp_rec, key) if body == "hopper" else (mlp_wm, key or "_flagship")
-            out["ms" + suffix] = statistics.median(t)
-            out["ms_min_max" + suffix] = [t[0], t[-1]]
-            print(f"  fused_mlp_residual_bwd, {body} body, at the {width}: median "
-                  f"{statistics.median(t):.3f} ms of {len(t)} calls (min {t[0]:.3f}, max "
-                  f"{t[-1]:.3f})")
         first, again = hopper(), hopper()
         sync(device)
-        if key:
-            mlp_rec["bound_ms_8k"] = bound(6 * 2 * bb * nn_ * cc * ww,
-                                           nbytes(*ops, gg, gs, *first))[0]
-            print(f"  fused_mlp_residual_bwd bound at the 8k width: {mlp_rec['bound_ms_8k']:.3f} ms")
         same = all(torch.equal(p, q) for p, q in zip(first, again))
         print(f"  fused_mlp_residual_bwd at the {width}: every gradient (dw1t and dw2t among them) "
               f"of two calls {'the same bits' if same else 'DIFFER'}")
         if device.type == "cuda" and not same:
             raise AssertionError("the MLP backward's gradients differ between two calls")
+        if key is None:
+            continue  # the ragged N: held, not timed
+        ops = mlp_operands(g, bb, nn_, cc, ww, False, device, dt)
+        gg, gs = (0.1 * r(bb, nn_, cc)).to(dt), 1e-3 * r(bb, 2, cc)
+        calls = {"hopper": lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs),
+                 "wmma": lambda: mlp_wmma_bwd(ops, gg, gs)}
+        turns = bodies_in_turns(calls["hopper"], calls["wmma"], device, reps)
+        for body, t in turns.items():
+            # the WMMA body's own "ms" is the demo's, the width it served
+            out, suffix = (mlp_rec, key) if body == "hopper" else (mlp_wm, key or "_flagship")
+            out["ms" + suffix] = statistics.median(t)
+            out["ms_min_max" + suffix] = [t[0], t[-1]]
+            if key == "_demo":
+                out["device_ms" + suffix] = device_ms(calls[body], device)
+            print(f"  fused_mlp_residual_bwd, {body} body, at the {width}: median "
+                  f"{statistics.median(t):.3f} ms of {len(t)} calls (min {t[0]:.3f}, max "
+                  f"{t[-1]:.3f})" + (f"; device time {fmt_ms(out['device_ms' + suffix])}"
+                                     if key == "_demo" else ""))
+        if key:
+            outs = calls["hopper"]()
+            mlp_rec["bound_ms" + key], mlp_rec["bound_by" + key] = bound(
+                6 * 2 * bb * nn_ * cc * ww, nbytes(*[a for a in ops if torch.is_tensor(a)], gg,
+                                                   gs, *outs))
+            print(f"  fused_mlp_residual_bwd bound at the {width}: "
+                  f"{mlp_rec['bound_ms' + key]:.3f} ms ({mlp_rec['bound_by' + key]})")
 
     # the pool and unpool backwards at the demo model's shapes (C 128, 4
     # heads of 32) and with three heads at the flagship's width (D 128, J
@@ -1809,8 +1911,8 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
     # calls), with both bodies' device times, SDPA's backward and the bound
     # beside them. The WMMA bodies are held where they still serve: 48
     # inducers at the demo's width. The MLP backward at the demo's C 128
-    # (its WMMA body) and at three heads' width (the flagship's C 384: the
-    # Hopper body, the MLP sees no heads).
+    # (its Hopper body's 128-column passes) and at three heads' width (the
+    # flagship's C 384: the Hopper body, the MLP sees no heads).
     db, dn, dc, dh, di = (demo[k] for k in ("batch", "n_points", "feature_dim", "num_heads",
                                             "num_inducers"))
     new_shapes = {"demo": (db, dn, dc, dh, di), "heads3": hshape}
@@ -1867,25 +1969,22 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
                                witness if drift else None))
         _, kernel, _, plain = unpool_bodies(wshape, drift)
         wm_errs.append(compare("folded_unpool_bwd", tag, kernel, plain))
-    mlp_demo_errs = []
-    for (mb, mn, mc), what in (((db, dn, dc), "WMMA body, "), (hshape[:3], "three heads' width, ")):
+    for (mb, mn, mc), what in (((db, dn, dc), "the demo's width, "),
+                               (hshape[:3], "three heads' width, ")):
         for drift in (False, True):
             ops = mlp_operands(g, mb, mn, mc, 2 * mc, drift, device, dt)
             gg, gs = (0.1 * r(mb, mn, mc)).to(dt), 1e-3 * r(mb, 2, mc)
-            err = compare("fused_mlp_residual_bwd",
-                          f"{what}C {mc}, {'drift' if drift else 'ordinary'}",
-                          lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs),
-                          lambda: fa._mlp_bwd_ref(*ops, gg, gs))
-            if mc == dc:
-                mlp_demo_errs.append(err)
+            compare("fused_mlp_residual_bwd", f"{what}C {mc}, {'drift' if drift else 'ordinary'}",
+                    lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs),
+                    lambda: fa._mlp_bwd_ref(*ops, gg, gs))
     counts = kernels.launch_counts()
     print(f"  launches of the backwards' bodies in these checks: "
           f"{ {k: counts[k] for k in FOLDED_BACKWARD + WMMA_BACKWARD} }")
     if cuda and not (counts["folded_pool_ext_bwd"] == 4 and counts["folded_pool_ext_bwd_wmma"] == 2
                      and counts["folded_unpool_bwd"] == 4
                      and counts["folded_unpool_bwd_wmma"] == 2
-                     and counts["fused_mlp_residual_bwd_wmma"] == 2
-                     and counts["fused_mlp_residual_bwd"] == 2):
+                     and counts["fused_mlp_residual_bwd_wmma"] == 0
+                     and counts["fused_mlp_residual_bwd"] == 4):
         raise AssertionError(f"the demo, num_heads=3 and I 48 shapes did not run the expected "
                              f"backward bodies: {counts}")
 
@@ -1954,20 +2053,20 @@ def backward_phase(device, shapes, big, demo, heads3, dt, reps):
               f"{w_rec['plain_ms']:.3f}, library {w_rec['library_ms']:.3f}, chain "
               f"{w_rec['library_chain_ms']:.3f}, bound {w_rec['bound_ms']:.3f} "
               f"({w_rec['bound_by']}))")
+    # the WMMA MLP backward's record at the demo's shapes, where it is now
+    # forced (its time there in turns above)
     ops = mlp_operands(g, db, dn, dc, 2 * dc, False, device, dt)
     gg, gs = (0.1 * r(db, dn, dc)).to(dt), 1e-3 * r(db, 2, dc)
-    kernel = lambda: fa.fused_mlp_residual_bwd(*ops, gg, gs)
-    mlp_wm.update(max_abs_err=max(mlp_demo_errs), ms=time_ms(kernel, device, reps),
+    mlp_wm.update(max_abs_err=max(mlp_wm_errs), ms=mlp_wm.pop("ms_demo"),
+                  ms_min_max=mlp_wm.pop("ms_min_max_demo"),
                   plain_ms=time_ms(lambda: fa._mlp_bwd_ref(*ops, gg, gs), device,
-                                   max(2, reps // 4)), library_ms=None)
-    mlp_wm["bound_ms"], mlp_wm["bound_by"] = bound(
-        6 * 2 * db * dn * dc * 2 * dc,
-        nbytes(*[a for a in ops if torch.is_tensor(a)], *kernel()) + 2 * db * dn * dc
-        + 4 * 2 * db * dc)
+                                   max(2, reps // 4)), library_ms=None,
+                  bound_ms=mlp_rec["bound_ms_demo"], bound_by=mlp_rec["bound_by_demo"])
+    mlp_rec["plain_ms_demo"] = mlp_wm["plain_ms"]
     rec["fused_mlp_residual_bwd_wmma"] = mlp_wm
-    print(f"  fused_mlp_residual_bwd, WMMA body: {mlp_wm['ms']:.3f} ms at the demo's shapes "
-          f"(plain {mlp_wm['plain_ms']:.3f}, bound {mlp_wm['bound_ms']:.3f} "
-          f"({mlp_wm['bound_by']}))")
+    print(f"  fused_mlp_residual_bwd at the demo's shapes: Hopper body {mlp_rec['ms_demo']:.3f} "
+          f"ms, WMMA body {mlp_wm['ms']:.3f} ms in turns (plain {mlp_wm['plain_ms']:.3f}, "
+          f"bound {mlp_wm['bound_ms']:.3f} ({mlp_wm['bound_by']}))")
     rec["folded_pool_ext_bwd_wmma"] = pw_rec
     rec["folded_unpool_bwd_wmma"] = wm_rec
     return rec
@@ -3485,16 +3584,17 @@ def demo_train_phase(device, demo_dims, batch, heads3_dims, card, steps):
     """ROADMAP C4's two models train on the card: the upsample demo's
     model (3 x 128, 4 heads) through ``train_phase`` (its gradient against
     the plain path, then timed steps: the Hopper pool and unpool forwards,
-    the MLP forward's WMMA body, the Hopper pool and unpool backwards and
-    the MLP backward's WMMA body, each once per layer and step); then one
+    the MLP forward's narrow Hopper body, the Hopper pool and unpool
+    backwards and the MLP backward's Hopper body (its 128-column passes),
+    each once per layer and step, no WMMA body); then one
     gradient of the flagship with three heads (C 384, D 128) against the
     plain path, whose kernel path runs the pool and unpool forwards' WMMA
     bodies, their backwards' Hopper bodies and the Hopper MLP (the MLP sees
     no heads). Returns both runs' launch counts and the demo's record."""
     n_layers = demo_dims["n_layers"]
     layers = lambda k: {name: k * n_layers for name in (
-        "folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual_wmma",
-        "folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd_wmma")}
+        "folded_pool_ext", "fused_h_side", "folded_unpool", "fused_mlp_residual_narrow",
+        "folded_pool_ext_bwd", "folded_unpool_bwd", "fused_mlp_residual_bwd")}
     counts, rec = train_phase(device, n_layers, batch, demo_dims["n_points"], card, steps,
                               dims=demo_dims, expect=layers)
 
@@ -3633,7 +3733,7 @@ def ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ns, n_laye
         ("fused_mlp_residual", "fused_mlp_residual_wmma", ns[:1],
          lambda n, d: mlp_operands(g, sb, n, c, 2 * c, d, device, dt),
          fa.fused_mlp_residual, fa._mlp_ref),
-        ("fused_mlp_residual_wmma", "fused_mlp_residual", ns[:1],
+        ("fused_mlp_residual_narrow", "fused_mlp_residual_wmma", ns[:1],
          lambda n, d: mlp_operands(g, db, n, dc, 2 * dc, d, device, dt),
          fa.fused_mlp_residual, fa._mlp_ref),
     )
@@ -3706,7 +3806,7 @@ def ragged_phase(device, shapes, train_batch, demo, heads3, dt, reps, ns, n_laye
          unpool_names),
         ("fused_mlp_residual_bwd", "fused_mlp_residual_bwd_wmma", ns[:1], mlp_bwd(tb, c),
          ("dx", "dse", "dbe", "dw1t", "db1", "dw2t", "db2")),
-        ("fused_mlp_residual_bwd_wmma", "fused_mlp_residual_bwd", ns[:1], mlp_bwd(tb, dc),
+        ("fused_mlp_residual_bwd", "fused_mlp_residual_bwd_wmma", ns[:1], mlp_bwd(tb, dc),
          ("dx", "dse", "dbe", "dw1t", "db1", "dw2t", "db2")),
     )
     for body, other, counts_ns, make, names in bwd:
@@ -4020,7 +4120,7 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
                 fused_mlp_residual=1)
     wmma_grad = dict(wmma, folded_pool_ext_bwd_wmma=1, folded_unpool_bwd_wmma=1,
                      fused_mlp_residual_bwd=1)
-    demo = dict(folded_pool_ext=1, fused_h_side=1, folded_unpool=1, fused_mlp_residual_wmma=1)
+    demo = dict(folded_pool_ext=1, fused_h_side=1, folded_unpool=1, fused_mlp_residual_narrow=1)
     every = dict(folded_pool_ext=1, fused_h_side=1, folded_unpool=1, fused_mlp_residual=1)
     # the per-head models at D 40, 192 and 256: the rect attention's WMMA bodies
     per_head = (dict(rect_attention_fwd_wmma=2),
@@ -4050,7 +4150,7 @@ def c1_phase(device, dt, shapes, n_points, rehearse) -> dict:
         # the demo's width (C 128, four heads): the WMMA two-pass body
         cases[f"the demo's width under GECCO_POOL_BWD={body}"] = (
             dict(base, feature_dim=128, num_heads=4), "folded_pallas", demo,
-            dict(demo, folded_unpool_bwd=1, fused_mlp_residual_bwd_wmma=1,
+            dict(demo, folded_unpool_bwd=1, fused_mlp_residual_bwd=1,
                  **{f"folded_pool_ext_bwd_{body}_wmma": 1}), dict(pool_bwd=body))
     out = shapes_phase(device, 2, b if rehearse else 16, 8, cases)
     # the resident pool runs on no model's path: its backward at 256
@@ -4104,7 +4204,9 @@ KERNEL_FUNCTIONS = {
     "folded_unpool": ("unpool_tile_kernel",),
     "unpool_bq/fold_k/fold_v_kernel (the Hopper unpool's and the megakernel's shared fold)": (
         "unpool_bq_kernel", "unpool_fold_k_kernel", "unpool_fold_v_kernel"),
-    "fused_mlp_residual": ("mlp_act_kernel", "mlp_out_kernel"),
+    "fused_mlp_residual": ("mlp_act_kernel", "mlp_out_kernel", "mlp_act128_kernel",
+                           "mlp_out128_kernel"),
+    "fused_mlp_residual_narrow": ("mlp_narrow_kernel",),
     "fused_mlp_residual_wmma": ("mlp_kernel",),
     "folded_pool_ext_bwd": ("pool_bwd_ety_kernel", "pool_bwd_dy_kernel"),
     "pool_bwd_fold_kernel (the pool backwards' fold)": ("pool_bwd_fold_kernel",),
@@ -4118,7 +4220,8 @@ KERNEL_FUNCTIONS = {
     "prenorm_kernel and wgrad_kernel (the Hopper backwards' shared pre-norm and weight "
     "gradients)": ("prenorm_kernel", "wgrad_kernel", "wgrad_sum_kernel"),
     "fused_mlp_residual_bwd": ("mlp_bwd_act_kernel", "mlp_bwd_grad_kernel", "mlp_bwd_dh_kernel",
-                               "mlp_bwd_dx_kernel"),
+                               "mlp_bwd_dx_kernel", "mlp_bwd_act128_kernel",
+                               "mlp_bwd_grad128_kernel", "mlp_bwd_dx128_kernel"),
     "mlp_colsum_kernel (the Hopper MLP bodies' fixed-order column sums)": ("mlp_colsum_kernel",),
     "fused_mlp_residual_bwd_wmma": ("mlp_bwd_kernel",),
     "folded_pool_ext_bwd_v1/_v2/_v2j (the pool backward's two-pass Hopper body)": (
@@ -6930,19 +7033,20 @@ def main():
     val = validate_phase(device, args.rehearse)
 
     stage(f"demo sampler path: scripts/demo_upsample_100k.py's model ({demo_dims}), batch "
-          f"{demo['batch']}, {n_steps}-step Heun (the Hopper pool and unpool, the MLP's WMMA "
-          f"body), on {card}")
+          f"{demo['batch']}, {n_steps}-step Heun (the Hopper pool and unpool, the MLP's narrow "
+          f"Hopper body), on {card}")
     demo_counts, demo_path, _ = main_path(
         device, demo["batch"], demo_dims["n_points"], demo_dims["n_layers"], n_steps,
         compare_batch=8, what="demo model's kernel path", dims=demo_dims,
         expect=lambda evals: {k: demo_dims["n_layers"] * evals for k in
                               ("folded_pool_ext", "fused_h_side", "folded_unpool",
-                               "fused_mlp_residual_wmma")})
+                               "fused_mlp_residual_narrow")})
     print(f"  {demo_path['clouds_per_s']:.3f} clouds/s on {card}")
 
     stage(f"demo training path: scripts/demo_upsample_100k.py's model ({demo_dims}), batch "
           f"{train_batch}, {train_steps[0]} + {train_steps[1]} steps (the Hopper pool and unpool "
-          f"backwards, the MLP backward's WMMA body); then one gradient with three heads "
+          f"backwards, the MLP's narrow forward and its backward's 128-column Hopper passes); "
+          f"then one gradient with three heads "
           f"({heads3_dims}), on {card}")
     demo_train_counts, heads3_counts, demo_train = demo_train_phase(
         device, demo_dims, train_batch, heads3_dims, card, train_steps)
@@ -7171,9 +7275,11 @@ def main():
     # bodies': the three-head Broadcast's), split by variant: the sums-less
     # layer's run gave the pre-norm launches (nested under "prenorm", as
     # their times are), the Broadcast's runs the rest; the demo sampler's
-    # for the MLP forward's WMMA body, the num_heads=3 gradient's for the
-    # pool and unpool forwards' WMMA bodies, the demo training path's for
-    # the MLP backward's WMMA body, the gradient of the flagship with 32
+    # for the MLP forward's narrow and WMMA bodies (the WMMA body's 0: no
+    # config's width takes it since the narrow body), the num_heads=3
+    # gradient's for the pool and unpool forwards' WMMA bodies, the demo
+    # training path's for the MLP backward's WMMA body (0 likewise), the
+    # gradient of the flagship with 32
     # inducers (phase 21) for the pool and unpool backwards' WMMA bodies;
     # the forced-body training paths' for the pool backward's v1, v2 and
     # v2j (their Hopper body), phase 21's demo-width model's gradient under
@@ -7200,6 +7306,7 @@ def main():
                      "folded_pool_layer_bwd_wmma": pool_counts,
                      "folded_pool_ext_wmma": heads3_counts,
                      "folded_unpool_wmma": heads3_counts, "fused_mlp_residual_wmma": demo_counts,
+                     "fused_mlp_residual_narrow": demo_counts,
                      "folded_pool_ext_bwd_wmma": shape_counts["the flagship with 32 inducers"][1],
                      "folded_unpool_bwd_wmma": shape_counts["the flagship with 32 inducers"][1],
                      "fused_mlp_residual_bwd_wmma": demo_train_counts,

@@ -22,7 +22,10 @@
 //    order (no atomics: the same bits from call to call).
 // g makes one round trip through device memory in bf16 (0.4 GB at the
 // sampler's B 64), where the WMMA body streamed both weights through
-// shared memory once per 64 points (2.4 GB of L2 reads a call).
+// shared memory once per 64 points (2.4 GB of L2 reads a call). Where C or
+// W is not a multiple of 384 (C and W multiples of 128, e.g. C 256) the two
+// passes run their 128-column instances (mlp_hopper.cuh kBnNarrow); the
+// upsample demo's C 128 takes csrc/mlp_narrow.cu instead.
 #include "mlp_hopper.cuh"
 
 using namespace gecco;
@@ -32,6 +35,8 @@ namespace {
 
 MLP_GEMM_KERNEL(mlp_act_kernel, kBnWide, 1, kAct, kStagesWide)
 MLP_GEMM_KERNEL(mlp_out_kernel, kBnWide, 1, kOut, kStagesWide)
+MLP_GEMM_KERNEL_MB(mlp_act128_kernel, kBnNarrow, 1, kAct, kStagesNarrow, kBlocksNarrow)
+MLP_GEMM_KERNEL_MB(mlp_out128_kernel, kBnNarrow, 1, kOut, kStagesNarrow, kBlocksNarrow)
 
 }  // namespace
 
@@ -58,8 +63,11 @@ extern "C" int mlp_launch(const void* x, const void* se, const void* be, const v
   e1.rows_b = N;
   e1.bias = (const float*)b1;
   e1.out = (bf16*)g;
-  err = launch_gemm<kBnWide, kAct, kStagesWide>(mlp_act_kernel, tm_y, tm_w1, tm_y, tm_w1, e1, M,
-                                                st);
+  const bool wide = wide_tiles(C, W);
+  err = wide ? launch_gemm<kBnWide, kAct, kStagesWide>(mlp_act_kernel, tm_y, tm_w1, tm_y, tm_w1,
+                                                       e1, M, st)
+             : launch_gemm<kBnNarrow, kAct, kStagesNarrow>(mlp_act128_kernel, tm_y, tm_w1, tm_y,
+                                                           tm_w1, e1, M, st);
   if (err != cudaSuccess) return (int)err;
   MlpEpi e2{};
   e2.K = W;
@@ -70,8 +78,10 @@ extern "C" int mlp_launch(const void* x, const void* se, const void* be, const v
   e2.x = (const bf16*)x;
   e2.out = (bf16*)out;
   e2.part = (float*)part;
-  err = launch_gemm<kBnWide, kOut, kStagesWide>(mlp_out_kernel, tm_g, tm_w2, tm_g, tm_w2, e2, M,
-                                                st);
+  err = wide ? launch_gemm<kBnWide, kOut, kStagesWide>(mlp_out_kernel, tm_g, tm_w2, tm_g, tm_w2,
+                                                       e2, M, st)
+             : launch_gemm<kBnNarrow, kOut, kStagesNarrow>(mlp_out128_kernel, tm_g, tm_w2, tm_g,
+                                                           tm_w2, e2, M, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_colsum((const float*)part, (float*)sums, B, N / kRows, 2, C, st);
 }

@@ -29,7 +29,11 @@
 // 6. wgrad_kernel (wgrad.cuh) twice: dw1t = y^T bf16(dh), dw2t =
 //    bf16(a)^T bf16(g'), split over the rows, the partials summed in split
 //    order by wgrad_sum_kernel.
-// No atomics: every gradient is the same bits from call to call.
+// No atomics: every gradient is the same bits from call to call. Where C or
+// W is not a multiple of 384 (C and W multiples of 128: the upsample demo's
+// C 128, W 256) passes 1, 2 and 4 run their 128-column instances
+// (mlp_hopper.cuh kBnNarrow: two ring stages, two blocks a SM); pass 3's
+// dual product is 128 columns wide at every width.
 #include "mlp_hopper.cuh"
 #include "wgrad.cuh"
 
@@ -42,6 +46,9 @@ MLP_GEMM_KERNEL(mlp_bwd_act_kernel, kBnWide, 1, kAct, kStagesWide)
 MLP_GEMM_KERNEL(mlp_bwd_grad_kernel, kBnWide, 1, kGrad, kStagesWide)
 MLP_GEMM_KERNEL(mlp_bwd_dh_kernel, kBnDual, 1, kDh, kStagesDual)
 MLP_GEMM_KERNEL(mlp_bwd_dx_kernel, kBnWide, 0, kDx, kStagesWide)
+MLP_GEMM_KERNEL_MB(mlp_bwd_act128_kernel, kBnNarrow, 1, kAct, kStagesNarrow, kBlocksNarrow)
+MLP_GEMM_KERNEL_MB(mlp_bwd_grad128_kernel, kBnNarrow, 1, kGrad, kStagesNarrow, kBlocksNarrow)
+MLP_GEMM_KERNEL_MB(mlp_bwd_dx128_kernel, kBnNarrow, 0, kDx, kStagesNarrow, kBlocksNarrow)
 
 }  // namespace
 
@@ -60,16 +67,18 @@ extern "C" int mlp_bwd_launch(const void* x, const void* se, const void* be, con
   if (!hopper_takes(N, C, W)) return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * N;
   const int blocks = (int)(M / kRows);
+  const bool wide = wide_tiles(C, W);
   cudaError_t err =
       launch_prenorm((const bf16*)x, (const float*)se, (const float*)be, (bf16*)y, B, N, C, st);
   if (err != cudaSuccess) return (int)err;
   // A operands in 64 x 64 boxes; B operands MN-major in 64 x 64 boxes, or
-  // K-major in boxes of the tile's columns (w2t for da, w1t for dy)
+  // K-major in boxes of the tile's columns (w2t for da, w1t for dy: the
+  // dx pass's own column tile, 192 or 128)
   CUtensorMap tm_y, tm_a, tm_gb, tm_dh, tm_w1, tm_w2, tm_w2k, tm_w1k;
   if (!tmap(&tm_y, y, M, C, 64) || !tmap(&tm_a, a, M, W, 64) || !tmap(&tm_gb, gb, M, C, 64) ||
       !tmap(&tm_dh, dh, M, W, 64) || !tmap(&tm_w1, w1t, C, W, 64) ||
       !tmap(&tm_w2, w2t, W, C, 64) || !tmap(&tm_w2k, w2t, W, C, kBnDual) ||
-      !tmap(&tm_w1k, w1t, C, W, kBnWide)) {
+      !tmap(&tm_w1k, w1t, C, W, wide ? kBnWide : kBnNarrow)) {
     return (int)cudaErrorInvalidValue;
   }
   // 1. bf16(a)
@@ -79,8 +88,10 @@ extern "C" int mlp_bwd_launch(const void* x, const void* se, const void* be, con
   e.rows_b = N;
   e.bias = (const float*)b1;
   e.out = (bf16*)a;
-  err = launch_gemm<kBnWide, kAct, kStagesWide>(mlp_bwd_act_kernel, tm_y, tm_w1, tm_y, tm_w1, e,
-                                                M, st);
+  err = wide ? launch_gemm<kBnWide, kAct, kStagesWide>(mlp_bwd_act_kernel, tm_y, tm_w1, tm_y,
+                                                       tm_w1, e, M, st)
+             : launch_gemm<kBnNarrow, kAct, kStagesNarrow>(mlp_bwd_act128_kernel, tm_y, tm_w1,
+                                                           tm_y, tm_w1, e, M, st);
   if (err != cudaSuccess) return (int)err;
   // 2. g', bf16(g'), db2
   e = MlpEpi{};
@@ -95,8 +106,10 @@ extern "C" int mlp_bwd_launch(const void* x, const void* se, const void* be, con
   e.gp = (float*)gp;
   e.out = (bf16*)gb;
   e.part = (float*)part;
-  err = launch_gemm<kBnWide, kGrad, kStagesWide>(mlp_bwd_grad_kernel, tm_a, tm_w2, tm_a, tm_w2,
-                                                 e, M, st);
+  err = wide ? launch_gemm<kBnWide, kGrad, kStagesWide>(mlp_bwd_grad_kernel, tm_a, tm_w2, tm_a,
+                                                        tm_w2, e, M, st)
+             : launch_gemm<kBnNarrow, kGrad, kStagesNarrow>(mlp_bwd_grad128_kernel, tm_a, tm_w2,
+                                                            tm_a, tm_w2, e, M, st);
   if (err != cudaSuccess) return (int)err;
   if ((err = launch_colsum((const float*)part, (float*)db2, 1, blocks, 1, C, st)) != cudaSuccess) {
     return (int)err;
@@ -125,8 +138,10 @@ extern "C" int mlp_bwd_launch(const void* x, const void* se, const void* be, con
   e.gp = (float*)gp;
   e.out = (bf16*)dx;
   e.part = (float*)part;
-  err = launch_gemm<kBnWide, kDx, kStagesWide>(mlp_bwd_dx_kernel, tm_dh, tm_w1k, tm_dh, tm_w1k,
-                                               e, M, st);
+  err = wide ? launch_gemm<kBnWide, kDx, kStagesWide>(mlp_bwd_dx_kernel, tm_dh, tm_w1k, tm_dh,
+                                                      tm_w1k, e, M, st)
+             : launch_gemm<kBnNarrow, kDx, kStagesNarrow>(mlp_bwd_dx128_kernel, tm_dh, tm_w1k,
+                                                          tm_dh, tm_w1k, e, M, st);
   if (err != cudaSuccess) return (int)err;
   if ((err = launch_colsum((const float*)part, (float*)dsb, B, N / kRows, 2, C, st)) !=
       cudaSuccess) {

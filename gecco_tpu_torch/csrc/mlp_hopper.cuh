@@ -75,6 +75,13 @@ constexpr int kBnWide = 192;         // column tile of the single products
 constexpr int kBnDual = 128;         // column tile of the dual product
 constexpr int kStagesWide = 4;
 constexpr int kStagesDual = 3;
+// The single products at C or W not a multiple of 384 (the upsample demo's
+// C 128, W 256): 128-column tiles, a two-stage ring (the depth is 2 or 4
+// steps of 64 there, so a deeper ring never fills) and two blocks a SM, so
+// one block's epilogue runs beside the other's products.
+constexpr int kBnNarrow = 128;
+constexpr int kStagesNarrow = 2;
+constexpr int kBlocksNarrow = 2;
 
 enum Epi { kAct = 0, kOut = 1, kGrad = 2, kDh = 3, kDx = 4, kHOut = 5, kKV = 6, kF32 = 7,
            kDy = 8 };
@@ -403,13 +410,16 @@ inline cudaError_t launch_colsum(const float* part, float* out, int segs, int pe
 
 // A kernel of one mlp_gemm instance; every such kernel has this signature
 // (GemmKernel; the maps a product does not use are copies of the used ones).
-#define MLP_GEMM_KERNEL(name, BN, TB, EPI, STAGES)                                           \
-  __global__ void __launch_bounds__(gecco::mlp::kGemmThreads, 1)                             \
+// MLP_GEMM_KERNEL_MB asks the compiler for MINB blocks a SM (registers
+// capped to fit them); MLP_GEMM_KERNEL is one block a SM.
+#define MLP_GEMM_KERNEL_MB(name, BN, TB, EPI, STAGES, MINB)                                  \
+  __global__ void __launch_bounds__(gecco::mlp::kGemmThreads, MINB)                          \
       name(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b, \
            const __grid_constant__ CUtensorMap tm_a2,                                        \
            const __grid_constant__ CUtensorMap tm_b2, const gecco::mlp::MlpEpi e) {          \
     gecco::mlp::mlp_gemm<BN, TB, EPI, STAGES>(&tm_a, &tm_b, &tm_a2, &tm_b2, e);              \
   }
+#define MLP_GEMM_KERNEL(name, BN, TB, EPI, STAGES) MLP_GEMM_KERNEL_MB(name, BN, TB, EPI, STAGES, 1)
 
 using GemmKernel = void (*)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
                             const CUtensorMap, const MlpEpi);
@@ -444,12 +454,15 @@ inline bool tmap(CUtensorMap* m, const void* base, long long rows, int cols, int
          CUDA_SUCCESS;
 }
 
-// The shapes both Hopper passes take: C and W multiples of 384 (the single
-// products' 192-column tiles and the weight gradients' 128-wide tiles),
-// N a multiple of the 128-row block.
+// The shapes both Hopper passes take: C and W multiples of 128 (the single
+// products' 128-column tiles, the dual product's and the weight gradients'),
+// N a multiple of the 128-row block; wide_tiles: where both are multiples
+// of 384, the single products take their 192-column instances.
 inline bool hopper_takes(int N, int C, int W) {
-  return C % 384 == 0 && W % 384 == 0 && N % kRows == 0;
+  return C % 128 == 0 && W % 128 == 0 && N % kRows == 0;
 }
+
+inline bool wide_tiles(int C, int W) { return C % 384 == 0 && W % 384 == 0; }
 
 }  // namespace mlp
 }  // namespace gecco

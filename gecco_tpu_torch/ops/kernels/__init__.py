@@ -18,7 +18,10 @@ have a SIMT body beside the Hopper one (``SIMT_BODIES``), counted in
 v2 and v2j bodies (``GECCO_POOL_BWD``) count theirs in ``.launches_v1``,
 ``.launches_v2`` and ``.launches_v2j`` (``folded_pool_ext_bwd_v1`` ...) where
 their Hopper body runs, and in ``.launches_v1_wmma`` ...
-(``folded_pool_ext_bwd_v1_wmma`` ...) where their WMMA body does."""
+(``folded_pool_ext_bwd_v1_wmma`` ...) where their WMMA body does. The MLP
+forward's narrow body (``csrc/mlp_narrow.cu``, C 128) counts its launches in
+``fused_mlp_residual.launches_narrow``, reported as
+``fused_mlp_residual_narrow``."""
 
 from gecco_tpu_torch.ops.kernels.folded_attention import (
     TWOPASS_BODIES,
@@ -61,6 +64,7 @@ F32_BODIES = tuple(fn for fn in TWO_BODIES if fn is not fused_unpool_mlp)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    fused_mlp_residual.launches_narrow = 0
     for fn in TWO_BODIES:
         fn.launches_wmma = 0
     for fn in SIMT_BODIES:
@@ -74,6 +78,7 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     counts = {fn.__name__: fn.launches for fn in KERNELS}
+    counts["fused_mlp_residual_narrow"] = fused_mlp_residual.launches_narrow
     counts.update({f"{fn.__name__}_wmma": fn.launches_wmma for fn in TWO_BODIES})
     counts.update({f"{fn.__name__}_simt": fn.launches_simt for fn in SIMT_BODIES})
     counts.update({f"{fn.__name__}_f32": fn.launches_f32 for fn in F32_BODIES})

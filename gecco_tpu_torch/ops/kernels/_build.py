@@ -35,6 +35,7 @@ KERNEL_SOURCES = (
     "unpool_bwd_wmma", "mlp_bwd_wmma", "pool_ext_bwd_v1", "pool_ext_bwd_v2", "hside_wmma",
     "pool_wmma", "pool_ext_bwd_twopass", "pool_bwd_wmma", "induced_attention_wmma",
     "induced_attention_bwd_wmma", "unpool_mlp_wmma", "projective_gather_simt", "f32_simt",
+    "mlp_narrow",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

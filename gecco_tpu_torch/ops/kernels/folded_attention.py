@@ -33,12 +33,16 @@ through the plain forward, as the twins' ``jax.vjp``) for CPU tensors:
   with its own max), plus the residual and the output's channel sums; the
   ``residual`` and ``prenorm`` flags turn the x term and the pre-norm off
   (the module-level unpool).
-- ``fused_mlp_residual`` (``csrc/mlp.cu``, WMMA body ``csrc/mlp_wmma.cu``;
-  backward ``csrc/mlp_bwd.cu``, WMMA body ``csrc/mlp_bwd_wmma.cu``):
-  pre-norm + Gaussian MLP + residual, plus the output's channel sums. The
-  Hopper bodies run each product as one pass over the rows with the
-  algebra in its epilogue (``csrc/mlp_hopper.cuh``), each with its plain
-  piece beside it (``_mlp_act_ref``, ``_mlp_out_ref``, ``_mlp_bwd_*_ref``).
+- ``fused_mlp_residual`` (``csrc/mlp.cu``, narrow body ``csrc/mlp_narrow.cu``,
+  WMMA body ``csrc/mlp_wmma.cu``; backward ``csrc/mlp_bwd.cu``, WMMA body
+  ``csrc/mlp_bwd_wmma.cu``): pre-norm + Gaussian MLP + residual, plus the
+  output's channel sums. The Hopper bodies run each product as one pass
+  over the rows with the algebra in its epilogue (``csrc/mlp_hopper.cuh``),
+  each with its plain piece beside it (``_mlp_act_ref``, ``_mlp_out_ref``,
+  ``_mlp_bwd_*_ref``); at C 128 (the upsample demo's width) the forward's
+  narrow body keeps both weights in shared memory and the hidden plane in
+  registers, one persistent block a SM (plain pieces
+  ``_mlp_narrow_tiles_ref``, ``_mlp_colsum_ref``).
 
 and a fourth runs the second and third as one launch:
 
@@ -82,7 +86,8 @@ backward has three more bodies, the JAX package's opt-in v1, v2 and v2j
 ``_POOL_BWD_ENV``) and counted in ``.launches_v1``, ``.launches_v2`` and
 ``.launches_v2j``. Each forward wrapper counts its kernel
 launches in ``.launches`` (the WMMA body's in ``.launches_wmma``); each
-backward has its own wrapper (``*_bwd``) and counters. As in the JAX
+backward has its own wrapper (``*_bwd``) and counters; the MLP forward's
+narrow body counts its launches in ``.launches_narrow``. As in the JAX
 package, the backward kernels take the incoming cotangent rounded to the
 activation dtype, and the small chains from the folded operands'
 gradients to the weights' (``dqf`` to ``dind2``/``dWk``; ``dkf``/``dvf``
@@ -2205,22 +2210,33 @@ def _mlp_out_ref(x, g, w2t, b2, n_valid=None) -> tuple:
 
 def _mlp_hopper_takes(n: int, c: int, w: int) -> bool:
     """The Hopper MLP bodies' shapes (csrc/mlp_hopper.cuh ``hopper_takes``,
-    which sees the padded N): C and W multiples of 384 (the single
-    products' 192-column tiles, the weight gradients' 128-wide ones), N of
-    the 128-row block once padded."""
-    return c % 384 == 0 and w % 384 == 0 and _n_pad(n) % 128 == 0
+    which sees the padded N): C and W multiples of 128 (the passes'
+    128-column tiles, 192-column ones where both are multiples of 384; the
+    weight gradients' 128-wide tiles), N of the 128-row block once padded."""
+    return c % 128 == 0 and w % 128 == 0 and _n_pad(n) % 128 == 0
+
+
+def _mlp_narrow_takes(n: int, c: int, w: int) -> bool:
+    """The narrow Hopper MLP forward's shapes (csrc/mlp_narrow.cu
+    ``narrow_takes``, which sees the padded N): C 128 and W 128 or 256, both
+    weights resident in shared memory beside a two-stage ring of x tiles."""
+    return c == 128 and w in (128, 256) and _n_pad(n) % 128 == 0
 
 
 def _mlp_body(b: int, n: int, c: int, w: int, dtype=_BF16) -> str:
     """Which body of ``fused_mlp_residual`` takes these shapes on the card:
     "f32" (``f32.mlp_fwd``, any shape) for fp32 operands; for bf16 ones
-    "hopper" (csrc/mlp.cu, TMA and wgmma: C % 384 == 0, W % 384 == 0;
-    the flagship's C 384 and the 8k width's C 768) where it can, else
-    "wmma" (csrc/mlp_wmma.cu: C % 16 == 0, W % 64 == 0 and a 64- or
-    32-point tile; the upsample demo's C 128); both take any N (padded).
-    Raises ValueError with both bodies' conditions otherwise."""
+    "narrow" (csrc/mlp_narrow.cu, TMA and wgmma with both weights resident:
+    C 128, W 128 or 256; the upsample demo's C 128), else "hopper"
+    (csrc/mlp.cu, TMA and wgmma passes: C % 128 == 0, W % 128 == 0; the
+    flagship's C 384 and the 8k width's C 768) where it can, else "wmma"
+    (csrc/mlp_wmma.cu: C % 16 == 0, W % 64 == 0 and a 64- or 32-point tile);
+    each takes any N (padded). Raises ValueError with the bodies'
+    conditions otherwise."""
     if dtype == _F32:
         return "f32"
+    if _mlp_narrow_takes(n, c, w):
+        return "narrow"
     if _mlp_hopper_takes(n, c, w):
         return "hopper"
     try:
@@ -2231,9 +2247,9 @@ def _mlp_body(b: int, n: int, c: int, w: int, dtype=_BF16) -> str:
     if c % 16 == 0 and w % 64 == 0 and tile:
         return "wmma"
     raise ValueError(
-        f"fused_mlp_residual: no CUDA body takes B={b}, N={n}, C={c}, W={w}: the Hopper body "
-        f"needs C % 384 == 0 and W % 384 == 0; the WMMA body C % 16 == 0, W % 64 == 0 and C "
-        f"<= 768")
+        f"fused_mlp_residual: no CUDA body takes B={b}, N={n}, C={c}, W={w}: the narrow body "
+        f"needs C 128 and W 128 or 256; the Hopper body C % 128 == 0 and W % 128 == 0; the "
+        f"WMMA body C % 16 == 0, W % 64 == 0 and C <= 768")
 
 
 def _mlp_launch(x, se, be, w1t, b1, w2t, b2):
@@ -2247,7 +2263,7 @@ def _mlp_launch(x, se, be, w1t, b1, w2t, b2):
     if body == "f32":
         fused_mlp_residual.launches_f32 += 1
         return f32.mlp_fwd(x, se, be, w1t, b1, w2t, b2)
-    run = _mlp_hopper if body == "hopper" else _mlp_wmma
+    run = {"narrow": _mlp_narrow, "hopper": _mlp_hopper, "wmma": _mlp_wmma}[body]
     out, sums = run(_pad_points(x, _n_pad(n)), se, be, w1t, b1, w2t, b2, n_valid=n)
     return _unpad(out, n), sums
 
@@ -2270,6 +2286,73 @@ def _mlp_hopper(x, se, be, w1t, b1, w2t, b2, mid: dict | None = None, n_valid=No
     if mid is not None:
         mid.update(y=y, g=g)
     return out, sums
+
+
+def _mlp_narrow(x, se, be, w1t, b1, w2t, b2, mid: dict | None = None, n_valid=None) -> tuple:
+    """The narrow Hopper body (csrc/mlp_narrow.cu) on x [B, N, C], N a
+    multiple of 128, whose points from ``n_valid`` on are padding (None:
+    none) -> (out, sums); ``mid``, where given, receives the tiles' column
+    sums ``part`` [B N / 128, 2, C] (``_mlp_narrow_tiles_ref``'s)."""
+    b, n, c = x.shape
+    w = w1t.shape[1]
+    dev = x.device
+    out = torch.empty_like(x)
+    sums = torch.empty((b, 2, c), dtype=_F32, device=dev)
+    part = torch.empty((b * n // 128, 2, c), dtype=_F32, device=dev)
+    launch("mlp_narrow", "mlp_narrow_launch", x, se, be, w1t, b1, w2t, b2, part, out, sums, b, n,
+           c, w, n if n_valid is None else n_valid)
+    fused_mlp_residual.launches_narrow += 1
+    if mid is not None:
+        mid.update(part=part)
+    return out, sums
+
+
+def _tile_sums(u: torch.Tensor) -> torch.Tensor:
+    """Column sums [T, C] of each 128-row tile of u [T * 128, C] in the
+    Hopper bodies' fixed order (csrc/mlp_hopper.cuh's epilogues): a row
+    group's rows r and r + 8, the shuffle tree over a warp's eight row
+    groups, then the eight warps in order."""
+    s = u.reshape(-1, 8, 2, 8, u.shape[-1])  # [tile, warp, r / r + 8, row group, C]
+    s = s[:, :, 0] + s[:, :, 1]
+    s = s[:, :, 0::2] + s[:, :, 1::2]
+    s = s[:, :, 0::2] + s[:, :, 1::2]
+    s = s[:, :, 0] + s[:, :, 1]
+    total = torch.zeros_like(s[:, 0])
+    for wp in range(8):
+        total = total + s[:, wp]
+    return total
+
+
+def _mlp_narrow_tiles_ref(x, se, be, w1t, b1, w2t, b2, n_valid=None) -> tuple:
+    """Plain version of ``mlp_narrow_kernel`` on x [B, N, C], N a multiple
+    of 128 -> (out in x's dtype, part [B N / 128, 2, C] fp32): y rounded to
+    x's dtype, g = bf16(exp(-(y @ w1t + b1)^2 / 2)), o = (g @ w2t + b2) + x,
+    and each 128-point tile's column sums of o and o^2 over the points
+    before ``n_valid`` in the kernel's order (``_tile_sums``)."""
+    b, n, c = x.shape
+    g = _mlp_act_ref(_prenormed(x, se, be).to(x.dtype), w1t, b1)
+    o = (torch.einsum("bnw,wc->bnc", g.float(), w2t.float()) + b2[None]) + x.float()
+    mask = _valid_rows(n, n_valid, x.device)
+    u = (o if mask is None else torch.where(mask, o, 0.0)).reshape(b * n, c)
+    return o.to(x.dtype), torch.stack([_tile_sums(u), _tile_sums(u * u)], dim=1)
+
+
+def _mlp_colsum_ref(part: torch.Tensor, segs: int) -> torch.Tensor:
+    """Plain version of ``mlp_colsum_kernel`` (csrc/mlp_hopper.cuh):
+    part [segs * per, sums, C] -> [segs, sums, C], each segment's rows
+    added in its order (eight lanes each summing every eighth row in turn,
+    then the lanes in order)."""
+    p = part.reshape(segs, -1, *part.shape[1:])
+    lanes = []
+    for k in range(8):
+        s = torch.zeros_like(p[:, 0])
+        for r in range(k, p.shape[1], 8):
+            s = s + p[:, r]
+        lanes.append(s)
+    total = torch.zeros_like(p[:, 0])
+    for s in lanes:
+        total = total + s
+    return total
 
 
 def _mlp_wmma(x, se, be, w1t, b1, w2t, b2, n_valid=None) -> tuple:
@@ -2312,6 +2395,7 @@ def fused_mlp_residual(x, se, be, w1t, b1, w2t, b2):
 
 
 fused_mlp_residual.launches = 0
+fused_mlp_residual.launches_narrow = 0
 fused_mlp_residual.launches_wmma = 0
 fused_mlp_residual.launches_f32 = 0
 
@@ -2361,11 +2445,11 @@ def _mlp_bwd_wgrad_ref(y, a, dh, gb) -> tuple:
 def _mlp_bwd_body(b: int, n: int, c: int, w: int, dtype=_BF16) -> str:
     """Which body of ``fused_mlp_residual_bwd`` takes these shapes on the
     card: "f32" (``f32.mlp_bwd``, any shape) for fp32 operands; for bf16
-    ones "hopper" (csrc/mlp_bwd.cu, TMA and wgmma: C % 384 == 0, W % 384
-    == 0; the flagship's C 384 and the 8k width's C 768) where it can, else
-    "wmma" (csrc/mlp_bwd_wmma.cu: C % 128 == 0, C <= 768, W % 64 == 0; the
-    upsample demo's C 128); both take any N (padded). Raises ValueError
-    with both bodies' conditions otherwise."""
+    ones "hopper" (csrc/mlp_bwd.cu, TMA and wgmma: C % 128 == 0, W % 128
+    == 0; the flagship's C 384, the 8k width's C 768 and the upsample
+    demo's C 128) where it can, else "wmma" (csrc/mlp_bwd_wmma.cu: C % 128
+    == 0, C <= 768, W % 64 == 0); both take any N (padded). Raises
+    ValueError with both bodies' conditions otherwise."""
     if dtype == _F32:
         return "f32"
     if _mlp_hopper_takes(n, c, w):
@@ -2374,7 +2458,7 @@ def _mlp_bwd_body(b: int, n: int, c: int, w: int, dtype=_BF16) -> str:
         return "wmma"
     raise ValueError(
         f"fused_mlp_residual_bwd: no CUDA body takes B={b}, N={n}, C={c}, W={w}: the Hopper "
-        f"body needs C % 384 == 0 and W % 384 == 0; the WMMA body C % 128 == 0, C <= 768 and "
+        f"body needs C % 128 == 0 and W % 128 == 0; the WMMA body C % 128 == 0, C <= 768 and "
         f"W % 64 == 0")
 
 

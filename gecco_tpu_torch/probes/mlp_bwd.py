@@ -14,9 +14,10 @@ drifted inputs, this holds each pass's outputs against its plain piece fed
 the kernel's own inputs to that pass (so a fault shows in the pass that
 makes it), and both bodies of both functions against the plain versions
 (the backward against autograd of the plain forward, nonzero sums
-cotangents); at the upsample demo's C 128 it holds the WMMA bodies, which
-take it. Every output of the Hopper backward must be the same bits in two
-calls. It times both bodies of each function in turns (40 calls each) on
+cotangents); at the upsample demo's C 128 the same, the backward's passes
+in their 128-column instances and the forward whole through its narrow
+body (``csrc/mlp_narrow.cu``, the switch's pick there). Every output of the
+Hopper backward must be the same bits in two calls. It times both bodies of each function in turns (40 calls each) on
 the ordinary operands and splits the Hopper bodies' device time by launch
 with ``torch.profiler``. It prints the card's name and power limit and one
 JSON line, and raises after printing if a check fails. Needs the card.
@@ -89,11 +90,12 @@ def fwd_passes(ops) -> dict:
             "sums": rel(sums, r_sums)}
 
 
-def whole(ops, g, gs, bodies) -> dict:
-    """Each body of both functions against the plain versions."""
+def whole(ops, g, gs, bodies, narrow=False) -> dict:
+    """Each body of both functions against the plain versions (with
+    ``narrow``, the forward's "hopper" body is the narrow one)."""
     want_f = fa._mlp_ref(*ops)
     want_b = fa._mlp_bwd_ref(*ops, g, gs)
-    runs = {"hopper": (fa._mlp_hopper, fa._mlp_bwd_hopper),
+    runs = {"hopper": (fa._mlp_narrow if narrow else fa._mlp_hopper, fa._mlp_bwd_hopper),
             "wmma": (fa._mlp_wmma, fa._mlp_bwd_wmma)}
     out = {}
     for body in bodies:
@@ -125,13 +127,14 @@ def main():
 
     fp32 = ("gp", "db2", "db1", "dse", "dbe", "dw1t", "dw2t", "sums")
     for width, (bb, bf, n, c, w) in SHAPES.items():
-        hopper = fa._mlp_body(bf, n, c, w) == "hopper"
-        assert hopper == (fa._mlp_bwd_body(bb, n, c, w) == "hopper"), width
+        hopper = fa._mlp_bwd_body(bb, n, c, w) == "hopper"
+        narrow = fa._mlp_body(bf, n, c, w) == "narrow"
+        assert hopper == (fa._mlp_body(bf, n, c, w) in ("hopper", "narrow")), width
         bodies = ("hopper", "wmma") if hopper else ("wmma",)
         for drift in (False, True):
             tag = f"{width}, {'drift' if drift else 'ordinary'}"
             ops, g, gs = operands(gen, bb, n, c, w, drift, dev)
-            rec = {"whole": whole(ops, g, gs, bodies)}
+            rec = {"whole": whole(ops, g, gs, bodies, narrow)}
             if hopper:
                 rec["passes"] = {**bwd_passes(ops, g, gs),
                                  **fwd_passes(operands(gen, bf, n, c, w, drift, dev)[0])}

@@ -1,7 +1,9 @@
 """Whether two source trees build the same machine code for the pool and
 unpool forwards' and backwards' flagship and 8k-width kernels, the unpool's
-fold, the rect attention's WMMA bodies, the megakernel's WMMA body and the
-projective gather's Hopper bodies.
+fold, the rect attention's WMMA bodies, the megakernel's WMMA body, the
+projective gather's Hopper bodies and every ``mlp_gemm`` instance of
+``csrc/mlp_hopper.cuh`` that predates its 128-column ones (the MLP's, the
+h-side's, the two-pass pool backward's and the resident pool backward's).
 
     python3 gecco_tpu_torch/probes/sass.py PARENT CHANGE
 
@@ -38,7 +40,8 @@ from pathlib import Path
 # kernels; both instances of the megakernel's WMMA body (64- and 32-point
 # tiles); the gather's Hopper forward and its backward's three kernels (the
 # SIMT bodies are templated on the element type since they took fp32, so
-# their code is new)
+# their code is new); the mlp_gemm kernels of the 192-column (and the dual
+# and 64-column) instances, by their names
 PAIRS = (
     ("pool_ext", "pool_ext", "17pool_chunk_kernelILi48ELi8ELb0E"),
     ("pool_ext", "pool_ext", "17pool_chunk_kernelILi48ELi8ELb1E"),
@@ -65,6 +68,17 @@ PAIRS = (
     *(("projective_gather", "projective_gather", name)
       for name in ("17gather_fwd_kernelE", "17gather_bin_kernelE", "19gather_pixel_kernelE",
                    "19gather_coord_kernelE")),
+    *(("mlp", "mlp", name) for name in ("14mlp_act_kernel", "14mlp_out_kernel")),
+    *(("mlp_bwd", "mlp_bwd", name)
+      for name in ("18mlp_bwd_act_kernel", "19mlp_bwd_grad_kernel", "17mlp_bwd_dh_kernel",
+                   "17mlp_bwd_dx_kernel")),
+    *(("hside", "hside", name)
+      for name in ("16hside_act_kernel", "16hside_out_kernel", "15hside_kv_kernel")),
+    *(("pool_ext_bwd_twopass", "pool_ext_bwd_twopass", name)
+      for name in ("16twopass_s_kernel", "18twopass_s64_kernel", "16twopass_v_kernel",
+                   "17twopass_dy_kernel")),
+    *(("pool_bwd", "pool_bwd", name)
+      for name in ("22layer_bwd_dpool_kernel", "19layer_bwd_dy_kernel")),
 )
 
 @functools.lru_cache(maxsize=None)

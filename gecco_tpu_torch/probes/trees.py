@@ -24,9 +24,9 @@ the flagship's (``demo_train_*``), each function through the body the
 tree's switches pick for it; (6) the device milliseconds per call
 (``torch.profiler``, 20 calls after 3) of the pool, h-side, unpool and
 MLP forwards at batch 64 and of the three folded backwards at batch 48,
-on operands drawn as ``chip_smoke.py`` draws them, of the pool and
-unpool forwards and backwards at the demo's width and batch 48
-(``*_demo``), and of the pool and unpool backwards with three heads at
+on operands drawn as ``chip_smoke.py`` draws them, of the pool, unpool
+and MLP forwards and backwards at the demo's width and batch 48
+(``*_demo``, each through the body the tree's switch picks), and of the pool and unpool backwards with three heads at
 the flagship's width and batch 48 (``*_heads3``). It prints one JSON line
 per tree and the card's name and power limit. Run by file path,
 not with ``-m``, so that each tree's package is the one imported. Needs
@@ -92,7 +92,8 @@ def measure(tree: str) -> dict:
     dd = cs.DEMO
     shape = (cs.DEMO_BATCH, dd["n_points"], dd["feature_dim"], dd["num_heads"],
              dd["num_inducers"])
-    picked = lambda name, body: name if body == "hopper" else f"{name}_wmma"
+    # a body's counter: the wrapper's own for "hopper", "<name>_<body>" else
+    picked = lambda name, body: name if body == "hopper" else f"{name}_{body}"
     names = (picked("folded_pool_ext", cs.fa._pool_ext_body(*shape)), "fused_h_side",
              picked("folded_unpool", cs.fa._unpool_body(*shape)),
              picked("fused_mlp_residual", cs.fa._mlp_body(*shape[:3], 2 * shape[2])))
@@ -134,6 +135,9 @@ def measure(tree: str) -> dict:
     db, dc, dh = cs.DEMO_BATCH, dd["feature_dim"], dd["num_heads"]
     dpool = cs.pool_operands(g, db, n, dc, dh, i, False, dev, dt)
     dunpool = cs.unpool_operands(g, db, n, dc, dh, i, False, dev, dt)
+    dmlp = cs.mlp_operands(g, db, n, dc, 2 * dc, False, dev, dt)
+    dmlp_b = cs.mlp_operands(g, tb, n, dc, 2 * dc, False, dev, dt)
+    dgg, dgs = (0.1 * r(tb, n, dc)).to(dt), 1e-3 * r(tb, 2, dc)
     # the backwards at the demo's width and with three heads (batch 48)
     bwd_cases = {}
     for key, (cc, hh) in (("demo", (dc, dh)), ("heads3", (c, 3))):
@@ -152,6 +156,8 @@ def measure(tree: str) -> dict:
         "fused_mlp_residual_bwd": lambda: fa.fused_mlp_residual_bwd(*bmlp, gg, gs),
         "folded_pool_ext_demo": lambda: fa.folded_pool_ext(*dpool, dh),
         "folded_unpool_demo": lambda: fa.folded_unpool(*dunpool, dh),
+        "fused_mlp_residual_demo": lambda: fa.fused_mlp_residual(*dmlp),
+        "fused_mlp_residual_bwd_demo": lambda: fa.fused_mlp_residual_bwd(*dmlp_b, dgg, dgs),
         **{f"{name}_{key}": fn for key, (ops, stats, uops, cots, hh) in bwd_cases.items()
            for name, fn in (
                ("folded_pool_ext_bwd",

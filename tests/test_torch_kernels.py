@@ -187,7 +187,7 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
     torch.autograd.backward([o.float().square().sum() for o in outs])
     assert kernels.launch_counts() == {
         "folded_pool_ext": 0, "fused_h_side": 0, "folded_unpool": 0, "fused_mlp_residual": 0,
-        "projective_gather": 0, "rect_attention_fwd": 0, "fused_unpool_mlp": 0,
+        "fused_mlp_residual_narrow": 0, "projective_gather": 0, "rect_attention_fwd": 0, "fused_unpool_mlp": 0,
         "folded_pool_layer": 0, "folded_pool_ext_bwd": 0, "folded_unpool_bwd": 0,
         "fused_mlp_residual_bwd": 0, "projective_gather_bwd": 0, "rect_attention_bwd": 0,
         "folded_pool_layer_bwd": 0, "folded_pool_ext_wmma": 0, "fused_h_side_wmma": 0,
@@ -656,19 +656,24 @@ def test_unpool_pieces_compose_to_the_plain_version(residual, prenorm, dtype):
      ("hopper", "hopper", "hopper")),  # the flagship
     ((2, 8192, 768, 16, 64), ("hopper", "hopper", "hopper"),
      ("hopper", "hopper", "hopper")),  # the 8k width
-    ((48, 2048, 128, 4, 64), ("hopper", "hopper", "wmma"),
-     ("hopper", "hopper", "wmma")),  # the demo's 3 x 128
+    ((48, 2048, 128, 4, 64), ("hopper", "hopper", "narrow"),
+     ("hopper", "hopper", "hopper")),  # the demo's 3 x 128: the MLP's narrow forward and
+    # its backward's 128-column passes
     ((48, 2048, 384, 3, 64), ("wmma", "wmma", "hopper"),
      ("hopper", "hopper", "hopper")),  # num_heads=3
     ((48, 2000, 384, 8, 64), ("hopper", "hopper", "hopper"),
      ("hopper", "hopper", "hopper")),  # the flagship at a ragged N (padded to 2048)
+    ((48, 2048, 256, 4, 64), ("hopper", "hopper", "hopper"),
+     ("wmma", "hopper", "hopper")),  # C 256: the MLP's 128-column passes both ways
+    ((48, 2048, 64, 4, 64), ("hopper", "hopper", "wmma"),
+     (None, None, None)),  # C 64: only the MLP forward's WMMA body takes it
     ((48, 2000, 100, 4, 64), (None, None, None), (None, None, None)),  # C % 16 != 0
-], ids=["flagship", "8k", "demo", "heads3", "ragged", "none"])
+], ids=["flagship", "8k", "demo", "heads3", "ragged", "C256", "C64", "none"])
 def test_body_switches_choose_by_shape(shape, bodies, bwd):
     """The pool, unpool and MLP forwards and backwards pick one of their
-    two CUDA bodies by shape alone, any point count taking the bodies of
-    its padded count, and a shape that neither takes raises ValueError
-    naming both bodies' conditions."""
+    CUDA bodies by shape alone, any point count taking the bodies of its
+    padded count, and a shape that none takes raises ValueError naming
+    the bodies' conditions."""
     b, n, c = shape[:3]
     mlp = (b, n, c, 2 * c)
     switches = ((tfa._pool_ext_body, shape), (tfa._unpool_body, shape), (tfa._mlp_body, mlp),
